@@ -23,16 +23,39 @@ repository's sources are not beside this script.  Otherwise, in order:
    kernels, and within 1e-3 of the output's largest magnitude of the
    sequential model computed with the plain versions (18 fp32 layers with
    reductions of up to 30976 terms summed in another order);
-6. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+6. LM serving kernels: holds ``flash_attention`` and ``ssd_scan`` against
+   their plain versions on the card at the LM main path's shapes in bf16
+   (granite-3-2b prefill: q [4,32,512,64], k/v [4,8,512,64], causal;
+   mamba2-130m prefill: x [4,512,24,64], B/C [4,512,128], chunk 64) and at
+   the reference tests' shapes in fp32 at the reference's tolerances (2e-4
+   attention, 2e-3 SSD), plus a ragged length, a sliding window, a
+   non-causal case, a ragged p tile and strided inputs; times the kernel,
+   the plain version and (attention) SDPA, and computes each bound;
+7. drives the LM main path — ``launch.serve.serve`` at full width on
+   ``cuda``, bf16, batch 4, prompt 512, 32 generated tokens — for
+   granite-3-2b and for mamba2-130m, every launch count set to 0 just
+   before each and read just after; fails if the path's kernel never
+   launched or the tokens are out of range; then times a warm prefill and
+   warm decode steps on the host clock and prints a profiler breakdown
+   (device time by kernel, busy share of the wall) of one prefill and of
+   four decode steps;
+8. holds each LM path against the same path on the plain versions
+   (``ops.flash_attention`` / ``ops.ssd_scan`` swapped here, and only
+   here): prefill plus 4 teacher-forced decode steps on the kernel path's
+   tokens, logits compared relative to the largest |logit|, in bf16 and
+   with the same weights in fp32;
+9. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +63,14 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))  # the port, from this checkout
 
-from repro_torch.kernels import build, im2col_conv
+from repro_torch.configs import get_config
+from repro_torch.kernels import build, im2col_conv, ops
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.launch.serve import make_prompt, serve
 from repro_torch.launch.serve_cnn import BATCH, serve_cnn
+from repro_torch.models import transformer
+from repro_torch.models.lm_common import init_params
 from repro_torch.models.cnn import synthnet_specs
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
 from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
@@ -50,6 +79,21 @@ from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
 KERNEL_TOL = 3e-4
 #: pipelined-vs-plain tolerance over the 18-layer chain, relative to max |output|
 CHAIN_TOL = 1e-3
+#: dense bf16 tensor-core peak of the H100 SXM (NVIDIA's data sheet)
+PEAK_BF16_FLOPS = 989e12
+#: kernel-vs-plain in fp32: the reference's kernel-test tolerances
+ATTN_TOL, SSD_TOL = 2e-4, 2e-3
+#: kernel-vs-plain in bf16, max |kernel - plain| over max |plain|: both keep
+#: fp32 inside and differ by where the output (and, for attention, p) is
+#: rounded to bf16, 2^-8 relative each, so 1e-2 leaves about 2.5 roundings
+BF16_REL_TOL = 1e-2
+#: LM logits, kernel path against plain path, relative to max |logit|: fp32
+#: differs only by summation order through 24-40 layers; bf16 by the
+#: roundings above at every layer, carried through the residual stream
+LM_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+#: the LM main path: models, and batch, prompt and generated tokens
+LM_MODELS = {"granite-3-2b": "flash_attention", "mamba2-130m": "ssd_scan"}
+LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -143,7 +187,266 @@ def check_conv(gen: torch.Generator) -> dict:
     }
 
 
+def _bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _agree(name: str, case, got: torch.Tensor, want: torch.Tensor, tol: float | None) -> float:
+    """allclose at ``tol`` (fp32 inputs); with ``tol=None`` (bf16 inputs) the
+    max error within BF16_REL_TOL of max |want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if tol is not None:
+        ok = torch.allclose(got, want, rtol=tol, atol=tol)
+    else:
+        ok = err <= BF16_REL_TOL * want.abs().max().item()
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its plain version at {case}: max abs err {err}")
+    return err
+
+
+def check_flash(gen: torch.Generator) -> dict:
+    """Phase 6 for ``flash_attention``: parity everywhere, times at granite's prefill."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    main = dict(b=4, h=32, kvh=8, s=512, d=64, dtype=bf16, causal=True, window=0)
+    cases = [main] + [
+        dict(b=2, h=h, kvh=kvh, s=s, d=32, dtype=f32, causal=c, window=0)  # tests/test_kernels.py grid
+        for c in (True, False) for h, kvh in ((4, 4), (4, 2), (8, 1)) for s in (64, 128)
+    ] + [
+        dict(b=2, h=4, kvh=2, s=200, d=64, dtype=f32, causal=True, window=0),  # ragged S
+        dict(b=2, h=4, kvh=2, s=100, d=64, dtype=f32, causal=True, window=16),  # window
+        dict(b=1, h=4, kvh=4, s=77, d=128, dtype=f32, causal=False, window=9),  # non-causal window, D 128
+        dict(b=2, h=8, kvh=2, s=300, d=128, dtype=bf16, causal=True, window=50),  # bf16 ragged window
+        dict(b=4, h=32, kvh=8, s=512, d=64, dtype=f32, causal=True, window=0),  # main shape, fp32
+    ]
+    row = None
+    max_err = 0.0
+    for case in cases:
+        b, h, kvh, s, d, dt = (case[k] for k in ("b", "h", "kvh", "s", "d", "dtype"))
+        q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)  # the model's layout
+        k = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
+        kw = dict(causal=case["causal"], window=case["window"])
+        y = fa.flash_attention(q, k, v, **kw)
+        yp = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        desc = {**case, "dtype": str(dt).removeprefix("torch.")}
+        err = _agree("flash_attention", desc, y, yp, ATTN_TOL if dt == f32 else None)
+        max_err = max(max_err, err)
+        print(f"[check] flash_attention {json.dumps({**desc, 'max_abs_err': err, 'max_abs_plain': yp.float().abs().max().item()})}")
+        if case is main:
+            pairs = s * (s + 1) // 2
+            flops = 4.0 * b * h * d * pairs
+            nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + y.numel())
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            qc = q.contiguous()
+            row = dict(
+                ms=_time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                plain_ms=_time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw)),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(qc, k, v, is_causal=True, enable_gqa=True)),
+                bound_ms=bound_ms, bound_by=bound_by,
+            )
+            print(f"[check] flash_attention main shape: {json.dumps({**row, 'flops': flops, 'bytes': nbytes})}")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:64",
+        "max_abs_err": max_err, **row,
+    }
+
+
+def check_ssd(gen: torch.Generator) -> dict:
+    """Phase 6 for ``ssd_scan``: parity everywhere, times at mamba2's prefill."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    main = dict(b=4, l=512, h=24, p=64, n=128, chunk=64, dtype=bf16, strided=True)
+    cases = [main] + [
+        dict(b=2, l=128, h=h, p=p, n=n, chunk=c, dtype=f32, strided=False)  # tests/test_kernels.py grid
+        for c in (16, 32) for h, p, n in ((2, 16, 8), (3, 8, 16))
+    ] + [
+        dict(b=2, l=256, h=3, p=100, n=32, chunk=64, dtype=f32, strided=False),  # ragged p tile
+        dict(b=2, l=64, h=4, p=16, n=16, chunk=8, dtype=f32, strided=True),  # mamba2 smoke shape
+        dict(b=4, l=512, h=24, p=64, n=128, chunk=64, dtype=f32, strided=False),  # main shape, fp32
+    ]
+    row = None
+    max_err = 0.0
+    for case in cases:
+        b, l, h, p, n, chunk, dt = (case[k] for k in ("b", "l", "h", "p", "n", "chunk", "dtype"))
+        if case["strided"]:  # x, B, C as slices of one projection, as ssd_block passes them
+            proj = torch.randn((b, l, h * p + 2 * n), generator=gen, device="cuda").to(dt)
+            x, B, C = proj[..., : h * p].reshape(b, l, h, p), proj[..., h * p : h * p + n], proj[..., h * p + n :]
+        else:
+            x = torch.randn((b, l, h, p), generator=gen, device="cuda").to(dt)
+            B = torch.randn((b, l, n), generator=gen, device="cuda").to(dt)
+            C = torch.randn((b, l, n), generator=gen, device="cuda").to(dt)
+        dtt = F.softplus(torch.randn((b, l, h), generator=gen, device="cuda"))
+        A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device="cuda"))
+        y, st = ssd.ssd_scan(x, dtt, A, B, C, chunk=chunk)
+        yp, stp = ssd.ssd_scan_plain(x, dtt, A, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        desc = {**case, "dtype": str(dt).removeprefix("torch.")}
+        tol = SSD_TOL if dt == f32 else None
+        err = max(_agree("ssd_scan", desc, y, yp, tol), _agree("ssd_scan (state)", desc, st, stp, tol))
+        max_err = max(max_err, err)
+        print(f"[check] ssd_scan {json.dumps({**desc, 'max_abs_err': err, 'max_abs_plain': yp.float().abs().max().item()})}")
+        if case is main:
+            nc = l // chunk
+            tri = chunk * (chunk + 1) // 2
+            # C.B^T once per (batch, chunk) on the lower triangle; per (batch, head, chunk) the
+            # masked product on the triangle, the carried state's output (not for the first
+            # chunk, whose state is zero) and the state update
+            flops = 2.0 * b * nc * n * tri + 2.0 * b * h * (nc * p * tri + (nc - 1) * chunk * n * p + nc * chunk * n * p)
+            esz = x.element_size()
+            nbytes = esz * (x.numel() + B.numel() + C.numel() + y.numel()) + 4.0 * (dtt.numel() + A.numel() + st.numel())
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            row = dict(
+                ms=_time_ms(lambda: ssd.ssd_scan(x, dtt, A, B, C, chunk=chunk)),
+                plain_ms=_time_ms(lambda: ssd.ssd_scan_plain(x, dtt, A, B, C, chunk=chunk)),
+                library_ms=None,  # no single PyTorch call computes SSD
+                bound_ms=bound_ms, bound_by=bound_by,
+            )
+            print(f"[check] ssd_scan main shape: {json.dumps({**row, 'flops': flops, 'bytes': nbytes})}")
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:59",
+        "max_abs_err": max_err, **row,
+    }
+
+
+def _kernel_table(prof, wall_s: float) -> dict:
+    """Device time by kernel from a profiler trace: the top kernels, sums by
+    kind, and the device's busy share of ``wall_s``."""
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+
+    def kind(name: str) -> str:
+        if "flash_fwd_kernel" in name or "ssd_scan_kernel" in name:
+            return "port kernel"
+        return "matmul" if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")) else "other"
+
+    kinds: dict[str, float] = {}
+    for name, ms, _ in rows:
+        kinds[kind(name)] = kinds.get(kind(name), 0.0) + ms
+    return {
+        "wall_ms": wall_s * 1e3,
+        "device_ms": busy,
+        "kernel_calls": sum(r[2] for r in rows),
+        "busy_share": busy / (wall_s * 1e3) if busy else "not measured",
+        "by_kind_ms": kinds,
+        "top": [{"kernel": n[:60], "ms": ms, "calls": c} for n, ms, c in rows[:6]],
+    }
+
+
+@torch.inference_mode()
+def _time_lm(arch: str, cfg, params, prompt: torch.Tensor) -> None:
+    """Warm prefill and decode times of the kernel path on the host clock
+    (around ``torch.cuda.synchronize()``), then one profiled prefill and
+    four profiled decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def prefill():
+        return transformer.prefill_step(cfg, params, {"tokens": prompt}, max_len=prompt.shape[1] + LM_GEN)
+
+    def decode(logits, cache, steps):
+        for _ in range(steps):
+            logits, cache = transformer.serve_step(cfg, params, cache, torch.argmax(logits, -1)[:, None])
+        return logits, cache
+
+    prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    logits, cache = decode(logits, cache, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = decode(logits, cache, 8)
+    torch.cuda.synchronize()
+    t_step = (time.perf_counter() - t0) / 8
+    print(f"[lm] {arch} warm: prefill {t_prefill * 1e3:.3f} ms, decode step {t_step * 1e3:.3f} ms "
+          f"({LM_BATCH / t_step:.1f} tokens/s over the batch)")
+    for what, run in (("prefill", lambda: prefill()), ("decode x4", lambda: decode(logits, cache, 4))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"[lm] {arch} profile {what}: {json.dumps(_kernel_table(prof, wall))}")
+
+
+def _cast(params: dict, dt: torch.dtype) -> dict:
+    """The parameter tree with its bf16 leaves in ``dt`` (norm scales stay fp32)."""
+    return {k: _cast(v, dt) if isinstance(v, dict) else (v.to(dt) if v.dtype == torch.bfloat16 else v)
+            for k, v in params.items()}
+
+
+@torch.inference_mode()
+def _forced_logits(cfg, params, prompt: torch.Tensor, forced: torch.Tensor) -> torch.Tensor:
+    """Prefill logits, then one per teacher-forced decode step: [b, 1 + steps, vocab]."""
+    logits, cache = transformer.prefill_step(cfg, params, {"tokens": prompt}, max_len=prompt.shape[1] + LM_GEN)
+    out = [logits]
+    for t in range(forced.shape[1]):
+        logits, cache = transformer.serve_step(cfg, params, cache, forced[:, t : t + 1])
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def drive_lm(arch: str, kernel: str) -> int:
+    """Phases 7-8 for one model: the served path, then kernels against plain."""
+    cfg = get_config(arch)
+    for mod in (im2col_conv, fa, ssd):
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"conv2d_im2col": im2col_conv.launches, "flash_attention": fa.launches, "ssd_scan": ssd.launches}
+    tokens = res["tokens"]
+    print(f"[lm] {arch}: prefill_s {res['prefill_s']:.6f}, decode_tok_per_s {res['decode_tok_per_s']:.3f}, "
+          f"wall {wall:.1f} s (weights drawn on the card included), launches {launches}, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches[kernel] == 0:
+        raise RuntimeError(f"kernel {kernel} never launched on the {arch} serving path")
+    if tuple(tokens.shape) != (LM_BATCH, LM_GEN) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
+        raise RuntimeError(f"{arch}: bad tokens {tuple(tokens.shape)} in [{int(tokens.min())}, {int(tokens.max())}]")
+
+    # the same weights and prompt, kernel path against plain path, teacher-forced on the served tokens
+    prompt = make_prompt(cfg, LM_BATCH, LM_PROMPT, 0, "cuda")
+    forced = tokens[:, :LM_FORCED]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    _time_lm(arch, cfg, params, prompt)
+    for dt in (torch.bfloat16, torch.float32):
+        c, p = dataclasses.replace(cfg, dtype=dt), _cast(params, dt)
+        got = _forced_logits(c, p, prompt, forced)
+        with mock.patch.object(ops, "flash_attention", fa.flash_attention_plain), \
+                mock.patch.object(ops, "ssd_scan", ssd.ssd_scan_plain):
+            want = _forced_logits(c, p, prompt, forced)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise RuntimeError(f"{arch} {dt}: logits not finite")
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        print(f"[lm] {arch} {str(dt).removeprefix('torch.')}: logits {tuple(got.shape)} kernel vs plain max abs err "
+              f"{err:.3e}, max |logit| {scale:.3e} (relative {err / scale:.3e}, tolerance {LM_TOL[dt]}); "
+              f"argmax agreement {same:.4f}")
+        if dt == torch.bfloat16:
+            served = (got[:, : LM_FORCED + 1].argmax(-1) == tokens[:, : LM_FORCED + 1]).float().mean().item()
+            print(f"[lm] {arch}: teacher-forced kernel path reproduces the served tokens at {served:.4f} of positions")
+        if not scale > 0 or err > LM_TOL[dt] * scale:
+            raise RuntimeError(f"{arch} {dt}: kernel path disagrees with the plain path: {err} > {LM_TOL[dt]} * {scale}")
+        del p, got, want
+    del params
+    torch.cuda.empty_cache()
+    return launches[kernel]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -208,7 +511,17 @@ def main() -> int:
           f"max |output| {scale:.3e}")
     if not scale > 0 or err > CHAIN_TOL * scale:
         raise RuntimeError(f"pipelined output disagrees with the plain model: {err} > {CHAIN_TOL} * {scale}")
+    del res, model, out, seq, plain
+    torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    kernels["flash_attention"] = check_flash(gen)
+    kernels["ssd_scan"] = check_ssd(gen)
+    print(f"[check] LM kernels done in {time.perf_counter() - t0:.1f} s")
+    for arch, kernel in LM_MODELS.items():
+        kernels[kernel]["launches"] = drive_lm(arch, kernel)
+
+    print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

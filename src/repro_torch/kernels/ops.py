@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
 from . import im2col_conv
+from . import ssd_scan as _ssd
 
 
 def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
@@ -19,3 +21,24 @@ def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch
     if x.device.type == "cpu":
         return im2col_conv.conv2d_im2col_plain(x, w, stride=stride)
     raise ValueError(f"no conv2d_im2col for device {x.device}")
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """Attention. q: [B, H, S, D]; k, v: [B, KVH, S, D] -> [B, H, S, D]."""
+    if q.is_cuda:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    raise ValueError(f"no flash_attention for device {q.device}")
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD. x: [b, l, h, p]; dt: [b, l, h]; A: [h]; B, C: [b, l, n]
+    -> (y [b, l, h, p], final state [b, h, p, n] fp32)."""
+    if x.is_cuda:
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    raise ValueError(f"no ssd_scan for device {x.device}")

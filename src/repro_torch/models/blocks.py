@@ -1,0 +1,194 @@
+"""Forward blocks of the LM path: GQA attention, dense FFN, Mamba2 SSD.
+
+Port of ``repro/models/blocks.py`` for the block kinds this slice serves
+(``attn`` without experts, and ``ssd``).  Every function takes the per-layer
+parameter slice (views of the ``[L, ...]`` stacks) and keeps the reference's
+``[b, s, h, d]`` layouts.
+
+Prefill attention runs on :func:`repro_torch.kernels.ops.flash_attention`
+and the prefill SSD scan on :func:`repro_torch.kernels.ops.ssd_scan`, both
+reached through the ``ops`` module attribute: a CUDA tensor launches the
+hand-written kernel, a CPU tensor runs its plain version.  One-token decode
+(:func:`attention_decode`, :func:`ssd_decode`) is plain PyTorch, as the
+reference computes it outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .lm_common import LMConfig, rms_norm, rotary
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _qkv(cfg: LMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return rotary(q, positions), rotary(k, positions), v
+
+
+def _sdpa(cfg: LMConfig, q, k, v, *, causal: bool, window: int = 0) -> torch.Tensor:
+    """Softmax attention with GQA head grouping over the whole sequence.
+
+    q: [b, s, h, d]; k/v: [b, s, kvh, d] -> [b, s, h·d].  ``window``:
+    sliding-window size (0 = full).  The flash kernel takes the tensors as
+    transposed ``[b, h, s, d]`` views and writes its output in q's layout,
+    so nothing is copied; it replaces both the reference's ``attn_q_block``
+    chunking and its ``attn_repeat_kv`` option, neither of which changes the
+    result.  Scores are always fp32 (the reference's default
+    ``attn_fp32_scores``).
+    """
+    if not cfg.attn_fp32_scores:
+        raise NotImplementedError("attn_fp32_scores=False (bf16 softmax) is not ported; the kernel keeps fp32 scores")
+    b, s, h, d = q.shape
+    if k.shape[1] != s:
+        raise NotImplementedError("attention over a key length other than the query's is not on this path")
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2).reshape(b, s, h * d)
+
+
+def attention(cfg: LMConfig, p: dict, x, positions, *, causal: bool = True, window: int = 0,
+              return_kv: bool = False):
+    """Full-sequence (prefill) attention sublayer with residual.
+
+    ``return_kv=True`` also returns the rotated K and V panels, which
+    prefill writes into the decode cache.
+    """
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, positions)
+    o = _sdpa(cfg, q, k, v, causal=causal, window=window)
+    y = x + o @ p["wo"]
+    if return_kv:
+        return y, k, v
+    return y
+
+
+def attention_decode(cfg: LMConfig, p: dict, x, cache_k, cache_v, cache_pos, index: int, *, window: int = 0):
+    """One-token decode against a ring-buffer KV cache.
+
+    cache_[kv]: [b, W, kvh, hd]; cache_pos: [W] absolute position stored
+    per slot (-1 = empty).  With full attention W = max_len and the ring is
+    an append cache; with a sliding window it is a true ring.  Unlike the
+    reference, which returns new arrays, the token's K, V and position are
+    written into the given tensors in place; they are returned as well:
+    (y, cache_k, cache_v, cache_pos).
+    """
+    b = x.shape[0]
+    W = cache_k.shape[1]
+    pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, pos)
+    slot = index % W
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    cache_pos[slot] = index
+    seen = (cache_pos >= 0) & (cache_pos <= index)
+    if window:
+        seen &= cache_pos > index - window
+    d = cfg.hd
+    group = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, 1, cfg.n_kv_heads, group, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.to(q.dtype)).float() / math.sqrt(d)
+    scores = scores.masked_fill(~seen, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.to(q.dtype)).reshape(b, 1, cfg.q_dim)
+    return x + o @ p["wo"], cache_k, cache_v, cache_pos
+
+
+# ---------------------------------------------------------------------------
+# FFN (dense)
+# ---------------------------------------------------------------------------
+
+
+def dense_ffn(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.ffn_kind == "relu2":
+        u = torch.relu(h @ p["w_in"])
+        return x + (u * u) @ p["w_out"]  # squared-ReLU (nemotron)
+    g = F.silu(h @ p["w_gate"])
+    u = h @ p["w_up"]
+    return x + (g * u) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD
+# ---------------------------------------------------------------------------
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, x: [b, l, ch], w: [K, ch]."""
+    K = w.shape[0]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    return sum(xp[:, i : i + x.shape[1], :] * w[i] for i in range(K))
+
+
+def ssd_block(cfg: LMConfig, p: dict, x: torch.Tensor, return_state: bool = False):
+    """Mamba2 block (full sequence) with residual.
+
+    ``return_state=True`` also returns (ssm_state [b, h, p, n] in x's type,
+    conv_tail [b, 3, di+2n]) for the prefill -> decode hand-off.  The scan
+    runs on ``ops.ssd_scan``, which returns the final state with the output.
+    """
+    b, s, d = x.shape
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    hin = rms_norm(x, p["ln"], cfg.norm_eps)
+    zxbcdt = hin @ p["in_proj"]
+    z, xbc_raw, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
+    xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"]))
+    xs, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # [b, s, h]
+    A = -torch.exp(p["A_log"])  # [h]
+    xh = xs.reshape(b, s, h, cfg.ssm_head_dim)
+    y, state = ops.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
+    y = y + xh * p["D"][None, None, :, None].to(x.dtype)
+    y = y.reshape(b, s, di) * F.silu(z)
+    y = rms_norm(y, p["gate_ln"], cfg.norm_eps)
+    out = x + y @ p["out_proj"]
+    if return_state:
+        return out, state.to(x.dtype), xbc_raw[:, -3:, :]
+    return out
+
+
+def ssd_decode(cfg: LMConfig, p: dict, x, ssm_state, conv_state):
+    """One-token SSD decode.
+
+    x: [b, 1, d]; ssm_state: [b, h, p, n]; conv_state: [b, K-1, di+2n].
+    Returns new (y, ssm_state', conv_state'), the state updated in x's type.
+    """
+    b = x.shape[0]
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    hin = rms_norm(x, p["ln"], cfg.norm_eps)
+    zxbcdt = hin @ p["in_proj"]
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
+    full = torch.cat([conv_state, xbc], dim=1)  # [b, K, ch]
+    xbc_t = F.silu(torch.einsum("bkc,kc->bc", full, p["conv_w"]))[:, None, :]
+    conv_state = full[:, 1:, :]
+    xs, B, C = torch.split(xbc_t, [di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]  # [b, h]
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt * A)  # [b, h]
+    xh = xs.reshape(b, h, cfg.ssm_head_dim)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt.to(x.dtype), B[:, 0], xh)
+    ssm_state = ssm_state * dA[..., None, None].to(x.dtype) + dBx
+    y = torch.einsum("bhpn,bn->bhp", ssm_state, C[:, 0])
+    y = y + xh * p["D"][None, :, None].to(x.dtype)
+    y = y.reshape(b, 1, di) * F.silu(z)
+    y = rms_norm(y, p["gate_ln"], cfg.norm_eps)
+    return x + y @ p["out_proj"], ssm_state, conv_state

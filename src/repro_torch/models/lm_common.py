@@ -1,0 +1,335 @@
+"""Shared LM machinery of the port: config, parameter trees, small ops.
+
+Port of ``repro/models/lm_common.py``.  :class:`LMConfig` keeps every field
+and property of the reference, with torch dtypes (``dtype=torch.bfloat16``,
+``accum_dtype=torch.float32``).  Parameters are a plain dict with the
+reference's keys, stacked over layers (``[L, ...]`` leading axis); the layer
+loop is a Python loop over views of them.
+
+The parameter tree is described once, by :func:`param_spec` (shape, init
+rule and dtype of every leaf); :func:`init_params` draws it from a
+``torch.Generator`` with the reference's ``_dense`` scaling, and
+:func:`params_from_numpy` loads the JAX package's arrays into it.  A
+``torch.Generator`` cannot reproduce ``jax.random``, so weights that must
+match the reference cross as numpy.
+
+Left out: ``param_shardings``, ``dist_context`` and the ``cstr_*``
+activation constraints.  They are GSPMD layout hints for a TPU mesh and do
+nothing on one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# Config
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    ffn_kind: str = "swiglu"  # swiglu | relu2
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 64
+    #: "attn" for pure transformers, "ssd" for mamba2, "hybrid" for zamba2
+    block_kind: str = "attn"
+    #: hybrid: apply the shared attention block after every k-th SSD layer
+    shared_attn_every: int = 6
+    # enc-dec (whisper)
+    enc_layers: int = 0
+    enc_frames: int = 0
+    max_decoder_len: int = 0  # whisper caps self-attn context at 448
+    # VLM
+    n_patches: int = 0  # internvl: patch embeddings prepended (stub frontend)
+    sliding_window: int = 0  # 0 => full attention
+    attn_q_block: int = 256  # reference's q-chunk of blockwise attention (the flash kernel replaces it)
+    loss_chunk: int = 512  # chunked-xent sequence chunk
+    scan_unroll: bool = False  # reference dry-run knob; no effect here
+    # --- perf-iteration knobs of the reference ---
+    sp_residuals: bool = True
+    attn_fp32_scores: bool = True
+    accum_dtype: Any = torch.float32
+    attn_repeat_kv: bool = False  # the flash kernel maps q-heads to kv-heads itself
+    decode_block: int = 1
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    remat: str = "full"  # full | none
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.hd
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.hd
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Total parameter count N, from the shapes of :func:`param_spec`."""
+        return sum(math.prod(leaf.shape) for leaf in _leaves(param_spec(self)))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top_k + shared only)."""
+        total = self.param_count()
+        if not self.is_moe:
+            return total
+        per_expert = _ffn_param_count(self)
+        inactive = (self.n_experts - self.top_k) * per_expert * self.n_layers
+        return total - inactive
+
+
+def _ffn_param_count(cfg: LMConfig) -> int:
+    mats = 3 if cfg.ffn_kind == "swiglu" else 2
+    return mats * cfg.d_model * cfg.d_ff
+
+
+# ---------------------------------------------------------------------------
+# Parameter tree (stacked over layers)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """One parameter: ``init`` is "dense" (N(0,1) / sqrt(scale)), "ones" or
+    "zeros", as the reference's ``_dense`` / ``jnp.ones`` / ``jnp.zeros``."""
+
+    shape: tuple[int, ...]
+    init: str
+    dtype: Any
+    scale: int = 1
+
+
+def _dense(shape, scale, dtype) -> Leaf:
+    return Leaf(tuple(shape), "dense", dtype, scale)
+
+
+def _ones(shape) -> Leaf:
+    return Leaf(tuple(shape), "ones", torch.float32)
+
+
+def _zeros(shape, dtype) -> Leaf:
+    return Leaf(tuple(shape), "zeros", dtype)
+
+
+def _attn_spec(cfg: LMConfig, L: int, dtype) -> dict:
+    d, q, kv, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.hd
+    p = {
+        "wq": _dense((L, d, q), d, dtype),
+        "wk": _dense((L, d, kv), d, dtype),
+        "wv": _dense((L, d, kv), d, dtype),
+        "wo": _dense((L, q, d), q, dtype),
+        "ln1": _ones((L, d)),
+    }
+    if cfg.qkv_bias:
+        p.update(bq=_zeros((L, q), dtype), bk=_zeros((L, kv), dtype), bv=_zeros((L, kv), dtype))
+    if cfg.qk_norm:
+        p.update(q_norm=_ones((L, hd)), k_norm=_ones((L, hd)))
+    return p
+
+
+def _ffn_spec(cfg: LMConfig, L: int, dtype) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.is_moe:
+        E = cfg.n_experts
+        p = {
+            "router": _dense((L, d, E), d, torch.float32),
+            "we_gate": _dense((L, E, d, f), d, dtype),
+            "we_up": _dense((L, E, d, f), d, dtype),
+            "we_down": _dense((L, E, f, d), f, dtype),
+            "ln2": _ones((L, d)),
+        }
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            p.update(
+                ws_gate=_dense((L, d, fs), d, dtype),
+                ws_up=_dense((L, d, fs), d, dtype),
+                ws_down=_dense((L, fs, d), f, dtype),
+            )
+        return p
+    if cfg.ffn_kind == "swiglu":
+        return {
+            "w_gate": _dense((L, d, f), d, dtype),
+            "w_up": _dense((L, d, f), d, dtype),
+            "w_down": _dense((L, f, d), f, dtype),
+            "ln2": _ones((L, d)),
+        }
+    if cfg.ffn_kind == "relu2":
+        return {"w_in": _dense((L, d, f), d, dtype), "w_out": _dense((L, f, d), f, dtype), "ln2": _ones((L, d))}
+    raise ValueError(cfg.ffn_kind)
+
+
+def _ssd_spec(cfg: LMConfig, L: int, dtype) -> dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    # in_proj emits [z (di), x (di), B (n), C (n), dt (h)]
+    return {
+        "in_proj": _dense((L, d, 2 * di + 2 * n + h), d, dtype),
+        "conv_w": _dense((L, 4, di + 2 * n), 4, dtype),  # causal depthwise conv
+        "A_log": _zeros((L, h), torch.float32),
+        "D": _ones((L, h)),
+        "dt_bias": _zeros((L, h), torch.float32),
+        "out_proj": _dense((L, di, d), di, dtype),
+        "ln": _ones((L, d)),
+        "gate_ln": _ones((L, di)),
+    }
+
+
+def param_spec(cfg: LMConfig) -> dict:
+    """The parameter tree of any supported architecture, as :class:`Leaf`s:
+    the keys, shapes and dtypes of the reference's ``init_params``."""
+    dtype = cfg.dtype
+    p: dict[str, Any] = {
+        "embed": _dense((cfg.vocab, cfg.d_model), cfg.d_model, dtype),
+        "ln_f": _ones((cfg.d_model,)),
+        "unembed": _dense((cfg.d_model, cfg.vocab), cfg.d_model, dtype),
+    }
+    if cfg.block_kind == "attn":
+        p["blocks"] = {**_attn_spec(cfg, cfg.n_layers, dtype), **_ffn_spec(cfg, cfg.n_layers, dtype)}
+    elif cfg.block_kind == "ssd":
+        p["blocks"] = _ssd_spec(cfg, cfg.n_layers, dtype)
+    elif cfg.block_kind == "hybrid":
+        p["blocks"] = _ssd_spec(cfg, cfg.n_layers, dtype)
+        shared_cfg = dataclasses.replace(cfg, qkv_bias=False, qk_norm=False, n_experts=0, ffn_kind="swiglu")
+        p["shared"] = {**_attn_spec(shared_cfg, 1, dtype), **_ffn_spec(shared_cfg, 1, dtype)}
+    else:
+        raise ValueError(cfg.block_kind)
+    if cfg.is_encdec:
+        enc_cfg = dataclasses.replace(cfg, n_experts=0)
+        p["enc_blocks"] = {**_attn_spec(enc_cfg, cfg.enc_layers, dtype), **_ffn_spec(enc_cfg, cfg.enc_layers, dtype)}
+        p["enc_ln_f"] = _ones((cfg.d_model,))
+        d, q, kv, L = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.n_layers
+        p["cross"] = {
+            "wq": _dense((L, d, q), d, dtype),
+            "wk": _dense((L, d, kv), d, dtype),
+            "wv": _dense((L, d, kv), d, dtype),
+            "wo": _dense((L, q, d), q, dtype),
+            "ln": _ones((L, d)),
+        }
+    if cfg.n_patches:
+        p["patch_proj"] = _dense((cfg.d_model, cfg.d_model), cfg.d_model, dtype)
+    return p
+
+
+def _leaves(tree: Mapping) -> list:
+    out = []
+    for v in tree.values():
+        out += _leaves(v) if isinstance(v, Mapping) else [v]
+    return out
+
+
+def _map(fn, spec: Mapping, *trees: Mapping) -> dict:
+    return {
+        k: _map(fn, v, *(t[k] for t in trees)) if isinstance(v, Mapping) else fn(v, *(t[k] for t in trees))
+        for k, v in spec.items()
+    }
+
+
+def init_params(cfg: LMConfig, generator: torch.Generator, device: str | torch.device = "cuda") -> dict:
+    """Full parameter tree for any supported architecture, drawn from
+    ``generator`` (a generator on ``device``) in the order of
+    :func:`param_spec`."""
+
+    def draw(leaf: Leaf) -> torch.Tensor:
+        if leaf.init == "dense":
+            w = torch.randn(leaf.shape, generator=generator, device=device, dtype=torch.float32)
+            return (w / math.sqrt(leaf.scale)).to(leaf.dtype)
+        fill = torch.ones if leaf.init == "ones" else torch.zeros
+        return fill(leaf.shape, dtype=leaf.dtype, device=device)
+
+    return _map(draw, param_spec(cfg))
+
+
+def params_from_numpy(cfg: LMConfig, tree: Mapping, device: str | torch.device = "cuda") -> dict:
+    """Load a parameter tree given as numpy arrays (e.g. the JAX package's
+    ``init_params``, converted with ``np.asarray(a, np.float32)``), checking
+    every key and shape against :func:`param_spec` and casting to its dtype."""
+
+    def load(leaf: Leaf, a) -> torch.Tensor:
+        a = np.asarray(a)
+        if tuple(a.shape) != leaf.shape:
+            raise ValueError(f"parameter shape {a.shape} != expected {leaf.shape}")
+        return torch.tensor(a, dtype=leaf.dtype, device=device)  # a copy: never aliases the caller's array
+
+    spec = param_spec(cfg)
+    if set(_flat_keys(tree)) != set(_flat_keys(spec)):
+        raise ValueError(f"parameter keys differ: {sorted(set(_flat_keys(tree)) ^ set(_flat_keys(spec)))}")
+    return _map(load, spec, tree)
+
+
+def _flat_keys(tree: Mapping, prefix: str = "") -> list[str]:
+    out = []
+    for k, v in tree.items():
+        out += _flat_keys(v, f"{prefix}{k}/") if isinstance(v, Mapping) else [prefix + k]
+    return out
+
+
+def layer(blocks: Mapping[str, torch.Tensor], i: int) -> dict[str, torch.Tensor]:
+    """The parameters of layer ``i``: views of the ``[L, ...]`` stacks."""
+    return {k: v[i] for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Small shared ops
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale).to(x.dtype)
+
+
+def rotary(x: torch.Tensor, positions: torch.Tensor, base: float = 10_000.0) -> torch.Tensor:
+    """Apply RoPE, half-split (not interleaved).  x: [..., seq, heads,
+    head_dim]; positions: [..., seq]."""
+    hd = x.shape[-1]
+    half = hd // 2
+    # built on x's device: a host tensor here would cost a synchronising copy per call
+    freqs = torch.exp(-math.log(base) * torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., :, None].float() * freqs  # [..., seq, half]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -5,8 +5,13 @@
 Each test is marked ``gpu`` and skips, from a fixture, where no card is
 visible.  The file imports no JAX (the machine with the card has none):
 the plain PyTorch versions, held against the JAX package on the CPU by the
-other ``test_torch_*`` files, are the references here.  fp32 throughout,
-TF32 off; kernel-vs-plain tolerance 3e-4, the reference's conv tolerance.
+other ``test_torch_*`` files, are the references here.  TF32 off.
+Kernel-vs-plain tolerances: in fp32 the reference's (conv 3e-4, attention
+2e-4, SSD 2e-3); in bf16 max |kernel - plain| within 1e-2 of max |plain|
+(both keep fp32 inside and differ by where the output, and for attention p,
+is rounded to bf16, 2^-8 relative each).  The smoke LM path on the card is
+held against itself on the CPU at 3e-4 relative to the largest |logit| in
+fp32 (the reference's prefill-vs-decode tolerance).
 """
 
 import numpy as np
@@ -15,7 +20,15 @@ import pytest
 torch = pytest.importorskip("torch")  # CI installs requirements-dev.txt, which has no torch
 
 from repro_torch.core import generate_seed, paper_platform, weights
+import dataclasses
+
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import im2col_conv, ops
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.launch.serve import serve
+from repro_torch.models import transformer
+from repro_torch.models.lm_common import init_params
 from repro_torch.launch.mesh import make_stage_mesh
 from repro_torch.models.cnn import NETWORKS, make_cnn, network_layers
 from repro_torch.pipeline import MeasuringEvaluator, PipelineRunner, h100_platform_from_streams
@@ -141,3 +154,167 @@ def test_h100_platform_reads_the_card():
     props = torch.cuda.get_device_properties(0)
     p = h100_platform_from_streams(4)
     assert p.eps[0].cores == props.multi_processor_count // 4
+
+
+# ---------------------------------------------------------------------------
+# LM serving kernels: flash attention and the SSD chunk scan
+# ---------------------------------------------------------------------------
+
+BF16_REL = 1e-2
+
+
+def _agree(got, want, tol, fp32):
+    if fp32:
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    else:
+        assert (got.float() - want.float()).abs().max().item() <= BF16_REL * want.float().abs().max().item()
+
+
+def _attn(b, h, kvh, s, d, dtype, seed=0, bshd=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, h, d) if bshd else (b, h, s, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dtype)
+    return (q.transpose(1, 2) if bshd else q), k, v
+
+
+ATTN_CASES = (
+    [(2, h, kvh, s, 32, torch.float32, c, 0) for c in (True, False) for h, kvh in ((4, 4), (4, 2), (8, 1)) for s in (64, 128)]
+    + [
+        (2, 4, 2, 200, 64, torch.float32, True, 0),  # ragged S
+        (2, 4, 2, 100, 64, torch.float32, True, 16),  # window
+        (1, 4, 4, 77, 128, torch.float32, False, 9),  # non-causal window, D 128
+        (1, 7, 1, 33, 64, torch.float32, True, 0),  # qwen2-like grouping, ragged
+        (4, 32, 8, 512, 64, torch.bfloat16, True, 0),  # granite-3-2b prefill
+        (4, 32, 8, 512, 64, torch.float32, True, 0),
+        (1, 64, 8, 256, 128, torch.bfloat16, True, 0),  # qwen3-32b heads
+        (2, 8, 2, 300, 128, torch.bfloat16, True, 50),  # bf16, ragged, window
+    ]
+)
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d,dtype,causal,window", ATTN_CASES)
+def test_flash_attention_matches_plain(b, h, kvh, s, d, dtype, causal, window):
+    q, k, v = _attn(b, h, kvh, s, d, dtype, bshd=s % 2 == 0)
+    y = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert y.stride() == q.stride() and y.dtype == dtype
+    _agree(y, fa.flash_attention_plain(q, k, v, causal=causal, window=window), 2e-4, dtype == torch.float32)
+
+
+def _ssd(b, l, h, p, n, dtype, seed=0, strided=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if strided:
+        proj = torch.randn((b, l, h * p + 2 * n), generator=g, device="cuda").to(dtype)
+        x, B, C = proj[..., : h * p].reshape(b, l, h, p), proj[..., h * p : h * p + n], proj[..., h * p + n :]
+    else:
+        x = torch.randn((b, l, h, p), generator=g, device="cuda").to(dtype)
+        B = torch.randn((b, l, n), generator=g, device="cuda").to(dtype)
+        C = torch.randn((b, l, n), generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=g, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=g, device="cuda"))
+    return x, dt, A, B, C
+
+
+SSD_CASES = (
+    [(2, 128, h, p, n, c, torch.float32, False) for c in (16, 32) for h, p, n in ((2, 16, 8), (3, 8, 16))]
+    + [
+        (2, 256, 3, 100, 32, 64, torch.float32, False),  # ragged p tile
+        (2, 64, 4, 16, 16, 8, torch.float32, True),  # mamba2 smoke, strided like ssd_block
+        (4, 512, 24, 64, 128, 64, torch.bfloat16, True),  # mamba2-130m prefill
+        (4, 512, 24, 64, 128, 64, torch.float32, False),
+    ]
+)
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,dtype,strided", SSD_CASES)
+def test_ssd_scan_matches_plain(b, l, h, p, n, chunk, dtype, strided):
+    args = _ssd(b, l, h, p, n, dtype, strided=strided)
+    y, state = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    yp, sp = ssd.ssd_scan_plain(*args, chunk=chunk)
+    assert y.dtype == dtype and state.dtype == torch.float32 and y.is_contiguous()
+    _agree(y, yp, 2e-3, dtype == torch.float32)
+    _agree(state, sp, 2e-3, dtype == torch.float32)
+
+
+def test_lm_kernel_launches_count_once_and_ops_routes_cuda_to_them():
+    q, k, v = _attn(1, 4, 2, 64, 32, torch.float32)
+    args = _ssd(1, 32, 2, 8, 8, torch.float32)
+    before = fa.launches, ssd.launches
+    ops.flash_attention(q, k, v)
+    fa.flash_attention_plain(q, k, v)
+    ops.ssd_scan(*args, chunk=8)
+    ssd.ssd_scan_plain(*args, chunk=8)
+    assert (fa.launches, ssd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize(
+    "mutate,err",
+    [
+        (lambda q, k, v: (q.double(), k.double(), v.double()), TypeError),
+        (lambda q, k, v: (q, k.bfloat16(), v), TypeError),
+        (lambda q, k, v: (q, k.cpu(), v), ValueError),
+        (lambda q, k, v: (q[..., :48], k[..., :48], v[..., :48]), ValueError),  # D 48, and strided rows
+        (lambda q, k, v: (q.transpose(2, 3), k, v), ValueError),  # D not unit-stride
+        (lambda q, k, v: (q[:, :3], k, v), ValueError),  # heads not a multiple of kv heads
+    ],
+)
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
+    q, k, v = _attn(1, 4, 2, 64, 64, torch.float32)
+    before = fa.launches
+    with pytest.raises(err):
+        fa.flash_attention(*mutate(q, k, v))
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize(
+    "mutate,err",
+    [
+        (lambda x, dt, A, B, C: (x.double(), dt, A, B, C), TypeError),
+        (lambda x, dt, A, B, C: (x, dt.bfloat16(), A, B, C), TypeError),
+        (lambda x, dt, A, B, C: (x, dt, A, B.cpu(), C), ValueError),
+        (lambda x, dt, A, B, C: (x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C), ValueError),
+        (lambda x, dt, A, B, C: (x[:, :20], dt[:, :20], A, B[:, :20], C[:, :20]), ValueError),  # ragged chunk
+    ],
+)
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(mutate, err):
+    args = _ssd(1, 32, 2, 8, 8, torch.float32)
+    before = ssd.launches
+    with pytest.raises(err):
+        ssd.ssd_scan(*mutate(*args), chunk=8)
+    assert ssd.launches == before
+
+
+def test_ssd_wrapper_refuses_a_chunk_beyond_shared_memory():
+    args = _ssd(1, 256, 2, 64, 256, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd.ssd_scan(*args, chunk=256)
+
+
+@pytest.mark.parametrize("arch,over", [("granite-3-2b", {}), ("qwen3-32b", {}), ("nemotron-4-340b", {}),
+                                       ("granite-3-2b", {"sliding_window": 6}), ("mamba2-130m", {})])
+def test_smoke_lm_path_on_the_card_matches_the_cpu(arch, over):
+    cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32, **over)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict) else v.cuda()) for k, v in params.items()}
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)))
+    logits = {}
+    for dev, p in (("cpu", params), ("cuda", on_card)):
+        before = fa.launches + ssd.launches
+        with torch.inference_mode():
+            lg, cache = transformer.prefill_step(cfg, p, {"tokens": toks[:, :16].to(dev)}, max_len=24)
+            out = [lg]
+            for t in range(16, 24):
+                lg, cache = transformer.serve_step(cfg, p, cache, toks[:, t : t + 1].to(dev))
+                out.append(lg)
+        logits[dev] = torch.stack(out, 1).cpu()
+        assert (fa.launches + ssd.launches - before > 0) == (dev == "cuda")
+    scale = float(logits["cpu"].abs().max())
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=3e-4, atol=3e-4 * scale)
+
+
+def test_serve_on_the_card_runs_the_smoke_models():
+    for arch in ("granite-3-2b", "mamba2-130m"):
+        out = serve(get_smoke(arch), batch=2, prompt_len=16, gen=4, device="cuda")
+        assert tuple(out["tokens"].shape) == (2, 4) and out["tokens"].is_cuda

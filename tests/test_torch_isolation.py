@@ -18,7 +18,11 @@ pytest.importorskip("torch")  # CI installs requirements-dev.txt, which has no t
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-STANDALONE = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "examples" / "pipeline_serve_cnn_torch.py"]
+STANDALONE = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "examples" / "pipeline_serve_cnn_torch.py",
+    ROOT / "examples" / "serve_lm_torch.py",
+]
 
 
 def _env():
@@ -42,7 +46,8 @@ print(json.dumps({"modules": names, "leaked": leaked}))
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["leaked"] == []
     for mod in ("core.tuner", "kernels.im2col_conv", "models.cnn", "pipeline.runtime", "runtime.fault",
-                "launch.serve_cnn"):
+                "launch.serve_cnn", "kernels.flash_attention", "kernels.ssd_scan", "models.lm_common",
+                "models.blocks", "models.transformer", "configs.granite3_2b", "launch.serve"):
         assert f"repro_torch.{mod}" in res["modules"]
 
 
