@@ -25,12 +25,15 @@ repository's sources are not beside this script.  Otherwise, in order:
    reductions of up to 30976 terms summed in another order);
 6. LM serving kernels: holds ``flash_attention`` and ``ssd_scan`` against
    their plain versions on the card at the LM main path's shapes in bf16
-   (granite-3-2b prefill: q [4,32,512,64], k/v [4,8,512,64], causal;
-   mamba2-130m prefill: x [4,512,24,64], B/C [4,512,128], chunk 64) and at
+   (prefill attention of every served attention model, causal, q/k/v as
+   the model's views: granite-3-2b q [4,32,512,64], k/v [4,8,512,64];
+   phi3.5-moe-42b q [4,32,512,128], llama4-scout-17b q [4,40,512,128],
+   k/v [4,8,512,128]; mamba2-130m prefill: x [4,512,24,64], B/C [4,512,128], chunk 64) and at
    the reference tests' shapes in fp32 at the reference's tolerances (2e-4
    attention, 2e-3 SSD), plus a ragged length, a sliding window, a
    non-causal case, a ragged p tile and strided inputs; times the kernel,
-   the plain version and (attention) SDPA, and computes each bound;
+   the plain version and (attention, at each model's shape) SDPA, and
+   computes each bound;
 7. drives the LM main path — ``launch.serve.serve`` at full width on
    ``cuda``, bf16, batch 4, prompt 512, 32 generated tokens — for
    granite-3-2b and for mamba2-130m, every launch count set to 0 just
@@ -40,15 +43,31 @@ repository's sources are not beside this script.  Otherwise, in order:
    (device time by kernel, busy share of the wall) of one prefill and of
    four decode steps;
 8. holds each LM path against the same path on the plain versions
-   (``ops.flash_attention`` / ``ops.ssd_scan`` swapped here, and only
-   here): prefill plus 4 teacher-forced decode steps on the kernel path's
-   tokens, logits compared relative to the largest |logit|, in bf16 and
-   with the same weights in fp32;
-9. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+   (``ops.flash_attention`` / ``ops.ssd_scan`` / ``ops.gemm`` swapped here,
+   and only here): prefill plus 4 teacher-forced decode steps on the kernel
+   path's tokens, logits compared relative to the largest |logit|, in bf16
+   and with the same weights in fp32;
+9. the MoE expert GEMM (checked with phase 6): holds ``gemm`` against
+   ``gemm_plain`` on the reference tests' grid (fp32 at 2e-4, bf16 at 6e-2,
+   the reference's tolerances) and at the MoE main path's shapes in bf16 (phi3.5-moe prefill
+   capacity 320 and decode capacity 8, llama4-scout prefill capacity 160
+   and decode capacity 8, 16 experts in one launch); times the kernel, the
+   plain version and ``torch.bmm`` (cuBLAS) at each main shape, with its
+   FLOPs, bytes and bound;
+10. drives MoE serving like phase 7, with the ``gemm`` launch count beside
+   the others: phi3.5-moe-42b at 16 of its 32 layers and llama4-scout-17b at
+   4 of its 48, both at full width (full depth does not fit the card's
+   80 GB; these depths, well below what would fit, keep the run short);
+   phase 8 for both, the fp32 comparison at 2 layers (fp32 weights of 16
+   layers would need 84 GB), and the share of (token, expert) assignments
+   that the kernel and plain paths route alike, held to ROUTE_FLOOR (see
+   MOE_ROUTES for the logits check where they differ);
+11. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -66,10 +85,11 @@ sys.path.insert(0, str(ROOT / "src"))  # the port, from this checkout
 from repro_torch.configs import get_config
 from repro_torch.kernels import build, im2col_conv, ops
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gemm as gm
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.serve import make_prompt, serve
 from repro_torch.launch.serve_cnn import BATCH, serve_cnn
-from repro_torch.models import transformer
+from repro_torch.models import blocks, transformer
 from repro_torch.models.lm_common import init_params
 from repro_torch.models.cnn import synthnet_specs
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
@@ -91,9 +111,35 @@ BF16_REL_TOL = 1e-2
 #: differs only by summation order through 24-40 layers; bf16 by the
 #: roundings above at every layer, carried through the residual stream
 LM_TOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
-#: the LM main path: models, and batch, prompt and generated tokens
-LM_MODELS = {"granite-3-2b": "flash_attention", "mamba2-130m": "ssd_scan"}
+# MOE_ROUTES: MoE logits are held to LM_TOL too, on one set of routes.  A
+# router whose top choices nearly tie can pick other experts when its input
+# differs by rounding, and a token sent elsewhere gets another FFN output,
+# not a rounding of the same one.  In bf16 the two paths route 99.4% of
+# phi3.5-moe's (token, expert) assignments alike in its first layer, 85% in
+# its 16th (NVIDIA H100 80GB HBM3, 700 W), and their logits then differ by
+# 46% of max |logit|.  So where any assignment differs, drive_lm prints that
+# share and that error, and checks the plain path again with the kernel
+# path's routes replayed (its own router probabilities as gates).  The share
+# itself is held to ROUTE_FLOOR, so that a change that moves many more
+# routes fails.
+#: least routing agreement, kernel path against plain path: in the first MoE
+#: layer, whose inputs differ only by attention's rounding (measured 0.994
+#: phi3.5-moe, 0.997 llama4-scout, bf16), and over every MoE call of the run
+#: (measured 0.908 and 0.983; 1.000 for both in fp32)
+ROUTE_FLOOR = {"first layer": 0.98, "all calls": 0.85}
+#: kernel-vs-plain for the GEMM: the reference's kernel-test tolerances (allclose)
+GEMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
+#: the LM main path: per model the kernels it must launch, the depth served
+#: (None: the config's) and the depth of the fp32 comparison (None: served depth)
+LM_MODELS = {
+    "granite-3-2b": (("flash_attention",), None, None),
+    "mamba2-130m": (("ssd_scan",), None, None),
+    "phi3.5-moe-42b": (("flash_attention", "gemm"), 16, 2),
+    "llama4-scout-17b": (("flash_attention", "gemm"), 4, 2),
+}
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
+#: the port's CUDA kernel functions, as the profiler names them
+PORT_KERNELS = ("flash_fwd_kernel", "ssd_scan_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel")
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -207,10 +253,20 @@ def _agree(name: str, case, got: torch.Tensor, want: torch.Tensor, tol: float | 
 
 
 def check_flash(gen: torch.Generator) -> dict:
-    """Phase 6 for ``flash_attention``: parity everywhere, times at granite's prefill."""
+    """Phase 6 for ``flash_attention``: parity everywhere, times at the
+    prefill shape of every served attention model, q, k and v in the model's
+    layout (transposed ``[b, s, h, d]`` views).  The kernels-line row is
+    granite-3-2b's, the kernel's first model."""
     f32, bf16 = torch.float32, torch.bfloat16
-    main = dict(b=4, h=32, kvh=8, s=512, d=64, dtype=bf16, causal=True, window=0)
-    cases = [main] + [
+    served = []  # bf16, causal, one per attention model of LM_MODELS
+    for arch, (names, _, _) in LM_MODELS.items():
+        if "flash_attention" in names:
+            cfg = get_config(arch)
+            if cfg.sliding_window:  # SDPA, the yardstick, takes no window
+                raise RuntimeError(f"{arch}: a sliding window is not timed here")
+            served.append(dict(b=LM_BATCH, h=cfg.n_heads, kvh=cfg.n_kv_heads, s=LM_PROMPT, d=cfg.hd, dtype=bf16,
+                               causal=True, window=0, model=arch))
+    cases = served + [
         dict(b=2, h=h, kvh=kvh, s=s, d=32, dtype=f32, causal=c, window=0)  # tests/test_kernels.py grid
         for c in (True, False) for h, kvh in ((4, 4), (4, 2), (8, 1)) for s in (64, 128)
     ] + [
@@ -218,15 +274,19 @@ def check_flash(gen: torch.Generator) -> dict:
         dict(b=2, h=4, kvh=2, s=100, d=64, dtype=f32, causal=True, window=16),  # window
         dict(b=1, h=4, kvh=4, s=77, d=128, dtype=f32, causal=False, window=9),  # non-causal window, D 128
         dict(b=2, h=8, kvh=2, s=300, d=128, dtype=bf16, causal=True, window=50),  # bf16 ragged window
-        dict(b=4, h=32, kvh=8, s=512, d=64, dtype=f32, causal=True, window=0),  # main shape, fp32
+        dict(b=4, h=32, kvh=8, s=512, d=64, dtype=f32, causal=True, window=0),  # granite's shape, fp32
     ]
     row = None
     max_err = 0.0
     for case in cases:
         b, h, kvh, s, d, dt = (case[k] for k in ("b", "h", "kvh", "s", "d", "dtype"))
         q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)  # the model's layout
-        k = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
-        v = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
+        if "model" in case:
+            k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+            v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+        else:
+            k = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
+            v = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
         kw = dict(causal=case["causal"], window=case["window"])
         y = fa.flash_attention(q, k, v, **kw)
         yp = fa.flash_attention_plain(q, k, v, **kw)
@@ -235,19 +295,21 @@ def check_flash(gen: torch.Generator) -> dict:
         err = _agree("flash_attention", desc, y, yp, ATTN_TOL if dt == f32 else None)
         max_err = max(max_err, err)
         print(f"[check] flash_attention {json.dumps({**desc, 'max_abs_err': err, 'max_abs_plain': yp.float().abs().max().item()})}")
-        if case is main:
+        if "model" in case:
             pairs = s * (s + 1) // 2
             flops = 4.0 * b * h * d * pairs
             nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + y.numel())
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
-            qc = q.contiguous()
-            row = dict(
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+            timed = dict(
                 ms=_time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
                 plain_ms=_time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw)),
-                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(qc, k, v, is_causal=True, enable_gqa=True)),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)),
                 bound_ms=bound_ms, bound_by=bound_by,
             )
-            print(f"[check] flash_attention main shape: {json.dumps({**row, 'flops': flops, 'bytes': nbytes})}")
+            print(f"[check] flash_attention {case['model']} prefill shape: "
+                  f"{json.dumps({**timed, 'flops': flops, 'bytes': nbytes})}")
+            row = row or timed
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -314,6 +376,62 @@ def check_ssd(gen: torch.Generator) -> dict:
     }
 
 
+def check_gemm(gen: torch.Generator) -> dict:
+    """Phase 9 for ``gemm``: parity everywhere, times at the MoE main path's
+    shapes.  The kernels-line row is one phi3.5-moe layer's expert products:
+    its prefill (gate, up, down) plus one decode step (gate, up, down)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((m, k), (k, n), dt, "reference grid")  # tests/test_kernels.py
+             for m, k, n in ((64, 64, 64), (200, 300, 150), (128, 512, 256), (33, 65, 17)) for dt in (f32, bf16)]
+    cases += [((3, 33, 65), (3, 65, 17), dt, "batched, ragged") for dt in (f32, bf16)]
+    layer = {}  # phi3.5-moe shape label -> calls per layer
+    for arch in ("phi3.5-moe-42b", "llama4-scout-17b"):
+        cfg = get_config(arch)
+        E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        for phase, tokens in (("prefill", LM_BATCH * LM_PROMPT), ("decode", LM_BATCH)):
+            cap = blocks.moe_capacity(cfg, tokens)
+            up, down = f"{arch} {phase} gate/up", f"{arch} {phase} down"
+            cases += [((E, cap, d), (E, d, f), bf16, up), ((E, cap, f), (E, f, d), bf16, down)]
+            if arch == "phi3.5-moe-42b":
+                layer.update({up: 2, down: 1})
+    cases.append(((16, 320, 4096), (16, 4096, 6400), f32, "phi3.5-moe-42b prefill gate/up, fp32"))
+    max_err, tot = 0.0, {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
+    for sa, sb, dt, label in cases:
+        a = torch.randn(sa, generator=gen, device="cuda").to(dt)
+        b = (torch.randn(sb, generator=gen, device="cuda") / sb[-2] ** 0.5).to(dt)
+        y, yp = gm.gemm(a, b), gm.gemm_plain(a, b)
+        torch.cuda.synchronize()
+        desc = {"a": list(sa), "b": list(sb), "dtype": str(dt).removeprefix("torch."), "case": label}
+        err = (y.float() - yp.float()).abs().max().item()
+        if not torch.allclose(y.float(), yp.float(), rtol=GEMM_TOL[dt], atol=GEMM_TOL[dt]):
+            raise RuntimeError(f"gemm disagrees with its plain version at {desc}: max abs err {err}")
+        max_err = max(max_err, err)
+        row = {**desc, "max_abs_err": err, "max_abs_plain": yp.float().abs().max().item()}
+        if dt == bf16 and len(sa) == 3 and label != "batched, ragged":
+            E, M, K = sa
+            flops, nbytes = 2.0 * E * M * K * sb[-1], 2.0 * (a.numel() + b.numel() + y.numel())
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            row.update(flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+                       ms=_time_ms(lambda: gm.gemm(a, b)), plain_ms=_time_ms(lambda: gm.gemm_plain(a, b)),
+                       library_ms=_time_ms(lambda: torch.bmm(a, b)))
+            row["tflops"] = flops / row["ms"] / 1e9
+            for key in tot:
+                tot[key] += layer.get(label, 0) * row[key]
+        print(f"[check] gemm {json.dumps(row)}")
+        del a, b, y, yp
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(tot["flops"], tot["bytes"], PEAK_BF16_FLOPS)
+    print(f"[check] gemm, one phi3.5-moe layer (prefill + one decode step): "
+          f"{json.dumps({**tot, 'bound_ms': bound_ms})}")
+    return {
+        "name": "gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gemm.cu",
+        "replaces": "src/repro/kernels/gemm.py:37",
+        "max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": tot["library_ms"],
+    }
+
+
 def _kernel_table(prof, wall_s: float) -> dict:
     """Device time by kernel from a profiler trace: the top kernels, sums by
     kind, and the device's busy share of ``wall_s``."""
@@ -323,7 +441,7 @@ def _kernel_table(prof, wall_s: float) -> dict:
     busy = sum(r[1] for r in rows)
 
     def kind(name: str) -> str:
-        if "flash_fwd_kernel" in name or "ssd_scan_kernel" in name:
+        if any(k in name for k in PORT_KERNELS):
             return "port kernel"
         return "matmul" if any(t in name.lower() for t in ("gemm", "nvjet", "xmma", "cutlass")) else "other"
 
@@ -395,23 +513,79 @@ def _forced_logits(cfg, params, prompt: torch.Tensor, forced: torch.Tensor) -> t
     return torch.stack(out, dim=1)
 
 
-def drive_lm(arch: str, kernel: str) -> int:
-    """Phases 7-8 for one model: the served path, then kernels against plain."""
-    cfg = get_config(arch)
-    for mod in (im2col_conv, fa, ssd):
+def _first_layers(params: dict, n: int) -> dict:
+    """The parameter tree cut to its first ``n`` layers (views of the stacks)."""
+    return {k: {kk: vv[:n] for kk, vv in v.items()} if k == "blocks" else v for k, v in params.items()}
+
+
+@contextlib.contextmanager
+def _recording_routes(out: list):
+    """Append each MoE layer's expert choice [t, k] to ``out``, in call order."""
+    route = blocks.route
+
+    def recording(cfg, p, xf):
+        probs, gate, expert = route(cfg, p, xf)
+        out.append(expert)
+        return probs, gate, expert
+
+    with mock.patch.object(blocks, "route", recording):
+        yield
+
+
+@contextlib.contextmanager
+def _replaying_routes(recorded: list):
+    """Route each MoE call to the experts ``recorded`` for it, in call order,
+    with gates from this path's own router probabilities."""
+    route, calls = blocks.route, iter(recorded)
+
+    def replaying(cfg, p, xf):
+        probs = route(cfg, p, xf)[0]
+        expert = next(calls)
+        gate = probs.gather(1, expert)
+        return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), expert
+
+    with mock.patch.object(blocks, "route", replaying):
+        yield
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """Every kernel's plain version in place of the kernel, on the model's path."""
+    with mock.patch.object(ops, "flash_attention", fa.flash_attention_plain), \
+            mock.patch.object(ops, "ssd_scan", ssd.ssd_scan_plain), mock.patch.object(ops, "gemm", gm.gemm_plain):
+        yield
+
+
+def _route_agreement(got: list, want: list) -> tuple[float, list[float]]:
+    """Share of (token, expert) assignments of ``got`` that ``want`` makes
+    too, over all calls, and per call."""
+    per = [(g[:, :, None] == w[:, None, :]).any(-1).float().mean().item() for g, w in zip(got, want, strict=True)]
+    n = [g.numel() for g in got]
+    return sum(a * k for a, k in zip(per, n)) / sum(n), per
+
+
+def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth: int | None) -> dict[str, int]:
+    """Phases 7-8 (10 for MoE) for one model: the served path, then kernels
+    against plain.  Returns the launches of each kernel on the served path."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth) if depth else full
+    print(f"[lm] {arch}: {cfg.n_layers} of {full.n_layers} layers, full width (d_model {cfg.d_model})")
+    mods = {"conv2d_im2col": im2col_conv, "flash_attention": fa, "ssd_scan": ssd, "gemm": gm}
+    for mod in mods.values():
         mod.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=0, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"conv2d_im2col": im2col_conv.launches, "flash_attention": fa.launches, "ssd_scan": ssd.launches}
+    launches = {name: mod.launches for name, mod in mods.items()}
     tokens = res["tokens"]
     print(f"[lm] {arch}: prefill_s {res['prefill_s']:.6f}, decode_tok_per_s {res['decode_tok_per_s']:.3f}, "
           f"wall {wall:.1f} s (weights drawn on the card included), launches {launches}, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches[kernel] == 0:
-        raise RuntimeError(f"kernel {kernel} never launched on the {arch} serving path")
+    for kernel in kernels:
+        if launches[kernel] == 0:
+            raise RuntimeError(f"kernel {kernel} never launched on the {arch} serving path")
     if tuple(tokens.shape) != (LM_BATCH, LM_GEN) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
         raise RuntimeError(f"{arch}: bad tokens {tuple(tokens.shape)} in [{int(tokens.min())}, {int(tokens.max())}]")
 
@@ -421,28 +595,49 @@ def drive_lm(arch: str, kernel: str) -> int:
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     _time_lm(arch, cfg, params, prompt)
     for dt in (torch.bfloat16, torch.float32):
-        c, p = dataclasses.replace(cfg, dtype=dt), _cast(params, dt)
-        got = _forced_logits(c, p, prompt, forced)
-        with mock.patch.object(ops, "flash_attention", fa.flash_attention_plain), \
-                mock.patch.object(ops, "ssd_scan", ssd.ssd_scan_plain):
+        c, p = dataclasses.replace(cfg, dtype=dt), params
+        if dt == torch.float32 and fp32_depth:
+            c, p = dataclasses.replace(c, n_layers=fp32_depth), _first_layers(params, fp32_depth)
+        p = _cast(p, dt)
+        routes: dict[str, list] = {"kernel": [], "plain": []}
+        with _recording_routes(routes["kernel"]):
+            got = _forced_logits(c, p, prompt, forced)
+        with _plain_versions(), _recording_routes(routes["plain"]):
             want = _forced_logits(c, p, prompt, forced)
+        name = f"{arch} {str(dt).removeprefix('torch.')} at {c.n_layers} layers"
+        if cfg.is_moe:
+            share, per = _route_agreement(routes["kernel"], routes["plain"])
+            print(f"[lm] {name}: routing agreement {share:.6f} of (token, expert) assignments over "
+                  f"{len(per)} MoE calls; prefill by layer {[round(a, 6) for a in per[: c.n_layers]]}, "
+                  f"decode min {min(per[c.n_layers:]):.6f} (floors {ROUTE_FLOOR})")
+            if per[0] < ROUTE_FLOOR["first layer"] or share < ROUTE_FLOOR["all calls"]:
+                raise RuntimeError(f"{name}: routing agreement {per[0]} in the first layer, {share} over all "
+                                   f"calls, below {ROUTE_FLOOR}")
+            if share < 1.0:  # see MOE_ROUTES
+                err, scale = (got - want).abs().max().item(), want.abs().max().item()
+                same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+                print(f"[lm] {name}: each path on its own routes: logits max abs err {err:.3e} (relative "
+                      f"{err / scale:.3e}), argmax agreement {same:.4f}")
+                with _plain_versions(), _replaying_routes(routes["kernel"]):
+                    want = _forced_logits(c, p, prompt, forced)
+                name += ", plain path on the kernel path's routes"
         torch.cuda.synchronize()
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-            raise RuntimeError(f"{arch} {dt}: logits not finite")
+            raise RuntimeError(f"{name}: logits not finite")
         err, scale = (got - want).abs().max().item(), want.abs().max().item()
         same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-        print(f"[lm] {arch} {str(dt).removeprefix('torch.')}: logits {tuple(got.shape)} kernel vs plain max abs err "
+        print(f"[lm] {name}: logits {tuple(got.shape)} kernel vs plain max abs err "
               f"{err:.3e}, max |logit| {scale:.3e} (relative {err / scale:.3e}, tolerance {LM_TOL[dt]}); "
               f"argmax agreement {same:.4f}")
         if dt == torch.bfloat16:
             served = (got[:, : LM_FORCED + 1].argmax(-1) == tokens[:, : LM_FORCED + 1]).float().mean().item()
             print(f"[lm] {arch}: teacher-forced kernel path reproduces the served tokens at {served:.4f} of positions")
         if not scale > 0 or err > LM_TOL[dt] * scale:
-            raise RuntimeError(f"{arch} {dt}: kernel path disagrees with the plain path: {err} > {LM_TOL[dt]} * {scale}")
+            raise RuntimeError(f"{name}: kernel path disagrees with the plain path: {err} > {LM_TOL[dt]} * {scale}")
         del p, got, want
     del params
     torch.cuda.empty_cache()
-    return launches[kernel]
+    return {name: launches[name] for name in kernels}
 
 
 def main() -> int:
@@ -517,9 +712,13 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels["flash_attention"] = check_flash(gen)
     kernels["ssd_scan"] = check_ssd(gen)
+    kernels["gemm"] = check_gemm(gen)
     print(f"[check] LM kernels done in {time.perf_counter() - t0:.1f} s")
-    for arch, kernel in LM_MODELS.items():
-        kernels[kernel]["launches"] = drive_lm(arch, kernel)
+    for arch, (names, depth, fp32_depth) in LM_MODELS.items():
+        t0 = time.perf_counter()
+        for name, n in drive_lm(arch, names, depth, fp32_depth).items():
+            kernels[name].setdefault("launches", n)  # each kernel's first model is its main path
+        print(f"[lm] {arch} done in {time.perf_counter() - t0:.1f} s")
 
     print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

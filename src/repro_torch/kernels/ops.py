@@ -10,8 +10,18 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as _fa
+from . import gemm as _gemm
 from . import im2col_conv
 from . import ssd_scan as _ssd
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A·B, fp32 sum, output in a's type. a: [(E,) M, K]; b: [(E,) K, N] -> [(E,) M, N]."""
+    if a.is_cuda:
+        return _gemm.gemm(a, b)
+    if a.device.type == "cpu":
+        return _gemm.gemm_plain(a, b)
+    raise ValueError(f"no gemm for device {a.device}")
 
 
 def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""Forward blocks of the LM path: GQA attention, dense FFN, Mamba2 SSD.
+"""Forward blocks of the LM path: GQA attention, dense and MoE FFN, Mamba2 SSD.
 
-Port of ``repro/models/blocks.py`` for the block kinds this slice serves
-(``attn`` without experts, and ``ssd``).  Every function takes the per-layer
-parameter slice (views of the ``[L, ...]`` stacks) and keeps the reference's
-``[b, s, h, d]`` layouts.
+Port of ``repro/models/blocks.py`` for the block kinds served so far
+(``attn`` with a dense or an MoE FFN, and ``ssd``).  Every function takes
+the per-layer parameter slice (views of the ``[L, ...]`` stacks) and keeps
+the reference's ``[b, s, h, d]`` layouts.
 
-Prefill attention runs on :func:`repro_torch.kernels.ops.flash_attention`
-and the prefill SSD scan on :func:`repro_torch.kernels.ops.ssd_scan`, both
-reached through the ``ops`` module attribute: a CUDA tensor launches the
+Prefill attention runs on :func:`repro_torch.kernels.ops.flash_attention`,
+the prefill SSD scan on :func:`repro_torch.kernels.ops.ssd_scan` and the MoE
+expert products (prefill and decode) on :func:`repro_torch.kernels.ops.gemm`,
+all reached through the ``ops`` module attribute: a CUDA tensor launches the
 hand-written kernel, a CPU tensor runs its plain version.  One-token decode
 (:func:`attention_decode`, :func:`ssd_decode`) is plain PyTorch, as the
 reference computes it outside any Pallas kernel.
@@ -125,6 +126,83 @@ def dense_ffn(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(h @ p["w_gate"])
     u = h @ p["w_up"]
     return x + (g * u) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# FFN (MoE)
+# ---------------------------------------------------------------------------
+
+
+def moe_capacity(cfg: LMConfig, tokens_local: int) -> int:
+    cap = math.ceil(tokens_local * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-cap // 8) * 8)  # round up to a multiple of 8
+
+
+def route(cfg: LMConfig, p: dict, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router of :func:`moe_ffn_local`.  xf: [t, d] -> (probs [t, E] fp32,
+    gate [t, k] renormalised, expert [t, k]).  Top-k comes from a stable
+    descending sort, so ties go to the lower expert index, as
+    ``jax.lax.top_k`` breaks them (``torch.topk`` promises no order)."""
+    probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = gate[:, : cfg.top_k], expert[:, : cfg.top_k]
+    return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), expert
+
+
+def moe_ffn_local(cfg: LMConfig, p: dict, x: torch.Tensor, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with capacity, sort-free dispatch.
+
+    x: [b, s, d].  Returns (y, aux_loss), y without the residual.  Each
+    (token, expert) pair takes the next place in its expert's queue in token
+    order (token 0's k choices, then token 1's); pairs past ``capacity`` are
+    dropped, their dispatch routed to a scratch row and their combine weight
+    zeroed.  The three expert products run on ``ops.gemm``, all experts in
+    one launch each; the router and the shared expert stay ``torch.matmul``,
+    as the reference leaves them outside any kernel.
+    """
+    b, s, dm = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, dm)
+    probs, gate, expert = route(cfg, p, xf)
+    # load-balancing auxiliary loss (Switch-style)
+    me = probs.mean(0)
+    ce = torch.zeros(E, device=x.device).index_add_(0, expert.reshape(-1), torch.ones(t * k, device=x.device)) / (t * k)
+    aux = E * torch.sum(me * ce)
+
+    flat_e = expert.reshape(-1)  # [t*k], grouped by token
+    flat_tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    flat_gate = gate.reshape(-1)
+    # position of each (token, expert) pair within its expert's queue; the
+    # one-hot is laid out [E, t*k] so the count runs along the inner dim
+    onehot = F.one_hot(flat_e, E).T.contiguous()
+    pos = (torch.cumsum(onehot, dim=1) - onehot).gather(0, flat_e[None, :])[0]
+    keep = pos < capacity
+    slot = torch.where(keep, flat_e * capacity + pos, E * capacity)  # overflow -> scratch row
+    scale = keep.to(x.dtype)[:, None]
+    buf = torch.zeros((E * capacity + 1, dm), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot, xf[flat_tok] * scale)
+    xe = buf[:-1].reshape(E, capacity, dm)
+    g = F.silu(ops.gemm(xe, p["we_gate"]))
+    u = ops.gemm(xe, p["we_up"])
+    ye = ops.gemm(g * u, p["we_down"]).reshape(E * capacity, dm)
+    contrib = ye[torch.where(keep, slot, 0)] * (flat_gate.to(x.dtype)[:, None] * scale)
+    y = torch.zeros((t, dm), dtype=x.dtype, device=x.device).index_add_(0, flat_tok, contrib)
+    if cfg.n_shared_experts:
+        gs = F.silu(xf @ p["ws_gate"])
+        us = xf @ p["ws_up"]
+        y = y + (gs * us) @ p["ws_down"]
+    return y.reshape(b, s, dm), aux
+
+
+def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE sublayer with residual on one device: (x + y, aux_loss)."""
+    if mesh is not None:
+        raise NotImplementedError("expert parallelism over a mesh of cards is not ported yet: ROADMAP.md queue 1, "
+                                  "MoE item")
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, aux = moe_ffn_local(cfg, p, h, moe_capacity(cfg, h.shape[0] * h.shape[1]))
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------

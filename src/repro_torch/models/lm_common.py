@@ -269,12 +269,21 @@ def _map(fn, spec: Mapping, *trees: Mapping) -> dict:
 def init_params(cfg: LMConfig, generator: torch.Generator, device: str | torch.device = "cuda") -> dict:
     """Full parameter tree for any supported architecture, drawn from
     ``generator`` (a generator on ``device``) in the order of
-    :func:`param_spec`."""
+    :func:`param_spec`.
+
+    A dense leaf is drawn in fp32 and cast into its preallocated tensor; a
+    stack of matrices (three or more dims: the ``[L, ...]`` layer stacks) one
+    layer slice at a time, so the fp32 transient is one layer's slice and
+    not the whole stack (at phi3.5-moe's 16 layers, 1.7 GB for ``we_gate``
+    instead of 26.8 GB)."""
 
     def draw(leaf: Leaf) -> torch.Tensor:
         if leaf.init == "dense":
-            w = torch.randn(leaf.shape, generator=generator, device=device, dtype=torch.float32)
-            return (w / math.sqrt(leaf.scale)).to(leaf.dtype)
+            out = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+            for part in out if len(leaf.shape) >= 3 else [out]:
+                w = torch.randn(part.shape, generator=generator, device=device, dtype=torch.float32)
+                part.copy_(w.div_(math.sqrt(leaf.scale)))
+            return out
         fill = torch.ones if leaf.init == "ones" else torch.zeros
         return fill(leaf.shape, dtype=leaf.dtype, device=device)
 

@@ -1,22 +1,24 @@
 """Model assembly for LM serving: prefill and ring-cache decode.
 
 Port of the serving half of ``repro/models/transformer.py`` for the block
-kinds this slice serves: ``attn`` without experts, encoder or patches
-(dense GQA with ``qkv_bias``, ``qk_norm``, swiglu or relu2 FFN and
-``sliding_window``), and ``ssd`` (Mamba2).
+kinds served so far: ``attn`` without encoder or patches (GQA with
+``qkv_bias``, ``qk_norm`` and ``sliding_window``; a swiglu or relu2 FFN, or
+a top-k MoE FFN with an optional shared expert), and ``ssd`` (Mamba2).
 
   * ``init_cache(cfg, batch, max_len, device)`` — decode state.
   * ``prefill_step(cfg, params, batch, max_len)`` — prompt forward that
     emits the decode cache; attention runs on the flash kernel, the SSD scan
-    on the chunk-scan kernel.
+    on the chunk-scan kernel, the MoE expert products (here and in decode)
+    on the batched GEMM kernel.
   * ``serve_step(cfg, params, cache, tokens)`` — one-token decode.
   * ``serve_block`` / ``make_serve_step`` — ``decode_block`` tokens per call.
 
 The layer loop is a Python loop over views of the ``[L, ...]`` stacks where
 the reference has ``lax.scan``.  The cache is a dict of stacked tensors as
 in the reference, with ``index`` a Python int; decode updates it in place
-(the reference returns a new pytree) and returns it.  MoE, hybrid, enc-dec
-and patch models raise ``NotImplementedError``: they are later slices.
+(the reference returns a new pytree) and returns it.  Hybrid, enc-dec and
+patch models raise ``NotImplementedError``: they are later slices.  MoE
+layers drop the router's auxiliary loss, as the reference's serving does.
 Prefill and decode run under ``torch.inference_mode()``.
 """
 
@@ -31,9 +33,7 @@ from .lm_common import LMConfig, layer, rms_norm
 
 
 def _check_supported(cfg: LMConfig) -> None:
-    """Raise for the architectures this slice does not serve."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE serving (moe_ffn) is not ported yet: ROADMAP.md queue 1, MoE item")
+    """Raise for the architectures the port does not serve yet."""
     if cfg.is_encdec:
         raise NotImplementedError("enc-dec serving (whisper) is not ported yet: ROADMAP.md queue 1, enc-dec item")
     if cfg.n_patches:
@@ -42,6 +42,13 @@ def _check_supported(cfg: LMConfig) -> None:
         raise NotImplementedError("hybrid serving (zamba2) is not ported yet: ROADMAP.md queue 1, hybrid item")
     if cfg.block_kind not in ("attn", "ssd"):
         raise ValueError(cfg.block_kind)
+
+
+def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """The FFN sublayer of an ``attn`` layer: MoE (aux loss dropped) or dense."""
+    if cfg.is_moe:
+        return blocks.moe_ffn(cfg, lp, x)[0]
+    return blocks.dense_ffn(cfg, lp, x)
 
 
 def embed_tokens(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -90,7 +97,7 @@ def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor):
             x, _, _, _ = blocks.attention_decode(
                 cfg, lp, x, cache["k"][i], cache["v"][i], cache["pos"][i], index, window=cfg.sliding_window
             )
-            x = blocks.dense_ffn(cfg, lp, x)
+            x = _ffn(cfg, lp, x)
         else:
             x, ssm, conv = blocks.ssd_decode(cfg, lp, x, cache["ssm"][i], cache["conv"][i])
             cache["ssm"][i].copy_(ssm)
@@ -141,7 +148,7 @@ def prefill_step(cfg: LMConfig, params: dict, batch: dict, max_len: int | None =
             x, k, v = blocks.attention(
                 cfg, lp, x, positions, causal=True, window=cfg.sliding_window, return_kv=True
             )
-            x = blocks.dense_ffn(cfg, lp, x)
+            x = _ffn(cfg, lp, x)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
     else:

@@ -7,11 +7,12 @@ visible.  The file imports no JAX (the machine with the card has none):
 the plain PyTorch versions, held against the JAX package on the CPU by the
 other ``test_torch_*`` files, are the references here.  TF32 off.
 Kernel-vs-plain tolerances: in fp32 the reference's (conv 3e-4, attention
-2e-4, SSD 2e-3); in bf16 max |kernel - plain| within 1e-2 of max |plain|
-(both keep fp32 inside and differ by where the output, and for attention p,
-is rounded to bf16, 2^-8 relative each).  The smoke LM path on the card is
-held against itself on the CPU at 3e-4 relative to the largest |logit| in
-fp32 (the reference's prefill-vs-decode tolerance).
+2e-4, SSD 2e-3, GEMM 2e-4); in bf16 max |kernel - plain| within 1e-2 of max
+|plain| (both keep fp32 inside and differ by where the output, and for
+attention p, is rounded to bf16, 2^-8 relative each), and for the GEMM the
+reference's bf16 tolerance, 6e-2.  The smoke LM path on the card is held
+against itself on the CPU at 3e-4 relative to the largest |logit| in fp32
+(the reference's prefill-vs-decode tolerance).
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ import dataclasses
 
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gemm as gm
 from repro_torch.kernels import im2col_conv, ops
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.serve import serve
@@ -292,8 +294,92 @@ def test_ssd_wrapper_refuses_a_chunk_beyond_shared_memory():
         ssd.ssd_scan(*args, chunk=256)
 
 
+# ---------------------------------------------------------------------------
+# Batched GEMM (the MoE expert products)
+# ---------------------------------------------------------------------------
+
+GEMM_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=6e-2, atol=6e-2)}
+
+
+def _gemm_inputs(sa, sb, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(sa, generator=g, device="cuda").to(dtype)
+    b = (torch.randn(sb, generator=g, device="cuda") / sb[-2] ** 0.5).to(dtype)
+    return a, b
+
+
+GEMM_CASES = (
+    [((m, k), (k, n), dt) for m, k, n in ((64, 64, 64), (200, 300, 150), (128, 512, 256), (33, 65, 17))
+     for dt in (torch.float32, torch.bfloat16)]  # tests/test_kernels.py grid
+    + [
+        ((4, 24, 40), (4, 40, 56), torch.bfloat16),  # batched, aligned
+        ((3, 33, 65), (3, 65, 17), torch.bfloat16),  # batched, ragged everywhere
+        ((3, 33, 65), (3, 65, 17), torch.float32),
+        ((16, 8, 4096), (16, 4096, 6400), torch.bfloat16),  # phi3.5-moe decode, M = 8
+        ((16, 8, 6400), (16, 6400, 4096), torch.bfloat16),
+        ((16, 320, 512), (16, 512, 640), torch.bfloat16),  # prefill capacity 320, narrow
+        ((16, 160, 520), (16, 520, 136), torch.bfloat16),  # llama4-scout capacity 160, K and N not whole tiles
+        ((2, 256, 96), (2, 96, 200), torch.bfloat16),  # whole 64-row tiles
+        ((2, 130, 64), (2, 64, 600), torch.bfloat16),  # ragged 64 x 256 tiles in M and N
+        ((2, 12, 40), (2, 40, 72), torch.float32),
+    ]
+)
+
+
+@pytest.mark.parametrize("sa,sb,dtype", GEMM_CASES)
+def test_gemm_matches_plain(sa, sb, dtype):
+    a, b = _gemm_inputs(sa, sb, dtype)
+    y = gm.gemm(a, b)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.is_contiguous() and tuple(y.shape) == (*sa[:-1], sb[-1])
+    torch.testing.assert_close(y.float(), gm.gemm_plain(a, b).float(), **GEMM_TOL[dtype])
+
+
+def test_gemm_takes_strided_views_of_the_expert_stacks():
+    """The model passes layer slices of [L, E, K, N] stacks and sliced rows."""
+    a, w = _gemm_inputs((4, 16, 64), (3, 4, 64, 48), torch.bfloat16)
+    a = a[:, ::2]  # row stride 128
+    for layer in range(3):
+        y = ops.gemm(a, w[layer])
+        torch.testing.assert_close(y.float(), gm.gemm_plain(a, w[layer]).float(), **GEMM_TOL[torch.bfloat16])
+    a2 = torch.randn((8, 80), device="cuda").bfloat16()[:, 3:67]  # rows not 16-byte aligned
+    b2 = torch.randn((64, 24), device="cuda").bfloat16()
+    torch.testing.assert_close(gm.gemm(a2, b2).float(), gm.gemm_plain(a2, b2).float(), **GEMM_TOL[torch.bfloat16])
+
+
+def test_gemm_launch_counts_once_and_ops_routes_cuda_to_it():
+    a, b = _gemm_inputs((2, 8, 32), (2, 32, 16), torch.bfloat16)
+    before = gm.launches
+    gm.gemm(a, b)
+    ops.gemm(a, b)
+    gm.gemm_plain(a, b)
+    assert gm.launches == before + 2
+
+
+@pytest.mark.parametrize(
+    "mutate,err",
+    [
+        (lambda a, b: (a.int(), b.int()), TypeError),
+        (lambda a, b: (a.half(), b.half()), TypeError),
+        (lambda a, b: (a, b.float()), TypeError),
+        (lambda a, b: (a, b.cpu()), ValueError),
+        (lambda a, b: (a, b[:, :-1]), ValueError),  # mismatched K
+        (lambda a, b: (a, b[:1]), ValueError),  # mismatched batch
+        (lambda a, b: (a.transpose(1, 2), b[:, :8]), ValueError),  # K not unit-stride
+        (lambda a, b: (a[:, :0], b), ValueError),  # empty
+    ],
+)
+def test_gemm_refuses_what_the_kernel_does_not_take(mutate, err):
+    a, b = _gemm_inputs((2, 8, 32), (2, 32, 16), torch.bfloat16)
+    before = gm.launches
+    with pytest.raises(err):
+        gm.gemm(*mutate(a, b))
+    assert gm.launches == before
+
+
 @pytest.mark.parametrize("arch,over", [("granite-3-2b", {}), ("qwen3-32b", {}), ("nemotron-4-340b", {}),
-                                       ("granite-3-2b", {"sliding_window": 6}), ("mamba2-130m", {})])
+                                       ("granite-3-2b", {"sliding_window": 6}), ("mamba2-130m", {}),
+                                       ("phi3.5-moe-42b", {}), ("llama4-scout-17b", {})])
 def test_smoke_lm_path_on_the_card_matches_the_cpu(arch, over):
     cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32, **over)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -301,7 +387,7 @@ def test_smoke_lm_path_on_the_card_matches_the_cpu(arch, over):
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)))
     logits = {}
     for dev, p in (("cpu", params), ("cuda", on_card)):
-        before = fa.launches + ssd.launches
+        before = fa.launches + ssd.launches + gm.launches
         with torch.inference_mode():
             lg, cache = transformer.prefill_step(cfg, p, {"tokens": toks[:, :16].to(dev)}, max_len=24)
             out = [lg]
@@ -309,12 +395,12 @@ def test_smoke_lm_path_on_the_card_matches_the_cpu(arch, over):
                 lg, cache = transformer.serve_step(cfg, p, cache, toks[:, t : t + 1].to(dev))
                 out.append(lg)
         logits[dev] = torch.stack(out, 1).cpu()
-        assert (fa.launches + ssd.launches - before > 0) == (dev == "cuda")
+        assert (fa.launches + ssd.launches + gm.launches - before > 0) == (dev == "cuda")
     scale = float(logits["cpu"].abs().max())
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=3e-4, atol=3e-4 * scale)
 
 
 def test_serve_on_the_card_runs_the_smoke_models():
-    for arch in ("granite-3-2b", "mamba2-130m"):
+    for arch in ("granite-3-2b", "mamba2-130m", "phi3.5-moe-42b", "llama4-scout-17b"):
         out = serve(get_smoke(arch), batch=2, prompt_len=16, gen=4, device="cuda")
         assert tuple(out["tokens"].shape) == (2, 4) and out["tokens"].is_cuda

@@ -47,7 +47,8 @@ print(json.dumps({"modules": names, "leaked": leaked}))
     assert res["leaked"] == []
     for mod in ("core.tuner", "kernels.im2col_conv", "models.cnn", "pipeline.runtime", "runtime.fault",
                 "launch.serve_cnn", "kernels.flash_attention", "kernels.ssd_scan", "models.lm_common",
-                "models.blocks", "models.transformer", "configs.granite3_2b", "launch.serve"):
+                "models.blocks", "models.transformer", "configs.granite3_2b", "launch.serve",
+                "kernels.gemm"):
         assert f"repro_torch.{mod}" in res["modules"]
 
 

@@ -82,7 +82,7 @@ def test_plain_rejects_channel_mismatch():
 def test_build_targets_sm90a_from_repo_sources(monkeypatch):
     import torch.utils.cpp_extension as cpp
 
-    assert build.sources() == ["conv2d_im2col", "flash_attention", "ssd_scan"]
+    assert build.sources() == ["conv2d_im2col", "flash_attention", "gemm", "ssd_scan"]
     monkeypatch.setattr(cpp, "CUDA_HOME", "/toolkit")
     out = build.library_path("conv2d_im2col")
     cmd = build.nvcc_command("conv2d_im2col", out)
