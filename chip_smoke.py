@@ -8,7 +8,9 @@ repository's sources are not beside this script.  Otherwise, in order:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from the sources in the checkout
    (one ``nvcc`` per source, all at once) and prints ``ptxas -v``'s
-   registers, shared memory and spills;
+   registers, shared memory and spills; fails unless the tensor-core flash
+   kernel ``flash_fwd_mma_bf16_kernel`` compiled at every head dim with no
+   spill;
 3. holds each kernel against its plain PyTorch version on the card, at every
    distinct layer shape of full-width SynthNet (microbatch of 2 images) and
    at the reference kernel tests' shapes plus a ragged K, in fp32 with TF32
@@ -31,9 +33,15 @@ repository's sources are not beside this script.  Otherwise, in order:
    k/v [4,8,512,128]; mamba2-130m prefill: x [4,512,24,64], B/C [4,512,128], chunk 64) and at
    the reference tests' shapes in fp32 at the reference's tolerances (2e-4
    attention, 2e-3 SSD), plus a ragged length, a sliding window, a
-   non-causal case, a ragged p tile and strided inputs; times the kernel,
-   the plain version and (attention, at each model's shape) SDPA, and
-   computes each bound;
+   non-causal case, a ragged p tile and strided inputs, and bf16 attention
+   cases that reach every branch of the tensor-core kernel (D 16 and 32,
+   GQA groups 1, 4 and 5, S of 1, 15, 65 and 1000, a window of 7,
+   non-causal); times the kernel, the plain version and (attention, at each
+   model's shape) SDPA, naming the device kernel that served SDPA, and
+   computes each bound.  Every time in the ``kernels`` line is by CUDA
+   events around 20 calls; attention also gets the profiler's device time
+   per call and the host's time to issue a call (its wrapper takes the host
+   longer to issue than the card to run), for the kernel and for SDPA;
 7. drives the LM main path — ``launch.serve.serve`` at full width on
    ``cuda``, bf16, batch 4, prompt 512, 32 generated tokens — for
    granite-3-2b and for mamba2-130m, every launch count set to 0 just
@@ -41,7 +49,9 @@ repository's sources are not beside this script.  Otherwise, in order:
    launched or the tokens are out of range; then times a warm prefill and
    warm decode steps on the host clock and prints a profiler breakdown
    (device time by kernel, busy share of the wall) of one prefill and of
-   four decode steps;
+   four decode steps; fails unless an attention model's bf16 prefill ran
+   ``flash_fwd_mma_bf16_kernel`` once per layer and never the fp32 SIMT
+   ``flash_fwd_kernel``;
 8. holds each LM path against the same path on the plain versions
    (``ops.flash_attention`` / ``ops.ssd_scan`` / ``ops.gemm`` swapped here,
    and only here): prefill plus 4 teacher-forced decode steps on the kernel
@@ -62,7 +72,9 @@ repository's sources are not beside this script.  Otherwise, in order:
    layers would need 84 GB), and the share of (token, expert) assignments
    that the kernel and plain paths route alike, held to ROUTE_FLOOR (see
    MOE_ROUTES for the logits check where they differ);
-11. prints the per-kernel JSON line, then ``{"ok": true, "device": ...}`` last.
+11. prints the per-kernel JSON line (the ``flash_attention`` row names the
+   device function that served granite-3-2b's prefill), then
+   ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -70,6 +82,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -139,7 +152,10 @@ LM_MODELS = {
 }
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
-PORT_KERNELS = ("flash_fwd_kernel", "ssd_scan_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel")
+PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_kernel", "gemm_mma_bf16_kernel",
+                "gemm_fma_f32_kernel")
+#: the two flash kernels as the profiler names them: bf16 on the tensor cores, fp32 on the SIMT pipes
+FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|flash_fwd_kernel)<[^>]*>)")
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -152,6 +168,29 @@ def _time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def check_flash_ptxas() -> None:
+    """Fail unless ``ptxas`` compiled ``flash_fwd_mma_bf16_kernel`` at every
+    head dim with no spill; print its registers."""
+    lines = build.ptxas_report("flash_attention").splitlines()
+    seen = {}
+    for i, line in enumerate(lines):
+        name = re.search(r"flash_fwd_mma_bf16_kernelILi(\d+)EE", line)
+        if "Compiling entry function" not in line or not name:
+            continue
+        props = " ".join(lines[i + 1 : i + 4])
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", props)
+        regs = re.search(r"Used (\d+) registers", props)
+        d = int(name.group(1))
+        seen[d] = (int(regs.group(1)), int(spill.group(1)), int(spill.group(2)))
+        print(f"[build] flash_fwd_mma_bf16_kernel<{d}>: {seen[d][0]} registers, "
+              f"spill stores {seen[d][1]} B, spill loads {seen[d][2]} B")
+    if sorted(seen) != list(fa.HEAD_DIMS):
+        raise RuntimeError(f"ptxas compiled flash_fwd_mma_bf16_kernel at head dims {sorted(seen)}, want {fa.HEAD_DIMS}")
+    spilled = {d: v for d, v in seen.items() if v[1] or v[2]}
+    if spilled:
+        raise RuntimeError(f"flash_fwd_mma_bf16_kernel spills: {spilled}")
 
 
 def _conv_shapes(specs, batch: int) -> list[dict]:
@@ -275,6 +314,17 @@ def check_flash(gen: torch.Generator) -> dict:
         dict(b=1, h=4, kvh=4, s=77, d=128, dtype=f32, causal=False, window=9),  # non-causal window, D 128
         dict(b=2, h=8, kvh=2, s=300, d=128, dtype=bf16, causal=True, window=50),  # bf16 ragged window
         dict(b=4, h=32, kvh=8, s=512, d=64, dtype=f32, causal=True, window=0),  # granite's shape, fp32
+    ] + [  # the tensor-core kernel's branches: every head dim, GQA groups 1 / 4 / 5, S of one row, under
+        # one fragment, one key past a tile and ragged long, a window narrower than a 16-row fragment,
+        # and no causal mask
+        dict(b=2, h=4, kvh=4, s=65, d=16, dtype=bf16, causal=True, window=0),
+        dict(b=2, h=8, kvh=2, s=15, d=32, dtype=bf16, causal=True, window=0),
+        dict(b=1, h=8, kvh=2, s=1, d=64, dtype=bf16, causal=True, window=0),
+        dict(b=2, h=40, kvh=8, s=1000, d=128, dtype=bf16, causal=True, window=0),
+        dict(b=2, h=10, kvh=2, s=65, d=128, dtype=bf16, causal=False, window=0),
+        dict(b=2, h=4, kvh=4, s=200, d=64, dtype=bf16, causal=True, window=7),
+        dict(b=1, h=10, kvh=2, s=130, d=32, dtype=bf16, causal=False, window=7),
+        dict(b=2, h=8, kvh=2, s=1000, d=16, dtype=bf16, causal=False, window=0),
     ]
     row = None
     max_err = 0.0
@@ -301,14 +351,31 @@ def check_flash(gen: torch.Generator) -> dict:
             nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + y.numel())
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-            timed = dict(
-                ms=_time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
-                plain_ms=_time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw)),
-                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)),
-                bound_ms=bound_ms, bound_by=bound_by,
-            )
+
+            def kern():
+                return fa.flash_attention(q, k, v, **kw)
+
+            def plain():
+                return fa.flash_attention_plain(q, k, v, **kw)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+
+            # CUDA events around 20 calls, as for every kernel; at these sizes the wrapper
+            # takes the host longer to issue than the card to run, so the device time from
+            # the profiler and the host's time to issue a call stand beside them
+            timed = dict(ms=_time_ms(kern), plain_ms=_time_ms(plain), library_ms=_time_ms(sdpa),
+                         bound_ms=bound_ms, bound_by=bound_by)
+            device_ms, ran = _device_ms(kern)
+            plain_device_ms, _ = _device_ms(plain)
+            library_device_ms, sdpa_ran = _device_ms(sdpa)
+            timed.update(device_ms=device_ms, plain_device_ms=plain_device_ms, library_device_ms=library_device_ms,
+                         host_ms=_host_ms(kern), library_host_ms=_host_ms(sdpa))
+            ratios = dict(sdpa_ratio=timed["ms"] / timed["library_ms"], sdpa_device_ratio=device_ms / library_device_ms)
             print(f"[check] flash_attention {case['model']} prefill shape: "
-                  f"{json.dumps({**timed, 'flops': flops, 'bytes': nbytes})}")
+                  f"{json.dumps({**timed, **ratios, 'flops': flops, 'bytes': nbytes})}")
+            print(f"[check] flash_attention at {case['model']}'s shape ran {json.dumps(ran)}; "
+                  f"SDPA ran {json.dumps(sdpa_ran)}")
             row = row or timed
     return {
         "name": "flash_attention", "route": "cuda",
@@ -432,6 +499,38 @@ def check_gemm(gen: torch.Generator) -> dict:
     }
 
 
+def _host_ms(fn, reps: int = 20) -> float:
+    """Host time to issue one call of ``fn``: the host clock around ``reps``
+    calls with no synchronisation inside (the card's queue holds them all)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
+
+
+def _device_ms(fn, reps: int = 20) -> tuple[float, dict[str, int]]:
+    """Device time per call of ``fn`` from the profiler (every kernel, copy and
+    memset it runs, summed over ``reps`` calls), and the device kernels it ran,
+    by the profiler's name, with their calls per call.  Unlike ``_time_ms`` it
+    excludes the host's gaps between calls: a call that takes the host longer
+    to issue than the card to run reads as the card's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
+            {e.key[:120]: e.count // reps for e in events})
+
+
 def _kernel_table(prof, wall_s: float) -> dict:
     """Device time by kernel from a profiler trace: the top kernels, sums by
     kind, and the device's busy share of ``wall_s``."""
@@ -455,14 +554,15 @@ def _kernel_table(prof, wall_s: float) -> dict:
         "busy_share": busy / (wall_s * 1e3) if busy else "not measured",
         "by_kind_ms": kinds,
         "top": [{"kernel": n[:60], "ms": ms, "calls": c} for n, ms, c in rows[:6]],
+        "flash_calls": {m.group(1): c for n, _, c in rows if (m := FLASH_FN.search(n))},
     }
 
 
 @torch.inference_mode()
-def _time_lm(arch: str, cfg, params, prompt: torch.Tensor) -> None:
+def _time_lm(arch: str, cfg, params, prompt: torch.Tensor) -> dict:
     """Warm prefill and decode times of the kernel path on the host clock
     (around ``torch.cuda.synchronize()``), then one profiled prefill and
-    four profiled decode steps."""
+    four profiled decode steps.  Returns the prefill's kernel table."""
     from torch.profiler import ProfilerActivity, profile
 
     def prefill():
@@ -487,13 +587,16 @@ def _time_lm(arch: str, cfg, params, prompt: torch.Tensor) -> None:
     t_step = (time.perf_counter() - t0) / 8
     print(f"[lm] {arch} warm: prefill {t_prefill * 1e3:.3f} ms, decode step {t_step * 1e3:.3f} ms "
           f"({LM_BATCH / t_step:.1f} tokens/s over the batch)")
+    tables = {}
     for what, run in (("prefill", lambda: prefill()), ("decode x4", lambda: decode(logits, cache, 4))):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        print(f"[lm] {arch} profile {what}: {json.dumps(_kernel_table(prof, wall))}")
+        tables[what] = _kernel_table(prof, wall)
+        print(f"[lm] {arch} profile {what}: {json.dumps(tables[what])}")
+    return tables["prefill"]
 
 
 def _cast(params: dict, dt: torch.dtype) -> dict:
@@ -564,9 +667,12 @@ def _route_agreement(got: list, want: list) -> tuple[float, list[float]]:
     return sum(a * k for a, k in zip(per, n)) / sum(n), per
 
 
-def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth: int | None) -> dict[str, int]:
+def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None,
+             fp32_depth: int | None) -> tuple[dict[str, int], str | None]:
     """Phases 7-8 (10 for MoE) for one model: the served path, then kernels
-    against plain.  Returns the launches of each kernel on the served path."""
+    against plain.  Returns the launches of each kernel on the served path and
+    the flash device function that served its bf16 prefill (None without
+    attention)."""
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=depth) if depth else full
     print(f"[lm] {arch}: {cfg.n_layers} of {full.n_layers} layers, full width (d_model {cfg.d_model})")
@@ -593,7 +699,15 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
     prompt = make_prompt(cfg, LM_BATCH, LM_PROMPT, 0, "cuda")
     forced = tokens[:, :LM_FORCED]
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    _time_lm(arch, cfg, params, prompt)
+    flash_calls = _time_lm(arch, cfg, params, prompt)["flash_calls"]
+    served_by = None
+    if "flash_attention" in kernels:  # bf16 prefill: the tensor-core kernel once per layer, never the SIMT one
+        mma = {n: c for n, c in flash_calls.items() if n.startswith("flash_fwd_mma_bf16_kernel")}
+        if len(mma) != 1 or len(flash_calls) != 1 or sum(mma.values()) != cfg.n_layers:
+            raise RuntimeError(f"{arch}: the profiled bf16 prefill ran {flash_calls}, want "
+                               f"flash_fwd_mma_bf16_kernel once per layer ({cfg.n_layers})")
+        served_by = next(iter(mma))
+        print(f"[lm] {arch}: prefill attention served by {served_by}, {mma[served_by]} calls")
     for dt in (torch.bfloat16, torch.float32):
         c, p = dataclasses.replace(cfg, dtype=dt), params
         if dt == torch.float32 and fp32_depth:
@@ -637,7 +751,7 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
         del p, got, want
     del params
     torch.cuda.empty_cache()
-    return {name: launches[name] for name in kernels}
+    return {name: launches[name] for name in kernels}, served_by
 
 
 def main() -> int:
@@ -661,6 +775,7 @@ def main() -> int:
     print(f"[build] {len(paths)} kernel(s) in {time.perf_counter() - t0:.1f} s: {sorted(paths)}")
     for name in sorted(paths):
         print(f"[build] {name}:\n{build.ptxas_report(name)}")
+    check_flash_ptxas()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -716,8 +831,11 @@ def main() -> int:
     print(f"[check] LM kernels done in {time.perf_counter() - t0:.1f} s")
     for arch, (names, depth, fp32_depth) in LM_MODELS.items():
         t0 = time.perf_counter()
-        for name, n in drive_lm(arch, names, depth, fp32_depth).items():
+        launched, served_by = drive_lm(arch, names, depth, fp32_depth)
+        for name, n in launched.items():
             kernels[name].setdefault("launches", n)  # each kernel's first model is its main path
+        if served_by:
+            kernels["flash_attention"].setdefault("device_function", served_by)
         print(f"[lm] {arch} done in {time.perf_counter() - t0:.1f} s")
 
     print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")

@@ -7,8 +7,10 @@ directory ``.gitignore`` lists), for ``sm_90a``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<digest>.so csrc/<name>.cu
 
-The digest covers the source and the flags, so an edited source is never
-served a stale library.  ``ptxas -v`` output (registers, shared memory,
+Sources may include the shared headers ``csrc/*.cuh`` (``mma_sm90.cuh``:
+``cp.async``, ``ldmatrix`` and ``mma.sync`` primitives).  The digest covers
+the source, every header and the flags, so an edited source or header is
+never served a stale library.  ``ptxas -v`` output (registers, shared memory,
 spills per kernel) is kept beside the library as ``<name>-<digest>.log``.
 Nothing is compiled when a module is imported: the first call that needs a
 kernel builds it, and :func:`build_all` starts one ``nvcc`` per source at
@@ -47,9 +49,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where ``<name>.cu`` builds to: named by a digest of the source, every
+    ``csrc/*.cuh`` header in sorted order, and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _tmp(out: Path) -> Path:

@@ -4,12 +4,15 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas
 ``_flash_kernel``): forward online-softmax attention with an optional causal
 mask and GQA head grouping.  On the LM path it is the prefill attention of
 every ``attn`` model, in place of the reference's ``blocks._sdpa`` (which
-calls itself the XLA stand-in for this kernel).  The kernel,
-``csrc/flash_attention.cu``, runs one block per (batch·q-head, 64-row q
-tile) with fp32 running max, normaliser and accumulator, skips causal tiles
-above the diagonal, masks a sliding window as ``_sdpa`` does and masks a
-ragged ``S`` instead of asserting that it divides the tile.  It is bound
-by its own fp32 SIMT arithmetic (see the source note).
+calls itself the XLA stand-in for this kernel).  ``csrc/flash_attention.cu``
+holds two kernels, picked by type: bf16 runs ``flash_fwd_mma_bf16_kernel``
+on the tensor cores (``mma.sync`` products with fp32 accumulators, Q in
+registers, a ``cp.async`` K/V ring, P kept in registers), fp32 runs
+``flash_fwd_kernel`` on the SIMT pipes (TF32 would miss the reference's
+2e-4).  Both keep the running max, normaliser and accumulator in fp32, skip
+causal tiles above the diagonal, mask a sliding window as ``_sdpa`` does and
+mask a ragged ``S`` instead of asserting that it divides the tile (see the
+source note).
 
 :func:`flash_attention_plain` is exact softmax attention in fp32 with the
 same masks and the same cast of the probabilities to ``v.dtype`` before
@@ -67,9 +70,14 @@ def flash_attention_plain(
     return out.reshape(b, h, s, d).to(q.dtype)
 
 
-def _vector_ok(t: torch.Tensor) -> bool:
-    """Unit stride over D, and every row 16-byte aligned for vector loads."""
-    return t.stride(3) == 1 and all(st % 4 == 0 for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
+def _vector_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """The batch, head and position strides of ``t`` if it has unit stride
+    over D, strides that are multiples of 4 and a 16-byte aligned base (rows
+    the kernel's vector copies can read), else None."""
+    sb, sh, ss, sd = t.stride()
+    if sd != 1 or sb % 4 or sh % 4 or ss % 4 or t.data_ptr() % 16:
+        return None
+    return sb, sh, ss
 
 
 def flash_attention(
@@ -99,13 +107,14 @@ def flash_attention(
         raise ValueError(f"empty attention: q {tuple(q.shape)}")
     if b * h > 2**31 - 1 or -(-s // 64) > 65535:
         raise ValueError(f"grid too large for q {tuple(q.shape)}")
-    if not all(_vector_ok(t) for t in (q, k, v)):
+    strides = [_vector_strides(t) for t in (q, k, v)]
+    if None in strides:
         raise ValueError("flash_attention needs unit stride over D and 16-byte aligned rows (strides % 4 == 0)")
     o = torch.empty_like(q)  # same strides as q: a transposed [b, s, h, d] view stays one
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
         b, h, k.shape[1], s, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *strides[0], *strides[1], *strides[2], *o.stride()[:3],
         int(causal), int(window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -117,6 +126,7 @@ def flash_attention(
 
 @functools.cache
 def _kernel():
+    """The C entry ``flash_attention_fwd``, typed."""
     from .build import library
 
     fn = library("flash_attention").flash_attention_fwd

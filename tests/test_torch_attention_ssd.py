@@ -66,6 +66,18 @@ def test_attention_plain_matches_pallas_and_oracle(causal, h, kvh, s):
     np.testing.assert_allclose(y, y_ref, **ATTN_TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_plain_matches_pallas_and_oracle_at_group_5(causal):
+    """llama4-scout's grouping: 5 q heads per kv head, head dim 128."""
+    q, k, v = _attn_inputs(1, 10, 2, 64, 128)
+    y = fa.flash_attention_plain(*_t(q, k, v), causal=causal).numpy()
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    y_pallas = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal, bq=32, bk=32))
+    y_ref = np.asarray(jref.attention_ref(jq, jk, jv, causal=causal))
+    np.testing.assert_allclose(y, y_pallas, **ATTN_TOL)
+    np.testing.assert_allclose(y, y_ref, **ATTN_TOL)
+
+
 @pytest.mark.parametrize(
     "s,window,causal",
     [(50, 0, True), (200, 0, True), (64, 7, True), (100, 16, True), (37, 5, False), (64, 64, True)],

@@ -191,6 +191,17 @@ ATTN_CASES = (
         (4, 32, 8, 512, 64, torch.float32, True, 0),
         (1, 64, 8, 256, 128, torch.bfloat16, True, 0),  # qwen3-32b heads
         (2, 8, 2, 300, 128, torch.bfloat16, True, 50),  # bf16, ragged, window
+        # the tensor-core kernel's branches: every head dim, GQA groups 1 / 4 / 5,
+        # S of one row, under one fragment, one key past a tile and ragged long,
+        # a window narrower than a 16-row fragment, and no causal mask
+        (2, 4, 4, 65, 16, torch.bfloat16, True, 0),
+        (2, 8, 2, 15, 32, torch.bfloat16, True, 0),
+        (1, 8, 2, 1, 64, torch.bfloat16, True, 0),
+        (2, 40, 8, 1000, 128, torch.bfloat16, True, 0),  # llama4-scout's grouping
+        (2, 10, 2, 65, 128, torch.bfloat16, False, 0),
+        (2, 4, 4, 200, 64, torch.bfloat16, True, 7),
+        (1, 10, 2, 130, 32, torch.bfloat16, False, 7),
+        (2, 8, 2, 1000, 16, torch.bfloat16, False, 0),
     ]
 )
 
@@ -202,6 +213,40 @@ def test_flash_attention_matches_plain(b, h, kvh, s, d, dtype, causal, window):
     torch.cuda.synchronize()
     assert y.stride() == q.stride() and y.dtype == dtype
     _agree(y, fa.flash_attention_plain(q, k, v, causal=causal, window=window), 2e-4, dtype == torch.float32)
+
+
+def test_flash_attention_takes_bf16_rows_aligned_to_8_bytes():
+    """Strides that are multiples of 4 elements but not 8 (bf16 rows 8-byte
+    aligned) take the tensor-core kernel's 8-byte copies."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, h, kvh, s, d = 2, 8, 2, 77, 64
+    q, k, v = (torch.randn((b, s, n * d + 4), generator=g, device="cuda").bfloat16()[..., : n * d]
+               .unflatten(-1, (n, d)).transpose(1, 2) for n in (h, kvh, kvh))
+    assert q.stride(2) % 8 == 4
+    y = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    _agree(y, fa.flash_attention_plain(q, k, v), 2e-4, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_is_deterministic(dtype):
+    q, k, v = _attn(4, 32, 8, 512, 64, dtype, bshd=True)
+    assert torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
+
+
+def test_flash_attention_runs_the_kernel_of_its_type():
+    """bf16 on the tensor-core kernel, fp32 on the SIMT kernel, and never the other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype, want, other in ((torch.bfloat16, "flash_fwd_mma_bf16_kernel", "flash_fwd_kernel"),
+                               (torch.float32, "flash_fwd_kernel", "flash_fwd_mma_bf16_kernel")):
+        q, k, v = _attn(1, 4, 2, 128, 64, dtype)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert any(want in n for n in names), names
+        assert not any(other in n for n in names), names
 
 
 def _ssd(b, l, h, p, n, dtype, seed=0, strided=False):

@@ -95,6 +95,21 @@ def test_build_targets_sm90a_from_repo_sources(monkeypatch):
     assert out.name.startswith("conv2d_im2col-") and out.suffix == ".so"
 
 
+def test_build_digest_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to any csrc/*.cuh header names a new library, never a stale one."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("// a\n")
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second)
+
+
 def test_build_without_a_toolkit_raises(monkeypatch):
     import torch.utils.cpp_extension as cpp
 
