@@ -10,7 +10,8 @@ repository's sources are not beside this script.  Otherwise, in order:
    (one ``nvcc`` per source, all at once) and prints ``ptxas -v``'s
    registers, shared memory and spills; fails unless the tensor-core flash
    kernel ``flash_fwd_mma_bf16_kernel`` compiled at every head dim with no
-   spill;
+   spill, and unless the GEMM's ``gemm_wgmma_bf16_kernel`` compiled with no
+   spill and no ``wgmma`` made to wait by ``ptxas`` (C7517, C7518);
 3. holds each kernel against its plain PyTorch version on the card, at every
    distinct layer shape of full-width SynthNet (microbatch of 2 images) and
    at the reference kernel tests' shapes plus a ragged K, in fp32 with TF32
@@ -59,15 +60,22 @@ repository's sources are not beside this script.  Otherwise, in order:
    and with the same weights in fp32;
 9. the MoE expert GEMM (checked with phase 6): holds ``gemm`` against
    ``gemm_plain`` on the reference tests' grid (fp32 at 2e-4, bf16 at 6e-2,
-   the reference's tolerances) and at the MoE main path's shapes in bf16 (phi3.5-moe prefill
-   capacity 320 and decode capacity 8, llama4-scout prefill capacity 160
-   and decode capacity 8, 16 experts in one launch); times the kernel, the
-   plain version and ``torch.bmm`` (cuBLAS) at each main shape, with its
-   FLOPs, bytes and bound;
+   the reference's tolerances), at capacities around the wgmma tile's
+   edges (M 17, 100, 321, K 4104, N 6408 and 6392, batch 1 and 16: an odd
+   and an even count of column tiles), on a layer slice
+   of a stacked expert tensor, and at the MoE main path's shapes in bf16
+   (phi3.5-moe prefill capacity 320 and decode capacity 8, llama4-scout
+   prefill capacity 160 and decode capacity 8, 16 experts in one launch);
+   at each main shape fails unless prefill ran ``gemm_wgmma_bf16_kernel``
+   and decode ``gemm_mma_bf16_kernel``, and times the kernel, the plain
+   version and ``torch.bmm`` (cuBLAS) by CUDA events and by the profiler's
+   device time, with its FLOPs, bytes and bound;
 10. drives MoE serving like phase 7, with the ``gemm`` launch count beside
    the others: phi3.5-moe-42b at 16 of its 32 layers and llama4-scout-17b at
    4 of its 48, both at full width (full depth does not fit the card's
    80 GB; these depths, well below what would fit, keep the run short);
+   fails unless each profiled bf16 prefill ran ``gemm_wgmma_bf16_kernel``
+   three times a layer (gate, up, down) and never ``gemm_mma_bf16_kernel``;
    phase 8 for both, the fp32 comparison at 2 layers (fp32 weights of 16
    layers would need 84 GB), and the share of (token, expert) assignments
    that the kernel and plain paths route alike, held to ROUTE_FLOOR (see
@@ -152,10 +160,12 @@ LM_MODELS = {
 }
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
-PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_kernel", "gemm_mma_bf16_kernel",
-                "gemm_fma_f32_kernel")
+PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_kernel", "gemm_wgmma_bf16_kernel",
+                "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel")
 #: the two flash kernels as the profiler names them: bf16 on the tensor cores, fp32 on the SIMT pipes
 FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|flash_fwd_kernel)<[^>]*>)")
+#: the GEMM's kernels as the profiler names them (wgmma, mma.sync tiles, fp32 FMA)
+GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -170,27 +180,54 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_flash_ptxas() -> None:
-    """Fail unless ``ptxas`` compiled ``flash_fwd_mma_bf16_kernel`` at every
-    head dim with no spill; print its registers."""
-    lines = build.ptxas_report("flash_attention").splitlines()
+def _ptxas_entries(source: str, mangled: str) -> dict[str, tuple[int, int, int]]:
+    """Registers, spill-store and spill-load bytes of each function of
+    ``source`` whose mangled name matches ``mangled`` (the first group names
+    it), from ``ptxas -v``."""
+    lines = build.ptxas_report(source).splitlines()
     seen = {}
     for i, line in enumerate(lines):
-        name = re.search(r"flash_fwd_mma_bf16_kernelILi(\d+)EE", line)
+        name = re.search(mangled, line)
         if "Compiling entry function" not in line or not name:
             continue
         props = " ".join(lines[i + 1 : i + 4])
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", props)
         regs = re.search(r"Used (\d+) registers", props)
-        d = int(name.group(1))
-        seen[d] = (int(regs.group(1)), int(spill.group(1)), int(spill.group(2)))
-        print(f"[build] flash_fwd_mma_bf16_kernel<{d}>: {seen[d][0]} registers, "
-              f"spill stores {seen[d][1]} B, spill loads {seen[d][2]} B")
+        seen[name.group(1)] = (int(regs.group(1)), int(spill.group(1)), int(spill.group(2)))
+    return seen
+
+
+def check_flash_ptxas() -> None:
+    """Fail unless ``ptxas`` compiled ``flash_fwd_mma_bf16_kernel`` at every
+    head dim with no spill; print its registers."""
+    seen = {int(d): v for d, v in _ptxas_entries("flash_attention", r"flash_fwd_mma_bf16_kernelILi(\d+)EE").items()}
+    for d, (regs, st, ld) in sorted(seen.items()):
+        print(f"[build] flash_fwd_mma_bf16_kernel<{d}>: {regs} registers, spill stores {st} B, spill loads {ld} B")
     if sorted(seen) != list(fa.HEAD_DIMS):
         raise RuntimeError(f"ptxas compiled flash_fwd_mma_bf16_kernel at head dims {sorted(seen)}, want {fa.HEAD_DIMS}")
     spilled = {d: v for d, v in seen.items() if v[1] or v[2]}
     if spilled:
         raise RuntimeError(f"flash_fwd_mma_bf16_kernel spills: {spilled}")
+
+
+def check_gemm_ptxas() -> None:
+    """Fail unless ``ptxas`` compiled ``gemm_wgmma_bf16_kernel`` with no
+    spill and without making its ``wgmma`` wait: C7518 (a wgmma under a
+    branch ptxas cannot prove warp-uniform is serialised) and C7517 (a
+    wait injected where other code touches registers a wgmma in flight
+    defines); print its registers."""
+    seen = {int(c): v for c, v in _ptxas_entries("gemm", r"gemm_wgmma_bf16_kernelILi(\d+)EE").items()}
+    for cluster, (regs, st, ld) in sorted(seen.items()):
+        print(f"[build] gemm_wgmma_bf16_kernel<{cluster}>: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    if sorted(seen) != [1, 2]:
+        raise RuntimeError(f"ptxas compiled gemm_wgmma_bf16_kernel for clusters of {sorted(seen)}, want [1, 2]")
+    spilled = {c: v for c, v in seen.items() if v[1] or v[2]}
+    if spilled:
+        raise RuntimeError(f"gemm_wgmma_bf16_kernel spills: {spilled}")
+    waits = [line for line in build.ptxas_report("gemm").splitlines()
+             if re.search(r"\(C751[78]\)", line) and "gemm_wgmma_bf16_kernel" in line]
+    if waits:
+        raise RuntimeError(f"ptxas made the wgmma of gemm_wgmma_bf16_kernel wait: {waits}")
 
 
 def _conv_shapes(specs, batch: int) -> list[dict]:
@@ -444,14 +481,19 @@ def check_ssd(gen: torch.Generator) -> dict:
 
 
 def check_gemm(gen: torch.Generator) -> dict:
-    """Phase 9 for ``gemm``: parity everywhere, times at the MoE main path's
-    shapes.  The kernels-line row is one phi3.5-moe layer's expert products:
-    its prefill (gate, up, down) plus one decode step (gate, up, down)."""
+    """Phase 9 for ``gemm``: parity everywhere, the kernel each main shape
+    runs, times at the MoE main path's shapes.  The kernels-line row is one
+    phi3.5-moe layer's expert products: its prefill (gate, up, down) plus one
+    decode step (gate, up, down)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [((m, k), (k, n), dt, "reference grid")  # tests/test_kernels.py
              for m, k, n in ((64, 64, 64), (200, 300, 150), (128, 512, 256), (33, 65, 17)) for dt in (f32, bf16)]
     cases += [((3, 33, 65), (3, 65, 17), dt, "batched, ragged") for dt in (f32, bf16)]
-    layer = {}  # phi3.5-moe shape label -> calls per layer
+    # the wgmma tile's edges: M past 16 and past whole 192-row tiles, K and N not whole 64 / 128 tiles
+    cases += [((e, m, 4104), (e, 4104, n), bf16, "wgmma tile edges")  # 51 column tiles: one block a cluster;
+              for e, m, n in ((1, 17, 6408), (1, 100, 6408), (16, 321, 6392))]  # 50: two
+    cases.append(((16, 160, 264), (3, 16, 264, 136), bf16, "layer 1 of a stacked expert tensor"))
+    layer, main = {}, {}  # phi3.5-moe shape label -> calls per layer; main shape label -> kernel it must run
     for arch in ("phi3.5-moe-42b", "llama4-scout-17b"):
         cfg = get_config(arch)
         E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
@@ -459,13 +501,18 @@ def check_gemm(gen: torch.Generator) -> dict:
             cap = blocks.moe_capacity(cfg, tokens)
             up, down = f"{arch} {phase} gate/up", f"{arch} {phase} down"
             cases += [((E, cap, d), (E, d, f), bf16, up), ((E, cap, f), (E, f, d), bf16, down)]
+            kernel = "gemm_wgmma_bf16_kernel" if phase == "prefill" else "gemm_mma_bf16_kernel"
+            main.update({up: kernel, down: kernel})
             if arch == "phi3.5-moe-42b":
                 layer.update({up: 2, down: 1})
     cases.append(((16, 320, 4096), (16, 4096, 6400), f32, "phi3.5-moe-42b prefill gate/up, fp32"))
-    max_err, tot = 0.0, {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
+    max_err = 0.0
+    tot = {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "flops", "bytes")}
     for sa, sb, dt, label in cases:
         a = torch.randn(sa, generator=gen, device="cuda").to(dt)
         b = (torch.randn(sb, generator=gen, device="cuda") / sb[-2] ** 0.5).to(dt)
+        if len(sb) == 4:  # the model's view: one layer of an [L, E, K, N] stack, at a nonzero offset
+            b = b[1]
         y, yp = gm.gemm(a, b), gm.gemm_plain(a, b)
         torch.cuda.synchronize()
         desc = {"a": list(sa), "b": list(sb), "dtype": str(dt).removeprefix("torch."), "case": label}
@@ -473,15 +520,22 @@ def check_gemm(gen: torch.Generator) -> dict:
         if not torch.allclose(y.float(), yp.float(), rtol=GEMM_TOL[dt], atol=GEMM_TOL[dt]):
             raise RuntimeError(f"gemm disagrees with its plain version at {desc}: max abs err {err}")
         max_err = max(max_err, err)
-        row = {**desc, "max_abs_err": err, "max_abs_plain": yp.float().abs().max().item()}
-        if dt == bf16 and len(sa) == 3 and label != "batched, ragged":
+        row = {**desc, "max_abs_err": err, "max_abs_plain": yp.float().abs().max().item(),
+               "kernel": gm.KERNELS[gm.route(dt, a.shape[-2], a.shape[-1], b.shape[-1], gm._aligned(a) and gm._aligned(b))]}
+        if label in main:
             E, M, K = sa
             flops, nbytes = 2.0 * E * M * K * sb[-1], 2.0 * (a.numel() + b.numel() + y.numel())
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
             row.update(flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
                        ms=_time_ms(lambda: gm.gemm(a, b)), plain_ms=_time_ms(lambda: gm.gemm_plain(a, b)),
                        library_ms=_time_ms(lambda: torch.bmm(a, b)))
-            row["tflops"] = flops / row["ms"] / 1e9
+            row["device_ms"], ran = _device_ms(lambda: gm.gemm(a, b))
+            row["library_device_ms"], _ = _device_ms(lambda: torch.bmm(a, b))
+            fns = sorted({m.group(1) for n in ran if (m := GEMM_FN.search(n))})
+            if not fns or not all(fn.startswith(main[label]) for fn in fns):
+                raise RuntimeError(f"gemm at {label} ran {fns}, want {main[label]}")
+            row.update(ran=fns, tflops=flops / row["device_ms"] / 1e9, bmm_ratio=row["ms"] / row["library_ms"],
+                       bmm_device_ratio=row["device_ms"] / row["library_device_ms"])
             for key in tot:
                 tot[key] += layer.get(label, 0) * row[key]
         print(f"[check] gemm {json.dumps(row)}")
@@ -496,6 +550,7 @@ def check_gemm(gen: torch.Generator) -> dict:
         "replaces": "src/repro/kernels/gemm.py:37",
         "max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": tot["library_ms"],
+        "device_ms": tot["device_ms"], "library_device_ms": tot["library_device_ms"],
     }
 
 
@@ -513,11 +568,15 @@ def _host_ms(fn, reps: int = 20) -> float:
 
 
 def _device_ms(fn, reps: int = 20) -> tuple[float, dict[str, int]]:
-    """Device time per call of ``fn`` from the profiler (every kernel, copy and
-    memset it runs, summed over ``reps`` calls), and the device kernels it ran,
-    by the profiler's name, with their calls per call.  Unlike ``_time_ms`` it
-    excludes the host's gaps between calls: a call that takes the host longer
-    to issue than the card to run reads as the card's time."""
+    """Device time per call of ``fn`` from the profiler, and the device
+    kernels it ran, by the profiler's name, with their calls per call.  Each
+    kernel, copy and memset counts at its mean time per record times its
+    records per call, rounded: the profiler can hand some of a window's last
+    records to the next window, so the window's own kernels keep their
+    per-call time, and a name with under half a record per call is another
+    window's and is left out.  Unlike ``_time_ms`` it
+    excludes the host's gaps between calls: a call that takes the host
+    longer to issue than the card to run reads as the card's time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -527,8 +586,9 @@ def _device_ms(fn, reps: int = 20) -> tuple[float, dict[str, int]]:
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
-    return (sum(e.self_device_time_total for e in events) / 1e3 / reps,
-            {e.key[:120]: e.count // reps for e in events})
+    per_call = [(e, round(e.count / reps)) for e in events]
+    return (sum(e.self_device_time_total / e.count * n for e, n in per_call) / 1e3,
+            {e.key[:120]: n for e, n in per_call if n})
 
 
 def _kernel_table(prof, wall_s: float) -> dict:
@@ -555,6 +615,7 @@ def _kernel_table(prof, wall_s: float) -> dict:
         "by_kind_ms": kinds,
         "top": [{"kernel": n[:60], "ms": ms, "calls": c} for n, ms, c in rows[:6]],
         "flash_calls": {m.group(1): c for n, _, c in rows if (m := FLASH_FN.search(n))},
+        "gemm_calls": {m.group(1): c for n, _, c in rows if (m := GEMM_FN.search(n))},
     }
 
 
@@ -699,8 +760,15 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None,
     prompt = make_prompt(cfg, LM_BATCH, LM_PROMPT, 0, "cuda")
     forced = tokens[:, :LM_FORCED]
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    flash_calls = _time_lm(arch, cfg, params, prompt)["flash_calls"]
+    table = _time_lm(arch, cfg, params, prompt)
+    flash_calls, gemm_calls = table["flash_calls"], table["gemm_calls"]
     served_by = None
+    if "gemm" in kernels:  # bf16 prefill: every expert product on wgmma, none on the mma.sync tiles
+        wgmma = {n: c for n, c in gemm_calls.items() if n.startswith("gemm_wgmma_bf16_kernel")}
+        if len(wgmma) != 1 or len(gemm_calls) != 1 or sum(wgmma.values()) != 3 * cfg.n_layers:
+            raise RuntimeError(f"{arch}: the profiled bf16 prefill ran {gemm_calls}, want gemm_wgmma_bf16_kernel "
+                               f"three times per layer ({3 * cfg.n_layers})")
+        print(f"[lm] {arch}: prefill expert products served by {json.dumps(gemm_calls)}")
     if "flash_attention" in kernels:  # bf16 prefill: the tensor-core kernel once per layer, never the SIMT one
         mma = {n: c for n, c in flash_calls.items() if n.startswith("flash_fwd_mma_bf16_kernel")}
         if len(mma) != 1 or len(flash_calls) != 1 or sum(mma.values()) != cfg.n_layers:
@@ -776,6 +844,7 @@ def main() -> int:
     for name in sorted(paths):
         print(f"[build] {name}:\n{build.ptxas_report(name)}")
     check_flash_ptxas()
+    check_gemm_ptxas()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()

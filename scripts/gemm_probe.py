@@ -1,0 +1,106 @@
+"""Time the bf16 prefill GEMM kernel whole and in parts, beside ``torch.bmm``.
+
+    python3 scripts/gemm_probe.py
+
+Builds ``csrc/gemm.cu`` three more times, at the same time as the shipped
+library, with ``-DGEMM_PROBE=1`` (the loads alone: no products), ``2`` (the
+products alone: no loads) and ``3`` (no 2-block clusters: every block loads
+its own A tile), and times ``gemm_wgmma_bf16_kernel`` through the port's
+wrapper at the MoE prefill shapes of phi3.5-moe and llama4-scout (bf16, 16
+experts, capacities 320 and 160, gate/up and down), in the order shipped,
+probes, probes in reverse, shipped: device time per call from the profiler,
+with ``chip_smoke.py``'s helper, and ``torch.bmm`` the same way.  When the
+loads alone take about as long as the whole kernel, the loads bound it;
+when the products alone do, the tensor cores.  Prints the card's name and
+power limit and one JSON line per shape; fails if a build that computes the
+product (shipped, no cluster) disagrees with the plain version.  Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+from unittest import mock
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (also puts the port on sys.path)
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import gemm as gm  # noqa: E402
+from repro_torch.models import blocks  # noqa: E402
+
+MODELS = ("phi3.5-moe-42b", "llama4-scout-17b")
+#: build -> its GEMM_PROBE value (None: the shipped library)
+PROBES = {"shipped": None, "loads alone": 1, "products alone": 2, "no cluster": 3}
+
+
+def _build() -> dict[str, ctypes.CDLL]:
+    """The shipped library and one copy per probe, all compiled at once."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stem = build.library_path("gemm").stem
+    procs = {}
+    for name, probe in PROBES.items():
+        if probe is not None:
+            out = build.BUILD_DIR / f"{stem}-probe{probe}.so"
+            procs[name] = (out, subprocess.Popen(build.nvcc_command("gemm", out) + [f"-DGEMM_PROBE={probe}"],
+                                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {"shipped": build.library("gemm")}
+    for name, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc ({name}) exited {proc.returncode}:\n{log}")
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def _using(lib: ctypes.CDLL):
+    """Point the wrapper at ``lib`` for the duration of the context."""
+    gm._kernel.cache_clear()
+    return mock.patch.object(build, "library", lambda name: lib)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("gemm_probe: no CUDA device visible", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(f"[card] {smi.stdout.strip().splitlines()[0]}")
+    libs = _build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    order = [*PROBES, *reversed(PROBES)]
+    for arch in MODELS:
+        cfg = get_config(arch)
+        E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        cap = blocks.moe_capacity(cfg, cs.LM_BATCH * cs.LM_PROMPT)
+        for what, (sa, sb) in (("gate/up", ((E, cap, d), (E, d, f))), ("down", ((E, cap, f), (E, f, d)))):
+            a = torch.randn(sa, generator=gen, device="cuda").to(torch.bfloat16)
+            b = (torch.randn(sb, generator=gen, device="cuda") / sb[-2] ** 0.5).to(torch.bfloat16)
+            want = gm.gemm_plain(a, b).float()
+            out: dict = {"model": arch, "product": what, "a": list(sa), "b": list(sb)}
+            for name in order:
+                with _using(libs[name]):
+                    got = gm.gemm(a, b)
+                    torch.cuda.synchronize()
+                    if PROBES[name] not in (1, 2):
+                        err = (got.float() - want).abs().max().item()
+                        out[f"max_abs_err {name}"] = err
+                        if not torch.allclose(got.float(), want, rtol=cs.GEMM_TOL[torch.bfloat16],
+                                              atol=cs.GEMM_TOL[torch.bfloat16]):
+                            raise RuntimeError(f"{arch} {what}: the {name} build disagrees with the plain version")
+                    out.setdefault(f"device_ms {name}", []).append(cs._device_ms(lambda: gm.gemm(a, b))[0])
+            gm._kernel.cache_clear()
+            out["bmm device_ms"] = cs._device_ms(lambda: torch.bmm(a, b))[0]
+            print(json.dumps(out))
+            del a, b, want
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

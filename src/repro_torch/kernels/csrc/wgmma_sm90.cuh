@@ -1,0 +1,196 @@
+// Warpgroup-level Hopper primitives shared by the sm_90a kernels that feed
+// the tensor cores through TMA: mbarrier init / arrive (local or in another
+// block of the cluster) / expect-tx / try-wait, the cluster barrier,
+// the 3-D TMA tile load (cp.async.bulk.tensor) that completes on an
+// mbarrier, alone or multicast to the cluster, wgmma shared-memory
+// descriptors for the 128-byte swizzle,
+// wgmma fence / commit / wait, wgmma.mma_async m64n128k16 bf16 with fp32
+// accumulators, and setmaxnreg.
+//
+// Layouts (PTX ISA, "Matrix Descriptor" and the canonical layouts of
+// wgmma): a tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B is a
+// stack of 128-byte rows whose 16-byte chunks are XOR-ed with (row % 8);
+// eight rows make one 1024-byte swizzle atom, which must start 1024-byte
+// aligned.  For a K-major operand (rows along M or N, 64 bf16 of K per
+// row) the descriptor's stride byte offset is the 1024 bytes from one
+// eight-row group to the next, the leading byte offset is unused, and the
+// k16 steps inside the 64-wide row advance the start address by 32 bytes.
+// For an MN-major operand (rows along K, 64 bf16 of M or N per row) the
+// stride byte offset is the 1024 bytes from one eight-row group of K to the
+// next, the leading byte offset the distance from one 64-wide block of M or
+// N to the next, and a k16 step advances the start by 16 rows, 2048 bytes.
+// The fragment of the fp32 accumulator is mma.sync's C layout repeated
+// along N: warp w of the warpgroup holds rows 16w + lane / 4 (registers
+// 4j, 4j + 1) and 16w + 8 + lane / 4 (4j + 2, 4j + 3), at columns
+// 8j + 2 (lane % 4) + {0, 1}.
+#pragma once
+
+#include <cuda.h>
+#include <stdint.h>
+
+#include "mma_sm90.cuh"
+
+// ---------------------------------------------------------------------------
+// mbarrier
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Makes the initialised barriers visible to the other threads and to the async proxy (TMA).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival, and `bytes` more to be delivered by TMA before the phase can complete.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.  A fresh barrier is
+// in phase 0, so waiting on parity 1 returns at once (a ring's empty slots).
+// The retry loop stays inside the asm, so the compiler sees no divergent
+// branch around the wgmma that follows.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival on the barrier at the same shared-memory offset as `bar` in
+// block `cta` of this block's cluster (this block included).  The arrive
+// keeps its default CTA-scope release, as CUTLASS's cluster barriers do: the
+// wgmma wait before it already orders the reads of the stage it releases,
+// and a cluster-scope release on every arrive slowed the GEMM's ring far
+// more than the multicast it serves saved.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters
+// ---------------------------------------------------------------------------
+
+// Every thread of every block of the cluster arrives, then waits for all.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// The box of `map` at coordinates (c0 innermost, c1, c2) into shared memory at
+// `dst`; its bytes count towards `bar`'s expected transaction bytes.  Out of
+// bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same, written to the same offset in every block of the cluster named in
+// `cta_mask`, each of whose barriers at `bar`'s offset receives the bytes.
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                                      int c2, uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "h"(cta_mask)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled operand tile starting at `tile`
+// (addresses and offsets in bytes, multiples of 16).
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (smem_addr(tile) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
+  d |= 1ull << 62;  // layout type 1: 128-byte swizzle
+  return d;
+}
+
+// Orders this warpgroup's register writes (the accumulators) before the wgmma that follows.
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+// Waits until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the accumulator registers in place around the asynchronous wgmma: the
+// compiler may not move reads or writes of `d` across this point.
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] = A[64 x 16] . B[16 x 128] + (accumulate ? d : 0), bf16 in, fp32
+// accumulators: A K-major (transpose bit 0), B MN-major (transpose bit 1, N
+// contiguous).
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_kn(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// Register reallocation between warpgroups (every warp of the warpgroup executes it)
+// ---------------------------------------------------------------------------
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}

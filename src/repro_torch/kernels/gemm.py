@@ -4,11 +4,13 @@ Replaces ``repro/kernels/gemm.py::gemm`` (Pallas ``_gemm_kernel``):
 ``C = A·B`` with an fp32 accumulator and the output in ``a.dtype``.  On the
 LM path it runs the three capacity-batched expert products of
 ``blocks.moe_ffn_local`` (the reference's einsums ``ecd,edf->ecf`` and
-``ecf,efd->ecd``), all experts in one launch.  The kernel,
-``csrc/gemm.cu``, runs bf16 on the tensor cores (``mma.sync`` m16n8k16,
-fp32 accumulators, a 4-stage ``cp.async`` ring, the tile picked by M) and
-fp32 on the FMA pipes with no TF32; ragged edges are masked in the kernel,
-not padded (see the source note).
+``ecf,efd->ecd``), all experts in one launch.  ``csrc/gemm.cu`` holds five
+kernels and :func:`route` picks one by type, M and alignment alone: bf16
+prefill products (M > 16, rows the TMA can address) on
+``gemm_wgmma_bf16_kernel`` (``wgmma`` fed by TMA through an ``mbarrier``
+ring), bf16 decode (M <= 16) and unaligned bf16 on ``mma.sync`` tiles, fp32
+on the FMA pipes with no TF32.  Ragged edges are handled in the kernels, not
+padded (see the source note).
 
 :func:`gemm_plain` is the same function in fp32 PyTorch, cast to
 ``a.dtype``, as the reference's ``gemm_ref``; the CPU path and the on-card
@@ -22,10 +24,34 @@ import functools
 
 import torch
 
-#: launches of the CUDA kernel since this count was last set to 0
+#: launches of the CUDA kernels since this count was last set to 0
 launches = 0
+#: gemm_fwd's own error codes (csrc/gemm.cu): no tensor-map encoder; a refused map (+ CUresult)
+_NO_ENCODER, _TENSOR_MAP_ERROR = 9999, 10000
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels of ``csrc/gemm.cu``, indexed by the route code ``gemm_fwd`` takes
+KERNELS = (
+    "gemm_fma_f32_kernel",  # fp32
+    "gemm_mma_bf16_kernel<16, 128> 16-byte rows",  # bf16, M <= 16
+    "gemm_mma_bf16_kernel<16, 128> masked",  # bf16, M <= 16, rows not 16-byte aligned
+    "gemm_mma_bf16_kernel<64, 256> masked",  # bf16, M > 16, rows not 16-byte aligned
+    "gemm_wgmma_bf16_kernel",  # bf16, M > 16, rows the TMA can address
+)
+
+
+def route(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool) -> int:
+    """Index in :data:`KERNELS` of the kernel that computes a [m, k] · [k, n]
+    product, by shape, type and alignment alone.  ``aligned``: every row of
+    a, b and the output starts 16-byte aligned (:func:`_aligned`).  bf16
+    rows the TMA can address need that and K, N multiples of 8."""
+    if dtype == torch.float32:
+        return 0
+    if dtype != torch.bfloat16:
+        raise TypeError(f"gemm takes float32 or bfloat16, got {dtype}")
+    vec = aligned and k % 8 == 0 and n % 8 == 0
+    if m <= 16:
+        return 1 if vec else 2
+    return 4 if vec else 3
 
 
 def _check_shapes(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -62,7 +88,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gemm needs CUDA tensors, got {a.device}, {b.device}")
     if a.device != b.device or a.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {a.device}/{b.device}, current device cuda:{torch.cuda.current_device()}")
-    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+    if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
         raise TypeError(f"gemm takes float32 or bfloat16 alike, got {a.dtype}, {b.dtype}")
     _check_shapes(a, b)
     if a.stride(-1) != 1 or b.stride(-1) != 1:
@@ -76,14 +102,18 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if E > 65535 or -(-M // 16) > 65535:
         raise ValueError(f"gemm too large for the kernel's grid: a {tuple(a.shape)}, b {tuple(b.shape)}")
     c = torch.empty((E, M, N), dtype=a.dtype, device=a.device)
-    vec = a.dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 and _aligned(a3) and _aligned(b3)
+    kernel = route(a.dtype, M, K, N, _aligned(a3) and _aligned(b3))
     err = _kernel()(
-        a3.data_ptr(), b3.data_ptr(), c.data_ptr(), _DTYPES[a.dtype], E, M, N, K,
+        a3.data_ptr(), b3.data_ptr(), c.data_ptr(), kernel, E, M, N, K,
         a3.stride(0), a3.stride(1), b3.stride(0), b3.stride(1), c.stride(0), c.stride(1),
-        int(vec), torch.cuda.current_stream(a.device).cuda_stream,
+        torch.cuda.current_stream(a.device).cuda_stream,
     )
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"gemm: {KERNELS[kernel]}: the driver refused a tensor map (CUresult {err - _TENSOR_MAP_ERROR})")
+    if err == _NO_ENCODER:
+        raise RuntimeError(f"gemm: {KERNELS[kernel]}: no cuTensorMapEncodeTiled in the loaded CUDA driver")
     if err != 0:
-        raise RuntimeError(f"gemm launch failed: cudaError {err}")
+        raise RuntimeError(f"gemm: {KERNELS[kernel]} launch failed: cudaError {err}")
     launches += 1
     return c if batched else c[0]
 
@@ -93,6 +123,6 @@ def _kernel():
     from .build import library
 
     fn = library("gemm").gemm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

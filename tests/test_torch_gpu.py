@@ -401,6 +401,67 @@ def test_gemm_launch_counts_once_and_ops_routes_cuda_to_it():
     assert gm.launches == before + 2
 
 
+@pytest.mark.parametrize("batch,n", [(1, 6408), (16, 6392)])
+@pytest.mark.parametrize("m", [17, 64, 100, 160, 320, 321])
+def test_gemm_wgmma_matches_plain_past_whole_tiles(m, batch, n):
+    """The wgmma route at every capacity that matters and its neighbours, K
+    and N not whole tiles (64 and 128): TMA's zero fill and the masked
+    stores at every edge, inside each expert.  N 6408 makes 51 column tiles
+    (one block a cluster), 6392 makes 50 (two-block clusters sharing A)."""
+    a, b = _gemm_inputs((batch, m, 4104), (batch, 4104, n), torch.bfloat16)
+    assert gm.route(a.dtype, m, 4104, n, gm._aligned(a) and gm._aligned(b)) == gm.KERNELS.index(
+        "gemm_wgmma_bf16_kernel")
+    y = gm.gemm(a, b)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.is_contiguous() and tuple(y.shape) == (batch, m, n)
+    torch.testing.assert_close(y.float(), gm.gemm_plain(a, b).float(), **GEMM_TOL[torch.bfloat16])
+
+
+def test_gemm_wgmma_takes_layer_slices_of_the_expert_stacks():
+    """Tensor maps over strided views: a layer slice of an [L, E, K, N] stack
+    (a base offset per layer) and every other row of the capacity buffer."""
+    a, w = _gemm_inputs((4, 200, 264), (3, 4, 264, 136), torch.bfloat16)
+    a = a[:, ::2]  # 100 rows, row stride 528
+    wgmma = gm.KERNELS.index("gemm_wgmma_bf16_kernel")
+    for layer in (1, 2):
+        assert w[layer].storage_offset() > 0
+        assert gm.route(a.dtype, 100, 264, 136, gm._aligned(a) and gm._aligned(w[layer])) == wgmma
+        y = ops.gemm(a, w[layer])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.float(), gm.gemm_plain(a, w[layer]).float(), **GEMM_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize(
+    "sa,sb,view,want,other",
+    [
+        ((16, 8, 4096), (16, 4096, 640), None, "gemm_mma_bf16_kernel", "gemm_wgmma_bf16_kernel"),  # decode, M = 8
+        ((2, 16, 64), (2, 64, 128), None, "gemm_mma_bf16_kernel", "gemm_wgmma_bf16_kernel"),  # M = 16
+        ((2, 100, 80), (2, 80, 72), "unaligned", "gemm_mma_bf16_kernel", "gemm_wgmma_bf16_kernel"),
+        ((2, 100, 65), (2, 65, 72), None, "gemm_mma_bf16_kernel", "gemm_wgmma_bf16_kernel"),  # K not a multiple of 8
+        ((2, 17, 64), (2, 64, 128), None, "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel"),  # M = 17
+        ((16, 320, 512), (16, 512, 640), None, "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel"),
+    ],
+)
+def test_gemm_runs_the_kernel_of_its_route(sa, sb, view, want, other):
+    """Decode's M <= 16 and rows the TMA cannot address stay on mma.sync;
+    aligned bf16 past 16 rows runs wgmma, and never the other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b = _gemm_inputs(sa, sb, torch.bfloat16)
+    if view == "unaligned":  # rows start 6 bytes past a 16-byte boundary
+        a = torch.cat([a, a[..., :8]], -1)[..., 3 : 3 + sa[-1]]
+    y = gm.gemm(a, b)  # warm: the profiler below sees steady launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            gm.gemm(a, b)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any(want in n for n in names), names
+    assert not any(other in n for n in names), names
+    torch.testing.assert_close(y.float(), gm.gemm_plain(a, b).float(), **GEMM_TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize(
     "mutate,err",
     [

@@ -1,9 +1,10 @@
-"""The port's conv kernel module against the JAX package's (CPU).
+"""The port's conv kernel module against the JAX package's (CPU), the
+kernel build, and the batched GEMM's choice of kernel.
 
 Inputs come from numpy with a seed and go to both packages.  The plain
 PyTorch version (what a CPU tensor runs) is held against the Pallas kernel in
 interpret mode and against ``lax.conv``, at the reference's tolerance 3e-4.
-The CUDA kernel itself runs only on the card: ``tests/test_torch_gpu.py``.
+The CUDA kernels themselves run only on the card: ``tests/test_torch_gpu.py``.
 """
 
 import numpy as np
@@ -116,3 +117,53 @@ def test_build_without_a_toolkit_raises(monkeypatch):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="no CUDA toolkit"):
         build.nvcc_command("conv2d_im2col", build.library_path("conv2d_im2col"))
+
+
+# ---------------------------------------------------------------------------
+# The batched GEMM's choice of kernel (shape, type and alignment alone)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import gemm as gm  # noqa: E402
+
+WGMMA, MMA16, MMA16_MASKED, MMA64_MASKED, FMA = (gm.KERNELS.index(n) for n in (
+    "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel<16, 128> 16-byte rows", "gemm_mma_bf16_kernel<16, 128> masked",
+    "gemm_mma_bf16_kernel<64, 256> masked", "gemm_fma_f32_kernel"))
+
+
+@pytest.mark.parametrize(
+    "dtype,m,k,n,aligned,want",
+    [
+        (torch.bfloat16, 320, 4096, 6400, True, WGMMA),  # phi3.5-moe prefill gate/up
+        (torch.bfloat16, 320, 6400, 4096, True, WGMMA),  # ... down
+        (torch.bfloat16, 160, 5120, 8192, True, WGMMA),  # llama4-scout prefill
+        (torch.bfloat16, 17, 4104, 6408, True, WGMMA),  # the first M past decode's tile, ragged K and N
+        (torch.bfloat16, 321, 8, 8, True, WGMMA),
+        (torch.bfloat16, 16, 4096, 6400, True, MMA16),  # decode keeps the 16-row mma.sync tile
+        (torch.bfloat16, 8, 6400, 4096, True, MMA16),
+        (torch.bfloat16, 8, 65, 17, True, MMA16_MASKED),
+        (torch.bfloat16, 8, 64, 64, False, MMA16_MASKED),
+        (torch.bfloat16, 320, 4100, 6400, True, MMA64_MASKED),  # K not a multiple of 8: no TMA
+        (torch.bfloat16, 320, 4096, 6404, True, MMA64_MASKED),  # N not a multiple of 8
+        (torch.bfloat16, 320, 4096, 6400, False, MMA64_MASKED),  # a row not 16-byte aligned
+        (torch.float32, 320, 4096, 6400, True, FMA),  # fp32 never leaves the FMA pipes
+        (torch.float32, 8, 64, 64, False, FMA),
+    ],
+)
+def test_gemm_route_is_picked_by_shape_type_and_alignment(dtype, m, k, n, aligned, want):
+    assert gm.route(dtype, m, k, n, aligned) == want
+    assert gm.route(dtype, m, k, n, aligned) == want  # deterministic
+
+
+def test_gemm_route_lists_each_kernel_once_and_refuses_other_types():
+    assert len(set(gm.KERNELS)) == len(gm.KERNELS) == 5
+    assert {gm.route(dt, m, 64, 64, al) for dt in (torch.float32, torch.bfloat16) for m in (8, 64)
+            for al in (True, False)} == set(range(len(gm.KERNELS)))
+    with pytest.raises(TypeError):
+        gm.route(torch.float16, 64, 64, 64, True)
+
+
+def test_gemm_alignment_reads_every_row_start():
+    x = torch.zeros((3, 40, 72), dtype=torch.bfloat16)
+    assert gm._aligned(x) and gm._aligned(x[1]) and gm._aligned(x[:, ::2])
+    assert not gm._aligned(x[:, :, 3:67])  # row starts 6 bytes past 16-byte boundaries
+    assert not gm._aligned(torch.zeros((4, 36), dtype=torch.bfloat16)[:, :32])  # row stride 72 bytes
