@@ -11,13 +11,21 @@ repository's sources are not beside this script.  Otherwise, in order:
    registers, shared memory and spills; fails unless the tensor-core flash
    kernel ``flash_fwd_mma_bf16_kernel`` compiled at every head dim with no
    spill, and unless the GEMM's ``gemm_wgmma_bf16_kernel`` compiled with no
-   spill and no ``wgmma`` made to wait by ``ptxas`` (C7517, C7518);
+   spill and no ``wgmma`` made to wait by ``ptxas`` (C7517, C7518), and
+   unless every conv kernel (each tile of ``im2col_conv.TILES``, 16-byte
+   and 4-byte copies, and the split sum) compiled with no spill, printing
+   the blocks of each one SM holds;
 3. holds each kernel against its plain PyTorch version on the card, at every
    distinct layer shape of full-width SynthNet (microbatch of 2 images) and
    at the reference kernel tests' shapes plus a ragged K, in fp32 with TF32
-   off (tolerance 3e-4 absolute and relative, the reference's); times the
-   kernel, the plain version and cuDNN's ``F.conv2d`` on the SynthNet
-   shapes and computes each shape's bound on the H100 SXM;
+   off (tolerance 3e-4 absolute and relative, the reference's), and the
+   conv against itself over two calls (the same bits); prints each shape's
+   plan (tile, splits, blocks) and fails if a SynthNet shape launches fewer
+   blocks than the card has SMs; times the kernel, the plain version and
+   cuDNN's ``F.conv2d`` (``cudnn.benchmark`` off, and on as
+   ``library_best_ms``) on the SynthNet shapes by CUDA events, the kernel
+   and cuDNN also by the profiler's device time and by the host's time to
+   issue a call, and computes each shape's bound on the H100 SXM;
 4. drives the main path — ``launch.serve_cnn.serve_cnn`` at full width:
    measure each layer, Shisha H3, 4-stage stream pipeline of 8 microbatches,
    straggler rebalance — with every launch count set to 0 just before and
@@ -230,6 +238,29 @@ def check_gemm_ptxas() -> None:
         raise RuntimeError(f"ptxas made the wgmma of gemm_wgmma_bf16_kernel wait: {waits}")
 
 
+def check_conv_ptxas() -> None:
+    """Fail unless ``ptxas`` compiled ``conv2d_im2col_kernel`` for every
+    tile of ``im2col_conv.TILES`` with 16-byte and with 4-byte copies, and
+    the split sum, with no spill; print each kernel's registers and the
+    blocks of it one SM holds at once."""
+    seen = _ptxas_entries("conv2d_im2col", r"(conv2d_im2col_kernelILi\d+ELi\d+ELb[01]EE|conv_split_sum_kernel)")
+    want = {f"conv2d_im2col_kernelILi{bm}ELi{bn}ELb{v}EE" for bm, bn in im2col_conv.TILES for v in (0, 1)}
+    want.add("conv_split_sum_kernel")
+    for name, (regs, st, ld) in sorted(seen.items()):
+        tile = re.match(r"conv2d_im2col_kernelILi(\d+)ELi(\d+)ELb([01])EE", name)
+        occ = ""
+        if tile:
+            bm, bn, v = (int(g) for g in tile.groups())
+            name = f"conv2d_im2col_kernel<{bm}, {bn}, {'16-byte' if v else '4-byte'} copies>"
+            occ = f", {im2col_conv.occupancy(bm, bn, bool(v))} blocks an SM"
+        print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B{occ}")
+    if set(seen) != want:
+        raise RuntimeError(f"ptxas compiled conv kernels {sorted(seen)}, want {sorted(want)}")
+    spilled = {n: v for n, v in seen.items() if v[1] or v[2]}
+    if spilled:
+        raise RuntimeError(f"conv kernels spill: {spilled}")
+
+
 def _conv_shapes(specs, batch: int) -> list[dict]:
     """Distinct (x, w, stride) shapes the layers give the conv, with the
     layers that share each."""
@@ -242,8 +273,49 @@ def _conv_shapes(specs, batch: int) -> list[dict]:
     return list(shapes.values())
 
 
+def conv_inputs(sh: dict, gen: torch.Generator) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Random x and w (scaled by 1/sqrt(R*S*C)) of one conv shape, on the card."""
+    x = torch.randn(sh["x"], generator=gen, device="cuda")
+    r, s, c, _ = sh["w"]
+    w = torch.randn(sh["w"], generator=gen, device="cuda") / (r * s * c) ** 0.5
+    return x, w, sh["stride"]
+
+
+def cudnn_conv(x: torch.Tensor, w: torch.Tensor, stride: int):
+    """cuDNN's ``F.conv2d`` on the same conv as a call: NCHW views of the
+    NHWC data, padded beforehand (asymmetric SAME padding is not one
+    ``F.conv2d`` argument)."""
+    r, s = w.shape[:2]
+    _, _, pt, pb, pl, pr = im2col_conv.same_padding(x.shape[1], x.shape[2], r, s, stride)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xp, wl, stride=stride)
+
+
+def cudnn_ms(x: torch.Tensor, w: torch.Tensor, stride: int, device: bool = False) -> tuple[float, float]:
+    """:func:`cudnn_conv`'s time (TF32 off), by CUDA events: with
+    ``cudnn.benchmark`` off (the algorithm its heuristic picks:
+    ``library_ms``) and on (the fastest one it finds by timing:
+    ``library_best_ms``), then the setting restored; with ``device``, by the
+    profiler's device time instead (``_device_ms``)."""
+    call = cudnn_conv(x, w, stride)
+    before = torch.backends.cudnn.benchmark
+    def timer(fn):
+        return _device_ms(fn)[0] if device else _time_ms(fn)
+
+    try:
+        torch.backends.cudnn.benchmark = False
+        plain = timer(call)
+        torch.backends.cudnn.benchmark = True
+        best = timer(call)
+    finally:
+        torch.backends.cudnn.benchmark = before
+    return plain, best
+
+
 def check_conv(gen: torch.Generator) -> dict:
-    """Phase 3 for ``conv2d_im2col``: parity everywhere, times on SynthNet."""
+    """Phase 3 for ``conv2d_im2col``: parity everywhere, the same bits over
+    two calls, each SynthNet shape's plan, times on SynthNet."""
     synth = _conv_shapes(synthnet_specs(), batch=BATCH)
     extra = [
         {"x": (2, 12, 12, 8), "w": (r, r, 8, 24), "stride": st, "layers": []}
@@ -253,29 +325,33 @@ def check_conv(gen: torch.Generator) -> dict:
         {"x": (3, 13, 11, 5), "w": (3, 3, 5, 67), "stride": 1, "layers": []},  # ragged K, M, C
         {"x": (2, 20, 20, 8), "w": (11, 11, 8, 17), "stride": 4, "layers": []},  # 11x11 stride 4, ragged K
     ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, max_err = [], 0.0
     for sh in synth + extra:
-        x = torch.randn(sh["x"], generator=gen, device="cuda")
+        x, w, st = conv_inputs(sh, gen)
         r, s, c, k = sh["w"]
-        w = torch.randn(sh["w"], generator=gen, device="cuda") / (r * s * c) ** 0.5
-        st = sh["stride"]
         y = im2col_conv.conv2d_im2col(x, w, stride=st)
+        again = im2col_conv.conv2d_im2col(x, w, stride=st)
         yp = im2col_conv.conv2d_im2col_plain(x, w, stride=st)
         torch.cuda.synchronize()
         err = (y - yp).abs().max().item()
         max_err = max(max_err, err)
         if not torch.allclose(y, yp, rtol=KERNEL_TOL, atol=KERNEL_TOL):
             raise RuntimeError(f"conv2d_im2col disagrees with its plain version at {sh}: max abs err {err}")
-        row = {"x": list(sh["x"]), "w": list(sh["w"]), "stride": st, "max_abs_err": err}
+        if not torch.equal(y, again):
+            raise RuntimeError(f"conv2d_im2col gave other bits on a second call at {sh}")
+        p = im2col_conv.plan(tuple(x.shape), tuple(w.shape), st, sms=sms)
+        row = {"x": list(sh["x"]), "w": list(sh["w"]), "stride": st, "max_abs_err": err,
+               "plan": {"tile": f"{p.bm}x{p.bn}", "thread": f"{p.tm}x{p.tn}", "splits": p.splits,
+                        "blocks": p.blocks, "copies": 16 if p.vector else 4}}
         if sh["layers"]:
+            if p.blocks < sms:
+                raise RuntimeError(f"plan {p} launches {p.blocks} blocks on {sms} SMs at {sh}")
             n, h, wd, _ = sh["x"]
-            ho, wo, pt, pb, pl, pr = im2col_conv.same_padding(h, wd, r, s, st)
+            ho, wo = -(-h // st), -(-wd // st)
             flops = 2.0 * n * ho * wo * k * r * s * c
             nbytes = 4.0 * (x.numel() + w.numel() + y.numel())
-            # cuDNN yardstick: NCHW views of the NHWC data, padded beforehand
-            # (asymmetric SAME padding is not one F.conv2d argument)
-            xp = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
-            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            lib_ms, lib_best_ms = cudnn_ms(x, w, st)
             row.update(
                 layers=sh["layers"],
                 flops=flops,
@@ -284,7 +360,12 @@ def check_conv(gen: torch.Generator) -> dict:
                 bound_by="operations" if flops / PEAK_FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
                 ms=_time_ms(lambda: im2col_conv.conv2d_im2col(x, w, stride=st)),
                 plain_ms=_time_ms(lambda: im2col_conv.conv2d_im2col_plain(x, w, stride=st)),
-                library_ms=_time_ms(lambda: F.conv2d(xp, wl, stride=st)),
+                library_ms=lib_ms,
+                library_best_ms=lib_best_ms,
+                device_ms=_device_ms(lambda: im2col_conv.conv2d_im2col(x, w, stride=st))[0],
+                library_device_ms=cudnn_ms(x, w, st, device=True)[0],
+                host_ms=_host_ms(lambda: im2col_conv.conv2d_im2col(x, w, stride=st)),
+                library_host_ms=_host_ms(cudnn_conv(x, w, st)),
             )
             row["tflops"] = flops / row["ms"] / 1e9
         rows.append(row)
@@ -293,7 +374,9 @@ def check_conv(gen: torch.Generator) -> dict:
     # one forward of full-width SynthNet at a microbatch of 2: each shape
     # weighted by the number of layers that run it
     fwd = [r for r in rows if "layers" in r]
-    tot = {key: sum(len(r["layers"]) * r[key] for r in fwd) for key in ("flops", "bytes", "ms", "plain_ms", "library_ms")}
+    tot = {key: sum(len(r["layers"]) * r[key] for r in fwd)
+           for key in ("flops", "bytes", "ms", "plain_ms", "library_ms", "library_best_ms", "device_ms",
+                       "library_device_ms")}
     t_ops, t_bytes = tot["flops"] / PEAK_FP32_FLOPS, tot["bytes"] / HBM_BYTES_PER_S
     return {
         "name": "conv2d_im2col",
@@ -306,6 +389,9 @@ def check_conv(gen: torch.Generator) -> dict:
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": tot["library_ms"],
+        "library_best_ms": tot["library_best_ms"],
+        "device_ms": tot["device_ms"],
+        "library_device_ms": tot["library_device_ms"],
     }
 
 
@@ -845,6 +931,7 @@ def main() -> int:
         print(f"[build] {name}:\n{build.ptxas_report(name)}")
     check_flash_ptxas()
     check_gemm_ptxas()
+    check_conv_ptxas()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()

@@ -115,6 +115,82 @@ def test_kernel_runs_on_the_current_stream():
     torch.testing.assert_close(y, im2col_conv.conv2d_im2col_plain(x, w), **TOL)
 
 
+#: SynthNet's 13x13 layer (3x3x384 -> 384), which the plan splits over the reduction
+SPLIT_SHAPE = ((2, 13, 13, 384), (3, 3, 384, 384))
+
+
+def _plan(x, w, stride=1):
+    return im2col_conv.plan(tuple(x.shape), tuple(w.shape), stride,
+                            sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def test_split_shape_gives_the_same_bits_twice_and_counts_one_launch():
+    x, w = _inputs(*SPLIT_SHAPE)
+    assert _plan(x, w).splits > 1
+    before = im2col_conv.launches
+    a = im2col_conv.conv2d_im2col(x, w)
+    b = im2col_conv.conv2d_im2col(x, w)
+    torch.cuda.synchronize()
+    assert im2col_conv.launches == before + 2  # the split sum is not a second count
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, im2col_conv.conv2d_im2col_plain(x, w), **TOL)
+
+
+def test_two_streams_at_once_equal_the_same_calls_in_turn():
+    """Each call's partials live in its own workspace on its own stream."""
+    (x1, w1), (x2, w2) = _inputs(*SPLIT_SHAPE, seed=1), _inputs((2, 27, 27, 96), (5, 5, 96, 256), seed=2)
+    seq = [im2col_conv.conv2d_im2col(x1, w1), im2col_conv.conv2d_im2col(x2, w2)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st, (x, w) in zip(streams, ((x1, w1), (x2, w2))):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([im2col_conv.conv2d_im2col(x, w) for _ in range(4)])
+    torch.cuda.synchronize()
+    for want, got in zip(seq, outs):
+        for y in got:
+            assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize(
+    "xs,ws,stride,splits",
+    [
+        ((2, 13, 13, 40), (3, 3, 40, 72), 1, 3),  # 23 slices in 3 splits: 7, 8, 8
+        ((2, 13, 13, 40), (3, 3, 40, 72), 1, 5),
+        ((2, 40, 44, 6), (11, 11, 6, 40), 4, 7),  # 11x11 stride 4, C % 4 != 0: 4-byte copies
+        ((2, 40, 44, 6), (11, 11, 6, 40), 4, 1),
+    ],
+)
+def test_uneven_splits_and_4_byte_copies_match_plain(xs, ws, stride, splits):
+    x, w = _inputs(xs, ws)
+    want = im2col_conv.conv2d_im2col_plain(x, w, stride=stride)
+    torch.testing.assert_close(im2col_conv.conv2d_im2col(x, w, stride=stride), want, **TOL)
+    p = dataclasses.replace(_plan(x, w, stride), splits=splits)
+    assert p.slices % splits != 0 or splits == 1
+    for bm, bn in im2col_conv.TILES:
+        y = im2col_conv.run_plan(x, w, stride, dataclasses.replace(p, bm=bm, bn=bn))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, want, **TOL)
+
+
+@pytest.mark.parametrize("xs,ws,stride", [((2, 27, 27, 96), (5, 5, 96, 256), 1), (*SPLIT_SHAPE, 1),
+                                          ((2, 20, 20, 8), (11, 11, 8, 16), 4)])
+def test_misaligned_input_takes_4_byte_copies_with_the_same_bits(xs, ws, stride):
+    x, w = _inputs(xs, ws)
+    assert _plan(x, w, stride).vector
+    x_off = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)  # contiguous, 4 bytes past 16
+    w_off = torch.empty(w.numel() + 3, device="cuda")[3:].view(w.shape)
+    x_off.copy_(x)
+    w_off.copy_(w)
+    assert x_off.is_contiguous() and x_off.data_ptr() % 16 == 4 and w_off.data_ptr() % 16 == 12
+    want = im2col_conv.conv2d_im2col(x, w, stride=stride)
+    for got in (im2col_conv.conv2d_im2col(x_off, w, stride=stride), im2col_conv.conv2d_im2col(x, w_off, stride=stride),
+                im2col_conv.run_plan(x, w, stride, _plan(x, w, stride), vector=False)):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
 @pytest.fixture(scope="module")
 def model(cuda):
     return make_cnn("synthnet", scale=0.1, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))

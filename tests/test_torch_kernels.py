@@ -1,11 +1,14 @@
 """The port's conv kernel module against the JAX package's (CPU), the
-kernel build, and the batched GEMM's choice of kernel.
+conv's plan (tile, copies, splits of the reduction), the kernel build, and
+the batched GEMM's choice of kernel.
 
 Inputs come from numpy with a seed and go to both packages.  The plain
 PyTorch version (what a CPU tensor runs) is held against the Pallas kernel in
 interpret mode and against ``lax.conv``, at the reference's tolerance 3e-4.
 The CUDA kernels themselves run only on the card: ``tests/test_torch_gpu.py``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -167,3 +170,148 @@ def test_gemm_alignment_reads_every_row_start():
     assert gm._aligned(x) and gm._aligned(x[1]) and gm._aligned(x[:, ::2])
     assert not gm._aligned(x[:, :, 3:67])  # row starts 6 bytes past 16-byte boundaries
     assert not gm._aligned(torch.zeros((4, 36), dtype=torch.bfloat16)[:, :32])  # row stride 72 bytes
+
+
+# ---------------------------------------------------------------------------
+# The conv's plan (tile, copies, splits): a pure function of shape and SM count
+# ---------------------------------------------------------------------------
+
+from repro_torch.models.cnn import NETWORKS  # noqa: E402
+
+H100 = im2col_conv.H100_SMS
+SMALL = [((2, 12, 12, 8), (r, r, 8, 24), st) for r in (1, 3, 5) for st in (1, 2)] + [
+    ((2, 20, 20, 8), (11, 11, 8, 16), 4),
+    ((2, 23, 21, 6), (11, 11, 6, 17), 4),
+    ((3, 13, 11, 5), (3, 3, 5, 17), 1),
+    ((1, 1, 1, 3), (1, 1, 3, 1), 1),
+]
+#: every distinct layer shape of the paper's networks, at a microbatch of 2
+PAPER = sorted(
+    {((2, sp.h_out * sp.stride, sp.h_out * sp.stride, sp.c_in), (sp.r, sp.s, sp.c_in, sp.k), sp.stride)
+     for name in sorted(NETWORKS) for sp in NETWORKS[name]()}
+)
+#: SynthNet's six shapes and the plan each gets on 132 SMs: (tile, splits, blocks)
+SYNTHNET = {
+    ((2, 220, 220, 3), (11, 11, 3, 96), 4): ((128, 96), 5, 240),
+    ((2, 27, 27, 96), (5, 5, 96, 256), 1): ((128, 128), 11, 264),
+    ((2, 13, 13, 256), (3, 3, 256, 384), 1): ((128, 96), 11, 132),
+    ((2, 13, 13, 384), (3, 3, 384, 384), 1): ((128, 96), 11, 132),
+    ((2, 13, 13, 384), (3, 3, 384, 256), 1): ((128, 64), 11, 132),
+    ((2, 220, 220, 256), (11, 11, 256, 96), 4): ((128, 96), 11, 528),
+}
+
+
+def _ranges(p):
+    return [p.split_range(z) for z in range(p.splits)]
+
+
+def test_synthnet_shapes_are_the_networks():
+    specs = NETWORKS["synthnet"]()
+    assert {((2, sp.h_out * sp.stride, sp.h_out * sp.stride, sp.c_in), (sp.r, sp.s, sp.c_in, sp.k), sp.stride)
+            for sp in specs} == set(SYNTHNET)
+
+
+@pytest.mark.parametrize("xs,ws,stride", SMALL + PAPER)
+def test_every_shape_gets_a_plan_the_kernel_has(xs, ws, stride):
+    p = im2col_conv.plan(xs, ws, stride, sms=H100)
+    n, h, wd, c = xs
+    r, s, _, k = ws
+    ho, wo = -(-h // stride), -(-wd // stride)
+    assert (p.m, p.k, p.kr) == (n * ho * wo, k, r * s * c)
+    assert (p.bm, p.bn) in im2col_conv.TILES and (p.tm, p.tn) == (p.bm // 16, p.bn // 16)
+    assert 1 <= p.splits <= min(im2col_conv.MAX_SPLITS, p.slices)
+    assert p.splits == 1 or p.slices // p.splits >= im2col_conv.MIN_SLICES
+    assert p.vector == (c % 4 == 0 and k % 4 == 0)
+    assert p.grid == (-(-p.m // p.bm), -(-k // p.bn), p.splits) and p.blocks == p.grid[0] * p.grid[1] * p.splits
+    if p.blocks < H100:  # only where no tile at any allowed split fills the card
+        most = max(1, min(im2col_conv.MAX_SPLITS, p.slices // im2col_conv.MIN_SLICES))
+        assert all(-(-p.m // bm) * -(-k // bn) * most < H100 for bm, bn in im2col_conv.TILES)
+
+
+@pytest.mark.parametrize("xs,ws,stride", SMALL + PAPER)
+def test_plan_is_a_pure_function_of_shape_stride_and_sms(xs, ws, stride):
+    p = im2col_conv.plan(xs, ws, stride, sms=H100)
+    im2col_conv.plan.cache_clear()
+    assert im2col_conv.plan(tuple(xs), tuple(ws), stride, sms=H100) == p  # recomputed, not cached
+    assert im2col_conv.plan(xs, ws, stride) == p  # 132 SMs by default
+    n, h, wd, c = xs
+    k = ws[3]
+    # the shape's own numbers decide, not the values or where they came from
+    assert im2col_conv.plan((n, h, wd, c), (*ws[:3], k), stride, sms=H100) == p
+
+
+@pytest.mark.parametrize("xs,ws,stride", list(SYNTHNET))
+def test_synthnet_plans_fill_the_h100(xs, ws, stride):
+    p = im2col_conv.plan(xs, ws, stride, sms=H100)
+    assert ((p.bm, p.bn), p.splits, p.blocks) == SYNTHNET[(xs, ws, stride)]
+    assert p.blocks >= H100  # at least one block per SM
+    assert p.vector == (xs[3] != 3)  # the first layer (C = 3) takes 4-byte copies
+
+
+@pytest.mark.parametrize("xs,ws,stride", [s for s in SMALL + PAPER if s[1][3] == 96])
+def test_no_column_tile_is_mostly_padding_at_k96(xs, ws, stride):
+    p = im2col_conv.plan(xs, ws, stride, sms=H100)
+    last = p.k - (p.grid[1] - 1) * p.bn  # real columns of the last column tile
+    assert 2 * last > p.bn
+
+
+def test_more_sms_never_give_fewer_blocks_at_synthnet():
+    for xs, ws, stride in SYNTHNET:
+        small, big = (im2col_conv.plan(xs, ws, stride, sms=n) for n in (66, 132))
+        assert big.blocks >= 132 and small.blocks >= 66
+
+
+@pytest.mark.parametrize(
+    "xs,ws,stride,splits",
+    [(xs, ws, st, None) for xs, ws, st in SMALL + PAPER]
+    + [
+        ((2, 13, 13, 40), (3, 3, 40, 72), 1, 3),  # 23 slices in 3 splits: 7, 8, 8
+        ((2, 13, 13, 40), (3, 3, 40, 72), 1, 5),
+        ((2, 40, 44, 6), (11, 11, 6, 40), 4, 7),  # 46 slices in 7
+        ((2, 13, 11, 5), (3, 3, 5, 17), 1, 2),  # 45 terms: a ragged last slice
+    ],
+)
+def test_split_ranges_cover_the_reduction_once(xs, ws, stride, splits):
+    p = im2col_conv.plan(xs, ws, stride, sms=H100)
+    if splits is not None:
+        p = dataclasses.replace(p, splits=splits)
+        assert p.slices % splits != 0  # uneven on purpose
+    ranges = _ranges(p)
+    assert ranges[0][0] == 0 and ranges[-1][1] == p.kr
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:]):
+        assert lo < hi == nxt  # contiguous, no gap, no overlap, none empty
+    assert all(lo % im2col_conv.BK == 0 for lo, _ in ranges)  # whole slices
+    sizes = [hi - lo for lo, hi in ranges[:-1]]
+    assert not sizes or max(sizes) - min(sizes) <= im2col_conv.BK  # within one slice of even
+    covered = np.zeros(p.kr, dtype=int)
+    for lo, hi in ranges:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize(
+    "xs,ws,stride",
+    SMALL + PAPER + [((8, 224, 224, 64), (3, 3, 64, 64), 1), ((1, 1, 1, 4096), (1, 1, 4096, 2**18), 1),
+                     ((1, 4, 4, 2**16), (1, 1, 2**16, 8192), 1)],
+)
+def test_workspace_index_fits_int32(xs, ws, stride):
+    p = im2col_conv.plan(xs, ws, stride, sms=H100)
+    shape = p.workspace_shape
+    assert shape is None if p.splits == 1 else shape == (p.splits, p.m, p.k)
+    assert p.splits * p.m * p.k <= 2**31 - 1
+    # the kernel's split offset z * M * K, for the last split, and the last element
+    assert (p.splits - 1) * p.m * p.k + p.m * p.k - 1 <= 2**31 - 1
+
+
+def test_plan_refuses_a_channel_mismatch():
+    with pytest.raises(ValueError, match="channel mismatch"):
+        im2col_conv.plan((1, 4, 4, 3), (3, 3, 4, 8), 1)
+
+
+def test_modelled_time_charges_a_second_round_of_blocks():
+    m, k, kr = 6050, 96, 30976  # SynthNet's 11x11 C=256 layer
+    one = im2col_conv.modelled_ns(m, k, kr, 128, 96, 2, True, H100)  # 96 blocks, one round
+    over = im2col_conv.modelled_ns(m, k, kr, 128, 96, 3, True, H100)  # 144 blocks: 12 SMs take two
+    assert over > one
+    assert im2col_conv.modelled_ns(m, k, kr, 128, 96, 1, False, H100) > im2col_conv.modelled_ns(
+        m, k, kr, 128, 96, 1, True, H100)  # 4-byte copies are modelled slower
