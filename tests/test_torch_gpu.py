@@ -242,6 +242,7 @@ BF16_REL = 1e-2
 
 
 def _agree(got, want, tol, fp32):
+    """fp32: allclose at ``tol``; bf16: within BF16_REL of max |want| (``tol`` unused)."""
     if fp32:
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     else:
@@ -346,6 +347,14 @@ SSD_CASES = (
         (2, 64, 4, 16, 16, 8, torch.float32, True),  # mamba2 smoke, strided like ssd_block
         (4, 512, 24, 64, 128, 64, torch.bfloat16, True),  # mamba2-130m prefill
         (4, 512, 24, 64, 128, 64, torch.float32, False),
+        (4, 512, 80, 64, 64, 64, torch.bfloat16, True),  # zamba2-2.7b prefill
+        # the tensor-core kernel's branches: chunk 16 / 32 / 64, state 64 / 128,
+        # p 64 and 48, one chunk, contiguous and strided; and bf16 at chunk 8 (SIMT)
+        (2, 128, 4, 64, 128, 16, torch.bfloat16, True),
+        (2, 96, 3, 48, 64, 32, torch.bfloat16, False),
+        (1, 64, 2, 48, 128, 64, torch.bfloat16, True),
+        (3, 32, 5, 16, 64, 32, torch.bfloat16, True),
+        (2, 64, 4, 16, 16, 8, torch.bfloat16, True),
     ]
 )
 
@@ -359,6 +368,78 @@ def test_ssd_scan_matches_plain(b, l, h, p, n, chunk, dtype, strided):
     assert y.dtype == dtype and state.dtype == torch.float32 and y.is_contiguous()
     _agree(y, yp, 2e-3, dtype == torch.float32)
     _agree(state, sp, 2e-3, dtype == torch.float32)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("p", [48, 64])
+def test_every_ssd_mma_plan_matches_plain(n, p):
+    """Every p tile (16, 32, 64: ragged at p 48) of the tensor-core kernel,
+    at chunk 64 over four chunks."""
+    args = _ssd(2, 256, 3, p, n, torch.bfloat16, strided=True)
+    yp, sp = ssd.ssd_scan_plain(*args, chunk=64)
+    for plan in ssd.mma_plans(2, 3, p, n, 64):
+        y, state = ssd.run_plan(*args, 64, plan)
+        torch.cuda.synchronize()
+        _agree(y, yp, None, False)
+        _agree(state, sp, None, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_gives_the_same_bits_twice_and_on_two_streams(dtype):
+    args = [_ssd(4, 512, 24, 64, 128, dtype, seed=s, strided=True) for s in (1, 2)]
+    seq = [ssd.ssd_scan(*a, chunk=64) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st, a in zip(streams, args):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([ssd.ssd_scan(*a, chunk=64) for _ in range(3)])
+    torch.cuda.synchronize()
+    for want, got in zip(seq, outs):
+        for y, state in got:
+            assert torch.equal(y, want[0]) and torch.equal(state, want[1])
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,strided,want,other",
+    [
+        ((4, 512, 24, 64, 128, 64), torch.bfloat16, True, "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel"),  # mamba2
+        ((2, 64, 4, 16, 16, 8), torch.bfloat16, True, "ssd_scan_kernel", "ssd_scan_mma_bf16_kernel"),  # chunk 8
+        ((4, 512, 24, 64, 128, 64), torch.float32, False, "ssd_scan_kernel", "ssd_scan_mma_bf16_kernel"),
+    ],
+)
+def test_ssd_scan_runs_the_kernel_of_its_route(shape, dtype, strided, want, other):
+    """mamba2-130m's bf16 prefill scan on the tensor cores; chunk 8 and fp32 on the SIMT kernel, never the other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, l, h, p, n, chunk = shape
+    args = _ssd(b, l, h, p, n, dtype, strided=strided)
+    ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd.ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any(want in k for k in names), names
+    assert not any(other in k for k in names), names
+
+
+def test_ssd_unaligned_bf16_takes_the_simt_kernel():
+    """x rows 2 elements past a 16-byte boundary: the SIMT kernel, same function."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, l, h, p, n = 2, 128, 3, 64, 64
+    proj = torch.randn((b, l, h * p + 2 * n + 2), generator=g, device="cuda").bfloat16()[..., 2:]
+    x, B, C = proj[..., : h * p].reshape(b, l, h, p), proj[..., h * p : h * p + n], proj[..., h * p + n :]
+    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=g, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=g, device="cuda"))
+    assert not ssd._aligned(x)
+    assert ssd.plan(torch.bfloat16, b, h, p, n, 64, False).route == ssd.KERNELS.index("ssd_scan_kernel<__nv_bfloat16>")
+    y, state = ssd.ssd_scan(x, dt, A, B, C, chunk=64)
+    torch.cuda.synchronize()
+    yp, sp = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=64)
+    _agree(y, yp, None, False)
+    _agree(state, sp, None, False)
 
 
 def test_lm_kernel_launches_count_once_and_ops_routes_cuda_to_them():
@@ -413,6 +494,23 @@ def test_ssd_wrapper_refuses_a_chunk_beyond_shared_memory():
     args = _ssd(1, 256, 2, 64, 256, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         ssd.ssd_scan(*args, chunk=256)
+
+
+@pytest.mark.parametrize(
+    "plan",
+    [
+        ssd.SsdPlan(2, 16, 32, ssd.mma_smem_bytes(64, 128, 16) + 16),  # shared memory the kernel does not ask
+        ssd.SsdPlan(2, 8, 64, ssd.mma_smem_bytes(64, 128, 8)),  # a p tile not compiled
+        ssd.SsdPlan(1, 64, 8, ssd.simt_smem_bytes(64, 128, 64)),  # the SIMT kernel where the route says mma
+        ssd.SsdPlan(2, 16, 99, ssd.mma_smem_bytes(64, 128, 16)),  # blocks that are not this shape's
+    ],
+)
+def test_ssd_run_plan_refuses_a_plan_the_kernels_do_not_have(plan):
+    args = _ssd(2, 128, 4, 64, 128, torch.bfloat16, strided=True)
+    before = ssd.launches
+    with pytest.raises(ValueError, match="plan"):
+        ssd.run_plan(*args, 64, plan)
+    assert ssd.launches == before
 
 
 # ---------------------------------------------------------------------------
