@@ -37,21 +37,34 @@ repository's sources are not beside this script.  Otherwise, in order:
 5. checks the pipelined output: equal to the sequential model on the same
    kernels, and within 1e-3 of the output's largest magnitude of the
    sequential model computed with the plain versions (18 fp32 layers with
-   reductions of up to 30976 terms summed in another order);
+   reductions of up to 30976 terms summed in another order); then the
+   paper's Fig. 4 race on the measured oracle of phase 4 (full-width
+   SynthNet, each layer timed on the hand-written conv, the 4-EP platform of
+   streams): Shisha H3, HC, HC from Shisha's seed, SA, SA from the seed and
+   RW, each with RACE_BUDGET times Shisha's simulated wall, and Pipe-Search
+   and ES paying the database's generation cost up front, ES over the whole
+   space (19,792 configurations); prints each arm's trials, simulated time
+   to 99% of its final best, best modelled throughput, its ratio to ES's and
+   host seconds, and fails if any arm's best exceeds ES's; runs the best
+   splits of Shisha, HC and SA as stream pipelines and prints their measured
+   microbatches/s (no limit);
 6. LM serving kernels: holds ``flash_attention`` and ``ssd_scan`` against
    their plain versions on the card at the LM main path's shapes in bf16
    (prefill attention of every served attention model, causal, q/k/v as
    the model's views: granite-3-2b q [4,32,512,64], k/v [4,8,512,64];
    phi3.5-moe-42b q [4,32,512,128], llama4-scout-17b q [4,40,512,128],
-   k/v [4,8,512,128]; the prefill scan of mamba2-130m, x [4,512,24,64],
+   k/v [4,8,512,128]; zamba2-2.7b's shared block q/k/v [4,32,512,80];
+   nemotron-4-340b q [4,96,512,192], k/v [4,8,512,192]; the prefill scan
+   of mamba2-130m, x [4,512,24,64],
    B/C [4,512,128], and of zamba2-2.7b, x [4,512,80,64], B/C [4,512,64],
    chunk 64, x, B and C strided as ``ssd_block`` passes them) and at
    the reference tests' shapes in fp32 at the reference's tolerances (2e-4
    attention, 2e-3 SSD), plus a ragged length, a sliding window, a
-   non-causal case, a ragged p tile and strided inputs, bf16 attention
-   cases that reach every branch of the tensor-core kernel (D 16 and 32,
-   GQA groups 1, 4 and 5, S of 1, 15, 65 and 1000, a window of 7,
-   non-causal), and bf16 SSD cases that reach every branch of the
+   non-causal case, a ragged p tile and strided inputs, the same at head
+   dims 80 and 192 in fp32, bf16 attention cases that reach every branch
+   of the tensor-core kernel (every head dim, GQA groups 1, 4, 5 and 12, S
+   of 1, 15, 65 and 1000, a window of 7, non-causal), and bf16 SSD cases
+   that reach every branch of the
    tensor-core scan (chunks 16, 32 and 64, state 64 and 128, p 64, 48 and
    16, one chunk, contiguous and strided), each also at every p tile of
    ``ssd_scan.mma_plans``, and bf16 at chunk 8 on the SIMT
@@ -66,20 +79,24 @@ repository's sources are not beside this script.  Otherwise, in order:
    as long to issue as the card to run), and attention the same for SDPA;
 7. drives the LM main path — ``launch.serve.serve`` at full width on
    ``cuda``, bf16, batch 4, prompt 512, 32 generated tokens — for
-   granite-3-2b and for mamba2-130m, every launch count set to 0 just
-   before each and read just after; fails if the path's kernel never
+   granite-3-2b, mamba2-130m and zamba2-2.7b at full depth and
+   nemotron-4-340b at 2 of its 96 layers, every launch count set to 0
+   just before each and read just after; fails if the path's kernel never
    launched or the tokens are out of range; then times a warm prefill and
    warm decode steps on the host clock and prints a profiler breakdown
    (device time by kernel, busy share of the wall) of one prefill and of
    four decode steps; fails unless an attention model's bf16 prefill ran
-   ``flash_fwd_mma_bf16_kernel`` once per layer and never the fp32 SIMT
-   ``flash_fwd_kernel``, and unless mamba2-130m's ran
+   ``flash_fwd_mma_bf16_kernel`` once per attention layer (zamba2: once
+   per application of its shared block, 9) and never the fp32 SIMT
+   ``flash_fwd_kernel``, and unless an SSD model's ran
    ``ssd_scan_mma_bf16_kernel`` once per layer and never ``ssd_scan_kernel``;
 8. holds each LM path against the same path on the plain versions
    (``ops.flash_attention`` / ``ops.ssd_scan`` / ``ops.gemm`` swapped here,
    and only here): prefill plus 4 teacher-forced decode steps on the kernel
    path's tokens, logits compared relative to the largest |logit|, in bf16
-   and with the same weights in fp32, held to LM_TOL; for an SSD model in
+   and with the same weights in fp32 (nemotron-4-340b at 1 layer: its
+   fp32 weights take 51.5 GB, made as its bf16 ones are freed), held to
+   LM_TOL; for an SSD model (mamba2-130m, zamba2-2.7b) in
    bf16 every prefill scan of the kernel path is also held to BF16_REL_TOL
    against the plain version on the same inputs, and its logits are held to
    LM_TOL with the bf16 scan in the model in fp32 at every layer, where a
@@ -109,10 +126,12 @@ repository's sources are not beside this script.  Otherwise, in order:
    layers would need 84 GB), and the share of (token, expert) assignments
    that the kernel and plain paths route alike, held to ROUTE_FLOOR (see
    MOE_ROUTES for the logits check where they differ);
-11. prints the per-kernel JSON line (the ``flash_attention`` row names the
-   device function that served granite-3-2b's prefill; the ``ssd_scan``
-   row is mamba2-130m's scan, with its device function, device and host
-   times, and zamba2-2.7b's times under keys that name it), then
+11. prints the per-kernel JSON line (the ``flash_attention`` row is
+   granite-3-2b's, naming the device function that served its prefill,
+   with every other served attention model's times, bound, SDPA times and
+   launches under keys that name the model; the ``ssd_scan`` row is
+   mamba2-130m's scan, with its device function, device and host times,
+   and zamba2-2.7b's times and launches under keys that name it), then
    ``{"ok": true, "device": ...}`` last.
 """
 
@@ -136,15 +155,30 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))  # the port, from this checkout
 
 from repro_torch.configs import get_config
+from repro_torch.core import (
+    Trace,
+    database_generation_cost,
+    exhaustive_search,
+    generate_seed,
+    hill_climbing,
+    pipe_search,
+    random_walk,
+    run_shisha,
+    simulated_annealing,
+    space_size,
+    weights,
+)
 from repro_torch.kernels import build, im2col_conv, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gm
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.serve import make_prompt, serve
-from repro_torch.launch.serve_cnn import BATCH, serve_cnn
+from repro_torch.launch.mesh import make_stage_mesh
+from repro_torch.launch.serve_cnn import BATCH, N_MICRO, serve_cnn
 from repro_torch.models import blocks, transformer
 from repro_torch.models.lm_common import init_params
 from repro_torch.models.cnn import synthnet_specs
+from repro_torch.pipeline import PipelineRunner, pipeline_throughput
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
 from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
 
@@ -202,12 +236,16 @@ ROUTE_FLOOR = {"first layer": 0.98, "all calls": 0.85}
 #: kernel-vs-plain for the GEMM: the reference's kernel-test tolerances (allclose)
 GEMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 #: the LM main path: per model the kernels it must launch, the depth served
-#: (None: the config's) and the depth of the fp32 comparison (None: served depth)
+#: (None: the config's) and the depth of the fp32 comparison (None: served
+#: depth).  nemotron-4-340b's embedding and head take 18.9 GB in bf16 and
+#: each layer 6.9 GB; its fp32 comparison at 1 layer takes 51.5 GB.
 LM_MODELS = {
     "granite-3-2b": (("flash_attention",), None, None),
     "mamba2-130m": (("ssd_scan",), None, None),
     "phi3.5-moe-42b": (("flash_attention", "gemm"), 16, 2),
     "llama4-scout-17b": (("flash_attention", "gemm"), 4, 2),
+    "zamba2-2.7b": (("ssd_scan", "flash_attention"), None, None),
+    "nemotron-4-340b": (("flash_attention",), 2, 1),
 }
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
@@ -219,9 +257,16 @@ FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|f
 GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 #: the SSD scan's kernels as the profiler names them: bf16 on the tensor cores, the SIMT one
 SSD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan(?:_mma_bf16)?_kernel<[^>]*>)")
-#: the Mamba2-family models whose prefill scan phase 6 times: mamba2-130m is
-#: served (LM_MODELS); zamba2-2.7b, the family's other state width (64), is not
+#: profiler windows a device-time reading takes at most: the profiler can
+#: keep some or none of a window's device records
+#: (``scripts/profiler_windows.py`` counts how often)
+PROFILER_WINDOWS = 8
+#: the Mamba2-family models whose prefill scan phase 6 times, both served
+#: (LM_MODELS): state widths 128 and 64
 SSD_MODELS = ("mamba2-130m", "zamba2-2.7b")
+#: the comparison arms' online budget in the race, in multiples of Shisha's
+#: simulated wall (the paper's "35x faster")
+RACE_BUDGET = 35
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -390,7 +435,7 @@ def cudnn_ms(x: torch.Tensor, w: torch.Tensor, stride: int, device: bool = False
     call = cudnn_conv(x, w, stride)
     before = torch.backends.cudnn.benchmark
     def timer(fn):
-        return _device_ms(fn)[0] if device else _time_ms(fn)
+        return _device_ms(fn, need=False)[0] if device else _time_ms(fn)
 
     try:
         torch.backends.cudnn.benchmark = False
@@ -463,7 +508,7 @@ def check_conv(gen: torch.Generator) -> dict:
     # one forward of full-width SynthNet at a microbatch of 2: each shape
     # weighted by the number of layers that run it
     fwd = [r for r in rows if "layers" in r]
-    tot = {key: sum(len(r["layers"]) * r[key] for r in fwd)
+    tot = {key: None if any(r[key] is None for r in fwd) else sum(len(r["layers"]) * r[key] for r in fwd)
            for key in ("flops", "bytes", "ms", "plain_ms", "library_ms", "library_best_ms", "device_ms",
                        "library_device_ms")}
     t_ops, t_bytes = tot["flops"] / PEAK_FP32_FLOPS, tot["bytes"] / HBM_BYTES_PER_S
@@ -482,6 +527,74 @@ def check_conv(gen: torch.Generator) -> dict:
         "device_ms": tot["device_ms"],
         "library_device_ms": tot["library_device_ms"],
     }
+
+
+def time_to_converge(trace: Trace, final_frac: float = 0.99) -> float:
+    """Simulated wall time when the best-so-far throughput first reaches
+    ``final_frac`` of its final value (``benchmarks/fig4_convergence.py``'s
+    definition)."""
+    curve = trace.convergence_curve()
+    if not curve:
+        return float("inf")
+    final = curve[-1][1]
+    for t, tp in curve:
+        if tp >= final_frac * final:
+            return t
+    return curve[-1][0]
+
+
+def race(res) -> None:
+    """Phase 5's race: the paper's Fig. 4 comparison on the measured oracle
+    of phase 4 (``res.evaluator``: every SynthNet layer timed on the card).
+    Shisha H3 first; HC, HC from Shisha's seed, SA, SA from the seed and RW
+    each get RACE_BUDGET times Shisha's simulated wall; Pipe-Search and ES
+    pay the database's generation cost up front, ES over the whole space.
+    Fails if an arm's best modelled throughput exceeds ES's, which covers
+    the whole space on the same deterministic oracle.  Then runs the best
+    splits of Shisha, HC and SA as stream pipelines."""
+    ev = res.evaluator
+    n, n_eps, ws = len(ev.layers), ev.platform.n_eps, weights(ev.layers)
+    traces, results, host = {}, {}, {}
+
+    def run(name, trace, fn):
+        t0 = time.perf_counter()
+        results[name] = fn(trace)
+        host[name] = time.perf_counter() - t0
+        traces[name] = trace
+
+    run("Shisha", Trace(ev), lambda tr: run_shisha(ws, tr, "H3").result)
+    budget = RACE_BUDGET * traces["Shisha"].wall
+    seed_conf = generate_seed(ws, ev.platform, choice="rank_w").conf
+    run("HC", Trace(ev), lambda tr: hill_climbing(tr, n, budget, seed=0))
+    run("HC_s", Trace(ev), lambda tr: hill_climbing(tr, n, budget, start=seed_conf, seed=0))
+    run("SA", Trace(ev), lambda tr: simulated_annealing(tr, n, budget, seed=0))
+    run("SA_s", Trace(ev), lambda tr: simulated_annealing(tr, n, budget, start=seed_conf, seed=0))
+    run("RW", Trace(ev), lambda tr: random_walk(tr, n, budget, seed=0))
+    db = database_generation_cost(n, n_eps)
+    run("PS", Trace(ev, setup_cost=db), lambda tr: pipe_search(tr, ws, budget_s=db + budget))
+    run("ES", Trace(ev, setup_cost=db), lambda tr: exhaustive_search(tr, n))
+    if traces["ES"].n_trials != space_size(n, n_eps):
+        raise RuntimeError(f"ES tried {traces['ES'].n_trials} of {space_size(n, n_eps)} configurations")
+    es = results["ES"].best_throughput
+    table = {}
+    for name, r in results.items():
+        table[name] = {"trials": traces[name].n_trials, "time_to_converge_s": time_to_converge(traces[name]),
+                       "wall_s": traces[name].wall, "best_micro_per_s": r.best_throughput,
+                       "best_over_es": r.best_throughput / es, "host_s": host[name],
+                       "best_conf": r.best_conf.pretty([ep.name for ep in ev.platform.eps])}
+        print(f"[race] {name}: {json.dumps(table[name])}")
+    print(f"[race] budget {budget:.3f} s simulated ({RACE_BUDGET}x Shisha's wall), database "
+          f"{db:.3f} s, whole space {space_size(n, n_eps)} configurations")
+    over = {name: row["best_micro_per_s"] for name, row in table.items() if row["best_micro_per_s"] > es}
+    if over:
+        raise RuntimeError(f"arms beat the exhaustive optimum {es} on the same oracle: {over}")
+    for name in ("Shisha", "HC", "SA"):  # the chosen splits, run for real
+        conf = results[name].best_conf
+        runner = PipelineRunner(mesh=make_stage_mesh(conf.depth, res.micro.device), conf=conf,
+                                apply_layer=res.model.apply_layer, n_micro=N_MICRO)
+        table[name]["measured_micro_per_s"] = pipeline_throughput(runner, res.micro)
+        print(f"[race] {name}'s split {table[name]['best_conf']} as a stream pipeline: measured "
+              f"{table[name]['measured_micro_per_s']:.3f} micro/s, modelled {table[name]['best_micro_per_s']:.3f}")
 
 
 def _bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -537,6 +650,17 @@ def check_flash(gen: torch.Generator) -> dict:
         dict(b=2, h=4, kvh=4, s=200, d=64, dtype=bf16, causal=True, window=7),
         dict(b=1, h=10, kvh=2, s=130, d=32, dtype=bf16, causal=False, window=7),
         dict(b=2, h=8, kvh=2, s=1000, d=16, dtype=bf16, causal=False, window=0),
+        dict(b=2, h=8, kvh=8, s=200, d=80, dtype=bf16, causal=True, window=7),
+        dict(b=2, h=24, kvh=2, s=130, d=192, dtype=bf16, causal=True, window=50),  # GQA group 12
+        dict(b=1, h=12, kvh=1, s=65, d=80, dtype=bf16, causal=False, window=0),
+        dict(b=2, h=12, kvh=1, s=300, d=192, dtype=bf16, causal=False, window=0),
+        dict(b=1, h=12, kvh=1, s=1, d=192, dtype=bf16, causal=True, window=0),
+    ] + [  # head dims 80 and 192 in fp32 at the reference's 2e-4: ragged S, a window, no causal mask
+        dict(b=2, h=4, kvh=2, s=200, d=d, dtype=f32, causal=True, window=0) for d in (80, 192)
+    ] + [
+        dict(b=2, h=24, kvh=2, s=100, d=d, dtype=f32, causal=True, window=16) for d in (80, 192)
+    ] + [
+        dict(b=1, h=12, kvh=1, s=77, d=d, dtype=f32, causal=False, window=9) for d in (80, 192)
     ]
     row = None
     max_err = 0.0
@@ -580,15 +704,20 @@ def check_flash(gen: torch.Generator) -> dict:
                          bound_ms=bound_ms, bound_by=bound_by)
             device_ms, ran = _device_ms(kern)
             plain_device_ms, _ = _device_ms(plain)
-            library_device_ms, sdpa_ran = _device_ms(sdpa)
+            library_device_ms, sdpa_ran = _device_ms(sdpa, need=False)
             timed.update(device_ms=device_ms, plain_device_ms=plain_device_ms, library_device_ms=library_device_ms,
                          host_ms=_host_ms(kern), library_host_ms=_host_ms(sdpa))
-            ratios = dict(sdpa_ratio=timed["ms"] / timed["library_ms"], sdpa_device_ratio=device_ms / library_device_ms)
+            ratios = dict(sdpa_ratio=timed["ms"] / timed["library_ms"],
+                          sdpa_device_ratio=_ratio(device_ms, library_device_ms))
             print(f"[check] flash_attention {case['model']} prefill shape: "
                   f"{json.dumps({**timed, **ratios, 'flops': flops, 'bytes': nbytes})}")
             print(f"[check] flash_attention at {case['model']}'s shape ran {json.dumps(ran)}; "
                   f"SDPA ran {json.dumps(sdpa_ran)}")
-            row = row or timed
+            if row is None:
+                row = {**timed, "sdpa_ran": sorted(sdpa_ran)}
+            else:  # the other served models' shapes, under keys that name them
+                row.update({f"{case['model']} {k}": v for k, v in {**timed, **ratios}.items()})
+                row[f"{case['model']} sdpa_ran"] = sorted(sdpa_ran)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -762,14 +891,15 @@ def check_gemm(gen: torch.Generator) -> dict:
                        ms=_time_ms(lambda: gm.gemm(a, b)), plain_ms=_time_ms(lambda: gm.gemm_plain(a, b)),
                        library_ms=_time_ms(lambda: torch.bmm(a, b)))
             row["device_ms"], ran = _device_ms(lambda: gm.gemm(a, b))
-            row["library_device_ms"], _ = _device_ms(lambda: torch.bmm(a, b))
+            row["library_device_ms"], _ = _device_ms(lambda: torch.bmm(a, b), need=False)
             fns = sorted({m.group(1) for n in ran if (m := GEMM_FN.search(n))})
             if not fns or not all(fn.startswith(main[label]) for fn in fns):
                 raise RuntimeError(f"gemm at {label} ran {fns}, want {main[label]}")
             row.update(ran=fns, tflops=flops / row["device_ms"] / 1e9, bmm_ratio=row["ms"] / row["library_ms"],
-                       bmm_device_ratio=row["device_ms"] / row["library_device_ms"])
+                       bmm_device_ratio=_ratio(row["device_ms"], row["library_device_ms"]))
             for key in tot:
-                tot[key] += layer.get(label, 0) * row[key]
+                tot[key] = None if tot[key] is None or row[key] is None \
+                    else tot[key] + layer.get(label, 0) * row[key]
         print(f"[check] gemm {json.dumps(row)}")
         del a, b, y, yp
     torch.cuda.empty_cache()
@@ -799,23 +929,24 @@ def _host_ms(fn, reps: int = 20) -> float:
     return host
 
 
-def _device_ms(fn, reps: int = 20) -> tuple[float, dict[str, int]]:
+def _device_ms(fn, reps: int = 20, need: bool = True) -> tuple[float | None, dict[str, int]]:
     """Device time per call of ``fn`` from the profiler, and the device
     kernels it ran, by the profiler's name, with their calls per call.  Each
     kernel, copy and memset counts at its mean time per record times its
-    records per call, rounded: the profiler can hand some of a window's last
-    records to the next window, so the window's own kernels keep their
-    per-call time, and a name with under half a record per call is another
-    window's and is left out.  Unlike ``_time_ms`` it
-    excludes the host's gaps between calls: a call that takes the host
-    longer to issue than the card to run reads as the card's time.  A
-    window in which the profiler kept no record a call is taken again, up
-    to three windows in all."""
+    records per call, rounded: the profiler can keep only some of a window's
+    records, or none, so the window's own kernels keep their per-call time,
+    and a name with under half a record per call is another window's and is
+    left out.  Unlike ``_time_ms`` it excludes the host's gaps between
+    calls: a call that takes the host longer to issue than the card to run
+    reads as the card's time.  A window in which the profiler kept no record
+    a call is taken again after a pause, up to ``PROFILER_WINDOWS`` in all;
+    then it raises, or with ``need`` false (a library call, timed for
+    comparison only) prints so and returns ``None``: not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILER_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -824,10 +955,21 @@ def _device_ms(fn, reps: int = 20) -> tuple[float, dict[str, int]]:
         per_call = [(e, round(e.count / reps)) for e in events]
         if any(n for _, n in per_call):
             break
+        time.sleep(0.1)
     else:
-        raise RuntimeError(f"the profiler kept no device record a call in 3 windows: {[e.key for e in events]}")
+        kept = {e.key[:120]: e.count for e in events}
+        msg = f"the profiler kept no device record a call in {PROFILER_WINDOWS} windows of {reps} calls: {kept}"
+        if need:
+            raise RuntimeError(msg)
+        print(f"[check] device time not measured: {msg}")
+        return None, {}
     return (sum(e.self_device_time_total / e.count * n for e, n in per_call) / 1e3,
             {e.key[:120]: n for e, n in per_call if n})
+
+
+def _ratio(a: float | None, b: float | None) -> float | None:
+    """``a / b``, or ``None`` where either was not measured."""
+    return None if a is None or b is None else a / b
 
 
 def _kernel_table(prof, wall_s: float) -> dict:
@@ -889,16 +1031,25 @@ def _time_lm(arch: str, cfg, params, prompt: torch.Tensor) -> dict:
     print(f"[lm] {arch} warm: prefill {t_prefill * 1e3:.3f} ms, decode step {t_step * 1e3:.3f} ms "
           f"({LM_BATCH / t_step:.1f} tokens/s over the batch)")
     tables = {}
+    mods = (fa, ssd, gm)
     for what, run in (("prefill", lambda: prefill()), ("decode x4", lambda: decode(logits, cache, 4))):
-        for _ in range(3):  # a window in which the profiler kept no device record is taken again
+        # a window in which the profiler kept fewer records of the port's kernels than the
+        # wrappers launched is taken again: the checks below count those records
+        for _ in range(PROFILER_WINDOWS):
+            before = sum(mod.launches for mod in mods)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            if any(e.device_type == torch.autograd.DeviceType.CUDA and e.count for e in prof.key_averages()):
+            table = _kernel_table(prof, wall)
+            kept = sum(sum(table[k].values()) for k in ("flash_calls", "ssd_calls", "gemm_calls"))
+            if table["kernel_calls"] and kept == sum(mod.launches for mod in mods) - before:
                 break
-        tables[what] = _kernel_table(prof, wall)
+            print(f"[lm] {arch} profile {what}: the profiler kept {kept} of "
+                  f"{sum(mod.launches for mod in mods) - before} port kernel launches; taken again")
+            time.sleep(0.1)
+        tables[what] = table
         print(f"[lm] {arch} profile {what}: {json.dumps(tables[what])}")
     return tables["prefill"]
 
@@ -920,9 +1071,25 @@ def _forced_logits(cfg, params, prompt: torch.Tensor, forced: torch.Tensor) -> t
     return torch.stack(out, dim=1)
 
 
-def _first_layers(params: dict, n: int) -> dict:
-    """The parameter tree cut to its first ``n`` layers (views of the stacks)."""
-    return {k: {kk: vv[:n] for kk, vv in v.items()} if k == "blocks" else v for k, v in params.items()}
+def _fp32_first_layers(params: dict, n: int) -> dict:
+    """The parameter tree cut to its first ``n`` layers with its bf16 leaves
+    in fp32, made leaf by leaf while ``params`` is emptied, so that each bf16
+    leaf is freed as soon as its copy exists: nemotron-4-340b's fp32 model at
+    1 layer (51.5 GB) fits the card only once its bf16 one at 2 (32.7 GB) is
+    gone."""
+    def fp32(t: torch.Tensor) -> torch.Tensor:
+        return t.float() if t.dtype == torch.bfloat16 else t
+
+    out = {}
+    for key in list(params):
+        v = params.pop(key)
+        if isinstance(v, dict):
+            cut = n if key == "blocks" else None
+            out[key] = {k: fp32(v.pop(k)[:cut]) for k in list(v)}
+        else:
+            out[key] = fp32(v)
+        del v
+    return out
 
 
 @contextlib.contextmanager
@@ -1097,16 +1264,19 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
         print(f"[lm] {arch}: prefill expert products served by {json.dumps(gemm_calls)}")
     if "flash_attention" in kernels:  # bf16 prefill: the tensor-core kernel once per layer, never the SIMT one
         mma = {n: c for n, c in flash_calls.items() if n.startswith("flash_fwd_mma_bf16_kernel")}
-        if len(mma) != 1 or len(flash_calls) != 1 or sum(mma.values()) != cfg.n_layers:
+        # a hybrid runs its shared attention block once per group of SSD layers
+        attn_layers = cfg.n_layers // cfg.shared_attn_every if cfg.block_kind == "hybrid" else cfg.n_layers
+        if len(mma) != 1 or len(flash_calls) != 1 or sum(mma.values()) != attn_layers:
             raise RuntimeError(f"{arch}: the profiled bf16 prefill ran {flash_calls}, want "
-                               f"flash_fwd_mma_bf16_kernel once per layer ({cfg.n_layers})")
+                               f"flash_fwd_mma_bf16_kernel once per attention layer ({attn_layers})")
         served_by = next(iter(mma))
         print(f"[lm] {arch}: prefill attention served by {served_by}, {mma[served_by]} calls")
     for dt in (torch.bfloat16, torch.float32):
-        c, p = dataclasses.replace(cfg, dtype=dt), params
-        if dt == torch.float32 and fp32_depth:
-            c, p = dataclasses.replace(c, n_layers=fp32_depth), _first_layers(params, fp32_depth)
-        p = _cast(p, dt)
+        c = dataclasses.replace(cfg, dtype=dt)
+        if dt == torch.float32 and fp32_depth:  # the last use of params: it is emptied
+            c, p = dataclasses.replace(c, n_layers=fp32_depth), _fp32_first_layers(params, fp32_depth)
+        else:
+            p = _cast(params, dt)
         routes: dict[str, list] = {"kernel": [], "plain": []}
         ssd_layers = "ssd_scan" in kernels and dt == torch.bfloat16  # see SSD_LAYERS
         scans: list = []
@@ -1155,7 +1325,7 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
             failures.append(f"{name}: kernel path disagrees with the plain path: {err} > {LM_TOL[dt]} * {scale}")
             print(f"[FAIL] {failures[-1]}")
         del p, got, want
-    if "ssd_scan" in kernels:
+    if "ssd_scan" in kernels:  # fp32_depth is None: params is whole
         hold_bf16_scans(arch, cfg, params, prompt, forced, failures)
     del params
     torch.cuda.empty_cache()
@@ -1232,6 +1402,9 @@ def main() -> int:
           f"max |output| {scale:.3e}")
     if not scale > 0 or err > CHAIN_TOL * scale:
         raise RuntimeError(f"pipelined output disagrees with the plain model: {err} > {CHAIN_TOL} * {scale}")
+    t0 = time.perf_counter()
+    race(res)
+    print(f"[race] done in {time.perf_counter() - t0:.1f} s")
     del res, model, out, seq, plain
     torch.cuda.empty_cache()
 
@@ -1245,7 +1418,10 @@ def main() -> int:
         t0 = time.perf_counter()
         launched, served_by = drive_lm(arch, names, depth, fp32_depth, failures)
         for name, n in launched.items():
-            kernels[name].setdefault("launches", n)  # each kernel's first model is its main path
+            if "launches" in kernels[name]:  # each kernel's first model is its main path
+                kernels[name][f"{arch} launches"] = n
+            else:
+                kernels[name]["launches"] = n
         if served_by:
             kernels["flash_attention"].setdefault("device_function", served_by)
         print(f"[lm] {arch} done in {time.perf_counter() - t0:.1f} s")

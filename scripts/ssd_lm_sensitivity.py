@@ -1,11 +1,13 @@
-"""How far mamba2-130m's bf16 logits move when the SSD scan's output moves by about a rounding or less.
+"""How far an SSD model's bf16 logits move when the SSD scan's output moves by about a rounding or less.
 
-    python3 scripts/ssd_lm_sensitivity.py [--seeds 0 1] [--depths 12 24] [--model bf16 mixed] [--scans ...]
+    python3 scripts/ssd_lm_sensitivity.py [--arch mamba2-130m] [--seeds 0 1] [--depths 12 24] [--model bf16 mixed] [--scans ...]
+    python3 scripts/ssd_lm_sensitivity.py --arch zamba2-2.7b --depths 54 --model mixed
 
 The tensor-core SSD scan feeds bf16 operands to its products, so its bf16
 output can differ from the plain version's (fp32 inside) by a rounding in
 some elements, every call within ``chip_smoke.BF16_REL_TOL``.  This
-measures, on the card, mamba2-130m's logits against the plain path (max
+measures, on the card, the logits of ``--arch`` (mamba2-130m, or zamba2-2.7b,
+whose depths must be whole groups of its 6 SSD layers) against the plain path (max
 |difference| over max |logit|, random weights and prompt from each seed,
 bf16, prefill plus 4 teacher-forced decode steps as ``chip_smoke.py`` runs
 them) at each depth, with ``ops.ssd_scan`` as:
@@ -65,6 +67,11 @@ from repro_torch.models.lm_common import init_params  # noqa: E402
 
 EPS = (1e-6, 1e-4, 4e-3)
 TERMS = (1, 2, 3)
+
+
+def _first_layers(params: dict, n: int) -> dict:
+    """The parameter tree cut to its first ``n`` layers (views of the stacks)."""
+    return {k: {kk: vv[:n] for kk, vv in v.items()} if k == "blocks" else v for k, v in params.items()}
 
 
 def simt_scan(x, dt, A, B, C, *, chunk=64):
@@ -140,6 +147,7 @@ SCANS = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=cs.SSD_MODELS, default="mamba2-130m")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
     ap.add_argument("--depths", type=int, nargs="+", default=[12, 24])
     ap.add_argument("--model", choices=("bf16", "mixed"), nargs="+", default=["bf16", "mixed"])
@@ -153,7 +161,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     print(f"[card] {smi.stdout.strip().splitlines()[0]}")
     bf16 = torch.bfloat16
-    cfg = get_config("mamba2-130m")
+    cfg = get_config(args.arch)
     for seed in args.seeds:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         x, dt, A, B, C = cs.ssd_inputs(cs.LM_BATCH, cs.LM_PROMPT, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
@@ -175,12 +183,12 @@ def main() -> int:
         for model, depth in ((m, d) for m in args.model for d in args.depths):
             dtype = bf16 if model == "bf16" else torch.float32
             c = dataclasses.replace(cfg, dtype=dtype, n_layers=depth)
-            p = cs._cast(cs._first_layers(params, depth), dtype)
+            p = cs._cast(_first_layers(params, depth), dtype)
             around = contextlib.nullcontext if model == "bf16" else cs._bf16_scans
             with cs._plain_versions(), around():
                 want = cs._forced_logits(c, p, prompt, forced)
             scale = want.float().abs().max().item()
-            row = {"seed": seed, "model": model, "layers": depth}
+            row = {"arch": args.arch, "seed": seed, "model": model, "layers": depth}
             for name, scan in scans.items():
                 with scan(), around():
                     got = cs._forced_logits(c, p, prompt, forced)

@@ -11,7 +11,7 @@ A configuration is (paper §5):
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterator, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +31,10 @@ class PipelineConfig:
     def depth(self) -> int:
         return len(self.stages)
 
+    @property
+    def n_layers(self) -> int:
+        return sum(self.stages)
+
     def boundaries(self) -> list[tuple[int, int]]:
         """[start, end) layer range per stage."""
         out, start = [], 0
@@ -38,6 +42,44 @@ class PipelineConfig:
             out.append((start, start + s))
             start += s
         return out
+
+    def stage_of_layer(self, layer: int) -> int:
+        for i, (a, b) in enumerate(self.boundaries()):
+            if a <= layer < b:
+                return i
+        raise IndexError(layer)
+
+    def move_layer(self, src: int, dst: int) -> "PipelineConfig":
+        """Move one boundary layer from stage ``src`` to adjacent stage ``dst``.
+
+        Contiguity allows moves only between neighbouring stages; the layer
+        moved is the one at the shared boundary.  If src would become empty
+        the move is rejected (returns self).
+        """
+        if abs(src - dst) != 1:
+            raise ValueError(f"stages {src} and {dst} are not adjacent")
+        if self.stages[src] <= 1:
+            return self  # cannot empty a stage
+        stages = list(self.stages)
+        stages[src] -= 1
+        stages[dst] += 1
+        return dataclasses.replace(self, stages=tuple(stages))
+
+    def swap_eps(self, i: int, j: int) -> "PipelineConfig":
+        eps = list(self.eps)
+        eps[i], eps[j] = eps[j], eps[i]
+        return dataclasses.replace(self, eps=tuple(eps))
+
+    def neighbours(self) -> Iterator["PipelineConfig"]:
+        """Local-move neighbourhood used by Hill Climbing / SA baselines."""
+        for i in range(self.depth - 1):
+            if self.stages[i] > 1:
+                yield self.move_layer(i, i + 1)
+            if self.stages[i + 1] > 1:
+                yield self.move_layer(i + 1, i)
+        for i in range(self.depth):
+            for j in range(i + 1, self.depth):
+                yield self.swap_eps(i, j)
 
     def pretty(self, ep_names: Sequence[str] | None = None) -> str:
         cells = []

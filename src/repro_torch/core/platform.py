@@ -40,6 +40,10 @@ class EP:
         """Aggregate compute rate of the EP, FLOP/s."""
         return self.cores * self.flops_per_core
 
+    @property
+    def is_fep(self) -> bool:
+        return self.perf_class == 1
+
 
 @dataclasses.dataclass(frozen=True)
 class Platform:
@@ -63,6 +67,11 @@ class Platform:
         best = min(ep.perf_class for ep in self.eps)
         return tuple(i for i, ep in enumerate(self.eps) if ep.perf_class == best)
 
+    @property
+    def seps(self) -> tuple[int, ...]:
+        best = min(ep.perf_class for ep in self.eps)
+        return tuple(i for i, ep in enumerate(self.eps) if ep.perf_class != best)
+
     def ranked(self) -> list[int]:
         """EP indices sorted in descending order of performance.
 
@@ -80,8 +89,15 @@ class Platform:
         )
 
 
+    def with_latency(self, latency_s: float) -> "Platform":
+        """Copy of the platform with every inter-EP link latency replaced
+        (the Fig. 9 inter-chiplet latency sweep)."""
+        eps = tuple(dataclasses.replace(ep, link_latency=latency_s) for ep in self.eps)
+        return dataclasses.replace(self, name=f"{self.name}@lat{latency_s:g}", eps=eps)
+
+
 # ---------------------------------------------------------------------------
-# gem5-style presets (paper Table 1)
+# gem5-style presets (paper Table 1 + Table 3)
 # ---------------------------------------------------------------------------
 
 # ARM big (out-of-order, ~2 GHz, 8 FLOP/cycle fp32 NEON-ish) vs LITTLE
@@ -117,6 +133,24 @@ def _little(name: str, cores: int, link_latency: float = 100e-9) -> EP:
         link_latency=link_latency,
         perf_class=2,
     )
+
+
+def table3_platform(conf: str) -> Platform:
+    """Paper Table 3 EP configurations C1..C5."""
+    specs = {
+        # (FEPs as list of core counts, SEPs as list of core counts)
+        "C1": ([8], [8]),
+        "C2": ([8, 8], [8, 8]),
+        "C3": ([4, 4, 4, 4], [8, 8]),
+        "C4": ([8, 8], [4, 4, 4, 4]),
+        "C5": ([4, 4, 4, 4], [4, 4, 4, 4]),
+    }
+    if conf not in specs:
+        raise KeyError(f"unknown Table-3 config {conf!r}; have {sorted(specs)}")
+    fep_cores, sep_cores = specs[conf]
+    eps = [_big(f"FEP{i}", c) for i, c in enumerate(fep_cores)]
+    eps += [_little(f"SEP{i}", c) for i, c in enumerate(sep_cores)]
+    return Platform(name=conf, eps=tuple(eps))
 
 
 def paper_platform(n_eps: int = 8, fep_fraction: float = 0.5) -> Platform:

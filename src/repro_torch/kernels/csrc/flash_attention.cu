@@ -25,21 +25,32 @@
 // another (mma.sync issues in order).  A persistent schedule and wgmma with
 // TMA are the next steps (PERF.md).
 //
-// bf16: flash_fwd_mma_bf16_kernel<D>, on the tensor cores.
+// bf16: flash_fwd_mma_bf16_kernel<D>, D in {16, 32, 64, 80, 128, 192}, on the
+// tensor cores.
 // - Grid: one block per (batch*q-head, q tile of BQ = 16 * warps rows); each
-//   warp owns 16 query rows.  4 warps (BQ 64) at D <= 64; 8 warps (BQ 128) at
-//   D 128, where each K/V tile then serves twice the rows (4 warps at D 128
-//   are slower on the card: scripts/flash_tiles.py, PERF.md).  Causal q
+//   warp owns 16 query rows.  4 warps (BQ 64) at D <= 80; 8 warps (BQ 128) at
+//   D 128 and 192, where each K/V tile then serves twice the rows (4 warps at
+//   D 128 are slower on the card: scripts/flash_tiles.py, PERF.md).  Causal q
 //   tiles run heaviest first.
 // - Q is copied once with cp.async into shared memory and ldmatrix'd into
-//   m16n8k16 A fragments that stay in registers for the whole KV loop.
+//   m16n8k16 A fragments that stay in registers for the whole KV loop; at D
+//   192 (nemotron-4-340b) the fp32 output accumulator alone takes 96
+//   registers a thread, so Q stays in shared memory beside the ring and each
+//   k16 step of Q.K^T ldmatrix's its fragment again (one more ldmatrix per
+//   four mma.sync).
 // - K and V stream in 64-key tiles through a 3-stage cp.async ring, as bf16
 //   as stored (no widening, no transposed copy): 16-byte copies (8-byte ones
 //   where a row is only 8-byte aligned), zero-filled past the ragged end of
 //   S.  The copy of tile t + 2 is issued before tile t's math, so one
 //   barrier per tile orders the ring.  Rows are padded by 16 bytes, so the
-//   eight rows an ldmatrix phase reads fall in distinct banks.  Q aliases the
-//   ring's last stage until its fragments are in registers.
+//   eight rows an ldmatrix phase reads fall in distinct banks (row pitches of
+//   48 / 80 / 144 / 176 / 272 / 400 bytes: 12, 20, 36, 44, 68 and 100 words,
+//   each an odd multiple of 4 words modulo 32, so eight rows of 4 words
+//   cover the 32 banks once).  Q
+//   aliases the ring's last stage until its fragments are in registers (at D
+//   192 it has its own region).  Where a row's 16-byte chunks do not divide
+//   the block's threads (D 80: 10, D 192: 24), the copy walks the tile's
+//   chunks in order, THREADS at a time.
 // - S = Q.K^T and O += P.V run on mma.sync m16n8k16 bf16 with fp32
 //   accumulators: K feeds ldmatrix as the B operand of the first, V feeds
 //   ldmatrix.trans as the B operand of the second.
@@ -57,15 +68,20 @@
 //   16 rows in shared memory and store 16 bytes at a time into the strided
 //   output.
 // - Occupancy (ptxas -v on sm_90a, PERF.md): shared memory 3 stages x (K + V)
-//   x 64 x (D + 8) x 2 bytes = 18 / 30 / 54 / 102 KB a block at D 16 / 32 /
-//   64 / 128.  At D <= 64, 4 warps and at most 168 registers (110 / 128 /
-//   167 used), so 3 blocks (12 warps) an SM; at D 128, 8 warps and 226
-//   registers, so 1 block (8 warps) an SM.  No spills.
+//   x 64 x (D + 8) x 2 bytes = 18 / 30 / 54 / 66 / 102 / 150 KB a block at D
+//   16 / 32 / 64 / 80 / 128 / 192, plus Q's 50 KB at D 192.  At D <= 64, 4
+//   warps and at most 168 registers (110 / 128 / 167 used), so 3 blocks (12
+//   warps) an SM; at D 80, 4 warps with up to 255 registers (its accumulator
+//   and Q fragments take 12 more than D 64's 167), 2 blocks an SM; at D 128
+//   and 192, 8 warps with up to 255 registers, 1 block (8 warps) an SM.  No
+//   spills (chip_smoke.py fails on one).
 //
 // fp32: flash_fwd_kernel<D>, on the SIMT pipes (TF32 would break the
 // reference's 2e-4).  One block per (batch*q-head, 64-row q tile), 256
 // threads, each owning a 4 x 4 patch of the 64 x 64 score tile and 4 rows x
-// D/16 columns of the output; q and K staged transposed in shared memory,
+// D/16 columns of the output (in float4 runs where D is a multiple of 64,
+// float2 at D 32, single floats at D 16 and 80); q and K staged transposed in
+// shared memory (172 KB a block at D 192),
 // P back through shared memory for P.V; row max and sum reduced over the 16
 // threads of a row group with warp shuffles.
 
@@ -106,19 +122,28 @@ constexpr int STAGES = 3;  // depth of the K/V ring
 
 template <int D>
 __host__ __device__ constexpr int mma_warps() {
-  return D == 128 ? FLASH_D128_WARPS : 4;  // BQ 64 below D 128
+  return D == 128 ? FLASH_D128_WARPS : D == 192 ? 8 : 4;  // BQ 64 up to D 80
 }
 
 // Blocks per SM that __launch_bounds__ asks for: 3 at D <= 64 (at most 168
-// registers a thread); at D 128 as many as fill 8 warps.
+// registers a thread), 2 at D 80 (at most 255); at D 128 and 192 as many as
+// fill 8 warps.
 template <int D>
 __host__ __device__ constexpr int mma_min_blocks() {
-  return D == 128 ? 8 / FLASH_D128_WARPS : 3;
+  return D == 128 ? 8 / FLASH_D128_WARPS : D == 192 ? 1 : D == 80 ? 2 : 3;
+}
+
+// Q kept in shared memory for the whole KV loop instead of in registers.
+template <int D>
+__host__ __device__ constexpr bool mma_q_in_smem() {
+  return D == 192;
 }
 
 template <int D>
 constexpr int mma_smem_bytes() {
-  return STAGES * 2 * MBK * (D + MPAD) * (int)sizeof(bf16);  // K and V tiles of every stage
+  // K and V tiles of every stage, and Q's own rows where it stays in shared memory
+  const int rows = STAGES * 2 * MBK + (mma_q_in_smem<D>() ? mma_warps<D>() * 16 : 0);
+  return rows * (D + MPAD) * (int)sizeof(bf16);
 }
 
 // 2^x in one MUFU instruction (denormal results flush to 0, far below bf16's use here).
@@ -128,29 +153,42 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// One 16-byte chunk of a row into shared memory, zero-filled unless `ok`
+// (`src` is then any valid address: nothing is read from it).
+__device__ __forceinline__ void copy_chunk(bf16* dd, const bf16* gg, bool ok, bool vec16, const bf16* src) {
+  if (vec16) {
+    cp_async16(dd, ok ? gg : src, ok ? 16 : 0);
+  } else {
+    cp_async8(dd, ok ? gg : src, ok ? 8 : 0);
+    cp_async8(dd + 4, ok ? gg + 4 : src, ok ? 8 : 0);
+  }
+}
+
 // ROWS rows of D elements from global (row stride `stride`) into shared
-// memory rows of D + MPAD; rows from `valid` on are zero-filled.  Each thread
-// copies one 16-byte column of every RSTEP-th row, so its addresses advance
-// by a constant step.
+// memory rows of D + MPAD; rows from `valid` on are zero-filled.  Where the
+// block's threads are a multiple of a row's chunks, each thread copies one
+// 16-byte column of every RSTEP-th row, so its addresses advance by a
+// constant step; otherwise (D 80, D 192) the block walks the tile's chunks
+// in order, THREADS at a time.
 template <int ROWS, int D, int THREADS>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride, int valid, bool vec16,
                                           int tid) {
-  constexpr int CPR = D / 8;             // 16-byte chunks per row
-  constexpr int RSTEP = THREADS / CPR;   // rows per pass of the block
-  static_assert(THREADS % CPR == 0 && ROWS % RSTEP == 0, "whole rows per pass");
-  const int r = tid / CPR, col = (tid % CPR) * 8;
-  bf16* d = dst + r * (D + MPAD) + col;
-  const bf16* g = src + r * stride + col;
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * CPR % THREADS == 0, "whole passes of the block");
+  if constexpr (THREADS % CPR == 0) {
+    constexpr int RSTEP = THREADS / CPR;  // rows per pass of the block
+    const int r = tid / CPR, col = (tid % CPR) * 8;
+    bf16* d = dst + r * (D + MPAD) + col;
+    const bf16* g = src + r * stride + col;
 #pragma unroll
-  for (int it = 0; it < ROWS / RSTEP; ++it) {
-    const bool ok = r + it * RSTEP < valid;
-    bf16* dd = d + it * RSTEP * (D + MPAD);
-    const bf16* gg = ok ? g + it * RSTEP * stride : src;
-    if (vec16) {
-      cp_async16(dd, gg, ok ? 16 : 0);
-    } else {
-      cp_async8(dd, gg, ok ? 8 : 0);
-      cp_async8(dd + 4, ok ? gg + 4 : src, ok ? 8 : 0);
+    for (int it = 0; it < ROWS / RSTEP; ++it)
+      copy_chunk(d + it * RSTEP * (D + MPAD), g + it * RSTEP * stride, r + it * RSTEP < valid, vec16, src);
+  } else {
+#pragma unroll
+    for (int it = 0; it < ROWS * CPR / THREADS; ++it) {
+      const int e = tid + it * THREADS;
+      const int r = e / CPR, col = (e % CPR) * 8;
+      copy_chunk(dst + r * (D + MPAD) + col, src + r * stride + col, r < valid, vec16, src);
     }
   }
 }
@@ -173,11 +211,13 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   constexpr int PK = MBK / 16;  // k16 steps of P.V
   constexpr int DT = D / 8;     // n8 tiles of a warp's 16 x D output
   constexpr int STAGE = 2 * MBK * LD;
-  static_assert(BQ <= 2 * MBK, "Q is staged in one ring stage");
+  constexpr bool QSMEM = mma_q_in_smem<D>();
+  static_assert(BQ <= 2 * MBK, "Q and the output are staged in one ring stage");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][K: MBK rows, V: MBK rows][LD]
-  bf16* Qs = ring + (STAGES - 1) * STAGE;          // [BQ][LD], until Q is in registers
+  // [BQ][LD]: after the ring for the whole loop (QSMEM), else in its last stage until Q is in registers
+  bf16* Qs = ring + (QSMEM ? STAGES : STAGES - 1) * STAGE;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int b = blockIdx.x / p.H;
@@ -213,9 +253,12 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   cp_async_wait<STAGES - 1>();  // Q has landed (this thread's copies)
   __syncthreads();              // ... everyone's
 
-  uint32_t qf[KS][4];
+  const bf16* qrow = Qs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // this lane's ldmatrix row of Q
+  uint32_t qf[QSMEM ? 1 : KS][4];  // Q's A fragments, when they stay in registers
+  if constexpr (!QSMEM) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+    for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
+  }
 
   float acc[DT][4];
 #pragma unroll
@@ -248,14 +291,22 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QSMEM) {
+        ldmatrix_x4(qa, qrow + kk * 16);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      }
 #pragma unroll
       for (int nt = 0; nt < NT; nt += 2) {  // keys nt*8 .. nt*8 + 15: two n8 tiles
         uint32_t r[4];
         ldmatrix_x4(r, ks + (nt * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[nt], qf[kk], r[0], r[1]);
-        mma_bf16(s[nt + 1], qf[kk], r[2], r[3]);
+        mma_bf16(s[nt], qa, r[0], r[1]);
+        mma_bf16(s[nt + 1], qa, r[2], r[3]);
       }
+    }
 
     if (masked) {
 #pragma unroll
@@ -386,7 +437,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   constexpr int LDT = BQ + PAD;  // row length of the transposed tiles
   constexpr int LDV = D + PAD;
   constexpr int V4 = D / 4;                    // 4-element vectors per row
-  constexpr int VW = D >= 64 ? 4 : D / 16;     // output columns per vector (D 16: 1, D 32: 2)
+  constexpr int VW = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;  // output columns per vector (D 16 and 80: 1)
   constexpr int NG = D / (16 * VW);            // vectors of output per thread and row
   constexpr int DC = VW * NG;                  // output columns per thread
   static_assert(BQ == BK && BQ == 64, "the 16 x 16 thread grid covers 64 x 64 tiles");
@@ -594,7 +645,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       case 16: return launch_f32<16>(q, k, v, o, p, st);
       case 32: return launch_f32<32>(q, k, v, o, p, st);
       case 64: return launch_f32<64>(q, k, v, o, p, st);
+      case 80: return launch_f32<80>(q, k, v, o, p, st);
       case 128: return launch_f32<128>(q, k, v, o, p, st);
+      case 192: return launch_f32<192>(q, k, v, o, p, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -604,7 +657,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       case 16: return launch_mma<16>(q, k, v, o, p, vec16, st);
       case 32: return launch_mma<32>(q, k, v, o, p, vec16, st);
       case 64: return launch_mma<64>(q, k, v, o, p, vec16, st);
+      case 80: return launch_mma<80>(q, k, v, o, p, vec16, st);
       case 128: return launch_mma<128>(q, k, v, o, p, vec16, st);
+      case 192: return launch_mma<192>(q, k, v, o, p, vec16, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -30,7 +30,8 @@ import torch
 #: launches of the CUDA kernel since this count was last set to 0
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernels are built for (zamba2-2.7b runs 80, nemotron-4-340b 192)
+HEAD_DIMS = (16, 32, 64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,7 +85,7 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
     """Attention on the CUDA kernel.  q: [B, H, S, D]; k, v: [B, KVH, S, D],
-    float32 or bfloat16 on the current CUDA device, D in {16, 32, 64, 128}, unit
+    float32 or bfloat16 on the current CUDA device, D in ``HEAD_DIMS``, unit
     stride over D (other strides free, so ``[b, s, h, d]`` tensors pass as
     transposed views) -> [B, H, S, D] with q's layout and type.
 

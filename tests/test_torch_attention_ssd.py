@@ -78,6 +78,33 @@ def test_attention_plain_matches_pallas_and_oracle_at_group_5(causal):
     np.testing.assert_allclose(y, y_ref, **ATTN_TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,h,kvh", [(80, 4, 4), (80, 12, 1), (192, 12, 1), (192, 24, 2)])
+def test_attention_plain_matches_pallas_and_oracle_at_head_dims_80_and_192(d, h, kvh, causal):
+    """zamba2-2.7b's head dim (80, MHA) and nemotron-4-340b's (192, GQA group 12)."""
+    q, k, v = _attn_inputs(1, h, kvh, 64, d, seed=d)
+    y = fa.flash_attention_plain(*_t(q, k, v), causal=causal).numpy()
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    y_pallas = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal, bq=32, bk=32))
+    y_ref = np.asarray(jref.attention_ref(jq, jk, jv, causal=causal))
+    np.testing.assert_allclose(y, y_pallas, **ATTN_TOL)
+    np.testing.assert_allclose(y, y_ref, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("d", [80, 192])
+@pytest.mark.parametrize("s,window,causal", [(100, 16, True), (77, 9, False), (50, 0, True)])
+def test_attention_plain_window_and_ragged_match_sdpa_at_head_dims_80_and_192(d, s, window, causal):
+    """A window and a ragged S at GQA group 12 against the reference model's _sdpa."""
+    cfg = dataclasses.replace(get_smoke("granite-3-2b"), dtype=jnp.float32, attn_q_block=16, n_heads=12,
+                              n_kv_heads=1, head_dim=d)
+    q, k, v = _attn_inputs(1, cfg.n_heads, cfg.n_kv_heads, s, d, seed=s + window + d)
+    y = fa.flash_attention_plain(*_t(q, k, v), causal=causal, window=window)
+    y = y.transpose(1, 2).reshape(1, s, -1).numpy()
+    bshd = [jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v)]
+    y_ref = np.asarray(jblocks._sdpa(cfg, *bshd, causal=causal, window=window))
+    np.testing.assert_allclose(y, y_ref, **ATTN_TOL)
+
+
 @pytest.mark.parametrize(
     "s,window,causal",
     [(50, 0, True), (200, 0, True), (64, 7, True), (100, 16, True), (37, 5, False), (64, 64, True)],

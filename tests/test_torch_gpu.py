@@ -279,6 +279,20 @@ ATTN_CASES = (
         (2, 4, 4, 200, 64, torch.bfloat16, True, 7),
         (1, 10, 2, 130, 32, torch.bfloat16, False, 7),
         (2, 8, 2, 1000, 16, torch.bfloat16, False, 0),
+        # head dims 80 (zamba2-2.7b, MHA) and 192 (nemotron-4-340b, GQA group 12), both kernels:
+        # the served prefill shapes, a ragged S, a window and no causal mask
+        (4, 32, 32, 512, 80, torch.bfloat16, True, 0),
+        (1, 96, 8, 512, 192, torch.bfloat16, True, 0),
+        (2, 8, 8, 200, 80, torch.bfloat16, True, 7),
+        (2, 24, 2, 130, 192, torch.bfloat16, True, 50),
+        (1, 12, 1, 65, 80, torch.bfloat16, False, 0),
+        (2, 12, 1, 300, 192, torch.bfloat16, False, 0),
+        (1, 12, 1, 1, 192, torch.bfloat16, True, 0),
+        (2, 4, 2, 200, 80, torch.float32, True, 0),
+        (1, 12, 1, 77, 80, torch.float32, False, 9),
+        (2, 24, 2, 200, 192, torch.float32, True, 0),
+        (1, 24, 2, 100, 192, torch.float32, True, 16),
+        (1, 12, 1, 65, 192, torch.float32, False, 0),
     ]
 )
 
@@ -659,7 +673,9 @@ def test_gemm_refuses_what_the_kernel_does_not_take(mutate, err):
 
 @pytest.mark.parametrize("arch,over", [("granite-3-2b", {}), ("qwen3-32b", {}), ("nemotron-4-340b", {}),
                                        ("granite-3-2b", {"sliding_window": 6}), ("mamba2-130m", {}),
-                                       ("phi3.5-moe-42b", {}), ("llama4-scout-17b", {})])
+                                       ("phi3.5-moe-42b", {}), ("llama4-scout-17b", {}), ("zamba2-2.7b", {}),
+                                       ("zamba2-2.7b", {"sliding_window": 6}),
+                                       ("nemotron-4-340b", {"head_dim": 192})])  # nemotron's head dim, GQA group 2
 def test_smoke_lm_path_on_the_card_matches_the_cpu(arch, over):
     cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32, **over)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -681,6 +697,6 @@ def test_smoke_lm_path_on_the_card_matches_the_cpu(arch, over):
 
 
 def test_serve_on_the_card_runs_the_smoke_models():
-    for arch in ("granite-3-2b", "mamba2-130m", "phi3.5-moe-42b", "llama4-scout-17b"):
+    for arch in ("granite-3-2b", "mamba2-130m", "phi3.5-moe-42b", "llama4-scout-17b", "zamba2-2.7b"):
         out = serve(get_smoke(arch), batch=2, prompt_len=16, gen=4, device="cuda")
         assert tuple(out["tokens"].shape) == (2, 4) and out["tokens"].is_cuda

@@ -9,9 +9,18 @@ in fp32, so bf16 would compare two roundings rather than two algorithms.
 Tolerances: 2e-4 per block (the reference's decode-vs-forward tolerance),
 3e-4 for prefill + decode logits (its prefill-vs-decode tolerance,
 ``tests/test_models.py:111``).
+
+Hybrid (zamba2): the port's prefill logits are held against the reference's
+``prefill_step``, but its decode continuation against the reference decoding
+the whole sequence from scratch (``init_cache`` + ``serve_step``), not
+against the reference's prefill + decode.  The reference's hybrid prefill
+sizes the shared ring ``min(s, window)`` and ignores ``max_len``, so its
+first decode step overwrites position 0; the port gives the ring the
+``attn`` path's width (ROADMAP.md queue 3).
 """
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import pytest
@@ -33,8 +42,8 @@ from repro_torch.models import blocks, lm_common, transformer
 BLOCK_TOL = dict(rtol=2e-4, atol=2e-4)
 PATH_TOL = dict(rtol=3e-4, atol=3e-4)
 SERVED = ["granite-3-2b", "qwen2-0.5b", "qwen3-32b", "nemotron-4-340b", "mamba2-130m", "phi3.5-moe-42b",
-          "llama4-scout-17b"]
-UNSERVED = ["zamba2-2.7b", "whisper-small", "internvl2-76b"]
+          "llama4-scout-17b", "zamba2-2.7b"]
+UNSERVED = ["whisper-small", "internvl2-76b"]
 
 
 def _pair(arch: str, **over):
@@ -241,13 +250,39 @@ def test_ssd_block_and_decode_match_the_reference():
 # ---------------------------------------------------------------------------
 
 
+def _jit_step(jcfg):
+    """The reference's ``serve_step`` under ``jax.jit`` (eager JAX takes
+    about 0.7 s a token on the hybrid smoke model)."""
+    return jax.jit(partial(jtf.serve_step, jcfg))
+
+
+def _decode_from_scratch(jcfg, jp, toks, max_len):
+    """The reference's cache after decoding ``toks`` [b, s] one token at a
+    time from ``init_cache``, and the logits of its last step."""
+    step, jc = _jit_step(jcfg), jtf.init_cache(jcfg, toks.shape[0], max_len)
+    for t in range(toks.shape[1]):
+        jl, jc = step(jp, jc, jnp.asarray(toks[:, t : t + 1], jnp.int32))
+    return jl, jc
+
+
+def _hybrid_params(jcfg, tcfg, seed=0):
+    """Weights of a hybrid smoke model with non-trivial A, D and dt bias (the
+    reference inits them to 0, 1, 0)."""
+    jp, _ = _params(jcfg, tcfg, seed)
+    rng = np.random.default_rng(seed + 4)
+    jp["blocks"] = {**jp["blocks"], **{k: jnp.asarray(rng.standard_normal(jp["blocks"][k].shape, dtype=np.float32) * 0.5)
+                                       for k in ("A_log", "D", "dt_bias")}}
+    return jp, lm_common.params_from_numpy(tcfg, jax.tree.map(lambda a: np.asarray(a, np.float32), jp), "cpu")
+
+
 @pytest.mark.parametrize(
     "arch,over",
-    [(a, {}) for a in SERVED] + [("granite-3-2b", {"sliding_window": 6})],
+    [(a, {}) for a in SERVED] + [("granite-3-2b", {"sliding_window": 6}), ("zamba2-2.7b", {"sliding_window": 6})],
 )
 def test_prefill_then_decode_matches_the_reference(arch, over):
     jcfg, tcfg = _pair(arch, **over)
-    jp, tp = _params(jcfg, tcfg)
+    hybrid = jcfg.block_kind == "hybrid"
+    jp, tp = _hybrid_params(jcfg, tcfg) if hybrid else _params(jcfg, tcfg)
     b, s, steps = 2, 16, 4
     toks = np.random.default_rng(7).integers(0, jcfg.vocab, (b, s + steps))
     jl, jc = jtf.prefill_step(jcfg, jp, {"tokens": jnp.asarray(toks[:, :s], jnp.int32)}, max_len=s + steps)
@@ -258,13 +293,46 @@ def test_prefill_then_decode_matches_the_reference(arch, over):
     for key in ("k", "v", "pos", "ssm", "conv"):
         if key in jc:
             _close(tc[key], jc[key], PATH_TOL)
+    if hybrid:  # decode continues against the reference's decode from scratch (module docstring)
+        jl_scratch, jc = _decode_from_scratch(jcfg, jp, toks[:, :s], s + steps)
+        _close(jl_scratch, jl, PATH_TOL)
+        W = jc["shared_pos"].shape[1]
+        assert tuple(tc["shared_k"].shape) == (jcfg.n_layers // jcfg.shared_attn_every, b, W, jcfg.n_kv_heads, jcfg.hd)
+        for key in ("shared_k", "shared_v", "shared_pos", "ssm", "conv"):
+            _close(tc[key], jc[key], PATH_TOL)
+    jstep = _jit_step(jcfg) if hybrid else partial(jtf.serve_step, jcfg)
     for t in range(steps):
         tok = toks[:, s + t : s + t + 1]
-        jl, jc = jtf.serve_step(jcfg, jp, jc, jnp.asarray(tok, jnp.int32))
+        jl, jc = jstep(jp, jc, jnp.asarray(tok, jnp.int32))
         with torch.inference_mode():
             tl, tc = transformer.serve_step(tcfg, tp, tc, torch.from_numpy(tok))
         _close(tl, jl, PATH_TOL)
     assert tc["index"] == int(jc["index"]) == s + steps
+
+
+def test_hybrid_decode_after_prefill_keeps_position_0():
+    """max_len > s: the reference's prefill ring (width s) loses position 0
+    at the first decode step; the port's (width max_len) keeps it."""
+    jcfg, tcfg = _pair("zamba2-2.7b")
+    jp, tp = _hybrid_params(jcfg, tcfg, seed=3)
+    b, s, max_len = 2, 8, 12
+    toks = np.random.default_rng(11).integers(0, jcfg.vocab, (b, s + 1))
+    want, _ = _decode_from_scratch(jcfg, jp, toks, max_len)
+    _, jc = jtf.prefill_step(jcfg, jp, {"tokens": jnp.asarray(toks[:, :s], jnp.int32)}, max_len=max_len)
+    ref_after_prefill, jc = _jit_step(jcfg)(jp, jc, jnp.asarray(toks[:, s:], jnp.int32))
+    with torch.inference_mode():
+        _, tc = transformer.prefill_step(tcfg, tp, {"tokens": torch.from_numpy(toks[:, :s])}, max_len=max_len)
+        got, tc = transformer.serve_step(tcfg, tp, tc, torch.from_numpy(toks[:, s:]))
+    _close(got, want, PATH_TOL)
+    assert tc["shared_pos"][:, 0].tolist() == [0] * tc["shared_pos"].shape[0]
+    assert int(np.asarray(jc["shared_pos"])[0, 0]) == s  # the reference overwrote position 0 ...
+    assert np.abs(np.asarray(ref_after_prefill) - np.asarray(want)).max() > 100 * PATH_TOL["atol"]  # ... and it shows
+
+
+def test_hybrid_rejects_a_depth_that_is_not_whole_groups():
+    cfg = dataclasses.replace(configs.get_smoke("zamba2-2.7b"), n_layers=3)
+    with pytest.raises(ValueError, match="groups"):
+        transformer.init_cache(cfg, 1, 8, "cpu")
 
 
 def test_serve_block_decodes_greedily():
@@ -284,7 +352,8 @@ def test_serve_block_decodes_greedily():
 
 
 def test_init_cache_matches_the_reference_layout():
-    for arch, over in (("granite-3-2b", {}), ("granite-3-2b", {"sliding_window": 6}), ("mamba2-130m", {})):
+    for arch, over in (("granite-3-2b", {}), ("granite-3-2b", {"sliding_window": 6}), ("mamba2-130m", {}),
+                       ("zamba2-2.7b", {}), ("zamba2-2.7b", {"sliding_window": 6})):
         jcfg, tcfg = _pair(arch, **over)
         jc = jtf.init_cache(jcfg, 2, 20)
         tc = transformer.init_cache(tcfg, 2, 20, "cpu")
@@ -305,6 +374,24 @@ def test_serve_tokens_equal_the_reference(arch, monkeypatch):
     out = tserve.serve(tcfg, **kw, device="cpu")
     assert np.array_equal(out["tokens"].numpy(), np.asarray(ref["tokens"]))
     assert out["prefill_s"] > 0 and out["decode_tok_per_s"] > 0
+
+
+def test_serve_runs_zamba2_as_the_reference_decodes_from_scratch(monkeypatch):
+    """The same entry point serves the hybrid; its greedy tokens equal the
+    reference's greedy decode of the whole sequence from scratch."""
+    jcfg, tcfg = _pair("zamba2-2.7b")
+    jp, tp = _hybrid_params(jcfg, tcfg)
+    monkeypatch.setattr(tserve, "init_params", lambda cfg, generator, device: tp)
+    b, s, gen = 2, 16, 6
+    out = tserve.serve(tcfg, batch=b, prompt_len=s, gen=gen, seed=0, device="cpu")
+    prompt = tserve.make_prompt(tcfg, b, s, 0, "cpu").numpy()
+    logits, jc = _decode_from_scratch(jcfg, jp, prompt, s + gen)
+    step, want = _jit_step(jcfg), []
+    for _ in range(gen):
+        tok = np.asarray(jnp.argmax(logits, -1))[:, None]
+        want.append(tok)
+        logits, jc = step(jp, jc, jnp.asarray(tok, jnp.int32))
+    assert np.array_equal(out["tokens"].numpy(), np.concatenate(want, 1))
 
 
 def test_serve_draws_its_own_weights_from_the_seed():
