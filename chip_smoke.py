@@ -54,7 +54,11 @@ repository's sources are not beside this script.  Otherwise, in order:
    the model's views: granite-3-2b q [4,32,512,64], k/v [4,8,512,64];
    phi3.5-moe-42b q [4,32,512,128], llama4-scout-17b q [4,40,512,128],
    k/v [4,8,512,128]; zamba2-2.7b's shared block q/k/v [4,32,512,80];
-   nemotron-4-340b q [4,96,512,192], k/v [4,8,512,192]; the prefill scan
+   nemotron-4-340b q [4,96,512,192], k/v [4,8,512,192]; internvl2-76b
+   over its 256 patches and the prompt, q [4,64,768,128], k/v
+   [4,8,768,128]; whisper-small's encoder, q/k/v [4,12,1500,64]
+   bidirectional, decoder, [4,12,448,64] causal, and cross attention, q
+   [4,12,448,64] against k/v [4,12,1500,64]; the prefill scan
    of mamba2-130m, x [4,512,24,64],
    B/C [4,512,128], and of zamba2-2.7b, x [4,512,80,64], B/C [4,512,64],
    chunk 64, x, B and C strided as ``ssd_block`` passes them) and at
@@ -63,7 +67,10 @@ repository's sources are not beside this script.  Otherwise, in order:
    non-causal case, a ragged p tile and strided inputs, the same at head
    dims 80 and 192 in fp32, bf16 attention cases that reach every branch
    of the tensor-core kernel (every head dim, GQA groups 1, 4, 5 and 12, S
-   of 1, 15, 65 and 1000, a window of 7, non-causal), and bf16 SSD cases
+   of 1, 15, 65 and 1000, a window of 7, non-causal), attention over a key
+   length other than the query's in bf16 and fp32 (Sq 1, 15, 448 and 1500
+   against Skv 1, 15, 65, 448 and 1500, longer and shorter, causal with and
+   without a window, non-causal, GQA 1 and 8), and bf16 SSD cases
    that reach every branch of the
    tensor-core scan (chunks 16, 32 and 64, state 64 and 128, p 64, 48 and
    16, one chunk, contiguous and strided), each also at every p tile of
@@ -79,15 +86,19 @@ repository's sources are not beside this script.  Otherwise, in order:
    as long to issue as the card to run), and attention the same for SDPA;
 7. drives the LM main path — ``launch.serve.serve`` at full width on
    ``cuda``, bf16, batch 4, prompt 512, 32 generated tokens — for
-   granite-3-2b, mamba2-130m and zamba2-2.7b at full depth and
-   nemotron-4-340b at 2 of its 96 layers, every launch count set to 0
+   granite-3-2b, mamba2-130m, zamba2-2.7b and whisper-small (prompt cut
+   to its 448 decoder positions, 1500 random frames) at full depth,
+   nemotron-4-340b at 2 of its 96 layers and internvl2-76b at 8 of its
+   80 (256 random patch embeddings), every launch count set to 0
    just before each and read just after; fails if the path's kernel never
    launched or the tokens are out of range; then times a warm prefill and
    warm decode steps on the host clock and prints a profiler breakdown
    (device time by kernel, busy share of the wall) of one prefill and of
    four decode steps; fails unless an attention model's bf16 prefill ran
    ``flash_fwd_mma_bf16_kernel`` once per attention layer (zamba2: once
-   per application of its shared block, 9) and never the fp32 SIMT
+   per application of its shared block, 9; whisper: its 12 encoder layers
+   and self and cross attention in its 12 decoder layers, 36) and never
+   the fp32 SIMT
    ``flash_fwd_kernel``, and unless an SSD model's ran
    ``ssd_scan_mma_bf16_kernel`` once per layer and never ``ssd_scan_kernel``;
 8. holds each LM path against the same path on the plain versions
@@ -95,7 +106,8 @@ repository's sources are not beside this script.  Otherwise, in order:
    and only here): prefill plus 4 teacher-forced decode steps on the kernel
    path's tokens, logits compared relative to the largest |logit|, in bf16
    and with the same weights in fp32 (nemotron-4-340b at 1 layer: its
-   fp32 weights take 51.5 GB, made as its bf16 ones are freed), held to
+   fp32 weights take 51.5 GB, made as its bf16 ones are freed;
+   internvl2-76b at 2), held to
    LM_TOL; for an SSD model (mamba2-130m, zamba2-2.7b) in
    bf16 every prefill scan of the kernel path is also held to BF16_REL_TOL
    against the plain version on the same inputs, and its logits are held to
@@ -128,8 +140,8 @@ repository's sources are not beside this script.  Otherwise, in order:
    MOE_ROUTES for the logits check where they differ);
 11. prints the per-kernel JSON line (the ``flash_attention`` row is
    granite-3-2b's, naming the device function that served its prefill,
-   with every other served attention model's times, bound, SDPA times and
-   launches under keys that name the model; the ``ssd_scan`` row is
+   with every other served attention call's times, bound, SDPA times and
+   launches under keys that name the model and the call; the ``ssd_scan`` row is
    mamba2-130m's scan, with its device function, device and host times,
    and zamba2-2.7b's times and launches under keys that name it), then
    ``{"ok": true, "device": ...}`` last.
@@ -172,7 +184,7 @@ from repro_torch.kernels import build, im2col_conv, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gm
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.launch.serve import make_prompt, serve
+from repro_torch.launch.serve import make_batch, serve
 from repro_torch.launch.mesh import make_stage_mesh
 from repro_torch.launch.serve_cnn import BATCH, N_MICRO, serve_cnn
 from repro_torch.models import blocks, transformer
@@ -239,6 +251,8 @@ GEMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 #: (None: the config's) and the depth of the fp32 comparison (None: served
 #: depth).  nemotron-4-340b's embedding and head take 18.9 GB in bf16 and
 #: each layer 6.9 GB; its fp32 comparison at 1 layer takes 51.5 GB.
+#: internvl2-76b's take 4.2 GB and 1.71 GB a layer: 80 layers would need
+#: about 141 GB, 8 take 17.9 GB, its fp32 comparison at 2 about 15.5 GB.
 LM_MODELS = {
     "granite-3-2b": (("flash_attention",), None, None),
     "mamba2-130m": (("ssd_scan",), None, None),
@@ -246,6 +260,8 @@ LM_MODELS = {
     "llama4-scout-17b": (("flash_attention", "gemm"), 4, 2),
     "zamba2-2.7b": (("ssd_scan", "flash_attention"), None, None),
     "nemotron-4-340b": (("flash_attention",), 2, 1),
+    "whisper-small": (("flash_attention",), None, None),
+    "internvl2-76b": (("flash_attention",), 8, 2),
 }
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
@@ -616,21 +632,49 @@ def _agree(name: str, case, got: torch.Tensor, want: torch.Tensor, tol: float | 
     return err
 
 
-def check_flash(gen: torch.Generator) -> dict:
-    """Phase 6 for ``flash_attention``: parity everywhere, times at the
-    prefill shape of every served attention model, q, k and v in the model's
-    layout (transposed ``[b, s, h, d]`` views).  The kernels-line row is
-    granite-3-2b's, the kernel's first model."""
-    f32, bf16 = torch.float32, torch.bfloat16
-    served = []  # bf16, causal, one per attention model of LM_MODELS
+def served_flash_calls() -> list[dict]:
+    """The flash calls of each served model's bf16 prefill at LM_BATCH and
+    LM_PROMPT, one per distinct shape: the causal self attention of every
+    attention model (internvl's over the patches and the prompt); whisper's
+    bidirectional encoder over its frames, its causal decoder over the prompt
+    cut to ``max_decoder_len`` and its cross attention from the one to the
+    other."""
+    bf16, calls = torch.bfloat16, []
     for arch, (names, _, _) in LM_MODELS.items():
-        if "flash_attention" in names:
-            cfg = get_config(arch)
-            if cfg.sliding_window:  # SDPA, the yardstick, takes no window
-                raise RuntimeError(f"{arch}: a sliding window is not timed here")
-            served.append(dict(b=LM_BATCH, h=cfg.n_heads, kvh=cfg.n_kv_heads, s=LM_PROMPT, d=cfg.hd, dtype=bf16,
-                               causal=True, window=0, model=arch))
-    cases = served + [
+        if "flash_attention" not in names:
+            continue
+        cfg = get_config(arch)
+        if cfg.sliding_window:  # SDPA, the yardstick, takes no window
+            raise RuntimeError(f"{arch}: a sliding window is not timed here")
+        shape = dict(b=LM_BATCH, h=cfg.n_heads, kvh=cfg.n_kv_heads, d=cfg.hd, dtype=bf16, window=0)
+        if cfg.is_encdec:
+            dec = min(LM_PROMPT, cfg.max_decoder_len)
+            calls += [dict(shape, s=cfg.enc_frames, causal=False, model=f"{arch} encoder"),
+                      dict(shape, s=dec, causal=True, model=f"{arch} decoder self-attention"),
+                      dict(shape, s=dec, skv=cfg.enc_frames, causal=False, model=f"{arch} cross attention")]
+        else:
+            calls.append(dict(shape, s=LM_PROMPT + cfg.n_patches, causal=True, model=arch))
+    return calls
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves visible: the work the data needs."""
+    n = 0
+    for i in range(sq):
+        hi = min(i, skv - 1) if causal else skv - 1
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def check_flash(gen: torch.Generator) -> dict:
+    """Phase 6 for ``flash_attention``: parity everywhere, times at every
+    flash call of the served models' prefills (``served_flash_calls``), q,
+    k and v in the model's layout (transposed ``[b, s, h, d]`` views).  The
+    kernels-line row is granite-3-2b's, the kernel's first model, with the
+    other calls under keys that name the model and the call."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = served_flash_calls() + [
         dict(b=2, h=h, kvh=kvh, s=s, d=32, dtype=f32, causal=c, window=0)  # tests/test_kernels.py grid
         for c in (True, False) for h, kvh in ((4, 4), (4, 2), (8, 1)) for s in (64, 128)
     ] + [
@@ -661,18 +705,35 @@ def check_flash(gen: torch.Generator) -> dict:
         dict(b=2, h=24, kvh=2, s=100, d=d, dtype=f32, causal=True, window=16) for d in (80, 192)
     ] + [
         dict(b=1, h=12, kvh=1, s=77, d=d, dtype=f32, causal=False, window=9) for d in (80, 192)
+    ] + [  # a key length other than the query's: Sq 1 / 15 / 448 / 1500 against Skv 1 / 15 / 65 / 448 /
+        # 1500, longer and shorter, causal (top-left) with and without a window, D 64 and 128, GQA 1 and 8
+        dict(b=2, h=8, kvh=1, s=1, skv=1500, d=64, dtype=bf16, causal=False, window=0),
+        dict(b=2, h=8, kvh=8, s=15, skv=65, d=128, dtype=bf16, causal=True, window=7),
+        dict(b=2, h=8, kvh=1, s=448, skv=65, d=64, dtype=bf16, causal=False, window=0),
+        dict(b=2, h=12, kvh=12, s=448, skv=1, d=128, dtype=bf16, causal=False, window=0),
+        dict(b=1, h=16, kvh=2, s=448, skv=1500, d=128, dtype=bf16, causal=True, window=0),
+        dict(b=2, h=4, kvh=4, s=65, skv=15, d=64, dtype=bf16, causal=True, window=64),
+        dict(b=2, h=8, kvh=1, s=1500, skv=448, d=64, dtype=bf16, causal=True, window=0),
+        dict(b=1, h=8, kvh=8, s=15, skv=1500, d=64, dtype=bf16, causal=False, window=0),
+        dict(b=2, h=4, kvh=2, s=20, skv=8, d=32, dtype=f32, causal=True, window=16),  # fp32 at 2e-4
+        dict(b=2, h=4, kvh=4, s=8, skv=20, d=64, dtype=f32, causal=False, window=0),
+        dict(b=1, h=8, kvh=1, s=100, skv=300, d=128, dtype=f32, causal=True, window=0),
+        dict(b=2, h=4, kvh=2, s=77, skv=33, d=64, dtype=f32, causal=False, window=50),
+        dict(b=1, h=12, kvh=1, s=1, skv=1500, d=64, dtype=f32, causal=False, window=0),
+        dict(b=4, h=12, kvh=12, s=448, skv=1500, d=64, dtype=f32, causal=False, window=0),  # whisper's, fp32
     ]
     row = None
     max_err = 0.0
     for case in cases:
         b, h, kvh, s, d, dt = (case[k] for k in ("b", "h", "kvh", "s", "d", "dtype"))
+        skv = case.get("skv", s)
         q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt).transpose(1, 2)  # the model's layout
         if "model" in case:
-            k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
-            v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+            k = torch.randn((b, skv, kvh, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+            v = torch.randn((b, skv, kvh, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
         else:
-            k = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
-            v = torch.randn((b, kvh, s, d), generator=gen, device="cuda").to(dt)
+            k = torch.randn((b, kvh, skv, d), generator=gen, device="cuda").to(dt)
+            v = torch.randn((b, kvh, skv, d), generator=gen, device="cuda").to(dt)
         kw = dict(causal=case["causal"], window=case["window"])
         y = fa.flash_attention(q, k, v, **kw)
         yp = fa.flash_attention_plain(q, k, v, **kw)
@@ -682,8 +743,7 @@ def check_flash(gen: torch.Generator) -> dict:
         max_err = max(max_err, err)
         print(f"[check] flash_attention {json.dumps({**desc, 'max_abs_err': err, 'max_abs_plain': yp.float().abs().max().item()})}")
         if "model" in case:
-            pairs = s * (s + 1) // 2
-            flops = 4.0 * b * h * d * pairs
+            flops = 4.0 * b * h * d * visible_pairs(s, skv, case["causal"], case["window"])
             nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + y.numel())
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
@@ -695,7 +755,7 @@ def check_flash(gen: torch.Generator) -> dict:
                 return fa.flash_attention_plain(q, k, v, **kw)
 
             def sdpa():
-                return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+                return F.scaled_dot_product_attention(qc, kc, vc, is_causal=case["causal"], enable_gqa=True)
 
             # CUDA events around 20 calls, as for every kernel; at these sizes the wrapper
             # takes the host longer to issue than the card to run, so the device time from
@@ -715,7 +775,7 @@ def check_flash(gen: torch.Generator) -> dict:
                   f"SDPA ran {json.dumps(sdpa_ran)}")
             if row is None:
                 row = {**timed, "sdpa_ran": sorted(sdpa_ran)}
-            else:  # the other served models' shapes, under keys that name them
+            else:  # the other served calls' shapes, under keys that name the model and the call
                 row.update({f"{case['model']} {k}": v for k, v in {**timed, **ratios}.items()})
                 row[f"{case['model']} sdpa_ran"] = sorted(sdpa_ran)
     return {
@@ -1002,14 +1062,14 @@ def _kernel_table(prof, wall_s: float) -> dict:
 
 
 @torch.inference_mode()
-def _time_lm(arch: str, cfg, params, prompt: torch.Tensor) -> dict:
+def _time_lm(arch: str, cfg, params, prompt: dict) -> dict:
     """Warm prefill and decode times of the kernel path on the host clock
     (around ``torch.cuda.synchronize()``), then one profiled prefill and
     four profiled decode steps.  Returns the prefill's kernel table."""
     from torch.profiler import ProfilerActivity, profile
 
     def prefill():
-        return transformer.prefill_step(cfg, params, {"tokens": prompt}, max_len=prompt.shape[1] + LM_GEN)
+        return transformer.prefill_step(cfg, params, prompt, max_len=prompt["tokens"].shape[1] + LM_GEN)
 
     def decode(logits, cache, steps):
         for _ in range(steps):
@@ -1061,9 +1121,10 @@ def _cast(params: dict, dt: torch.dtype) -> dict:
 
 
 @torch.inference_mode()
-def _forced_logits(cfg, params, prompt: torch.Tensor, forced: torch.Tensor) -> torch.Tensor:
-    """Prefill logits, then one per teacher-forced decode step: [b, 1 + steps, vocab]."""
-    logits, cache = transformer.prefill_step(cfg, params, {"tokens": prompt}, max_len=prompt.shape[1] + LM_GEN)
+def _forced_logits(cfg, params, prompt: dict, forced: torch.Tensor) -> torch.Tensor:
+    """Prefill logits over ``prompt`` (``make_batch``'s inputs), then one per
+    teacher-forced decode step: [b, 1 + steps, vocab]."""
+    logits, cache = transformer.prefill_step(cfg, params, prompt, max_len=prompt["tokens"].shape[1] + LM_GEN)
     out = [logits]
     for t in range(forced.shape[1]):
         logits, cache = transformer.serve_step(cfg, params, cache, forced[:, t : t + 1])
@@ -1175,7 +1236,7 @@ def _plain_toward_zero():
         yield
 
 
-def hold_bf16_scans(arch: str, cfg, params: dict, prompt: torch.Tensor, forced: torch.Tensor,
+def hold_bf16_scans(arch: str, cfg, params: dict, prompt: dict, forced: torch.Tensor,
                     failures: list[str]) -> None:
     """Phase 8's logits check of a bf16 SSD model (see SSD_LAYERS): the model
     in fp32 with its scans in bf16, kernel path and a control scan that
@@ -1244,7 +1305,7 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
         raise RuntimeError(f"{arch}: bad tokens {tuple(tokens.shape)} in [{int(tokens.min())}, {int(tokens.max())}]")
 
     # the same weights and prompt, kernel path against plain path, teacher-forced on the served tokens
-    prompt = make_prompt(cfg, LM_BATCH, LM_PROMPT, 0, "cuda")
+    prompt = make_batch(cfg, LM_BATCH, LM_PROMPT, 0, "cuda")  # tokens, and whisper's frames or internvl's patches
     forced = tokens[:, :LM_FORCED]
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     table = _time_lm(arch, cfg, params, prompt)
@@ -1264,8 +1325,10 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
         print(f"[lm] {arch}: prefill expert products served by {json.dumps(gemm_calls)}")
     if "flash_attention" in kernels:  # bf16 prefill: the tensor-core kernel once per layer, never the SIMT one
         mma = {n: c for n, c in flash_calls.items() if n.startswith("flash_fwd_mma_bf16_kernel")}
-        # a hybrid runs its shared attention block once per group of SSD layers
-        attn_layers = cfg.n_layers // cfg.shared_attn_every if cfg.block_kind == "hybrid" else cfg.n_layers
+        # a hybrid runs its shared attention block once per group of SSD layers; whisper's prefill runs
+        # every encoder layer, and self and cross attention in every decoder layer
+        attn_layers = cfg.n_layers // cfg.shared_attn_every if cfg.block_kind == "hybrid" \
+            else cfg.enc_layers + 2 * cfg.n_layers if cfg.is_encdec else cfg.n_layers
         if len(mma) != 1 or len(flash_calls) != 1 or sum(mma.values()) != attn_layers:
             raise RuntimeError(f"{arch}: the profiled bf16 prefill ran {flash_calls}, want "
                                f"flash_fwd_mma_bf16_kernel once per attention layer ({attn_layers})")

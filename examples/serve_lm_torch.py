@@ -1,9 +1,12 @@
 """Batched LM serving on the PyTorch port: prefill a prompt batch, decode
-with the ring cache (attention, dense or MoE FFN) or the SSM state (Mamba2).
+with the ring cache (attention, dense or MoE FFN; whisper's decoder beside
+its cross K/V; internvl's patch prefix) or the SSM state (Mamba2).
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch granite-3-2b      # smoke config, on the card
     PYTHONPATH=src python examples/serve_lm_torch.py --arch mamba2-130m --device cpu
     PYTHONPATH=src python examples/serve_lm_torch.py --arch phi3.5-moe-42b --device cpu
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch whisper-small --device cpu
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch internvl2-76b --device cpu
 
 Full width: ``python -m repro_torch.launch.serve --arch granite-3-2b --scale full``.
 """

@@ -62,7 +62,7 @@ import ssd_probe  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.launch.serve import make_prompt  # noqa: E402
+from repro_torch.launch.serve import make_batch  # noqa: E402
 from repro_torch.models.lm_common import init_params  # noqa: E402
 
 EPS = (1e-6, 1e-4, 4e-3)
@@ -178,7 +178,7 @@ def main() -> int:
         del x, dt, A, B, C, yp
 
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-        prompt = make_prompt(cfg, cs.LM_BATCH, cs.LM_PROMPT, seed, "cuda")
+        prompt = make_batch(cfg, cs.LM_BATCH, cs.LM_PROMPT, seed, "cuda")["tokens"]
         forced = torch.zeros((cs.LM_BATCH, cs.LM_FORCED), dtype=torch.long, device="cuda")
         for model, depth in ((m, d) for m in args.model for d in args.depths):
             dtype = bf16 if model == "bf16" else torch.float32

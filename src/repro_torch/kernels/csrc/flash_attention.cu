@@ -1,24 +1,29 @@
 // Forward flash attention (online softmax, causal / sliding window, GQA) for sm_90a.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (the Pallas
-// kernel _flash_kernel).  Same function: q [B, H, S, D], k/v [B, KVH, S, D],
+// kernel _flash_kernel).  Same function: q [B, H, Sq, D], k/v [B, KVH, Skv, D],
 // q-head i reads kv-head i / (H / KVH) (the reference's (i % h) // group over
 // the folded batch*heads axis), scores q.k / sqrt(D) with an optional causal
 // mask, and the running max, normaliser and accumulator in fp32; p is
 // rounded to the input type before P.V, as the Pallas kernel casts it to
-// v.dtype, while the normaliser sums the unrounded p.  Two things the Pallas
-// kernel leaves to its caller are done here: a sliding window (key j visible
-// to query i only if i - j < window, the mask of blocks._sdpa_chunk) and a
-// ragged S (the edge tiles are masked; the reference's S % block assert is a
-// TPU tiling limit, not part of the function).  Strides are arguments: the
-// model passes its [b, s, h, d] tensors as transposed views, with no copy.
+// v.dtype, while the normaliser sums the unrounded p.  Three things the
+// Pallas kernel leaves to its caller are done here, each with the semantics
+// of blocks._sdpa_chunk at q_offset 0: a key length Skv other than the
+// query's (whisper's cross attention: 448 decoder positions against 1500
+// encoder frames; the causal mask is then top-left, key j visible to query i
+// when j <= i), a sliding window (key j visible only if i - j < window) and
+// ragged lengths (the edge tiles are masked; the reference's S % block
+// assert is a TPU tiling limit, not part of the function).  A query row that
+// sees no key at all (only where Sq > Skv under a window) is 0 / 0 = NaN, as
+// softmax over no keys is in _sdpa.  Strides are arguments: the model passes
+// its [b, s, h, d] tensors as transposed views, with no copy.
 //
 // Bound on the H100 SXM: bytes.  At the LM prefill shapes (bf16, causal, S
 // 512, k/v [4, 8, 512, D]) a call reads q, k, v and writes o once: 21 / 42 /
 // 50 MB for granite-3-2b (q [4,32,512,64]), phi3.5-moe (q [4,32,512,128]) and
 // llama4-scout (q [4,40,512,128]), 6.3 / 12.5 / 15.0 us at 3.35 TB/s, against
 // 4.3 / 8.6 / 10.8 GFLOP, 4.4 / 8.7 / 10.9 us at the 989 TFLOP/s bf16 peak.
-// What sets the time instead is latency: at D 128 one 226-register block
+// What sets the time instead is latency: at D 128 one 222-register block
 // fits an SM, so nothing covers a block's prologue (Q and the first K/V
 // tiles in flight) and epilogue (the last barrier, the store), and within a
 // tile the products, the softmax and the copies of a warp wait on one
@@ -28,7 +33,7 @@
 // bf16: flash_fwd_mma_bf16_kernel<D>, D in {16, 32, 64, 80, 128, 192}, on the
 // tensor cores.
 // - Grid: one block per (batch*q-head, q tile of BQ = 16 * warps rows); each
-//   warp owns 16 query rows.  4 warps (BQ 64) at D <= 80; 8 warps (BQ 128) at
+//   warp owns 16 query rows; the grid covers Sq, the K/V loop Skv.  4 warps (BQ 64) at D <= 80; 8 warps (BQ 128) at
 //   D 128 and 192, where each K/V tile then serves twice the rows (4 warps at
 //   D 128 are slower on the card: scripts/flash_tiles.py, PERF.md).  Causal q
 //   tiles run heaviest first.
@@ -41,7 +46,7 @@
 // - K and V stream in 64-key tiles through a 3-stage cp.async ring, as bf16
 //   as stored (no widening, no transposed copy): 16-byte copies (8-byte ones
 //   where a row is only 8-byte aligned), zero-filled past the ragged end of
-//   S.  The copy of tile t + 2 is issued before tile t's math, so one
+//   Skv.  The copy of tile t + 2 is issued before tile t's math, so one
 //   barrier per tile orders the ring.  Rows are padded by 16 bytes, so the
 //   eight rows an ldmatrix phase reads fall in distinct banks (row pitches of
 //   48 / 80 / 144 / 176 / 272 / 400 bytes: 12, 20, 36, 44, 68 and 100 words,
@@ -64,16 +69,17 @@
 //   the window's first tiles, the ragged last tile); interior blocks run
 //   unmasked.  Blocks a warp cannot see are skipped (causal tiles above the
 //   diagonal and window tiles before the window are not even loaded).
-// - Epilogue: divide by max(l, 1e-30), round once to bf16, stage each warp's
+// - Epilogue: divide by l, round once to bf16, stage each warp's
 //   16 rows in shared memory and store 16 bytes at a time into the strided
 //   output.
 // - Occupancy (ptxas -v on sm_90a, PERF.md): shared memory 3 stages x (K + V)
 //   x 64 x (D + 8) x 2 bytes = 18 / 30 / 54 / 66 / 102 / 150 KB a block at D
 //   16 / 32 / 64 / 80 / 128 / 192, plus Q's 50 KB at D 192.  At D <= 64, 4
-//   warps and at most 168 registers (110 / 128 / 167 used), so 3 blocks (12
-//   warps) an SM; at D 80, 4 warps with up to 255 registers (its accumulator
-//   and Q fragments take 12 more than D 64's 167), 2 blocks an SM; at D 128
-//   and 192, 8 warps with up to 255 registers, 1 block (8 warps) an SM.  No
+//   warps and at most 168 registers (110 / 128 / 158 used), so 3 blocks (12
+//   warps) an SM; at D 80, 4 warps with up to 255 registers (192 used: its
+//   accumulator and Q fragments pass 168), 2 blocks an SM; at D 128 and 192,
+//   8 warps with up to 255 registers (222 and 254 used), 1 block (8 warps)
+//   an SM.  No
 //   spills (chip_smoke.py fails on one).
 //
 // fp32: flash_fwd_kernel<D>, on the SIMT pipes (TF32 would break the
@@ -97,7 +103,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 struct AttnShape {
-  int B, H, KVH, S;
+  int B, H, KVH, Sq, Skv;  // query and key lengths
   long long sqb, sqh, sqs;  // element strides of q over batch, head, position (d is unit)
   long long skb, skh, sks;
   long long svb, svh, svs;
@@ -231,19 +237,19 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* vb = v + b * p.svb + hk * p.svh;
   bf16* ob = o + b * p.sob + hq * p.soh;
 
-  const int q_last = min(q0 + BQ, p.S) - 1;
-  int kt_end = (p.S + MBK - 1) / MBK;
-  if (p.causal) kt_end = min(kt_end, q_last / MBK + 1);
+  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  int kt_end = (p.Skv + MBK - 1) / MBK;
+  if (p.causal) kt_end = min(kt_end, q_last / MBK + 1);  // top-left: keys up to the block's last row
   const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / MBK : 0;
 
   auto load_kv = [&](int kt, int stage) {
     const int k0 = kt * MBK;
     bf16* ks = ring + stage * STAGE;
-    load_rows<MBK, D, THREADS>(ks, kb + k0 * p.sks, p.sks, p.S - k0, vec16, tid);
-    load_rows<MBK, D, THREADS>(ks + MBK * LD, vb + k0 * p.svs, p.svs, p.S - k0, vec16, tid);
+    load_rows<MBK, D, THREADS>(ks, kb + k0 * p.sks, p.sks, p.Skv - k0, vec16, tid);
+    load_rows<MBK, D, THREADS>(ks + MBK * LD, vb + k0 * p.svs, p.svs, p.Skv - k0, vec16, tid);
   };
 
-  load_rows<BQ, D, THREADS>(Qs, qb + q0 * p.sqs, p.sqs, p.S - q0, vec16, tid);
+  load_rows<BQ, D, THREADS>(Qs, qb + q0 * p.sqs, p.sqs, p.Sq - q0, vec16, tid);
   cp_async_commit();
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
@@ -280,9 +286,9 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const bf16* vs = ks + MBK * LD;
     const int k0 = kt * MBK;
     // this warp's rows r0 .. r0 + 15 against keys k0 .. k0 + 63: S = Q.K^T, online softmax, O += P.V
-    if (r0 >= p.S || (p.causal && k0 > r0 + 15) || (p.window > 0 && r0 - (k0 + MBK - 1) >= p.window)) continue;
+    if (r0 >= p.Sq || (p.causal && k0 > r0 + 15) || (p.window > 0 && r0 - (k0 + MBK - 1) >= p.window)) continue;
     // only the causal diagonal, the window's first keys and the ragged end need the mask
-    const bool masked = k0 + MBK > p.S || (p.causal && k0 + MBK - 1 > r0) ||
+    const bool masked = k0 + MBK > p.Skv || (p.causal && k0 + MBK - 1 > r0) ||
                         (p.window > 0 && r0 + 15 - k0 >= p.window);
 
     float s[NT][4];
@@ -315,7 +321,7 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         for (int e = 0; e < 4; ++e) {
           const int i = r0 + lane / 4 + (e / 2) * 8;
           const int j = k0 + nt * 8 + (lane % 4) * 2 + e % 2;
-          const bool ok = j < p.S && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
+          const bool ok = j < p.Skv && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
           if (!ok) s[nt][e] = -INFINITY;
         }
     }
@@ -373,8 +379,7 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    l[h] = fmaxf(l[h], 1e-30f);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);  // 0 only for a row that sees no key: NaN, as in _sdpa
   }
   bf16* os = ring + warp * 16 * LD;  // this warp's 16 rows
 #pragma unroll
@@ -390,7 +395,7 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int it = 0; it < CPR / 2; ++it) {
     const int e = lane + it * 32;
     const int r = e / CPR, col = (e % CPR) * 8;
-    if (r0 + r >= p.S) continue;
+    if (r0 + r >= p.Sq) continue;
     const bf16* src = os + r * LD + col;
     bf16* dst = ob + (long long)(r0 + r) * p.sos + col;
     if (vec16) {
@@ -410,7 +415,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, const AttnS
   auto kernel = flash_fwd_mma_bf16_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.S + 16 * WARPS - 1) / (16 * WARPS)));
+  const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + 16 * WARPS - 1) / (16 * WARPS)));
   kernel<<<grid, WARPS * 32, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                               static_cast<const bf16*>(v), static_cast<bf16*>(o), p, vec16);
   return (int)cudaGetLastError();
@@ -464,7 +469,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   for (int e = tid; e < BQ * V4; e += THREADS) {
     const int i = e / V4, d = (e % V4) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + i < p.S) val = __ldg(reinterpret_cast<const float4*>(qb + (long long)(q0 + i) * p.sqs + d));
+    if (q0 + i < p.Sq) val = __ldg(reinterpret_cast<const float4*>(qb + (long long)(q0 + i) * p.sqs + d));
     Qt[(d + 0) * LDT + i] = val.x;
     Qt[(d + 1) * LDT + i] = val.y;
     Qt[(d + 2) * LDT + i] = val.z;
@@ -481,8 +486,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
   }
 
-  const int q_last = min(q0 + BQ, p.S) - 1;
-  int kt_end = (p.S + BK - 1) / BK;
+  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  int kt_end = (p.Skv + BK - 1) / BK;
   if (p.causal) kt_end = min(kt_end, q_last / BK + 1);
   const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
 
@@ -492,7 +497,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     for (int e = tid; e < BK * V4; e += THREADS) {
       const int j = e / V4, d = (e % V4) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (k0 + j < p.S) {
+      if (k0 + j < p.Skv) {
         kv = __ldg(reinterpret_cast<const float4*>(kb + (long long)(k0 + j) * p.sks + d));
         vv = __ldg(reinterpret_cast<const float4*>(vb + (long long)(k0 + j) * p.svs + d));
       }
@@ -528,7 +533,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int kj = k0 + tx * 4 + c;
-        bool ok = kj < p.S;
+        bool ok = kj < p.Skv;
         if (p.causal) ok = ok && kj <= qi;
         if (p.window > 0) ok = ok && qi - kj < p.window;
         s[r][c] = ok ? s[r][c] * p.scale : -INFINITY;
@@ -591,8 +596,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + ty * 4 + r;
-    if (qi >= p.S) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
+    if (qi >= p.Sq) continue;
+    const float denom = l[r];  // 0 only for a row that sees no key: NaN, as in _sdpa
     float* orow = ob + (long long)qi * p.sos;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -606,7 +611,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, const AttnS
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.S + BQ - 1) / BQ));
+  const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + BQ - 1) / BQ));
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                                        static_cast<const float*>(v), static_cast<float*>(o), p);
   return (int)cudaGetLastError();
@@ -631,13 +636,13 @@ bool rows_16b(const void* q, const void* k, const void* v, const void* o, const 
 // kernel); o has q's shape and type.  Shapes, strides and alignment are
 // validated by the Python wrapper.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
-                                   int B, int H, int KVH, int S, int D,
+                                   int B, int H, int KVH, int Sq, int Skv, int D,
                                    long long sqb, long long sqh, long long sqs,
                                    long long skb, long long skh, long long sks,
                                    long long svb, long long svh, long long svs,
                                    long long sob, long long soh, long long sos,
                                    int causal, int window, float scale, void* stream) {
-  const AttnShape p{B, H, KVH, S, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
+  const AttnShape p{B, H, KVH, Sq, Skv, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
                     causal, window, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {

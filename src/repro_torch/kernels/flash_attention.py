@@ -11,8 +11,12 @@ registers, a ``cp.async`` K/V ring, P kept in registers), fp32 runs
 ``flash_fwd_kernel`` on the SIMT pipes (TF32 would miss the reference's
 2e-4).  Both keep the running max, normaliser and accumulator in fp32, skip
 causal tiles above the diagonal, mask a sliding window as ``_sdpa`` does and
-mask a ragged ``S`` instead of asserting that it divides the tile (see the
-source note).
+mask ragged lengths instead of asserting that they divide the tile (see the
+source note).  The key length may differ from the query's (whisper's cross
+attention: 448 decoder positions against 1500 encoder frames), with the
+reference ``blocks._sdpa``'s semantics at ``q_offset = 0``: the causal mask
+is top-left, key ``j`` visible to query ``i`` when ``j <= i``.  The Pallas
+kernel takes one length for both.
 
 :func:`flash_attention_plain` is exact softmax attention in fp32 with the
 same masks and the same cast of the probabilities to ``v.dtype`` before
@@ -37,11 +41,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"need q [B,H,S,D] and k, v [B,KVH,S,D], got {tuple(q.shape)}, {tuple(k.shape)}, "
+        raise ValueError(f"need q [B,H,Sq,D] and k, v [B,KVH,Skv,D], got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    b, h, s, d = q.shape
-    if k.shape[0] != b or k.shape[2] != s or k.shape[3] != d:
-        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree on batch, length or head dim")
+    b, h, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree on batch or head dim")
     if k.shape[1] == 0 or h % k.shape[1] != 0:
         raise ValueError(f"q heads {h} are not a multiple of kv heads {k.shape[1]}")
     if window < 0:
@@ -51,24 +55,28 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
-    """Exact attention in fp32.  q: [B, H, S, D]; k, v: [B, KVH, S, D] ->
-    [B, H, S, D] in ``q.dtype``.  Key j is visible to query i when
-    ``j <= i`` (causal) and ``i - j < window`` (window > 0)."""
+    """Exact attention in fp32.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv, D]
+    -> [B, H, Sq, D] in ``q.dtype``.  Key j is visible to query i when
+    ``j <= i`` (causal) and ``i - j < window`` (window > 0), positions
+    counted from 0 on both sides, as ``blocks._sdpa_chunk`` masks at
+    ``q_offset = 0``.  A row that sees no key (only where Sq > Skv under a
+    window) is NaN, as there."""
     _check_shapes(q, k, v, window)
-    b, h, s, d = q.shape
-    kvh = k.shape[1]
-    qg = q.float().reshape(b, kvh, h // kvh, s, d)
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kvh, h // kvh, sq, d)
     scores = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) / math.sqrt(d)
-    pos = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= pos[:, None] >= pos[None, :]
+        mask &= qpos >= kpos
     if window:
-        mask &= pos[:, None] - pos[None, :] < window
+        mask &= qpos - kpos < window
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
-    return out.reshape(b, h, s, d).to(q.dtype)
+    return out.reshape(b, h, sq, d).to(q.dtype)
 
 
 def _vector_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
@@ -84,10 +92,11 @@ def _vector_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
-    """Attention on the CUDA kernel.  q: [B, H, S, D]; k, v: [B, KVH, S, D],
-    float32 or bfloat16 on the current CUDA device, D in ``HEAD_DIMS``, unit
-    stride over D (other strides free, so ``[b, s, h, d]`` tensors pass as
-    transposed views) -> [B, H, S, D] with q's layout and type.
+    """Attention on the CUDA kernel.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv,
+    D], float32 or bfloat16 on the current CUDA device, D in ``HEAD_DIMS``,
+    unit stride over D (other strides free, so ``[b, s, h, d]`` tensors pass
+    as transposed views) -> [B, H, Sq, D] with q's layout and type.  Masks
+    as :func:`flash_attention_plain`.
 
     Launches on the current stream without synchronising; raises if the
     inputs are not what the kernel takes or the launch is refused.
@@ -101,12 +110,13 @@ def flash_attention(
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 alike, got {q.dtype}, {k.dtype}, {v.dtype}")
     _check_shapes(q, k, v, window)
-    b, h, s, d = q.shape
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported (have {HEAD_DIMS})")
-    if min(b, s) == 0:
-        raise ValueError(f"empty attention: q {tuple(q.shape)}")
-    if b * h > 2**31 - 1 or -(-s // 64) > 65535:
+    if min(b, sq, skv) == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k/v {tuple(k.shape)}")
+    if b * h > 2**31 - 1 or -(-sq // 64) > 65535:
         raise ValueError(f"grid too large for q {tuple(q.shape)}")
     strides = [_vector_strides(t) for t in (q, k, v)]
     if None in strides:
@@ -114,7 +124,7 @@ def flash_attention(
     o = torch.empty_like(q)  # same strides as q: a transposed [b, s, h, d] view stays one
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-        b, h, k.shape[1], s, d,
+        b, h, k.shape[1], sq, skv, d,
         *strides[0], *strides[1], *strides[2], *o.stride()[:3],
         int(causal), int(window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -132,7 +142,7 @@ def _kernel():
 
     fn = library("flash_attention").flash_attention_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int

@@ -36,7 +36,8 @@ def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
 ) -> torch.Tensor:
-    """Attention. q: [B, H, S, D]; k, v: [B, KVH, S, D] -> [B, H, S, D]."""
+    """Attention. q: [B, H, Sq, D]; k, v: [B, KVH, Skv, D] -> [B, H, Sq, D]
+    (the causal mask top-left: key j visible to query i when j <= i)."""
     if q.is_cuda:
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":

@@ -3,9 +3,11 @@ cache (attention) or the SSM state (Mamba2).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b --scale full   # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --device cpu
 
-Port of ``repro.launch.serve``: the same prompt (``default_rng(seed)``), the
-same prefill -> decode loop and the same result keys.  Weights are drawn
+Port of ``repro.launch.serve``: the same inputs (prompt, whisper's frames,
+internvl's patch embeddings, all from one ``default_rng(seed)``), the same
+prefill -> decode loop and the same result keys.  Weights are drawn
 from ``torch.Generator(device).manual_seed(seed)``.  Prefill and decode are
 timed on the host clock around ``torch.cuda.synchronize()``.
 """
@@ -23,10 +25,18 @@ from ..models.lm_common import LMConfig, init_params
 from ..models.transformer import prefill_step, serve_step
 
 
-def make_prompt(cfg: LMConfig, batch: int, prompt_len: int, seed: int, device: str | torch.device) -> torch.Tensor:
-    """The reference's prompt: ``default_rng(seed).integers(0, vocab)``."""
+def make_batch(cfg: LMConfig, batch: int, prompt_len: int, seed: int, device: str | torch.device) -> dict:
+    """The reference's serving inputs, drawn from one ``default_rng(seed)``
+    in its order: ``tokens`` [batch, prompt_len] (``integers(0, vocab)``),
+    then for enc-dec ``frames`` [batch, enc_frames, d_model] and for a patch
+    prefix ``patch_embeds`` [batch, n_patches, d_model] (standard normal,
+    fp32)."""
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)), dtype=torch.int64, device=device)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)), dtype=torch.int64, device=device)}
+    for key, on, n in (("frames", cfg.is_encdec, cfg.enc_frames), ("patch_embeds", cfg.n_patches, cfg.n_patches)):
+        if on:
+            out[key] = torch.as_tensor(rng.standard_normal((batch, n, cfg.d_model)), dtype=torch.float32, device=device)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -53,11 +63,11 @@ def serve(
     device = torch.device(device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
     max_len = prompt_len + gen
-    tokens = make_prompt(cfg, batch, prompt_len, seed, device)
+    inputs = make_batch(cfg, batch, prompt_len, seed, device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill_step(cfg, params, {"tokens": tokens}, max_len=max_len)
+    logits, cache = prefill_step(cfg, params, inputs, max_len=max_len)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 

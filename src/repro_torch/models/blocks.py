@@ -1,17 +1,19 @@
 """Forward blocks of the LM path: GQA attention, dense and MoE FFN, Mamba2 SSD.
 
-Port of ``repro/models/blocks.py`` for the block kinds served so far
-(``attn`` with a dense or an MoE FFN, and ``ssd``).  Every function takes
-the per-layer parameter slice (views of the ``[L, ...]`` stacks) and keeps
-the reference's ``[b, s, h, d]`` layouts.
+Port of ``repro/models/blocks.py``'s serving blocks: GQA self attention,
+whisper's cross attention, dense and MoE FFNs, and Mamba2 SSD.  Every
+function takes the per-layer parameter slice (views of the ``[L, ...]``
+stacks) and keeps the reference's ``[b, s, h, d]`` layouts.
 
-Prefill attention runs on :func:`repro_torch.kernels.ops.flash_attention`,
-the prefill SSD scan on :func:`repro_torch.kernels.ops.ssd_scan` and the MoE
-expert products (prefill and decode) on :func:`repro_torch.kernels.ops.gemm`,
-all reached through the ``ops`` module attribute: a CUDA tensor launches the
+Prefill attention (self and cross) runs on
+:func:`repro_torch.kernels.ops.flash_attention`, the prefill SSD scan on
+:func:`repro_torch.kernels.ops.ssd_scan` and the MoE expert products
+(prefill and decode) on :func:`repro_torch.kernels.ops.gemm`, all reached
+through the ``ops`` module attribute: a CUDA tensor launches the
 hand-written kernel, a CPU tensor runs its plain version.  One-token decode
-(:func:`attention_decode`, :func:`ssd_decode`) is plain PyTorch, as the
-reference computes it outside any Pallas kernel.
+(:func:`attention_decode`, :func:`cross_attention_decode`,
+:func:`ssd_decode`) is plain PyTorch, as the reference computes it outside
+any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -48,8 +50,10 @@ def _qkv(cfg: LMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
 def _sdpa(cfg: LMConfig, q, k, v, *, causal: bool, window: int = 0) -> torch.Tensor:
     """Softmax attention with GQA head grouping over the whole sequence.
 
-    q: [b, s, h, d]; k/v: [b, s, kvh, d] -> [b, s, h·d].  ``window``:
-    sliding-window size (0 = full).  The flash kernel takes the tensors as
+    q: [b, sq, h, d]; k/v: [b, skv, kvh, d] -> [b, sq, h·d].  ``window``:
+    sliding-window size (0 = full); the causal mask is top-left (key j
+    visible to query i when j <= i), as the reference's at ``q_offset``
+    0.  The flash kernel takes the tensors as
     transposed ``[b, h, s, d]`` views and writes its output in q's layout,
     so nothing is copied; it replaces both the reference's ``attn_q_block``
     chunking and its ``attn_repeat_kv`` option, neither of which changes the
@@ -59,8 +63,6 @@ def _sdpa(cfg: LMConfig, q, k, v, *, causal: bool, window: int = 0) -> torch.Ten
     if not cfg.attn_fp32_scores:
         raise NotImplementedError("attn_fp32_scores=False (bf16 softmax) is not ported; the kernel keeps fp32 scores")
     b, s, h, d = q.shape
-    if k.shape[1] != s:
-        raise NotImplementedError("attention over a key length other than the query's is not on this path")
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window)
     return o.transpose(1, 2).reshape(b, s, h * d)
 
@@ -103,14 +105,50 @@ def attention_decode(cfg: LMConfig, p: dict, x, cache_k, cache_v, cache_pos, ind
     seen = (cache_pos >= 0) & (cache_pos <= index)
     if window:
         seen &= cache_pos > index - window
-    d = cfg.hd
-    group = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, 1, cfg.n_kv_heads, group, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k.to(q.dtype)).float() / math.sqrt(d)
-    scores = scores.masked_fill(~seen, float("-inf"))
+    return x + _attend_one(cfg, q, cache_k, cache_v, seen) @ p["wo"], cache_k, cache_v, cache_pos
+
+
+def _attend_one(cfg: LMConfig, q, k, v, seen: torch.Tensor | None = None) -> torch.Tensor:
+    """One query position against ``s`` keys: q [b, 1, h, d]; k/v [b, s,
+    kvh, d]; ``seen`` [s] masks keys out (None: all visible) -> [b, 1, h·d].
+    Scores and softmax in fp32, the probabilities cast to q's type before
+    P·V, as the reference's ``_sdpa_chunk``."""
+    b, d = q.shape[0], cfg.hd
+    qg = q.reshape(b, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(q.dtype)).float() / math.sqrt(d)
+    if seen is not None:
+        scores = scores.masked_fill(~seen, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    o = torch.einsum("bkgqs,bskd->bqkgd", probs, cache_v.to(q.dtype)).reshape(b, 1, cfg.q_dim)
-    return x + o @ p["wo"], cache_k, cache_v, cache_pos
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(q.dtype)).reshape(b, 1, cfg.q_dim)
+
+
+def cross_kv(cfg: LMConfig, p: dict, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whisper's cross-attention K and V of one decoder layer: enc_out [b,
+    se, d] -> k, v [b, se, kvh, hd], no RoPE."""
+    b, se, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(b, se, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p["wv"]).reshape(b, se, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def cross_attention(cfg: LMConfig, p: dict, x, cross_k, cross_v) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper) with residual: pre-norm
+    ``p["ln"]``, queries from the decoder's ``s`` positions against the
+    :func:`cross_kv` of the encoder's ``se`` frames (``s != se``: the flash
+    kernel over a key length other than the query's), no mask, no RoPE.
+    x: [b, s, d]; cross_[kv]: [b, se, kvh, hd]."""
+    b, s, _ = x.shape
+    q = (rms_norm(x, p["ln"], cfg.norm_eps) @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    return x + _sdpa(cfg, q, cross_k, cross_v, causal=False) @ p["wo"]
+
+
+def cross_attention_decode(cfg: LMConfig, p: dict, x, cross_k, cross_v) -> torch.Tensor:
+    """One-token cross attention against the prefilled encoder K/V (the
+    reference writes it inline in ``serve_step``).  x: [b, 1, d]; cross_[kv]:
+    [b, se, kvh, hd] -> x + attention, every frame visible."""
+    b = x.shape[0]
+    q = (rms_norm(x, p["ln"], cfg.norm_eps) @ p["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+    return x + _attend_one(cfg, q, cross_k, cross_v) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

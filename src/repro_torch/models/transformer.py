@@ -1,35 +1,57 @@
 """Model assembly for LM serving: prefill and ring-cache decode.
 
-Port of the serving half of ``repro/models/transformer.py`` for the block
-kinds served so far: ``attn`` without encoder or patches (GQA with
-``qkv_bias``, ``qk_norm`` and ``sliding_window``; a swiglu or relu2 FFN, or
-a top-k MoE FFN with an optional shared expert), ``ssd`` (Mamba2), and
-``hybrid`` (zamba2: groups of ``shared_attn_every`` Mamba2 layers, each
-followed by one shared attention block and shared SwiGLU FFN, a single
-parameter set with a ring KV cache per application).
+Port of the serving half of ``repro/models/transformer.py`` for every
+block kind: ``attn`` (GQA with ``qkv_bias``, ``qk_norm`` and
+``sliding_window``; a swiglu or relu2 FFN, or a top-k MoE FFN with an
+optional shared expert), ``ssd`` (Mamba2), ``hybrid`` (zamba2: groups of
+``shared_attn_every`` Mamba2 layers, each followed by one shared attention
+block and shared SwiGLU FFN, a single parameter set with a ring KV cache per
+application), enc-dec (whisper: a bidirectional encoder over the stubbed
+frame embeddings, decoder layers with self and cross attention) and the
+patch prefix (internvl: projected patch embeddings before the tokens).
 
   * ``init_cache(cfg, batch, max_len, device)`` — decode state.
+  * ``encoder(cfg, params, frames)`` / ``prefill(cfg, params, batch, cache)``
+    — whisper's encoder, and its cross K/V written into a cache.
   * ``prefill_step(cfg, params, batch, max_len)`` — prompt forward that
-    emits the decode cache; attention runs on the flash kernel, the SSD scan
-    on the chunk-scan kernel, the MoE expert products (here and in decode)
-    on the batched GEMM kernel.
+    emits the decode cache; attention (self and cross) runs on the flash
+    kernel, the SSD scan on the chunk-scan kernel, the MoE expert products
+    (here and in decode) on the batched GEMM kernel.
   * ``serve_step(cfg, params, cache, tokens)`` — one-token decode.
   * ``serve_block`` / ``make_serve_step`` — ``decode_block`` tokens per call.
 
 The layer loop is a Python loop over views of the ``[L, ...]`` stacks where
 the reference has ``lax.scan``.  The cache is a dict of stacked tensors as
 in the reference, with ``index`` a Python int; decode updates it in place
-(the reference returns a new pytree) and returns it.  Enc-dec and patch
-models raise ``NotImplementedError``: they are later slices.  MoE layers
-drop the router's auxiliary loss, as the reference's serving does.  Prefill
-and decode run under ``torch.inference_mode()``.
+(the reference returns a new pytree) and returns it.  MoE layers drop the
+router's auxiliary loss, as the reference's serving does.  Prefill and
+decode run under ``torch.inference_mode()``.
 
-Where the port departs from the reference on purpose: a hybrid prefill
-gives the shared ring the ``attn`` path's width, ``max(max_len, s)`` capped
-by the window.  The reference's hybrid prefill sizes it ``min(s, window)``
-and ignores ``max_len`` (``repro/models/transformer.py:542``), so its first
-decode step after prefill overwrites position 0 (ROADMAP.md queue 3); the
-port's continuation equals decoding the whole sequence from scratch.
+Enc-dec, as the reference: the decoder ring is ``max_decoder_len`` wide
+(whisper's 448) whatever ``max_len`` says, the prompt is cut to that
+length, and decode wraps the ring past it.  The reference's prefill runs
+the encoder twice (in ``prefill`` and again for the decoder's cross
+attention); the port runs it once, in ``prefill``, and its prefill cross
+attention reads the cross K/V that ``prefill`` wrote into the cache, which
+gives the same values.
+
+Where the port departs from the reference on purpose, both times so that
+the first decode step after prefill keeps position 0 (ROADMAP.md queue 3):
+- a hybrid prefill gives the shared ring the ``attn`` path's width,
+  ``max(max_len, s)`` capped by the window.  The reference's sizes it
+  ``min(s, window)`` and ignores ``max_len``
+  (``repro/models/transformer.py:542``); the port's continuation equals
+  decoding the whole sequence from scratch.
+- ``max_len`` counts tokens (prompt plus generated, as ``serve`` computes
+  it) in ``init_cache`` and ``prefill_step`` alike, and a patch prefix's ring
+  holds ``max_len + n_patches`` positions (``_ring_width``).  The
+  reference's ``max_len`` counts positions, patches included, but its
+  ``serve`` passes the token count, so its prefill ring is ``max(max_len,
+  s)`` with ``s`` counting the patches (``repro/models/transformer.py:501``):
+  when ``n_patches >= gen`` it is exactly ``s`` wide and the first decode
+  step overwrites patch 0.  The port's continuation equals the reference's
+  prefill over the longer sequence; given ``max_len``, the port's caches
+  equal the reference's given ``max_len + n_patches``.
 """
 
 from __future__ import annotations
@@ -44,11 +66,7 @@ from .lm_common import LMConfig, layer, rms_norm
 
 
 def _check_supported(cfg: LMConfig) -> None:
-    """Raise for the architectures the port does not serve yet."""
-    if cfg.is_encdec:
-        raise NotImplementedError("enc-dec serving (whisper) is not ported yet: ROADMAP.md queue 1, enc-dec item")
-    if cfg.n_patches:
-        raise NotImplementedError("patch-prefix serving (internvl) is not ported yet: ROADMAP.md queue 1, patches item")
+    """Raise for a config no path of the port serves."""
     if cfg.block_kind not in ("attn", "ssd", "hybrid"):
         raise ValueError(cfg.block_kind)
     if cfg.block_kind == "hybrid" and cfg.n_layers % cfg.shared_attn_every:
@@ -104,13 +122,34 @@ def _prefill_ring(cfg: LMConfig, L: int, batch: int, s: int, W: int, device):
     return ring, kept, slots
 
 
+def _ring_width(cfg: LMConfig, max_len: int, s: int = 0, *, window: bool = True) -> int:
+    """Slots of a ring KV cache for ``max_len`` tokens (prompt plus
+    generated), the one rule of ``init_cache`` and ``prefill_step``: the
+    patch prefix on top, at least a prefill's ``s`` positions, at most the
+    sliding window (not for an ``attn`` prefill, ``window=False``, which
+    keeps all ``s`` as the reference's does); enc-dec's decoder ring at most
+    ``max_decoder_len``."""
+    if cfg.is_encdec:
+        return min(max_len, cfg.max_decoder_len or max_len)
+    W = max(max_len + cfg.n_patches, s)
+    return min(W, cfg.sliding_window) if window and cfg.sliding_window else W
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device: str | torch.device = "cuda") -> dict:
-    """Decode state: ring KV cache for attention, SSM and conv state for SSD,
-    both for hybrid (the ring as ``shared_k`` / ``shared_v`` / ``shared_pos``,
-    one per application of the shared block)."""
+    """Decode state for ``max_len`` tokens: ring KV cache for attention, SSM
+    and conv state for SSD, both for hybrid (the ring as ``shared_k`` /
+    ``shared_v`` / ``shared_pos``, one per application of the shared block);
+    enc-dec: a decoder ring of ``min(max_len, max_decoder_len)`` slots and
+    the cross K/V ``cross_k`` / ``cross_v`` [L, batch, enc_frames, kvh, hd]
+    that prefill fills."""
     _check_supported(cfg)
-    W = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    W = _ring_width(cfg, max_len)
     L = cfg.n_layers
+    if cfg.is_encdec:
+        kv = (L, batch, cfg.enc_frames, cfg.n_kv_heads, cfg.hd)
+        return {"index": 0, **_kv_ring(cfg, L, batch, W, device),
+                "cross_k": torch.zeros(kv, dtype=cfg.dtype, device=device),
+                "cross_v": torch.zeros(kv, dtype=cfg.dtype, device=device)}
     if cfg.block_kind == "attn":
         return {"index": 0, **_kv_ring(cfg, L, batch, W, device)}
     cache = {
@@ -122,6 +161,33 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device: str | torch.devi
     if cfg.block_kind == "hybrid":
         cache.update({f"shared_{k}": v for k, v in _kv_ring(cfg, _n_groups(cfg), batch, W, device).items()})
     return cache
+
+
+def encoder(cfg: LMConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder: bidirectional attention over the (stubbed) frame
+    embeddings [b, se, d_model], RoPE over frame positions, ``enc_ln_f`` at
+    the end.  Returns [b, se, d_model] in ``cfg.dtype``."""
+    enc_cfg = dataclasses.replace(cfg, n_experts=0, ffn_kind="swiglu", sliding_window=0)  # dense, no window
+    h = frames.to(cfg.dtype)
+    b, se, _ = h.shape
+    positions = torch.arange(se, dtype=torch.int32, device=h.device)[None, :].expand(b, se)
+    for i in range(cfg.enc_layers):
+        lp = layer(params["enc_blocks"], i)
+        h = blocks.attention(enc_cfg, lp, h, positions, causal=False)
+        h = blocks.dense_ffn(enc_cfg, lp, h)
+    return rms_norm(h, params["enc_ln_f"], cfg.norm_eps)
+
+
+@torch.inference_mode()
+def prefill(cfg: LMConfig, params: dict, batch: dict, cache: dict) -> dict:
+    """Encoder pass and cross K/V warm-up (enc-dec; any other model's cache
+    is returned as it is): ``cache`` with ``cross_k`` / ``cross_v`` of every
+    decoder layer computed from ``batch["frames"]``."""
+    if not cfg.is_encdec:
+        return cache
+    enc_out = encoder(cfg, params, batch["frames"])
+    kv = [blocks.cross_kv(cfg, layer(params["cross"], i), enc_out) for i in range(cfg.n_layers)]
+    return {**cache, "cross_k": torch.stack([k for k, _ in kv]), "cross_v": torch.stack([v for _, v in kv])}
 
 
 def _logits(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -140,6 +206,12 @@ def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor):
     if cfg.block_kind == "hybrid":
         ffn_cfg, shared = _shared(cfg, params)
     for i, lp in enumerate(_layers(cfg, params)):
+        if cfg.is_encdec:  # self attention over the decoder ring, then cross attention over the frames
+            x, _, _, _ = blocks.attention_decode(cfg, lp, x, cache["k"][i], cache["v"][i], cache["pos"][i], index)
+            x = blocks.cross_attention_decode(cfg, layer(params["cross"], i), x, cache["cross_k"][i],
+                                              cache["cross_v"][i])
+            x = blocks.dense_ffn(cfg, lp, x)
+            continue
         if cfg.block_kind == "attn":
             x, _, _, _ = blocks.attention_decode(
                 cfg, lp, x, cache["k"][i], cache["v"][i], cache["pos"][i], index, window=cfg.sliding_window
@@ -178,21 +250,28 @@ def serve_block(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor):
 def prefill_step(cfg: LMConfig, params: dict, batch: dict, max_len: int | None = None):
     """Serving prefill: forward over the prompt, emitting the decode cache.
 
-    batch: {"tokens": [b, s]}.  Returns (last-token logits [b, vocab] fp32,
-    cache).  The cache matches ``init_cache(cfg, b, max(max_len, s))`` so
-    decode continues from it directly; a hybrid's shared ring keeps the last
-    ``W`` positions at slot ``pos % W`` (``W`` capped by the window).
+    batch: {"tokens": [b, s_tok]}, with ``"frames"`` [b, enc_frames,
+    d_model] for enc-dec and ``"patch_embeds"`` [b, n_patches, d_model] for
+    a patch prefix.  ``max_len`` counts tokens (prompt plus generated), as
+    in ``init_cache``.  Returns (last-token logits [b, vocab] fp32, cache),
+    from which decode continues directly.  Its ring holds the ``s``
+    positions (patches first) in ``_ring_width`` slots; a hybrid's shared
+    ring keeps the last ``W`` positions at slot ``pos % W``; enc-dec's
+    decoder ring is ``max_decoder_len`` wide, the prompt cut to it, and
+    ``max_len`` is not read (module docstring).
     """
     _check_supported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(cfg, params, tokens)
+    if cfg.is_encdec:
+        return _prefill_encdec(cfg, params, batch)
+    x = embed_tokens(cfg, params, batch["tokens"])
+    if cfg.n_patches:  # the patch prefix: positions count the patches
+        x = torch.cat([batch["patch_embeds"].to(cfg.dtype) @ params["patch_proj"], x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
-    L = cfg.n_layers
 
-    W = max(max_len or s, s)
     if cfg.block_kind == "attn":
-        ring, kept, slots = _prefill_ring(cfg, L, b, s, W, x.device)
+        W = _ring_width(cfg, max_len or 0, s, window=False)
+        ring, kept, slots = _prefill_ring(cfg, cfg.n_layers, b, s, W, x.device)
         cache = {"index": s, **ring}
         for i, lp in enumerate(_layers(cfg, params)):
             x, k, v = blocks.attention(
@@ -203,7 +282,7 @@ def prefill_step(cfg: LMConfig, params: dict, batch: dict, max_len: int | None =
             cache["v"][i, :, slots] = v[:, kept]
     else:
         if cfg.block_kind == "hybrid":  # the attn path's width, capped by the window (module docstring)
-            W = min(W, cfg.sliding_window) if cfg.sliding_window else W
+            W = _ring_width(cfg, max_len or 0, s)
             ring, kept, slots = _prefill_ring(cfg, _n_groups(cfg), b, s, W, x.device)
             ffn_cfg, shared = _shared(cfg, params)
         ssm, conv = [], []
@@ -222,4 +301,25 @@ def prefill_step(cfg: LMConfig, params: dict, batch: dict, max_len: int | None =
         cache = {"index": s, "ssm": torch.stack(ssm), "conv": torch.stack(conv)}
         if cfg.block_kind == "hybrid":
             cache.update({f"shared_{key}": t for key, t in ring.items()})
+    return _logits(cfg, params, x), cache
+
+
+def _prefill_encdec(cfg: LMConfig, params: dict, batch: dict):
+    """Whisper's prefill: ``prefill`` (the encoder once and every layer's
+    cross K/V), then the decoder over the prompt cut to ``max_decoder_len``,
+    writing its K/V into slots ``[0, s)`` of a ``max_decoder_len``-slot
+    ring."""
+    tokens = batch["tokens"][:, : cfg.max_decoder_len]
+    b, s = tokens.shape
+    cache = prefill(cfg, params, batch, init_cache(cfg, b, cfg.max_decoder_len, tokens.device))
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    cache["index"] = s
+    cache["pos"][:, :s] = positions[0]
+    for i, lp in enumerate(_layers(cfg, params)):
+        x, k, v = blocks.attention(cfg, lp, x, positions, causal=True, return_kv=True)
+        x = blocks.cross_attention(cfg, layer(params["cross"], i), x, cache["cross_k"][i], cache["cross_v"][i])
+        x = blocks.dense_ffn(cfg, lp, x)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
     return _logits(cfg, params, x), cache

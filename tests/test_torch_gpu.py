@@ -28,7 +28,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gm
 from repro_torch.kernels import im2col_conv, ops
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.launch.serve import serve
+from repro_torch.launch.serve import make_batch, serve
 from repro_torch.models import transformer
 from repro_torch.models.lm_common import init_params
 from repro_torch.launch.mesh import make_stage_mesh
@@ -249,11 +249,14 @@ def _agree(got, want, tol, fp32):
         assert (got.float() - want.float()).abs().max().item() <= BF16_REL * want.float().abs().max().item()
 
 
-def _attn(b, h, kvh, s, d, dtype, seed=0, bshd=False):
+def _attn(b, h, kvh, s, d, dtype, seed=0, bshd=False, skv=None):
+    """q [b, h, s, d] (a transposed [b, s, h, d] view with ``bshd``); k, v
+    [b, kvh, skv, d], ``skv`` defaulting to ``s``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    skv = skv or s
     q = torch.randn((b, s, h, d) if bshd else (b, h, s, d), generator=g, device="cuda").to(dtype)
-    k = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dtype)
-    v = torch.randn((b, kvh, s, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, kvh, skv, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, kvh, skv, d), generator=g, device="cuda").to(dtype)
     return (q.transpose(1, 2) if bshd else q), k, v
 
 
@@ -304,6 +307,47 @@ def test_flash_attention_matches_plain(b, h, kvh, s, d, dtype, causal, window):
     torch.cuda.synchronize()
     assert y.stride() == q.stride() and y.dtype == dtype
     _agree(y, fa.flash_attention_plain(q, k, v, causal=causal, window=window), 2e-4, dtype == torch.float32)
+
+
+#: a key length other than the query's (b, h, kvh, sq, skv, d, dtype, causal, window): whisper's cross
+#: attention, then Sq of 1, 15, 448, 1500 against Skv of 1, 15, 65, 448, 1500, longer and shorter, causal
+#: (top-left) with and without a window, D 64 and 128, GQA 1 and 8, in bf16 and fp32
+FLASH_KV_CASES = [
+    (4, 12, 12, 448, 1500, 64, torch.bfloat16, False, 0),  # whisper-small prefill cross attention
+    (2, 8, 1, 1, 1500, 64, torch.bfloat16, False, 0),
+    (2, 8, 8, 15, 65, 128, torch.bfloat16, True, 7),
+    (2, 8, 1, 448, 65, 64, torch.bfloat16, False, 0),
+    (2, 12, 12, 448, 1, 128, torch.bfloat16, False, 0),
+    (1, 16, 2, 448, 1500, 128, torch.bfloat16, True, 0),
+    (2, 4, 4, 65, 15, 64, torch.bfloat16, True, 64),
+    (2, 8, 1, 1500, 448, 64, torch.bfloat16, True, 0),
+    (1, 8, 8, 15, 1500, 64, torch.bfloat16, False, 0),
+    (2, 4, 2, 20, 8, 32, torch.float32, True, 16),
+    (2, 4, 4, 8, 20, 64, torch.float32, False, 0),
+    (1, 8, 1, 100, 300, 128, torch.float32, True, 0),
+    (2, 4, 2, 77, 33, 64, torch.float32, False, 50),
+    (1, 12, 1, 1, 1500, 64, torch.float32, False, 0),
+]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,skv,d,dtype,causal,window", FLASH_KV_CASES)
+def test_flash_attention_over_another_key_length_matches_plain(b, h, kvh, sq, skv, d, dtype, causal, window):
+    q, k, v = _attn(b, h, kvh, sq, d, dtype, seed=sq + skv, bshd=True, skv=skv)
+    y = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (b, h, sq, d) and y.stride() == q.stride()
+    _agree(y, fa.flash_attention_plain(q, k, v, causal=causal, window=window), 2e-4, dtype == torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_row_that_sees_no_key_is_nan_as_plain(dtype):
+    """Sq 100 against Skv 8 under a causal window of 5: rows 12 and on see no key."""
+    q, k, v = _attn(1, 4, 2, 100, 64, dtype, skv=8)
+    y = fa.flash_attention(q, k, v, causal=True, window=5)
+    yp = fa.flash_attention_plain(q, k, v, causal=True, window=5)
+    torch.cuda.synchronize()
+    assert y[:, :, 12:].isnan().all() and yp[:, :, 12:].isnan().all() and not y[:, :, :12].isnan().any()
+    _agree(y[:, :, :12], yp[:, :, :12], 2e-4, dtype == torch.float32)
 
 
 def test_flash_attention_takes_bf16_rows_aligned_to_8_bytes():
@@ -675,17 +719,22 @@ def test_gemm_refuses_what_the_kernel_does_not_take(mutate, err):
                                        ("granite-3-2b", {"sliding_window": 6}), ("mamba2-130m", {}),
                                        ("phi3.5-moe-42b", {}), ("llama4-scout-17b", {}), ("zamba2-2.7b", {}),
                                        ("zamba2-2.7b", {"sliding_window": 6}),
-                                       ("nemotron-4-340b", {"head_dim": 192})])  # nemotron's head dim, GQA group 2
+                                       ("nemotron-4-340b", {"head_dim": 192}),  # nemotron's head dim, GQA group 2
+                                       ("whisper-small", {}),
+                                       ("whisper-small", {"max_decoder_len": 20, "enc_frames": 24}),  # wraps; Sq != Skv
+                                       ("internvl2-76b", {})])
 def test_smoke_lm_path_on_the_card_matches_the_cpu(arch, over):
     cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32, **over)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     on_card = {k: ({kk: vv.cuda() for kk, vv in v.items()} if isinstance(v, dict) else v.cuda()) for k, v in params.items()}
-    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 24)))
+    inputs = make_batch(cfg, 2, 24, 0, "cpu")  # with whisper's frames or internvl's patches
+    toks = inputs["tokens"]
     logits = {}
     for dev, p in (("cpu", params), ("cuda", on_card)):
         before = fa.launches + ssd.launches + gm.launches
         with torch.inference_mode():
-            lg, cache = transformer.prefill_step(cfg, p, {"tokens": toks[:, :16].to(dev)}, max_len=24)
+            prompt = {k: (t[:, :16] if k == "tokens" else t).to(dev) for k, t in inputs.items()}
+            lg, cache = transformer.prefill_step(cfg, p, prompt, max_len=24)
             out = [lg]
             for t in range(16, 24):
                 lg, cache = transformer.serve_step(cfg, p, cache, toks[:, t : t + 1].to(dev))
@@ -697,6 +746,7 @@ def test_smoke_lm_path_on_the_card_matches_the_cpu(arch, over):
 
 
 def test_serve_on_the_card_runs_the_smoke_models():
-    for arch in ("granite-3-2b", "mamba2-130m", "phi3.5-moe-42b", "llama4-scout-17b", "zamba2-2.7b"):
+    for arch in ("granite-3-2b", "mamba2-130m", "phi3.5-moe-42b", "llama4-scout-17b", "zamba2-2.7b", "whisper-small",
+                 "internvl2-76b"):
         out = serve(get_smoke(arch), batch=2, prompt_len=16, gen=4, device="cuda")
         assert tuple(out["tokens"].shape) == (2, 4) and out["tokens"].is_cuda

@@ -16,7 +16,11 @@ the whole sequence from scratch (``init_cache`` + ``serve_step``), not
 against the reference's prefill + decode.  The reference's hybrid prefill
 sizes the shared ring ``min(s, window)`` and ignores ``max_len``, so its
 first decode step overwrites position 0; the port gives the ring the
-``attn`` path's width (ROADMAP.md queue 3).
+``attn`` path's width (ROADMAP.md queue 3).  Patch prefix (internvl): the
+port's ``max_len`` counts tokens (in ``init_cache`` and ``prefill_step``
+alike) and the reference's positions, so the reference is given ``max_len +
+n_patches``; ``tests/test_torch_encdec.py``
+holds enc-dec and patch-prefix serving in detail.
 """
 
 import dataclasses
@@ -42,8 +46,7 @@ from repro_torch.models import blocks, lm_common, transformer
 BLOCK_TOL = dict(rtol=2e-4, atol=2e-4)
 PATH_TOL = dict(rtol=3e-4, atol=3e-4)
 SERVED = ["granite-3-2b", "qwen2-0.5b", "qwen3-32b", "nemotron-4-340b", "mamba2-130m", "phi3.5-moe-42b",
-          "llama4-scout-17b", "zamba2-2.7b"]
-UNSERVED = ["whisper-small", "internvl2-76b"]
+          "llama4-scout-17b", "zamba2-2.7b", "whisper-small", "internvl2-76b"]
 
 
 def _pair(arch: str, **over):
@@ -64,6 +67,8 @@ def _np(x):
 
 def _close(actual, desired, tol):
     np.testing.assert_allclose(_np(actual), _np(desired), **tol)
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -284,13 +289,18 @@ def test_prefill_then_decode_matches_the_reference(arch, over):
     hybrid = jcfg.block_kind == "hybrid"
     jp, tp = _hybrid_params(jcfg, tcfg) if hybrid else _params(jcfg, tcfg)
     b, s, steps = 2, 16, 4
-    toks = np.random.default_rng(7).integers(0, jcfg.vocab, (b, s + steps))
-    jl, jc = jtf.prefill_step(jcfg, jp, {"tokens": jnp.asarray(toks[:, :s], jnp.int32)}, max_len=s + steps)
+    full = {k: a.numpy() for k, a in tserve.make_batch(tcfg, b, s + steps, 7, "cpu").items()}  # + frames, patches
+    toks = full["tokens"]
+    inputs = {**full, "tokens": toks[:, :s]}
+    # the reference's max_len counts the patches, the port's does not (module docstring)
+    jl, jc = jtf.prefill_step(jcfg, jp, {k: jnp.asarray(a) for k, a in inputs.items()},
+                              max_len=s + steps + jcfg.n_patches)
     with torch.inference_mode():
-        tl, tc = transformer.prefill_step(tcfg, tp, {"tokens": torch.from_numpy(toks[:, :s])}, max_len=s + steps)
+        tl, tc = transformer.prefill_step(tcfg, tp, {k: torch.from_numpy(a) for k, a in inputs.items()},
+                                          max_len=s + steps)
     _close(tl, jl, PATH_TOL)
     assert tc["index"] == int(jc["index"])
-    for key in ("k", "v", "pos", "ssm", "conv"):
+    for key in ("k", "v", "pos", "ssm", "conv", "cross_k", "cross_v"):
         if key in jc:
             _close(tc[key], jc[key], PATH_TOL)
     if hybrid:  # decode continues against the reference's decode from scratch (module docstring)
@@ -307,7 +317,7 @@ def test_prefill_then_decode_matches_the_reference(arch, over):
         with torch.inference_mode():
             tl, tc = transformer.serve_step(tcfg, tp, tc, torch.from_numpy(tok))
         _close(tl, jl, PATH_TOL)
-    assert tc["index"] == int(jc["index"]) == s + steps
+    assert tc["index"] == int(jc["index"]) == s + steps + jcfg.n_patches
 
 
 def test_hybrid_decode_after_prefill_keeps_position_0():
@@ -384,7 +394,7 @@ def test_serve_runs_zamba2_as_the_reference_decodes_from_scratch(monkeypatch):
     monkeypatch.setattr(tserve, "init_params", lambda cfg, generator, device: tp)
     b, s, gen = 2, 16, 6
     out = tserve.serve(tcfg, batch=b, prompt_len=s, gen=gen, seed=0, device="cpu")
-    prompt = tserve.make_prompt(tcfg, b, s, 0, "cpu").numpy()
+    prompt = tserve.make_batch(tcfg, b, s, 0, "cpu")["tokens"].numpy()
     logits, jc = _decode_from_scratch(jcfg, jp, prompt, s + gen)
     step, want = _jit_step(jcfg), []
     for _ in range(gen):
@@ -401,15 +411,3 @@ def test_serve_draws_its_own_weights_from_the_seed():
     assert torch.equal(a["tokens"], b["tokens"]) and tuple(a["tokens"].shape) == (2, 3)
     assert int(a["tokens"].min()) >= 0 and int(a["tokens"].max()) < cfg.vocab
 
-
-@pytest.mark.parametrize("arch", UNSERVED)
-def test_unported_kinds_raise(arch):
-    cfg = configs.get_smoke(arch)
-    params = lm_common.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transformer.prefill_step(cfg, params, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transformer.serve_step(cfg, params, {"index": 0}, toks[:, :1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transformer.init_cache(cfg, 1, 8, "cpu")
