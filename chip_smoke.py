@@ -8,9 +8,9 @@ repository's sources are not beside this script.  Otherwise, in order:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from the sources in the checkout
    (one ``nvcc`` per source, all at once) and prints ``ptxas -v``'s
-   registers, shared memory and spills; fails unless the tensor-core flash
-   kernel ``flash_fwd_mma_bf16_kernel`` compiled at every head dim with no
-   spill, and unless the GEMM's ``gemm_wgmma_bf16_kernel`` compiled with no
+   registers, shared memory and spills; fails unless both flash forward
+   kernels (``flash_fwd_mma_bf16_kernel``, the fp32 ``flash_fwd_kernel``)
+   compiled at every head dim with no spill, and unless the GEMM's ``gemm_wgmma_bf16_kernel`` compiled with no
    spill and no ``wgmma`` made to wait by ``ptxas`` (C7517, C7518), and
    unless every conv kernel (each tile of ``im2col_conv.TILES``, 16-byte
    and 4-byte copies, and the split sum) compiled with no spill, printing
@@ -18,7 +18,8 @@ repository's sources are not beside this script.  Otherwise, in order:
    ``ssd_scan_mma_bf16_kernel`` compiled at every state width and p tile
    with no spill, asks the shared memory the wrapper counts and splits its
    inexact operands into the wrapper's ``MMA_TERMS`` bf16 terms, printing
-   its registers and blocks an SM;
+   its registers and blocks an SM, and unless every kernel of the flash
+   backward compiled with no spill (``check_flash_bwd_ptxas``);
 3. holds each kernel against its plain PyTorch version on the card, at every
    distinct layer shape of full-width SynthNet (microbatch of 2 images) and
    at the reference kernel tests' shapes plus a ragged K, in fp32 with TF32
@@ -138,13 +139,60 @@ repository's sources are not beside this script.  Otherwise, in order:
    layers would need 84 GB), and the share of (token, expert) assignments
    that the kernel and plain paths route alike, held to ROUTE_FLOOR (see
    MOE_ROUTES for the logits check where they differ);
-11. prints the per-kernel JSON line (the ``flash_attention`` row is
+11. the flash backward (``check_flash_bwd``): ``flash_attention_bwd``
+   against ``flash_attention_bwd_plain`` on the kernel's own o and lse, and
+   that against autograd through ``flash_attention_plain``, on the same
+   inputs: the training shapes (bf16, causal, the model's layout:
+   granite-3-2b q [4,32,512,64], k/v [4,8,512,64]; phi3.5-moe q
+   [4,32,512,128], k/v [4,8,512,128]), every head dim in bf16 and fp32,
+   GQA groups 1, 4, 5, 7 and 12, S of 1, 15, 65 and 1000, Sq != Skv both
+   ways, non-causal, a window of 7, contiguous and strided; bf16 within
+   BF16_REL_TOL of each gradient's max |plain|, fp32 within ATTN_TOL of it
+   (where every row sees one key, dq and dk are 0 in exact arithmetic and
+   are held against max |dv|); two calls give the same bits; the lse
+   against ``flash_attention_fwd_plain``'s; times the training shapes (kernel,
+   plain backward, SDPA's backward by events and device time) with each
+   bound;
+12. the ``gemm`` gradient (``check_gemm_grad``): ``ops.gemm``'s autograd
+   Function at phi3.5-moe's training shapes (16 experts, capacity 320, d
+   4096, d_ff 6400, bf16), dA and dB against ``gemm_plain`` at GEMM_TOL,
+   the kernel each backward product runs, its time against ``torch.bmm``
+   on the transposed views and the transposed copies' time alone;
+13. drives the training main path (``drive_train``): ``launch.train.train``
+   on ``cuda`` in bf16, batch 4 of 512 tokens from the data pipeline,
+   TRAIN_STEPS steps, for granite-3-2b at full size and phi3.5-moe-42b at
+   2 of 32 layers (TRAIN_MODELS), every launch count 0 just before; fails
+   unless every loss is finite, every parameter leaf got a finite,
+   non-zero gradient at step 0, and the run launched the flash forward
+   twice a layer a step (remat), its backward once, and (MoE) ``gemm``
+   twelve times, six of them in the backward (``gemm.bwd_launches``,
+   counted where ``ops.gemm``'s backward launches); times and profiles a
+   warm step of ``transformer.make_train_step`` (wall, tokens/s, peak
+   memory, device time by flash forward and backward, ``gemm``, cuBLAS and
+   the rest, the optimizer's update by events, the busy share) and fails
+   unless it ran the flash backward's kernels once per attention layer and
+   the forward twice, and (MoE) ``gemm`` six times a layer in the
+   backward; holds the loss and every leaf's gradient in bf16 at the
+   trained depth, kernel path against plain path (``ops`` swapped as in
+   phase 8, MoE on the kernel path's routes), to TRAIN_LOSS_TOL and
+   TRAIN_GRAD_TOL of each leaf's max |plain|, where two attention faults
+   (TRAIN_CONTROLS: the backward without delta, the causal mask dropped)
+   must miss them, and every leaf's gradient to GRAD_TOL with the model in
+   fp32 at 2 layers (phi3.5-moe at 1); checks a resume (``check_resume``)
+   at full width and 1 layer (RESUME_CUT: a full-size checkpoint passes
+   the machine's disk limit), a checkpoint in a temporary directory at the
+   middle step, the repeated losses held to RESUME_TOL;
+14. prints the per-kernel JSON line (the ``flash_attention`` row is
    granite-3-2b's, naming the device function that served its prefill,
    with every other served attention call's times, bound, SDPA times and
-   launches under keys that name the model and the call; the ``ssd_scan`` row is
-   mamba2-130m's scan, with its device function, device and host times,
-   and zamba2-2.7b's times and launches under keys that name it), then
-   ``{"ok": true, "device": ...}`` last.
+   launches under keys that name the model and the call, and the
+   backward's ``bwd_*`` keys at granite's training shape, phi3.5-moe's
+   under keys that name it, with the training runs' launches; the
+   ``ssd_scan`` row is mamba2-130m's scan, with its device function, device
+   and host times, and zamba2-2.7b's times and launches under keys that
+   name it; the ``gemm`` row adds one phi3.5-moe layer's backward times
+   and the training run's launches), then ``{"ok": true, "device": ...}``
+   last.
 """
 
 from __future__ import annotations
@@ -153,9 +201,11 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -184,15 +234,19 @@ from repro_torch.kernels import build, im2col_conv, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gm
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.data import DataConfig, make_batch_iterator
 from repro_torch.launch.serve import make_batch, serve
+from repro_torch.launch.train import train
 from repro_torch.launch.mesh import make_stage_mesh
 from repro_torch.launch.serve_cnn import BATCH, N_MICRO, serve_cnn
 from repro_torch.models import blocks, transformer
 from repro_torch.models.lm_common import init_params
 from repro_torch.models.cnn import synthnet_specs
+from repro_torch.optim import AdamW, AdamWConfig
 from repro_torch.pipeline import PipelineRunner, pipeline_throughput
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
 from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
+from repro_torch.tree import named_leaves
 
 #: kernel-vs-plain tolerance on one conv (the reference's conv test)
 KERNEL_TOL = 3e-4
@@ -266,9 +320,13 @@ LM_MODELS = {
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
 PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel",
-                "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel")
-#: the two flash kernels as the profiler names them: bf16 on the tensor cores, fp32 on the SIMT pipes
-FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|flash_fwd_kernel)<[^>]*>)")
+                "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "flash_bwd_delta_kernel",
+                "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkdv_kernel")
+#: the flash kernels as the profiler names them: forward bf16 on the tensor cores and fp32 on the SIMT
+#: pipes; the backward's delta pre-pass, and its dQ and dK/dV kernels of each type
+FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|flash_fwd_kernel"
+                      r"|flash_bwd_(?:delta|dq_mma_bf16|dkdv_mma_bf16|dq|dkdv)_kernel)<[^>]*>)")
 #: the GEMM's kernels as the profiler names them (wgmma, mma.sync tiles, fp32 FMA)
 GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 #: the SSD scan's kernels as the profiler names them: bf16 on the tensor cores, the SIMT one
@@ -283,6 +341,40 @@ SSD_MODELS = ("mamba2-130m", "zamba2-2.7b")
 #: the comparison arms' online budget in the race, in multiples of Shisha's
 #: simulated wall (the paper's "35x faster")
 RACE_BUDGET = 35
+#: the training main path: per model the depth trained (None: the config's)
+#: and the depth of the fp32 gradient comparison.  phi3.5-moe's 2 layers
+#: hold 2.9 B parameters, 35 GB of parameters, gradients, fp32 master and
+#: bf16 moments; its fp32 comparison at 1 layer (1.3 B parameters, 10.5 GB
+#: of weights and gradients in each path).
+TRAIN_MODELS = {"granite-3-2b": (None, 2), "phi3.5-moe-42b": (2, 1)}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
+#: the resume check's cut of each model (full width): a checkpoint holds 16
+#: bytes a parameter (parameters, fp32 master and both moments, bf16 saved
+#: as fp32 as the reference saves it), 42 GB at granite-3-2b's full size and
+#: 46 GB at phi3.5-moe's 2 layers, and the machine with the card allows 45
+#: GiB of disk writes a call.  At 1 layer (phi3.5-moe with 4 of its 16
+#: experts) a checkpoint is 4.2 and 9.9 GB, two of each: 28 GB.
+RESUME_CUT = {"granite-3-2b": dict(n_layers=1), "phi3.5-moe-42b": dict(n_layers=1, n_experts=4)}
+#: the gradient of each leaf, kernel path against plain path in fp32, max
+#: |difference| over max |plain|: both sum in fp32 in other orders through
+#: 1-2 layers, the chunked loss and the embedding's scatter
+GRAD_TOL = 1e-3
+#: the training loss in bf16 at the trained depth, kernel path against plain
+#: path, relative; and each leaf's bf16 gradient there, max |difference|
+#: over max |plain|.  scripts/train_grad_sensitivity.py, seeds 0 and 1
+#: (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): the kernel path reads 5.3e-6
+#: to 3.5e-5 in the loss and 8.3e-3 to 1.2e-2 at its worst leaf (the
+#: embedding: bf16 leaves, about 3 roundings of the largest element; this
+#: phase, a few steps further on, 1.3e-2 at granite's w_down); the causal
+#: mask dropped reads 7.8e-3 to 1.7e-2 in the loss and 0.88 to 1.0 at its
+#: worst leaf, the backward without delta 6.8 to 24
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 5e-4, 3e-2
+#: resumed losses against the uninterrupted run's, relative: CUDA's
+#: ``index_add_`` (MoE dispatch and combine) and the embedding backward sum
+#: with atomics in no fixed order, so the resumed steps' gradients differ in
+#: the last bits, and Adam's first steps move a weight by about lr whatever
+#: its gradient's size; the loss is ln(vocab) ~ 10.4-10.8 at these steps
+RESUME_TOL = 2e-3
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -315,16 +407,46 @@ def _ptxas_entries(source: str, mangled: str) -> dict[str, tuple[int, int, int]]
 
 
 def check_flash_ptxas() -> None:
-    """Fail unless ``ptxas`` compiled ``flash_fwd_mma_bf16_kernel`` at every
-    head dim with no spill; print its registers."""
-    seen = {int(d): v for d, v in _ptxas_entries("flash_attention", r"flash_fwd_mma_bf16_kernelILi(\d+)EE").items()}
-    for d, (regs, st, ld) in sorted(seen.items()):
-        print(f"[build] flash_fwd_mma_bf16_kernel<{d}>: {regs} registers, spill stores {st} B, spill loads {ld} B")
-    if sorted(seen) != list(fa.HEAD_DIMS):
-        raise RuntimeError(f"ptxas compiled flash_fwd_mma_bf16_kernel at head dims {sorted(seen)}, want {fa.HEAD_DIMS}")
-    spilled = {d: v for d, v in seen.items() if v[1] or v[2]}
+    """Fail unless ``ptxas`` compiled both forward kernels,
+    ``flash_fwd_mma_bf16_kernel`` and the fp32 ``flash_fwd_kernel``, at
+    every head dim with no spill; print their registers."""
+    for kernel in ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel"):
+        seen = {int(d): v for d, v in _ptxas_entries("flash_attention", kernel + r"ILi(\d+)EE").items()}
+        for d, (regs, st, ld) in sorted(seen.items()):
+            print(f"[build] {kernel}<{d}>: {regs} registers, spill stores {st} B, spill loads {ld} B")
+        if sorted(seen) != list(fa.HEAD_DIMS):
+            raise RuntimeError(f"ptxas compiled {kernel} at head dims {sorted(seen)}, want {fa.HEAD_DIMS}")
+        spilled = {d: v for d, v in seen.items() if v[1] or v[2]}
+        if spilled:
+            raise RuntimeError(f"{kernel} spills: {spilled}")
+
+
+def _bwd_name(mangled: str) -> str:
+    """A backward kernel's name from its mangled one: ``flash_bwd_dq_kernel<64>``."""
+    kernel, args = re.match(r"(flash_bwd_[a-z0-9_]+_kernel)I(.*)E$", mangled).groups()
+    kind = ["__nv_bfloat16"] if "bfloat16" in args else ["float"] if args == "f" else []
+    return f"{kernel}<{', '.join(re.findall(r'Li(\d+)E', args) + kind)}>"
+
+
+def check_flash_bwd_ptxas() -> None:
+    """Fail unless ``ptxas`` compiled every kernel of the flash backward
+    (the delta pre-pass of each type; dQ and dK/dV at every head dim, bf16
+    on the tensor cores and fp32 on the SIMT pipes; the bf16 dK/dV as one
+    pass up to D 80 and as a dV pass and a dK pass above) with no spill;
+    print each one's registers."""
+    seen = {_bwd_name(n): v for n, v in _ptxas_entries(
+        "flash_attention", r"(flash_bwd_[a-z0-9_]+_kernelI(?:Li\d+E)*(?:13__nv_bfloat16|f)?E)").items()}
+    want = {"flash_bwd_delta_kernel<__nv_bfloat16>", "flash_bwd_delta_kernel<float>"}
+    for d in fa.HEAD_DIMS:
+        want |= {f"flash_bwd_dq_mma_bf16_kernel<{d}>", f"flash_bwd_dq_kernel<{d}>", f"flash_bwd_dkdv_kernel<{d}>"}
+        want |= {f"flash_bwd_dkdv_mma_bf16_kernel<{d}, {m}>" for m in ((1, 2) if d >= 128 else (3,))}
+    for name, (regs, st, ld) in sorted(seen.items()):
+        print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    if set(seen) != want:
+        raise RuntimeError(f"ptxas compiled flash backward kernels {sorted(seen)}, want {sorted(want)}")
+    spilled = {n: v for n, v in seen.items() if v[1] or v[2]}
     if spilled:
-        raise RuntimeError(f"flash_fwd_mma_bf16_kernel spills: {spilled}")
+        raise RuntimeError(f"flash backward kernels spill: {spilled}")
 
 
 def check_gemm_ptxas() -> None:
@@ -1395,6 +1517,476 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
     return {name: launches[name] for name in kernels}, served_by
 
 
+def _hold_grads(name: str, desc: dict, got, want, tol: float, one_key: bool) -> float:
+    """Hold (dq, dk, dv) ``got`` against ``want``: each max |difference|
+    within ``tol`` of its own max |want|.  Where every row sees one key
+    (``one_key``) dq and dk are 0 in exact arithmetic, so they are held
+    against max |dv| instead.  Returns the worst ratio."""
+    dv_scale = want[2].float().abs().max().item()
+    worst = 0.0
+    for g, w, which in zip(got, want, ("dq", "dk", "dv")):
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        if one_key and which != "dv":
+            scale = max(scale, dv_scale)
+        if not err <= tol * scale:
+            raise RuntimeError(f"{name}: {which} disagrees at {desc}: max abs err {err}, max |want| {scale}, "
+                               f"tolerance {tol} of it")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def check_flash_bwd(gen: torch.Generator) -> dict:
+    """Phase 11: ``flash_attention_bwd`` against ``flash_attention_bwd_plain``
+    (the kernel's own o and lse), that against autograd through
+    ``flash_attention_plain``, on the same inputs, over the training shapes
+    and a grid that reaches every branch; two calls give the same bits;
+    the lse against ``flash_attention_fwd_plain``'s.  Times the training
+    shapes: kernel, plain backward and SDPA's backward (cuDNN or flash, by
+    PyTorch's choice), by events and the profiler's device time.  Returns
+    the ``flash_attention`` row's backward keys (granite-3-2b's, phi3.5-moe's
+    under keys that name it)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    base = dict(b=2, h=8, kvh=2, s=200, d=64, dtype=bf16, causal=True, window=0)
+    cases = [dict(base, b=TRAIN_BATCH, h=c.n_heads, kvh=c.n_kv_heads, s=TRAIN_SEQ, d=c.hd, model=arch)
+             for arch in TRAIN_MODELS for c in [get_config(arch)]]
+    cases += [dict(base, d=d, dtype=dt) for dt in (bf16, f32) for d in fa.HEAD_DIMS]  # every head dim
+    cases += [dict(base, h=h, kvh=kvh, s=130) for h, kvh in ((4, 4), (8, 2), (10, 2), (14, 2), (24, 2))]  # GQA
+    cases += [dict(base, s=s, d=d) for s in (1, 15, 65, 1000) for d in (64, 128)]  # S
+    cases += [dict(base, s=1000, d=128, dtype=f32), dict(base, s=1, d=64, dtype=f32)]
+    cases += [  # Sq != Skv, both ways
+        dict(base, s=15, skv=1000, causal=False), dict(base, s=448, skv=65), dict(base, s=1500, skv=448, h=12, kvh=12),
+        dict(base, s=1, skv=1500, causal=False, kvh=1), dict(base, s=65, skv=15, d=128, window=64),
+        dict(base, s=100, skv=300, d=128, dtype=f32), dict(base, s=77, skv=33, dtype=f32, causal=False, window=50),
+    ]
+    cases += [dict(base, d=d, dtype=dt, causal=c, window=w) for dt in (bf16, f32) for d in (64, 192)
+              for c, w in ((False, 0), (True, 7))]  # non-causal; a window
+    cases += [dict(base, d=d, dtype=dt, strided=False) for dt in (bf16, f32) for d in (32, 128)]  # contiguous
+    out, max_err = {}, 0.0
+    for case in cases:
+        b, h, kvh, s, d, dt = (case[k] for k in ("b", "h", "kvh", "s", "d", "dtype"))
+        skv, kw = case.get("skv", s), dict(causal=case["causal"], window=case["window"])
+
+        def draw(n, heads):
+            if case.get("strided", True):  # the model's layout: [b, s, h, d] as a transposed view
+                return torch.randn((b, n, heads, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+            return torch.randn((b, heads, n, d), generator=gen, device="cuda").to(dt)
+
+        q, k, v, do = draw(s, h), draw(skv, kvh), draw(skv, kvh), draw(s, h)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        qa, ka, va = (t.detach().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(fa.flash_attention_plain(qa, ka, va, **kw), (qa, ka, va), do)
+        lse_plain = fa.flash_attention_fwd_plain(q, k, v, **kw)[1]
+        torch.cuda.synchronize()
+        desc = {**case, "skv": skv, "dtype": str(dt).removeprefix("torch.")}
+        tol = ATTN_TOL if dt == f32 else BF16_REL_TOL
+        one_key = skv == 1 or (case["causal"] and s == 1) or case["window"] == 1
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"flash_attention_bwd: two calls differ at {desc}")
+        lse_err = (lse - lse_plain).abs().max().item()
+        if not lse_err <= ATTN_TOL * lse_plain.abs().max().item():
+            raise RuntimeError(f"flash_attention lse disagrees with the plain version at {desc}: {lse_err}")
+        err = _hold_grads("flash_attention_bwd", desc, got, plain, tol, one_key)
+        auto_err = _hold_grads("flash_attention_bwd_plain against autograd", desc, plain, auto, tol, one_key)
+        max_err = max(max_err, max((g.float() - w.float()).abs().max().item() for g, w in zip(got, plain)))
+        print(f"[bwd] flash_attention_bwd {json.dumps({**desc, 'rel_err': err, 'plain_vs_autograd': auto_err, 'lse_err': lse_err})}")
+        if "model" in case:
+            el = q.element_size()
+            flops = 10.0 * b * h * d * visible_pairs(s, skv, case["causal"], case["window"])  # five products
+            nbytes = el * 4 * (q.numel() + k.numel()) + 4 * 2 * lse.numel()  # q o dO dq, k v dk dv; lse, delta
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=case["causal"], enable_gqa=True)
+            doc = do.contiguous()
+
+            def kern():
+                return fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa_out, (qc, kc, vc), doc, retain_graph=True)
+
+            timed = dict(bwd_ms=_time_ms(kern),
+                         bwd_plain_ms=_time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)),
+                         bwd_library_ms=_time_ms(sdpa_bwd), bwd_bound_ms=bound_ms, bwd_bound_by=bound_by)
+            timed["bwd_device_ms"], ran = _device_ms(kern)
+            timed["bwd_library_device_ms"], sdpa_ran = _device_ms(sdpa_bwd, need=False)
+            timed.update(bwd_host_ms=_host_ms(kern), bwd_max_abs_err=max(
+                (g.float() - w.float()).abs().max().item() for g, w in zip(got, plain)))
+            timed["bwd_device_functions"] = sorted(m.group(1) for n in ran if (m := FLASH_FN.search(n)))
+            ratios = dict(sdpa_ratio=timed["bwd_ms"] / timed["bwd_library_ms"],
+                          sdpa_device_ratio=_ratio(timed["bwd_device_ms"], timed["bwd_library_device_ms"]),
+                          bound_ratio=_ratio(timed["bwd_device_ms"], bound_ms))
+            print(f"[bwd] flash_attention_bwd at {case['model']}'s training shape: "
+                  f"{json.dumps({**timed, **ratios, 'flops': flops, 'bytes': nbytes})}")
+            print(f"[bwd] it ran {json.dumps(ran)}; SDPA's backward ran {json.dumps(sdpa_ran)}")
+            prefix = "" if not out else f"{case['model']} "
+            out.update({prefix + key: val for key, val in timed.items()})
+            del qc, kc, vc, sdpa_out
+        del q, k, v, do, o, lse, got, again, plain, auto, qa, ka, va
+    torch.cuda.empty_cache()
+    out["bwd_max_abs_err"] = max_err
+    return out
+
+
+def check_gemm_grad(gen: torch.Generator) -> dict:
+    """Phase 12: the gradient of ``ops.gemm`` (an autograd Function whose
+    backward is two more ``gemm`` calls) at phi3.5-moe's training shapes,
+    bf16, dA = dC·Bᵀ and dB = Aᵀ·dC held against ``gemm_plain`` at
+    GEMM_TOL; prints the kernel each backward product runs and times the
+    backward against ``torch.bmm`` on the transposed views (cuBLAS reads
+    them as they are) and the transposed copies alone.  Returns the
+    ``gemm`` row's backward keys for one phi3.5-moe layer (gate, up,
+    down)."""
+    bf16 = torch.bfloat16
+    cfg = get_config("phi3.5-moe-42b")
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    cap = blocks.moe_capacity(cfg, TRAIN_BATCH * TRAIN_SEQ)
+    tot = {key: 0.0 for key in ("bwd_ms", "bwd_device_ms", "bwd_library_ms", "bwd_copy_ms", "flops", "bytes")}
+    for label, (K, N), per_layer in (("gate/up", (d, f), 2), ("down", (f, d), 1)):
+        a = torch.randn((E, cap, K), generator=gen, device="cuda").to(bf16).requires_grad_()
+        b = (torch.randn((E, K, N), generator=gen, device="cuda") / K**0.5).to(bf16).requires_grad_()
+        dc = torch.randn((E, cap, N), generator=gen, device="cuda").to(bf16)
+        c = ops.gemm(a, b)
+        before = gm.launches
+        da, db = torch.autograd.grad(c, (a, b), dc, retain_graph=True)
+        launched = gm.launches - before
+        ad, bd = a.detach(), b.detach()
+        da_p, db_p = gm.gemm_plain(dc, bd.transpose(1, 2)), gm.gemm_plain(ad.transpose(1, 2), dc)
+        torch.cuda.synchronize()
+        errs = []
+        for which, got, want in (("dA", da, da_p), ("dB", db, db_p)):
+            errs.append((got.float() - want.float()).abs().max().item())
+            if not torch.allclose(got.float(), want.float(), rtol=GEMM_TOL[bf16], atol=GEMM_TOL[bf16]):
+                raise RuntimeError(f"gemm gradient {which} disagrees with gemm_plain at phi3.5-moe {label}: {errs[-1]}")
+        if launched != 2:
+            raise RuntimeError(f"the gemm backward launched the kernel {launched} times, want 2")
+        flops = 2 * 2.0 * E * cap * K * N
+        nbytes = 2.0 * (dc.numel() + a.numel() + b.numel() + da.numel() + db.numel())
+        bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+        def backward():
+            return torch.autograd.grad(c, (a, b), dc, retain_graph=True)
+
+        def library():
+            return torch.bmm(dc, bd.transpose(1, 2)), torch.bmm(ad.transpose(1, 2), dc)
+
+        row = dict(bwd_ms=_time_ms(backward), bwd_library_ms=_time_ms(library),
+                   bwd_copy_ms=_time_ms(lambda: (bd.transpose(1, 2).contiguous(), ad.transpose(1, 2).contiguous())),
+                   flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+        row["bwd_device_ms"], ran = _device_ms(backward)
+        row["bwd_library_device_ms"], _ = _device_ms(library, need=False)
+        row["ran"] = sorted({m.group(1) for n in ran if (m := GEMM_FN.search(n))})
+        row["kernels"] = {"dA": gm.KERNELS[gm.route(bf16, cap, N, K, True)], "dB": gm.KERNELS[gm.route(bf16, K, cap, N, True)]}
+        print(f"[bwd] gemm gradient at phi3.5-moe {label} a [{E},{cap},{K}], b [{E},{K},{N}]: "
+              f"{json.dumps({**row, 'dA_err': errs[0], 'dB_err': errs[1]})}")
+        for key in tot:
+            tot[key] = None if tot[key] is None or row[key] is None else tot[key] + per_layer * row[key]
+        del a, b, dc, c, da, db, da_p, db_p, ad, bd
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(tot["flops"], tot["bytes"], PEAK_BF16_FLOPS)
+    print(f"[bwd] gemm gradient, one phi3.5-moe layer (gate, up, down): {json.dumps({**tot, 'bound_ms': bound_ms})}")
+    return {"bwd_ms": tot["bwd_ms"], "bwd_device_ms": tot["bwd_device_ms"], "bwd_library_ms": tot["bwd_library_ms"],
+            "bwd_copy_ms": tot["bwd_copy_ms"], "bwd_bound_ms": bound_ms, "bwd_bound_by": bound_by}
+
+
+@contextlib.contextmanager
+def _checking_first_grads(bad: list, count: list):
+    """Before the first optimizer update, append to ``bad`` every gradient
+    leaf that is not finite or is zero throughout, and to ``count`` the
+    number of leaves."""
+    update = AdamW.update
+
+    def checking(self, grads, state, params):
+        if not count:
+            named = list(named_leaves(grads))
+            bad.extend(n for n, g in named if not (torch.isfinite(g).all() and (g != 0).any()))
+            count.append(len(named))
+        return update(self, grads, state, params)
+
+    with mock.patch.object(AdamW, "update", checking):
+        yield
+
+
+class _FlashNoDelta(torch.autograd.Function):
+    """The plain attention forward with a backward that leaves out delta =
+    rowsum(dO∘O), so that dS = P∘dP: dV right, dQ and dK wrong."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        zero = torch.zeros_like(do)  # o = 0 makes delta = rowsum(dO∘O) = 0
+        return (*fa.flash_attention_bwd_plain(q, k, v, zero, lse, do, causal=ctx.causal, window=ctx.window),
+                None, None)
+
+
+#: attention faults that the bf16 training check must see, each in place of
+#: ``ops.flash_attention`` on the plain path: the backward without delta (the
+#: loss unchanged, the gradients of q and k wrong), and a causal mask dropped
+#: (every query sees the whole sequence)
+TRAIN_CONTROLS = {
+    "no delta": lambda q, k, v, *, causal=True, window=0: _FlashNoDelta.apply(q, k, v, causal, window),
+    "not causal": lambda q, k, v, *, causal=True, window=0: fa.flash_attention_plain(q, k, v, causal=False,
+                                                                                      window=window),
+}
+
+
+def _leaf_ratios(grads: dict, plain: list) -> dict[str, float]:
+    """Each leaf's max |grads - plain| over its max |plain| (inf where that is
+    not finite), ``plain`` as ``named_leaves`` lists it."""
+    out = {}
+    for (name, g), (_, w) in zip(named_leaves(grads), plain, strict=True):
+        scale, err = w.float().abs().max().item(), (g.float() - w.float()).abs().max().item()
+        ratio = err / scale if scale else 0.0 if err == 0 else math.inf
+        out[name] = ratio if math.isfinite(ratio) else math.inf
+    return out
+
+
+def train_readings(cfg, params: dict, batch: dict) -> dict:
+    """One ``transformer.value_and_grad`` of ``params`` on ``batch`` on the
+    kernel path, on the plain path (``ops`` swapped as in phase 8) and on
+    the plain path with each TRAIN_CONTROLS attention, MoE on the kernel
+    path's routes.  Returns, for the kernel path and each control against
+    the plain path, the loss's relative difference (inf if not finite) and
+    each leaf's gradient difference (``_leaf_ratios``)."""
+    routes: list = []
+    with _recording_routes(routes):
+        loss, grads = transformer.value_and_grad(cfg, params, batch)
+    kernel = (loss.item(), grads)
+    del grads
+
+    def on_routes():
+        return _replaying_routes(routes) if cfg.is_moe else contextlib.nullcontext()
+
+    with _plain_versions(), on_routes():
+        loss, grads = transformer.value_and_grad(cfg, params, batch)
+    want, plain = loss.item(), list(named_leaves(grads))
+    del grads
+
+    def reading(got: float, grads: dict) -> dict:
+        rel = abs(got - want) / abs(want)
+        return {"loss": rel if math.isfinite(rel) else math.inf, "leaves": _leaf_ratios(grads, plain)}
+
+    out = {"kernel": reading(*kernel)}
+    del kernel
+    for name, attention in TRAIN_CONTROLS.items():
+        with _plain_versions(), mock.patch.object(ops, "flash_attention", attention), on_routes():
+            loss, grads = transformer.value_and_grad(cfg, params, batch)
+        out[name] = reading(loss.item(), grads)
+        del grads
+    return out
+
+
+def hold_train_readings(name: str, readings: dict, failures: list[str]) -> None:
+    """Print ``train_readings``'s readings; append to ``failures`` if the
+    kernel path misses TRAIN_LOSS_TOL or TRAIN_GRAD_TOL, if the dropped
+    causal mask meets TRAIN_LOSS_TOL, or if a control meets TRAIN_GRAD_TOL
+    at every leaf."""
+    for path, r in readings.items():
+        leaf = max(r["leaves"], key=r["leaves"].get)
+        print(f"[train] {name}, {path} against the plain path: loss relative {r['loss']:.3e} (tolerance "
+              f"{TRAIN_LOSS_TOL}); worst gradient leaf {leaf} at {r['leaves'][leaf]:.3e} of its max |plain| "
+              f"(tolerance {TRAIN_GRAD_TOL}); every leaf {json.dumps(r['leaves'])}")
+    kernel = readings["kernel"]
+    worst = max(kernel["leaves"].values())
+    if not (kernel["loss"] <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+        failures.append(f"{name}: kernel path against plain path: loss {kernel['loss']}, worst leaf {worst}")
+        print(f"[FAIL] {failures[-1]}")
+    if not readings["not causal"]["loss"] > TRAIN_LOSS_TOL:
+        failures.append(f"{name}: the control without the causal mask meets the loss tolerance")
+        print(f"[FAIL] {failures[-1]}")
+    for path in TRAIN_CONTROLS:
+        if not max(readings[path]["leaves"].values()) > TRAIN_GRAD_TOL:
+            failures.append(f"{name}: the control '{path}' meets the gradient tolerance at every leaf")
+            print(f"[FAIL] {failures[-1]}")
+
+
+def check_resume(arch: str, cfg) -> None:
+    """Phase 13's resume check on ``cfg`` (RESUME_CUT of the trained
+    model): an uninterrupted run of TRAIN_STEPS steps; a run of half of them
+    (the same cosine horizon) that checkpoints at its end, the middle; a run
+    that resumes from that checkpoint and repeats the rest.  The repeated
+    losses are held to RESUME_TOL of the uninterrupted ones."""
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, schedule_steps=TRAIN_STEPS, log_every=0, seed=0, device="cuda")
+    mid = TRAIN_STEPS // 2
+    whole = train(cfg, steps=TRAIN_STEPS, **kw)["losses"]
+    with tempfile.TemporaryDirectory() as ckpt:
+        first = train(cfg, steps=mid, ckpt_dir=ckpt, save_every=mid, **kw)["losses"]
+        t0 = time.perf_counter()
+        resumed = train(cfg, steps=TRAIN_STEPS, ckpt_dir=ckpt, save_every=mid, **kw)["losses"]
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(first + resumed, whole, strict=True)]
+    print(f"[train] {arch} at {cfg.n_layers} layer(s), {cfg.n_experts or 'no'} experts, full width "
+          f"({cfg.param_count() / 1e9:.3f} B parameters): uninterrupted losses {whole}; {first} to the checkpoint "
+          f"at step {mid}, then {resumed} resumed from it ({t_resume:.1f} s with the restore and the last save); "
+          f"relative difference {rel} (tolerance {RESUME_TOL})")
+    if not all(math.isfinite(x) for x in whole) or max(rel) > RESUME_TOL:
+        raise RuntimeError(f"{arch}: resumed losses {first + resumed} differ from {whole} by {rel}")
+
+
+def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[str]) -> dict:
+    """Phase 13 for one model: ``launch.train.train`` on the card, bf16,
+    TRAIN_STEPS steps of the data pipeline's batches, every launch count 0
+    just before; a warm step of ``transformer.make_train_step`` timed and
+    profiled; the loss and every leaf's gradient in bf16 at the trained
+    depth, kernel path against plain path beside the controls
+    (``train_readings``), and every leaf's gradient in fp32 at
+    ``grad_depth``; the resume check (``check_resume``, at RESUME_CUT).
+    Returns the training run's launches, its peak memory and the warm
+    step's wall."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth) if depth else full
+    L = cfg.n_layers
+    print(f"[train] {arch}: {L} of {full.n_layers} layers, full width (d_model {cfg.d_model}), "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    mods = {"conv2d_im2col": im2col_conv, "flash_attention": fa, "ssd_scan": ssd, "gemm": gm}
+    for mod in mods.values():
+        mod.launches = 0
+    fa.bwd_launches = gm.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    bad, count = [], []
+    t0 = time.perf_counter()
+    with _checking_first_grads(bad, count):
+        res = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=0, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**{name: mod.launches for name, mod in mods.items()},
+                "flash_attention_bwd": fa.bwd_launches, "gemm_bwd": gm.bwd_launches}
+    losses, state, peak = res["losses"], res["state"], torch.cuda.max_memory_allocated() / 2**30
+    del res
+    print(f"[train] {arch}: losses {losses}, wall {wall:.1f} s (weights drawn on the card included), launches "
+          f"{launches}, max_memory_allocated {peak:.2f} GiB")
+    # remat: each layer's forward runs again in the backward; MoE: 3 expert products a layer forward, 3 again,
+    # and dA and dB of each in the backward
+    want = {"flash_attention": 2 * L * TRAIN_STEPS, "flash_attention_bwd": L * TRAIN_STEPS,
+            "gemm": 12 * L * TRAIN_STEPS if cfg.is_moe else 0, "gemm_bwd": 6 * L * TRAIN_STEPS if cfg.is_moe else 0,
+            "ssd_scan": 0, "conv2d_im2col": 0}
+    if launches != want:
+        raise RuntimeError(f"{arch}: the training run launched {launches}, want {want}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{arch}: training losses {losses}")
+    if not count or bad:
+        raise RuntimeError(f"{arch}: step 0's gradient is not finite and non-zero at {bad} of {count} leaves")
+    print(f"[train] {arch}: every one of the {count[0]} parameter leaves got a finite, non-zero gradient at step 0")
+
+    # a warm step of the main path's train step on the trained state: timed, then profiled
+    opt = AdamW(AdamWConfig(peak_lr=3e-4, warmup=min(20, TRAIN_STEPS // 5 + 1), total_steps=TRAIN_STEPS))
+    train_step = transformer.make_train_step(cfg, opt)
+    batch = next(make_batch_iterator(cfg, DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab, seed=0),
+                                     start_step=TRAIN_STEPS, device="cuda"))
+    params, opt_state = state["params"], state["opt"]
+    del state
+
+    def step():
+        return train_step(params, opt_state, batch)  # updates params and opt_state in place
+
+    step()
+    walls = []
+    for _ in range(3):  # one step's host time moves by tens of percent between steps (the host issues ~14k launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t_step = sorted(walls)[1]
+    grads = transformer.value_and_grad(cfg, params, batch)[1]
+    opt_ms = _time_ms(lambda: opt.update(grads, opt_state, params), reps=2)
+    del grads
+    print(f"[train] {arch} warm steps {[round(w * 1e3, 1) for w in walls]} ms on the host clock: median "
+          f"{t_step * 1e3:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / t_step:.1f} tokens/s; the optimizer's update alone "
+          f"{opt_ms:.2f} ms (events)")
+    from torch.profiler import ProfilerActivity, profile
+
+    per_bwd = 4 if cfg.hd >= 128 else 3  # delta, dQ, dK/dV (a dV and a dK pass at D 128 and 192)
+    for _ in range(PROFILER_WINDOWS):
+        f0, b0, g0, gb0 = fa.launches, fa.bwd_launches, gm.launches, gm.bwd_launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        table = _kernel_table(prof, wall)
+        fwd_n, bwd_n, gemm_n, gemm_bwd = fa.launches - f0, fa.bwd_launches - b0, gm.launches - g0, gm.bwd_launches - gb0
+        kept = sum(table["flash_calls"].values()) + sum(table["gemm_calls"].values())
+        if table["kernel_calls"] and kept == fwd_n + per_bwd * bwd_n + gemm_n:
+            break
+        print(f"[train] {arch} profile: the profiler kept {kept} of {fwd_n + per_bwd * bwd_n + gemm_n} port "
+              f"kernel launches; taken again")
+        time.sleep(0.1)
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    split = {"flash forward": 0.0, "flash backward": 0.0, "gemm": 0.0}
+    for name, ms in rows:
+        m = FLASH_FN.search(name)
+        key = ("flash backward" if "bwd" in m.group(1) else "flash forward") if m else \
+            "gemm" if GEMM_FN.search(name) else None
+        if key:
+            split[key] += ms
+    table.update(split_ms=split, optimizer_ms=opt_ms, step_wall_ms=t_step * 1e3,
+                 tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / t_step, peak_gib=peak)
+    print(f"[train] {arch} profile of one step: {json.dumps(table)}")
+    calls = table["flash_calls"]
+    fwd_fn = f"flash_fwd_mma_bf16_kernel<{cfg.hd}>"
+    want_calls = {fwd_fn: 2 * L, "flash_bwd_delta_kernel<__nv_bfloat16>": L,
+                  f"flash_bwd_dq_mma_bf16_kernel<{cfg.hd}>": L}
+    want_calls.update({f"flash_bwd_dkdv_mma_bf16_kernel<{cfg.hd}, {m}>": L
+                       for m in ((1, 2) if cfg.hd >= 128 else (3,))})
+    if calls != want_calls or (fwd_n, bwd_n) != (2 * L, L):
+        raise RuntimeError(f"{arch}: the profiled step ran flash kernels {calls} ({fwd_n} forward and {bwd_n} "
+                           f"backward launches), want {want_calls}")
+    if cfg.is_moe:
+        if (gemm_n, gemm_bwd) != (12 * L, 6 * L) or sum(table["gemm_calls"].values()) != 12 * L:
+            raise RuntimeError(f"{arch}: the profiled step launched gemm {gemm_n} times, {gemm_bwd} of them in the "
+                               f"backward ({table['gemm_calls']}), want {12 * L} and {6 * L}")
+        print(f"[train] {arch}: the backward ran gemm {gemm_bwd} of the step's {gemm_n} times ({table['gemm_calls']})")
+    print(f"[train] {arch}: the profiled step ran the flash backward once per attention layer ({L}) and the "
+          f"forward twice (remat): {json.dumps(calls)}")
+
+    # kernel path against plain path: the loss and every leaf's gradient in bf16 at the trained depth, beside
+    # the controls ...
+    del opt_state
+    torch.cuda.empty_cache()
+    hold_train_readings(f"{arch} bf16 at {L} layers", train_readings(cfg, params, batch), failures)
+    del params
+    torch.cuda.empty_cache()
+    # ... and every leaf's gradient in fp32 at grad_depth
+    c32 = dataclasses.replace(cfg, n_layers=grad_depth, dtype=torch.float32)
+    p32 = init_params(c32, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    routes = []
+    with _recording_routes(routes):
+        lk, gk = transformer.value_and_grad(c32, p32, batch)
+    with _plain_versions(), (_replaying_routes(routes) if cfg.is_moe else contextlib.nullcontext()):
+        lp, gp = transformer.value_and_grad(c32, p32, batch)
+    ratios = _leaf_ratios(gk, list(named_leaves(gp)))
+    worst_leaf = max(ratios, key=ratios.get)
+    for name, ratio in ratios.items():
+        if not ratio <= GRAD_TOL:
+            failures.append(f"{arch} fp32 at {grad_depth} layers: gradient of {name} differs by {ratio} of its max")
+            print(f"[FAIL] {failures[-1]}")
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    print(f"[train] {arch} fp32 at {grad_depth} layers: loss relative difference {loss_rel:.3e}; worst gradient "
+          f"leaf {worst_leaf} at {ratios[worst_leaf]:.3e} of its max |plain| (tolerance {GRAD_TOL}) over "
+          f"{len(ratios)} leaves")
+    if not loss_rel <= LM_TOL[torch.float32]:
+        failures.append(f"{arch} fp32 training loss: relative difference {loss_rel}")
+        print(f"[FAIL] {failures[-1]}")
+    del p32, gk, gp
+    torch.cuda.empty_cache()
+    check_resume(arch, dataclasses.replace(full, **RESUME_CUT[arch]))
+    return {**launches, "peak_gib": peak, "step_ms": t_step * 1e3}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1417,6 +2009,7 @@ def main() -> int:
     for name in sorted(paths):
         print(f"[build] {name}:\n{build.ptxas_report(name)}")
     check_flash_ptxas()
+    check_flash_bwd_ptxas()
     check_gemm_ptxas()
     check_conv_ptxas()
     check_ssd_ptxas()
@@ -1488,6 +2081,20 @@ def main() -> int:
         if served_by:
             kernels["flash_attention"].setdefault("device_function", served_by)
         print(f"[lm] {arch} done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    kernels["flash_attention"].update(check_flash_bwd(gen))
+    kernels["gemm"].update(check_gemm_grad(gen))
+    print(f"[bwd] backward kernels done in {time.perf_counter() - t0:.1f} s")
+    for arch, (depth, grad_depth) in TRAIN_MODELS.items():
+        t0 = time.perf_counter()
+        out = drive_train(arch, depth, grad_depth, failures)
+        prefix = "" if arch == "granite-3-2b" else f"{arch} "  # granite's training run is the flash row's
+        kernels["flash_attention"].update({f"{prefix}train_launches": out["flash_attention"],
+                                           f"{prefix}bwd_launches": out["flash_attention_bwd"]})
+        if out["gemm"]:
+            kernels["gemm"].update(train_launches=out["gemm"], bwd_launches=out["gemm_bwd"])
+        print(f"[train] {arch} done in {time.perf_counter() - t0:.1f} s")
 
     print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

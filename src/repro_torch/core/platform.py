@@ -16,6 +16,7 @@ scheduling algorithms only ever see ``Platform`` / ``EP`` objects.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +95,14 @@ class Platform:
         (the Fig. 9 inter-chiplet latency sweep)."""
         eps = tuple(dataclasses.replace(ep, link_latency=latency_s) for ep in self.eps)
         return dataclasses.replace(self, name=f"{self.name}@lat{latency_s:g}", eps=eps)
+
+    def without(self, dead: Sequence[int]) -> "Platform":
+        """Copy of the platform with EPs ``dead`` removed (elastic rescale),
+        the survivors in their order: the reference's ``without`` on its
+        scalar links (no fabric, power or fault model to restrict)."""
+        dead_set = set(dead)
+        eps = tuple(ep for i, ep in enumerate(self.eps) if i not in dead_set)
+        return dataclasses.replace(self, name=f"{self.name}-minus{sorted(dead_set)}", eps=eps)
 
 
 # ---------------------------------------------------------------------------

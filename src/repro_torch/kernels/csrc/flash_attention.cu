@@ -207,7 +207,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int D>
 __global__ void __launch_bounds__(mma_warps<D>() * 32, mma_min_blocks<D>())
 flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                          bf16* __restrict__ o, AttnShape p, int vec16) {
+                          bf16* __restrict__ o, float* __restrict__ lse, AttnShape p, int vec16) {
   constexpr int WARPS = mma_warps<D>();
   constexpr int THREADS = WARPS * 32;
   constexpr int BQ = WARPS * 16;
@@ -381,6 +381,13 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);  // 0 only for a row that sees no key: NaN, as in _sdpa
   }
+  if (lse != nullptr && lane % 4 == 0) {  // log-sum-exp of the scaled scores, for the backward
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = r0 + lane / 4 + h * 8;
+      if (i < p.Sq) lse[(long long)blockIdx.x * p.Sq + i] = m[h] * p.scale + logf(l[h]);
+    }
+  }
   bf16* os = ring + warp * 16 * LD;  // this warp's 16 rows
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
@@ -408,7 +415,7 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, const AttnShape& p, int vec16,
+int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, const AttnShape& p, int vec16,
                cudaStream_t stream) {
   constexpr int WARPS = mma_warps<D>();
   constexpr int smem = mma_smem_bytes<D>();
@@ -417,7 +424,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, const AttnS
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + 16 * WARPS - 1) / (16 * WARPS)));
   kernel<<<grid, WARPS * 32, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                              static_cast<const bf16*>(v), static_cast<bf16*>(o), p, vec16);
+                                              static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, p, vec16);
   return (int)cudaGetLastError();
 }
 
@@ -430,6 +437,13 @@ constexpr int BK = 64;        // key rows per tile
 constexpr int THREADS = 256;  // 16 row groups x 16 column groups
 constexpr int PAD = 4;        // row padding that keeps float4 rows 16-byte aligned
 
+// Unroll of the score loop over D: 8.  scripts/flash_f32_unroll.py builds a
+// copy with -DFLASH_F32_SCORE_UNROLL=2 to compare registers, spills and times.
+#ifndef FLASH_F32_SCORE_UNROLL
+#define FLASH_F32_SCORE_UNROLL 8
+#endif
+constexpr int F32_SCORE_UNROLL = FLASH_F32_SCORE_UNROLL;
+
 template <int D>
 constexpr int smem_floats() {
   return 2 * D * (BQ + PAD) + BK * (D + PAD) + BK * (BQ + PAD);
@@ -438,7 +452,7 @@ constexpr int smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 float* __restrict__ o, AttnShape p) {
+                 float* __restrict__ o, float* __restrict__ lse, AttnShape p) {
   constexpr int LDT = BQ + PAD;  // row length of the transposed tiles
   constexpr int LDV = D + PAD;
   constexpr int V4 = D / 4;                    // 4-element vectors per row
@@ -514,7 +528,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
+#pragma unroll (F32_SCORE_UNROLL)
     for (int d = 0; d < D; ++d) {
       const float4 a = *reinterpret_cast<const float4*>(&Qt[d * LDT + ty * 4]);
       const float4 bb = *reinterpret_cast<const float4*>(&Kt[d * LDT + tx * 4]);
@@ -598,6 +612,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     const int qi = q0 + ty * 4 + r;
     if (qi >= p.Sq) continue;
     const float denom = l[r];  // 0 only for a row that sees no key: NaN, as in _sdpa
+    if (lse != nullptr && tx == 0) lse[(long long)blockIdx.x * p.Sq + qi] = m[r] + logf(denom);  // scores scaled
     float* orow = ob + (long long)qi * p.sos;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
@@ -607,13 +622,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, const AttnShape& p, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, const AttnShape& p,
+               cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + BQ - 1) / BQ));
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                       static_cast<const float*>(v), static_cast<float*>(o), p);
+                                                       static_cast<const float*>(v), static_cast<float*>(o), lse, p);
   return (int)cudaGetLastError();
 }
 
@@ -629,13 +645,722 @@ bool rows_16b(const void* q, const void* k, const void* v, const void* o, const 
   return true;
 }
 
+// ===========================================================================
+// Backward
+// ===========================================================================
+//
+// The gradient of the forward above (blocks._sdpa_chunk's at q_offset 0, as
+// jax.grad takes it through the reference's XLA attention; no Pallas kernel
+// of the reference has a backward).  With P = exp(S * scale - lse) from the
+// forward's log-sum-exp, the three kernels below compute
+//   delta = rowsum(dO o O)                       (flash_bwd_delta_kernel)
+//   dP = dO.V^T,  dS = P o (dP - delta)
+//   dQ = scale * dS.K                            (flash_bwd_dq_*)
+//   dV = P~^T.dO,  dK = scale * dS^T.Q            (flash_bwd_dkdv_*)
+// with P~ the probabilities rounded to the input type, as the forward rounds
+// them before P.V.  No atomics: each output element is written by one
+// thread, each sum taken in one order, so two calls give the same bits.  A
+// dK/dV block sums the q-heads of its GQA group itself.  Masks as the
+// forward's; a query row that sees no key (only where Sq >= Skv + window)
+// has no finite lse, and the wrapper refuses the shapes that make one.
+//
+// Bound on the H100 SXM: at the training shapes (bf16, causal, S 512,
+// granite-3-2b q [4,32,512,64], k/v [4,8,512,64]; phi3.5-moe q
+// [4,32,512,128], k/v [4,8,512,128]) the call moves 42.5 / 85 MB (q, k, v,
+// o, dO and the three gradients once, lse and delta in fp32) against 10.8 /
+// 21.5 GFLOP (five S x S x D products), so bytes bound it: 12.7 / 25.4 us.
+// Like the forward, this first version is far from that: its products run
+// on mma.sync with every operand re-read from shared memory by ldmatrix,
+// and each block's prologue and epilogue are exposed.  wgmma with TMA and a
+// persistent schedule are later work (PERF.md, ROADMAP.md queue 2).
+//
+// bf16, on the tensor cores (mma.sync m16n8k16, fp32 accumulators), 4 warps:
+// - flash_bwd_dq_mma_bf16_kernel<D>: one block per (batch * q-head, 64-row q
+//   tile); each warp owns 16 query rows.  Q and dO stay in shared memory;
+//   K and V stream in 64-key tiles through a 2-stage cp.async ring.  Per
+//   tile, S = Q.K^T and dP = dO.V^T (K and V as ldmatrix B operands, as the
+//   forward reads K), P and dS from the row's lse and delta in registers,
+//   dS rounded to bf16 and packed into A fragments (the C layout of two
+//   m16n8 tiles is the A layout of one k16 step), dQ += dS.K (K through
+//   ldmatrix.trans, as the forward reads V).
+// - flash_bwd_dkdv_mma_bf16_kernel<D, MODE>: one block per (batch, kv-head,
+//   64-key tile); each warp owns 16 keys, so the products run transposed:
+//   S^T = K.Q^T and dP^T = V.dO^T with K and V as the A operands.  The block
+//   loops over the q-heads of its group and the 64-row q tiles that see its
+//   keys, Q, dO, lse and delta through a 2-stage ring; P^T and dS^T are
+//   packed as A fragments for dV += P~^T.dO and dK += dS^T.Q (Q and dO
+//   through ldmatrix.trans).  Keys past Skv need no mask: their rows are
+//   never stored.  Query rows past Sq read lse +inf, so their P is 0.
+//   Registers: at D <= 80 one pass keeps dK and dV (MODE 3); at D 128 and
+//   192 the two accumulators with S and dP would pass 255 registers, so the
+//   host launches a dV pass (MODE 1) and a dK pass (MODE 2), which read Q
+//   twice and recompute S once more; at D 192 the q tiles are 32 rows.
+//
+// fp32, on the SIMT pipes (no TF32, as the forward): 32 x 32 score tiles,
+// 256 threads as 16 x 16, each a 2 x 2 patch and 2 rows x D/16 columns of
+// its output, rows in shared memory padded to an odd length.
+//
+// The launch order is delta, dQ, dK/dV, on one stream.
+
+struct BwdShape {
+  int B, H, KVH, Sq, Skv;
+  long long st[8][3];  // element strides over batch, head, position of q, k, v, o, dO, dq, dk, dv (d is unit)
+  int causal, window;
+  float scale;
+};
+enum { SQ_, SK_, SV_, SO_, SDO_, SDQ_, SDK_, SDV_ };
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BWD_WARPS = 4;
+constexpr int BWD_THREADS = BWD_WARPS * 32;
+constexpr int BWD_BQ = 64;  // query rows of a dQ block
+constexpr int BWD_BK = 64;  // key rows: a K/V tile of the dQ loop, a dK/dV block
+
+// Query rows of a q tile of the dK/dV loop: 32 at D 192, where the dK
+// pass's accumulator (96 registers a thread) leaves no room for 64-query S
+// and dP tiles, 64 below.
+template <int D>
+__host__ __device__ constexpr int bwd_bq() {
+  return D == 192 ? 32 : 64;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ const T* at(const T* base, const BwdShape& p, int which, int b, int h, long long i) {
+  return base + b * p.st[which][0] + h * p.st[which][1] + i * p.st[which][2];
+}
+
+// delta[b, h, i] = sum_d dO[i, d] * O[i, d] in fp32; a warp per row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta, BwdShape p,
+                       int D) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i = blockIdx.y * 8 + warp;
+  if (i >= p.Sq) return;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const T* orow = at(o, p, SO_, b, h, i);
+  const T* grow = at(dout, p, SDO_, b, h, i);
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(grow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[(long long)blockIdx.x * p.Sq + i] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dQ
+// ---------------------------------------------------------------------------
+
+template <int D>
+constexpr int bwd_dq_smem_bytes() {
+  return (2 * BWD_BQ + 2 * 2 * BWD_BK) * (D + MPAD) * (int)sizeof(bf16);  // Q, dO; 2 stages of K, V
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ delta, bf16* __restrict__ dq, BwdShape p, int vec16) {
+  constexpr int LD = D + MPAD;
+  constexpr int KS = D / 16;       // k16 steps of S and dP
+  constexpr int NT = BWD_BK / 8;   // n8 tiles of a warp's 16 x 64 scores
+  constexpr int PK = BWD_BK / 16;  // k16 steps of dS.K
+  constexpr int DT = D / 8;        // n8 tiles of a warp's 16 x D output
+  constexpr int STAGE = 2 * BWD_BK * LD;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* Gs = Qs + BWD_BQ * LD;                   // dO, [BQ][LD]
+  bf16* ring = Gs + BWD_BQ * LD;                 // [2][K: BK rows, V: BK rows][LD]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.x / p.H, hq = blockIdx.x % p.H, hk = hq / (p.H / p.KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_BQ;  // heaviest causal tiles first
+  const int r0 = q0 + warp * 16;
+
+  const bf16* kb = at(k, p, SK_, b, hk, 0);
+  const bf16* vb = at(v, p, SV_, b, hk, 0);
+  const int q_last = min(q0 + BWD_BQ, p.Sq) - 1;
+  int kt_end = (p.Skv + BWD_BK - 1) / BWD_BK;
+  if (p.causal) kt_end = min(kt_end, q_last / BWD_BK + 1);
+  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BWD_BK : 0;
+
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * BWD_BK;
+    bf16* ks = ring + stage * STAGE;
+    load_rows<BWD_BK, D, BWD_THREADS>(ks, kb + k0 * p.st[SK_][2], p.st[SK_][2], p.Skv - k0, vec16, tid);
+    load_rows<BWD_BK, D, BWD_THREADS>(ks + BWD_BK * LD, vb + k0 * p.st[SV_][2], p.st[SV_][2], p.Skv - k0, vec16,
+                                      tid);
+  };
+  load_rows<BWD_BQ, D, BWD_THREADS>(Qs, at(q, p, SQ_, b, hq, q0), p.st[SQ_][2], p.Sq - q0, vec16, tid);
+  load_rows<BWD_BQ, D, BWD_THREADS>(Gs, at(dout, p, SDO_, b, hq, q0), p.st[SDO_][2], p.Sq - q0, vec16, tid);
+  if (kt_begin < kt_end) load_kv(kt_begin, 0);
+  cp_async_commit();
+
+  float l2[2], dl[2];  // rows lane/4 and lane/4 + 8: lse in base 2, delta; a row past Sq gets P = 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r0 + lane / 4 + h * 8;
+    const long long row = (long long)blockIdx.x * p.Sq + i;
+    l2[h] = i < p.Sq ? lse[row] * LOG2E : INFINITY;
+    dl[h] = i < p.Sq ? delta[row] : 0.f;
+  }
+  const float c = p.scale * LOG2E;
+  const bf16* qrow = Qs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // this lane's ldmatrix row
+  const bf16* grow = Gs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) % 2;
+    cp_async_wait<0>();  // tile kt (and Q, dO) has landed (this thread's copies)
+    __syncthreads();     // ... everyone's; tile kt - 1 is no longer read
+    if (kt + 1 < kt_end) load_kv(kt + 1, stage ^ 1);
+    cp_async_commit();
+
+    const bf16* ks = ring + stage * STAGE;
+    const bf16* vs = ks + BWD_BK * LD;
+    const int k0 = kt * BWD_BK;
+    if (r0 >= p.Sq || (p.causal && k0 > r0 + 15) || (p.window > 0 && r0 - (k0 + BWD_BK - 1) >= p.window)) continue;
+    const bool masked = k0 + BWD_BK > p.Skv || (p.causal && k0 + BWD_BK - 1 > r0) ||
+                        (p.window > 0 && r0 + 15 - k0 >= p.window);
+
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], ga[4];
+      ldmatrix_x4(qa, qrow + kk * 16);
+      ldmatrix_x4(ga, grow + kk * 16);
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {  // keys nt*8 .. nt*8 + 15: two n8 tiles
+        const int off = (nt * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t r[4];
+        ldmatrix_x4(r, ks + off);
+        mma_bf16(s[nt], qa, r[0], r[1]);
+        mma_bf16(s[nt + 1], qa, r[2], r[3]);
+        ldmatrix_x4(r, vs + off);
+        mma_bf16(dp[nt], ga, r[0], r[1]);
+        mma_bf16(dp[nt + 1], ga, r[2], r[3]);
+      }
+    }
+    if (masked) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = r0 + lane / 4 + (e / 2) * 8;
+          const int j = k0 + nt * 8 + (lane % 4) * 2 + e % 2;
+          const bool ok = j < p.Skv && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
+          if (!ok) s[nt][e] = -INFINITY;
+        }
+    }
+    uint32_t df[PK][4];  // dS as the A fragments of dS.K
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[e] = ex2(fmaf(s[nt][e], c, -l2[e / 2])) * (dp[nt][e] - dl[e / 2]);
+      df[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      df[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+      for (int dt = 0; dt < DT; dt += 2) {  // columns dt*8 .. dt*8 + 15: two n8 tiles
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, ks + (kk * 16 + lane % 16) * LD + dt * 8 + (lane / 16) * 8);
+        mma_bf16(acc[dt], df[kk], r[0], r[1]);
+        mma_bf16(acc[dt + 1], df[kk], r[2], r[3]);
+      }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r0 + lane / 4 + h * 8;
+    if (i >= p.Sq) continue;
+    bf16* row = dq + b * p.st[SDQ_][0] + hq * p.st[SDQ_][1] + i * p.st[SDQ_][2] + (lane % 4) * 2;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) =
+          __floats2bfloat162_rn(acc[dt][2 * h] * p.scale, acc[dt][2 * h + 1] * p.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dK, dV
+// ---------------------------------------------------------------------------
+
+// MODE: 1 dV only, 2 dK only, 3 both (bwd_modes: one launch at D <= 80, two above)
+template <int D>
+__host__ __device__ constexpr bool bwd_split() {
+  return D >= 128;
+}
+
+template <int D>
+constexpr int bwd_dkdv_smem_bytes() {
+  // K, V; 2 stages of Q, dO; 2 stages of lse (base 2) and delta
+  return (2 * BWD_BK + 2 * 2 * bwd_bq<D>()) * (D + MPAD) * (int)sizeof(bf16) +
+         2 * 2 * bwd_bq<D>() * (int)sizeof(float);
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                               const bf16* __restrict__ dout, const float* __restrict__ lse,
+                               const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               BwdShape p, int vec16) {
+  constexpr bool DV = MODE & 1, DK = MODE & 2;
+  constexpr int BQ = bwd_bq<D>();
+  constexpr int LD = D + MPAD;
+  constexpr int KS = D / 16;
+  constexpr int NT = BQ / 8;   // n8 tiles of a warp's 16 keys x BQ queries
+  constexpr int PK = BQ / 16;  // k16 steps over the queries
+  constexpr int DT = D / 8;
+  constexpr int STAGE = 2 * BQ * LD;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LD]
+  bf16* Vs = Ks + BWD_BK * LD;                   // [BK][LD]
+  bf16* ring = Vs + BWD_BK * LD;                 // [2][Q: BQ rows, dO: BQ rows][LD]
+  float* stats = reinterpret_cast<float*>(ring + 2 * STAGE);  // [2][lse * log2(e): BQ, delta: BQ]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.x / p.KVH, hk = blockIdx.x % p.KVH;
+  const int G = p.H / p.KVH;
+  const int k0 = blockIdx.y * BWD_BK;  // causal: the first key tiles see the most queries
+  const int kw = k0 + warp * 16;       // this warp's first key
+
+  load_rows<BWD_BK, D, BWD_THREADS>(Ks, at(k, p, SK_, b, hk, k0), p.st[SK_][2], p.Skv - k0, vec16, tid);
+  if constexpr (DK)
+    load_rows<BWD_BK, D, BWD_THREADS>(Vs, at(v, p, SV_, b, hk, k0), p.st[SV_][2], p.Skv - k0, vec16, tid);
+
+  // the q tiles that see a key of this block: top-left causal, i >= j; window, i - j < window
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi = p.window > 0 ? min(p.Sq, k0 + BWD_BK - 1 + p.window) : p.Sq;
+  const int qt_begin = q_lo / BQ;
+  const int nq = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt_begin : 0;
+  const int total = G * nq;  // (q-head of the group, q tile) pairs, in order
+
+  auto load_q = [&](int it, int stage) {
+    const int hq = hk * G + it / nq, q0 = (qt_begin + it % nq) * BQ;
+    bf16* qs = ring + stage * STAGE;
+    load_rows<BQ, D, BWD_THREADS>(qs, at(q, p, SQ_, b, hq, q0), p.st[SQ_][2], p.Sq - q0, vec16, tid);
+    load_rows<BQ, D, BWD_THREADS>(qs + BQ * LD, at(dout, p, SDO_, b, hq, q0), p.st[SDO_][2], p.Sq - q0, vec16,
+                                  tid);
+    float* st = stats + stage * 2 * BQ;
+    for (int e = tid; e < BQ; e += BWD_THREADS) {
+      const int i = q0 + e;
+      const long long row = ((long long)b * p.H + hq) * p.Sq + i;
+      st[e] = i < p.Sq ? lse[row] * LOG2E : INFINITY;  // a row past Sq: P = 0
+      st[BQ + e] = i < p.Sq ? delta[row] : 0.f;
+    }
+  };
+  if (total > 0) load_q(0, 0);
+  cp_async_commit();
+
+  const float c = p.scale * LOG2E;
+  const bf16* krow = Ks + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // this lane's ldmatrix row
+  const bf16* vrow = Vs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  float accv[DV ? DT : 1][4], acck[DK ? DT : 1][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (DV) accv[dt][e] = 0.f;
+      if constexpr (DK) acck[dt][e] = 0.f;
+    }
+
+  for (int it = 0; it < total; ++it) {
+    const int stage = it % 2;
+    cp_async_wait<0>();  // q tile it (and K, V) has landed (this thread's copies)
+    __syncthreads();     // ... everyone's, and the stats; tile it - 1 is no longer read
+    if (it + 1 < total) load_q(it + 1, stage ^ 1);
+    cp_async_commit();
+
+    const int q0 = (qt_begin + it % nq) * BQ;
+    const bf16* qs = ring + stage * STAGE;
+    const bf16* gs = qs + BQ * LD;
+    const float* l2 = stats + stage * 2 * BQ;
+    const float* dl = l2 + BQ;
+    // this warp's keys kw .. kw + 15 against queries q0 .. q0 + BQ - 1
+    if (kw >= p.Skv || (p.causal && q0 + BQ - 1 < kw) || (p.window > 0 && q0 - (kw + 15) >= p.window)) continue;
+    const bool masked = (p.causal && q0 < kw + 15) || (p.window > 0 && q0 + BQ - 1 - kw >= p.window);
+
+    float s[NT][4], dp[DK ? NT : 1][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = 0.f;
+        if constexpr (DK) dp[nt][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, krow + kk * 16);
+      if constexpr (DK) ldmatrix_x4(va, vrow + kk * 16);
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {  // queries nt*8 .. nt*8 + 15: two n8 tiles
+        const int off = (nt * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t r[4];
+        ldmatrix_x4(r, qs + off);
+        mma_bf16(s[nt], ka, r[0], r[1]);
+        mma_bf16(s[nt + 1], ka, r[2], r[3]);
+        if constexpr (DK) {
+          ldmatrix_x4(r, gs + off);
+          mma_bf16(dp[nt], va, r[0], r[1]);
+          mma_bf16(dp[nt + 1], va, r[2], r[3]);
+        }
+      }
+    }
+    if (masked) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = kw + lane / 4 + (e / 2) * 8;
+          const int i = q0 + nt * 8 + (lane % 4) * 2 + e % 2;
+          const bool ok = (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
+          if (!ok) s[nt][e] = -INFINITY;
+        }
+    }
+    uint32_t pf[DV ? PK : 1][4], df[DK ? PK : 1][4];  // P^T and dS^T as A fragments over the queries
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int i0 = nt * 8 + (lane % 4) * 2;  // this lane's two query columns
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[e] = ex2(fmaf(s[nt][e], c, -l2[i0 + e % 2]));
+      if constexpr (DV) {
+        pf[nt / 2][(nt % 2) * 2] = pack_bf16(pv[0], pv[1]);
+        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+      }
+      if constexpr (DK) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[e] = pv[e] * (dp[nt][e] - dl[i0 + e % 2]);
+        df[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
+        df[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+      for (int dt = 0; dt < DT; dt += 2) {
+        const int off = (kk * 16 + lane % 16) * LD + dt * 8 + (lane / 16) * 8;
+        uint32_t r[4];
+        if constexpr (DV) {
+          ldmatrix_x4_trans(r, gs + off);
+          mma_bf16(accv[dt], pf[kk], r[0], r[1]);
+          mma_bf16(accv[dt + 1], pf[kk], r[2], r[3]);
+        }
+        if constexpr (DK) {
+          ldmatrix_x4_trans(r, qs + off);
+          mma_bf16(acck[dt], df[kk], r[0], r[1]);
+          mma_bf16(acck[dt + 1], df[kk], r[2], r[3]);
+        }
+      }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = kw + lane / 4 + h * 8;
+    if (j >= p.Skv) continue;
+    if constexpr (DV) {
+      bf16* row = dv + b * p.st[SDV_][0] + hk * p.st[SDV_][1] + j * p.st[SDV_][2] + (lane % 4) * 2;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) =
+            __floats2bfloat162_rn(accv[dt][2 * h], accv[dt][2 * h + 1]);
+    }
+    if constexpr (DK) {
+      bf16* row = dk + b * p.st[SDK_][0] + hk * p.st[SDK_][1] + j * p.st[SDK_][2] + (lane % 4) * 2;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) =
+            __floats2bfloat162_rn(acck[dt][2 * h] * p.scale, acck[dt][2 * h + 1] * p.scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 dQ and dK, dV on the SIMT pipes
+// ---------------------------------------------------------------------------
+
+constexpr int FB = 32;  // rows of a score tile, both ways
+
+template <int D>
+constexpr int bwd_f32_smem_bytes() {
+  return (4 * FB * (D + 1) + 2 * FB * (FB + 1) + 2 * FB) * (int)sizeof(float);
+}
+
+// ROWS rows of D floats from global (row stride `stride`) into shared rows of
+// D + 1; rows from `valid` on are zero.
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long stride, int valid, int D,
+                                              int tid) {
+  for (int e = tid; e < FB * D; e += 256) {
+    const int r = e / D, d = e % D;
+    dst[r * (D + 1) + d] = r < valid ? src[r * stride + d] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, BwdShape p) {
+  constexpr int LD = D + 1, NC = D / 16;
+  extern __shared__ __align__(16) float smf[];
+  float* Qs = smf;              // [FB][LD]
+  float* Gs = Qs + FB * LD;     // dO
+  float* Ks = Gs + FB * LD;
+  float* Vs = Ks + FB * LD;
+  float* Ss = Vs + FB * LD;     // dS, [FB][FB + 1]
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // rows 2ty, 2ty + 1; keys 2tx, 2tx + 1
+  const int b = blockIdx.x / p.H, hq = blockIdx.x % p.H, hk = hq / (p.H / p.KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FB;
+  load_rows_f32(Qs, at(q, p, SQ_, b, hq, q0), p.st[SQ_][2], p.Sq - q0, D, tid);
+  load_rows_f32(Gs, at(dout, p, SDO_, b, hq, q0), p.st[SDO_][2], p.Sq - q0, D, tid);
+  float ls[2], dl[2], acc[2][NC];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + 2 * ty + r;
+    const long long row = (long long)blockIdx.x * p.Sq + i;
+    ls[r] = i < p.Sq ? lse[row] : INFINITY;
+    dl[r] = i < p.Sq ? delta[row] : 0.f;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) acc[r][cc] = 0.f;
+  }
+  const int q_last = min(q0 + FB, p.Sq) - 1;
+  int kt_end = (p.Skv + FB - 1) / FB;
+  if (p.causal) kt_end = min(kt_end, q_last / FB + 1);
+  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / FB : 0;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * FB;
+    __syncthreads();  // the previous tile's K, V and dS are no longer read
+    load_rows_f32(Ks, at(k, p, SK_, b, hk, k0), p.st[SK_][2], p.Skv - k0, D, tid);
+    load_rows_f32(Vs, at(v, p, SV_, b, hk, k0), p.st[SV_][2], p.Skv - k0, D, tid);
+    __syncthreads();
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 2
+    for (int d = 0; d < D; ++d) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float qv = Qs[(2 * ty + r) * LD + d], gv = Gs[(2 * ty + r) * LD + d];
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          s[r][cc] = fmaf(qv, Ks[(2 * tx + cc) * LD + d], s[r][cc]);
+          dp[r][cc] = fmaf(gv, Vs[(2 * tx + cc) * LD + d], dp[r][cc]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int i = q0 + 2 * ty + r, j = k0 + 2 * tx + cc;
+        const bool ok = j < p.Skv && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
+        const float pv = ok ? expf(s[r][cc] * p.scale - ls[r]) : 0.f;
+        Ss[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = pv * (dp[r][cc] - dl[r]);
+      }
+    __syncthreads();
+#pragma unroll 2
+    for (int j = 0; j < FB; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float ds = Ss[(2 * ty + r) * (FB + 1) + j];
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) acc[r][cc] = fmaf(ds, Ks[j * LD + tx + 16 * cc], acc[r][cc]);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + 2 * ty + r;
+    if (i >= p.Sq) continue;
+    float* row = dq + b * p.st[SDQ_][0] + hq * p.st[SDQ_][1] + i * p.st[SDQ_][2];
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) row[tx + 16 * cc] = acc[r][cc] * p.scale;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, BwdShape p) {
+  constexpr int LD = D + 1, NC = D / 16;
+  extern __shared__ __align__(16) float smf[];
+  float* Ks = smf;              // [FB][LD]
+  float* Vs = Ks + FB * LD;
+  float* Qs = Vs + FB * LD;
+  float* Gs = Qs + FB * LD;     // dO
+  float* Ps = Gs + FB * LD;     // P^T, [FB][FB + 1]
+  float* Ss = Ps + FB * (FB + 1);  // dS^T
+  float* Ls = Ss + FB * (FB + 1);  // lse of the q tile
+  float* Ds = Ls + FB;             // delta
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // keys 2ty, 2ty + 1; queries 2tx, 2tx + 1
+  const int b = blockIdx.x / p.KVH, hk = blockIdx.x % p.KVH;
+  const int G = p.H / p.KVH;
+  const int k0 = blockIdx.y * FB;
+  load_rows_f32(Ks, at(k, p, SK_, b, hk, k0), p.st[SK_][2], p.Skv - k0, D, tid);
+  load_rows_f32(Vs, at(v, p, SV_, b, hk, k0), p.st[SV_][2], p.Skv - k0, D, tid);
+  float av[2][NC], ak[2][NC];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) av[r][cc] = ak[r][cc] = 0.f;
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi = p.window > 0 ? min(p.Sq, k0 + FB - 1 + p.window) : p.Sq;
+  const int qt_begin = q_lo / FB;
+  const int qt_end = q_hi > q_lo ? (q_hi + FB - 1) / FB : qt_begin;
+
+  for (int g = 0; g < G; ++g) {
+    const int hq = hk * G + g;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * FB;
+      __syncthreads();  // the previous tile's Q, dO, P, dS are no longer read
+      load_rows_f32(Qs, at(q, p, SQ_, b, hq, q0), p.st[SQ_][2], p.Sq - q0, D, tid);
+      load_rows_f32(Gs, at(dout, p, SDO_, b, hq, q0), p.st[SDO_][2], p.Sq - q0, D, tid);
+      if (tid < FB) {
+        const int i = q0 + tid;
+        const long long row = ((long long)b * p.H + hq) * p.Sq + i;
+        Ls[tid] = i < p.Sq ? lse[row] : INFINITY;
+        Ds[tid] = i < p.Sq ? delta[row] : 0.f;
+      }
+      __syncthreads();
+      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 2
+      for (int d = 0; d < D; ++d) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float kv = Ks[(2 * ty + r) * LD + d], vv = Vs[(2 * ty + r) * LD + d];
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            s[r][cc] = fmaf(kv, Qs[(2 * tx + cc) * LD + d], s[r][cc]);
+            dp[r][cc] = fmaf(vv, Gs[(2 * tx + cc) * LD + d], dp[r][cc]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int j = k0 + 2 * ty + r, i = q0 + 2 * tx + cc;
+          const bool ok = (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
+          const float pv = ok ? expf(s[r][cc] * p.scale - Ls[2 * tx + cc]) : 0.f;
+          Ps[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = pv;
+          Ss[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = pv * (dp[r][cc] - Ds[2 * tx + cc]);
+        }
+      __syncthreads();
+#pragma unroll 2
+      for (int i = 0; i < FB; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float pv = Ps[(2 * ty + r) * (FB + 1) + i], ds = Ss[(2 * ty + r) * (FB + 1) + i];
+#pragma unroll
+          for (int cc = 0; cc < NC; ++cc) {
+            av[r][cc] = fmaf(pv, Gs[i * LD + tx + 16 * cc], av[r][cc]);
+            ak[r][cc] = fmaf(ds, Qs[i * LD + tx + 16 * cc], ak[r][cc]);
+          }
+        }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + 2 * ty + r;
+    if (j >= p.Skv) continue;
+    float* vrow = dv + b * p.st[SDV_][0] + hk * p.st[SDV_][1] + j * p.st[SDV_][2];
+    float* krow = dk + b * p.st[SDK_][0] + hk * p.st[SDK_][1] + j * p.st[SDK_][2];
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+      vrow[tx + 16 * cc] = av[r][cc];
+      krow[tx + 16 * cc] = ak[r][cc] * p.scale;
+    }
+  }
+}
+
+template <typename KERNEL>
+cudaError_t allow_smem(KERNEL kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  void *dq, *dk, *dv;
+  float* delta;
+};
+
+template <int D>
+int launch_bwd_mma(const BwdArgs& a, const BwdShape& p, int vec16, cudaStream_t stream) {
+  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k);
+  const bf16 *v = static_cast<const bf16*>(a.v), *g = static_cast<const bf16*>(a.dout);
+  bf16 *dk = static_cast<bf16*>(a.dk), *dv = static_cast<bf16*>(a.dv);
+  constexpr int dq_smem = bwd_dq_smem_bytes<D>(), kv_smem = bwd_dkdv_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_mma_bf16_kernel<D>, dq_smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 dq_grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + BWD_BQ - 1) / BWD_BQ));
+  flash_bwd_dq_mma_bf16_kernel<D><<<dq_grid, BWD_THREADS, dq_smem, stream>>>(q, k, v, g, a.lse, a.delta,
+                                                                             static_cast<bf16*>(a.dq), p, vec16);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 kv_grid((unsigned)(p.B * p.KVH), (unsigned)((p.Skv + BWD_BK - 1) / BWD_BK));
+  if constexpr (bwd_split<D>()) {
+    if ((err = allow_smem(flash_bwd_dkdv_mma_bf16_kernel<D, 1>, kv_smem)) != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_mma_bf16_kernel<D, 1><<<kv_grid, BWD_THREADS, kv_smem, stream>>>(q, k, v, g, a.lse, a.delta, dk,
+                                                                                    dv, p, vec16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = allow_smem(flash_bwd_dkdv_mma_bf16_kernel<D, 2>, kv_smem)) != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_mma_bf16_kernel<D, 2><<<kv_grid, BWD_THREADS, kv_smem, stream>>>(q, k, v, g, a.lse, a.delta, dk,
+                                                                                    dv, p, vec16);
+  } else {
+    if ((err = allow_smem(flash_bwd_dkdv_mma_bf16_kernel<D, 3>, kv_smem)) != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_mma_bf16_kernel<D, 3><<<kv_grid, BWD_THREADS, kv_smem, stream>>>(q, k, v, g, a.lse, a.delta, dk,
+                                                                                    dv, p, vec16);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_bwd_f32(const BwdArgs& a, const BwdShape& p, cudaStream_t stream) {
+  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k);
+  const float *v = static_cast<const float*>(a.v), *g = static_cast<const float*>(a.dout);
+  constexpr int smem = bwd_f32_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 dq_grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + FB - 1) / FB));
+  flash_bwd_dq_kernel<D><<<dq_grid, 256, smem, stream>>>(q, k, v, g, a.lse, a.delta, static_cast<float*>(a.dq), p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = allow_smem(flash_bwd_dkdv_kernel<D>, smem)) != cudaSuccess) return (int)err;
+  const dim3 kv_grid((unsigned)(p.B * p.KVH), (unsigned)((p.Skv + FB - 1) / FB));
+  flash_bwd_dkdv_kernel<D><<<kv_grid, 256, smem, stream>>>(q, k, v, g, a.lse, a.delta, static_cast<float*>(a.dk),
+                                                           static_cast<float*>(a.dv), p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` and returns the CUDA error of the launch (0 when it was
 // accepted).  dtype 0 is float32 (SIMT kernel), 1 is bfloat16 (tensor-core
-// kernel); o has q's shape and type.  Shapes, strides and alignment are
-// validated by the Python wrapper.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
+// kernel); o has q's shape and type.  `lse` (fp32 [B, H, Sq], or null) gets
+// the log-sum-exp of each row's scaled scores, for the backward.  Shapes,
+// strides and alignment are validated by the Python wrapper.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
                                    int B, int H, int KVH, int Sq, int Skv, int D,
                                    long long sqb, long long sqh, long long sqs,
                                    long long skb, long long skh, long long sks,
@@ -647,24 +1372,81 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     switch (D) {
-      case 16: return launch_f32<16>(q, k, v, o, p, st);
-      case 32: return launch_f32<32>(q, k, v, o, p, st);
-      case 64: return launch_f32<64>(q, k, v, o, p, st);
-      case 80: return launch_f32<80>(q, k, v, o, p, st);
-      case 128: return launch_f32<128>(q, k, v, o, p, st);
-      case 192: return launch_f32<192>(q, k, v, o, p, st);
+      case 16: return launch_f32<16>(q, k, v, o, lse, p, st);
+      case 32: return launch_f32<32>(q, k, v, o, lse, p, st);
+      case 64: return launch_f32<64>(q, k, v, o, lse, p, st);
+      case 80: return launch_f32<80>(q, k, v, o, lse, p, st);
+      case 128: return launch_f32<128>(q, k, v, o, lse, p, st);
+      case 192: return launch_f32<192>(q, k, v, o, lse, p, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (dtype == 1) {
     const int vec16 = rows_16b(q, k, v, o, p);
     switch (D) {
-      case 16: return launch_mma<16>(q, k, v, o, p, vec16, st);
-      case 32: return launch_mma<32>(q, k, v, o, p, vec16, st);
-      case 64: return launch_mma<64>(q, k, v, o, p, vec16, st);
-      case 80: return launch_mma<80>(q, k, v, o, p, vec16, st);
-      case 128: return launch_mma<128>(q, k, v, o, p, vec16, st);
-      case 192: return launch_mma<192>(q, k, v, o, p, vec16, st);
+      case 16: return launch_mma<16>(q, k, v, o, lse, p, vec16, st);
+      case 32: return launch_mma<32>(q, k, v, o, lse, p, vec16, st);
+      case 64: return launch_mma<64>(q, k, v, o, lse, p, vec16, st);
+      case 80: return launch_mma<80>(q, k, v, o, lse, p, vec16, st);
+      case 128: return launch_mma<128>(q, k, v, o, lse, p, vec16, st);
+      case 192: return launch_mma<192>(q, k, v, o, lse, p, vec16, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: dq, dk, dv (the inputs' shapes, types and own strides) from
+// q, k, v, the forward's o and lse (fp32 [B, H, Sq]) and dO; `delta` is fp32
+// [B, H, Sq] scratch.  `strides` holds 24 element strides: batch, head and
+// position of q, k, v, o, dO, dq, dk, dv in that order.  Launches the delta
+// pre-pass, the dQ kernel and the dK/dV kernel(s) on `stream`; returns the
+// first launch error (0 when all were accepted).  Shapes, strides, alignment
+// and the absence of rows that see no key are validated by the wrapper.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                                   const void* dout, void* dq, void* dk, void* dv, float* delta, int dtype,
+                                   int B, int H, int KVH, int Sq, int Skv, int D, const long long* strides,
+                                   int causal, int window, float scale, void* stream) {
+  BwdShape p{B, H, KVH, Sq, Skv, {}, causal, window, scale};
+  for (int t = 0; t < 8; ++t)
+    for (int j = 0; j < 3; ++j) p.st[t][j] = strides[3 * t + j];
+  const BwdArgs a{q, k, v, o, dout, lse, dq, dk, dv, delta};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 delta_grid((unsigned)(B * H), (unsigned)((Sq + 7) / 8));
+  if (dtype == 0) {
+    flash_bwd_delta_kernel<float><<<delta_grid, 256, 0, st>>>(static_cast<const float*>(o),
+                                                              static_cast<const float*>(dout), delta, p, D);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    switch (D) {
+      case 16: return launch_bwd_f32<16>(a, p, st);
+      case 32: return launch_bwd_f32<32>(a, p, st);
+      case 64: return launch_bwd_f32<64>(a, p, st);
+      case 80: return launch_bwd_f32<80>(a, p, st);
+      case 128: return launch_bwd_f32<128>(a, p, st);
+      case 192: return launch_bwd_f32<192>(a, p, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == 1) {
+    flash_bwd_delta_kernel<bf16><<<delta_grid, 256, 0, st>>>(static_cast<const bf16*>(o),
+                                                             static_cast<const bf16*>(dout), delta, p, D);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    // 16-byte copies where every row the kernels read (q, k, v, dO) starts 16-byte aligned
+    int vec16 = 1;
+    const int read[] = {SQ_, SK_, SV_, SDO_};
+    for (int t : read)
+      for (int j = 0; j < 3; ++j) vec16 &= p.st[t][j] % 8 == 0;
+    const void* ptrs[] = {q, k, v, dout};
+    for (const void* ptr : ptrs) vec16 &= reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+    switch (D) {
+      case 16: return launch_bwd_mma<16>(a, p, vec16, st);
+      case 32: return launch_bwd_mma<32>(a, p, vec16, st);
+      case 64: return launch_bwd_mma<64>(a, p, vec16, st);
+      case 80: return launch_bwd_mma<80>(a, p, vec16, st);
+      case 128: return launch_bwd_mma<128>(a, p, vec16, st);
+      case 192: return launch_bwd_mma<192>(a, p, vec16, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -21,6 +21,16 @@ kernel takes one length for both.
 :func:`flash_attention_plain` is exact softmax attention in fp32 with the
 same masks and the same cast of the probabilities to ``v.dtype`` before
 P·V; the CPU path and the on-card checks use it.
+
+The backward (no Pallas kernel of the reference has one: the reference
+trains through XLA's ``_sdpa``): ``flash_attention(..., return_lse=True)``
+also returns the log-sum-exp of each row's scaled scores, and
+:func:`flash_attention_bwd` takes it with o and dO to dq, dk, dv on three
+more kernels of ``csrc/flash_attention.cu`` (the ``delta = rowsum(dO∘O)``
+pre-pass, dQ, and dK/dV summed over each GQA group in one block; see the
+source note).  :func:`flash_attention_fwd_plain` and
+:func:`flash_attention_bwd_plain` are the same two functions by their
+explicit formulas in fp32, for the CPU tests and the on-card checks.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ import torch
 
 #: launches of the CUDA kernel since this count was last set to 0
 launches = 0
+#: calls of the backward's kernels (delta, dQ, dK/dV) since this count was last set to 0
+bwd_launches = 0
 
 #: head dims the kernels are built for (zamba2-2.7b runs 80, nemotron-4-340b 192)
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)
@@ -52,16 +64,8 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
-) -> torch.Tensor:
-    """Exact attention in fp32.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv, D]
-    -> [B, H, Sq, D] in ``q.dtype``.  Key j is visible to query i when
-    ``j <= i`` (causal) and ``i - j < window`` (window > 0), positions
-    counted from 0 on both sides, as ``blocks._sdpa_chunk`` masks at
-    ``q_offset = 0``.  A row that sees no key (only where Sq > Skv under a
-    window) is NaN, as there."""
-    _check_shapes(q, k, v, window)
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
+    """Scaled, masked fp32 scores [B, KVH, G, Sq, Skv] (-inf where masked)."""
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, kvh, h // kvh, sq, d)
@@ -73,10 +77,67 @@ def flash_attention_plain(
         mask &= qpos >= kpos
     if window:
         mask &= qpos - kpos < window
-    scores = scores.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    return scores.masked_fill(~mask, float("-inf"))
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+) -> torch.Tensor:
+    """Exact attention in fp32.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv, D]
+    -> [B, H, Sq, D] in ``q.dtype``.  Key j is visible to query i when
+    ``j <= i`` (causal) and ``i - j < window`` (window > 0), positions
+    counted from 0 on both sides, as ``blocks._sdpa_chunk`` masks at
+    ``q_offset = 0``.  A row that sees no key (only where Sq > Skv under a
+    window) is NaN, as there."""
+    _check_shapes(q, k, v, window)
+    b, h, sq, d = q.shape
+    probs = torch.softmax(_scores(q, k, causal, window), dim=-1).to(v.dtype).float()
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def flash_attention_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): :func:`flash_attention_plain`'s output and the log-sum-exp
+    of each row's scaled, masked scores, fp32 [B, H, Sq] (-inf for a row
+    that sees no key), as the kernel writes it with ``return_lse``."""
+    b, h, sq, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, causal, window), dim=-1).reshape(b, h, sq)
+    return flash_attention_plain(q, k, v, causal=causal, window=window), lse
+
+
+def _check_sees_a_key(sq: int, skv: int, window: int) -> None:
+    """The backward needs every query row to see a key: a row sees none
+    only under a window, where Sq >= Skv + window (causal or not)."""
+    if window > 0 and sq >= skv + window:
+        raise ValueError(f"query rows from {skv + window - 1} on see no key (Sq {sq}, Skv {skv}, window {window}): "
+                         f"their output is NaN and has no gradient")
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    *, causal: bool = True, window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_attention_plain` by its explicit
+    formulas in fp32: P = exp(S·scale - lse), delta = rowsum(dO∘O),
+    dV = P̃ᵀ·dO with P̃ = P rounded to ``v.dtype`` (as the forward rounds it
+    before P·V), dS = P∘(dO·Vᵀ - delta), dQ = scale·dS·K, dK = scale·dSᵀ·Q,
+    each q-head's dK and dV summed into its kv-head.  Returns (dq, dk, dv)
+    in the inputs' types; raises where a row sees no key."""
+    _check_shapes(q, k, v, window)
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    _check_sees_a_key(sq, skv, window)
+    g, scale = h // kvh, 1.0 / math.sqrt(d)
+    p = torch.exp(_scores(q, k, causal, window) - lse.float().reshape(b, kvh, g, sq, 1))
+    dof = do.float().reshape(b, kvh, g, sq, d)
+    delta = (dof * o.float().reshape(b, kvh, g, sq, d)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p.to(v.dtype).float(), dof)
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, v.float()) - delta)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, q.float().reshape(b, kvh, g, sq, d)) * scale
+    return dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _vector_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
@@ -89,50 +150,116 @@ def _vector_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     return sb, sh, ss
 
 
-def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
-) -> torch.Tensor:
-    """Attention on the CUDA kernel.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv,
-    D], float32 or bfloat16 on the current CUDA device, D in ``HEAD_DIMS``,
-    unit stride over D (other strides free, so ``[b, s, h, d]`` tensors pass
-    as transposed views) -> [B, H, Sq, D] with q's layout and type.  Masks
-    as :func:`flash_attention_plain`.
+def _check_device(*ts: torch.Tensor) -> None:
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"flash_attention needs CUDA tensors, got {[str(t.device) for t in ts]}")
+    if len({t.device for t in ts}) != 1 or ts[0].device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {[str(t.device) for t in ts]}, current device cuda:{torch.cuda.current_device()}")
+    if ts[0].dtype not in _DTYPES or any(t.dtype != ts[0].dtype for t in ts):
+        raise TypeError(f"flash_attention takes float32 or bfloat16 alike, got {[t.dtype for t in ts]}")
 
-    Launches on the current stream without synchronising; raises if the
-    inputs are not what the kernel takes or the launch is refused.
-    """
-    global launches
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError(f"flash_attention needs CUDA tensors, got {q.device}, {k.device}, {v.device}")
-    if not (q.device == k.device == v.device) or q.device.index != torch.cuda.current_device():
-        raise ValueError(f"tensors on {q.device}/{k.device}/{v.device}, current device "
-                         f"cuda:{torch.cuda.current_device()}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 alike, got {q.dtype}, {k.dtype}, {v.dtype}")
-    _check_shapes(q, k, v, window)
+
+def _check_kernel_shapes(q: torch.Tensor, k: torch.Tensor, rows: int) -> None:
+    """What the kernels take beyond :func:`_check_shapes`: a built head dim,
+    no empty axis, and grids the launch can address (``rows`` query rows a
+    block in the y dimension)."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported (have {HEAD_DIMS})")
     if min(b, sq, skv) == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k/v {tuple(k.shape)}")
-    if b * h > 2**31 - 1 or -(-sq // 64) > 65535:
-        raise ValueError(f"grid too large for q {tuple(q.shape)}")
-    strides = [_vector_strides(t) for t in (q, k, v)]
-    if None in strides:
-        raise ValueError("flash_attention needs unit stride over D and 16-byte aligned rows (strides % 4 == 0)")
+    if b * h > 2**31 - 1 or -(-sq // rows) > 65535 or -(-skv // 32) > 65535:
+        raise ValueError(f"grid too large for q {tuple(q.shape)}, k/v {tuple(k.shape)}")
+
+
+def _strides(*ts: torch.Tensor) -> list[int]:
+    """The batch, head and position strides of each tensor, checked as :func:`_vector_strides`."""
+    out = []
+    for t in ts:
+        st = _vector_strides(t)
+        if st is None:
+            raise ValueError("flash_attention needs unit stride over D and 16-byte aligned rows (strides % 4 == 0)")
+        out += st
+    return out
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
+    return_lse: bool = False,
+):
+    """Attention on the CUDA kernel.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv,
+    D], float32 or bfloat16 on the current CUDA device, D in ``HEAD_DIMS``,
+    unit stride over D (other strides free, so ``[b, s, h, d]`` tensors pass
+    as transposed views) -> [B, H, Sq, D] with q's layout and type.  Masks
+    as :func:`flash_attention_plain`.  With ``return_lse`` returns (o, lse),
+    lse the fp32 [B, H, Sq] log-sum-exp of each row's scaled scores, which
+    :func:`flash_attention_bwd` takes.
+
+    Launches on the current stream without synchronising; raises if the
+    inputs are not what the kernel takes or the launch is refused.
+    """
+    global launches
+    _check_device(q, k, v)
+    _check_shapes(q, k, v, window)
+    _check_kernel_shapes(q, k, 64)
+    b, h, sq, d = q.shape
+    strides = _strides(q, k, v)
     o = torch.empty_like(q)  # same strides as q: a transposed [b, s, h, d] view stays one
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-        b, h, k.shape[1], sq, skv, d,
-        *strides[0], *strides[1], *strides[2], *o.stride()[:3],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(),
+        _DTYPES[q.dtype], b, h, k.shape[1], sq, k.shape[2], d,
+        *strides, *o.stride()[:3],
         int(causal), int(window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    *, causal: bool = True, window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on the CUDA kernels: (dq, dk, dv) of
+    :func:`flash_attention` from its inputs, its output ``o`` and ``lse``
+    (``return_lse=True``) and ``do``, the gradient of o.  q, k, v, o and do
+    as :func:`flash_attention` takes them (do and o with q's shape); the
+    gradients have their inputs' shapes, types and layouts.  Raises where a
+    query row sees no key (Sq >= Skv + window): its output is NaN.
+
+    Launches the delta pre-pass, dQ and dK/dV kernels on the current
+    stream without synchronising (one count in ``bwd_launches``); raises if
+    the inputs are not what the kernels take or a launch is refused.
+    """
+    global bwd_launches
+    _check_device(q, k, v, o, do)
+    _check_shapes(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be contiguous fp32 [{b}, {h}, {sq}] on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    _check_sees_a_key(sq, k.shape[2], window)
+    _check_kernel_shapes(q, k, 8)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = _bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype],
+        b, h, k.shape[1], sq, k.shape[2], d, strides,
+        int(causal), int(window), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
+    bwd_launches += 1
+    return dq, dk, dv
 
 
 @functools.cache
@@ -142,7 +269,21 @@ def _kernel():
 
     fn = library("flash_attention").flash_attention_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    """The C entry ``flash_attention_bwd``, typed."""
+    from .build import library
+
+    fn = library("flash_attention").flash_attention_bwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int

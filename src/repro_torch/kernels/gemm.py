@@ -26,6 +26,8 @@ import torch
 
 #: launches of the CUDA kernels since this count was last set to 0
 launches = 0
+#: of those, the launches made for a gradient (``ops.gemm``'s backward, dA and dB) since this count was last set to 0
+bwd_launches = 0
 #: gemm_fwd's own error codes (csrc/gemm.cu): no tensor-map encoder; a refused map (+ CUresult)
 _NO_ENCODER, _TENSOR_MAP_ERROR = 9999, 10000
 

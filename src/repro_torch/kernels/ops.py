@@ -2,7 +2,24 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor, which only a caller that asked for the CPU holds, goes to the
-plain PyTorch version.  There is no fallback from one to the other.
+plain PyTorch version, under ordinary autograd.  There is no fallback from
+one to the other.
+
+What trains where.  The kernels fill tensors through ``ctypes`` and carry
+no ``grad_fn``, so on a CUDA tensor under grad mode with an input that
+requires grad:
+- ``flash_attention`` runs through an autograd Function whose forward is
+  the kernel with its log-sum-exp and whose backward is the hand-written
+  backward kernel (``flash_attention_bwd``);
+- ``gemm`` runs through an autograd Function whose backward is two more
+  ``gemm`` calls, dA = dC·Bᵀ and dB = Aᵀ·dC (the transposed operand made
+  contiguous first: the kernel needs unit stride over the last dim);
+- ``ssd_scan`` and ``conv2d_im2col`` raise ``NotImplementedError``: their
+  backward kernels are not written yet (ROADMAP.md queue 1 item 5; queue 2
+  item 2 for the scan), and a kernel output with no ``grad_fn`` must never
+  reach a loss.
+Without grad mode (serving, ``torch.inference_mode``) each is the plain
+kernel call.
 """
 
 from __future__ import annotations
@@ -15,18 +32,68 @@ from . import im2col_conv
 from . import ssd_scan as _ssd
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _Gemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _gemm.gemm(a, b)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = dc if dc.stride(-1) == 1 else dc.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _gemm.gemm(dc, b.transpose(-1, -2).contiguous())
+            _gemm.bwd_launches += 1
+        if ctx.needs_input_grad[1]:
+            db = _gemm.gemm(a.transpose(-1, -2).contiguous(), dc)
+            _gemm.bwd_launches += 1
+        return da, db
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = _fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if _fa._vector_strides(do) is None:  # e.g. an expanded gradient: the kernel reads rows
+            do = do.contiguous()
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A·B, fp32 sum, output in a's type. a: [(E,) M, K]; b: [(E,) K, N] -> [(E,) M, N]."""
     if a.is_cuda:
-        return _gemm.gemm(a, b)
+        return _Gemm.apply(a, b) if _wants_grad(a, b) else _gemm.gemm(a, b)
     if a.device.type == "cpu":
         return _gemm.gemm_plain(a, b)
     raise ValueError(f"no gemm for device {a.device}")
 
 
+def _no_backward(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} has no backward kernel yet (ROADMAP.md queue 1 item 5): under autograd on the card it would "
+        f"drop every gradient upstream of it; train this model on the CPU, or call it under torch.no_grad()"
+    )
+
+
 def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
     """SAME-padded conv. x: [N, H, W, C]; w: [R, S, C, K] -> [N, HO, WO, K]."""
     if x.is_cuda:
+        if _wants_grad(x, w):
+            raise _no_backward("conv2d_im2col")
         return im2col_conv.conv2d_im2col(x, w, stride=stride)
     if x.device.type == "cpu":
         return im2col_conv.conv2d_im2col_plain(x, w, stride=stride)
@@ -39,6 +106,8 @@ def flash_attention(
     """Attention. q: [B, H, Sq, D]; k, v: [B, KVH, Skv, D] -> [B, H, Sq, D]
     (the causal mask top-left: key j visible to query i when j <= i)."""
     if q.is_cuda:
+        if _wants_grad(q, k, v):
+            return _FlashAttention.apply(q, k, v, causal, window)
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -49,6 +118,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Te
     """Mamba2 SSD. x: [b, l, h, p]; dt: [b, l, h]; A: [h]; B, C: [b, l, n]
     -> (y [b, l, h, p], final state [b, h, p, n] fp32)."""
     if x.is_cuda:
+        if _wants_grad(x, dt, A, B, C):
+            raise _no_backward("ssd_scan")
         return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)

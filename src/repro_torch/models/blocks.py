@@ -1,16 +1,19 @@
 """Forward blocks of the LM path: GQA attention, dense and MoE FFN, Mamba2 SSD.
 
-Port of ``repro/models/blocks.py``'s serving blocks: GQA self attention,
-whisper's cross attention, dense and MoE FFNs, and Mamba2 SSD.  Every
-function takes the per-layer parameter slice (views of the ``[L, ...]``
-stacks) and keeps the reference's ``[b, s, h, d]`` layouts.
+Port of ``repro/models/blocks.py``: GQA self attention, whisper's cross
+attention, dense and MoE FFNs, and Mamba2 SSD, for serving and for
+training.  Every function takes the per-layer parameter slice (views of
+the ``[L, ...]`` stacks) and keeps the reference's ``[b, s, h, d]`` layouts.
 
-Prefill attention (self and cross) runs on
-:func:`repro_torch.kernels.ops.flash_attention`, the prefill SSD scan on
-:func:`repro_torch.kernels.ops.ssd_scan` and the MoE expert products
-(prefill and decode) on :func:`repro_torch.kernels.ops.gemm`, all reached
-through the ``ops`` module attribute: a CUDA tensor launches the
-hand-written kernel, a CPU tensor runs its plain version.  One-token decode
+Full-sequence attention (self and cross, prefill and training) runs on
+:func:`repro_torch.kernels.ops.flash_attention`, the full-sequence SSD scan
+on :func:`repro_torch.kernels.ops.ssd_scan` and the MoE expert products
+(prefill, decode and training) on :func:`repro_torch.kernels.ops.gemm`, all
+reached through the ``ops`` module attribute: a CUDA tensor launches the
+hand-written kernel, a CPU tensor runs its plain version.  Under autograd
+on the card, attention's and the expert products' gradients run on kernels
+too, and the SSD scan raises (it has no backward kernel yet), so ``ssd`` and
+``hybrid`` models train on the CPU only.  One-token decode
 (:func:`attention_decode`, :func:`cross_attention_decode`,
 :func:`ssd_decode`) is plain PyTorch, as the reference computes it outside
 any Pallas kernel.

@@ -1,7 +1,6 @@
-"""Model assembly for LM serving: prefill and ring-cache decode.
+"""Model assembly: training loss and step, prefill and ring-cache decode.
 
-Port of the serving half of ``repro/models/transformer.py`` for every
-block kind: ``attn`` (GQA with ``qkv_bias``, ``qk_norm`` and
+Port of ``repro/models/transformer.py`` for every block kind: ``attn`` (GQA with ``qkv_bias``, ``qk_norm`` and
 ``sliding_window``; a swiglu or relu2 FFN, or a top-k MoE FFN with an
 optional shared expert), ``ssd`` (Mamba2), ``hybrid`` (zamba2: groups of
 ``shared_attn_every`` Mamba2 layers, each followed by one shared attention
@@ -10,6 +9,20 @@ application), enc-dec (whisper: a bidirectional encoder over the stubbed
 frame embeddings, decoder layers with self and cross attention) and the
 patch prefix (internvl: projected patch embeddings before the tokens).
 
+  * ``train_loss(cfg, params, batch)`` — full forward and chunked
+    cross-entropy (``backbone``, ``decoder_with_cross``, ``lm_head_loss``),
+    plus ``0.01 * aux`` of the MoE router; ``make_train_step(cfg, optimizer,
+    accum)`` — loss, gradients (summed over microbatches in
+    ``cfg.accum_dtype``) and the optimizer's update.  Remat ``"full"`` is
+    ``torch.utils.checkpoint`` per layer, as the reference checkpoints its
+    scan body.  On the card, attention and its gradient run on the flash
+    kernels and the MoE expert products and their gradients on the GEMM
+    kernel (``kernels/ops.py``); ``ssd`` and ``hybrid`` models train on the
+    CPU only until the SSD scan has a backward kernel (on the card they
+    raise).  Layers are taken with one ``torch.unbind`` of each ``[L, ...]``
+    stack a step, whose backward is one ``stack``: indexing the stack per
+    layer would materialise a zero tensor of the whole stack per layer in
+    the backward.
   * ``init_cache(cfg, batch, max_len, device)`` — decode state.
   * ``encoder(cfg, params, frames)`` / ``prefill(cfg, params, batch, cache)``
     — whisper's encoder, and its cross K/V written into a cache.
@@ -60,7 +73,9 @@ import dataclasses
 from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from .. import tree
 from . import blocks
 from .lm_common import LMConfig, layer, rms_norm
 
@@ -163,6 +178,32 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device: str | torch.devi
     return cache
 
 
+def _unbind(stacks: dict) -> list[dict]:
+    """Per-layer parameter dicts from the ``[L, ...]`` stacks, by one
+    ``torch.unbind`` of each stack (its backward is one ``stack``)."""
+    cols = {k: torch.unbind(v) for k, v in stacks.items()}
+    return [dict(zip(cols, parts)) for parts in zip(*cols.values())]
+
+
+def _recompute(on: bool, fn, *args):
+    """``fn(*args)``; with ``on``, and when a graph is being recorded, its
+    activations are dropped and recomputed in the backward (the reference's
+    ``jax.checkpoint``)."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _remat(cfg: LMConfig, fn, *args):
+    """One layer, recomputed in the backward under ``remat == "full"``, as the
+    reference checkpoints its scan body."""
+    return _recompute(cfg.remat == "full", fn, *args)
+
+
+def _encoder_layer(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    return blocks.dense_ffn(cfg, lp, blocks.attention(cfg, lp, h, positions, causal=False))
+
+
 def encoder(cfg: LMConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder: bidirectional attention over the (stubbed) frame
     embeddings [b, se, d_model], RoPE over frame positions, ``enc_ln_f`` at
@@ -171,10 +212,8 @@ def encoder(cfg: LMConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
     h = frames.to(cfg.dtype)
     b, se, _ = h.shape
     positions = torch.arange(se, dtype=torch.int32, device=h.device)[None, :].expand(b, se)
-    for i in range(cfg.enc_layers):
-        lp = layer(params["enc_blocks"], i)
-        h = blocks.attention(enc_cfg, lp, h, positions, causal=False)
-        h = blocks.dense_ffn(enc_cfg, lp, h)
+    for lp in _unbind(params["enc_blocks"]):
+        h = _remat(cfg, _encoder_layer, enc_cfg, lp, h, positions)
     return rms_norm(h, params["enc_ln_f"], cfg.norm_eps)
 
 
@@ -188,6 +227,149 @@ def prefill(cfg: LMConfig, params: dict, batch: dict, cache: dict) -> dict:
     enc_out = encoder(cfg, params, batch["frames"])
     kv = [blocks.cross_kv(cfg, layer(params["cross"], i), enc_out) for i in range(cfg.n_layers)]
     return {**cache, "cross_k": torch.stack([k for k, _ in kv]), "cross_v": torch.stack([v for _, v in kv])}
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Summed masked next-token NLL of one sequence chunk: fp32 logits, the
+    log-sum-exp with the max held out of the gradient."""
+    logits = (h @ unembed).float()
+    m = logits.detach().amax(-1, keepdim=True)
+    logz = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]  # a masked label's gold is multiplied by 0
+    return ((logz - gold) * mask).sum()
+
+
+def lm_head_loss(cfg: LMConfig, params: dict, h: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Chunked softmax cross-entropy over h [b, s, d]: never holds [b, s,
+    vocab] at once.  The chunk is the first of ``loss_chunk``, 512, 256, ...
+    1 that divides s; each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``).  The unembedding product stays
+    ``torch.matmul``, as the reference leaves it to XLA.  Returns the mean
+    over ``mask``, fp32."""
+    s = h.shape[1]
+    cs = next((c for c in (cfg.loss_chunk, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1) if s % c == 0), s)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, cs):
+        total = total + _recompute(True, _xent_chunk, h[:, c0 : c0 + cs], params["unembed"],
+                                   labels[:, c0 : c0 + cs], mask[:, c0 : c0 + cs])
+    return total / mask.sum().clamp_min(1)
+
+
+def _attn_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor):
+    """One ``attn`` layer of the training forward: (x, the MoE router's aux loss or 0)."""
+    x = blocks.attention(cfg, lp, x, positions, causal=True, window=cfg.sliding_window)
+    if cfg.is_moe:
+        return blocks.moe_ffn(cfg, lp, x)
+    return blocks.dense_ffn(cfg, lp, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def backbone(cfg: LMConfig, params: dict, x: torch.Tensor, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack over embedded inputs x [b, s, d]: (``ln_f``-normed h,
+    the sum of the MoE layers' aux losses, fp32).  ``remat == "full"``
+    recomputes each layer in the backward; a hybrid's shared block is not
+    recomputed, as in the reference."""
+    _check_supported(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.block_kind == "attn":
+        for lp in _unbind(params["blocks"]):
+            x, a = _remat(cfg, _attn_layer, cfg, lp, x, positions)
+            aux = aux + a
+    else:
+        if cfg.block_kind == "hybrid":
+            ffn_cfg, shared = _shared(cfg, params)
+        for i, lp in enumerate(_unbind(params["blocks"])):
+            x = _remat(cfg, blocks.ssd_block, cfg, lp, x)
+            if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
+                x = blocks.attention(cfg, shared, x, positions, causal=True, window=cfg.sliding_window)
+                x = blocks.dense_ffn(ffn_cfg, shared, x)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
+
+
+def _decoder_layer(cfg: LMConfig, lp: dict, cp: dict, x: torch.Tensor, positions: torch.Tensor,
+                   enc_out: torch.Tensor) -> torch.Tensor:
+    x = blocks.attention(cfg, lp, x, positions, causal=True)
+    x = blocks.cross_attention(cfg, cp, x, *blocks.cross_kv(cfg, cp, enc_out))
+    return blocks.dense_ffn(cfg, lp, x)
+
+
+def decoder_with_cross(cfg: LMConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,
+                       enc_out: torch.Tensor) -> torch.Tensor:
+    """Whisper's decoder for training: causal self attention, cross
+    attention over ``enc_out`` with each layer's cross K/V computed from it
+    (so the gradient reaches the encoder), the dense FFN; ``ln_f``-normed."""
+    for lp, cp in zip(_unbind(params["blocks"]), _unbind(params["cross"])):
+        x = _remat(cfg, _decoder_layer, cfg, lp, cp, x, positions, enc_out)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
+
+
+def train_loss(cfg: LMConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Next-token loss for any architecture family: batch ``tokens`` and
+    ``labels`` [b, s] (labels < 0 masked), with ``frames`` for enc-dec and
+    ``patch_embeds`` for a patch prefix (whose positions count the patches
+    and whose outputs the loss drops).  MoE adds ``0.01 * aux``.  One
+    device: training over a mesh of cards waits for ROADMAP.md queue 1
+    item 7."""
+    _check_supported(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = embed_tokens(cfg, params, tokens)
+    if cfg.is_encdec:
+        enc_out = encoder(cfg, params, batch["frames"])
+        h = decoder_with_cross(cfg, params, x, _positions(*tokens.shape, x.device), enc_out)
+        return lm_head_loss(cfg, params, h, labels, labels >= 0)
+    if cfg.n_patches:
+        x = torch.cat([batch["patch_embeds"].to(cfg.dtype) @ params["patch_proj"], x], dim=1)
+    h, aux = backbone(cfg, params, x, _positions(x.shape[0], x.shape[1], x.device))
+    if cfg.n_patches:
+        h = h[:, cfg.n_patches :]
+    return lm_head_loss(cfg, params, h, labels, labels >= 0) + 0.01 * aux
+
+
+def value_and_grad(cfg: LMConfig, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+    """(train_loss, its gradient as a tree like ``params``, each leaf in its
+    parameter's dtype).  A leaf the loss does not reach gets zeros, as
+    ``jax.grad`` gives it."""
+    leaves = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
+    loss = train_loss(cfg, tree.rebuild(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), tree.rebuild(params, [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)])
+
+
+def make_train_step(cfg: LMConfig, optimizer, accum: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``, metrics ``loss`` plus the optimizer's (``lr``,
+    ``grad_norm``).  ``accum > 1`` splits the batch into that many
+    microbatches and sums their gradients in ``cfg.accum_dtype`` before
+    dividing by ``accum``.  The optimizer updates ``params`` and
+    ``opt_state`` in place (``optim.AdamW``) and returns them."""
+
+    def train_step(params: dict, opt_state: dict, batch: dict):
+        if accum == 1:
+            loss, grads = value_and_grad(cfg, params, batch)
+        else:
+            micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:]) for k, v in batch.items()}
+            gsum = [torch.zeros(t.shape, dtype=cfg.accum_dtype, device=t.device) for t in tree.leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32, device=gsum[0].device)
+            for i in range(accum):
+                l, g = value_and_grad(cfg, params, {k: v[i] for k, v in micro.items()})
+                for acc, gi in zip(gsum, tree.leaves(g)):
+                    acc += gi.to(cfg.accum_dtype)
+                loss = loss + l
+            grads = tree.rebuild(params, [g / accum for g in gsum])
+            loss = loss / accum
+        params, opt_state, om = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss, **om}
+
+    return train_step
 
 
 def _logits(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Runtime fault handling: the straggler rebalancer."""
+"""Runtime fault handling: the straggler rebalancer, elastic rescale and the supervised train loop."""
 
-from .fault import StragglerMitigator
+from .fault import ElasticScheduler, StragglerMitigator, TrainSupervisor
 
-__all__ = ["StragglerMitigator"]
+__all__ = ["ElasticScheduler", "StragglerMitigator", "TrainSupervisor"]

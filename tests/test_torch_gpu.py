@@ -28,9 +28,12 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gm
 from repro_torch.kernels import im2col_conv, ops
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.data import DataConfig, make_batch_iterator
 from repro_torch.launch.serve import make_batch, serve
+from repro_torch.launch.train import train
 from repro_torch.models import transformer
 from repro_torch.models.lm_common import init_params
+from repro_torch.optim import AdamW, AdamWConfig
 from repro_torch.launch.mesh import make_stage_mesh
 from repro_torch.models.cnn import NETWORKS, make_cnn, network_layers
 from repro_torch.pipeline import MeasuringEvaluator, PipelineRunner, h100_platform_from_streams
@@ -750,3 +753,109 @@ def test_serve_on_the_card_runs_the_smoke_models():
                  "internvl2-76b"):
         out = serve(get_smoke(arch), batch=2, prompt_len=16, gen=4, device="cuda")
         assert tuple(out["tokens"].shape) == (2, 4) and out["tokens"].is_cuda
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash backward, the gemm gradient, the guards, a smoke step
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_CASES = (
+    [(2, 8, 2, 130, None, d, dt, True, 0) for d in fa.HEAD_DIMS for dt in (torch.float32, torch.bfloat16)]
+    + [
+        (1, 10, 2, 65, None, 64, torch.bfloat16, False, 7),
+        (2, 4, 4, 200, None, 128, torch.float32, True, 7),
+        (2, 8, 1, 15, 70, 64, torch.bfloat16, False, 0),  # Skv != Sq, both ways
+        (2, 8, 8, 70, 15, 32, torch.float32, True, 0),
+        (1, 24, 2, 100, None, 192, torch.bfloat16, True, 0),  # GQA group 12
+        (4, 32, 8, 512, None, 64, torch.bfloat16, True, 0),  # granite-3-2b's training shape
+    ]
+)
+
+
+def _rel_err(got, want):
+    scale = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+@pytest.mark.parametrize("b,h,kvh,s,skv,d,dtype,causal,window", FLASH_BWD_CASES)
+def test_flash_backward_matches_plain_and_gives_the_same_bits_twice(b, h, kvh, s, skv, d, dtype, causal, window):
+    q, k, v = _attn(b, h, kvh, s, d, dtype, bshd=True, skv=skv)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert fa.bwd_launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.stride() == t.stride()
+        assert _rel_err(g, w) <= (2e-4 if dtype == torch.float32 else 1e-2)
+    assert all(torch.equal(x, y) for x, y in zip(got, fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)))
+    torch.testing.assert_close(lse, fa.flash_attention_fwd_plain(q, k, v, **kw)[1], rtol=2e-4, atol=2e-4)
+
+
+def test_ops_flash_attention_trains_through_the_kernels():
+    q, k, v = (t.requires_grad_() for t in _attn(2, 8, 2, 64, 64, torch.bfloat16, bshd=True))
+    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    before = fa.launches, fa.bwd_launches
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v), (q, k, v), do)
+    assert all(_rel_err(g, w) <= 1e-2 for g, w in zip(got, want))
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
+    assert fa.bwd_launches == before[1] + 1
+
+
+def test_flash_backward_refuses_rows_that_see_no_key():
+    q, k, v = _attn(1, 2, 1, 20, 64, torch.bfloat16, skv=8)
+    o, lse = fa.flash_attention(q, k, v, window=5, return_lse=True)
+    with pytest.raises(ValueError, match="see no key"):
+        fa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q), window=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_gradient_runs_the_kernel_twice_and_matches_plain(dtype):
+    a, b = _gemm_inputs((3, 40, 64), (3, 64, 48), dtype)
+    a.requires_grad_()
+    b.requires_grad_()
+    dc = torch.randn((3, 40, 48), device="cuda").to(dtype)
+    c = ops.gemm(a, b)
+    before = gm.launches, gm.bwd_launches
+    da, db = torch.autograd.grad(c, (a, b), dc)
+    assert (gm.launches, gm.bwd_launches) == (before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(da, gm.gemm_plain(dc, b.detach().transpose(1, 2)), **GEMM_TOL[dtype])
+    torch.testing.assert_close(db, gm.gemm_plain(a.detach().transpose(1, 2), dc), **GEMM_TOL[dtype])
+
+
+def test_ssd_scan_and_conv_raise_under_autograd_on_the_card():
+    x, dt, A, B, C = _ssd(1, 32, 2, 16, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        ops.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=8)
+    with torch.no_grad():
+        assert ops.ssd_scan(x, dt, A, B, C, chunk=8)[0].shape == x.shape
+    xc, wc = _inputs((1, 8, 8, 4), (3, 3, 4, 8))
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        ops.conv2d_im2col(xc, wc.requires_grad_())
+    with pytest.raises(NotImplementedError):
+        train(get_smoke("mamba2-130m"), steps=1, batch=2, seq=16, device="cuda")
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "phi3.5-moe-42b", "whisper-small", "internvl2-76b"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(arch):
+    """One ``make_train_step`` (AdamW, fp32 moments) in fp32 on each device,
+    the same weights and batch: the losses within LM_TOL's fp32 1e-3."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = next(make_batch_iterator(cfg, DataConfig(batch=2, seq=16, vocab=cfg.vocab), device="cpu"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: ({kk: vv.to(dev, copy=True) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev, copy=True))
+             for k, v in params.items()}
+        opt = AdamW(AdamWConfig(moment_dtype=torch.float32, total_steps=4, warmup=1))
+        before = fa.bwd_launches
+        _, _, m = transformer.make_train_step(cfg, opt)(p, opt.init(p), {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = float(m["loss"])
+        assert (fa.bwd_launches > before) == (dev == "cuda")
+    assert abs(out["cuda"] - out["cpu"]) <= 1e-3 * abs(out["cpu"])

@@ -23,6 +23,7 @@ STANDALONE = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "pipeline_serve_cnn_torch.py",
     ROOT / "examples" / "serve_lm_torch.py",
     ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "train_lm_torch.py",
 ]
 
 
@@ -49,7 +50,8 @@ print(json.dumps({"modules": names, "leaked": leaked}))
     for mod in ("core.tuner", "kernels.im2col_conv", "models.cnn", "pipeline.runtime", "runtime.fault",
                 "launch.serve_cnn", "kernels.flash_attention", "kernels.ssd_scan", "models.lm_common",
                 "models.blocks", "models.transformer", "configs.granite3_2b", "launch.serve",
-                "kernels.gemm", "core.baselines", "core.space"):
+                "kernels.gemm", "core.baselines", "core.space", "optim.adamw", "optim.grad_compress",
+                "data.pipeline", "checkpoint.store", "launch.train"):
         assert f"repro_torch.{mod}" in res["modules"]
 
 
