@@ -19,7 +19,8 @@ repository's sources are not beside this script.  Otherwise, in order:
    with no spill, asks the shared memory the wrapper counts and splits its
    inexact operands into the wrapper's ``MMA_TERMS`` bf16 terms, printing
    its registers and blocks an SM, and unless every kernel of the flash
-   backward compiled with no spill (``check_flash_bwd_ptxas``);
+   backward and of the SSD scan's backward compiled with no spill
+   (``check_flash_bwd_ptxas``, ``check_ssd_bwd_ptxas``);
 3. holds each kernel against its plain PyTorch version on the card, at every
    distinct layer shape of full-width SynthNet (microbatch of 2 images) and
    at the reference kernel tests' shapes plus a ragged K, in fp32 with TF32
@@ -144,7 +145,8 @@ repository's sources are not beside this script.  Otherwise, in order:
    that against autograd through ``flash_attention_plain``, on the same
    inputs: the training shapes (bf16, causal, the model's layout:
    granite-3-2b q [4,32,512,64], k/v [4,8,512,64]; phi3.5-moe q
-   [4,32,512,128], k/v [4,8,512,128]), every head dim in bf16 and fp32,
+   [4,32,512,128], k/v [4,8,512,128]; zamba2-2.7b's shared block q/k/v
+   [4,32,512,80]), every head dim in bf16 and fp32,
    GQA groups 1, 4, 5, 7 and 12, S of 1, 15, 65 and 1000, Sq != Skv both
    ways, non-causal, a window of 7, contiguous and strided; bf16 within
    BF16_REL_TOL of each gradient's max |plain|, fp32 within ATTN_TOL of it
@@ -152,7 +154,17 @@ repository's sources are not beside this script.  Otherwise, in order:
    are held against max |dv|); two calls give the same bits; the lse
    against ``flash_attention_fwd_plain``'s; times the training shapes (kernel,
    plain backward, SDPA's backward by events and device time) with each
-   bound;
+   bound; then the SSD scan's backward (``check_ssd_bwd``): ``ssd_scan_bwd``
+   against ``ssd_scan_bwd_plain``, and that against autograd through
+   ``ssd_scan_plain``, on the same inputs: mamba2-130m's and zamba2-2.7b's
+   training shapes (x [4,512,24,64], B/C [4,512,128]; x [4,512,80,64],
+   B/C [4,512,64]; chunk 64) in bf16 strided as ``ssd_block`` passes them
+   with no final-state gradient, as training runs them, and in fp32 and in
+   bf16 contiguous with one; the reference tests' shapes, a ragged p tile
+   and chunk 8, with and without it; bf16 within BF16_REL_TOL of each
+   gradient's max |plain|, fp32 within SSD_TOL of it; two calls give the
+   same bits; times the training shapes (kernel by events and device time,
+   plain backward; no PyTorch call computes it) with each bound;
 12. the ``gemm`` gradient (``check_gemm_grad``): ``ops.gemm``'s autograd
    Function at phi3.5-moe's training shapes (16 experts, capacity 320, d
    4096, d_ff 6400, bf16), dA and dB against ``gemm_plain`` at GEMM_TOL,
@@ -160,28 +172,36 @@ repository's sources are not beside this script.  Otherwise, in order:
    on the transposed views and the transposed copies' time alone;
 13. drives the training main path (``drive_train``): ``launch.train.train``
    on ``cuda`` in bf16, batch 4 of 512 tokens from the data pipeline,
-   TRAIN_STEPS steps, for granite-3-2b at full size and phi3.5-moe-42b at
-   2 of 32 layers (TRAIN_MODELS), every launch count 0 just before; fails
-   unless every loss is finite, every parameter leaf got a finite,
-   non-zero gradient at step 0, and the run launched the flash forward
-   twice a layer a step (remat), its backward once, and (MoE) ``gemm``
-   twelve times, six of them in the backward (``gemm.bwd_launches``,
+   TRAIN_STEPS steps, for granite-3-2b, mamba2-130m and zamba2-2.7b at
+   full size and phi3.5-moe-42b at 2 of 32 layers (TRAIN_MODELS), every
+   launch count 0 just before; fails unless every loss is finite, every
+   parameter leaf got a finite, non-zero gradient at step 0 (``A_log`` and
+   ``dt_bias`` included, whose only route is the SSD backward's dA and
+   ddt), and the run launched what the code runs (``_train_launches``):
+   with remat each layer's forward twice a step and its backward once
+   (flash, the SSD scan); a hybrid's shared attention block, not
+   recomputed, once each way per application (zamba2: 9); (MoE) ``gemm``
+   twelve times a layer, six of them in the backward (``gemm.bwd_launches``,
    counted where ``ops.gemm``'s backward launches); times and profiles a
    warm step of ``transformer.make_train_step`` (wall, tokens/s, peak
-   memory, device time by flash forward and backward, ``gemm``, cuBLAS and
-   the rest, the optimizer's update by events, the busy share) and fails
-   unless it ran the flash backward's kernels once per attention layer and
-   the forward twice, and (MoE) ``gemm`` six times a layer in the
-   backward; holds the loss and every leaf's gradient in bf16 at the
-   trained depth, kernel path against plain path (``ops`` swapped as in
-   phase 8, MoE on the kernel path's routes), to TRAIN_LOSS_TOL and
-   TRAIN_GRAD_TOL of each leaf's max |plain|, where two attention faults
-   (TRAIN_CONTROLS: the backward without delta, the causal mask dropped)
-   must miss them, and every leaf's gradient to GRAD_TOL with the model in
-   fp32 at 2 layers (phi3.5-moe at 1); checks a resume (``check_resume``)
-   at full width and 1 layer (RESUME_CUT: a full-size checkpoint passes
-   the machine's disk limit), a checkpoint in a temporary directory at the
-   middle step, the repeated losses held to RESUME_TOL;
+   memory, device time by flash and SSD forward and backward, ``gemm``,
+   cuBLAS and the rest, the optimizer's update by events, the busy share)
+   and fails unless its kernels ran as often as its wrappers launched them,
+   on the tensor-core forward kernels; holds the loss and every leaf's
+   gradient, kernel path against plain path (``ops`` swapped as in phase 8,
+   MoE on the kernel path's routes): an attention model in bf16 at the
+   trained depth to TRAIN_LOSS_TOL and TRAIN_GRAD_TOL of each leaf's max
+   |plain|, where two attention faults (TRAIN_CONTROLS: the backward
+   without delta, the causal mask dropped) must miss them; an SSD model in
+   fp32 with bf16 scans (mamba2-130m at its 24 layers, zamba2-2.7b at its
+   first 6: SSD_HOLD_DEPTH) to SSD_TRAIN_LOSS_TOL and SSD_TRAIN_GRAD_TOL,
+   where two faults in the scan's backward (SSD_TRAIN_CONTROLS: the carried
+   state's gradient dropped across chunks, ddt without its decay term) must
+   miss; every leaf's gradient to GRAD_TOL with the model in fp32 at 2
+   layers (phi3.5-moe at 1, zamba2 at 6); checks a resume
+   (``check_resume``) at full width and RESUME_CUT's depth (a full-size
+   checkpoint passes the machine's disk limit), a checkpoint in a temporary
+   directory at the middle step, the repeated losses held to RESUME_TOL;
 14. prints the per-kernel JSON line (the ``flash_attention`` row is
    granite-3-2b's, naming the device function that served its prefill,
    with every other served attention call's times, bound, SDPA times and
@@ -190,9 +210,10 @@ repository's sources are not beside this script.  Otherwise, in order:
    under keys that name it, with the training runs' launches; the
    ``ssd_scan`` row is mamba2-130m's scan, with its device function, device
    and host times, and zamba2-2.7b's times and launches under keys that
-   name it; the ``gemm`` row adds one phi3.5-moe layer's backward times
-   and the training run's launches), then ``{"ok": true, "device": ...}``
-   last.
+   name it, and the backward's ``bwd_*`` keys at both training shapes with
+   the training runs' launches; the ``gemm`` row adds one phi3.5-moe
+   layer's backward times and the training run's launches), then
+   ``{"ok": true, "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -322,7 +343,7 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel",
                 "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkdv_kernel")
+                "flash_bwd_dkdv_kernel", "ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel")
 #: the flash kernels as the profiler names them: forward bf16 on the tensor cores and fp32 on the SIMT
 #: pipes; the backward's delta pre-pass, and its dQ and dK/dV kernels of each type
 FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|flash_fwd_kernel"
@@ -331,6 +352,8 @@ FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|f
 GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 #: the SSD scan's kernels as the profiler names them: bf16 on the tensor cores, the SIMT one
 SSD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan(?:_mma_bf16)?_kernel<[^>]*>)")
+#: the SSD scan's backward kernels as the profiler names them: the reverse scan and the sum of its partials
+SSD_BWD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan_bwd(?:_sum)?_kernel<[^>]*>)")
 #: profiler windows a device-time reading takes at most: the profiler can
 #: keep some or none of a window's device records
 #: (``scripts/profiler_windows.py`` counts how often)
@@ -345,16 +368,23 @@ RACE_BUDGET = 35
 #: and the depth of the fp32 gradient comparison.  phi3.5-moe's 2 layers
 #: hold 2.9 B parameters, 35 GB of parameters, gradients, fp32 master and
 #: bf16 moments; its fp32 comparison at 1 layer (1.3 B parameters, 10.5 GB
-#: of weights and gradients in each path).
-TRAIN_MODELS = {"granite-3-2b": (None, 2), "phi3.5-moe-42b": (2, 1)}
+#: of weights and gradients in each path).  mamba2-130m and zamba2-2.7b
+#: (2.42 B parameters, fewer than granite-3-2b's 2.63 B) train at full
+#: size; zamba2's fp32 comparison at one whole group of 6 SSD layers and
+#: its shared block.
+TRAIN_MODELS = {"granite-3-2b": (None, 2), "phi3.5-moe-42b": (2, 1), "mamba2-130m": (None, 2),
+                "zamba2-2.7b": (None, 6)}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
 #: the resume check's cut of each model (full width): a checkpoint holds 16
 #: bytes a parameter (parameters, fp32 master and both moments, bf16 saved
 #: as fp32 as the reference saves it), 42 GB at granite-3-2b's full size and
 #: 46 GB at phi3.5-moe's 2 layers, and the machine with the card allows 45
-#: GiB of disk writes a call.  At 1 layer (phi3.5-moe with 4 of its 16
-#: experts) a checkpoint is 4.2 and 9.9 GB, two of each: 28 GB.
-RESUME_CUT = {"granite-3-2b": dict(n_layers=1), "phi3.5-moe-42b": dict(n_layers=1, n_experts=4)}
+#: GiB of disk writes a call.  At 1 layer (phi3.5-moe with 3 of its 16
+#: experts, mamba2-130m; zamba2-2.7b at one group of 6 SSD layers and its
+#: shared block, the least whole depth) a checkpoint is 4.2, 8.6, 1.3 and
+#: 8.1 GB, two of each: 44.5 GB (41.4 GiB).
+RESUME_CUT = {"granite-3-2b": dict(n_layers=1), "phi3.5-moe-42b": dict(n_layers=1, n_experts=3),
+              "mamba2-130m": dict(n_layers=1), "zamba2-2.7b": dict(n_layers=6)}
 #: the gradient of each leaf, kernel path against plain path in fp32, max
 #: |difference| over max |plain|: both sum in fp32 in other orders through
 #: 1-2 layers, the chunked loss and the embedding's scatter
@@ -369,6 +399,27 @@ GRAD_TOL = 1e-3
 #: mask dropped reads 7.8e-3 to 1.7e-2 in the loss and 0.88 to 1.0 at its
 #: worst leaf, the backward without delta 6.8 to 24
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 5e-4, 3e-2
+#: the SSD and hybrid models' training check, kernel path against plain
+#: path beside SSD_TRAIN_CONTROLS, with the model in fp32 with bf16 scans
+#: (as hold_bf16_scans holds serving): the trained weights' first
+#: SSD_HOLD_DEPTH layers (None: all) and the limits
+#: of the loss, relative, and of each leaf's gradient, max |difference| over
+#: max |plain|, per model.  scripts/ssd_train_sensitivity.py, seeds 0 and 1
+#: (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): in bf16 the kernel path's
+#: worst leaf reads 0.17 to 0.24 at mamba2-130m's 24 layers and 1.0 to 1.4
+#: at zamba2-2.7b's 54, as high as the dropped carry's 0.24 to 0.38: no
+#: limit there tells them apart, as in bf16 SSD logits (SSD_LAYERS).  In fp32 with bf16 scans the kernel path reads
+#: 0.048 to 0.067 at mamba2's 24 layers, the faults 0.26 (carry dropped)
+#: and 1.0 (ddt without decay) at least; at zamba2's 6 (one group) 0.011 to
+#: 0.016 against 0.13 and 1.1 (at 12 layers 0.036 to 0.073 against 0.21; at
+#: 24 and 54 the kernel path reads as high as the dropped carry).  The loss
+#: reads 4e-7 to 2.3e-5 (both faults are in the backward alone: 0).  This
+#: phase reads its weights some steps further on (the warm steps): mamba2
+#: 0.042 against 0.17 (carry dropped), zamba2 0.0087 against 0.12, so
+#: mamba2's limit sits between 0.067 and 0.17.
+SSD_HOLD_DEPTH = {"mamba2-130m": None, "zamba2-2.7b": 6}
+SSD_TRAIN_LOSS_TOL = 1e-4
+SSD_TRAIN_GRAD_TOL = {"mamba2-130m": 0.1, "zamba2-2.7b": 0.045}
 #: resumed losses against the uninterrupted run's, relative: CUDA's
 #: ``index_add_`` (MoE dispatch and combine) and the embedding backward sum
 #: with atomics in no fixed order, so the resumed steps' gradients differ in
@@ -508,6 +559,23 @@ def check_ssd_ptxas() -> None:
     spilled = {k: v for k, v in seen.items() if v[1] or v[2]}
     if spilled:
         raise RuntimeError(f"ssd_scan_mma_bf16_kernel spills (state width, p tile): {spilled}")
+
+
+def check_ssd_bwd_ptxas() -> None:
+    """Fail unless ``ptxas`` compiled the SSD backward's kernels
+    (``ssd_scan_bwd_kernel`` and ``ssd_scan_bwd_sum_kernel``, fp32 and bf16)
+    with no spill; print each one's registers."""
+    seen = _ptxas_entries("ssd_scan", r"(ssd_scan_bwd(?:_sum)?_kernelI(?:f|13__nv_bfloat16)E)")
+    names = {m: re.sub(r"I(f|13__nv_bfloat16)E$", lambda t: "<float>" if t.group(1) == "f" else "<__nv_bfloat16>", m)
+             for m in seen}
+    for mangled, (regs, st, ld) in sorted(seen.items()):
+        print(f"[build] {names[mangled]}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    want = {f"ssd_scan_bwd{k}_kernel<{t}>" for k in ("", "_sum") for t in ("float", "__nv_bfloat16")}
+    if set(names.values()) != want:
+        raise RuntimeError(f"ptxas compiled SSD backward kernels {sorted(names.values())}, want {sorted(want)}")
+    spilled = {names[m]: v for m, v in seen.items() if v[1] or v[2]}
+    if spilled:
+        raise RuntimeError(f"SSD backward kernels spill: {spilled}")
 
 
 def check_conv_ptxas() -> None:
@@ -1180,6 +1248,7 @@ def _kernel_table(prof, wall_s: float) -> dict:
         "flash_calls": {m.group(1): c for n, _, c in rows if (m := FLASH_FN.search(n))},
         "gemm_calls": {m.group(1): c for n, _, c in rows if (m := GEMM_FN.search(n))},
         "ssd_calls": {m.group(1): c for n, _, c in rows if (m := SSD_FN.search(n))},
+        "ssd_bwd_calls": {m.group(1): c for n, _, c in rows if (m := SSD_BWD_FN.search(n))},
     }
 
 
@@ -1549,7 +1618,7 @@ def check_flash_bwd(gen: torch.Generator) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     base = dict(b=2, h=8, kvh=2, s=200, d=64, dtype=bf16, causal=True, window=0)
     cases = [dict(base, b=TRAIN_BATCH, h=c.n_heads, kvh=c.n_kv_heads, s=TRAIN_SEQ, d=c.hd, model=arch)
-             for arch in TRAIN_MODELS for c in [get_config(arch)]]
+             for arch in TRAIN_MODELS for c in [get_config(arch)] if c.block_kind != "ssd"]  # zamba2: its shared block
     cases += [dict(base, d=d, dtype=dt) for dt in (bf16, f32) for d in fa.HEAD_DIMS]  # every head dim
     cases += [dict(base, h=h, kvh=kvh, s=130) for h, kvh in ((4, 4), (8, 2), (10, 2), (14, 2), (24, 2))]  # GQA
     cases += [dict(base, s=s, d=d) for s in (1, 15, 65, 1000) for d in (64, 128)]  # S
@@ -1626,6 +1695,113 @@ def check_flash_bwd(gen: torch.Generator) -> dict:
             out.update({prefix + key: val for key, val in timed.items()})
             del qc, kc, vc, sdpa_out
         del q, k, v, do, o, lse, got, again, plain, auto, qa, ka, va
+    torch.cuda.empty_cache()
+    out["bwd_max_abs_err"] = max_err
+    return out
+
+
+def ssd_bwd_cost(x: torch.Tensor, B: torch.Tensor, chunk: int, with_state: bool) -> tuple[float, float]:
+    """FLOPs and bytes of one backward of the scan.  FLOPs: C.B^T once per
+    (batch, chunk) on the lower triangle; per (batch, head, chunk) the two
+    triangular products over p ((dy.xdt) and dxdt's within-chunk part), the
+    two over n (dC's and dB's within-chunk parts) and five [chunk, p, n]
+    products (the state entering the chunk, rebuilt; dH.B; dy.H; x.dH; dH's
+    update).  Bytes: x, dy and dx, B, C, dB and dC in x's type; dt, ddt, A,
+    dA and (if given) dstate in fp32, each once."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    nc, tri = l // chunk, chunk * (chunk + 1) // 2
+    flops = 2.0 * (b * nc * tri * n + b * h * nc * (2 * tri * p + 2 * tri * n + 5 * chunk * p * n))
+    nbytes = x.element_size() * (3 * x.numel() + 4 * B.numel()) + 4.0 * (2 * b * l * h + 2 * h
+                                                                         + (b * h * p * n if with_state else 0))
+    return flops, nbytes
+
+
+def _hold_ssd_grads(name: str, desc: dict, got, want, tol: float) -> float:
+    """Hold (dx, ddt, dA, dB, dC) ``got`` against ``want``: each max
+    |difference| within ``tol`` of its own max |want|.  Returns the worst ratio."""
+    worst = 0.0
+    for g, w, which in zip(got, want, ("dx", "ddt", "dA", "dB", "dC"), strict=True):
+        err, scale = (g.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+        if not err <= tol * scale:
+            raise RuntimeError(f"{name}: {which} disagrees at {desc}: max abs err {err}, max |want| {scale}, "
+                               f"tolerance {tol} of it")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def check_ssd_bwd(gen: torch.Generator) -> dict:
+    """Phase 11 for the SSD scan: ``ssd_scan_bwd`` against
+    ``ssd_scan_bwd_plain``, and that against autograd through
+    ``ssd_scan_plain``, on the same inputs: mamba2-130m's and zamba2-2.7b's
+    training shapes (x, B and C strided as ``ssd_block`` passes them, no
+    final-state gradient, as in training) in bf16, and in fp32 and
+    contiguous, the reference tests' shapes, a ragged p tile and the smoke
+    configs' chunk 8, with and without the final state's gradient; bf16
+    within BF16_REL_TOL of each gradient's max |plain|, fp32 within SSD_TOL
+    of it; two calls give the same bits.  Times the training shapes
+    (kernel, plain backward; no single PyTorch call computes the SSD
+    backward) by events and device time, with each bound.  Returns the
+    ``ssd_scan`` row's backward keys (mamba2-130m's, zamba2-2.7b's under
+    keys that name it)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for arch in SSD_MODELS:
+        cfg = get_config(arch)
+        shape = dict(b=TRAIN_BATCH, l=TRAIN_SEQ, h=cfg.ssm_heads, p=cfg.ssm_head_dim, n=cfg.ssm_state,
+                     chunk=cfg.ssm_chunk)
+        cases += [dict(shape, dtype=bf16, strided=True, state=False, model=arch),
+                  dict(shape, dtype=f32, strided=False, state=True), dict(shape, dtype=bf16, strided=False, state=True)]
+    cases += [dict(b=2, l=128, h=h, p=p, n=n, chunk=c, dtype=f32, strided=False, state=c == 16)  # the reference's grid
+              for c in (16, 32) for h, p, n in ((2, 16, 8), (3, 8, 16))]
+    cases += [dict(b=2, l=256, h=3, p=100, n=32, chunk=64, dtype=f32, strided=True, state=True),  # a ragged p tile
+              dict(b=2, l=64, h=4, p=16, n=16, chunk=8, dtype=bf16, strided=True, state=True),  # the smoke configs
+              dict(b=2, l=64, h=4, p=16, n=16, chunk=8, dtype=f32, strided=True, state=False)]
+    out, max_err = {}, 0.0
+    for case in cases:
+        b, l, h, p, n, chunk, dt = (case[k] for k in ("b", "l", "h", "p", "n", "chunk", "dtype"))
+        x, dtt, A, B, C = ssd_inputs(b, l, h, p, n, dt, case["strided"], gen)
+        dy = torch.randn((b, l, h, p), generator=gen, device="cuda").to(dt)
+        dstate = torch.randn((b, h, p, n), generator=gen, device="cuda") if case["state"] else None
+        got = ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
+        again = ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
+        plain = ssd.ssd_scan_bwd_plain(x, dtt, A, B, C, dy, dstate, chunk=chunk)
+        ins = [t.detach().clone().requires_grad_() for t in (x, dtt, A, B, C)]
+        y, st = ssd.ssd_scan_plain(*ins, chunk=chunk)
+        auto = torch.autograd.grad((y.float() * dy.float()).sum() + ((st * dstate).sum() if case["state"] else 0.0),
+                                   ins)
+        torch.cuda.synchronize()
+        desc = {**case, "dtype": str(dt).removeprefix("torch.")}
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise RuntimeError(f"ssd_scan_bwd: two calls differ at {desc}")
+        tol = SSD_TOL if dt == f32 else BF16_REL_TOL
+        err = _hold_ssd_grads("ssd_scan_bwd", desc, got, plain, tol)
+        auto_err = _hold_ssd_grads("ssd_scan_bwd_plain against autograd", desc, plain, auto, tol)
+        max_err = max(max_err, max((g.float() - w.float()).abs().max().item() for g, w in zip(got, plain)))
+        print(f"[bwd] ssd_scan_bwd {json.dumps({**desc, 'rel_err': err, 'plain_vs_autograd': auto_err})}")
+        del ins, y, st, auto, again
+        if "model" in case:
+            flops, nbytes = ssd_bwd_cost(x, B, chunk, case["state"])
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+            def kern():
+                return ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
+
+            timed = dict(bwd_ms=_time_ms(kern),
+                         bwd_plain_ms=_time_ms(lambda: ssd.ssd_scan_bwd_plain(x, dtt, A, B, C, dy, dstate, chunk=chunk)),
+                         bwd_library_ms=None,  # no single PyTorch call computes the SSD backward
+                         bwd_bound_ms=bound_ms, bwd_bound_by=bound_by)
+            timed["bwd_device_ms"], ran = _device_ms(kern)
+            timed.update(bwd_host_ms=_host_ms(kern), bwd_bound_ratio=timed["bwd_device_ms"] / bound_ms,
+                         bwd_device_functions=sorted(m.group(1) for k in ran if (m := SSD_BWD_FN.search(k))))
+            if timed["bwd_device_functions"] != ["ssd_scan_bwd_kernel<__nv_bfloat16>",
+                                                 "ssd_scan_bwd_sum_kernel<__nv_bfloat16>"]:
+                raise RuntimeError(f"ssd_scan_bwd at {case['model']}'s training shape ran {ran}")
+            print(f"[bwd] ssd_scan_bwd at {case['model']}'s training shape: "
+                  f"{json.dumps({**timed, 'flops': flops, 'bytes': nbytes})}")
+            prefix = "" if not out else f"{case['model']} "
+            out.update({prefix + key: val for key, val in timed.items()})
+        del x, dtt, A, B, C, dy, dstate, got, plain
     torch.cuda.empty_cache()
     out["bwd_max_abs_err"] = max_err
     return out
@@ -1734,9 +1910,58 @@ class _FlashNoDelta(torch.autograd.Function):
 #: loss unchanged, the gradients of q and k wrong), and a causal mask dropped
 #: (every query sees the whole sequence)
 TRAIN_CONTROLS = {
-    "no delta": lambda q, k, v, *, causal=True, window=0: _FlashNoDelta.apply(q, k, v, causal, window),
-    "not causal": lambda q, k, v, *, causal=True, window=0: fa.flash_attention_plain(q, k, v, causal=False,
-                                                                                      window=window),
+    "no delta": ("flash_attention",
+                 lambda q, k, v, *, causal=True, window=0: _FlashNoDelta.apply(q, k, v, causal, window)),
+    "not causal": ("flash_attention", lambda q, k, v, *, causal=True, window=0: fa.flash_attention_plain(
+        q, k, v, causal=False, window=window)),
+}
+
+
+def _scan_carry_detached(x, dt, A, B, C, *, chunk=64):
+    """The plain scan chunk by chunk with the state entering each chunk
+    detached: the same values, but the carried state's gradient dropped
+    across chunks (each chunk's own terms kept)."""
+    nc, cast = x.shape[1] // chunk, (lambda t: t.float())
+    state, ys = None, []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        y, own = ssd.ssd_scan_plain(cast(x[:, sl]), dt[:, sl], A, cast(B[:, sl]), cast(C[:, sl]), chunk=chunk)
+        if state is not None:
+            cum = torch.cumsum(dt[:, sl].float() * A, dim=1)  # [b, cl, h]
+            entering = state.detach()
+            y = y + torch.exp(cum)[..., None] * torch.einsum("bln,bhpn->blhp", C[:, sl].float(), entering)
+            own = entering * torch.exp(cum[:, -1])[..., None, None] + own
+        state = own
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+class _SsdNoDecayGrad(torch.autograd.Function):
+    """The plain scan with a backward whose ddt leaves out the decay's term
+    (the reverse cumulative sum of d(cum) times A): ddt = dxdt·x alone."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C = ctx.saved_tensors
+        dx, _, dA, dB, dC = ssd.ssd_scan_bwd_plain(x.float(), dt, A, B.float(), C.float(), dy.float(), dstate,
+                                                   chunk=ctx.chunk)
+        ddt = (dx * x.float()).sum(-1) / dt  # dx = dxdt·dt
+        return dx.to(x.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype), None
+
+
+#: SSD faults that the SSD models' training check must see, each in place of
+#: ``ops.ssd_scan`` on the plain path, both in the backward alone (the loss
+#: unchanged): the carried state's gradient dropped across chunks, and ddt
+#: without its decay term
+SSD_TRAIN_CONTROLS = {
+    "no carried dH": ("ssd_scan", _scan_carry_detached),
+    "ddt without decay": ("ssd_scan", lambda x, dt, A, B, C, *, chunk=64: _SsdNoDecayGrad.apply(x, dt, A, B, C, chunk)),
 }
 
 
@@ -1751,15 +1976,19 @@ def _leaf_ratios(grads: dict, plain: list) -> dict[str, float]:
     return out
 
 
-def train_readings(cfg, params: dict, batch: dict) -> dict:
+def train_readings(cfg, params: dict, batch: dict, controls: dict | None = None,
+                   scans=contextlib.nullcontext) -> dict:
     """One ``transformer.value_and_grad`` of ``params`` on ``batch`` on the
     kernel path, on the plain path (``ops`` swapped as in phase 8) and on
-    the plain path with each TRAIN_CONTROLS attention, MoE on the kernel
-    path's routes.  Returns, for the kernel path and each control against
-    the plain path, the loss's relative difference (inf if not finite) and
-    each leaf's gradient difference (``_leaf_ratios``)."""
+    the plain path with each of ``controls`` (default TRAIN_CONTROLS: name
+    -> (the ``ops`` function it replaces, the fault)) in its place, MoE on
+    the kernel path's routes, each inside ``scans()`` (``_bf16_scans``: the
+    model in fp32 with bf16 scans).  Returns, for the kernel path and each
+    control against the plain path, the loss's relative difference (inf if
+    not finite) and each leaf's gradient difference (``_leaf_ratios``)."""
+    controls = TRAIN_CONTROLS if controls is None else controls
     routes: list = []
-    with _recording_routes(routes):
+    with _recording_routes(routes), scans():
         loss, grads = transformer.value_and_grad(cfg, params, batch)
     kernel = (loss.item(), grads)
     del grads
@@ -1767,7 +1996,7 @@ def train_readings(cfg, params: dict, batch: dict) -> dict:
     def on_routes():
         return _replaying_routes(routes) if cfg.is_moe else contextlib.nullcontext()
 
-    with _plain_versions(), on_routes():
+    with _plain_versions(), on_routes(), scans():
         loss, grads = transformer.value_and_grad(cfg, params, batch)
     want, plain = loss.item(), list(named_leaves(grads))
     del grads
@@ -1778,36 +2007,66 @@ def train_readings(cfg, params: dict, batch: dict) -> dict:
 
     out = {"kernel": reading(*kernel)}
     del kernel
-    for name, attention in TRAIN_CONTROLS.items():
-        with _plain_versions(), mock.patch.object(ops, "flash_attention", attention), on_routes():
+    for name, (op, fault) in controls.items():
+        with _plain_versions(), mock.patch.object(ops, op, fault), on_routes(), scans():
             loss, grads = transformer.value_and_grad(cfg, params, batch)
         out[name] = reading(loss.item(), grads)
         del grads
     return out
 
 
-def hold_train_readings(name: str, readings: dict, failures: list[str]) -> None:
+def hold_train_readings(name: str, readings: dict, failures: list[str], limits: tuple[float, float] | None = None,
+                        loss_controls: tuple[str, ...] = ("not causal",)) -> None:
     """Print ``train_readings``'s readings; append to ``failures`` if the
-    kernel path misses TRAIN_LOSS_TOL or TRAIN_GRAD_TOL, if the dropped
-    causal mask meets TRAIN_LOSS_TOL, or if a control meets TRAIN_GRAD_TOL
-    at every leaf."""
+    kernel path misses the loss or gradient limit (``limits``, default
+    TRAIN_LOSS_TOL and TRAIN_GRAD_TOL), if a control of ``loss_controls``
+    (one that changes the forward) meets the loss limit, or if any control
+    meets the gradient limit at every leaf."""
+    loss_tol, grad_tol = limits or (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL)
     for path, r in readings.items():
         leaf = max(r["leaves"], key=r["leaves"].get)
         print(f"[train] {name}, {path} against the plain path: loss relative {r['loss']:.3e} (tolerance "
-              f"{TRAIN_LOSS_TOL}); worst gradient leaf {leaf} at {r['leaves'][leaf]:.3e} of its max |plain| "
-              f"(tolerance {TRAIN_GRAD_TOL}); every leaf {json.dumps(r['leaves'])}")
+              f"{loss_tol}); worst gradient leaf {leaf} at {r['leaves'][leaf]:.3e} of its max |plain| "
+              f"(tolerance {grad_tol}); every leaf {json.dumps(r['leaves'])}")
     kernel = readings["kernel"]
     worst = max(kernel["leaves"].values())
-    if not (kernel["loss"] <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
+    if not (kernel["loss"] <= loss_tol and worst <= grad_tol):
         failures.append(f"{name}: kernel path against plain path: loss {kernel['loss']}, worst leaf {worst}")
         print(f"[FAIL] {failures[-1]}")
-    if not readings["not causal"]["loss"] > TRAIN_LOSS_TOL:
-        failures.append(f"{name}: the control without the causal mask meets the loss tolerance")
-        print(f"[FAIL] {failures[-1]}")
-    for path in TRAIN_CONTROLS:
-        if not max(readings[path]["leaves"].values()) > TRAIN_GRAD_TOL:
+    for path in loss_controls:
+        if not readings[path]["loss"] > loss_tol:
+            failures.append(f"{name}: the control '{path}' meets the loss tolerance")
+            print(f"[FAIL] {failures[-1]}")
+    for path in readings.keys() - {"kernel"}:
+        if not max(readings[path]["leaves"].values()) > grad_tol:
             failures.append(f"{name}: the control '{path}' meets the gradient tolerance at every leaf")
             print(f"[FAIL] {failures[-1]}")
+
+
+def ssd_train_readings(cfg, params: dict, batch: dict, model: str, depth: int | None) -> tuple[str, dict]:
+    """``train_readings`` of an SSD or hybrid model beside SSD_TRAIN_CONTROLS:
+    ``model`` "bf16" (the weights as they are) or "mixed" (the model in fp32
+    with bf16 scans, ``_bf16_scans``), its layers cut to the first ``depth``
+    (None: all).  Returns a name for the readings, and the readings."""
+    if depth:
+        cfg, params = dataclasses.replace(cfg, n_layers=depth), {**params, "blocks": {
+            k: v[:depth] for k, v in params["blocks"].items()}}
+    if model == "mixed":
+        c, p, scans, what = dataclasses.replace(cfg, dtype=torch.float32), _cast(params, torch.float32), \
+            _bf16_scans, "fp32 with bf16 scans"
+    else:
+        c, p, scans, what = cfg, params, contextlib.nullcontext, "bf16"
+    return f"{what} at {cfg.n_layers} layers", train_readings(c, p, batch, SSD_TRAIN_CONTROLS, scans)
+
+
+def hold_ssd_train_readings(arch: str, cfg, params: dict, batch: dict, failures: list[str]) -> None:
+    """The SSD models' kernel-vs-plain training check: ``ssd_train_readings``
+    in fp32 with bf16 scans at SSD_HOLD_DEPTH, held to SSD_TRAIN_LOSS_TOL
+    and SSD_TRAIN_GRAD_TOL, where both controls must miss the gradient
+    limit."""
+    name, readings = ssd_train_readings(cfg, params, batch, "mixed", SSD_HOLD_DEPTH[arch])
+    hold_train_readings(f"{arch} {name}", readings, failures, (SSD_TRAIN_LOSS_TOL, SSD_TRAIN_GRAD_TOL[arch]),
+                        loss_controls=())
 
 
 def check_resume(arch: str, cfg) -> None:
@@ -1835,16 +2094,35 @@ def check_resume(arch: str, cfg) -> None:
         raise RuntimeError(f"{arch}: resumed losses {first + resumed} differ from {whole} by {rel}")
 
 
+def _train_launches(cfg, steps: int) -> dict[str, int]:
+    """The launches ``steps`` training steps of ``cfg`` make, by the code
+    (``transformer.backbone``): with remat each layer's forward runs again in
+    the backward; a hybrid's shared attention block (after every
+    ``shared_attn_every``-th SSD layer) is not recomputed; MoE: 3 expert
+    products a layer forward, 3 again, and dA and dB of each in the
+    backward."""
+    L, kind = cfg.n_layers, cfg.block_kind
+    again = 2 if cfg.remat == "full" else 1
+    n_ssd = L if kind in ("ssd", "hybrid") else 0
+    n_attn = L if kind == "attn" else L // cfg.shared_attn_every if kind == "hybrid" else 0
+    moe = L if cfg.is_moe else 0
+    per_step = {"flash_attention": (again if kind == "attn" else 1) * n_attn, "flash_attention_bwd": n_attn,
+                "ssd_scan": again * n_ssd, "ssd_scan_bwd": n_ssd, "gemm": (3 * again + 6) * moe, "gemm_bwd": 6 * moe,
+                "conv2d_im2col": 0}
+    return {k: v * steps for k, v in per_step.items()}
+
+
 def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[str]) -> dict:
     """Phase 13 for one model: ``launch.train.train`` on the card, bf16,
     TRAIN_STEPS steps of the data pipeline's batches, every launch count 0
-    just before; a warm step of ``transformer.make_train_step`` timed and
-    profiled; the loss and every leaf's gradient in bf16 at the trained
-    depth, kernel path against plain path beside the controls
-    (``train_readings``), and every leaf's gradient in fp32 at
-    ``grad_depth``; the resume check (``check_resume``, at RESUME_CUT).
-    Returns the training run's launches, its peak memory and the warm
-    step's wall."""
+    just before, held to ``_train_launches``; a warm step of
+    ``transformer.make_train_step`` timed and profiled; the loss and every
+    leaf's gradient at the trained depth, kernel path against plain path
+    beside the controls (``train_readings``: bf16 and TRAIN_CONTROLS for an
+    attention model, ``hold_ssd_train_readings`` for an SSD or hybrid one),
+    and every leaf's gradient in fp32 at ``grad_depth``; the resume check
+    (``check_resume``, at RESUME_CUT).  Returns the training run's
+    launches, its peak memory and the warm step's wall."""
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=depth) if depth else full
     L = cfg.n_layers
@@ -1853,7 +2131,7 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
     mods = {"conv2d_im2col": im2col_conv, "flash_attention": fa, "ssd_scan": ssd, "gemm": gm}
     for mod in mods.values():
         mod.launches = 0
-    fa.bwd_launches = gm.bwd_launches = 0
+    fa.bwd_launches = gm.bwd_launches = ssd.bwd_launches = 0
     torch.cuda.reset_peak_memory_stats()
     bad, count = [], []
     t0 = time.perf_counter()
@@ -1861,17 +2139,13 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
         res = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=0, seed=0, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**{name: mod.launches for name, mod in mods.items()},
-                "flash_attention_bwd": fa.bwd_launches, "gemm_bwd": gm.bwd_launches}
+    launches = {**{name: mod.launches for name, mod in mods.items()}, "flash_attention_bwd": fa.bwd_launches,
+                "gemm_bwd": gm.bwd_launches, "ssd_scan_bwd": ssd.bwd_launches}
     losses, state, peak = res["losses"], res["state"], torch.cuda.max_memory_allocated() / 2**30
     del res
     print(f"[train] {arch}: losses {losses}, wall {wall:.1f} s (weights drawn on the card included), launches "
           f"{launches}, max_memory_allocated {peak:.2f} GiB")
-    # remat: each layer's forward runs again in the backward; MoE: 3 expert products a layer forward, 3 again,
-    # and dA and dB of each in the backward
-    want = {"flash_attention": 2 * L * TRAIN_STEPS, "flash_attention_bwd": L * TRAIN_STEPS,
-            "gemm": 12 * L * TRAIN_STEPS if cfg.is_moe else 0, "gemm_bwd": 6 * L * TRAIN_STEPS if cfg.is_moe else 0,
-            "ssd_scan": 0, "conv2d_im2col": 0}
+    want = _train_launches(cfg, TRAIN_STEPS)
     if launches != want:
         raise RuntimeError(f"{arch}: the training run launched {launches}, want {want}")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
@@ -1908,56 +2182,77 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
           f"{opt_ms:.2f} ms (events)")
     from torch.profiler import ProfilerActivity, profile
 
+    per_step = _train_launches(cfg, 1)
     per_bwd = 4 if cfg.hd >= 128 else 3  # delta, dQ, dK/dV (a dV and a dK pass at D 128 and 192)
+    calls_of = ("flash_calls", "gemm_calls", "ssd_calls", "ssd_bwd_calls")
     for _ in range(PROFILER_WINDOWS):
-        f0, b0, g0, gb0 = fa.launches, fa.bwd_launches, gm.launches, gm.bwd_launches
+        before = {name: mod.launches for name, mod in mods.items()}
+        before.update(flash_attention_bwd=fa.bwd_launches, gemm_bwd=gm.bwd_launches, ssd_scan_bwd=ssd.bwd_launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         table = _kernel_table(prof, wall)
-        fwd_n, bwd_n, gemm_n, gemm_bwd = fa.launches - f0, fa.bwd_launches - b0, gm.launches - g0, gm.bwd_launches - gb0
-        kept = sum(table["flash_calls"].values()) + sum(table["gemm_calls"].values())
-        if table["kernel_calls"] and kept == fwd_n + per_bwd * bwd_n + gemm_n:
+        ran = {name: mod.launches - before[name] for name, mod in mods.items()}
+        ran.update(flash_attention_bwd=fa.bwd_launches - before["flash_attention_bwd"],
+                   gemm_bwd=gm.bwd_launches - before["gemm_bwd"], ssd_scan_bwd=ssd.bwd_launches - before["ssd_scan_bwd"])
+        kept = sum(sum(table[k].values()) for k in calls_of)
+        issued = (ran["flash_attention"] + per_bwd * ran["flash_attention_bwd"] + ran["gemm"] + ran["ssd_scan"]
+                  + 2 * ran["ssd_scan_bwd"])
+        if table["kernel_calls"] and kept == issued:
             break
-        print(f"[train] {arch} profile: the profiler kept {kept} of {fwd_n + per_bwd * bwd_n + gemm_n} port "
-              f"kernel launches; taken again")
+        print(f"[train] {arch} profile: the profiler kept {kept} of {issued} port kernel launches; taken again")
         time.sleep(0.1)
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    split = {"flash forward": 0.0, "flash backward": 0.0, "gemm": 0.0}
+    split = {"flash forward": 0.0, "flash backward": 0.0, "ssd forward": 0.0, "ssd backward": 0.0, "gemm": 0.0}
     for name, ms in rows:
-        m = FLASH_FN.search(name)
-        key = ("flash backward" if "bwd" in m.group(1) else "flash forward") if m else \
-            "gemm" if GEMM_FN.search(name) else None
-        if key:
-            split[key] += ms
+        if m := FLASH_FN.search(name):
+            split["flash backward" if "bwd" in m.group(1) else "flash forward"] += ms
+        elif SSD_BWD_FN.search(name):
+            split["ssd backward"] += ms
+        elif SSD_FN.search(name):
+            split["ssd forward"] += ms
+        elif GEMM_FN.search(name):
+            split["gemm"] += ms
     table.update(split_ms=split, optimizer_ms=opt_ms, step_wall_ms=t_step * 1e3,
                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / t_step, peak_gib=peak)
     print(f"[train] {arch} profile of one step: {json.dumps(table)}")
-    calls = table["flash_calls"]
-    fwd_fn = f"flash_fwd_mma_bf16_kernel<{cfg.hd}>"
-    want_calls = {fwd_fn: 2 * L, "flash_bwd_delta_kernel<__nv_bfloat16>": L,
-                  f"flash_bwd_dq_mma_bf16_kernel<{cfg.hd}>": L}
-    want_calls.update({f"flash_bwd_dkdv_mma_bf16_kernel<{cfg.hd}, {m}>": L
-                       for m in ((1, 2) if cfg.hd >= 128 else (3,))})
-    if calls != want_calls or (fwd_n, bwd_n) != (2 * L, L):
-        raise RuntimeError(f"{arch}: the profiled step ran flash kernels {calls} ({fwd_n} forward and {bwd_n} "
-                           f"backward launches), want {want_calls}")
+    want_calls = {}
+    if per_step["flash_attention_bwd"]:
+        n_attn = per_step["flash_attention_bwd"]
+        want_calls.update({f"flash_fwd_mma_bf16_kernel<{cfg.hd}>": per_step["flash_attention"],
+                           "flash_bwd_delta_kernel<__nv_bfloat16>": n_attn,
+                           f"flash_bwd_dq_mma_bf16_kernel<{cfg.hd}>": n_attn})
+        want_calls.update({f"flash_bwd_dkdv_mma_bf16_kernel<{cfg.hd}, {m}>": n_attn
+                           for m in ((1, 2) if cfg.hd >= 128 else (3,))})
+    if per_step["ssd_scan_bwd"]:
+        n_ssd = per_step["ssd_scan_bwd"]
+        chosen = ssd.plan(torch.bfloat16, TRAIN_BATCH, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
+                          True, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        want_calls.update({f"ssd_scan_mma_bf16_kernel<{cfg.ssm_state}, {chosen.p_tile}>": per_step["ssd_scan"],
+                           "ssd_scan_bwd_kernel<__nv_bfloat16>": n_ssd, "ssd_scan_bwd_sum_kernel<__nv_bfloat16>": n_ssd})
+    calls = {**table["flash_calls"], **table["ssd_calls"], **table["ssd_bwd_calls"]}
+    if calls != want_calls or ran != per_step:
+        raise RuntimeError(f"{arch}: the profiled step ran {calls} (launches {ran}), want {want_calls} ({per_step})")
     if cfg.is_moe:
-        if (gemm_n, gemm_bwd) != (12 * L, 6 * L) or sum(table["gemm_calls"].values()) != 12 * L:
+        gemm_n, gemm_bwd = ran["gemm"], ran["gemm_bwd"]
+        if sum(table["gemm_calls"].values()) != gemm_n:
             raise RuntimeError(f"{arch}: the profiled step launched gemm {gemm_n} times, {gemm_bwd} of them in the "
-                               f"backward ({table['gemm_calls']}), want {12 * L} and {6 * L}")
+                               f"backward, and the profiler saw {table['gemm_calls']}")
         print(f"[train] {arch}: the backward ran gemm {gemm_bwd} of the step's {gemm_n} times ({table['gemm_calls']})")
-    print(f"[train] {arch}: the profiled step ran the flash backward once per attention layer ({L}) and the "
-          f"forward twice (remat): {json.dumps(calls)}")
+    print(f"[train] {arch}: the profiled step ran each backward kernel once per layer that has it and each "
+          f"forward kernel as often as the code runs that layer (remat): {json.dumps(calls)}")
 
-    # kernel path against plain path: the loss and every leaf's gradient in bf16 at the trained depth, beside
-    # the controls ...
+    # kernel path against plain path: the loss and every leaf's gradient at the trained depth, beside the
+    # controls ...
     del opt_state
     torch.cuda.empty_cache()
-    hold_train_readings(f"{arch} bf16 at {L} layers", train_readings(cfg, params, batch), failures)
+    if cfg.block_kind == "attn":
+        hold_train_readings(f"{arch} bf16 at {L} layers", train_readings(cfg, params, batch), failures)
+    else:
+        hold_ssd_train_readings(arch, cfg, params, batch, failures)
     del params
     torch.cuda.empty_cache()
     # ... and every leaf's gradient in fp32 at grad_depth
@@ -2013,6 +2308,7 @@ def main() -> int:
     check_gemm_ptxas()
     check_conv_ptxas()
     check_ssd_ptxas()
+    check_ssd_bwd_ptxas()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -2084,16 +2380,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels["flash_attention"].update(check_flash_bwd(gen))
+    kernels["ssd_scan"].update(check_ssd_bwd(gen))
     kernels["gemm"].update(check_gemm_grad(gen))
     print(f"[bwd] backward kernels done in {time.perf_counter() - t0:.1f} s")
     for arch, (depth, grad_depth) in TRAIN_MODELS.items():
         t0 = time.perf_counter()
         out = drive_train(arch, depth, grad_depth, failures)
-        prefix = "" if arch == "granite-3-2b" else f"{arch} "  # granite's training run is the flash row's
-        kernels["flash_attention"].update({f"{prefix}train_launches": out["flash_attention"],
-                                           f"{prefix}bwd_launches": out["flash_attention_bwd"]})
-        if out["gemm"]:
-            kernels["gemm"].update(train_launches=out["gemm"], bwd_launches=out["gemm_bwd"])
+        # granite's training run is the flash row's, mamba2's the ssd_scan row's
+        for row, first in (("flash_attention", "granite-3-2b"), ("ssd_scan", "mamba2-130m"), ("gemm", "phi3.5-moe-42b")):
+            if out[f"{row}_bwd"]:
+                prefix = "" if arch == first else f"{arch} "
+                kernels[row].update({f"{prefix}train_launches": out[row], f"{prefix}bwd_launches": out[f"{row}_bwd"]})
         print(f"[train] {arch} done in {time.perf_counter() - t0:.1f} s")
 
     print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")

@@ -77,6 +77,34 @@
 // B, C and x*dt as fp32 in shared memory (rows padded to n + 1), forms the
 // masked decay matrix C.B^T o L once, then the output tile and the state
 // update; the fp32 state tile stays in shared memory across chunks.
+//
+// The backward (no Pallas kernel of the reference has one: the reference
+// trains through XLA's gradient of blocks.ssd_chunked): dx, ddt, dA, dB and
+// dC from x, dt, A, B, C, dy and the final state's gradient, the formulas of
+// kernels/ssd_scan.py::ssd_scan_bwd_plain.  Bound on the H100 SXM: bytes.
+// At mamba2-130m's training shape (the prefill's, bf16) it needs 5.3 GFLOP
+// with the states recomputed (5.3 us at the bf16 peak, 79 us at the fp32
+// FMA peak) over 21 MB (6.4 us).  ssd_scan_bwd_kernel<T> is correct first
+// and simple, fp32 FMA on the SIMT pipes over shared memory, one block of
+// 256 threads per (b, h, <= 64-row p tile) as the forward's SIMT kernel:
+// - the chunks run in order twice: forward, to rebuild the state entering
+//   each chunk into a scratch buffer (the block's own rows; the forward
+//   runs twice a layer under remat, so it keeps no copy for the backward),
+//   then in reverse, carrying the state's gradient dH in shared memory;
+// - per chunk, the two [CL, CL] panels C.B^T and dy.xdt (and from them
+//   C.B^T o L, (dy.xdt) o L and their product), then dx (the block's own
+//   rows over p), dC, dB and the chunk's log-decay gradient; every product
+//   in register tiles, a warp 8 rows, a lane 2 columns (tile_product): the
+//   first version, an output a thread, read 2-3 operands from shared
+//   memory an FMA and took 1.77 ms at mamba2, this one 8 broadcasts and 2
+//   loads for 16 FMAs (PERF.md);
+// - dB and dC sum over heads and p tiles, ddt over p tiles, dA over
+//   batches and positions: each block writes its partials (fp32, [b, l,
+//   h * p tiles, n] for dB and dC) and ssd_scan_bwd_sum_kernel adds them
+//   in index order.  No atomics: two calls give the same bits.
+// What bounds it: shared-memory loads and their latency at one block of 8
+// warps an SM (217 KB of shared memory at state 128, 210 registers), and
+// 96 blocks on 132 SMs at mamba2; next, the products on the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -702,6 +730,411 @@ int occupancy_mma(int cl) {
     default: return (int)cudaErrorInvalidValue;       \
   }
 
+// ---------------------------------------------------------------------------
+// The backward: fp32 FMA on the SIMT pipes
+// ---------------------------------------------------------------------------
+
+// Shared memory of one ssd_scan_bwd_kernel block, in floats: B, C, x and dy
+// of a chunk, the state entering it and its gradient, three [CL][CL] panels,
+// seven per-step vectors and the reduction's scratch.  Rows are padded by one
+// float, so a warp reading a column touches 32 banks.
+__host__ __device__ inline int bwd_smem_floats(int cl, int n, int pt) {
+  return 2 * cl * (n + 1) + 2 * cl * (pt + 1) + 2 * pt * (n + 1) + 3 * cl * (cl + 1) + 7 * cl + 32;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);  // every lane the same bits
+  return v;
+}
+
+// Every thread gets the block's sum of v, in one fixed order.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < THREADS / 32; ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+// Chunk c's B (and with GRADS C), dt, x (and dy) of one backward block into
+// shared memory as fp32 (x and dy 0 past p), then cum, exp(cum) and
+// exp(cum_last - cum); ends on a barrier.
+template <typename T, bool GRADS>
+__device__ __forceinline__ void bwd_load_chunk(const T* __restrict__ x, const float* __restrict__ dt,
+                                               const T* __restrict__ Bm, const T* __restrict__ Cm,
+                                               const T* __restrict__ dy, const SsdShape& s, long long sdyb,
+                                               long long sdyl, long long sdyh, int c, int bi, int hi, int p0,
+                                               float a_h, float* Bs, float* Cs, float* Xs, float* Ys, float* dts,
+                                               float* cum, float* ecum, float* wend) {
+  const int CL = s.chunk, N = s.n, PT = s.pt, LDN = N + 1, LDP = PT + 1, tid = threadIdx.x;
+  const long long l0 = (long long)c * CL;
+  for (int e = tid; e < CL * N; e += THREADS) {
+    const int r = e / N, col = e % N;
+    Bs[r * LDN + col] = to_f(Bm[bi * s.sBb + (l0 + r) * s.sBl + col]);
+    if (GRADS) Cs[r * LDN + col] = to_f(Cm[bi * s.sCb + (l0 + r) * s.sCl + col]);
+  }
+  for (int e = tid; e < CL; e += THREADS) dts[e] = dt[bi * s.sdb + (l0 + e) * s.sdl + hi * s.sdh];
+  for (int e = tid; e < CL * PT; e += THREADS) {
+    const int r = e / PT, pp = e % PT;
+    const bool in = p0 + pp < s.p;
+    Xs[r * LDP + pp] = in ? to_f(x[bi * s.sxb + (l0 + r) * s.sxl + hi * s.sxh + p0 + pp]) : 0.f;
+    if (GRADS) Ys[r * LDP + pp] = in ? to_f(dy[bi * sdyb + (l0 + r) * sdyl + hi * sdyh + p0 + pp]) : 0.f;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float run = 0.f;
+    for (int r = 0; r < CL; ++r) {
+      run += dts[r] * a_h;
+      cum[r] = run;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < CL; e += THREADS) {
+    ecum[e] = expf(cum[e]);
+    wend[e] = expf(cum[CL - 1] - cum[e]);
+  }
+  __syncthreads();
+}
+
+// Thread (warp w, lane q) of a backward block holds rows w + 8 i (i < 8) and
+// columns c0 + q + 32 j (j < 2) of an [M, NC] product over K, M <= 64, a
+// tile of 64 columns from c0: acc[i][j] += sum_k a(row_i, k) b(k, col_j).
+// Each k loads 8 values of a (the same for the whole warp: a broadcast) and
+// 2 of b (neighbouring lanes on neighbouring columns) for 16 FMAs.  Rows and
+// columns past M and NC repeat the last one; their results are dropped.  A
+// product over 128 columns (state width 128) takes two tiles: with 4
+// columns a thread, ptxas held the kernel to 255 registers and spilled.
+constexpr int TROWS = 8, TCOLS = 2;
+static_assert(THREADS / 32 * TROWS == 64 && 32 * TCOLS == 64, "8 warps of 8 rows, 32 lanes of 2 columns");
+
+template <class FA, class FB>
+__device__ __forceinline__ void tile_product(float (&acc)[TROWS][TCOLS], int M, int NC, int c0, int K, FA a, FB b) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int rows[TROWS], cols[TCOLS];
+#pragma unroll
+  for (int i = 0; i < TROWS; ++i) rows[i] = min(warp + 8 * i, M - 1);
+#pragma unroll
+  for (int j = 0; j < TCOLS; ++j) cols[j] = min(c0 + lane + 32 * j, NC - 1);
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    float av[TROWS], bv[TCOLS];
+#pragma unroll
+    for (int i = 0; i < TROWS; ++i) av[i] = a(rows[i], k);
+#pragma unroll
+    for (int j = 0; j < TCOLS; ++j) bv[j] = b(k, cols[j]);
+#pragma unroll
+    for (int i = 0; i < TROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < TCOLS; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[TROWS][TCOLS]) {
+#pragma unroll
+  for (int i = 0; i < TROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < TCOLS; ++j) acc[i][j] = 0.f;
+}
+
+// One block per (b, h, tile of PT rows over p), as the forward.  Pass 1 runs
+// the forward's state recurrence and writes the state entering each chunk to
+// `hs` (this block's [nc][PT][n] slice).  Pass 2 walks the chunks in reverse
+// with the state's gradient dH in shared memory.  dx is the block's own; dB,
+// dC (summed over heads and p tiles), ddt (over p tiles) and dA (over b and
+// p tiles) are written as this block's partials, which ssd_scan_bwd_sum_kernel
+// adds in a fixed order: no atomics, so two calls give the same bits.  Every
+// product is in register tiles (tile_product): chunk and PT are at most 64,
+// the state width at most 128.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)  // with no minimum, ptxas holds it to 80 registers and spills
+ssd_scan_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+                    const T* __restrict__ Bm, const T* __restrict__ Cm, const T* __restrict__ dy,
+                    const float* __restrict__ dstate, T* __restrict__ dx, float* __restrict__ hs,
+                    float* __restrict__ pdB, float* __restrict__ pdC, float* __restrict__ pddt,
+                    float* __restrict__ pdA, SsdShape s, long long sdyb, long long sdyl, long long sdyh) {
+  extern __shared__ __align__(16) float smem[];
+  const int CL = s.chunk, N = s.n, PT = s.pt, LDN = N + 1, LDP = PT + 1, LDC = CL + 1;
+  float* Bs = smem;              // [CL][LDN]
+  float* Cs = Bs + CL * LDN;     // [CL][LDN]
+  float* Xs = Cs + CL * LDN;     // [CL][LDP] x (0 past p)
+  float* Ys = Xs + CL * LDP;     // [CL][LDP] dy (0 past p)
+  float* Hs = Ys + CL * LDP;     // [PT][LDN] the state entering the chunk
+  float* dH = Hs + PT * LDN;     // [PT][LDN] the gradient of the state leaving it
+  float* Gd = dH + PT * LDN;     // [CL][LDC] (C_l.B_s) L[l,s], L[l,s] = exp(cum_l - cum_s), 0 above the diagonal
+  float* Wm = Gd + CL * LDC;     // [CL][LDC] (dy_l.xdt_s) L[l,s]
+  float* Mm = Wm + CL * LDC;     // [CL][LDC] (C_l.B_s) (dy_l.xdt_s) L[l,s]
+  float* dts = Mm + CL * LDC;    // [CL]
+  float* cum = dts + CL;         // [CL] the in-chunk cumulative log decay
+  float* ecum = cum + CL;        // [CL] exp(cum)
+  float* wend = ecum + CL;       // [CL] exp(cum_last - cum)
+  float* ddir = wend + CL;       // [CL] dxdt_s . x_s
+  float* yoff = ddir + CL;       // [CL] d(cum_l) from the carried state's output
+  float* supd = yoff + CL;       // [CL] d(cum_s) lost to the state update's weight
+  float* red = supd + CL;        // [32]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n_pt = (s.p + PT - 1) / PT;
+  const int t = blockIdx.x % n_pt, bh = blockIdx.x / n_pt;
+  const int bi = bh / s.h, hi = bh % s.h;
+  const int p0 = t * PT;
+  const float a_h = A[hi];
+  const int nc = s.l / CL;
+  const int J = s.h * n_pt;  // partial rows of dB and dC per position
+  float* hsb = hs + (long long)blockIdx.x * nc * PT * N;
+  float acc[TROWS][TCOLS], acc2[TROWS][TCOLS];  // acc2: the second of two [CL, CL] or [CL, PT] products
+  // the row and the column of a tile's element (i, j), its columns from c0
+#define BWD_ROW(i) (warp + 8 * (i))
+#define BWD_COL(j) (c0 + lane + 32 * (j))
+
+  // pass 1: the state entering each chunk, as the forward carries it
+  for (int e = tid; e < PT * LDN; e += THREADS) Hs[e] = 0.f;
+  __syncthreads();
+  for (int c = 0; c < nc; ++c) {
+    for (int e = tid; e < PT * N; e += THREADS) hsb[(long long)c * PT * N + e] = Hs[(e / N) * LDN + e % N];
+    bwd_load_chunk<T, false>(x, dt, Bm, Cm, dy, s, sdyb, sdyl, sdyh, c, bi, hi, p0, a_h, Bs, Cs, Xs, Ys, dts, cum, ecum,
+                             wend);
+    const float dec = ecum[CL - 1];
+    for (int c0 = 0; c0 < N; c0 += 64) {
+      zero(acc);  // [PT, N] += (x wend dt)^T . B
+      tile_product(acc, PT, N, c0, CL, [=](int pp, int r) { return Xs[r * LDP + pp] * (wend[r] * dts[r]); },
+                   [=](int r, int nn) { return Bs[r * LDN + nn]; });
+#pragma unroll
+      for (int i = 0; i < TROWS; ++i)
+#pragma unroll
+        for (int j = 0; j < TCOLS; ++j)
+          if (BWD_ROW(i) < PT && BWD_COL(j) < N) {
+            float& h = Hs[BWD_ROW(i) * LDN + BWD_COL(j)];
+            h = h * dec + acc[i][j];
+          }
+    }
+    __syncthreads();
+  }
+
+  // the final state's gradient, and <dH, H> of the state leaving the last chunk
+  float part = 0.f;
+  for (int e = tid; e < PT * N; e += THREADS) {
+    const int pp = e / N, nn = e % N;
+    float g = 0.f;
+    if (dstate != nullptr && p0 + pp < s.p) g = dstate[((bi * (long long)s.h + hi) * s.p + p0 + pp) * N + nn];
+    dH[pp * LDN + nn] = g;
+    part = fmaf(g, Hs[pp * LDN + nn], part);
+  }
+  float carry = block_sum(part, red);  // d(cum_last) of the chunk below from the state leaving it
+  float dA_acc = 0.f;
+
+  // pass 2: the chunks in reverse
+  for (int c = nc - 1; c >= 0; --c) {
+    const long long l0 = (long long)c * CL;
+    for (int e = tid; e < PT * N; e += THREADS) Hs[(e / N) * LDN + e % N] = hsb[(long long)c * PT * N + e];
+    bwd_load_chunk<T, true>(x, dt, Bm, Cm, dy, s, sdyb, sdyl, sdyh, c, bi, hi, p0, a_h, Bs, Cs, Xs, Ys, dts, cum, ecum,
+                            wend);
+    // the [CL, CL] panels: C.B^T and dy.x, then Gd, Wm and Mm from both, each thread its own elements
+    int c0 = 0;  // the [CL, CL] and [CL, PT] products are one tile of columns
+    zero(acc);
+    zero(acc2);
+    tile_product(acc, CL, CL, 0, N, [=](int r, int nn) { return Cs[r * LDN + nn]; },
+                 [=](int nn, int sc) { return Bs[sc * LDN + nn]; });
+    tile_product(acc2, CL, CL, 0, PT, [=](int r, int pp) { return Ys[r * LDP + pp]; },
+                 [=](int pp, int sc) { return Xs[sc * LDP + pp]; });
+#pragma unroll
+    for (int i = 0; i < TROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < TCOLS; ++j) {
+        const int r = BWD_ROW(i), sc = BWD_COL(j);
+        if (r >= CL || sc >= CL) continue;
+        float g = 0.f, w = 0.f, m = 0.f;
+        if (sc <= r) {
+          const float dec = expf(cum[r] - cum[sc]), d = acc2[i][j] * dts[sc];
+          g = acc[i][j] * dec;
+          w = d * dec;
+          m = d * g;
+        }
+        Gd[r * LDC + sc] = g;
+        Wm[r * LDC + sc] = w;
+        Mm[r * LDC + sc] = m;
+      }
+    __syncthreads();
+
+    // dxdt_s = sum_{l>=s} Gd[l,s] dy_l + wend_s (dH.B_s); dx = dxdt dt; rows s, columns over p
+    zero(acc);
+    zero(acc2);
+    tile_product(acc, CL, PT, 0, N, [=](int sr, int nn) { return Bs[sr * LDN + nn]; },
+                 [=](int nn, int pp) { return dH[pp * LDN + nn]; });
+    tile_product(acc2, CL, PT, 0, CL, [=](int sr, int r) { return Gd[r * LDC + sr]; },
+                 [=](int r, int pp) { return Ys[r * LDP + pp]; });
+#pragma unroll
+    for (int i = 0; i < TROWS; ++i) {
+      const int sr = min(BWD_ROW(i), CL - 1);
+      float dd = 0.f, su = 0.f;
+#pragma unroll
+      for (int j = 0; j < TCOLS; ++j) {
+        const int pp = BWD_COL(j);
+        if (pp >= PT) continue;
+        const float dxdt = acc2[i][j] + wend[sr] * acc[i][j], xv = Xs[sr * LDP + pp];
+        if (BWD_ROW(i) < CL && p0 + pp < s.p)
+          put(dx + ((bi * (long long)s.l + l0 + sr) * s.h + hi) * s.p + p0 + pp, dxdt * dts[sr]);
+        dd = fmaf(dxdt, xv, dd);
+        su = fmaf(xv * dts[sr], acc[i][j], su);
+      }
+      dd = warp_sum(dd);
+      su = warp_sum(su);
+      if (lane == 0 && BWD_ROW(i) < CL) {
+        ddir[sr] = dd;
+        supd[sr] = wend[sr] * su;
+      }
+    }
+    // dC_l = sum_{s<=l} Wm[l,s] B_s + exp(cum_l) dy_l.H; rows l, columns over n, 64 at a time
+    float yo[TROWS] = {};
+    for (c0 = 0; c0 < N; c0 += 64) {
+      zero(acc);
+      tile_product(acc, CL, N, c0, PT, [=](int r, int pp) { return Ys[r * LDP + pp]; },
+                   [=](int pp, int nn) { return Hs[pp * LDN + nn]; });
+#pragma unroll
+      for (int i = 0; i < TROWS; ++i) {
+        const int r = min(BWD_ROW(i), CL - 1);
+#pragma unroll
+        for (int j = 0; j < TCOLS; ++j) {
+          acc[i][j] *= ecum[r];
+          if (BWD_COL(j) < N) yo[i] = fmaf(Cs[r * LDN + BWD_COL(j)], acc[i][j], yo[i]);
+        }
+      }
+      tile_product(acc, CL, N, c0, CL, [=](int r, int sc) { return Wm[r * LDC + sc]; },
+                   [=](int sc, int nn) { return Bs[sc * LDN + nn]; });
+#pragma unroll
+      for (int i = 0; i < TROWS; ++i)
+#pragma unroll
+        for (int j = 0; j < TCOLS; ++j)
+          if (BWD_ROW(i) < CL && BWD_COL(j) < N)
+            pdC[((bi * (long long)s.l + l0 + BWD_ROW(i)) * J + hi * n_pt + t) * N + BWD_COL(j)] = acc[i][j];
+    }
+#pragma unroll
+    for (int i = 0; i < TROWS; ++i) {
+      const float v = warp_sum(yo[i]);
+      if (lane == 0 && BWD_ROW(i) < CL) yoff[BWD_ROW(i)] = v;
+    }
+    // dB_s = sum_{l>=s} Wm[l,s] C_l + wend_s dt_s x_s.dH; rows s, columns over n, 64 at a time
+    for (c0 = 0; c0 < N; c0 += 64) {
+      zero(acc);
+      tile_product(acc, CL, N, c0, PT, [=](int sr, int pp) { return Xs[sr * LDP + pp]; },
+                   [=](int pp, int nn) { return dH[pp * LDN + nn]; });
+#pragma unroll
+      for (int i = 0; i < TROWS; ++i) {
+        const int sr = min(BWD_ROW(i), CL - 1);
+#pragma unroll
+        for (int j = 0; j < TCOLS; ++j) acc[i][j] *= wend[sr] * dts[sr];
+      }
+      tile_product(acc, CL, N, c0, CL, [=](int sr, int r) { return Wm[r * LDC + sr]; },
+                   [=](int r, int nn) { return Cs[r * LDN + nn]; });
+#pragma unroll
+      for (int i = 0; i < TROWS; ++i)
+#pragma unroll
+        for (int j = 0; j < TCOLS; ++j)
+          if (BWD_ROW(i) < CL && BWD_COL(j) < N)
+            pdB[((bi * (long long)s.l + l0 + BWD_ROW(i)) * J + hi * n_pt + t) * N + BWD_COL(j)] = acc[i][j];
+    }
+    __syncthreads();  // every read of dH, Gd and the per-step vectors is done
+
+    // d(cum): the masked decay's row minus its column, the carried state's output, the state update's
+    // weight, and at the last step <dH, H> of the state leaving the chunk
+    float* dcum = Gd;  // Gd is no longer read
+    if (tid < CL) {
+      float row = 0.f, col = 0.f;
+      for (int sc = 0; sc <= tid; ++sc) row += Mm[tid * LDC + sc];
+      for (int r = tid; r < CL; ++r) col += Mm[r * LDC + tid];
+      dcum[tid] = row - col + yoff[tid] - supd[tid] + (tid == CL - 1 ? carry : 0.f);
+    }
+    // dH of the state entering this chunk, and <dH, H> of it for the chunk below
+    const float dec = ecum[CL - 1];
+    part = 0.f;
+    for (c0 = 0; c0 < N; c0 += 64) {
+      zero(acc);  // [PT, N] += (dy exp(cum))^T . C
+      tile_product(acc, PT, N, c0, CL, [=](int pp, int r) { return Ys[r * LDP + pp] * ecum[r]; },
+                   [=](int r, int nn) { return Cs[r * LDN + nn]; });
+#pragma unroll
+      for (int i = 0; i < TROWS; ++i)
+#pragma unroll
+        for (int j = 0; j < TCOLS; ++j)
+          if (BWD_ROW(i) < PT && BWD_COL(j) < N) {
+            float& g = dH[BWD_ROW(i) * LDN + BWD_COL(j)];
+            g = g * dec + acc[i][j];
+            part = fmaf(g, Hs[BWD_ROW(i) * LDN + BWD_COL(j)], part);
+          }
+    }
+    carry = block_sum(part, red);  // its barriers also publish dcum
+    if (tid == 0) {  // ddt = (reverse cumulative sum of d(cum)) A + dxdt.x; dA gets that sum times dt
+      float run = 0.f;
+      for (int r = CL - 1; r >= 0; --r) {
+        run += dcum[r];
+        pddt[((bi * (long long)s.l + l0 + r) * s.h + hi) * n_pt + t] = run * a_h + ddir[r];
+        dA_acc = fmaf(run, dts[r], dA_acc);
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) pdA[(bi * (long long)s.h + hi) * n_pt + t] = dA_acc;
+#undef BWD_ROW
+#undef BWD_COL
+}
+
+// dB, dC [b, l, n] (T): the partials over heads and p tiles; ddt [b, l, h]: over p tiles; dA [h]: over
+// batches and p tiles; each summed in index order.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_bwd_sum_kernel(const float* __restrict__ pdB, const float* __restrict__ pdC,
+                        const float* __restrict__ pddt, const float* __restrict__ pdA, T* __restrict__ dB,
+                        T* __restrict__ dC, float* __restrict__ ddt, float* __restrict__ dA, int b, int l, int h,
+                        int n, int n_pt) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long nbl = (long long)b * l * n, ndt = (long long)b * l * h;
+  const int J = h * n_pt;
+  if (i < nbl) {
+    const long long bl = i / n, nn = i % n;
+    float sb = 0.f, sc = 0.f;
+    for (int j = 0; j < J; ++j) {
+      sb += pdB[(bl * J + j) * n + nn];
+      sc += pdC[(bl * J + j) * n + nn];
+    }
+    put(dB + i, sb);
+    put(dC + i, sc);
+  } else if (i < nbl + ndt) {
+    const long long k = i - nbl;
+    float v = 0.f;
+    for (int j = 0; j < n_pt; ++j) v += pddt[k * n_pt + j];
+    ddt[k] = v;
+  } else if (i < nbl + ndt + h) {
+    const int hh = (int)(i - nbl - ndt);
+    float v = 0.f;
+    for (int bb = 0; bb < b; ++bb)
+      for (int j = 0; j < n_pt; ++j) v += pdA[((long long)bb * h + hh) * n_pt + j];
+    dA[hh] = v;
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const float* dt, const float* A, const void* B, const void* C, const void* dy,
+               const float* dstate, void* dx, float* ddt, float* dA, void* dB, void* dC, float* hs, float* pdB,
+               float* pdC, float* pddt, float* pdA, const SsdShape& s, long long sdyb, long long sdyl,
+               long long sdyh, cudaStream_t stream) {
+  if (s.chunk > 64 || s.pt > 64 || s.n > 128) return (int)cudaErrorInvalidValue;  // a tile's rows and columns
+  const int smem = bwd_smem_floats(s.chunk, s.n, s.pt) * (int)sizeof(float);
+  auto kernel = ssd_scan_bwd_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_pt = (s.p + s.pt - 1) / s.pt;
+  kernel<<<(unsigned)(s.b * s.h * n_pt), THREADS, smem, stream>>>(
+      static_cast<const T*>(x), dt, A, static_cast<const T*>(B), static_cast<const T*>(C), static_cast<const T*>(dy),
+      dstate, static_cast<T*>(dx), hs, pdB, pdC, pddt, pdA, s, sdyb, sdyl, sdyh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)s.b * s.l * s.n + (long long)s.b * s.l * s.h + s.h;
+  ssd_scan_bwd_sum_kernel<T><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      pdB, pdC, pddt, pdA, static_cast<T*>(dB), static_cast<T*>(dC), ddt, dA, s.b, s.l, s.h, s.n, n_pt);
+  return (int)cudaGetLastError();
+}
+
 int launch_mma_variant(int n, int pt, const void* x, const float* dt, const float* A, const void* B, const void* C,
                        void* y, float* state, const SsdShape& s, cudaStream_t stream) {
   SSD_MMA_VARIANTS(launch_mma, x, dt, A, B, C, y, state, s, stream)
@@ -729,6 +1162,29 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A, cons
   if (route == 2 && chunk % 16 == 0 && chunk <= MAX_CL)
     return launch_mma_variant(n, pt, x, dt, A, B, C, y, state, s, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward: dx [b, l, h, p] (x's type), ddt [b, l, h] and dA [h] (fp32), dB and dC [b, l, n] (B's type),
+// all contiguous, from the forward's inputs (strided as ssd_scan_fwd takes them), dy (unit stride over p) and
+// dstate (contiguous fp32 [b, h, p, n], or null: no gradient of the final state).  is_bf16: x, B, C, dy, dx,
+// dB and dC are bf16, else fp32.  Scratch, all fp32: hs [b h n_pt][l / chunk][pt][n] (the states), pdB and pdC
+// [b, l, h n_pt, n], pddt [b, l, h, n_pt], pdA [b, h, n_pt], n_pt = ceil(p / pt).  Launches
+// ssd_scan_bwd_kernel and ssd_scan_bwd_sum_kernel on `stream`; returns the first launch's CUDA error, or 0.
+// Shapes and the shared-memory size are validated by the Python wrapper.
+extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A, const void* B, const void* C,
+                            const void* dy, const float* dstate, void* dx, float* ddt, float* dA, void* dB,
+                            void* dC, float* hs, float* pdB, float* pdC, float* pddt, float* pdA, int is_bf16, int b,
+                            int l, int h, int p, int n, int chunk, int pt, long long sxb, long long sxl,
+                            long long sxh, long long sdb, long long sdl, long long sdh, long long sBb,
+                            long long sBl, long long sCb, long long sCl, long long sdyb, long long sdyl,
+                            long long sdyh, void* stream) {
+  const SsdShape s{b, l, h, p, n, chunk, pt, sxb, sxl, sxh, sdb, sdl, sdh, sBb, sBl, sCb, sCl};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_bwd<bf16>(x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC, hs, pdB, pdC, pddt, pdA, s, sdyb,
+                            sdyl, sdyh, st);
+  return launch_bwd<float>(x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC, hs, pdB, pdC, pddt, pdA, s, sdyb,
+                           sdyl, sdyh, st);
 }
 
 // Blocks of ssd_scan_mma_bf16_kernel<n, pt> at `chunk` one SM holds at once

@@ -14,10 +14,13 @@ requires grad:
 - ``gemm`` runs through an autograd Function whose backward is two more
   ``gemm`` calls, dA = dC·Bᵀ and dB = Aᵀ·dC (the transposed operand made
   contiguous first: the kernel needs unit stride over the last dim);
-- ``ssd_scan`` and ``conv2d_im2col`` raise ``NotImplementedError``: their
-  backward kernels are not written yet (ROADMAP.md queue 1 item 5; queue 2
-  item 2 for the scan), and a kernel output with no ``grad_fn`` must never
-  reach a loss.
+- ``ssd_scan`` runs through an autograd Function whose forward is the scan
+  kernel and whose backward is the hand-written backward kernel
+  (``ssd_scan_bwd``), with no gradient of the final state where it is
+  unused;
+- ``conv2d_im2col`` raises ``NotImplementedError``: the reference trains no
+  CNN, so its backward kernel is not written, and a kernel output with no
+  ``grad_fn`` must never reach a loss.
 Without grad mode (serving, ``torch.inference_mode``) each is the plain
 kernel call.
 """
@@ -73,6 +76,28 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _SsdScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, state = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an unused final state's gradient stays None
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        elif dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        dx, ddt, dA, dB, dC = _ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk)
+        return dx, ddt, dA, dB, dC, None
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A·B, fp32 sum, output in a's type. a: [(E,) M, K]; b: [(E,) K, N] -> [(E,) M, N]."""
     if a.is_cuda:
@@ -82,18 +107,14 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"no gemm for device {a.device}")
 
 
-def _no_backward(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} has no backward kernel yet (ROADMAP.md queue 1 item 5): under autograd on the card it would "
-        f"drop every gradient upstream of it; train this model on the CPU, or call it under torch.no_grad()"
-    )
-
-
 def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch.Tensor:
     """SAME-padded conv. x: [N, H, W, C]; w: [R, S, C, K] -> [N, HO, WO, K]."""
     if x.is_cuda:
         if _wants_grad(x, w):
-            raise _no_backward("conv2d_im2col")
+            raise NotImplementedError(
+                "conv2d_im2col has no backward kernel (the reference trains no CNN): under autograd on the card "
+                "it would drop every gradient upstream of it; run it on the CPU, or under torch.no_grad()"
+            )
         return im2col_conv.conv2d_im2col(x, w, stride=stride)
     if x.device.type == "cpu":
         return im2col_conv.conv2d_im2col_plain(x, w, stride=stride)
@@ -119,7 +140,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Te
     -> (y [b, l, h, p], final state [b, h, p, n] fp32)."""
     if x.is_cuda:
         if _wants_grad(x, dt, A, B, C):
-            raise _no_backward("ssd_scan")
+            return _SsdScan.apply(x, dt, A, B, C, chunk)
         return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)

@@ -21,6 +21,14 @@ SM count (see the source note for both designs).
 
 :func:`ssd_scan_plain` uses the Pallas kernel's fp32 chunk arithmetic in
 PyTorch; the CPU path and the on-card checks use it.
+
+The backward (the reference has none in Pallas: it trains through XLA's
+gradient of ``ssd_chunked``): :func:`ssd_scan_bwd` runs two more kernels of
+``csrc/ssd_scan.cu``, the reverse scan ``ssd_scan_bwd_kernel`` (fp32 on the
+SIMT pipes in register tiles) and ``ssd_scan_bwd_sum_kernel``, which sums
+the per-block partials of dB, dC, ddt and dA in a fixed order (see the
+source note).  :func:`ssd_scan_bwd_plain` is the same function by its
+explicit formulas in fp32, for the CPU tests and the on-card checks.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import torch
 
 #: launches of the CUDA kernels since this count was last set to 0
 launches = 0
+#: calls of the backward's kernels (the reverse scan, the sum of its partials) since this count was last set to 0
+bwd_launches = 0
 
 #: the kernels of ``csrc/ssd_scan.cu``, indexed by the route code ``ssd_scan_fwd`` takes
 KERNELS = (
@@ -40,8 +50,10 @@ KERNELS = (
     "ssd_scan_kernel<__nv_bfloat16>",  # bf16 outside the tensor-core kernel's shapes
     "ssd_scan_mma_bf16_kernel",  # bf16 on the tensor cores
 )
-#: state rows over p per block of the SIMT kernel
-SIMT_P_TILE = 64
+#: state rows over p per block of the SIMT kernel, and of the backward's
+SIMT_P_TILE = BWD_P_TILE = 64
+#: the backward's largest chunk and state width (its register tiles: 64 rows, 128 columns)
+BWD_MAX_CHUNK, BWD_MAX_STATE = 64, 128
 #: what the tensor-core kernel compiles: chunks, state widths, p tiles (largest first)
 MMA_CHUNKS, MMA_STATES, MMA_P_TILES = (16, 32, 64), (64, 128), (64, 32, 16)
 #: bf16 terms the tensor-core kernel splits each product operand that is not exact in bf16 into (SSD_TERMS)
@@ -81,8 +93,9 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, to
     idx = torch.arange(chunk, device=x.device)
     causal = idx[:, None] >= idx[None, :]
     # intra-chunk: L[l, s] = exp(cum_l - cum_s) for l >= s, 0 above the diagonal
+    # (masked before the exp: exp of the positive differences above it overflows, and its gradient would be NaN)
     seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).permute(0, 1, 4, 2, 3)  # [b, c, h, l, s]
-    ldec = torch.where(causal, torch.exp(seg), torch.zeros((), device=x.device))
+    ldec = torch.exp(torch.where(causal, seg, float("-inf")))
     g = torch.einsum("bcln,bcsn->bcls", Cf, Bf)
     y = torch.einsum("bchls,bcshp->bclhp", g[:, :, None] * ldec, xdt)
     # inter-chunk: the carried state, then its update, in order
@@ -95,6 +108,73 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, to
         new = torch.einsum("blhp,bln->bhpn", decay_to_end[:, c, :, :, None] * xdt[:, c], Bf[:, c])
         state = state * torch.exp(cum[:, c, -1])[..., None, None] + new
     return torch.stack(ys, dim=1).reshape(b, l, h, p).to(x.dtype), state
+
+
+def ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
+    """The backward of :func:`ssd_scan_plain` by its explicit formulas in
+    fp32 chunk arithmetic.  dy: the gradient of y [b, l, h, p]; dstate: that
+    of the final state [b, h, p, n], or None where it is unused.  Returns
+    (dx, ddt, dA, dB, dC): dx, dB and dC in their inputs' types, ddt and dA
+    fp32.  Per (b, h) and chunk c, with cum the in-chunk cumulative sum of
+    dt·A, xdt = x·dt, H_c the state entering chunk c and dH_c its gradient:
+    - dH_c = exp(cum_last)·dH_{c+1} + Σ_l exp(cum_l)·dy_l ⊗ C_l, from dstate;
+    - dxdt_s = Σ_{l≥s} (C_l·B_s)·exp(cum_l − cum_s)·dy_l + exp(cum_last − cum_s)·dH_{c+1}·B_s;
+    - dC_l and dB_s sum over heads (B and C are shared by every head);
+    - d(cum) gathers every decay: the masked decay's rows minus its
+      columns, the carried state's output, the state update's weights,
+      and <dH_{c+1}, H_{c+1}> at the chunk's last step; ddt is its reverse
+      in-chunk cumulative sum times A plus dxdt·x, dA that sum times dt."""
+    _check_shapes(x, dt, A, B, C, chunk)
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    nc = l // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    Bf = B.float().reshape(b, nc, chunk, n)
+    Cf = C.float().reshape(b, nc, chunk, n)
+    dyf = dy.float().reshape(b, nc, chunk, h, p)
+    Af = A.float()
+    cum = torch.cumsum(dtf * Af, dim=2)  # [b, c, cl, h]
+    xdt = xf * dtf[..., None]
+    ecum = torch.exp(cum)
+    wend = torch.exp(cum[:, :, -1:, :] - cum)  # exp(cum_last - cum_s)
+    chunk_dec = torch.exp(cum[:, :, -1])  # [b, c, h]
+    # the states entering and leaving each chunk, as the forward carries them
+    own = torch.einsum("bclh,bclhp,bcln->bchpn", wend, xdt, Bf)
+    states = [torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)]
+    for c in range(nc):
+        states.append(states[-1] * chunk_dec[:, c, :, None, None] + own[:, c])
+    h_in, h_out = torch.stack(states[:-1], dim=1), torch.stack(states[1:], dim=1)  # [b, c, h, p, n]
+    # the state's gradient, in reverse: dh_out[:, c] is the gradient of the state leaving chunk c
+    into = torch.einsum("bclh,bclhp,bcln->bchpn", ecum, dyf, Cf)
+    dh = torch.zeros_like(states[0]) if dstate is None else dstate.float()
+    dh_out = [None] * nc
+    for c in reversed(range(nc)):
+        dh_out[c] = dh
+        dh = dh * chunk_dec[:, c, :, None, None] + into[:, c]
+    dh_out = torch.stack(dh_out, dim=1)
+    # within a chunk: L[l, s] = exp(cum_l - cum_s) for l >= s
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None]
+    ldec = torch.exp(torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :], float("-inf")))  # [b, c, l, s, h]
+    g = torch.einsum("bcln,bcsn->bcls", Cf, Bf)
+    w = ldec * torch.einsum("bclhp,bcshp->bclsh", dyf, xdt)  # L ∘ (dy_l · xdt_s)
+    dh_b = torch.einsum("bchpn,bcsn->bcshp", dh_out, Bf)
+    dxdt = torch.einsum("bcls,bclsh,bclhp->bcshp", g, ldec, dyf) + wend[..., None] * dh_b
+    dc_inter = torch.einsum("bclh,bclhp,bchpn->bclhn", ecum, dyf, h_in)
+    dC = torch.einsum("bclsh,bcsn->bcln", w, Bf) + dc_inter.sum(3)
+    dB = torch.einsum("bclsh,bcln->bcsn", w, Cf) + torch.einsum("bcsh,bcshp,bchpn->bcsn", wend, xdt, dh_out)
+    m = g[..., None] * w  # d(cum_l) gets its row, d(cum_s) loses its column
+    dcum = m.sum(3) - m.sum(2)
+    dcum = dcum + torch.einsum("bclhn,bcln->bclh", dc_inter, Cf)
+    dcum = dcum - wend * (xdt * dh_b).sum(-1)
+    dcum[:, :, -1] += (dh_out * h_out).sum((-2, -1))
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])  # reverse in-chunk cumulative sum
+    ddt = dla * Af + (dxdt * xf).sum(-1)
+    dA = (dla * dtf).sum((0, 1, 2))
+    dx = dxdt * dtf[..., None]
+    return (dx.reshape(b, l, h, p).to(x.dtype), ddt.reshape(b, l, h), dA,
+            dB.reshape(b, l, n).to(B.dtype), dC.reshape(b, l, n).to(C.dtype))
 
 
 def simt_smem_bytes(chunk: int, n: int, p_tile: int) -> int:
@@ -249,6 +329,77 @@ def _launch(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torch
     return y, state
 
 
+def bwd_smem_bytes(chunk: int, n: int, p_tile: int) -> int:
+    """Dynamic shared memory of one ``ssd_scan_bwd_kernel`` block
+    (``bwd_smem_floats`` in the source): B, C, x and dy of a chunk (fp32,
+    rows padded by one), the state and its gradient, three [chunk, chunk]
+    panels, seven per-step vectors and the reduction's scratch."""
+    return 4 * (2 * chunk * (n + 1) + 2 * chunk * (p_tile + 1) + 2 * p_tile * (n + 1) + 3 * chunk * (chunk + 1)
+                + 7 * chunk + 32)
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
+    """The backward on the CUDA kernels: (dx, ddt, dA, dB, dC) of
+    :func:`ssd_scan` from its inputs (as :func:`ssd_scan` takes them, B and
+    C strided slices included), dy, the gradient of y [b, l, h, p] of x's
+    type with unit stride over p, and dstate, that of the final state
+    (contiguous fp32 [b, h, p, n]) or None.  The same function as
+    :func:`ssd_scan_bwd_plain`; dx, dB and dC contiguous in their inputs'
+    type, ddt and dA fp32.
+
+    ``ssd_scan_bwd_kernel`` (fp32 FMA on the SIMT pipes over register
+    tiles, one block per (batch, head, :data:`BWD_P_TILE` rows over p),
+    chunk and state width up to :data:`BWD_MAX_CHUNK` and
+    :data:`BWD_MAX_STATE`) writes dx and each block's partial dB, dC, ddt
+    and dA; ``ssd_scan_bwd_sum_kernel`` sums the
+    partials in a fixed order, so two calls give the same bits.  Launches
+    both on the current stream without synchronising (one count in
+    ``bwd_launches``); raises if the inputs are not what the kernels take or
+    a launch is refused.
+    """
+    global bwd_launches
+    _check(x, dt, A, B, C, chunk)
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or dy.stride(3) != 1:
+        raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)} on {x.device} with unit stride over p, got "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}, strides {dy.stride()}")
+    if dstate is not None and (dstate.shape != (b, h, p, n) or dstate.dtype != torch.float32
+                               or dstate.device != x.device or not dstate.is_contiguous()):
+        raise ValueError(f"dstate must be contiguous fp32 [{b}, {h}, {p}, {n}] on {x.device}, got {dstate.dtype} "
+                         f"{tuple(dstate.shape)} on {dstate.device}")
+    if chunk > BWD_MAX_CHUNK or n > BWD_MAX_STATE:
+        raise ValueError(f"the backward takes chunks up to {BWD_MAX_CHUNK} and states up to {BWD_MAX_STATE}, "
+                         f"got chunk {chunk}, state {n}")
+    pt = min(p, BWD_P_TILE)
+    n_pt = -(-p // pt)
+    smem = bwd_smem_bytes(chunk, n, pt)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"chunk {chunk} with state {n} needs {smem} B of shared memory per block in the backward "
+                         f"(at most {MAX_SMEM_BYTES})")
+    if b * h * n_pt > 2**31 - 1:
+        raise ValueError(f"grid too large for x {tuple(x.shape)}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    ddt, dA = torch.empty((b, l, h), **f32), torch.empty((h,), **f32)
+    dB, dC = torch.empty((b, l, n), dtype=B.dtype, device=x.device), torch.empty((b, l, n), dtype=C.dtype, device=x.device)
+    hs = torch.empty((b * h * n_pt, l // chunk, pt, n), **f32)
+    pdB, pdC = torch.empty((b, l, h * n_pt, n), **f32), torch.empty((b, l, h * n_pt, n), **f32)
+    pddt, pdA = torch.empty((b, l, h, n_pt), **f32), torch.empty((b, h, n_pt), **f32)
+    err = _bwd_kernel()(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), hs.data_ptr(), pdB.data_ptr(), pdC.data_ptr(), pddt.data_ptr(),
+        pdA.data_ptr(), _DTYPES[x.dtype], b, l, h, p, n, chunk, pt,
+        *x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1), C.stride(0), C.stride(1), *dy.stride()[:3],
+        torch._C._cuda_getCurrentRawStream(x.device.index),
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
 def occupancy(n: int, p_tile: int, chunk: int) -> int:
     """Blocks of ``ssd_scan_mma_bf16_kernel<n, p_tile>`` at ``chunk`` one SM
     of the current card holds at once."""
@@ -270,6 +421,14 @@ def library() -> ctypes.CDLL:
     from .build import library as load
 
     return load("ssd_scan")
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = library().ssd_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache

@@ -8,8 +8,8 @@ async checkpoints -> fault supervision, with the same arguments, plus
 ``device`` (the card unless the caller asks for the CPU).  Weights are drawn
 by ``init_params(cfg, torch.Generator(device).manual_seed(seed))`` where the
 reference draws from ``PRNGKey(seed)``; the two give different weights.
-The step runs eagerly (no ``jit``).  On the card, ``ssd`` and ``hybrid``
-models raise: the SSD scan has no backward kernel yet.
+The step runs eagerly (no ``jit``).  Every architecture trains on the card
+and on the CPU.
 """
 
 from __future__ import annotations

@@ -11,9 +11,8 @@ on :func:`repro_torch.kernels.ops.ssd_scan` and the MoE expert products
 (prefill, decode and training) on :func:`repro_torch.kernels.ops.gemm`, all
 reached through the ``ops`` module attribute: a CUDA tensor launches the
 hand-written kernel, a CPU tensor runs its plain version.  Under autograd
-on the card, attention's and the expert products' gradients run on kernels
-too, and the SSD scan raises (it has no backward kernel yet), so ``ssd`` and
-``hybrid`` models train on the CPU only.  One-token decode
+on the card, the gradients of attention, the SSD scan and the expert
+products run on hand-written backward kernels too.  One-token decode
 (:func:`attention_decode`, :func:`cross_attention_decode`,
 :func:`ssd_decode`) is plain PyTorch, as the reference computes it outside
 any Pallas kernel.

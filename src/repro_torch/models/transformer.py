@@ -16,10 +16,9 @@ patch prefix (internvl: projected patch embeddings before the tokens).
     ``cfg.accum_dtype``) and the optimizer's update.  Remat ``"full"`` is
     ``torch.utils.checkpoint`` per layer, as the reference checkpoints its
     scan body.  On the card, attention and its gradient run on the flash
-    kernels and the MoE expert products and their gradients on the GEMM
-    kernel (``kernels/ops.py``); ``ssd`` and ``hybrid`` models train on the
-    CPU only until the SSD scan has a backward kernel (on the card they
-    raise).  Layers are taken with one ``torch.unbind`` of each ``[L, ...]``
+    kernels, the SSD scan and its gradient on the scan's kernels, and the
+    MoE expert products and their gradients on the GEMM kernel
+    (``kernels/ops.py``).  Layers are taken with one ``torch.unbind`` of each ``[L, ...]``
     stack a step, whose backward is one ``stack``: indexing the stack per
     layer would materialise a zero tensor of the whole stack per layer in
     the backward.

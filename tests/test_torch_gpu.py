@@ -830,19 +830,67 @@ def test_gemm_gradient_runs_the_kernel_twice_and_matches_plain(dtype):
 
 
 def test_ssd_scan_and_conv_raise_under_autograd_on_the_card():
+    """Only the conv raises under autograd on the card now: the SSD scan runs
+    its forward kernel and its backward kernel, and a smoke mamba2 trains."""
     x, dt, A, B, C = _ssd(1, 32, 2, 16, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ops.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=8)
+    before = ssd.launches, ssd.bwd_launches
+    y, _ = ops.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=8)
+    y.sum().backward()
+    assert (ssd.launches, ssd.bwd_launches) == (before[0] + 1, before[1] + 1) and torch.isfinite(x.grad).all()
     with torch.no_grad():
         assert ops.ssd_scan(x, dt, A, B, C, chunk=8)[0].shape == x.shape
     xc, wc = _inputs((1, 8, 8, 4), (3, 3, 4, 8))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
         ops.conv2d_im2col(xc, wc.requires_grad_())
-    with pytest.raises(NotImplementedError):
-        train(get_smoke("mamba2-130m"), steps=1, batch=2, seq=16, device="cuda")
+    losses = train(get_smoke("mamba2-130m"), steps=2, batch=2, seq=16, log_every=0, device="cuda")["losses"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "phi3.5-moe-42b", "whisper-small", "internvl2-76b"])
+SSD_BWD_CASES = [
+    (4, 512, 24, 64, 128, 64, torch.bfloat16, True, False),  # mamba2-130m's training shape
+    (4, 512, 80, 64, 64, 64, torch.bfloat16, True, False),  # zamba2-2.7b's
+    (4, 512, 24, 64, 128, 64, torch.float32, False, True),
+    (2, 128, 3, 100, 32, 64, torch.float32, False, True),  # a ragged p tile
+    (2, 64, 4, 16, 16, 8, torch.bfloat16, True, True),  # the smoke configs' chunk 8
+    (2, 128, 2, 16, 8, 16, torch.float32, True, False),
+    (3, 96, 5, 48, 64, 32, torch.bfloat16, False, True),
+]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,dtype,strided,with_state", SSD_BWD_CASES)
+def test_ssd_backward_matches_plain_and_gives_the_same_bits_twice(b, l, h, p, n, chunk, dtype, strided, with_state):
+    x, dt, A, B, C = _ssd(b, l, h, p, n, dtype, strided=strided)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+    dstate = torch.randn((b, h, p, n), generator=g, device="cuda") if with_state else None
+    before = ssd.bwd_launches
+    got = ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    again = ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.bwd_launches == before + 2
+    want = ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32, dtype, dtype]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for gt, w in zip(got, want):
+        _agree(gt, w, 2e-3, dtype == torch.float32 or gt.dtype == torch.float32)
+
+
+@pytest.mark.parametrize("use_state", [False, True])
+def test_ssd_scan_gradient_runs_both_kernels_and_matches_the_plain_path(use_state):
+    x, dt, A, B, C = _ssd(2, 128, 4, 64, 64, torch.bfloat16, strided=True)
+    ins = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
+    dy = torch.randn(x.shape, device="cuda").to(torch.bfloat16)
+    before = ssd.launches, ssd.bwd_launches
+    y, state = ops.ssd_scan(*ins, chunk=64)
+    loss = (y.float() * dy.float()).sum() + (state.sum() if use_state else 0.0)
+    got = torch.autograd.grad(loss, ins)
+    assert (ssd.launches, ssd.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, torch.ones_like(state) if use_state else None, chunk=64)
+    assert all(_rel_err(gt, w) <= 1e-2 for gt, w in zip(got, want))
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "phi3.5-moe-42b", "whisper-small", "internvl2-76b",
+                                  "mamba2-130m", "zamba2-2.7b"])
 def test_smoke_train_step_on_the_card_matches_the_cpu(arch):
     """One ``make_train_step`` (AdamW, fp32 moments) in fp32 on each device,
     the same weights and batch: the losses within LM_TOL's fp32 1e-3."""
@@ -854,8 +902,10 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(arch):
         p = {k: ({kk: vv.to(dev, copy=True) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev, copy=True))
              for k, v in params.items()}
         opt = AdamW(AdamWConfig(moment_dtype=torch.float32, total_steps=4, warmup=1))
-        before = fa.bwd_launches
+        before = fa.bwd_launches, ssd.bwd_launches
         _, _, m = transformer.make_train_step(cfg, opt)(p, opt.init(p), {k: v.to(dev) for k, v in batch.items()})
         out[dev] = float(m["loss"])
-        assert (fa.bwd_launches > before) == (dev == "cuda")
+        attn, scan = cfg.block_kind != "ssd", cfg.block_kind != "attn"
+        assert (fa.bwd_launches > before[0]) == (dev == "cuda" and attn)
+        assert (ssd.bwd_launches > before[1]) == (dev == "cuda" and scan)
     assert abs(out["cuda"] - out["cpu"]) <= 1e-3 * abs(out["cpu"])

@@ -1,0 +1,242 @@
+"""The port's SSD-scan gradient against ``jax.grad`` of the reference's scan, on the CPU.
+
+The reference has no backward kernel: it trains through XLA's gradient of
+``blocks.ssd_chunked``, so that gradient is the specification of the
+port's backward.  ``ssd_scan_bwd_plain`` (the explicit formulas the CUDA
+backward computes) is held to it at the reference's SSD tolerance, 2e-3,
+and to autograd through ``ssd_scan_plain`` to fp32 round-off (1e-4 of each
+gradient's max).  Inputs are seeded numpy, fp32 on both sides (bf16 cases
+round the inputs to bf16 first and give both sides the same values).  The
+autograd Function that puts the kernels on the training path is run here
+with both kernel calls swapped for their plain versions.  The CUDA kernels
+themselves are held to ``ssd_scan_bwd_plain`` by ``tests/test_torch_gpu.py``
+and ``chip_smoke.py`` on the card.
+"""
+
+import functools
+from unittest import mock
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # CI installs requirements-dev.txt, which has no torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.models import blocks as jblocks
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
+
+SSD_TOL = dict(rtol=2e-3, atol=2e-3)
+#: fp32 round-off: the two sides sum the same terms in other orders
+ROUNDOFF = 1e-4
+NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+# (b, l, h, p, n, chunk): chunks 8, 16 and 64; p that the kernel's p tile
+# (BWD_P_TILE, 64) divides and p that it does not (100); one chunk and several
+GRID = [
+    (2, 32, 3, 16, 16, 8),
+    (2, 64, 2, 8, 16, 16),
+    (1, 128, 2, 64, 32, 64),
+    (1, 64, 2, 100, 8, 64),
+    (2, 48, 4, 16, 8, 16),
+]
+
+
+def _inputs(b, l, h, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, h, p), dtype=np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, l, h), dtype=np.float32), 0).astype(np.float32)  # softplus
+    A = -np.exp(0.5 * rng.standard_normal(h, dtype=np.float32))
+    B = rng.standard_normal((b, l, n), dtype=np.float32)
+    C = rng.standard_normal((b, l, n), dtype=np.float32)
+    dy = rng.standard_normal((b, l, h, p), dtype=np.float32)
+    dstate = rng.standard_normal((b, h, p, n), dtype=np.float32)
+    return x, dt, A, B, C, dy, dstate
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """``a`` rounded to bf16, as fp32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+@functools.cache
+def _jax_grad_fn(chunk: int, with_state: bool):
+    def loss(x, dt, A, B, C, dy, dstate):
+        y, state = jblocks.ssd_chunked(x, dt, A, B, C, chunk, return_state=True)
+        out = jnp.sum(y * dy)
+        return out + jnp.sum(state * dstate) if with_state else out
+
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))
+
+
+def _jax_grads(x, dt, A, B, C, dy, dstate, chunk):
+    """``jax.grad`` of <y, dy> (+ <final state, dstate>) through the reference's ``ssd_chunked``."""
+    with_state = dstate is not None
+    args = (x, dt, A, B, C, dy, dstate if with_state else np.zeros((1,), np.float32))
+    return [np.asarray(g) for g in _jax_grad_fn(chunk, with_state)(*(jnp.asarray(a) for a in args))]
+
+
+def _autograd(x, dt, A, B, C, dy, dstate, chunk):
+    """Autograd through ``ssd_scan_plain`` of the same loss."""
+    ins = [t.detach().float().requires_grad_() for t in (x, dt, A, B, C)]
+    y, state = ssd.ssd_scan_plain(*ins, chunk=chunk)
+    loss = (y * dy.float()).sum() + ((state * dstate).sum() if dstate is not None else 0.0)
+    return torch.autograd.grad(loss, ins)
+
+
+def _near(got, want, rel: float, what: str) -> None:
+    for name, g, w in zip(NAMES, got, want, strict=True):
+        g, w = g.float(), torch.as_tensor(w).float()
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        assert err <= rel * scale, f"{what}: {name} off by {err} (max |want| {scale})"
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("b,l,h,p,n,chunk", GRID)
+def test_bwd_plain_matches_jax_grad_of_ssd_chunked(b, l, h, p, n, chunk, with_state):
+    x, dt, A, B, C, dy, dstate = _inputs(b, l, h, p, n)
+    dstate = dstate if with_state else None
+    got = ssd.ssd_scan_bwd_plain(*_t(x, dt, A, B, C, dy), None if dstate is None else _t(dstate)[0], chunk=chunk)
+    want = _jax_grads(x, dt, A, B, C, dy, dstate, chunk)
+    assert [g.dtype for g in got] == [torch.float32] * 5
+    assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    for name, g, w in zip(NAMES, got, want):
+        torch.testing.assert_close(g, torch.from_numpy(w), **SSD_TOL, msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("b,l,h,p,n,chunk", GRID)
+def test_bwd_plain_matches_autograd_through_the_plain_scan(b, l, h, p, n, chunk, with_state):
+    x, dt, A, B, C, dy, dstate = _t(*_inputs(b, l, h, p, n, seed=1))
+    dstate = dstate if with_state else None
+    got = ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    _near(got, _autograd(x, dt, A, B, C, dy, dstate, chunk), ROUNDOFF, "against autograd")
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_bwd_plain_in_bf16_matches_jax_grad(chunk):
+    """bf16 x, B, C and dy: dx, dB and dC come back in bf16, ddt and dA in
+    fp32, within the reference's tolerance of ``jax.grad`` in fp32 on the
+    same bf16 values; the bf16 outputs also within the one rounding to bf16
+    they take last (2^-8 relative at most)."""
+    x, dt, A, B, C, dy, dstate = _inputs(2, 128, 3, 32, 16, seed=2)
+    x, B, C, dy = (_bf16(a) for a in (x, B, C, dy))
+    bf = torch.bfloat16
+    got = ssd.ssd_scan_bwd_plain(*(t.to(bf) for t in _t(x)), *_t(dt, A), *(t.to(bf) for t in _t(B, C, dy)),
+                                 _t(dstate)[0], chunk=chunk)
+    assert [g.dtype for g in got] == [bf, torch.float32, torch.float32, bf, bf]
+    want = _jax_grads(x, dt, A, B, C, dy, dstate, chunk)
+    for name, g, w in zip(NAMES, got, want):
+        tol = dict(SSD_TOL, rtol=SSD_TOL["rtol"] + 2.0**-8) if g.dtype == bf else SSD_TOL
+        torch.testing.assert_close(g.float(), torch.from_numpy(w), **tol, msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_bwd_plain_takes_b_and_c_sliced_from_one_projection():
+    """x, B and C as ``ssd_block`` passes them: strided views of one
+    projection.  dB and dC come back contiguous, equal to the contiguous
+    inputs' gradients."""
+    b, l, h, p, n, chunk = 2, 64, 3, 16, 8, 16
+    x, dt, A, B, C, dy, dstate = _inputs(b, l, h, p, n, seed=3)
+    proj = torch.from_numpy(np.concatenate([x.reshape(b, l, h * p), B, C], axis=-1))
+    xs, Bs, Cs = proj[..., : h * p].reshape(b, l, h, p), proj[..., h * p : h * p + n], proj[..., h * p + n :]
+    assert not Bs.is_contiguous() and not Cs.is_contiguous()
+    got = ssd.ssd_scan_bwd_plain(xs, *_t(dt, A), Bs, Cs, *_t(dy, dstate), chunk=chunk)
+    want = ssd.ssd_scan_bwd_plain(*_t(x, dt, A, B, C, dy, dstate), chunk=chunk)
+    assert got[3].is_contiguous() and got[4].is_contiguous()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for name, g, w in zip(NAMES, got, _jax_grads(x, dt, A, B, C, dy, dstate, chunk)):
+        torch.testing.assert_close(g, torch.from_numpy(w), **SSD_TOL, msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("p,p_tile", [(64, 64), (100, 64), (48, 16)])
+def test_partials_over_p_tiles_sum_to_the_whole(p, p_tile):
+    """What the kernel's layout rests on: the state's rows over p are
+    independent, so the backward of each p tile alone gives that tile's dx
+    and partial dB, dC, ddt and dA, which sum over the tiles (the second
+    kernel's fixed-order sum) to the whole."""
+    x, dt, A, B, C, dy, dstate = _t(*_inputs(2, 64, 3, p, 16, seed=4))
+    whole = ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=16)
+    parts = [ssd.ssd_scan_bwd_plain(x[..., r : r + p_tile], dt, A, B, C, dy[..., r : r + p_tile],
+                                    dstate[:, :, r : r + p_tile], chunk=16) for r in range(0, p, p_tile)]
+    joined = [torch.cat([q[0] for q in parts], dim=-1)] + [sum(q[i] for q in parts) for i in range(1, 5)]
+    _near(joined, whole, ROUNDOFF, f"p tiles of {p_tile} over p {p}")
+
+
+def test_plain_scan_gradient_is_finite_where_the_decay_spans_more_than_fp32():
+    """Autograd through ``ssd_scan_plain`` at chunk 64 where the log decay
+    over a chunk passes fp32's exponent range: the masked panel's
+    exponentials above the diagonal overflow, and masking after the exp
+    gave NaN gradients of dt and A where ``jax.grad`` of ``ssd_chunked``
+    (which masks before) gives finite ones."""
+    x, dt, A, B, C, dy, dstate = _inputs(1, 128, 2, 8, 16, seed=5)
+    dt = dt * 4.0
+    x_, dt_, A_, B_, C_, dy_, ds_ = _t(x, dt, A, B, C, dy, dstate)
+    cum = torch.cumsum(dt_[0, :64] * A_, dim=0)
+    assert (cum[0] - cum[-1]).max().item() > 88.7  # exp of it overflows fp32
+    got = _autograd(x_, dt_, A_, B_, C_, dy_, ds_, 64)
+    assert all(torch.isfinite(g).all() for g in got)
+    for name, g, w in zip(NAMES, got, _jax_grads(x, dt, A, B, C, dy, dstate, 64)):
+        torch.testing.assert_close(g, torch.from_numpy(w), **SSD_TOL, msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use", ["y and state", "y", "state"])
+def test_autograd_function_matches_the_plain_path(use, dtype):
+    """``ops._SsdScan`` with both kernel calls swapped for their plain
+    versions: its gradients equal autograd through the plain scan, which
+    catches a swapped output, a wrong cast or a dropped dstate; the
+    backward gets dstate None where the final state is unused, and dy of
+    zeros where only the state is."""
+    x, dt, A, B, C, dy, dstate = _t(*_inputs(2, 32, 3, 16, 8, seed=6))
+    x, B, C, dy = (t.to(dtype) for t in (x, B, C, dy))
+    seen = []
+
+    def bwd(*args, chunk):
+        seen.append(args[-1])
+        return ssd.ssd_scan_bwd_plain(*args, chunk=chunk)
+
+    def loss(y, state):
+        out = torch.zeros((), dtype=torch.float32)
+        if "y" in use:
+            out = out + (y.float() * dy.float()).sum()
+        if "state" in use:
+            out = out + (state * dstate).sum()
+        return out
+
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    with mock.patch.object(ssd, "ssd_scan", ssd.ssd_scan_plain), mock.patch.object(ssd, "ssd_scan_bwd", bwd):
+        got = torch.autograd.grad(loss(*ops._SsdScan.apply(*ins, 8)), ins)
+    assert (seen[0] is None) == (use == "y")
+    ref = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    want = torch.autograd.grad(loss(*ssd.ssd_scan_plain(*ref, chunk=8)), ref, allow_unused=True)
+    want = [torch.zeros_like(t) if w is None else w for w, t in zip(want, ref)]  # the state alone does not read C
+    assert [g.dtype for g in got] == [t.dtype for t in ins]
+    # bf16: the Function rounds dx, dB and dC to bf16 once, autograd through the plain scan at each cast
+    _near(got, want, ROUNDOFF if dtype == torch.float32 else 1e-2, f"{use}, {dtype}")
+
+
+def test_ops_ssd_scan_on_the_cpu_stays_on_the_plain_path_under_autograd():
+    x, dt, A, B, C, _, _ = _t(*_inputs(1, 16, 2, 8, 8, seed=7))
+    x.requires_grad_()
+    y, _ = ops.ssd_scan(x, dt, A, B, C, chunk=8)
+    assert y.grad_fn is not None and "SsdScan" not in type(y.grad_fn).__name__
+
+
+def test_bwd_wrapper_refuses_cpu_tensors():
+    x, dt, A, B, C, dy, _ = _t(*_inputs(1, 16, 2, 8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=8)
+
+
+@pytest.mark.parametrize("arch_n", [128, 64])
+def test_bwd_block_fits_shared_memory_at_the_training_shapes(arch_n):
+    """mamba2-130m (state 128) and zamba2-2.7b (state 64) at chunk 64, p 64:
+    one backward block's shared memory fits the H100's 227 KB."""
+    assert ssd.bwd_smem_bytes(64, arch_n, min(64, ssd.BWD_P_TILE)) <= ssd.MAX_SMEM_BYTES

@@ -240,3 +240,28 @@ def test_chip_smoke_training_check_sees_its_attention_faults(arch):
     assert readings["no delta"]["loss"] == 0 and no_delta["blocks/wv"] < 1e-5
     assert min(no_delta["blocks/wq"], no_delta["blocks/wk"]) > cs.TRAIN_GRAD_TOL
     assert readings["not causal"]["loss"] > cs.TRAIN_LOSS_TOL
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-130m", 1), ("zamba2-2.7b", 2)])
+def test_chip_smoke_training_check_sees_its_ssd_faults(arch, layers):
+    """``chip_smoke.train_readings`` with SSD_TRAIN_CONTROLS on the CPU (the
+    smoke configs: chunk 8 over 32 positions, four chunks), where the kernel
+    path is the plain versions: it reads 0; both faults are in the backward
+    alone, so they keep the loss; the carried state's gradient dropped
+    across chunks, and ddt without its decay term (at ``dt_bias``, whose
+    gradient is ddt's alone), each move some leaf past both models' SSD
+    gradient limits."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32, n_layers=layers)
+    params = lm_common.init_params(cfg, torch.Generator().manual_seed(6), "cpu")
+    readings = cs.train_readings(cfg, params, _t(_batch(cfg, 2, 32, seed=7, masked=False)), cs.SSD_TRAIN_CONTROLS)
+    assert readings["kernel"]["loss"] == 0 and set(readings["kernel"]["leaves"].values()) == {0.0}
+    limit = max(cs.SSD_TRAIN_GRAD_TOL.values())
+    for fault in cs.SSD_TRAIN_CONTROLS:
+        assert readings[fault]["loss"] == 0 and max(readings[fault]["leaves"].values()) > limit
+    assert readings["ddt without decay"]["leaves"]["blocks/dt_bias"] > limit

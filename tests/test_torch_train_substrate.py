@@ -296,6 +296,44 @@ def test_supervisor_gives_up_after_max_restores(tmp_path):
             {"x": torch.tensor(0.0)}, lambda s, t: (s, float("nan")), n_steps=2)
 
 
+def test_supervisor_waits_for_a_save_in_flight_before_restoring(tmp_path, monkeypatch):
+    """A departure from the reference, on purpose.  Each store's write is
+    slowed by 0.5 s, checkpoints every 2 steps, and step 2 gives a NaN loss
+    the first time, while the save of step 2 is still being written.  The
+    reference's supervisor looks for a checkpoint without waiting and
+    raises; the port's waits for the save, restores step 2 and finishes."""
+    import time
+
+    def slowed(write):
+        def slow(self, *args):
+            time.sleep(0.5)
+            return write(self, *args)
+        return slow
+
+    monkeypatch.setattr(JCheckpointStore, "_write", slowed(JCheckpointStore._write))
+    monkeypatch.setattr(CheckpointStore, "_write", slowed(CheckpointStore._write))
+
+    def poisoned(add):
+        seen = set()
+
+        def step_fn(state, step):
+            v = add(state["x"])
+            if step == 2 and step not in seen:
+                seen.add(step)
+                return {"x": v}, float("nan")
+            return {"x": v}, float(v)
+        return step_fn
+
+    from repro.runtime import TrainSupervisor as JTrainSupervisor
+
+    with pytest.raises(RuntimeError, match="no checkpoint to restore"):
+        JTrainSupervisor(store=JCheckpointStore(tmp_path / "ref"), save_every=2).run(
+            {"x": jnp.asarray(0.0)}, poisoned(lambda x: x + 1.0), n_steps=4)
+    state, losses = TrainSupervisor(store=CheckpointStore(tmp_path / "port"), save_every=2).run(
+        {"x": torch.tensor(0.0)}, poisoned(lambda x: x + 1.0), n_steps=4)
+    assert losses == [1.0, 2.0, 3.0, 4.0] and float(state["x"]) == 4.0
+
+
 def test_supervisor_checkpoints_written(tmp_path):
     store = CheckpointStore(tmp_path)
     _, losses = TrainSupervisor(store=store, save_every=2).run(
