@@ -10,8 +10,10 @@ repository's sources are not beside this script.  Otherwise, in order:
    (one ``nvcc`` per source, all at once) and prints ``ptxas -v``'s
    registers, shared memory and spills; fails unless both flash forward
    kernels (``flash_fwd_mma_bf16_kernel``, the fp32 ``flash_fwd_kernel``)
-   compiled at every head dim with no spill, and unless the GEMM's ``gemm_wgmma_bf16_kernel`` compiled with no
-   spill and no ``wgmma`` made to wait by ``ptxas`` (C7517, C7518), and
+   compiled at every head dim with no spill, and unless every instantiation of the GEMM's
+   ``gemm_wgmma_bf16_kernel`` (clusters of 1 and 2, each pair of operand
+   majors, each schedule) compiled with no spill and no ``wgmma`` made to wait by
+   ``ptxas`` (C7517, C7518), and
    unless every conv kernel (each tile of ``im2col_conv.TILES``, 16-byte
    and 4-byte copies, and the split sum) compiled with no spill, printing
    the blocks of each one SM holds, and unless the tensor-core SSD scan
@@ -123,7 +125,9 @@ repository's sources are not beside this script.  Otherwise, in order:
    the reference's tolerances), at capacities around the wgmma tile's
    edges (M 17, 100, 321, K 4104, N 6408 and 6392, batch 1 and 16: an odd
    and an even count of column tiles), on a layer slice
-   of a stacked expert tensor, and at the MoE main path's shapes in bf16
+   of a stacked expert tensor, each also with A, B or both as transposed
+   views (every wgmma instantiation; fp32, decode and unaligned rows copied
+   first, and nowhere else), and at the MoE main path's shapes in bf16
    (phi3.5-moe prefill capacity 320 and decode capacity 8, llama4-scout
    prefill capacity 160 and decode capacity 8, 16 experts in one launch);
    at each main shape fails unless prefill ran ``gemm_wgmma_bf16_kernel``
@@ -168,8 +172,11 @@ repository's sources are not beside this script.  Otherwise, in order:
 12. the ``gemm`` gradient (``check_gemm_grad``): ``ops.gemm``'s autograd
    Function at phi3.5-moe's training shapes (16 experts, capacity 320, d
    4096, d_ff 6400, bf16), dA and dB against ``gemm_plain`` at GEMM_TOL,
-   the kernel each backward product runs, its time against ``torch.bmm``
-   on the transposed views and the transposed copies' time alone;
+   two calls the same bits; fails unless dA ran the wgmma instantiation
+   that reads Bᵀ K-major and dB the one that reads Aᵀ MN-major, the
+   wrapper copied nothing and the profiled backward ran those two kernels
+   and nothing else; its device time (and dA's and dB's alone) against
+   ``torch.bmm`` on the transposed views and the bound;
 13. drives the training main path (``drive_train``): ``launch.train.train``
    on ``cuda`` in bf16, batch 4 of 512 tokens from the data pipeline,
    TRAIN_STEPS steps, for granite-3-2b, mamba2-130m and zamba2-2.7b at
@@ -501,16 +508,21 @@ def check_flash_bwd_ptxas() -> None:
 
 
 def check_gemm_ptxas() -> None:
-    """Fail unless ``ptxas`` compiled ``gemm_wgmma_bf16_kernel`` with no
-    spill and without making its ``wgmma`` wait: C7518 (a wgmma under a
-    branch ptxas cannot prove warp-uniform is serialised) and C7517 (a
-    wait injected where other code touches registers a wgmma in flight
-    defines); print its registers."""
-    seen = {int(c): v for c, v in _ptxas_entries("gemm", r"gemm_wgmma_bf16_kernelILi(\d+)EE").items()}
-    for cluster, (regs, st, ld) in sorted(seen.items()):
-        print(f"[build] gemm_wgmma_bf16_kernel<{cluster}>: {regs} registers, spill stores {st} B, spill loads {ld} B")
-    if sorted(seen) != [1, 2]:
-        raise RuntimeError(f"ptxas compiled gemm_wgmma_bf16_kernel for clusters of {sorted(seen)}, want [1, 2]")
+    """Fail unless ``ptxas`` compiled every instantiation of
+    ``gemm_wgmma_bf16_kernel`` (clusters of 1 and 2, each pair of operand
+    majors and each schedule: ``gemm.KERNELS``) with no spill and without making its ``wgmma``
+    wait: C7518 (a wgmma under a branch ptxas cannot prove warp-uniform is
+    serialised) and C7517 (a wait injected where other code touches
+    registers a wgmma in flight defines); print their registers."""
+    seen = {tuple(int(v) for v in re.findall(r"Li(\d+)E", n)): v
+            for n, v in _ptxas_entries("gemm", r"gemm_wgmma_bf16_kernelI((?:Li\d+E)+)E").items()}
+    for args, (regs, st, ld) in sorted(seen.items()):
+        print(f"[build] gemm_wgmma_bf16_kernel<{', '.join(map(str, args))}>: {regs} registers, spill stores {st} B, "
+              f"spill loads {ld} B")
+    layouts = [tuple(int(v) for v in re.findall(r"\d", k.split("<C, ")[1])) for k in gm.KERNELS if "<C, " in k]
+    want = sorted((c, *layout) for c in (1, 2) for layout in layouts)
+    if sorted(seen) != want:
+        raise RuntimeError(f"ptxas compiled gemm_wgmma_bf16_kernel<{sorted(seen)}>, want {want}")
     spilled = {c: v for c, v in seen.items() if v[1] or v[2]}
     if spilled:
         raise RuntimeError(f"gemm_wgmma_bf16_kernel spills: {spilled}")
@@ -1091,19 +1103,44 @@ def check_ssd(gen: torch.Generator) -> dict:
     }
 
 
+def _gemm_operand(shape, dt, gen: torch.Generator, transposed: bool, scale: float = 1.0) -> torch.Tensor:
+    """A random operand of ``shape`` on the card: as stored, or (``transposed``)
+    the transposed view of one stored with its last two dims swapped, unit
+    stride over its second-to-last dim.  A 4-D shape is an [L, E, ...]
+    stack, of which layer 1 is returned (a view at a nonzero offset)."""
+    stored = (*shape[:-2], shape[-1], shape[-2]) if transposed else shape
+    t = (torch.randn(stored, generator=gen, device="cuda") * scale).to(dt)
+    t = t[1] if len(shape) == 4 else t
+    return t.transpose(-1, -2) if transposed else t
+
+
 def check_gemm(gen: torch.Generator) -> dict:
-    """Phase 9 for ``gemm``: parity everywhere, the kernel each main shape
-    runs, times at the MoE main path's shapes.  The kernels-line row is one
+    """Phase 9 for ``gemm``: parity everywhere, operands as stored and as
+    transposed views (the backward's), the kernel each main shape runs,
+    times at the MoE main path's shapes.  The kernels-line row is one
     phi3.5-moe layer's expert products: its prefill (gate, up, down) plus one
     decode step (gate, up, down)."""
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [((m, k), (k, n), dt, "reference grid")  # tests/test_kernels.py
-             for m, k, n in ((64, 64, 64), (200, 300, 150), (128, 512, 256), (33, 65, 17)) for dt in (f32, bf16)]
-    cases += [((3, 33, 65), (3, 65, 17), dt, "batched, ragged") for dt in (f32, bf16)]
+    grid = [((m, k), (k, n)) for m, k, n in ((64, 64, 64), (200, 300, 150), (128, 512, 256), (33, 65, 17))]
+    # (a, b, type, label, a transposed, b transposed)
+    cases = [(sa, sb, dt, "reference grid", False, False) for sa, sb in grid for dt in (f32, bf16)]  # tests/test_kernels.py
+    cases += [((3, 33, 65), (3, 65, 17), dt, "batched, ragged", False, False) for dt in (f32, bf16)]
+    # transposed views: the wgmma instantiation of each pair of majors where the TMA can address the rows; fp32,
+    # M <= 16 and unaligned rows copied to the one layout their kernels read
+    cases += [(sa, sb, dt, "reference grid, transposed", ta, tb) for sa, sb in grid for dt in (f32, bf16)
+              for ta, tb in ((True, False), (False, True), (True, True))]
+    cases += [((16, 8, 264), (16, 264, 136), bf16, "decode, transposed", ta, tb)
+              for ta, tb in ((True, False), (False, True))]
     # the wgmma tile's edges: M past 16 and past whole 192-row tiles, K and N not whole 64 / 128 tiles
-    cases += [((e, m, 4104), (e, 4104, n), bf16, "wgmma tile edges")  # 51 column tiles: one block a cluster;
-              for e, m, n in ((1, 17, 6408), (1, 100, 6408), (16, 321, 6392))]  # 50: two
-    cases.append(((16, 160, 264), (3, 16, 264, 136), bf16, "layer 1 of a stacked expert tensor"))
+    cases += [((e, m, 4104), (e, 4104, n), bf16, "wgmma tile edges", False, False)  # 51 column tiles: one block
+              for e, m, n in ((1, 17, 6408), (1, 100, 6408), (16, 321, 6392))]  # a cluster; 50: two
+    # (a transposed A's rows are its M, so M a multiple of 8 there: 328 and 104 lie past whole 192-row tiles)
+    cases += [((16, m, k), (16, k, 6392), bf16, "wgmma tile edges, transposed", ta, tb)
+              for k in (4104, 264) for m, ta, tb in ((321, False, True), (328, True, False), (328, True, True))]
+    cases += [((1, 104, 4104), (1, 4104, 6408), bf16, "wgmma tile edges, transposed", True, True)]
+    cases.append(((16, 160, 264), (3, 16, 264, 136), bf16, "layer 1 of a stacked expert tensor", False, False))
+    cases.append(((16, 160, 136), (3, 16, 136, 264), bf16, "layer 1 of a stacked expert tensor, transposed",
+                  False, True))
     layer, main = {}, {}  # phi3.5-moe shape label -> calls per layer; main shape label -> kernel it must run
     for arch in ("phi3.5-moe-42b", "llama4-scout-17b"):
         cfg = get_config(arch)
@@ -1111,28 +1148,32 @@ def check_gemm(gen: torch.Generator) -> dict:
         for phase, tokens in (("prefill", LM_BATCH * LM_PROMPT), ("decode", LM_BATCH)):
             cap = blocks.moe_capacity(cfg, tokens)
             up, down = f"{arch} {phase} gate/up", f"{arch} {phase} down"
-            cases += [((E, cap, d), (E, d, f), bf16, up), ((E, cap, f), (E, f, d), bf16, down)]
+            cases += [((E, cap, d), (E, d, f), bf16, up, False, False), ((E, cap, f), (E, f, d), bf16, down, False, False)]
             kernel = "gemm_wgmma_bf16_kernel" if phase == "prefill" else "gemm_mma_bf16_kernel"
             main.update({up: kernel, down: kernel})
             if arch == "phi3.5-moe-42b":
                 layer.update({up: 2, down: 1})
-    cases.append(((16, 320, 4096), (16, 4096, 6400), f32, "phi3.5-moe-42b prefill gate/up, fp32"))
+    cases.append(((16, 320, 4096), (16, 4096, 6400), f32, "phi3.5-moe-42b prefill gate/up, fp32", False, False))
     max_err = 0.0
     tot = {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "flops", "bytes")}
-    for sa, sb, dt, label in cases:
-        a = torch.randn(sa, generator=gen, device="cuda").to(dt)
-        b = (torch.randn(sb, generator=gen, device="cuda") / sb[-2] ** 0.5).to(dt)
-        if len(sb) == 4:  # the model's view: one layer of an [L, E, K, N] stack, at a nonzero offset
-            b = b[1]
+    for sa, sb, dt, label, ta, tb in cases:
+        a = _gemm_operand(sa, dt, gen, ta)
+        b = _gemm_operand(sb, dt, gen, tb, scale=sb[-2] ** -0.5)
+        copies = gm.copies
         y, yp = gm.gemm(a, b), gm.gemm_plain(a, b)
         torch.cuda.synchronize()
-        desc = {"a": list(sa), "b": list(sb), "dtype": str(dt).removeprefix("torch."), "case": label}
+        desc = {"a": list(sa), "b": list(sb), "dtype": str(dt).removeprefix("torch."), "case": label,
+                "majors": list(gm.majors(a, b))}
         err = (y.float() - yp.float()).abs().max().item()
         if not torch.allclose(y.float(), yp.float(), rtol=GEMM_TOL[dt], atol=GEMM_TOL[dt]):
             raise RuntimeError(f"gemm disagrees with its plain version at {desc}: max abs err {err}")
+        r = gm.route(dt, a.shape[-2], a.shape[-1], b.shape[-1], gm._aligned(a) and gm._aligned(b), *gm.majors(a, b))
+        if gm.copies - copies != r.copy_a + r.copy_b:
+            raise RuntimeError(f"gemm at {desc} copied {gm.copies - copies} operands, its route {r} says "
+                               f"{r.copy_a + r.copy_b}")
         max_err = max(max_err, err)
         row = {**desc, "max_abs_err": err, "max_abs_plain": yp.float().abs().max().item(),
-               "kernel": gm.KERNELS[gm.route(dt, a.shape[-2], a.shape[-1], b.shape[-1], gm._aligned(a) and gm._aligned(b))]}
+               "kernel": gm.KERNELS[r.kernel], "copied": [n for n, c in (("a", r.copy_a), ("b", r.copy_b)) if c]}
         if label in main:
             E, M, K = sa
             flops, nbytes = 2.0 * E * M * K * sb[-1], 2.0 * (a.numel() + b.numel() + y.numel())
@@ -1807,38 +1848,61 @@ def check_ssd_bwd(gen: torch.Generator) -> dict:
     return out
 
 
+#: the wgmma instantiations, as the profiler names them, that read the backward's transposed operands in place:
+#: dA = dC·Bᵀ (B K-major) and dB = Aᵀ·dC (A MN-major); the cluster size is picked at launch
+GEMM_BWD_FN = re.compile(r"gemm_wgmma_bf16_kernel<[12], (?:0, 0|1, 1), [01]>")
+
+
 def check_gemm_grad(gen: torch.Generator) -> dict:
     """Phase 12: the gradient of ``ops.gemm`` (an autograd Function whose
-    backward is two more ``gemm`` calls) at phi3.5-moe's training shapes,
-    bf16, dA = dC·Bᵀ and dB = Aᵀ·dC held against ``gemm_plain`` at
-    GEMM_TOL; prints the kernel each backward product runs and times the
-    backward against ``torch.bmm`` on the transposed views (cuBLAS reads
-    them as they are) and the transposed copies alone.  Returns the
-    ``gemm`` row's backward keys for one phi3.5-moe layer (gate, up,
+    backward is two more ``gemm`` calls on the transposed views) at
+    phi3.5-moe's training shapes, bf16, dA = dC·Bᵀ and dB = Aᵀ·dC held
+    against ``gemm_plain`` at GEMM_TOL, two calls the same bits; fails
+    unless each product ran the wgmma instantiation that reads its
+    transposed operand in place, the wrapper copied nothing, and the
+    profiled backward ran those two kernels and no other (no copy, no
+    elementwise kernel).  Times the backward, dA and dB alone, against
+    ``torch.bmm`` on the transposed views (cuBLAS reads them as they are),
+    by events and by the profiler's device time, beside the bound.  Returns
+    the ``gemm`` row's backward keys for one phi3.5-moe layer (gate, up,
     down)."""
     bf16 = torch.bfloat16
     cfg = get_config("phi3.5-moe-42b")
     E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     cap = blocks.moe_capacity(cfg, TRAIN_BATCH * TRAIN_SEQ)
-    tot = {key: 0.0 for key in ("bwd_ms", "bwd_device_ms", "bwd_library_ms", "bwd_copy_ms", "flops", "bytes")}
+    keys = ("bwd_ms", "bwd_device_ms", "bwd_library_ms", "bwd_library_device_ms", "bwd_dA_device_ms",
+            "bwd_dB_device_ms", "flops", "bytes", "dA_bytes", "dB_bytes")
+    tot = {key: 0.0 for key in keys}
     for label, (K, N), per_layer in (("gate/up", (d, f), 2), ("down", (f, d), 1)):
         a = torch.randn((E, cap, K), generator=gen, device="cuda").to(bf16).requires_grad_()
         b = (torch.randn((E, K, N), generator=gen, device="cuda") / K**0.5).to(bf16).requires_grad_()
         dc = torch.randn((E, cap, N), generator=gen, device="cuda").to(bf16)
         c = ops.gemm(a, b)
-        before = gm.launches
+        before, copies = gm.launches, gm.copies
         da, db = torch.autograd.grad(c, (a, b), dc, retain_graph=True)
-        launched = gm.launches - before
+        launched, copied = gm.launches - before, gm.copies - copies
         ad, bd = a.detach(), b.detach()
         da_p, db_p = gm.gemm_plain(dc, bd.transpose(1, 2)), gm.gemm_plain(ad.transpose(1, 2), dc)
+        da2, db2 = torch.autograd.grad(c, (a, b), dc, retain_graph=True)
         torch.cuda.synchronize()
         errs = []
         for which, got, want in (("dA", da, da_p), ("dB", db, db_p)):
             errs.append((got.float() - want.float()).abs().max().item())
             if not torch.allclose(got.float(), want.float(), rtol=GEMM_TOL[bf16], atol=GEMM_TOL[bf16]):
                 raise RuntimeError(f"gemm gradient {which} disagrees with gemm_plain at phi3.5-moe {label}: {errs[-1]}")
-        if launched != 2:
-            raise RuntimeError(f"the gemm backward launched the kernel {launched} times, want 2")
+        if not (torch.equal(da, da2) and torch.equal(db, db2)):
+            raise RuntimeError(f"gemm gradient at phi3.5-moe {label}: two calls gave other bits")
+        if launched != 2 or copied:
+            raise RuntimeError(f"the gemm backward launched the kernel {launched} times, want 2, and copied "
+                               f"{copied} operands, want 0")
+        kernels = {"dA": gm.route(bf16, cap, N, K, gm._aligned(dc) and gm._aligned(bd.transpose(1, 2)),
+                                  *gm.majors(dc, bd.transpose(1, 2))),
+                   "dB": gm.route(bf16, K, cap, N, gm._aligned(ad.transpose(1, 2)) and gm._aligned(dc),
+                                  *gm.majors(ad.transpose(1, 2), dc))}
+        # dA's reduction is d_ff or d (the long schedule), dB's the capacity (the short one)
+        want = {"dA": "gemm_wgmma_bf16_kernel<C, 0, 0, 0>", "dB": "gemm_wgmma_bf16_kernel<C, 1, 1, 1>"}
+        if {k: gm.KERNELS[r.kernel] for k, r in kernels.items()} != want:
+            raise RuntimeError(f"the gemm backward at phi3.5-moe {label} routes {kernels}, want {want}")
         flops = 2 * 2.0 * E * cap * K * N
         nbytes = 2.0 * (dc.numel() + a.numel() + b.numel() + da.numel() + db.numel())
         bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -1849,23 +1913,32 @@ def check_gemm_grad(gen: torch.Generator) -> dict:
         def library():
             return torch.bmm(dc, bd.transpose(1, 2)), torch.bmm(ad.transpose(1, 2), dc)
 
-        row = dict(bwd_ms=_time_ms(backward), bwd_library_ms=_time_ms(library),
-                   bwd_copy_ms=_time_ms(lambda: (bd.transpose(1, 2).contiguous(), ad.transpose(1, 2).contiguous())),
-                   flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+        row = dict(bwd_ms=_time_ms(backward), bwd_library_ms=_time_ms(library), flops=flops, bytes=nbytes,
+                   dA_bytes=2.0 * (dc.numel() + b.numel() + da.numel()),
+                   dB_bytes=2.0 * (a.numel() + dc.numel() + db.numel()), bound_ms=bound_ms, bound_by=bound_by)
         row["bwd_device_ms"], ran = _device_ms(backward)
         row["bwd_library_device_ms"], _ = _device_ms(library, need=False)
-        row["ran"] = sorted({m.group(1) for n in ran if (m := GEMM_FN.search(n))})
-        row["kernels"] = {"dA": gm.KERNELS[gm.route(bf16, cap, N, K, True)], "dB": gm.KERNELS[gm.route(bf16, K, cap, N, True)]}
+        row["bwd_dA_device_ms"], _ = _device_ms(lambda: gm.gemm(dc, bd.transpose(1, 2)))
+        row["bwd_dB_device_ms"], _ = _device_ms(lambda: gm.gemm(ad.transpose(1, 2), dc))
+        row["ran"] = ran = {m.group(1) if (m := GEMM_FN.search(n)) else n: c for n, c in ran.items()}
+        if len(ran) != 2 or not all(GEMM_BWD_FN.fullmatch(n) and c == 1 for n, c in ran.items()):
+            raise RuntimeError(f"the profiled gemm backward at phi3.5-moe {label} ran {ran}, want one dA and one dB "
+                               f"on the transposed wgmma instantiations and nothing else")
+        row["kernels"] = {k: gm.KERNELS[r.kernel] for k, r in kernels.items()}
         print(f"[bwd] gemm gradient at phi3.5-moe {label} a [{E},{cap},{K}], b [{E},{K},{N}]: "
               f"{json.dumps({**row, 'dA_err': errs[0], 'dB_err': errs[1]})}")
         for key in tot:
             tot[key] = None if tot[key] is None or row[key] is None else tot[key] + per_layer * row[key]
-        del a, b, dc, c, da, db, da_p, db_p, ad, bd
+        del a, b, dc, c, da, db, da2, db2, da_p, db_p, ad, bd
     torch.cuda.empty_cache()
     bound_ms, bound_by = _bound(tot["flops"], tot["bytes"], PEAK_BF16_FLOPS)
-    print(f"[bwd] gemm gradient, one phi3.5-moe layer (gate, up, down): {json.dumps({**tot, 'bound_ms': bound_ms})}")
+    print(f"[bwd] gemm gradient, one phi3.5-moe layer (gate, up, down): device {tot['bwd_device_ms']} ms "
+          f"(dA {tot['bwd_dA_device_ms']}, dB {tot['bwd_dB_device_ms']}), torch.bmm on the transposed views "
+          f"{tot['bwd_library_device_ms']} ms, bound {bound_ms} ms ({bound_by}): "
+          f"{json.dumps({**tot, 'bound_ms': bound_ms})}")
     return {"bwd_ms": tot["bwd_ms"], "bwd_device_ms": tot["bwd_device_ms"], "bwd_library_ms": tot["bwd_library_ms"],
-            "bwd_copy_ms": tot["bwd_copy_ms"], "bwd_bound_ms": bound_ms, "bwd_bound_by": bound_by}
+            "bwd_library_device_ms": tot["bwd_library_device_ms"], "bwd_dA_device_ms": tot["bwd_dA_device_ms"],
+            "bwd_dB_device_ms": tot["bwd_dB_device_ms"], "bwd_bound_ms": bound_ms, "bwd_bound_by": bound_by}
 
 
 @contextlib.contextmanager

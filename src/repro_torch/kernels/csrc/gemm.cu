@@ -21,7 +21,8 @@
 // near their peak.
 //
 // Routes.  gemm_fwd takes the route the wrapper picked (gemm.py::route, by
-// type, M and alignment only) and launches one of five kernels:
+// type, M, K, the operands' majors and alignment only) and launches one of
+// twelve kernels:
 //
 // 0. fp32: gemm_fma_f32_kernel on the FMA pipes, no TF32 (the reference's
 //    2e-4 would not hold): 64 x 64 tiles, 256 threads, 4 x 4 outputs each.
@@ -36,26 +37,41 @@
 // 3. bf16 with M > 16 and rows that TMA cannot address (K or N not a multiple
 //    of 8, or a row not 16-byte aligned): gemm_mma_bf16_kernel<64, 256>, the
 //    masked mma.sync ring, 64 x 256 tiles of 8 warps.
-// 4. bf16 with M > 16 and TMA-addressable rows (every prefill product):
-//    gemm_wgmma_bf16_kernel, which took this route from the 64 x 256
-//    mma.sync tile.  That tile took 2.6-3.4x cuBLAS's time at the MoE
-//    prefill shapes (NVIDIA H100 80GB HBM3, 700 W): mma.sync cannot
-//    reach the tensor cores' rate, six ldmatrix fed every sixteen MMAs, the
-//    copies cost every thread registers and instructions, and the grid ran
-//    the N tiles fastest, so the M tiles that share an expert's weights ran
-//    far apart and read them from HBM again.  Here:
+//    Routes 0-3 read A K-major and B MN-major only; the wrapper copies a
+//    transposed view for them (gemm.py::route says when).
+// 4-11. bf16 with M > 16 and TMA-addressable rows (every prefill product and
+//    every training product): gemm_wgmma_bf16_kernel<CLUSTER, A_MN, B_MN,
+//    SHORT>, one instantiation per pair of majors and schedule (the long
+//    reduction, then the short), so that the backward reads its transposed
+//    operands where they lie.  The forward (4-5) reads A K-major and B
+//    MN-major as stored; dA = dC . B^T (6-7) reads B^T K-major, since B is
+//    stored [K_fwd, N_fwd] with N_fwd, the reduction, contiguous; dB =
+//    A^T . dC (8-9) reads A^T MN-major, since A is stored [capacity, d] with
+//    d, the output's row, contiguous; 10-11 are both transposed.  wgmma
+//    takes either major for both bf16 operands from shared memory (its
+//    transpose bits); the TMA maps are encoded over each tensor as it lies,
+//    with the box and 128-byte swizzle of that layout.  When the backward
+//    copied both transposed operands first, the copies took 10.13 of its
+//    15.54 ms a phi3.5-moe layer (NVIDIA H100 80GB HBM3, 700 W;
+//    chip_smoke.py).  The forward's route took over from the 64 x 256
+//    mma.sync tile, which took 2.6-3.4x cuBLAS's time at the MoE prefill
+//    shapes: mma.sync cannot reach the tensor cores' rate, six ldmatrix fed
+//    every sixteen MMAs, and its grid read the weights from HBM again for
+//    each row tile.  Here:
 //    - wgmma.mma_async m64n128k16 reads both operands from shared memory into
 //      fp32 accumulators in registers (64 a thread);
-//    - TMA brings the tiles (one thread issues them), 128-byte swizzled: A
-//      K-major as stored, B MN-major as stored (wgmma's transpose bit, no
-//      transposed copy).  The tensor maps are 3-D, (K or N, rows, expert),
-//      so the zero fill past the M, K and N edges stays inside each expert;
+//    - TMA brings the tiles (one thread issues them), 128-byte swizzled.  The
+//      tensor maps are 3-D, (inner, rows, expert), so the zero fill past the
+//      M, K and N edges stays inside each expert.  A K-major operand is rows
+//      of 64 K (one box of 192 or 128 rows); an MN-major one is rows of 64 M
+//      or N, one per K, in boxes of 64 x 64 one box apart;
 //    - a 5-stage ring of 40 KB stages with full and empty mbarriers: one
 //      producer warp keeps the loads in flight, three consumer warpgroups
 //      run the products (warp specialisation; setmaxnreg moves registers
 //      from the producer's warpgroup to the consumers');
 //    - the tile is 192 x 128, one consumer warpgroup per 64 rows.  Rows are
-//      the capacity, so the tile height decides the padded rows:
+//      the capacity in the forward and dA, so the tile height decides the
+//      padded rows:
 //        M = 320: 64-row tiles pad nothing but read each weight tile five
 //                 times; 128 and 192 rows both pad to 384, and a warpgroup
 //                 whose 64 rows are all past M skips its products, so the
@@ -67,21 +83,53 @@
 //      So 192 rows, the least padding at both M with the fewest weight reads;
 //      128 columns keep three warpgroups' accumulators (64 registers each)
 //      and five 40 KB stages (200 KB) within one SM;
-//    - the grid runs the M tiles of one (expert, N tile) next to each other
-//      (blockIdx.x), so a weight tile is read from HBM once and from L2 by
-//      the other M tile at about the same time;
+//    - the tiles run in the order (row tile, column tile, expert), the row
+//      tile fastest, so the row tiles that share an expert's weight tile run
+//      at about the same time and read it from HBM once;
 //    - blocks pair up in 2-block clusters along N (where the column tiles
 //      pair up): each of the two loads half of their common A tile and
 //      multicasts it to both, so A crosses from L2 once per pair, and each
 //      consumer warpgroup releases a stage in both blocks.  Unclustered, the
-//      kernel takes 1.02-1.28x as long at the MoE prefill shapes.  It stays
+//      forward took 1.02-1.28x as long at the MoE prefill shapes.  It is
 //      bound by its loads, not by the tensor cores: with its products
-//      removed it takes 0.95-1.00 of its whole time, with its loads removed
+//      removed it took 0.95-1.00 of its whole time, with its loads removed
 //      0.65-0.75 (NVIDIA H100 80GB HBM3, 700 W; scripts/gemm_probe.py times
 //      these probes, GEMM_PROBE below).  Clusters of 2 x 2 that share B as
 //      well fit fewer blocks on the card at once and were no faster;
-//    - the epilogue rounds to bf16 and masks its stores at the ragged M and N
-//      edges (TMA's zero fill covers loads only).
+//    - the schedule of the short-reduction, write-heavy product.  dB's
+//      reduction is the capacity: 320 at phi3.5-moe's training shape, five
+//      64-deep stages, while its output is 16 x 4096 x 6400 bf16, 839 MB,
+//      as much bound by those bytes (0.25 ms) as by its operations (0.27
+//      ms).  With one block a tile, each block filled its ring, ran 5
+//      k-steps and then stored its 48 KB tile from registers: the tensor
+//      cores sat idle through the fill and the stores of each of its 17,600
+//      tiles: 1.50 ms a gate/up product.  The candidates: (a) a
+//      persistent grid, one block an SM walking the tiles, so that the
+//      producer loads the next tile's stages while the consumers finish
+//      this one and store it; (b) the epilogue through shared memory with a
+//      TMA store; (c) a ring only as deep as K needs, so that two blocks fit
+//      an SM.  (c) needs a smaller tile: two blocks of three consumer
+//      warpgroups cannot hold 64 accumulators a thread in an SM's 64K
+//      registers, and 128 x 128 tiles read 28% more from L2 for each output
+//      than 192 x 128 in clusters of two.  (b) needs a 48 KB staging tile,
+//      so a ring of four stages.  (a) keeps the tile and the ring and
+//      changes only the grid: a cluster walks cluster tiles t, t + the
+//      clusters the card holds at once (cudaOccupancyMaxActiveClusters),
+//      ..., and the ring's phase runs on across tiles.  Measured at dB,
+//      gate/up; down (scripts/gemm_probe.py, NVIDIA H100 80GB HBM3, 700 W):
+//      (a) alone, stores still from registers, took 1.29 ms (gate/up), all
+//      but 0.37 of it in the stores, which wrote 839 MB in 4-byte pieces
+//      eight rows apart.  So the short schedule is (a) with (b): a 4-stage
+//      ring, the accumulators written to a 128-byte-swizzled tile in shared
+//      memory (conflict-free) and one TMA store a 64 x 64 box, whole lines,
+//      draining under the next tile's products.  It takes 0.455; 0.499 ms
+//      (torch.bmm on the same views 0.481; 0.464), and is now bound by its
+//      loads: loads alone 0.441; 0.492, products alone 0.382; 0.430, no
+//      stores 0.324; 0.295.  (c) was not built.  Products with K <= 1024
+//      take it (gemm.py::SHORT_K); the long reductions keep one block a
+//      tile and stores from registers: on the short schedule the forward
+//      and dA took 0.96-1.13x as long, and a persistent grid with register
+//      stores 1.01-1.19x.
 //    Tensor maps are encoded on the host at each call through the driver's
 //    cuTensorMapEncodeTiled, found in the loaded libcuda, and passed as
 //    __grid_constant__ parameters.
@@ -92,6 +140,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "mma_sm90.cuh"
 #include "wgmma_sm90.cuh"
 
@@ -99,11 +149,16 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+// Element strides of A [batch, M, K] over batch, M and K, of B [batch, K, N]
+// over batch, K and N, and of C [batch, M, N] over batch and M (unit over
+// N).  The mma.sync and FMA kernels read A with unit stride over K and B
+// over N (sak = sbn = 1: the wrapper copies a transposed view for them); the
+// wgmma kernel takes either stride of A and of B as the unit one.
 struct GemmShape {
-  int M, N, K;
-  long long sab, sam;  // element strides of A over batch and row (unit over K)
-  long long sbb, sbk;  // of B over batch and row (unit over N)
-  long long scb, scm;  // of C over batch and row (unit over N)
+  int batch, M, N, K;
+  long long sab, sam, sak;
+  long long sbb, sbk, sbn;
+  long long scb, scm;
 };
 
 // ---------------------------------------------------------------------------
@@ -259,7 +314,9 @@ int launch_mma(const bf16* a, const bf16* b, bf16* c, int batch, const GemmShape
 // Probes of what bounds the wgmma kernel, for scripts/gemm_probe.py; 0, the
 // shipped build, runs the kernel whole.  1 skips the products (the loads
 // alone), 2 skips the loads (the products alone, on whatever the ring
-// holds), 3 never pairs blocks in a cluster.  1 and 2 compute no product.
+// holds), 3 never pairs blocks in a cluster, 4 skips the epilogue's stores,
+// 5 runs every product on the long-reduction schedule, 6 every product on
+// the short-reduction one (SHORT below).  1, 2 and 4 leave the output wrong.
 #ifndef GEMM_PROBE
 #define GEMM_PROBE 0
 #endif
@@ -267,44 +324,115 @@ int launch_mma(const bf16* a, const bf16* b, bf16* c, int batch, const GemmShape
 constexpr int WG_CONSUMERS = 3;                 // consumer warpgroups, 64 rows each
 constexpr int WBM = 64 * WG_CONSUMERS;          // 192 rows a tile
 constexpr int WBN = 128;                        // columns a tile: one m64n128 product per warpgroup
-constexpr int WBK = 64;                         // K a stage: one 128-byte swizzle row of A
-constexpr int WSTAGES = 5;                      // depth of the ring
+constexpr int WBK = 64;                         // K a stage: one 128-byte swizzle row of a K-major operand
 constexpr int WTHREADS = 128 * (WG_CONSUMERS + 1);
-constexpr int A_STAGE = WBM * WBK * 2;          // 24 KB: 192 rows of 64 K
-constexpr int B_BOX = WBK * 64 * 2;             // 8 KB: 64 K rows of 64 N columns, one TMA box
-constexpr int B_STAGE = (WBN / 64) * B_BOX;     // 16 KB
+constexpr int BOX = 64 * 64 * 2;                // 8 KB: one swizzled TMA box of 64 x 64, 64 rows of 128 bytes
+constexpr int A_STAGE = WG_CONSUMERS * BOX;     // 24 KB: 64 rows of A for each consumer warpgroup
+constexpr int B_STAGE = (WBN / 64) * BOX;       // 16 KB
 constexpr int STAGE = A_STAGE + B_STAGE;        // 40 KB, a multiple of the 1024-byte swizzle atom
-constexpr int WGMMA_SMEM = 1024 + WSTAGES * STAGE + 2 * WSTAGES * 8;  // + alignment slack, + barriers
-// descriptor offsets, bytes: A K-major (eight 128-byte rows a group), B MN-major (64-wide N blocks one box apart)
-constexpr uint32_t A_SBO = 1024, B_LBO = B_BOX, B_SBO = 1024;
-static_assert(A_STAGE % 1024 == 0 && STAGE % 1024 == 0, "swizzled tiles must stay 1024-byte aligned");
-static_assert(WGMMA_SMEM <= 232448, "ring exceeds the 227 KB a block may use");
+constexpr int C_STAGE = WG_CONSUMERS * 2 * BOX;  // 48 KB: the short schedule's output tile, 64 x 128 a warpgroup
 
-// One block per (192-row tile, 128-column tile, expert), the row tile fastest.
-// Warpgroups 0-2 consume (rows 64w .. 64w + 63 of the tile); warpgroup 3
-// produces, its first thread issuing every TMA load.  With CLUSTER = 2 the
-// two blocks of a cluster hold neighbouring column tiles of the same rows:
-// each loads half of the A tile and multicasts it to both, so A crosses
-// from L2 once for the pair, and each consumer warpgroup releases a stage
-// in both blocks (the peer's next multicast lands in it).
-template <int CLUSTER>
+// The two schedules (SHORT: the reduction is a few stages deep, gemm.py::route):
+// depth of the ring, and the shared memory a block asks
+template <int SHORT>
+__host__ __device__ constexpr int wstages() { return SHORT ? 4 : 5; }
+template <int SHORT>
+__host__ __device__ constexpr int wgmma_smem() {  // + alignment slack, + barriers
+  return 1024 + wstages<SHORT>() * STAGE + (SHORT ? C_STAGE : 0) + 2 * wstages<SHORT>() * 8;
+}
+static_assert(BOX % 1024 == 0 && STAGE % 1024 == 0, "swizzled tiles must stay 1024-byte aligned");
+static_assert(wgmma_smem<0>() <= 232448 && wgmma_smem<1>() <= 232448, "ring exceeds the 227 KB a block may use");
+
+// Descriptor of k16 step kk of a 64-deep operand tile at `tile`, by the
+// operand's major.  K-major (MN = 0): 128-byte rows of 64 K, eight rows a
+// 1024-byte group (SBO), a k16 step 32 bytes along the row.  MN-major
+// (MN = 1): 128-byte rows of 64 M or N, one row per K, eight K rows a group
+// (SBO), 64-wide blocks of M or N one box apart (LBO), a k16 step 16 rows.
+template <int MN>
+__device__ __forceinline__ uint64_t operand_desc(const unsigned char* tile, int kk) {
+  return MN ? wgmma_desc_sw128(tile + 16 * 128 * kk, BOX, 1024) : wgmma_desc_sw128(tile + 32 * kk, 16, 1024);
+}
+
+// This block's share of a stage's A tile (rows m0.., K k0..), multicast to
+// the cluster.  K-major: WBM / CLUSTER rows of one box 64 K wide, stored as
+// A is.  MN-major (A stored [K, M], M contiguous): in each consumer
+// warpgroup's box of 64 K rows x 64 M, its 64 / CLUSTER rows of K.
+template <int CLUSTER, int A_MN>
+__device__ __forceinline__ void load_a(unsigned char* st, const CUtensorMap* map, uint64_t* bar, int m0, int k0,
+                                       int e, int rank) {
+  auto load = [&](unsigned char* dst, int c0, int c1) {
+    if constexpr (CLUSTER > 1) {
+      tma_load_3d_multicast(dst, map, bar, c0, c1, e, (1 << CLUSTER) - 1);
+    } else {
+      tma_load_3d(dst, map, bar, c0, c1, e);
+    }
+  };
+  if constexpr (A_MN) {
+    constexpr int ROWS = WBK / CLUSTER;
+#pragma unroll
+    for (int j = 0; j < WG_CONSUMERS; ++j) load(st + j * BOX + rank * ROWS * 128, m0 + 64 * j, k0 + rank * ROWS);
+  } else {
+    constexpr int ROWS = WBM / CLUSTER;
+    load(st + rank * ROWS * 128, k0, m0 + rank * ROWS);
+  }
+}
+
+// A stage's B tile (K k0.., columns n0..): MN-major (stored [K, N]) as two
+// boxes of 64 K rows x 64 N; K-major (stored [N, K], K contiguous) as one
+// box of 128 N rows x 64 K.
+template <int B_MN>
+__device__ __forceinline__ void load_b(unsigned char* st, const CUtensorMap* map, uint64_t* bar, int n0, int k0,
+                                       int e) {
+  if constexpr (B_MN) {
+#pragma unroll
+    for (int j = 0; j < WBN / 64; ++j) tma_load_3d(st + j * BOX, map, bar, n0 + 64 * j, k0, e);
+  } else {
+    tma_load_3d(st, map, bar, k0, n0, e);
+  }
+}
+
+// Each cluster walks cluster tiles t = its index, + the number of clusters,
+// ...; a cluster tile is CLUSTER neighbouring 128-column tiles of one
+// 192-row tile of one expert, the row tile fastest.  The long schedule
+// launches one cluster a tile; the short one as many as the card holds at
+// once, each walking many.  Warpgroups 0-2 consume (rows 64w .. 64w + 63 of
+// the tile); warpgroup 3 produces, its first thread issuing every TMA load,
+// running ahead into the next tile while the consumers finish this one and
+// store it.  With CLUSTER = 2 each block loads half of the pair's common A
+// tile and multicasts it to both, so A crosses from L2 once for the pair,
+// and each consumer warpgroup releases a stage in both blocks (the peer's
+// next multicast lands in it).  A_MN and B_MN are the operands' majors
+// (wgmma's transpose bits): the tensor maps read each operand where it
+// lies.  The long schedule stores its accumulators from registers; the
+// short one writes them to a swizzled tile in shared memory that one
+// thread of the warpgroup hands to a TMA store, which writes whole lines
+// and drains while the warpgroup runs the next tile's products.
+template <int CLUSTER, int A_MN, int B_MN, int SHORT>
 __global__ void __launch_bounds__(WTHREADS, 1)
 gemm_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-                       bf16* __restrict__ C, GemmShape p) {
-  constexpr int A_ROWS = WBM / CLUSTER;  // rows of A this block loads for the cluster
+                       const __grid_constant__ CUtensorMap map_c, bf16* __restrict__ C, GemmShape p) {
+  constexpr int S = wstages<SHORT>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WSTAGES * STAGE);
-  uint64_t* empty = full + WSTAGES;
+  unsigned char* cstage = smem + S * STAGE;  // SHORT: the output tile, two 64 x 64 boxes a warpgroup
+  uint64_t* full = reinterpret_cast<uint64_t*>(cstage + (SHORT ? C_STAGE : 0));
+  uint64_t* empty = full + S;
   // the warpgroup index, broadcast so the compiler knows it is warp-uniform:
   // wgmma under a branch it cannot prove uniform is serialised
   const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0), tid = threadIdx.x % 128;
-  const int m0 = blockIdx.x * WBM, n0 = blockIdx.y * WBN, e = blockIdx.z;
   const int ktiles = (p.K + WBK - 1) / WBK;
-  const int rank = blockIdx.y % CLUSTER;  // place in the cluster (1 x CLUSTER blocks)
+  const int mtiles = (p.M + WBM - 1) / WBM, groups = (p.N + WBN - 1) / WBN / CLUSTER;
+  const int tiles = mtiles * groups * p.batch;
+  const int rank = blockIdx.x % CLUSTER;  // place in the cluster (CLUSTER x 1 blocks)
+  const int first = blockIdx.x / CLUSTER, step = gridDim.x / CLUSTER;
+  auto coords = [&](int t, int& m0, int& n0, int& e) {
+    m0 = (t % mtiles) * WBM;
+    n0 = ((t / mtiles) % groups * CLUSTER + rank) * WBN;
+    e = t / mtiles / groups;
+  };
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < WSTAGES; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);                        // the producer's arrive, plus the stage's bytes
       mbar_init(&empty[s], WG_CONSUMERS * CLUSTER);  // one arrive per consumer warpgroup of the cluster
     }
@@ -326,81 +454,116 @@ gemm_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_c
     }
   };
 
+  // kg counts the stages this block has passed through the ring, over every tile
   if (wg == WG_CONSUMERS) {
     setmaxnreg_dec<40>();
     if (tid == 0) {
       tma_prefetch_map(&map_a);
       tma_prefetch_map(&map_b);
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int s = kt % WSTAGES;
-        mbar_wait(&empty[s], ((kt / WSTAGES) & 1) ^ 1);  // the slot's previous round is consumed, cluster-wide
-        unsigned char* st = smem + s * STAGE;
-        mbar_arrive_expect_tx(&full[s], GEMM_PROBE == 2 ? 0 : STAGE);
-        if constexpr (GEMM_PROBE == 2) continue;
-        if constexpr (CLUSTER > 1) {
-          tma_load_3d_multicast(st + rank * A_ROWS * 128, &map_a, &full[s], kt * WBK, m0 + rank * A_ROWS, e,
-                                (1 << CLUSTER) - 1);
-        } else {
-          tma_load_3d(st, &map_a, &full[s], kt * WBK, m0, e);
+      int kg = 0;
+      for (int t = first; t < tiles; t += step) {
+        int m0, n0, e;
+        coords(t, m0, n0, e);
+        for (int kt = 0; kt < ktiles; ++kt, ++kg) {
+          const int s = kg % S;
+          mbar_wait(&empty[s], ((kg / S) & 1) ^ 1);  // the slot's previous round is consumed, cluster-wide
+          unsigned char* st = smem + s * STAGE;
+          mbar_arrive_expect_tx(&full[s], GEMM_PROBE == 2 ? 0 : STAGE);
+          if constexpr (GEMM_PROBE != 2) {
+            load_a<CLUSTER, A_MN>(st, &map_a, &full[s], m0, kt * WBK, e, rank);
+            load_b<B_MN>(st + A_STAGE, &map_b, &full[s], n0, kt * WBK, e);
+          }
         }
-#pragma unroll
-        for (int j = 0; j < WBN / 64; ++j) tma_load_3d(st + A_STAGE + j * B_BOX, &map_b, &full[s], n0 + 64 * j, kt * WBK, e);
       }
       if constexpr (CLUSTER > 1) {
         // stay until every release of the last rounds has landed: the peer's
         // consumers arrive on this block's barriers, which must outlive them
-        for (int kt = ktiles; kt < ktiles + WSTAGES; ++kt) mbar_wait(&empty[kt % WSTAGES], ((kt / WSTAGES) & 1) ^ 1);
+        for (int i = 0; i < S; ++i, ++kg) mbar_wait(&empty[kg % S], ((kg / S) & 1) ^ 1);
       }
     }
     return;
   }
 
   setmaxnreg_inc<152>();
-  if (m0 + 64 * wg >= p.M) {  // every row of this warpgroup lies past M: release each stage, run no products
-    for (int kt = 0; kt < ktiles; ++kt) {
-      mbar_wait(&full[kt % WSTAGES], (kt / WSTAGES) & 1);
-      release(kt % WSTAGES);
-    }
-    return;
-  }
+  const int warp = tid / 32, lane = tid % 32;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  wgmma_fence_operand(acc);
-  // Nothing but wgmma touches acc inside the loop, and no branch encloses it:
-  // any other use of the registers while a product is in flight makes ptxas
-  // wait for the product (C7517).
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt % WSTAGES;
-    mbar_wait(&full[s], (kt / WSTAGES) & 1);
-    const unsigned char* a = smem + s * STAGE + wg * 64 * 128;
-    const unsigned char* b = smem + s * STAGE + A_STAGE;
-    wgmma_fence();
+  int kg = 0;
+  for (int t = first; t < tiles; t += step) {
+    int m0, n0, e;
+    coords(t, m0, n0, e);
+    if (m0 + 64 * wg >= p.M) {  // every row of this warpgroup lies past M: release each stage, run no products
+      for (int kt = 0; kt < ktiles; ++kt, ++kg) {
+        mbar_wait(&full[kg % S], (kg / S) & 1);
+        release(kg % S);
+      }
+      continue;
+    }
+    wgmma_fence_operand(acc);
+    // Nothing but wgmma touches acc inside the loop, and no branch encloses
+    // it: any other use of the registers while a product is in flight makes
+    // ptxas wait for the product (C7517).  The tile's first product
+    // overwrites acc (scale-d 0), so the last tile's values need no reset.
+    for (int kt = 0; kt < ktiles; ++kt, ++kg) {
+      const int s = kg % S;
+      mbar_wait(&full[s], (kg / S) & 1);
+      const unsigned char* a = smem + s * STAGE + wg * BOX;
+      const unsigned char* b = smem + s * STAGE + A_STAGE;
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < WBK / 16 && GEMM_PROBE != 1; ++kk)
-      wgmma_m64n128k16_bf16_kn(acc, wgmma_desc_sw128(a + 32 * kk, 16, A_SBO),
-                               wgmma_desc_sw128(b + 16 * 128 * kk, B_LBO, B_SBO), 1);
-    wgmma_commit();
-    wgmma_wait<1>();  // the previous stage's products are done; this one's stay in flight
-    if (kt > 0) release((kt - 1) % WSTAGES);
-  }
-  wgmma_wait<0>();
-  wgmma_fence_operand(acc);
-  release((ktiles - 1) % WSTAGES);
+      for (int kk = 0; kk < WBK / 16 && GEMM_PROBE != 1; ++kk)
+        wgmma_m64n128k16_bf16<A_MN, B_MN>(acc, operand_desc<A_MN>(a, kk), operand_desc<B_MN>(b, kk), kt | kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done; this one's stay in flight
+      if (kt > 0) release((kg - 1) % S);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+    release((kg - 1) % S);
+    if constexpr (GEMM_PROBE == 4) continue;
 
-  // accumulator j: columns 8j + 2 (lane % 4) + {0, 1} of rows lane / 4 and lane / 4 + 8 of the warp's 16
-  const int warp = tid / 32, lane = tid % 32;
-  const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
-  bf16* Cb = C + e * p.scb;
+    // accumulator j: columns 8j + 2 (lane % 4) + {0, 1} of rows lane / 4 and lane / 4 + 8 of the warp's 16
+    const int r = warp * 16 + lane / 4;  // of the warpgroup's 64 rows
+    if constexpr (SHORT) {
+      // rows of 128 bytes (64 columns), 16-byte chunk c of row r at chunk c ^ (r % 8): the TMA's 128-byte
+      // swizzle, which also puts the eight rows a store instruction writes in eight bank groups
+      unsigned char* cs = cstage + wg * 2 * BOX;
+      if (tid == 0) tma_store_wait_read<0>();  // the previous tile's store has read the staging tile
+      named_barrier_sync(1 + wg, 128);
 #pragma unroll
-  for (int j = 0; j < WBN / 8; ++j) {
-    const int gn = n0 + 8 * j + 2 * (lane % 4);
-    if (gn >= p.N) continue;  // N is a multiple of 8, so gn + 1 < N too
-    if (r0 < p.M)
-      *reinterpret_cast<__nv_bfloat162*>(Cb + r0 * p.scm + gn) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-    if (r0 + 8 < p.M)
-      *reinterpret_cast<__nv_bfloat162*>(Cb + (r0 + 8) * p.scm + gn) =
-          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      for (int j = 0; j < WBN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(cs + (j / 8) * BOX + row * 128 + (((j % 8) ^ (row % 8)) * 16) +
+                                             (lane % 4) * 4) = __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                                                                       acc[4 * j + 2 * h + 1]);
+        }
+      fence_proxy_async_shared();
+      named_barrier_sync(1 + wg, 128);
+      if (tid == 0) {  // rows past M and columns past N are not written
+        tma_store_3d(&map_c, cs, n0, m0 + 64 * wg, e);
+        tma_store_3d(&map_c, cs + BOX, n0 + 64, m0 + 64 * wg, e);
+        tma_store_commit();
+      }
+    } else {
+      const int r0 = m0 + wg * 64 + r;
+      bf16* Cb = C + e * p.scb;
+#pragma unroll
+      for (int j = 0; j < WBN / 8; ++j) {
+        const int gn = n0 + 8 * j + 2 * (lane % 4);
+        if (gn >= p.N) continue;  // N is a multiple of 8, so gn + 1 < N too
+        if (r0 < p.M)
+          *reinterpret_cast<__nv_bfloat162*>(Cb + r0 * p.scm + gn) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        if (r0 + 8 < p.M)
+          *reinterpret_cast<__nv_bfloat162*>(Cb + (r0 + 8) * p.scm + gn) =
+              __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+  if constexpr (SHORT) {
+    if (tid == 0) tma_store_wait<0>();  // the last tile's stores have landed
   }
 }
 
@@ -424,12 +587,13 @@ EncodeTiled encode_tiled() {
 constexpr int NO_ENCODER = 9999, TENSOR_MAP_ERROR = 10000;
 
 // A 3-D map over (inner, rows, batch) of a bf16 tensor whose inner dim is
-// unit-stride; boxes of 64 inner x `box_rows` rows x 1, 128-byte swizzled,
-// zero-filled out of bounds.
+// unit-stride, as it lies; boxes of 64 inner x `box_rows` rows x 1,
+// 128-byte swizzled, zero-filled out of bounds.
 int encode_map(CUtensorMap* map, const bf16* base, int inner, int rows, int batch, long long row_stride,
                long long batch_stride, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return NO_ENCODER;
+  if (batch == 1) batch_stride = row_stride * rows;  // never stepped over; a stride the driver takes
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)batch_stride * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
@@ -440,37 +604,65 @@ int encode_map(CUtensorMap* map, const bf16* base, int inner, int rows, int batc
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
-template <int CLUSTER>
-int launch_wgmma(const bf16* a, const bf16* b, bf16* c, int batch, const GemmShape& p, cudaStream_t stream) {
-  CUtensorMap map_a, map_b;
-  int err = encode_map(&map_a, a, p.K, p.M, batch, p.sam, p.sab, WBM / CLUSTER);
-  if (err == 0) err = encode_map(&map_b, b, p.N, p.K, batch, p.sbk, p.sbb, WBK);
+template <int CLUSTER, int A_MN, int B_MN, int SHORT>
+int launch_wgmma(const bf16* a, const bf16* b, bf16* c, const GemmShape& p, cudaStream_t stream) {
+  // the driver's encoder needs a current context, and autograd runs the
+  // backward on a thread of its own that may not have made one current yet
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess) ce = cudaSetDevice(dev);
+  if (ce != cudaSuccess) return (int)ce;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  CUtensorMap map_a, map_b, map_c = {};
+  int err = A_MN ? encode_map(&map_a, a, p.M, p.K, p.batch, p.sak, p.sab, WBK / CLUSTER)
+                 : encode_map(&map_a, a, p.K, p.M, p.batch, p.sam, p.sab, WBM / CLUSTER);
+  if (err == 0)
+    err = B_MN ? encode_map(&map_b, b, p.N, p.K, p.batch, p.sbk, p.sbb, WBK)
+               : encode_map(&map_b, b, p.K, p.N, p.batch, p.sbn, p.sbb, WBN);
+  if (err == 0 && SHORT) err = encode_map(&map_c, c, p.N, p.M, p.batch, p.scm, p.scb, 64);
   if (err != 0) return err;
-  auto kernel = gemm_wgmma_bf16_kernel<CLUSTER>;
-  cudaError_t ce = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WGMMA_SMEM);
+  auto kernel = gemm_wgmma_bf16_kernel<CLUSTER, A_MN, B_MN, SHORT>;
+  constexpr int smem = wgmma_smem<SHORT>();
+  ce = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (ce != cudaSuccess) return (int)ce;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((p.M + WBM - 1) / WBM), (unsigned)((p.N + WBN - 1) / WBN), (unsigned)batch);
+  cfg.gridDim = dim3(CLUSTER);
   cfg.blockDim = dim3(WTHREADS);
-  cfg.dynamicSmemBytes = WGMMA_SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 1;
-  cluster[0].val.clusterDim.y = CLUSTER;  // neighbouring column tiles share their A tile
+  cluster[0].val.clusterDim.x = CLUSTER;  // neighbouring column tiles share their A tile
+  cluster[0].val.clusterDim.y = 1;
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  ce = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, c, p);
+  const long long tiles = (long long)((p.M + WBM - 1) / WBM) * ((p.N + WBN - 1) / WBN / CLUSTER) * p.batch;
+  long long clusters = tiles;
+  if constexpr (SHORT) {
+    // as many clusters as the card holds at once (one block an SM: the ring takes 208 KB), per device
+    static int resident[64] = {};
+    if (resident[dev] == 0) {
+      ce = cudaOccupancyMaxActiveClusters(&resident[dev], kernel, &cfg);
+      if (ce != cudaSuccess) return (int)ce;
+      if (resident[dev] <= 0) return (int)cudaErrorInvalidConfiguration;
+    }
+    clusters = std::min<long long>(tiles, resident[dev]);
+  }
+  cfg.gridDim = dim3((unsigned)(clusters * CLUSTER));
+  ce = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, map_c, c, p);
   return ce != cudaSuccess ? (int)ce : (int)cudaGetLastError();
 }
 
 // Column tiles pair up in 2-block clusters where their count is even; an odd
-// count runs one block a cluster.
-int launch_wgmma(const bf16* a, const bf16* b, bf16* c, int batch, const GemmShape& p, cudaStream_t stream) {
+// count runs one block a cluster.  GEMM_PROBE 5 and 6 put every product on
+// one schedule.
+template <int A_MN, int B_MN, int SHORT>
+int launch_wgmma(const bf16* a, const bf16* b, bf16* c, const GemmShape& p, cudaStream_t stream) {
+  constexpr int sched = GEMM_PROBE == 5 ? 0 : GEMM_PROBE == 6 ? 1 : SHORT;
   const int ntiles = (p.N + WBN - 1) / WBN;
-  return ntiles % 2 == 0 && GEMM_PROBE != 3 ? launch_wgmma<2>(a, b, c, batch, p, stream)
-                                            : launch_wgmma<1>(a, b, c, batch, p, stream);
+  return ntiles % 2 == 0 && GEMM_PROBE != 3 ? launch_wgmma<2, A_MN, B_MN, sched>(a, b, c, p, stream)
+                                            : launch_wgmma<1, A_MN, B_MN, sched>(a, b, c, p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -534,7 +726,22 @@ int launch_f32(const float* a, const float* b, float* c, int batch, const GemmSh
 
 // The kernels gemm_fwd launches, by the route code the wrapper passes
 // (gemm.py::KERNELS lists them in this order; gemm.py::route picks one).
-enum Route { FMA_F32 = 0, MMA_M16 = 1, MMA_M16_MASKED = 2, MMA_M64_MASKED = 3, WGMMA = 4 };
+// WGMMA_<A's major><B's major>_<schedule>: K is K-major, N MN-major (wgmma's
+// transpose bits 0 and 1); LONG and SHORT the reduction's schedule.
+enum Route {
+  FMA_F32 = 0,
+  MMA_M16 = 1,
+  MMA_M16_MASKED = 2,
+  MMA_M64_MASKED = 3,
+  WGMMA_KN_LONG = 4,  // the forward's layout, as both operands are stored
+  WGMMA_KN_SHORT = 5,
+  WGMMA_KK_LONG = 6,  // B K-major: dA = dC . B^T reads B where it lies
+  WGMMA_KK_SHORT = 7,
+  WGMMA_NN_LONG = 8,  // A MN-major: dB = A^T . dC reads A where it lies
+  WGMMA_NN_SHORT = 9,
+  WGMMA_NK_LONG = 10,  // both transposed
+  WGMMA_NK_SHORT = 11,
+};
 
 // Launches on `stream` and returns 0 when the launch was accepted, else the
 // CUDA error of the launch or, on the wgmma route, a tensor-map error
@@ -542,9 +749,9 @@ enum Route { FMA_F32 = 0, MMA_M16 = 1, MMA_M16_MASKED = 2, MMA_M64_MASKED = 3, W
 // inputs' type.  Shapes, strides and each route's conditions (type, M,
 // alignment) are checked by the Python wrapper.
 extern "C" int gemm_fwd(const void* a, const void* b, void* c, int route, int batch, int M, int N, int K,
-                        long long sab, long long sam, long long sbb, long long sbk, long long scb, long long scm,
-                        void* stream) {
-  const GemmShape p{M, N, K, sab, sam, sbb, sbk, scb, scm};
+                        long long sab, long long sam, long long sak, long long sbb, long long sbk, long long sbn,
+                        long long scb, long long scm, void* stream) {
+  const GemmShape p{batch, M, N, K, sab, sam, sak, sbb, sbk, sbn, scb, scm};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* ab = static_cast<const bf16*>(a);
   const bf16* bb = static_cast<const bf16*>(b);
@@ -556,7 +763,14 @@ extern "C" int gemm_fwd(const void* a, const void* b, void* c, int route, int ba
     case MMA_M16: return launch_mma<16, 128, 1, 4, true>(ab, bb, cb, batch, p, st);
     case MMA_M16_MASKED: return launch_mma<16, 128, 1, 4, false>(ab, bb, cb, batch, p, st);
     case MMA_M64_MASKED: return launch_mma<64, 256, 2, 4, false>(ab, bb, cb, batch, p, st);
-    case WGMMA: return launch_wgmma(ab, bb, cb, batch, p, st);
+    case WGMMA_KN_LONG: return launch_wgmma<0, 1, 0>(ab, bb, cb, p, st);
+    case WGMMA_KN_SHORT: return launch_wgmma<0, 1, 1>(ab, bb, cb, p, st);
+    case WGMMA_KK_LONG: return launch_wgmma<0, 0, 0>(ab, bb, cb, p, st);
+    case WGMMA_KK_SHORT: return launch_wgmma<0, 0, 1>(ab, bb, cb, p, st);
+    case WGMMA_NN_LONG: return launch_wgmma<1, 1, 0>(ab, bb, cb, p, st);
+    case WGMMA_NN_SHORT: return launch_wgmma<1, 1, 1>(ab, bb, cb, p, st);
+    case WGMMA_NK_LONG: return launch_wgmma<1, 0, 0>(ab, bb, cb, p, st);
+    case WGMMA_NK_SHORT: return launch_wgmma<1, 0, 1>(ab, bb, cb, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

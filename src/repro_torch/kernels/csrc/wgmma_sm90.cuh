@@ -2,10 +2,11 @@
 // the tensor cores through TMA: mbarrier init / arrive (local or in another
 // block of the cluster) / expect-tx / try-wait, the cluster barrier,
 // the 3-D TMA tile load (cp.async.bulk.tensor) that completes on an
-// mbarrier, alone or multicast to the cluster, wgmma shared-memory
-// descriptors for the 128-byte swizzle,
-// wgmma fence / commit / wait, wgmma.mma_async m64n128k16 bf16 with fp32
-// accumulators, and setmaxnreg.
+// mbarrier, alone or multicast to the cluster, the 3-D TMA tile store and
+// its bulk-group waits, the async-proxy fence, named barriers, wgmma
+// shared-memory descriptors for the 128-byte swizzle, wgmma fence / commit /
+// wait, wgmma.mma_async m64n128k16 bf16 with fp32 accumulators (either major
+// for each operand), and setmaxnreg.
 //
 // Layouts (PTX ISA, "Matrix Descriptor" and the canonical layouts of
 // wgmma): a tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B is a
@@ -121,6 +122,41 @@ __device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// The box of `map` at coordinates (c0 innermost, c1, c2) from shared memory at
+// `src` to global memory, in this thread's bulk async-group; elements out of
+// bounds are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Waits until at most N of this thread's committed bulk groups still read
+// their shared memory (the source may be written again).
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's committed bulk groups are pending.
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy (a TMA store that reads them).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads') among `threads` threads, a multiple of 32.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -155,10 +191,12 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[N]) {
 }
 
 // d[64 x 128] = A[64 x 16] . B[16 x 128] + (accumulate ? d : 0), bf16 in, fp32
-// accumulators: A K-major (transpose bit 0), B MN-major (transpose bit 1, N
-// contiguous).
-__device__ __forceinline__ void wgmma_m64n128k16_bf16_kn(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                                         int accumulate) {
+// accumulators.  A_MN and B_MN are wgmma's transpose bits: 0 reads the
+// operand K-major (K contiguous), 1 MN-major (M or N contiguous).  bf16
+// takes either order for both operands from shared memory.
+template <int A_MN, int B_MN>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                      int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -168,7 +206,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_kn(float (&d)[64], uint64_
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -178,7 +216,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_kn(float (&d)[64], uint64_
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
 }
 
 // ---------------------------------------------------------------------------

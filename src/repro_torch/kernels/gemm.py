@@ -4,13 +4,21 @@ Replaces ``repro/kernels/gemm.py::gemm`` (Pallas ``_gemm_kernel``):
 ``C = A·B`` with an fp32 accumulator and the output in ``a.dtype``.  On the
 LM path it runs the three capacity-batched expert products of
 ``blocks.moe_ffn_local`` (the reference's einsums ``ecd,edf->ecf`` and
-``ecf,efd->ecd``), all experts in one launch.  ``csrc/gemm.cu`` holds five
-kernels and :func:`route` picks one by type, M and alignment alone: bf16
-prefill products (M > 16, rows the TMA can address) on
-``gemm_wgmma_bf16_kernel`` (``wgmma`` fed by TMA through an ``mbarrier``
-ring), bf16 decode (M <= 16) and unaligned bf16 on ``mma.sync`` tiles, fp32
-on the FMA pipes with no TF32.  Ragged edges are handled in the kernels, not
-padded (see the source note).
+``ecf,efd->ecd``), all experts in one launch, and in training their
+gradients dA = dC·Bᵀ and dB = Aᵀ·dC, which ``ops.gemm``'s backward passes
+as transposed views.  Each operand may have unit stride over either of its
+last two dims: A [M, K] K-major (unit over K) or MN-major (unit over M), B
+[K, N] MN-major (unit over N) or K-major (unit over K).  ``csrc/gemm.cu``
+holds twelve kernels and :func:`route` picks one by type, M, K, the two
+majors and alignment alone: bf16 products with M > 16 and rows the TMA can
+address on ``gemm_wgmma_bf16_kernel`` (``wgmma`` fed by TMA through an
+``mbarrier`` ring), one instantiation per pair of majors and schedule (a
+long reduction, or a short one such as dB's), each reading both operands
+where they lie; bf16 decode (M <= 16) and unaligned bf16 on ``mma.sync``
+tiles, fp32 on the FMA pipes with no TF32.  Those three read A K-major and
+B MN-major only: there, and only there, the wrapper copies a transposed
+view first.  Ragged edges are handled in the kernels, not padded (see the
+source note).
 
 :func:`gemm_plain` is the same function in fp32 PyTorch, cast to
 ``a.dtype``, as the reference's ``gemm_ref``; the CPU path and the on-card
@@ -21,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,32 +37,70 @@ import torch
 launches = 0
 #: of those, the launches made for a gradient (``ops.gemm``'s backward, dA and dB) since this count was last set to 0
 bwd_launches = 0
+#: transposed operands the wrapper made contiguous (on the routes that read one layout only) since this count was
+#: last set to 0
+copies = 0
 #: gemm_fwd's own error codes (csrc/gemm.cu): no tensor-map encoder; a refused map (+ CUresult)
 _NO_ENCODER, _TENSOR_MAP_ERROR = 9999, 10000
 
-#: the kernels of ``csrc/gemm.cu``, indexed by the route code ``gemm_fwd`` takes
+#: an operand's major: the dim of unit stride.  A [M, K] is K-major as it is stored for the forward, MN-major
+#: as Aᵀ of a stored [K, M]; B [K, N] is MN-major as stored, K-major as Bᵀ of a stored [N, K].
+K_MAJOR, MN_MAJOR = "K", "MN"
+
+#: the deepest reduction that runs the wgmma kernel's short schedule (a persistent grid whose stores drain by TMA
+#: under the next tile's products) rather than the long one (one block a tile, stores from registers).  At
+#: phi3.5-moe's dB (K 320) the short schedule took 0.455 and 0.499 ms where the long one took 1.50 and 1.46; at the
+#: K 4096-8192 products (the MoE forward, dA) it took 0.96-1.13x the long one's time (``scripts/gemm_probe.py``,
+#: NVIDIA H100 80GB HBM3, 700 W).  K between was not measured.
+SHORT_K = 1024
+
+#: the kernels of ``csrc/gemm.cu``, indexed by the route code ``gemm_fwd`` takes.  The wgmma kernel's template
+#: arguments are its cluster size (1 or 2, picked at launch), A's and B's majors as wgmma's transpose bits (0
+#: K-major, 1 MN-major) and its schedule (0 a long reduction, 1 a short one: K <= SHORT_K), as the profiler names it.
 KERNELS = (
     "gemm_fma_f32_kernel",  # fp32
     "gemm_mma_bf16_kernel<16, 128> 16-byte rows",  # bf16, M <= 16
     "gemm_mma_bf16_kernel<16, 128> masked",  # bf16, M <= 16, rows not 16-byte aligned
     "gemm_mma_bf16_kernel<64, 256> masked",  # bf16, M > 16, rows not 16-byte aligned
-    "gemm_wgmma_bf16_kernel",  # bf16, M > 16, rows the TMA can address
+    # bf16, M > 16, TMA rows: A K-major, B MN-major (the forward); B K-major (dA = dC·Bᵀ); A MN-major (dB = Aᵀ·dC);
+    # both transposed; each on the long schedule, then the short
+    *(f"gemm_wgmma_bf16_kernel<C, {a}, {b}, {short}>" for a, b in ((0, 1), (0, 0), (1, 1), (1, 0)) for short in (0, 1)),
 )
+_WGMMA = {(K_MAJOR, MN_MAJOR): 4, (K_MAJOR, K_MAJOR): 6, (MN_MAJOR, MN_MAJOR): 8, (MN_MAJOR, K_MAJOR): 10}
 
 
-def route(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool) -> int:
-    """Index in :data:`KERNELS` of the kernel that computes a [m, k] · [k, n]
-    product, by shape, type and alignment alone.  ``aligned``: every row of
-    a, b and the output starts 16-byte aligned (:func:`_aligned`).  bf16
-    rows the TMA can address need that and K, N multiples of 8."""
+class Route(NamedTuple):
+    """The kernel a product runs (index in :data:`KERNELS`) and whether the
+    wrapper copies A or B to the layout that kernel reads first."""
+
+    kernel: int
+    copy_a: bool
+    copy_b: bool
+
+
+def route(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool, a_major: str = K_MAJOR,
+          b_major: str = MN_MAJOR) -> Route:
+    """The kernel that computes a [m, k] · [k, n] product, by shape, type,
+    the operands' majors and alignment alone.  ``aligned``: every row of a,
+    b and the output starts 16-byte aligned (:func:`_aligned`).  bf16 rows
+    the TMA can address need that and K, N multiples of 8; there the wgmma
+    instantiation of the two majors reads both operands as they lie, on the
+    short schedule where K <= :data:`SHORT_K`.  The
+    fp32, M <= 16 and unaligned routes read A K-major and B MN-major only,
+    so a transposed operand is copied first there, and only there."""
+    if (a_major, b_major) not in _WGMMA:
+        raise ValueError(f"majors {a_major}, {b_major}: want {K_MAJOR} or {MN_MAJOR} each")
     if dtype == torch.float32:
-        return 0
-    if dtype != torch.bfloat16:
+        kernel = 0
+    elif dtype != torch.bfloat16:
         raise TypeError(f"gemm takes float32 or bfloat16, got {dtype}")
-    vec = aligned and k % 8 == 0 and n % 8 == 0
-    if m <= 16:
-        return 1 if vec else 2
-    return 4 if vec else 3
+    elif not (aligned and k % 8 == 0 and n % 8 == 0):
+        kernel = 2 if m <= 16 else 3
+    elif m <= 16:
+        kernel = 1
+    else:
+        return Route(_WGMMA[a_major, b_major] + (k <= SHORT_K), False, False)
+    return Route(kernel, a_major != K_MAJOR, b_major != MN_MAJOR)
 
 
 def _check_shapes(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -71,21 +118,45 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
+def _unit_dim(t: torch.Tensor) -> int | None:
+    """Which of the last two dims has unit stride (-1 first; a dim of one
+    element counts as unit), or None."""
+    for dim in (-1, -2):
+        if t.stride(dim) == 1 or t.shape[dim] == 1:
+            return dim
+    return None
+
+
+def majors(a: torch.Tensor, b: torch.Tensor) -> tuple[str, str]:
+    """(A's major, B's major) of a [(E,) M, K] · [(E,) K, N] product; raises
+    where an operand has unit stride over neither of its last two dims."""
+    ua, ub = _unit_dim(a), _unit_dim(b)
+    if ua is None or ub is None:
+        raise ValueError(f"gemm needs unit stride over one of the last two dims of a and of b; got strides "
+                         f"{a.stride()}, {b.stride()}")
+    return (K_MAJOR if ua == -1 else MN_MAJOR), (MN_MAJOR if ub == -1 else K_MAJOR)
+
+
 def _aligned(t: torch.Tensor) -> bool:
-    """Every row starts 16-byte aligned (bf16: strides multiples of 8 elements)."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
+    """Every row starts 16-byte aligned (bf16: every stride but the unit
+    one, over a dim of more than one element, a multiple of 8 elements)."""
+    unit = t.dim() + (_unit_dim(t) or -1)
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for d, (st, size) in enumerate(zip(t.stride(), t.shape)) if d != unit and size > 1)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A·B on the CUDA kernel.  a: [M, K] and b: [K, N], or a: [E, M, K]
     and b: [E, K, N] (one launch for the whole batch); float32 or bfloat16
-    alike, on the current CUDA device, unit stride over the last dim (other
-    strides free) -> [(E,) M, N] contiguous in ``a.dtype``.
+    alike, on the current CUDA device, unit stride over either of the last
+    two dims of each (other strides free) -> [(E,) M, N] contiguous in
+    ``a.dtype``.  A transposed view is read in place on the wgmma routes
+    and copied first on the others (:func:`route`).
 
     Launches on the current stream without synchronising; raises if the
     inputs are not what the kernel takes or the launch is refused.
     """
-    global launches
+    global launches, copies
     if not (a.is_cuda and b.is_cuda):
         raise ValueError(f"gemm needs CUDA tensors, got {a.device}, {b.device}")
     if a.device != b.device or a.device.index != torch.cuda.current_device():
@@ -93,8 +164,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
         raise TypeError(f"gemm takes float32 or bfloat16 alike, got {a.dtype}, {b.dtype}")
     _check_shapes(a, b)
-    if a.stride(-1) != 1 or b.stride(-1) != 1:
-        raise ValueError("gemm needs unit stride over the last dim of a and b")
+    a_major, b_major = majors(a, b)
     batched = a.dim() == 3
     a3, b3 = (a, b) if batched else (a[None], b[None])
     E, M, K = a3.shape
@@ -103,12 +173,16 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"empty gemm: a {tuple(a.shape)}, b {tuple(b.shape)}")
     if E > 65535 or -(-M // 16) > 65535:
         raise ValueError(f"gemm too large for the kernel's grid: a {tuple(a.shape)}, b {tuple(b.shape)}")
+    kernel, copy_a, copy_b = route(a.dtype, M, K, N, _aligned(a3) and _aligned(b3), a_major, b_major)
+    if copy_a:
+        a3 = a3.contiguous()
+    if copy_b:
+        b3 = b3.contiguous()
+    copies += copy_a + copy_b
     c = torch.empty((E, M, N), dtype=a.dtype, device=a.device)
-    kernel = route(a.dtype, M, K, N, _aligned(a3) and _aligned(b3))
     err = _kernel()(
-        a3.data_ptr(), b3.data_ptr(), c.data_ptr(), kernel, E, M, N, K,
-        a3.stride(0), a3.stride(1), b3.stride(0), b3.stride(1), c.stride(0), c.stride(1),
-        torch.cuda.current_stream(a.device).cuda_stream,
+        a3.data_ptr(), b3.data_ptr(), c.data_ptr(), kernel, E, M, N, K, *a3.stride(), *b3.stride(),
+        c.stride(0), c.stride(1), torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err >= _TENSOR_MAP_ERROR:
         raise RuntimeError(f"gemm: {KERNELS[kernel]}: the driver refused a tensor map (CUresult {err - _TENSOR_MAP_ERROR})")
@@ -125,6 +199,6 @@ def _kernel():
     from .build import library
 
     fn = library("gemm").gemm_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

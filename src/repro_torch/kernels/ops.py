@@ -12,8 +12,9 @@ requires grad:
   the kernel with its log-sum-exp and whose backward is the hand-written
   backward kernel (``flash_attention_bwd``);
 - ``gemm`` runs through an autograd Function whose backward is two more
-  ``gemm`` calls, dA = dC·Bᵀ and dB = Aᵀ·dC (the transposed operand made
-  contiguous first: the kernel needs unit stride over the last dim);
+  ``gemm`` calls, dA = dC·Bᵀ and dB = Aᵀ·dC, on the transposed views as
+  they lie (bf16: the wgmma instantiations that read B K-major and A
+  MN-major; the routes that read one layout only copy them, ``gemm.route``);
 - ``ssd_scan`` runs through an autograd Function whose forward is the scan
   kernel and whose backward is the hand-written backward kernel
   (``ssd_scan_bwd``), with no gradient of the final state where it is
@@ -48,13 +49,14 @@ class _Gemm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dc):
         a, b = ctx.saved_tensors
-        dc = dc if dc.stride(-1) == 1 else dc.contiguous()
+        if _gemm._unit_dim(dc) is None:  # e.g. an expanded gradient: the kernels read rows or columns
+            dc = dc.contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _gemm.gemm(dc, b.transpose(-1, -2).contiguous())
+            da = _gemm.gemm(dc, b.transpose(-1, -2))
             _gemm.bwd_launches += 1
         if ctx.needs_input_grad[1]:
-            db = _gemm.gemm(a.transpose(-1, -2).contiguous(), dc)
+            db = _gemm.gemm(a.transpose(-1, -2), dc)
             _gemm.bwd_launches += 1
         return da, db
 

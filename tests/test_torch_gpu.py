@@ -644,8 +644,8 @@ def test_gemm_wgmma_matches_plain_past_whole_tiles(m, batch, n):
     stores at every edge, inside each expert.  N 6408 makes 51 column tiles
     (one block a cluster), 6392 makes 50 (two-block clusters sharing A)."""
     a, b = _gemm_inputs((batch, m, 4104), (batch, 4104, n), torch.bfloat16)
-    assert gm.route(a.dtype, m, 4104, n, gm._aligned(a) and gm._aligned(b)) == gm.KERNELS.index(
-        "gemm_wgmma_bf16_kernel")
+    assert gm.route(a.dtype, m, 4104, n, gm._aligned(a) and gm._aligned(b)).kernel == gm.KERNELS.index(
+        "gemm_wgmma_bf16_kernel<C, 0, 1, 0>")
     y = gm.gemm(a, b)
     torch.cuda.synchronize()
     assert y.dtype == torch.bfloat16 and y.is_contiguous() and tuple(y.shape) == (batch, m, n)
@@ -657,13 +657,75 @@ def test_gemm_wgmma_takes_layer_slices_of_the_expert_stacks():
     (a base offset per layer) and every other row of the capacity buffer."""
     a, w = _gemm_inputs((4, 200, 264), (3, 4, 264, 136), torch.bfloat16)
     a = a[:, ::2]  # 100 rows, row stride 528
-    wgmma = gm.KERNELS.index("gemm_wgmma_bf16_kernel")
+    wgmma = gm.KERNELS.index("gemm_wgmma_bf16_kernel<C, 0, 1, 1>")  # K 264: the short schedule
     for layer in (1, 2):
         assert w[layer].storage_offset() > 0
-        assert gm.route(a.dtype, 100, 264, 136, gm._aligned(a) and gm._aligned(w[layer])) == wgmma
+        assert gm.route(a.dtype, 100, 264, 136, gm._aligned(a) and gm._aligned(w[layer])).kernel == wgmma
         y = ops.gemm(a, w[layer])
         torch.cuda.synchronize()
         torch.testing.assert_close(y.float(), gm.gemm_plain(a, w[layer]).float(), **GEMM_TOL[torch.bfloat16])
+
+
+def _gemm_operand(shape, dtype, seed, transposed):
+    """An operand of ``shape``: as stored, or the transposed view of one
+    stored with its last two dims swapped (the backward's Bᵀ and Aᵀ)."""
+    stored = (*shape[:-2], shape[-1], shape[-2]) if transposed else shape
+    t = torch.randn(stored, generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda").to(dtype)
+    return t.transpose(-1, -2) if transposed else t
+
+
+@pytest.mark.parametrize("ta,tb", [(False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("m", [8, 16, 17, 160, 320, 321])
+@pytest.mark.parametrize("k,n", [(200, 264), (4104, 136)])  # K and N ragged against 64 and 128
+def test_gemm_reads_transposed_views_as_its_route_says(m, k, n, ta, tb):
+    """Each instantiation that reads a transposed operand in place (both
+    schedules: K 200 short, 4104 long), at every capacity as M: the wgmma
+    route copies nothing; M <= 16, and a transposed A whose M is not a
+    multiple of 8 (its rows, stored [K, M], not 16-byte aligned), copy the
+    transposed operands for the mma.sync tiles; two calls give the same
+    bits."""
+    a = _gemm_operand((3, m, k), torch.bfloat16, 0, ta)
+    b = _gemm_operand((3, k, n), torch.bfloat16, 1, tb) / k**0.5
+    r = gm.route(a.dtype, m, k, n, gm._aligned(a) and gm._aligned(b), *gm.majors(a, b))
+    layout = {(False, True): "0, 0", (True, False): "1, 1", (True, True): "1, 0"}[ta, tb]
+    on_wgmma = m > 16 and (not ta or m % 8 == 0)
+    assert gm.KERNELS[r.kernel] == (f"gemm_wgmma_bf16_kernel<C, {layout}, {int(k <= gm.SHORT_K)}>" if on_wgmma
+                                    else "gemm_mma_bf16_kernel<16, 128> 16-byte rows" if m <= 16
+                                    else "gemm_mma_bf16_kernel<64, 256> masked")
+    before = gm.copies
+    y = gm.gemm(a, b)
+    assert gm.copies - before == (0 if on_wgmma else ta + tb) == r.copy_a + r.copy_b
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.is_contiguous() and tuple(y.shape) == (3, m, n)
+    torch.testing.assert_close(y.float(), gm.gemm_plain(a, b).float(), **GEMM_TOL[torch.bfloat16])
+    assert torch.equal(y, gm.gemm(a, b))
+
+
+@pytest.mark.parametrize("cap", [8, 16, 17, 160, 320, 321])
+def test_gemm_gradient_at_every_capacity_with_a_layer_slice_of_the_stacked_weights(cap):
+    """dA = dC·Bᵀ (capacity as M) and dB = Aᵀ·dC (capacity as K) through
+    ``ops.gemm``'s backward, B a layer slice of an [E, L, K, N] stack (batch
+    stride L·K·N, not K·N) and A every other row of a capacity buffer: each
+    product copies only where its route says, agrees with the plain
+    version and gives the same bits twice."""
+    a = torch.randn((4, 2 * cap, 264), device="cuda").to(torch.bfloat16)[:, ::2].requires_grad_()
+    stack = (torch.randn((4, 3, 264, 200), device="cuda") / 264**0.5).to(torch.bfloat16)
+    w = stack[:, 1].requires_grad_()
+    assert w.stride(0) == 3 * 264 * 200 and w.storage_offset() > 0
+    dc = torch.randn((4, cap, 200), device="cuda").to(torch.bfloat16)
+    c = ops.gemm(a, w)
+    routes = [gm.route(torch.bfloat16, x.shape[-2], x.shape[-1], y.shape[-1], gm._aligned(x) and gm._aligned(y),
+                       *gm.majors(x, y)) for x, y in ((dc, w.transpose(1, 2)), (a.transpose(1, 2), dc))]
+    before = gm.copies, gm.bwd_launches
+    da, dw = torch.autograd.grad(c, (a, w), dc, retain_graph=True)
+    assert gm.copies - before[0] == sum(r.copy_a + r.copy_b for r in routes)
+    assert gm.bwd_launches == before[1] + 2
+    assert (routes[0].kernel == gm.KERNELS.index("gemm_wgmma_bf16_kernel<C, 0, 0, 1>")) == (cap > 16)
+    assert (routes[1].kernel == gm.KERNELS.index("gemm_wgmma_bf16_kernel<C, 1, 1, 1>")) == (cap % 8 == 0)
+    torch.testing.assert_close(da, gm.gemm_plain(dc, w.detach().transpose(1, 2)), **GEMM_TOL[torch.bfloat16])
+    torch.testing.assert_close(dw, gm.gemm_plain(a.detach().transpose(1, 2), dc), **GEMM_TOL[torch.bfloat16])
+    again = torch.autograd.grad(c, (a, w), dc)
+    assert torch.equal(da, again[0]) and torch.equal(dw, again[1])
 
 
 @pytest.mark.parametrize(
@@ -706,7 +768,7 @@ def test_gemm_runs_the_kernel_of_its_route(sa, sb, view, want, other):
         (lambda a, b: (a, b.cpu()), ValueError),
         (lambda a, b: (a, b[:, :-1]), ValueError),  # mismatched K
         (lambda a, b: (a, b[:1]), ValueError),  # mismatched batch
-        (lambda a, b: (a.transpose(1, 2), b[:, :8]), ValueError),  # K not unit-stride
+        (lambda a, b: (a[:, :, ::2], b[:, ::2]), ValueError),  # unit stride over neither of a's last two dims
         (lambda a, b: (a[:, :0], b), ValueError),  # empty
     ],
 )
@@ -822,9 +884,11 @@ def test_gemm_gradient_runs_the_kernel_twice_and_matches_plain(dtype):
     b.requires_grad_()
     dc = torch.randn((3, 40, 48), device="cuda").to(dtype)
     c = ops.gemm(a, b)
-    before = gm.launches, gm.bwd_launches
+    before = gm.launches, gm.bwd_launches, gm.copies
     da, db = torch.autograd.grad(c, (a, b), dc)
     assert (gm.launches, gm.bwd_launches) == (before[0] + 2, before[1] + 2)
+    # bf16 reads Bᵀ and Aᵀ in place on wgmma; fp32's FMA kernel reads one layout, so both are copied
+    assert gm.copies == before[2] + (2 if dtype == torch.float32 else 0)
     torch.testing.assert_close(da, gm.gemm_plain(dc, b.detach().transpose(1, 2)), **GEMM_TOL[dtype])
     torch.testing.assert_close(db, gm.gemm_plain(a.detach().transpose(1, 2), dc), **GEMM_TOL[dtype])
 

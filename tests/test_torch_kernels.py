@@ -128,9 +128,13 @@ def test_build_without_a_toolkit_raises(monkeypatch):
 
 from repro_torch.kernels import gemm as gm  # noqa: E402
 
-WGMMA, MMA16, MMA16_MASKED, MMA64_MASKED, FMA = (gm.KERNELS.index(n) for n in (
-    "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel<16, 128> 16-byte rows", "gemm_mma_bf16_kernel<16, 128> masked",
+WGMMA, WGMMA_SHORT, MMA16, MMA16_MASKED, MMA64_MASKED, FMA = (gm.KERNELS.index(n) for n in (
+    "gemm_wgmma_bf16_kernel<C, 0, 1, 0>", "gemm_wgmma_bf16_kernel<C, 0, 1, 1>",
+    "gemm_mma_bf16_kernel<16, 128> 16-byte rows", "gemm_mma_bf16_kernel<16, 128> masked",
     "gemm_mma_bf16_kernel<64, 256> masked", "gemm_fma_f32_kernel"))
+#: the long-schedule wgmma instantiation of each transposed layout; the short one follows it in KERNELS
+WGMMA_KK, WGMMA_NN, WGMMA_NK = (gm.KERNELS.index(f"gemm_wgmma_bf16_kernel<C, {t}, 0>") for t in ("0, 0", "1, 1", "1, 0"))
+K, MN = gm.K_MAJOR, gm.MN_MAJOR
 
 
 @pytest.mark.parametrize(
@@ -140,7 +144,9 @@ WGMMA, MMA16, MMA16_MASKED, MMA64_MASKED, FMA = (gm.KERNELS.index(n) for n in (
         (torch.bfloat16, 320, 6400, 4096, True, WGMMA),  # ... down
         (torch.bfloat16, 160, 5120, 8192, True, WGMMA),  # llama4-scout prefill
         (torch.bfloat16, 17, 4104, 6408, True, WGMMA),  # the first M past decode's tile, ragged K and N
-        (torch.bfloat16, 321, 8, 8, True, WGMMA),
+        (torch.bfloat16, 321, 8, 8, True, WGMMA_SHORT),  # a reduction of one stage: the short schedule
+        (torch.bfloat16, 4096, 1024, 6400, True, WGMMA_SHORT),
+        (torch.bfloat16, 4096, 1032, 6400, True, WGMMA),
         (torch.bfloat16, 16, 4096, 6400, True, MMA16),  # decode keeps the 16-row mma.sync tile
         (torch.bfloat16, 8, 6400, 4096, True, MMA16),
         (torch.bfloat16, 8, 65, 17, True, MMA16_MASKED),
@@ -153,16 +159,49 @@ WGMMA, MMA16, MMA16_MASKED, MMA64_MASKED, FMA = (gm.KERNELS.index(n) for n in (
     ],
 )
 def test_gemm_route_is_picked_by_shape_type_and_alignment(dtype, m, k, n, aligned, want):
-    assert gm.route(dtype, m, k, n, aligned) == want
-    assert gm.route(dtype, m, k, n, aligned) == want  # deterministic
+    """Operands as the forward stores them (A K-major, B MN-major): nothing is copied."""
+    assert gm.route(dtype, m, k, n, aligned) == (want, False, False)
+    assert gm.route(dtype, m, k, n, aligned, K, MN) == gm.route(dtype, m, k, n, aligned)  # deterministic
+
+
+#: every (type, M, alignment) case of a transposed operand: (dtype, m, k, n, aligned) -> the kernel that reads
+#: A K-major and B MN-major only (its operands copied there), or None where a wgmma instantiation reads them
+ROUTE_CASES = [
+    (torch.bfloat16, 320, 6400, 4096, True, None),  # phi3.5-moe training dA (B K-major)
+    (torch.bfloat16, 4096, 320, 6400, True, None),  # ... dB (A MN-major)
+    (torch.bfloat16, 17, 64, 128, True, None),
+    (torch.bfloat16, 16, 320, 6400, True, MMA16),  # M <= 16: copied
+    (torch.bfloat16, 8, 320, 6400, True, MMA16),
+    (torch.bfloat16, 8, 321, 6400, True, MMA16_MASKED),
+    (torch.bfloat16, 8, 320, 6400, False, MMA16_MASKED),
+    (torch.bfloat16, 4096, 321, 6400, True, MMA64_MASKED),  # a capacity not a multiple of 8 as dB's K
+    (torch.bfloat16, 4096, 320, 6404, True, MMA64_MASKED),
+    (torch.bfloat16, 4096, 320, 6400, False, MMA64_MASKED),  # unaligned rows: copied
+    (torch.float32, 4096, 320, 6400, True, FMA),  # fp32: copied
+    (torch.float32, 8, 320, 6400, False, FMA),
+]
+
+
+@pytest.mark.parametrize("a_major,b_major,wgmma", [(K, K, WGMMA_KK), (MN, MN, WGMMA_NN), (MN, K, WGMMA_NK)])
+@pytest.mark.parametrize("dtype,m,k,n,aligned,kernel", ROUTE_CASES)
+def test_gemm_route_reads_transposed_views_in_place_and_copies_them_only_off_wgmma(
+        dtype, m, k, n, aligned, kernel, a_major, b_major, wgmma):
+    got = gm.route(dtype, m, k, n, aligned, a_major, b_major)
+    if kernel is None:  # the instantiation of these majors, its schedule by K; no copy
+        assert got == (wgmma + (k <= gm.SHORT_K), False, False)
+    else:
+        assert got == (kernel, a_major == MN, b_major == K)  # the one layout the kernel reads: A K-, B MN-major
 
 
 def test_gemm_route_lists_each_kernel_once_and_refuses_other_types():
-    assert len(set(gm.KERNELS)) == len(gm.KERNELS) == 5
-    assert {gm.route(dt, m, 64, 64, al) for dt in (torch.float32, torch.bfloat16) for m in (8, 64)
-            for al in (True, False)} == set(range(len(gm.KERNELS)))
+    assert len(set(gm.KERNELS)) == len(gm.KERNELS) == 12
+    assert {gm.route(dt, m, k, 64, al, am, bm).kernel for dt in (torch.float32, torch.bfloat16) for m in (8, 64)
+            for k in (64, 4096) for al in (True, False) for am in (K, MN) for bm in (K, MN)} \
+        == set(range(len(gm.KERNELS)))
     with pytest.raises(TypeError):
         gm.route(torch.float16, 64, 64, 64, True)
+    with pytest.raises(ValueError):
+        gm.route(torch.bfloat16, 64, 64, 64, True, "M", MN)
 
 
 def test_gemm_alignment_reads_every_row_start():
@@ -170,6 +209,33 @@ def test_gemm_alignment_reads_every_row_start():
     assert gm._aligned(x) and gm._aligned(x[1]) and gm._aligned(x[:, ::2])
     assert not gm._aligned(x[:, :, 3:67])  # row starts 6 bytes past 16-byte boundaries
     assert not gm._aligned(torch.zeros((4, 36), dtype=torch.bfloat16)[:, :32])  # row stride 72 bytes
+    # a transposed view: its rows are the stored tensor's columns
+    assert gm._aligned(x.transpose(1, 2)) and gm._aligned(x[1].T) and gm._aligned(x[:, ::2].transpose(1, 2))
+    assert not gm._aligned(torch.zeros((4, 36), dtype=torch.bfloat16)[:, :32].T)
+    assert not gm._aligned(x[:, :, 4:68].transpose(1, 2))  # columns start 8 bytes past 16-byte boundaries
+
+
+@pytest.mark.parametrize(
+    "a,b,want",
+    [
+        (lambda: torch.zeros(3, 40, 64), lambda: torch.zeros(3, 64, 48), (K, MN)),  # the forward, as stored
+        (lambda: torch.zeros(3, 40, 48), lambda: torch.zeros(3, 64, 48).transpose(1, 2), (K, K)),  # dC·Bᵀ
+        (lambda: torch.zeros(3, 40, 64).transpose(1, 2), lambda: torch.zeros(3, 40, 48), (MN, MN)),  # Aᵀ·dC
+        (lambda: torch.zeros(40, 64).T, lambda: torch.zeros(48, 40).T, (MN, K)),
+        (lambda: torch.zeros(4, 2, 64, 48)[:, 1], lambda: torch.zeros(4, 2, 48, 32)[:, 0], (K, MN)),  # layer slices
+        (lambda: torch.zeros(8, 1), lambda: torch.zeros(1, 8), (K, MN)),  # a dim of one counts as unit
+    ],
+)
+def test_gemm_majors_name_the_unit_stride_dim(a, b, want):
+    assert gm.majors(a(), b()) == want
+
+
+def test_gemm_majors_refuse_operands_with_no_unit_stride_in_their_last_two_dims():
+    a = torch.zeros(3, 40, 64)
+    with pytest.raises(ValueError, match="unit stride"):
+        gm.majors(a[:, :, ::2], torch.zeros(3, 32, 8))
+    with pytest.raises(ValueError, match="unit stride"):
+        gm.majors(a, torch.zeros(3, 64, 96)[:, :, ::2].expand(3, 64, 48))
 
 
 # ---------------------------------------------------------------------------

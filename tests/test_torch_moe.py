@@ -85,6 +85,54 @@ def test_batched_gemm_plain_is_one_gemm_per_expert(dtype):
                                            .astype(ja.dtype)), **GEMM_TOL[dtype])
 
 
+#: (E, capacity, d, f) of the gradient tests: ragged against every tile (64, 128, 192), batched
+GRAD_SHAPES = [(3, 17, 40, 72), (2, 33, 65, 17), (4, 8, 24, 56)]
+
+
+@pytest.mark.parametrize("e,c,d,f", GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+def test_gemm_plain_on_the_backwards_transposed_views_matches_pallas(e, c, d, f, dtype):
+    """dA = dC·Bᵀ and dB = Aᵀ·dC as ``ops.gemm``'s backward passes them (views
+    of the stored tensors), against the Pallas gemm in interpret mode on the
+    transposed numpy arrays."""
+    rng = np.random.default_rng(c)
+    a, b, dc = (rng.standard_normal(s, dtype=np.float32) for s in ((e, c, d), (e, d, f), (e, c, f)))
+    (_, ta), (_, tb), (_, tdc) = _both(a, dtype), _both(b, dtype), _both(dc, dtype)
+    da = gm.gemm_plain(tdc, tb.transpose(-1, -2))
+    db = gm.gemm_plain(ta.transpose(-1, -2), tdc)
+    assert da.dtype == ta.dtype and tuple(da.shape) == (e, c, d) and tuple(db.shape) == (e, d, f)
+    for i in range(e):
+        (jdc, _), (jbt, _), (jat, _) = (_both(np.ascontiguousarray(x), dtype)
+                                        for x in (dc[i], b[i].T, a[i].T))
+        np.testing.assert_allclose(_np(da[i]), _np(jops.gemm(jdc, jbt, bm=16, bn=32, bk=32)), **GEMM_TOL[dtype])
+        np.testing.assert_allclose(_np(db[i]), _np(jops.gemm(jat, jdc, bm=16, bn=32, bk=32)), **GEMM_TOL[dtype])
+
+
+@pytest.mark.parametrize("spec", ["ecd,edf->ecf", "ecf,efd->ecd"])  # gate/up, down
+@pytest.mark.parametrize("e,c,d,f", GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+def test_gemm_gradient_through_the_plain_version_matches_jax_grad(spec, e, c, d, f, dtype):
+    """Autograd through ``ops.gemm`` on CPU tensors (``gemm_plain``) against
+    ``jax.grad`` of the reference's einsum, dA and dB, under one upstream
+    gradient dC."""
+    k, n = (d, f) if spec.startswith("ecd") else (f, d)
+    rng = np.random.default_rng(k * n)
+    a, b, dc = (rng.standard_normal(s, dtype=np.float32) for s in ((e, c, k), (e, k, n), (e, c, n)))
+    (ja, ta), (jb, tb), (jdc, tdc) = _both(a, dtype), _both(b, dtype), _both(dc, dtype)
+    ta.requires_grad_()
+    tb.requires_grad_()
+    da, db = torch.autograd.grad(ops.gemm(ta, tb), (ta, tb), tdc)
+
+    def loss(x, w):
+        y = jnp.einsum(spec, x, w, preferred_element_type=jnp.float32)
+        return jnp.sum(y * jdc.astype(jnp.float32))
+
+    jda, jdb = jax.grad(loss, argnums=(0, 1))(ja, jb)
+    assert da.dtype == ta.dtype and db.dtype == tb.dtype
+    np.testing.assert_allclose(_np(da), _np(jda), **GEMM_TOL[dtype])
+    np.testing.assert_allclose(_np(db), _np(jdb), **GEMM_TOL[dtype])
+
+
 def test_ops_gemm_runs_cpu_tensors_on_the_plain_version_without_counting():
     a, b = (torch.from_numpy(x) for x in _ab((3, 8, 16), (3, 16, 24)))
     before = gm.launches
