@@ -21,7 +21,9 @@ repository's sources are not beside this script.  Otherwise, in order:
    with no spill, asks the shared memory the wrapper counts and splits its
    inexact operands into the wrapper's ``MMA_TERMS`` bf16 terms, printing
    its registers and blocks an SM, and unless every kernel of the flash
-   backward and of the SSD scan's backward compiled with no spill
+   backward (the wgmma route's dQ and dK/dV at D 64 and 128 with no
+   ``wgmma`` made to wait, and every ``mma.sync`` and SIMT kernel) and of
+   the SSD scan's backward compiled with no spill
    (``check_flash_bwd_ptxas``, ``check_ssd_bwd_ptxas``);
 3. holds each kernel against its plain PyTorch version on the card, at every
    distinct layer shape of full-width SynthNet (microbatch of 2 images) and
@@ -151,8 +153,14 @@ repository's sources are not beside this script.  Otherwise, in order:
    granite-3-2b q [4,32,512,64], k/v [4,8,512,64]; phi3.5-moe q
    [4,32,512,128], k/v [4,8,512,128]; zamba2-2.7b's shared block q/k/v
    [4,32,512,80]), every head dim in bf16 and fp32,
-   GQA groups 1, 4, 5, 7 and 12, S of 1, 15, 65 and 1000, Sq != Skv both
-   ways, non-causal, a window of 7, contiguous and strided; bf16 within
+   GQA groups 1, 4, 5, 7 and 12 at D 64 and 128 (clusters of 1, 4, 5, 7
+   and 6 on the wgmma route), S of 1, 15, 65 and 1000, Sq != Skv both
+   ways, key tiles past Sq that no query sees (a causal window), non-causal,
+   a window of 7, contiguous, strided, and rows only 8-byte aligned; each
+   case prints the route ``flash_attention.bwd_route`` picked and fails
+   unless it is the one expected (wgmma: bf16 at D 64 and 128 with rows
+   TMA can address; the profiled training shapes must run exactly
+   ``flash_attention.bwd_kernels`` of their route); bf16 within
    BF16_REL_TOL of each gradient's max |plain|, fp32 within ATTN_TOL of it
    (where every row sees one key, dq and dk are 0 in exact arithmetic and
    are held against max |dv|); two calls give the same bits; the lse
@@ -349,12 +357,13 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
 PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel",
                 "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "flash_bwd_delta_kernel",
-                "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_wgmma_kernel",
+                "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkdv_kernel", "ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel")
 #: the flash kernels as the profiler names them: forward bf16 on the tensor cores and fp32 on the SIMT
 #: pipes; the backward's delta pre-pass, and its dQ and dK/dV kernels of each type
 FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|flash_fwd_kernel"
-                      r"|flash_bwd_(?:delta|dq_mma_bf16|dkdv_mma_bf16|dq|dkdv)_kernel)<[^>]*>)")
+                      r"|flash_bwd_(?:delta|dq_mma_bf16|dkdv_mma_bf16|dq_wgmma|dkdv_wgmma|dq|dkdv)_kernel)<[^>]*>)")
 #: the GEMM's kernels as the profiler names them (wgmma, mma.sync tiles, fp32 FMA)
 GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 #: the SSD scan's kernels as the profiler names them: bf16 on the tensor cores, the SIMT one
@@ -488,16 +497,16 @@ def _bwd_name(mangled: str) -> str:
 
 def check_flash_bwd_ptxas() -> None:
     """Fail unless ``ptxas`` compiled every kernel of the flash backward
-    (the delta pre-pass of each type; dQ and dK/dV at every head dim, bf16
-    on the tensor cores and fp32 on the SIMT pipes; the bf16 dK/dV as one
-    pass up to D 80 and as a dV pass and a dK pass above) with no spill;
-    print each one's registers."""
+    (every route's, ``flash_attention.bwd_kernels``: the wgmma route's dQ
+    and dK/dV at D 64 and 128; the delta pre-pass of each type; dQ and
+    dK/dV at every head dim on ``mma.sync`` and on the SIMT pipes, the
+    ``mma.sync`` dK/dV as one pass up to D 80 and as a dV pass and a dK
+    pass above) with no spill, and without making the wgmma kernels'
+    ``wgmma`` wait (C7517, C7518); print each one's registers."""
     seen = {_bwd_name(n): v for n, v in _ptxas_entries(
         "flash_attention", r"(flash_bwd_[a-z0-9_]+_kernelI(?:Li\d+E)*(?:13__nv_bfloat16|f)?E)").items()}
-    want = {"flash_bwd_delta_kernel<__nv_bfloat16>", "flash_bwd_delta_kernel<float>"}
-    for d in fa.HEAD_DIMS:
-        want |= {f"flash_bwd_dq_mma_bf16_kernel<{d}>", f"flash_bwd_dq_kernel<{d}>", f"flash_bwd_dkdv_kernel<{d}>"}
-        want |= {f"flash_bwd_dkdv_mma_bf16_kernel<{d}, {m}>" for m in ((1, 2) if d >= 128 else (3,))}
+    want = {name for d in fa.HEAD_DIMS for route in fa.BWD_ROUTES
+            if route != "wgmma" or d in fa.WGMMA_HEAD_DIMS for name in fa.bwd_kernels(route, d)}
     for name, (regs, st, ld) in sorted(seen.items()):
         print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     if set(seen) != want:
@@ -505,6 +514,10 @@ def check_flash_bwd_ptxas() -> None:
     spilled = {n: v for n, v in seen.items() if v[1] or v[2]}
     if spilled:
         raise RuntimeError(f"flash backward kernels spill: {spilled}")
+    waits = [line for line in build.ptxas_report("flash_attention").splitlines()
+             if re.search(r"\(C751[78]\)", line) and "wgmma_kernel" in line]
+    if waits:
+        raise RuntimeError(f"ptxas made the wgmma of the flash backward wait: {waits}")
 
 
 def check_gemm_ptxas() -> None:
@@ -1653,37 +1666,51 @@ def check_flash_bwd(gen: torch.Generator) -> dict:
     and a grid that reaches every branch; two calls give the same bits;
     the lse against ``flash_attention_fwd_plain``'s.  Times the training
     shapes: kernel, plain backward and SDPA's backward (cuDNN or flash, by
-    PyTorch's choice), by events and the profiler's device time.  Returns
+    PyTorch's choice), by events and the profiler's device time.  Each case
+    prints its route (``flash_attention.bwd_route``) and fails unless it is
+    the expected one; a timed shape fails unless its profiled backward ran
+    exactly the route's kernels (``flash_attention.bwd_kernels``).  Returns
     the ``flash_attention`` row's backward keys (granite-3-2b's, phi3.5-moe's
-    under keys that name it)."""
+    and zamba2-2.7b's under keys that name them)."""
     f32, bf16 = torch.float32, torch.bfloat16
     base = dict(b=2, h=8, kvh=2, s=200, d=64, dtype=bf16, causal=True, window=0)
     cases = [dict(base, b=TRAIN_BATCH, h=c.n_heads, kvh=c.n_kv_heads, s=TRAIN_SEQ, d=c.hd, model=arch)
              for arch in TRAIN_MODELS for c in [get_config(arch)] if c.block_kind != "ssd"]  # zamba2: its shared block
     cases += [dict(base, d=d, dtype=dt) for dt in (bf16, f32) for d in fa.HEAD_DIMS]  # every head dim
-    cases += [dict(base, h=h, kvh=kvh, s=130) for h, kvh in ((4, 4), (8, 2), (10, 2), (14, 2), (24, 2))]  # GQA
+    cases += [dict(base, h=h, kvh=kvh, s=130, d=d) for d in (64, 128)
+              for h, kvh in ((4, 4), (8, 2), (10, 2), (14, 2), (24, 2))]  # GQA groups 1, 4, 5, 7 and 12
     cases += [dict(base, s=s, d=d) for s in (1, 15, 65, 1000) for d in (64, 128)]  # S
     cases += [dict(base, s=1000, d=128, dtype=f32), dict(base, s=1, d=64, dtype=f32)]
     cases += [  # Sq != Skv, both ways
         dict(base, s=15, skv=1000, causal=False), dict(base, s=448, skv=65), dict(base, s=1500, skv=448, h=12, kvh=12),
         dict(base, s=1, skv=1500, causal=False, kvh=1), dict(base, s=65, skv=15, d=128, window=64),
         dict(base, s=100, skv=300, d=128, dtype=f32), dict(base, s=77, skv=33, dtype=f32, causal=False, window=50),
+        dict(base, s=100, skv=400, d=128, h=10, window=32),  # key tiles past Sq: whole clusters see no query
+        dict(base, s=200, skv=330, h=14, window=48),
     ]
     cases += [dict(base, d=d, dtype=dt, causal=c, window=w) for dt in (bf16, f32) for d in (64, 192)
               for c, w in ((False, 0), (True, 7))]  # non-causal; a window
     cases += [dict(base, d=d, dtype=dt, strided=False) for dt in (bf16, f32) for d in (32, 128)]  # contiguous
+    cases += [dict(base, d=d, pad=4) for d in (64, 128)]  # rows 8-byte aligned only: the mma.sync route
     out, max_err = {}, 0.0
     for case in cases:
         b, h, kvh, s, d, dt = (case[k] for k in ("b", "h", "kvh", "s", "d", "dtype"))
         skv, kw = case.get("skv", s), dict(causal=case["causal"], window=case["window"])
 
         def draw(n, heads):
+            if "pad" in case:  # rows of d + pad elements: strides a multiple of 4 elements, not of 8
+                x = torch.randn((b, n, heads, d + case["pad"]), generator=gen, device="cuda").to(dt)
+                return x[..., :d].transpose(1, 2)
             if case.get("strided", True):  # the model's layout: [b, s, h, d] as a transposed view
                 return torch.randn((b, n, heads, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
             return torch.randn((b, heads, n, d), generator=gen, device="cuda").to(dt)
 
         q, k, v, do = draw(s, h), draw(skv, kvh), draw(skv, kvh), draw(s, h)
         o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        route = fa.bwd_route(q, k, v, o, do)
+        want_route = ("simt" if dt == f32 else "wgmma" if d in fa.WGMMA_HEAD_DIMS and "pad" not in case else "mma")
+        if route != want_route:
+            raise RuntimeError(f"flash_attention_bwd took the {route} route at {case}, want {want_route}")
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         plain = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
@@ -1691,7 +1718,9 @@ def check_flash_bwd(gen: torch.Generator) -> dict:
         auto = torch.autograd.grad(fa.flash_attention_plain(qa, ka, va, **kw), (qa, ka, va), do)
         lse_plain = fa.flash_attention_fwd_plain(q, k, v, **kw)[1]
         torch.cuda.synchronize()
-        desc = {**case, "skv": skv, "dtype": str(dt).removeprefix("torch.")}
+        desc = {**case, "skv": skv, "dtype": str(dt).removeprefix("torch."), "route": route}
+        if route == "wgmma":
+            desc["cluster"] = fa.bwd_cluster(h, kvh)
         tol = ATTN_TOL if dt == f32 else BF16_REL_TOL
         one_key = skv == 1 or (case["causal"] and s == 1) or case["window"] == 1
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
@@ -1726,6 +1755,11 @@ def check_flash_bwd(gen: torch.Generator) -> dict:
             timed.update(bwd_host_ms=_host_ms(kern), bwd_max_abs_err=max(
                 (g.float() - w.float()).abs().max().item() for g, w in zip(got, plain)))
             timed["bwd_device_functions"] = sorted(m.group(1) for n in ran if (m := FLASH_FN.search(n)))
+            timed.update(bwd_route=route, bwd_kernel_launches=sum(ran.values()))
+            if timed["bwd_device_functions"] != sorted(fa.bwd_kernels(route, d)) or sum(ran.values()) != len(
+                    fa.bwd_kernels(route, d)):
+                raise RuntimeError(f"flash_attention_bwd at {case['model']}'s training shape ran {ran}, want "
+                                   f"{fa.bwd_kernels(route, d)} once each")
             ratios = dict(sdpa_ratio=timed["bwd_ms"] / timed["bwd_library_ms"],
                           sdpa_device_ratio=_ratio(timed["bwd_device_ms"], timed["bwd_library_device_ms"]),
                           bound_ratio=_ratio(timed["bwd_device_ms"], bound_ms))
@@ -2256,7 +2290,9 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
     from torch.profiler import ProfilerActivity, profile
 
     per_step = _train_launches(cfg, 1)
-    per_bwd = 4 if cfg.hd >= 128 else 3  # delta, dQ, dK/dV (a dV and a dK pass at D 128 and 192)
+    # the model's bf16 q, k, v, o and dO are strided views TMA can address: the wgmma route where its head dims allow
+    bwd_kernels = fa.bwd_kernels("wgmma" if cfg.hd in fa.WGMMA_HEAD_DIMS else "mma", cfg.hd)
+    per_bwd = len(bwd_kernels)
     calls_of = ("flash_calls", "gemm_calls", "ssd_calls", "ssd_bwd_calls")
     for _ in range(PROFILER_WINDOWS):
         before = {name: mod.launches for name, mod in mods.items()}
@@ -2295,11 +2331,8 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
     want_calls = {}
     if per_step["flash_attention_bwd"]:
         n_attn = per_step["flash_attention_bwd"]
-        want_calls.update({f"flash_fwd_mma_bf16_kernel<{cfg.hd}>": per_step["flash_attention"],
-                           "flash_bwd_delta_kernel<__nv_bfloat16>": n_attn,
-                           f"flash_bwd_dq_mma_bf16_kernel<{cfg.hd}>": n_attn})
-        want_calls.update({f"flash_bwd_dkdv_mma_bf16_kernel<{cfg.hd}, {m}>": n_attn
-                           for m in ((1, 2) if cfg.hd >= 128 else (3,))})
+        want_calls.update({f"flash_fwd_mma_bf16_kernel<{cfg.hd}>": per_step["flash_attention"]})
+        want_calls.update({name: n_attn for name in bwd_kernels})
     if per_step["ssd_scan_bwd"]:
         n_ssd = per_step["ssd_scan_bwd"]
         chosen = ssd.plan(torch.bfloat16, TRAIN_BATCH, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,

@@ -97,6 +97,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -652,29 +653,105 @@ bool rows_16b(const void* q, const void* k, const void* v, const void* o, const 
 // The gradient of the forward above (blocks._sdpa_chunk's at q_offset 0, as
 // jax.grad takes it through the reference's XLA attention; no Pallas kernel
 // of the reference has a backward).  With P = exp(S * scale - lse) from the
-// forward's log-sum-exp, the three kernels below compute
-//   delta = rowsum(dO o O)                       (flash_bwd_delta_kernel)
+// forward's log-sum-exp, the kernels below compute
+//   delta = rowsum(dO o O)
 //   dP = dO.V^T,  dS = P o (dP - delta)
-//   dQ = scale * dS.K                            (flash_bwd_dq_*)
-//   dV = P~^T.dO,  dK = scale * dS^T.Q            (flash_bwd_dkdv_*)
+//   dQ = scale * dS.K
+//   dV = P~^T.dO,  dK = scale * dS^T.Q,  each summed over the GQA group
 // with P~ the probabilities rounded to the input type, as the forward rounds
-// them before P.V.  No atomics: each output element is written by one
-// thread, each sum taken in one order, so two calls give the same bits.  A
-// dK/dV block sums the q-heads of its GQA group itself.  Masks as the
-// forward's; a query row that sees no key (only where Sq >= Skv + window)
-// has no finite lse, and the wrapper refuses the shapes that make one.
+// them before P.V; P and dS are rounded to bf16 as the A operands of the
+// second products.  No atomics: each output element is written by one
+// thread, each sum taken in one order, so two calls give the same bits.
+// Masks as the forward's; a query row that sees no key (only where Sq >=
+// Skv + window) has no finite lse, and the wrapper refuses the shapes that
+// make one.
+//
+// Routes (flash_attention.py::bwd_route, a function of type, head dim,
+// strides and alignment that the CPU tests pin; the wrapper passes the
+// route's code and launches nothing else):
+// - BWD_WGMMA, bf16 at D 64 and 128 where TMA can address every row of q,
+//   k, v, o and dO (strides multiples of 8 elements, 16-byte-aligned
+//   bases): the training path of granite-3-2b and phi3.5-moe.  Two
+//   launches: flash_bwd_dq_wgmma_kernel<D> (which also computes delta) and
+//   flash_bwd_dkdv_wgmma_kernel<D>, below.
+// - BWD_MMA, every other bf16 call: D 16 and 32 (too narrow for a k16 step
+//   in each row of a 128-byte swizzle box), D 80 (zamba2's shared block:
+//   its 160-byte rows do not fill whole 128-byte boxes), D 192 (no training
+//   path), rows only 8-byte aligned.  The delta pre-pass, the mma.sync dQ
+//   kernel and the mma.sync dK/dV kernel, one pass up to D 80 and a dV and
+//   a dK pass at D 128 and 192.
+// - BWD_SIMT, fp32: the delta pre-pass, dQ and dK/dV on the SIMT pipes.
+// The launch order is delta (where separate), dQ, dK/dV, on one stream.
 //
 // Bound on the H100 SXM: at the training shapes (bf16, causal, S 512,
 // granite-3-2b q [4,32,512,64], k/v [4,8,512,64]; phi3.5-moe q
 // [4,32,512,128], k/v [4,8,512,128]) the call moves 42.5 / 85 MB (q, k, v,
 // o, dO and the three gradients once, lse and delta in fp32) against 10.8 /
-// 21.5 GFLOP (five S x S x D products), so bytes bound it: 12.7 / 25.4 us.
-// Like the forward, this first version is far from that: its products run
-// on mma.sync with every operand re-read from shared memory by ldmatrix,
-// and each block's prologue and epilogue are exposed.  wgmma with TMA and a
-// persistent schedule are later work (PERF.md, ROADMAP.md queue 2).
+// 21.5 GFLOP (five S x S x D products), so bytes bound it: 12.7 / 25.2 us.
 //
-// bf16, on the tensor cores (mma.sync m16n8k16, fp32 accumulators), 4 warps:
+// The wgmma route (NVIDIA H100 80GB HBM3, 700 W; scripts/flash_bwd_probe.py,
+// device time by the profiler): granite 0.070 ms (dQ 0.029, dK/dV 0.041),
+// phi 0.129 ms (0.052, 0.077), against cuDNN's 0.092 / 0.150 and the
+// mma.sync route's 0.123 / 0.263 (delta 0.016 / 0.015; dQ 0.040 / 0.067;
+// dK/dV 0.067 at D 64, dV 0.083 and dK 0.098 at D 128).  What bounds it now
+// is latency, not the tensor cores or the loads: without its products
+// dK/dV takes 0.061 of its 0.077 ms at phi, without its streamed loads
+// 0.075, and without the cluster's sum (each output's cl partials read
+// through distributed shared memory; with more of those reads in flight
+// it was slower) 0.060.  What held the mma.sync route back: one dK/dV
+// block walked a whole GQA group a tile after another (up to 32 dependent
+// steps, 256 blocks of 4 warps), D 128 took two dK/dV passes (two mma.sync
+// accumulators and the fragments passed 255 registers), every operand was
+// re-read from shared memory by ldmatrix, and delta was a launch of its
+// own.  The design:
+// - One warpgroup a block (128 threads), 64 rows of its own and 64-row tiles
+//   of the other side streaming through an mbarrier ring that the block's
+//   first thread refills by TMA as each stage is released (2 stages at D
+//   128, 3 at D 64, so two blocks fit an SM; ptxas: dK/dV 218 / 154
+//   registers, dQ 154 / 122 at D 128 / 64, no spill).  A producer warpgroup
+//   of its own would hold registers (setmaxnreg moves them in warpgroups)
+//   that the one consumer warpgroup needs at D 128; the TMA loads take one
+//   thread a few instructions a stage.
+// - TMA maps over each tensor as it lies, 4-D (D, positions, heads, batch)
+//   in 64 x 64 boxes with the 128-byte swizzle, zero-filled past Sq and
+//   Skv; a tile of D columns is D / 64 boxes.
+// - All products on wgmma with fp32 accumulators.  S^T = K.Q^T and dP^T =
+//   V.dO^T (dK/dV), S = Q.K^T and dP = dO.V^T (dQ): m64n64k16, both
+//   operands from shared memory, K-major (D the reduction).  The
+//   accumulator layout of a 64 x 64 product is the register A fragment of
+//   the next: P^T and dS^T (dS), rounded to bf16 and packed, feed dV +=
+//   P~^T.dO and dK += dS^T.Q (dQ += dS.K) as m64nDk16 with A from
+//   registers and B read MN-major from the same shared tiles that were the
+//   K-major B of the first products.  So no operand is transposed or
+//   re-read through ldmatrix, and D 128 keeps dK and dV (64 + 64 fp32
+//   registers a thread) in one pass.
+// - dQ: one block per (batch * q-head, q tile), K and V streaming; its
+//   prologue sums delta from the O and dO tiles, both brought by TMA (O into
+//   the ring's last stage before that stage's first K/V tile: from O's rows
+//   in global memory, loaded by every thread before its first product,
+//   delta took 0.028 of dQ's 0.074 ms at phi; this way 0.005), and writes
+//   each q tile's lse * log2(e) and delta, 64 each, rows past Sq +inf and
+//   0, to a scratch the dK/dV kernel's ring reads with one bulk copy a
+//   stage.
+// - dK/dV: one block per (batch, kv-head, cluster rank, key tile), Q, dO
+//   and the stats streaming.  The blocks of one (batch, kv-head, key tile)
+//   form a thread-block cluster of c blocks, c the largest divisor of the
+//   group G = H / KVH that is at most 8 (flash_attention.py::bwd_cluster;
+//   no cluster at G 1), and rank r takes q-heads r G / c .. (r + 1) G / c -
+//   1: granite's and phi's longest chain of dependent steps falls from 32
+//   to 8 and their 256 blocks become 1,024.  Each block keeps its dK and dV
+//   in fp32 registers; at the end it stages them in its own shared memory,
+//   and after a cluster barrier rank r sums rows 64 r / c .. 64 (r + 1) / c
+//   - 1 over the cluster's blocks in rank order, reading the others'
+//   partials through distributed shared memory, and stores them as bf16:
+//   one fixed order, nothing atomic, no fp32 partials in device memory
+//   (per-q-head partials summed by another kernel would write and read
+//   ~268 MB at phi's shape).  Every block of a cluster sees the same q
+//   tiles (they depend on the key tile only), so a cluster whose keys no
+//   query sees (past Sq under a causal mask or a window) sums and stores
+//   zeros, and every block reaches both cluster barriers.
+//
+// The mma.sync kernels (mma.sync m16n8k16, fp32 accumulators, 4 warps):
 // - flash_bwd_dq_mma_bf16_kernel<D>: one block per (batch * q-head, 64-row q
 //   tile); each warp owns 16 query rows.  Q and dO stay in shared memory;
 //   K and V stream in 64-key tiles through a 2-stage cp.async ring.  Per
@@ -699,8 +776,6 @@ bool rows_16b(const void* q, const void* k, const void* v, const void* o, const 
 // fp32, on the SIMT pipes (no TF32, as the forward): 32 x 32 score tiles,
 // 256 threads as 16 x 16, each a 2 x 2 patch and 2 rows x D/16 columns of
 // its output, rows in shared memory padded to an odd length.
-//
-// The launch order is delta, dQ, dK/dV, on one stream.
 
 struct BwdShape {
   int B, H, KVH, Sq, Skv;
@@ -1353,6 +1428,465 @@ int launch_bwd_f32(const BwdArgs& a, const BwdShape& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on wgmma, fed by TMA (D 64 and 128, rows TMA can address)
+// ---------------------------------------------------------------------------
+
+// scripts/flash_bwd_probe.py builds copies with -DFLASH_BWD_PROBE=n to see
+// what bounds the two kernels: 1, the dQ kernel computes no delta (loads no
+// tile of O); 2, neither runs its products; 3, neither loads its
+// streamed tiles (the ring's barriers complete with no bytes; the products
+// run on whatever shared memory holds); 4, the dK/dV kernel stores each
+// block's own partials, with no cluster sum.  Each leaves the output wrong;
+// 0, the shipped build, runs the kernels whole.
+#ifndef FLASH_BWD_PROBE
+#define FLASH_BWD_PROBE 0
+#endif
+
+constexpr int HB = 64;                   // rows of a tile: a block's queries (dQ) or keys (dK/dV), a streamed tile
+constexpr int HBOX = 64 * 64 * 2;        // one 128-byte-swizzled TMA box: 64 rows of 64 bf16
+constexpr int HSTATS = 2 * HB * 4;       // a q tile's lse * log2(e) and delta, fp32
+constexpr int HTHREADS = 128;            // one warpgroup; its first thread issues the TMA loads
+
+// A 64-row tile of D columns: D / 64 boxes, one HBOX apart.
+template <int D>
+__host__ __device__ constexpr int htile() {
+  return D / 64 * HBOX;
+}
+
+// Depth of the ring of streamed tiles (Q and dO for dK/dV, K and V for dQ):
+// as deep as two blocks an SM leave room for.
+template <int D>
+__host__ __device__ constexpr int hstages() {
+  return D == 64 ? 3 : 2;
+}
+
+// Shared memory a block asks: 1024 bytes of alignment slack, the resident
+// tiles (dK/dV: K, V; dQ: Q, dO and the q tile's stats), the ring and its
+// barriers.  dK/dV's stages carry their q tile's stats after Q and dO,
+// padded to keep the next stage 1024-byte aligned.
+template <int D>
+__host__ __device__ constexpr int dkdv_stage_bytes() {
+  return 2 * htile<D>() + 1024;
+}
+template <int D>
+__host__ __device__ constexpr int dkdv_wgmma_smem() {
+  return 1024 + 2 * htile<D>() + hstages<D>() * dkdv_stage_bytes<D>() + (1 + hstages<D>()) * 8;
+}
+template <int D>
+__host__ __device__ constexpr int dq_wgmma_smem() {
+  return 1024 + 2 * htile<D>() + 1024 + hstages<D>() * 2 * htile<D>() + (1 + hstages<D>()) * 8;
+}
+static_assert(2 * dkdv_wgmma_smem<128>() <= 232448 && 2 * dq_wgmma_smem<128>() <= 232448, "two blocks an SM");
+static_assert(2 * HB * (128 + 4) * 4 <= 2 * htile<128>() + hstages<128>() * dkdv_stage_bytes<128>(),
+              "the cluster's sum is staged over the tiles and the ring");
+
+// wgmma descriptors of k16 step kk of a tile of 64 rows by D columns, as TMA
+// writes it (D / 64 boxes of 64 rows of 128 bytes, 128-byte swizzle).
+// K-major, D the reduction (S^T = K.Q^T, dP^T = V.dO^T; S = Q.K^T, dP =
+// dO.V^T): the step's 32 bytes of a box's rows, eight rows a 1024-byte group.
+__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int kk) {
+  return wgmma_desc_sw128(tile + (kk / 4) * HBOX + 32 * (kk % 4), 16, 1024);
+}
+// MN-major, the rows the reduction and D the output's columns (dV += P^T.dO,
+// dK += dS^T.Q; dQ += dS.K): rows 16 kk .. 16 kk + 15 of every box, the boxes
+// (64 columns each) one HBOX apart.
+__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int kk) {
+  return wgmma_desc_sw128(tile + 16 * 128 * kk, HBOX, 1024);
+}
+
+// Rows s0 .. s0 + 63 of head h of batch b of a tensor mapped as (D,
+// positions, heads, batch): D / 64 boxes of 64 columns.
+template <int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int s0, int h,
+                                          int b) {
+#pragma unroll
+  for (int j = 0; j < D / 64; ++j) tma_load_4d(dst + j * HBOX, map, bar, 64 * j, s0, h, b);
+}
+
+// Packs accumulator n8 blocks 2 kk and 2 kk + 1 of a 64 x 64 fp32 tile,
+// rounded to bf16, into the A fragment of k16 step kk of the next product.
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4], int j, float e0, float e1, float e2, float e3) {
+  f[j / 2][(j % 2) * 2] = pack_bf16(e0, e1);
+  f[j / 2][(j % 2) * 2 + 1] = pack_bf16(e2, e3);
+}
+
+// dQ = scale * dS.K, one block per (batch * q-head, 64-row q tile), heaviest
+// causal tiles first.  Q and dO arrive once by TMA; K and V stream through
+// an mbarrier ring that the block's first thread refills as each tile is
+// released.  O's tile arrives by TMA beside Q and dO, into the ring's last
+// stage, which takes its K/V tile once the block has summed delta =
+// rowsum(dO o O) of its rows from the two tiles in shared memory; the block
+// writes its rows' lse * log2(e) and delta to `stats` ([B * H][q tiles][2][64],
+// rows past Sq lse +inf and delta 0) for the dK/dV kernel that runs next on
+// the stream.  Per K/V tile: S = Q.K^T and dP = dO.V^T on wgmma from shared
+// memory (both K-major), P and dS in registers, dS rounded to bf16 as the A
+// fragments of dQ += dS.K (K read MN-major from the same tile).
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, D == 64 ? 3 : 2)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_o, const float* __restrict__ lse,
+                          float* __restrict__ stats, bf16* __restrict__ dq, BwdShape p) {
+  constexpr int S = hstages<D>(), TILE = htile<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Qs = smem;
+  unsigned char* Gs = smem + TILE;  // dO
+  float* st = reinterpret_cast<float*>(smem + 2 * TILE);  // the rows' lse * log2(e), then delta
+  unsigned char* ring = smem + 2 * TILE + 1024;           // [S][K tile, V tile]
+  unsigned char* Os = ring + (S - 1) * 2 * TILE;          // O, in the last stage until delta is summed
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + S * 2 * TILE);  // [0]: Q, dO and O; [1 + s]: stage s
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / p.H, hq = blockIdx.x % p.H, hk = hq / (p.H / p.KVH);
+  const int nqt = gridDim.y, qt = nqt - 1 - blockIdx.y, q0 = qt * HB;
+  const int q_last = min(q0 + HB, p.Sq) - 1;
+  int kt_end = (p.Skv + HB - 1) / HB;
+  if (p.causal) kt_end = min(kt_end, q_last / HB + 1);
+  const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / HB : 0;
+
+  auto load_kv = [&](int kt) {
+    uint64_t* full = &bar[1 + (kt - kt_begin) % S];
+    unsigned char* ks = ring + (kt - kt_begin) % S * 2 * TILE;
+    mbar_arrive_expect_tx(full, FLASH_BWD_PROBE == 3 ? 0 : 2 * TILE);
+    if constexpr (FLASH_BWD_PROBE != 3) {
+      load_tile<D>(ks, &map_k, full, kt * HB, hk, b);
+      load_tile<D>(ks + TILE, &map_v, full, kt * HB, hk, b);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= S; ++s) mbar_init(&bar[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bar[0], (FLASH_BWD_PROBE == 1 ? 2 : 3) * TILE);
+    load_tile<D>(Qs, &map_q, &bar[0], q0, hq, b);
+    load_tile<D>(Gs, &map_do, &bar[0], q0, hq, b);
+    if constexpr (FLASH_BWD_PROBE != 1) load_tile<D>(Os, &map_o, &bar[0], q0, hq, b);
+    for (int kt = kt_begin; kt < min(kt_end, kt_begin + S - 1); ++kt) load_kv(kt);
+  }
+  mbar_wait(&bar[0], 0);
+
+  {  // delta and lse * log2(e) of the tile's rows from the O and dO tiles, two threads a row
+    const int row = tid / 2, i = q0 + row;
+    float acc = 0.f;  // rows past Sq are zero-filled: 0
+    if (FLASH_BWD_PROBE != 1) {
+      // the two tiles are swizzled alike, so a 16-byte chunk at one place holds the same columns of both;
+      // thread tid % 2 takes half of the row's places, starting at a place that differs from row to row
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const int place = (tid % 2) * (D / 16) + (c + row) % (D / 16);
+        const int off = place / 8 * HBOX + row * 128 + place % 8 * 16;
+        const uint4 ov = *reinterpret_cast<const uint4*>(Os + off), gv = *reinterpret_cast<const uint4*>(Gs + off);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]), gf = __bfloat1622float2(g2[e]);
+          acc = fmaf(of.x, gf.x, acc);
+          acc = fmaf(of.y, gf.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (tid % 2 == 0) {
+      const float l2 = i < p.Sq ? lse[(long long)blockIdx.x * p.Sq + i] * LOG2E : INFINITY;  // past Sq: P = 0
+      float* gst = stats + ((long long)blockIdx.x * nqt + qt) * 2 * HB;
+      gst[row] = st[row] = l2;
+      gst[HB + row] = st[HB + row] = acc;
+    }
+  }
+  __syncthreads();  // the stats are in shared memory, and O is no longer read: the last stage takes its K/V tile
+  if (tid == 0 && kt_begin + S - 1 < kt_end) load_kv(kt_begin + S - 1);
+  const int r = warp * 16 + lane / 4, t = lane % 4;  // this thread's rows r, r + 8 of the tile; columns 2t, 2t + 1
+  const float l2[2] = {st[r], st[r + 8]}, dl[2] = {st[HB + r], st[HB + r + 8]};
+  const float c = p.scale * LOG2E;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int it = kt - kt_begin, k0 = kt * HB;
+    mbar_wait(&bar[1 + it % S], (it / S) & 1);
+    const unsigned char* ks = ring + it % S * 2 * TILE;
+    const unsigned char* vs = ks + TILE;
+    float s[32], dp[32];  // the first k16 step overwrites them; zeroed so that no register is read undefined
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16 && FLASH_BWD_PROBE != 2; ++kk)
+      wgmma_m64n64k16_bf16<0, 0>(s, kmajor_desc(Qs, kk), kmajor_desc(ks, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16 && FLASH_BWD_PROBE != 2; ++kk)
+      wgmma_m64n64k16_bf16<0, 0>(dp, kmajor_desc(Gs, kk), kmajor_desc(vs, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(s);
+    wgmma_fence_operand(dp);
+
+    const bool masked = k0 + HB > p.Skv || (p.causal && k0 + HB - 1 > q0) || (p.window > 0 && q0 + HB - 1 - k0 >= p.window);
+    uint32_t df[4][4];  // dS as the A fragments of dS.K, k16 steps over the tile's keys
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = q0 + r + (e / 2) * 8, jj = k0 + 8 * j + 2 * t + e % 2;
+        const bool ok = !masked || (jj < p.Skv && (!p.causal || jj <= i) && (p.window == 0 || i - jj < p.window));
+        const float pv = ok ? ex2(fmaf(s[4 * j + e], c, -l2[e / 2])) : 0.f;
+        ds[e] = pv * (dp[4 * j + e] - dl[e / 2]);
+      }
+      pack_a(df, j, ds[0], ds[1], ds[2], ds[3]);
+    }
+    wgmma_fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk) wgmma_bf16_rs<D, 1>(acc, df[kk], mnmajor_desc(ks, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+    wgmma_fence_operand(df);
+    __syncthreads();  // every warp is done with the stage
+    if (tid == 0 && kt + S < kt_end) load_kv(kt + S);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = q0 + r + h * 8;
+    if (i >= p.Sq) continue;
+    bf16* row = dq + b * p.st[SDQ_][0] + hq * p.st[SDQ_][1] + i * p.st[SDQ_][2] + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * p.scale, acc[4 * j + 2 * h + 1] * p.scale);
+  }
+}
+
+// dK = scale * dS^T.Q and dV = P~^T.dO.  One block per (batch, kv-head,
+// cluster rank, 64-key tile): the `cl` blocks of one (batch, kv-head, key
+// tile) form a cluster, and rank r takes q-heads r * G / cl .. (r + 1) *
+// G / cl - 1 of the GQA group, each over the q tiles that see its keys.  K
+// and V arrive once by TMA; each (q-head, q tile)'s Q, dO and stats stream
+// through an mbarrier ring that the block's first thread refills as each
+// stage is released.  Per stage: S^T = K.Q^T and dP^T = V.dO^T on wgmma
+// from shared memory (both K-major); P^T and dS^T in registers; rounded to
+// bf16 they are the A fragments of dV += P~^T.dO and dK += dS^T.Q, with dO
+// and Q read MN-major from the same tiles.  Each block keeps its dK and dV
+// in fp32 registers; at the end every block stages them in its own shared
+// memory and, after a cluster barrier, block r sums rows r * 64 / cl ..
+// (r + 1) * 64 / cl - 1 over the cluster's blocks in rank order through
+// distributed shared memory and stores them as bf16.  A block that sees no
+// q tile (every block of its cluster alike: the q range depends on the key
+// tile only) sums and stores zeros.
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 2)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                            const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv, BwdShape p,
+                            int cl) {
+  constexpr int S = hstages<D>(), TILE = htile<D>(), STAGE = dkdv_stage_bytes<D>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + TILE;
+  unsigned char* ring = smem + 2 * TILE;  // [S][Q tile, dO tile, stats]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + S * STAGE);  // [0]: K and V; [1 + s]: stage s
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = p.H / p.KVH, per = G / cl;  // q-heads of the group, of a block
+  const int rank = blockIdx.x % cl, bk = blockIdx.x / cl, b = bk / p.KVH, hk = bk % p.KVH;
+  const int k0 = blockIdx.y * HB;
+  const int nqt = (p.Sq + HB - 1) / HB;
+  // the q tiles that see a key of this block: top-left causal, i >= j; window, i - j < window
+  const int q_lo = p.causal ? k0 : 0;
+  const int q_hi = p.window > 0 ? min(p.Sq, k0 + HB - 1 + p.window) : p.Sq;
+  const int qt_begin = q_lo / HB;
+  const int nq = q_hi > q_lo ? (q_hi + HB - 1) / HB - qt_begin : 0;
+  const int total = per * nq;  // (q-head, q tile) pairs, in order
+
+  auto load_q = [&](int it) {
+    uint64_t* full = &bar[1 + it % S];
+    unsigned char* qs = ring + it % S * STAGE;
+    const int hq = hk * G + rank * per + it / nq, qt = qt_begin + it % nq;
+    mbar_arrive_expect_tx(full, FLASH_BWD_PROBE == 3 ? 0 : 2 * TILE + HSTATS);
+    if constexpr (FLASH_BWD_PROBE != 3) {
+      load_tile<D>(qs, &map_q, full, qt * HB, hq, b);
+      load_tile<D>(qs + TILE, &map_do, full, qt * HB, hq, b);
+      bulk_load(qs + 2 * TILE, stats + ((long long)(b * p.H + hq) * nqt + qt) * 2 * HB, HSTATS, full);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= S; ++s) mbar_init(&bar[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && total > 0) {
+    mbar_arrive_expect_tx(&bar[0], 2 * TILE);
+    load_tile<D>(Ks, &map_k, &bar[0], k0, hk, b);
+    load_tile<D>(Vs, &map_v, &bar[0], k0, hk, b);
+    for (int it = 0; it < min(total, S); ++it) load_q(it);
+  }
+
+  const int r = warp * 16 + lane / 4, t = lane % 4;  // this thread's keys r, r + 8 of the tile; columns 2t, 2t + 1
+  const float c = p.scale * LOG2E;
+  float accv[D / 2], acck[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) accv[e] = acck[e] = 0.f;
+  if (total > 0) mbar_wait(&bar[0], 0);
+  for (int it = 0; it < total; ++it) {
+    mbar_wait(&bar[1 + it % S], (it / S) & 1);
+    const unsigned char* qs = ring + it % S * STAGE;
+    const unsigned char* gs = qs + TILE;
+    const float* l2 = reinterpret_cast<const float*>(qs + 2 * TILE);
+    const float* dl = l2 + HB;
+    const int q0 = (qt_begin + it % nq) * HB;
+    float s[32], dp[32];  // the first k16 step overwrites them; zeroed so that no register is read undefined
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16 && FLASH_BWD_PROBE != 2; ++kk)
+      wgmma_m64n64k16_bf16<0, 0>(s, kmajor_desc(Ks, kk), kmajor_desc(qs, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16 && FLASH_BWD_PROBE != 2; ++kk)
+      wgmma_m64n64k16_bf16<0, 0>(dp, kmajor_desc(Vs, kk), kmajor_desc(gs, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(s);
+    wgmma_fence_operand(dp);
+
+    // keys past Skv need no mask (their rows are never stored); queries past Sq have zero rows and lse +inf
+    const bool masked = (p.causal && q0 < k0 + HB - 1) || (p.window > 0 && q0 + HB - 1 - k0 >= p.window);
+    uint32_t pf[4][4], df[4][4];  // P^T and dS^T as A fragments, k16 steps over the q tile's queries
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lj = *reinterpret_cast<const float2*>(l2 + 8 * j + 2 * t);
+      const float2 dj = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+      float pv[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jj = k0 + r + (e / 2) * 8, i = q0 + 8 * j + 2 * t + e % 2;
+        const bool ok = !masked || ((!p.causal || jj <= i) && (p.window == 0 || i - jj < p.window));
+        pv[e] = ok ? ex2(fmaf(s[4 * j + e], c, -(e % 2 ? lj.y : lj.x))) : 0.f;
+        ds[e] = pv[e] * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x));
+      }
+      pack_a(pf, j, pv[0], pv[1], pv[2], pv[3]);
+      pack_a(df, j, ds[0], ds[1], ds[2], ds[3]);
+    }
+    wgmma_fence_operand(accv);
+    wgmma_fence_operand(acck);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk) wgmma_bf16_rs<D, 1>(accv, pf[kk], mnmajor_desc(gs, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk) wgmma_bf16_rs<D, 1>(acck, df[kk], mnmajor_desc(qs, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(accv);
+    wgmma_fence_operand(acck);
+    wgmma_fence_operand(pf);
+    wgmma_fence_operand(df);
+    __syncthreads();  // every warp is done with the stage
+    if (tid == 0 && it + S < total) load_q(it + S);
+  }
+
+  // The cluster's sum: every block stages its fp32 dV and dK over its tiles
+  // and ring (every load issued has landed and been read), then block `rank`
+  // sums its slice of rows over the cluster in rank order.
+  constexpr int RP = D + 4;  // row pitch in floats: 16-byte rows for the float4 reads
+  float* red = reinterpret_cast<float*>(smem);  // [dV, dK][64 keys][RP]
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* cell = red + (r + 8 * h) * RP + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(cell) = make_float2(accv[4 * j + 2 * h], accv[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(cell + HB * RP) = make_float2(acck[4 * j + 2 * h], acck[4 * j + 2 * h + 1]);
+    }
+  cluster_sync();  // every block's partials are in its shared memory
+  const int r_lo = rank * HB / cl, n4 = ((rank + 1) * HB / cl - r_lo) * (D / 4);
+  for (int e = tid; e < 2 * n4; e += HTHREADS) {
+    const int dkey = e / n4, row = r_lo + e % n4 / (D / 4), col = e % n4 % (D / 4) * 4, j = k0 + row;
+    const float* cell = red + (dkey * HB + row) * RP + col;
+    float4 sum = ld_dsmem_f4(cell, FLASH_BWD_PROBE == 4 ? rank : 0);
+    for (int src = 1; src < (FLASH_BWD_PROBE == 4 ? 1 : cl); ++src) {
+      const float4 x = ld_dsmem_f4(cell, src);
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    if (j >= p.Skv) continue;
+    const float f = dkey ? p.scale : 1.f;
+    const int which = dkey ? SDK_ : SDV_;
+    bf16* dst = (dkey ? dk : dv) + b * p.st[which][0] + hk * p.st[which][1] + j * p.st[which][2] + col;
+    __nv_bfloat162 out[2] = {__floats2bfloat162_rn(sum.x * f, sum.y * f), __floats2bfloat162_rn(sum.z * f, sum.w * f)};
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(out);
+  }
+  cluster_sync();  // no block leaves while another reads its shared memory
+}
+
+// A 4-D tensor map (D, positions, heads, batch) over a bf16 tensor with
+// element strides `st` (batch, head, position; D unit), in 64 x 64 boxes,
+// 128-byte swizzled, zero-filled past the last position.  A dim of extent 1
+// is never stepped over: it gets a stride the driver takes.
+int encode_rows(CUtensorMap* map, const void* base, int D, int S, int H, int B, const long long* st) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return NO_ENCODER;
+  const long long pos = st[2], head = H == 1 ? pos * S : st[1], batch = B == 1 ? pos * S * H : st[0];
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)pos * 2, (cuuint64_t)head * 2, (cuuint64_t)batch * 2};
+  const cuuint32_t box[4] = {64, HB, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+// The wgmma route: the dQ kernel (with delta), then the dK/dV kernel in
+// clusters of `cl` blocks.  `a.delta` is the stats scratch, fp32 [B * H][q
+// tiles][2][64].
+template <int D>
+int launch_bwd_wgmma(const BwdArgs& a, const BwdShape& p, int cl, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t ce = make_context_current(&dev);
+  if (ce != cudaSuccess) return (int)ce;
+  CUtensorMap mq, mk, mv, mdo, mo;
+  int err = encode_rows(&mq, a.q, D, p.Sq, p.H, p.B, p.st[SQ_]);
+  if (err == 0) err = encode_rows(&mk, a.k, D, p.Skv, p.KVH, p.B, p.st[SK_]);
+  if (err == 0) err = encode_rows(&mv, a.v, D, p.Skv, p.KVH, p.B, p.st[SV_]);
+  if (err == 0) err = encode_rows(&mdo, a.dout, D, p.Sq, p.H, p.B, p.st[SDO_]);
+  if (err == 0) err = encode_rows(&mo, a.o, D, p.Sq, p.H, p.B, p.st[SO_]);
+  if (err != 0) return err;
+  constexpr int dq_smem = dq_wgmma_smem<D>(), kv_smem = dkdv_wgmma_smem<D>();
+  if ((ce = allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem)) != cudaSuccess) return (int)ce;
+  const dim3 dq_grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + HB - 1) / HB));
+  flash_bwd_dq_wgmma_kernel<D><<<dq_grid, HTHREADS, dq_smem, stream>>>(mq, mk, mv, mdo, mo, a.lse, a.delta,
+                                                                       static_cast<bf16*>(a.dq), p);
+  if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
+  auto kernel = flash_bwd_dkdv_wgmma_kernel<D>;
+  if ((ce = allow_smem(kernel, kv_smem)) != cudaSuccess) return (int)ce;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.B * p.KVH * cl), (unsigned)((p.Skv + HB - 1) / HB));
+  cfg.blockDim = dim3(HTHREADS);
+  cfg.dynamicSmemBytes = kv_smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = cl;  // the blocks of one (batch, kv-head, key tile)
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  ce = cudaLaunchKernelEx(&cfg, kernel, mq, mk, mv, mdo, static_cast<const float*>(a.delta),
+                          static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), p, cl);
+  return ce != cudaSuccess ? (int)ce : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` and returns the CUDA error of the launch (0 when it was
@@ -1396,26 +1930,51 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   return (int)cudaErrorInvalidValue;
 }
 
+// Route codes of flash_attention_bwd (flash_attention.py::BWD_ROUTES; its
+// bwd_route picks one by type, head dim, strides and alignment).
+enum BwdRoute { BWD_SIMT = 0, BWD_MMA = 1, BWD_WGMMA = 2 };
+
+// scripts/flash_bwd_probe.py builds a copy with -DFLASH_BWD_PARENT=1, in
+// which the wgmma route runs the mma.sync kernels (delta, dQ, dK/dV) that
+// served every bf16 shape before it, to time both on one card.
+#ifndef FLASH_BWD_PARENT
+#define FLASH_BWD_PARENT 0
+#endif
+
 // The backward: dq, dk, dv (the inputs' shapes, types and own strides) from
-// q, k, v, the forward's o and lse (fp32 [B, H, Sq]) and dO; `delta` is fp32
-// [B, H, Sq] scratch.  `strides` holds 24 element strides: batch, head and
-// position of q, k, v, o, dO, dq, dk, dv in that order.  Launches the delta
-// pre-pass, the dQ kernel and the dK/dV kernel(s) on `stream`; returns the
-// first launch error (0 when all were accepted).  Shapes, strides, alignment
-// and the absence of rows that see no key are validated by the wrapper.
+// q, k, v, the forward's o and lse (fp32 [B, H, Sq]) and dO.  `strides` holds
+// 24 element strides: batch, head and position of q, k, v, o, dO, dq, dk,
+// dv in that order.  `route`: BWD_SIMT (fp32) and BWD_MMA (bf16) launch the
+// delta pre-pass, the dQ kernel and the dK/dV kernel(s), with `scratch` fp32
+// [B, H, Sq] for delta; BWD_WGMMA (bf16, D 64 or 128, rows TMA can address)
+// launches the dQ kernel, which writes lse and delta to `scratch` (fp32 [B *
+// H][ceil(Sq / 64)][2][64]), and the dK/dV kernel in clusters of `cluster`
+// blocks (a divisor of H / KVH, at most 8).  All on `stream`; returns the
+// first launch error (0 when all were accepted) or, on the wgmma route, a
+// tensor-map error (NO_ENCODER, TENSOR_MAP_ERROR + CUresult).  Shapes,
+// strides, alignment, the route's conditions and the absence of rows that
+// see no key are validated by the wrapper.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
-                                   const void* dout, void* dq, void* dk, void* dv, float* delta, int dtype,
-                                   int B, int H, int KVH, int Sq, int Skv, int D, const long long* strides,
-                                   int causal, int window, float scale, void* stream) {
+                                   const void* dout, void* dq, void* dk, void* dv, float* scratch, int route,
+                                   int cluster, int B, int H, int KVH, int Sq, int Skv, int D,
+                                   const long long* strides, int causal, int window, float scale, void* stream) {
   BwdShape p{B, H, KVH, Sq, Skv, {}, causal, window, scale};
   for (int t = 0; t < 8; ++t)
     for (int j = 0; j < 3; ++j) p.st[t][j] = strides[3 * t + j];
-  const BwdArgs a{q, k, v, o, dout, lse, dq, dk, dv, delta};
+  const BwdArgs a{q, k, v, o, dout, lse, dq, dk, dv, scratch};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == BWD_WGMMA && FLASH_BWD_PARENT) route = BWD_MMA;
+  if (route == BWD_WGMMA) {
+    switch (D) {
+      case 64: return launch_bwd_wgmma<64>(a, p, cluster, st);
+      case 128: return launch_bwd_wgmma<128>(a, p, cluster, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   const dim3 delta_grid((unsigned)(B * H), (unsigned)((Sq + 7) / 8));
-  if (dtype == 0) {
+  if (route == BWD_SIMT) {
     flash_bwd_delta_kernel<float><<<delta_grid, 256, 0, st>>>(static_cast<const float*>(o),
-                                                              static_cast<const float*>(dout), delta, p, D);
+                                                              static_cast<const float*>(dout), scratch, p, D);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     switch (D) {
@@ -1428,9 +1987,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (dtype == 1) {
+  if (route == BWD_MMA) {
     flash_bwd_delta_kernel<bf16><<<delta_grid, 256, 0, st>>>(static_cast<const bf16*>(o),
-                                                             static_cast<const bf16*>(dout), delta, p, D);
+                                                             static_cast<const bf16*>(dout), scratch, p, D);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     // 16-byte copies where every row the kernels read (q, k, v, dO) starts 16-byte aligned

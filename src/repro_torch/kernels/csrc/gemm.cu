@@ -137,7 +137,6 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -567,25 +566,6 @@ gemm_wgmma_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_c
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, from the libcuda the CUDA runtime has
-// loaded (no link against the driver library needed); null if absent.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// Error codes of gemm_fwd beyond the CUDA runtime's: no cuTensorMapEncodeTiled,
-// or TENSOR_MAP_ERROR + the driver's CUresult when it refused a map.
-constexpr int NO_ENCODER = 9999, TENSOR_MAP_ERROR = 10000;
-
 // A 3-D map over (inner, rows, batch) of a bf16 tensor whose inner dim is
 // unit-stride, as it lies; boxes of 64 inner x `box_rows` rows x 1,
 // 128-byte swizzled, zero-filled out of bounds.
@@ -606,11 +586,8 @@ int encode_map(CUtensorMap* map, const bf16* base, int inner, int rows, int batc
 
 template <int CLUSTER, int A_MN, int B_MN, int SHORT>
 int launch_wgmma(const bf16* a, const bf16* b, bf16* c, const GemmShape& p, cudaStream_t stream) {
-  // the driver's encoder needs a current context, and autograd runs the
-  // backward on a thread of its own that may not have made one current yet
   int dev = 0;
-  cudaError_t ce = cudaGetDevice(&dev);
-  if (ce == cudaSuccess) ce = cudaSetDevice(dev);
+  cudaError_t ce = make_context_current(&dev);
   if (ce != cudaSuccess) return (int)ce;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   CUtensorMap map_a, map_b, map_c = {};

@@ -1,12 +1,15 @@
 // Warpgroup-level Hopper primitives shared by the sm_90a kernels that feed
 // the tensor cores through TMA: mbarrier init / arrive (local or in another
-// block of the cluster) / expect-tx / try-wait, the cluster barrier,
-// the 3-D TMA tile load (cp.async.bulk.tensor) that completes on an
-// mbarrier, alone or multicast to the cluster, the 3-D TMA tile store and
-// its bulk-group waits, the async-proxy fence, named barriers, wgmma
-// shared-memory descriptors for the 128-byte swizzle, wgmma fence / commit /
-// wait, wgmma.mma_async m64n128k16 bf16 with fp32 accumulators (either major
-// for each operand), and setmaxnreg.
+// block of the cluster) / expect-tx / try-wait, the cluster barrier and
+// loads from another block's shared memory (distributed shared memory),
+// the 3-D and 4-D TMA tile loads (cp.async.bulk.tensor) that complete on an
+// mbarrier, alone or multicast to the cluster, the 1-D bulk copy, the 3-D
+// TMA tile store and its bulk-group waits, the async-proxy fence, named
+// barriers, wgmma shared-memory descriptors for the 128-byte swizzle, wgmma
+// fence / commit / wait, wgmma.mma_async bf16 with fp32 accumulators:
+// m64n128k16 and m64n64k16 with both operands from shared memory (either
+// major for each), m64n64k16 and m64n128k16 with A from registers, and
+// setmaxnreg; on the host, the driver's tensor-map encoder.
 //
 // Layouts (PTX ISA, "Matrix Descriptor" and the canonical layouts of
 // wgmma): a tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B is a
@@ -27,6 +30,8 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
@@ -92,6 +97,20 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// Four floats at the shared-memory offset of `p` in block `cta` of this
+// block's cluster (this block included), read through distributed shared memory.
+__device__ __forceinline__ float4 ld_dsmem_f4(const void* p, uint32_t cta) {
+  float4 v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %4, %5;\n"
+      "ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [remote];\n}\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "r"(smem_addr(p)), "r"(cta)
+      : "memory");
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
@@ -120,6 +139,26 @@ __device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorM
       "[%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "h"(cta_mask)
       : "memory");
+}
+
+// The 4-D form: the box at coordinates (c0 innermost, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global memory at `src` into shared memory at
+// `dst` (both 16-byte aligned, bytes a multiple of 16), counted towards
+// `bar`'s expected transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
 }
 
 // The box of `map` at coordinates (c0 innermost, c1, c2) from shared memory at
@@ -219,6 +258,100 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
 }
 
+// d[64 x 64] = A[64 x 16] . B[16 x 64] + (accumulate ? d : 0), both operands
+// from shared memory, as the m64n128k16 form above.
+template <int A_MN, int B_MN>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
+}
+
+// The same with A from registers: four 32-bit registers of bf16 pairs a
+// thread, mma.sync's m16n8k16 A fragment for warp w's rows 16w .. 16w + 15
+// (rows lane / 4 and lane / 4 + 8 at columns 2 (lane % 4) + {0, 1}, then the
+// same 8 columns on), which is the accumulator layout of a product whose N
+// was 16 wide, rounded to bf16 and packed.  B from shared memory, its major
+// by B_MN.
+template <int B_MN>
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(B_MN));
+}
+
+template <int B_MN>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(B_MN));
+}
+
+// d[64 x N] += A[64 x 16] (registers) . B[16 x N], N 64 or 128.
+template <int N, int B_MN>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                              int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_m64n64k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
+  } else {
+    static_assert(N == 128, "N is 64 or 128");
+    wgmma_m64n128k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
+  }
+}
+
+// Pins 32-bit registers (the A fragments of a register-A wgmma) in place
+// until this point: the wgmma reads them asynchronously, so they must not be
+// reused before the wait that follows its commit.
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operand(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
 // ---------------------------------------------------------------------------
 // Register reallocation between warpgroups (every warp of the warpgroup executes it)
 // ---------------------------------------------------------------------------
@@ -231,4 +364,36 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps through the driver's encoder
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, from the libcuda the CUDA runtime has
+// loaded (no link against the driver library needed); null if absent.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// Error codes of a launcher beyond the CUDA runtime's: no cuTensorMapEncodeTiled,
+// or TENSOR_MAP_ERROR + the driver's CUresult when it refused a map.
+constexpr int NO_ENCODER = 9999, TENSOR_MAP_ERROR = 10000;
+
+// Makes the runtime's context current on this thread and returns the device
+// in `dev`: the driver's encoder needs a current context, and autograd runs
+// the backward on a thread of its own that may not have made one current yet.
+inline cudaError_t make_context_current(int* dev) {
+  cudaError_t ce = cudaGetDevice(dev);
+  if (ce == cudaSuccess) ce = cudaSetDevice(*dev);
+  return ce;
 }

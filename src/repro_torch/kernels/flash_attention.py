@@ -25,10 +25,16 @@ P·V; the CPU path and the on-card checks use it.
 The backward (no Pallas kernel of the reference has one: the reference
 trains through XLA's ``_sdpa``): ``flash_attention(..., return_lse=True)``
 also returns the log-sum-exp of each row's scaled scores, and
-:func:`flash_attention_bwd` takes it with o and dO to dq, dk, dv on three
-more kernels of ``csrc/flash_attention.cu`` (the ``delta = rowsum(dO∘O)``
-pre-pass, dQ, and dK/dV summed over each GQA group in one block; see the
-source note).  :func:`flash_attention_fwd_plain` and
+:func:`flash_attention_bwd` takes it with o and dO to dq, dk, dv on more
+kernels of ``csrc/flash_attention.cu``, by the route :func:`bwd_route`
+picks from the inputs' type, head dim, strides and alignment: bf16 at head
+dim 64 or 128 with rows TMA can address runs two kernels on ``wgmma`` fed
+by TMA (dQ, which also computes ``delta = rowsum(dO∘O)``, then dK/dV with
+each GQA group split over a thread-block cluster, :func:`bwd_cluster`);
+other bf16 shapes run the ``mma.sync`` kernels (the delta pre-pass, dQ,
+dK/dV in one pass up to D 80 and two above); fp32 the SIMT kernels (see
+the source note; :func:`bwd_kernels` names each route's launches).
+:func:`flash_attention_fwd_plain` and
 :func:`flash_attention_bwd_plain` are the same two functions by their
 explicit formulas in fp32, for the CPU tests and the on-card checks.
 """
@@ -49,6 +55,18 @@ bwd_launches = 0
 #: head dims the kernels are built for (zamba2-2.7b runs 80, nemotron-4-340b 192)
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the wgmma route's error code for a tensor map the driver refused (+ its CUresult)
+_TENSOR_MAP_ERROR = 10000
+
+#: the backward's routes, by the code the C entry takes: fp32 on the SIMT
+#: pipes, bf16 on ``mma.sync``, bf16 on ``wgmma`` fed by TMA
+BWD_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
+#: head dims of the wgmma route: rows of 128 or 256 bytes fill the 128-byte
+#: swizzle of a TMA box (D 80's 160 bytes do not; 16 and 32 are too narrow
+#: for a k16 step per box row, 192 has no training path)
+WGMMA_HEAD_DIMS = (64, 128)
+#: the largest thread-block cluster every Hopper card launches
+PORTABLE_CLUSTER = 8
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
@@ -150,6 +168,53 @@ def _vector_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     return sb, sh, ss
 
 
+def _tma_rows(t: torch.Tensor) -> bool:
+    """Whether TMA can address ``t``'s rows: unit stride over D, every other
+    stride a multiple of 8 elements (16 bytes) and non-zero where its dim
+    is longer than 1, and a 16-byte-aligned base."""
+    *outer, sd = t.stride()
+    return (sd == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 and (s > 0 or n == 1) for s, n in zip(outer, t.shape[:3])))
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor) -> str:
+    """The backward's route (a key of ``BWD_ROUTES``) by type, head dim,
+    strides and alignment alone: ``"simt"`` for fp32; ``"wgmma"`` for bf16
+    at a head dim of ``WGMMA_HEAD_DIMS`` where TMA can address every row of
+    q, k, v, o and dO; ``"mma"`` for every other bf16 call (D 16, 32, 80 and
+    192, rows only 8-byte aligned)."""
+    if q.dtype == torch.float32:
+        return "simt"
+    if q.shape[-1] in WGMMA_HEAD_DIMS and all(_tma_rows(t) for t in (q, k, v, o, do)):
+        return "wgmma"
+    return "mma"
+
+
+def bwd_cluster(h: int, kvh: int) -> tuple[int, int]:
+    """(blocks a cluster, q-heads a block) of the wgmma route's dK/dV
+    kernel for ``h`` q-heads over ``kvh`` kv-heads: the cluster is the
+    largest divisor of the GQA group G = h / kvh that is at most
+    ``PORTABLE_CLUSTER``, and each of its blocks takes G / cluster q-heads
+    (G 4: 4 blocks of one; G 12: 6 of two; G 11: 1 of eleven)."""
+    g = h // kvh
+    c = max(n for n in range(1, min(g, PORTABLE_CLUSTER) + 1) if g % n == 0)
+    return c, g // c
+
+
+def bwd_kernels(route: str, d: int) -> tuple[str, ...]:
+    """The kernels one backward launches on ``route`` at head dim ``d``, in
+    launch order, as the profiler names them."""
+    if route == "wgmma":
+        return f"flash_bwd_dq_wgmma_kernel<{d}>", f"flash_bwd_dkdv_wgmma_kernel<{d}>"
+    if route == "mma":
+        modes = (1, 2) if d >= 128 else (3,)
+        return ("flash_bwd_delta_kernel<__nv_bfloat16>", f"flash_bwd_dq_mma_bf16_kernel<{d}>",
+                *(f"flash_bwd_dkdv_mma_bf16_kernel<{d}, {m}>" for m in modes))
+    if route == "simt":
+        return "flash_bwd_delta_kernel<float>", f"flash_bwd_dq_kernel<{d}>", f"flash_bwd_dkdv_kernel<{d}>"
+    raise ValueError(f"no backward route {route!r} (have {tuple(BWD_ROUTES)})")
+
+
 def _check_device(*ts: torch.Tensor) -> None:
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"flash_attention needs CUDA tensors, got {[str(t.device) for t in ts]}")
@@ -231,9 +296,10 @@ def flash_attention_bwd(
     gradients have their inputs' shapes, types and layouts.  Raises where a
     query row sees no key (Sq >= Skv + window): its output is NaN.
 
-    Launches the delta pre-pass, dQ and dK/dV kernels on the current
-    stream without synchronising (one count in ``bwd_launches``); raises if
-    the inputs are not what the kernels take or a launch is refused.
+    Launches the kernels of :func:`bwd_route`'s route (:func:`bwd_kernels`)
+    on the current stream without synchronising (one count in
+    ``bwd_launches``); raises if the inputs are not what the kernels take or
+    a launch is refused.
     """
     global bwd_launches
     _check_device(q, k, v, o, do)
@@ -246,16 +312,21 @@ def flash_attention_bwd(
                          f"{tuple(lse.shape)} on {lse.device}")
     _check_sees_a_key(sq, k.shape[2], window)
     _check_kernel_shapes(q, k, 8)
+    route = bwd_route(q, k, v, o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # delta [B, H, Sq]; on the wgmma route each 64-row q tile's lse * log2(e) and delta, rows past Sq included
+    scratch = torch.empty(b * h * (-(-sq // 64) * 128 if route == "wgmma" else sq), dtype=torch.float32,
+                          device=q.device)
     err = _bwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype],
-        b, h, k.shape[1], sq, k.shape[2], d, strides,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), BWD_ROUTES[route],
+        bwd_cluster(h, k.shape[1])[0], b, h, k.shape[1], sq, k.shape[2], d, strides,
         int(causal), int(window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash_attention_bwd: the driver refused a tensor map (CUresult {err - _TENSOR_MAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
     bwd_launches += 1
@@ -283,7 +354,7 @@ def _bwd_kernel():
 
     fn = library("flash_attention").flash_attention_bwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int

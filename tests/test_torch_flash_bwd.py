@@ -183,3 +183,77 @@ def test_bwd_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention_bwd(q, k, v, o, lse, do)
     assert fa.bwd_launches == before
+
+
+# The backward's route (flash_attention.bwd_route), the wgmma route's
+# clusters (bwd_cluster) and the kernels each route launches (bwd_kernels):
+# functions of shapes, strides and dtype alone, so they run here.
+
+#: GQA group -> (blocks a cluster, q-heads a block): the largest divisor of G up to 8
+CLUSTERS = {1: (1, 1), 2: (2, 1), 3: (3, 1), 4: (4, 1), 5: (5, 1), 6: (6, 1), 7: (7, 1), 8: (8, 1), 9: (3, 3),
+            10: (5, 2), 11: (1, 11), 12: (6, 2), 13: (1, 13), 14: (7, 2), 15: (5, 3), 16: (8, 2)}
+
+
+@pytest.mark.parametrize("g", sorted(CLUSTERS))
+def test_bwd_cluster_is_the_largest_divisor_of_the_group_up_to_eight(g):
+    for kvh in (1, 8):
+        c, per = fa.bwd_cluster(g * kvh, kvh)
+        assert (c, per) == CLUSTERS[g]
+        assert c * per == g and c <= fa.PORTABLE_CLUSTER
+
+
+def _layout(layout, d, dtype, b=2, h=4, s=24):
+    """[b, h, s, d] CPU tensor: contiguous, the model's transposed [b, s, h, d]
+    view, or rows of d + 4 elements (strides a multiple of 4 elements, not 8)."""
+    if layout == "contiguous":
+        return torch.zeros((b, h, s, d), dtype=dtype)
+    if layout == "bshd":
+        return torch.zeros((b, s, h, d), dtype=dtype).transpose(1, 2)
+    return torch.zeros((b, s, h, d + 4), dtype=dtype)[..., :d].transpose(1, 2)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "bshd", "padded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_bwd_route_by_head_dim_dtype_and_strides(d, dtype, layout):
+    q = _layout(layout, d, dtype)
+    k = _layout(layout, d, dtype, h=2)
+    if dtype == torch.float32:
+        want = "simt"
+    elif d in (64, 128) and layout != "padded":
+        want = "wgmma"
+    else:
+        want = "mma"
+    assert fa.bwd_route(q, k, k, q, q) == want
+
+
+@pytest.mark.parametrize("which", range(5))
+def test_bwd_route_needs_every_row_tma_can_address(which):
+    """One of q, k, v, o, dO with rows only 8-byte aligned, or a base 8
+    bytes off 16-byte alignment, takes the whole backward to the mma.sync
+    route."""
+    ts = [_layout("bshd", 64, torch.bfloat16, h=4 if i in (0, 3, 4) else 2) for i in range(5)]
+    assert fa.bwd_route(*ts) == "wgmma"
+    bad = list(ts)
+    bad[which] = _layout("padded", 64, torch.bfloat16, h=ts[which].shape[1])
+    assert fa.bwd_route(*bad) == "mma"
+    shifted = torch.zeros(ts[which].numel() + 4, dtype=torch.bfloat16)[4:].view(ts[which].shape)
+    assert shifted.data_ptr() % 16 == 8
+    bad[which] = shifted
+    assert fa.bwd_route(*bad) == "mma"
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_bwd_kernels_a_backward_launches(d):
+    """Two launches on the wgmma route (dQ with delta, one dK/dV pass); on
+    mma.sync the delta pre-pass, dQ and one dK/dV pass up to D 80, a dV and
+    a dK pass above; three on the SIMT pipes."""
+    assert fa.bwd_kernels("wgmma", d) == (f"flash_bwd_dq_wgmma_kernel<{d}>", f"flash_bwd_dkdv_wgmma_kernel<{d}>")
+    mma = fa.bwd_kernels("mma", d)
+    assert mma[:2] == ("flash_bwd_delta_kernel<__nv_bfloat16>", f"flash_bwd_dq_mma_bf16_kernel<{d}>")
+    assert mma[2:] == ((f"flash_bwd_dkdv_mma_bf16_kernel<{d}, 1>", f"flash_bwd_dkdv_mma_bf16_kernel<{d}, 2>")
+                       if d >= 128 else (f"flash_bwd_dkdv_mma_bf16_kernel<{d}, 3>",))
+    assert fa.bwd_kernels("simt", d) == ("flash_bwd_delta_kernel<float>", f"flash_bwd_dq_kernel<{d}>",
+                                         f"flash_bwd_dkdv_kernel<{d}>")
+    with pytest.raises(ValueError, match="no backward route"):
+        fa.bwd_kernels("tpu", d)

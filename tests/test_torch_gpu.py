@@ -372,17 +372,32 @@ def test_flash_attention_is_deterministic(dtype):
     assert torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
 
 
-def test_flash_attention_runs_the_kernel_of_its_type():
-    """bf16 on the tensor-core kernel, fp32 on the SIMT kernel, and never the other."""
+def _device_kernel_names(fn) -> list[str]:
+    """The device kernels ``fn`` runs, by the profiler's names.  The
+    profiler on the card can keep none of a window's device records, so an
+    empty window is taken again after a pause, up to 8 windows in all (as
+    ``chip_smoke._device_ms`` does)."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(8):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+        time.sleep(0.1)
+    return names
+
+
+def test_flash_attention_runs_the_kernel_of_its_type():
+    """bf16 on the tensor-core kernel, fp32 on the SIMT kernel, and never the other."""
     for dtype, want, other in ((torch.bfloat16, "flash_fwd_mma_bf16_kernel", "flash_fwd_kernel"),
                                (torch.float32, "flash_fwd_kernel", "flash_fwd_mma_bf16_kernel")):
         q, k, v = _attn(1, 4, 2, 128, 64, dtype)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = _device_kernel_names(lambda: fa.flash_attention(q, k, v))
         assert any(want in n for n in names), names
         assert not any(other in n for n in names), names
 
@@ -472,16 +487,11 @@ def test_ssd_scan_gives_the_same_bits_twice_and_on_two_streams(dtype):
 )
 def test_ssd_scan_runs_the_kernel_of_its_route(shape, dtype, strided, want, other):
     """mamba2-130m's bf16 prefill scan on the tensor cores; chunk 8 and fp32 on the SIMT kernel, never the other."""
-    from torch.profiler import ProfilerActivity, profile
-
     b, l, h, p, n, chunk = shape
     args = _ssd(b, l, h, p, n, dtype, strided=strided)
     ssd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ssd.ssd_scan(*args, chunk=chunk)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = _device_kernel_names(lambda: ssd.ssd_scan(*args, chunk=chunk))
     assert any(want in k for k in names), names
     assert not any(other in k for k in names), names
 
@@ -742,18 +752,12 @@ def test_gemm_gradient_at_every_capacity_with_a_layer_slice_of_the_stacked_weigh
 def test_gemm_runs_the_kernel_of_its_route(sa, sb, view, want, other):
     """Decode's M <= 16 and rows the TMA cannot address stay on mma.sync;
     aligned bf16 past 16 rows runs wgmma, and never the other."""
-    from torch.profiler import ProfilerActivity, profile
-
     a, b = _gemm_inputs(sa, sb, torch.bfloat16)
     if view == "unaligned":  # rows start 6 bytes past a 16-byte boundary
         a = torch.cat([a, a[..., :8]], -1)[..., 3 : 3 + sa[-1]]
     y = gm.gemm(a, b)  # warm: the profiler below sees steady launches
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            gm.gemm(a, b)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = _device_kernel_names(lambda: [gm.gemm(a, b) for _ in range(3)])
     assert any(want in n for n in names), names
     assert not any(other in n for n in names), names
     torch.testing.assert_close(y.float(), gm.gemm_plain(a, b).float(), **GEMM_TOL[torch.bfloat16])
@@ -830,7 +834,12 @@ FLASH_BWD_CASES = (
         (2, 8, 8, 70, 15, 32, torch.float32, True, 0),
         (1, 24, 2, 100, None, 192, torch.bfloat16, True, 0),  # GQA group 12
         (4, 32, 8, 512, None, 64, torch.bfloat16, True, 0),  # granite-3-2b's training shape
+        (4, 32, 8, 512, None, 128, torch.bfloat16, True, 0),  # phi3.5-moe's
+        (4, 32, 32, 512, None, 80, torch.bfloat16, True, 0),  # zamba2-2.7b's shared block
+        (2, 10, 2, 100, 400, 128, torch.bfloat16, True, 32),  # key tiles past Sq: clusters that see no query
     ]
+    # GQA groups 5, 7 and 12: clusters of 5, 7 and 6 blocks on the wgmma route
+    + [(1, h, 2, 130, None, d, torch.bfloat16, True, 0) for d in (64, 128) for h in (10, 14, 24)]
 )
 
 
@@ -845,6 +854,8 @@ def test_flash_backward_matches_plain_and_gives_the_same_bits_twice(b, h, kvh, s
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda").to(dtype)
     kw = dict(causal=causal, window=window)
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    want_route = "simt" if dtype == torch.float32 else "wgmma" if d in fa.WGMMA_HEAD_DIMS else "mma"
+    assert fa.bwd_route(q, k, v, o, do) == want_route
     before = fa.bwd_launches
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     assert fa.bwd_launches == before + 1
@@ -855,6 +866,21 @@ def test_flash_backward_matches_plain_and_gives_the_same_bits_twice(b, h, kvh, s
         assert _rel_err(g, w) <= (2e-4 if dtype == torch.float32 else 1e-2)
     assert all(torch.equal(x, y) for x, y in zip(got, fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)))
     torch.testing.assert_close(lse, fa.flash_attention_fwd_plain(q, k, v, **kw)[1], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_on_rows_only_8_byte_aligned_takes_the_mma_route(d):
+    """Rows of d + 4 elements: strides the kernels' 8-byte copies read, but
+    not TMA, so the bf16 backward runs the mma.sync kernels."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn((2, 130, h, d + 4), generator=g, device="cuda").to(torch.bfloat16)[..., :d]
+                   .transpose(1, 2) for h in (8, 2, 2, 8))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert fa.bwd_route(q, k, v, o, do) == "mma"
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    assert all(_rel_err(g_, w) <= 1e-2 for g_, w in zip(got, want))
+    assert all(torch.equal(x, y) for x, y in zip(got, fa.flash_attention_bwd(q, k, v, o, lse, do)))
 
 
 def test_ops_flash_attention_trains_through_the_kernels():
