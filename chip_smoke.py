@@ -23,7 +23,9 @@ repository's sources are not beside this script.  Otherwise, in order:
    its registers and blocks an SM, and unless every kernel of the flash
    backward (the wgmma route's dQ and dK/dV at D 64 and 128 with no
    ``wgmma`` made to wait, and every ``mma.sync`` and SIMT kernel) and of
-   the SSD scan's backward compiled with no spill
+   the SSD scan's backward (both routes of ``ssd_scan.bwd_kernels``: the
+   SIMT kernels, and the tensor-core states, chunk and sum kernels, which
+   must ask the shared memory the wrapper counts) compiled with no spill
    (``check_flash_bwd_ptxas``, ``check_ssd_bwd_ptxas``);
 3. holds each kernel against its plain PyTorch version on the card, at every
    distinct layer shape of full-width SynthNet (microbatch of 2 images) and
@@ -173,10 +175,16 @@ repository's sources are not beside this script.  Otherwise, in order:
    B/C [4,512,64]; chunk 64) in bf16 strided as ``ssd_block`` passes them
    with no final-state gradient, as training runs them, and in fp32 and in
    bf16 contiguous with one; the reference tests' shapes, a ragged p tile
-   and chunk 8, with and without it; bf16 within BF16_REL_TOL of each
-   gradient's max |plain|, fp32 within SSD_TOL of it; two calls give the
-   same bits; times the training shapes (kernel by events and device time,
-   plain backward; no PyTorch call computes it) with each bound;
+   and chunk 8, with and without it; each case prints its route
+   (``ssd_scan.bwd_route``: bf16 at chunk 64 and p 64 on the tensor cores)
+   and fails unless it is the one expected; bf16 within BF16_REL_TOL of
+   each gradient's max |plain|, fp32 within SSD_TOL of it; two calls give
+   the same bits; times the training shapes (kernel by events and device
+   time, each of its kernels by device time, plain backward; no PyTorch
+   call computes it) with each bound, after the SIMT route's kernels on the
+   same inputs (``ssd_scan.run_bwd_route``, held to BF16_REL_TOL too), and
+   fails unless the profiled backward ran exactly ``ssd_scan.bwd_kernels``
+   of its route;
 12. the ``gemm`` gradient (``check_gemm_grad``): ``ops.gemm``'s autograd
    Function at phi3.5-moe's training shapes (16 experts, capacity 320, d
    4096, d_ff 6400, bf16), dA and dB against ``gemm_plain`` at GEMM_TOL,
@@ -359,7 +367,8 @@ PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_b
                 "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_wgmma_kernel",
                 "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkdv_kernel", "ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel")
+                "flash_bwd_dkdv_kernel", "ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel",
+                "ssd_scan_bwd_states_mma_kernel", "ssd_scan_bwd_chunk_mma_kernel", "ssd_scan_bwd_mma_sum_kernel")
 #: the flash kernels as the profiler names them: forward bf16 on the tensor cores and fp32 on the SIMT
 #: pipes; the backward's delta pre-pass, and its dQ and dK/dV kernels of each type
 FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|flash_fwd_kernel"
@@ -368,8 +377,9 @@ FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|f
 GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 #: the SSD scan's kernels as the profiler names them: bf16 on the tensor cores, the SIMT one
 SSD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan(?:_mma_bf16)?_kernel<[^>]*>)")
-#: the SSD scan's backward kernels as the profiler names them: the reverse scan and the sum of its partials
-SSD_BWD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan_bwd(?:_sum)?_kernel<[^>]*>)")
+#: the SSD scan's backward kernels as the profiler names them: the SIMT route's reverse scan and the sum of
+#: its partials, the tensor-core route's states, chunk and sum kernels (``ssd_scan.bwd_kernels``)
+SSD_BWD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan_bwd(?:_sum|_states_mma|_chunk_mma|_mma_sum)?_kernel<[^>]*>)")
 #: profiler windows a device-time reading takes at most: the profiler can
 #: keep some or none of a window's device records
 #: (``scripts/profiler_windows.py`` counts how often)
@@ -490,7 +500,7 @@ def check_flash_ptxas() -> None:
 
 def _bwd_name(mangled: str) -> str:
     """A backward kernel's name from its mangled one: ``flash_bwd_dq_kernel<64>``."""
-    kernel, args = re.match(r"(flash_bwd_[a-z0-9_]+_kernel)I(.*)E$", mangled).groups()
+    kernel, args = re.match(r"([a-z0-9_]+_kernel)I(.*)E$", mangled).groups()
     kind = ["__nv_bfloat16"] if "bfloat16" in args else ["float"] if args == "f" else []
     return f"{kernel}<{', '.join(re.findall(r'Li(\d+)E', args) + kind)}>"
 
@@ -587,20 +597,39 @@ def check_ssd_ptxas() -> None:
 
 
 def check_ssd_bwd_ptxas() -> None:
-    """Fail unless ``ptxas`` compiled the SSD backward's kernels
-    (``ssd_scan_bwd_kernel`` and ``ssd_scan_bwd_sum_kernel``, fp32 and bf16)
-    with no spill; print each one's registers."""
-    seen = _ptxas_entries("ssd_scan", r"(ssd_scan_bwd(?:_sum)?_kernelI(?:f|13__nv_bfloat16)E)")
-    names = {m: re.sub(r"I(f|13__nv_bfloat16)E$", lambda t: "<float>" if t.group(1) == "f" else "<__nv_bfloat16>", m)
-             for m in seen}
-    for mangled, (regs, st, ld) in sorted(seen.items()):
-        print(f"[build] {names[mangled]}: {regs} registers, spill stores {st} B, spill loads {ld} B")
-    want = {f"ssd_scan_bwd{k}_kernel<{t}>" for k in ("", "_sum") for t in ("float", "__nv_bfloat16")}
-    if set(names.values()) != want:
-        raise RuntimeError(f"ptxas compiled SSD backward kernels {sorted(names.values())}, want {sorted(want)}")
-    spilled = {names[m]: v for m, v in seen.items() if v[1] or v[2]}
+    """Fail unless ``ptxas`` compiled every kernel of the SSD backward
+    (every route's, ``ssd_scan.bwd_kernels``: the SIMT route's
+    ``ssd_scan_bwd_kernel`` and ``ssd_scan_bwd_sum_kernel`` in fp32 and
+    bf16; the tensor-core route's states and chunk kernels at state widths
+    64 and 128 and its sum) with no spill and no ``wgmma`` made to wait
+    (C7517, C7518), and unless the tensor-core route's shared memory is
+    what the wrapper counts (``ssd_scan.mma_bwd_smem_bytes``); print each
+    one's registers."""
+    seen = {_bwd_name(m): v for m, v in _ptxas_entries(
+        "ssd_scan", r"(ssd_scan_bwd(?:_[a-z]+)*_kernelI(?:f|13__nv_bfloat16|Li\d+E)E)").items()}
+    for name, (regs, st, ld) in sorted(seen.items()):
+        print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    want = {name for dtype in (torch.float32, torch.bfloat16) for name in ssd.bwd_kernels("simt", dtype, 128)}
+    want |= {name for n in ssd.MMA_BWD_STATES for name in ssd.bwd_kernels("mma", torch.bfloat16, n)}
+    if set(seen) != want:
+        raise RuntimeError(f"ptxas compiled SSD backward kernels {sorted(seen)}, want {sorted(want)}")
+    spilled = {n: v for n, v in seen.items() if v[1] or v[2]}
     if spilled:
         raise RuntimeError(f"SSD backward kernels spill: {spilled}")
+    waits = [line for line in build.ptxas_report("ssd_scan").splitlines()
+             if re.search(r"\(C751[78]\)", line) and "ssd_scan_bwd" in line]
+    if waits:
+        raise RuntimeError(f"ptxas made the wgmma of the SSD backward wait: {waits}")
+    fn = ssd.library().ssd_scan_bwd_mma_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    for n in ssd.MMA_BWD_STATES:
+        source = fn(n, 0), fn(n, 1)
+        if source != ssd.mma_bwd_smem_bytes(n):
+            raise RuntimeError(f"the SSD backward's states and chunk kernels at state {n} ask {source} B of shared "
+                               f"memory, the wrapper counts {ssd.mma_bwd_smem_bytes(n)}")
+        print(f"[build] SSD backward, tensor-core route at state {n}: {source} B of shared memory a block "
+              f"(states, chunk)")
 
 
 def check_conv_ptxas() -> None:
@@ -1233,7 +1262,8 @@ def _host_ms(fn, reps: int = 20) -> float:
     return host
 
 
-def _device_ms(fn, reps: int = 20, need: bool = True) -> tuple[float | None, dict[str, int]]:
+def _device_ms(fn, reps: int = 20, need: bool = True,
+               times: dict | None = None) -> tuple[float | None, dict[str, int]]:
     """Device time per call of ``fn`` from the profiler, and the device
     kernels it ran, by the profiler's name, with their calls per call.  Each
     kernel, copy and memset counts at its mean time per record times its
@@ -1245,7 +1275,8 @@ def _device_ms(fn, reps: int = 20, need: bool = True) -> tuple[float | None, dic
     reads as the card's time.  A window in which the profiler kept no record
     a call is taken again after a pause, up to ``PROFILER_WINDOWS`` in all;
     then it raises, or with ``need`` false (a library call, timed for
-    comparison only) prints so and returns ``None``: not measured."""
+    comparison only) prints so and returns ``None``: not measured.
+    ``times``, a dict, gets each kernel's device ms per call by name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1267,6 +1298,8 @@ def _device_ms(fn, reps: int = 20, need: bool = True) -> tuple[float | None, dic
             raise RuntimeError(msg)
         print(f"[check] device time not measured: {msg}")
         return None, {}
+    if times is not None:
+        times.update({e.key[:120]: e.self_device_time_total / e.count * n / 1e3 for e, n in per_call if n})
     return (sum(e.self_device_time_total / e.count * n for e, n in per_call) / 1e3,
             {e.key[:120]: n for e, n in per_call if n})
 
@@ -1812,13 +1845,18 @@ def check_ssd_bwd(gen: torch.Generator) -> dict:
     training shapes (x, B and C strided as ``ssd_block`` passes them, no
     final-state gradient, as in training) in bf16, and in fp32 and
     contiguous, the reference tests' shapes, a ragged p tile and the smoke
-    configs' chunk 8, with and without the final state's gradient; bf16
+    configs' chunk 8, with and without the final state's gradient; each
+    case prints its route (``ssd_scan.bwd_route``) and fails unless it is
+    the one expected (the tensor-core route for bf16 at chunk 64); bf16
     within BF16_REL_TOL of each gradient's max |plain|, fp32 within SSD_TOL
     of it; two calls give the same bits.  Times the training shapes
     (kernel, plain backward; no single PyTorch call computes the SSD
-    backward) by events and device time, with each bound.  Returns the
-    ``ssd_scan`` row's backward keys (mamba2-130m's, zamba2-2.7b's under
-    keys that name it)."""
+    backward) by events and device time, with each bound, after the SIMT
+    route's kernels (``ssd_scan.run_bwd_route``) on the same
+    inputs, whose device time it prints on a line before; fails unless the
+    profiled backward ran exactly ``ssd_scan.bwd_kernels`` of its route.
+    Returns the ``ssd_scan`` row's backward keys (mamba2-130m's,
+    zamba2-2.7b's under keys that name it)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for arch in SSD_MODELS:
@@ -1838,6 +1876,9 @@ def check_ssd_bwd(gen: torch.Generator) -> dict:
         x, dtt, A, B, C = ssd_inputs(b, l, h, p, n, dt, case["strided"], gen)
         dy = torch.randn((b, l, h, p), generator=gen, device="cuda").to(dt)
         dstate = torch.randn((b, h, p, n), generator=gen, device="cuda") if case["state"] else None
+        route = ssd.bwd_route(dt, p, n, chunk, all(ssd._aligned(t) for t in (x, B, C, dy)))
+        if route != ("mma" if dt == bf16 and chunk == ssd.MMA_BWD_CHUNK and p == ssd.MMA_BWD_P else "simt"):
+            raise RuntimeError(f"ssd_scan_bwd at {case} routes {route}")
         got = ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
         again = ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
         plain = ssd.ssd_scan_bwd_plain(x, dtt, A, B, C, dy, dstate, chunk=chunk)
@@ -1846,7 +1887,7 @@ def check_ssd_bwd(gen: torch.Generator) -> dict:
         auto = torch.autograd.grad((y.float() * dy.float()).sum() + ((st * dstate).sum() if case["state"] else 0.0),
                                    ins)
         torch.cuda.synchronize()
-        desc = {**case, "dtype": str(dt).removeprefix("torch.")}
+        desc = {**case, "dtype": str(dt).removeprefix("torch."), "route": route}
         if not all(torch.equal(u, v) for u, v in zip(got, again)):
             raise RuntimeError(f"ssd_scan_bwd: two calls differ at {desc}")
         tol = SSD_TOL if dt == f32 else BF16_REL_TOL
@@ -1862,16 +1903,28 @@ def check_ssd_bwd(gen: torch.Generator) -> dict:
             def kern():
                 return ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
 
+            def simt():
+                return ssd.run_bwd_route(x, dtt, A, B, C, dy, dstate, chunk=chunk, route="simt")
+
+            # the SIMT route's kernels on the same inputs first: what the tensor-core route replaced at these shapes
+            simt_err = _hold_ssd_grads("ssd_scan_bwd (simt route)", desc, simt(), plain, BF16_REL_TOL)
+            before = {"bwd_simt_ms": _time_ms(simt), "bwd_simt_device_ms": _device_ms(simt)[0],
+                      "bwd_simt_rel_err": simt_err}
+            print(f"[bwd] ssd_scan_bwd at {case['model']}'s training shape on the SIMT route ("
+                  f"ssd_scan_bwd_kernel): {json.dumps(before)}")
+            split: dict = {}
             timed = dict(bwd_ms=_time_ms(kern),
                          bwd_plain_ms=_time_ms(lambda: ssd.ssd_scan_bwd_plain(x, dtt, A, B, C, dy, dstate, chunk=chunk)),
                          bwd_library_ms=None,  # no single PyTorch call computes the SSD backward
                          bwd_bound_ms=bound_ms, bwd_bound_by=bound_by)
-            timed["bwd_device_ms"], ran = _device_ms(kern)
+            timed["bwd_device_ms"], ran = _device_ms(kern, times=split)
             timed.update(bwd_host_ms=_host_ms(kern), bwd_bound_ratio=timed["bwd_device_ms"] / bound_ms,
-                         bwd_device_functions=sorted(m.group(1) for k in ran if (m := SSD_BWD_FN.search(k))))
-            if timed["bwd_device_functions"] != ["ssd_scan_bwd_kernel<__nv_bfloat16>",
-                                                 "ssd_scan_bwd_sum_kernel<__nv_bfloat16>"]:
-                raise RuntimeError(f"ssd_scan_bwd at {case['model']}'s training shape ran {ran}")
+                         bwd_device_functions=sorted(m.group(1) for k in ran if (m := SSD_BWD_FN.search(k))),
+                         bwd_kernels_device_ms={m.group(1): v for k, v in split.items() if (m := SSD_BWD_FN.search(k))},
+                         **before, bwd_speedup=before["bwd_simt_device_ms"] / timed["bwd_device_ms"])
+            if len(ran) != 3 or timed["bwd_device_functions"] != sorted(ssd.bwd_kernels("mma", bf16, n)):
+                raise RuntimeError(f"ssd_scan_bwd at {case['model']}'s training shape ran {ran}, want "
+                                   f"{ssd.bwd_kernels('mma', bf16, n)}")
             print(f"[bwd] ssd_scan_bwd at {case['model']}'s training shape: "
                   f"{json.dumps({**timed, 'flops': flops, 'bytes': nbytes})}")
             prefix = "" if not out else f"{case['model']} "
@@ -2293,6 +2346,9 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
     # the model's bf16 q, k, v, o and dO are strided views TMA can address: the wgmma route where its head dims allow
     bwd_kernels = fa.bwd_kernels("wgmma" if cfg.hd in fa.WGMMA_HEAD_DIMS else "mma", cfg.hd)
     per_bwd = len(bwd_kernels)
+    ssd_bwd_kernels = () if cfg.block_kind == "attn" else ssd.bwd_kernels(
+        ssd.bwd_route(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, True), torch.bfloat16,
+        cfg.ssm_state)
     calls_of = ("flash_calls", "gemm_calls", "ssd_calls", "ssd_bwd_calls")
     for _ in range(PROFILER_WINDOWS):
         before = {name: mod.launches for name, mod in mods.items()}
@@ -2308,7 +2364,7 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
                    gemm_bwd=gm.bwd_launches - before["gemm_bwd"], ssd_scan_bwd=ssd.bwd_launches - before["ssd_scan_bwd"])
         kept = sum(sum(table[k].values()) for k in calls_of)
         issued = (ran["flash_attention"] + per_bwd * ran["flash_attention_bwd"] + ran["gemm"] + ran["ssd_scan"]
-                  + 2 * ran["ssd_scan_bwd"])
+                  + len(ssd_bwd_kernels) * ran["ssd_scan_bwd"])
         if table["kernel_calls"] and kept == issued:
             break
         print(f"[train] {arch} profile: the profiler kept {kept} of {issued} port kernel launches; taken again")
@@ -2338,7 +2394,7 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
         chosen = ssd.plan(torch.bfloat16, TRAIN_BATCH, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
                           True, sms=torch.cuda.get_device_properties(0).multi_processor_count)
         want_calls.update({f"ssd_scan_mma_bf16_kernel<{cfg.ssm_state}, {chosen.p_tile}>": per_step["ssd_scan"],
-                           "ssd_scan_bwd_kernel<__nv_bfloat16>": n_ssd, "ssd_scan_bwd_sum_kernel<__nv_bfloat16>": n_ssd})
+                           **{name: n_ssd for name in ssd_bwd_kernels}})
     calls = {**table["flash_calls"], **table["ssd_calls"], **table["ssd_bwd_calls"]}
     if calls != want_calls or ran != per_step:
         raise RuntimeError(f"{arch}: the profiled step ran {calls} (launches {ran}), want {want_calls} ({per_step})")

@@ -104,7 +104,49 @@
 //   in index order.  No atomics: two calls give the same bits.
 // What bounds it: shared-memory loads and their latency at one block of 8
 // warps an SM (217 KB of shared memory at state 128, 210 registers), and
-// 96 blocks on 132 SMs at mamba2; next, the products on the tensor cores.
+// 96 blocks on 132 SMs at mamba2.  It now serves fp32, the smoke configs'
+// chunk 8 and every shape outside the tensor-core route (the wrapper's
+// bwd_route).
+//
+// bf16 at chunk 64, p 64 and state width 64 or 128 with 16-byte-aligned
+// rows (both training shapes) takes the tensor-core route, three launches,
+// parallel over chunks.  Given the state entering a chunk, H_in, and the
+// gradient of the one leaving it, dH_out, a chunk's backward needs nothing
+// else of the other chunks: even <dH_out, H_out> at its last step is
+// exp(cum_last) <dH_out, H_in> + Sum (wend dt o (x . dH_out)) o B, from
+// products the chunk computes anyway.  So:
+// - ssd_scan_bwd_states_mma_kernel<N>, one warpgroup per (b, h, 64 state
+//   columns, direction), carries the states forward and their gradients
+//   backward over the 8 chunks, 8 scaled adds of a [64, 64] tile in fp32
+//   accumulators, each chunk's own part on wgmma m64n64k16 (x or dy as
+//   stored, B or C scaled and split into 3 bf16 planes once a chunk by the
+//   block), and writes them for the chunk kernel (2 x 25 MB fp32 at mamba2,
+//   2 x 42 MB at zamba2).  With mma.sync and 32 columns a block it took
+//   0.057 / 0.081 ms (PERF.md): the chain over chunks ran each step's
+//   products and every warp split the same operand; wgmma and 64 columns,
+//   0.028 / 0.053, against 17 / 28 us for its 57 / 95 MB at the HBM rate.
+// - ssd_scan_bwd_chunk_mma_kernel<N>, one block of 8 warps per (b, chunk,
+//   group of bwd_head_group heads: 3 at mamba2, 10 at zamba2, 256 blocks
+//   both): C.B^T once a block for all its heads; per head the chunk's
+//   products on mma.sync m16n8k16, the fp32 operands ((C.B^T) o L, H, dH,
+//   Sum W) as 3 bf16 terms as in the forward (split_pair), dx and ddt
+//   written, dB's and dC's within-chunk parts summed over the group's heads
+//   as Sum W before two products a block, their inter-chunk parts in fp32
+//   registers; d(cum)'s reverse sum by one warp while the others start the
+//   next head.  A wgmma version (two warpgroups, H and dH as register A
+//   fragments, every other operand in swizzled tiles) was right but slower,
+//   0.150 / 0.223 against 0.089 / 0.159 ms, and still 0.115 / 0.179 with
+//   its products taken out: at these 64 x 64 tiles the elementwise
+//   epilogues (the decays' exps, the row and column sums, the planes) and
+//   not the products set the pace, and a warpgroup runs them on 4 warps
+//   where mma.sync's layout spreads every phase over all 8 (PERF.md).
+// - ssd_scan_bwd_mma_sum_kernel sums the groups' parts of dB and dC (fp32
+//   [b, l, h / group, n]) and the chunks' of dA in index order.  No
+//   atomics: two calls give the same bits.
+// What bounds the route (scripts/ssd_bwd_probe.py): the chunk kernel, 70%
+// of it; without its products it takes 57-59% of its time, without its
+// loads 87%: latency at one block of 8 warps an SM, shared memory allowing
+// no second (182,336 / 195,648 B at state 64 / 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,6 +154,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -1135,6 +1178,785 @@ int launch_bwd(const void* x, const float* dt, const float* A, const void* B, co
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The backward on the tensor cores: bf16, chunk 64, p 64, state width 64 or 128
+// ---------------------------------------------------------------------------
+
+// scripts/ssd_bwd_probe.py builds copies with -DSSD_BWD_PROBE=1 (no
+// products: every mma.sync of the three kernels dropped), 2 (no loads: the
+// streamed tiles, x or dy and B or C slices of the states kernel, x, dy, H
+// and dH of the chunk kernel, not copied in), 3 (no cross-block sum: dB's
+// and dC's parts not written, the sum kernel not launched) and 4 (no d(cum):
+// the chunk kernel's warp 0 skips its sum of the per-step parts, reverse
+// cumulative sum, ddt and dA), to show which part bounds the route; 0 ships.
+#ifndef SSD_BWD_PROBE
+#define SSD_BWD_PROBE 0
+#endif
+
+constexpr int BCL = 64;                   // the chunk
+constexpr int BP = 64;                    // p, the head dim
+constexpr int LDT = 64 + PAD;             // a row of a [64][64] bf16 tile in shared memory
+constexpr int TILE_BYTES = 64 * LDT * 2;
+constexpr int SLICE = 64;                 // state columns one block of the states kernel carries
+constexpr int ST_THREADS = 128;           // the states kernel: one warpgroup, warp w on rows 16w.. of p
+constexpr int ST_TILE = 64 * 128;         // its 64 x 64 bf16 tiles, rows of 128 bytes
+constexpr int ST_STAGE = 2 * ST_TILE + 1024;  // x or dy (swizzled), the B or C slice, dt: 1024-byte aligned
+constexpr int CH_THREADS = 256;           // the chunk kernel: 8 warps
+constexpr int CH_STAGE = 2 * TILE_BYTES + 64 * 4;  // x, dy, dt of one head
+constexpr int CH_TILES = 10;              // 16 x 16 tiles of a chunk on and below its diagonal
+
+struct BwdShape {
+  int b, l, h, n, hg;  // hg: heads one block of the chunk kernel takes
+  long long sxb, sxl, sxh, sdb, sdl, sdh, sBb, sBl, sCb, sCl, syb, syl, syh;  // element strides of x, dt, B, C, dy
+};
+
+// The states kernel's shared memory: alignment slack, a 2-stage ring, 3 planes and each warp's factors.
+__host__ __device__ constexpr int bwd_states_smem() {
+  return 1024 + 2 * ST_STAGE + 3 * ST_TILE + (ST_THREADS / 32) * 3 * 64 * 4;
+}
+
+// The chunk kernel's H and dH buffers: two at state width 64 (the next head's land during this one's
+// work), one at 128, where two do not fit.
+__host__ __device__ constexpr int state_stages(int n) { return n <= 64 ? 2 : 1; }
+constexpr int CH_PARTS = 2 * CH_TILES * 16 + 3 * 4 * 64 + 8;  // one head's per-step partials, in floats
+
+// The chunk kernel's: B and C [64][n + 8] (bf16), the x, dy, dt ring, H [64][n + 4] and dH [64][n + 8]
+// (fp32, state_stages of each), 3 bf16 planes [64][LDT], the tiles of C.B^T (fp32, in fragment order),
+// each warp's factors (cum, exp(cum), exp(cum_last - cum), dt), and two heads' per-step partials (M's
+// row and column sums per tile; yoff, supd and ddir per column quarter; the carry per warp).
+__host__ __device__ constexpr int bwd_chunk_smem(int n) {
+  return 2 * 64 * (n + PAD) * 2 + 2 * CH_STAGE + state_stages(n) * (64 * (n + 4) * 4 + 64 * (n + 8) * 4) +
+         3 * TILE_BYTES + CH_TILES * 256 * 4 + (CH_THREADS / 32) * 4 * 64 * 4 + 2 * CH_PARTS * 4;
+}
+
+__device__ __forceinline__ void bmma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if (SSD_BWD_PROBE != 1) mma_bf16(d, a, b0, b1);
+}
+
+// Fragments of mma.sync m16n8k16 from bf16 tiles in shared memory (rows of `ld` elements).
+// A (m16 x k16) at (m0, k0) of M[m][k]:
+__device__ __forceinline__ void frag_a(uint32_t (&r)[4], const bf16* M, int ld, int m0, int k0, int lane) {
+  ldmatrix_x4(r, M + (m0 + lane % 16) * ld + k0 + (lane / 16) * 8);
+}
+// ... of the transpose, A[m][k] = M[k][m]:
+__device__ __forceinline__ void frag_at(uint32_t (&r)[4], const bf16* M, int ld, int m0, int k0, int lane) {
+  ldmatrix_x4_trans(r, M + (k0 + lane % 8 + (lane / 16) * 8) * ld + m0 + ((lane / 8) % 2) * 8);
+}
+// B of two n8 tiles (k16 x n16) at (k0, n0), r[0], r[1] the first's and r[2], r[3] the second's, of B[k][n] = M[n][k]:
+__device__ __forceinline__ void frag_b(uint32_t (&r)[4], const bf16* M, int ld, int k0, int n0, int lane) {
+  ldmatrix_x4(r, M + (n0 + (lane / 16) * 8 + lane % 8) * ld + k0 + ((lane / 8) % 2) * 8);
+}
+// ... of B[k][n] = M[k][n]:
+__device__ __forceinline__ void frag_bt(uint32_t (&r)[4], const bf16* M, int ld, int k0, int n0, int lane) {
+  ldmatrix_x4_trans(r, M + (k0 + lane % 16) * ld + n0 + (lane / 16) * 8);
+}
+
+// One warp's scan of a 64-step chunk's log decays, cum = cumsum(dt * a) (a lane holds steps lane and
+// lane + 32), into its rows cum, exp(cum) and exp(cum_last - cum); returns cum_last.
+__device__ __forceinline__ float scan_chunk64(const float* Ds, float a, float* cum, float* ecum, float* wend,
+                                              int lane) {
+  float v0 = Ds[lane] * a, v1 = Ds[lane + 32] * a;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u0 = __shfl_up_sync(0xffffffffu, v0, off), u1 = __shfl_up_sync(0xffffffffu, v1, off);
+    if (lane >= off) {
+      v0 += u0;
+      v1 += u1;
+    }
+  }
+  v1 += __shfl_sync(0xffffffffu, v0, 31);
+  const float last = __shfl_sync(0xffffffffu, v1, 31);
+  cum[lane] = v0;
+  cum[lane + 32] = v1;
+  ecum[lane] = expf(v0);
+  ecum[lane + 32] = expf(v1);
+  wend[lane] = expf(last - v0);
+  wend[lane + 32] = expf(last - v1);
+  __syncwarp();
+  return last;
+}
+
+// Tile `tile` of the 10 on and below a chunk's diagonal: rows 16r.., columns 16q.., q <= r, row by row.
+__device__ __forceinline__ void tile_rq(int tile, int& r, int& q) {
+  r = 0;
+  while ((r + 1) * (r + 2) / 2 <= tile) ++r;
+  q = tile - r * (r + 1) / 2;
+}
+__device__ __forceinline__ int tile_of(int r, int q) { return r * (r + 1) / 2 + q; }
+
+// The fp32 accumulators of the 16 x 16 tile (r, q) (two n8 tiles) as TERMS bf16 planes [64][LDT].
+__device__ __forceinline__ void store_planes(bf16* planes, int r, int q, const float (&v)[2][4], int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    uint32_t lo[TERMS], hi[TERMS];
+    split_pair(v[hh][0], v[hh][1], lo);
+    split_pair(v[hh][2], v[hh][3], hi);
+    bf16* at = planes + (16 * r + g) * LDT + 16 * q + 8 * hh + 2 * t;
+#pragma unroll
+    for (int i = 0; i < TERMS; ++i) {
+      *reinterpret_cast<uint32_t*>(at + i * 64 * LDT) = lo[i];
+      *reinterpret_cast<uint32_t*>(at + i * 64 * LDT + 8 * LDT) = hi[i];
+    }
+  }
+}
+
+// The states and their gradients, one block per (b, h, SLICE columns of the state, direction): direction
+// 0 carries the state forward, writing the state entering each chunk but the first to hbuf; direction 1
+// carries the gradient of the state leaving each chunk backward from dstate (0 where null), writing it for
+// each chunk but the last to dhbuf (both [b, h, nc, 64, n] fp32):
+//   state += (x exp(cum_last - cum) dt)^T . B,   gradient += (dy exp(cum))^T . C
+// after scaling by exp(cum_last).  The block is one warpgroup; the product is wgmma m64n64k16 with both
+// operands MN-major from shared memory in the 128-byte swizzle: x or dy as stored (copied straight into
+// the swizzled tile), B or C scaled per step in fp32 and split into TERMS bf16 planes once a chunk by the
+// whole block.  The state stays in the fp32 accumulators: warp w holds rows 16w.. of p.
+template <int N>
+__global__ void __launch_bounds__(ST_THREADS)
+ssd_scan_bwd_states_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+                               const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                               const float* __restrict__ dstate, float* __restrict__ hbuf, float* __restrict__ dhbuf,
+                               BwdShape s) {
+  static_assert(N % SLICE == 0 && SLICE == 64 && BP == 64, "64 x 64 tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* planes = base + 2 * ST_STAGE;  // TERMS swizzled tiles of the scaled B or C
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int grads = blockIdx.x % 2;
+  const int n0 = (blockIdx.x / 2) % (N / SLICE) * SLICE;
+  const int bh = blockIdx.x / (2 * (N / SLICE)), bi = bh / s.h, hi = bh % s.h;
+  const int nc = s.l / BCL, p0 = 16 * warp;
+  const float a_h = A[hi];
+  const bf16* X = grads ? dy + bi * s.syb + hi * s.syh : x + bi * s.sxb + hi * s.sxh;
+  const long long sXl = grads ? s.syl : s.sxl;
+  const bf16* Y = (grads ? Cm + bi * s.sCb : Bm + bi * s.sBb) + n0;
+  const long long sYl = grads ? s.sCl : s.sBl;
+  const float* db = dt + bi * s.sdb + hi * s.sdh;
+  float* out = (grads ? dhbuf : hbuf) + ((long long)bi * s.h + hi) * nc * BP * N + n0 + 2 * t;
+  float* cum = reinterpret_cast<float*>(planes + 3 * ST_TILE) + warp * 3 * 64;
+  float* ecum = cum + 64;
+  float* wend = ecum + 64;
+
+  // stage: X (swizzled: row s of 64 p, its 16-byte pieces XOR-ed with s % 8), Y (plain rows of 64 n), dt
+  auto load = [&](int c, int stage) {
+    unsigned char* Xs = base + stage * ST_STAGE;
+    unsigned char* Ys = Xs + ST_TILE;
+    float* Ds = reinterpret_cast<float*>(Ys + ST_TILE);
+    const long long l0 = (long long)c * BCL;
+    if (SSD_BWD_PROBE != 2)
+      for (int e = tid; e < 64 * 8; e += ST_THREADS) {
+        const int r = e / 8, piece = e % 8;
+        cp_async16(Xs + r * 128 + ((piece ^ (r % 8)) << 4), X + (l0 + r) * sXl + piece * 8, 16);
+        cp_async16(Ys + r * 128 + (piece << 4), Y + (l0 + r) * sYl + piece * 8, 16);
+      }
+    if (tid < 64) cp_async4(Ds + tid, db + (l0 + tid) * s.sdl);
+  };
+
+  // rows p0 + g (registers 4j, 4j + 1) and p0 + g + 8 (4j + 2, 4j + 3), columns n0 + 8j + 2t (+ 1)
+  float acc[SLICE / 2];
+#pragma unroll
+  for (int j = 0; j < SLICE / 8; ++j) {
+    float2 lo = make_float2(0.f, 0.f), up = lo;
+    if (grads && dstate != nullptr) {
+      const float* ds = dstate + ((long long)bi * s.h + hi) * BP * N + n0 + 8 * j + 2 * t;
+      lo = *reinterpret_cast<const float2*>(ds + (p0 + g) * N);
+      up = *reinterpret_cast<const float2*>(ds + (p0 + g + 8) * N);
+    }
+    acc[4 * j] = lo.x;
+    acc[4 * j + 1] = lo.y;
+    acc[4 * j + 2] = up.x;
+    acc[4 * j + 3] = up.y;
+  }
+
+  load(grads ? nc - 1 : 0, 0);
+  cp_async_commit();
+  for (int i = 0; i < nc; ++i) {
+    const int c = grads ? nc - 1 - i : i;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c has landed; the last chunk's wgmma are done with the planes and the other stage
+    if (i + 1 < nc) load(grads ? c - 1 : c + 1, (i + 1) % 2);
+    cp_async_commit();
+    const unsigned char* Xs = base + (i % 2) * ST_STAGE;
+    const unsigned char* Ys = Xs + ST_TILE;
+    const float* Ds = reinterpret_cast<const float*>(Ys + ST_TILE);
+    const float dec = expf(scan_chunk64(Ds, a_h, cum, ecum, wend, lane));
+    if (grads ? c < nc - 1 : c > 0) {  // where the chunk kernel reads it
+      float* o = out + (long long)c * BP * N;
+#pragma unroll
+      for (int j = 0; j < SLICE / 8; ++j) {
+        *reinterpret_cast<float2*>(o + (p0 + g) * N + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(o + (p0 + g + 8) * N + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < SLICE / 2; ++e) acc[e] *= dec;
+    // f o Y into the planes, f = exp(cum_last - cum) dt (the states) or exp(cum) (their gradients)
+    for (int e = tid; e < 64 * 8; e += ST_THREADS) {
+      const int r = e / 8, piece = e % 8;
+      const float f = grads ? ecum[r] : wend[r] * Ds[r];
+      const uint4 y = *reinterpret_cast<const uint4*>(Ys + r * 128 + (piece << 4));
+      const uint32_t yv[4] = {y.x, y.y, y.z, y.w};
+      uint32_t split[4][TERMS];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&yv[k]));
+        split_pair(v.x * f, v.y * f, split[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < TERMS; ++k)
+        *reinterpret_cast<uint4*>(planes + k * ST_TILE + r * 128 + ((piece ^ (r % 8)) << 4)) =
+            make_uint4(split[0][k], split[1][k], split[2][k], split[3][k]);
+    }
+    fence_proxy_async_shared();  // the planes, and X from cp.async, to the async proxy the wgmma read through
+    __syncthreads();
+    wgmma_fence();
+    wgmma_fence_operand(acc);
+#pragma unroll
+    for (int kk = 0; kk < BCL / 16; ++kk)
+#pragma unroll
+      for (int k = TERMS - 1; k >= 0; --k)
+        if (SSD_BWD_PROBE != 1)
+          wgmma_m64n64k16_bf16<1, 1>(acc, wgmma_desc_sw128(Xs + 2048 * kk, ST_TILE, 1024),
+                                     wgmma_desc_sw128(planes + k * ST_TILE + 2048 * kk, ST_TILE, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+  }
+  cp_async_wait<0>();
+}
+
+// Each chunk's backward, one block per (b, chunk c, group of s.hg heads), given the state entering the
+// chunk (hbuf; zero for the first) and the gradient of the one leaving it (dhbuf; dstate, or zero, for the
+// last).  B, C and C.B^T (10 tiles over the 8 warps, each lane's fragments in shared memory: in
+// registers they spilled at state width 128) once a block; per head, with L[l, s] =
+// exp(cum_l - cum_s) for l >= s:
+//   S = dy.x^T on the 10 tiles; W = S o L o dt_s summed over the heads in registers; the row and column
+//     sums of M = (C.B^T) o W; (C.B^T) o L into 3 bf16 planes;
+//   dxdt = ((C.B^T) o L)^T . dy + wend o (B . dH^T) -> dx, and per step dxdt.x and x dt.(B.dH^T);
+//   dC += exp(cum) o (dy . H), and per step its dot with C;  dB += wend dt o (x . dH), and its dot with B;
+//   <dH, H_out> = exp(cum_last) <dH, H> + that dot: the state leaving the chunk without rebuilding it;
+//   warp 7 (one tile of S where warps 0 and 1 have two), while the others start the next head: d(cum),
+//   its reverse cumulative sum, ddt (written) and dA's part (pdA [b, nc, h]); the per-step partials
+//   alternate between two buffers by head for it.
+// Then dC += (Sum W).B and dB += (Sum W)^T.C within the chunk, and the group's parts to pdB and pdC
+// [b, l, groups, n] (fp32).  The [64, x] products: warp w takes row tiles (0, 3) (w < 4) or (1, 2), which
+// even out the triangles, and a quarter of the columns.  Every fp32 operand (the planes, H, dH) enters as
+// TERMS bf16 terms; x, dy, B and C as stored.
+template <int N>
+__global__ void __launch_bounds__(CH_THREADS, 1)
+ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+                              const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                              const float* __restrict__ dstate, const float* __restrict__ hbuf,
+                              const float* __restrict__ dhbuf, bf16* __restrict__ dx, float* __restrict__ ddt,
+                              float* __restrict__ pdB, float* __restrict__ pdC, float* __restrict__ pdA, BwdShape s) {
+  constexpr int LDN = N + PAD, LDH = N + 4, LDD = N + 8;  // H's rows are read down columns, dH's also along rows
+  constexpr int NQ = N / 4, NT = NQ / 8;  // a warp's columns of a [64, N] product, and their n8 tiles
+  constexpr int SST = state_stages(N), CW = 7;  // H and dH buffers; the warp that sums d(cum)
+  static_assert(NT % 2 == 0 && TERMS <= 3, "n16 pieces; 3 planes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Bs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Cs = Bs + 64 * LDN;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Cs + 64 * LDN);
+  float* Hbufs = reinterpret_cast<float*>(ring + 2 * CH_STAGE);  // [SST][64][LDH]
+  float* dHbufs = Hbufs + SST * 64 * LDH;                          // [SST][64][LDD]
+  bf16* planes = reinterpret_cast<bf16*>(dHbufs + SST * 64 * LDD);
+  float4* Gf = reinterpret_cast<float4*>(planes + 3 * 64 * LDT);  // [tile][n8 half][lane]
+  float* fac = reinterpret_cast<float*>(Gf + CH_TILES * 64);
+  float* parts = fac + (CH_THREADS / 32) * 4 * 64;  // two heads' partials, by parity
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int groups = s.h / s.hg, nc = s.l / BCL;
+  const int grp = blockIdx.x % groups, c = blockIdx.x / groups % nc, bi = blockIdx.x / (groups * nc);
+  const long long l0 = (long long)c * BCL;
+  const bool has_h = c > 0, has_dh = c < nc - 1 || dstate != nullptr;
+  const int rg = warp / 4, cq = warp % 4;
+  const int rt[2] = {rg, 3 - rg};
+  float* cum = fac + warp * 4 * 64;
+  float* ecum = cum + 64;
+  float* wend = ecum + 64;
+  float* dtw = wend + 64;  // dt, for the d(cum) sum after the ring's stage is refilled
+  // one head's partials: M's row and column sums [tile][16]; per column quarter [4][64] Sum_n exp(cum)
+  // (dy.H) o C, Sum_p x o (B.dH^T) and Sum_p dxdt o x; the carry [warp]
+  auto partials = [&](int j, float*& rowM, float*& colM, float*& yoffp, float*& supdp, float*& ddirp,
+                      float*& carryp) {
+    rowM = parts + (j % 2) * CH_PARTS;
+    colM = rowM + CH_TILES * 16;
+    yoffp = colM + CH_TILES * 16;
+    supdp = yoffp + 4 * 64;
+    ddirp = supdp + 4 * 64;
+    carryp = ddirp + 4 * 64;
+  };
+
+  auto load_x = [&](int j, int stage) {
+    const int hi = grp * s.hg + j;
+    bf16* Xs = reinterpret_cast<bf16*>(ring + stage * CH_STAGE);
+    bf16* Ys = Xs + 64 * LDT;
+    float* Ds = reinterpret_cast<float*>(Ys + 64 * LDT);
+    const bf16* xs = x + bi * s.sxb + l0 * s.sxl + hi * s.sxh;
+    const bf16* ys = dy + bi * s.syb + l0 * s.syl + hi * s.syh;
+    if (SSD_BWD_PROBE != 2)
+      for (int e = tid; e < 64 * (BP / 8); e += CH_THREADS) {
+        const int r = e / (BP / 8), col = (e % (BP / 8)) * 8;
+        cp_async16(Xs + r * LDT + col, xs + r * s.sxl + col, 16);
+        cp_async16(Ys + r * LDT + col, ys + r * s.syl + col, 16);
+      }
+    if (tid < 64) cp_async4(Ds + tid, dt + bi * s.sdb + (l0 + tid) * s.sdl + hi * s.sdh);
+  };
+  auto load_states = [&](int hi, int buf) {
+    if (SSD_BWD_PROBE == 2) return;
+    const long long slot = (long long)bi * s.h + hi;
+    const float* hsrc = hbuf + (slot * nc + c) * BP * N;
+    const float* dsrc = c < nc - 1 ? dhbuf + (slot * nc + c) * BP * N : dstate + slot * BP * N;
+    float* Hd = Hbufs + buf * 64 * LDH;
+    float* dHd = dHbufs + buf * 64 * LDD;
+    for (int e = tid; e < 64 * (N / 4); e += CH_THREADS) {
+      const int r = e / (N / 4), col = (e % (N / 4)) * 4;
+      if (has_h) cp_async16(Hd + r * LDH + col, hsrc + r * N + col, 16);
+      if (has_dh) cp_async16(dHd + r * LDD + col, dsrc + r * N + col, 16);
+    }
+  };
+  // d(cum) of head j's steps lane and lane + 32 by warp CW from the head's partials and its own factors,
+  // its reverse cumulative sum, ddt and dA's part
+  auto dcum = [&](int j) {
+    if (SSD_BWD_PROBE == 4) return;
+    const int hi = grp * s.hg + j;
+    float *rowM, *colM, *yoffp, *supdp, *ddirp, *carryp;
+    partials(j, rowM, colM, yoffp, supdp, ddirp, carryp);
+    float dc[2], di[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int l = lane + 32 * v, r = l / 16, i = l % 16;
+      float rows = 0.f, cols = 0.f, yo = 0.f, su = 0.f, dd = 0.f;
+      for (int q = 0; q <= r; ++q) rows += rowM[tile_of(r, q) * 16 + i];
+      for (int rr = r; rr < BCL / 16; ++rr) cols += colM[tile_of(rr, r) * 16 + i];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (has_h) yo += yoffp[k * 64 + l];
+        su += supdp[k * 64 + l];
+        dd += ddirp[k * 64 + l];
+      }
+      dc[v] = rows - cols + yo - wend[l] * dtw[l] * su;
+      di[v] = dd;
+    }
+    float carry_all = 0.f;
+    for (int w = 0; w < CH_THREADS / 32; ++w) carry_all += carryp[w];
+    if (lane == 31) dc[1] += carry_all;  // the chunk's last step
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_down_sync(0xffffffffu, dc[0], off), u1 = __shfl_down_sync(0xffffffffu, dc[1], off);
+      if (lane + off < 32) {
+        dc[0] += u0;
+        dc[1] += u1;
+      }
+    }
+    dc[0] += __shfl_sync(0xffffffffu, dc[1], 0);
+    const float a_h = A[hi];
+    float* drow = ddt + (bi * (long long)s.l + l0 + lane) * s.h + hi;
+    drow[0] = dc[0] * a_h + di[0];
+    drow[32LL * s.h] = dc[1] * a_h + di[1];
+    const float da = warp_sum(dc[0] * dtw[lane] + dc[1] * dtw[lane + 32]);
+    if (lane == 0) pdA[(bi * (long long)nc + c) * s.h + hi] = da;
+  };
+
+  for (int e = tid; e < 64 * (N / 8); e += CH_THREADS) {
+    const int r = e / (N / 8), col = (e % (N / 8)) * 8;
+    cp_async16(Bs + r * LDN + col, Bm + bi * s.sBb + (l0 + r) * s.sBl + col, 16);
+    cp_async16(Cs + r * LDN + col, Cm + bi * s.sCb + (l0 + r) * s.sCl + col, 16);
+  }
+  load_x(0, 0);
+  if (SST == 2) load_states(grp * s.hg, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's tiles of C.B^T (tile warp, and warp + 8 for warps 0 and 1), each lane's own fragments
+  // (read back by the same lane only), and of Sum W over the heads
+  float Wsum[2][2][4] = {};
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int tile = warp + 8 * u;
+    if (tile >= CH_TILES) break;
+    int r, q;
+    tile_rq(tile, r, q);
+    float G[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      uint32_t af[4], bf[4];
+      frag_a(af, Cs, LDN, 16 * r, 16 * kk, lane);
+      frag_b(bf, Bs, LDN, 16 * kk, 16 * q, lane);
+      bmma(G[0], af, bf[0], bf[1]);
+      bmma(G[1], af, bf[2], bf[3]);
+    }
+    Gf[tile * 64 + lane] = make_float4(G[0][0], G[0][1], G[0][2], G[0][3]);
+    Gf[tile * 64 + 32 + lane] = make_float4(G[1][0], G[1][1], G[1][2], G[1][3]);
+  }
+  // the group's dC and dB on this warp's rows 16 rt[i] + g (+ 8), columns NQ cq + 8j + 2t (+ 1)
+  float dCt[2][NT][4] = {}, dBt[2][NT][4] = {};
+
+  for (int j = 0; j < s.hg; ++j) {
+    const int hi = grp * s.hg + j, stage = j % 2;
+    const float a_h = A[hi];
+    if (j > 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // head j's x, dy and dt (and, with two buffers, H and dH) have landed; every warp is
+                        // done with head j - 1 but for warp CW's d(cum)
+    }
+    if (SST == 1) load_states(hi, 0);
+    cp_async_commit();
+    if (j + 1 < s.hg) {
+      load_x(j + 1, stage ^ 1);
+      if (SST == 2) load_states(hi + 1, (j + 1) % 2);
+    }
+    cp_async_commit();
+    if (warp == CW && j > 0) dcum(j - 1);  // before its scan of head j replaces the factors
+    const bf16* Xs = reinterpret_cast<const bf16*>(ring + stage * CH_STAGE);
+    const bf16* Ys = Xs + 64 * LDT;
+    const float* Ds = reinterpret_cast<const float*>(Ys + 64 * LDT);
+    const float* Hs = Hbufs + (SST == 2 ? j % 2 : 0) * 64 * LDH;
+    const float* dHs = dHbufs + (SST == 2 ? j % 2 : 0) * 64 * LDD;
+    float *rowM, *colM, *yoffp, *supdp, *ddirp, *carryp;
+    partials(j, rowM, colM, yoffp, supdp, ddirp, carryp);
+    const float last = scan_chunk64(Ds, a_h, cum, ecum, wend, lane);
+    dtw[lane] = Ds[lane];
+    dtw[lane + 32] = Ds[lane + 32];
+
+    // S = dy.x^T on this warp's tiles, then W, M's sums and (C.B^T) o L
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int tile = warp + 8 * u;
+      if (tile >= CH_TILES) break;
+      int r, q;
+      tile_rq(tile, r, q);
+      float S[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < BP / 16; ++kk) {
+        uint32_t af[4], bf[4];
+        frag_a(af, Ys, LDT, 16 * r, 16 * kk, lane);
+        frag_b(bf, Xs, LDT, 16 * kk, 16 * q, lane);
+        bmma(S[0], af, bf[0], bf[1]);
+        bmma(S[1], af, bf[2], bf[3]);
+      }
+      const float4 g0 = Gf[tile * 64 + lane], g1 = Gf[tile * 64 + 32 + lane];
+      const float G[2][4] = {{g0.x, g0.y, g0.z, g0.w}, {g1.x, g1.y, g1.z, g1.w}};
+      float gl[2][4], rows[2] = {0.f, 0.f}, cols[2][2] = {};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * r + g + (e / 2) * 8, col = 16 * q + 8 * hh + 2 * t + e % 2;
+          const float L = col <= row ? expf(cum[row] - cum[col]) : 0.f;  // masked before the exp
+          const float w = S[hh][e] * L * Ds[col];
+          const float m = G[hh][e] * w;
+          Wsum[u][hh][e] += w;
+          rows[e / 2] += m;
+          cols[hh][e % 2] += m;
+          gl[hh][e] = G[hh][e] * L;
+        }
+      store_planes(planes, r, q, gl, lane);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {  // over the tile's 16 columns: the 4 lanes of a row
+        rows[v] += __shfl_xor_sync(0xffffffffu, rows[v], 1);
+        rows[v] += __shfl_xor_sync(0xffffffffu, rows[v], 2);
+      }
+      if (t == 0) {
+        rowM[tile * 16 + g] = rows[0];
+        rowM[tile * 16 + g + 8] = rows[1];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // over its 16 rows: the 8 lanes of a column pair
+          float v = cols[hh][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) colM[tile * 16 + 8 * hh + 2 * t + e] = v;
+        }
+    }
+    __syncthreads();  // the planes and M's sums are whole
+
+    // dxdt [s, p] on this warp's row tiles and 16 columns of p: first ((C.B^T) o L)^T . dy (l >= s) ...
+    float Dc[2][2][4] = {}, Dd[2][2][4] = {};
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int kk = 0; kk < BCL / 16; ++kk) {
+        if (kk < rt[ri]) continue;
+        uint32_t yb[4];
+        frag_bt(yb, Ys, LDT, 16 * kk, 16 * cq, lane);
+#pragma unroll
+        for (int i = TERMS - 1; i >= 0; --i) {
+          uint32_t af[4];
+          frag_at(af, planes + i * 64 * LDT, LDT, 16 * rt[ri], 16 * kk, lane);
+          bmma(Dc[ri][0], af, yb[0], yb[1]);
+          bmma(Dc[ri][1], af, yb[2], yb[3]);
+        }
+      }
+    if (SST == 1) {
+      cp_async_wait<1>();
+      __syncthreads();  // H and dH of this head have landed
+    }
+
+    // ... then B . dH^T
+    if (has_dh) {
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+        uint32_t bd[2][2][TERMS];  // B[n][p] = dH[p][n]: k rows 2t, 2t + 1 (and + 8) of column g
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float* at = dHs + (16 * cq + 8 * nt + g) * LDD + 16 * kk + 2 * t;
+          const float2 v0 = *reinterpret_cast<const float2*>(at), v1 = *reinterpret_cast<const float2*>(at + 8);
+          split_pair(v0.x, v0.y, bd[nt][0]);
+          split_pair(v1.x, v1.y, bd[nt][1]);
+        }
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          uint32_t af[4];
+          frag_a(af, Bs, LDN, 16 * rt[ri], 16 * kk, lane);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int i = TERMS - 1; i >= 0; --i) bmma(Dd[ri][nt], af, bd[nt][0][i], bd[nt][1][i]);
+        }
+      }
+    }
+    // dx = dxdt dt; per step dxdt.x and x.(B.dH^T) over this warp's columns
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int sr = 16 * rt[ri] + g + 8 * half;
+        const float we = wend[sr], d = Ds[sr];
+        float dd = 0.f, su = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int pc = 16 * cq + 8 * nt + 2 * t;
+          const float v0 = Dc[ri][nt][2 * half] + we * Dd[ri][nt][2 * half];
+          const float v1 = Dc[ri][nt][2 * half + 1] + we * Dd[ri][nt][2 * half + 1];
+          *reinterpret_cast<__nv_bfloat162*>(dx + ((bi * (long long)s.l + l0 + sr) * s.h + hi) * BP + pc) =
+              __floats2bfloat162_rn(v0 * d, v1 * d);
+          const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Xs + sr * LDT + pc));
+          dd += v0 * xv.x + v1 * xv.y;
+          su += Dd[ri][nt][2 * half] * xv.x + Dd[ri][nt][2 * half + 1] * xv.y;
+        }
+        dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+        dd += __shfl_xor_sync(0xffffffffu, dd, 2);
+        su += __shfl_xor_sync(0xffffffffu, su, 1);
+        su += __shfl_xor_sync(0xffffffffu, su, 2);
+        if (t == 0) {
+          ddirp[cq * 64 + sr] = dd;
+          supdp[cq * 64 + sr] = su;
+        }
+      }
+
+    // dC += exp(cum) o (dy . H) on this warp's rows and columns of the state, and per step its dot with C
+    if (has_h) {
+      float E[2][NT][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < BP / 16; ++kk) {
+        uint32_t bh[NT][2][TERMS];  // B[p][n] = H[p][n]: k rows 2t, 2t + 1 (and + 8) of column g
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* at = Hs + (16 * kk + 2 * t) * LDH + NQ * cq + 8 * nt + g;
+          split_pair(at[0], at[LDH], bh[nt][0]);
+          split_pair(at[8 * LDH], at[9 * LDH], bh[nt][1]);
+        }
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          uint32_t af[4];
+          frag_a(af, Ys, LDT, 16 * rt[ri], 16 * kk, lane);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = TERMS - 1; i >= 0; --i) bmma(E[ri][nt], af, bh[nt][0][i], bh[nt][1][i]);
+        }
+      }
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int lr = 16 * rt[ri] + g + 8 * half;
+          const float ec = ecum[lr];
+          float yo = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = NQ * cq + 8 * nt + 2 * t;
+            const float2 cv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Cs + lr * LDN + col));
+            const float v0 = E[ri][nt][2 * half] * ec, v1 = E[ri][nt][2 * half + 1] * ec;
+            dCt[ri][nt][2 * half] += v0;
+            dCt[ri][nt][2 * half + 1] += v1;
+            yo += v0 * cv.x + v1 * cv.y;
+          }
+          yo += __shfl_xor_sync(0xffffffffu, yo, 1);
+          yo += __shfl_xor_sync(0xffffffffu, yo, 2);
+          if (t == 0) yoffp[cq * 64 + lr] = yo;
+        }
+    }
+
+    // dB += wend dt o (x . dH), and <dH, H_out> = exp(cum_last) <dH, H> + Sum of that product o B
+    float carry = 0.f;
+    if (has_dh) {
+      float F[2][NT][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < BP / 16; ++kk) {
+        uint32_t bh[NT][2][TERMS];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float* at = dHs + (16 * kk + 2 * t) * LDD + NQ * cq + 8 * nt + g;
+          split_pair(at[0], at[LDD], bh[nt][0]);
+          split_pair(at[8 * LDD], at[9 * LDD], bh[nt][1]);
+        }
+#pragma unroll
+        for (int ri = 0; ri < 2; ++ri) {
+          uint32_t af[4];
+          frag_a(af, Xs, LDT, 16 * rt[ri], 16 * kk, lane);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = TERMS - 1; i >= 0; --i) bmma(F[ri][nt], af, bh[nt][0][i], bh[nt][1][i]);
+        }
+      }
+#pragma unroll
+      for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int sr = 16 * rt[ri] + g + 8 * half;
+          const float f = wend[sr] * Ds[sr];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = NQ * cq + 8 * nt + 2 * t;
+            const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Bs + sr * LDN + col));
+            const float v0 = F[ri][nt][2 * half] * f, v1 = F[ri][nt][2 * half + 1] * f;
+            dBt[ri][nt][2 * half] += v0;
+            dBt[ri][nt][2 * half + 1] += v1;
+            carry += v0 * bv.x + v1 * bv.y;
+          }
+        }
+      if (has_h) {
+        float hh = 0.f;
+        for (int e = tid; e < 64 * N / 4; e += CH_THREADS) {
+          const float4 u = *reinterpret_cast<const float4*>(dHs + (e / (N / 4)) * LDD + (e % (N / 4)) * 4);
+          const float4 v = *reinterpret_cast<const float4*>(Hs + (e / (N / 4)) * LDH + (e % (N / 4)) * 4);
+          hh += u.x * v.x + u.y * v.y + u.z * v.z + u.w * v.w;
+        }
+        carry += expf(last) * hh;
+      }
+    }
+    carry = warp_sum(carry);
+    if (lane == 0) carryp[warp] = carry;
+  }
+  __syncthreads();  // the last head's partials are whole, and no warp reads the planes
+  if (warp == CW) dcum(s.hg - 1);
+
+  // Sum W into the planes, then within the chunk dC += (Sum W).B (s <= l) and dB += (Sum W)^T.C (l >= s)
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int tile = warp + 8 * u;
+    if (tile >= CH_TILES) break;
+    int r, q;
+    tile_rq(tile, r, q);
+    store_planes(planes, r, q, Wsum[u], lane);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+    for (int kk = 0; kk < BCL / 16; ++kk) {
+      const int i = rt[ri];
+      uint32_t af[TERMS][4], bb[4];
+      if (kk <= i) {
+#pragma unroll
+        for (int pl = 0; pl < TERMS; ++pl) frag_a(af[pl], planes + pl * 64 * LDT, LDT, 16 * i, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          frag_bt(bb, Bs, LDN, 16 * kk, NQ * cq + 16 * np, lane);
+#pragma unroll
+          for (int pl = TERMS - 1; pl >= 0; --pl) {
+            bmma(dCt[ri][2 * np], af[pl], bb[0], bb[1]);
+            bmma(dCt[ri][2 * np + 1], af[pl], bb[2], bb[3]);
+          }
+        }
+      }
+      if (kk >= i) {
+#pragma unroll
+        for (int pl = 0; pl < TERMS; ++pl) frag_at(af[pl], planes + pl * 64 * LDT, LDT, 16 * i, 16 * kk, lane);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          frag_bt(bb, Cs, LDN, 16 * kk, NQ * cq + 16 * np, lane);
+#pragma unroll
+          for (int pl = TERMS - 1; pl >= 0; --pl) {
+            bmma(dBt[ri][2 * np], af[pl], bb[0], bb[1]);
+            bmma(dBt[ri][2 * np + 1], af[pl], bb[2], bb[3]);
+          }
+        }
+      }
+    }
+  if (SSD_BWD_PROBE != 3) {
+#pragma unroll
+    for (int ri = 0; ri < 2; ++ri)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int row = 16 * rt[ri] + g + 8 * half, col = NQ * cq + 8 * nt + 2 * t;
+          const long long at = ((bi * (long long)s.l + l0 + row) * groups + grp) * N + col;
+          *reinterpret_cast<float2*>(pdC + at) = make_float2(dCt[ri][nt][2 * half], dCt[ri][nt][2 * half + 1]);
+          *reinterpret_cast<float2*>(pdB + at) = make_float2(dBt[ri][nt][2 * half], dBt[ri][nt][2 * half + 1]);
+        }
+  }
+  cp_async_wait<0>();
+}
+
+// dB, dC [b, l, n] (T): the groups' parts [b, l, groups, n] summed in group order; dA [h]: the parts
+// [b, nc, h] summed over batches and chunks in index order.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ssd_scan_bwd_mma_sum_kernel(const float* __restrict__ pdB, const float* __restrict__ pdC,
+                            const float* __restrict__ pdA, T* __restrict__ dB, T* __restrict__ dC,
+                            float* __restrict__ dA, int b, int l, int h, int n, int groups, int nc) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long nbl = (long long)b * l * n;
+  if (i < nbl) {
+    const long long bl = i / n, nn = i % n;
+    float sb = 0.f, sc = 0.f;
+    for (int grp = 0; grp < groups; ++grp) {
+      sb += pdB[(bl * groups + grp) * n + nn];
+      sc += pdC[(bl * groups + grp) * n + nn];
+    }
+    put(dB + i, sb);
+    put(dC + i, sc);
+  } else if (i < nbl + h) {
+    const int hh = (int)(i - nbl);
+    float v = 0.f;
+    for (long long k = 0; k < (long long)b * nc; ++k) v += pdA[k * h + hh];
+    dA[hh] = v;
+  }
+}
+
+template <int N>
+int launch_bwd_mma(const bf16* x, const float* dt, const float* A, const bf16* B, const bf16* C, const bf16* dy,
+                   const float* dstate, bf16* dx, float* ddt, float* dA, bf16* dB, bf16* dC, float* hbuf,
+                   float* dhbuf, float* pdB, float* pdC, float* pdA, const BwdShape& s, cudaStream_t stream) {
+  const int nc = s.l / BCL, groups = s.h / s.hg;
+  const int st_smem = bwd_states_smem(), ch_smem = bwd_chunk_smem(N);
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_bwd_states_mma_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, st_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_scan_bwd_chunk_mma_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, ch_smem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_bwd_states_mma_kernel<N><<<(unsigned)(s.b * s.h * (N / SLICE) * 2), ST_THREADS, st_smem, stream>>>(
+      x, dt, A, B, C, dy, dstate, hbuf, dhbuf, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_bwd_chunk_mma_kernel<N><<<(unsigned)(s.b * nc * groups), CH_THREADS, ch_smem, stream>>>(
+      x, dt, A, B, C, dy, dstate, hbuf, dhbuf, dx, ddt, pdB, pdC, pdA, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || SSD_BWD_PROBE == 3) return (int)err;
+  const long long total = (long long)s.b * s.l * s.n + s.h;
+  ssd_scan_bwd_mma_sum_kernel<bf16><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      pdB, pdC, pdA, dB, dC, dA, s.b, s.l, s.h, s.n, groups, nc);
+  return (int)cudaGetLastError();
+}
+
 int launch_mma_variant(int n, int pt, const void* x, const float* dt, const float* A, const void* B, const void* C,
                        void* y, float* state, const SsdShape& s, cudaStream_t stream) {
   SSD_MMA_VARIANTS(launch_mma, x, dt, A, B, C, y, state, s, stream)
@@ -1186,6 +2008,37 @@ extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A, cons
   return launch_bwd<float>(x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC, hs, pdB, pdC, pddt, pdA, s, sdyb,
                            sdyl, sdyh, st);
 }
+
+// The backward on the tensor cores (bf16; chunk 64, p 64, state width n 64 or 128; x, B, C and dy rows
+// 16-byte aligned; the wrapper's bwd_route): dx, ddt, dA, dB, dC as ssd_scan_bwd gives them, from the same
+// inputs.  hg: heads a block of the chunk kernel takes (dividing h).  Scratch, all fp32: hbuf and dhbuf
+// [b, h, l / 64, 64, n] (the states entering the chunks and the gradients of those leaving them), pdB and
+// pdC [b, l, h / hg, n], pdA [b, l / 64, h].  Launches ssd_scan_bwd_states_mma_kernel<n>,
+// ssd_scan_bwd_chunk_mma_kernel<n> and ssd_scan_bwd_mma_sum_kernel on `stream`; returns the first launch's
+// CUDA error, or 0.
+extern "C" int ssd_scan_bwd_mma(const void* x, const float* dt, const float* A, const void* B, const void* C,
+                                const void* dy, const float* dstate, void* dx, float* ddt, float* dA, void* dB,
+                                void* dC, float* hbuf, float* dhbuf, float* pdB, float* pdC, float* pdA, int b,
+                                int l, int h, int n, int hg, long long sxb, long long sxl, long long sxh,
+                                long long sdb, long long sdl, long long sdh, long long sBb, long long sBl,
+                                long long sCb, long long sCl, long long syb, long long syl, long long syh,
+                                void* stream) {
+  if (l % BCL != 0 || hg < 1 || h % hg != 0) return (int)cudaErrorInvalidValue;
+  const BwdShape s{b, l, h, n, hg, sxb, sxl, sxh, sdb, sdl, sdh, sBb, sBl, sCb, sCl, syb, syl, syh};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SSD_BWD_MMA_ARGS                                                                                        \
+  static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B), static_cast<const bf16*>(C),               \
+      static_cast<const bf16*>(dy), dstate, static_cast<bf16*>(dx), ddt, dA, static_cast<bf16*>(dB),           \
+      static_cast<bf16*>(dC), hbuf, dhbuf, pdB, pdC, pdA, s, st
+  if (n == 64) return launch_bwd_mma<64>(SSD_BWD_MMA_ARGS);
+  if (n == 128) return launch_bwd_mma<128>(SSD_BWD_MMA_ARGS);
+#undef SSD_BWD_MMA_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block of the tensor-core backward's states kernel (kernel 0) or chunk
+// kernel (1) at state width n, in bytes.
+extern "C" int ssd_scan_bwd_mma_smem_bytes(int n, int kernel) { return kernel == 0 ? bwd_states_smem() : bwd_chunk_smem(n); }
 
 // Blocks of ssd_scan_mma_bf16_kernel<n, pt> at `chunk` one SM holds at once
 // on the current device, or minus a cudaError.

@@ -23,12 +23,23 @@ SM count (see the source note for both designs).
 PyTorch; the CPU path and the on-card checks use it.
 
 The backward (the reference has none in Pallas: it trains through XLA's
-gradient of ``ssd_chunked``): :func:`ssd_scan_bwd` runs two more kernels of
-``csrc/ssd_scan.cu``, the reverse scan ``ssd_scan_bwd_kernel`` (fp32 on the
-SIMT pipes in register tiles) and ``ssd_scan_bwd_sum_kernel``, which sums
-the per-block partials of dB, dC, ddt and dA in a fixed order (see the
-source note).  :func:`ssd_scan_bwd_plain` is the same function by its
-explicit formulas in fp32, for the CPU tests and the on-card checks.
+gradient of ``ssd_chunked``): :func:`ssd_scan_bwd` runs more kernels of
+``csrc/ssd_scan.cu`` by the route :func:`bwd_route` picks from type, shape
+and alignment (:func:`bwd_kernels` names each route's launches).  bf16 at
+chunk 64, p 64, state 64 or 128 with 16-byte-aligned rows (both training
+shapes) takes ``"mma"``, parallel over chunks on the tensor cores:
+``ssd_scan_bwd_states_mma_kernel`` carries the states forward and their
+gradients backward over the chunks, ``ssd_scan_bwd_chunk_mma_kernel``
+runs each chunk's backward for a group of :func:`bwd_head_group` heads
+given both, and ``ssd_scan_bwd_mma_sum_kernel`` sums the groups' partials
+of dB and dC and the chunks' of dA in a fixed order.  Everything else,
+fp32 and the smoke configs' chunk 8 included, takes ``"simt"``: the
+reverse scan ``ssd_scan_bwd_kernel`` (fp32 on the SIMT pipes in register
+tiles) and ``ssd_scan_bwd_sum_kernel`` (see the source note).
+:func:`ssd_scan_bwd_plain` is the same function by its explicit formulas in
+fp32, for the CPU tests and the on-card checks; :func:`bwd_states_plain`,
+:func:`bwd_chunk_plain` and :func:`bwd_sum_plain` are what each kernel of
+the ``"mma"`` route computes, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ import torch
 
 #: launches of the CUDA kernels since this count was last set to 0
 launches = 0
-#: calls of the backward's kernels (the reverse scan, the sum of its partials) since this count was last set to 0
+#: calls of the backward (each launches its route's kernels, :func:`bwd_kernels`) since this count was last set to 0
 bwd_launches = 0
 
 #: the kernels of ``csrc/ssd_scan.cu``, indexed by the route code ``ssd_scan_fwd`` takes
@@ -62,6 +73,11 @@ MMA_TERMS = 3
 MAX_SMEM_BYTES = 232_448
 H100_SMS = 132
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the backward's routes (:func:`bwd_route`)
+BWD_ROUTES = ("simt", "mma")
+#: what the tensor-core backward compiles: its chunk, p, state widths, and
+#: the state columns one block of its states kernel carries
+MMA_BWD_CHUNK, MMA_BWD_P, MMA_BWD_STATES, MMA_BWD_SLICE = 64, 64, (64, 128), 64
 
 
 def _check_shapes(x, dt, A, B, C, chunk: int) -> None:
@@ -175,6 +191,180 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
     dx = dxdt * dtf[..., None]
     return (dx.reshape(b, l, h, p).to(x.dtype), ddt.reshape(b, l, h), dA,
             dB.reshape(b, l, n).to(B.dtype), dC.reshape(b, l, n).to(C.dtype))
+
+
+def _chunked(x, dt, A, B, C, dy, chunk: int):
+    """x, dy [b, c, cl, h, p], dt [b, c, cl, h], B, C [b, c, cl, n] in fp32,
+    and per (b, c, step, h) cum (the in-chunk cumulative sum of dt·A),
+    exp(cum) and exp(cum_last − cum)."""
+    b, l, h, p = x.shape
+    n, nc = B.shape[-1], l // chunk
+    xf, dyf = x.float().reshape(b, nc, chunk, h, p), dy.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    Bf, Cf = B.float().reshape(b, nc, chunk, n), C.float().reshape(b, nc, chunk, n)
+    cum = torch.cumsum(dtf * A.float(), dim=2)
+    return xf, dyf, dtf, Bf, Cf, cum, torch.exp(cum), torch.exp(cum[:, :, -1:] - cum)
+
+
+def bwd_states_plain(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
+    """What ``ssd_scan_bwd_states_mma_kernel`` computes: for each (b, h)
+    and chunk c the state entering the chunk, H_in, and the gradient of the
+    state leaving it, dH_out, both [b, h, nc, p, n] fp32.  Each chunk's own
+    parts, own_c = (x·exp(cum_last − cum)·dt)ᵀ·B and into_c =
+    (dy·exp(cum))ᵀ·C, pass along the chunks by scaled adds: H_in[0] = 0,
+    H_in[c + 1] = H_in[c]·exp(cum_last) + own_c; dH_out[nc − 1] = dstate
+    (0 where None), dH_out[c − 1] = dH_out[c]·exp(cum_last) + into_c."""
+    _check_shapes(x, dt, A, B, C, chunk)
+    b, l, h, p = x.shape
+    n, nc = B.shape[-1], l // chunk
+    xf, dyf, dtf, Bf, Cf, cum, ecum, wend = _chunked(x, dt, A, B, C, dy, chunk)
+    own = torch.einsum("bclh,bclhp,bcln->bhcpn", wend * dtf, xf, Bf)
+    into = torch.einsum("bclh,bclhp,bcln->bhcpn", ecum, dyf, Cf)
+    dec = torch.exp(cum[:, :, -1]).permute(0, 2, 1)[..., None, None]  # [b, h, c, 1, 1]
+    zero = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    h_in = [zero]
+    for c in range(nc - 1):
+        h_in.append(h_in[-1] * dec[:, :, c] + own[:, :, c])
+    dh_out = [zero if dstate is None else dstate.float()]
+    for c in range(nc - 1, 0, -1):
+        dh_out.append(dh_out[-1] * dec[:, :, c] + into[:, :, c])
+    return torch.stack(h_in, dim=2), torch.stack(dh_out[::-1], dim=2)
+
+
+def bwd_chunk_plain(x, dt, A, B, C, dy, h_in, dh_out, *, chunk: int = 64, head_group: int = 1):
+    """What ``ssd_scan_bwd_chunk_mma_kernel`` computes, each chunk on its
+    own given h_in and dh_out (:func:`bwd_states_plain`).  Per (b, chunk,
+    head), with L[l, s] = exp(cum_l − cum_s) for l ≥ s and wend =
+    exp(cum_last − cum):
+    - W = (dy·xᵀ)∘L∘dt_s and M = (C·Bᵀ)∘W;
+    - dxdt = ((C·Bᵀ)∘L)ᵀ·dy + wend∘(B·dH_outᵀ), dx = dxdt·dt;
+    - d(cum) = M's row sums − its column sums + Σ_n (exp(cum)∘(dy·H_in))∘C
+      − wend·dt·Σ_p x∘(B·dH_outᵀ), plus at the chunk's last step
+      <dH_out, H_out> = exp(cum_last)·<dH_out, H_in> + Σ (wend·dt∘(x·dH_out))∘B;
+    - ddt = (the reverse in-chunk cumulative sum of d(cum))·A + Σ_p dxdt·x,
+      and dA's part, that sum times dt over the chunk;
+    and per group of ``head_group`` consecutive heads dC's and dB's parts,
+    (Σ W)·B + Σ exp(cum)∘(dy·H_in) and (Σ W)ᵀ·C + Σ wend·dt∘(x·dH_out).
+    Returns (dx in x's type, ddt [b, l, h], dA's parts [b, nc, h], dB's and
+    dC's parts [b, l, h / head_group, n]), all but dx fp32."""
+    _check_shapes(x, dt, A, B, C, chunk)
+    b, l, h, p = x.shape
+    n, nc = B.shape[-1], l // chunk
+    if h % head_group:
+        raise ValueError(f"head group {head_group} does not divide {h} heads")
+    groups = h // head_group
+    xf, dyf, dtf, Bf, Cf, cum, ecum, wend = _chunked(x, dt, A, B, C, dy, chunk)
+    hin, dho = h_in.float().transpose(1, 2), dh_out.float().transpose(1, 2)  # [b, c, h, p, n]
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None]
+    ldec = torch.exp(torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :], float("-inf")))  # [b,c,l,s,h]
+    g = torch.einsum("bcln,bcsn->bcls", Cf, Bf)
+    w = ldec * torch.einsum("bclhp,bcshp->bclsh", dyf, xf) * dtf[:, :, None]
+    m = g[..., None] * w
+    dh_b = torch.einsum("bcsn,bchpn->bcshp", Bf, dho)
+    dxdt = torch.einsum("bcls,bclsh,bclhp->bcshp", g, ldec, dyf) + wend[..., None] * dh_b
+    dc_inter = ecum[..., None] * torch.einsum("bclhp,bchpn->bclhn", dyf, hin)
+    db_inter = (wend * dtf)[..., None] * torch.einsum("bcshp,bchpn->bcshn", xf, dho)
+    carry = torch.exp(cum[:, :, -1]) * (dho * hin).sum((-2, -1)) + torch.einsum("bcshn,bcsn->bch", db_inter, Bf)
+    dcum = (m.sum(3) - m.sum(2) + torch.einsum("bclhn,bcln->bclh", dc_inter, Cf)
+            - wend * dtf * (xf * dh_b).sum(-1))
+    dcum[:, :, -1] += carry
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = dla * A.float() + (dxdt * xf).sum(-1)
+    wg = w.reshape(b, nc, chunk, chunk, groups, head_group).sum(-1)
+    pdC = (torch.einsum("bclsg,bcsn->bclgn", wg, Bf)
+           + dc_inter.reshape(b, nc, chunk, groups, head_group, n).sum(4))
+    pdB = (torch.einsum("bclsg,bcln->bcsgn", wg, Cf)
+           + db_inter.reshape(b, nc, chunk, groups, head_group, n).sum(4))
+    dx = dxdt * dtf[..., None]
+    return (dx.reshape(b, l, h, p).to(x.dtype), ddt.reshape(b, l, h), (dla * dtf).sum(2),
+            pdB.reshape(b, l, groups, n), pdC.reshape(b, l, groups, n))
+
+
+def bwd_sum_plain(pdB, pdC, pdA, dtype: torch.dtype):
+    """What ``ssd_scan_bwd_mma_sum_kernel`` computes: dB and dC [b, l, n]
+    in ``dtype``, their parts [b, l, groups, n] summed over the groups in
+    group order, and dA [h], its parts [b, nc, h] summed over batches and
+    chunks in index order."""
+    dB, dC = pdB[:, :, 0], pdC[:, :, 0]
+    for grp in range(1, pdB.shape[2]):
+        dB, dC = dB + pdB[:, :, grp], dC + pdC[:, :, grp]
+    parts = pdA.reshape(-1, pdA.shape[-1])
+    dA = parts[0]
+    for row in parts[1:]:
+        dA = dA + row
+    return dB.to(dtype), dC.to(dtype), dA
+
+
+def bwd_route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool) -> str:
+    """The backward's route (one of :data:`BWD_ROUTES`) by type, shape and
+    alignment alone: ``"mma"`` for bf16 at chunk ``MMA_BWD_CHUNK``, p
+    ``MMA_BWD_P`` and a state width of ``MMA_BWD_STATES`` where ``aligned``
+    (x, B, C and dy start 16-byte aligned with every stride but the last a
+    multiple of 8 elements); ``"simt"`` for everything else, fp32 and the
+    smoke configs' chunk 8 included."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan takes float32 or bfloat16, got {dtype}")
+    mma = (dtype == torch.bfloat16 and aligned and chunk == MMA_BWD_CHUNK and p == MMA_BWD_P
+           and n in MMA_BWD_STATES)
+    return "mma" if mma else "simt"
+
+
+def bwd_kernels(route: str, dtype: torch.dtype, n: int) -> tuple[str, ...]:
+    """The kernels one backward of x's type ``dtype`` and state width ``n``
+    launches on ``route``, in launch order, as the profiler names them."""
+    if route == "mma":
+        return (f"ssd_scan_bwd_states_mma_kernel<{n}>", f"ssd_scan_bwd_chunk_mma_kernel<{n}>",
+                "ssd_scan_bwd_mma_sum_kernel<__nv_bfloat16>")
+    if route == "simt":
+        t = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}[dtype]
+        return f"ssd_scan_bwd_kernel<{t}>", f"ssd_scan_bwd_sum_kernel<{t}>"
+    raise ValueError(f"no backward route {route!r} (have {BWD_ROUTES})")
+
+
+def bwd_head_group(b: int, l: int, h: int, chunk: int = MMA_BWD_CHUNK, sms: int = H100_SMS) -> int:
+    """Heads one block of ``ssd_scan_bwd_chunk_mma_kernel`` takes, a pure
+    function of the shape and the SM count (one block an SM: its shared
+    memory and registers allow no second).  Of the divisors of h that launch
+    at least ``sms`` blocks (b · l / chunk · h / group; all divisors where
+    none does), the one with the fewest waves of blocks × (group + 1), the
+    1 standing for a block's own work (B, C and C·Bᵀ in, the within-chunk
+    parts of dB and dC out); ties to the larger group, which writes fewer
+    partial bytes.  3 at mamba2-130m's training shape, 10 at zamba2-2.7b's:
+    256 blocks each."""
+    per = b * (l // chunk)
+    divisors = [d for d in range(1, h + 1) if h % d == 0]
+    fits = [d for d in divisors if per * (h // d) >= sms] or divisors
+    return min(fits, key=lambda d: (-(-per * (h // d) // sms) * (d + 1), -d))
+
+
+def mma_bwd_smem_bytes(n: int) -> tuple[int, int]:
+    """Dynamic shared memory of one block of the ``"mma"`` route's states
+    kernel and of its chunk kernel at state width ``n`` (``bwd_states_smem``
+    and ``bwd_chunk_smem`` in the source).  States: 1 KB of alignment slack,
+    a 2-stage ring of x or dy and B or C [64][64] (bf16) and dt in 1 KB,
+    3 bf16 planes [64][64] of the scaled B or C, and each of the 4 warps'
+    factors.  Chunk: B and C [64][n + 8] (bf16), a 2-stage ring of x, dy
+    [64][64 + 8] and dt, H [64][n + 4] and dH [64][n + 8] (fp32; two of
+    each at state 64, where the next head's land during this one's work,
+    one at 128), 3 bf16 planes [64][64 + 8] of (C·Bᵀ)∘L and then Σ W,
+    C·Bᵀ's 10 tiles on and below the diagonal (fp32), each of the 8 warps'
+    4 factor rows, and two heads' per-step partials."""
+    tile = 64 * (64 + 8) * 2
+    states = 1024 + 2 * (2 * 64 * MMA_BWD_SLICE * 2 + 1024) + 3 * 64 * MMA_BWD_SLICE * 2 + 4 * 3 * 64 * 4
+    state_bufs = 2 if n <= 64 else 1
+    chunk = (2 * 64 * (n + 8) * 2 + 2 * (2 * tile + 64 * 4) + state_bufs * (64 * (n + 4) * 4 + 64 * (n + 8) * 4)
+             + 3 * tile + 10 * 256 * 4 + 8 * 4 * 64 * 4 + 2 * (2 * 10 * 16 + 3 * 4 * 64 + 8) * 4)
+    return states, chunk
+
+
+def mma_bwd_grid(b: int, l: int, h: int, n: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """Blocks of the ``"mma"`` route's three kernels: the states kernel one
+    per (b, h, ``MMA_BWD_SLICE`` state columns, direction), the chunk kernel
+    one per (b, chunk, group of :func:`bwd_head_group` heads), the sum one
+    per 256 of dB's elements and dA's."""
+    groups = h // bwd_head_group(b, l, h, sms=sms)
+    return b * h * (n // MMA_BWD_SLICE) * 2, b * (l // MMA_BWD_CHUNK) * groups, -(-(b * l * n + h) // 256)
 
 
 def simt_smem_bytes(chunk: int, n: int, p_tile: int) -> int:
@@ -338,6 +528,19 @@ def bwd_smem_bytes(chunk: int, n: int, p_tile: int) -> int:
                 + 7 * chunk + 32)
 
 
+def _check_bwd(x, dt, A, B, C, dy, dstate, chunk: int) -> None:
+    _check(x, dt, A, B, C, chunk)
+    b, _, h, p = x.shape
+    n = B.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or dy.stride(3) != 1:
+        raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)} on {x.device} with unit stride over p, got "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}, strides {dy.stride()}")
+    if dstate is not None and (dstate.shape != (b, h, p, n) or dstate.dtype != torch.float32
+                               or dstate.device != x.device or not dstate.is_contiguous()):
+        raise ValueError(f"dstate must be contiguous fp32 [{b}, {h}, {p}, {n}] on {x.device}, got {dstate.dtype} "
+                         f"{tuple(dstate.shape)} on {dstate.device}")
+
+
 def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
     """The backward on the CUDA kernels: (dx, ddt, dA, dB, dC) of
     :func:`ssd_scan` from its inputs (as :func:`ssd_scan` takes them, B and
@@ -347,27 +550,65 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
     :func:`ssd_scan_bwd_plain`; dx, dB and dC contiguous in their inputs'
     type, ddt and dA fp32.
 
-    ``ssd_scan_bwd_kernel`` (fp32 FMA on the SIMT pipes over register
-    tiles, one block per (batch, head, :data:`BWD_P_TILE` rows over p),
-    chunk and state width up to :data:`BWD_MAX_CHUNK` and
-    :data:`BWD_MAX_STATE`) writes dx and each block's partial dB, dC, ddt
-    and dA; ``ssd_scan_bwd_sum_kernel`` sums the
-    partials in a fixed order, so two calls give the same bits.  Launches
-    both on the current stream without synchronising (one count in
-    ``bwd_launches``); raises if the inputs are not what the kernels take or
-    a launch is refused.
+    Launches the kernels of :func:`bwd_route`'s route
+    (:func:`bwd_kernels`) on the current stream without synchronising (one
+    count in ``bwd_launches``); every cross-block sum runs in a fixed
+    order, so two calls give the same bits.  Raises if the inputs are not
+    what the kernels take or a launch is refused.
     """
+    _check_bwd(x, dt, A, B, C, dy, dstate, chunk)
+    aligned = all(_aligned(t) for t in (x, B, C, dy))
+    return _launch_bwd(x, dt, A, B, C, dy, dstate, chunk, bwd_route(x.dtype, x.shape[3], B.shape[-1], chunk, aligned))
+
+
+def run_bwd_route(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64, route: str, parts: dict | None = None):
+    """:func:`ssd_scan_bwd` on ``route``, which need not be
+    :func:`bwd_route`'s: ``"simt"`` takes every shape its kernel does (so
+    the bf16 training shapes can be timed on it beside ``"mma"``), ``"mma"``
+    only where :func:`bwd_route` picks it.  ``parts``, a dict, gets the
+    ``"mma"`` route's scratch, what each kernel hands the next: ``h_in``
+    and ``dh_out`` as :func:`bwd_states_plain` gives them (each chunk's but
+    the first's and the last's, which the chunk kernel takes as 0 and
+    dstate), and ``pdA``, ``pdB`` and ``pdC`` as :func:`bwd_chunk_plain`."""
+    _check_bwd(x, dt, A, B, C, dy, dstate, chunk)
+    aligned = all(_aligned(t) for t in (x, B, C, dy))
+    picked = bwd_route(x.dtype, x.shape[3], B.shape[-1], chunk, aligned)
+    if route not in BWD_ROUTES or (route == "mma" and picked != "mma"):
+        raise ValueError(f"the backward of x {tuple(x.shape)}, B {tuple(B.shape)} ({x.dtype}, chunk {chunk}) has "
+                         f"no route {route!r}")
+    return _launch_bwd(x, dt, A, B, C, dy, dstate, chunk, route, parts)
+
+
+def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk: int, route: str, parts: dict | None = None):
     global bwd_launches
-    _check(x, dt, A, B, C, chunk)
     b, l, h, p = x.shape
     n = B.shape[-1]
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or dy.stride(3) != 1:
-        raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)} on {x.device} with unit stride over p, got "
-                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}, strides {dy.stride()}")
-    if dstate is not None and (dstate.shape != (b, h, p, n) or dstate.dtype != torch.float32
-                               or dstate.device != x.device or not dstate.is_contiguous()):
-        raise ValueError(f"dstate must be contiguous fp32 [{b}, {h}, {p}, {n}] on {x.device}, got {dstate.dtype} "
-                         f"{tuple(dstate.shape)} on {dstate.device}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    ddt, dA = torch.empty((b, l, h), **f32), torch.empty((h,), **f32)
+    dB, dC = torch.empty((b, l, n), dtype=B.dtype, device=x.device), torch.empty((b, l, n), dtype=C.dtype, device=x.device)
+    strides = (*x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1), C.stride(0), C.stride(1), *dy.stride()[:3])
+    if route == "mma":
+        sms = _sm_count(x.device.index)
+        hg = bwd_head_group(b, l, h, chunk, sms=sms)
+        if max(mma_bwd_grid(b, l, h, n, sms=sms)) > 2**31 - 1:
+            raise ValueError(f"grid too large for x {tuple(x.shape)}")
+        states = torch.empty((2, b, h, l // chunk, p, n), **f32)  # H_in and dH_out of every chunk
+        pdB, pdC = torch.empty((b, l, h // hg, n), **f32), torch.empty((b, l, h // hg, n), **f32)
+        pdA = torch.empty((b, l // chunk, h), **f32)
+        err = _bwd_mma_kernel()(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), states[0].data_ptr(), states[1].data_ptr(), pdB.data_ptr(),
+            pdC.data_ptr(), pdA.data_ptr(), b, l, h, n, hg, *strides,
+            torch._C._cuda_getCurrentRawStream(x.device.index),
+        )
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_bwd ({route}) launch failed: cudaError {err}")
+        bwd_launches += 1
+        if parts is not None:
+            parts.update(h_in=states[0], dh_out=states[1], pdA=pdA, pdB=pdB, pdC=pdC)
+        return dx, ddt, dA, dB, dC
     if chunk > BWD_MAX_CHUNK or n > BWD_MAX_STATE:
         raise ValueError(f"the backward takes chunks up to {BWD_MAX_CHUNK} and states up to {BWD_MAX_STATE}, "
                          f"got chunk {chunk}, state {n}")
@@ -379,10 +620,6 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
                          f"(at most {MAX_SMEM_BYTES})")
     if b * h * n_pt > 2**31 - 1:
         raise ValueError(f"grid too large for x {tuple(x.shape)}")
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
-    ddt, dA = torch.empty((b, l, h), **f32), torch.empty((h,), **f32)
-    dB, dC = torch.empty((b, l, n), dtype=B.dtype, device=x.device), torch.empty((b, l, n), dtype=C.dtype, device=x.device)
     hs = torch.empty((b * h * n_pt, l // chunk, pt, n), **f32)
     pdB, pdC = torch.empty((b, l, h * n_pt, n), **f32), torch.empty((b, l, h * n_pt, n), **f32)
     pddt, pdA = torch.empty((b, l, h, n_pt), **f32), torch.empty((b, h, n_pt), **f32)
@@ -390,12 +627,11 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
         None if dstate is None else dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
         dB.data_ptr(), dC.data_ptr(), hs.data_ptr(), pdB.data_ptr(), pdC.data_ptr(), pddt.data_ptr(),
-        pdA.data_ptr(), _DTYPES[x.dtype], b, l, h, p, n, chunk, pt,
-        *x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1), C.stride(0), C.stride(1), *dy.stride()[:3],
+        pdA.data_ptr(), _DTYPES[x.dtype], b, l, h, p, n, chunk, pt, *strides,
         torch._C._cuda_getCurrentRawStream(x.device.index),
     )
     if err != 0:
-        raise RuntimeError(f"ssd_scan_bwd launch failed: cudaError {err}")
+        raise RuntimeError(f"ssd_scan_bwd ({route}) launch failed: cudaError {err}")
     bwd_launches += 1
     return dx, ddt, dA, dB, dC
 
@@ -427,6 +663,14 @@ def library() -> ctypes.CDLL:
 def _bwd_kernel():
     fn = library().ssd_scan_bwd
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_mma_kernel():
+    fn = library().ssd_scan_bwd_mma
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

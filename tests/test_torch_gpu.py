@@ -965,6 +965,81 @@ def test_ssd_backward_matches_plain_and_gives_the_same_bits_twice(b, l, h, p, n,
         _agree(gt, w, 2e-3, dtype == torch.float32 or gt.dtype == torch.float32)
 
 
+SSD_TRAIN_SHAPES = [(4, 512, 24, 64, 128), (4, 512, 80, 64, 64)]  # mamba2-130m's, zamba2-2.7b's
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,l,h,p,n", SSD_TRAIN_SHAPES)
+def test_ssd_backward_mma_kernels_each_match_their_plain_versions(b, l, h, p, n, with_state):
+    """The ``"mma"`` route at the training shapes (bf16, B and C strided as
+    ``ssd_block`` passes them), kernel by kernel: the states kernel's H_in
+    and dH_out against ``bwd_states_plain``; the chunk kernel's dx, ddt and
+    parts against ``bwd_chunk_plain`` on the kernel's own states; the sum
+    against ``bwd_sum_plain`` on the kernel's own parts (the same bits:
+    the same fp32 adds in the same order, then one rounding); the whole
+    against ``ssd_scan_bwd_plain``."""
+    x, dt, A, B, C = _ssd(b, l, h, p, n, torch.bfloat16, strided=True)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+    dstate = torch.randn((b, h, p, n), generator=g, device="cuda") if with_state else None
+    assert ssd.bwd_route(torch.bfloat16, p, n, 64, all(ssd._aligned(t) for t in (x, B, C, dy))) == "mma"
+    parts = {}
+    got = ssd.run_bwd_route(x, dt, A, B, C, dy, dstate, chunk=64, route="mma", parts=parts)
+    torch.cuda.synchronize()
+    h_in, dh_out = ssd.bwd_states_plain(x, dt, A, B, C, dy, dstate, chunk=64)
+    _agree(parts["h_in"][:, :, 1:], h_in[:, :, 1:], 1e-4, True)
+    _agree(parts["dh_out"][:, :, :-1], dh_out[:, :, :-1], 1e-4, True)
+    h_k, dh_k = parts["h_in"].clone(), parts["dh_out"].clone()
+    h_k[:, :, 0], dh_k[:, :, -1] = 0.0, (0.0 if dstate is None else dstate)
+    dx, ddt, pdA, pdB, pdC = ssd.bwd_chunk_plain(x, dt, A, B, C, dy, h_k, dh_k, chunk=64,
+                                                 head_group=ssd.bwd_head_group(b, l, h))
+    _agree(got[0], dx, None, False)
+    for kern, plain in ((got[1], ddt), (parts["pdA"], pdA), (parts["pdB"], pdB), (parts["pdC"], pdC)):
+        assert _rel_err(kern, plain) <= 1e-4
+    dB, dC, dA = ssd.bwd_sum_plain(parts["pdB"], parts["pdC"], parts["pdA"], torch.bfloat16)
+    assert torch.equal(got[3], dB) and torch.equal(got[4], dC) and torch.equal(got[2], dA)
+    for gt, w in zip(got, ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=64)):
+        assert _rel_err(gt, w) <= BF16_REL
+
+
+@pytest.mark.parametrize("b,l,h,p,n", SSD_TRAIN_SHAPES)
+def test_ssd_backward_mma_gives_the_same_bits_twice_and_on_two_streams(b, l, h, p, n):
+    args = [(*_ssd(b, l, h, p, n, torch.bfloat16, seed=s, strided=True),
+             torch.randn((b, l, h, p), generator=torch.Generator(device="cuda").manual_seed(s), device="cuda")
+             .to(torch.bfloat16)) for s in (1, 2)]
+    seq = [ssd.ssd_scan_bwd(*a, chunk=64) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st, a in zip(streams, args):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([ssd.ssd_scan_bwd(*a, chunk=64) for _ in range(3)])
+    torch.cuda.synchronize()
+    for want, got in zip(seq, outs):
+        for grads in got:
+            assert all(torch.equal(u, v) for u, v in zip(grads, want))
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,dtype", [
+    (4, 512, 24, 64, 128, 64, torch.bfloat16), (4, 512, 80, 64, 64, 64, torch.bfloat16),  # the training shapes
+    (4, 512, 24, 64, 128, 64, torch.float32), (2, 64, 4, 16, 16, 8, torch.bfloat16),
+])
+def test_ssd_backward_runs_exactly_the_kernels_of_its_route(b, l, h, p, n, chunk, dtype):
+    """A profiled backward runs :func:`bwd_kernels` of :func:`bwd_route`'s route and nothing else."""
+    import re
+
+    x, dt, A, B, C = _ssd(b, l, h, p, n, dtype, strided=True)
+    dy = torch.randn(x.shape, device="cuda").to(dtype)
+    route = ssd.bwd_route(dtype, p, n, chunk, all(ssd._aligned(t) for t in (x, B, C, dy)))
+    assert route == ("mma" if dtype == torch.bfloat16 and chunk == 64 else "simt")
+    ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    names = _device_kernel_names(lambda: ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk))
+    ran = [m.group(1) if (m := re.search(r"(ssd_scan_bwd\w*_kernel<[^>]*>)", k)) else k for k in names]
+    assert sorted(ran) == sorted(ssd.bwd_kernels(route, dtype, n))
+
+
 @pytest.mark.parametrize("use_state", [False, True])
 def test_ssd_scan_gradient_runs_both_kernels_and_matches_the_plain_path(use_state):
     x, dt, A, B, C = _ssd(2, 128, 4, 64, 64, torch.bfloat16, strided=True)

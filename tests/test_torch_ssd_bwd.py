@@ -240,3 +240,101 @@ def test_bwd_block_fits_shared_memory_at_the_training_shapes(arch_n):
     """mamba2-130m (state 128) and zamba2-2.7b (state 64) at chunk 64, p 64:
     one backward block's shared memory fits the H100's 227 KB."""
     assert ssd.bwd_smem_bytes(64, arch_n, min(64, ssd.BWD_P_TILE)) <= ssd.MAX_SMEM_BYTES
+
+
+# (b, l, h, p, n, chunk, head group): chunks 16 and 64, one chunk and several, groups of 1 to all heads
+DECOMPOSED = [
+    (2, 64, 6, 16, 8, 16, 1),
+    (2, 64, 6, 16, 8, 16, 3),
+    (1, 128, 4, 32, 16, 64, 2),
+    (2, 192, 3, 64, 32, 64, 3),
+    (1, 64, 2, 64, 16, 64, 1),
+]
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("b,l,h,p,n,chunk,group", DECOMPOSED)
+def test_the_mma_route_kernels_plain_versions_compose_to_the_backward(b, l, h, p, n, chunk, group, with_state):
+    """What the ``"mma"`` route rests on: the states kernel's H_in and
+    dH_out per chunk, each chunk's backward given them with dB and dC summed
+    over a head group, and the fixed-order sum of the groups' and chunks'
+    parts give ``ssd_scan_bwd_plain``'s gradients to fp32 round-off."""
+    x, dt, A, B, C, dy, dstate = _t(*_inputs(b, l, h, p, n, seed=8))
+    dstate = dstate if with_state else None
+    h_in, dh_out = ssd.bwd_states_plain(x, dt, A, B, C, dy, dstate, chunk=chunk)
+    nc = l // chunk
+    assert h_in.shape == dh_out.shape == (b, h, nc, p, n)
+    assert torch.equal(h_in[:, :, 0], torch.zeros_like(h_in[:, :, 0]))
+    assert torch.equal(dh_out[:, :, -1], torch.zeros_like(dh_out[:, :, -1]) if dstate is None else dstate)
+    dx, ddt, pdA, pdB, pdC = ssd.bwd_chunk_plain(x, dt, A, B, C, dy, h_in, dh_out, chunk=chunk, head_group=group)
+    assert pdA.shape == (b, nc, h) and pdB.shape == pdC.shape == (b, l, h // group, n)
+    dB, dC, dA = ssd.bwd_sum_plain(pdB, pdC, pdA, B.dtype)
+    _near((dx, ddt, dA, dB, dC), ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=chunk), ROUNDOFF,
+          f"composed, head group {group}")
+
+
+def test_the_states_are_the_forward_states_and_their_gradients():
+    """H_in of the chunk after the last is the forward's final state, and
+    dH_out is the gradient autograd gives the state leaving each chunk."""
+    x, dt, A, B, C, dy, dstate = _t(*_inputs(1, 128, 2, 16, 8, seed=9))
+    h_in, dh_out = ssd.bwd_states_plain(x, dt, A, B, C, dy, dstate, chunk=32)
+    _, final = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=32)
+    # the last chunk's H_out: its H_in carried over it, plus what it adds (the forward over that chunk alone)
+    cum = torch.cumsum(dt[:, 96:] * A, dim=1)
+    _, own = ssd.ssd_scan_plain(x[:, 96:], dt[:, 96:], A, B[:, 96:], C[:, 96:], chunk=32)
+    carried = h_in[:, :, -1] * torch.exp(cum[:, -1])[..., None, None] + own
+    torch.testing.assert_close(carried, final, rtol=ROUNDOFF, atol=ROUNDOFF)
+    # dH_out of chunk 2 is the gradient of the state entering chunk 3: the scan of chunk 3 from that state
+    h3 = h_in[:, :, 3].clone().requires_grad_()
+    y_state = torch.exp(cum)[..., None] * torch.einsum("bln,bhpn->blhp", C[:, 96:], h3)
+    fin = h3 * torch.exp(cum[:, -1])[..., None, None]
+    (grad,) = torch.autograd.grad((y_state * dy[:, 96:]).sum() + (fin * dstate).sum(), h3)
+    torch.testing.assert_close(dh_out[:, :, 2], grad, rtol=ROUNDOFF, atol=ROUNDOFF)
+
+
+@pytest.mark.parametrize("arch,h,n", [("mamba2-130m", 24, 128), ("zamba2-2.7b", 80, 64)])
+def test_the_training_shapes_take_the_mma_route(arch, h, n):
+    """Both training shapes (bf16, chunk 64, p 64, B and C strided slices
+    with 16-byte-aligned rows) take the tensor-core route and its three
+    kernels; its blocks fit the H100's shared memory and the chunk kernel's
+    grid puts at least a block on each of the 132 SMs."""
+    assert ssd.bwd_route(torch.bfloat16, 64, n, 64, True) == "mma"
+    assert ssd.bwd_kernels("mma", torch.bfloat16, n) == (
+        f"ssd_scan_bwd_states_mma_kernel<{n}>", f"ssd_scan_bwd_chunk_mma_kernel<{n}>",
+        "ssd_scan_bwd_mma_sum_kernel<__nv_bfloat16>")
+    assert all(s <= ssd.MAX_SMEM_BYTES for s in ssd.mma_bwd_smem_bytes(n))
+    states, chunks, _ = ssd.mma_bwd_grid(4, 512, h, n)
+    assert chunks >= ssd.H100_SMS and states >= ssd.H100_SMS
+    assert ssd.bwd_head_group(4, 512, h) == {"mamba2-130m": 3, "zamba2-2.7b": 10}[arch]
+
+
+@pytest.mark.parametrize("dtype,p,n,chunk,aligned,want", [
+    (torch.float32, 64, 128, 64, True, ("simt", ("ssd_scan_bwd_kernel<float>", "ssd_scan_bwd_sum_kernel<float>"))),
+    (torch.bfloat16, 16, 16, 8, True,  # the smoke configs' chunk 8
+     ("simt", ("ssd_scan_bwd_kernel<__nv_bfloat16>", "ssd_scan_bwd_sum_kernel<__nv_bfloat16>"))),
+    (torch.bfloat16, 64, 128, 64, False,  # rows only 8-byte aligned
+     ("simt", ("ssd_scan_bwd_kernel<__nv_bfloat16>", "ssd_scan_bwd_sum_kernel<__nv_bfloat16>"))),
+    (torch.bfloat16, 64, 128, 32, True,
+     ("simt", ("ssd_scan_bwd_kernel<__nv_bfloat16>", "ssd_scan_bwd_sum_kernel<__nv_bfloat16>"))),
+    (torch.bfloat16, 48, 64, 64, True,
+     ("simt", ("ssd_scan_bwd_kernel<__nv_bfloat16>", "ssd_scan_bwd_sum_kernel<__nv_bfloat16>"))),
+    (torch.bfloat16, 64, 32, 64, True,
+     ("simt", ("ssd_scan_bwd_kernel<__nv_bfloat16>", "ssd_scan_bwd_sum_kernel<__nv_bfloat16>"))),
+])
+def test_bwd_route_keeps_the_simt_kernel_outside_the_mma_shapes(dtype, p, n, chunk, aligned, want):
+    route = ssd.bwd_route(dtype, p, n, chunk, aligned)
+    assert (route, ssd.bwd_kernels(route, dtype, n)) == want
+
+
+def test_bwd_route_and_kernels_refuse_what_they_do_not_have():
+    with pytest.raises(TypeError):
+        ssd.bwd_route(torch.float16, 64, 128, 64, True)
+    with pytest.raises(ValueError, match="no backward route"):
+        ssd.bwd_kernels("wgmma", torch.bfloat16, 128)
+
+
+@pytest.mark.parametrize("b,l,h", [(4, 512, 24), (4, 512, 80), (1, 128, 6), (2, 256, 7), (8, 2048, 32)])
+def test_bwd_head_group_divides_the_heads_and_fills_the_card_where_it_can(b, l, h):
+    group = ssd.bwd_head_group(b, l, h)
+    fits = [d for d in range(1, h + 1) if h % d == 0 and b * (l // 64) * (h // d) >= ssd.H100_SMS]
+    assert h % group == 0 and (group in fits or not fits)
