@@ -56,6 +56,29 @@ repository's sources are not beside this script.  Otherwise, in order:
    host seconds, and fails if any arm's best exceeds ES's; runs the best
    splits of Shisha, HC and SA as stream pipelines and prints their measured
    microbatches/s (no limit);
+5b. Shisha's placement and DVFS moves on the same measured oracle (nothing
+   measured again; ``place_and_scale``), from the H3 seed at 3 stages on
+   the 4 EPs, so one EP is always free for a relocation: (a) with
+   ``scalar_fabric`` and ``degenerate_power`` attached, ``tune(placement=
+   True, dvfs=True)`` must equal the bare platform's ``tune(placement=True)``
+   bit for bit (trials, best split and throughput, trial count, simulated
+   wall); (b) on a 2x2 ``mesh2d`` fabric at the stream EPs' own link
+   bandwidth and latency, ``tune(placement=True)`` must pay at least one
+   relocation trial (counted by a ``Trace`` that sees each
+   ``reconfig_cost``), and prints the count, the routed cost of the seed's
+   farthest relocation onto a free EP beside the flat overhead, and the
+   adopted split; (c) on that fabric with ``uniform_power`` capped at 0.7
+   of the seed's nominal package watts, ``tune(placement=True, dvfs=True)``
+   must return levels under which its split meets the cap, and prints the
+   enforced and adopted levels, the package watts against the cap and the
+   trials.  (b)'s and (c)'s splits run as stream pipelines (8 microbatches
+   of 2; (c)'s only where it differs from (b)'s), each output must equal
+   the sequential model's, and the conv must launch; their measured
+   microbatches/s are printed, with no limit, beside the card's name and
+   power limit.  Watts, levels and throughputs of the tuner are the
+   model's (marked ``modelled``): the measured oracle prices each boundary
+   on the scalar link and ignores DVFS scales, as the reference's does, so
+   a frequency step is free to it;
 6. LM serving kernels: holds ``flash_attention`` and ``ssd_scan`` against
    their plain versions on the card at the LM main path's shapes in bf16
    (prefill attention of every served attention model, causal, q/k/v as
@@ -262,18 +285,22 @@ sys.path.insert(0, str(ROOT / "src"))  # the port, from this checkout
 
 from repro_torch.configs import get_config
 from repro_torch.core import (
+    HEURISTICS,
     Trace,
     database_generation_cost,
     exhaustive_search,
     generate_seed,
     hill_climbing,
     pipe_search,
+    placement_reconfig_cost,
     random_walk,
     run_shisha,
     simulated_annealing,
     space_size,
+    tune,
     weights,
 )
+from repro_torch.interconnect import mesh2d, scalar_fabric, uniform_fabric
 from repro_torch.kernels import build, im2col_conv, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gm
@@ -288,6 +315,7 @@ from repro_torch.models.lm_common import init_params
 from repro_torch.models.cnn import synthnet_specs
 from repro_torch.optim import AdamW, AdamWConfig
 from repro_torch.pipeline import PipelineRunner, pipeline_throughput
+from repro_torch.power import degenerate_power, uniform_power
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
 from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
 from repro_torch.tree import named_leaves
@@ -390,6 +418,11 @@ SSD_MODELS = ("mamba2-130m", "zamba2-2.7b")
 #: the comparison arms' online budget in the race, in multiples of Shisha's
 #: simulated wall (the paper's "35x faster")
 RACE_BUDGET = 35
+#: phase 5b: the depth of Shisha's H3 seed on the 4 EPs of streams, so that
+#: one EP is always free for a relocation; and the package cap of its DVFS
+#: tune, as a share of the seed's nominal package watts (modelled watts,
+#: binding at nominal clocks)
+PLACE_STAGES, PLACE_CAP_SHARE = 3, 0.7
 #: the training main path: per model the depth trained (None: the config's)
 #: and the depth of the fp32 gradient comparison.  phi3.5-moe's 2 layers
 #: hold 2.9 B parameters, 35 GB of parameters, gradients, fp32 master and
@@ -855,6 +888,125 @@ def race(res) -> None:
         table[name]["measured_micro_per_s"] = pipeline_throughput(runner, res.micro)
         print(f"[race] {name}'s split {table[name]['best_conf']} as a stream pipeline: measured "
               f"{table[name]['measured_micro_per_s']:.3f} micro/s, modelled {table[name]['best_micro_per_s']:.3f}")
+
+
+class RelocationTrace(Trace):
+    """A ``Trace`` that counts the trials charged a relocation's own
+    ``reconfig_cost`` (``tune(placement=True)``'s EP moves)."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.relocations = 0
+
+    def execute(self, conf, reconfig_cost=None):
+        if reconfig_cost is not None:
+            self.relocations += 1
+        return super().execute(conf, reconfig_cost)
+
+
+def place_and_scale(res, seq: torch.Tensor) -> dict:
+    """Phase 5b: Shisha's placement and DVFS moves on the measured oracle of
+    phase 4 (``res.evaluator``; nothing is measured again), from the H3 seed
+    at PLACE_STAGES stages on the 4-EP platform of streams.
+
+    (a) ``scalar_fabric`` and ``degenerate_power`` attached: ``tune(placement=
+    True, dvfs=True)`` must give the bare platform's ``tune(placement=True)``
+    bit for bit (trials, best split and throughput, trials counted, wall).
+    (b) A 2x2 ``mesh2d`` fabric at the stream EPs' own ``link_bw`` and
+    ``link_latency``: ``tune(placement=True)`` must pay at least one
+    relocation trial.  (c) The same fabric and ``uniform_power`` capped at
+    PLACE_CAP_SHARE of the seed's nominal package watts: ``tune(placement=
+    True, dvfs=True)`` must return levels under which its split meets the
+    cap.  Then (b)'s and (c)'s splits run as stream pipelines ((c)'s only
+    where it differs from (b)'s), each output equal to ``seq`` (the sequential model on the same kernels), and their
+    measured microbatches/s are printed.  Watts, levels and throughputs of
+    the tuner are the model's (the measured oracle prices the link as a
+    scalar and ignores DVFS, as the reference's does); only the
+    microbatches/s are the card's."""
+    ev = res.evaluator
+    bare = ev.platform
+    assignment, balancing = HEURISTICS["H3"]
+    seed = generate_seed(weights(ev.layers), bare, n_stages=PLACE_STAGES, choice=assignment).conf
+    names = [ep.name for ep in bare.eps]
+    out = {"seed": seed.pretty(names)}
+
+    def tuned(platform, alpha=10, **kw):
+        trace = RelocationTrace(ev.on_platform(platform))
+        return tune(seed, trace, alpha=alpha, balancing=balancing, placement=True, **kw), trace
+
+    def trials(trace):
+        return [(t.conf, t.throughput, t.t_wall) for t in trace.trials]
+
+    # (a) the degenerate fabric and power model are the bare platform
+    base, base_tr = tuned(bare)
+    degen, degen_tr = tuned(bare.with_fabric(scalar_fabric(bare)).with_power(degenerate_power(bare)), dvfs=True)
+    got = (degen.best_conf, degen.best_throughput, degen.n_explored, degen_tr.wall, trials(degen_tr))
+    want = (base.best_conf, base.best_throughput, base.n_explored, base_tr.wall, trials(base_tr))
+    if got != want:
+        raise RuntimeError(f"degenerate fabric and power moved the tune: {got[:4]} != {want[:4]}")
+    print(f"[place] (a) scalar_fabric + degenerate_power == bare tune(placement=True) bit for bit: "
+          f"{base.n_explored} trials, wall {base_tr.wall!r} s, best {base.best_conf.pretty(names)} "
+          f"at {base.best_throughput!r} micro/s (modelled)")
+
+    # (b) a routed 2x2 mesh at the stream EPs' own link: routes, hops, contention
+    links = {(ep.link_bw, ep.link_latency) for ep in bare.eps}
+    if len(links) != 1:
+        raise RuntimeError(f"stream EPs with different links: {links}")
+    (bw, lat), = links
+    mesh = uniform_fabric(mesh2d(2, 2, bw=bw, latency=lat))
+    routed = bare.with_fabric(mesh)
+    placed, placed_tr = tuned(routed)
+    if placed_tr.relocations == 0:
+        raise RuntimeError("no relocation trial was paid on the routed mesh")
+    # the seed's farthest relocation the tune can make: a stage onto a free
+    # EP (placement_candidate proposes no other), the most hops first
+    free = [e for e in range(bare.n_eps) if e not in seed.eps]
+    stage, to = max(((st, e) for st in range(seed.depth) for e in free),
+                    key=lambda se: (len(mesh.route_ep(seed.eps[se[0]], se[1])), -se[0], -se[1]))
+    out["placed"] = {"trials": placed.n_explored, "relocation_trials": placed_tr.relocations,
+                     "wall_s": placed_tr.wall, "best_conf": placed.best_conf.pretty(names),
+                     "modelled_micro_per_s": placed.best_throughput,
+                     "far_relocation": f"stage {stage} {names[seed.eps[stage]]} -> {names[to]}, "
+                                       f"{len(mesh.route_ep(seed.eps[stage], to))} hops",
+                     "far_relocation_cost_s": placement_reconfig_cost(placed_tr, seed, stage, to),
+                     "flat_overhead_s": placed_tr.reconfig_overhead}
+    print(f"[place] (b) mesh2x2 at link_bw {bw!r} B/s, latency {lat!r} s: " + json.dumps(out["placed"]))
+
+    # (c) DVFS under a binding package cap, on the same fabric
+    nominal_w = uniform_power(bare).package_w(seed.eps)
+    cap = PLACE_CAP_SHARE * nominal_w
+    # alpha=0 stops the tune after its cap walk: the levels it enforces
+    enforced = tuned(routed.with_power(uniform_power(bare, cap_w=cap)), alpha=0, dvfs=True)[0].dvfs_levels
+    pm = uniform_power(bare, cap_w=cap)
+    capped, capped_tr = tuned(routed.with_power(pm), dvfs=True)
+    levels = capped.dvfs_levels
+    if levels is None or pm.snapshot() != levels or not pm.cap_feasible(capped.best_conf.eps):
+        raise RuntimeError(f"capped tune returned levels {levels} that break the {cap} W cap "
+                           f"on {capped.best_conf.pretty(names)}")
+    out["capped"] = {"cap_w_modelled": cap, "nominal_w_modelled": nominal_w,
+                     "enforced_levels": list(enforced), "adopted_levels": list(levels),
+                     "package_w_modelled": pm.package_w(capped.best_conf.eps), "trials": capped.n_explored,
+                     "relocation_trials": capped_tr.relocations, "wall_s": capped_tr.wall,
+                     "best_conf": capped.best_conf.pretty(names), "modelled_micro_per_s": capped.best_throughput}
+    print("[place] (c) DVFS under the cap: " + json.dumps(out["capped"]))
+
+    # the tuned splits, run for real; (c)'s only where it differs from (b)'s
+    for name, conf in (("placed", placed.best_conf), ("capped", capped.best_conf)):
+        if name == "capped" and conf == placed.best_conf:
+            out[name]["measured_micro_per_s"] = out["placed"]["measured_micro_per_s"]
+            print(f"[place] capped split {conf.pretty(names)} is the placed split: its measurement above")
+            continue
+        runner = PipelineRunner(mesh=make_stage_mesh(conf.depth, res.micro.device), conf=conf,
+                                apply_layer=res.model.apply_layer, n_micro=N_MICRO)
+        got = runner.run(res.micro)
+        if not torch.equal(got, seq):
+            raise RuntimeError(f"{name} split {conf.pretty(names)} differs from the sequential model: "
+                               f"{(got - seq).abs().max().item()}")
+        out[name]["measured_micro_per_s"] = pipeline_throughput(runner, res.micro)
+        print(f"[place] {name} split {conf.pretty(names)} as a stream pipeline: == sequential, measured "
+              f"{out[name]['measured_micro_per_s']:.3f} micro/s on {res.micro.device}, modelled "
+              f"{out[name]['modelled_micro_per_s']:.3f} micro/s")
+    return out
 
 
 def _bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -2519,6 +2671,13 @@ def main() -> int:
     t0 = time.perf_counter()
     race(res)
     print(f"[race] done in {time.perf_counter() - t0:.1f} s")
+    t0, before = time.perf_counter(), im2col_conv.launches
+    place_and_scale(res, seq)
+    torch.cuda.synchronize()
+    if im2col_conv.launches == before:
+        raise RuntimeError("phase 5b's pipelines never launched the conv kernel")
+    print(f"[place] done in {time.perf_counter() - t0:.1f} s, conv launches {im2col_conv.launches - before} "
+          f"({smi.stdout.strip().splitlines()[0]})")
     del res, model, out, seq, plain
     torch.cuda.empty_cache()
 

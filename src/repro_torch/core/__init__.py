@@ -1,8 +1,14 @@
 """Shisha core: seed generation (Alg. 1), online tuning (Alg. 2) and the
 paper's comparison arms (HC, SA, RW, ES, Pipe-Search).
 
-A trimmed copy of the JAX package's framework-free ``core``: the scalar-link
-path without fabric, power or fault models.
+The port's copy of the JAX package's framework-free ``core``.  A platform
+may carry a routed, contention-priced interconnect fabric
+(``Platform.with_fabric``, :mod:`repro_torch.interconnect`) and a DVFS power
+model under a package cap (``Platform.with_power``, :mod:`repro_torch.power`);
+the evaluators price both, and ``tune`` adds the placement (EP relocation)
+and DVFS moves over them.  Without either, every result is the scalar-link
+one, bit for bit.  Fault models and the LM-block cost formulas come with the
+serving layer.
 """
 
 from .baselines import (
@@ -22,7 +28,7 @@ from .heuristics import HEURISTICS, ShishaResult, run_shisha
 from .platform import EP, Platform, paper_platform, table3_platform
 from .seed import Seed, generate_seed
 from .space import compositions, enumerate_configs, space_size
-from .tuner import TuneResult, pick_target, tune
+from .tuner import TuneResult, pick_target, placement_candidate, placement_reconfig_cost, tune
 
 __all__ = [
     "AnalyticEvaluator",
@@ -47,6 +53,8 @@ __all__ = [
     "hill_climbing",
     "paper_platform",
     "pick_target",
+    "placement_candidate",
+    "placement_reconfig_cost",
     "pipe_search",
     "random_config",
     "random_walk",

@@ -23,7 +23,8 @@ class Layer:
     ``flops``        — forward FLOPs for one inference unit (image/microbatch).
     ``bytes_mem``    — bytes moved from the EP's memory (weights + act streams).
     ``act_bytes``    — output-activation bytes shipped to the next stage.
-    ``weight_bytes`` — resident parameter bytes.
+    ``weight_bytes`` — resident parameter bytes; what a placement move ships
+                       over the fabric when the layer's stage is relocated.
     """
 
     name: str

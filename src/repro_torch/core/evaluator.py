@@ -7,13 +7,20 @@ oracle is pluggable:
         t_layer = max(flops / EP.flops, bytes / EP.mem_bw)
     plus inter-stage transfer time over the EP link (bandwidth + latency).
     Throughput = 1 / max_stage_time (steady-state pipeline, one inference
-    unit per beat).
+    unit per beat).  When the platform carries an interconnect fabric
+    (:class:`~repro_torch.interconnect.Fabric`), each stage-boundary
+    transfer is *routed* and priced under the steady-state flow set — all of
+    the schedule's boundary transfers plus any ``background_flows`` — so
+    shared links fair-share their bandwidth; with a power model
+    (:class:`~repro_torch.power.PowerModel`) every on-EP time divides by the
+    EP's DVFS scale.
   * :class:`DatabaseEvaluator` — mimics the paper's gem5 database: per
     (layer, EP) times are precomputed once with deterministic measurement
     noise, then only *queried* during exploration (the oracle of the
     paper's comparison arms, ``baselines.py``).
-  * :class:`~repro_torch.pipeline.runtime.MeasuringEvaluator` — the same
-    plumbing over layer times measured on the device; the "online" mode.
+  * :class:`~repro_torch.pipeline.runtime.MeasuringEvaluator` — layer
+    times measured on the device; the "online" mode.  Like the reference's,
+    it prices every boundary on the scalar link and ignores DVFS scales.
 
 Every evaluator is wrapped in :class:`Trace` by the exploration loops to
 account configurations tried and the *simulated wall-clock cost* of trying
@@ -42,28 +49,57 @@ class AnalyticEvaluator:
     layers: Sequence[Layer]
     #: per-layer fixed overhead on the EP (kernel-launch / queue pop), s
     layer_overhead: float = 2e-6
+    #: co-tenant flows priced into every transfer when the platform has a
+    #: fabric (node-space :class:`~repro_torch.interconnect.Flow`s); ignored
+    #: on scalar-link platforms
+    background_flows: tuple = ()
 
     def nominal_layer_time(self, layer: Layer, ep_idx: int) -> float:
-        """Layer time at the EP's nominal clock (the reference's DVFS-free time)."""
+        """Layer time at the EP's nominal clock (DVFS-independent)."""
         ep = self.platform.eps[ep_idx]
         return max(layer.flops / ep.flops, layer.bytes_mem / ep.mem_bw) + self.layer_overhead
 
     def layer_time(self, layer: Layer, ep_idx: int) -> float:
-        return self.nominal_layer_time(layer, ep_idx)
+        t = self.nominal_layer_time(layer, ep_idx)
+        pm = self.platform.power
+        if pm is not None:
+            # DVFS scales the EP's compute rate and memory bandwidth
+            # together, so the whole on-EP time divides by the level's
+            # scale (exactly 1.0 at nominal: the no-power path is
+            # reproduced bit-for-bit).  Link transfers are unscaled — the
+            # interconnect runs on its own clock.
+            t = t / pm.scale(ep_idx)
+        return t
 
     def transfer_times(self, conf: PipelineConfig) -> list[float]:
-        """Inter-stage transfer time per stage boundary (s -> s+1): the
-        output activations of the stage's last layer cross one link priced
-        by the two EPs' specs."""
+        """Inter-stage transfer time per stage boundary (s -> s+1).
+
+        Scalar path: the output activations of the stage's last layer cross
+        one link priced by the two EPs' specs.  Fabric path: every boundary
+        transfer of the steady-state pipeline (plus ``background_flows``) is
+        routed and priced under shared-link contention.
+        """
+        n_links = conf.depth - 1
+        if n_links <= 0:
+            return []
         bounds = conf.boundaries()
-        out = []
-        for s in range(conf.depth - 1):
-            ep = self.platform.eps[conf.eps[s]]
-            nxt = self.platform.eps[conf.eps[s + 1]]
-            bw = min(ep.link_bw, nxt.link_bw)
-            lat = max(ep.link_latency, nxt.link_latency)
-            out.append(self.layers[bounds[s][1] - 1].act_bytes / bw + lat)
-        return out
+        fabric = self.platform.fabric
+        if fabric is None:
+            out = []
+            for s in range(n_links):
+                ep = self.platform.eps[conf.eps[s]]
+                nxt = self.platform.eps[conf.eps[s + 1]]
+                bw = min(ep.link_bw, nxt.link_bw)
+                lat = max(ep.link_latency, nxt.link_latency)
+                out.append(self.layers[bounds[s][1] - 1].act_bytes / bw + lat)
+            return out
+        from ..interconnect import Flow
+
+        flows = [
+            Flow(conf.eps[s], conf.eps[s + 1], self.layers[bounds[s][1] - 1].act_bytes)
+            for s in range(n_links)
+        ]
+        return fabric.flow_times(flows + list(self.background_flows))[:n_links]
 
     def stage_times(self, conf: PipelineConfig) -> list[float]:
         times = []
@@ -106,17 +142,28 @@ class DatabaseEvaluator(AnalyticEvaluator):
         self._db: dict[tuple[int, int], float] = {}
         for li, layer in enumerate(self.layers):
             for ei in range(self.platform.n_eps):
+                # DB entries are nominal-clock times: the database is
+                # measured once, while DVFS levels move during tuning, so
+                # the scale is applied at query time (see stage_times)
                 base = AnalyticEvaluator.nominal_layer_time(self, layer, ei)
                 self._db[(li, ei)] = base * _noise(f"{layer.name}|{self.platform.eps[ei].name}", self.noise_sigma)
 
     def layer_time_by_index(self, layer_idx: int, ep_idx: int) -> float:
-        return self._db[(layer_idx, ep_idx)]
+        t = self._db[(layer_idx, ep_idx)]
+        pm = self.platform.power
+        if pm is not None:
+            t = t / pm.scale(ep_idx)
+        return t
 
     def stage_times(self, conf: PipelineConfig) -> list[float]:
         times = []
         link = self.transfer_times(conf)
+        pm = self.platform.power
         for s, (a, b) in enumerate(conf.boundaries()):
-            t = sum(self._db[(i, conf.eps[s])] for i in range(a, b))
+            ep_idx = conf.eps[s]
+            t = sum(self._db[(i, ep_idx)] for i in range(a, b))
+            if pm is not None:
+                t = t / pm.scale(ep_idx)
             if s < conf.depth - 1:
                 t += link[s]
             times.append(t)
@@ -164,17 +211,26 @@ class Trace:
     def n_trials(self) -> int:
         return len(self.trials)
 
-    def execute(self, conf: PipelineConfig) -> float:
-        """Measure throughput of ``conf``, paying the simulated cost."""
+    def execute(self, conf: PipelineConfig, reconfig_cost: float | None = None) -> float:
+        """Measure throughput of ``conf``, paying the simulated cost.
+
+        ``reconfig_cost`` overrides the flat ``reconfig_overhead`` for this
+        one trial — how placement-aware tuning charges an EP relocation its
+        routed weight-shipping cost instead of the flat boundary-move price.
+        ``None`` keeps the flat charge.  A ``use_cache`` hit stays free.
+        """
         if self.use_cache and conf in self._cache:
             return self._cache[conf]
         beat = max(self.evaluator.stage_times(conf))
         fill = self.evaluator.pipeline_latency(conf)
+        if reconfig_cost is None:
+            reconfig_cost = self.reconfig_overhead
         if math.isfinite(beat):
-            self._wall += self.reconfig_overhead + fill + self.measure_batches * beat
+            self._wall += reconfig_cost + fill + self.measure_batches * beat
         else:
-            # a pipeline that cannot flow: only the reconfiguration is paid
-            self._wall += self.reconfig_overhead
+            # a severed stage boundary makes the pipeline unable to flow:
+            # the trial is abandoned and only the reconfiguration is paid
+            self._wall += reconfig_cost
         tp = self.evaluator.throughput(conf)
         if self.use_cache:
             self._cache[conf] = tp

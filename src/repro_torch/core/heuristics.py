@@ -34,9 +34,14 @@ def run_shisha(
     n_stages: int | None = None,
     alpha: int = 10,
     rng: _random.Random | None = None,
+    placement: bool = False,
 ) -> ShishaResult:
-    """Seed (Alg. 1) + tune (Alg. 2) under one of H1..H6."""
+    """Seed (Alg. 1) + tune (Alg. 2) under one of H1..H6.
+
+    ``placement=True`` enables the fabric-aware EP-relocation moves of
+    :func:`~repro_torch.core.tuner.tune` (extra trials, charged to ``trace``).
+    """
     assignment, balancing = HEURISTICS[heuristic]
     seed = generate_seed(weights, trace.evaluator.platform, n_stages, assignment, rng)
-    result = tune(seed, trace, alpha=alpha, balancing=balancing)
+    result = tune(seed, trace, alpha=alpha, balancing=balancing, placement=placement)
     return ShishaResult(heuristic=heuristic, result=result, trace=trace)

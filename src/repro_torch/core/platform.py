@@ -16,7 +16,11 @@ scheduling algorithms only ever see ``Platform`` / ``EP`` objects.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
+
+if TYPE_CHECKING:
+    from ..interconnect import Fabric
+    from ..power import PowerModel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,15 +52,38 @@ class EP:
 
 @dataclasses.dataclass(frozen=True)
 class Platform:
-    """A fixed set of EPs (the machine Shisha schedules onto), joined by
-    scalar per-EP links."""
+    """A fixed set of EPs (the machine Shisha schedules onto).
+
+    ``fabric`` (optional) attaches a routed, contention-priced interconnect
+    (:class:`~repro_torch.interconnect.Fabric`); without one, every consumer
+    falls back to the scalar per-EP ``link_bw``/``link_latency`` model, which
+    a fully-connected fabric reproduces bit-for-bit.  The field is excluded
+    from comparison/hash so platform equality keeps its pre-fabric meaning.
+
+    ``power`` (optional) attaches per-EP DVFS state tables and a package
+    power cap (:class:`~repro_torch.power.PowerModel`), following the same
+    playbook: compare-excluded, off by default, and a degenerate model
+    (single nominal level, no cap) reproduces the power-free results
+    bit-for-bit.
+    """
 
     name: str
     eps: tuple[EP, ...]
+    fabric: "Fabric | None" = dataclasses.field(default=None, compare=False)
+    power: "PowerModel | None" = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if not self.eps:
             raise ValueError("platform needs at least one EP")
+        if self.fabric is not None and self.fabric.n_eps != len(self.eps):
+            raise ValueError(
+                f"fabric binds {self.fabric.n_eps} EPs but platform has {len(self.eps)}"
+            )
+        if self.power is not None and self.power.n_eps != len(self.eps):
+            raise ValueError(
+                f"power model covers {self.power.n_eps} EPs but platform has "
+                f"{len(self.eps)}"
+            )
 
     @property
     def n_eps(self) -> int:
@@ -89,20 +116,70 @@ class Platform:
             ),
         )
 
+    def with_fabric(self, fabric: "Fabric") -> "Platform":
+        """Copy of the platform with an interconnect fabric attached.
+
+        A fabric whose ``mc_bw`` is the sentinel ``"auto"`` gets its
+        memory-controller hotspot caps resolved here, from the machine the
+        fabric is being attached to: each EP's node is capped at that EP's
+        ``mem_bw`` (the paper's Table 1 memory-module bandwidth), so fan-in
+        onto one chiplet saturates its memory controller by default on the
+        gem5-style platforms.  Nodes hosting several EPs take the smallest;
+        pure router nodes (no EP) stay uncapped.
+        """
+        if isinstance(fabric.mc_bw, str) and fabric.n_eps == len(self.eps):
+            # "auto" (validated by Fabric); a binding-size mismatch falls
+            # through to __post_init__'s clean error below
+            caps: dict[int, float] = {}
+            for i, ep in enumerate(self.eps):
+                node = fabric.ep_nodes[i]
+                caps[node] = min(caps.get(node, ep.mem_bw), ep.mem_bw)
+            fabric = dataclasses.replace(fabric, mc_bw=caps)
+        return dataclasses.replace(self, fabric=fabric)
+
+    def with_power(self, power: "PowerModel") -> "Platform":
+        """Copy of the platform with a power model attached.
+
+        The model is shared by reference (its per-EP DVFS levels are live
+        tuned state), so two platform copies made with ``dataclasses.replace``
+        see the same frequencies — deliberately, like ``fabric``.
+        """
+        return dataclasses.replace(self, power=power)
 
     def with_latency(self, latency_s: float) -> "Platform":
-        """Copy of the platform with every inter-EP link latency replaced
-        (the Fig. 9 inter-chiplet latency sweep)."""
+        """Copy of the platform with every inter-EP link latency replaced.
+
+        The Fig. 9 inter-chiplet latency sweep.  When a fabric is attached,
+        its per-link latencies are replaced too, so the knob stays
+        meaningful in both the scalar and the routed path (a routed
+        transfer then pays ``hops * latency_s``).
+        """
         eps = tuple(dataclasses.replace(ep, link_latency=latency_s) for ep in self.eps)
-        return dataclasses.replace(self, name=f"{self.name}@lat{latency_s:g}", eps=eps)
+        fabric = self.fabric.with_link_latency(latency_s) if self.fabric is not None else None
+        return dataclasses.replace(
+            self, name=f"{self.name}@lat{latency_s:g}", eps=eps, fabric=fabric
+        )
 
     def without(self, dead: Sequence[int]) -> "Platform":
-        """Copy of the platform with EPs ``dead`` removed (elastic rescale),
-        the survivors in their order: the reference's ``without`` on its
-        scalar links (no fabric, power or fault model to restrict)."""
+        """Copy of the platform with EPs ``dead`` removed (elastic rescale).
+
+        An attached fabric is restricted to the survivors: the dead chiplet's
+        router keeps forwarding (routes are physically unchanged), only the
+        EP binding shrinks.  An attached power model is restricted the same
+        way (a copy carrying the survivors' current DVFS levels).
+        """
         dead_set = set(dead)
-        eps = tuple(ep for i, ep in enumerate(self.eps) if i not in dead_set)
-        return dataclasses.replace(self, name=f"{self.name}-minus{sorted(dead_set)}", eps=eps)
+        keep = [i for i in range(len(self.eps)) if i not in dead_set]
+        eps = tuple(self.eps[i] for i in keep)
+        fabric = self.fabric.restrict(keep) if self.fabric is not None else None
+        power = self.power.restrict(keep) if self.power is not None else None
+        return dataclasses.replace(
+            self,
+            name=f"{self.name}-minus{sorted(dead_set)}",
+            eps=eps,
+            fabric=fabric,
+            power=power,
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ work that ends in ``torch.cuda.synchronize()``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import time
@@ -31,6 +32,7 @@ import torch
 from ..core.config import PipelineConfig
 from ..core.cost_model import Layer
 from ..core.evaluator import AnalyticEvaluator
+from ..core.platform import Platform
 from ..launch.mesh import StageMesh
 from .hetero import EPDerates
 
@@ -69,6 +71,13 @@ class MeasuringEvaluator(AnalyticEvaluator):
     Stage times are sums of measured layer times scaled by the stage EP's
     derate, plus the modelled link cost of the stage boundary — the live
     analogue of the paper's gem5 database.
+
+    As in the reference's measured oracle, every boundary is priced on the
+    scalar per-EP ``link_bw``/``link_latency`` and no time divides by a DVFS
+    scale, even when the platform carries a fabric or a power model: those
+    reach the tuner only through its placement candidates, their routed
+    relocation costs and the power cap, so ``tune(dvfs=True)`` over this
+    oracle sees a frequency step as free.
     """
 
     layer_fns: Sequence[Callable] | None = None
@@ -87,18 +96,32 @@ class MeasuringEvaluator(AnalyticEvaluator):
             _best_time(fn, args, self.reps, device) for fn, args in zip(self.layer_fns, self.layer_args)
         ]
 
+    def on_platform(self, platform: Platform) -> "MeasuringEvaluator":
+        """The same oracle over ``platform``, which has the same EPs (with a
+        fabric or a power model attached, say): the layers measured here
+        serve it, and nothing is measured again."""
+        if platform.eps != self.platform.eps:
+            raise ValueError(f"{platform.name} has other EPs than {self.platform.name}")
+        other = copy.copy(self)
+        other.platform = platform
+        return other
+
     def layer_time(self, layer: Layer, ep_idx: int) -> float:  # type: ignore[override]
         li = list(self.layers).index(layer)
         return self.derates.scale(ep_idx, self.measured[li]) + self.layer_overhead
 
     def stage_times(self, conf: PipelineConfig) -> list[float]:
-        link = self.transfer_times(conf)
         times = []
         for s, (a, b) in enumerate(conf.boundaries()):
             ep_idx = conf.eps[s]
             t = sum(self.derates.scale(ep_idx, self.measured[i]) + self.layer_overhead for i in range(a, b))
             if s < conf.depth - 1:
-                t += link[s]
+                # the scalar link, fabric or not (the reference's formula)
+                ep = self.platform.eps[ep_idx]
+                nxt = self.platform.eps[conf.eps[s + 1]]
+                t += self.layers[b - 1].act_bytes / min(ep.link_bw, nxt.link_bw) + max(
+                    ep.link_latency, nxt.link_latency
+                )
             times.append(t)
         return times
 

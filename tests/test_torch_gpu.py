@@ -237,6 +237,31 @@ def test_h100_platform_reads_the_card():
     assert p.eps[0].cores == props.multi_processor_count // 4
 
 
+def test_placement_and_dvfs_phase_on_the_card():
+    """``chip_smoke.place_and_scale`` (phase 5b: the degenerate pins, a
+    relocation paid on the routed mesh, the capped levels meeting the cap,
+    both splits as stream pipelines equal to the sequential model) at a
+    small SynthNet on the card, where its pipelines launch the conv."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.launch.serve_cnn import serve_cnn
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = serve_cnn(device="cuda", scale=0.12, in_shape=(16, 16, 8), seed=0)
+    seq = torch.stack([res.model(x) for x in res.micro])
+    before = im2col_conv.launches
+    out = smoke.place_and_scale(res, seq)
+    torch.cuda.synchronize()
+    assert im2col_conv.launches > before
+    assert out["placed"]["relocation_trials"] > 0
+    assert out["capped"]["package_w_modelled"] <= out["capped"]["cap_w_modelled"]
+    assert all(out[k]["measured_micro_per_s"] > 0 for k in ("placed", "capped"))
+
+
 # ---------------------------------------------------------------------------
 # LM serving kernels: flash attention and the SSD chunk scan
 # ---------------------------------------------------------------------------

@@ -24,6 +24,8 @@ STANDALONE = sorted(PORT.rglob("*.py")) + [
     ROOT / "examples" / "serve_lm_torch.py",
     ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "examples" / "fabric_tour_torch.py",
+    ROOT / "examples" / "power_tour_torch.py",
 ]
 
 
@@ -51,7 +53,8 @@ print(json.dumps({"modules": names, "leaked": leaked}))
                 "launch.serve_cnn", "kernels.flash_attention", "kernels.ssd_scan", "models.lm_common",
                 "models.blocks", "models.transformer", "configs.granite3_2b", "launch.serve",
                 "kernels.gemm", "core.baselines", "core.space", "optim.adamw", "optim.grad_compress",
-                "data.pipeline", "checkpoint.store", "launch.train"):
+                "data.pipeline", "checkpoint.store", "launch.train", "interconnect.fabric",
+                "interconnect.topology", "power.model"):
         assert f"repro_torch.{mod}" in res["modules"]
 
 

@@ -6,6 +6,7 @@ fill/steady/drain schedule in order; the stream path runs in
 ``tests/test_torch_gpu.py``.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,8 +23,9 @@ import jax.numpy as jnp
 
 from repro.core import paper_platform as j_paper_platform
 from repro.models import cnn as jcnn
+from repro.models.cnn import network_layers as j_network_layers
 from repro.pipeline.hetero import EPDerates as JEPDerates, tpu_platform_from_mesh
-from repro_torch.core import Trace, generate_seed, paper_platform, run_shisha, weights
+from repro_torch.core import Trace, generate_seed, paper_platform, run_shisha, tune, weights
 from repro_torch.launch.mesh import make_stage_mesh
 from repro_torch.launch.serve_cnn import serve_cnn
 from repro_torch.models.cnn import canonical_pipeline_apply, make_cnn, network_layers
@@ -183,3 +185,114 @@ def test_example_runs_on_cpu():
     )
     assert proc.returncode == 0, proc.stderr
     assert "[schedule]" in proc.stdout and "[serve] pipelined 8 microbatches" in proc.stdout
+
+
+def _measured_oracles(model, powered_levels=(2, 0, 3, 1)):
+    """The port's measured oracle on the CPU over the 4-EP platform of
+    streams with a 2x2 mesh fabric (a slow link, so routes and contention
+    would show) and a stepped-down power model, and the reference's
+    ``MeasuringEvaluator`` on the same platform fed the same measured list
+    (built without its JAX timing, which is not under test here)."""
+    from repro import core as jcore
+    from repro import interconnect as jic
+    from repro import power as jpw
+    from repro.pipeline.runtime import MeasuringEvaluator as JMeasuringEvaluator
+    from repro_torch import interconnect as ic
+    from repro_torch import power as pw
+
+    layers = network_layers("synthnet")
+    x = torch.zeros((2, *IN_SHAPE))
+    fns = [lambda x, i=i: model.apply_layer(i, x) for i in range(len(model.specs))]
+    bare = h100_platform_from_streams(4, props=H100_PROPS)
+    plat = bare.with_fabric(ic.uniform_fabric(ic.mesh2d(2, 2, bw=1e6, latency=1e-3))).with_power(pw.uniform_power(bare))
+    jbare = jcore.Platform(name=bare.name, eps=tuple(jcore.EP(**dataclasses.asdict(e)) for e in bare.eps))
+    jplat = jbare.with_fabric(jic.uniform_fabric(jic.mesh2d(2, 2, bw=1e6, latency=1e-3)))
+    jplat = jplat.with_power(jpw.uniform_power(jbare))
+    for ep, level in enumerate(powered_levels):
+        plat.power.set_level(ep, level)
+        jplat.power.set_level(ep, level)
+    ev = MeasuringEvaluator(plat, layers, layer_fns=fns, layer_args=[(x,)] * len(fns), reps=1, device="cpu")
+    jev = JMeasuringEvaluator.__new__(JMeasuringEvaluator)
+    jev.platform, jev.layers, jev.layer_overhead, jev.background_flows = jplat, j_network_layers("synthnet"), 2e-6, ()
+    jev.layer_fns, jev.layer_args, jev.reps = fns, [(x,)] * len(fns), 1
+    jev.derates, jev._measured = JEPDerates.from_platform(jplat), list(ev.measured)
+    return ev, jev
+
+
+def test_measuring_evaluator_keeps_the_scalar_link_and_no_dvfs_scale_on_a_fabric_and_a_power_model(model):
+    """The reference's measured oracle prices every boundary from the scalar
+    ``link_bw``/``link_latency`` and divides by no DVFS scale, even when the
+    platform carries a fabric and a power model; the port's keeps that."""
+    from repro import core as jcore
+
+    ev, jev = _measured_oracles(model)
+    layers = network_layers("synthnet")
+    rng = np.random.default_rng(0)
+    confs = [_seed_conf(n) for n in (1, 2, 3, 4)]
+    for _ in range(12):
+        depth = int(rng.integers(2, 5))
+        cuts = sorted(rng.choice(np.arange(1, 18), size=depth - 1, replace=False).tolist())
+        confs.append(type(confs[0])(tuple(b - a for a, b in zip([0] + cuts, cuts + [18])),
+                                    tuple(int(e) for e in rng.permutation(4)[:depth])))
+    routed = 0
+    for conf in confs:
+        jconf = jcore.PipelineConfig(conf.stages, conf.eps)
+        assert ev.stage_times(conf) == jev.stage_times(jconf)
+        assert ev.throughput(conf) == jev.throughput(jconf)
+        assert ev.pipeline_latency(conf) == jev.pipeline_latency(jconf)
+        # the fabric would have priced it otherwise: routes, hops, contention
+        routed += ev.transfer_times(conf) != [
+            layers[b - 1].act_bytes / ev.platform.eps[conf.eps[s]].link_bw + ev.platform.eps[conf.eps[s]].link_latency
+            for s, (_, b) in enumerate(conf.boundaries()[:-1])]
+    assert routed > 0
+    for i, layer in enumerate(layers):
+        for ep in range(4):  # unscaled, though EPs 0, 2 and 3 run below their nominal level
+            assert ev.layer_time(layer, ep) == jev.layer_time(jev.layers[i], ep)
+            assert ev.layer_time(layer, ep) == ev.derates.scale(ep, ev.measured[i]) + ev.layer_overhead
+
+
+def test_placement_and_dvfs_tune_over_the_measured_oracle_match_the_reference(model):
+    from repro import core as jcore
+
+    ev, jev = _measured_oracles(model, powered_levels=(0, 0, 0, 0))
+    seed = _seed_conf(3)
+    for pm in (ev.platform.power, jev.platform.power):
+        pm.cap_w = 0.7 * pm.package_w(seed.eps)
+    trace, jtrace = Trace(ev), jcore.Trace(jev)
+    ours = tune(seed, trace, placement=True, dvfs=True)
+    theirs = jcore.tune(jcore.PipelineConfig(seed.stages, seed.eps), jtrace, placement=True, dvfs=True)
+    assert [(t.conf.stages, t.conf.eps, t.throughput, t.t_wall) for t in trace.trials] == [
+        (t.conf.stages, t.conf.eps, t.throughput, t.t_wall) for t in jtrace.trials]
+    assert (ours.best_conf.stages, ours.best_conf.eps, ours.best_throughput, ours.dvfs_levels) == (
+        theirs.best_conf.stages, theirs.best_conf.eps, theirs.best_throughput, theirs.dvfs_levels)
+    assert ev.platform.power.cap_feasible(ours.best_conf.eps)
+    assert any(set(t.conf.eps) - set(seed.eps) for t in trace.trials)  # relocations were tried
+
+
+def test_measuring_evaluator_on_platform_measures_nothing_again(model):
+    ev, _ = _measured_oracles(model)
+    bare = h100_platform_from_streams(4, props=H100_PROPS)
+    other = ev.on_platform(bare)
+    assert other.platform is bare and other.measured is ev.measured and ev.platform.fabric is not None
+    conf = _seed_conf(3)
+    assert other.stage_times(conf) == ev.stage_times(conf)  # the measured oracle ignores both models
+    with pytest.raises(ValueError, match="other EPs"):
+        ev.on_platform(paper_platform(4))
+
+
+def test_chip_smoke_placement_phase_runs_on_cpu():
+    """``chip_smoke.place_and_scale`` (phase 5b) at a tiny SynthNet on the
+    CPU: its pins hold and both tuned splits equal the sequential model."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = serve_cnn(device="cpu", scale=0.12, in_shape=IN_SHAPE, seed=0)
+    out = smoke.place_and_scale(res, torch.stack([res.model(x) for x in res.micro]))
+    assert out["placed"]["relocation_trials"] > 0
+    assert out["capped"]["package_w_modelled"] <= out["capped"]["cap_w_modelled"]
+    assert out["capped"]["cap_w_modelled"] < out["capped"]["nominal_w_modelled"]
+    assert out["placed"]["far_relocation_cost_s"] > out["placed"]["flat_overhead_s"]
+    for name in ("placed", "capped"):
+        assert out[name]["measured_micro_per_s"] > 0
