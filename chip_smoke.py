@@ -79,6 +79,32 @@ repository's sources are not beside this script.  Otherwise, in order:
    model's (marked ``modelled``): the measured oracle prices each boundary
    on the scalar link and ignores DVFS scales, as the reference's does, so
    a frequency step is free to it;
+5c. online Shisha on the same measured oracle (``serve_online``): the
+   serving simulator (``repro_torch.serve``) serves phase 4's split under
+   seeded Poisson traffic at 0.6 of its modelled capacity for 60 simulated
+   seconds (SLO 3x the pipeline's latency), with ``ContinuousShisha`` at
+   the reference's defaults re-tuning over the measured oracle's model of
+   the drifted machine (``MeasuringEvaluator.on_platform`` of
+   ``drifted_platform``: nothing measured again).  (a) Scripted drift: the
+   bottleneck EP 3x slower at 15 s, an in-use EP dead at 30 s and revived
+   at 45 s; fails unless the re-tunes include a ``slowdown``, a
+   ``dropout`` and a ``recovery`` in that order, no split installed while
+   the EP is dead uses it, every request is accounted for, the drain and
+   heap event engines and a rerun give the same ``SimResult``, a live
+   ``Telemetry`` changes nothing and counts exactly the trials the
+   re-tunes paid, and two reruns export byte-identical JSONL and Chrome
+   traces.  (b) Chaos: a seeded ``FaultModel`` (failures of the slow
+   class's EPs, transient batch errors) through ``with_faults``, served
+   with a ``ResiliencePolicy``; fails unless two runs are identical, the
+   result is strict JSON, and ``no_faults()`` gives the bare platform's run
+   bit for bit.  (c) Thermal: ``uniform_power`` with the reference power
+   tour's aggressive RC nodes (its watts sized to the tour's chiplets);
+   fails unless a re-tune of kind ``throttle`` is answered by a DVFS
+   step-down that leaves the split unchanged.  Every split a re-tune
+   installed runs as a stream pipeline, equal to the sequential model, and
+   the conv must launch; measured microbatches/s are printed beside the
+   modelled ones.  Simulated time, watts, temperatures and throughputs of
+   the model are marked ``modelled``;
 6. LM serving kernels: holds ``flash_attention`` and ``ssd_scan`` against
    their plain versions on the card at the LM main path's shapes in bf16
    (prefill attention of every served attention model, causal, q/k/v as
@@ -291,6 +317,7 @@ from repro_torch.core import (
     exhaustive_search,
     generate_seed,
     hill_climbing,
+    paper_platform,
     pipe_search,
     placement_reconfig_cost,
     random_walk,
@@ -301,6 +328,7 @@ from repro_torch.core import (
     weights,
 )
 from repro_torch.interconnect import mesh2d, scalar_fabric, uniform_fabric
+from repro_torch.faults import FaultModel, ResiliencePolicy, no_faults
 from repro_torch.kernels import build, im2col_conv, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gm
@@ -315,7 +343,10 @@ from repro_torch.models.lm_common import init_params
 from repro_torch.models.cnn import synthnet_specs
 from repro_torch.optim import AdamW, AdamWConfig
 from repro_torch.pipeline import PipelineRunner, pipeline_throughput
-from repro_torch.power import degenerate_power, uniform_power
+from repro_torch.power import ThermalModel, degenerate_power, uniform_power
+from repro_torch.power.model import WATTS_PER_GFLOPS
+from repro_torch.serve import ContinuousShisha, HeapEventLoop, PoissonTraffic, ServingSimulator
+from repro_torch.telemetry import Telemetry
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
 from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
 from repro_torch.tree import named_leaves
@@ -423,6 +454,19 @@ RACE_BUDGET = 35
 #: tune, as a share of the seed's nominal package watts (modelled watts,
 #: binding at nominal clocks)
 PLACE_STAGES, PLACE_CAP_SHARE = 3, 0.7
+#: phase 5c: simulated seconds of traffic, the offered load as a share of the
+#: split's modelled capacity, and the arrivals' seed
+ONLINE_HORIZON, ONLINE_LOAD, ONLINE_SEED = 60.0, 0.6, 5
+#: phase 5c (a): the bottleneck EP's scripted slowdown (at 1/4 of the
+#: horizon; an in-use EP dies at 1/2 and revives at 3/4)
+ONLINE_SLOWDOWN = 3.0
+#: phase 5c (b): the chaos spec's mean time between failures and to repair
+#: of each slow-class EP, as shares of the horizon (9 s and 2.4 s at 60 s),
+#: and the transient batch-error probability (the reference chaos tests')
+ONLINE_MTBF, ONLINE_MTTR, ONLINE_BATCH_ERROR_P = 0.15, 0.04, 0.03
+#: phase 5c (c): the reference power tour's aggressive thermal RC nodes
+#: (``examples/power_tour.py`` stop 6: tau 4 s, a 4 K hysteresis band)
+ONLINE_THERMAL = dict(r_k_per_w=(4.0,) * 4, c_j_per_k=(1.0,) * 4, t_hot_c=80.0, t_cool_c=76.0)
 #: the training main path: per model the depth trained (None: the config's)
 #: and the depth of the fp32 gradient comparison.  phi3.5-moe's 2 layers
 #: hold 2.9 B parameters, 35 GB of parameters, gradients, fp32 master and
@@ -1006,6 +1050,204 @@ def place_and_scale(res, seq: torch.Tensor) -> dict:
         print(f"[place] {name} split {conf.pretty(names)} as a stream pipeline: == sequential, measured "
               f"{out[name]['measured_micro_per_s']:.3f} micro/s on {res.micro.device}, modelled "
               f"{out[name]['modelled_micro_per_s']:.3f} micro/s")
+    return out
+
+
+def _installed(result, tuner) -> list[tuple[float, object]]:
+    """(install time, ``Retune``) of each re-tune the simulator installed:
+    the simulator logs a re-tune when it installs it, at the end of its
+    exploration window, and decides the next only after that, so the logged
+    entries are the first of the tuner's history, in order."""
+    out = []
+    for entry, rt in zip(result.reconfigs, tuner.history):
+        if (entry["kind"], entry["new_depth"]) != (rt.kind, rt.conf.depth):
+            raise RuntimeError(f"installed re-tune {entry} is not the tuner's {rt.kind} at depth {rt.conf.depth}")
+        out.append((entry["t"] + entry["tuning_cost_s"], rt))
+    if len(out) != len(result.reconfigs):
+        raise RuntimeError(f"{len(result.reconfigs)} re-tunes installed, the tuner decided {len(tuner.history)}")
+    return out
+
+
+def _held(result) -> int:
+    """Requests a ``SimResult`` accounts for at its horizon."""
+    return result.n_completed + result.n_queued + result.n_in_flight + result.n_shed + result.n_failed
+
+
+def serve_online(res, seq: torch.Tensor, horizon: float = ONLINE_HORIZON) -> dict:
+    """Phase 5c: online Shisha on the measured oracle of phase 4
+    (``res.evaluator``; nothing is measured again).
+
+    The serving simulator serves phase 4's split ``res.conf`` under
+    ``PoissonTraffic`` at ONLINE_LOAD of its modelled capacity for
+    ``horizon`` simulated seconds, with the SLO at 3x the split's pipeline
+    latency; ``ContinuousShisha`` keeps the reference's defaults and re-tunes
+    over ``res.evaluator.on_platform`` of its model of the drifted machine.
+    (a) scripted drift, (b) chaos and (c) thermal throttling, each checked
+    as the module docstring says; then every split a re-tune installed runs
+    as a stream pipeline of ``res.micro``, each output equal to ``seq``.
+    Simulated times, throughputs, watts and temperatures are the model's;
+    only the pipelines' microbatches/s are the card's.
+    """
+    ev, conf = res.evaluator, res.conf
+    bare = ev.platform
+    names = [ep.name for ep in bare.eps]
+    times = ev.stage_times(conf)
+    cap, slo = 1.0 / max(times), 3.0 * sum(times)
+    arrivals = PoissonTraffic(rate=ONLINE_LOAD * cap, seed=ONLINE_SEED).arrivals(horizon)
+    knobs = ContinuousShisha(bare, ev.layers, make_evaluator=ev.on_platform)
+    knobs = {k: getattr(knobs, k) for k in ("alpha", "measure_batches", "reconfig_overhead",
+                                              "reconfig_downtime", "cooldown")}
+    monitor = ServingSimulator(ev, conf).monitor_interval
+    out = {"split": conf.pretty(names), "cap_micro_per_s_modelled": cap, "slo_s_modelled": slo,
+           "arrivals": len(arrivals), "horizon_s": horizon, "tuner": knobs, "monitor_interval_s": monitor}
+    print(f"[online] serving {out['split']}: cap {cap!r} micro/s, beat {max(times) * 1e3:.4f} ms, SLO "
+          f"{slo * 1e3:.4f} ms (modelled); {len(arrivals)} Poisson arrivals at {ONLINE_LOAD} x cap over "
+          f"{horizon} simulated s; ContinuousShisha defaults {json.dumps(knobs)}, monitor every {monitor} s: "
+          f"measure {knobs['measure_batches']}, cooldown {knobs['cooldown'] / max(times):.0f} and monitor "
+          f"{monitor / max(times):.0f} beats")
+
+    def serve(platform, script=(), **kw):
+        tuner = ContinuousShisha(platform, ev.layers, make_evaluator=ev.on_platform)
+        sim = ServingSimulator(ev.on_platform(platform), conf, slo=slo, autotuner=tuner, **kw)
+        for fn in script:
+            fn(sim)
+        t0 = time.perf_counter()
+        result = sim.run(arrivals, horizon)
+        host = time.perf_counter() - t0
+        # every request is completed, queued, in flight, shed or failed; with
+        # a resilience policy a request may also wait out a retry backoff at
+        # the horizon, which SimResult counts nowhere (as the reference's)
+        gap = result.n_arrived - _held(result)
+        if result.n_arrived != len(arrivals) or not 0 <= gap <= (result.n_retries if "resilience" in kw else 0):
+            raise RuntimeError(f"requests lost: {len(arrivals)} sent, {result.n_arrived} arrived, "
+                               f"{_held(result)} held, {result.n_retries} retries")
+        return result, tuner, host
+
+    def same(name, a, b):
+        if dataclasses.asdict(a) != dataclasses.asdict(b):
+            raise RuntimeError(f"{name}: the SimResults differ: {a.summary()} != {b.summary()}")
+
+    def kinds(tuner):
+        return [r.kind for r in tuner.history]
+
+    installed = []  # (scenario, install time, Retune)
+
+    # (a) scripted drift: slowdown, dropout, revival
+    bad = conf.eps[max(range(conf.depth), key=times.__getitem__)]
+    t_slow, t_drop, t_revive = horizon / 4, horizon / 2, 3 * horizon / 4
+    slow = (lambda sim: sim.schedule_slowdown(t_slow, bad, ONLINE_SLOWDOWN),)
+    probe, probe_tuner, _ = serve(bare, slow)
+    # the split in force at the dropout (runs agree up to it): its slowed
+    # EP if it still serves, so the revival finds no slowed EP in use
+    at_drop = conf
+    for t, rt in _installed(probe, probe_tuner):
+        if t <= t_drop:
+            at_drop = rt.conf
+    dead = bad if bad in at_drop.eps else at_drop.eps[0]
+    script = slow + (lambda sim: sim.schedule_dropout(t_drop, dead), lambda sim: sim.schedule_revival(t_revive, dead))
+    drift, tuner, host = serve(bare, script)
+    got, want = iter(kinds(tuner)), ("slowdown", "dropout", "recovery")
+    if not all(any(k == w for k in got) for w in want):
+        raise RuntimeError(f"re-tunes {kinds(tuner)} lack {want} in that order")
+    for t, rt in _installed(drift, tuner):
+        installed.append(("drift", t, rt))
+        if t_drop <= t < t_revive and dead in rt.conf.eps:
+            raise RuntimeError(f"{rt.kind} re-tune installed {rt.conf.pretty(names)} at {t} s on dead {names[dead]}")
+    same("drain vs heap engine", drift, serve(bare, script, loop=HeapEventLoop())[0])
+    same("rerun", drift, serve(bare, script)[0])
+    exports = []
+    for _ in range(2):
+        tl = Telemetry()
+        traced, traced_tuner, _ = serve(bare, script, telemetry=tl)
+        same("live telemetry vs none", drift, traced)
+        paid = sum(rt.tune_result.n_explored for rt in traced_tuner.history)
+        counted = tl.metrics_snapshot().get("tune.trials", {}).get("value")
+        if counted != paid:
+            raise RuntimeError(f"telemetry counted {counted} tune trials, the re-tunes paid {paid}")
+        exports.append((tl.export_jsonl(), json.dumps(tl.export_chrome_trace(), allow_nan=False)))
+    if exports[0] != exports[1]:
+        raise RuntimeError("two seeded reruns exported different telemetry")
+    out["drift"] = {"slowed": names[bad], "dead": names[dead], "kinds": kinds(tuner),
+                    "trials": [rt.tune_result.n_explored for rt in tuner.history],
+                    "tuning_cost_s_modelled": [rt.tuning_cost for rt in tuner.history],
+                    "splits": [rt.conf.pretty(names) for rt in tuner.history],
+                    "tune_trials_counted": paid, "jsonl_bytes": len(exports[0][0]),
+                    "chrome_bytes": len(exports[0][1]), "host_s": host, "summary": drift.summary(),
+                    "p99_s_modelled": drift.p99}
+    print(f"[online] (a) slowdown of {names[bad]} x{ONLINE_SLOWDOWN} at {t_slow} s, {names[dead]} dead at "
+          f"{t_drop} s and revived at {t_revive} s: " + json.dumps(out["drift"]))
+    print("[online] (a) drain == heap engine, rerun == run, live Telemetry == none and counts "
+          f"{paid} tune.trials == the re-tunes' trials; JSONL and Chrome exports byte-identical over two reruns")
+
+    # (b) chaos: seeded EP failures on the slow class and batch errors
+    worst = max(ep.perf_class for ep in bare.eps)
+    slow_eps = [i for i, ep in enumerate(bare.eps) if ep.perf_class == worst]
+    chaos = FaultModel(seed=7, ep_mtbf={e: ONLINE_MTBF * horizon for e in slow_eps},
+                       ep_mttr={e: ONLINE_MTTR * horizon for e in slow_eps}, batch_error_p=ONLINE_BATCH_ERROR_P)
+    policy = ResiliencePolicy(deadline_s=slo)
+    first, chaos_tuner, host = serve(bare.with_faults(chaos), resilience=policy)
+    same("chaos rerun", first, serve(bare.with_faults(chaos), resilience=policy)[0])
+    same("no_faults() vs the bare platform", serve(bare, resilience=policy)[0],
+         serve(bare.with_faults(no_faults()), resilience=policy)[0])
+    strict = json.dumps(dataclasses.asdict(first), allow_nan=False)
+    for t, rt in _installed(first, chaos_tuner):
+        installed.append(("chaos", t, rt))
+    out["chaos"] = {"failing": [names[e] for e in slow_eps], "mtbf_s": ONLINE_MTBF * horizon,
+                    "mttr_s": ONLINE_MTTR * horizon, "batch_error_p": ONLINE_BATCH_ERROR_P,
+                    "deadline_s_modelled": slo, "kinds": kinds(chaos_tuner),
+                    "n_retries": first.n_retries, "n_shed": first.n_shed, "n_failed": first.n_failed,
+                    "in_backoff_at_horizon": first.n_arrived - _held(first),
+                    "availability": first.availability, "goodput_rps_modelled": first.goodput_rps,
+                    "strict_json_bytes": len(strict), "host_s": host, "summary": first.summary()}
+    print("[online] (b) chaos, two seeded runs identical, strict JSON, no_faults() == bare bit for bit: "
+          + json.dumps(out["chaos"]))
+
+    # (c) thermal throttling answered by DVFS; the tour's RC constants are
+    # for its 16 W chiplets, so the modelled watts are sized to them (at
+    # uniform_power's default rate a stream EP draws kilowatts, stays
+    # throttled and never shows the oscillation a throttle is told by)
+    per_gflops = WATTS_PER_GFLOPS * paper_platform(4).eps[0].flops / max(ep.flops for ep in bare.eps)
+
+    def hot():
+        pm = uniform_power(bare, watts_per_gflops=per_gflops, thermal=ThermalModel(**ONLINE_THERMAL))
+        return bare.with_power(pm)
+
+    heat, heat_tuner, host = serve(hot())
+    same("thermal rerun", heat, serve(hot())[0])
+    before, answered = conf, []
+    for t, rt in _installed(heat, heat_tuner):
+        installed.append(("thermal", t, rt))
+        if rt.kind == "throttle" and rt.conf == before and rt.tune_result.n_explored == 1 and rt.dvfs_levels:
+            answered.append(rt)
+        before = rt.conf
+    if not answered:
+        raise RuntimeError(f"no throttle answered by a DVFS step-down that keeps the split: {kinds(heat_tuner)}")
+    out["thermal"] = {"watts_per_gflops": per_gflops, "kinds": kinds(heat_tuner),
+                      "throttle_levels": [list(rt.dvfs_levels) for rt in answered],
+                      "throttle_events_modelled": heat.power["throttle_events"],
+                      "max_temp_c_modelled": heat.power["max_temp_c"],
+                      "peak_package_w_modelled": heat.power["peak_package_w"], "host_s": host,
+                      "summary": heat.summary()}
+    print("[online] (c) thermal: " + json.dumps(out["thermal"]))
+
+    # every installed split, run for real
+    splits = {}
+    for scenario, t, rt in installed:
+        splits.setdefault(rt.conf, []).append(f"{scenario} {rt.kind} @{t:.3f}s")
+    out["splits"] = {}
+    for split, why in splits.items():
+        runner = PipelineRunner(mesh=make_stage_mesh(split.depth, res.micro.device), conf=split,
+                                apply_layer=res.model.apply_layer, n_micro=N_MICRO)
+        got = runner.run(res.micro)
+        if not torch.equal(got, seq):
+            raise RuntimeError(f"installed split {split.pretty(names)} differs from the sequential model: "
+                               f"{(got - seq).abs().max().item()}")
+        row = {"installed_by": why, "measured_micro_per_s": pipeline_throughput(runner, res.micro),
+               "modelled_micro_per_s": ev.throughput(split)}
+        out["splits"][split.pretty(names)] = row
+        print(f"[online] split {split.pretty(names)} ({', '.join(why)}) as a stream pipeline: == sequential, "
+              f"measured {row['measured_micro_per_s']:.3f} micro/s on {res.micro.device}, modelled "
+              f"{row['modelled_micro_per_s']:.3f} on the undrifted oracle")
     return out
 
 
@@ -2677,6 +2919,13 @@ def main() -> int:
     if im2col_conv.launches == before:
         raise RuntimeError("phase 5b's pipelines never launched the conv kernel")
     print(f"[place] done in {time.perf_counter() - t0:.1f} s, conv launches {im2col_conv.launches - before} "
+          f"({smi.stdout.strip().splitlines()[0]})")
+    t0, before = time.perf_counter(), im2col_conv.launches
+    serve_online(res, seq)
+    torch.cuda.synchronize()
+    if im2col_conv.launches == before:
+        raise RuntimeError("phase 5c's pipelines never launched the conv kernel")
+    print(f"[online] done in {time.perf_counter() - t0:.1f} s, conv launches {im2col_conv.launches - before} "
           f"({smi.stdout.strip().splitlines()[0]})")
     del res, model, out, seq, plain
     torch.cuda.empty_cache()

@@ -1,13 +1,12 @@
-"""Power/thermal tour on the port: DVFS ladders, a package power cap, and
-tuning under it.
+"""Power/thermal tour on the port: DVFS ladders, a package power cap, and a
+throttle loop the online tuner answers with frequency steps instead of
+re-tunes.
 
     PYTHONPATH=src python examples/power_tour_torch.py
 
-The twin of ``examples/power_tour.py`` over ``repro_torch.core`` and
-``repro_torch.power``, stops 1-4, printing the same lines.  Stops 5-6 (serving
-with the thermal RC model live, and thermal throttling as drift answered by
-a DVFS step) need the serving layer (``serve/``), which the port does not
-have yet.
+The twin of ``examples/power_tour.py`` over ``repro_torch.core``,
+``repro_torch.power`` and ``repro_torch.serve``, all six stops, printing the
+same lines.
 
 Stops on the tour:
 1. Attaches a package power model to the paper's 4-EP big/LITTLE platform
@@ -20,13 +19,20 @@ Stops on the tour:
 4. Tunes under a binding package cap with ``tune(dvfs=True)``: the loop
    steps in-use EPs down until the cap admits them, then keeps exploring
    boundary moves and frequency knobs together.
+5. Serves the tuned pipeline with the thermal RC model live and reports
+   the serving-loop energy telemetry: joules/request, peak/average
+   package watts, hottest chiplet.
+6. Turns the heat up (fast RC, narrow hysteresis) so a busy FEP throttles,
+   and lets :class:`ContinuousShisha` classify the oscillating derate as
+   ``"throttle"`` drift — answered with a DVFS step-down, not a re-tune.
 """
 
 from repro_torch.core import DatabaseEvaluator, Trace, paper_platform, weights
 from repro_torch.core.heuristics import run_shisha
 from repro_torch.core.tuner import tune
 from repro_torch.models.cnn import network_layers
-from repro_torch.power import degenerate_power, uniform_power
+from repro_torch.power import ThermalModel, degenerate_power, uniform_power, uniform_thermal
+from repro_torch.serve import ContinuousShisha, PoissonTraffic, ServingSimulator
 
 layers = network_layers("synthnet")
 ws = weights(layers)
@@ -76,4 +82,50 @@ print(
     f"[cap  ] {cap_w:.1f} W cap (binding at nominal): tune(dvfs=True) adopts "
     f"levels {list(capped.dvfs_levels)} -> {pm_cap.package_w(capped.best_conf.eps):.1f} W, "
     f"throughput {capped.best_throughput:.2f}/s over {trace.n_trials} paid trials"
+)
+
+# -- 5. serving with energy telemetry ----------------------------------------
+
+plat_p = plat.with_power(uniform_power(plat, thermal=uniform_thermal(4, seed=3)))
+ev = DatabaseEvaluator(plat_p, layers)
+cap_tp = run_shisha(ws, Trace(DatabaseEvaluator(plat, layers)), "H3").result.best_throughput
+slo = 3.0 * sum(ev.stage_times(conf))
+arrivals = PoissonTraffic(rate=0.6 * cap_tp, seed=5).arrivals(60.0)
+res = ServingSimulator(ev, conf, slo=slo).run(arrivals, 60.0)
+p = res.power
+print(
+    f"[serve] {res.n_completed} requests in 60s: {p['joules_per_request']:.2f} J/req, "
+    f"peak {p['peak_package_w']:.1f} W, avg {p['avg_package_w']:.1f} W, "
+    f"hottest chiplet {p['max_temp_c']:.1f}C"
+)
+
+# -- 6. thermal throttling as drift the tuner answers with DVFS --------------
+
+hot = ThermalModel(r_k_per_w=(4.0,) * 4, c_j_per_k=(1.0,) * 4, t_hot_c=80.0, t_cool_c=76.0)
+plat_hot = plat.with_power(uniform_power(plat, thermal=hot))
+tuner = ContinuousShisha(
+    platform=plat_hot,
+    layers=tuple(layers),
+    make_evaluator=lambda pf: DatabaseEvaluator(pf, layers),
+    cooldown=1.0,
+    alpha=2,
+    measure_batches=2,
+)
+sim = ServingSimulator(
+    DatabaseEvaluator(plat_hot, layers),
+    conf,
+    slo=slo,
+    autotuner=tuner,
+    monitor_interval=0.5,
+)
+res = sim.run(PoissonTraffic(rate=0.7 * cap_tp, seed=5).arrivals(120.0), 120.0)
+kinds = [r.kind for r in tuner.history]
+first = next(r for r in tuner.history if r.kind == "throttle")
+print(
+    f"[heat ] fast RC + narrow hysteresis: {res.power['throttle_events']} throttle "
+    f"events, max {res.power['max_temp_c']:.1f}C, drift kinds seen: {kinds}"
+)
+print(
+    f"[heat ] first 'throttle' response: DVFS levels {list(first.dvfs_levels)} "
+    f"(a frequency step-down, schedule untouched) vs a full re-tune for 'slowdown'"
 )

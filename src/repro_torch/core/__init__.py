@@ -7,8 +7,10 @@ may carry a routed, contention-priced interconnect fabric
 model under a package cap (``Platform.with_power``, :mod:`repro_torch.power`);
 the evaluators price both, and ``tune`` adds the placement (EP relocation)
 and DVFS moves over them.  Without either, every result is the scalar-link
-one, bit for bit.  Fault models and the LM-block cost formulas come with the
-serving layer.
+one, bit for bit.  A platform may also carry a chaos fault model
+(``Platform.with_faults``, :mod:`repro_torch.faults`), which the serving
+simulator expands; a :class:`Trace` may carry a telemetry session.  The
+LM-block cost formulas are not copied yet.
 """
 
 from .baselines import (
@@ -23,10 +25,10 @@ from .baselines import (
 )
 from .config import PipelineConfig
 from .cost_model import Layer, conv_layer, weights
-from .evaluator import AnalyticEvaluator, DatabaseEvaluator, Trace, Trial
+from .evaluator import AnalyticEvaluator, DatabaseEvaluator, Evaluator, Trace, Trial
 from .heuristics import HEURISTICS, ShishaResult, run_shisha
 from .platform import EP, Platform, paper_platform, table3_platform
-from .seed import Seed, generate_seed
+from .seed import Seed, assign_eps, generate_seed, merge_layers
 from .space import compositions, enumerate_configs, space_size
 from .tuner import TuneResult, pick_target, placement_candidate, placement_reconfig_cost, tune
 
@@ -34,6 +36,7 @@ __all__ = [
     "AnalyticEvaluator",
     "DatabaseEvaluator",
     "EP",
+    "Evaluator",
     "HEURISTICS",
     "Layer",
     "PipelineConfig",
@@ -44,6 +47,7 @@ __all__ = [
     "Trace",
     "Trial",
     "TuneResult",
+    "assign_eps",
     "compositions",
     "conv_layer",
     "database_generation_cost",
@@ -51,6 +55,7 @@ __all__ = [
     "exhaustive_search",
     "generate_seed",
     "hill_climbing",
+    "merge_layers",
     "paper_platform",
     "pick_target",
     "placement_candidate",

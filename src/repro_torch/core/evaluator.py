@@ -34,11 +34,20 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
-from typing import Sequence
+from typing import Protocol, Sequence
 
 from .config import PipelineConfig
 from .cost_model import Layer
 from .platform import Platform
+
+
+class Evaluator(Protocol):
+    platform: Platform
+    layers: Sequence[Layer]
+
+    def stage_times(self, conf: PipelineConfig) -> list[float]: ...
+
+    def throughput(self, conf: PipelineConfig) -> float: ...
 
 
 @dataclasses.dataclass
@@ -197,6 +206,11 @@ class Trace:
     #: default: the Fig. 4 cost accounting pays every visit, as on real
     #: hardware where a revisit still costs pipeline time.
     use_cache: bool = False
+    #: optional :class:`repro_torch.telemetry.Telemetry` session; every
+    #: *paid* trial records its charged wall cost and measured beat
+    #: (duck-typed so ``repro_torch.core`` stays import-free of the
+    #: telemetry package)
+    telemetry: "object | None" = None
 
     def __post_init__(self):
         self.trials: list[Trial] = []
@@ -226,11 +240,17 @@ class Trace:
         if reconfig_cost is None:
             reconfig_cost = self.reconfig_overhead
         if math.isfinite(beat):
-            self._wall += reconfig_cost + fill + self.measure_batches * beat
+            charged = reconfig_cost + fill + self.measure_batches * beat
         else:
             # a severed stage boundary makes the pipeline unable to flow:
             # the trial is abandoned and only the reconfiguration is paid
-            self._wall += reconfig_cost
+            charged = reconfig_cost
+        self._wall += charged
+        tl = self.telemetry
+        if tl is not None and tl.enabled:
+            tl.counter("tune.trials").inc()
+            tl.histogram("tune.trial_cost_s").observe(charged)
+            tl.histogram("tune.trial_beat_s").observe(beat)
         tp = self.evaluator.throughput(conf)
         if self.use_cache:
             self._cache[conf] = tp

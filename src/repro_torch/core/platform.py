@@ -19,6 +19,7 @@ import dataclasses
 from typing import TYPE_CHECKING, Sequence
 
 if TYPE_CHECKING:
+    from ..faults import FaultModel
     from ..interconnect import Fabric
     from ..power import PowerModel
 
@@ -71,6 +72,10 @@ class Platform:
     eps: tuple[EP, ...]
     fabric: "Fabric | None" = dataclasses.field(default=None, compare=False)
     power: "PowerModel | None" = dataclasses.field(default=None, compare=False)
+    #: optional chaos spec (:class:`~repro_torch.faults.FaultModel`), same
+    #: playbook: compare-excluded, off by default, and the degenerate
+    #: ``no_faults`` model reproduces fault-free results bit-for-bit
+    faults: "FaultModel | None" = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if not self.eps:
@@ -138,13 +143,29 @@ class Platform:
         return dataclasses.replace(self, fabric=fabric)
 
     def with_power(self, power: "PowerModel") -> "Platform":
-        """Copy of the platform with a power model attached.
+        """Copy of the platform with a power/thermal model attached.
 
         The model is shared by reference (its per-EP DVFS levels are live
         tuned state), so two platform copies made with ``dataclasses.replace``
         see the same frequencies — deliberately, like ``fabric``.
         """
         return dataclasses.replace(self, power=power)
+
+    def with_faults(self, faults: "FaultModel") -> "Platform":
+        """Copy of the platform with a chaos fault model attached.
+
+        Nothing breaks at attach time — the spec only becomes live when a
+        serving layer expands it through a
+        :class:`~repro_torch.faults.FaultInjector` at prime time.  Fault
+        domains are validated here, where the EP count is known.
+        """
+        for d in faults.domains:
+            for ep in d:
+                if not (0 <= ep < len(self.eps)):
+                    raise ValueError(
+                        f"failure domain EP {ep} outside platform with {len(self.eps)} EPs"
+                    )
+        return dataclasses.replace(self, faults=faults)
 
     def with_latency(self, latency_s: float) -> "Platform":
         """Copy of the platform with every inter-EP link latency replaced.
@@ -173,12 +194,16 @@ class Platform:
         eps = tuple(self.eps[i] for i in keep)
         fabric = self.fabric.restrict(keep) if self.fabric is not None else None
         power = self.power.restrict(keep) if self.power is not None else None
+        # the chaos spec is NOT carried over: its EP/domain indices are in
+        # the original space, and a sub-platform's faults are injected by
+        # whoever owns the full platform
         return dataclasses.replace(
             self,
             name=f"{self.name}-minus{sorted(dead_set)}",
             eps=eps,
             fabric=fabric,
             power=power,
+            faults=None,
         )
 
 

@@ -196,7 +196,7 @@ class TuneResult:
 
 
 def _dvfs_candidate(pm, conf: PipelineConfig, slowest: int):
-    """One DVFS knob to try this step: ``(ep, new_level)`` or None.
+    """One DVFS knob to try this step: ``(ep, new_level, kind)`` or None.
 
     Preference order mirrors the boundary heuristic's bottleneck focus:
     step the slowest stage's EP *up* a level when the package cap still
@@ -211,11 +211,11 @@ def _dvfs_candidate(pm, conf: PipelineConfig, slowest: int):
         feasible = pm.cap_feasible(conf.eps)
         pm.set_level(slow_ep, prev)
         if feasible:
-            return (slow_ep, prev - 1)
+            return (slow_ep, prev - 1, "dvfs_up")
     others = [e for e in sorted(set(conf.eps)) if e != slow_ep and pm.can_step_down(e)]
     if others:
         victim = max(others, key=lambda e: (pm.dynamic_w(e), -e))
-        return (victim, pm.level(victim) + 1)
+        return (victim, pm.level(victim) + 1, "dvfs_down")
     return None
 
 
@@ -251,6 +251,12 @@ def tune(
     conf = seed.conf if isinstance(seed, Seed) else seed
     platform = trace.evaluator.platform
     pm = platform.power if dvfs else None
+    #: live telemetry session of the trace, or None (duck-typed; the move
+    #: kind and beat delta of every adopted candidate are the tuner-side
+    #: facts Trace.execute cannot see)
+    tl = getattr(trace, "telemetry", None)
+    if tl is not None and not tl.enabled:
+        tl = None
     if pm is not None and not pm.tunable and pm.cap_feasible(conf.eps):
         pm = None  # single-level ladders under a satisfied cap: nothing to tune
     if pm is not None:
@@ -264,6 +270,8 @@ def tune(
             victim = max(cands, key=lambda e: (pm.dynamic_w(e), -e))
             pm.set_level(victim, pm.level(victim) + 1)
             trace.execute(conf)
+            if tl is not None:
+                tl.counter("tune.moves.dvfs_cap").inc()
     throughput = trace.execute(conf)
     best_conf, best_tp = conf, throughput
     best_levels = pm.snapshot() if pm is not None else None
@@ -274,16 +282,16 @@ def tune(
         stage_times = trace.evaluator.stage_times(conf)
         slowest = max(range(conf.depth), key=stage_times.__getitem__)
         #: (candidate, per-trial reconfig cost — None = flat overhead,
-        #:  DVFS change (ep, new_level) or None)
+        #:  DVFS change (ep, new_level) or None, move kind)
         candidates: list[
-            tuple[PipelineConfig, float | None, tuple[int, int] | None]
+            tuple[PipelineConfig, float | None, tuple[int, int] | None, str]
         ] = []
         target = pick_target(conf, stage_times, slowest, platform, balancing)
         if target is not None:
             direction = 1 if target > slowest else -1
             nxt = _move_toward(conf, slowest, direction)
             if nxt is not None and nxt != conf:
-                candidates.append((nxt, None, None))
+                candidates.append((nxt, None, None, "boundary"))
         if placement:
             new_ep = placement_candidate(conf, slowest, platform, placement_exclude)
             if new_ep is not None:
@@ -293,7 +301,9 @@ def tune(
                 # link faults severed the shipping route — unperformable
                 rc = placement_reconfig_cost(trace, conf, slowest, new_ep)
                 if math.isfinite(rc):
-                    candidates.append((_relocate(conf, slowest, new_ep), rc, None))
+                    candidates.append(
+                        (_relocate(conf, slowest, new_ep), rc, None, "relocation")
+                    )
         if pm is not None:
             # reject cap-infeasible boundary/placement candidates before
             # they are paid (a move onto a hungrier EP set may break the
@@ -303,14 +313,14 @@ def tune(
             ]
             dv = _dvfs_candidate(pm, conf, slowest)
             if dv is not None:
-                candidates.append((conf, None, dv))
+                candidates.append((conf, None, (dv[0], dv[1]), dv[2]))
         if not candidates:
             break  # perfectly balanced, single stage, or nowhere to move
         # every candidate is a paid online trial; ties resolve to the first
         # (boundary move before relocation before DVFS), keeping the
         # no-placement, no-DVFS path identical to the paper's loop
         measured = []
-        for c, rc, change in candidates:
+        for c, rc, change, _kind in candidates:
             if change is not None:
                 prev_level = pm.level(change[0])
                 pm.set_level(change[0], change[1])
@@ -322,6 +332,12 @@ def tune(
         change = candidates[chosen][2]
         if change is not None:
             pm.set_level(change[0], change[1])
+        if tl is not None:
+            tl.counter(f"tune.moves.{candidates[chosen][3]}").inc()
+            if tp > 0.0:  # a severed pipeline has no beat to compare
+                tl.histogram("tune.beat_delta_s").observe(
+                    1.0 / tp - stage_times[slowest]
+                )
         if tp <= throughput:
             gamma += 1
         else:

@@ -102,6 +102,13 @@ class Fabric:
     #: keyed hash of (seed, flow endpoints + size, path), so distinct seeds
     #: explore distinct-but-deterministic equilibria
     seed: int = 0
+    #: optional :class:`repro_torch.telemetry.Telemetry` session (duck-typed; the
+    #: serving layers attach theirs).  When live, every routing pass records
+    #: link loads, the fair-share contention factor, memory-controller
+    #: hotspot saturation and — in adaptive mode — the priced
+    #: static-vs-adaptive delta.  ``None`` (the default) records nothing
+    #: and prices bit-for-bit as before.
+    telemetry: "object | None" = dataclasses.field(default=None, repr=False)
     #: live link-fault state: LinkKey -> bandwidth factor (0.0 = link dead,
     #: 0 < f < 1 = degraded).  Healthy links are absent.  The dict is shared
     #: *by reference* across :meth:`restrict` copies, so a fault applied to
@@ -333,7 +340,40 @@ class Fabric:
         """
         pairs = [self._endpoints(f) for f in flows]
         routes = self.route_flows(flows)
-        return self._price(flows, pairs, routes)
+        times = self._price(flows, pairs, routes)
+        tl = self.telemetry
+        if tl is not None and tl.enabled:
+            self._record_pass(tl, flows, pairs, routes, times)
+        return times
+
+    def _record_pass(self, tl, flows, pairs, routes, times) -> None:
+        """One routing pass into the telemetry registry (live sink only)."""
+        tl.counter("fabric.routing_passes").inc()
+        tl.counter("fabric.flows_priced").inc(len(flows))
+        link_load, node_load = self._loads(pairs, routes)
+        if link_load:
+            link_bytes: dict[LinkKey, float] = {}
+            for f, r in zip(flows, routes):
+                for k in r or ():
+                    link_bytes[k] = link_bytes.get(k, 0.0) + f.nbytes
+            for k in sorted(link_load):
+                tl.histogram("fabric.link_flows").observe(link_load[k])
+                tl.histogram("fabric.link_bytes").observe(link_bytes[k])
+            # fair-share contention factor: worst per-link flow count — 1.0
+            # means every link is private, k means someone runs at bw/k
+            # scalar max over flow counts: ties are value-identical, so
+            # insertion order cannot leak into the observed factor
+            tl.histogram("fabric.contention_factor").observe(
+                max(link_load.values())  # shisha: allow(unkeyed-sort)
+            )
+        for node in sorted(node_load):
+            cap = self._mc_cap(node)
+            if cap is not None:
+                # §6 hotspot saturation: flows queued at this node's memory
+                # controller (each gets cap/k of it)
+                tl.histogram("fabric.mc_node_flows").observe(node_load[node])
+        if times:
+            tl.histogram("fabric.flow_time_s").observe(max(times))
 
     def transfer_time(
         self,
@@ -491,6 +531,15 @@ class Fabric:
         # (ties keep static, preserving the pre-adaptive assignment exactly)
         adaptive_total = sum(self._price(flows, pairs, assign))
         static_total = sum(self._price(flows, pairs, static))
+        tl = self.telemetry
+        if tl is not None and tl.enabled:
+            # >= 0 by the keep-static rule: how much the adaptive router
+            # actually saved over XY/Dijkstra on this flow set
+            tl.histogram("fabric.adaptive_delta_s").observe(
+                static_total - adaptive_total if adaptive_total < static_total else 0.0
+            )
+            kind = "improved" if adaptive_total < static_total else "kept_static"
+            tl.counter(f"fabric.adaptive.{kind}").inc()
         if adaptive_total < static_total:
             return assign
         return list(static)

@@ -41,6 +41,22 @@ class EPDerates:
     def scale(self, ep_idx: int, t: float) -> float:
         return t * self.factors[ep_idx]
 
+    def compose(self, other: "EPDerates") -> "EPDerates":
+        """Elementwise product of two derate vectors.
+
+        The serving simulator uses this to merge independent derate
+        sources — scripted platform faults and thermal throttling — into
+        the one vector the drift detector observes.
+        """
+        if len(other.factors) != len(self.factors):
+            raise ValueError(
+                f"cannot compose derates over {len(self.factors)} and "
+                f"{len(other.factors)} EPs"
+            )
+        return EPDerates(
+            tuple(a * b for a, b in zip(self.factors, other.factors))
+        )
+
 
 def h100_platform_from_streams(n_stages: int, slow_fraction: float = 0.5, props=None) -> Platform:
     """A Platform whose EPs are the stages' streams on one H100.

@@ -91,19 +91,33 @@ class MeasuringEvaluator(AnalyticEvaluator):
                 f"{len(self.layers)} layers, {len(self.layer_fns)} layer_fns, {len(self.layer_args)} layer_args"
             )
         self.derates = EPDerates.from_platform(self.platform)
+        #: FLOP/s of the measured platform's fastest EP: every derate, on
+        #: this platform or a drifted copy of it, is relative to this one
+        self.base_flops = max(ep.flops for ep in self.platform.eps)
         device = torch.device(self.device)
         self.measured = [
             _best_time(fn, args, self.reps, device) for fn, args in zip(self.layer_fns, self.layer_args)
         ]
 
     def on_platform(self, platform: Platform) -> "MeasuringEvaluator":
-        """The same oracle over ``platform``, which has the same EPs (with a
-        fabric or a power model attached, say): the layers measured here
-        serve it, and nothing is measured again."""
-        if platform.eps != self.platform.eps:
-            raise ValueError(f"{platform.name} has other EPs than {self.platform.name}")
+        """The same oracle over ``platform``, which has the same EPs by count
+        and name, at the same or other speeds: with a fabric or a power model
+        attached, say, or the scheduler's model of a drifted machine
+        (``serve.autotuner.drifted_platform``).  The layers measured here
+        serve it, and nothing is measured again.
+
+        Each EP's derate is the measured platform's fastest FLOP/s over the
+        EP's own, so an EP slowed by ``f`` runs every layer ``f`` times
+        slower, even when every fast EP has drifted, and a dead EP (buried at
+        1e-9 FLOP/s) gets a huge finite derate.  On the same EPs the derates
+        are the measured platform's, bit for bit.
+        """
+        names = [ep.name for ep in platform.eps]
+        if names != [ep.name for ep in self.platform.eps]:
+            raise ValueError(f"{platform.name} has other EPs than {self.platform.name}: {names}")
         other = copy.copy(self)
         other.platform = platform
+        other.derates = EPDerates(tuple(self.base_flops / ep.flops for ep in platform.eps))
         return other
 
     def layer_time(self, layer: Layer, ep_idx: int) -> float:  # type: ignore[override]

@@ -34,7 +34,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterable, Sequence
+from typing import TYPE_CHECKING, Iterable, Sequence
+
+if TYPE_CHECKING:
+    from .thermal import ThermalModel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,10 +90,17 @@ class PowerModel:
     specs: tuple[EPPowerSpec, ...]
     #: package-level power cap, watts (``inf`` = unconstrained)
     cap_w: float = math.inf
+    #: optional thermal RC model per chiplet (:mod:`repro_torch.power.thermal`)
+    thermal: "ThermalModel | None" = None
 
     def __post_init__(self):
         if not self.specs:
             raise ValueError("power model needs at least one EP spec")
+        if self.thermal is not None and self.thermal.n_eps != len(self.specs):
+            raise ValueError(
+                f"thermal model covers {self.thermal.n_eps} chiplets but the "
+                f"power model has {len(self.specs)} EPs"
+            )
         #: current DVFS level index per EP (mutable tuned state)
         self._levels: list[int] = [spec.nominal for spec in self.specs]
 
@@ -175,7 +185,11 @@ class PowerModel:
         per-partition share, so a restricted model can never admit a level
         vector the full package would reject.
         """
-        sub = PowerModel(specs=tuple(self.specs[i] for i in keep), cap_w=self.cap_w)
+        sub = PowerModel(
+            specs=tuple(self.specs[i] for i in keep),
+            cap_w=self.cap_w,
+            thermal=self.thermal.restrict(keep) if self.thermal is not None else None,
+        )
         sub.restore(tuple(self._levels[i] for i in keep))
         return sub
 
@@ -235,6 +249,7 @@ def uniform_power(
     min_scale: float = 0.4,
     watts_per_gflops: float = WATTS_PER_GFLOPS,
     static_fraction: float = STATIC_FRACTION,
+    thermal: "ThermalModel | None" = None,
 ) -> PowerModel:
     """A plausible package model sized from the platform's EP compute rates.
 
@@ -255,11 +270,11 @@ def uniform_power(
                 )
             )
         )
-    return PowerModel(specs=tuple(specs), cap_w=cap_w)
+    return PowerModel(specs=tuple(specs), cap_w=cap_w, thermal=thermal)
 
 
 def degenerate_power(platform, **kw) -> PowerModel:
-    """The identity model: one nominal level per EP, no cap.
+    """The identity model: one nominal level per EP, no cap, no thermal.
 
     Attaching it reproduces the power-free platform bit-for-bit (the
     evaluators divide by a scale of exactly ``1.0``), which is the

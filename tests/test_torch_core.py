@@ -282,3 +282,30 @@ def test_elastic_scheduler_carries_fabric_and_power_as_the_reference(dead):
         out.append((conf.stages, conf.eps, res.best_throughput, res.n_explored, el.platform.name,
                     el.platform.power.snapshot(), el.platform.fabric.ep_nodes))
     assert out[0] == out[1]
+
+
+def test_merge_layers_properties():
+    """``tests/test_core_scheduler.py::test_merge_layers_properties`` on the
+    port's exported ``merge_layers``, plus the reference's groups and
+    ``assign_eps``'s EPs, over the same draws."""
+    hyp = pytest.importorskip("hypothesis")
+    st = hyp.strategies
+
+    @hyp.given(st.lists(st.floats(1.0, 1e6), min_size=2, max_size=40), st.integers(1, 8),
+               st.sampled_from(["rank_l", "rank_w"]))
+    @hyp.settings(max_examples=200, deadline=None)
+    def check(ws, n, choice):
+        n = min(n, len(ws))
+        groups = core.merge_layers(ws, n)
+        assert len(groups) == n
+        assert [i for g in groups for i in g] == list(range(len(ws)))  # contiguity + completeness
+        assert all(len(g) >= 1 for g in groups)
+        assert groups == jcore.merge_layers(ws, n)
+        gw = [sum(ws[i] for i in g) for g in groups]
+        sizes = [len(g) for g in groups]
+        assert core.assign_eps(gw, sizes, core.paper_platform(8), choice) == jcore.assign_eps(
+            gw, sizes, jcore.paper_platform(8), choice)
+
+    check()
+    assert core.merge_layers([2.0, 1.0, 9.0, 9.0], 3)[0] == [0, 1]  # the lighter neighbour
+    assert {"merge_layers", "assign_eps", "Evaluator"} <= set(core.__all__)

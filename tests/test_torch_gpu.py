@@ -262,6 +262,30 @@ def test_placement_and_dvfs_phase_on_the_card():
     assert all(out[k]["measured_micro_per_s"] > 0 for k in ("placed", "capped"))
 
 
+def test_online_phase_on_the_card():
+    """``chip_smoke.serve_online`` (phase 5c: scripted drift, chaos and
+    thermal throttling served on the measured oracle, every installed split
+    as a stream pipeline equal to the sequential model) at a small SynthNet
+    and a short horizon on the card, where its pipelines launch the conv."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.launch.serve_cnn import serve_cnn
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = serve_cnn(device="cuda", scale=0.12, in_shape=(16, 16, 8), seed=0)
+    seq = torch.stack([res.model(x) for x in res.micro])
+    before = im2col_conv.launches
+    out = smoke.serve_online(res, seq, horizon=30.0)
+    torch.cuda.synchronize()
+    assert im2col_conv.launches > before
+    assert out["drift"]["tune_trials_counted"] == sum(out["drift"]["trials"])
+    assert all(row["measured_micro_per_s"] > 0 for row in out["splits"].values())
+
+
 # ---------------------------------------------------------------------------
 # LM serving kernels: flash attention and the SSD chunk scan
 # ---------------------------------------------------------------------------

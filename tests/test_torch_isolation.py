@@ -54,7 +54,9 @@ print(json.dumps({"modules": names, "leaked": leaked}))
                 "models.blocks", "models.transformer", "configs.granite3_2b", "launch.serve",
                 "kernels.gemm", "core.baselines", "core.space", "optim.adamw", "optim.grad_compress",
                 "data.pipeline", "checkpoint.store", "launch.train", "interconnect.fabric",
-                "interconnect.topology", "power.model"):
+                "interconnect.topology", "power.model", "power.thermal", "telemetry.core", "telemetry.metrics",
+                "telemetry.tracer", "faults.model", "faults.injector", "faults.resilience", "serve.traffic",
+                "serve.simulator", "serve.autotuner"):
         assert f"repro_torch.{mod}" in res["modules"]
 
 

@@ -7,6 +7,7 @@ fill/steady/drain schedule in order; the stream path runs in
 """
 
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -296,3 +297,88 @@ def test_chip_smoke_placement_phase_runs_on_cpu():
     assert out["placed"]["far_relocation_cost_s"] > out["placed"]["flat_overhead_s"]
     for name in ("placed", "capped"):
         assert out[name]["measured_micro_per_s"] > 0
+
+
+@pytest.mark.parametrize("factors,dead", [((1.0, 2.0, 1.0, 1.0), ()), ((4.0, 4.0, 1.0, 1.0), ()),
+                                          ((1.0, 1.0, 2.0, 0.5), ()), ((2.0, 1.0, 1.0, 1.0), (1,)),
+                                          ((1.0, 1.0, 1.0, 1.0), (0, 3))])
+def test_measuring_evaluator_serves_a_drifted_platform(model, factors, dead):
+    """``on_platform`` of ``serve.autotuner.drifted_platform``: each EP's
+    derate is the measured platform's fastest FLOP/s over the EP's own, so
+    an EP drifted by ``f`` runs every layer ``f`` times slower, also when
+    every fast EP has drifted (drifts by powers of two scale exactly); a
+    dead EP gets a huge finite derate; nothing is measured again."""
+    from repro_torch.serve import drifted_platform
+
+    ev, _ = _measured_oracles(model)
+    bare = h100_platform_from_streams(4, props=H100_PROPS)
+    ev = ev.on_platform(bare)
+    drifted = drifted_platform(bare, EPDerates(factors=factors), dead=frozenset(dead))
+    other = ev.on_platform(drifted)
+    assert other.measured is ev.measured and other.platform is drifted
+    layers = network_layers("synthnet")
+    for ep in range(4):
+        for i, m in enumerate(ev.measured):
+            if ep in dead:
+                assert other.derates.scale(ep, m) > 1e15 * ev.derates.scale(ep, m)
+                assert math.isfinite(other.layer_time(layers[i], ep))
+            else:
+                # drifted_platform speeds no EP up: a factor below 1 is no drift
+                assert other.derates.scale(ep, m) == max(factors[ep], 1.0) * ev.derates.scale(ep, m)
+    fast = [ep for ep in range(4) if bare.eps[ep].flops == max(e.flops for e in bare.eps)]
+    if all(factors[ep] > 1.0 for ep in fast):
+        # every fast EP drifted: the drifted platform's own fastest is the wrong base
+        assert other.derates != EPDerates.from_platform(drifted)
+    for conf in (_seed_conf(n) for n in (1, 2, 3, 4)):
+        want = []
+        for s, (a, b) in enumerate(conf.boundaries()):
+            e = conf.eps[s]
+            t = sum(other.derates.scale(e, ev.measured[i]) + ev.layer_overhead for i in range(a, b))
+            if s < conf.depth - 1:
+                t += layers[b - 1].act_bytes / bare.eps[e].link_bw + bare.eps[e].link_latency
+            want.append(t)
+        assert other.stage_times(conf) == want
+    with pytest.raises(ValueError, match="other EPs"):
+        ev.on_platform(dataclasses.replace(bare, eps=bare.eps[:3]))
+
+
+def test_measuring_evaluator_on_the_same_eps_keeps_its_derates(model):
+    """What phase 5b calls: the same EPs with a fabric or a power model
+    attached keep the measured platform's derates bit for bit."""
+    ev, _ = _measured_oracles(model)
+    for plat in (ev.platform, h100_platform_from_streams(4, props=H100_PROPS)):
+        other = ev.on_platform(plat)
+        assert other.derates == ev.derates == EPDerates.from_platform(plat)
+        conf = _seed_conf(3)
+        assert other.stage_times(conf) == ev.stage_times(conf)
+
+
+#: SynthNet's layer times (ms, microbatch of 2) as phase 4 of chip_smoke.py
+#: measured them on an NVIDIA H100 80GB HBM3 at 700 W: the CPU rehearsal of
+#: phase 5c serves the card's oracle, whatever the CPU's own times
+CARD_LAYER_MS = (0.123, 0.5224, 0.3222, 0.3185, 0.3962, 0.9507, 0.3618, 0.332, 0.3515, 0.2998, 0.9504, 0.3252,
+                 0.293, 0.3121, 0.3225, 0.9524, 0.4031, 0.35)
+
+
+def test_chip_smoke_online_phase_runs_on_cpu(monkeypatch):
+    """``chip_smoke.serve_online`` (phase 5c) on the card's layer times with a
+    tiny SynthNet's pipelines on the CPU: its checks hold and every split a
+    re-tune installed equals the sequential model."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(smoke, "pipeline_throughput", lambda runner, micro: float("nan"))  # CPU speed: no reading
+    res = serve_cnn(device="cpu", scale=0.12, in_shape=IN_SHAPE, seed=0)
+    ev = res.evaluator
+    ev.measured[:] = [t * 1e-3 for t in CARD_LAYER_MS]
+    conf = run_shisha(weights(ev.layers), Trace(ev), "H3", n_stages=4).result.best_conf
+    online = SimpleNamespace(evaluator=ev, conf=conf, model=res.model, micro=res.micro)
+    out = smoke.serve_online(online, torch.stack([res.model(x) for x in res.micro]), horizon=30.0)
+    kinds = out["drift"]["kinds"]
+    assert [k for k in kinds if k in ("slowdown", "dropout", "recovery")][:3] == ["slowdown", "dropout", "recovery"]
+    assert out["drift"]["tune_trials_counted"] == sum(out["drift"]["trials"])
+    assert "throttle" in out["thermal"]["kinds"] and out["thermal"]["throttle_events_modelled"] > 0
+    assert out["chaos"]["n_retries"] > 0 and 0.0 < out["chaos"]["availability"] <= 1.0
+    assert len(out["splits"]) >= 3

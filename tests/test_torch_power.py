@@ -3,9 +3,10 @@
 ``repro_torch.power`` is a copy of ``repro.power``.  Fed the same
 platforms and the same sequence of level changes, both must give the same
 ladders, package watts, cap decisions and errors, and restrict alike
-(through ``Platform.without`` too), compared with ``==``.  The tuner's DVFS
-moves are held in ``tests/test_torch_core.py``.  The reference's thermal RC
-model is not in the port yet: it comes with the serving layer that steps it.
+(through ``Platform.without`` too), compared with ``==``; the thermal RC
+model the same trajectories, latches and throttle counts.  The tuner's DVFS
+moves are held in ``tests/test_torch_core.py``, the serving layer that steps
+the thermal model in ``tests/test_torch_serve.py``.
 """
 
 import dataclasses
@@ -139,8 +140,9 @@ def test_restrict_and_platform_without_carry_levels_as_the_reference(keep):
 
 
 def test_power_tour_twin_prints_what_the_reference_prints_at_stops_1_to_4():
-    """The twin stops where the serving layer starts (stops 5-6); every line
-    before that is a function of the model alone."""
+    """Every stop, 1-4 (the model alone) and 5-6 (serving with the thermal
+    model live, and a throttle answered by a DVFS step-down): the twin prints
+    what the reference tour prints, line for line."""
     out = {}
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
     for name in ("power_tour.py", "power_tour_torch.py"):
@@ -149,7 +151,64 @@ def test_power_tour_twin_prints_what_the_reference_prints_at_stops_1_to_4():
         assert proc.returncode == 0, proc.stderr
         out[name] = proc.stdout.splitlines()
     ours, theirs = out["power_tour_torch.py"], out["power_tour.py"]
-    assert ours == theirs[: len(ours)]
+    assert ours == theirs
     assert [line[:7] for line in ours if not line.startswith("[power]   ")] == [
-        "[power]", "[power]", "[degen]", "[dvfs ]", "[cap  ]"]
-    assert theirs[len(ours)].startswith("[serve]")
+        "[power]", "[power]", "[degen]", "[dvfs ]", "[cap  ]", "[serve]", "[heat ]", "[heat ]"]
+    assert "'throttle'" in ours[-2]
+
+
+def _thermal_state(th):
+    return (list(th.temps), list(th.throttled), th.throttle_events, [th.factor(e) for e in range(th.n_eps)],
+            th.electrical_derate)
+
+
+@pytest.mark.parametrize("seed,n", [(5, 3), (1, 4), (3, 8)])
+def test_thermal_trajectory_matches_reference(seed, n):
+    ours, theirs = pw.uniform_thermal(n, seed=seed), jpw.uniform_thermal(n, seed=seed)
+    assert (ours.r_k_per_w, ours.c_j_per_k) == (theirs.r_k_per_w, theirs.c_j_per_k)
+    rng = np.random.default_rng(seed)
+    for _ in range(300):
+        ep, watts, dt = int(rng.integers(n)), float(rng.uniform(0.0, 40.0)), float(rng.uniform(0.1, 2.0))
+        assert ours.step(ep, watts, dt) == theirs.step(ep, watts, dt)
+        assert _thermal_state(ours) == _thermal_state(theirs)
+    keep = [e for e in range(n) if e % 2 == 0]
+    assert _thermal_state(ours.restrict(keep)) == _thermal_state(theirs.restrict(keep))
+
+
+def test_thermal_hysteresis_matches_reference():
+    """``tests/test_power.py``'s heat, cool and re-heat cycle, step by step."""
+    states = []
+    for mod in (pw, jpw):
+        th = mod.ThermalModel(r_k_per_w=(5.0,), c_j_per_k=(2.0,), t_hot_c=85.0, t_cool_c=75.0)
+        trail = [th.step(0, 12.0, 1.0) for _ in range(60)]
+        while th.throttled[0]:
+            trail.append(th.step(0, 0.0, 1.0))
+        trail += [th.step(0, 12.0, 1.0) for _ in range(60)]
+        states.append((trail, _thermal_state(th)))
+    assert states[0] == states[1]
+    assert states[0][1][2] == 2  # two engagements
+
+
+def test_thermal_validation_and_attachment_match_reference():
+    for mod in (pw, jpw):
+        for bad in (lambda: mod.ThermalModel(r_k_per_w=(1.0,), c_j_per_k=(1.0, 2.0)),
+                    lambda: mod.ThermalModel(r_k_per_w=(), c_j_per_k=()),
+                    lambda: mod.ThermalModel(r_k_per_w=(1.0,), c_j_per_k=(1.0,), t_hot_c=70.0, t_cool_c=80.0),
+                    lambda: mod.ThermalModel(r_k_per_w=(1.0,), c_j_per_k=(1.0,), throttle_derate=0.5),
+                    lambda: mod.uniform_thermal(0)):
+            with pytest.raises(ValueError):
+                bad()
+    out = []
+    for c, mod in ((core, pw), (jcore, jpw)):
+        plat = c.paper_platform(4)
+        with pytest.raises(ValueError):
+            mod.uniform_power(plat, thermal=mod.uniform_thermal(3))
+        th = mod.uniform_thermal(4, seed=2)
+        for e in range(4):
+            th.step(e, 30.0 + e, 5.0)
+        pm = mod.uniform_power(plat, thermal=th)
+        smaller = plat.with_power(pm).without([1])
+        out.append((_thermal_state(pm.restrict([0, 3]).thermal), _thermal_state(smaller.power.thermal),
+                    smaller.power.thermal is not th, mod.degenerate_power(plat).thermal))
+    assert out[0] == out[1]
+    assert out[0][2:] == (True, None)
