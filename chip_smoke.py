@@ -28,16 +28,19 @@ repository's sources are not beside this script.  Otherwise, in order:
    must ask the shared memory the wrapper counts) compiled with no spill
    (``check_flash_bwd_ptxas``, ``check_ssd_bwd_ptxas``);
 3. holds each kernel against its plain PyTorch version on the card, at every
-   distinct layer shape of full-width SynthNet (microbatch of 2 images) and
-   at the reference kernel tests' shapes plus a ragged K, in fp32 with TF32
-   off (tolerance 3e-4 absolute and relative, the reference's), and the
-   conv against itself over two calls (the same bits); prints each shape's
-   plan (tile, splits, blocks) and fails if a SynthNet shape launches fewer
-   blocks than the card has SMs; times the kernel, the plain version and
-   cuDNN's ``F.conv2d`` (``cudnn.benchmark`` off, and on as
-   ``library_best_ms``) on the SynthNet shapes by CUDA events, the kernel
-   and cuDNN also by the profiler's device time and by the host's time to
-   issue a call, and computes each shape's bound on the H100 SXM;
+   distinct layer shape of full-width SynthNet and of full-width ResNet50
+   (microbatch of 2 images: the stride-2 7x7 stem over 3 channels, 1x1 convs
+   up to 2048 channels, the classifier at 2 rows) and at the reference
+   kernel tests' shapes plus a ragged K, in fp32 with TF32 off (tolerance
+   3e-4 absolute and relative, the reference's), and the conv against
+   itself over two calls (the same bits); prints each shape's plan (tile,
+   splits, blocks) and fails if a SynthNet shape launches fewer blocks than
+   the card has SMs; times the kernel, the plain version and cuDNN's
+   ``F.conv2d`` (``cudnn.benchmark`` off, and on as ``library_best_ms``) on
+   the SynthNet and ResNet50 shapes by CUDA events, the kernel and cuDNN
+   also by the profiler's device time and by the host's time to issue a
+   call, and computes each shape's bound on the H100 SXM, and the totals of
+   one forward of each network;
 4. drives the main path — ``launch.serve_cnn.serve_cnn`` at full width:
    measure each layer, Shisha H3, 4-stage stream pipeline of 8 microbatches,
    straggler rebalance — with every launch count set to 0 just before and
@@ -105,6 +108,40 @@ repository's sources are not beside this script.  Otherwise, in order:
    the conv must launch; measured microbatches/s are printed beside the
    modelled ones.  Simulated time, watts, temperatures and throughputs of
    the model are marked ``modelled``;
+5d. multi-tenant co-serving on the card's measured oracles
+   (``co_serve_online``): full-width SynthNet (220x220x3) and ResNet50
+   (224x224x3) measured layer by layer (``launch.serve_cnn.measure_cnn``,
+   microbatches of 2) over 8 stream EPs (4 FEPs, 4 SEPs), interleaved into
+   two partitions; each lane's evaluator is its tenant's oracle
+   ``on_platform`` of its partition (nothing measured again).  The
+   reference acceptance test's setup: each tenant's capacity the tuned H3
+   throughput on its partition, SynthNet's recorded Poisson traffic at 0.65
+   of it and ResNet50's recorded MMPP at 0.08 / 0.30, each SLO 3x its
+   launch split's pipeline latency, 60 simulated s, batch-policy search,
+   measure 2, alpha 4.  (a) SynthNet's fastest EP dies at 20 s and revives
+   at 40 s, served elastic and static: fails unless after every
+   re-partition the partitions are disjoint and cover exactly the alive
+   EPs, every installed split lies on its lane's EPs, on none dead at its
+   install and on none another lane's split holds, every request is
+   accounted for, the revived EP rejoins exactly one tenant in a
+   ``revival`` event, the static run never re-partitions, every dropout
+   re-tunes its victim and donors at the ``Trace.wall`` each paid (> 0),
+   the drain and heap engines, ``co_serve`` and two reruns agree, a live
+   ``Telemetry`` changes nothing and exports byte-identical traces twice,
+   a degenerate ``uniform_power`` gives the bare result, and elastic beats
+   static on aggregate SLO violations (the reference's acceptance, held
+   with a margin of 1.29-4.9x in CPU rehearsals on the card's layer
+   times); prints the events and each arm's aggregate SLO share and
+   throughput.  (b) Seeded chaos (SEP failures, batch errors) with a
+   ``ResiliencePolicy`` on the launch partitions: two runs identical,
+   strict JSON, requests accounted for.  (c) Every split a lane installed in (a) runs as
+   a stream pipeline of its tenant's model, equal to the sequential model;
+   then both tenants' final splits, each captured as a CUDA graph, replay
+   alone and together on streams of their own before one synchronise (the
+   host issues each in one call, so the card holds both at once), each
+   still equal, with their microbatches/s on the device alone, together
+   and back to back beside the modelled ones; the conv must launch.  All
+   simulated numbers are marked ``modelled``;
 6. LM serving kernels: holds ``flash_attention`` and ``ssd_scan`` against
    their plain versions on the card at the LM main path's shapes in bf16
    (prefill attention of every served attention model, causal, q/k/v as
@@ -312,6 +349,7 @@ sys.path.insert(0, str(ROOT / "src"))  # the port, from this checkout
 from repro_torch.configs import get_config
 from repro_torch.core import (
     HEURISTICS,
+    PipelineConfig,
     Trace,
     database_generation_cost,
     exhaustive_search,
@@ -337,15 +375,27 @@ from repro_torch.data import DataConfig, make_batch_iterator
 from repro_torch.launch.serve import make_batch, serve
 from repro_torch.launch.train import train
 from repro_torch.launch.mesh import make_stage_mesh
-from repro_torch.launch.serve_cnn import BATCH, N_MICRO, serve_cnn
+from repro_torch.launch.serve_cnn import BATCH, N_MICRO, measure_cnn, serve_cnn
 from repro_torch.models import blocks, transformer
 from repro_torch.models.lm_common import init_params
-from repro_torch.models.cnn import synthnet_specs
+from repro_torch.models.cnn import resnet50_specs, synthnet_specs
 from repro_torch.optim import AdamW, AdamWConfig
-from repro_torch.pipeline import PipelineRunner, pipeline_throughput
+from repro_torch.pipeline import PipelineRunner, h100_platform_from_streams, pipeline_throughput
 from repro_torch.power import ThermalModel, degenerate_power, uniform_power
 from repro_torch.power.model import WATTS_PER_GFLOPS
-from repro_torch.serve import ContinuousShisha, HeapEventLoop, PoissonTraffic, ServingSimulator
+from repro_torch.serve import (
+    ContinuousShisha,
+    HeapEventLoop,
+    MMPPTraffic,
+    PoissonTraffic,
+    ReplayTraffic,
+    ServingSimulator,
+    SharedClockCoSimulator,
+    Tenant,
+    co_serve,
+    partition_eps,
+    subplatform,
+)
 from repro_torch.telemetry import Telemetry
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
 from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
@@ -467,6 +517,20 @@ ONLINE_MTBF, ONLINE_MTTR, ONLINE_BATCH_ERROR_P = 0.15, 0.04, 0.03
 #: phase 5c (c): the reference power tour's aggressive thermal RC nodes
 #: (``examples/power_tour.py`` stop 6: tau 4 s, a 4 K hysteresis band)
 ONLINE_THERMAL = dict(r_k_per_w=(4.0,) * 4, c_j_per_k=(1.0,) * 4, t_hot_c=80.0, t_cool_c=76.0)
+#: phase 5d: stream EPs of the co-served platform (4 FEPs and 4 SEPs of 16
+#: SMs: the shape of the reference's ``paper_platform(8)``, so a tenant holds
+#: 4 and a steal leaves a donor 3), simulated seconds of traffic, and the
+#: reference acceptance test's knobs (``tests/test_multitenant_serve.py``)
+CO_STREAMS, CO_HORIZON = 8, 60.0
+CO_KNOBS = dict(batch_policy_search=True, measure_batches=2, alpha=4)
+#: phase 5d's tenants, in partition order: input (H, W, C) and weights seed
+CO_TENANTS = {"synthnet": ((220, 220, 3), 0), "resnet50": ((224, 224, 3), 1)}
+#: each tenant's offered load as shares of its tuned capacity, and its
+#: arrivals' seed: SynthNet Poisson at 0.65, ResNet50 MMPP between 0.08 and
+#: 0.30 (the reference fixture's)
+CO_LOADS = {"synthnet": (0.65, 11), "resnet50": ((0.08, 0.30), 12)}
+#: timed replays of the final splits' graphs, alone and together (best of)
+CO_REPS = 5
 #: the training main path: per model the depth trained (None: the config's)
 #: and the depth of the fp32 gradient comparison.  phi3.5-moe's 2 layers
 #: hold 2.9 B parameters, 35 GB of parameters, gradients, fp32 master and
@@ -784,10 +848,22 @@ def cudnn_ms(x: torch.Tensor, w: torch.Tensor, stride: int, device: bool = False
     return plain, best
 
 
+def _forward_total(rows: list[dict]) -> dict:
+    """One forward of a network at a microbatch of 2: each shape's readings
+    weighted by the number of layers that run it, and the bound of the sum."""
+    tot = {key: None if any(r[key] is None for r in rows) else sum(len(r["layers"]) * r[key] for r in rows)
+           for key in ("flops", "bytes", "ms", "plain_ms", "library_ms", "library_best_ms", "device_ms",
+                       "library_device_ms")}
+    t_ops, t_bytes = tot["flops"] / PEAK_FP32_FLOPS, tot["bytes"] / HBM_BYTES_PER_S
+    return {**tot, "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def check_conv(gen: torch.Generator) -> dict:
     """Phase 3 for ``conv2d_im2col``: parity everywhere, the same bits over
-    two calls, each SynthNet shape's plan, times on SynthNet."""
-    synth = _conv_shapes(synthnet_specs(), batch=BATCH)
+    two calls, each SynthNet and ResNet50 shape's plan and times, and the
+    times of one forward of each."""
+    synth = [{**sh, "net": "synthnet"} for sh in _conv_shapes(synthnet_specs(), batch=BATCH)]
+    resnet = [{**sh, "net": "resnet50"} for sh in _conv_shapes(resnet50_specs(), batch=BATCH)]
     extra = [
         {"x": (2, 12, 12, 8), "w": (r, r, 8, 24), "stride": st, "layers": []}
         for r in (1, 3, 5)
@@ -798,7 +874,7 @@ def check_conv(gen: torch.Generator) -> dict:
     ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, max_err = [], 0.0
-    for sh in synth + extra:
+    for sh in synth + resnet + extra:
         x, w, st = conv_inputs(sh, gen)
         r, s, c, k = sh["w"]
         y = im2col_conv.conv2d_im2col(x, w, stride=st)
@@ -816,7 +892,7 @@ def check_conv(gen: torch.Generator) -> dict:
                "plan": {"tile": f"{p.bm}x{p.bn}", "thread": f"{p.tm}x{p.tn}", "splits": p.splits,
                         "blocks": p.blocks, "copies": 16 if p.vector else 4}}
         if sh["layers"]:
-            if p.blocks < sms:
+            if sh["net"] == "synthnet" and p.blocks < sms:
                 raise RuntimeError(f"plan {p} launches {p.blocks} blocks on {sms} SMs at {sh}")
             n, h, wd, _ = sh["x"]
             ho, wo = -(-h // st), -(-wd // st)
@@ -824,6 +900,7 @@ def check_conv(gen: torch.Generator) -> dict:
             nbytes = 4.0 * (x.numel() + w.numel() + y.numel())
             lib_ms, lib_best_ms = cudnn_ms(x, w, st)
             row.update(
+                net=sh["net"],
                 layers=sh["layers"],
                 flops=flops,
                 bytes=nbytes,
@@ -842,13 +919,12 @@ def check_conv(gen: torch.Generator) -> dict:
         rows.append(row)
         print(f"[check] conv2d_im2col {json.dumps(row)}")
 
-    # one forward of full-width SynthNet at a microbatch of 2: each shape
-    # weighted by the number of layers that run it
-    fwd = [r for r in rows if "layers" in r]
-    tot = {key: None if any(r[key] is None for r in fwd) else sum(len(r["layers"]) * r[key] for r in fwd)
-           for key in ("flops", "bytes", "ms", "plain_ms", "library_ms", "library_best_ms", "device_ms",
-                       "library_device_ms")}
-    t_ops, t_bytes = tot["flops"] / PEAK_FP32_FLOPS, tot["bytes"] / HBM_BYTES_PER_S
+    # one forward of full-width SynthNet (the main path's) and of ResNet50
+    # (phase 5d's second tenant) at a microbatch of 2
+    tot = _forward_total([r for r in rows if r.get("net") == "synthnet"])
+    r50 = _forward_total([r for r in rows if r.get("net") == "resnet50"])
+    print(f"[check] conv2d_im2col one ResNet50 forward (microbatch of {BATCH}, {len(resnet)} shapes, 50 layers): "
+          + json.dumps(r50))
     return {
         "name": "conv2d_im2col",
         "route": "cuda",
@@ -857,12 +933,14 @@ def check_conv(gen: torch.Generator) -> dict:
         "max_abs_err": max_err,
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": tot["bound_ms"],
+        "bound_by": tot["bound_by"],
         "library_ms": tot["library_ms"],
         "library_best_ms": tot["library_best_ms"],
         "device_ms": tot["device_ms"],
         "library_device_ms": tot["library_device_ms"],
+        "resnet50_forward": {k: r50[k] for k in ("ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms",
+                                                  "library_best_ms", "library_device_ms")},
     }
 
 
@@ -1182,8 +1260,9 @@ def serve_online(res, seq: torch.Tensor, horizon: float = ONLINE_HORIZON) -> dic
     # (b) chaos: seeded EP failures on the slow class and batch errors
     worst = max(ep.perf_class for ep in bare.eps)
     slow_eps = [i for i, ep in enumerate(bare.eps) if ep.perf_class == worst]
-    chaos = FaultModel(seed=7, ep_mtbf={e: ONLINE_MTBF * horizon for e in slow_eps},
-                       ep_mttr={e: ONLINE_MTTR * horizon for e in slow_eps}, batch_error_p=ONLINE_BATCH_ERROR_P)
+    # the fault model keys failure rates by perf class
+    chaos = FaultModel(seed=7, ep_mtbf={worst: ONLINE_MTBF * horizon}, ep_mttr={worst: ONLINE_MTTR * horizon},
+                       batch_error_p=ONLINE_BATCH_ERROR_P)
     policy = ResiliencePolicy(deadline_s=slo)
     first, chaos_tuner, host = serve(bare.with_faults(chaos), resilience=policy)
     same("chaos rerun", first, serve(bare.with_faults(chaos), resilience=policy)[0])
@@ -1248,6 +1327,359 @@ def serve_online(res, seq: torch.Tensor, horizon: float = ONLINE_HORIZON) -> dic
         print(f"[online] split {split.pretty(names)} ({', '.join(why)}) as a stream pipeline: == sequential, "
               f"measured {row['measured_micro_per_s']:.3f} micro/s on {res.micro.device}, modelled "
               f"{row['modelled_micro_per_s']:.3f} on the undrifted oracle")
+    return out
+
+
+def co_platform(props=None):
+    """Phase 5d's platform: CO_STREAMS stream EPs of the card, half of them
+    SEPs (``h100_platform_from_streams``); fresh at every call, since a run
+    steps the models a platform carries in place."""
+    return h100_platform_from_streams(CO_STREAMS, props=props)
+
+
+def _co_installed(co, launch: dict, horizon: float) -> dict[str, list[dict]]:
+    """Per tenant, every split its lane installed, the launch split at 0
+    first: its install time, the time it was decided, its kind, the split,
+    the lane's EPs then and the global EPs of its stages.  A lane logs a
+    re-tune when it installs it and the co-simulator defers a re-partition
+    while any lane explores, so the logged entries are the first of the
+    lane's tuner history, in order; a re-partition's entry names the lane's
+    new EPs (``eps``), which map its local indices from then on."""
+    out = {}
+    for name, lane in co.lanes.items():
+        conf, part = launch[name]
+        rows = [dict(t=0.0, decided=0.0, kind="launch", conf=conf, lane=tuple(part),
+                     eps=tuple(part[e] for e in conf.eps))]
+        result = lane.result(horizon)
+        for entry, rt in zip(result.reconfigs, lane.autotuner.history):
+            if (entry["kind"], entry["new_depth"]) != (rt.kind, rt.conf.depth):
+                raise RuntimeError(f"{name}: installed re-tune {entry} is not the tuner's {rt.kind}")
+            part = tuple(entry.get("eps", part))
+            rows.append(dict(t=entry["t"] + entry["tuning_cost_s"], decided=entry["t"], kind=rt.kind, conf=rt.conf,
+                             lane=part, eps=tuple(part[e] for e in rt.conf.eps)))
+        if len(rows) != len(result.reconfigs) + 1:
+            raise RuntimeError(f"{name}: {len(result.reconfigs)} re-tunes installed, fewer decided")
+        out[name] = rows
+    return out
+
+
+def _check_co_run(res, co, launch: dict, n_eps: int, faults: list, horizon: float, gap_ok: bool = False) -> dict:
+    """Phase 5d (a)'s invariants on one run: after every re-partition the
+    partitions are disjoint and cover exactly the EPs alive then; every
+    installed split lies on its lane's EPs (a re-partition's, as the event
+    records them), on none dead at its install, and on none another lane's
+    split holds at the time; every request is accounted for (with a
+    resilience policy, ``gap_ok``, up to the retries may wait in a backoff);
+    each dropout re-tunes its victim and donors at the ``Trace.wall`` each
+    paid, > 0."""
+    gone: set[int] = set()
+    for ev in res.repartitions:
+        (gone.add if ev.kind == "dropout" else gone.discard)(ev.dead_ep)
+        owned = [ep for part in ev.partitions.values() for ep in part]
+        if len(owned) != len(set(owned)) or set(owned) != set(range(n_eps)) - gone:
+            raise RuntimeError(f"partitions at {ev.t} s {ev.partitions} do not cover exactly the alive EPs")
+
+    def dead(t):
+        out = set()
+        for ft, kind, ep in sorted((f[1], f[0], f[2]) for f in faults):
+            if ft <= t:
+                (out.add if kind == "dropout" else out.discard)(ep)
+        return out
+
+    installed = _co_installed(co, launch, horizon)
+    events = {(e.t, name): e.partitions[name] for e in res.repartitions for name in e.retune_costs}
+    for name, rows in installed.items():
+        for row in rows:
+            if not set(row["eps"]) <= set(row["lane"]) or set(row["eps"]) & dead(row["t"]):
+                raise RuntimeError(f"{name} installed {row['conf'].pretty()} at {row['t']} s on {row['eps']}: "
+                                   f"its lane holds {row['lane']}, dead then {dead(row['t'])}")
+            if row["kind"] == "repartition" and events.get((row["decided"], name)) != row["lane"]:
+                raise RuntimeError(f"{name}'s re-partition at {row['decided']} s installed on {row['lane']}, the "
+                                   f"event records {events.get((row['decided'], name))}")
+    # lanes swap EPs atomically: check once every install at a time is in
+    serving = {name: set(rows[0]["eps"]) for name, rows in installed.items()}
+    installs = sorted((r["t"], n, r["eps"]) for n, rows in installed.items() for r in rows[1:])
+    for i, (t, name, eps) in enumerate(installs):
+        serving[name] = set(eps)
+        clash = {(a, b): serving[a] & serving[b] for a in serving for b in serving if a < b and serving[a] & serving[b]}
+        if clash and (i + 1 == len(installs) or installs[i + 1][0] != t):
+            raise RuntimeError(f"at {t} s two lanes' splits share EPs: {clash}")
+    for ev in res.repartitions:
+        if ev.kind == "dropout":
+            want = {ev.victim} | {d["donor"] for d in ev.bundle}
+            if set(ev.retune_costs) != want or not all(c > 0 for c in ev.retune_costs.values()):
+                raise RuntimeError(f"dropout at {ev.t} s re-tuned {ev.retune_costs}, not {want} at a cost > 0")
+            for name, cost in ev.retune_costs.items():
+                paid = [rt.tuning_cost for rt in co.lanes[name].autotuner.history if rt.kind == "repartition"]
+                if cost not in paid:
+                    raise RuntimeError(f"{name}'s re-tune cost {cost} at {ev.t} s is no Trace.wall it paid: {paid}")
+    for r in res.results:
+        gap = r.sim.n_arrived - _held(r.sim)
+        if r.sim.n_arrived != len(r.tenant.traffic.arrivals(horizon)) or not 0 <= gap <= (
+                r.sim.n_retries if gap_ok else 0):
+            raise RuntimeError(f"{r.tenant.name} lost requests: {r.sim.n_arrived} arrived, {_held(r.sim)} held")
+    return installed
+
+
+def co_serve_online(tenants: dict, oracles: dict, horizon: float = CO_HORIZON, props=None) -> dict:
+    """Phase 5d: multi-tenant co-serving on the card's measured oracles.
+
+    ``tenants`` maps each of CO_TENANTS' networks to (its model, its
+    microbatches), ``oracles`` to its ``MeasuringEvaluator`` over
+    ``co_platform`` (``measure_cnn``).  Each lane's evaluator is its tenant's
+    measured oracle ``on_platform`` of the lane's partition: nothing is
+    measured again.  The tenants are the reference acceptance
+    test's: an interleaved partition, each tenant's capacity the tuned H3
+    throughput on its partition, SynthNet's recorded Poisson traffic at
+    0.65 of it and ResNet50's recorded MMPP at 0.08 / 0.30 of it, each SLO
+    3x its launch split's pipeline latency.  (a) SynthNet's fastest EP dies
+    at 1/3 of the horizon and revives at 2/3, elastic and static, checked
+    as the module docstring says; (b) seeded chaos with a resilience policy;
+    (c) every split a lane installed in (a) runs as a stream pipeline of its
+    tenant's model, equal to the sequential model, then both tenants' final
+    splits as CUDA graphs, alone and together on their own streams
+    (``co_run_together``).  Simulated times, SLO shares and
+    model throughputs are the model's; only the pipelines' microbatches/s
+    are the card's.
+    """
+    by_layers = {tuple(ev.layers): ev for ev in oracles.values()}
+
+    def make_evaluator(p, layers):
+        return by_layers[tuple(layers)].on_platform(p)
+
+    plat = co_platform(props)
+    names = [ep.name for ep in plat.eps]
+    parts = dict(zip(CO_TENANTS, partition_eps(plat, len(CO_TENANTS), "interleaved")))
+    caps, slos, specs = {}, {}, []
+    for net, part in parts.items():
+        ev = make_evaluator(subplatform(plat, part, net), oracles[net].layers)
+        sh = run_shisha(weights(ev.layers), Trace(ev), "H3")
+        caps[net], slos[net] = sh.result.best_throughput, 3.0 * sum(ev.stage_times(sh.result.best_conf))
+        share, seed = CO_LOADS[net]
+        if isinstance(share, tuple):
+            gen_ = MMPPTraffic(rate_low=share[0] * caps[net], rate_high=share[1] * caps[net], seed=seed)
+        else:
+            gen_ = PoissonTraffic(rate=share * caps[net], seed=seed)
+        specs.append(Tenant(name=net, layers=tuple(ev.layers), traffic=ReplayTraffic.record(gen_, horizon),
+                            slo=slos[net]))
+    victim_part = parts["synthnet"]
+    victim_ep = max(victim_part, key=lambda e: (plat.eps[e].flops, -e))
+    faults = [("dropout", horizon / 3, victim_ep), ("revival", 2 * horizon / 3, victim_ep)]
+    out = {"platform": plat.name, "horizon_s": horizon, "knobs": CO_KNOBS,
+           "partitions": {n: [names[e] for e in p] for n, p in parts.items()},
+           "cap_micro_per_s_modelled": caps, "slo_s_modelled": slos,
+           "arrivals": {t.name: len(t.traffic.arrivals(horizon)) for t in specs},
+           "faults": [(k, t, names[e]) for k, t, e in faults]}
+    print(f"[co] {plat.name}: {json.dumps(out)}")
+
+    def run(elastic=True, loop=None, telemetry=None, power=False, chaos=None, resilience=None, fault_script=faults):
+        p = co_platform(props)
+        if power:
+            p = p.with_power(uniform_power(p, n_levels=1))
+        co = SharedClockCoSimulator(p, specs, make_evaluator=make_evaluator, elastic=elastic, loop=loop,
+                                    telemetry=telemetry, chaos=chaos, resilience=resilience, **CO_KNOBS)
+        launch = {n: (lane.conf, co.partitions[n]) for n, lane in co.lanes.items()}
+        for kind, t, ep in fault_script:
+            getattr(co, f"schedule_{kind}")(t, ep)
+        t0 = time.perf_counter()
+        res = co.run(horizon)
+        return res, co, launch, time.perf_counter() - t0
+
+    def same(what, a, b, skip=()):
+        def view(r):
+            return ([{k: v for k, v in dataclasses.asdict(x.sim).items() if k not in skip} for x in r.results],
+                    [dataclasses.asdict(e) for e in r.repartitions], r.partitions, r.dead)
+
+        if view(a) != view(b):
+            raise RuntimeError(f"{what}: the co-serve results differ")
+
+    # (a) elastic against static under the dropout and the revival
+    elastic, co, launch, host = run()
+    tuner = co.lanes["synthnet"].autotuner
+    out["knobs"] = {**{k: getattr(co, k) for k in ("heuristic", "max_batch", "batch_efficiency",
+                                                    "monitor_interval", "contention_aware", "placement", "dvfs",
+                                                    "max_bundle")},
+                    "headroom": co.elastic_partitioner.headroom,
+                    **{k: getattr(tuner, k) for k in ("alpha", "measure_batches", "reconfig_overhead",
+                                                      "reconfig_downtime", "cooldown", "batch_policy_search",
+                                                      "max_batch_cap", "batch_latency_margin", "balancing")}}
+    print("[co] knobs: interleaved partition, " + json.dumps(out["knobs"]))
+    installed = {"elastic": _check_co_run(elastic, co, launch, len(names), faults, horizon)}
+    final = {n: (lane.conf, elastic.partitions[n]) for n, lane in co.lanes.items()}
+    static, co_s, launch_s, host_s = run(elastic=False)
+    installed["static"] = _check_co_run(static, co_s, launch_s, len(names), faults, horizon)
+    if static.repartitions:
+        raise RuntimeError(f"the static run re-partitioned: {static.repartitions}")
+    revivals = [e for e in elastic.repartitions if e.kind == "revival"]
+    owners = [n for n, part in elastic.partitions.items() if victim_ep in part]
+    if [e.stolen_ep for e in revivals] != [victim_ep] or owners != [revivals[0].victim]:
+        raise RuntimeError(f"the revived {names[victim_ep]} rejoined {owners} in events {revivals}")
+    same("drain vs heap engine", elastic, run(loop=HeapEventLoop())[0])
+    # a rerun, through the entry point a user calls
+    same("co_serve vs SharedClockCoSimulator", elastic, co_serve(
+        co_platform(props), specs, horizon=horizon, make_evaluator=make_evaluator, elastic=True, faults=faults,
+        **CO_KNOBS))
+    exports = []
+    for _ in range(2):
+        tl = Telemetry()
+        same("live telemetry vs none", elastic, run(telemetry=tl)[0])
+        exports.append((tl.export_jsonl(), json.dumps(tl.export_chrome_trace(), allow_nan=False)))
+    if exports[0] != exports[1]:
+        raise RuntimeError("two seeded co-serve reruns exported different telemetry")
+    powered = run(power=True)[0]
+    same("degenerate uniform_power vs bare", elastic, powered, skip=("power",))
+    if any(r.sim.power is None for r in powered.results):
+        raise RuntimeError("the degenerate power model stepped no lane")
+
+    def arm(res, co, host_s):
+        history = {n: lane.autotuner.history for n, lane in co.lanes.items()}
+        return {"aggregate_slo_rate_modelled": res.aggregate_slo_rate,
+                "aggregate_throughput_rps_modelled": res.aggregate_throughput_rps, "host_s": host_s,
+                "tenants": {r.tenant.name: {"eps": [names[e] for e in r.ep_idxs], "launch": r.conf_pretty,
+                                            "launch_trials": r.n_trials, "batch_policy": r.batch_policy,
+                                            "summary": r.sim.summary(), "slo_rate_modelled": r.sim.slo_rate,
+                                            "retunes": [(rc["kind"], rc["t"], rc["tuning_cost_s"],
+                                                         rt.tune_result.n_explored)
+                                                        for rc, rt in zip(r.sim.reconfigs, history[r.tenant.name])]}
+                            for r in res.results}}
+
+    out["elastic"], out["static"] = arm(elastic, co, host), arm(static, co_s, host_s)
+    trials = {(n, rt.tuning_cost): rt.tune_result.n_explored for n, lane in co.lanes.items()
+              for rt in lane.autotuner.history if rt.kind == "repartition"}
+    out["events"] = [{"kind": e.kind, "t": e.t, "dead": names[e.dead_ep], "victim": e.victim, "donor": e.donor,
+                      "stolen": None if e.stolen_ep is None else names[e.stolen_ep], "price": e.price,
+                      "retune_costs_s_modelled": e.retune_costs,
+                      "retune_trials": {n: trials[(n, c)] for n, c in e.retune_costs.items()},
+                      "partitions": {n: [names[x] for x in p] for n, p in e.partitions.items()}}
+                     for e in elastic.repartitions]
+    out["elastic_beats_static"] = elastic.aggregate_slo_rate < static.aggregate_slo_rate
+    if not out["elastic_beats_static"]:
+        raise RuntimeError(f"elastic ({elastic.aggregate_slo_rate}) does not beat static ({static.aggregate_slo_rate}) "
+                           "on aggregate SLO violations")
+    print("[co] (a) events: " + json.dumps(out["events"]))
+    for which in ("elastic", "static"):
+        print(f"[co] (a) {which}: " + json.dumps(out[which]))
+    print(f"[co] (a) aggregate SLO violations (modelled): elastic {elastic.aggregate_slo_rate!r}, static "
+          f"{static.aggregate_slo_rate!r}: elastic beats static: {out['elastic_beats_static']}; partitions "
+          "disjoint and covering the alive EPs after every event, no split on a dead EP, every request accounted "
+          "for, drain == heap engine, a co_serve rerun == SharedClockCoSimulator, live Telemetry == none, "
+          "exports byte-identical over two reruns, degenerate uniform_power == bare")
+
+    # (b) chaos: seeded failures of the SEPs, transient batch errors, on the
+    # launch partitions (each keeps its FEPs): an elastic run can drain a
+    # tenant down to SEPs, and a lane whose last EP dies while another lane
+    # explores raises, in the reference as in the port (ROADMAP.md queue 3)
+    worst = max(e.perf_class for e in plat.eps)
+    seps = [i for i, ep in enumerate(plat.eps) if ep.perf_class == worst]
+    chaos = FaultModel(seed=7, ep_mtbf={worst: ONLINE_MTBF * horizon}, ep_mttr={worst: ONLINE_MTTR * horizon},
+                       batch_error_p=ONLINE_BATCH_ERROR_P)
+    policy = ResiliencePolicy(deadline_s=max(slos.values()), max_retries=2, queue_cap=256)
+    first, co_c, launch_c, host_c = run(elastic=False, chaos=chaos, resilience=policy, fault_script=())
+    same("chaos rerun", first, run(elastic=False, chaos=chaos, resilience=policy, fault_script=())[0])
+    _check_co_run(first, co_c, launch_c, len(names), [], horizon, gap_ok=True)
+    strict = json.dumps([[dataclasses.asdict(r.sim) for r in first.results],
+                         [dataclasses.asdict(e) for e in first.repartitions]], allow_nan=False)
+    out["chaos"] = {"failing": [names[e] for e in seps], "mtbf_s": ONLINE_MTBF * horizon,
+                    "mttr_s": ONLINE_MTTR * horizon, "batch_error_p": ONLINE_BATCH_ERROR_P,
+                    "retunes": {r.tenant.name: [rc["kind"] for rc in r.sim.reconfigs] for r in first.results},
+                    "strict_json_bytes": len(strict), "host_s": host_c,
+                    "aggregate_slo_rate_modelled": first.aggregate_slo_rate,
+                    "tenants": {r.tenant.name: {"availability": r.sim.availability, "n_retries": r.sim.n_retries,
+                                                "n_shed": r.sim.n_shed, "n_failed": r.sim.n_failed,
+                                                "summary": r.sim.summary()} for r in first.results}}
+    print("[co] (b) chaos, two seeded runs identical, strict JSON: " + json.dumps(out["chaos"]))
+
+    # (c) every installed split on the card, alone; then the final splits together
+    seqs = {net: torch.stack([m(x) for x in micro]) for net, (m, micro) in tenants.items()}
+    runners, out["splits"] = {}, {}
+    for net, (model, micro) in tenants.items():
+        seen = {}
+        for which, rows in installed.items():
+            for row in rows[net]:
+                seen.setdefault(row["conf"].stages, []).append(
+                    f"{which} {row['kind']} @{row['t']:.3f}s on {[names[e] for e in row['eps']]}")
+        for stages, why in seen.items():
+            conf = PipelineConfig(stages=stages, eps=tuple(range(len(stages))))
+            runner = PipelineRunner(mesh=make_stage_mesh(conf.depth, micro.device), conf=conf,
+                                    apply_layer=model.apply_layer, n_micro=N_MICRO)
+            got = runner.run(micro)
+            if not torch.equal(got, seqs[net]):
+                raise RuntimeError(f"{net}'s installed split {stages} differs from the sequential model")
+            row = {"installed": why, "measured_micro_per_s": pipeline_throughput(runner, micro)}
+            out["splits"][f"{net} {list(stages)}"] = row
+            print(f"[co] {net} split {list(stages)} ({len(why)} installs: {', '.join(why)}) as a stream pipeline: "
+                  f"== sequential, measured {row['measured_micro_per_s']:.3f} micro/s on {micro.device}")
+        conf, part = final[net]
+        runners[net] = PipelineRunner(mesh=make_stage_mesh(conf.depth, micro.device), conf=conf,
+                                      apply_layer=model.apply_layer, n_micro=N_MICRO)
+    out["together"] = co_run_together(tenants, runners, seqs)
+    for net, (conf, part) in final.items():
+        ev = make_evaluator(subplatform(plat, part, net), oracles[net].layers)
+        out["together"][net]["modelled_micro_per_s"] = ev.throughput(conf)
+        out["together"][net]["split"] = conf.pretty([names[e] for e in part])
+    print("[co] (c) final splits as graphs alone, together and back to back (measured on the card; modelled on "
+          "the lane's oracle): "
+          + json.dumps(out["together"]))
+    return out
+
+
+def co_run_together(tenants: dict, runners: dict, seqs: dict) -> dict:
+    """Each tenant's final split alone, then all of them on the card at once.
+
+    Issued from the host, a split's run is host-bound (a wrapper's issue
+    outlasts a small conv on the device), and one host thread issues one
+    tenant after the other, so host-issued runs only add up.  So each split
+    is captured once as a CUDA graph, which the host launches in one call.
+    Alone, each graph is replayed by itself; together, all of them are
+    replayed on streams of their own before one synchronise, so the card
+    holds every tenant at once.  Every replay's output must equal its
+    sequential model.  Microbatches/s are each tenant's microbatches over
+    its graph's span on the device (CUDA events from one start to its last
+    stage), best of CO_REPS; ``back_to_back`` is what each would get if the
+    graphs ran one after the other, so ``together`` above it is overlap.
+    ``alone_issued`` is the host-issued split's ``pipeline_throughput``,
+    the beat of the lanes' oracle.  On the CPU only that."""
+    out = {net: {"alone_issued_micro_per_s": pipeline_throughput(runners[net], tenants[net][1])} for net in runners}
+    device = next(iter(tenants.values()))[1].device
+    if device.type != "cuda":
+        return out
+    graphs = {}
+    for net, runner in runners.items():
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = runner.run(tenants[net][1])
+        graphs[net] = (graph, got)
+    callers = {net: torch.cuda.Stream(device=device) for net in runners}
+
+    def replay(nets) -> dict:
+        """Launch ``nets``' graphs on their own streams; each one's span in ms."""
+        start, ends = torch.cuda.Event(enable_timing=True), {}
+        start.record()
+        for net in nets:
+            callers[net].wait_event(start)
+            with torch.cuda.stream(callers[net]):
+                graphs[net][0].replay()
+                ends[net] = torch.cuda.Event(enable_timing=True)
+                ends[net].record()
+        torch.cuda.synchronize(device)
+        for net in nets:
+            if not torch.equal(graphs[net][1], seqs[net]):
+                raise RuntimeError(f"{net}'s final split replayed {'with the others' if len(nets) > 1 else 'alone'} "
+                                   "differs from the sequential model")
+        return {net: start.elapsed_time(ends[net]) for net in nets}
+
+    def best(nets) -> dict:
+        replay(nets)  # warm-up
+        spans = [replay(nets) for _ in range(CO_REPS)]
+        return {net: min(s[net] for s in spans) for net in nets}
+
+    alone = {net: best([net])[net] for net in runners}
+    together = best(list(runners))
+    for net, runner in runners.items():
+        out[net].update({"alone_ms": alone[net], "alone_micro_per_s": runner.n_micro / alone[net] * 1e3,
+                         "together_ms": together[net],
+                         "together_micro_per_s": runner.n_micro / together[net] * 1e3,
+                         "back_to_back_micro_per_s": runner.n_micro / sum(alone.values()) * 1e3})
     return out
 
 
@@ -2927,6 +3359,23 @@ def main() -> int:
         raise RuntimeError("phase 5c's pipelines never launched the conv kernel")
     print(f"[online] done in {time.perf_counter() - t0:.1f} s, conv launches {im2col_conv.launches - before} "
           f"({smi.stdout.strip().splitlines()[0]})")
+    t0, before = time.perf_counter(), im2col_conv.launches
+    co_plat = co_platform()
+    tenants = {}
+    for net, (shape, seed) in CO_TENANTS.items():
+        measured = measure_cnn(net, co_plat, device="cuda", in_shape=shape, seed=seed)
+        micro = torch.randn((N_MICRO, BATCH, *shape), generator=measured.gen, device="cuda")
+        tenants[net] = (measured, micro)
+        print(f"[co] {net} measured layer ms (microbatch of {BATCH}, {shape}): "
+              + json.dumps([round(t * 1e3, 4) for t in measured.evaluator.measured]))
+    co_serve_online({net: (m.model, micro) for net, (m, micro) in tenants.items()},
+                    {net: m.evaluator for net, (m, _) in tenants.items()})
+    torch.cuda.synchronize()
+    if im2col_conv.launches == before:
+        raise RuntimeError("phase 5d's pipelines never launched the conv kernel")
+    print(f"[co] done in {time.perf_counter() - t0:.1f} s, conv launches {im2col_conv.launches - before} "
+          f"({smi.stdout.strip().splitlines()[0]})")
+    del tenants
     del res, model, out, seq, plain
     torch.cuda.empty_cache()
 

@@ -10,7 +10,8 @@ and DVFS moves over them.  Without either, every result is the scalar-link
 one, bit for bit.  A platform may also carry a chaos fault model
 (``Platform.with_faults``, :mod:`repro_torch.faults`), which the serving
 simulator expands; a :class:`Trace` may carry a telemetry session.  The
-LM-block cost formulas are not copied yet.
+cost model carries the LM-block formulas too (attention, FFN/MoE, SSD,
+``fuse``), which ``models/transformer.py::layer_costs`` chains.
 """
 
 from .baselines import (
@@ -24,7 +25,16 @@ from .baselines import (
     simulated_annealing,
 )
 from .config import PipelineConfig
-from .cost_model import Layer, conv_layer, weights
+from .cost_model import (
+    Layer,
+    attention_layer,
+    conv_layer,
+    ffn_layer,
+    fuse,
+    ssd_layer,
+    total_flops,
+    weights,
+)
 from .evaluator import AnalyticEvaluator, DatabaseEvaluator, Evaluator, Trace, Trial
 from .heuristics import HEURISTICS, ShishaResult, run_shisha
 from .platform import EP, Platform, paper_platform, table3_platform
@@ -48,11 +58,14 @@ __all__ = [
     "Trial",
     "TuneResult",
     "assign_eps",
+    "attention_layer",
     "compositions",
     "conv_layer",
     "database_generation_cost",
     "enumerate_configs",
     "exhaustive_search",
+    "ffn_layer",
+    "fuse",
     "generate_seed",
     "hill_climbing",
     "merge_layers",
@@ -66,7 +79,9 @@ __all__ = [
     "run_shisha",
     "simulated_annealing",
     "space_size",
+    "ssd_layer",
     "table3_platform",
+    "total_flops",
     "tune",
     "weights",
 ]

@@ -4,7 +4,8 @@
 ``chip_smoke.py`` run:
 
 1. build a runnable SynthNet from its layer table, weights from a seed;
-2. measure each layer on the device (the live ``execute()`` oracle);
+2. measure each layer on the device (the live ``execute()`` oracle;
+   :func:`measure_cnn` does steps 1–2 for any of the repo's CNNs);
 3. run Shisha — Algorithm 1 seed, Algorithm 2 tuning, heuristic H3 — on a
    4-EP platform of streams whose EP derates emulate FEP/SEP chiplets;
 4. run the chosen split as a GPipe pipeline of microbatches, one CUDA
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 
@@ -68,6 +70,42 @@ class CNNLoopResult:
         return lines
 
 
+class MeasuredCNN(NamedTuple):
+    """A runnable CNN with weights from a seed, and its measured oracle."""
+
+    model: CNNModel
+    evaluator: MeasuringEvaluator
+    #: the seeded generator after the weights were drawn, for the inputs
+    gen: torch.Generator
+
+
+def measure_cnn(
+    network: str,
+    platform: Platform,
+    *,
+    device: str | torch.device = "cuda",
+    in_shape: tuple[int, int, int] = (220, 220, 3),
+    seed: int = 0,
+    scale: float = 1.0,
+) -> MeasuredCNN:
+    """Steps 1–2 for any network of ``models.cnn.NETWORKS``: build it at
+    channel ``scale`` on ``device`` with weights from ``seed``, and time
+    each layer on a zero probe of ``BATCH`` images of ``in_shape`` (H, W,
+    C) — the measured oracle over ``platform``.  ``dataclasses.replace(
+    evaluator, platform=p)`` measures again over ``p``;
+    ``evaluator.on_platform(p)`` does not."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = make_cnn(network, scale=scale, device=device).init(gen)
+    x_probe = torch.zeros((BATCH, *in_shape), device=device)
+    layer_fns = [lambda x, i=i: model.apply_layer(i, x) for i in range(len(model.specs))]
+    ev = MeasuringEvaluator(
+        platform, network_layers(network), layer_fns=layer_fns, layer_args=[(x_probe,)] * len(layer_fns),
+        device=device,
+    )
+    return MeasuredCNN(model, ev, gen)
+
+
 def serve_cnn(
     *,
     device: str | torch.device = "cuda",
@@ -78,22 +116,12 @@ def serve_cnn(
     """Steps 1–5 on ``device`` with SynthNet at channel ``scale``; inputs
     of ``in_shape`` (H, W, C) per image; weights and inputs from ``seed``."""
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    model = make_cnn("synthnet", scale=scale, device=device).init(gen)
-    cost_layers = network_layers("synthnet")
     props = _CPU_PROPS if device.type == "cpu" else torch.cuda.get_device_properties(device)
     platform = h100_platform_from_streams(N_STAGES, props=props)
 
     # 1-2. measured oracle + Shisha
-    x_probe = torch.zeros((BATCH, *in_shape), device=device)
-    layer_fns = [lambda x, i=i: model.apply_layer(i, x) for i in range(len(model.specs))]
-    probe_args = [(x_probe,)] * len(layer_fns)
-
-    def evaluator(p: Platform) -> MeasuringEvaluator:
-        return MeasuringEvaluator(p, cost_layers, layer_fns=layer_fns, layer_args=probe_args, device=device)
-
-    ev = evaluator(platform)
-    shisha = run_shisha(weights(cost_layers), Trace(ev), "H3", n_stages=N_STAGES)
+    model, ev, gen = measure_cnn("synthnet", platform, device=device, in_shape=in_shape, seed=seed, scale=scale)
+    shisha = run_shisha(weights(ev.layers), Trace(ev), "H3", n_stages=N_STAGES)
     conf = shisha.result.best_conf
 
     # 3. run it for real
@@ -105,7 +133,7 @@ def serve_cnn(
     tp = pipeline_throughput(runner, micro)
 
     # 4. straggler: one stage's EP becomes slower; re-measure and re-tune
-    mit = StragglerMitigator(platform, conf, lambda p: Trace(evaluator(p)))
+    mit = StragglerMitigator(platform, conf, lambda p: Trace(dataclasses.replace(ev, platform=p)))
     times = ev.stage_times(conf)
     times[STRAGGLER_STAGE] *= STRAGGLER_FACTOR
     rebalanced = mit.rebalance(times)

@@ -31,6 +31,8 @@ patch prefix (internvl: projected patch embeddings before the tokens).
     (here and in decode) on the batched GEMM kernel.
   * ``serve_step(cfg, params, cache, tokens)`` — one-token decode.
   * ``serve_block`` / ``make_serve_step`` — ``decode_block`` tokens per call.
+  * ``layer_costs(cfg, seq, batch)`` — the scheduler's static per-block
+    costs (``core/cost_model.py``), from the config alone.
 
 The layer loop is a Python loop over views of the ``[L, ...]`` stacks where
 the reference has ``lax.scan``.  The cache is a dict of stacked tensors as
@@ -504,3 +506,55 @@ def _prefill_encdec(cfg: LMConfig, params: dict, batch: dict):
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     return _logits(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Shisha integration: per-layer static costs (generalized Eq. 1)
+# ---------------------------------------------------------------------------
+
+
+def layer_costs(cfg: LMConfig, seq: int, batch: int = 1):
+    """Per-block cost layers for the scheduler (generalized Eq. 1): one
+    per block, fused from its attention, FFN / MoE and SSD parts.  Reads only
+    the config; no tensor is made."""
+    from ..core.cost_model import Layer, attention_layer, ffn_layer, fuse, ssd_layer
+
+    out: list[Layer] = []
+    if cfg.is_encdec:
+        for i in range(cfg.enc_layers):
+            a = attention_layer(f"enc{i}.attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.enc_frames, batch=batch)
+            f = ffn_layer(f"enc{i}.ffn", cfg.d_model, cfg.d_ff, seq=cfg.enc_frames, batch=batch)
+            out.append(fuse(f"enc{i}", [a, f]))
+        dec_len = min(seq, cfg.max_decoder_len or seq)
+        for i in range(cfg.n_layers):
+            a = attention_layer(f"dec{i}.attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads, dec_len, batch=batch)
+            c = attention_layer(f"dec{i}.cross", cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.enc_frames, batch=batch)
+            f = ffn_layer(f"dec{i}.ffn", cfg.d_model, cfg.d_ff, seq=dec_len, batch=batch)
+            out.append(fuse(f"dec{i}", [a, c, f]))
+        return out
+    if cfg.block_kind == "attn":
+        for i in range(cfg.n_layers):
+            a = attention_layer(
+                f"blk{i}.attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads, seq, batch=batch,
+                window=cfg.sliding_window or None,
+            )
+            f = ffn_layer(
+                f"blk{i}.ffn", cfg.d_model, cfg.d_ff, seq=seq, batch=batch,
+                gated=cfg.ffn_kind == "swiglu",
+                n_experts=cfg.n_experts, top_k=cfg.top_k,
+            )
+            out.append(fuse(f"blk{i}", [a, f], kind="moe" if cfg.is_moe else "block"))
+        return out
+    # ssd / hybrid
+    for i in range(cfg.n_layers):
+        s = ssd_layer(f"blk{i}.ssd", cfg.d_model, cfg.ssm_state, seq=seq, batch=batch, expand=cfg.ssm_expand)
+        if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
+            a = attention_layer(
+                f"blk{i}.shared_attn", cfg.d_model, cfg.n_heads, cfg.n_kv_heads, seq, batch=batch,
+                window=cfg.sliding_window or None,
+            )
+            f = ffn_layer(f"blk{i}.shared_ffn", cfg.d_model, cfg.d_ff, seq=seq, batch=batch)
+            out.append(fuse(f"blk{i}", [s, a, f], kind="hybrid"))
+        else:
+            out.append(s)
+    return out

@@ -100,21 +100,25 @@ class MeasuringEvaluator(AnalyticEvaluator):
         ]
 
     def on_platform(self, platform: Platform) -> "MeasuringEvaluator":
-        """The same oracle over ``platform``, which has the same EPs by count
-        and name, at the same or other speeds: with a fabric or a power model
-        attached, say, or the scheduler's model of a drifted machine
-        (``serve.autotuner.drifted_platform``).  The layers measured here
-        serve it, and nothing is measured again.
+        """The same oracle over ``platform``, whose EPs are distinct EPs of
+        the measured platform, matched by name, in any order and any number
+        from one up, at the same or other speeds: with a fabric or a power
+        model attached, say, the scheduler's model of a drifted machine
+        (``serve.autotuner.drifted_platform``), or one tenant's partition of
+        it (``serve.multitenant.subplatform``) and its drifted copies.  The
+        layers measured here serve it, and nothing is measured again.
 
         Each EP's derate is the measured platform's fastest FLOP/s over the
         EP's own, so an EP slowed by ``f`` runs every layer ``f`` times
-        slower, even when every fast EP has drifted, and a dead EP (buried at
-        1e-9 FLOP/s) gets a huge finite derate.  On the same EPs the derates
-        are the measured platform's, bit for bit.
+        slower, even when every fast EP has drifted, a dead EP (buried at
+        1e-9 FLOP/s) gets a huge finite derate, and an EP runs a layer at the
+        same speed in whichever partition holds it.  On the same EPs the
+        derates are the measured platform's, bit for bit.
         """
         names = [ep.name for ep in platform.eps]
-        if names != [ep.name for ep in self.platform.eps]:
-            raise ValueError(f"{platform.name} has other EPs than {self.platform.name}: {names}")
+        known = {ep.name for ep in self.platform.eps}
+        if len(set(names)) != len(names) or not known.issuperset(names):
+            raise ValueError(f"{platform.name}'s EPs {names} are not distinct EPs of {self.platform.name}")
         other = copy.copy(self)
         other.platform = platform
         other.derates = EPDerates(tuple(self.base_flops / ep.flops for ep in platform.eps))

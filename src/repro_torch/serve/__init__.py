@@ -14,10 +14,10 @@ paying Algorithm 2's online exploration cost again?".
   * :mod:`.autotuner`    — continuous Shisha: drift detection, mid-flight
                            re-tuning and batch-knob search charged to the
                            simulated clock.
-
-The reference's multi-tenant layer (``multitenant``: EP partitioning,
-``co_serve`` and the shared-clock elastic co-simulator) is not copied yet;
-it comes with the next slice of the port.
+  * :mod:`.multitenant`  — disjoint EP partitioning plus the shared-clock
+                           elastic co-simulator: all tenants on one
+                           discrete-event timeline, with mid-flight EP
+                           re-allocation under faults.
 """
 
 from .autotuner import (
@@ -28,6 +28,20 @@ from .autotuner import (
     Retune,
     drifted_platform,
     tune_batch_policy,
+)
+from .multitenant import (
+    PARTITION_STRATEGIES,
+    CoServeResult,
+    ElasticPartitioner,
+    RepartitionEvent,
+    SharedClockCoSimulator,
+    Tenant,
+    TenantResult,
+    co_schedule,
+    co_serve,
+    compare_partitions,
+    partition_eps,
+    subplatform,
 )
 from .simulator import (
     EventLoop,
@@ -49,25 +63,37 @@ from .traffic import (
 )
 
 __all__ = [
+    "CoServeResult",
     "ContinuousShisha",
     "DRIFT_KINDS",
     "DiurnalTraffic",
     "Drift",
     "DriftDetector",
+    "ElasticPartitioner",
     "EventLoop",
     "HeapEventLoop",
     "MMPPTraffic",
+    "PARTITION_STRATEGIES",
     "PoissonTraffic",
+    "RepartitionEvent",
     "Replatform",
     "ReplayTraffic",
     "Request",
     "Retune",
     "ServingSimulator",
+    "SharedClockCoSimulator",
     "SimResult",
+    "Tenant",
+    "TenantResult",
     "TrafficGenerator",
+    "co_schedule",
+    "co_serve",
+    "compare_partitions",
     "drifted_platform",
     "interarrival_cv2",
+    "partition_eps",
     "percentile",
     "slo_violation_rate",
+    "subplatform",
     "tune_batch_policy",
 ]

@@ -309,3 +309,30 @@ def test_merge_layers_properties():
     check()
     assert core.merge_layers([2.0, 1.0, 9.0, 9.0], 3)[0] == [0, 1]  # the lighter neighbour
     assert {"merge_layers", "assign_eps", "Evaluator"} <= set(core.__all__)
+
+
+@pytest.mark.parametrize("case", [
+    ("attention_layer", ("a", 2048, 32, 8, 512), dict(batch=4)),
+    ("attention_layer", ("a", 5120, 40, 8, 4096), dict(window=1024, dtype_bytes=4)),
+    ("ffn_layer", ("f", 2048, 8192), dict(seq=512, batch=4)),
+    ("ffn_layer", ("f", 768, 3072), dict(seq=448, gated=False)),
+    ("ffn_layer", ("m", 4096, 6400), dict(seq=512, n_experts=16, top_k=2)),
+    ("ssd_layer", ("s", 768, 128), dict(seq=512, batch=4)),
+    ("ssd_layer", ("s", 2560, 64), dict(seq=2048, expand=2, dtype_bytes=4)),
+])
+def test_lm_block_cost_formulas_equal_the_reference(case):
+    fn, args, kw = case
+    ours, theirs = getattr(core, fn)(*args, **kw), getattr(jcore, fn)(*args, **kw)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.weight == theirs.weight and ours.flops > 0
+
+
+def test_fuse_and_total_flops_equal_the_reference():
+    def parts(m):
+        return [m.attention_layer("a", 2048, 32, 8, 512), m.ffn_layer("f", 2048, 8192, seq=512),
+                m.ssd_layer("s", 2048, 128, seq=512)]
+
+    ours, theirs = core.fuse("blk", parts(core), kind="hybrid"), jcore.fuse("blk", parts(jcore), kind="hybrid")
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.act_bytes == parts(core)[-1].act_bytes
+    assert core.total_flops(parts(core)) == jcore.total_flops(parts(jcore)) == sum(p.flops for p in parts(core))

@@ -4,8 +4,9 @@
 ``Platform.with_faults`` of the reference's.  The same fault model on the
 same platform must give the same chaos trace and the same batch-failure
 streams; the serving simulator driven by it (with and without a
-``ResiliencePolicy`` and ``ContinuousShisha``) the same ``SimResult``.  The
-parts of ``tests/test_chaos.py`` that need no ``co_serve`` are mirrored.
+``ResiliencePolicy`` and ``ContinuousShisha``) the same ``SimResult``, and
+``co_serve`` with a fault model and a policy the same ``CoServeResult``.
+``tests/test_chaos.py`` is mirrored.
 """
 
 import dataclasses
@@ -217,3 +218,31 @@ def test_severed_boundary_and_link_state_match_reference():
     ours, theirs = _run(fn)
     assert ours == theirs
     assert math.isinf(ours[0]) and ours[4] == 0.0
+
+
+def test_co_serve_chaos_matches_reference_and_is_deterministic():
+    """``co_serve(chaos=, resilience=)``: the seeded fault trace expanded over
+    the global platform and every lane's policy give the reference's
+    ``CoServeResult``, twice."""
+
+    def go(m):
+        layers = tuple(m.cnn.network_layers("synthnet"))
+        tenants = [m.serve.Tenant(name="a", layers=layers, traffic=m.serve.PoissonTraffic(rate=4.0, seed=1)),
+                   m.serve.Tenant(name="b", layers=layers, traffic=m.serve.PoissonTraffic(rate=4.0, seed=2))]
+        chaos = m.faults.FaultModel(**{**CHAOS, "batch_error_p": 0.1})
+        pol = m.faults.ResiliencePolicy(deadline_s=5.0, max_retries=2, queue_cap=256)
+        return m.serve.co_serve(_platform(m), tenants, horizon=12.0, chaos=chaos, resilience=pol, measure_batches=2,
+                                alpha=4)
+
+    ours, theirs = _run(go)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert [r.sim for r in ours.results] == [r.sim for r in go(PORT).results]
+    assert all(r.sim.goodput_rps <= r.sim.throughput_rps for r in ours.results)
+    assert sum(r.sim.n_retries for r in ours.results) > 0
+    json.dumps([dataclasses.asdict(r.sim) for r in ours.results], allow_nan=False)
+
+
+def test_subplatform_drops_fault_spec():
+    plat = core.paper_platform(4).with_faults(faults.FaultModel(**CHAOS))
+    assert serve.subplatform(plat, [0, 1], "sub").faults is None
+    assert plat.without([3]).faults is None

@@ -286,6 +286,39 @@ def test_online_phase_on_the_card():
     assert all(row["measured_micro_per_s"] > 0 for row in out["splits"].values())
 
 
+def test_co_serve_phase_on_the_card():
+    """``chip_smoke.co_serve_online`` (phase 5d: SynthNet and ResNet50
+    co-served on their measured oracles, elastic against static under a
+    dropout and a revival, chaos, every installed split as a stream
+    pipeline and both final splits as CUDA graphs alone and together, each
+    equal to its sequential model) at small widths and a short horizon on
+    the card, where its pipelines launch the conv."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.launch.serve_cnn import BATCH, N_MICRO, measure_cnn
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    plat = smoke.co_platform()
+    tenants, oracles = {}, {}
+    for net, (_, seed) in smoke.CO_TENANTS.items():
+        m = measure_cnn(net, plat, device="cuda", in_shape=(16, 16, 8), seed=seed, scale=0.12)
+        tenants[net] = (m.model, torch.randn((N_MICRO, BATCH, 16, 16, 8), generator=m.gen, device="cuda"))
+        oracles[net] = m.evaluator
+    before = im2col_conv.launches
+    out = smoke.co_serve_online(tenants, oracles, horizon=20.0)
+    torch.cuda.synchronize()
+    assert im2col_conv.launches > before
+    assert [e["kind"] for e in out["events"]] == ["dropout", "revival"]
+    assert all(row["measured_micro_per_s"] > 0 for row in out["splits"].values())
+    for row in out["together"].values():
+        assert row["alone_issued_micro_per_s"] > 0 and row["alone_micro_per_s"] > 0
+        assert row["together_micro_per_s"] > 0 and row["back_to_back_micro_per_s"] < row["alone_micro_per_s"]
+
+
 # ---------------------------------------------------------------------------
 # LM serving kernels: flash attention and the SSD chunk scan
 # ---------------------------------------------------------------------------

@@ -112,6 +112,19 @@ def _shapes(tree):
     return {k: _shapes(v) if isinstance(v, dict) else tuple(v.shape) for k, v in tree.items()}
 
 
+@pytest.mark.parametrize("seq,batch", [(2048, 1), (512, 4)])
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_layer_costs_equal_the_reference(arch, seq, batch):
+    """The scheduler's per-block costs (``tests/test_models.py``'s chain
+    cover), ``Layer`` for ``Layer``, from the full-size config alone."""
+    ours = transformer.layer_costs(configs.get_config(arch), seq=seq, batch=batch)
+    theirs = jtf.layer_costs(jconfigs.get_config(arch), seq=seq, batch=batch)
+    assert [dataclasses.asdict(c) for c in ours] == [dataclasses.asdict(c) for c in theirs]
+    cfg = configs.get_config(arch)
+    assert len(ours) == cfg.n_layers + (cfg.enc_layers if cfg.is_encdec else 0)
+    assert all(c.flops > 0 for c in ours)
+
+
 @pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_param_tree_keys_and_shapes_equal_the_reference(arch):
     """Full width through shapes only (eval_shape / param_spec); the smoke

@@ -277,7 +277,7 @@ def test_measuring_evaluator_on_platform_measures_nothing_again(model):
     assert other.platform is bare and other.measured is ev.measured and ev.platform.fabric is not None
     conf = _seed_conf(3)
     assert other.stage_times(conf) == ev.stage_times(conf)  # the measured oracle ignores both models
-    with pytest.raises(ValueError, match="other EPs"):
+    with pytest.raises(ValueError, match="not distinct EPs"):
         ev.on_platform(paper_platform(4))
 
 
@@ -338,8 +338,8 @@ def test_measuring_evaluator_serves_a_drifted_platform(model, factors, dead):
                 t += layers[b - 1].act_bytes / bare.eps[e].link_bw + bare.eps[e].link_latency
             want.append(t)
         assert other.stage_times(conf) == want
-    with pytest.raises(ValueError, match="other EPs"):
-        ev.on_platform(dataclasses.replace(bare, eps=bare.eps[:3]))
+    with pytest.raises(ValueError, match="not distinct EPs"):
+        ev.on_platform(dataclasses.replace(bare, eps=(bare.eps[0], *bare.eps[:3])))
 
 
 def test_measuring_evaluator_on_the_same_eps_keeps_its_derates(model):
@@ -351,6 +351,50 @@ def test_measuring_evaluator_on_the_same_eps_keeps_its_derates(model):
         assert other.derates == ev.derates == EPDerates.from_platform(plat)
         conf = _seed_conf(3)
         assert other.stage_times(conf) == ev.stage_times(conf)
+
+
+@pytest.mark.parametrize("part", [(0, 2), (3, 1), (2,), (1, 3, 0, 2)])
+@pytest.mark.parametrize("factors,dead", [((1.0, 1.0, 1.0, 1.0), ()), ((2.0, 1.0, 4.0, 1.0), ()),
+                                          ((1.0, 2.0, 1.0, 1.0), (0,))])
+def test_measuring_evaluator_serves_a_tenant_partition_and_its_drifted_copy(factors, dead, part):
+    """``on_platform`` of one tenant's partition (``serve.subplatform``: the
+    chosen EPs reindexed from 0, in any order) and of a drifted copy of it:
+    each EP runs a layer at the measured speed it has in the whole platform,
+    times its own drift; nothing is measured again.  Stage times are the
+    measured layer times scaled by the derates, on CPU stand-in layers."""
+    from repro_torch.serve import drifted_platform, subplatform
+
+    layers = network_layers("synthnet")
+    fns = [lambda x, i=i: x + i for i in range(len(layers))]
+    bare = h100_platform_from_streams(4, props=H100_PROPS)
+    ev = MeasuringEvaluator(bare, layers, layer_fns=fns, layer_args=[(torch.zeros(2),)] * len(fns), reps=1,
+                            device="cpu")
+    sub = subplatform(bare, part, "tenant")
+    drift = EPDerates(factors=tuple(factors[g] for g in part))
+    local_dead = frozenset(i for i, g in enumerate(part) if g in dead)
+    for plat in (sub, drifted_platform(sub, drift, dead=local_dead)):
+        other = ev.on_platform(plat)
+        assert other.measured is ev.measured and other.platform is plat
+        for i, g in enumerate(part):
+            if plat is sub:
+                assert other.derates.factors[i] == ev.derates.factors[g]
+            elif i in local_dead:
+                assert other.derates.factors[i] > 1e15 * ev.derates.factors[g]
+            else:
+                assert other.derates.factors[i] == factors[g] * ev.derates.factors[g]
+        seed = generate_seed(weights(layers), plat, n_stages=len(part)).conf
+        want = []
+        for s, (a, b) in enumerate(seed.boundaries()):
+            e = seed.eps[s]
+            t = sum(other.derates.scale(e, ev.measured[i]) + ev.layer_overhead for i in range(a, b))
+            if s < seed.depth - 1:
+                t += layers[b - 1].act_bytes / plat.eps[e].link_bw + plat.eps[e].link_latency
+            want.append(t)
+        assert other.stage_times(seed) == want
+    with pytest.raises(ValueError, match="not distinct EPs"):
+        ev.on_platform(dataclasses.replace(sub, eps=(sub.eps[0], sub.eps[0])))
+    with pytest.raises(ValueError, match="not distinct EPs"):
+        ev.on_platform(dataclasses.replace(sub, eps=(dataclasses.replace(sub.eps[0], name="elsewhere"),)))
 
 
 #: SynthNet's layer times (ms, microbatch of 2) as phase 4 of chip_smoke.py
@@ -382,3 +426,150 @@ def test_chip_smoke_online_phase_runs_on_cpu(monkeypatch):
     assert "throttle" in out["thermal"]["kinds"] and out["thermal"]["throttle_events_modelled"] > 0
     assert out["chaos"]["n_retries"] > 0 and 0.0 < out["chaos"]["availability"] <= 1.0
     assert len(out["splits"]) >= 3
+
+
+#: SynthNet's and ResNet50's layer times (ms, microbatch of 2, 220x220x3 and
+#: 224x224x3) as phase 5d of chip_smoke.py measured them over 8 stream EPs on
+#: an NVIDIA H100 80GB HBM3 at 700 W
+CARD_CO_MS = {
+    "synthnet": (0.0883, 0.4404, 0.4534, 0.3704, 0.4896, 0.9534, 0.4076, 0.3785, 0.4785, 0.385, 0.9529, 0.4892,
+                 0.395, 0.3795, 0.4611, 0.9526, 0.396, 0.4938),
+    "resnet50": (0.1033, 0.4796, 0.4871, 0.4891, 0.5514, 0.5252, 0.4947, 0.4182, 0.4073, 0.4147, 0.4907, 0.474,
+                 0.4515, 0.4652, 0.4748, 0.4593, 0.5296, 0.4975, 0.4859, 0.4898, 0.4794, 0.459, 0.4927, 0.4838,
+                 0.4929, 0.4845, 0.446, 0.4495, 0.4637, 0.4559, 0.4576, 0.444, 0.4541, 0.4332, 0.4477, 0.4426,
+                 0.449, 0.4591, 0.4484, 0.4525, 0.4429, 0.4462, 0.4633, 0.4552, 0.4461, 0.4463, 0.4449, 0.4394,
+                 0.4431, 0.4619),
+}
+
+
+def test_chip_smoke_co_serve_phase_runs_on_cpu(monkeypatch):
+    """``chip_smoke.co_serve_online`` (phase 5d) on the card's SynthNet and
+    ResNet50 layer times with tiny models' pipelines on the CPU: its checks
+    hold, the dropout is answered by a steal and the revival by a grant, and
+    every installed split equals its sequential model."""
+    import importlib.util
+
+    from repro_torch.launch.serve_cnn import BATCH, N_MICRO, measure_cnn
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(smoke, "pipeline_throughput", lambda runner, micro: float("nan"))  # CPU speed: no reading
+    plat = smoke.co_platform(H100_PROPS)
+    tenants, oracles = {}, {}
+    for net, card_ms in CARD_CO_MS.items():
+        m = measure_cnn(net, plat, device="cpu", in_shape=IN_SHAPE, seed=smoke.CO_TENANTS[net][1], scale=0.12)
+        m.evaluator.measured[:] = [t * 1e-3 for t in card_ms]
+        tenants[net] = (m.model, torch.randn((N_MICRO, BATCH, *IN_SHAPE), generator=m.gen))
+        oracles[net] = m.evaluator
+    out = smoke.co_serve_online(tenants, oracles, horizon=30.0, props=H100_PROPS)
+    events = out["events"]
+    assert [e["kind"] for e in events] == ["dropout", "revival"]
+    assert events[0]["victim"] == "synthnet" and events[0]["donor"] == "resnet50"
+    assert events[1]["victim"] == "synthnet" and events[1]["stolen"] == events[0]["dead"]
+    assert out["static"]["tenants"]["synthnet"]["retunes"][0][0] == "dropout"
+    assert out["elastic_beats_static"]
+    assert any(out["chaos"]["retunes"].values()) and out["chaos"]["strict_json_bytes"] > 0
+    assert len(out["splits"]) >= 4
+
+
+def _co_specs(m, plat_of, scale_r50=1.0):
+    """Phase 5d's tenants in package ``m`` (``repro`` or ``repro_torch``):
+    the card's measured oracles, their caps on the interleaved partition, the
+    reference fixture's recorded loads and 3x-latency SLOs."""
+    from repro_torch.launch.serve_cnn import measure_cnn
+
+    plat = plat_of()
+    oracles = {}
+    for net, card_ms in CARD_CO_MS.items():
+        ev = measure_cnn(net, h100_platform_from_streams(8, props=H100_PROPS), device="cpu", in_shape=IN_SHAPE,
+                         scale=0.12).evaluator
+        ev.measured[:] = [t * 1e-3 * (scale_r50 if net == "resnet50" else 1.0) for t in card_ms]
+        oracles[tuple(layer.name for layer in ev.layers)] = ev
+
+    def make_evaluator(p, layers):
+        return oracles[tuple(layer.name for layer in layers)].on_platform(p)
+
+    tenants, slos = [], {}
+    for net, part in zip(CARD_CO_MS, m.serve.partition_eps(plat, 2, "interleaved")):
+        layers = m.cnn.network_layers(net)
+        ev = make_evaluator(m.serve.subplatform(plat, part, net), layers)
+        sh = m.heuristics.run_shisha(m.core.weights(layers), m.core.Trace(ev), "H3")
+        cap, slos[net] = sh.result.best_throughput, 3.0 * sum(ev.stage_times(sh.result.best_conf))
+        gen = (m.serve.PoissonTraffic(rate=0.65 * cap, seed=11) if net == "synthnet"
+               else m.serve.MMPPTraffic(rate_low=0.08 * cap, rate_high=0.30 * cap, seed=12))
+        tenants.append(m.serve.Tenant(name=net, layers=tuple(layers), traffic=m.serve.ReplayTraffic.record(gen, 60.0),
+                                      slo=slos[net]))
+    return tenants, make_evaluator, slos
+
+
+def _co_packages():
+    from types import SimpleNamespace
+
+    import repro.core as jcore
+    import repro.core.heuristics as jheuristics
+    import repro.faults as jfaults
+    import repro.serve as jserve
+    import repro_torch.core as tcore
+    import repro_torch.core.heuristics as theuristics
+    import repro_torch.faults as tfaults
+    import repro_torch.serve as tserve
+    from repro_torch.models import cnn as tcnn
+
+    def jplat():
+        p = h100_platform_from_streams(8, props=H100_PROPS)
+        return jcore.Platform(name=p.name, eps=tuple(jcore.EP(**dataclasses.asdict(e)) for e in p.eps))
+
+    port = SimpleNamespace(core=tcore, heuristics=theuristics, cnn=tcnn, serve=tserve, faults=tfaults,
+                           plat=lambda: h100_platform_from_streams(8, props=H100_PROPS))
+    ref = SimpleNamespace(core=jcore, heuristics=jheuristics, cnn=jcnn, serve=jserve, faults=jfaults, plat=jplat)
+    return port, ref
+
+
+@pytest.mark.parametrize("elastic", [True, False])
+def test_measured_co_serve_matches_the_reference_co_simulator(elastic):
+    """Phase 5d's scenario (a) on the card's measured oracles, co-served by
+    the port and by the JAX package's co-simulator over the same oracles:
+    the same ``CoServeResult``s (``dataclasses.asdict``)."""
+    faults = [("dropout", 20.0, 0), ("revival", 40.0, 0)]
+    out = []
+    for m in _co_packages():
+        tenants, make_evaluator, _ = _co_specs(m, m.plat)
+        res = m.serve.co_serve(m.plat(), tenants, horizon=60.0, make_evaluator=make_evaluator, elastic=elastic,
+                               faults=faults, batch_policy_search=True, measure_batches=2, alpha=4)
+        out.append(dataclasses.asdict(res))
+    assert out[0] == out[1]
+    assert [e["kind"] for e in out[0]["repartitions"]] == (["dropout", "revival"] if elastic else [])
+
+
+def _co_chaos(m):
+    """Phase 5d (b)'s chaos over ``_co_specs`` (ResNet50 x1.2), as
+    ``co_serve``'s keywords."""
+    tenants, make_evaluator, slos = _co_specs(m, m.plat, scale_r50=1.2)
+    chaos = m.faults.FaultModel(seed=7, ep_mtbf={2: 9.0}, ep_mttr={2: 2.4}, batch_error_p=0.03)
+    pol = m.faults.ResiliencePolicy(deadline_s=max(slos.values()), max_retries=2, queue_cap=256)
+    return tenants, dict(horizon=60.0, make_evaluator=make_evaluator, chaos=chaos, resilience=pol,
+                         batch_policy_search=True, measure_batches=2, alpha=4)
+
+
+def test_known_defect_elastic_chaos_drains_a_lane_and_raises_all_eps_dead_in_both_packages():
+    """The open defect of ``ROADMAP.md`` queue 3, recorded: elastic chaos on
+    the SEPs can drain a tenant down to one SEP; when it dies while the
+    other lane explores, the co-simulator defers the re-partition and the
+    lane's own re-tune finds every EP dead and raises, in the JAX package as
+    in the port.  A fix (in both, to keep them equal) makes this test fail:
+    then it becomes a check that both serve this run to its end alike."""
+    for m in _co_packages():
+        tenants, kw = _co_chaos(m)
+        with pytest.raises(RuntimeError, match="all EPs dead"):
+            m.serve.co_serve(m.plat(), tenants, elastic=True, **kw)
+
+
+def test_chaos_on_the_launch_partitions_is_served_alike_in_both_packages():
+    """Phase 5d (b) serves its chaos on the launch partitions, where each
+    lane keeps its FEPs: both packages serve it to the end, alike."""
+    got = {}
+    for name, m in zip(("port", "ref"), _co_packages()):
+        tenants, kw = _co_chaos(m)
+        got[name] = dataclasses.asdict(m.serve.co_serve(m.plat(), tenants, elastic=False, **kw))
+    assert got["port"] == got["ref"]

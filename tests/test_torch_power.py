@@ -6,7 +6,8 @@ ladders, package watts, cap decisions and errors, and restrict alike
 (through ``Platform.without`` too), compared with ``==``; the thermal RC
 model the same trajectories, latches and throttle counts.  The tuner's DVFS
 moves are held in ``tests/test_torch_core.py``, the serving layer that steps
-the thermal model in ``tests/test_torch_serve.py``.
+the thermal model in ``tests/test_torch_serve.py``; ``co_serve`` over a
+degenerate power model is here.
 """
 
 import dataclasses
@@ -212,3 +213,40 @@ def test_thermal_validation_and_attachment_match_reference():
                     smaller.power.thermal is not th, mod.degenerate_power(plat).thermal))
     assert out[0] == out[1]
     assert out[0][2:] == (True, None)
+
+
+
+def _co_serve_powered(pkgs, powered: bool):
+    """``tests/test_power.py``'s two-tenant co-serve on ``paper_platform(4)``,
+    bare or with ``degenerate_power``; ``pkgs`` is (core, power, cnn, serve)."""
+    c, p, cnn, sv = pkgs
+    plat = c.paper_platform(4)
+    horizon = 20.0
+    tenants = [
+        sv.Tenant(name="synthnet", layers=tuple(cnn.network_layers("synthnet")), slo=2.7,
+                  traffic=sv.ReplayTraffic.record(sv.PoissonTraffic(rate=2.0, seed=11), horizon)),
+        sv.Tenant(name="resnet50", layers=tuple(cnn.network_layers("resnet50")), slo=2.0,
+                  traffic=sv.ReplayTraffic.record(sv.PoissonTraffic(rate=1.0, seed=12), horizon)),
+    ]
+    return sv.co_serve(plat.with_power(p.degenerate_power(plat)) if powered else plat, tenants, horizon=horizon,
+                       elastic=False)
+
+
+def test_co_serve_degenerate_power_is_bit_for_bit_and_the_reference():
+    """``co_serve`` with ``degenerate_power`` serves the bare run's latencies
+    and completions, and gives the reference's ``CoServeResult``."""
+    from repro import serve as jserve
+    from repro.models import cnn as jcnn
+    from repro_torch import serve
+    from repro_torch.models import cnn
+
+    port, ref = (core, pw, cnn, serve), (jcore, jpw, jcnn, jserve)
+    bare, powered = _co_serve_powered(port, False), _co_serve_powered(port, True)
+    for rb, rp in zip(bare.results, powered.results):
+        assert rb.sim.latencies == rp.sim.latencies
+        assert rb.sim.n_completed == rp.sim.n_completed
+        assert rb.sim.power is None and rp.sim.power is not None
+    assert powered.aggregate_energy_j is not None and powered.joules_per_request > 0
+    for powered_ in (False, True):
+        ours, theirs = _co_serve_powered(port, powered_), _co_serve_powered(ref, powered_)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)

@@ -1,18 +1,24 @@
 """The port's serving layer against the JAX package's, at tolerance zero.
 
-``repro_torch.serve`` (traffic, simulator, autotuner) is a copy of
-``repro.serve``'s single-tenant half.  Fed the same seeds, platforms and
-scripts, both must give the same arrivals, the same ``SimResult``
-(``dataclasses.asdict``, compared with ``==``) and the same
-``ContinuousShisha`` history (kinds, splits, ``tuning_cost``, DVFS levels),
-on the drain and the heap event engines alike.  Each scenario is written
-once and run through both packages (``_run``), on ``paper_platform``
-SynthNet with ``DatabaseEvaluator``, as ``tests/test_serve.py`` builds it.
+``repro_torch.serve`` (traffic, simulator, autotuner, multitenant) is a
+copy of ``repro.serve``.  Fed the same seeds, platforms and scripts, both
+must give the same arrivals, the same ``SimResult`` (``dataclasses.asdict``,
+compared with ``==``) and the same ``ContinuousShisha`` history (kinds,
+splits, ``tuning_cost``, DVFS levels), on the drain and the heap event
+engines alike.  Each scenario is written once and run through both packages
+(``_run``), on ``paper_platform`` SynthNet with ``DatabaseEvaluator``, as
+``tests/test_serve.py`` builds it.  The partitioning and ``co_serve`` cases
+of ``tests/test_serve.py`` and ``tests/test_event_engine.py`` are here, the
+rest of the multi-tenant layer in ``tests/test_torch_multitenant.py``.
 """
 
 import dataclasses
 import math
+import os
 import random
+import subprocess
+import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -371,9 +377,127 @@ def test_percentile_and_slo_violation_rate_match_reference():
 
 
 def test_package_exports_the_single_tenant_half_of_the_reference():
-    ours = set(serve.__all__)
-    theirs = set(jserve.__all__)
-    assert ours < theirs
-    assert theirs - ours == {"CoServeResult", "ElasticPartitioner", "PARTITION_STRATEGIES", "RepartitionEvent",
-                             "SharedClockCoSimulator", "Tenant", "TenantResult", "co_schedule", "co_serve",
-                             "compare_partitions", "partition_eps", "subplatform"}
+    """The single-tenant half and, since the multi-tenant layer was copied
+    too, the rest: the port's ``serve.__all__`` is the reference's."""
+    assert sorted(serve.__all__) == sorted(jserve.__all__)
+    assert {"co_serve", "ElasticPartitioner", "SharedClockCoSimulator", "partition_eps"} <= set(serve.__all__)
+
+
+# ---------------------------------------------------------------------------
+# multi-tenancy: partitioning and co-serving (tests/test_serve.py,
+# tests/test_event_engine.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("strategy", ["interleaved", "blocked", "proportional"])
+@pytest.mark.parametrize("n_parts", [2, 3])
+def test_partitions_match_reference_and_are_disjoint_and_cover(strategy, n_parts):
+    ours, theirs = _run(lambda m: m.serve.partition_eps(m.core.paper_platform(8), n_parts, strategy))
+    assert ours == theirs
+    assert sorted(ep for p in ours for ep in p) == list(range(8))
+    assert all(len(p) >= 1 for p in ours)
+
+
+def test_interleaved_shares_feps_fairly_and_blocked_gives_tenant0_the_fast_block():
+    plat = core.paper_platform(8)  # 4 FEPs, 4 SEPs
+    feps = set(plat.feps)
+    assert all(len(set(p) & feps) == 2 for p in serve.partition_eps(plat, 2, "interleaved"))
+    assert set(serve.partition_eps(plat, 2, "blocked")[0]) == set(plat.ranked()[:4])
+
+
+def test_subplatform_reindexes_as_the_reference():
+    ours, theirs = _run(lambda m: m.serve.subplatform(m.core.paper_platform(8), (6, 1), "sub"))
+    assert ours.n_eps == 2
+    assert [dataclasses.asdict(e) for e in ours.eps] == [dataclasses.asdict(e) for e in theirs.eps]
+    plat = core.paper_platform(8)
+    assert (ours.eps[0].name, ours.eps[1].name) == (plat.eps[6].name, plat.eps[1].name)
+
+
+@pytest.mark.parametrize("shares", [(1000.0, 1.0, 1.0), (1e6, 1e-6), (0.001, 5.0, 0.001, 5.0)])
+def test_blocked_partition_skewed_shares_keeps_all_tenants(shares):
+    ours, theirs = _run(lambda m: m.serve.partition_eps(m.core.paper_platform(8), len(shares), "blocked",
+                                                        shares=list(shares)))
+    assert ours == theirs
+    assert sorted(ep for p in ours for ep in p) == list(range(8))
+    assert all(len(p) >= 1 for p in ours)
+    if shares[0] == 1000.0:
+        assert len(ours[0]) > len(ours[1])  # the dominant share still gets the biggest block
+
+
+def _two_tenants(m, plat, specs, rate_of):
+    tenants = []
+    for name, net, seed, slo in specs:
+        layers = m.cnn.network_layers(net)
+        cap = m.heuristics.run_shisha(m.core.weights(layers), m.core.Trace(m.core.DatabaseEvaluator(plat, layers)),
+                                      "H3").result.best_throughput
+        tenants.append(m.serve.Tenant(name=name, layers=tuple(layers),
+                                      traffic=m.serve.PoissonTraffic(rate=rate_of(cap), seed=seed), slo=slo))
+    return tenants
+
+
+def test_co_serve_on_adaptive_fabric_matches_reference_and_diverges_from_static():
+    """The co-simulator re-prices (and, adaptive, re-routes) every lane's
+    transfers each monitor window: two adaptive runs are bit-identical and
+    equal the reference's, and the routing reaches the served latencies."""
+
+    def arm(m, routing):
+        fab = m.interconnect.uniform_fabric(m.interconnect.mesh2d(2, 4, bw=1e8, latency=1e-6))
+        plat = m.core.paper_platform(8).with_fabric(fab.with_routing(routing))
+        tenants = _two_tenants(m, plat, (("a", "synthnet", 5, 2.5), ("b", "resnet50", 6, 1.0)), lambda c: 0.6 * c)
+        return m.serve.co_serve(plat, tenants, horizon=20.0, elastic=False, measure_batches=2, alpha=4)
+
+    adaptive, ref_adaptive = _run(arm, "adaptive")
+    assert dataclasses.asdict(adaptive) == dataclasses.asdict(ref_adaptive)
+    assert dataclasses.asdict(arm(PORT, "adaptive")) == dataclasses.asdict(adaptive)
+    static, ref_static = _run(arm, "static")
+    assert dataclasses.asdict(static) == dataclasses.asdict(ref_static)
+    assert any(rs.sim.latencies != ra.sim.latencies for rs, ra in zip(static.results, adaptive.results))
+
+
+@pytest.mark.parametrize("engine", ["EventLoop", "HeapEventLoop"])
+def test_co_serve_result_bit_for_bit_across_engines_and_packages(engine):
+    """Elastic, faulted shared-clock co-simulation: the drain and the heap
+    engines give the same ``CoServeResult``, and each the reference's."""
+
+    def arm(m, loop):
+        plat = m.core.paper_platform(8)
+        tenants = [
+            m.serve.Tenant(name="synthnet", layers=tuple(m.cnn.network_layers("synthnet")),
+                           traffic=m.serve.ReplayTraffic.record(m.serve.PoissonTraffic(rate=3.0, seed=11), 40.0),
+                           slo=2.7),
+            m.serve.Tenant(name="alexnet", layers=tuple(m.cnn.network_layers("alexnet")),
+                           traffic=m.serve.ReplayTraffic.record(m.serve.PoissonTraffic(rate=2.0, seed=12), 40.0),
+                           slo=2.0),
+        ]
+        return m.serve.co_serve(plat, tenants, horizon=40.0, elastic=True, measure_batches=2, alpha=4,
+                                faults=[("dropout", 12.0, 0), ("slowdown", 20.0, 2, 3.0)],
+                                loop=getattr(m.simulator, loop)())
+
+    ours, theirs = _run(arm, engine)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours == arm(PORT, "HeapEventLoop" if engine == "EventLoop" else "EventLoop")
+    assert ours.repartitions
+
+
+def test_serve_traffic_twin_prints_what_the_reference_prints(tmp_path):
+    """``examples/serve_traffic_torch.py`` against ``examples/serve_traffic.py``:
+    all three acts (the straggler, elastic co-serving under an EP dropout,
+    the telemetry lens) print the same lines, and both write the same
+    Chrome trace, each run in a directory of its own."""
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "JAX_PLATFORMS": "cpu"}
+    out, traces = {}, {}
+    for name in ("serve_traffic.py", "serve_traffic_torch.py"):
+        cwd = tmp_path / name.removesuffix(".py")
+        cwd.mkdir()
+        proc = subprocess.run([sys.executable, str(root / "examples" / name)], capture_output=True, text=True,
+                              env=env, timeout=300, cwd=cwd)
+        assert proc.returncode == 0, proc.stderr
+        out[name] = proc.stdout.splitlines()
+        traces[name] = (cwd / "experiments" / "telemetry" / "serve_traffic_trace.json").read_text()
+    ours, theirs = out["serve_traffic_torch.py"], out["serve_traffic.py"]
+    assert ours == theirs
+    assert traces["serve_traffic_torch.py"] == traces["serve_traffic.py"]
+    tags = {line[:7] for line in ours}
+    assert {"[tune ]", "[serve]", "[retune", "[multi]", "[elast]", "[trace]", "[metr ]"} <= tags
+    assert any("stole EP" in line for line in ours if line.startswith("[elast]"))

@@ -6,9 +6,9 @@ routing passes and adaptive router) are the reference's.  With a live
 session on the same run, ``metrics_snapshot()`` and both exports (JSONL,
 Chrome trace) must be byte-equal to the reference's, for a ``Trace``, a
 ``tune`` with placement and DVFS moves, an adaptive fabric and a drifting
-serve; ``NULL`` or no session must change nothing.  The parts of
-``tests/test_telemetry.py`` that need no ``co_serve`` are mirrored; its
-wall-clock floors are not.
+serve and a faulted elastic ``co_serve``; ``NULL`` or no session must
+change nothing.  ``tests/test_telemetry.py`` is mirrored, but for its
+wall-clock floors.
 """
 
 import dataclasses
@@ -185,3 +185,124 @@ def test_serve_exports_match_reference_and_a_null_sink_changes_nothing(scenario)
         rows = [json.loads(line) for line in jsonl.splitlines()]
         assert any(r["name"].startswith("thermal.temp_c:") and r["ph"] == "C" for r in rows)
         assert "power.energy_j" in snap
+
+
+# ---------------------------------------------------------------------------
+# co-serve: exports, the three layers, the NULL sink, package-deal steals
+# ---------------------------------------------------------------------------
+
+
+def _co_serve_run(m, sink):
+    """``tests/test_telemetry.py``'s co-serve run: ResNet50 and AlexNet on a
+    2x4 mesh, an EP dead at 2 s; ``sink`` is "none", "null" or "live"."""
+    plat = m.core.paper_platform(8).with_fabric(m.interconnect.uniform_fabric(m.interconnect.mesh2d(2, 4)))
+    horizon = 8.0
+    tenants = [
+        m.serve.Tenant(name="resnet50", layers=tuple(m.cnn.network_layers("resnet50")),
+                       traffic=m.serve.ReplayTraffic.record(m.serve.PoissonTraffic(rate=30, seed=1), horizon), slo=1.0),
+        m.serve.Tenant(name="alexnet", layers=tuple(m.cnn.network_layers("alexnet")),
+                       traffic=m.serve.ReplayTraffic.record(m.serve.PoissonTraffic(rate=40, seed=2), horizon), slo=0.5),
+    ]
+    tl = {"none": None, "null": m.telemetry.NULL, "live": m.telemetry.Telemetry()}[sink]
+    res = m.serve.co_serve(plat, tenants, horizon=horizon, measure_batches=2, alpha=4, faults=[("dropout", 2.0, 0)],
+                           telemetry=tl)
+    return res, tl
+
+
+def test_seeded_co_serve_exports_match_reference_byte_for_byte():
+    (ours, tl), (theirs, jtl) = _run(_co_serve_run, "live")
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert _exports(tl) == _exports(jtl)
+    again, tl_b = _co_serve_run(PORT, "live")
+    assert _exports(tl_b) == _exports(tl) and tl.export_jsonl()
+    assert json.dumps(tl.metrics_snapshot(), sort_keys=True) == json.dumps(tl_b.metrics_snapshot(), sort_keys=True)
+
+
+def test_chrome_trace_has_all_three_layers_and_tenant_processes():
+    res, tl = _co_serve_run(PORT, "live")
+    trace = tl.export_chrome_trace()
+    events = json.loads(json.dumps(trace, allow_nan=False))["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    assert {"request", "retune", "fabric"} <= {e.get("cat") for e in spans}
+    assert all(isinstance(e["pid"], int) and isinstance(e["tid"], int) and e["dur"] >= 0 and e["ts"] >= 0
+               for e in spans)
+    meta = lambda kind: {e["args"]["name"] for e in events if e.get("ph") == "M" and e["name"] == kind}
+    assert {"resnet50", "alexnet"} <= meta("process_name")
+    tracks = meta("thread_name")
+    assert any(t.startswith("ep") for t in tracks) and "flows" in tracks
+    assert res.repartitions and any(e.get("ph") == "i" and e["name"] == "repartition" for e in events)
+    lines = tl.export_jsonl().splitlines()
+    assert len(lines) == len(tl.tracer.events)
+    for line in lines:
+        json.loads(line)
+
+
+def test_nullsink_co_serve_matches_bare_run_and_the_reference():
+    (null, _), (ref_null, _) = _run(_co_serve_run, "null")
+    bare, _ = _co_serve_run(PORT, "none")
+    assert dataclasses.asdict(null) == dataclasses.asdict(bare) == dataclasses.asdict(ref_null)
+    assert len(telemetry.NULL.registry) == 0 and len(telemetry.NULL.tracer) == 0
+
+
+def _bundle_run(m):
+    plat = m.core.paper_platform(8)
+    horizon = 12.0
+    layers_v, layers_d = tuple(m.cnn.network_layers("synthnet")), tuple(m.cnn.network_layers("alexnet"))
+    # victim demand ~3x what its launch partition can serve; donor idle
+    parts = m.serve.partition_eps(plat, 2, "interleaved")
+    cap = m.heuristics.run_shisha(m.core.weights(list(layers_v)), m.core.Trace(
+        m.core.DatabaseEvaluator(m.serve.subplatform(plat, parts[0], "v"), list(layers_v))), "H3").result.best_throughput
+    tenants = [
+        m.serve.Tenant(name="victim", layers=layers_v, slo=1.0,
+                       traffic=m.serve.ReplayTraffic.record(m.serve.PoissonTraffic(rate=3.0 * cap, seed=5), horizon)),
+        m.serve.Tenant(name="donor", layers=layers_d, slo=5.0,
+                       traffic=m.serve.ReplayTraffic.record(m.serve.PoissonTraffic(rate=0.5, seed=6), horizon)),
+    ]
+    tl = m.telemetry.Telemetry()
+    res = m.serve.co_serve(plat, tenants, horizon=horizon, measure_batches=2, alpha=4,
+                           faults=[("dropout", 3.0, parts[0][0])], telemetry=tl, max_bundle=3)
+    return res, tl
+
+
+def test_extreme_pressure_victim_steals_a_bundle_as_the_reference():
+    (res, tl), (ref, jtl) = _run(_bundle_run)
+    assert dataclasses.asdict(res) == dataclasses.asdict(ref)
+    assert _exports(tl) == _exports(jtl)
+    ev = next(e for e in res.repartitions if e.kind == "dropout")
+    assert ev.victim == "victim" and len(ev.bundle) >= 2, f"expected a package deal, got {ev.bundle}"
+    assert (ev.bundle[0]["donor"], ev.bundle[0]["ep"], ev.bundle[0]["price"]) == (ev.donor, ev.stolen_ep, ev.price)
+    for deal in ev.bundle:
+        assert deal["donor"] == "donor"
+        assert set(deal) == {"donor", "ep", "price", "gain", "surplus", "victim_at_risk_after"}
+        assert deal["surplus"] is None or deal["surplus"] > 0
+    assert {d["ep"] for d in ev.bundle} <= set(ev.partitions["victim"])
+    assert not set(ev.partitions["victim"]) & set(ev.partitions["donor"])
+    json.dumps([dict(d) for d in ev.bundle], allow_nan=False)
+    inst = next(e for e in tl.tracer.events if e.name == "repartition" and e.dur is None)
+    assert len(inst.args["bundle"]) == len(ev.bundle)
+    assert tl.metrics_snapshot()["coserve.eps_stolen"]["value"] == len(ev.bundle)
+
+
+def test_single_bundle_is_the_single_steal_as_the_reference():
+    """``max_bundle=1`` reproduces ``rebalance`` exactly."""
+
+    def fn(m):
+        plat = m.core.paper_platform(8)
+        tenants = {name: m.serve.Tenant(name=name, layers=tuple(m.cnn.network_layers(net)),
+                                        traffic=m.serve.PoissonTraffic(rate=1, seed=1), slo=1.0)
+                   for name, net in (("a", "synthnet"), ("b", "alexnet"))}
+        pricer = m.serve.ElasticPartitioner(plat, lambda p, L: m.core.DatabaseEvaluator(p, L), "H3")
+        partitions = {"a": (0, 2, 4), "b": (1, 3, 5, 6, 7)}
+        loads = {"a": (50.0, 20.0), "b": (0.1, 0.0)}
+        single = pricer.rebalance(partitions, "a", tenants, loads)
+        bundle = pricer.rebalance_bundle(partitions, "a", tenants, loads, max_bundle=1)
+        return single, bundle, partitions
+
+    ours, theirs = _run(fn)
+    assert ours == theirs
+    single, (deals, parts), partitions = ours
+    assert single is not None and len(deals) == 1
+    donor, ep, price = single
+    assert (deals[0]["donor"], deals[0]["ep"], deals[0]["price"]) == (donor, ep, price)
+    assert parts["a"] == partitions["a"] + (ep,)
+    assert partitions == {"a": (0, 2, 4), "b": (1, 3, 5, 6, 7)}  # the input mapping was not mutated
