@@ -311,7 +311,29 @@ repository's sources are not beside this script.  Otherwise, in order:
    (``check_resume``) at full width and RESUME_CUT's depth (a full-size
    checkpoint passes the machine's disk limit), a checkpoint in a temporary
    directory at the middle step, the repeated losses held to RESUME_TOL;
-14. prints the per-kernel JSON line (the ``flash_attention`` row is
+14. drives the mesh paths (``launch/mesh.py``), each with its launch
+   counts from 0 (``mesh_one_rank``, ``mesh_two_ranks``): (a) one rank over
+   NCCL on a (1, 1) mesh, where every collective is a copy, so the mesh
+   paths must give the bits of the paths without a mesh: phi3.5-moe's
+   prefill at full width, MESH_DEPTH layers, bf16 (logits and cache), a
+   granite-3-2b ``make_train_step`` (loss, gradient norm, every parameter)
+   and ``compressed_psum`` on CUDA tensors; prints NCCL's version; (b)
+   MESH_RANKS processes sharing cuda:0 over gloo (this script again, with
+   ``--mesh-rank``): full-width SynthNet in a 2-stage split, stage s on rank
+   s, 8 microbatches of 2, every rank's output equal to the sequential model
+   on the same kernels; phi3.5-moe's prefill on a (1, 2) mesh, each rank
+   computing half of d_ff on views of the expert weights, held to LM_TOL
+   against the one-process kernel path on the same routes, each rank's
+   profiled prefill running ``gemm_wgmma_bf16_kernel`` three times a layer
+   with no copy (its route printed); granite-3-2b's loss and every leaf's
+   gradient on a (2, 1) mesh, batch 4 x 512 split 2 / 2 with rank 0's rows
+   partly masked, held to MESH_LOSS_TOL and MESH_GRAD_TOL against one
+   process, beside two controls that must miss (the mean of the ranks' own
+   means, the gradients left unreduced), then a warm mesh train step after
+   which the ranks' parameters agree; ``compressed_psum`` over the two ranks
+   against its formula in fp32 on the host.  Walls and micro/s there are
+   the host clock of two processes on one card, not a multi-card figure;
+15. prints the per-kernel JSON line (the ``flash_attention`` row is
    granite-3-2b's, naming the device function that served its prefill,
    with every other served attention call's times, bound, SDPA times and
    launches under keys that name the model and the call, and the
@@ -378,7 +400,7 @@ from repro_torch.launch.mesh import make_stage_mesh
 from repro_torch.launch.serve_cnn import BATCH, N_MICRO, measure_cnn, serve_cnn
 from repro_torch.models import blocks, transformer
 from repro_torch.models.lm_common import init_params
-from repro_torch.models.cnn import resnet50_specs, synthnet_specs
+from repro_torch.models.cnn import make_cnn, network_layers, resnet50_specs, synthnet_specs
 from repro_torch.optim import AdamW, AdamWConfig
 from repro_torch.pipeline import PipelineRunner, h100_platform_from_streams, pipeline_throughput
 from repro_torch.power import ThermalModel, degenerate_power, uniform_power
@@ -399,7 +421,9 @@ from repro_torch.serve import (
 from repro_torch.telemetry import Telemetry
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
 from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
-from repro_torch.tree import named_leaves
+from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import named_leaves, tree_map
+from repro_torch.tree import rebuild as tree_rebuild
 
 #: kernel-vs-plain tolerance on one conv (the reference's conv test)
 KERNEL_TOL = 3e-4
@@ -3270,6 +3294,352 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
     return {**launches, "peak_gib": peak, "step_ms": t_step * 1e3}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the mesh paths (launch/mesh.py), one NCCL rank, then two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: the mesh phase's models, full width, at MESH_DEPTH layers, bf16: MoE prefill (tensor parallel over
+#: ``model``) and a train step (the batch split over ``data``)
+MESH_MOE, MESH_TRAIN, MESH_DEPTH = "phi3.5-moe-42b", "granite-3-2b", 2
+#: ranks of phase (b), each its own process on cuda:0 over gloo, and each one's time limit, seconds
+MESH_RANKS, MESH_RANK_TIMEOUT = 2, 300
+#: phase (b)'s training batch: rank 0's half has MESH_MASKED labels masked in each row, rank 1's none, so
+#: the two count different tokens
+MESH_MASKED = 300
+#: phase (b)'s training check, the mesh step's loss and gradient against the one-process step's: the loss's
+#: relative difference, and each leaf's max |difference| over max |one process|.  Read on an NVIDIA H100 80GB
+#: HBM3 at 700 W (PERF.md): the mesh path 1.7e-7 in the loss and 3.2e-3 to 1.15e-2 over the leaves (bf16
+#: leaves, the two halves' gradients summed: about 3 roundings at the worst, the embedding); the mean of the
+#: ranks' own means 9.0e-4 in the loss and 0.37 to 0.61 over the leaves; the gradients left unreduced 0.48 to
+#: 1.03 over the leaves
+MESH_LOSS_TOL, MESH_GRAD_TOL = 1e-5, 3e-2
+
+
+def _mesh_prompt(cfg, seed: int) -> dict:
+    return make_batch(cfg, LM_BATCH, LM_PROMPT, seed=seed, device="cuda")
+
+
+def _mesh_train_batch(cfg) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    labels = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), generator=g, device="cuda")
+    labels[: TRAIN_BATCH // MESH_RANKS, :MESH_MASKED] = -1
+    return {"tokens": tokens, "labels": labels}
+
+
+def _mesh_grads(seed: int, device: str) -> tuple[dict, dict]:
+    """One rank's gradients and carried error for ``compressed_psum``, from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grads = {"a": torch.randn((1024, 1024), generator=g, device="cuda"),
+             "b": torch.randn((4099,), generator=g, device="cuda") * (1 + seed % 3)}
+    err = {k: torch.randn(v.shape, generator=g, device="cuda") * 0.01 for k, v in grads.items()}
+    return {k: v.to(device) for k, v in grads.items()}, {k: v.to(device) for k, v in err.items()}
+
+
+def _psum_formula(seeds: list[int]) -> tuple[dict, list[dict]]:
+    """``compressed_psum``'s sum and each rank's residual, from its formula in fp32 on the host."""
+    both = [_mesh_grads(s, "cpu") for s in seeds]
+    out, res = {}, [{} for _ in seeds]
+    for k in both[0][0]:
+        g32 = [g[k] + e[k] for g, e in both]
+        scale = torch.clamp(max(x.abs().max() for x in g32), min=1e-12) / 127.0
+        q = [torch.clamp(torch.round(x / scale), -127, 127) for x in g32]
+        out[k] = sum(q) * scale / len(seeds)
+        for r, (x, qr) in enumerate(zip(g32, q)):
+            res[r][k] = x - qr * scale
+    return out, res
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(x, y) for (_, x), (_, y) in zip(named_leaves(a), named_leaves(b), strict=True))
+
+
+def mesh_one_rank(failures: list[str]) -> dict:
+    """Phase 14 (a): one rank over NCCL, a (1, 1) mesh.  Every collective is
+    a copy, so the mesh paths must give the bits of the paths without a
+    mesh: phi3.5-moe's prefill (logits and cache), a granite-3-2b train step
+    (loss, gradient norm, every parameter after it), and ``compressed_psum``
+    against its formula run on the card.  Returns the launches."""
+    from repro_torch.launch.mesh import join_group, make_test_mesh
+    from repro_torch.optim import compressed_psum, dequantize, quantize_int8
+
+    print(f"[mesh] (a) NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, one rank, a (1, 1) mesh")
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        join_group(1, 0, store=torch.distributed.FileStore(str(Path(d) / "store"), 1), device="cuda")
+        try:
+            mesh = make_test_mesh((1, 1), device="cuda")
+            cfg = dataclasses.replace(get_config(MESH_MOE), n_layers=MESH_DEPTH)
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            prompt = _mesh_prompt(cfg, 0)
+            gm.launches = 0
+            lm, cm = transformer.prefill_step(cfg, params, prompt, mesh, max_len=LM_PROMPT + LM_GEN)
+            torch.cuda.synchronize()
+            launches["gemm"] = gm.launches
+            l1, c1 = transformer.prefill_step(cfg, params, prompt, max_len=LM_PROMPT + LM_GEN)
+            same = torch.equal(lm, l1) and all(torch.equal(cm[k], c1[k]) for k in c1 if k != "index")
+            print(f"[mesh] (a) {MESH_MOE} at {MESH_DEPTH} layers, bf16, prefill {LM_BATCH} x {LM_PROMPT}: mesh == "
+                  f"no mesh, logits and cache: {same}; gemm launches {launches['gemm']}")
+            if not same:
+                failures.append(f"(a) {MESH_MOE} prefill over a (1, 1) mesh differs from no mesh: "
+                                f"{(lm.float() - l1.float()).abs().max().item()}")
+            del params, lm, cm, l1, c1
+            torch.cuda.empty_cache()
+
+            cfg = dataclasses.replace(get_config(MESH_TRAIN), n_layers=MESH_DEPTH)
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+            batch = _mesh_train_batch(cfg)
+            opt = AdamW(AdamWConfig(total_steps=10, warmup=2))
+            runs = []
+            fa.launches = 0
+            for m in (mesh, None):  # the step updates the parameters in place: each run starts from a copy
+                p = tree_map(torch.clone, params)
+                p1, _, met = transformer.make_train_step(cfg, opt, m)(p, opt.init(p), batch)
+                runs.append((p1, met))
+                if m is not None:
+                    torch.cuda.synchronize()
+                    launches["flash_attention"] = fa.launches
+            (pa, ma), (pb, mb) = runs
+            same = torch.equal(ma["loss"], mb["loss"]) and torch.equal(ma["grad_norm"], mb["grad_norm"]) \
+                and _trees_equal(pa, pb)
+            print(f"[mesh] (a) {MESH_TRAIN} at {MESH_DEPTH} layers, bf16, a train step on {TRAIN_BATCH} x {TRAIN_SEQ}: "
+                  f"loss {ma['loss'].item():.6f}, grad_norm {ma['grad_norm'].item():.6f}; mesh == no mesh, loss, "
+                  f"grad_norm and every parameter: {same}; flash launches {launches['flash_attention']}")
+            if not same:
+                failures.append(f"(a) {MESH_TRAIN} train step over a (1, 1) mesh differs from no mesh")
+            del params, runs, pa, pb
+            torch.cuda.empty_cache()
+
+            grads, err = _mesh_grads(10, "cuda")
+            out, res = compressed_psum(grads, error=err)
+            same = True
+            for k, g in grads.items():
+                g32 = g + err[k]
+                scale = torch.clamp(g32.abs().max(), min=1e-12) / 127.0
+                q = quantize_int8(g32, scale)
+                same &= torch.equal(out[k], dequantize(q.to(torch.int32), scale) / 1) \
+                    and torch.equal(res[k], g32 - dequantize(q, scale))
+            print(f"[mesh] (a) compressed_psum over one rank, CUDA tensors: == its formula on the card: {same}")
+            if not same:
+                failures.append("(a) compressed_psum over one rank differs from its formula")
+        finally:
+            torch.distributed.destroy_process_group()
+    return launches
+
+
+def mesh_rank(rank: int, store: str, out_path: str) -> int:
+    """Phase 14 (b), one rank: its own process on cuda:0, joined over gloo
+    to the others (NCCL refuses two ranks on one card).  Writes its readings
+    and failures to ``out_path`` as JSON; exits 0 once written."""
+    from repro_torch.launch.mesh import all_reduce_over, batch_shard, join_group, make_test_mesh
+    from repro_torch.optim import compressed_psum
+
+    def say(msg: str) -> None:
+        print(f"[mesh] (b) rank {rank}: {msg}", flush=True)
+
+    out: dict = {"failures": [], "launches": {}}
+    fail = out["failures"].append
+    join_group(MESH_RANKS, rank, store=torch.distributed.FileStore(store, MESH_RANKS), device="cuda", backend="gloo")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # the pipeline: full-width SynthNet in a 2-stage split, stage s on rank s
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = make_cnn("synthnet", scale=1.0, device="cuda").init(gen)
+        conf = generate_seed(weights(network_layers("synthnet")), paper_platform(MESH_RANKS), n_stages=MESH_RANKS).conf
+        micro = torch.randn((N_MICRO, BATCH, 220, 220, 3), generator=gen, device="cuda")
+        runner = PipelineRunner(mesh=make_stage_mesh(conf.depth, "cuda", ranks=True), conf=conf,
+                                apply_layer=model.apply_layer, n_micro=N_MICRO)
+        im2col_conv.launches = 0
+        got = runner.run(micro)
+        torch.cuda.synchronize()
+        out["launches"]["conv2d_im2col"] = im2col_conv.launches
+        seq = torch.stack([model(x) for x in micro])
+        same = torch.equal(got, seq)
+        tp = pipeline_throughput(runner, micro)
+        out["pipeline_micro_per_s"] = tp
+        say(f"SynthNet split {conf.pretty()}, {N_MICRO} microbatches of {BATCH}, stage {rank} here: output == the "
+            f"sequential model on the same kernels: {same}; conv launches {out['launches']['conv2d_im2col']}; {tp:.1f} micro/s "
+            f"(host clock, two processes on one card)")
+        if not same:
+            fail(f"rank {rank}: the 2-rank pipeline differs from the sequential model: "
+                 f"{(got - seq).abs().max().item()}")
+        del model, micro, runner, got, seq
+        torch.cuda.empty_cache()
+
+        # MoE on a (1, 2) mesh: each rank computes its half of d_ff
+        mesh = make_test_mesh((1, MESH_RANKS), device="cuda")
+        cfg = dataclasses.replace(get_config(MESH_MOE), n_layers=MESH_DEPTH)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        prompt = _mesh_prompt(cfg, 0)
+
+        def prefill(m):
+            return transformer.prefill_step(cfg, params, prompt, m, max_len=LM_PROMPT + LM_GEN)[0]
+
+        routes: list = []
+        gm.launches = gm.copies = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recording_routes(routes):
+            logits = prefill(mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"]["gemm"], copies = gm.launches, gm.copies
+        with _replaying_routes(routes):
+            want = prefill(None)
+        rel = ((logits.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        out["moe_rel"] = rel
+        E, dm, f = cfg.n_experts, cfg.d_model, cfg.d_ff // MESH_RANKS
+        cap = blocks.moe_capacity(cfg, LM_BATCH * LM_PROMPT)
+        half = params["blocks"]["we_gate"][0].narrow(-1, rank * f, f)
+        fwd = gm.KERNELS[gm.route(cfg.dtype, cap, dm, f, gm._aligned(half), *gm.majors(half, half))[0]]
+        say(f"{MESH_MOE} at {MESH_DEPTH} layers, bf16, prefill {LM_BATCH} x {LM_PROMPT} on a (1, {MESH_RANKS}) "
+            f"mesh, d_ff {cfg.d_ff} -> {f} a rank: logits against the one-process kernel path on the same routes "
+            f"{rel:.3e} of max |logit| (tolerance {LM_TOL[torch.bfloat16]}); gemm launches {out['launches']['gemm']}, copies "
+            f"{copies}; the gate product's route [{E}, {cap}, {dm}] x [{E}, {dm}, {f}] (rows {half.stride(-2)} "
+            f"elements apart): {fwd}; wall {wall:.3f} s (host clock, two processes on one card)")
+        if not rel <= LM_TOL[torch.bfloat16]:
+            fail(f"rank {rank}: MoE prefill over (1, {MESH_RANKS}) against one process: {rel}")
+        if copies or out["launches"]["gemm"] != 3 * MESH_DEPTH or "wgmma" not in fwd:
+            fail(f"rank {rank}: MoE prefill ran gemm {out['launches']['gemm']} times with {copies} copies on {fwd}")
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(PROFILER_WINDOWS):  # a window may keep fewer device records than the wrappers launched
+            before = gm.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                prefill(mesh)
+                torch.cuda.synchronize()
+            wg = sum(e.count for e in prof.key_averages() if "gemm_wgmma_bf16_kernel" in e.key)
+            other = {e.key[:80]: e.count for e in prof.key_averages() if "gemm_" in e.key
+                     and "gemm_wgmma_bf16_kernel" not in e.key and "(anonymous namespace)" in e.key}
+            if wg == gm.launches - before:
+                break
+        say(f"profiled prefill: gemm_wgmma_bf16_kernel {wg} times ({3 * MESH_DEPTH} wanted), other gemm kernels "
+            f"{other}, copies {gm.copies}")
+        if wg != 3 * MESH_DEPTH or other or gm.copies:
+            fail(f"rank {rank}: the profiled MoE prefill ran gemm_wgmma_bf16_kernel {wg} times, {other}, "
+                 f"{gm.copies} copies")
+        del params, logits, want, routes
+        torch.cuda.empty_cache()
+
+        # training on a (2, 1) mesh: the batch split 2 / 2
+        mesh = make_test_mesh((MESH_RANKS, 1), device="cuda")
+        cfg = dataclasses.replace(get_config(MESH_TRAIN), n_layers=MESH_DEPTH)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+        batch = _mesh_train_batch(cfg)
+        loss, grads = transformer.value_and_grad(cfg, params, batch)
+        want, plain = loss.item(), list(named_leaves(grads))
+        del grads
+
+        def reading(got: float, grads: dict) -> dict:
+            return {"loss": abs(got - want) / abs(want), "leaves": _leaf_ratios(grads, plain)}
+
+        fa.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = transformer.value_and_grad(cfg, params, batch, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["launches"]["flash_attention"] = fa.launches
+        readings = {"mesh": reading(loss.item(), grads)}
+        del grads
+        # control: the mean of the ranks' own means (each over its own tokens), the gradients averaged alike
+        loss, grads = transformer.value_and_grad(cfg, params, batch_shard(mesh, batch))
+        readings["mean of per-rank means"] = reading(
+            (all_reduce_over(loss, mesh, ("data",)) / MESH_RANKS).item(),
+            tree_map(lambda g: all_reduce_over(g, mesh, ("data",)) / MESH_RANKS, grads))
+        del grads
+        # control: each rank's share of the gradient, left unreduced
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        loss = transformer.train_loss(cfg, tree_rebuild(params, leaves), batch, mesh)
+        grads = tree_rebuild(params, torch.autograd.grad(loss, leaves))
+        readings["gradients unreduced"] = reading(loss.item(), grads)
+        del grads, leaves
+        out["train_readings"] = readings
+        for path, r in readings.items():
+            leaf = max(r["leaves"], key=r["leaves"].get)
+            say(f"{MESH_TRAIN} at {MESH_DEPTH} layers, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} split {MESH_RANKS} ways "
+                f"({MESH_MASKED} labels masked in each of rank 0's rows), {path} against one process: loss "
+                f"relative {r['loss']:.3e} (tolerance {MESH_LOSS_TOL}); worst leaf {leaf} at {r['leaves'][leaf]:.3e} "
+                f"(tolerance {MESH_GRAD_TOL}); every leaf {json.dumps(r['leaves'])}")
+        mesh_r = readings["mesh"]
+        if not (mesh_r["loss"] <= MESH_LOSS_TOL and max(mesh_r["leaves"].values()) <= MESH_GRAD_TOL):
+            fail(f"rank {rank}: the mesh train step against one process: {mesh_r['loss']}, "
+                 f"{max(mesh_r['leaves'].values())}")
+        for path in readings.keys() - {"mesh"}:
+            if not max(readings[path]["leaves"].values()) > MESH_GRAD_TOL:
+                fail(f"rank {rank}: the control '{path}' meets the gradient tolerance at every leaf")
+        if not readings["mean of per-rank means"]["loss"] > MESH_LOSS_TOL:
+            fail(f"rank {rank}: the control 'mean of per-rank means' meets the loss tolerance")
+        opt = AdamW(AdamWConfig(total_steps=10, warmup=2))
+        step = transformer.make_train_step(cfg, opt, mesh)
+        state = opt.init(params)
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, met = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        sums = torch.stack([t.float().sum() for t in tree_leaves(params)])
+        agree = torch.equal(all_reduce_over(sums, mesh, ("data",), torch.distributed.ReduceOp.MAX), sums)
+        out["train_step_s"] = step_s
+        say(f"value_and_grad over the mesh {wall:.3f} s; a warm make_train_step {step_s:.3f} s, "
+            f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, loss {met['loss'].item():.5f} (host clock, two "
+            f"processes on one card); the ranks' parameters agree after it: {agree}; flash launches "
+            f"{out['launches']['flash_attention']} (value_and_grad over the mesh)")
+        if not (agree and math.isfinite(met["loss"].item())):
+            fail(f"rank {rank}: after a mesh train step the ranks' parameters agree: {agree}, loss {met['loss']}")
+        del params, state, batch
+        torch.cuda.empty_cache()
+
+        # compressed_psum over the two ranks against its formula in fp32 on the host
+        grads, err = _mesh_grads(10 + rank, "cuda")
+        got, res = compressed_psum(grads, error=err)
+        want_out, want_res = _psum_formula([10 + r for r in range(MESH_RANKS)])
+        diff = max(max((got[k].cpu() - want_out[k]).abs().max().item(), (res[k].cpu() - want_res[rank][k]).abs().max().item())
+                   for k in grads)
+        out["psum_err"] = diff
+        say(f"compressed_psum over {MESH_RANKS} ranks, {sum(g.numel() for g in grads.values())} elements: max "
+            f"|difference| from the fp32 host formula, sum and residual, {diff:.3e}")
+        if not diff <= 1e-6:
+            fail(f"rank {rank}: compressed_psum differs from its formula by {diff}")
+    finally:
+        Path(out_path).write_text(json.dumps(out))
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_two_ranks(failures: list[str]) -> dict:
+    """Phase 14 (b): MESH_RANKS processes of ``mesh_rank`` sharing cuda:0
+    over gloo; prints their lines, adds their failures.  Returns the
+    launches, summed over the ranks."""
+    with tempfile.TemporaryDirectory() as d:
+        outs = [Path(d) / f"rank{r}.json" for r in range(MESH_RANKS)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r),
+                                   str(Path(d) / "store"), str(outs[r])], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(MESH_RANKS)]
+        try:
+            logs = [p.communicate(timeout=MESH_RANK_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            print(log, end="")
+            if p.returncode != 0 or not outs[r].exists():
+                failures.append(f"(b) rank {r} exited {p.returncode}")
+                print(f"[FAIL] {failures[-1]}")
+        results = [json.loads(o.read_text()) for o in outs if o.exists()]
+    launches: dict[str, int] = {}
+    for res in results:
+        for f in res["failures"]:
+            failures.append(f"(b) {f}")
+            print(f"[FAIL] {failures[-1]}")
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3412,6 +3782,20 @@ def main() -> int:
                 kernels[row].update({f"{prefix}train_launches": out[row], f"{prefix}bwd_launches": out[f"{row}_bwd"]})
         print(f"[train] {arch} done in {time.perf_counter() - t0:.1f} s")
 
+    # phase 14: the mesh paths, each with its counts from 0
+    t0 = time.perf_counter()
+    one = mesh_one_rank(failures)
+    two = mesh_two_ranks(failures)
+    for label, launched, want in (("mesh (1, 1)", one, ("gemm", "flash_attention")),
+                                  ("mesh two-rank", two, ("conv2d_im2col", "gemm", "flash_attention"))):
+        for name in want:
+            kernels[name][f"{label} launches"] = launched.get(name, 0)
+            if not launched.get(name):
+                failures.append(f"{label}: {name} never launched")
+                print(f"[FAIL] {failures[-1]}")
+    print(f"[mesh] done in {time.perf_counter() - t0:.1f} s, launches (1, 1) {one}, two ranks {two} "
+          f"({smi.stdout.strip().splitlines()[0]})")
+
     print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     if failures:
@@ -3423,4 +3807,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 14 (b), started by mesh_two_ranks
+        sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

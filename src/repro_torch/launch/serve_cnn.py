@@ -9,7 +9,8 @@
 3. run Shisha — Algorithm 1 seed, Algorithm 2 tuning, heuristic H3 — on a
    4-EP platform of streams whose EP derates emulate FEP/SEP chiplets;
 4. run the chosen split as a GPipe pipeline of microbatches, one CUDA
-   stream per stage, and measure its throughput;
+   stream per stage (or, with ``ranks=True``, one stage a rank), and
+   measure its throughput;
 5. make one stage's EP slower and rebalance with the same tuner.
 """
 
@@ -20,6 +21,7 @@ from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..core import PipelineConfig, Platform, ShishaResult, Trace, TuneResult, run_shisha, weights
 from ..models.cnn import CNNModel, make_cnn, network_layers
@@ -39,19 +41,21 @@ _CPU_PROPS = SimpleNamespace(name="cpu-as-H100", multi_processor_count=132, tota
 
 @dataclasses.dataclass
 class CNNLoopResult:
+    """What :func:`serve_cnn` did.  Over ranks, only rank 0 holds the
+    oracle, the schedule and the rebalance (None elsewhere), and a rank
+    outside the tuned split's stages holds no runner, output or
+    throughput."""
+
     model: CNNModel
     platform: Platform
-    evaluator: MeasuringEvaluator
-    shisha: ShishaResult
-    runner: PipelineRunner
+    evaluator: MeasuringEvaluator | None
+    shisha: ShishaResult | None
+    runner: PipelineRunner | None
     micro: torch.Tensor
-    out: torch.Tensor
-    measured_throughput: float
+    out: torch.Tensor | None
+    measured_throughput: float | None
     rebalanced: tuple[PipelineConfig, TuneResult] | None
-
-    @property
-    def conf(self) -> PipelineConfig:
-        return self.shisha.result.best_conf
+    conf: PipelineConfig
 
     def report(self) -> list[str]:
         conf, res = self.conf, self.shisha.result
@@ -112,29 +116,51 @@ def serve_cnn(
     scale: float = 1.0,
     in_shape: tuple[int, int, int] = (220, 220, 3),
     seed: int = 0,
+    ranks: bool = False,
 ) -> CNNLoopResult:
     """Steps 1–5 on ``device`` with SynthNet at channel ``scale``; inputs
-    of ``in_shape`` (H, W, C) per image; weights and inputs from ``seed``."""
+    of ``in_shape`` (H, W, C) per image; weights and inputs from ``seed``.
+
+    With ``ranks=True`` every rank of the joined group
+    (``launch.mesh.join_group``) calls it, and the platform has one EP a
+    rank.  Rank 0 measures the oracle on its device and tunes, as on one
+    device; the tuned split is broadcast and runs one stage a rank
+    (``make_stage_mesh(depth, ranks=True)``: ranks past the split's depth
+    sit the run out), and rank 0 rebalances the straggler."""
     device = torch.device(device)
+    n_stages = dist.get_world_size() if ranks else N_STAGES
+    lead = not ranks or dist.get_rank() == 0
     props = _CPU_PROPS if device.type == "cpu" else torch.cuda.get_device_properties(device)
-    platform = h100_platform_from_streams(N_STAGES, props=props)
+    platform = h100_platform_from_streams(n_stages, props=props)
 
     # 1-2. measured oracle + Shisha
-    model, ev, gen = measure_cnn("synthnet", platform, device=device, in_shape=in_shape, seed=seed, scale=scale)
-    shisha = run_shisha(weights(ev.layers), Trace(ev), "H3", n_stages=N_STAGES)
-    conf = shisha.result.best_conf
+    ev = shisha = None
+    if lead:
+        model, ev, gen = measure_cnn("synthnet", platform, device=device, in_shape=in_shape, seed=seed, scale=scale)
+        shisha = run_shisha(weights(ev.layers), Trace(ev), "H3", n_stages=n_stages)
+        conf = shisha.result.best_conf
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = make_cnn("synthnet", scale=scale, device=device).init(gen)
+    if ranks:
+        box = [(conf.stages, conf.eps) if lead else None]
+        dist.broadcast_object_list(box, src=0)
+        conf = PipelineConfig(*box[0])
 
     # 3. run it for real
-    runner = PipelineRunner(
-        mesh=make_stage_mesh(conf.depth, device), conf=conf, apply_layer=model.apply_layer, n_micro=N_MICRO
-    )
+    mesh = make_stage_mesh(conf.depth, device, ranks=ranks)
     micro = torch.randn((N_MICRO, BATCH, *in_shape), generator=gen, device=device)
-    out = runner.run(micro)
-    tp = pipeline_throughput(runner, micro)
+    runner = out = tp = None
+    if not ranks or mesh.get_coordinate() is not None:
+        runner = PipelineRunner(mesh=mesh, conf=conf, apply_layer=model.apply_layer, n_micro=N_MICRO)
+        out = runner.run(micro)
+        tp = pipeline_throughput(runner, micro)
 
     # 4. straggler: one stage's EP becomes slower; re-measure and re-tune
-    mit = StragglerMitigator(platform, conf, lambda p: Trace(dataclasses.replace(ev, platform=p)))
-    times = ev.stage_times(conf)
-    times[STRAGGLER_STAGE] *= STRAGGLER_FACTOR
-    rebalanced = mit.rebalance(times)
-    return CNNLoopResult(model, platform, ev, shisha, runner, micro, out, tp, rebalanced)
+    rebalanced = None
+    if lead:
+        mit = StragglerMitigator(platform, conf, lambda p: Trace(dataclasses.replace(ev, platform=p)))
+        times = ev.stage_times(conf)
+        times[STRAGGLER_STAGE] *= STRAGGLER_FACTOR
+        rebalanced = mit.rebalance(times)
+    return CNNLoopResult(model, platform, ev, shisha, runner, micro, out, tp, rebalanced, conf)

@@ -24,8 +24,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels import ops
+from ..launch.mesh import axis_size, enter_tp, mean_over, sum_tp
 from .lm_common import LMConfig, rms_norm, rotary
 
 # ---------------------------------------------------------------------------
@@ -59,14 +61,41 @@ def _sdpa(cfg: LMConfig, q, k, v, *, causal: bool, window: int = 0) -> torch.Ten
     transposed ``[b, h, s, d]`` views and writes its output in q's layout,
     so nothing is copied; it replaces both the reference's ``attn_q_block``
     chunking and its ``attn_repeat_kv`` option, neither of which changes the
-    result.  Scores are always fp32 (the reference's default
-    ``attn_fp32_scores``).
+    result.  Its scores are fp32 (the reference's default
+    ``attn_fp32_scores``); ``attn_fp32_scores=False`` runs
+    :func:`_sdpa_bf16_scores` on CPU tensors and raises on CUDA ones.
     """
     if not cfg.attn_fp32_scores:
-        raise NotImplementedError("attn_fp32_scores=False (bf16 softmax) is not ported; the kernel keeps fp32 scores")
+        if q.is_cuda:
+            raise NotImplementedError("attn_fp32_scores=False: the flash kernel has no bf16-score mode yet "
+                                      "(ROADMAP.md queue 1, the flash bf16-score mode)")
+        return _sdpa_bf16_scores(q, k, v, causal=causal, window=window)
     b, s, h, d = q.shape
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window)
     return o.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _sdpa_bf16_scores(q, k, v, *, causal: bool, window: int = 0) -> torch.Tensor:
+    """:func:`_sdpa` with the reference's ``attn_fp32_scores=False``
+    (``repro/models/blocks.py:57-67``): the Q·Kᵀ products in q's type,
+    rounded to bf16 before the scale, a bf16 softmax, the probabilities
+    cast back to q's type before P·V.  Plain PyTorch on the CPU."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(torch.bfloat16) / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    # jax.nn.softmax step by step, each step rounded to bf16 (its sum adds in fp32)
+    e = torch.exp(scores - scores.amax(-1, keepdim=True))
+    probs = (e / e.sum(-1, keepdim=True)).to(q.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, sq, h * d)
 
 
 def attention(cfg: LMConfig, p: dict, x, positions, *, causal: bool = True, window: int = 0,
@@ -189,7 +218,8 @@ def route(cfg: LMConfig, p: dict, xf: torch.Tensor) -> tuple[torch.Tensor, torch
     return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), expert
 
 
-def moe_ffn_local(cfg: LMConfig, p: dict, x: torch.Tensor, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_local(cfg: LMConfig, p: dict, x: torch.Tensor, capacity: int, tp: tuple | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with capacity, sort-free dispatch.
 
     x: [b, s, d].  Returns (y, aux_loss), y without the residual.  Each
@@ -199,12 +229,21 @@ def moe_ffn_local(cfg: LMConfig, p: dict, x: torch.Tensor, capacity: int) -> tup
     zeroed.  The three expert products run on ``ops.gemm``, all experts in
     one launch each; the router and the shared expert stay ``torch.matmul``,
     as the reference leaves them outside any kernel.
+
+    ``tp = (mesh, axis)``: the expert weights in ``p`` are this rank's
+    ``d_ff`` slice (:data:`TP_SPLIT`) and y is its partial sum.  The tokens
+    and the combine weights enter the sliced products through
+    ``launch.mesh.enter_tp``, so their gradients are summed over ``axis``;
+    the router's own path (and ``aux``) is the same on every rank and is
+    not.
     """
     b, s, dm = x.shape
     E, k = cfg.n_experts, cfg.top_k
     t = b * s
     xf = x.reshape(t, dm)
     probs, gate, expert = route(cfg, p, xf)
+    if tp is not None:
+        xf, gate = enter_tp(xf, *tp), enter_tp(gate, *tp)
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(0)
     ce = torch.zeros(E, device=x.device).index_add_(0, expert.reshape(-1), torch.ones(t * k, device=x.device)) / (t * k)
@@ -235,14 +274,54 @@ def moe_ffn_local(cfg: LMConfig, p: dict, x: torch.Tensor, capacity: int) -> tup
     return y.reshape(b, s, dm), aux
 
 
-def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """MoE sublayer with residual on one device: (x + y, aux_loss)."""
-    if mesh is not None:
-        raise NotImplementedError("expert parallelism over a mesh of cards is not ported yet: ROADMAP.md queue 1, "
-                                  "MoE item")
+#: the expert weights tensor parallelism splits over ``d_ff``, and the dim
+#: each is split on (the reference's ``w_specs``): the gate and up
+#: projections on their last, the down projections on their second to last
+TP_SPLIT = {"we_gate": -1, "we_up": -1, "we_down": -2, "ws_gate": -1, "ws_up": -1, "ws_down": -2}
+
+
+def tp_slice(p: dict, tp: int, index: int) -> dict:
+    """The parameters of one MoE layer as rank ``index`` of ``tp`` sees
+    them: each :data:`TP_SPLIT` weight narrowed to its ``index``-th part of
+    ``d_ff`` (a view: no copy; its rows keep the whole tensor's stride), the
+    rest as they are."""
+    out = dict(p)
+    for key, dim in TP_SPLIT.items():
+        if key in p:
+            n = p[key].shape[dim]
+            if n % tp:
+                raise ValueError(f"{key}'s d_ff of {n} does not split over {tp} ranks")
+            out[key] = p[key].narrow(dim, index * (n // tp), n // tp)
+    return out
+
+
+def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, mesh=None, dp_axes=("data",), tp_axis="model"
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE sublayer with residual: (x + y, aux_loss).
+
+    With a mesh of ranks (``launch.mesh.make_test_mesh``), x is this rank's
+    slice of the batch along ``dp_axes`` and the reference's ``shard_map``
+    path is mirrored: the rank routes its own tokens at ``moe_capacity`` of
+    its own token count, computes the ``d_ff`` slice of the experts that
+    :func:`tp_slice` gives its ``tp_axis`` rank, and y is summed over
+    ``tp_axis`` (``launch.mesh.sum_tp``); ``aux`` is the mean over
+    ``dp_axes`` of the ranks' aux losses.  With more than one data rank
+    this is another function than the path without a mesh: a shard's
+    capacity can drop other tokens, and the mean of the shards' aux losses
+    is not the whole batch's (ROADMAP.md queue 3).
+    """
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, aux = moe_ffn_local(cfg, p, h, moe_capacity(cfg, h.shape[0] * h.shape[1]))
-    return x + y, aux
+    capacity = moe_capacity(cfg, h.shape[0] * h.shape[1])
+    if mesh is None:
+        y, aux = moe_ffn_local(cfg, p, h, capacity)
+        return x + y, aux
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh of ranks (launch.mesh.make_test_mesh), got {type(mesh).__name__}")
+    tp = axis_size(mesh, tp_axis)
+    if tp > 1:
+        p = tp_slice(p, tp, mesh.get_local_rank(tp_axis))
+    y, aux = moe_ffn_local(cfg, p, h, capacity, tp=(mesh, tp_axis))
+    return x + sum_tp(y, mesh, tp_axis), mean_over(aux, mesh, dp_axes)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ patch prefix (internvl: projected patch embeddings before the tokens).
   * ``train_loss(cfg, params, batch)`` — full forward and chunked
     cross-entropy (``backbone``, ``decoder_with_cross``, ``lm_head_loss``),
     plus ``0.01 * aux`` of the MoE router; ``make_train_step(cfg, optimizer,
-    accum)`` — loss, gradients (summed over microbatches in
+    accum=)`` — loss, gradients (summed over microbatches in
     ``cfg.accum_dtype``) and the optimizer's update.  Remat ``"full"`` is
     ``torch.utils.checkpoint`` per layer, as the reference checkpoints its
     scan body.  On the card, attention and its gradient run on the flash
@@ -33,6 +33,19 @@ patch prefix (internvl: projected patch embeddings before the tokens).
   * ``serve_block`` / ``make_serve_step`` — ``decode_block`` tokens per call.
   * ``layer_costs(cfg, seq, batch)`` — the scheduler's static per-block
     costs (``core/cost_model.py``), from the config alone.
+
+Over a mesh of ranks (``mesh=``, a ``launch.mesh.make_test_mesh`` with
+``dp_axes`` and ``tp_axis``), as the reference's ``mesh=`` paths: every rank
+is given the whole batch and takes its slice of every key along the data
+axes (``launch.mesh.batch_shard``); MoE layers run ``blocks.moe_ffn`` over
+the mesh (each data rank routes its own tokens, each ``tp_axis`` rank
+computes its ``d_ff`` slice of the experts); dense layers are replicated
+across ``tp_axis`` (the reference's GSPMD tensor parallelism of attention
+and the dense FFN is not ported: ROADMAP.md queue 1).  ``train_loss`` is the
+reference's loss on the whole batch and ``value_and_grad`` /
+``make_train_step`` its gradient, the same on every rank; ``prefill_step``
+and ``serve_step`` return the whole batch's logits on every rank and keep
+the cache of the rank's own batch slice.
 
 The layer loop is a Python loop over views of the ``[L, ...]`` stacks where
 the reference has ``lax.scan``.  The cache is a dict of stacked tensors as
@@ -77,6 +90,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import tree
+from ..launch.mesh import all_reduce_over, axis_size, batch_shard, gather_batch
 from . import blocks
 from .lm_common import LMConfig, layer, rms_norm
 
@@ -89,10 +103,10 @@ def _check_supported(cfg: LMConfig) -> None:
         raise ValueError(f"{cfg.n_layers} layers are not whole groups of {cfg.shared_attn_every}")
 
 
-def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, mesh=None, dp_axes=("data",), tp_axis="model") -> torch.Tensor:
     """The FFN sublayer of an ``attn`` layer: MoE (aux loss dropped) or dense."""
     if cfg.is_moe:
-        return blocks.moe_ffn(cfg, lp, x)[0]
+        return blocks.moe_ffn(cfg, lp, x, mesh, dp_axes, tp_axis)[0]
     return blocks.dense_ffn(cfg, lp, x)
 
 
@@ -246,40 +260,43 @@ def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor, ma
 
 
 def lm_head_loss(cfg: LMConfig, params: dict, h: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
+                 mask: torch.Tensor, count: torch.Tensor | None = None) -> torch.Tensor:
     """Chunked softmax cross-entropy over h [b, s, d]: never holds [b, s,
     vocab] at once.  The chunk is the first of ``loss_chunk``, 512, 256, ...
     1 that divides s; each chunk's logits are recomputed in the backward
     (``torch.utils.checkpoint``).  The unembedding product stays
-    ``torch.matmul``, as the reference leaves it to XLA.  Returns the mean
-    over ``mask``, fp32."""
+    ``torch.matmul``, as the reference leaves it to XLA.  Returns the sum
+    over ``mask`` divided by ``count`` (default: ``mask``'s count), fp32."""
     s = h.shape[1]
     cs = next((c for c in (cfg.loss_chunk, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1) if s % c == 0), s)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, cs):
         total = total + _recompute(True, _xent_chunk, h[:, c0 : c0 + cs], params["unembed"],
                                    labels[:, c0 : c0 + cs], mask[:, c0 : c0 + cs])
-    return total / mask.sum().clamp_min(1)
+    return total / (mask.sum() if count is None else count).clamp_min(1)
 
 
-def _attn_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor):
+def _attn_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor, mesh=None, dp_axes=("data",),
+                tp_axis="model"):
     """One ``attn`` layer of the training forward: (x, the MoE router's aux loss or 0)."""
     x = blocks.attention(cfg, lp, x, positions, causal=True, window=cfg.sliding_window)
     if cfg.is_moe:
-        return blocks.moe_ffn(cfg, lp, x)
+        return blocks.moe_ffn(cfg, lp, x, mesh, dp_axes, tp_axis)
     return blocks.dense_ffn(cfg, lp, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def backbone(cfg: LMConfig, params: dict, x: torch.Tensor, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def backbone(cfg: LMConfig, params: dict, x: torch.Tensor, positions: torch.Tensor, mesh=None, dp_axes=("data",),
+             tp_axis="model") -> tuple[torch.Tensor, torch.Tensor]:
     """The layer stack over embedded inputs x [b, s, d]: (``ln_f``-normed h,
     the sum of the MoE layers' aux losses, fp32).  ``remat == "full"``
     recomputes each layer in the backward; a hybrid's shared block is not
-    recomputed, as in the reference."""
+    recomputed, as in the reference.  With a mesh, x is the rank's batch
+    slice and the MoE layers run over the mesh."""
     _check_supported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_kind == "attn":
         for lp in _unbind(params["blocks"]):
-            x, a = _remat(cfg, _attn_layer, cfg, lp, x, positions)
+            x, a = _remat(cfg, _attn_layer, cfg, lp, x, positions, mesh, dp_axes, tp_axis)
             aux = aux + a
     else:
         if cfg.block_kind == "hybrid":
@@ -313,55 +330,85 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
 
 
-def train_loss(cfg: LMConfig, params: dict, batch: dict) -> torch.Tensor:
+def train_loss(cfg: LMConfig, params: dict, batch: dict, mesh=None, dp_axes=("data",), tp_axis="model") -> torch.Tensor:
     """Next-token loss for any architecture family: batch ``tokens`` and
     ``labels`` [b, s] (labels < 0 masked), with ``frames`` for enc-dec and
     ``patch_embeds`` for a patch prefix (whose positions count the patches
-    and whose outputs the loss drops).  MoE adds ``0.01 * aux``.  One
-    device: training over a mesh of cards waits for ROADMAP.md queue 1
-    item 7."""
+    and whose outputs the loss drops).  MoE adds ``0.01 * aux``.
+
+    With a mesh, every rank is given the whole batch and computes on its
+    slice; the value is the reference's loss on the whole batch (the masked
+    sum over it divided by its count, plus ``0.01 *`` the MoE layers' aux
+    losses, each the mean over the data ranks), the same on every rank.  Its
+    gradient on a rank is that rank's share, the rank's own masked sum over
+    the global count plus its aux losses' share: summed over the data ranks
+    (:func:`value_and_grad`) it is the loss's gradient."""
     _check_supported(cfg)
+    if mesh is not None:
+        batch = batch_shard(mesh, batch, dp_axes)
     tokens, labels = batch["tokens"], batch["labels"]
+    mask = labels >= 0
+    count = None if mesh is None else all_reduce_over(mask.sum(), mesh, dp_axes)
     x = embed_tokens(cfg, params, tokens)
+    aux = None
     if cfg.is_encdec:
         enc_out = encoder(cfg, params, batch["frames"])
         h = decoder_with_cross(cfg, params, x, _positions(*tokens.shape, x.device), enc_out)
-        return lm_head_loss(cfg, params, h, labels, labels >= 0)
-    if cfg.n_patches:
-        x = torch.cat([batch["patch_embeds"].to(cfg.dtype) @ params["patch_proj"], x], dim=1)
-    h, aux = backbone(cfg, params, x, _positions(x.shape[0], x.shape[1], x.device))
-    if cfg.n_patches:
-        h = h[:, cfg.n_patches :]
-    return lm_head_loss(cfg, params, h, labels, labels >= 0) + 0.01 * aux
+    else:
+        if cfg.n_patches:
+            x = torch.cat([batch["patch_embeds"].to(cfg.dtype) @ params["patch_proj"], x], dim=1)
+        h, aux = backbone(cfg, params, x, _positions(x.shape[0], x.shape[1], x.device), mesh, dp_axes, tp_axis)
+        if cfg.n_patches:
+            h = h[:, cfg.n_patches :]
+    nll = lm_head_loss(cfg, params, h, labels, mask, count)
+    loss = nll if aux is None else nll + 0.01 * aux
+    if mesh is None:
+        return loss
+    # the value of the whole batch's loss on the gradient of this rank's share (aux is already the data mean)
+    whole = all_reduce_over(nll.detach(), mesh, dp_axes)
+    whole = whole if aux is None else whole + 0.01 * aux.detach()
+    return loss + (whole - loss).detach()
 
 
-def value_and_grad(cfg: LMConfig, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+def value_and_grad(cfg: LMConfig, params: dict, batch: dict, mesh=None, dp_axes=("data",), tp_axis="model"
+                   ) -> tuple[torch.Tensor, dict]:
     """(train_loss, its gradient as a tree like ``params``, each leaf in its
     parameter's dtype).  A leaf the loss does not reach gets zeros, as
-    ``jax.grad`` gives it."""
+    ``jax.grad`` gives it.  With a mesh, each rank holds every parameter
+    whole; the ranks' gradients are summed over ``dp_axes``, and a MoE
+    expert weight's (``blocks.TP_SPLIT``, each rank's nonzero on its ``d_ff``
+    slice only) over ``tp_axis`` too, so every rank returns the whole
+    gradient."""
     leaves = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
-    loss = train_loss(cfg, tree.rebuild(params, leaves), batch)
+    loss = train_loss(cfg, tree.rebuild(params, leaves), batch, mesh, dp_axes, tp_axis)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), tree.rebuild(params, [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)])
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+    if mesh is not None:
+        split = tuple(dp_axes) + ((tp_axis,) if axis_size(mesh, tp_axis) > 1 else ())
+        names = [name.rsplit("/", 1)[-1] for name, _ in tree.named_leaves(params)]
+        grads = [all_reduce_over(g, mesh, split if n in blocks.TP_SPLIT else dp_axes) for n, g in zip(names, grads)]
+    return loss.detach(), tree.rebuild(params, grads)
 
 
-def make_train_step(cfg: LMConfig, optimizer, accum: int = 1):
+def make_train_step(cfg: LMConfig, optimizer, mesh=None, dp_axes=("data",), tp_axis="model", accum: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, metrics ``loss`` plus the optimizer's (``lr``,
     ``grad_norm``).  ``accum > 1`` splits the batch into that many
     microbatches and sums their gradients in ``cfg.accum_dtype`` before
     dividing by ``accum``.  The optimizer updates ``params`` and
-    ``opt_state`` in place (``optim.AdamW``) and returns them."""
+    ``opt_state`` in place (``optim.AdamW``) and returns them.  With a mesh
+    (:func:`value_and_grad`), every rank is given the whole batch, and the
+    ranks' parameters, optimizer states and metrics stay equal."""
 
     def train_step(params: dict, opt_state: dict, batch: dict):
         if accum == 1:
-            loss, grads = value_and_grad(cfg, params, batch)
+            loss, grads = value_and_grad(cfg, params, batch, mesh, dp_axes, tp_axis)
         else:
             micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:]) for k, v in batch.items()}
             gsum = [torch.zeros(t.shape, dtype=cfg.accum_dtype, device=t.device) for t in tree.leaves(params)]
             loss = torch.zeros((), dtype=torch.float32, device=gsum[0].device)
             for i in range(accum):
-                l, g = value_and_grad(cfg, params, {k: v[i] for k, v in micro.items()})
+                l, g = value_and_grad(cfg, params, {k: v[i] for k, v in micro.items()}, mesh, dp_axes, tp_axis)
                 for acc, gi in zip(gsum, tree.leaves(g)):
                     acc += gi.to(cfg.accum_dtype)
                 loss = loss + l
@@ -380,10 +427,15 @@ def _logits(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor):
+def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor, mesh=None, dp_axes=("data",),
+               tp_axis="model"):
     """Decode one token.  tokens: [b, 1] -> (logits [b, vocab], cache),
-    the cache updated in place."""
+    the cache updated in place.  With a mesh, ``tokens`` is the whole
+    batch's, ``cache`` the rank's own slice's (from ``prefill_step`` over the
+    same mesh), and the logits are the whole batch's."""
     _check_supported(cfg)
+    if mesh is not None:
+        tokens = batch_shard(mesh, tokens, dp_axes)
     index = cache["index"]
     x = embed_tokens(cfg, params, tokens)
     if cfg.block_kind == "hybrid":
@@ -399,7 +451,7 @@ def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor):
             x, _, _, _ = blocks.attention_decode(
                 cfg, lp, x, cache["k"][i], cache["v"][i], cache["pos"][i], index, window=cfg.sliding_window
             )
-            x = _ffn(cfg, lp, x)
+            x = _ffn(cfg, lp, x, mesh, dp_axes, tp_axis)
             continue
         x, ssm, conv = blocks.ssd_decode(cfg, lp, x, cache["ssm"][i], cache["conv"][i])
         cache["ssm"][i].copy_(ssm)
@@ -412,25 +464,28 @@ def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor):
             )
             x = blocks.dense_ffn(ffn_cfg, shared, x)
     cache["index"] = index + 1
-    return _logits(cfg, params, x), cache
+    logits = _logits(cfg, params, x)
+    return (logits if mesh is None else gather_batch(mesh, logits, dp_axes)), cache
 
 
-def make_serve_step(cfg: LMConfig):
-    return partial(serve_step, cfg)
+def make_serve_step(cfg: LMConfig, mesh=None, dp_axes=("data",), tp_axis="model"):
+    return partial(serve_step, cfg, mesh=mesh, dp_axes=dp_axes, tp_axis=tp_axis)
 
 
-def serve_block(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor):
+def serve_block(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor, mesh=None, dp_axes=("data",),
+                tp_axis="model"):
     """Decode ``cfg.decode_block`` tokens in one call (greedy feedback).
     Returns (logits of the LAST token, cache)."""
     tok = tokens
     for _ in range(max(cfg.decode_block, 1) - 1):
-        logits, cache = serve_step(cfg, params, cache, tok)
+        logits, cache = serve_step(cfg, params, cache, tok, mesh, dp_axes, tp_axis)
         tok = torch.argmax(logits, dim=-1)[:, None].to(tokens.dtype)
-    return serve_step(cfg, params, cache, tok)
+    return serve_step(cfg, params, cache, tok, mesh, dp_axes, tp_axis)
 
 
 @torch.inference_mode()
-def prefill_step(cfg: LMConfig, params: dict, batch: dict, max_len: int | None = None):
+def prefill_step(cfg: LMConfig, params: dict, batch: dict, mesh=None, dp_axes=("data",), tp_axis="model",
+                 max_len: int | None = None):
     """Serving prefill: forward over the prompt, emitting the decode cache.
 
     batch: {"tokens": [b, s_tok]}, with ``"frames"`` [b, enc_frames,
@@ -441,11 +496,22 @@ def prefill_step(cfg: LMConfig, params: dict, batch: dict, max_len: int | None =
     positions (patches first) in ``_ring_width`` slots; a hybrid's shared
     ring keeps the last ``W`` positions at slot ``pos % W``; enc-dec's
     decoder ring is ``max_decoder_len`` wide, the prompt cut to it, and
-    ``max_len`` is not read (module docstring).
+    ``max_len`` is not read (module docstring).  With a mesh, every rank is
+    given the whole batch and returns the whole batch's logits and the cache
+    of its own batch slice.
     """
     _check_supported(cfg)
+    if mesh is not None:
+        batch = batch_shard(mesh, batch, dp_axes)
     if cfg.is_encdec:
-        return _prefill_encdec(cfg, params, batch)
+        logits, cache = _prefill_encdec(cfg, params, batch)
+    else:
+        logits, cache = _prefill(cfg, params, batch, max_len, mesh, dp_axes, tp_axis)
+    return (logits if mesh is None else gather_batch(mesh, logits, dp_axes)), cache
+
+
+def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, mesh, dp_axes, tp_axis):
+    """``prefill_step`` of every family but enc-dec, on the rank's batch."""
     x = embed_tokens(cfg, params, batch["tokens"])
     if cfg.n_patches:  # the patch prefix: positions count the patches
         x = torch.cat([batch["patch_embeds"].to(cfg.dtype) @ params["patch_proj"], x], dim=1)
@@ -460,7 +526,7 @@ def prefill_step(cfg: LMConfig, params: dict, batch: dict, max_len: int | None =
             x, k, v = blocks.attention(
                 cfg, lp, x, positions, causal=True, window=cfg.sliding_window, return_kv=True
             )
-            x = _ffn(cfg, lp, x)
+            x = _ffn(cfg, lp, x, mesh, dp_axes, tp_axis)
             cache["k"][i, :, slots] = k[:, kept]
             cache["v"][i, :, slots] = v[:, kept]
     else:
