@@ -322,18 +322,47 @@ repository's sources are not beside this script.  Otherwise, in order:
    ``--mesh-rank``): full-width SynthNet in a 2-stage split, stage s on rank
    s, 8 microbatches of 2, every rank's output equal to the sequential model
    on the same kernels; phi3.5-moe's prefill on a (1, 2) mesh, each rank
-   computing half of d_ff on views of the expert weights, held to LM_TOL
+   holding its blocks of the sharded layout (half of d_ff of the experts,
+   half of the heads), held to LM_TOL
    against the one-process kernel path on the same routes, each rank's
    profiled prefill running ``gemm_wgmma_bf16_kernel`` three times a layer
    with no copy (its route printed); granite-3-2b's loss and every leaf's
    gradient on a (2, 1) mesh, batch 4 x 512 split 2 / 2 with rank 0's rows
    partly masked, held to MESH_LOSS_TOL and MESH_GRAD_TOL against one
-   process, beside two controls that must miss (the mean of the ranks' own
-   means, the gradients left unreduced), then a warm mesh train step after
-   which the ranks' parameters agree; ``compressed_psum`` over the two ranks
+   process (each rank's blocks of the gradient gathered whole), beside two
+   controls that must miss (the mean of the ranks' own means, the gradients
+   left unsummed over the data ranks), then a warm mesh train step after
+   which the ranks' gathered parameters agree; ``compressed_psum`` over the two ranks
    against its formula in fp32 on the host.  Walls and micro/s there are
    the host clock of two processes on one card, not a multi-card figure;
-15. prints the per-kernel JSON line (the ``flash_attention`` row is
+15. drives the sharded layout (``[shard]`` lines; ``models/layout.py``,
+   ``sharding.py``, ``collectives.py``), each with its launch counts from 0: (a) one NCCL
+   rank on a (1, 1) mesh, the parameters as ``local_shard`` gives them:
+   granite-3-2b's train step, phi3.5-moe's prefill and a decode step must
+   give the bits of no mesh; (b) SHARD_RANKS processes sharing cuda:0 over
+   gloo (this script again, with ``--shard-rank``), on a (1, 2) and a (2, 1)
+   mesh: granite-3-2b at full width and MESH_DEPTH layers, its loss and every
+   leaf of its gradient gathered whole held to MESH_LOSS_TOL / MESH_GRAD_TOL
+   against one process, beside a control that must miss (the tensor-parallel
+   sums dropped on (1, 2), the data sums on (2, 1)); phi3.5-moe's prefill
+   and SHARD_DECODE decode steps (over the ring split across the ranks' slots
+   on (1, 2)) held to LM_TOL against one process on the same routes (on
+   (2, 1) against the rank's slice alone: a data shard routes its own
+   tokens), beside a control on (1, 2) that must miss (the split ring's
+   all-reduces dropped, each rank attending only its own slots);
+   zamba2-2.7b at SHARD_HYBRID_DEPTH layers (its SSD layers gathered whole
+   and scanned by the SSD kernel on every rank, its shared attention block
+   on the rank's heads) served the same way on (1, 2), held to LM_TOL
+   against one process; each rank's parameter and AdamW bytes by
+   ``torch.cuda.memory_allocated`` held to the sum of its blocks (at most
+   the allocator's 512-byte rounding a tensor more); (c) the dry run on the
+   card (``launch.dryrun.run_cell(..., device="cuda")``): SHARD_DRYRUN's
+   cells as rank 0 of a 256-rank fake group with real CUDA tensors (the
+   other ranks' blocks of a gathered leaf are zeros): argument bytes equal
+   to the ``meta`` profile's, the measured peak, the step's device time by
+   CUDA events beside the roofline's compute and memory terms, the launches
+   of flash, ``gemm`` and the SSD scan from 0, finite outputs;
+16. prints the per-kernel JSON line (the ``flash_attention`` row is
    granite-3-2b's, naming the device function that served its prefill,
    with every other served attention call's times, bound, SDPA times and
    launches under keys that name the model and the call, and the
@@ -420,17 +449,15 @@ from repro_torch.serve import (
 )
 from repro_torch.telemetry import Telemetry
 from repro_torch.pipeline.hetero import H100_FP32_FLOPS as PEAK_FP32_FLOPS
+from repro_torch.pipeline.hetero import H100_BF16_FLOPS as PEAK_BF16_FLOPS
 from repro_torch.pipeline.hetero import H100_HBM_BW as HBM_BYTES_PER_S
 from repro_torch.tree import leaves as tree_leaves
 from repro_torch.tree import named_leaves, tree_map
-from repro_torch.tree import rebuild as tree_rebuild
 
 #: kernel-vs-plain tolerance on one conv (the reference's conv test)
 KERNEL_TOL = 3e-4
 #: pipelined-vs-plain tolerance over the 18-layer chain, relative to max |output|
 CHAIN_TOL = 1e-3
-#: dense bf16 tensor-core peak of the H100 SXM (NVIDIA's data sheet)
-PEAK_BF16_FLOPS = 989e12
 #: kernel-vs-plain in fp32: the reference's kernel-test tolerances
 ATTN_TOL, SSD_TOL = 2e-4, 2e-3
 #: kernel-vs-plain in bf16, max |kernel - plain| over max |plain|: both keep
@@ -918,10 +945,7 @@ def check_conv(gen: torch.Generator) -> dict:
         if sh["layers"]:
             if sh["net"] == "synthnet" and p.blocks < sms:
                 raise RuntimeError(f"plan {p} launches {p.blocks} blocks on {sms} SMs at {sh}")
-            n, h, wd, _ = sh["x"]
-            ho, wo = -(-h // st), -(-wd // st)
-            flops = 2.0 * n * ho * wo * k * r * s * c
-            nbytes = 4.0 * (x.numel() + w.numel() + y.numel())
+            flops, nbytes = im2col_conv.cost(x, w, st)
             lib_ms, lib_best_ms = cudnn_ms(x, w, st)
             row.update(
                 net=sh["net"],
@@ -1708,8 +1732,7 @@ def co_run_together(tenants: dict, runners: dict, seqs: dict) -> dict:
 
 
 def _bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    return ops.bound(flops, nbytes, peak)
 
 
 def _agree(name: str, case, got: torch.Tensor, want: torch.Tensor, tol: float | None) -> float:
@@ -1751,14 +1774,8 @@ def served_flash_calls() -> list[dict]:
     return calls
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask leaves visible: the work the data needs."""
-    n = 0
-    for i in range(sq):
-        hi = min(i, skv - 1) if causal else skv - 1
-        lo = max(0, i - window + 1) if window else 0
-        n += max(0, hi - lo + 1)
-    return n
+#: (query, key) pairs a mask leaves visible, the kernel module's count
+visible_pairs = fa.visible_pairs
 
 
 def check_flash(gen: torch.Generator) -> dict:
@@ -1837,8 +1854,7 @@ def check_flash(gen: torch.Generator) -> dict:
         max_err = max(max_err, err)
         print(f"[check] flash_attention {json.dumps({**desc, 'max_abs_err': err, 'max_abs_plain': yp.float().abs().max().item()})}")
         if "model" in case:
-            flops = 4.0 * b * h * d * visible_pairs(s, skv, case["causal"], case["window"])
-            nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + y.numel())
+            flops, nbytes = fa.cost(q, k, v, case["causal"], case["window"])
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
             qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
 
@@ -1895,18 +1911,8 @@ def ssd_inputs(b: int, l: int, h: int, p: int, n: int, dtype: torch.dtype, strid
     return x, dt, A, B, C
 
 
-def ssd_cost(x: torch.Tensor, B: torch.Tensor, chunk: int) -> tuple[float, float]:
-    """FLOPs and bytes of one scan: C.B^T once per (batch, chunk) on the
-    lower triangle; per (batch, head, chunk) the masked product on the
-    triangle, the carried state's output (not for the first chunk, whose
-    state is zero) and the state update.  Bytes: x, B, C, y in x's type, dt,
-    A and the final state in fp32, each once."""
-    b, l, h, p = x.shape
-    n = B.shape[-1]
-    nc, tri = l // chunk, chunk * (chunk + 1) // 2
-    flops = 2.0 * b * nc * n * tri + 2.0 * b * h * (nc * p * tri + (nc - 1) * chunk * n * p + nc * chunk * n * p)
-    nbytes = x.element_size() * (2 * x.numel() + 2 * B.numel()) + 4.0 * (b * l * h + h + b * h * p * n)
-    return flops, nbytes
+#: FLOPs and bytes of one scan, the kernel module's formula
+ssd_cost = ssd.cost
 
 
 def check_ssd(gen: torch.Generator) -> dict:
@@ -2067,8 +2073,7 @@ def check_gemm(gen: torch.Generator) -> dict:
         row = {**desc, "max_abs_err": err, "max_abs_plain": yp.float().abs().max().item(),
                "kernel": gm.KERNELS[r.kernel], "copied": [n for n, c in (("a", r.copy_a), ("b", r.copy_b)) if c]}
         if label in main:
-            E, M, K = sa
-            flops, nbytes = 2.0 * E * M * K * sb[-1], 2.0 * (a.numel() + b.numel() + y.numel())
+            flops, nbytes = gm.cost(a, b)
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
             row.update(flops=flops, bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
                        ms=_time_ms(lambda: gm.gemm(a, b)), plain_ms=_time_ms(lambda: gm.gemm_plain(a, b)),
@@ -2616,9 +2621,7 @@ def check_flash_bwd(gen: torch.Generator) -> dict:
         max_err = max(max_err, max((g.float() - w.float()).abs().max().item() for g, w in zip(got, plain)))
         print(f"[bwd] flash_attention_bwd {json.dumps({**desc, 'rel_err': err, 'plain_vs_autograd': auto_err, 'lse_err': lse_err})}")
         if "model" in case:
-            el = q.element_size()
-            flops = 10.0 * b * h * d * visible_pairs(s, skv, case["causal"], case["window"])  # five products
-            nbytes = el * 4 * (q.numel() + k.numel()) + 4 * 2 * lse.numel()  # q o dO dq, k v dk dv; lse, delta
+            flops, nbytes = fa.bwd_cost(q, k, case["causal"], case["window"])  # five products
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
             qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
             sdpa_out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=case["causal"], enable_gqa=True)
@@ -2658,21 +2661,8 @@ def check_flash_bwd(gen: torch.Generator) -> dict:
     return out
 
 
-def ssd_bwd_cost(x: torch.Tensor, B: torch.Tensor, chunk: int, with_state: bool) -> tuple[float, float]:
-    """FLOPs and bytes of one backward of the scan.  FLOPs: C.B^T once per
-    (batch, chunk) on the lower triangle; per (batch, head, chunk) the two
-    triangular products over p ((dy.xdt) and dxdt's within-chunk part), the
-    two over n (dC's and dB's within-chunk parts) and five [chunk, p, n]
-    products (the state entering the chunk, rebuilt; dH.B; dy.H; x.dH; dH's
-    update).  Bytes: x, dy and dx, B, C, dB and dC in x's type; dt, ddt, A,
-    dA and (if given) dstate in fp32, each once."""
-    b, l, h, p = x.shape
-    n = B.shape[-1]
-    nc, tri = l // chunk, chunk * (chunk + 1) // 2
-    flops = 2.0 * (b * nc * tri * n + b * h * nc * (2 * tri * p + 2 * tri * n + 5 * chunk * p * n))
-    nbytes = x.element_size() * (3 * x.numel() + 4 * B.numel()) + 4.0 * (2 * b * l * h + 2 * h
-                                                                         + (b * h * p * n if with_state else 0))
-    return flops, nbytes
+#: FLOPs and bytes of one backward of the scan, the kernel module's formula
+ssd_bwd_cost = ssd.bwd_cost
 
 
 def _hold_ssd_grads(name: str, desc: dict, got, want, tol: float) -> float:
@@ -2840,8 +2830,7 @@ def check_gemm_grad(gen: torch.Generator) -> dict:
         want = {"dA": "gemm_wgmma_bf16_kernel<C, 0, 0, 0>", "dB": "gemm_wgmma_bf16_kernel<C, 1, 1, 1>"}
         if {k: gm.KERNELS[r.kernel] for k, r in kernels.items()} != want:
             raise RuntimeError(f"the gemm backward at phi3.5-moe {label} routes {kernels}, want {want}")
-        flops = 2 * 2.0 * E * cap * K * N
-        nbytes = 2.0 * (dc.numel() + a.numel() + b.numel() + da.numel() + db.numel())
+        flops, nbytes = gm.bwd_cost(a, b)
         bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
 
         def backward():
@@ -3431,7 +3420,10 @@ def mesh_rank(rank: int, store: str, out_path: str) -> int:
     """Phase 14 (b), one rank: its own process on cuda:0, joined over gloo
     to the others (NCCL refuses two ranks on one card).  Writes its readings
     and failures to ``out_path`` as JSON; exits 0 once written."""
-    from repro_torch.launch.mesh import all_reduce_over, batch_shard, join_group, make_test_mesh
+    from repro_torch.collectives import all_reduce_over, gather_whole
+    from repro_torch.launch.mesh import batch_shard, join_group, make_test_mesh
+    from repro_torch.models.layout import param_layout
+    from repro_torch.sharding import local_shard
     from repro_torch.optim import compressed_psum
 
     def say(msg: str) -> None:
@@ -3471,10 +3463,12 @@ def mesh_rank(rank: int, store: str, out_path: str) -> int:
         mesh = make_test_mesh((1, MESH_RANKS), device="cuda")
         cfg = dataclasses.replace(get_config(MESH_MOE), n_layers=MESH_DEPTH)
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        blocks_of = local_shard(mesh, params, param_layout(cfg, mesh))  # the rank's blocks
         prompt = _mesh_prompt(cfg, 0)
 
         def prefill(m):
-            return transformer.prefill_step(cfg, params, prompt, m, max_len=LM_PROMPT + LM_GEN)[0]
+            return transformer.prefill_step(cfg, params if m is None else blocks_of, prompt, m,
+                                            max_len=LM_PROMPT + LM_GEN)[0]
 
         routes: list = []
         gm.launches = gm.copies = 0
@@ -3491,7 +3485,7 @@ def mesh_rank(rank: int, store: str, out_path: str) -> int:
         out["moe_rel"] = rel
         E, dm, f = cfg.n_experts, cfg.d_model, cfg.d_ff // MESH_RANKS
         cap = blocks.moe_capacity(cfg, LM_BATCH * LM_PROMPT)
-        half = params["blocks"]["we_gate"][0].narrow(-1, rank * f, f)
+        half = blocks_of["blocks"]["we_gate"][0]
         fwd = gm.KERNELS[gm.route(cfg.dtype, cap, dm, f, gm._aligned(half), *gm.majors(half, half))[0]]
         say(f"{MESH_MOE} at {MESH_DEPTH} layers, bf16, prefill {LM_BATCH} x {LM_PROMPT} on a (1, {MESH_RANKS}) "
             f"mesh, d_ff {cfg.d_ff} -> {f} a rank: logits against the one-process kernel path on the same routes "
@@ -3519,7 +3513,7 @@ def mesh_rank(rank: int, store: str, out_path: str) -> int:
         if wg != 3 * MESH_DEPTH or other or gm.copies:
             fail(f"rank {rank}: the profiled MoE prefill ran gemm_wgmma_bf16_kernel {wg} times, {other}, "
                  f"{gm.copies} copies")
-        del params, logits, want, routes
+        del params, blocks_of, logits, want, routes
         torch.cuda.empty_cache()
 
         # training on a (2, 1) mesh: the batch split 2 / 2
@@ -3534,14 +3528,16 @@ def mesh_rank(rank: int, store: str, out_path: str) -> int:
         def reading(got: float, grads: dict) -> dict:
             return {"loss": abs(got - want) / abs(want), "leaves": _leaf_ratios(grads, plain)}
 
+        specs = param_layout(cfg, mesh)
+        mine, rows = local_shard(mesh, params, specs), batch_shard(mesh, batch)
         fa.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, grads = transformer.value_and_grad(cfg, params, batch, mesh)
+        loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         out["launches"]["flash_attention"] = fa.launches
-        readings = {"mesh": reading(loss.item(), grads)}
+        readings = {"mesh": reading(loss.item(), gather_whole(mesh, grads, specs))}
         del grads
         # control: the mean of the ranks' own means (each over its own tokens), the gradients averaged alike
         loss, grads = transformer.value_and_grad(cfg, params, batch_shard(mesh, batch))
@@ -3549,12 +3545,10 @@ def mesh_rank(rank: int, store: str, out_path: str) -> int:
             (all_reduce_over(loss, mesh, ("data",)) / MESH_RANKS).item(),
             tree_map(lambda g: all_reduce_over(g, mesh, ("data",)) / MESH_RANKS, grads))
         del grads
-        # control: each rank's share of the gradient, left unreduced
-        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-        loss = transformer.train_loss(cfg, tree_rebuild(params, leaves), batch, mesh)
-        grads = tree_rebuild(params, torch.autograd.grad(loss, leaves))
-        readings["gradients unreduced"] = reading(loss.item(), grads)
-        del grads, leaves
+        # control: each rank's gradient of its own rows, left unsummed over the data ranks (no batch axes)
+        loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh, dp_axes=())
+        readings["gradients unreduced"] = reading(loss.item(), gather_whole(mesh, grads, specs))
+        del grads
         out["train_readings"] = readings
         for path, r in readings.items():
             leaf = max(r["leaves"], key=r["leaves"].get)
@@ -3573,23 +3567,23 @@ def mesh_rank(rank: int, store: str, out_path: str) -> int:
             fail(f"rank {rank}: the control 'mean of per-rank means' meets the loss tolerance")
         opt = AdamW(AdamWConfig(total_steps=10, warmup=2))
         step = transformer.make_train_step(cfg, opt, mesh)
-        state = opt.init(params)
-        step(params, state, batch)
+        state = opt.init(mine)
+        step(mine, state, rows)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, _, met = step(params, state, batch)
+        _, _, met = step(mine, state, rows)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-        sums = torch.stack([t.float().sum() for t in tree_leaves(params)])
+        sums = torch.stack([t.float().sum() for t in tree_leaves(gather_whole(mesh, mine, specs))])
         agree = torch.equal(all_reduce_over(sums, mesh, ("data",), torch.distributed.ReduceOp.MAX), sums)
         out["train_step_s"] = step_s
         say(f"value_and_grad over the mesh {wall:.3f} s; a warm make_train_step {step_s:.3f} s, "
             f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, loss {met['loss'].item():.5f} (host clock, two "
-            f"processes on one card); the ranks' parameters agree after it: {agree}; flash launches "
+            f"processes on one card); the ranks' gathered parameters agree after it: {agree}; flash launches "
             f"{out['launches']['flash_attention']} (value_and_grad over the mesh)")
         if not (agree and math.isfinite(met["loss"].item())):
             fail(f"rank {rank}: after a mesh train step the ranks' parameters agree: {agree}, loss {met['loss']}")
-        del params, state, batch
+        del params, mine, state, batch, rows
         torch.cuda.empty_cache()
 
         # compressed_psum over the two ranks against its formula in fp32 on the host
@@ -3637,6 +3631,341 @@ def mesh_two_ranks(failures: list[str]) -> dict:
             print(f"[FAIL] {failures[-1]}")
         for k, n in res["launches"].items():
             launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded layout (models/layout.py, sharding.py, collectives.py) and the dry run on the card
+# ---------------------------------------------------------------------------
+
+#: ranks of phase 15 (b), each its own process on cuda:0 over gloo, and the meshes it runs
+SHARD_RANKS, SHARD_MESHES = 2, ((1, 2), (2, 1))
+#: decode steps phase 15 holds after each prefill
+SHARD_DECODE = 3
+#: phase 15 (b)'s hybrid model on the (1, 2) mesh, at one group of SSD layers and its shared attention block: its
+#: SSD layers gathered whole over model and scanned by the SSD kernel on every rank
+SHARD_HYBRID, SHARD_HYBRID_DEPTH = "zamba2-2.7b", 6
+#: phase 15 (c)'s cells, run as rank 0 of a 256-rank fake group on the card
+SHARD_DRYRUN = (("qwen3-32b", "train_4k"), ("nemotron-4-340b", "decode_32k"))
+#: the caching allocator's block: a tensor's memory_allocated is its bytes rounded up to it
+ALLOC_ROUND = 512
+
+
+def _launch_counts() -> dict:
+    return {"flash_attention": fa.launches, "gemm": gm.launches, "ssd_scan": ssd.launches}
+
+
+def _zero_launches() -> None:
+    fa.launches = gm.launches = ssd.launches = 0
+
+
+def shard_one_rank(failures: list[str], smi: str) -> dict:
+    """Phase 15 (a): one NCCL rank, a (1, 1) mesh, the parameters as
+    ``local_shard`` gives them (each block the whole leaf): granite-3-2b's
+    train step, phi3.5-moe's prefill and a decode step must give the bits of
+    no mesh.  Returns the launches of the mesh runs."""
+    from repro_torch.launch.mesh import join_group, make_test_mesh
+    from repro_torch.models.layout import param_layout
+    from repro_torch.sharding import local_shard
+
+    launches: dict[str, int] = {}
+    with tempfile.TemporaryDirectory() as d:
+        join_group(1, 0, store=torch.distributed.FileStore(str(Path(d) / "store"), 1), device="cuda")
+        try:
+            mesh = make_test_mesh((1, 1), device="cuda")
+            cfg = dataclasses.replace(get_config(MESH_MOE), n_layers=MESH_DEPTH)
+            whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            mine = local_shard(mesh, whole, param_layout(cfg, mesh))
+            prompt = _mesh_prompt(cfg, 0)
+            forced = torch.randint(0, cfg.vocab, (LM_BATCH, 1), generator=torch.Generator(device="cuda").manual_seed(1),
+                                   device="cuda")
+            runs = []
+            for m, p in ((mesh, mine), (None, whole)):
+                _zero_launches()
+                lg, cache = transformer.prefill_step(cfg, p, prompt, m, max_len=LM_PROMPT + LM_GEN)
+                lg1, cache = transformer.serve_step(cfg, p, cache, forced, m)
+                torch.cuda.synchronize()
+                runs.append((lg, lg1, cache, _launch_counts()))
+            (a0, a1, ca, la), (b0, b1, cb, _) = runs
+            launches["gemm"] = la["gemm"]
+            same = torch.equal(a0, b0) and torch.equal(a1, b1) and all(torch.equal(ca[k], cb[k]) for k in cb if k != "index")
+            print(f"[shard] (a) {MESH_MOE} at {MESH_DEPTH} layers, bf16, blocks of a (1, 1) mesh: prefill {LM_BATCH} x "
+                  f"{LM_PROMPT} and a decode step == no mesh (logits and cache): {same}; gemm launches {la['gemm']} "
+                  f"({smi})")
+            if not same:
+                failures.append(f"(a) {MESH_MOE} prefill and decode over the (1, 1) blocks differ from no mesh")
+            del whole, mine, runs, ca, cb
+            torch.cuda.empty_cache()
+
+            cfg = dataclasses.replace(get_config(MESH_TRAIN), n_layers=MESH_DEPTH)
+            whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+            batch = _mesh_train_batch(cfg)
+            opt = AdamW(AdamWConfig(total_steps=10, warmup=2))
+            runs = []
+            for m in (mesh, None):
+                p = local_shard(mesh, tree_map(torch.clone, whole), param_layout(cfg, mesh))
+                _zero_launches()
+                p1, _, met = transformer.make_train_step(cfg, opt, m)(p, opt.init(p), batch)
+                torch.cuda.synchronize()
+                runs.append((p1, met, _launch_counts()))
+            (pa, ma, la), (pb, mb, _) = runs
+            launches["flash_attention"] = la["flash_attention"]
+            same = torch.equal(ma["loss"], mb["loss"]) and torch.equal(ma["grad_norm"], mb["grad_norm"]) \
+                and _trees_equal(pa, pb)
+            print(f"[shard] (a) {MESH_TRAIN} at {MESH_DEPTH} layers, bf16, a train step on the (1, 1) blocks, "
+                  f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss, grad_norm and every parameter == no mesh: {same}; flash launches "
+                  f"{la['flash_attention']} ({smi})")
+            if not same:
+                failures.append(f"(a) {MESH_TRAIN} train step over the (1, 1) blocks differs from no mesh")
+            del whole, runs, pa, pb
+            torch.cuda.empty_cache()
+        finally:
+            torch.distributed.destroy_process_group()
+    return launches
+
+
+def shard_rank(rank: int, store: str, out_path: str) -> int:
+    """Phase 15 (b), one rank: its own process on cuda:0, joined over gloo
+    to the other.  Writes its readings and failures to ``out_path`` as JSON;
+    exits 0 once written."""
+    from repro_torch.collectives import gather_whole
+    from repro_torch.launch.mesh import batch_shard, join_group, make_test_mesh
+    from repro_torch.models.layout import param_layout
+    from repro_torch.sharding import local_shard, tree_bytes
+
+    def say(msg: str) -> None:
+        print(f"[shard] (b) rank {rank}: {msg}", flush=True)
+
+    out: dict = {"failures": [], "launches": {}}
+    fail = out["failures"].append
+    join_group(SHARD_RANKS, rank, store=torch.distributed.FileStore(store, SHARD_RANKS), device="cuda", backend="gloo")
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # granite's gradient, one process, then over each mesh
+        cfg = dataclasses.replace(get_config(MESH_TRAIN), n_layers=MESH_DEPTH)
+        whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(2), "cuda")
+        batch = _mesh_train_batch(cfg)
+        loss, grads = transformer.value_and_grad(cfg, whole, batch)
+        want, plain = loss.item(), list(named_leaves(grads))
+        del grads
+        for shape in SHARD_MESHES:
+            mesh = make_test_mesh(shape, device="cuda")
+            specs = param_layout(cfg, mesh)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            mine = local_shard(mesh, tree_map(torch.clone, whole), specs)  # blocks of their own, the copy freed
+            opt = AdamW(AdamWConfig(total_steps=10, warmup=2))
+            state = opt.init(mine)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - before
+            exact = tree_bytes(mine) + tree_bytes(state)
+            n = len(tree_leaves(mine)) + len(tree_leaves(state))
+            ok_bytes = exact <= held <= exact + ALLOC_ROUND * n
+            out[f"bytes {shape}"] = {"memory_allocated": held, "blocks": exact, "tensors": n}
+            rows = batch_shard(mesh, batch)
+            _zero_launches()
+            loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh)
+            torch.cuda.synchronize()
+            out["launches"][f"flash_attention {shape}"] = fa.launches
+            r_mesh = {"loss": abs(loss.item() - want) / abs(want),
+                      "leaves": _leaf_ratios(gather_whole(mesh, grads, specs), plain)}
+            del grads
+            if shape[1] > 1:  # control: the tensor-parallel outputs left unsummed over model
+                label = "tensor-parallel sums dropped"
+                with mock.patch.object(blocks, "sum_tp", lambda y, *a: y):
+                    loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh)
+            else:  # control: each rank's gradient of its own rows, unsummed over data
+                label = "data sums dropped"
+                loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh, dp_axes=())
+            r_ctl = {"loss": abs(loss.item() - want) / abs(want),
+                     "leaves": _leaf_ratios(gather_whole(mesh, grads, specs), plain)}
+            del grads
+            out[f"train {shape}"] = {"mesh": r_mesh, label: r_ctl}
+            for name, r in (("mesh", r_mesh), (label, r_ctl)):
+                leaf = max(r["leaves"], key=r["leaves"].get)
+                say(f"{MESH_TRAIN} at {MESH_DEPTH} layers, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} on {shape}, {name} "
+                    f"against one process: loss relative {r['loss']:.3e} (tolerance {MESH_LOSS_TOL}); worst leaf "
+                    f"{leaf} at {r['leaves'][leaf]:.3e} (tolerance {MESH_GRAD_TOL})")
+            say(f"{MESH_TRAIN} on {shape}: parameters and AdamW state held {held} bytes by memory_allocated, the "
+                f"blocks {exact} bytes in {n} tensors ({'within' if ok_bytes else 'OUTSIDE'} the allocator's "
+                f"{ALLOC_ROUND}-byte rounding); the whole tree {tree_bytes(whole)} bytes of parameters")
+            if not (r_mesh["loss"] <= MESH_LOSS_TOL and max(r_mesh["leaves"].values()) <= MESH_GRAD_TOL):
+                fail(f"rank {rank}: {MESH_TRAIN} on {shape} against one process: {r_mesh['loss']}, "
+                     f"{max(r_mesh['leaves'].values())}")
+            if not max(r_ctl["leaves"].values()) > MESH_GRAD_TOL:
+                fail(f"rank {rank}: the control '{label}' on {shape} meets the gradient tolerance")
+            if not ok_bytes:
+                fail(f"rank {rank}: {shape} holds {held} bytes for blocks of {exact}")
+            del mine, state
+            torch.cuda.empty_cache()
+        del whole
+        torch.cuda.empty_cache()
+
+        # phi3.5-moe: prefill and decode on each mesh against one process on the same routes
+        cfg = dataclasses.replace(get_config(MESH_MOE), n_layers=MESH_DEPTH)
+        whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        prompt = _mesh_prompt(cfg, 0)
+        forced = torch.randint(0, cfg.vocab, (LM_BATCH, SHARD_DECODE), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(1))
+
+        def serve(p, m, pr, fo):
+            lg, cache = transformer.prefill_step(cfg, p, pr, m, max_len=LM_PROMPT + LM_GEN)
+            got = [lg]
+            for i in range(SHARD_DECODE):
+                lg, cache = transformer.serve_step(cfg, p, cache, fo[:, i : i + 1], m)
+                got.append(lg)
+            return got, cache
+
+        def rel(got, wanted):
+            return [((g.float() - w.float()).abs().max() / w.float().abs().max()).item() for g, w in zip(got, wanted)]
+
+        for shape in SHARD_MESHES:
+            mesh = make_test_mesh(shape, device="cuda")
+            mine = local_shard(mesh, whole, param_layout(cfg, mesh))
+            pr, fo = batch_shard(mesh, prompt), batch_shard(mesh, forced)
+            routes: list = []
+            _zero_launches()
+            with _recording_routes(routes):
+                got, cache = serve(mine, mesh, pr, fo)
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+            for k in ("gemm", "flash_attention"):
+                out["launches"][f"{k} serve {shape}"] = counts[k]
+            ring = tuple(cache["k"].shape)
+            with _replaying_routes(routes):
+                wanted, _ = serve(whole, None, pr, fo)
+            rels = rel(got, wanted)
+            out[f"serve {shape}"] = rels
+            say(f"{MESH_MOE} at {MESH_DEPTH} layers, bf16, prefill {pr['tokens'].shape[0]} x {LM_PROMPT} and "
+                f"{SHARD_DECODE} decode steps on {shape} (the rank's ring {ring} of {LM_PROMPT + LM_GEN} slots): logits "
+                f"against one process on the same routes {', '.join(f'{r:.3e}' for r in rels)} of max |logit| "
+                f"(tolerance {LM_TOL[torch.bfloat16]}); launches {counts}")
+            if not max(rels) <= LM_TOL[torch.bfloat16]:
+                fail(f"rank {rank}: {MESH_MOE} serving on {shape} against one process: {rels}")
+            if shape[1] > 1:  # control: the split ring's softmax statistics left uncombined over model
+                with _replaying_routes(routes), \
+                        mock.patch.object(blocks, "all_reduce_over", lambda t, *a, **k: t.clone()):
+                    ctl, _ = serve(mine, mesh, pr, fo)
+                ctl_rels = rel(ctl[1:], wanted[1:])
+                out[f"serve {shape} split ring uncombined"] = ctl_rels
+                say(f"{MESH_MOE} on {shape}, control, each rank attending only its {ring[2]} ring slots (the split "
+                    f"ring's all-reduces dropped): decode logits against one process "
+                    f"{', '.join(f'{r:.3e}' for r in ctl_rels)} of max |logit| (must miss {LM_TOL[torch.bfloat16]})")
+                if not min(ctl_rels) > LM_TOL[torch.bfloat16]:
+                    fail(f"rank {rank}: the control 'split ring uncombined' on {shape} meets the logits tolerance")
+                del ctl
+            del mine, got, wanted, cache, routes
+            torch.cuda.empty_cache()
+        del whole
+        torch.cuda.empty_cache()
+
+        # zamba2: its SSD layers gathered whole and scanned on every rank, its shared block on the rank's heads
+        cfg = dataclasses.replace(get_config(SHARD_HYBRID), n_layers=SHARD_HYBRID_DEPTH)
+        whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
+        prompt = _mesh_prompt(cfg, 4)
+        forced = torch.randint(0, cfg.vocab, (LM_BATCH, SHARD_DECODE), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(5))
+        shape = SHARD_MESHES[0]
+        mesh = make_test_mesh(shape, device="cuda")
+        mine = local_shard(mesh, whole, param_layout(cfg, mesh))
+        pr, fo = batch_shard(mesh, prompt), batch_shard(mesh, forced)
+        _zero_launches()
+        got, cache = serve(mine, mesh, pr, fo)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        for k in ("ssd_scan", "flash_attention"):
+            out["launches"][f"{k} hybrid {shape}"] = counts[k]
+        ring = tuple(cache["shared_k"].shape)
+        wanted, _ = serve(whole, None, pr, fo)
+        rels = rel(got, wanted)
+        out[f"hybrid {shape}"] = rels
+        say(f"{SHARD_HYBRID} at {SHARD_HYBRID_DEPTH} layers, bf16, prefill {pr['tokens'].shape[0]} x {LM_PROMPT} and "
+            f"{SHARD_DECODE} decode steps on {shape} (the rank's shared ring {ring}): logits against one process "
+            f"{', '.join(f'{r:.3e}' for r in rels)} of max |logit| (tolerance {LM_TOL[torch.bfloat16]}); launches "
+            f"{counts}")
+        if not max(rels) <= LM_TOL[torch.bfloat16]:
+            fail(f"rank {rank}: {SHARD_HYBRID} serving on {shape} against one process: {rels}")
+        if not counts["ssd_scan"]:
+            fail(f"rank {rank}: {SHARD_HYBRID} on {shape} launched no SSD scan")
+        del mine, got, wanted, cache, whole
+        torch.cuda.empty_cache()
+    finally:
+        Path(out_path).write_text(json.dumps(out))
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def shard_two_ranks(failures: list[str]) -> dict:
+    """Phase 15 (b): SHARD_RANKS processes of ``shard_rank`` sharing cuda:0
+    over gloo; prints their lines, adds their failures.  Returns the
+    launches, summed over the ranks and runs."""
+    with tempfile.TemporaryDirectory() as d:
+        outs = [Path(d) / f"rank{r}.json" for r in range(SHARD_RANKS)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--shard-rank", str(r),
+                                   str(Path(d) / "store"), str(outs[r])], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(SHARD_RANKS)]
+        try:
+            logs = [p.communicate(timeout=MESH_RANK_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            print(log, end="")
+            if p.returncode != 0 or not outs[r].exists():
+                failures.append(f"(b) shard rank {r} exited {p.returncode}")
+                print(f"[FAIL] {failures[-1]}")
+        results = [json.loads(o.read_text()) for o in outs if o.exists()]
+    launches: dict[str, int] = {}
+    for res in results:
+        for f in res["failures"]:
+            failures.append(f"(b) {f}")
+            print(f"[FAIL] {failures[-1]}")
+        for k, n in res["launches"].items():
+            name = k.split()[0]
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def shard_dryrun(failures: list[str], smi: str) -> dict:
+    """Phase 15 (c): each SHARD_DRYRUN cell's ``meta`` profile, then its
+    step once on the card as rank 0 of the same 256-rank fake group.
+    Returns the launches of the card runs."""
+    from repro_torch.launch import dryrun
+
+    launches = {"flash_attention": 0, "gemm": 0, "ssd_scan": 0}
+    try:
+        for arch, shape in SHARD_DRYRUN:
+            t0 = time.perf_counter()
+            _zero_launches()
+            rec = dryrun.run_cell(arch, shape, "single", out_dir=None, device="cuda")
+            counts = _launch_counts()
+            for k, n in counts.items():
+                launches[k] += n
+            meas, roof, mem = rec["measured"], rec["roofline"], rec["memory"]
+            print(f"[shard] (c) {arch} x {shape} x single, rank 0 of 256 (fake group), accum {rec['accum']}: argument "
+                  f"bytes {meas.get('argument_bytes')} on the card, {mem['argument_bytes_per_dev']} by the meta profile; "
+                  f"measured peak {meas.get('peak_bytes', 0) / 2**30:.3f} GiB (max_memory_allocated; meta estimate "
+                  f"{mem['peak_estimate_gib']} GiB); the step {meas.get('step_ms', float('nan')):.1f} ms by CUDA events "
+                  f"beside the roofline's compute {roof['compute_s'] * 1e3:.1f} ms and memory "
+                  f"{roof['memory_s'] * 1e3:.1f} ms (collective {roof['collective_s'] * 1e3:.1f} ms, not run: the "
+                  f"fake group moves nothing); finite outputs: {meas.get('finite')}; launches {counts}; "
+                  f"{time.perf_counter() - t0:.1f} s ({smi})")
+            if "skipped" in meas:
+                failures.append(f"(c) {arch} x {shape} did not run on the card: {meas['skipped']}")
+            elif meas["argument_bytes"] != mem["argument_bytes_per_dev"] or not meas["finite"]:
+                failures.append(f"(c) {arch} x {shape}: card arguments {meas['argument_bytes']} vs meta "
+                                f"{mem['argument_bytes_per_dev']}, finite {meas['finite']}")
+            if rec["phase"] == "train" and not counts["flash_attention"]:
+                failures.append(f"(c) {arch} x {shape} never launched flash_attention")
+            for f in failures[-2:]:
+                if f.startswith("(c)"):
+                    print(f"[FAIL] {f}")
+            torch.cuda.empty_cache()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return launches
 
 
@@ -3796,6 +4125,24 @@ def main() -> int:
     print(f"[mesh] done in {time.perf_counter() - t0:.1f} s, launches (1, 1) {one}, two ranks {two} "
           f"({smi.stdout.strip().splitlines()[0]})")
 
+    # phase 15: the sharded layout, and the dry run on the card, each with its counts from 0
+    t0 = time.perf_counter()
+    card = smi.stdout.strip().splitlines()[0]
+    one = shard_one_rank(failures, card)
+    two = shard_two_ranks(failures)
+    dry = shard_dryrun(failures, card)
+    for label, launched, want in (("shard (1, 1)", one, ("gemm", "flash_attention")),
+                                  ("shard two-rank", two, ("gemm", "flash_attention", "ssd_scan")),
+                                  ("dryrun on the card", dry, ("flash_attention",))):
+        for name in ("flash_attention", "gemm", "ssd_scan"):
+            kernels[name][f"{label} launches"] = launched.get(name, 0)
+        for name in want:
+            if not launched.get(name):
+                failures.append(f"{label}: {name} never launched")
+                print(f"[FAIL] {failures[-1]}")
+    print(f"[shard] done in {time.perf_counter() - t0:.1f} s, launches (1, 1) {one}, two ranks {two}, dry run {dry} "
+          f"({card})")
+
     print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     if failures:
@@ -3809,4 +4156,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 14 (b), started by mesh_two_ranks
         sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--shard-rank"]:  # one rank of phase 15 (b), started by shard_two_ranks
+        sys.exit(shard_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -359,3 +359,35 @@ def _bwd_kernel():
     )
     fn.restype = ctypes.c_int
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Work and traffic of one call (the bounds of chip_smoke.py, the dry run's counts)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves visible: the work the data needs."""
+    n = 0
+    for i in range(sq):
+        hi = min(i, skv - 1) if causal else skv - 1
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int) -> tuple[float, float]:
+    """FLOPs and bytes of one forward: the two products over the visible
+    pairs; q, k, v and the output each read or written once."""
+    b, h, sq, d = q.shape
+    flops = 4.0 * b * h * d * visible_pairs(sq, k.shape[2], causal, window)
+    return flops, float(q.element_size() * (2 * q.numel() + k.numel() + v.numel()))
+
+
+def bwd_cost(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> tuple[float, float]:
+    """FLOPs and bytes of one backward: five products over the visible
+    pairs; q, o, dO, dq, k, v, dk, dv once each, lse and delta in fp32."""
+    b, h, sq, d = q.shape
+    flops = 10.0 * b * h * d * visible_pairs(sq, k.shape[2], causal, window)
+    return flops, float(q.element_size() * 4 * (q.numel() + k.numel()) + 4 * 2 * b * h * sq)

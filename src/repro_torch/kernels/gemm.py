@@ -202,3 +202,29 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Work and traffic of one call (the bounds of chip_smoke.py, the dry run's counts)
+# ---------------------------------------------------------------------------
+
+
+def cost(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """FLOPs and bytes of C = A·B: 2·M·K·N a batch entry; A, B and C once."""
+    *batch, m, k = a.shape
+    n = b.shape[-1]
+    e = 1
+    for x in batch:
+        e *= x
+    return 2.0 * e * m * k * n, float(a.element_size() * (a.numel() + b.numel() + e * m * n))
+
+
+def bwd_cost(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """FLOPs and bytes of the backward, dA = dC·Bᵀ and dB = Aᵀ·dC: twice the
+    forward's products; dC, A, B, dA and dB once."""
+    *batch, m, k = a.shape
+    n = b.shape[-1]
+    e = 1
+    for x in batch:
+        e *= x
+    return 2 * 2.0 * e * m * k * n, float(a.element_size() * (e * m * n + 2 * a.numel() + 2 * b.numel()))

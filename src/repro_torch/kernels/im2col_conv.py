@@ -290,3 +290,17 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Work and traffic of one call (the bounds of chip_smoke.py, the dry run's counts)
+# ---------------------------------------------------------------------------
+
+
+def cost(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> tuple[float, float]:
+    """FLOPs and bytes of one SAME conv: 2·N·HO·WO·K·R·S·C; x, w and the
+    output once."""
+    n, h, wd, c = x.shape
+    r, s, _, k = w.shape
+    ho, wo = same_padding(h, wd, r, s, stride)[:2]
+    return 2.0 * n * ho * wo * k * r * s * c, float(x.element_size() * (x.numel() + w.numel() + n * ho * wo * k))

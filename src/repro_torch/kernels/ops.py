@@ -24,9 +24,18 @@ requires grad:
   ``grad_fn`` must never reach a loss.
 Without grad mode (serving, ``torch.inference_mode``) each is the plain
 kernel call.
+
+A ``meta`` tensor (``launch/dryrun.py``) computes nothing: each entry point
+returns outputs of the right shape and dtype (flash's log-sum-exp and the
+scan's final state among them, kept for the backward as the kernels keep
+them) and, while :func:`count_meta` is open, adds the call's FLOPs and bytes
+by the kernel modules' ``cost`` / ``bwd_cost`` formulas, the ones
+``chip_smoke.py``'s bounds use, forward and backward alike.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -34,6 +43,87 @@ from . import flash_attention as _fa
 from . import gemm as _gemm
 from . import im2col_conv
 from . import ssd_scan as _ssd
+from ..pipeline.hetero import H100_HBM_BW
+
+_META: dict | None = None
+
+
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of ``flops`` at ``peak`` FLOP/s and
+    ``nbytes`` at the H100's HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / H100_HBM_BW
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+@contextlib.contextmanager
+def count_meta():
+    """While open, each kernel call on ``meta`` tensors adds to the yielded
+    ``{kernel: {"calls", "flops", "bytes"}}`` (``"<kernel>_bwd"`` for a
+    backward)."""
+    global _META
+    old, _META = _META, {}
+    try:
+        yield _META
+    finally:
+        _META = old
+
+
+def _note(name: str, cost: tuple[float, float]) -> None:
+    if _META is not None:
+        row = _META.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
+        row["calls"] += 1
+        row["flops"] += cost[0]
+        row["bytes"] += cost[1]
+
+
+class _MetaGemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        _note("gemm", _gemm.cost(a, b))
+        return a.new_empty((*a.shape[:-1], b.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        _note("gemm_bwd", _gemm.bwd_cost(a, b))
+        return torch.empty_like(a), torch.empty_like(b)
+
+
+class _MetaFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        _note("flash_attention", _fa.cost(q, k, v, causal, window))
+        o = torch.empty_like(q)
+        lse = q.new_empty(q.shape[:-1], dtype=torch.float32)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, _, _ = ctx.saved_tensors
+        _note("flash_attention_bwd", _fa.bwd_cost(q, k, ctx.causal, ctx.window))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None, None
+
+
+class _MetaSsd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        _note("ssd_scan", _ssd.cost(x, B, chunk))
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        b, _, h, p = x.shape
+        return torch.empty_like(x, memory_format=torch.contiguous_format), \
+            x.new_empty((b, h, p, B.shape[-1]), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C = ctx.saved_tensors
+        _note("ssd_scan_bwd", _ssd.bwd_cost(x, B, ctx.chunk, dstate is not None))
+        return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A), torch.empty_like(B),
+                torch.empty_like(C), None)
 
 
 def _wants_grad(*ts: torch.Tensor) -> bool:
@@ -106,6 +196,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _Gemm.apply(a, b) if _wants_grad(a, b) else _gemm.gemm(a, b)
     if a.device.type == "cpu":
         return _gemm.gemm_plain(a, b)
+    if a.device.type == "meta":
+        return _MetaGemm.apply(a, b)
     raise ValueError(f"no gemm for device {a.device}")
 
 
@@ -120,6 +212,10 @@ def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch
         return im2col_conv.conv2d_im2col(x, w, stride=stride)
     if x.device.type == "cpu":
         return im2col_conv.conv2d_im2col_plain(x, w, stride=stride)
+    if x.device.type == "meta":
+        _note("conv2d_im2col", im2col_conv.cost(x, w, stride))
+        ho, wo = im2col_conv.same_padding(x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride)[:2]
+        return x.new_empty((x.shape[0], ho, wo, w.shape[-1]))
     raise ValueError(f"no conv2d_im2col for device {x.device}")
 
 
@@ -134,6 +230,8 @@ def flash_attention(
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return _MetaFlash.apply(q, k, v, causal, window)
     raise ValueError(f"no flash_attention for device {q.device}")
 
 
@@ -146,4 +244,6 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Te
         return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
     if x.device.type == "cpu":
         return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    if x.device.type == "meta":
+        return _MetaSsd.apply(x, dt, A, B, C, chunk)
     raise ValueError(f"no ssd_scan for device {x.device}")

@@ -681,3 +681,39 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Work and traffic of one call (the bounds of chip_smoke.py, the dry run's counts)
+# ---------------------------------------------------------------------------
+
+
+def cost(x: torch.Tensor, B: torch.Tensor, chunk: int) -> tuple[float, float]:
+    """FLOPs and bytes of one scan: C.B^T once per (batch, chunk) on the
+    lower triangle; per (batch, head, chunk) the masked product on the
+    triangle, the carried state's output (not for the first chunk, whose
+    state is zero) and the state update.  Bytes: x, B, C, y in x's type, dt,
+    A and the final state in fp32, each once."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    nc, tri = l // chunk, chunk * (chunk + 1) // 2
+    flops = 2.0 * b * nc * n * tri + 2.0 * b * h * (nc * p * tri + (nc - 1) * chunk * n * p + nc * chunk * n * p)
+    nbytes = x.element_size() * (2 * x.numel() + 2 * B.numel()) + 4.0 * (b * l * h + h + b * h * p * n)
+    return flops, nbytes
+
+
+def bwd_cost(x: torch.Tensor, B: torch.Tensor, chunk: int, with_state: bool) -> tuple[float, float]:
+    """FLOPs and bytes of one backward of the scan.  FLOPs: C.B^T once per
+    (batch, chunk) on the lower triangle; per (batch, head, chunk) the two
+    triangular products over p ((dy.xdt) and dxdt's within-chunk part), the
+    two over n (dC's and dB's within-chunk parts) and five [chunk, p, n]
+    products (the state entering the chunk, rebuilt; dH.B; dy.H; x.dH; dH's
+    update).  Bytes: x, dy and dx, B, C, dB and dC in x's type; dt, ddt, A,
+    dA and (if given) dstate in fp32, each once."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    nc, tri = l // chunk, chunk * (chunk + 1) // 2
+    flops = 2.0 * (b * nc * tri * n + b * h * nc * (2 * tri * p + 2 * tri * n + 5 * chunk * p * n))
+    nbytes = x.element_size() * (3 * x.numel() + 4 * B.numel()) + 4.0 * (2 * b * l * h + 2 * h
+                                                                         + (b * h * p * n if with_state else 0))
+    return flops, nbytes

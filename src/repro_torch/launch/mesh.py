@@ -14,13 +14,16 @@ has two kinds of mesh:
   and :func:`make_test_mesh` lays ranks out over ``("data", "model")``.
   Both are ``torch.distributed.device_mesh.DeviceMesh`` objects.
 
-The collectives the mesh paths of ``models/`` run are here too, each over
-the named axes of a mesh: :func:`all_reduce_over`, :func:`batch_shard` (the
-counterpart of the reference's ``batch_sharding``) and :func:`gather_batch`,
-and Megatron's pair of autograd functions for a tensor-parallel region,
-:func:`enter_tp` (identity forward, sum backward) and :func:`sum_tp` (sum
-forward, identity backward), with :func:`mean_over` for a mean over the data
-axes whose backward gives each rank its own share.
+The batch's split over the data axes is here too: :func:`batch_shard` (the
+counterpart of the reference's ``batch_sharding``) and :func:`gather_batch`;
+the collectives and the autograd functions the mesh paths run are in
+:mod:`repro_torch.collectives`, the specs and blocks in
+:mod:`repro_torch.sharding`.
+
+:func:`make_production_mesh` is the reference's ``(16, 16)`` /
+``(2, 16, 16)`` mesh over the joined group's first ranks, and
+:func:`join_fake_group` joins a group of ``fake`` ranks for a dry run
+(``launch/dryrun.py``): collectives on it return at once and move nothing.
 
 Nothing here joins a group or touches a device at import.
 """
@@ -34,6 +37,10 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from .. import collectives
+from ..collectives import all_reduce_over
+from ..sharding import axis_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,13 +115,36 @@ def make_test_mesh(shape: Sequence[int] = (1, 1), axes: Sequence[str] = ("data",
     return DeviceMesh(torch.device(device).type, torch.arange(n).reshape(tuple(shape)), mesh_dim_names=tuple(axes))
 
 
-def dp_axes_of(mesh: DeviceMesh) -> tuple[str, ...]:
-    """Batch axes: everything except the TP axis."""
-    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+def make_production_mesh(*, multi_pod: bool = False, device: str | torch.device = "cuda") -> DeviceMesh:
+    """The reference's production mesh: ``(16, 16)`` over ``("data",
+    "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")``, over
+    the joined group's first 256 or 512 ranks, on ``device``'s type.  For a
+    dry run, join a group of that many fake ranks first
+    (:func:`join_fake_group`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < n:
+        raise RuntimeError(f"need {n} ranks for mesh {shape}, the group has {have} — "
+                           f"join_group them, or join_fake_group({n}) for a dry run")
+    kind = torch.device(device).type
+    return DeviceMesh("cpu" if kind == "meta" else kind, torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
 
-def axis_size(mesh: DeviceMesh, axis: str) -> int:
-    return mesh.size(mesh.mesh_dim_names.index(axis))
+def join_fake_group(world_size: int, rank: int = 0) -> None:
+    """Join the default group as ``rank`` of ``world_size`` ranks of the
+    ``fake`` backend (``torch.testing``'s ``FakeStore``): no other process
+    exists, and every collective returns at once without touching its
+    tensors.  The dry run's group, as the reference's dry run runs on fake
+    host devices.  Gathers and reduce-scatters then allocate their results
+    as zeros (``collectives.new_result``), the other ranks' part of a result
+    the group leaves unwritten; that stays so for the process.  Leave with
+    ``torch.distributed.destroy_process_group()``."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+    collectives.new_result = torch.zeros
 
 
 def data_rank(mesh: DeviceMesh, dp_axes: Sequence[str]) -> tuple[int, int]:
@@ -142,16 +172,6 @@ def batch_shard(mesh: DeviceMesh, batch, dp_axes: Sequence[str] = ("data",)):
     return {k: cut(v) for k, v in batch.items()} if isinstance(batch, dict) else cut(batch)
 
 
-def all_reduce_over(t: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str],
-                    op: dist.ReduceOp.RedOpType = dist.ReduceOp.SUM) -> torch.Tensor:
-    """A copy of ``t`` reduced with ``op`` (SUM or MAX) over the ranks of
-    ``axes``, one axis after another; every rank gets the same result."""
-    out = t.clone()
-    for a in axes:
-        dist.all_reduce(out, op=op, group=mesh.get_group(a))
-    return out
-
-
 def gather_batch(mesh: DeviceMesh, t: torch.Tensor, dp_axes: Sequence[str] = ("data",)) -> torch.Tensor:
     """The whole batch from each data rank's slice along dim 0 (the inverse
     of :func:`batch_shard`), on every rank: each rank's slice placed in
@@ -161,61 +181,4 @@ def gather_batch(mesh: DeviceMesh, t: torch.Tensor, dp_axes: Sequence[str] = ("d
     n = t.shape[0]
     full = torch.zeros((n * size, *t.shape[1:]), dtype=t.dtype, device=t.device)
     full[index * n : (index + 1) * n] = t
-    for a in dp_axes:
-        dist.all_reduce(full, group=mesh.get_group(a))
-    return full
-
-
-class _EnterTP(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce_over(g, ctx.mesh, (ctx.axis,)), None, None
-
-
-class _SumTP(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mesh, axis):
-        return all_reduce_over(x, mesh, (axis,))
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None
-
-
-class _MeanOver(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.n = 1
-        for a in axes:
-            ctx.n *= axis_size(mesh, a)
-        return all_reduce_over(x, mesh, axes) / ctx.n
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.n, None, None
-
-
-def enter_tp(x: torch.Tensor, mesh: DeviceMesh, axis: str = "model") -> torch.Tensor:
-    """``x`` unchanged; its gradient summed over ``axis`` in the backward
-    (Megatron's f): for a tensor replicated over ``axis`` that feeds each
-    rank's part of a tensor-parallel product."""
-    return _EnterTP.apply(x, mesh, axis)
-
-
-def sum_tp(x: torch.Tensor, mesh: DeviceMesh, axis: str = "model") -> torch.Tensor:
-    """The ranks' partial ``x`` summed over ``axis``; the gradient passes
-    through unchanged (Megatron's g), since it is the same on every rank of
-    ``axis``."""
-    return _SumTP.apply(x, mesh, axis)
-
-
-def mean_over(x: torch.Tensor, mesh: DeviceMesh, axes: Sequence[str]) -> torch.Tensor:
-    """The mean of the ranks' ``x`` over ``axes``; in the backward each rank
-    takes ``1 / n`` of the gradient for its own ``x``, so that summing the
-    ranks' parameter gradients over ``axes`` gives the mean's gradient."""
-    return _MeanOver.apply(x, mesh, tuple(axes))
+    return all_reduce_over(full, mesh, dp_axes)

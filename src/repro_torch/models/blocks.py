@@ -16,6 +16,16 @@ products run on hand-written backward kernels too.  One-token decode
 (:func:`attention_decode`, :func:`cross_attention_decode`,
 :func:`ssd_decode`) is plain PyTorch, as the reference computes it outside
 any Pallas kernel.
+
+Over a mesh of ranks the blocks take a ``tp = (mesh, axis)`` pair where
+the reference's tensor parallelism splits them (``models/layout.py`` gives
+each its parameters): attention on the rank's heads and the FFNs on its
+``d_ff`` block, their input entering through ``collectives.enter_tp`` and
+their output summed by ``collectives.sum_tp``.  The decode paths keep the
+head split: the token's q, k and v of the rank's heads are gathered over
+the axis (a few KB), every head is scored, and the rank's heads of the
+output meet its rows of ``wo``; their ring may be split over its slots
+(``split``), whose softmax statistics are combined over the axis.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels import ops
-from ..launch.mesh import axis_size, enter_tp, mean_over, sum_tp
+from ..collectives import all_reduce_over, enter_tp, gather_heads, mean_over, own_block, sum_tp
 from .lm_common import LMConfig, rms_norm, rotary
 
 # ---------------------------------------------------------------------------
@@ -42,9 +52,9 @@ def _qkv(cfg: LMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    q = q.reshape(b, s, -1, cfg.hd)
+    k = k.reshape(b, s, -1, cfg.hd)
+    v = v.reshape(b, s, -1, cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -98,23 +108,34 @@ def _sdpa_bf16_scores(q, k, v, *, causal: bool, window: int = 0) -> torch.Tensor
     return torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, sq, h * d)
 
 
+def _tp_in(h: torch.Tensor, tp) -> torch.Tensor:
+    return h if tp is None else enter_tp(h, *tp)
+
+
+def _tp_out(y: torch.Tensor, tp) -> torch.Tensor:
+    return y if tp is None else sum_tp(y, *tp)
+
+
 def attention(cfg: LMConfig, p: dict, x, positions, *, causal: bool = True, window: int = 0,
-              return_kv: bool = False):
+              return_kv: bool = False, tp=None):
     """Full-sequence (prefill) attention sublayer with residual.
 
     ``return_kv=True`` also returns the rotated K and V panels, which
-    prefill writes into the decode cache.
+    prefill writes into the decode cache.  With ``tp``, ``cfg`` counts the
+    rank's heads and ``p`` holds their columns of ``wq``/``wk``/``wv`` and
+    rows of ``wo``; the output is summed over the axis.
     """
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _tp_in(rms_norm(x, p["ln1"], cfg.norm_eps), tp)
     q, k, v = _qkv(cfg, p, h, positions)
     o = _sdpa(cfg, q, k, v, causal=causal, window=window)
-    y = x + o @ p["wo"]
+    y = x + _tp_out(o @ p["wo"], tp)
     if return_kv:
         return y, k, v
     return y
 
 
-def attention_decode(cfg: LMConfig, p: dict, x, cache_k, cache_v, cache_pos, index: int, *, window: int = 0):
+def attention_decode(cfg: LMConfig, p: dict, x, cache_k, cache_v, cache_pos, index: int, *, window: int = 0,
+                     split=None, tp=None):
     """One-token decode against a ring-buffer KV cache.
 
     cache_[kv]: [b, W, kvh, hd]; cache_pos: [W] absolute position stored
@@ -123,20 +144,46 @@ def attention_decode(cfg: LMConfig, p: dict, x, cache_k, cache_v, cache_pos, ind
     reference, which returns new arrays, the token's K, V and position are
     written into the given tensors in place; they are returned as well:
     (y, cache_k, cache_v, cache_pos).
+
+    ``split = (mesh, axis)``: cache_[kv] hold the rank's block of the ring's
+    slots (``cache_pos`` whole); the rank that owns the token's slot writes
+    it, each scores its own slots, and :func:`_attend_split` combines them.
+    ``tp = (mesh, axis)``: ``p`` holds the rank's heads, as in
+    :func:`attention` (``cfg`` still counts them all); see
+    :func:`_decode_heads`.
     """
     b = x.shape[0]
-    W = cache_k.shape[1]
+    W = cache_pos.shape[0]
     pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _tp_in(rms_norm(x, p["ln1"], cfg.norm_eps), tp)
     q, k, v = _qkv(cfg, p, h, pos)
+    if tp is not None:
+        q, k, v = (gather_heads(t, n, *tp) for t, n in ((q, cfg.n_heads), (k, cfg.n_kv_heads), (v, cfg.n_kv_heads)))
     slot = index % W
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     cache_pos[slot] = index
     seen = (cache_pos >= 0) & (cache_pos <= index)
     if window:
         seen &= cache_pos > index - window
-    return x + _attend_one(cfg, q, cache_k, cache_v, seen) @ p["wo"], cache_k, cache_v, cache_pos
+    lo = 0 if split is None else split[0].get_local_rank(split[1]) * cache_k.shape[1]
+    if lo <= slot < lo + cache_k.shape[1]:
+        cache_k[:, slot - lo] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot - lo] = v[:, 0].to(cache_v.dtype)
+    if split is None:
+        o = _attend_one(cfg, q, cache_k, cache_v, seen)
+    else:
+        o = _attend_split(cfg, q, cache_k, cache_v, seen[lo : lo + cache_k.shape[1]], split)
+    return x + _decode_heads(o, p, tp), cache_k, cache_v, cache_pos
+
+
+def _decode_heads(o: torch.Tensor, p: dict, tp) -> torch.Tensor:
+    """The output projection of one decoded token, o [b, 1, h·d] of every
+    head: with ``tp``, the rank's heads of ``o`` against its rows of
+    ``wo``, summed over the axis.  Decode keeps attention's head split, so
+    only the token's q, k and v (gathered whole before it) cross the wire,
+    never the projections."""
+    if tp is None:
+        return o @ p["wo"]
+    return sum_tp(own_block(o, *tp, 2) @ p["wo"], *tp)
 
 
 def _attend_one(cfg: LMConfig, q, k, v, seen: torch.Tensor | None = None) -> torch.Tensor:
@@ -153,33 +200,61 @@ def _attend_one(cfg: LMConfig, q, k, v, seen: torch.Tensor | None = None) -> tor
     return torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(q.dtype)).reshape(b, 1, cfg.q_dim)
 
 
-def cross_kv(cfg: LMConfig, p: dict, enc_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _attend_split(cfg: LMConfig, q, k, v, seen: torch.Tensor | None, split) -> torch.Tensor:
+    """:func:`_attend_one` over a key set split across the ranks of
+    ``split = (mesh, axis)``, each holding ``k``/``v`` [b, s_rank, kvh, d]
+    and their ``seen`` mask: each rank scores its keys in fp32, and the
+    max, the sum of exponentials and the weighted values are combined over
+    the axis (flash-decode), the output cast to q's type."""
+    b, d = q.shape[0], cfg.hd
+    qg = q.reshape(b, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(q.dtype)).float() / math.sqrt(d)
+    if seen is not None:
+        scores = scores.masked_fill(~seen, float("-inf"))
+    mesh, axis = split
+    m = all_reduce_over(scores.amax(-1, keepdim=True), mesh, (axis,), torch.distributed.ReduceOp.MAX)
+    e = torch.exp(scores - m)
+    o = torch.einsum("bkgqs,bskd->bqkgd", e, v.float())  # [b, 1, kvh, g, d]
+    l = e.sum(-1).permute(0, 3, 1, 2)[..., None]  # [b, 1, kvh, g, 1]
+    both = all_reduce_over(torch.cat([o, l], dim=-1), mesh, (axis,))
+    return (both[..., :d] / both[..., d:]).to(q.dtype).reshape(b, 1, cfg.q_dim)
+
+
+def cross_kv(cfg: LMConfig, p: dict, enc_out: torch.Tensor, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Whisper's cross-attention K and V of one decoder layer: enc_out [b,
-    se, d] -> k, v [b, se, kvh, hd], no RoPE."""
+    se, d] -> k, v [b, se, kvh, hd], no RoPE (with ``tp``, the rank's KV
+    heads)."""
+    enc_out = _tp_in(enc_out, tp)
     b, se, _ = enc_out.shape
     k = (enc_out @ p["wk"]).reshape(b, se, cfg.n_kv_heads, cfg.hd)
     v = (enc_out @ p["wv"]).reshape(b, se, cfg.n_kv_heads, cfg.hd)
     return k, v
 
 
-def cross_attention(cfg: LMConfig, p: dict, x, cross_k, cross_v) -> torch.Tensor:
+def cross_attention(cfg: LMConfig, p: dict, x, cross_k, cross_v, tp=None) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper) with residual: pre-norm
     ``p["ln"]``, queries from the decoder's ``s`` positions against the
     :func:`cross_kv` of the encoder's ``se`` frames (``s != se``: the flash
     kernel over a key length other than the query's), no mask, no RoPE.
-    x: [b, s, d]; cross_[kv]: [b, se, kvh, hd]."""
+    x: [b, s, d]; cross_[kv]: [b, se, kvh, hd] (with ``tp``, the rank's
+    heads, as :func:`attention`)."""
     b, s, _ = x.shape
-    q = (rms_norm(x, p["ln"], cfg.norm_eps) @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    return x + _sdpa(cfg, q, cross_k, cross_v, causal=False) @ p["wo"]
+    q = (_tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp) @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    return x + _tp_out(_sdpa(cfg, q, cross_k, cross_v, causal=False) @ p["wo"], tp)
 
 
-def cross_attention_decode(cfg: LMConfig, p: dict, x, cross_k, cross_v) -> torch.Tensor:
+def cross_attention_decode(cfg: LMConfig, p: dict, x, cross_k, cross_v, split=None, tp=None) -> torch.Tensor:
     """One-token cross attention against the prefilled encoder K/V (the
     reference writes it inline in ``serve_step``).  x: [b, 1, d]; cross_[kv]:
-    [b, se, kvh, hd] -> x + attention, every frame visible."""
+    [b, se, kvh, hd] -> x + attention, every frame visible; ``split``: the
+    frames split over the ranks, as :func:`attention_decode`'s ring; ``tp``:
+    ``p`` holds the rank's heads, as there."""
     b = x.shape[0]
-    q = (rms_norm(x, p["ln"], cfg.norm_eps) @ p["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
-    return x + _attend_one(cfg, q, cross_k, cross_v) @ p["wo"]
+    q = (_tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp) @ p["wq"]).reshape(b, 1, -1, cfg.hd)
+    if tp is not None:
+        q = gather_heads(q, cfg.n_heads, *tp)
+    o = _attend_one(cfg, q, cross_k, cross_v) if split is None else _attend_split(cfg, q, cross_k, cross_v, None, split)
+    return x + _decode_heads(o, p, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -187,14 +262,16 @@ def cross_attention_decode(cfg: LMConfig, p: dict, x, cross_k, cross_v) -> torch
 # ---------------------------------------------------------------------------
 
 
-def dense_ffn(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+def dense_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The dense FFN sublayer with residual; with ``tp``, ``p`` holds the
+    rank's ``d_ff`` block and the output is summed over the axis."""
+    h = _tp_in(rms_norm(x, p["ln2"], cfg.norm_eps), tp)
     if cfg.ffn_kind == "relu2":
         u = torch.relu(h @ p["w_in"])
-        return x + (u * u) @ p["w_out"]  # squared-ReLU (nemotron)
+        return x + _tp_out((u * u) @ p["w_out"], tp)  # squared-ReLU (nemotron)
     g = F.silu(h @ p["w_gate"])
     u = h @ p["w_up"]
-    return x + (g * u) @ p["w_down"]
+    return x + _tp_out((g * u) @ p["w_down"], tp)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +310,7 @@ def moe_ffn_local(cfg: LMConfig, p: dict, x: torch.Tensor, capacity: int, tp: tu
     ``tp = (mesh, axis)``: the expert weights in ``p`` are this rank's
     ``d_ff`` slice (:data:`TP_SPLIT`) and y is its partial sum.  The tokens
     and the combine weights enter the sliced products through
-    ``launch.mesh.enter_tp``, so their gradients are summed over ``axis``;
+    ``collectives.enter_tp``, so their gradients are summed over ``axis``;
     the router's own path (and ``aux``) is the same on every rank and is
     not.
     """
@@ -276,7 +353,9 @@ def moe_ffn_local(cfg: LMConfig, p: dict, x: torch.Tensor, capacity: int, tp: tu
 
 #: the expert weights tensor parallelism splits over ``d_ff``, and the dim
 #: each is split on (the reference's ``w_specs``): the gate and up
-#: projections on their last, the down projections on their second to last
+#: projections on their last, the down projections on their second to last.
+#: Over a mesh the ranks store these blocks (``param_shardings``), and
+#: :func:`tp_slice` gives the same blocks as views of whole weights
 TP_SPLIT = {"we_gate": -1, "we_up": -1, "we_down": -2, "ws_gate": -1, "ws_up": -1, "ws_down": -2}
 
 
@@ -302,10 +381,11 @@ def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, mesh=None, dp_axes=("data",
     With a mesh of ranks (``launch.mesh.make_test_mesh``), x is this rank's
     slice of the batch along ``dp_axes`` and the reference's ``shard_map``
     path is mirrored: the rank routes its own tokens at ``moe_capacity`` of
-    its own token count, computes the ``d_ff`` slice of the experts that
-    :func:`tp_slice` gives its ``tp_axis`` rank, and y is summed over
-    ``tp_axis`` (``launch.mesh.sum_tp``); ``aux`` is the mean over
-    ``dp_axes`` of the ranks' aux losses.  With more than one data rank
+    its own token count; where ``p``'s expert weights are the rank's
+    ``d_ff`` block (the stored shard, or :func:`tp_slice` of whole ones),
+    it computes that block and y is summed over ``tp_axis``
+    (``collectives.sum_tp``); ``aux`` is the mean over ``dp_axes`` of the
+    ranks' aux losses.  With more than one data rank
     this is another function than the path without a mesh: a shard's
     capacity can drop other tokens, and the mean of the shards' aux losses
     is not the whole batch's (ROADMAP.md queue 3).
@@ -317,9 +397,9 @@ def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, mesh=None, dp_axes=("data",
         return x + y, aux
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a DeviceMesh of ranks (launch.mesh.make_test_mesh), got {type(mesh).__name__}")
-    tp = axis_size(mesh, tp_axis)
-    if tp > 1:
-        p = tp_slice(p, tp, mesh.get_local_rank(tp_axis))
+    if p["we_gate"].shape[-1] == cfg.d_ff:  # the experts whole on every rank
+        y, aux = moe_ffn_local(cfg, p, h, capacity)
+        return x + y, mean_over(aux, mesh, dp_axes)
     y, aux = moe_ffn_local(cfg, p, h, capacity, tp=(mesh, tp_axis))
     return x + sum_tp(y, mesh, tp_axis), mean_over(aux, mesh, dp_axes)
 

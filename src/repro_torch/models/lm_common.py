@@ -13,9 +13,11 @@ rule and dtype of every leaf); :func:`init_params` draws it from a
 ``torch.Generator`` cannot reproduce ``jax.random``, so weights that must
 match the reference cross as numpy.
 
-Left out: ``param_shardings``, ``dist_context`` and the ``cstr_*``
-activation constraints.  They are GSPMD layout hints for a TPU mesh and do
-nothing on one device.
+:func:`param_shardings` is the reference's layout of that tree over a
+``("data", "model")`` mesh, as :class:`~repro_torch.sharding.P` specs
+(``models/layout.py`` applies it).  Not ported yet: ``dist_context`` and the ``cstr_*``
+activation constraints, which pin activation layouts (the residual
+stream's sequence sharding among them) for GSPMD (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from ..sharding import P
 
 # ---------------------------------------------------------------------------
 # Config
@@ -317,6 +321,62 @@ def _flat_keys(tree: Mapping, prefix: str = "") -> list[str]:
 def layer(blocks: Mapping[str, torch.Tensor], i: int) -> dict[str, torch.Tensor]:
     """The parameters of layer ``i``: views of the ``[L, ...]`` stacks."""
     return {k: v[i] for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+
+def param_shardings(cfg: LMConfig, *, fsdp_axis: str | None = "data", tp_axis: str = "model") -> dict:
+    """:class:`P` tree matching :func:`param_spec`'s structure (the
+    reference's ``param_shardings``).
+
+    TP shards the feature dim; FSDP shards the other matrix dim.  Vectors
+    (norm scales, biases) are replicated except long ones sharded on TP.
+    The embedding keeps its vocab whole and splits ``d_model`` over TP (the
+    token lookup stays local); the unembedding splits ``d_model`` over FSDP
+    and its vocab over TP (the chunked loss reduces over the shard)."""
+    f, d = fsdp_axis, tp_axis
+
+    def attn(qkv_bias, qk_norm):
+        sp = {"wq": P(None, f, d), "wk": P(None, f, d), "wv": P(None, f, d), "wo": P(None, d, f), "ln1": P(None, None)}
+        if qkv_bias:
+            sp.update(bq=P(None, d), bk=P(None, d), bv=P(None, d))
+        if qk_norm:
+            sp.update(q_norm=P(None, None), k_norm=P(None, None))
+        return sp
+
+    def ffn():
+        if cfg.is_moe:
+            sp = {"router": P(None, f, None), "we_gate": P(None, None, f, d), "we_up": P(None, None, f, d),
+                  "we_down": P(None, None, d, f), "ln2": P(None, None)}
+            if cfg.n_shared_experts:
+                sp.update(ws_gate=P(None, f, d), ws_up=P(None, f, d), ws_down=P(None, d, f))
+            return sp
+        if cfg.ffn_kind == "relu2":
+            return {"w_in": P(None, f, d), "w_out": P(None, d, f), "ln2": P(None, None)}
+        return {"w_gate": P(None, f, d), "w_up": P(None, f, d), "w_down": P(None, d, f), "ln2": P(None, None)}
+
+    swiglu = {"w_gate": P(None, f, d), "w_up": P(None, f, d), "w_down": P(None, d, f), "ln2": P(None, None)}
+    ssd = {"in_proj": P(None, f, d), "conv_w": P(None, None, d), "A_log": P(None, None), "D": P(None, None),
+           "dt_bias": P(None, None), "out_proj": P(None, d, f), "ln": P(None, None), "gate_ln": P(None, d)}
+    sp: dict[str, Any] = {"embed": P(None, d), "ln_f": P(None), "unembed": P(f, d)}
+    if cfg.block_kind == "attn":
+        sp["blocks"] = {**attn(cfg.qkv_bias, cfg.qk_norm), **ffn()}
+    elif cfg.block_kind == "ssd":
+        sp["blocks"] = ssd
+    else:  # hybrid
+        sp["blocks"] = ssd
+        sp["shared"] = {**attn(False, False), **swiglu}
+    if cfg.is_encdec:
+        sp["enc_blocks"] = {**attn(cfg.qkv_bias, False), **swiglu}
+        sp["enc_ln_f"] = P(None)
+        sp["cross"] = {"wq": P(None, f, d), "wk": P(None, f, d), "wv": P(None, f, d), "wo": P(None, d, f),
+                       "ln": P(None, None)}
+    if cfg.n_patches:
+        sp["patch_proj"] = P(f, d)
+    return sp
 
 
 # ---------------------------------------------------------------------------

@@ -35,17 +35,21 @@ patch prefix (internvl: projected patch embeddings before the tokens).
     costs (``core/cost_model.py``), from the config alone.
 
 Over a mesh of ranks (``mesh=``, a ``launch.mesh.make_test_mesh`` with
-``dp_axes`` and ``tp_axis``), as the reference's ``mesh=`` paths: every rank
-is given the whole batch and takes its slice of every key along the data
-axes (``launch.mesh.batch_shard``); MoE layers run ``blocks.moe_ffn`` over
-the mesh (each data rank routes its own tokens, each ``tp_axis`` rank
-computes its ``d_ff`` slice of the experts); dense layers are replicated
-across ``tp_axis`` (the reference's GSPMD tensor parallelism of attention
-and the dense FFN is not ported: ROADMAP.md queue 1).  ``train_loss`` is the
-reference's loss on the whole batch and ``value_and_grad`` /
-``make_train_step`` its gradient, the same on every rank; ``prefill_step``
-and ``serve_step`` return the whole batch's logits on every rank and keep
-the cache of the rank's own batch slice.
+``dp_axes`` and ``tp_axis``), in the reference's sharded layout
+(``models/layout.py``): every rank is given its blocks of the parameters
+(``sharding.local_shard``) and its slice of the batch along the data
+axes (``launch.mesh.batch_shard``; ``dp_axes=()``: the whole batch on every
+rank).  Each layer gathers its leaves over ``data`` (FSDP) and runs the
+reference's tensor parallelism over ``tp_axis``: attention on the rank's
+heads, the dense and MoE FFNs on its ``d_ff`` block (each data rank routes
+its own tokens), the unembedding on its vocab block.  ``train_loss`` is the
+reference's loss on the whole batch, ``value_and_grad`` returns the rank's
+blocks of its gradient and ``make_train_step`` updates them;
+``prefill_step`` and ``serve_step`` return the logits of the rank's slice
+(the vocab whole) and keep its blocks of the cache: the ring split over
+``tp_axis`` by slots where that divides, decode combining the ranks'
+softmax statistics.  Decode keeps attention on the rank's heads: only the
+token's q, k and v are gathered over ``tp_axis`` before the ring is scored.
 
 The layer loop is a Python loop over views of the ``[L, ...]`` stacks where
 the reference has ``lax.scan``.  The cache is a dict of stacked tensors as
@@ -89,9 +93,12 @@ from functools import partial
 import torch
 from torch.utils.checkpoint import checkpoint
 
+import torch.distributed as dist
+
 from .. import tree
-from ..launch.mesh import all_reduce_over, axis_size, batch_shard, gather_batch
+from ..collectives import all_gather_dim, all_reduce_over, enter_tp, own_block, sum_tp
 from . import blocks
+from .layout import Layout
 from .lm_common import LMConfig, layer, rms_norm
 
 
@@ -103,15 +110,16 @@ def _check_supported(cfg: LMConfig) -> None:
         raise ValueError(f"{cfg.n_layers} layers are not whole groups of {cfg.shared_attn_every}")
 
 
-def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, mesh=None, dp_axes=("data",), tp_axis="model") -> torch.Tensor:
+def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, lay: Layout, specs) -> torch.Tensor:
     """The FFN sublayer of an ``attn`` layer: MoE (aux loss dropped) or dense."""
+    p, tp = lay.ffn(cfg, lp, specs)
     if cfg.is_moe:
-        return blocks.moe_ffn(cfg, lp, x, mesh, dp_axes, tp_axis)[0]
-    return blocks.dense_ffn(cfg, lp, x)
+        return blocks.moe_ffn(cfg, p, x, lay.mesh, lay.dp, lay.tp_axis)[0]
+    return blocks.dense_ffn(cfg, p, x, tp)
 
 
-def embed_tokens(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def embed_tokens(cfg: LMConfig, params: dict, tokens: torch.Tensor, lay: Layout | None = None) -> torch.Tensor:
+    return (lay or Layout(cfg)).embed(params, tokens)
 
 
 def _layers(cfg: LMConfig, params: dict) -> list[dict]:
@@ -130,28 +138,6 @@ def _shared(cfg: LMConfig, params: dict) -> tuple[LMConfig, dict]:
     return dataclasses.replace(cfg, ffn_kind="swiglu", n_experts=0), layer(params["shared"], 0)
 
 
-def _kv_ring(cfg: LMConfig, L: int, batch: int, W: int, device) -> dict:
-    """``L`` empty ring KV caches of ``W`` slots (position -1: empty)."""
-    return {
-        "k": torch.zeros((L, batch, W, cfg.n_kv_heads, cfg.hd), dtype=cfg.dtype, device=device),
-        "v": torch.zeros((L, batch, W, cfg.n_kv_heads, cfg.hd), dtype=cfg.dtype, device=device),
-        "pos": torch.full((L, W), -1, dtype=torch.int32, device=device),
-    }
-
-
-def _prefill_ring(cfg: LMConfig, L: int, batch: int, s: int, W: int, device):
-    """``L`` ring KV caches of ``W`` slots for a prefill of ``s`` positions,
-    with the positions they will keep: the last ``W``, at slot ``pos % W``
-    (all of them at slot ``pos`` when ``W >= s``).  Returns the ring, those
-    positions and their slots; the caller stores cache ``i``'s K and V as
-    ``ring["k"][i, :, slots] = k[:, kept]``."""
-    ring = _kv_ring(cfg, L, batch, W, device)
-    kept = torch.arange(max(s - W, 0), s, device=device)
-    slots = kept % W
-    ring["pos"][:, slots] = kept.to(torch.int32)
-    return ring, kept, slots
-
-
 def _ring_width(cfg: LMConfig, max_len: int, s: int = 0, *, window: bool = True) -> int:
     """Slots of a ring KV cache for ``max_len`` tokens (prompt plus
     generated), the one rule of ``init_cache`` and ``prefill_step``: the
@@ -165,6 +151,38 @@ def _ring_width(cfg: LMConfig, max_len: int, s: int = 0, *, window: bool = True)
     return min(W, cfg.sliding_window) if window and cfg.sliding_window else W
 
 
+def cache_shapes(cfg: LMConfig, batch: int, W: int) -> dict:
+    """``{name: (shape, dtype)}`` of the decode state of a ``W``-slot ring
+    (``init_cache``'s tensors, ``index`` aside)."""
+    L, kv = cfg.n_layers, (cfg.n_kv_heads, cfg.hd)
+    ring = lambda n: {"k": ((n, batch, W, *kv), cfg.dtype), "v": ((n, batch, W, *kv), cfg.dtype),
+                      "pos": ((n, W), torch.int32)}
+    if cfg.is_encdec:
+        cross = ((L, batch, cfg.enc_frames, *kv), cfg.dtype)
+        return {**ring(L), "cross_k": cross, "cross_v": cross}
+    if cfg.block_kind == "attn":
+        return ring(L)
+    out = {"ssm": ((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), cfg.dtype),
+           "conv": ((L, batch, 3, cfg.d_inner + 2 * cfg.ssm_state), cfg.dtype)}
+    if cfg.block_kind == "hybrid":
+        out.update({f"shared_{k}": v for k, v in ring(_n_groups(cfg)).items()})
+    return out
+
+
+def _alloc(shapes: dict, lay: Layout, device) -> dict:
+    """Each cache tensor of ``shapes`` as the rank's ``model`` block (the
+    batch is already the rank's): zeros, positions -1 (empty)."""
+    dims = lay.cache_dims(shapes)
+    out = {}
+    for name, (shape, dtype) in shapes.items():
+        shape = list(shape)
+        if dims.get(name) is not None:
+            shape[dims[name]] //= lay.tp
+        fill = -1 if name.endswith("pos") else 0
+        out[name] = torch.full(shape, fill, dtype=dtype, device=device)
+    return out
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device: str | torch.device = "cuda") -> dict:
     """Decode state for ``max_len`` tokens: ring KV cache for attention, SSM
     and conv state for SSD, both for hybrid (the ring as ``shared_k`` /
@@ -173,24 +191,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device: str | torch.devi
     the cross K/V ``cross_k`` / ``cross_v`` [L, batch, enc_frames, kvh, hd]
     that prefill fills."""
     _check_supported(cfg)
-    W = _ring_width(cfg, max_len)
-    L = cfg.n_layers
-    if cfg.is_encdec:
-        kv = (L, batch, cfg.enc_frames, cfg.n_kv_heads, cfg.hd)
-        return {"index": 0, **_kv_ring(cfg, L, batch, W, device),
-                "cross_k": torch.zeros(kv, dtype=cfg.dtype, device=device),
-                "cross_v": torch.zeros(kv, dtype=cfg.dtype, device=device)}
-    if cfg.block_kind == "attn":
-        return {"index": 0, **_kv_ring(cfg, L, batch, W, device)}
-    cache = {
-        "index": 0,
-        "ssm": torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=cfg.dtype,
-                           device=device),
-        "conv": torch.zeros((L, batch, 3, cfg.d_inner + 2 * cfg.ssm_state), dtype=cfg.dtype, device=device),
-    }
-    if cfg.block_kind == "hybrid":
-        cache.update({f"shared_{k}": v for k, v in _kv_ring(cfg, _n_groups(cfg), batch, W, device).items()})
-    return cache
+    return {"index": 0, **_alloc(cache_shapes(cfg, batch, _ring_width(cfg, max_len)), Layout(cfg), device)}
 
 
 def _unbind(stacks: dict) -> list[dict]:
@@ -215,21 +216,34 @@ def _remat(cfg: LMConfig, fn, *args):
     return _recompute(cfg.remat == "full", fn, *args)
 
 
-def _encoder_layer(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    return blocks.dense_ffn(cfg, lp, blocks.attention(cfg, lp, h, positions, causal=False))
+def _attn_sublayer(cfg: LMConfig, lp: dict, x, positions, lay: Layout, specs, *, causal=True, window=0):
+    acfg, ap, tp = lay.attention(cfg, lp, specs)
+    return blocks.attention(acfg, ap, x, positions, causal=causal, window=window, tp=tp)
 
 
-def encoder(cfg: LMConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+def _dense_sublayer(cfg: LMConfig, lp: dict, x, lay: Layout, specs):
+    p, tp = lay.ffn(cfg, lp, specs)
+    return blocks.dense_ffn(cfg, p, x, tp)
+
+
+def _encoder_layer(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor, lay: Layout, specs
+                   ) -> torch.Tensor:
+    return _dense_sublayer(cfg, lp, _attn_sublayer(cfg, lp, h, positions, lay, specs, causal=False), lay, specs)
+
+
+def encoder(cfg: LMConfig, params: dict, frames: torch.Tensor, lay: Layout | None = None) -> torch.Tensor:
     """Whisper's encoder: bidirectional attention over the (stubbed) frame
     embeddings [b, se, d_model], RoPE over frame positions, ``enc_ln_f`` at
     the end.  Returns [b, se, d_model] in ``cfg.dtype``."""
+    lay = lay or Layout(cfg)
     enc_cfg = dataclasses.replace(cfg, n_experts=0, ffn_kind="swiglu", sliding_window=0)  # dense, no window
+    specs = lay.layer_specs("enc_blocks")
     h = frames.to(cfg.dtype)
     b, se, _ = h.shape
     positions = torch.arange(se, dtype=torch.int32, device=h.device)[None, :].expand(b, se)
     for lp in _unbind(params["enc_blocks"]):
-        h = _remat(cfg, _encoder_layer, enc_cfg, lp, h, positions)
-    return rms_norm(h, params["enc_ln_f"], cfg.norm_eps)
+        h = _remat(cfg, _encoder_layer, enc_cfg, lp, h, positions, lay, specs)
+    return rms_norm(h, lay.top(params, "enc_ln_f"), cfg.norm_eps)
 
 
 @torch.inference_mode()
@@ -255,79 +269,127 @@ def _xent_chunk(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor, ma
     logits = (h @ unembed).float()
     m = logits.detach().amax(-1, keepdim=True)
     logz = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]  # a masked label's gold is multiplied by 0
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]  # a masked label's gold is multiplied by 0
     return ((logz - gold) * mask).sum()
 
 
+def _xent_chunk_tp(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, lo: int,
+                   mesh, axis: str) -> torch.Tensor:
+    """:func:`_xent_chunk` with the vocab split over ``axis``: ``unembed``
+    holds entries ``[lo, lo + V)``; the max and the sum of exponentials are
+    combined over the axis, and the gold logit comes from the rank that holds
+    the label (a masked label, < 0, from none)."""
+    logits = (h @ unembed).float()
+    m = all_reduce_over(logits.detach().amax(-1, keepdim=True), mesh, (axis,), dist.ReduceOp.MAX)
+    logz = torch.log(sum_tp(torch.exp(logits - m).sum(-1), mesh, axis)) + m[..., 0]
+    local = labels - lo
+    here = (local >= 0) & (local < logits.shape[-1])
+    gold = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1).long()[..., None])[..., 0] * here
+    return ((logz - sum_tp(gold, mesh, axis)) * mask).sum()
+
+
 def lm_head_loss(cfg: LMConfig, params: dict, h: torch.Tensor, labels: torch.Tensor,
-                 mask: torch.Tensor, count: torch.Tensor | None = None) -> torch.Tensor:
+                 mask: torch.Tensor, count: torch.Tensor | None = None, lay: Layout | None = None) -> torch.Tensor:
     """Chunked softmax cross-entropy over h [b, s, d]: never holds [b, s,
     vocab] at once.  The chunk is the first of ``loss_chunk``, 512, 256, ...
     1 that divides s; each chunk's logits are recomputed in the backward
     (``torch.utils.checkpoint``).  The unembedding product stays
-    ``torch.matmul``, as the reference leaves it to XLA.  Returns the sum
-    over ``mask`` divided by ``count`` (default: ``mask``'s count), fp32."""
+    ``torch.matmul``, as the reference leaves it to XLA; over a mesh it runs
+    on the rank's vocab block where the layout splits it
+    (:func:`_xent_chunk_tp`).  Returns the sum over ``mask`` divided by
+    ``count`` (default: ``mask``'s count), fp32."""
+    lay = lay or Layout(cfg)
+    unembed, lo = lay.unembed(params)
+    if lo is not None:
+        h = enter_tp(h, lay.mesh, lay.tp_axis)
     s = h.shape[1]
     cs = next((c for c in (cfg.loss_chunk, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1) if s % c == 0), s)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, cs):
-        total = total + _recompute(True, _xent_chunk, h[:, c0 : c0 + cs], params["unembed"],
-                                   labels[:, c0 : c0 + cs], mask[:, c0 : c0 + cs])
+        part = (h[:, c0 : c0 + cs], unembed, labels[:, c0 : c0 + cs], mask[:, c0 : c0 + cs])
+        if lo is None:
+            total = total + _recompute(True, _xent_chunk, *part)
+        else:
+            total = total + _recompute(True, _xent_chunk_tp, *part, lo, lay.mesh, lay.tp_axis)
     return total / (mask.sum() if count is None else count).clamp_min(1)
 
 
-def _attn_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor, mesh=None, dp_axes=("data",),
-                tp_axis="model"):
+def _attn_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor, lay: Layout, specs):
     """One ``attn`` layer of the training forward: (x, the MoE router's aux loss or 0)."""
-    x = blocks.attention(cfg, lp, x, positions, causal=True, window=cfg.sliding_window)
+    x = _attn_sublayer(cfg, lp, x, positions, lay, specs, window=cfg.sliding_window)
     if cfg.is_moe:
-        return blocks.moe_ffn(cfg, lp, x, mesh, dp_axes, tp_axis)
-    return blocks.dense_ffn(cfg, lp, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        p, _ = lay.ffn(cfg, lp, specs)
+        return blocks.moe_ffn(cfg, p, x, lay.mesh, lay.dp, lay.tp_axis)
+    return _dense_sublayer(cfg, lp, x, lay, specs), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ssd_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, lay: Layout, specs) -> torch.Tensor:
+    return blocks.ssd_block(cfg, lay.whole(lp, specs), x)
+
+
+def _shared_layer(cfg: LMConfig, sp: dict, x, positions, lay: Layout, specs) -> torch.Tensor:
+    """The hybrid's shared attention block and its SwiGLU FFN."""
+    ffn_cfg = dataclasses.replace(cfg, ffn_kind="swiglu", n_experts=0)
+    x = _attn_sublayer(cfg, sp, x, positions, lay, specs, window=cfg.sliding_window)
+    return _dense_sublayer(ffn_cfg, sp, x, lay, specs)
 
 
 def backbone(cfg: LMConfig, params: dict, x: torch.Tensor, positions: torch.Tensor, mesh=None, dp_axes=("data",),
-             tp_axis="model") -> tuple[torch.Tensor, torch.Tensor]:
+             tp_axis="model", lay: Layout | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The layer stack over embedded inputs x [b, s, d]: (``ln_f``-normed h,
     the sum of the MoE layers' aux losses, fp32).  ``remat == "full"``
     recomputes each layer in the backward; a hybrid's shared block is not
     recomputed, as in the reference.  With a mesh, x is the rank's batch
-    slice and the MoE layers run over the mesh."""
+    slice and each layer reads its parameters through the layout
+    (``models/layout.py``)."""
     _check_supported(cfg)
+    lay = lay or Layout(cfg, mesh, dp_axes, tp_axis)
+    specs = lay.layer_specs("blocks")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_kind == "attn":
         for lp in _unbind(params["blocks"]):
-            x, a = _remat(cfg, _attn_layer, cfg, lp, x, positions, mesh, dp_axes, tp_axis)
+            x, a = _remat(cfg, _attn_layer, cfg, lp, x, positions, lay, specs)
             aux = aux + a
     else:
         if cfg.block_kind == "hybrid":
-            ffn_cfg, shared = _shared(cfg, params)
+            shared, sspecs = layer(params["shared"], 0), lay.layer_specs("shared")
         for i, lp in enumerate(_unbind(params["blocks"])):
-            x = _remat(cfg, blocks.ssd_block, cfg, lp, x)
+            x = _remat(cfg, _ssd_layer, cfg, lp, x, lay, specs)
             if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
-                x = blocks.attention(cfg, shared, x, positions, causal=True, window=cfg.sliding_window)
-                x = blocks.dense_ffn(ffn_cfg, shared, x)
-    return rms_norm(x, params["ln_f"], cfg.norm_eps), aux
+                x = _shared_layer(cfg, shared, x, positions, lay, sspecs)
+    return rms_norm(x, lay.top(params, "ln_f"), cfg.norm_eps), aux
 
 
 def _decoder_layer(cfg: LMConfig, lp: dict, cp: dict, x: torch.Tensor, positions: torch.Tensor,
-                   enc_out: torch.Tensor) -> torch.Tensor:
-    x = blocks.attention(cfg, lp, x, positions, causal=True)
-    x = blocks.cross_attention(cfg, cp, x, *blocks.cross_kv(cfg, cp, enc_out))
-    return blocks.dense_ffn(cfg, lp, x)
+                   enc_out: torch.Tensor, lay: Layout, specs, cspecs) -> torch.Tensor:
+    x = _attn_sublayer(cfg, lp, x, positions, lay, specs)
+    ccfg, cpp, ctp = lay.attention(cfg, cp, cspecs, ln="ln")
+    x = blocks.cross_attention(ccfg, cpp, x, *blocks.cross_kv(ccfg, cpp, enc_out, ctp), ctp)
+    return _dense_sublayer(cfg, lp, x, lay, specs)
 
 
 def decoder_with_cross(cfg: LMConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,
-                       enc_out: torch.Tensor) -> torch.Tensor:
+                       enc_out: torch.Tensor, lay: Layout | None = None) -> torch.Tensor:
     """Whisper's decoder for training: causal self attention, cross
     attention over ``enc_out`` with each layer's cross K/V computed from it
     (so the gradient reaches the encoder), the dense FFN; ``ln_f``-normed."""
+    lay = lay or Layout(cfg)
+    specs, cspecs = lay.layer_specs("blocks"), lay.layer_specs("cross")
     for lp, cp in zip(_unbind(params["blocks"]), _unbind(params["cross"])):
-        x = _remat(cfg, _decoder_layer, cfg, lp, cp, x, positions, enc_out)
-    return rms_norm(x, params["ln_f"], cfg.norm_eps)
+        x = _remat(cfg, _decoder_layer, cfg, lp, cp, x, positions, enc_out, lay, specs, cspecs)
+    return rms_norm(x, lay.top(params, "ln_f"), cfg.norm_eps)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
+
+
+def _inputs(cfg: LMConfig, params: dict, batch: dict, lay: Layout) -> torch.Tensor:
+    """The embedded tokens, with the projected patch prefix in front."""
+    x = lay.embed(params, batch["tokens"])
+    if cfg.n_patches:
+        x = torch.cat([batch["patch_embeds"].to(cfg.dtype) @ lay.top(params, "patch_proj"), x], dim=1)
+    return x
 
 
 def train_loss(cfg: LMConfig, params: dict, batch: dict, mesh=None, dp_axes=("data",), tp_axis="model") -> torch.Tensor:
@@ -336,36 +398,35 @@ def train_loss(cfg: LMConfig, params: dict, batch: dict, mesh=None, dp_axes=("da
     ``patch_embeds`` for a patch prefix (whose positions count the patches
     and whose outputs the loss drops).  MoE adds ``0.01 * aux``.
 
-    With a mesh, every rank is given the whole batch and computes on its
-    slice; the value is the reference's loss on the whole batch (the masked
-    sum over it divided by its count, plus ``0.01 *`` the MoE layers' aux
-    losses, each the mean over the data ranks), the same on every rank.  Its
-    gradient on a rank is that rank's share, the rank's own masked sum over
-    the global count plus its aux losses' share: summed over the data ranks
-    (:func:`value_and_grad`) it is the loss's gradient."""
+    With a mesh, ``params`` are the rank's blocks (``models/layout.py``)
+    and ``batch`` is the rank's slice along ``dp_axes`` (``()``: the whole
+    batch on every rank); the value is the reference's loss on the whole
+    batch (the masked sum over it divided by its count, plus ``0.01 *`` the
+    MoE layers' aux losses, each the mean over the data ranks), the same on
+    every rank.  Its gradient on a rank is that rank's share, the rank's own
+    masked sum over the global count plus its aux losses' share, which the
+    layout's gathers sum over the ranks back into each block."""
     _check_supported(cfg)
-    if mesh is not None:
-        batch = batch_shard(mesh, batch, dp_axes)
+    lay = Layout(cfg, mesh, dp_axes, tp_axis)
     tokens, labels = batch["tokens"], batch["labels"]
     mask = labels >= 0
-    count = None if mesh is None else all_reduce_over(mask.sum(), mesh, dp_axes)
-    x = embed_tokens(cfg, params, tokens)
+    count = None if mesh is None else all_reduce_over(mask.sum(), mesh, lay.dp)
     aux = None
     if cfg.is_encdec:
-        enc_out = encoder(cfg, params, batch["frames"])
-        h = decoder_with_cross(cfg, params, x, _positions(*tokens.shape, x.device), enc_out)
+        x = lay.embed(params, tokens)
+        enc_out = encoder(cfg, params, batch["frames"], lay)
+        h = decoder_with_cross(cfg, params, x, _positions(*tokens.shape, x.device), enc_out, lay)
     else:
-        if cfg.n_patches:
-            x = torch.cat([batch["patch_embeds"].to(cfg.dtype) @ params["patch_proj"], x], dim=1)
-        h, aux = backbone(cfg, params, x, _positions(x.shape[0], x.shape[1], x.device), mesh, dp_axes, tp_axis)
+        x = _inputs(cfg, params, batch, lay)
+        h, aux = backbone(cfg, params, x, _positions(x.shape[0], x.shape[1], x.device), lay=lay)
         if cfg.n_patches:
             h = h[:, cfg.n_patches :]
-    nll = lm_head_loss(cfg, params, h, labels, mask, count)
+    nll = lm_head_loss(cfg, params, h, labels, mask, count, lay)
     loss = nll if aux is None else nll + 0.01 * aux
     if mesh is None:
         return loss
     # the value of the whole batch's loss on the gradient of this rank's share (aux is already the data mean)
-    whole = all_reduce_over(nll.detach(), mesh, dp_axes)
+    whole = all_reduce_over(nll.detach(), mesh, lay.dp)
     whole = whole if aux is None else whole + 0.01 * aux.detach()
     return loss + (whole - loss).detach()
 
@@ -374,19 +435,13 @@ def value_and_grad(cfg: LMConfig, params: dict, batch: dict, mesh=None, dp_axes=
                    ) -> tuple[torch.Tensor, dict]:
     """(train_loss, its gradient as a tree like ``params``, each leaf in its
     parameter's dtype).  A leaf the loss does not reach gets zeros, as
-    ``jax.grad`` gives it.  With a mesh, each rank holds every parameter
-    whole; the ranks' gradients are summed over ``dp_axes``, and a MoE
-    expert weight's (``blocks.TP_SPLIT``, each rank's nonzero on its ``d_ff``
-    slice only) over ``tp_axis`` too, so every rank returns the whole
-    gradient."""
+    ``jax.grad`` gives it.  With a mesh, each rank's gradient is of its own
+    blocks: the layout's gathers reduce-scatter (or sum, or slice) each
+    leaf's gradient over the ranks in the backward."""
     leaves = [t.detach().requires_grad_(True) for t in tree.leaves(params)]
     loss = train_loss(cfg, tree.rebuild(params, leaves), batch, mesh, dp_axes, tp_axis)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-    if mesh is not None:
-        split = tuple(dp_axes) + ((tp_axis,) if axis_size(mesh, tp_axis) > 1 else ())
-        names = [name.rsplit("/", 1)[-1] for name, _ in tree.named_leaves(params)]
-        grads = [all_reduce_over(g, mesh, split if n in blocks.TP_SPLIT else dp_axes) for n, g in zip(names, grads)]
     return loss.detach(), tree.rebuild(params, grads)
 
 
@@ -397,8 +452,9 @@ def make_train_step(cfg: LMConfig, optimizer, mesh=None, dp_axes=("data",), tp_a
     microbatches and sums their gradients in ``cfg.accum_dtype`` before
     dividing by ``accum``.  The optimizer updates ``params`` and
     ``opt_state`` in place (``optim.AdamW``) and returns them.  With a mesh
-    (:func:`value_and_grad`), every rank is given the whole batch, and the
-    ranks' parameters, optimizer states and metrics stay equal."""
+    (:func:`value_and_grad`), the rank updates its blocks, and the
+    gradient norm counts each element of the whole tree once."""
+    extra = {} if mesh is None else {"mesh": mesh, "specs": Layout(cfg, mesh, dp_axes, tp_axis).specs}
 
     def train_step(params: dict, opt_state: dict, batch: dict):
         if accum == 1:
@@ -414,58 +470,100 @@ def make_train_step(cfg: LMConfig, optimizer, mesh=None, dp_axes=("data",), tp_a
                 loss = loss + l
             grads = tree.rebuild(params, [g / accum for g in gsum])
             loss = loss / accum
-        params, opt_state, om = optimizer.update(grads, opt_state, params)
+        params, opt_state, om = optimizer.update(grads, opt_state, params, **extra)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step
 
 
-def _logits(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
-    """Last-position logits [b, vocab] in fp32 from the final hidden states."""
-    h = rms_norm(h, params["ln_f"], cfg.norm_eps)
-    return (h[:, -1, :] @ params["unembed"]).float()
+def _logits(cfg: LMConfig, params: dict, h: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """Last-position logits [b, vocab] in fp32 from the final hidden states
+    (gathered over the vocab's ranks where the layout splits it)."""
+    h = rms_norm(h, lay.top(params, "ln_f"), cfg.norm_eps)
+    unembed, lo = lay.unembed(params)
+    logits = (h[:, -1, :] @ unembed).float()
+    return logits if lo is None else lay.gathered_vocab(logits)
+
+
+def _decode_attn(cfg: LMConfig, lay: Layout, dims: dict, attn: tuple, x, cache: dict, names, i: int, index: int,
+                 window: int = 0):
+    """``blocks.attention_decode`` of layer ``i`` on the cache's ring
+    ``names`` (k, v, pos) as the rank holds it: split over its slots (the
+    flash-decode layout), whole, or split over heads or head dims, then
+    gathered for the step and the token's entry written back to the block.
+    ``attn`` is ``Layout.attention``'s (config, parameters, ``tp``)."""
+    _, ap, tp = attn
+    kn, vn, pn = names
+    ck, cv, cpos = cache[kn][i], cache[vn][i], cache[pn][i]
+    dim = dims.get(kn)
+    if dim is None:
+        return blocks.attention_decode(cfg, ap, x, ck, cv, cpos, index, window=window, tp=tp)[0]
+    if dim == 2:
+        return blocks.attention_decode(cfg, ap, x, ck, cv, cpos, index, window=window, split=(lay.mesh, lay.tp_axis),
+                                       tp=tp)[0]
+    wk, wv = (all_gather_dim(t, lay.mesh, lay.tp_axis, dim - 1) for t in (ck, cv))
+    y, wk, wv, _ = blocks.attention_decode(cfg, ap, x, wk, wv, cpos, index, window=window, tp=tp)
+    slot = index % cpos.shape[0]
+    ck[:, slot] = own_block(wk[:, slot], lay.mesh, lay.tp_axis, dim - 2)
+    cv[:, slot] = own_block(wv[:, slot], lay.mesh, lay.tp_axis, dim - 2)
+    return y
+
+
+def _cache_whole(lay: Layout, dims: dict, cache: dict, name: str, i: int) -> tuple[torch.Tensor, int | None]:
+    """Layer ``i`` of cache tensor ``name`` gathered whole over ``model``,
+    and the layer's dim it is split on (None: stored whole)."""
+    dim = dims.get(name)
+    t = cache[name][i]
+    return (t, None) if dim is None else (all_gather_dim(t, lay.mesh, lay.tp_axis, dim - 1), dim - 1)
 
 
 @torch.inference_mode()
 def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor, mesh=None, dp_axes=("data",),
                tp_axis="model"):
     """Decode one token.  tokens: [b, 1] -> (logits [b, vocab], cache),
-    the cache updated in place.  With a mesh, ``tokens`` is the whole
-    batch's, ``cache`` the rank's own slice's (from ``prefill_step`` over the
-    same mesh), and the logits are the whole batch's."""
+    the cache updated in place.  With a mesh, ``tokens`` are the rank's
+    batch slice, ``params`` and ``cache`` its blocks (the cache from
+    ``prefill_step`` or ``init_cache`` over the same mesh), and the logits
+    the rank's slice's, the vocab whole."""
     _check_supported(cfg)
-    if mesh is not None:
-        tokens = batch_shard(mesh, tokens, dp_axes)
+    lay = Layout(cfg, mesh, dp_axes, tp_axis)
+    specs = lay.layer_specs("blocks")
     index = cache["index"]
-    x = embed_tokens(cfg, params, tokens)
+    ring = next((cache[k] for k in ("pos", "shared_pos") if k in cache), None)
+    dims = lay.cache_dims(cache_shapes(cfg, 1, 0 if ring is None else ring.shape[-1]))
+    x = lay.embed(params, tokens)
     if cfg.block_kind == "hybrid":
         ffn_cfg, shared = _shared(cfg, params)
+        sspecs = lay.layer_specs("shared")
     for i, lp in enumerate(_layers(cfg, params)):
         if cfg.is_encdec:  # self attention over the decoder ring, then cross attention over the frames
-            x, _, _, _ = blocks.attention_decode(cfg, lp, x, cache["k"][i], cache["v"][i], cache["pos"][i], index)
-            x = blocks.cross_attention_decode(cfg, layer(params["cross"], i), x, cache["cross_k"][i],
-                                              cache["cross_v"][i])
-            x = blocks.dense_ffn(cfg, lp, x)
+            x = _decode_attn(cfg, lay, dims, lay.attention(cfg, lp, specs), x, cache, ("k", "v", "pos"), i,
+                             index)
+            _, cp, ctp = lay.attention(cfg, layer(params["cross"], i), lay.layer_specs("cross"), ln="ln")
+            if dims.get("cross_k") == 2:
+                x = blocks.cross_attention_decode(cfg, cp, x, cache["cross_k"][i], cache["cross_v"][i],
+                                                  split=(lay.mesh, lay.tp_axis), tp=ctp)
+            else:
+                x = blocks.cross_attention_decode(cfg, cp, x, _cache_whole(lay, dims, cache, "cross_k", i)[0],
+                                                  _cache_whole(lay, dims, cache, "cross_v", i)[0], tp=ctp)
+            x = _dense_sublayer(cfg, lp, x, lay, specs)
             continue
         if cfg.block_kind == "attn":
-            x, _, _, _ = blocks.attention_decode(
-                cfg, lp, x, cache["k"][i], cache["v"][i], cache["pos"][i], index, window=cfg.sliding_window
-            )
-            x = _ffn(cfg, lp, x, mesh, dp_axes, tp_axis)
+            x = _decode_attn(cfg, lay, dims, lay.attention(cfg, lp, specs), x, cache, ("k", "v", "pos"), i,
+                             index, cfg.sliding_window)
+            x = _ffn(cfg, lp, x, lay, specs)
             continue
-        x, ssm, conv = blocks.ssd_decode(cfg, lp, x, cache["ssm"][i], cache["conv"][i])
-        cache["ssm"][i].copy_(ssm)
-        cache["conv"][i].copy_(conv)
+        (ssm, sdim), (conv, cdim) = _cache_whole(lay, dims, cache, "ssm", i), _cache_whole(lay, dims, cache, "conv", i)
+        x, ssm, conv = blocks.ssd_decode(cfg, lay.whole(lp, specs), x, ssm, conv)
+        cache["ssm"][i].copy_(ssm if sdim is None else own_block(ssm, lay.mesh, lay.tp_axis, sdim))
+        cache["conv"][i].copy_(conv if cdim is None else own_block(conv, lay.mesh, lay.tp_axis, cdim))
         if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
             g = i // cfg.shared_attn_every
-            x, _, _, _ = blocks.attention_decode(
-                cfg, shared, x, cache["shared_k"][g], cache["shared_v"][g], cache["shared_pos"][g], index,
-                window=cfg.sliding_window,
-            )
-            x = blocks.dense_ffn(ffn_cfg, shared, x)
+            x = _decode_attn(cfg, lay, dims, lay.attention(cfg, shared, sspecs), x, cache,
+                             ("shared_k", "shared_v", "shared_pos"), g, index, cfg.sliding_window)
+            x = _dense_sublayer(ffn_cfg, shared, x, lay, sspecs)
     cache["index"] = index + 1
-    logits = _logits(cfg, params, x)
-    return (logits if mesh is None else gather_batch(mesh, logits, dp_axes)), cache
+    return _logits(cfg, params, x, lay), cache
 
 
 def make_serve_step(cfg: LMConfig, mesh=None, dp_axes=("data",), tp_axis="model"):
@@ -496,82 +594,120 @@ def prefill_step(cfg: LMConfig, params: dict, batch: dict, mesh=None, dp_axes=("
     positions (patches first) in ``_ring_width`` slots; a hybrid's shared
     ring keeps the last ``W`` positions at slot ``pos % W``; enc-dec's
     decoder ring is ``max_decoder_len`` wide, the prompt cut to it, and
-    ``max_len`` is not read (module docstring).  With a mesh, every rank is
-    given the whole batch and returns the whole batch's logits and the cache
-    of its own batch slice.
+    ``max_len`` is not read (module docstring).  With a mesh, ``batch`` is
+    the rank's slice and ``params`` its blocks; it returns its slice's
+    logits (the vocab whole) and the rank's blocks of its slice's cache.
     """
     _check_supported(cfg)
-    if mesh is not None:
-        batch = batch_shard(mesh, batch, dp_axes)
+    lay = Layout(cfg, mesh, dp_axes, tp_axis)
     if cfg.is_encdec:
-        logits, cache = _prefill_encdec(cfg, params, batch)
+        return _prefill_encdec(cfg, params, batch, lay)
+    return _prefill(cfg, params, batch, max_len, lay)
+
+
+def _store_ring(lay: Layout, ring: torch.Tensor, t: torch.Tensor, kept: torch.Tensor, slots: torch.Tensor,
+                dim: int | None) -> None:
+    """Write positions ``kept`` of ``t`` [b, s, kvh, hd] (all heads) into
+    ring slots ``slots`` of the rank's block ``ring`` [b, W', kvh', hd'] of
+    a cache split on ``dim`` of the stacked ``[L, b, W, kvh, hd]`` (None:
+    whole): its own slots, or its own heads or head dims.  ``kept`` and
+    ``slots`` are host tensors (they follow from the shapes alone)."""
+    if dim == 2:
+        n = ring.shape[1]
+        lo = lay.rank * n
+        mine = (slots >= lo) & (slots < lo + n)
+        ring[:, (slots[mine] - lo).to(ring.device)] = t[:, kept[mine].to(t.device)]
+        return
+    kept, slots = kept.to(t.device), slots.to(t.device)
+    if dim is None:
+        ring[:, slots] = t[:, kept]
     else:
-        logits, cache = _prefill(cfg, params, batch, max_len, mesh, dp_axes, tp_axis)
-    return (logits if mesh is None else gather_batch(mesh, logits, dp_axes)), cache
+        ring[:, slots] = own_block(t, lay.mesh, lay.tp_axis, dim - 1)[:, kept]
 
 
-def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, mesh, dp_axes, tp_axis):
+def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, lay: Layout):
     """``prefill_step`` of every family but enc-dec, on the rank's batch."""
-    x = embed_tokens(cfg, params, batch["tokens"])
-    if cfg.n_patches:  # the patch prefix: positions count the patches
-        x = torch.cat([batch["patch_embeds"].to(cfg.dtype) @ params["patch_proj"], x], dim=1)
+    x = _inputs(cfg, params, batch, lay)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    specs = lay.layer_specs("blocks")
 
     if cfg.block_kind == "attn":
         W = _ring_width(cfg, max_len or 0, s, window=False)
-        ring, kept, slots = _prefill_ring(cfg, cfg.n_layers, b, s, W, x.device)
-        cache = {"index": s, **ring}
+        shapes = cache_shapes(cfg, b, W)
+        cache = {"index": s, **_alloc(shapes, lay, x.device)}
+        dim = lay.cache_dims(shapes).get("k")
+        kept = torch.arange(max(s - W, 0), s)
+        slots = kept % W
+        cache["pos"][:, slots.to(x.device)] = kept.to(device=x.device, dtype=torch.int32)
         for i, lp in enumerate(_layers(cfg, params)):
-            x, k, v = blocks.attention(
-                cfg, lp, x, positions, causal=True, window=cfg.sliding_window, return_kv=True
-            )
-            x = _ffn(cfg, lp, x, mesh, dp_axes, tp_axis)
-            cache["k"][i, :, slots] = k[:, kept]
-            cache["v"][i, :, slots] = v[:, kept]
+            acfg, ap, tp = lay.attention(cfg, lp, specs)
+            x, k, v = blocks.attention(acfg, ap, x, positions, causal=True, window=cfg.sliding_window,
+                                       return_kv=True, tp=tp)
+            x = _ffn(cfg, lp, x, lay, specs)
+            _store_ring(lay, cache["k"][i], lay.kv_heads_whole(cfg, acfg, k), kept, slots, dim)
+            _store_ring(lay, cache["v"][i], lay.kv_heads_whole(cfg, acfg, v), kept, slots, dim)
     else:
         if cfg.block_kind == "hybrid":  # the attn path's width, capped by the window (module docstring)
             W = _ring_width(cfg, max_len or 0, s)
-            ring, kept, slots = _prefill_ring(cfg, _n_groups(cfg), b, s, W, x.device)
             ffn_cfg, shared = _shared(cfg, params)
-        ssm, conv = [], []
+            sspecs = lay.layer_specs("shared")
+        else:
+            W = 0
+        shapes = cache_shapes(cfg, b, W)
+        cache = {"index": s, **_alloc(shapes, lay, x.device)}
+        dims = lay.cache_dims(shapes)
+        if cfg.block_kind == "hybrid":
+            kept = torch.arange(max(s - W, 0), s)
+            slots = kept % W
+            cache["shared_pos"][:, slots.to(x.device)] = kept.to(device=x.device, dtype=torch.int32)
         for i, lp in enumerate(_layers(cfg, params)):
-            x, state, conv_tail = blocks.ssd_block(cfg, lp, x, return_state=True)
-            ssm.append(state)
-            conv.append(conv_tail)
+            x, state, conv_tail = blocks.ssd_block(cfg, lay.whole(lp, specs), x, return_state=True)
+            for name, t in (("ssm", state), ("conv", conv_tail)):
+                d = dims.get(name)
+                cache[name][i] = t if d is None else own_block(t, lay.mesh, lay.tp_axis, d - 1)
             if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
                 g = i // cfg.shared_attn_every
-                x, k, v = blocks.attention(
-                    cfg, shared, x, positions, causal=True, window=cfg.sliding_window, return_kv=True
-                )
-                x = blocks.dense_ffn(ffn_cfg, shared, x)
-                ring["k"][g, :, slots] = k[:, kept]
-                ring["v"][g, :, slots] = v[:, kept]
-        cache = {"index": s, "ssm": torch.stack(ssm), "conv": torch.stack(conv)}
-        if cfg.block_kind == "hybrid":
-            cache.update({f"shared_{key}": t for key, t in ring.items()})
-    return _logits(cfg, params, x), cache
+                acfg, ap, tp = lay.attention(cfg, shared, sspecs)
+                x, k, v = blocks.attention(acfg, ap, x, positions, causal=True, window=cfg.sliding_window,
+                                           return_kv=True, tp=tp)
+                x = _dense_sublayer(ffn_cfg, shared, x, lay, sspecs)
+                _store_ring(lay, cache["shared_k"][g], lay.kv_heads_whole(cfg, acfg, k), kept, slots,
+                            dims.get("shared_k"))
+                _store_ring(lay, cache["shared_v"][g], lay.kv_heads_whole(cfg, acfg, v), kept, slots,
+                            dims.get("shared_k"))
+    return _logits(cfg, params, x, lay), cache
 
 
-def _prefill_encdec(cfg: LMConfig, params: dict, batch: dict):
-    """Whisper's prefill: ``prefill`` (the encoder once and every layer's
-    cross K/V), then the decoder over the prompt cut to ``max_decoder_len``,
-    writing its K/V into slots ``[0, s)`` of a ``max_decoder_len``-slot
-    ring."""
+def _prefill_encdec(cfg: LMConfig, params: dict, batch: dict, lay: Layout):
+    """Whisper's prefill: the encoder once, then the decoder over the prompt
+    cut to ``max_decoder_len``, each layer's cross K/V computed from the
+    encoder's output and written into the cache with its self-attention K/V
+    (slots ``[0, s)`` of a ``max_decoder_len``-slot ring)."""
     tokens = batch["tokens"][:, : cfg.max_decoder_len]
     b, s = tokens.shape
-    cache = prefill(cfg, params, batch, init_cache(cfg, b, cfg.max_decoder_len, tokens.device))
-    x = embed_tokens(cfg, params, tokens)
+    shapes = cache_shapes(cfg, b, cfg.max_decoder_len)
+    cache = {"index": s, **_alloc(shapes, lay, tokens.device)}
+    dims = lay.cache_dims(shapes)
+    enc_out = encoder(cfg, params, batch["frames"], lay)
+    x = lay.embed(params, tokens)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
-    cache["index"] = s
+    kept = torch.arange(s)
     cache["pos"][:, :s] = positions[0]
+    frames = torch.arange(cfg.enc_frames)
+    specs, cspecs = lay.layer_specs("blocks"), lay.layer_specs("cross")
     for i, lp in enumerate(_layers(cfg, params)):
-        x, k, v = blocks.attention(cfg, lp, x, positions, causal=True, return_kv=True)
-        x = blocks.cross_attention(cfg, layer(params["cross"], i), x, cache["cross_k"][i], cache["cross_v"][i])
-        x = blocks.dense_ffn(cfg, lp, x)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-    return _logits(cfg, params, x), cache
+        acfg, ap, tp = lay.attention(cfg, lp, specs)
+        x, k, v = blocks.attention(acfg, ap, x, positions, causal=True, return_kv=True, tp=tp)
+        ccfg, cpp, ctp = lay.attention(cfg, layer(params["cross"], i), cspecs, ln="ln")
+        ck, cv = blocks.cross_kv(ccfg, cpp, enc_out, ctp)
+        x = blocks.cross_attention(ccfg, cpp, x, ck, cv, ctp)
+        x = _dense_sublayer(cfg, lp, x, lay, specs)
+        _store_ring(lay, cache["k"][i], lay.kv_heads_whole(cfg, acfg, k), kept, kept, dims.get("k"))
+        _store_ring(lay, cache["v"][i], lay.kv_heads_whole(cfg, acfg, v), kept, kept, dims.get("k"))
+        _store_ring(lay, cache["cross_k"][i], lay.kv_heads_whole(cfg, ccfg, ck), frames, frames, dims.get("cross_k"))
+        _store_ring(lay, cache["cross_v"][i], lay.kv_heads_whole(cfg, ccfg, cv), frames, frames, dims.get("cross_k"))
+    return _logits(cfg, params, x, lay), cache
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,8 @@ from typing import Any
 
 import torch
 
+from ..collectives import all_reduce_over
+from ..sharding import axis_size, spec_axes
 from ..tree import leaves, tree_map
 
 #: elements of a leaf updated at once (fp32 temporaries of 64 MB each)
@@ -78,21 +80,35 @@ class AdamW:
             state["master"] = tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
         return state
 
-    def update(self, grads: dict, state: dict, params: dict) -> tuple[dict, dict, dict]:
+    def update(self, grads: dict, state: dict, params: dict, *, mesh=None, specs: dict | None = None
+               ) -> tuple[dict, dict, dict]:
         """One step: clip the gradients to ``clip_norm`` by their global
         norm, update the moments, and the master (or the parameters) by
         the bias-corrected Adam step plus decoupled weight decay, at the
         schedule's rate.  Updates ``state`` and ``params`` in place and
         returns them with ``{"lr", "grad_norm"}`` (the norm before
-        clipping), fp32 0-dim tensors."""
+        clipping), fp32 0-dim tensors.
+
+        Over a mesh, ``grads``, ``params`` and the state are the rank's
+        blocks of leaves split as ``specs`` (a tree of partition specs like
+        ``params``) says; the global norm counts each element once: each
+        leaf's squares summed over the axes the leaf is split on, not over
+        those it is replicated on."""
         c = self.cfg
         step = state["step"]
         lr = cosine_schedule(step, peak_lr=c.peak_lr, warmup=c.warmup, total=c.total_steps)
         g_leaves = leaves(grads)
-        sq = torch.zeros((), dtype=torch.float32, device=step.device)
-        for g in g_leaves:
+        groups = [()] * len(g_leaves) if mesh is None else [
+            tuple(a for a in spec_axes(s) if axis_size(mesh, a) > 1) for s in leaves(specs)]
+        sums: dict[tuple, torch.Tensor] = {}
+        for g, axes in zip(g_leaves, groups, strict=True):
+            sq = sums.get(axes, torch.zeros((), dtype=torch.float32, device=step.device))
             for part in _chunks(g, writable=False):
                 sq = sq + torch.sum(torch.square(part.float()))
+            sums[axes] = sq
+        sq = sums.pop((), torch.zeros((), dtype=torch.float32, device=step.device))
+        for axes, part in sums.items():
+            sq = sq + all_reduce_over(part, mesh, axes)
         gnorm = torch.sqrt(sq)
         scale = torch.clamp(c.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
         t = (step + 1).float()

@@ -16,6 +16,8 @@ from ..core.platform import EP, Platform
 
 #: H100 SXM data sheet: fp32 outside the tensor cores, dense, at 700 W
 H100_FP32_FLOPS = 67e12
+#: H100 SXM data sheet: dense bf16 on the tensor cores
+H100_BF16_FLOPS = 989e12
 #: H100 SXM data sheet: HBM3 bandwidth
 H100_HBM_BW = 3.35e12
 #: SMs of the H100 SXM the data-sheet rates are quoted for

@@ -18,6 +18,15 @@ logits at 1e-4; ``compressed_psum`` at 1e-6 (the same int8 sums, fp32
 scales).  The reference's mesh path computes another function than its
 path without a mesh where a data shard's capacity or aux loss differs
 (ROADMAP.md queue 3), so the port is held against the mesh path.
+
+The port's mesh paths take each rank's blocks of the parameters and its
+slice of the batch (``launch.shardings.local_shard``, ``batch_shard``):
+every smoke architecture's train step, prefill and three decode steps (the
+ring wrapping) run over (2, 2) and (1, 4) in the sharded layout and are held
+against the reference's jitted mesh step with ``param_shardings``
+in-shardings; each rank's stored bytes against the sum of the reference's
+``NamedSharding.shard_shape``s; a sharded checkpoint save against both
+packages' restores.
 """
 
 import dataclasses
@@ -43,6 +52,11 @@ MOE_ARCHS = ("phi3.5-moe-42b", "llama4-scout-17b")
 MESHES = ((2, 1), (1, 2), (2, 2))
 TRAIN_ARCHS = ("phi3.5-moe-42b", "internvl2-76b")
 RANKS = 4
+#: every smoke architecture, run in the sharded layout over each of SHARDED_MESHES, with the ring's max_len
+#: (the ring wraps on the third decode step; (1, 4)'s ring of 10 slots splits its head dim, not its slots;
+#: the hybrid keeps 8, the width of the reference's prefill ring)
+ALL_ARCHS = configs.ARCHS
+SHARDED_MESHES = {(2, 2): 8, (1, 4): 10}
 
 # ---------------------------------------------------------------------------
 # The reference, once, on four host devices
@@ -61,6 +75,8 @@ from repro.models import blocks
 from repro.models import transformer as jtf
 from repro.models.cnn import canonical_pipeline_apply, make_cnn, network_layers
 from repro.models.lm_common import init_params, param_shardings
+from repro.launch.shardings import sanitize
+from repro.configs import ARCHS
 from repro.optim import AdamW, AdamWConfig, compressed_psum
 from repro.pipeline import PipelineRunner
 
@@ -160,6 +176,53 @@ with mesh:
         logits, cache = step(params, cache, jnp.asarray(forced[:, i : i + 1]))
         out[f"serve/logits{i + 1}"] = np.asarray(logits)
 
+# every arch in the sharded layout: a jitted train step with param_shardings in-shardings, prefill and 3 decode
+for arch in ARCHS:
+    cfg = dataclasses.replace(get_smoke(arch), dtype=jnp.float32)
+    params = init_params(cfg, jax.random.PRNGKey(5))
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (4, 16)).astype(np.int32)}
+    batch["labels"][0, :5] = -1
+    batch["labels"][3, :2] = -1
+    if cfg.n_patches:
+        batch["patch_embeds"] = rng.standard_normal((4, cfg.n_patches, cfg.d_model), dtype=np.float32)
+    if cfg.is_encdec:
+        batch["frames"] = rng.standard_normal((4, cfg.enc_frames, cfg.d_model), dtype=np.float32)
+    prompt = {k: (v[:, :8] if k == "tokens" else v) for k, v in batch.items() if k != "labels"}
+    forced = rng.integers(0, cfg.vocab, (4, 3)).astype(np.int32)
+    put(f"sh/{arch}/p/", params)
+    put(f"sh/{arch}/batch/", batch)
+    out[f"sh/{arch}/forced"] = forced
+    for shape, max_len in ((2, 2), 8), ((1, 4), 10):
+        mesh = mesh_of(shape)
+        tag = f"sh/{arch}/{shape[0]}x{shape[1]}/"
+        pspec = sanitize(mesh, params, param_shardings(cfg))
+        opt = AdamW(AdamWConfig(total_steps=10, warmup=2, moment_dtype=jnp.float32))
+        ospec = {"step": P(), "mu": pspec, "nu": pspec, "master": pspec}
+        bspec = {k: P(("data",), *([None] * (v.ndim - 1))) for k, v in batch.items()}
+        named = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t, is_leaf=lambda s: isinstance(s, P))
+        step = jax.jit(jtf.make_train_step(cfg, opt, mesh, ("data",), "model"), in_shardings=named((pspec, ospec, bspec)))
+        state = opt.init(params)
+        with mesh:
+            p1, _, m = step(params, state, {k: jnp.asarray(v) for k, v in batch.items()})
+        put(tag + "p1/", p1)
+        for k in ("loss", "grad_norm"):
+            out[tag + k] = np.asarray(m[k])
+        stored = 0
+        for tree, spec in ((params, pspec), (state, ospec)):
+            for leaf, s in zip(jax.tree.leaves(tree), jax.tree.leaves(spec, is_leaf=lambda x: isinstance(x, P))):
+                stored += int(np.prod(NamedSharding(mesh, s).shard_shape(leaf.shape))) * leaf.dtype.itemsize
+        out[tag + "stored"] = np.asarray(stored)
+        ml = (8 if cfg.block_kind == "hybrid" else max_len) + cfg.n_patches
+        with mesh:
+            logits, cache = jax.jit(lambda p, b: jtf.prefill_step(cfg, p, b, mesh, ("data",), "model", max_len=ml))(
+                params, {k: jnp.asarray(v) for k, v in prompt.items()})
+            out[tag + "logits0"] = np.asarray(logits)
+            dec = jax.jit(lambda p, c, t: jtf.serve_step(cfg, p, c, t, mesh, ("data",), "model"))
+            for i in range(3):
+                logits, cache = dec(params, cache, jnp.asarray(forced[:, i : i + 1]))
+                out[tag + f"logits{i + 1}"] = np.asarray(logits)
+
 # compressed_psum over 4 devices, different gradients and a carried error each
 grads = {"a": rng.standard_normal((4, 64), dtype=np.float32),
          "b": rng.standard_normal((4, 8, 4), dtype=np.float32) * np.arange(1, 5, dtype=np.float32)[:, None, None]}
@@ -210,15 +273,18 @@ import dataclasses, sys
 import numpy as np, torch, torch.distributed as dist
 from repro_torch import configs, tree
 from repro_torch.core.config import PipelineConfig
-from repro_torch.launch.mesh import (all_reduce_over, axis_size, batch_shard, dp_axes_of, join_group,
-                                     make_stage_mesh, make_test_mesh)
+from repro_torch.checkpoint import CheckpointStore
+from repro_torch.collectives import all_reduce_over, gather_whole
+from repro_torch.launch.mesh import batch_shard, gather_batch, join_group, make_stage_mesh, make_test_mesh
+from repro_torch.models.layout import param_layout
+from repro_torch.sharding import axis_size, dp_axes_of, local_shard, tree_bytes
 from repro_torch.launch.serve_cnn import serve_cnn
 from repro_torch.models import blocks, lm_common, transformer
 from repro_torch.models.cnn import make_cnn
 from repro_torch.optim import AdamW, AdamWConfig, compressed_psum
 from repro_torch.pipeline import PipelineRunner
 
-rank, world, store_path, ref_path, out_path = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6]
+rank, world, store_path, ref_path, out_path, ckpt_dir = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:7]
 join_group(world, rank, store=dist.FileStore(store_path, world), device="cpu")
 ref = dict(np.load(ref_path))
 out = {}
@@ -282,7 +348,9 @@ for arch in ("phi3.5-moe-42b", "llama4-scout-17b"):
         if mesh.get_coordinate() is None:
             continue
         p = {k: torch.from_numpy(v).requires_grad_(True) for k, v in sub(f"moe/{arch}/p/").items()}
-        y, aux = blocks.moe_ffn(cfg, p, batch_shard(mesh, x), mesh)
+        tp = axis_size(mesh, "model")  # the rank's d_ff block of the experts, as the sharded layout stores it
+        mine = blocks.tp_slice(p, tp, mesh.get_local_rank("model")) if tp > 1 else p
+        y, aux = blocks.moe_ffn(cfg, mine, batch_shard(mesh, x), mesh)
         grads = torch.autograd.grad((y * batch_shard(mesh, r)).sum() + aux, list(p.values()))
         split = ("data", "model") if axis_size(mesh, "model") > 1 else ("data",)
         tag = f"moe/{arch}/{shape[0]}x{shape[1]}/"
@@ -296,24 +364,64 @@ out["mesh/dp_axes"] = np.asarray(dp_axes_of(mesh))
 out["mesh/shard"] = batch_shard(mesh, torch.arange(8)).numpy()
 for arch in ("phi3.5-moe-42b", "internvl2-76b"):
     cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32)
-    params = lm_common.params_from_numpy(cfg, sub(f"train/{arch}/p/"), "cpu")
+    specs = param_layout(cfg, mesh)
+    params = local_shard(mesh, lm_common.params_from_numpy(cfg, sub(f"train/{arch}/p/"), "cpu"), specs)
     opt = AdamW(AdamWConfig(total_steps=10, warmup=2, moment_dtype=torch.float32))
-    p1, _, m = transformer.make_train_step(cfg, opt, mesh)(params, opt.init(params), as_batch(sub(f"train/{arch}/batch/")))
-    put(f"train/{arch}/p1/", p1)
+    p1, _, m = transformer.make_train_step(cfg, opt, mesh)(params, opt.init(params),
+                                                           batch_shard(mesh, as_batch(sub(f"train/{arch}/batch/"))))
+    whole = gather_whole(mesh, p1, specs)
+    put(f"train/{arch}/p1/", whole)
+    out[f"train/{arch}/own"] = np.asarray([torch.equal(a, b) for a, b in zip(
+        tree.leaves(p1), tree.leaves(local_shard(mesh, whole, specs)))])
     for k in ("loss", "grad_norm", "lr"):
         out[f"train/{arch}/{k}"] = m[k].numpy()
 
 # serving on (2, 2)
 cfg = dataclasses.replace(configs.get_smoke("phi3.5-moe-42b"), dtype=torch.float32)
-params = lm_common.params_from_numpy(cfg, sub("serve/p/"), "cpu")
-forced = torch.from_numpy(ref["serve/forced"]).long()
-logits, cache = transformer.prefill_step(cfg, params, {"tokens": torch.from_numpy(ref["serve/prompt"]).long()}, mesh,
-                                         max_len=14)
-out["serve/logits0"] = logits.numpy()
+params = local_shard(mesh, lm_common.params_from_numpy(cfg, sub("serve/p/"), "cpu"), param_layout(cfg, mesh))
+forced = batch_shard(mesh, torch.from_numpy(ref["serve/forced"]).long())
+logits, cache = transformer.prefill_step(cfg, params, {"tokens": batch_shard(mesh, torch.from_numpy(ref["serve/prompt"]).long())},
+                                         mesh, max_len=14)
+out["serve/logits0"] = gather_batch(mesh, logits).numpy()
 out["serve/cache_batch"] = np.asarray(cache["k"].shape[1])
 for i in range(2):
     logits, cache = transformer.serve_step(cfg, params, cache, forced[:, i : i + 1], mesh)
-    out[f"serve/logits{i + 1}"] = logits.numpy()
+    out[f"serve/logits{i + 1}"] = gather_batch(mesh, logits).numpy()
+
+# every arch in the sharded layout over (2, 2) and (1, 4), and a sharded checkpoint of the first
+for arch in configs.ARCHS:
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32)
+    whole = lm_common.params_from_numpy(cfg, sub(f"sh/{arch}/p/"), "cpu")
+    batch = as_batch(sub(f"sh/{arch}/batch/"))
+    prompt = {k: (v[:, :8] if k == "tokens" else v) for k, v in batch.items() if k != "labels"}
+    forced = torch.from_numpy(ref[f"sh/{arch}/forced"]).long()
+    for shape, max_len in ((2, 2), 8), ((1, 4), 10):
+        mesh = make_test_mesh(shape, device="cpu")
+        tag = f"sh/{arch}/{shape[0]}x{shape[1]}/"
+        specs = param_layout(cfg, mesh)
+        params = local_shard(mesh, tree.tree_map(torch.clone, whole), specs)
+        opt = AdamW(AdamWConfig(total_steps=10, warmup=2, moment_dtype=torch.float32))
+        state = opt.init(params)
+        out[tag + "stored"] = np.asarray(tree_bytes(params) + tree_bytes(state))
+        ml = 8 if cfg.block_kind == "hybrid" else max_len
+        logits, cache = transformer.prefill_step(cfg, params, batch_shard(mesh, prompt), mesh, max_len=ml)
+        out[tag + "logits0"] = gather_batch(mesh, logits).numpy()
+        for i in range(3):
+            logits, cache = transformer.serve_step(cfg, params, cache, batch_shard(mesh, forced[:, i : i + 1]), mesh)
+            out[tag + f"logits{i + 1}"] = gather_batch(mesh, logits).numpy()
+        p1, state, m = transformer.make_train_step(cfg, opt, mesh)(params, state, batch_shard(mesh, batch))
+        got = gather_whole(mesh, p1, specs)
+        put(tag + "p1/", got)
+        out[tag + "own"] = np.asarray([torch.equal(a, b) for a, b in zip(tree.leaves(p1),
+                                                                         tree.leaves(local_shard(mesh, got, specs)))])
+        for k in ("loss", "grad_norm"):
+            out[tag + k] = m[k].numpy()
+        if arch == configs.ARCHS[0] and shape == (2, 2):  # every rank saves its blocks; rank 0 writes them whole
+            both = {"params": specs, "opt": {"step": lm_common.P(), "mu": specs, "nu": specs, "master": specs}}
+            CheckpointStore(ckpt_dir).save(1, {"params": p1, "opt": state}, shardings=(mesh, both))
+            back = CheckpointStore(ckpt_dir).restore(1, {"params": p1, "opt": state}, shardings=(mesh, both))
+            out["ckpt/same"] = np.asarray([torch.equal(a, b) for a, b in zip(tree.leaves(back),
+                                                                             tree.leaves({"params": p1, "opt": state}))])
 
 # compressed_psum over the four ranks, and over a group of one
 g = {k: torch.from_numpy(v[rank]) for k, v in sub("psum/g/").items()}
@@ -332,7 +440,7 @@ if rank == 0:
     cfg = dataclasses.replace(configs.get_smoke("phi3.5-moe-42b"), dtype=torch.float32)
     params = lm_common.params_from_numpy(cfg, sub("train/phi3.5-moe-42b/p/"), "cpu")
     batch = as_batch(sub("train/phi3.5-moe-42b/batch/"))
-    prompt = {"tokens": batch["tokens"][:, :12]}
+    prompt = {"tokens": batch["tokens"][:, :12]}  # a (1, 1) mesh: the rank's blocks and slice are the whole
     same = [torch.equal(a, b) for a, b in zip(transformer.prefill_step(cfg, params, prompt, solo, max_len=14)[0:1],
                                               transformer.prefill_step(cfg, params, prompt, max_len=14)[0:1])]
     la, ga = transformer.value_and_grad(cfg, params, batch, solo)
@@ -358,7 +466,7 @@ def _env(**extra):
 def ref(tmp_path_factory):
     path = tmp_path_factory.mktemp("ref") / "ref.npz"
     flags = "--xla_force_host_platform_device_count=4 --xla_allow_excess_precision=false"
-    r = subprocess.run([sys.executable, "-c", REFERENCE, str(path)], capture_output=True, text=True, timeout=400,
+    r = subprocess.run([sys.executable, "-c", REFERENCE, str(path)], capture_output=True, text=True, timeout=900,
                        env=_env(XLA_FLAGS=flags, JAX_PLATFORMS="cpu"), cwd=REPO)
     assert r.returncode == 0, f"stdout:\n{r.stdout}\nstderr:\n{r.stderr[-3000:]}"
     return path
@@ -368,17 +476,17 @@ def ref(tmp_path_factory):
 def port(ref, tmp_path_factory):
     d = tmp_path_factory.mktemp("port")
     procs = [subprocess.Popen([sys.executable, "-c", PORT, str(rank), str(RANKS), str(d / "store"), str(ref),
-                               str(d / f"rank{rank}.npz")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True, env=_env(OMP_NUM_THREADS="1"), cwd=REPO)
+                               str(d / f"rank{rank}.npz"), str(d / "ckpt")], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=_env(OMP_NUM_THREADS="1"), cwd=REPO)
              for rank in range(RANKS)]
     try:
-        results = [p.communicate(timeout=400) for p in procs]
+        results = [p.communicate(timeout=900) for p in procs]
     finally:
         for p in procs:
             p.kill()
     for rank, (p, (so, se)) in enumerate(zip(procs, results)):
         assert p.returncode == 0, f"rank {rank}: stdout:\n{so}\nstderr:\n{se[-3000:]}"
-    return [dict(np.load(d / f"rank{rank}.npz")) for rank in range(RANKS)]
+    return [{**dict(np.load(d / f"rank{rank}.npz")), "ckpt_dir": d / "ckpt"} for rank in range(RANKS)]
 
 
 @pytest.fixture(scope="module")
@@ -467,7 +575,8 @@ def test_train_step_over_2x2_matches_the_references_jitted_mesh_step(port, want,
         assert len(names) == len([k for k in got if k.startswith(f"train/{arch}/p1/")])
         for k in names:
             np.testing.assert_allclose(got[k], want[k], err_msg=k, **LEAF_TOL)
-            np.testing.assert_array_equal(got[k], port[0][k])  # every rank holds the same parameters
+            np.testing.assert_array_equal(got[k], port[0][k])  # every rank's gathered parameters are the same
+        assert got[f"train/{arch}/own"].all()  # and each rank stores its own block of them
 
 
 def test_serving_over_2x2_matches_the_reference(port, want):
@@ -535,3 +644,82 @@ def test_tp_slice_gives_views_of_each_ranks_d_ff_part():
     assert parts[0]["router"] is p["router"] and parts[1]["ln2"] is p["ln2"]
     with pytest.raises(ValueError, match="split"):
         blocks.tp_slice(p, 5, 0)
+
+
+def _nested(flat: dict, prefix: str) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        if k.startswith(prefix):
+            *path, leaf = k[len(prefix) :].split("/")
+            d = out
+            for p in path:
+                d = d.setdefault(p, {})
+            d[leaf] = v
+    return out
+
+
+SHARDED = [(a, m) for a in ALL_ARCHS for m in SHARDED_MESHES]
+
+
+@pytest.mark.parametrize("arch,shape", SHARDED, ids=[f"{a}-{m[0]}x{m[1]}" for a, m in SHARDED])
+def test_sharded_train_step_matches_the_references_jitted_mesh_step(port, want, arch, shape):
+    tag = f"sh/{arch}/{shape[0]}x{shape[1]}/"
+    names = [k for k in want if k.startswith(tag + "p1/")]
+    for rank in range(RANKS):
+        got = port[rank]
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[tag + k], want[tag + k], err_msg=k, **LOSS_TOL)
+        assert len(names) == len([k for k in got if k.startswith(tag + "p1/")])
+        for k in names:
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **LEAF_TOL)
+            np.testing.assert_array_equal(got[k], port[0][k])
+        assert got[tag + "own"].all()
+
+
+@pytest.mark.parametrize("arch,shape", SHARDED, ids=[f"{a}-{m[0]}x{m[1]}" for a, m in SHARDED])
+def test_sharded_prefill_and_decode_match_the_reference(port, want, arch, shape):
+    tag = f"sh/{arch}/{shape[0]}x{shape[1]}/"
+    for rank in range(RANKS):
+        for i in range(4):
+            np.testing.assert_allclose(port[rank][tag + f"logits{i}"], want[tag + f"logits{i}"], err_msg=str(i), **TOL)
+
+
+@pytest.mark.parametrize("arch,shape", SHARDED, ids=[f"{a}-{m[0]}x{m[1]}" for a, m in SHARDED])
+def test_each_rank_stores_only_its_blocks(port, want, arch, shape):
+    tag = f"sh/{arch}/{shape[0]}x{shape[1]}/"
+    for rank in range(RANKS):
+        assert int(port[rank][tag + "stored"]) == int(want[tag + "stored"])
+    whole = sum(v.size * 4 for k, v in want.items() if k.startswith(f"sh/{arch}/p/"))  # fp32 smoke parameters
+    assert int(want[tag + "stored"]) < 4 * whole + 4  # params and three AdamW trees, each split over the mesh
+
+
+def test_a_sharded_checkpoint_restores_whole_in_both_packages_and_into_the_blocks(port, want):
+    from repro.checkpoint import CheckpointStore as RefStore
+
+    from repro_torch.checkpoint import CheckpointStore
+
+    assert all(port[rank]["ckpt/same"].all() for rank in range(RANKS))  # each rank restores its own blocks
+    arch = ALL_ARCHS[0]
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32)
+    like_p = lm_common.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    like = {"params": like_p, "opt": {"step": torch.zeros((), dtype=torch.int32), "mu": like_p, "nu": like_p,
+                                      "master": like_p}}
+    back = CheckpointStore(port[0]["ckpt_dir"]).restore(1, like)
+    want_p1 = _nested(want, f"sh/{arch}/2x2/p1/")
+    for name, leaf in tree.named_leaves(back["params"]):
+        np.testing.assert_allclose(leaf.numpy(), _get(want_p1, name), err_msg=name, **LEAF_TOL)
+    assert int(back["opt"]["step"]) == 1
+    import jax
+
+    ref_like = jax.tree.map(lambda t: np.zeros(t.shape, np.float32), {"params": like_p, "opt": {
+        "mu": like_p, "nu": like_p, "master": like_p}})
+    ref_like["opt"]["step"] = np.zeros((), np.int32)
+    ref_back = RefStore(port[0]["ckpt_dir"]).restore(1, ref_like)
+    for (name, a), b in zip(tree.named_leaves(back), jax.tree.leaves(ref_back)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+
+
+def _get(tree_: dict, name: str):
+    for part in name.split("/"):
+        tree_ = tree_[part]
+    return tree_

@@ -56,7 +56,8 @@ print(json.dumps({"modules": names, "leaked": leaked}))
                 "data.pipeline", "checkpoint.store", "launch.train", "interconnect.fabric",
                 "interconnect.topology", "power.model", "power.thermal", "telemetry.core", "telemetry.metrics",
                 "telemetry.tracer", "faults.model", "faults.injector", "faults.resilience", "serve.traffic",
-                "serve.simulator", "serve.autotuner"):
+                "serve.simulator", "serve.autotuner", "sharding", "collectives", "models.layout",
+                "launch.shardings", "launch.dryrun", "launch.hillclimb", "launch.sweep"):
         assert f"repro_torch.{mod}" in res["modules"]
 
 
