@@ -339,19 +339,28 @@ repository's sources are not beside this script.  Otherwise, in order:
    ``sharding.py``, ``collectives.py``), each with its launch counts from 0: (a) one NCCL
    rank on a (1, 1) mesh, the parameters as ``local_shard`` gives them:
    granite-3-2b's train step, phi3.5-moe's prefill and a decode step must
-   give the bits of no mesh; (b) SHARD_RANKS processes sharing cuda:0 over
+   give the bits of no mesh (``sp_residuals`` on: one ``model`` rank splits
+   nothing); (b) SHARD_RANKS processes sharing cuda:0 over
    gloo (this script again, with ``--shard-rank``), on a (1, 2) and a (2, 1)
-   mesh: granite-3-2b at full width and MESH_DEPTH layers, its loss and every
+   mesh; on (1, 2) the residual stream is split over the sequence
+   (``sp_residuals``, the default): granite-3-2b at full width and
+   MESH_DEPTH layers, its loss and every
    leaf of its gradient gathered whole held to MESH_LOSS_TOL / MESH_GRAD_TOL
-   against one process, beside a control that must miss (the tensor-parallel
-   sums dropped on (1, 2), the data sums on (2, 1)); phi3.5-moe's prefill
+   against one process, with the stream split and whole, beside controls
+   that must miss (on (1, 2) the tensor-parallel sums dropped, ``sum_tp``
+   and the split's reduce-scatter ``sp_scatter``, and the norms' gradients
+   left unsummed over ``model``; on (2, 1) the data sums); on (1, 2) the
+   bytes of the layer inputs remat keeps (``_recording_remat``), which with
+   the split must be exactly half of those without it; phi3.5-moe's prefill
    and SHARD_DECODE decode steps (over the ring split across the ranks' slots
    on (1, 2)) held to LM_TOL against one process on the same routes (on
    (2, 1) against the rank's slice alone: a data shard routes its own
-   tokens), beside a control on (1, 2) that must miss (the split ring's
+   tokens), the mesh's routes against one process's own held to
+   ROUTE_FLOOR, beside a control on (1, 2) that must miss (the split ring's
    all-reduces dropped, each rank attending only its own slots);
-   zamba2-2.7b at SHARD_HYBRID_DEPTH layers (its SSD layers gathered whole
-   and scanned by the SSD kernel on every rank, its shared attention block
+   zamba2-2.7b at SHARD_HYBRID_DEPTH layers (its SSD layers scanned whole by
+   the SSD kernel on every rank over the gathered sequence, exactly once a
+   layer a rank, its shared attention block
    on the rank's heads) served the same way on (1, 2), held to LM_TOL
    against one process; each rank's parameter and AdamW bytes by
    ``torch.cuda.memory_allocated`` held to the sum of its blocks (at most
@@ -361,7 +370,8 @@ repository's sources are not beside this script.  Otherwise, in order:
    other ranks' blocks of a gathered leaf are zeros): argument bytes equal
    to the ``meta`` profile's, the measured peak, the step's device time by
    CUDA events beside the roofline's compute and memory terms, the launches
-   of flash, ``gemm`` and the SSD scan from 0, finite outputs;
+   of flash, ``gemm`` and the SSD scan from 0, finite outputs; the train
+   cell's peak (the stream split) beside SHARD_WHOLE_STREAM_PEAK_GIB;
 16. prints the per-kernel JSON line (the ``flash_attention`` row is
    granite-3-2b's, naming the device function that served its prefill,
    with every other served attention call's times, bound, SDPA times and
@@ -3647,12 +3657,46 @@ SHARD_DECODE = 3
 SHARD_HYBRID, SHARD_HYBRID_DEPTH = "zamba2-2.7b", 6
 #: phase 15 (c)'s cells, run as rank 0 of a 256-rank fake group on the card
 SHARD_DRYRUN = (("qwen3-32b", "train_4k"), ("nemotron-4-340b", "decode_32k"))
+#: qwen3-32b x train_4k's step peak (GiB, max_memory_allocated) as rank 0 of 256 with the residual stream whole
+#: on every model rank (sp_residuals off), two runs on an NVIDIA H100 80GB HBM3 at 700 W: phase 15 (c) prints the
+#: split stream's beside it
+SHARD_WHOLE_STREAM_PEAK_GIB = (15.380, 15.484)
 #: the caching allocator's block: a tensor's memory_allocated is its bytes rounded up to it
 ALLOC_ROUND = 512
 
 
 def _launch_counts() -> dict:
     return {"flash_attention": fa.launches, "gemm": gm.launches, "ssd_scan": ssd.launches}
+
+
+@contextlib.contextmanager
+def _recording_remat(out: list):
+    """Append the bytes of each floating tensor ``transformer._remat`` keeps
+    for the backward (its storage's, so a view of a larger tensor counts
+    whole): a saved-tensors hook around the layer sees only what
+    ``torch.utils.checkpoint`` saves, its own hook taking the layer's saves
+    (newer versions also save an empty marker, left out)."""
+    remat = transformer._remat
+
+    def pack(t):
+        if t.is_floating_point() and t.numel():  # not the checkpoint's own empty marker
+            out.append(t.untyped_storage().nbytes())
+        return t
+
+    def recording(cfg, fn, *args):
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            return remat(cfg, fn, *args)
+
+    with mock.patch.object(transformer, "_remat", recording):
+        yield
+
+
+def _drop_tp_sums(y, mesh, axis, dim=None):
+    """A control's stand-in for ``sum_tp`` / ``sp_scatter``: the rank's own
+    partial output, unsummed over ``axis`` (its block of it for the latter)."""
+    from repro_torch.collectives import own_block
+
+    return y if dim is None else own_block(y, mesh, axis, dim).contiguous()
 
 
 def _zero_launches() -> None:
@@ -3689,7 +3733,8 @@ def shard_one_rank(failures: list[str], smi: str) -> dict:
             (a0, a1, ca, la), (b0, b1, cb, _) = runs
             launches["gemm"] = la["gemm"]
             same = torch.equal(a0, b0) and torch.equal(a1, b1) and all(torch.equal(ca[k], cb[k]) for k in cb if k != "index")
-            print(f"[shard] (a) {MESH_MOE} at {MESH_DEPTH} layers, bf16, blocks of a (1, 1) mesh: prefill {LM_BATCH} x "
+            print(f"[shard] (a) {MESH_MOE} at {MESH_DEPTH} layers, bf16, blocks of a (1, 1) mesh (sp_residuals "
+                  f"{cfg.sp_residuals}: one model rank, no split): prefill {LM_BATCH} x "
                   f"{LM_PROMPT} and a decode step == no mesh (logits and cache): {same}; gemm launches {la['gemm']} "
                   f"({smi})")
             if not same:
@@ -3730,7 +3775,7 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
     exits 0 once written."""
     from repro_torch.collectives import gather_whole
     from repro_torch.launch.mesh import batch_shard, join_group, make_test_mesh
-    from repro_torch.models.layout import param_layout
+    from repro_torch.models.layout import Layout, param_layout
     from repro_torch.sharding import local_shard, tree_bytes
 
     def say(msg: str) -> None:
@@ -3764,25 +3809,42 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
             ok_bytes = exact <= held <= exact + ALLOC_ROUND * n
             out[f"bytes {shape}"] = {"memory_allocated": held, "blocks": exact, "tensors": n}
             rows = batch_shard(mesh, batch)
+
+            def held_against_plain(c=cfg, dp_axes=("data",)):
+                """(loss, gathered leaves) over ``mesh`` against one process, and the bytes remat kept."""
+                kept: list = []
+                with _recording_remat(kept):
+                    loss, grads = transformer.value_and_grad(c, mine, rows, mesh, dp_axes=dp_axes)
+                return {"loss": abs(loss.item() - want) / abs(want),
+                        "leaves": _leaf_ratios(gather_whole(mesh, grads, specs), plain)}, kept
+
             _zero_launches()
-            loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh)
+            r_mesh, kept = held_against_plain()
             torch.cuda.synchronize()
             out["launches"][f"flash_attention {shape}"] = fa.launches
-            r_mesh = {"loss": abs(loss.item() - want) / abs(want),
-                      "leaves": _leaf_ratios(gather_whole(mesh, grads, specs), plain)}
-            del grads
-            if shape[1] > 1:  # control: the tensor-parallel outputs left unsummed over model
-                label = "tensor-parallel sums dropped"
-                with mock.patch.object(blocks, "sum_tp", lambda y, *a: y):
-                    loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh)
+            runs, controls = {"mesh": r_mesh}, []
+            if shape[1] > 1:
+                # the stream whole on each rank (sp_residuals off), held too; remat keeps twice the split's bytes
+                runs["stream whole"], kept_whole = held_against_plain(dataclasses.replace(cfg, sp_residuals=False))
+                out[f"remat bytes {shape}"] = {"split": kept, "whole": kept_whole}
+                say(f"{MESH_TRAIN} on {shape}: the layer inputs remat keeps, bytes each, the sequence split over "
+                    f"model {kept}, whole {kept_whole} (the split's must be exactly 1/{shape[1]})")
+                if not (len(kept) == len(kept_whole) == MESH_DEPTH and all(a * shape[1] == b for a, b in
+                                                                           zip(kept, kept_whole))):
+                    fail(f"rank {rank}: remat kept {kept} bytes with the split, {kept_whole} without it")
+                # control: the tensor-parallel outputs left unsummed over model (the split's reduce-scatter too)
+                with mock.patch.object(blocks, "sum_tp", _drop_tp_sums), \
+                        mock.patch.object(blocks, "sp_scatter", _drop_tp_sums):
+                    runs["tensor-parallel sums dropped"] = held_against_plain()[0]
+                # control: the norms run on the rank's block of the sequence, their gradients left unsummed
+                with mock.patch.object(Layout, "NORMS", frozenset()):
+                    runs["norm gradients unsummed over model"] = held_against_plain()[0]
+                controls = ["tensor-parallel sums dropped", "norm gradients unsummed over model"]
             else:  # control: each rank's gradient of its own rows, unsummed over data
-                label = "data sums dropped"
-                loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh, dp_axes=())
-            r_ctl = {"loss": abs(loss.item() - want) / abs(want),
-                     "leaves": _leaf_ratios(gather_whole(mesh, grads, specs), plain)}
-            del grads
-            out[f"train {shape}"] = {"mesh": r_mesh, label: r_ctl}
-            for name, r in (("mesh", r_mesh), (label, r_ctl)):
+                runs["data sums dropped"] = held_against_plain(dp_axes=())[0]
+                controls = ["data sums dropped"]
+            out[f"train {shape}"] = runs
+            for name, r in runs.items():
                 leaf = max(r["leaves"], key=r["leaves"].get)
                 say(f"{MESH_TRAIN} at {MESH_DEPTH} layers, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} on {shape}, {name} "
                     f"against one process: loss relative {r['loss']:.3e} (tolerance {MESH_LOSS_TOL}); worst leaf "
@@ -3790,11 +3852,13 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
             say(f"{MESH_TRAIN} on {shape}: parameters and AdamW state held {held} bytes by memory_allocated, the "
                 f"blocks {exact} bytes in {n} tensors ({'within' if ok_bytes else 'OUTSIDE'} the allocator's "
                 f"{ALLOC_ROUND}-byte rounding); the whole tree {tree_bytes(whole)} bytes of parameters")
-            if not (r_mesh["loss"] <= MESH_LOSS_TOL and max(r_mesh["leaves"].values()) <= MESH_GRAD_TOL):
-                fail(f"rank {rank}: {MESH_TRAIN} on {shape} against one process: {r_mesh['loss']}, "
-                     f"{max(r_mesh['leaves'].values())}")
-            if not max(r_ctl["leaves"].values()) > MESH_GRAD_TOL:
-                fail(f"rank {rank}: the control '{label}' on {shape} meets the gradient tolerance")
+            for name, r in runs.items():
+                if name in controls:
+                    if not max(r["leaves"].values()) > MESH_GRAD_TOL:
+                        fail(f"rank {rank}: the control '{name}' on {shape} meets the gradient tolerance")
+                elif not (r["loss"] <= MESH_LOSS_TOL and max(r["leaves"].values()) <= MESH_GRAD_TOL):
+                    fail(f"rank {rank}: {MESH_TRAIN} on {shape}, {name}, against one process: {r['loss']}, "
+                         f"{max(r['leaves'].values())}")
             if not ok_bytes:
                 fail(f"rank {rank}: {shape} holds {held} bytes for blocks of {exact}")
             del mine, state
@@ -3835,6 +3899,15 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
             ring = tuple(cache["k"].shape)
             with _replaying_routes(routes):
                 wanted, _ = serve(whole, None, pr, fo)
+            own: list = []
+            with _recording_routes(own):  # one process on its own routes: the mesh's must agree as phase 8's do
+                serve(whole, None, pr, fo)
+            share, per = _route_agreement(routes, own)
+            out[f"routes {shape}"] = {"all calls": share, "first layer": per[0]}
+            say(f"{MESH_MOE} on {shape}: the mesh's routes against one process's own, first layer {per[0]:.6f}, all "
+                f"calls {share:.6f} (floors {ROUTE_FLOOR})")
+            if per[0] < ROUTE_FLOOR["first layer"] or share < ROUTE_FLOOR["all calls"]:
+                fail(f"rank {rank}: {MESH_MOE} on {shape} routes below {ROUTE_FLOOR}: {per[0]}, {share}")
             rels = rel(got, wanted)
             out[f"serve {shape}"] = rels
             say(f"{MESH_MOE} at {MESH_DEPTH} layers, bf16, prefill {pr['tokens'].shape[0]} x {LM_PROMPT} and "
@@ -3886,8 +3959,9 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
             f"{counts}")
         if not max(rels) <= LM_TOL[torch.bfloat16]:
             fail(f"rank {rank}: {SHARD_HYBRID} serving on {shape} against one process: {rels}")
-        if not counts["ssd_scan"]:
-            fail(f"rank {rank}: {SHARD_HYBRID} on {shape} launched no SSD scan")
+        if counts["ssd_scan"] != SHARD_HYBRID_DEPTH:  # each rank scans every SSD layer's whole sequence once
+            fail(f"rank {rank}: {SHARD_HYBRID} on {shape} launched {counts['ssd_scan']} SSD scans, "
+                 f"{SHARD_HYBRID_DEPTH} wanted")
         del mine, got, wanted, cache, whole
         torch.cuda.empty_cache()
     finally:
@@ -3952,6 +4026,10 @@ def shard_dryrun(failures: list[str], smi: str) -> dict:
                   f"{roof['memory_s'] * 1e3:.1f} ms (collective {roof['collective_s'] * 1e3:.1f} ms, not run: the "
                   f"fake group moves nothing); finite outputs: {meas.get('finite')}; launches {counts}; "
                   f"{time.perf_counter() - t0:.1f} s ({smi})")
+            if rec["phase"] == "train" and "peak_bytes" in meas:
+                print(f"[shard] (c) {arch} x {shape}: the residual stream split over model (sp_residuals), step peak "
+                      f"{meas['peak_bytes'] / 2**30:.3f} GiB, beside {SHARD_WHOLE_STREAM_PEAK_GIB[0]:.3f}-"
+                      f"{SHARD_WHOLE_STREAM_PEAK_GIB[1]:.3f} GiB with the stream whole on every model rank ({smi})")
             if "skipped" in meas:
                 failures.append(f"(c) {arch} x {shape} did not run on the card: {meas['skipped']}")
             elif meas["argument_bytes"] != mem["argument_bytes_per_dev"] or not meas["finite"]:

@@ -13,6 +13,21 @@ and the FSDP pair :func:`gather_param` (all-gather forward; reduce-scatter,
 slice or sum backward), which :func:`gather_act` and :func:`gather_heads`
 use for activations.
 
+The sequence-parallel residual stream (``models/layout.py``: each rank of
+the tensor-parallel axis holds its block of the sequence between
+sublayers) has four crossings, one pair for a tensor-parallel sublayer and
+one for a sublayer every rank computes whole:
+
+* :func:`sp_gather` (all-gather forward, reduce-scatter backward) and
+  :func:`sp_scatter` (reduce-scatter forward, all-gather backward):
+  Megatron's sequence-parallel pair, in place of :func:`enter_tp` and
+  :func:`sum_tp` around a tensor-parallel product whose ranks' gradients
+  are partial;
+* :func:`gather_act` (all-gather forward, slice backward) and
+  :func:`split_act` (the rank's block forward, all-gather backward): around
+  a computation every rank repeats on the whole sequence, whose gradient
+  is then the same on every rank.
+
 Every collective issued here is recorded while :func:`count_collectives` is
 open, with its ring wire bytes (:func:`wire_bytes`).  A gather's or a
 reduce-scatter's result is allocated by :data:`new_result`;
@@ -239,6 +254,56 @@ def gather_act(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x
     return _Gather.apply(x, mesh, ((dim, axis),), ())
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter_dim(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return own_block(x, mesh, axis, dim).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g.contiguous(), ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def sp_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``x`` over ``axis`` joined along ``dim``, for a
+    tensor-parallel computation; the backward sums the ranks' partial
+    gradients and hands each its block (a reduce-scatter)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _Gather.apply(x, mesh, ((dim, axis),), (axis,))
+
+
+def sp_scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial ``x``, this rank's block
+    along ``dim`` (a reduce-scatter); the backward all-gathers the blocks'
+    gradients, so every rank gets the whole gradient of its partial."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _Scatter.apply(x, mesh, axis, dim)
+
+
+def split_act(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axis``, a tensor of
+    its own (the whole ``x`` can be freed); the backward all-gathers the
+    blocks' gradients, so a computation every rank repeated on the whole
+    ``x`` gets the same whole gradient on every rank."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _Split.apply(x, mesh, axis, dim)
 
 
 def gather_heads(t: torch.Tensor, n: int, mesh, axis: str) -> torch.Tensor:

@@ -26,6 +26,15 @@ head split: the token's q, k and v of the rank's heads are gathered over
 the axis (a few KB), every head is scored, and the rank's heads of the
 output meet its rows of ``wo``; their ring may be split over its slots
 (``split``), whose softmax statistics are combined over the axis.
+
+Where the residual stream is split over the sequence (``seq = (mesh,
+axis)``, ``models/layout.py``), a full-sequence sublayer takes and returns
+the rank's block ``[b, s / tp, d]`` and runs its pre-norm on it: a
+tensor-parallel one gathers the sequence through ``collectives.sp_gather``
+and reduce-scatters its output through ``sp_scatter``; one every rank
+computes whole (``tp`` None: attention whose heads the axis does not
+divide, an unsplit FFN, the SSD block) gathers through ``gather_act`` and
+keeps its block of the output through ``split_act``.
 """
 
 from __future__ import annotations
@@ -37,7 +46,8 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels import ops
-from ..collectives import all_reduce_over, enter_tp, gather_heads, mean_over, own_block, sum_tp
+from ..collectives import (all_reduce_over, enter_tp, gather_act, gather_heads, mean_over, own_block, sp_gather,
+                           sp_scatter, split_act, sum_tp)
 from .lm_common import LMConfig, rms_norm, rotary
 
 # ---------------------------------------------------------------------------
@@ -108,27 +118,37 @@ def _sdpa_bf16_scores(q, k, v, *, causal: bool, window: int = 0) -> torch.Tensor
     return torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, sq, h * d)
 
 
-def _tp_in(h: torch.Tensor, tp) -> torch.Tensor:
+def _tp_in(h: torch.Tensor, tp, seq=None) -> torch.Tensor:
+    """A sublayer's normed input as its products read it: the whole
+    sequence, gathered from the rank's block where ``seq`` splits it."""
+    if seq is not None:
+        return gather_act(h, *seq, 1) if tp is None else sp_gather(h, *seq, 1)
     return h if tp is None else enter_tp(h, *tp)
 
 
-def _tp_out(y: torch.Tensor, tp) -> torch.Tensor:
+def _tp_out(y: torch.Tensor, tp, seq=None) -> torch.Tensor:
+    """A sublayer's output (the ranks' partial sums with ``tp``) as the
+    stream adds it: the rank's block where ``seq`` splits the stream."""
+    if seq is not None:
+        return split_act(y, *seq, 1) if tp is None else sp_scatter(y, *seq, 1)
     return y if tp is None else sum_tp(y, *tp)
 
 
 def attention(cfg: LMConfig, p: dict, x, positions, *, causal: bool = True, window: int = 0,
-              return_kv: bool = False, tp=None):
+              return_kv: bool = False, tp=None, seq=None):
     """Full-sequence (prefill) attention sublayer with residual.
 
     ``return_kv=True`` also returns the rotated K and V panels, which
     prefill writes into the decode cache.  With ``tp``, ``cfg`` counts the
     rank's heads and ``p`` holds their columns of ``wq``/``wk``/``wv`` and
-    rows of ``wo``; the output is summed over the axis.
+    rows of ``wo``; the output is summed over the axis.  With ``seq``, x
+    and the output are the rank's block of the sequence, ``positions`` and
+    the K/V panels the whole sequence's (module docstring).
     """
-    h = _tp_in(rms_norm(x, p["ln1"], cfg.norm_eps), tp)
+    h = _tp_in(rms_norm(x, p["ln1"], cfg.norm_eps), tp, seq)
     q, k, v = _qkv(cfg, p, h, positions)
     o = _sdpa(cfg, q, k, v, causal=causal, window=window)
-    y = x + _tp_out(o @ p["wo"], tp)
+    y = x + _tp_out(o @ p["wo"], tp, seq)
     if return_kv:
         return y, k, v
     return y
@@ -231,16 +251,18 @@ def cross_kv(cfg: LMConfig, p: dict, enc_out: torch.Tensor, tp=None) -> tuple[to
     return k, v
 
 
-def cross_attention(cfg: LMConfig, p: dict, x, cross_k, cross_v, tp=None) -> torch.Tensor:
+def cross_attention(cfg: LMConfig, p: dict, x, cross_k, cross_v, tp=None, seq=None) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper) with residual: pre-norm
     ``p["ln"]``, queries from the decoder's ``s`` positions against the
     :func:`cross_kv` of the encoder's ``se`` frames (``s != se``: the flash
     kernel over a key length other than the query's), no mask, no RoPE.
     x: [b, s, d]; cross_[kv]: [b, se, kvh, hd] (with ``tp``, the rank's
-    heads, as :func:`attention`)."""
-    b, s, _ = x.shape
-    q = (_tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp) @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    return x + _tp_out(_sdpa(cfg, q, cross_k, cross_v, causal=False) @ p["wo"], tp)
+    heads, as :func:`attention`; with ``seq``, x is the rank's block of the
+    queries and the K/V stay whole)."""
+    h = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp, seq)
+    b, s, _ = h.shape
+    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    return x + _tp_out(_sdpa(cfg, q, cross_k, cross_v, causal=False) @ p["wo"], tp, seq)
 
 
 def cross_attention_decode(cfg: LMConfig, p: dict, x, cross_k, cross_v, split=None, tp=None) -> torch.Tensor:
@@ -262,16 +284,17 @@ def cross_attention_decode(cfg: LMConfig, p: dict, x, cross_k, cross_v, split=No
 # ---------------------------------------------------------------------------
 
 
-def dense_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+def dense_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, tp=None, seq=None) -> torch.Tensor:
     """The dense FFN sublayer with residual; with ``tp``, ``p`` holds the
-    rank's ``d_ff`` block and the output is summed over the axis."""
-    h = _tp_in(rms_norm(x, p["ln2"], cfg.norm_eps), tp)
+    rank's ``d_ff`` block and the output is summed over the axis; with
+    ``seq``, x and the output are the rank's block of the sequence."""
+    h = _tp_in(rms_norm(x, p["ln2"], cfg.norm_eps), tp, seq)
     if cfg.ffn_kind == "relu2":
         u = torch.relu(h @ p["w_in"])
-        return x + _tp_out((u * u) @ p["w_out"], tp)  # squared-ReLU (nemotron)
+        return x + _tp_out((u * u) @ p["w_out"], tp, seq)  # squared-ReLU (nemotron)
     g = F.silu(h @ p["w_gate"])
     u = h @ p["w_up"]
-    return x + _tp_out((g * u) @ p["w_down"], tp)
+    return x + _tp_out((g * u) @ p["w_down"], tp, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +397,8 @@ def tp_slice(p: dict, tp: int, index: int) -> dict:
     return out
 
 
-def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, mesh=None, dp_axes=("data",), tp_axis="model"
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, mesh=None, dp_axes=("data",), tp_axis="model",
+            seq: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE sublayer with residual: (x + y, aux_loss).
 
     With a mesh of ranks (``launch.mesh.make_test_mesh``), x is this rank's
@@ -389,19 +412,29 @@ def moe_ffn(cfg: LMConfig, p: dict, x: torch.Tensor, mesh=None, dp_axes=("data",
     this is another function than the path without a mesh: a shard's
     capacity can drop other tokens, and the mean of the shards' aux losses
     is not the whole batch's (ROADMAP.md queue 3).
+
+    ``seq=True``: x and the output are the rank's block of the sequence over
+    ``tp_axis`` (``models/layout.py``); the normed block is gathered whole
+    (``collectives.gather_act``) before the router, so the rank routes its
+    data shard's whole sequence at the capacity of its token count, and y
+    is reduce-scattered to the block (``sp_scatter``; ``split_act`` with the
+    experts whole).
     """
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    capacity = moe_capacity(cfg, h.shape[0] * h.shape[1])
     if mesh is None:
-        y, aux = moe_ffn_local(cfg, p, h, capacity)
+        y, aux = moe_ffn_local(cfg, p, h, moe_capacity(cfg, h.shape[0] * h.shape[1]))
         return x + y, aux
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a DeviceMesh of ranks (launch.mesh.make_test_mesh), got {type(mesh).__name__}")
+    if seq:
+        h = gather_act(h, mesh, tp_axis, 1)
+    capacity = moe_capacity(cfg, h.shape[0] * h.shape[1])
     if p["we_gate"].shape[-1] == cfg.d_ff:  # the experts whole on every rank
         y, aux = moe_ffn_local(cfg, p, h, capacity)
-        return x + y, mean_over(aux, mesh, dp_axes)
+        return x + (split_act(y, mesh, tp_axis, 1) if seq else y), mean_over(aux, mesh, dp_axes)
     y, aux = moe_ffn_local(cfg, p, h, capacity, tp=(mesh, tp_axis))
-    return x + sum_tp(y, mesh, tp_axis), mean_over(aux, mesh, dp_axes)
+    y = sp_scatter(y, mesh, tp_axis, 1) if seq else sum_tp(y, mesh, tp_axis)
+    return x + y, mean_over(aux, mesh, dp_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -416,16 +449,20 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return sum(xp[:, i : i + x.shape[1], :] * w[i] for i in range(K))
 
 
-def ssd_block(cfg: LMConfig, p: dict, x: torch.Tensor, return_state: bool = False):
+def ssd_block(cfg: LMConfig, p: dict, x: torch.Tensor, return_state: bool = False, seq=None):
     """Mamba2 block (full sequence) with residual.
 
     ``return_state=True`` also returns (ssm_state [b, h, p, n] in x's type,
     conv_tail [b, 3, di+2n]) for the prefill -> decode hand-off.  The scan
     runs on ``ops.ssd_scan``, which returns the final state with the output.
+    With ``seq``, x and the output are the rank's block of the sequence: the
+    normed blocks are gathered, the whole sequence is scanned (the state and
+    the conv tail are the whole sequence's) and the rank's block of its
+    output kept (module docstring).
     """
-    b, s, d = x.shape
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hin = rms_norm(x, p["ln"], cfg.norm_eps)
+    hin = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), None, seq)
+    b, s, _ = hin.shape
     zxbcdt = hin @ p["in_proj"]
     z, xbc_raw, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
     xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"]))
@@ -437,7 +474,7 @@ def ssd_block(cfg: LMConfig, p: dict, x: torch.Tensor, return_state: bool = Fals
     y = y + xh * p["D"][None, None, :, None].to(x.dtype)
     y = y.reshape(b, s, di) * F.silu(z)
     y = rms_norm(y, p["gate_ln"], cfg.norm_eps)
-    out = x + y @ p["out_proj"]
+    out = x + _tp_out(y @ p["out_proj"], None, seq)
     if return_state:
         return out, state.to(x.dtype), xbc_raw[:, -3:, :]
     return out

@@ -29,20 +29,59 @@ The gradient of a gathered leaf is summed over the batch axes, and over
 query and key norms under tensor parallelism, a KV head shared by ranks),
 not where they all computed the same thing (``"rep"``).
 
+The sequence plan (the reference's ``sp_residuals``, on by default).
+:meth:`Layout.stream` decides per stack of layers, by
+``lm_common.cstr_act``'s rule, whether the residual stream is split: with
+``cfg.sp_residuals``, a ``model`` axis of more than one rank and a length it
+divides, every rank of ``model`` holds its block of the sequence, ``[b,
+s / tp, d]``, between sublayers, so ``_remat`` saves only the block
+(Megatron-style sequence parallelism).  :meth:`Layout.enter` splits the
+embedded sequence (``collectives.split_act``: the embedding, the patch
+prefix and the frames are computed whole, and their gradient is gathered
+whole in the backward), and :meth:`Layout.leave` gathers the normed stream
+for the loss or the encoder's output (``gather_act``).  Each sublayer takes
+its block (``blocks``' ``seq`` argument) and runs its pre-norm on it, then
+
+* a tensor-parallel sublayer (attention on the rank's heads, a dense FFN
+  on its ``d_ff`` block) gathers the sequence over ``model``
+  (``collectives.sp_gather``, where there is no split ``enter_tp``) and
+  reduce-scatters its partial output back to the block (``sp_scatter``,
+  where there is no split ``sum_tp``);
+* a sublayer every rank computes whole (an SSD layer, attention whose
+  heads ``model`` does not divide, the FFN of an unsplit ``d_ff``, the MoE
+  router) gathers the sequence with ``gather_act`` and keeps its block of
+  the output with ``split_act``, whose backward gathers the gradient whole:
+  that compute's gradient is the same on every rank, as without the split,
+  and its leaves stay ``"rep"``;
+* the MoE FFN gathers the sequence with ``gather_act`` and routes the data
+  shard's whole sequence, as the reference's ``moe_capacity`` counts it;
+  its experts on the rank's ``d_ff`` block take the tokens through
+  ``enter_tp`` and their partial output is reduce-scattered to the block
+  (``sp_scatter``), or, with the experts whole, kept by ``split_act``.
+
+A pre-norm on the block sees only the rank's positions, so under the split
+every norm scale a stream's block passes through (``ln``, ``ln1``, ``ln2``,
+``ln_f``, ``enc_ln_f``: :data:`Layout.NORMS`) is ``"split"``, its gradient
+summed over ``model``.  With the sequence whole (``sp_residuals=False``, a
+length ``model`` does not divide, one-token decode) every rank holds the
+whole sequence: ``enter_tp`` / ``sum_tp`` around the tensor-parallel
+products, the norms ``"rep"``.
+
 Without a mesh (``Layout(cfg, None)``) every method hands the parameters
 through untouched, so the paths without a mesh are the paths with one.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from types import SimpleNamespace
 
 import torch
 
-from ..collectives import gather_act, gather_heads, gather_param
+from ..collectives import gather_act, gather_heads, gather_param, split_act
 from ..sharding import P, dp_axes_of, mesh_shape, sanitize
-from .lm_common import LMConfig, param_shardings, param_spec
+from .lm_common import LMConfig, cstr_act, cstr_heads, dist_context, param_shardings, param_spec
 
 
 def _has(el, axis: str) -> bool:
@@ -109,9 +148,15 @@ class Layout:
     docstring).  ``dp_axes`` are the axes the batch is split over (``()``:
     each rank holds the whole batch), ``tp_axis`` the tensor-parallel one."""
 
+    #: the norm scales a pre-norm applies to the stream: ``"split"`` while it is split (module docstring)
+    NORMS = frozenset({"ln", "ln1", "ln2", "ln_f", "enc_ln_f"})
+
     def __init__(self, cfg: LMConfig, mesh=None, dp_axes=("data",), tp_axis: str = "model"):
         self.cfg, self.mesh, self.tp_axis = cfg, mesh, tp_axis
         self.dp = tuple(dp_axes) if mesh is not None else ()
+        self.dist = dist_context(mesh, self.dp, tp_axis, cfg.sp_residuals)
+        #: whether the stream this layout runs is split over ``tp_axis`` (:meth:`stream`)
+        self.seq = False
         if mesh is None:
             self.tp, self.rank, self.specs = 1, 0, None
             return
@@ -123,6 +168,43 @@ class Layout:
     @property
     def tp_pair(self):
         return (self.mesh, self.tp_axis) if self.tp > 1 else None
+
+    # -- the residual stream ----------------------------------------------
+
+    def stream(self, x: torch.Tensor) -> "Layout":
+        """This layout for a stack of layers over ``x`` [b, s, d] (the whole
+        sequence): the stream split over ``tp_axis`` where
+        ``lm_common.cstr_act`` splits ``x``'s sequence and ``tp_axis`` has
+        more than one rank."""
+        out = copy.copy(self)
+        spec = cstr_act(self.dist, tuple(x.shape))
+        out.seq = self.tp > 1 and spec is not None and spec[1] == self.tp_axis
+        return out
+
+    @property
+    def seq_pair(self):
+        """``(mesh, tp_axis)`` while the stream is split, else None."""
+        return (self.mesh, self.tp_axis) if self.seq else None
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream from the whole sequence ``x``: the rank's block while
+        split (the gradient gathered whole in the backward)."""
+        return split_act(x, self.mesh, self.tp_axis, 1) if self.seq else x
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole sequence from the stream (the backward keeps the
+        rank's block of a gradient every rank has whole)."""
+        return gather_act(x, self.mesh, self.tp_axis, 1) if self.seq else x
+
+    def last(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream's last position [b, 1, d]: from the last rank's block
+        while split."""
+        if not self.seq:
+            return x[:, -1:]
+        return gather_act(x[:, -1:], self.mesh, self.tp_axis, 1)[:, -1:]
+
+    def _mode(self, key: str, mode: str) -> str:
+        return "split" if self.seq and key in self.NORMS else mode
 
     def layer_specs(self, group: str) -> dict | None:
         """The specs of one layer of a ``[L, ...]`` stack group."""
@@ -145,7 +227,7 @@ class Layout:
         """The leaves of ``lp`` (those in ``keys``) gathered whole."""
         if self.mesh is None:
             return lp
-        return {k: self.get(v, specs[k], "rep") for k, v in lp.items() if keys is None or k in keys}
+        return {k: self.get(v, specs[k], self._mode(k, "rep")) for k, v in lp.items() if keys is None or k in keys}
 
     # -- attention ----------------------------------------------------------
 
@@ -155,8 +237,9 @@ class Layout:
         heads share one KV head (``wk``/``wv`` gathered and narrowed to it);
         None (attention gathered whole, replicated) otherwise."""
         tp = self.tp
-        if tp == 1 or cfg.n_heads % tp or not (_has(specs["wq"][-1], self.tp_axis) and
-                                               _has(specs["wo"][0], self.tp_axis)):
+        heads = cstr_heads(self.dist, (1, 1, cfg.n_heads, cfg.hd), 2)
+        if tp == 1 or heads[2] != self.tp_axis or not (_has(specs["wq"][-1], self.tp_axis) and
+                                                       _has(specs["wo"][0], self.tp_axis)):
             return None
         hq, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
         if cfg.n_kv_heads % tp == 0 and _has(specs["wk"][-1], self.tp_axis):
@@ -173,7 +256,7 @@ class Layout:
         if plan is None:
             return cfg, self.whole(lp, specs, keys), None
         hq, hd = cfg.n_heads // self.tp, cfg.hd
-        p = {ln: self.get(lp[ln], specs[ln], "rep")}
+        p = {ln: self.get(lp[ln], specs[ln], self._mode(ln, "rep"))}
         for k in ("wq", "wo", "bq"):
             if k in lp:
                 p[k] = self.get(lp[k], specs[k], "tp")
@@ -219,7 +302,7 @@ class Layout:
             cols, rows, rest = ["w_gate", "w_up"], ["w_down"], ("ln2",)
         tp = self.tp > 1 and all(_has(specs[k][-1], self.tp_axis) for k in cols) and \
             all(_has(specs[k][-2], self.tp_axis) for k in rows)
-        p = {k: self.get(lp[k], specs[k], "rep") for k in rest}
+        p = {k: self.get(lp[k], specs[k], self._mode(k, "rep")) for k in rest}
         p.update({k: self.get(lp[k], specs[k], "tp" if tp else "rep") for k in cols + rows})
         return p, (self.tp_pair if tp else None)
 
@@ -244,7 +327,7 @@ class Layout:
 
     def top(self, params: dict, key: str) -> torch.Tensor:
         """A top-level leaf (``ln_f``, ``enc_ln_f``, ``patch_proj``) whole."""
-        return self.get(params[key], None if self.mesh is None else self.specs[key], "rep")
+        return self.get(params[key], None if self.mesh is None else self.specs[key], self._mode(key, "rep"))
 
     def cache_dims(self, shapes: dict) -> dict:
         """``{name: the dim split over model}`` of cache tensors whose whole

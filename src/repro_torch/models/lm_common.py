@@ -15,9 +15,54 @@ match the reference cross as numpy.
 
 :func:`param_shardings` is the reference's layout of that tree over a
 ``("data", "model")`` mesh, as :class:`~repro_torch.sharding.P` specs
-(``models/layout.py`` applies it).  Not ported yet: ``dist_context`` and the ``cstr_*``
-activation constraints, which pin activation layouts (the residual
-stream's sequence sharding among them) for GSPMD (ROADMAP.md).
+(``models/layout.py`` applies it).
+
+The activation constraints.  The reference pins activation layouts for
+GSPMD: ``dist_context`` opens a module global ``_DIST`` (mesh, data axes,
+tensor-parallel axis, ``seq_shard = cfg.sp_residuals``) and ``cstr_act`` /
+``cstr_heads`` / ``cstr_custom`` constrain a tensor to a spec, from which
+XLA derives the collectives.  The port has no compiler to derive them: the
+same rules are here as functions of a shape that return the spec
+(:func:`cstr_act`, :func:`cstr_heads`, :func:`cstr_custom`, reading a
+:class:`DistContext` passed explicitly, never a global), and
+``models/layout.py`` realises the spec with explicit collectives
+(``collectives.py``).  ``cstr_act``'s spec is the residual stream's: the
+sequence over ``model`` (Megatron-style sequence parallelism) when
+``seq_shard`` is on, the array has three or more dims and ``model``
+divides its length; else the sequence whole (whisper's 1,500 frames on
+16).  Each reference call site and its counterpart:
+
+* ``transformer.py:189, 304, 441`` (``dist_context`` around
+  ``train_loss``, ``serve_step``, ``prefill_step``): the ``Layout`` those
+  entry points build holds ``dist_context(mesh, dp_axes, tp_axis,
+  cfg.sp_residuals)`` (``Layout.dist``).
+* ``transformer.py:111, 113, 122, 135, 159, 161, 173, 176`` (``cstr_act`` on
+  each layer's input and output in ``backbone``'s ``attn``, ``ssd`` and
+  ``hybrid`` bodies, ``encoder`` and ``decoder_with_cross``):
+  ``Layout.stream`` decides once per stack by :func:`cstr_act`;
+  ``Layout.enter`` splits the stream after the embedding (or the frames),
+  every layer takes and returns the rank's block, and ``Layout.leave``
+  gathers it after the final norm.  Decode's one position stays whole, as
+  ``cstr_act``'s divisibility rule gives it.
+* ``transformer.py:59`` (``cstr_act`` on each loss chunk): none; the stream
+  is gathered once before the loss (``Layout.leave``), whose chunks run on
+  the rank's vocab block (``_xent_chunk_tp``).
+* ``blocks.py:45`` (``cstr_heads`` on q, k, v): ``Layout.attn_plan``, the
+  heads over ``model`` only when :func:`cstr_heads` splits them; else the
+  attention runs whole on every rank.
+* ``blocks.py:89-90`` (``cstr_heads`` on the repeated K/V of
+  ``attn_repeat_kv``): none; the flash kernel maps query heads to KV heads
+  itself, and ``"kv_one"`` keeps a KV head shared by ranks.
+* ``blocks.py:104, 109, 115`` (``cstr_custom`` around the q-chunk scan):
+  none; the flash kernel replaces ``attn_q_block`` chunking.
+* ``blocks.py:394`` (``cstr_heads`` on the SSD's x): none; the port runs an
+  SSD layer's scan whole on every rank of ``model`` over the gathered
+  sequence, its parameters gathered whole (ROADMAP.md).
+* ``_dp_if_divisible`` (batch over the data axes only when they divide
+  it): :func:`_dp_if_divisible`, in :func:`cstr_act`'s spec; the mesh
+  paths are given the rank's slice of the batch (``launch.mesh.batch_shard``)
+  or the whole batch with ``dp_axes=()``, as the dry run gives a batch the
+  data axes do not divide (``launch.dryrun.build``).
 """
 
 from __future__ import annotations
@@ -29,7 +74,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from ..sharding import P
+from ..sharding import P, mesh_shape
 
 # ---------------------------------------------------------------------------
 # Config
@@ -377,6 +422,72 @@ def param_shardings(cfg: LMConfig, *, fsdp_axis: str | None = "data", tp_axis: s
     if cfg.n_patches:
         sp["patch_proj"] = P(f, d)
     return sp
+
+
+# ---------------------------------------------------------------------------
+# Activation constraints (module docstring)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    """The reference's ``_DIST``, carried by value: the mesh (a
+    ``DeviceMesh`` or ``{axis: size}``; None: no mesh), the data axes, the
+    tensor-parallel axis and whether the residual stream's sequence is split
+    over it (``cfg.sp_residuals``)."""
+
+    mesh: Any = None
+    dp: tuple = ("data",)
+    tp: str = "model"
+    seq_shard: bool = True
+
+
+def dist_context(mesh, dp_axes=("data",), tp_axis: str = "model", seq_shard: bool = True) -> DistContext:
+    return DistContext(mesh, tuple(dp_axes), tp_axis, seq_shard)
+
+
+def _extent(ctx: DistContext, axes) -> int:
+    sizes = mesh_shape(ctx.mesh)
+    return math.prod(sizes.get(a, 1) for a in axes)
+
+
+def _dp_if_divisible(n: int, ctx: DistContext) -> tuple | None:
+    """The data axes when their extent divides a batch of ``n``, else None."""
+    return ctx.dp if n % _extent(ctx, ctx.dp) == 0 else None
+
+
+def cstr_act(ctx: DistContext, shape) -> P | None:
+    """The spec of a ``[batch, seq, ...]`` activation: the batch over the
+    data axes and the sequence over the tensor-parallel axis, each where it
+    divides (the sequence only with ``seq_shard`` and three or more dims);
+    None without a mesh."""
+    if ctx.mesh is None:
+        return None
+    dp = _dp_if_divisible(shape[0], ctx)
+    if len(shape) < 2:
+        return P(dp)
+    seq = ctx.tp if ctx.seq_shard and len(shape) >= 3 and shape[1] % _extent(ctx, (ctx.tp,)) == 0 else None
+    return P(dp, seq, *([None] * (len(shape) - 2)))
+
+
+def cstr_heads(ctx: DistContext, shape, head_axis: int) -> P | None:
+    """The spec of ``[batch, ..., heads, ...]``: the batch over the data
+    axes, the heads over the tensor-parallel axis, each where it divides."""
+    return cstr_custom(ctx, shape, batch_axis=0, tp_axis_at=head_axis)
+
+
+def cstr_custom(ctx: DistContext, shape, *, batch_axis: int | None = None, tp_axis_at: int | None = None
+                ) -> P | None:
+    """The spec with the data axes at ``batch_axis`` and the tensor-parallel
+    axis at ``tp_axis_at``, each only where the dim divides its extent."""
+    if ctx.mesh is None:
+        return None
+    parts: list = [None] * len(shape)
+    if batch_axis is not None and shape[batch_axis] % _extent(ctx, ctx.dp) == 0:
+        parts[batch_axis] = ctx.dp
+    if tp_axis_at is not None and shape[tp_axis_at] % _extent(ctx, (ctx.tp,)) == 0:
+        parts[tp_axis_at] = ctx.tp
+    return P(*parts)
 
 
 # ---------------------------------------------------------------------------

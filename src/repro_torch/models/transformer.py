@@ -50,6 +50,13 @@ blocks of its gradient and ``make_train_step`` updates them;
 ``tp_axis`` by slots where that divides, decode combining the ranks'
 softmax statistics.  Decode keeps attention on the rank's heads: only the
 token's q, k and v are gathered over ``tp_axis`` before the ring is scored.
+With ``cfg.sp_residuals`` (the default) and a sequence length ``tp_axis``
+divides, each stack of layers (``backbone``, ``encoder``,
+``decoder_with_cross``, the prefills) runs the residual stream as the
+rank's block of the sequence (``models/layout.py``'s sequence plan): the
+embedded sequence is split after the embedding and gathered after the
+final norm, each layer takes and returns the block, so remat saves only
+the block; prefill writes its cache from the K/V of the whole sequence.
 
 The layer loop is a Python loop over views of the ``[L, ...]`` stacks where
 the reference has ``lax.scan``.  The cache is a dict of stacked tensors as
@@ -114,8 +121,8 @@ def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, lay: Layout, specs) -> torch.
     """The FFN sublayer of an ``attn`` layer: MoE (aux loss dropped) or dense."""
     p, tp = lay.ffn(cfg, lp, specs)
     if cfg.is_moe:
-        return blocks.moe_ffn(cfg, p, x, lay.mesh, lay.dp, lay.tp_axis)[0]
-    return blocks.dense_ffn(cfg, p, x, tp)
+        return blocks.moe_ffn(cfg, p, x, lay.mesh, lay.dp, lay.tp_axis, lay.seq)[0]
+    return blocks.dense_ffn(cfg, p, x, tp, lay.seq_pair)
 
 
 def embed_tokens(cfg: LMConfig, params: dict, tokens: torch.Tensor, lay: Layout | None = None) -> torch.Tensor:
@@ -212,18 +219,20 @@ def _recompute(on: bool, fn, *args):
 
 def _remat(cfg: LMConfig, fn, *args):
     """One layer, recomputed in the backward under ``remat == "full"``, as the
-    reference checkpoints its scan body."""
+    reference checkpoints its scan body: what it keeps for the backward is
+    the layer's input (the rank's block of the sequence where the stream is
+    split)."""
     return _recompute(cfg.remat == "full", fn, *args)
 
 
 def _attn_sublayer(cfg: LMConfig, lp: dict, x, positions, lay: Layout, specs, *, causal=True, window=0):
     acfg, ap, tp = lay.attention(cfg, lp, specs)
-    return blocks.attention(acfg, ap, x, positions, causal=causal, window=window, tp=tp)
+    return blocks.attention(acfg, ap, x, positions, causal=causal, window=window, tp=tp, seq=lay.seq_pair)
 
 
 def _dense_sublayer(cfg: LMConfig, lp: dict, x, lay: Layout, specs):
     p, tp = lay.ffn(cfg, lp, specs)
-    return blocks.dense_ffn(cfg, p, x, tp)
+    return blocks.dense_ffn(cfg, p, x, tp, lay.seq_pair)
 
 
 def _encoder_layer(cfg: LMConfig, lp: dict, h: torch.Tensor, positions: torch.Tensor, lay: Layout, specs
@@ -235,15 +244,16 @@ def encoder(cfg: LMConfig, params: dict, frames: torch.Tensor, lay: Layout | Non
     """Whisper's encoder: bidirectional attention over the (stubbed) frame
     embeddings [b, se, d_model], RoPE over frame positions, ``enc_ln_f`` at
     the end.  Returns [b, se, d_model] in ``cfg.dtype``."""
-    lay = lay or Layout(cfg)
     enc_cfg = dataclasses.replace(cfg, n_experts=0, ffn_kind="swiglu", sliding_window=0)  # dense, no window
-    specs = lay.layer_specs("enc_blocks")
     h = frames.to(cfg.dtype)
+    lay = (lay or Layout(cfg)).stream(h)
+    specs = lay.layer_specs("enc_blocks")
     b, se, _ = h.shape
     positions = torch.arange(se, dtype=torch.int32, device=h.device)[None, :].expand(b, se)
+    h = lay.enter(h)
     for lp in _unbind(params["enc_blocks"]):
         h = _remat(cfg, _encoder_layer, enc_cfg, lp, h, positions, lay, specs)
-    return rms_norm(h, lay.top(params, "enc_ln_f"), cfg.norm_eps)
+    return lay.leave(rms_norm(h, lay.top(params, "enc_ln_f"), cfg.norm_eps))
 
 
 @torch.inference_mode()
@@ -319,12 +329,12 @@ def _attn_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tenso
     x = _attn_sublayer(cfg, lp, x, positions, lay, specs, window=cfg.sliding_window)
     if cfg.is_moe:
         p, _ = lay.ffn(cfg, lp, specs)
-        return blocks.moe_ffn(cfg, p, x, lay.mesh, lay.dp, lay.tp_axis)
+        return blocks.moe_ffn(cfg, p, x, lay.mesh, lay.dp, lay.tp_axis, lay.seq)
     return _dense_sublayer(cfg, lp, x, lay, specs), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _ssd_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, lay: Layout, specs) -> torch.Tensor:
-    return blocks.ssd_block(cfg, lay.whole(lp, specs), x)
+    return blocks.ssd_block(cfg, lay.whole(lp, specs), x, seq=lay.seq_pair)
 
 
 def _shared_layer(cfg: LMConfig, sp: dict, x, positions, lay: Layout, specs) -> torch.Tensor:
@@ -341,11 +351,13 @@ def backbone(cfg: LMConfig, params: dict, x: torch.Tensor, positions: torch.Tens
     recomputes each layer in the backward; a hybrid's shared block is not
     recomputed, as in the reference.  With a mesh, x is the rank's batch
     slice and each layer reads its parameters through the layout
-    (``models/layout.py``)."""
+    (``models/layout.py``); where the layout splits the stream, the layers
+    run on the rank's block of the sequence and h is gathered whole."""
     _check_supported(cfg)
-    lay = lay or Layout(cfg, mesh, dp_axes, tp_axis)
+    lay = (lay or Layout(cfg, mesh, dp_axes, tp_axis)).stream(x)
     specs = lay.layer_specs("blocks")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = lay.enter(x)
     if cfg.block_kind == "attn":
         for lp in _unbind(params["blocks"]):
             x, a = _remat(cfg, _attn_layer, cfg, lp, x, positions, lay, specs)
@@ -357,14 +369,14 @@ def backbone(cfg: LMConfig, params: dict, x: torch.Tensor, positions: torch.Tens
             x = _remat(cfg, _ssd_layer, cfg, lp, x, lay, specs)
             if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
                 x = _shared_layer(cfg, shared, x, positions, lay, sspecs)
-    return rms_norm(x, lay.top(params, "ln_f"), cfg.norm_eps), aux
+    return lay.leave(rms_norm(x, lay.top(params, "ln_f"), cfg.norm_eps)), aux
 
 
 def _decoder_layer(cfg: LMConfig, lp: dict, cp: dict, x: torch.Tensor, positions: torch.Tensor,
                    enc_out: torch.Tensor, lay: Layout, specs, cspecs) -> torch.Tensor:
     x = _attn_sublayer(cfg, lp, x, positions, lay, specs)
     ccfg, cpp, ctp = lay.attention(cfg, cp, cspecs, ln="ln")
-    x = blocks.cross_attention(ccfg, cpp, x, *blocks.cross_kv(ccfg, cpp, enc_out, ctp), ctp)
+    x = blocks.cross_attention(ccfg, cpp, x, *blocks.cross_kv(ccfg, cpp, enc_out, ctp), ctp, lay.seq_pair)
     return _dense_sublayer(cfg, lp, x, lay, specs)
 
 
@@ -372,12 +384,15 @@ def decoder_with_cross(cfg: LMConfig, params: dict, x: torch.Tensor, positions: 
                        enc_out: torch.Tensor, lay: Layout | None = None) -> torch.Tensor:
     """Whisper's decoder for training: causal self attention, cross
     attention over ``enc_out`` with each layer's cross K/V computed from it
-    (so the gradient reaches the encoder), the dense FFN; ``ln_f``-normed."""
-    lay = lay or Layout(cfg)
+    (so the gradient reaches the encoder), the dense FFN; ``ln_f``-normed.
+    Where the layout splits the stream, the queries run on the rank's block
+    of the sequence and ``enc_out`` stays whole."""
+    lay = (lay or Layout(cfg)).stream(x)
     specs, cspecs = lay.layer_specs("blocks"), lay.layer_specs("cross")
+    x = lay.enter(x)
     for lp, cp in zip(_unbind(params["blocks"]), _unbind(params["cross"])):
         x = _remat(cfg, _decoder_layer, cfg, lp, cp, x, positions, enc_out, lay, specs, cspecs)
-    return rms_norm(x, lay.top(params, "ln_f"), cfg.norm_eps)
+    return lay.leave(rms_norm(x, lay.top(params, "ln_f"), cfg.norm_eps))
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -478,8 +493,9 @@ def make_train_step(cfg: LMConfig, optimizer, mesh=None, dp_axes=("data",), tp_a
 
 def _logits(cfg: LMConfig, params: dict, h: torch.Tensor, lay: Layout) -> torch.Tensor:
     """Last-position logits [b, vocab] in fp32 from the final hidden states
-    (gathered over the vocab's ranks where the layout splits it)."""
-    h = rms_norm(h, lay.top(params, "ln_f"), cfg.norm_eps)
+    (the stream as the layout holds it; the logits gathered over the vocab's
+    ranks where the layout splits it)."""
+    h = rms_norm(lay.last(h), lay.top(params, "ln_f"), cfg.norm_eps)
     unembed, lo = lay.unembed(params)
     logits = (h[:, -1, :] @ unembed).float()
     return logits if lo is None else lay.gathered_vocab(logits)
@@ -597,6 +613,9 @@ def prefill_step(cfg: LMConfig, params: dict, batch: dict, mesh=None, dp_axes=("
     ``max_len`` is not read (module docstring).  With a mesh, ``batch`` is
     the rank's slice and ``params`` its blocks; it returns its slice's
     logits (the vocab whole) and the rank's blocks of its slice's cache.
+    Where the layout splits the stream, the layers run on the rank's block
+    of the sequence and the cache is written from the K/V, SSM state and
+    conv tail of the whole sequence.
     """
     _check_supported(cfg)
     lay = Layout(cfg, mesh, dp_axes, tp_axis)
@@ -630,7 +649,9 @@ def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, lay:
     x = _inputs(cfg, params, batch, lay)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    lay = lay.stream(x)
     specs = lay.layer_specs("blocks")
+    x = lay.enter(x)
 
     if cfg.block_kind == "attn":
         W = _ring_width(cfg, max_len or 0, s, window=False)
@@ -643,7 +664,7 @@ def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, lay:
         for i, lp in enumerate(_layers(cfg, params)):
             acfg, ap, tp = lay.attention(cfg, lp, specs)
             x, k, v = blocks.attention(acfg, ap, x, positions, causal=True, window=cfg.sliding_window,
-                                       return_kv=True, tp=tp)
+                                       return_kv=True, tp=tp, seq=lay.seq_pair)
             x = _ffn(cfg, lp, x, lay, specs)
             _store_ring(lay, cache["k"][i], lay.kv_heads_whole(cfg, acfg, k), kept, slots, dim)
             _store_ring(lay, cache["v"][i], lay.kv_heads_whole(cfg, acfg, v), kept, slots, dim)
@@ -662,7 +683,7 @@ def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, lay:
             slots = kept % W
             cache["shared_pos"][:, slots.to(x.device)] = kept.to(device=x.device, dtype=torch.int32)
         for i, lp in enumerate(_layers(cfg, params)):
-            x, state, conv_tail = blocks.ssd_block(cfg, lay.whole(lp, specs), x, return_state=True)
+            x, state, conv_tail = blocks.ssd_block(cfg, lay.whole(lp, specs), x, return_state=True, seq=lay.seq_pair)
             for name, t in (("ssm", state), ("conv", conv_tail)):
                 d = dims.get(name)
                 cache[name][i] = t if d is None else own_block(t, lay.mesh, lay.tp_axis, d - 1)
@@ -670,7 +691,7 @@ def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, lay:
                 g = i // cfg.shared_attn_every
                 acfg, ap, tp = lay.attention(cfg, shared, sspecs)
                 x, k, v = blocks.attention(acfg, ap, x, positions, causal=True, window=cfg.sliding_window,
-                                           return_kv=True, tp=tp)
+                                           return_kv=True, tp=tp, seq=lay.seq_pair)
                 x = _dense_sublayer(ffn_cfg, shared, x, lay, sspecs)
                 _store_ring(lay, cache["shared_k"][g], lay.kv_heads_whole(cfg, acfg, k), kept, slots,
                             dims.get("shared_k"))
@@ -692,16 +713,18 @@ def _prefill_encdec(cfg: LMConfig, params: dict, batch: dict, lay: Layout):
     enc_out = encoder(cfg, params, batch["frames"], lay)
     x = lay.embed(params, tokens)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :].expand(b, s)
+    lay = lay.stream(x)
+    x = lay.enter(x)
     kept = torch.arange(s)
     cache["pos"][:, :s] = positions[0]
     frames = torch.arange(cfg.enc_frames)
     specs, cspecs = lay.layer_specs("blocks"), lay.layer_specs("cross")
     for i, lp in enumerate(_layers(cfg, params)):
         acfg, ap, tp = lay.attention(cfg, lp, specs)
-        x, k, v = blocks.attention(acfg, ap, x, positions, causal=True, return_kv=True, tp=tp)
+        x, k, v = blocks.attention(acfg, ap, x, positions, causal=True, return_kv=True, tp=tp, seq=lay.seq_pair)
         ccfg, cpp, ctp = lay.attention(cfg, layer(params["cross"], i), cspecs, ln="ln")
         ck, cv = blocks.cross_kv(ccfg, cpp, enc_out, ctp)
-        x = blocks.cross_attention(ccfg, cpp, x, ck, cv, ctp)
+        x = blocks.cross_attention(ccfg, cpp, x, ck, cv, ctp, lay.seq_pair)
         x = _dense_sublayer(cfg, lp, x, lay, specs)
         _store_ring(lay, cache["k"][i], lay.kv_heads_whole(cfg, acfg, k), kept, kept, dims.get("k"))
         _store_ring(lay, cache["v"][i], lay.kv_heads_whole(cfg, acfg, v), kept, kept, dims.get("k"))

@@ -22,9 +22,10 @@ path without a mesh where a data shard's capacity or aux loss differs
 The port's mesh paths take each rank's blocks of the parameters and its
 slice of the batch (``launch.shardings.local_shard``, ``batch_shard``):
 every smoke architecture's train step, prefill and three decode steps (the
-ring wrapping) run over (2, 2) and (1, 4) in the sharded layout and are held
-against the reference's jitted mesh step with ``param_shardings``
-in-shardings; each rank's stored bytes against the sum of the reference's
+ring wrapping) run over (2, 2) and (1, 4) in the sharded layout, with the
+residual stream split over the sequence (``sp_residuals``, the default, as
+the reference's) and whole, and are held against the reference's jitted
+mesh step with ``param_shardings`` in-shardings; each rank's stored bytes against the sum of the reference's
 ``NamedSharding.shard_shape``s; a sharded checkpoint save against both
 packages' restores.
 """
@@ -395,9 +396,10 @@ for arch in configs.ARCHS:
     batch = as_batch(sub(f"sh/{arch}/batch/"))
     prompt = {k: (v[:, :8] if k == "tokens" else v) for k, v in batch.items() if k != "labels"}
     forced = torch.from_numpy(ref[f"sh/{arch}/forced"]).long()
-    for shape, max_len in ((2, 2), 8), ((1, 4), 10):
+    for (shape, max_len), sp in [(m, sp) for m in (((2, 2), 8), ((1, 4), 10)) for sp in (True, False)]:
         mesh = make_test_mesh(shape, device="cpu")
-        tag = f"sh/{arch}/{shape[0]}x{shape[1]}/"
+        tag = f"{'sh' if sp else 'shnosp'}/{arch}/{shape[0]}x{shape[1]}/"  # the residual stream split, or whole
+        cfg = dataclasses.replace(cfg, sp_residuals=sp)
         specs = param_layout(cfg, mesh)
         params = local_shard(mesh, tree.tree_map(torch.clone, whole), specs)
         opt = AdamW(AdamWConfig(total_steps=10, warmup=2, moment_dtype=torch.float32))
@@ -416,7 +418,7 @@ for arch in configs.ARCHS:
                                                                          tree.leaves(local_shard(mesh, got, specs)))])
         for k in ("loss", "grad_norm"):
             out[tag + k] = m[k].numpy()
-        if arch == configs.ARCHS[0] and shape == (2, 2):  # every rank saves its blocks; rank 0 writes them whole
+        if arch == configs.ARCHS[0] and shape == (2, 2) and sp:  # every rank saves its blocks; rank 0 writes them whole
             both = {"params": specs, "opt": {"step": lm_common.P(), "mu": specs, "nu": specs, "master": specs}}
             CheckpointStore(ckpt_dir).save(1, {"params": p1, "opt": state}, shardings=(mesh, both))
             back = CheckpointStore(ckpt_dir).restore(1, {"params": p1, "opt": state}, shardings=(mesh, both))
@@ -659,29 +661,39 @@ def _nested(flat: dict, prefix: str) -> dict:
 
 
 SHARDED = [(a, m) for a in ALL_ARCHS for m in SHARDED_MESHES]
+#: the port's residual stream split over the sequence (sp_residuals, the default, as the reference's) or whole
+SP = pytest.mark.parametrize("sp", [True, False], ids=["sp", "nosp"])
 
 
+def _port_tag(tag: str, sp: bool) -> str:
+    return tag if sp else "shnosp" + tag[len("sh"):]
+
+
+@SP
 @pytest.mark.parametrize("arch,shape", SHARDED, ids=[f"{a}-{m[0]}x{m[1]}" for a, m in SHARDED])
-def test_sharded_train_step_matches_the_references_jitted_mesh_step(port, want, arch, shape):
+def test_sharded_train_step_matches_the_references_jitted_mesh_step(port, want, arch, shape, sp):
     tag = f"sh/{arch}/{shape[0]}x{shape[1]}/"
-    names = [k for k in want if k.startswith(tag + "p1/")]
+    mine = _port_tag(tag, sp)
+    names = [k[len(tag):] for k in want if k.startswith(tag + "p1/")]
     for rank in range(RANKS):
         got = port[rank]
         for k in ("loss", "grad_norm"):
-            np.testing.assert_allclose(got[tag + k], want[tag + k], err_msg=k, **LOSS_TOL)
-        assert len(names) == len([k for k in got if k.startswith(tag + "p1/")])
+            np.testing.assert_allclose(got[mine + k], want[tag + k], err_msg=k, **LOSS_TOL)
+        assert len(names) == len([k for k in got if k.startswith(mine + "p1/")])
         for k in names:
-            np.testing.assert_allclose(got[k], want[k], err_msg=k, **LEAF_TOL)
-            np.testing.assert_array_equal(got[k], port[0][k])
-        assert got[tag + "own"].all()
+            np.testing.assert_allclose(got[mine + k], want[tag + k], err_msg=k, **LEAF_TOL)
+            np.testing.assert_array_equal(got[mine + k], port[0][mine + k])
+        assert got[mine + "own"].all()
 
 
+@SP
 @pytest.mark.parametrize("arch,shape", SHARDED, ids=[f"{a}-{m[0]}x{m[1]}" for a, m in SHARDED])
-def test_sharded_prefill_and_decode_match_the_reference(port, want, arch, shape):
+def test_sharded_prefill_and_decode_match_the_reference(port, want, arch, shape, sp):
     tag = f"sh/{arch}/{shape[0]}x{shape[1]}/"
     for rank in range(RANKS):
         for i in range(4):
-            np.testing.assert_allclose(port[rank][tag + f"logits{i}"], want[tag + f"logits{i}"], err_msg=str(i), **TOL)
+            np.testing.assert_allclose(port[rank][_port_tag(tag, sp) + f"logits{i}"], want[tag + f"logits{i}"],
+                                       err_msg=str(i), **TOL)
 
 
 @pytest.mark.parametrize("arch,shape", SHARDED, ids=[f"{a}-{m[0]}x{m[1]}" for a, m in SHARDED])
