@@ -358,11 +358,21 @@ repository's sources are not beside this script.  Otherwise, in order:
    tokens), the mesh's routes against one process's own held to
    ROUTE_FLOOR, beside a control on (1, 2) that must miss (the split ring's
    all-reduces dropped, each rank attending only its own slots);
-   zamba2-2.7b at SHARD_HYBRID_DEPTH layers (its SSD layers scanned whole by
-   the SSD kernel on every rank over the gathered sequence, exactly once a
-   layer a rank, its shared attention block
-   on the rank's heads) served the same way on (1, 2), held to LM_TOL
-   against one process; each rank's parameter and AdamW bytes by
+   zamba2-2.7b at SHARD_HYBRID_DEPTH layers (its SSD layers split over
+   their heads, ``Layout.ssd``: each rank projects and scans its 40 of 80
+   heads on ``ssd_scan_mma_bf16_kernel``, exactly once a layer, over the
+   gathered sequence, its shared attention block on the rank's heads)
+   served the same way on (1, 2), held to LM_TOL against one process;
+   SHARD_SSD (mamba2-130m) at full width and depth on (1, 2), 12 of its 24
+   heads a rank, served the same way and stepped once (4 x 512), in bf16
+   (printed) and with the model in fp32 and its scans in bf16 (held, as
+   the SSD checks hold: the logits to LM_TOL, the loss and every leaf
+   gathered whole to SHARD_SSD_LOSS_TOL / SHARD_SSD_GRAD_TOL against one
+   process, beside a control that must miss, the gated norm's mean square
+   summed forward only, ``sum_tp`` for ``psum_tp``), every scan on the
+   tensor-core kernel at 12 heads and every backward on the ``"mma"``
+   route's three kernels (``_recording_scans``); each rank's parameter and
+   AdamW bytes by
    ``torch.cuda.memory_allocated`` held to the sum of its blocks (at most
    the allocator's 512-byte rounding a tensor more); (c) the dry run on the
    card (``launch.dryrun.run_cell(..., device="cuda")``): SHARD_DRYRUN's
@@ -370,8 +380,15 @@ repository's sources are not beside this script.  Otherwise, in order:
    other ranks' blocks of a gathered leaf are zeros): argument bytes equal
    to the ``meta`` profile's, the measured peak, the step's device time by
    CUDA events beside the roofline's compute and memory terms, the launches
-   of flash, ``gemm`` and the SSD scan from 0, finite outputs; the train
-   cell's peak (the stream split) beside SHARD_WHOLE_STREAM_PEAK_GIB;
+   of flash, ``gemm`` and the SSD scan from 0, finite outputs; qwen3-32b's
+   train cell's peak (the stream split) beside SHARD_WHOLE_STREAM_PEAK_GIB;
+   zamba2-2.7b's train cell's scans, forward and backward, with their
+   shapes (5 of 80 heads a rank) and kernels; and, taken in phase 13
+   beside the scan's backward (after the training phases the profiler
+   kept no device record of it), the bf16 scan and its backward at
+   mamba2-130m's and zamba2-2.7b's prefill shapes, whole and at the (1, 2)
+   rank's heads, by the profiler's device time (``shard_scan_times``; the
+   ``ssd_scan`` row's ``split heads``);
 16. prints the per-kernel JSON line (the ``flash_attention`` row is
    granite-3-2b's, naming the device function that served its prefill,
    with every other served attention call's times, bound, SDPA times and
@@ -388,6 +405,7 @@ repository's sources are not beside this script.  Otherwise, in order:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -3652,11 +3670,23 @@ def mesh_two_ranks(failures: list[str]) -> dict:
 SHARD_RANKS, SHARD_MESHES = 2, ((1, 2), (2, 1))
 #: decode steps phase 15 holds after each prefill
 SHARD_DECODE = 3
-#: phase 15 (b)'s hybrid model on the (1, 2) mesh, at one group of SSD layers and its shared attention block: its
-#: SSD layers gathered whole over model and scanned by the SSD kernel on every rank
+#: phase 15 (b)'s hybrid model on the (1, 2) mesh, at one group of SSD layers and its shared attention block: each
+#: rank projects and scans its 40 of the 80 SSD heads (models/layout.py's Layout.ssd) on the tensor-core scan kernel
 SHARD_HYBRID, SHARD_HYBRID_DEPTH = "zamba2-2.7b", 6
+#: phase 15 (b)'s SSD model on the (1, 2) mesh, at full width and depth: 12 of its 24 heads a rank, served and
+#: trained a step in bf16 (printed) and with the model in fp32 and its scans in bf16 (held)
+SHARD_SSD = "mamba2-130m"
+#: that held train step against one process: the loss's relative difference and each leaf's max |difference| over
+#: max |one process|, the limit SSD_TRAIN_GRAD_TOL puts on the kernel path against the plain one.  Read on an
+#: NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 1.2e-6 in the loss and 6.5e-2 at the worst leaf (dt_bias); the
+#: control, the gated norm's mean square summed forward only (collectives.sum_tp in place of psum_tp), 0.93.  In
+#: bf16 (printed only) the step reads 2.1e-4 and 0.43 against the control's 1.21, the logits 0.13-0.22 of max
+#: |logit|: a bf16 SSD model moves that much with the last bit of any scan (SSD_LAYERS)
+SHARD_SSD_LOSS_TOL, SHARD_SSD_GRAD_TOL = 1e-5, SSD_TRAIN_GRAD_TOL["mamba2-130m"]
+#: each phase 15 (b) rank's time limit, seconds
+SHARD_RANK_TIMEOUT = 480
 #: phase 15 (c)'s cells, run as rank 0 of a 256-rank fake group on the card
-SHARD_DRYRUN = (("qwen3-32b", "train_4k"), ("nemotron-4-340b", "decode_32k"))
+SHARD_DRYRUN = (("qwen3-32b", "train_4k"), ("nemotron-4-340b", "decode_32k"), ("zamba2-2.7b", "train_4k"))
 #: qwen3-32b x train_4k's step peak (GiB, max_memory_allocated) as rank 0 of 256 with the residual stream whole
 #: on every model rank (sp_residuals off), two runs on an NVIDIA H100 80GB HBM3 at 700 W: phase 15 (c) prints the
 #: split stream's beside it
@@ -3688,6 +3718,30 @@ def _recording_remat(out: list):
             return remat(cfg, fn, *args)
 
     with mock.patch.object(transformer, "_remat", recording):
+        yield
+
+
+@contextlib.contextmanager
+def _recording_scans(fwd: list, bwd: list | None = None):
+    """Append (x's shape, the kernel its plan launches) of each
+    ``ops.ssd_scan`` call on the card to ``fwd``, and (x's shape, the
+    backward's route, its kernels) of each ``ssd_scan.ssd_scan_bwd`` call to
+    ``bwd``."""
+    scan, scan_bwd = ops.ssd_scan, ssd.ssd_scan_bwd
+
+    def recording(x, dt, A, B, C, *, chunk=64):
+        if x.is_cuda:
+            aligned = all(ssd._aligned(t) for t in (x, B, C))
+            fwd.append((list(x.shape), ssd.KERNELS[ssd.route(x.dtype, x.shape[3], B.shape[-1], chunk, aligned)]))
+        return scan(x, dt, A, B, C, chunk=chunk)
+
+    def recording_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk=64):
+        route = ssd.bwd_route(x.dtype, x.shape[3], B.shape[-1], chunk, all(ssd._aligned(t) for t in (x, B, C, dy)))
+        if bwd is not None:
+            bwd.append((list(x.shape), route, list(ssd.bwd_kernels(route, x.dtype, B.shape[-1]))))
+        return scan_bwd(x, dt, A, B, C, dy, dstate, chunk=chunk)
+
+    with mock.patch.object(ops, "ssd_scan", recording), mock.patch.object(ssd, "ssd_scan_bwd", recording_bwd):
         yield
 
 
@@ -3933,7 +3987,13 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
         del whole
         torch.cuda.empty_cache()
 
-        # zamba2: its SSD layers gathered whole and scanned on every rank, its shared block on the rank's heads
+        def split_scans(scans: list, name: str, shape, heads: int) -> None:
+            """Fail unless every recorded scan took the rank's ``heads`` on the tensor-core kernel."""
+            want = [[LM_BATCH // shape[0], LM_PROMPT, heads, 64], "ssd_scan_mma_bf16_kernel"]
+            if [list(sc) for sc in scans] != [want] * len(scans) or not scans:
+                fail(f"rank {rank}: {name} on {shape} scanned {scans}, each {want} wanted")
+
+        # zamba2: each rank projects and scans its SSD heads, its shared block on the rank's attention heads
         cfg = dataclasses.replace(get_config(SHARD_HYBRID), n_layers=SHARD_HYBRID_DEPTH)
         whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
         prompt = _mesh_prompt(cfg, 4)
@@ -3944,26 +4004,124 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
         mine = local_shard(mesh, whole, param_layout(cfg, mesh))
         pr, fo = batch_shard(mesh, prompt), batch_shard(mesh, forced)
         _zero_launches()
-        got, cache = serve(mine, mesh, pr, fo)
+        scans: list = []
+        with _recording_scans(scans):
+            got, cache = serve(mine, mesh, pr, fo)
         torch.cuda.synchronize()
         counts = _launch_counts()
         for k in ("ssd_scan", "flash_attention"):
             out["launches"][f"{k} hybrid {shape}"] = counts[k]
-        ring = tuple(cache["shared_k"].shape)
+        ring, state = tuple(cache["shared_k"].shape), tuple(cache["ssm"].shape)
         wanted, _ = serve(whole, None, pr, fo)
         rels = rel(got, wanted)
         out[f"hybrid {shape}"] = rels
         say(f"{SHARD_HYBRID} at {SHARD_HYBRID_DEPTH} layers, bf16, prefill {pr['tokens'].shape[0]} x {LM_PROMPT} and "
-            f"{SHARD_DECODE} decode steps on {shape} (the rank's shared ring {ring}): logits against one process "
-            f"{', '.join(f'{r:.3e}' for r in rels)} of max |logit| (tolerance {LM_TOL[torch.bfloat16]}); launches "
-            f"{counts}")
+            f"{SHARD_DECODE} decode steps on {shape} (the rank's shared ring {ring}, its SSM state {state}): logits "
+            f"against one process {', '.join(f'{r:.3e}' for r in rels)} of max |logit| (tolerance "
+            f"{LM_TOL[torch.bfloat16]}); launches {counts}; the prefill's scans {scans[:1]} x {len(scans)}")
         if not max(rels) <= LM_TOL[torch.bfloat16]:
             fail(f"rank {rank}: {SHARD_HYBRID} serving on {shape} against one process: {rels}")
-        if counts["ssd_scan"] != SHARD_HYBRID_DEPTH:  # each rank scans every SSD layer's whole sequence once
+        if counts["ssd_scan"] != SHARD_HYBRID_DEPTH:  # each rank scans its heads of every SSD layer once
             fail(f"rank {rank}: {SHARD_HYBRID} on {shape} launched {counts['ssd_scan']} SSD scans, "
                  f"{SHARD_HYBRID_DEPTH} wanted")
+        split_scans(scans, SHARD_HYBRID, shape, cfg.ssm_heads // shape[1])
         del mine, got, wanted, cache, whole
         torch.cuda.empty_cache()
+
+        # mamba2 at full width and depth, 12 of its 24 heads a rank: served and stepped in bf16 (the readings
+        # printed: bf16 SSD logits and gradients move with the last bit of any scan, SSD_LAYERS), and held as the
+        # SSD checks hold them, in fp32 with bf16 scans (the scans on the same tensor-core kernels), against one
+        # process, the train step beside the gated-norm control
+        heads = get_config(SHARD_SSD).ssm_heads // shape[1]
+        for held in (False, True):
+            cfg = get_config(SHARD_SSD)
+            whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(6), "cuda")
+            if held:
+                cfg, whole = dataclasses.replace(cfg, dtype=torch.float32), _cast(whole, torch.float32)
+            scans_in = _bf16_scans if held else contextlib.nullcontext
+            prec = "fp32 with bf16 scans" if held else "bf16"
+            prompt = _mesh_prompt(cfg, 6)
+            forced = torch.randint(0, cfg.vocab, (LM_BATCH, SHARD_DECODE), device="cuda",
+                                   generator=torch.Generator(device="cuda").manual_seed(7))
+            specs = param_layout(cfg, mesh)
+            mine = local_shard(mesh, tree_map(torch.clone, whole), specs)
+            pr, fo = batch_shard(mesh, prompt), batch_shard(mesh, forced)
+            _zero_launches()
+            scans = []
+            with _recording_scans(scans), scans_in():
+                got, cache = serve(mine, mesh, pr, fo)
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+            out["launches"][f"ssd_scan ssd serve {prec} {shape}"] = counts["ssd_scan"]
+            state = tuple(cache["ssm"].shape)
+            with scans_in():
+                wanted, _ = serve(whole, None, pr, fo)
+            rels = rel(got, wanted)
+            out[f"ssd serve {prec} {shape}"] = rels
+            say(f"{SHARD_SSD} at {cfg.n_layers} layers, {prec}, prefill {pr['tokens'].shape[0]} x {LM_PROMPT} and "
+                f"{SHARD_DECODE} decode steps on {shape} ({heads} of {cfg.ssm_heads} SSD heads a rank, its SSM state "
+                f"{state}): logits against one process {', '.join(f'{r:.3e}' for r in rels)} of max |logit| "
+                f"({f'tolerance {LM_TOL[torch.bfloat16]}' if held else 'printed only'}); launches {counts}; the "
+                f"prefill's scans {scans[:1]} x {len(scans)}")
+            if held and not max(rels) <= LM_TOL[torch.bfloat16]:
+                fail(f"rank {rank}: {SHARD_SSD} serving on {shape}, {prec}, against one process: {rels}")
+            if counts["ssd_scan"] != cfg.n_layers:
+                fail(f"rank {rank}: {SHARD_SSD} on {shape} launched {counts['ssd_scan']} SSD scans, "
+                     f"{cfg.n_layers} wanted")
+            split_scans(scans, SHARD_SSD, shape, heads)
+            del got, wanted, cache
+            torch.cuda.empty_cache()
+
+            batch = _mesh_train_batch(cfg)
+            with scans_in():
+                loss, grads = transformer.value_and_grad(cfg, whole, batch)
+            want, plain = loss.item(), list(named_leaves(grads))
+            del grads
+            rows = batch_shard(mesh, batch)
+
+            def ssd_step() -> dict:
+                with scans_in():
+                    loss, grads = transformer.value_and_grad(cfg, mine, rows, mesh)
+                return {"loss": abs(loss.item() - want) / abs(want),
+                        "leaves": _leaf_ratios(gather_whole(mesh, grads, specs), plain)}
+
+            fwd, bwd = [], []
+            ssd.bwd_launches = 0
+            with _recording_scans(fwd, bwd):
+                runs = {"mesh": ssd_step()}
+            torch.cuda.synchronize()
+            launched = ssd.bwd_launches
+            out["launches"][f"ssd_scan ssd train {prec} {shape}"] = len(fwd)
+            control = "gated norm's mean square summed forward only"
+            with mock.patch.object(blocks, "psum_tp", blocks.sum_tp):  # its gradient left unsummed over model
+                runs[control] = ssd_step()
+            out[f"ssd train {prec} {shape}"] = runs
+            for name, r in runs.items():
+                leaf = max(r["leaves"], key=r["leaves"].get)
+                say(f"{SHARD_SSD} at {cfg.n_layers} layers, {prec}, a train step {TRAIN_BATCH} x {TRAIN_SEQ} on "
+                    f"{shape}, {name}, against one process: loss relative {r['loss']:.3e}; worst leaf {leaf} at "
+                    f"{r['leaves'][leaf]:.3e}" + (f" (tolerances {SHARD_SSD_LOSS_TOL} / {SHARD_SSD_GRAD_TOL}"
+                                                    f"{', must miss' if name == control else ''})" if held else
+                                                    " (printed only)"))
+            say(f"{SHARD_SSD} train step, {prec}, on {shape}: {len(fwd)} forward scans (remat recomputes each "
+                f"layer's), {launched} backward calls; forward {fwd[:1]}, backward {bwd[:1]}")
+            if held:
+                r = runs["mesh"]
+                if not (r["loss"] <= SHARD_SSD_LOSS_TOL and max(r["leaves"].values()) <= SHARD_SSD_GRAD_TOL):
+                    fail(f"rank {rank}: {SHARD_SSD} train step on {shape}, {prec}, against one process: "
+                         f"{r['loss']}, {max(r['leaves'].values())}")
+                if not max(runs[control]["leaves"].values()) > SHARD_SSD_GRAD_TOL:
+                    fail(f"rank {rank}: the control '{control}' on {shape} meets the gradient tolerance")
+            rows_r = [TRAIN_BATCH // shape[0], TRAIN_SEQ, heads, 64]
+            mma = list(ssd.bwd_kernels("mma", torch.bfloat16, cfg.ssm_state))
+            if [list(f) for f in fwd] != [[rows_r, "ssd_scan_mma_bf16_kernel"]] * (2 * cfg.n_layers):
+                fail(f"rank {rank}: {SHARD_SSD} train step on {shape} scanned {fwd[:2]}... ({len(fwd)}), "
+                     f"{2 * cfg.n_layers} of {rows_r} on the tensor-core kernel wanted")
+            if [list(b) for b in bwd] != [[rows_r, "mma", mma]] * cfg.n_layers or launched != cfg.n_layers:
+                fail(f"rank {rank}: {SHARD_SSD} train step on {shape}: backward {bwd[:2]}... ({len(bwd)} recorded, "
+                     f"{launched} launched), {cfg.n_layers} of {rows_r} on the 'mma' route wanted")
+            del mine, whole, plain
+            torch.cuda.empty_cache()
     finally:
         Path(out_path).write_text(json.dumps(out))
         torch.distributed.destroy_process_group()
@@ -3980,7 +4138,7 @@ def shard_two_ranks(failures: list[str]) -> dict:
                                    str(Path(d) / "store"), str(outs[r])], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True) for r in range(SHARD_RANKS)]
         try:
-            logs = [p.communicate(timeout=MESH_RANK_TIMEOUT)[0] for p in procs]
+            logs = [p.communicate(timeout=SHARD_RANK_TIMEOUT)[0] for p in procs]
         finally:
             for p in procs:
                 p.kill()
@@ -4002,6 +4160,42 @@ def shard_two_ranks(failures: list[str]) -> dict:
     return launches
 
 
+#: phase 15's scan timings: (model, x's shape whole [b, l, h, p], the state width), each also at the (1, 2) mesh
+#: rank's half of the heads
+SHARD_SCAN_SHAPES = (("mamba2-130m", (4, 512, 24, 64), 128), ("zamba2-2.7b", (4, 512, 80, 64), 64))
+
+
+def shard_scan_times(failures: list[str], smi: str) -> dict:
+    """Phase 15: the bf16 scan and its backward at each SHARD_SCAN_SHAPES
+    shape, whole and at the (1, 2) rank's heads, by the profiler's device
+    time, on x, B and C strided as ``ssd_block`` passes them.  Fails unless
+    the forward ran the tensor-core kernel and the backward the ``"mma"``
+    route's kernels.  Returns the times by shape."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16, out = torch.bfloat16, {}
+    for model, (b, l, h, p), n in SHARD_SCAN_SHAPES:
+        for heads in (h, h // 2):
+            x, dt, A, B, C = ssd_inputs(b, l, heads, p, n, bf16, True, gen)
+            dy = torch.randn((b, l, heads, p), generator=gen, device="cuda").to(bf16)
+            f_ms, f_ran = _device_ms(lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=64))
+            b_ms, b_ran = _device_ms(lambda: ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=64))
+            shape = f"[{b},{l},{heads},{p}]"
+            out[f"{model} x {shape}"] = {"forward_ms": f_ms, "backward_ms": b_ms}
+            f_fns = sorted({m.group(1) for k in f_ran if (m := SSD_FN.search(k))})
+            b_fns = sorted({m.group(1) for k in b_ran if (m := SSD_BWD_FN.search(k))})
+            whose = "whole" if heads == h else "a (1, 2) rank"
+            print(f"[shard] {model} scan x {shape}, B/C [{b},{l},{n}] bf16 ({whose}): forward {f_ms:.4f} ms {f_fns}, "
+                  f"backward {b_ms:.4f} ms {b_fns} by the profiler's device time ({smi})")
+            if not f_fns or not all(f.startswith("ssd_scan_mma_bf16_kernel<") for f in f_fns):
+                failures.append(f"{model} scan x {shape} ran {f_fns}, not the tensor-core kernel")
+                print(f"[FAIL] {failures[-1]}")
+            if b_fns != sorted(ssd.bwd_kernels("mma", bf16, n)):
+                failures.append(f"{model} scan backward x {shape} ran {b_fns}, not the 'mma' route's kernels")
+                print(f"[FAIL] {failures[-1]}")
+            del x, dt, A, B, C, dy
+    return out
+
+
 def shard_dryrun(failures: list[str], smi: str) -> dict:
     """Phase 15 (c): each SHARD_DRYRUN cell's ``meta`` profile, then its
     step once on the card as rank 0 of the same 256-rank fake group.
@@ -4011,9 +4205,12 @@ def shard_dryrun(failures: list[str], smi: str) -> dict:
     launches = {"flash_attention": 0, "gemm": 0, "ssd_scan": 0}
     try:
         for arch, shape in SHARD_DRYRUN:
-            t0 = time.perf_counter()
+            t0, n0 = time.perf_counter(), len(failures)
             _zero_launches()
-            rec = dryrun.run_cell(arch, shape, "single", out_dir=None, device="cuda")
+            ssd.bwd_launches = 0
+            fwd, bwd = [], []
+            with _recording_scans(fwd, bwd):
+                rec = dryrun.run_cell(arch, shape, "single", out_dir=None, device="cuda")
             counts = _launch_counts()
             for k, n in counts.items():
                 launches[k] += n
@@ -4026,7 +4223,16 @@ def shard_dryrun(failures: list[str], smi: str) -> dict:
                   f"{roof['memory_s'] * 1e3:.1f} ms (collective {roof['collective_s'] * 1e3:.1f} ms, not run: the "
                   f"fake group moves nothing); finite outputs: {meas.get('finite')}; launches {counts}; "
                   f"{time.perf_counter() - t0:.1f} s ({smi})")
-            if rec["phase"] == "train" and "peak_bytes" in meas:
+            cfg, tp = get_config(arch), 16  # the single mesh's model axis
+            if cfg.block_kind in ("ssd", "hybrid"):
+                heads = cfg.ssm_heads // tp if cfg.ssm_heads % tp == 0 else cfg.ssm_heads
+                tally = lambda calls: dict(collections.Counter(json.dumps(c) for c in calls))
+                print(f"[shard] (c) {arch} x {shape}: {heads} of {cfg.ssm_heads} SSD heads a rank; the card's scans "
+                      f"(x's shape, kernel: calls) {tally(fwd)}; backward (x's shape, route, kernels: calls) "
+                      f"{tally(bwd)}, {ssd.bwd_launches} launched ({smi})")
+                if not fwd or any(f[0][2] != heads for f in fwd) or (rec["phase"] == "train" and not bwd):
+                    failures.append(f"(c) {arch} x {shape}: the scans took {tally(fwd)}, {heads} heads wanted")
+            if arch == "qwen3-32b" and rec["phase"] == "train" and "peak_bytes" in meas:
                 print(f"[shard] (c) {arch} x {shape}: the residual stream split over model (sp_residuals), step peak "
                       f"{meas['peak_bytes'] / 2**30:.3f} GiB, beside {SHARD_WHOLE_STREAM_PEAK_GIB[0]:.3f}-"
                       f"{SHARD_WHOLE_STREAM_PEAK_GIB[1]:.3f} GiB with the stream whole on every model rank ({smi})")
@@ -4037,9 +4243,8 @@ def shard_dryrun(failures: list[str], smi: str) -> dict:
                                 f"{mem['argument_bytes_per_dev']}, finite {meas['finite']}")
             if rec["phase"] == "train" and not counts["flash_attention"]:
                 failures.append(f"(c) {arch} x {shape} never launched flash_attention")
-            for f in failures[-2:]:
-                if f.startswith("(c)"):
-                    print(f"[FAIL] {f}")
+            for f in failures[n0:]:
+                print(f"[FAIL] {f}")
             torch.cuda.empty_cache()
     finally:
         if torch.distributed.is_initialized():
@@ -4177,6 +4382,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels["flash_attention"].update(check_flash_bwd(gen))
     kernels["ssd_scan"].update(check_ssd_bwd(gen))
+    # phase 15's scan times at a rank's heads, beside the scan's own: taken after the training phases, the
+    # profiler kept no device record of them in 8 windows (PERF.md)
+    split_heads = shard_scan_times(failures, smi.stdout.strip().splitlines()[0])
     kernels["gemm"].update(check_gemm_grad(gen))
     print(f"[bwd] backward kernels done in {time.perf_counter() - t0:.1f} s")
     for arch, (depth, grad_depth) in TRAIN_MODELS.items():
@@ -4209,6 +4417,7 @@ def main() -> int:
     one = shard_one_rank(failures, card)
     two = shard_two_ranks(failures)
     dry = shard_dryrun(failures, card)
+    kernels["ssd_scan"]["split heads"] = split_heads
     for label, launched, want in (("shard (1, 1)", one, ("gemm", "flash_attention")),
                                   ("shard two-rank", two, ("gemm", "flash_attention", "ssd_scan")),
                                   ("dryrun on the card", dry, ("flash_attention",))):

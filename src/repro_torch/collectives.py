@@ -7,11 +7,13 @@ the named axes of a ``DeviceMesh`` (:func:`all_reduce_over`,
 :func:`all_gather_dim`, :func:`reduce_scatter_dim`, :func:`gather_whole`),
 and the autograd functions of the sharded layout: Megatron's pair for a
 tensor-parallel region, :func:`enter_tp` (identity forward, sum backward)
-and :func:`sum_tp` (sum forward, identity backward), :func:`mean_over` for
-a mean over the data axes whose backward gives each rank its own share,
-and the FSDP pair :func:`gather_param` (all-gather forward; reduce-scatter,
-slice or sum backward), which :func:`gather_act` and :func:`gather_heads`
-use for activations.
+and :func:`sum_tp` (sum forward, identity backward), :func:`psum_tp` (sum
+both ways: a total every rank reads for a different block of its work,
+such as the SSD gated norm's mean square over the ranks' heads),
+:func:`mean_over` for a mean over the data axes whose backward gives each
+rank its own share, and the FSDP pair :func:`gather_param` (all-gather
+forward; reduce-scatter, slice or sum backward), which :func:`gather_act`
+and :func:`gather_heads` use for activations.
 
 The sequence-parallel residual stream (``models/layout.py``: each rank of
 the tensor-parallel axis holds its block of the sequence between
@@ -176,6 +178,17 @@ class _SumTP(torch.autograd.Function):
         return g, None, None
 
 
+class _PsumTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce_over(x, mesh, (axis,))
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_over(g, ctx.mesh, (ctx.axis,)), None, None
+
+
 class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -201,6 +214,17 @@ def sum_tp(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     through unchanged (Megatron's g), since it is the same on every rank of
     ``axis``."""
     return _SumTP.apply(x, mesh, axis)
+
+
+def psum_tp(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """The ranks' partial ``x`` summed over ``axis``, and in the backward
+    the ranks' gradients of the sum summed too (``enter_tp(sum_tp(x))``, as
+    ``jax.lax.psum`` transposes to itself): for a total each rank applies
+    to its own block of the work, whose downstream, and so whose gradient,
+    differs from rank to rank."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _PsumTP.apply(x, mesh, axis)
 
 
 def mean_over(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:

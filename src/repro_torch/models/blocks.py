@@ -19,9 +19,11 @@ any Pallas kernel.
 
 Over a mesh of ranks the blocks take a ``tp = (mesh, axis)`` pair where
 the reference's tensor parallelism splits them (``models/layout.py`` gives
-each its parameters): attention on the rank's heads and the FFNs on its
-``d_ff`` block, their input entering through ``collectives.enter_tp`` and
-their output summed by ``collectives.sum_tp``.  The decode paths keep the
+each its parameters): attention on the rank's heads, the FFNs on its
+``d_ff`` block and the SSD layer on its heads (its gated norm's mean square
+summed over the axis by ``collectives.psum_tp``), their input entering
+through ``collectives.enter_tp`` and their output summed by
+``collectives.sum_tp``.  The decode paths keep the
 head split: the token's q, k and v of the rank's heads are gathered over
 the axis (a few KB), every head is scored, and the rank's heads of the
 output meet its rows of ``wo``; their ring may be split over its slots
@@ -32,8 +34,8 @@ axis)``, ``models/layout.py``), a full-sequence sublayer takes and returns
 the rank's block ``[b, s / tp, d]`` and runs its pre-norm on it: a
 tensor-parallel one gathers the sequence through ``collectives.sp_gather``
 and reduce-scatters its output through ``sp_scatter``; one every rank
-computes whole (``tp`` None: attention whose heads the axis does not
-divide, an unsplit FFN, the SSD block) gathers through ``gather_act`` and
+computes whole (``tp`` None: attention or an SSD layer whose heads the
+axis does not divide, an unsplit FFN) gathers through ``gather_act`` and
 keeps its block of the output through ``split_act``.
 """
 
@@ -46,8 +48,8 @@ import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..kernels import ops
-from ..collectives import (all_reduce_over, enter_tp, gather_act, gather_heads, mean_over, own_block, sp_gather,
-                           sp_scatter, split_act, sum_tp)
+from ..collectives import (all_reduce_over, enter_tp, gather_act, gather_heads, mean_over, own_block, psum_tp,
+                           sp_gather, sp_scatter, split_act, sum_tp)
 from .lm_common import LMConfig, rms_norm, rotary
 
 # ---------------------------------------------------------------------------
@@ -449,60 +451,104 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return sum(xp[:, i : i + x.shape[1], :] * w[i] for i in range(K))
 
 
-def ssd_block(cfg: LMConfig, p: dict, x: torch.Tensor, return_state: bool = False, seq=None):
+def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float, width: int, tp) -> torch.Tensor:
+    """``rms_norm`` over all ``width`` channels of the SSD output, of which
+    ``y`` holds the rank's block with ``tp``: its fp32 sum of squares summed
+    over the axis both ways (``collectives.psum_tp``; each rank normalises
+    its own block, so the total's gradient is partial on every rank)."""
+    if tp is None:
+        return rms_norm(y, scale, eps)
+    yf = y.float()
+    ss = psum_tp((yf * yf).sum(-1, keepdim=True), *tp)
+    return (yf * torch.rsqrt(ss / width + eps) * scale).to(y.dtype)
+
+
+def _own_channels(t: torch.Tensor, cfg: LMConfig, tp, dr: int) -> torch.Tensor:
+    """The rank's channels ``[x_r | B | C]`` of ``t`` [..., di + 2n] (all
+    channels, the conv state's layout): its heads' block of x, then B and C."""
+    x0 = tp[0].get_local_rank(tp[1]) * dr
+    return torch.cat([t[..., x0 : x0 + dr], t[..., cfg.d_inner :]], -1)
+
+
+def _whole_channels(t: torch.Tensor, tp, dr: int) -> torch.Tensor:
+    """All channels ``[x | B | C]`` from each rank's ``[x_r | B | C]``: the
+    ranks' x blocks gathered over the axis (B and C are every rank's)."""
+    return torch.cat([gather_act(t[..., :dr], *tp, t.dim() - 1), t[..., dr:]], -1)
+
+
+def ssd_block(cfg: LMConfig, p: dict, x: torch.Tensor, return_state: bool = False, tp=None, seq=None):
     """Mamba2 block (full sequence) with residual.
 
     ``return_state=True`` also returns (ssm_state [b, h, p, n] in x's type,
     conv_tail [b, 3, di+2n]) for the prefill -> decode hand-off.  The scan
     runs on ``ops.ssd_scan``, which returns the final state with the output.
-    With ``seq``, x and the output are the rank's block of the sequence: the
-    normed blocks are gathered, the whole sequence is scanned (the state and
-    the conv tail are the whole sequence's) and the rank's block of its
-    output kept (module docstring).
+
+    With ``tp`` (the layer split over its heads, ``Layout.ssd``), ``p`` is
+    the rank's: it projects, convolves and scans its ``h / tp`` heads (B
+    and C, shared by every head, from the same input on every rank), takes
+    part in the gated norm over all of ``d_inner`` (:func:`_gated_norm`) and
+    multiplies by its rows of ``out_proj``; the input enters through
+    ``enter_tp`` and the output is summed by ``sum_tp``.  Its final state
+    is its heads' block, the conv tail is gathered whole.  With ``seq``, x
+    and the output are the rank's block of the sequence: the normed blocks
+    are gathered (``sp_gather``, or ``gather_act`` for the whole layer), the
+    whole sequence is scanned, and the rank's block of the output kept
+    (``sp_scatter``, or ``split_act``; module docstring).
     """
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hin = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), None, seq)
+    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h = p["A_log"].shape[0]  # the rank's heads with tp, else all of them
+    dr = h * hd
+    hin = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp, seq)
     b, s, _ = hin.shape
     zxbcdt = hin @ p["in_proj"]
-    z, xbc_raw, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
+    z, xbc_raw, dt = torch.split(zxbcdt, [dr, dr + 2 * n, h], dim=-1)
+    # x, B and C as views of the conv's own [b, s, dr + 2n] output: rows of a width the tensor-core scan takes
     xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"]))
-    xs, B, C = torch.split(xbc, [di, n, n], dim=-1)
+    xs, B, C = torch.split(xbc, [dr, n, n], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])  # [b, s, h]
     A = -torch.exp(p["A_log"])  # [h]
-    xh = xs.reshape(b, s, h, cfg.ssm_head_dim)
+    xh = xs.reshape(b, s, h, hd)
     y, state = ops.ssd_scan(xh, dt, A, B, C, chunk=cfg.ssm_chunk)
     y = y + xh * p["D"][None, None, :, None].to(x.dtype)
-    y = y.reshape(b, s, di) * F.silu(z)
-    y = rms_norm(y, p["gate_ln"], cfg.norm_eps)
-    out = x + _tp_out(y @ p["out_proj"], None, seq)
+    y = y.reshape(b, s, dr) * F.silu(z)
+    y = _gated_norm(y, p["gate_ln"], cfg.norm_eps, di, tp)
+    out = x + _tp_out(y @ p["out_proj"], tp, seq)
     if return_state:
-        return out, state.to(x.dtype), xbc_raw[:, -3:, :]
+        tail = xbc_raw[:, -3:, :]
+        return out, state.to(x.dtype), (tail if tp is None else _whole_channels(tail, tp, dr))
     return out
 
 
-def ssd_decode(cfg: LMConfig, p: dict, x, ssm_state, conv_state):
+def ssd_decode(cfg: LMConfig, p: dict, x, ssm_state, conv_state, tp=None):
     """One-token SSD decode.
 
     x: [b, 1, d]; ssm_state: [b, h, p, n]; conv_state: [b, K-1, di+2n].
     Returns new (y, ssm_state', conv_state'), the state updated in x's type.
+    With ``tp`` (``Layout.ssd``'s split over the heads) ``ssm_state`` is the
+    rank's heads ``[b, h / tp, p, n]`` and only they are updated; the conv
+    state stays whole (the token's x channels gathered over the axis) and
+    the output is summed over it.
     """
     b = x.shape[0]
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hin = rms_norm(x, p["ln"], cfg.norm_eps)
+    di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h = p["A_log"].shape[0]
+    dr = h * hd
+    hin = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp)
     zxbcdt = hin @ p["in_proj"]
-    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
-    full = torch.cat([conv_state, xbc], dim=1)  # [b, K, ch]
+    z, xbc, dt = torch.split(zxbcdt, [dr, dr + 2 * n, h], dim=-1)
+    mine = conv_state if tp is None else _own_channels(conv_state, cfg, tp, dr)
+    full = torch.cat([mine, xbc], dim=1)  # [b, K, ch]
     xbc_t = F.silu(torch.einsum("bkc,kc->bc", full, p["conv_w"]))[:, None, :]
-    conv_state = full[:, 1:, :]
-    xs, B, C = torch.split(xbc_t, [di, n, n], dim=-1)
+    conv_state = full[:, 1:, :] if tp is None else torch.cat([conv_state[:, 1:], _whole_channels(xbc, tp, dr)], 1)
+    xs, B, C = torch.split(xbc_t, [dr, n, n], dim=-1)
     dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]  # [b, h]
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A)  # [b, h]
-    xh = xs.reshape(b, h, cfg.ssm_head_dim)
+    xh = xs.reshape(b, h, hd)
     dBx = torch.einsum("bh,bn,bhp->bhpn", dt.to(x.dtype), B[:, 0], xh)
     ssm_state = ssm_state * dA[..., None, None].to(x.dtype) + dBx
     y = torch.einsum("bhpn,bn->bhp", ssm_state, C[:, 0])
     y = y + xh * p["D"][None, :, None].to(x.dtype)
-    y = y.reshape(b, 1, di) * F.silu(z)
-    y = rms_norm(y, p["gate_ln"], cfg.norm_eps)
-    return x + y @ p["out_proj"], ssm_state, conv_state
+    y = y.reshape(b, 1, dr) * F.silu(z)
+    y = _gated_norm(y, p["gate_ln"], cfg.norm_eps, di, tp)
+    return x + _tp_out(y @ p["out_proj"], tp), ssm_state, conv_state

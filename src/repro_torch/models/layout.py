@@ -18,16 +18,24 @@ after it:
   and MoE FFNs' ``d_ff`` block (:meth:`Layout.ffn`), the embedding's
   ``d_model`` block (its lookup gathered after) and the unembedding's vocab
   block (a sharded log-sum-exp in the loss, the logits gathered in
-  serving).  Everything else (SSD layers, norms, the router, ``patch_proj``)
-  is gathered whole, and that compute runs the same on every ``model``
-  rank.  Decode keeps the head split: the token's q, k and v are gathered
-  over ``model`` and every head scores the rank's slots of the ring
-  (``blocks.attention_decode``).
+  serving), and an SSD layer's heads (:meth:`Layout.ssd`, the reference's
+  ``cstr_heads`` on the scan's x): the rank's rows of ``out_proj`` and its
+  block of ``gate_ln`` as stored, while ``in_proj``, ``conv_w`` and the
+  head vectors, whose stored split does not follow the heads, are gathered
+  whole and narrowed to the rank's columns.  Everything else (norms, the
+  router, ``patch_proj``, an SSD layer whose heads ``model`` does not
+  divide) is gathered whole, and that compute runs the same on every
+  ``model`` rank.  Decode keeps the head split: the token's q, k and v are
+  gathered over ``model`` and every head scores the rank's slots of the
+  ring (``blocks.attention_decode``); an SSD layer split over its heads
+  updates the rank's block of the SSM state.
 
 The gradient of a gathered leaf is summed over the batch axes, and over
 ``model`` where the ranks used different parts of it (``"split"``: the
-query and key norms under tensor parallelism, a KV head shared by ranks),
-not where they all computed the same thing (``"rep"``).
+query and key norms under tensor parallelism, a KV head shared by ranks,
+the SSD projection's and conv's columns, whose B and C every rank reads
+for its own heads), not where they all computed the same thing
+(``"rep"``).
 
 The sequence plan (the reference's ``sp_residuals``, on by default).
 :meth:`Layout.stream` decides per stack of layers, by
@@ -43,11 +51,11 @@ for the loss or the encoder's output (``gather_act``).  Each sublayer takes
 its block (``blocks``' ``seq`` argument) and runs its pre-norm on it, then
 
 * a tensor-parallel sublayer (attention on the rank's heads, a dense FFN
-  on its ``d_ff`` block) gathers the sequence over ``model``
-  (``collectives.sp_gather``, where there is no split ``enter_tp``) and
-  reduce-scatters its partial output back to the block (``sp_scatter``,
-  where there is no split ``sum_tp``);
-* a sublayer every rank computes whole (an SSD layer, attention whose
+  on its ``d_ff`` block, an SSD layer on its heads) gathers the sequence
+  over ``model`` (``collectives.sp_gather``, where there is no split
+  ``enter_tp``) and reduce-scatters its partial output back to the block
+  (``sp_scatter``, where there is no split ``sum_tp``);
+* a sublayer every rank computes whole (attention or an SSD layer whose
   heads ``model`` does not divide, the FFN of an unsplit ``d_ff``, the MoE
   router) gathers the sequence with ``gather_act`` and keeps its block of
   the output with ``split_act``, whose backward gathers the gradient whole:
@@ -282,6 +290,53 @@ class Layout:
         if local.n_kv_heads == cfg.n_kv_heads:
             return t
         return gather_heads(t, cfg.n_kv_heads, self.mesh, self.tp_axis)
+
+    # -- SSD ------------------------------------------------------------------
+
+    def ssd_heads(self, cfg: LMConfig, specs: dict) -> tuple[int, int] | None:
+        """(the rank's first SSD head, its head count) where the layer splits
+        over its heads: more than one rank, ``lm_common.cstr_heads`` puts
+        ``tp_axis`` on the scan's head axis (the reference's rule, its
+        ``blocks.py:394``) and the stored split keeps ``tp_axis`` on
+        ``out_proj``'s rows and on ``gate_ln``; None (the layer whole on
+        every rank) otherwise."""
+        if self.mesh is None or self.tp == 1:
+            return None
+        spec = cstr_heads(self.dist, (1, 1, cfg.ssm_heads, cfg.ssm_head_dim), 2)
+        if spec[2] != self.tp_axis or not (_has(specs["out_proj"][0], self.tp_axis) and
+                                           _has(specs["gate_ln"][0], self.tp_axis)):
+            return None
+        hr = cfg.ssm_heads // self.tp
+        return self.rank * hr, hr
+
+    def ssd(self, cfg: LMConfig, lp: dict, specs: dict):
+        """(the SSD parameters as the compute reads them, the ``tp`` pair or
+        None).  Split over the heads (:meth:`ssd_heads`), the rank reads
+        ``in_proj``'s columns ``[z_r | x_r | B | C | dt_r]``, ``conv_w``'s
+        channels ``[x_r | B | C]``, entries ``r`` of ``A_log``, ``D`` and
+        ``dt_bias`` (each gathered whole in mode ``"split"``: the stored
+        blocks are contiguous runs of columns, not heads, and B and C's
+        columns get a partial gradient from every rank), and its stored
+        blocks of ``out_proj``'s rows and ``gate_ln``; otherwise every leaf
+        whole."""
+        if self.mesh is None:
+            return lp, None
+        heads = self.ssd_heads(cfg, specs)
+        if heads is None:
+            return self.whole(lp, specs), None
+        h0, hr = heads
+        di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+        x0, dr = h0 * hd, hr * hd
+        cols = ((x0, dr), (di + x0, dr), (2 * di, 2 * n), (2 * di + 2 * n + h0, hr))
+        w, conv = (self.get(lp[k], specs[k], "split") for k in ("in_proj", "conv_w"))
+        p = {"ln": self.get(lp["ln"], specs["ln"], self._mode("ln", "rep")),
+             "in_proj": torch.cat([w.narrow(-1, a, k) for a, k in cols], -1),
+             "conv_w": torch.cat([conv.narrow(-1, x0, dr), conv.narrow(-1, di, 2 * n)], -1)}
+        for k in ("A_log", "D", "dt_bias"):
+            p[k] = self.get(lp[k], specs[k], "split").narrow(-1, h0, hr)
+        for k in ("out_proj", "gate_ln"):
+            p[k] = self.get(lp[k], specs[k], "tp")
+        return p, self.tp_pair
 
     # -- FFN ------------------------------------------------------------------
 

@@ -55,9 +55,12 @@ divides its length; else the sequence whole (whisper's 1,500 frames on
   itself, and ``"kv_one"`` keeps a KV head shared by ranks.
 * ``blocks.py:104, 109, 115`` (``cstr_custom`` around the q-chunk scan):
   none; the flash kernel replaces ``attn_q_block`` chunking.
-* ``blocks.py:394`` (``cstr_heads`` on the SSD's x): none; the port runs an
-  SSD layer's scan whole on every rank of ``model`` over the gathered
-  sequence, its parameters gathered whole (ROADMAP.md).
+* ``blocks.py:394`` (``cstr_heads`` on the SSD's x): ``Layout.ssd_heads``,
+  the heads over ``model`` only when :func:`cstr_heads` splits them; each
+  rank then projects, convolves, scans, norms (its gated norm's mean square
+  summed over ``model``) and decodes its own heads (``Layout.ssd``,
+  ``blocks.ssd_block(tp=)``, ``ssd_decode(tp=)``); else the layer runs
+  whole on every rank.
 * ``_dp_if_divisible`` (batch over the data axes only when they divide
   it): :func:`_dp_if_divisible`, in :func:`cstr_act`'s spec; the mesh
   paths are given the rank's slice of the batch (``launch.mesh.batch_shard``)

@@ -42,7 +42,9 @@ axes (``launch.mesh.batch_shard``; ``dp_axes=()``: the whole batch on every
 rank).  Each layer gathers its leaves over ``data`` (FSDP) and runs the
 reference's tensor parallelism over ``tp_axis``: attention on the rank's
 heads, the dense and MoE FFNs on its ``d_ff`` block (each data rank routes
-its own tokens), the unembedding on its vocab block.  ``train_loss`` is the
+its own tokens), an SSD layer on its heads where ``tp_axis`` divides them
+(each rank projects, scans and decodes only those, its block of the SSM
+state in the cache), the unembedding on its vocab block.  ``train_loss`` is the
 reference's loss on the whole batch, ``value_and_grad`` returns the rank's
 blocks of its gradient and ``make_train_step`` updates them;
 ``prefill_step`` and ``serve_step`` return the logits of the rank's slice
@@ -334,7 +336,8 @@ def _attn_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tenso
 
 
 def _ssd_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, lay: Layout, specs) -> torch.Tensor:
-    return blocks.ssd_block(cfg, lay.whole(lp, specs), x, seq=lay.seq_pair)
+    p, tp = lay.ssd(cfg, lp, specs)
+    return blocks.ssd_block(cfg, p, x, tp=tp, seq=lay.seq_pair)
 
 
 def _shared_layer(cfg: LMConfig, sp: dict, x, positions, lay: Layout, specs) -> torch.Tensor:
@@ -569,8 +572,13 @@ def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor, m
                              index, cfg.sliding_window)
             x = _ffn(cfg, lp, x, lay, specs)
             continue
-        (ssm, sdim), (conv, cdim) = _cache_whole(lay, dims, cache, "ssm", i), _cache_whole(lay, dims, cache, "conv", i)
-        x, ssm, conv = blocks.ssd_decode(cfg, lay.whole(lp, specs), x, ssm, conv)
+        p, tp = lay.ssd(cfg, lp, specs)
+        conv, cdim = _cache_whole(lay, dims, cache, "conv", i)
+        if tp is None:
+            ssm, sdim = _cache_whole(lay, dims, cache, "ssm", i)
+        else:  # the rank's heads: its block of the state, split on h
+            ssm, sdim = cache["ssm"][i], None
+        x, ssm, conv = blocks.ssd_decode(cfg, p, x, ssm, conv, tp=tp)
         cache["ssm"][i].copy_(ssm if sdim is None else own_block(ssm, lay.mesh, lay.tp_axis, sdim))
         cache["conv"][i].copy_(conv if cdim is None else own_block(conv, lay.mesh, lay.tp_axis, cdim))
         if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
@@ -683,9 +691,10 @@ def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, lay:
             slots = kept % W
             cache["shared_pos"][:, slots.to(x.device)] = kept.to(device=x.device, dtype=torch.int32)
         for i, lp in enumerate(_layers(cfg, params)):
-            x, state, conv_tail = blocks.ssd_block(cfg, lay.whole(lp, specs), x, return_state=True, seq=lay.seq_pair)
+            p, tp = lay.ssd(cfg, lp, specs)
+            x, state, conv_tail = blocks.ssd_block(cfg, p, x, return_state=True, tp=tp, seq=lay.seq_pair)
             for name, t in (("ssm", state), ("conv", conv_tail)):
-                d = dims.get(name)
+                d = None if name == "ssm" and tp is not None else dims.get(name)  # split: the state is its heads
                 cache[name][i] = t if d is None else own_block(t, lay.mesh, lay.tp_axis, d - 1)
             if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
                 g = i // cfg.shared_attn_every
