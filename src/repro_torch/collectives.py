@@ -178,17 +178,6 @@ class _SumTP(torch.autograd.Function):
         return g, None, None
 
 
-class _PsumTP(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return all_reduce_over(x, mesh, (axis,))
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce_over(g, ctx.mesh, (ctx.axis,)), None, None
-
-
 class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -218,13 +207,11 @@ def sum_tp(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
 
 def psum_tp(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """The ranks' partial ``x`` summed over ``axis``, and in the backward
-    the ranks' gradients of the sum summed too (``enter_tp(sum_tp(x))``, as
-    ``jax.lax.psum`` transposes to itself): for a total each rank applies
-    to its own block of the work, whose downstream, and so whose gradient,
-    differs from rank to rank."""
-    if axis_size(mesh, axis) == 1:
-        return x
-    return _PsumTP.apply(x, mesh, axis)
+    the ranks' gradients of the sum summed too, as ``jax.lax.psum``
+    transposes to itself: for a total each rank applies to its own block of
+    the work, whose downstream, and so whose gradient, differs from rank to
+    rank."""
+    return enter_tp(sum_tp(x, mesh, axis), mesh, axis)
 
 
 def mean_over(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:

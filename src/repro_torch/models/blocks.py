@@ -463,11 +463,11 @@ def _gated_norm(y: torch.Tensor, scale: torch.Tensor, eps: float, width: int, tp
     return (yf * torch.rsqrt(ss / width + eps) * scale).to(y.dtype)
 
 
-def _own_channels(t: torch.Tensor, cfg: LMConfig, tp, dr: int) -> torch.Tensor:
+def _own_channels(t: torch.Tensor, di: int, x0: int, dr: int) -> torch.Tensor:
     """The rank's channels ``[x_r | B | C]`` of ``t`` [..., di + 2n] (all
-    channels, the conv state's layout): its heads' block of x, then B and C."""
-    x0 = tp[0].get_local_rank(tp[1]) * dr
-    return torch.cat([t[..., x0 : x0 + dr], t[..., cfg.d_inner :]], -1)
+    channels, the conv state's layout): its heads' block ``x0 : x0 + dr`` of
+    x, then B and C."""
+    return torch.cat([t[..., x0 : x0 + dr], t[..., di:]], -1)
 
 
 def _whole_channels(t: torch.Tensor, tp, dr: int) -> torch.Tensor:
@@ -519,15 +519,15 @@ def ssd_block(cfg: LMConfig, p: dict, x: torch.Tensor, return_state: bool = Fals
     return out
 
 
-def ssd_decode(cfg: LMConfig, p: dict, x, ssm_state, conv_state, tp=None):
+def ssd_decode(cfg: LMConfig, p: dict, x, ssm_state, conv_state, tp=None, h0: int = 0):
     """One-token SSD decode.
 
     x: [b, 1, d]; ssm_state: [b, h, p, n]; conv_state: [b, K-1, di+2n].
     Returns new (y, ssm_state', conv_state'), the state updated in x's type.
-    With ``tp`` (``Layout.ssd``'s split over the heads) ``ssm_state`` is the
-    rank's heads ``[b, h / tp, p, n]`` and only they are updated; the conv
-    state stays whole (the token's x channels gathered over the axis) and
-    the output is summed over it.
+    With ``tp`` (``Layout.ssd``'s split over the heads, the rank's first
+    head ``h0``) ``ssm_state`` is the rank's heads ``[b, h / tp, p, n]`` and
+    only they are updated; the conv state stays whole (the token's x
+    channels gathered over the axis) and the output is summed over it.
     """
     b = x.shape[0]
     di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
@@ -536,7 +536,7 @@ def ssd_decode(cfg: LMConfig, p: dict, x, ssm_state, conv_state, tp=None):
     hin = _tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp)
     zxbcdt = hin @ p["in_proj"]
     z, xbc, dt = torch.split(zxbcdt, [dr, dr + 2 * n, h], dim=-1)
-    mine = conv_state if tp is None else _own_channels(conv_state, cfg, tp, dr)
+    mine = conv_state if tp is None else _own_channels(conv_state, di, h0 * hd, dr)
     full = torch.cat([mine, xbc], dim=1)  # [b, K, ch]
     xbc_t = F.silu(torch.einsum("bkc,kc->bc", full, p["conv_w"]))[:, None, :]
     conv_state = full[:, 1:, :] if tp is None else torch.cat([conv_state[:, 1:], _whole_channels(xbc, tp, dr)], 1)

@@ -311,19 +311,19 @@ class Layout:
 
     def ssd(self, cfg: LMConfig, lp: dict, specs: dict):
         """(the SSD parameters as the compute reads them, the ``tp`` pair or
-        None).  Split over the heads (:meth:`ssd_heads`), the rank reads
-        ``in_proj``'s columns ``[z_r | x_r | B | C | dt_r]``, ``conv_w``'s
-        channels ``[x_r | B | C]``, entries ``r`` of ``A_log``, ``D`` and
-        ``dt_bias`` (each gathered whole in mode ``"split"``: the stored
-        blocks are contiguous runs of columns, not heads, and B and C's
-        columns get a partial gradient from every rank), and its stored
-        blocks of ``out_proj``'s rows and ``gate_ln``; otherwise every leaf
-        whole."""
+        None, the rank's first head).  Split over the heads
+        (:meth:`ssd_heads`), the rank reads ``in_proj``'s columns
+        ``[z_r | x_r | B | C | dt_r]``, ``conv_w``'s channels
+        ``[x_r | B | C]``, entries ``r`` of ``A_log``, ``D`` and ``dt_bias``
+        (each gathered whole in mode ``"split"``: the stored blocks are
+        contiguous runs of columns, not heads, and B and C's columns get a
+        partial gradient from every rank), and its stored blocks of
+        ``out_proj``'s rows and ``gate_ln``; otherwise every leaf whole."""
         if self.mesh is None:
-            return lp, None
+            return lp, None, 0
         heads = self.ssd_heads(cfg, specs)
         if heads is None:
-            return self.whole(lp, specs), None
+            return self.whole(lp, specs), None, 0
         h0, hr = heads
         di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
         x0, dr = h0 * hd, hr * hd
@@ -336,7 +336,15 @@ class Layout:
             p[k] = self.get(lp[k], specs[k], "split").narrow(-1, h0, hr)
         for k in ("out_proj", "gate_ln"):
             p[k] = self.get(lp[k], specs[k], "tp")
-        return p, self.tp_pair
+        return p, self.tp_pair, h0
+
+    @staticmethod
+    def ssd_cache_dims(dims: dict, tp) -> dict:
+        """:meth:`cache_dims` as an SSD layer reads and writes its cache:
+        split over its heads (``tp`` from :meth:`ssd`), the ``ssm`` block,
+        split on h (``cache_pspecs``), is the rank's own state and is read
+        and written as stored; every other split block is gathered whole."""
+        return dims if tp is None else {**dims, "ssm": None}
 
     # -- FFN ------------------------------------------------------------------
 

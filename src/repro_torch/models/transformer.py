@@ -336,7 +336,7 @@ def _attn_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tenso
 
 
 def _ssd_layer(cfg: LMConfig, lp: dict, x: torch.Tensor, lay: Layout, specs) -> torch.Tensor:
-    p, tp = lay.ssd(cfg, lp, specs)
+    p, tp, _ = lay.ssd(cfg, lp, specs)
     return blocks.ssd_block(cfg, p, x, tp=tp, seq=lay.seq_pair)
 
 
@@ -572,13 +572,10 @@ def serve_step(cfg: LMConfig, params: dict, cache: dict, tokens: torch.Tensor, m
                              index, cfg.sliding_window)
             x = _ffn(cfg, lp, x, lay, specs)
             continue
-        p, tp = lay.ssd(cfg, lp, specs)
-        conv, cdim = _cache_whole(lay, dims, cache, "conv", i)
-        if tp is None:
-            ssm, sdim = _cache_whole(lay, dims, cache, "ssm", i)
-        else:  # the rank's heads: its block of the state, split on h
-            ssm, sdim = cache["ssm"][i], None
-        x, ssm, conv = blocks.ssd_decode(cfg, p, x, ssm, conv, tp=tp)
+        p, tp, h0 = lay.ssd(cfg, lp, specs)
+        sdims = lay.ssd_cache_dims(dims, tp)
+        (ssm, sdim), (conv, cdim) = (_cache_whole(lay, sdims, cache, k, i) for k in ("ssm", "conv"))
+        x, ssm, conv = blocks.ssd_decode(cfg, p, x, ssm, conv, tp=tp, h0=h0)
         cache["ssm"][i].copy_(ssm if sdim is None else own_block(ssm, lay.mesh, lay.tp_axis, sdim))
         cache["conv"][i].copy_(conv if cdim is None else own_block(conv, lay.mesh, lay.tp_axis, cdim))
         if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
@@ -691,10 +688,11 @@ def _prefill(cfg: LMConfig, params: dict, batch: dict, max_len: int | None, lay:
             slots = kept % W
             cache["shared_pos"][:, slots.to(x.device)] = kept.to(device=x.device, dtype=torch.int32)
         for i, lp in enumerate(_layers(cfg, params)):
-            p, tp = lay.ssd(cfg, lp, specs)
+            p, tp, _ = lay.ssd(cfg, lp, specs)
             x, state, conv_tail = blocks.ssd_block(cfg, p, x, return_state=True, tp=tp, seq=lay.seq_pair)
+            sdims = lay.ssd_cache_dims(dims, tp)
             for name, t in (("ssm", state), ("conv", conv_tail)):
-                d = None if name == "ssm" and tp is not None else dims.get(name)  # split: the state is its heads
+                d = sdims.get(name)
                 cache[name][i] = t if d is None else own_block(t, lay.mesh, lay.tp_axis, d - 1)
             if cfg.block_kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
                 g = i // cfg.shared_attn_every
