@@ -26,7 +26,8 @@ repository's sources are not beside this script.  Otherwise, in order:
    the SSD scan's backward (both routes of ``ssd_scan.bwd_kernels``: the
    SIMT kernels, and the tensor-core states, chunk and sum kernels, which
    must ask the shared memory the wrapper counts) compiled with no spill
-   (``check_flash_bwd_ptxas``, ``check_ssd_bwd_ptxas``);
+   (``check_flash_bwd_ptxas``, ``check_ssd_bwd_ptxas``), the bf16-score
+   mode's forward and backward kernels among them;
 3. holds each kernel against its plain PyTorch version on the card, at every
    distinct layer shape of full-width SynthNet and of full-width ResNet50
    (microbatch of 2 images: the stride-2 7x7 stem over 3 channels, 1x1 convs
@@ -391,7 +392,27 @@ repository's sources are not beside this script.  Otherwise, in order:
    held to BF16_REL_TOL against its plain version on the same inputs and
    timed by the profiler's device time (``shard_scan_times``; the
    ``ssd_scan`` row's ``split heads``);
-16. prints the per-kernel JSON line (the ``flash_attention`` row is
+16. the bf16-score mode (the reference's ``attn_fp32_scores=False``), whose
+   kernels phases 6b and 11b hold first, after phases 6 and 11: the mode's
+   forward (``flash_fwd_mma_bf16_scores_kernel`` in bf16,
+   ``flash_fwd_bf16_scores_kernel`` in fp32) and backward (``"mma"`` route
+   in bf16, ``"simt"`` in fp32, ``bwd_kernels(route, d, False)``) against
+   the plain version in the mode on the same inputs, o, (m, l), dq, dk and
+   dv, at the served calls of BF16S_SERVED, the training shapes of
+   BF16S_TRAINED and a grid (every head dim in both types, GQA groups 1, 4
+   and 5, a window, no causal mask, ragged S, Skv other than Sq both
+   ways), held to BF16S_TOL beside the fp32-score function as the control,
+   which must miss; two backward calls give the same bits; the profiled
+   training shapes run exactly the mode's kernels; times by events and
+   device time beside the fp32-score kernels and the plain mode.  Then
+   (``drive_bf16_scores``) granite-3-2b trained at full size and
+   whisper-small served at full size with ``attn_fp32_scores=False``, each
+   with the counts set to 0 just before and read just after (the mode's
+   launches as the code runs them, the fp32-score kernels' none), the
+   training step's loss and every leaf held kernel path against plain path
+   (in bf16, and in fp32 beside the fp32-score control, which must miss),
+   whisper's prefill and teacher-forced decode logits held to BF16S_LM_TOL;
+17. prints the per-kernel JSON line (the ``flash_attention`` row is
    granite-3-2b's, naming the device function that served its prefill,
    with every other served attention call's times, bound, SDPA times and
    launches under keys that name the model and the call, and the
@@ -401,7 +422,9 @@ repository's sources are not beside this script.  Otherwise, in order:
    and host times, and zamba2-2.7b's times and launches under keys that
    name it, and the backward's ``bwd_*`` keys at both training shapes with
    the training runs' launches; the ``gemm`` row adds one phi3.5-moe
-   layer's backward times and the training run's launches), then
+   layer's backward times and the training run's launches; the
+   ``flash_attention_bf16_scores`` row is the mode's, at granite-3-2b's
+   shape, with phase 16's launches), then
    ``{"ok": true, "device": ...}`` last.
 """
 
@@ -411,6 +434,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -557,12 +581,17 @@ PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_b
                 "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_wgmma_kernel",
                 "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkdv_kernel", "ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel",
+                "flash_bwd_dkdv_kernel", "flash_fwd_mma_bf16_scores_kernel", "flash_fwd_bf16_scores_kernel",
+                "flash_bwd_dq_mma_bf16_scores_kernel", "flash_bwd_dkdv_mma_bf16_scores_kernel",
+                "flash_bwd_dq_bf16_scores_kernel", "flash_bwd_dkdv_bf16_scores_kernel",
+                "ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel",
                 "ssd_scan_bwd_states_mma_kernel", "ssd_scan_bwd_chunk_mma_kernel", "ssd_scan_bwd_mma_sum_kernel")
 #: the flash kernels as the profiler names them: forward bf16 on the tensor cores and fp32 on the SIMT
-#: pipes; the backward's delta pre-pass, and its dQ and dK/dV kernels of each type
-FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_mma_bf16_kernel|flash_fwd_kernel"
-                      r"|flash_bwd_(?:delta|dq_mma_bf16|dkdv_mma_bf16|dq_wgmma|dkdv_wgmma|dq|dkdv)_kernel)<[^>]*>)")
+#: pipes; the backward's delta pre-pass, and its dQ and dK/dV kernels of each type; each of the bf16-score
+#: mode's (``_bf16_scores_kernel``)
+FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_(?:mma_bf16_|mma_bf16_scores_|bf16_scores_|)kernel"
+                      r"|flash_bwd_(?:delta|dq_mma_bf16|dkdv_mma_bf16|dq_wgmma|dkdv_wgmma|dq|dkdv|dq_mma_bf16_scores"
+                      r"|dkdv_mma_bf16_scores|dq_bf16_scores|dkdv_bf16_scores)_kernel)<[^>]*>)")
 #: the GEMM's kernels as the profiler names them (wgmma, mma.sync tiles, fp32 FMA)
 GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 #: the SSD scan's kernels as the profiler names them: bf16 on the tensor cores, the SIMT one
@@ -647,6 +676,34 @@ GRAD_TOL = 1e-3
 #: mask dropped reads 7.8e-3 to 1.7e-2 in the loss and 0.88 to 1.0 at its
 #: worst leaf, the backward without delta 6.8 to 24
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 5e-4, 3e-2
+#: the bf16-score mode (phases 6b, 11b), kernel against plain on the same
+#: inputs: the root mean square of the difference over that of plain, per
+#: tensor (o and the row sums l; dq, dk, dv).  A bf16-rounded score that
+#: lands a step apart (the products' fp32 sums in another order) moves one
+#: probability by a bf16 step, so the difference is sparse and its max says
+#: little: the fp32-score function on the same inputs, whose every
+#: probability differs by a rounding, is the control and must miss.  Read
+#: on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): bf16 1.3e-4 at most
+#: forward, 3.5e-4 backward, the control 4.0e-3 and 6.0e-3 at least; fp32
+#: 0 (the SIMT kernels and cuBLAS add in one order here), the control
+#: 3.4e-3 and 5.2e-3 at least.
+BF16S_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+#: phase 16's granite-3-2b run with attn_fp32_scores=False: training steps, and the limits of the model
+#: in fp32 at the trained depth, kernel path against plain path: the loss's relative difference and the
+#: worst leaf's.  Read (PERF.md §6): the kernel path 0 in both (at 2 layers too); the fp32-score control
+#: 5.3e-5 and 5.6e-3 at 40 layers (1.6e-6 and 4.9e-3 at 2).  In bf16 the control cannot be told from
+#: the kernel path (loss 2.4e-5 against 1.6e-5, worst leaf 1.48e-2 against 1.38e-2: the knob's effect
+#: is under the bf16 model's own roundings), so there the kernel path is held as phase 13 holds it and
+#: the control is printed.
+BF16S_TRAIN_STEPS = 2
+BF16S_TRAIN_TOL = (1e-6, 1e-4)
+#: phase 16's whisper-small logits with attn_fp32_scores=False, kernel path against plain path, relative
+#: to max |logit|.  Read (PERF.md §6): fp32 1.57e-3, bf16 1.68e-2.  Unlike granite's step, the plain
+#: path's fp32 sums over the encoder's 1500 frames differ from the kernel's in the last bits and flip
+#: bf16-rounded scores, carried through 24 layers; the fp32-score model reads 3.35e-3 and 1.96e-2, so no
+#: limit here tells the mode from it: the mode's kernels are held call by call in phases 6b and 11b,
+#: and the fp32-score model is printed.
+BF16S_LM_TOL = {torch.float32: 5e-3, torch.bfloat16: 5e-2}
 #: the SSD and hybrid models' training check, kernel path against plain
 #: path beside SSD_TRAIN_CONTROLS, with the model in fp32 with bf16 scans
 #: (as hold_bf16_scans holds serving): the trained weights' first
@@ -707,9 +764,11 @@ def _ptxas_entries(source: str, mangled: str) -> dict[str, tuple[int, int, int]]
 
 def check_flash_ptxas() -> None:
     """Fail unless ``ptxas`` compiled both forward kernels,
-    ``flash_fwd_mma_bf16_kernel`` and the fp32 ``flash_fwd_kernel``, at
-    every head dim with no spill; print their registers."""
-    for kernel in ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel"):
+    ``flash_fwd_mma_bf16_kernel`` and the fp32 ``flash_fwd_kernel``, and
+    both of the bf16-score mode's, at every head dim with no spill; print
+    their registers."""
+    for kernel in ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "flash_fwd_mma_bf16_scores_kernel",
+                   "flash_fwd_bf16_scores_kernel"):
         seen = {int(d): v for d, v in _ptxas_entries("flash_attention", kernel + r"ILi(\d+)EE").items()}
         for d, (regs, st, ld) in sorted(seen.items()):
             print(f"[build] {kernel}<{d}>: {regs} registers, spill stores {st} B, spill loads {ld} B")
@@ -733,12 +792,13 @@ def check_flash_bwd_ptxas() -> None:
     and dK/dV at D 64 and 128; the delta pre-pass of each type; dQ and
     dK/dV at every head dim on ``mma.sync`` and on the SIMT pipes, the
     ``mma.sync`` dK/dV as one pass up to D 80 and as a dV pass and a dK
-    pass above) with no spill, and without making the wgmma kernels'
+    pass above; the bf16-score mode's dQ and dK/dV on both) with no spill, and without making the wgmma kernels'
     ``wgmma`` wait (C7517, C7518); print each one's registers."""
     seen = {_bwd_name(n): v for n, v in _ptxas_entries(
         "flash_attention", r"(flash_bwd_[a-z0-9_]+_kernelI(?:Li\d+E)*(?:13__nv_bfloat16|f)?E)").items()}
     want = {name for d in fa.HEAD_DIMS for route in fa.BWD_ROUTES
             if route != "wgmma" or d in fa.WGMMA_HEAD_DIMS for name in fa.bwd_kernels(route, d)}
+    want |= {name for d in fa.HEAD_DIMS for route in ("mma", "simt") for name in fa.bwd_kernels(route, d, False)}
     for name, (regs, st, ld) in sorted(seen.items()):
         print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     if set(seen) != want:
@@ -2348,8 +2408,10 @@ def _replaying_routes(recorded: list):
 
 @contextlib.contextmanager
 def _plain_versions():
-    """Every kernel's plain version in place of the kernel, on the model's path."""
-    with mock.patch.object(ops, "flash_attention", fa.flash_attention_plain), \
+    """Every kernel's plain version in place of the kernel, on the model's
+    path (flash's with the bf16-score mode's explicit backward,
+    ``ops.flash_attention_plain``)."""
+    with mock.patch.object(ops, "flash_attention", ops.flash_attention_plain), \
             mock.patch.object(ops, "ssd_scan", ssd.ssd_scan_plain), mock.patch.object(ops, "gemm", gm.gemm_plain):
         yield
 
@@ -2939,10 +3001,16 @@ class _FlashNoDelta(torch.autograd.Function):
 #: loss unchanged, the gradients of q and k wrong), and a causal mask dropped
 #: (every query sees the whole sequence)
 TRAIN_CONTROLS = {
-    "no delta": ("flash_attention",
-                 lambda q, k, v, *, causal=True, window=0: _FlashNoDelta.apply(q, k, v, causal, window)),
-    "not causal": ("flash_attention", lambda q, k, v, *, causal=True, window=0: fa.flash_attention_plain(
-        q, k, v, causal=False, window=window)),
+    "no delta": ("flash_attention", lambda q, k, v, *, causal=True, window=0, fp32_scores=True: _FlashNoDelta.apply(
+        q, k, v, causal, window)),
+    "not causal": ("flash_attention", lambda q, k, v, *, causal=True, window=0, fp32_scores=True:
+                   fa.flash_attention_plain(q, k, v, causal=False, window=window)),
+}
+#: the bf16-score mode's training check (phase 16): its control, in place of ``ops.flash_attention`` on the
+#: plain path, is the fp32-score function
+BF16S_TRAIN_CONTROLS = {
+    "fp32 scores": ("flash_attention", lambda q, k, v, *, causal=True, window=0, fp32_scores=True:
+                    fa.flash_attention_plain(q, k, v, causal=causal, window=window)),
 }
 
 
@@ -3311,6 +3379,316 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
     torch.cuda.empty_cache()
     check_resume(arch, dataclasses.replace(full, **RESUME_CUT[arch]))
     return {**launches, "peak_gib": peak, "step_ms": t_step * 1e3}
+
+
+# ---------------------------------------------------------------------------
+# The bf16-score mode (attn_fp32_scores=False): phases 6b, 11b and 16
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+#: the models whose served flash calls (``served_flash_calls``) phase 6b holds and times in the mode
+BF16S_SERVED = ("granite-3-2b", "phi3.5-moe-42b", "zamba2-2.7b", "nemotron-4-340b", "whisper-small")
+#: the training shapes phase 11b times, forward and backward (zamba2: its shared block)
+BF16S_TRAINED = ("granite-3-2b", "phi3.5-moe-42b", "zamba2-2.7b")
+
+
+def _rms_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Root mean square of ``got - want`` over that of ``want``."""
+    got, want = got.float(), want.float()
+    return ((got - want).square().mean().sqrt() / want.square().mean().sqrt().clamp_min(1e-30)).item()
+
+
+def _max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _hold_bf16s(name: str, desc: dict, pairs: dict, dt: torch.dtype) -> dict:
+    """Hold each ``name -> (kernel, plain, control)`` of the bf16-score mode:
+    the kernel's ``_rms_rel`` to plain within BF16S_TOL[dt], the control's
+    (the fp32-score function) beyond it for at least one tensor.  Returns
+    the readings."""
+    tol = BF16S_TOL[dt]
+    out = {}
+    for key, (got, want, ctl) in pairs.items():
+        out[key] = {"rms": _rms_rel(got, want), "max": _max_rel(got, want), "control_rms": _rms_rel(ctl, want)}
+    print(f"[bf16s] {name} {json.dumps({**desc, **out})}")
+    bad = {k: r["rms"] for k, r in out.items() if not r["rms"] <= tol}
+    if bad:
+        raise RuntimeError(f"{name} disagrees with its plain version at {desc}: rms {bad} > {tol}")
+    if not max(r["control_rms"] for r in out.values()) > tol:
+        raise RuntimeError(f"{name}: the fp32-score control meets the mode's tolerance {tol} at {desc}: {out}")
+    return out
+
+
+def _bf16s_cases(gen_cases: list[dict]) -> list[dict]:
+    """The mode's grid: ``gen_cases`` and every head dim in bf16 and fp32,
+    GQA groups 1, 4 and 5, a window, ragged S, no causal mask and a key
+    length other than the query's both ways (whisper's 448 x 1500 among
+    them)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    base = dict(b=2, h=8, kvh=2, s=200, d=64, dtype=bf16, causal=True, window=0)
+    return gen_cases + [dict(base, d=d, dtype=dt) for dt in (bf16, f32) for d in fa.HEAD_DIMS] + [
+        dict(base, h=4, kvh=4, s=65, d=16), dict(base, h=10, kvh=2, s=130, d=128, causal=False),
+        dict(base, s=300, d=80, window=50), dict(base, s=100, d=192, dtype=f32, window=16),
+        dict(base, s=15, skv=1000, causal=False), dict(base, s=448, skv=65, d=128),
+        dict(base, b=1, h=12, kvh=12, s=448, skv=1500, causal=False), dict(base, s=77, skv=33, dtype=f32, window=50),
+    ]
+
+
+def _draw_bhsd(case: dict, gen: torch.Generator):
+    """q, k, v and dO of ``case`` on the card as the model lays them out
+    (``[b, s, h, d]`` tensors as transposed views)."""
+    b, h, kvh, s, d, dt = (case[k] for k in ("b", "h", "kvh", "s", "d", "dtype"))
+    skv = case.get("skv", s)
+    draw = lambda n, heads: torch.randn((b, n, heads, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+    return draw(s, h), draw(skv, kvh), draw(skv, kvh), draw(s, h)
+
+
+def check_flash_bf16_scores(gen: torch.Generator) -> dict:
+    """Phase 6b: the bf16-score forward (``flash_attention(fp32_scores=
+    False)``: ``flash_fwd_mma_bf16_scores_kernel`` in bf16,
+    ``flash_fwd_bf16_scores_kernel`` in fp32) against
+    ``flash_attention_fwd_plain`` in the mode on the same inputs, o and the
+    (m, l) stats, beside the fp32-score kernel as the control
+    (``_hold_bf16s``), at the served flash calls of BF16S_SERVED and the
+    grid of ``_bf16s_cases``.  Returns the ``flash_attention_bf16_scores``
+    row, with its forward times at granite-3-2b's shape (kernel, the
+    fp32-score kernel and the plain mode by events and device time; no
+    PyTorch call computes bf16-rounded scores, so ``library_ms`` is null and
+    SDPA's time stands beside it as the fp32-score yardstick)."""
+    served = [c for c in served_flash_calls() if c["model"].split()[0] in BF16S_SERVED]
+    row, max_err = None, 0.0
+    for case in _bf16s_cases(served):
+        q, k, v, _ = _draw_bhsd(case, gen)
+        kw = dict(causal=case["causal"], window=case["window"])
+        o, stats = fa.flash_attention(q, k, v, return_lse=True, fp32_scores=False, **kw)
+        po, pstats = fa.flash_attention_fwd_plain(q, k, v, fp32_scores=False, **kw)
+        ctl = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        desc = {**case, "skv": case.get("skv", case["s"]), "dtype": str(case["dtype"]).removeprefix("torch.")}
+        _hold_bf16s("flash_attention bf16 scores", desc, {"o": (o, po, ctl)}, case["dtype"])
+        # m is a bf16 score: a step (2^-7 of it at most) apart where the row's largest score rounds apart;
+        # l then moves with it
+        m_err, l_err = _max_rel(stats[0], pstats[0]), _rms_rel(stats[1], pstats[1])
+        if not (m_err <= 2.0**-7 and l_err <= BF16S_TOL[case["dtype"]]):
+            raise RuntimeError(f"flash_attention bf16 scores: (m, l) disagree with plain at {desc}: m {m_err}, "
+                               f"l {l_err}")
+        max_err = max(max_err, (o.float() - po.float()).abs().max().item())
+        if case.get("model") == "granite-3-2b":
+            flops, nbytes = fa.cost(q, k, v, case["causal"], case["window"])
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+
+            def kern():
+                return fa.flash_attention(q, k, v, fp32_scores=False, **kw)
+
+            def fp32():
+                return fa.flash_attention(q, k, v, **kw)
+
+            def plain():
+                return fa.flash_attention_plain(q, k, v, fp32_scores=False, **kw)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qc, kc, vc, is_causal=case["causal"], enable_gqa=True)
+
+            row = dict(ms=_time_ms(kern), plain_ms=_time_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=None, fp32_scores_ms=_time_ms(fp32), sdpa_ms=_time_ms(sdpa))
+            row["device_ms"], ran = _device_ms(kern)
+            row["fp32_scores_device_ms"], _ = _device_ms(fp32)
+            row["plain_device_ms"], _ = _device_ms(plain)
+            row["sdpa_device_ms"], _ = _device_ms(sdpa, need=False)
+            row["device_functions"] = sorted(m.group(1) for n in ran if (m := FLASH_FN.search(n)))
+            if row["device_functions"] != [f"flash_fwd_mma_bf16_scores_kernel<{case['d']}>"]:
+                raise RuntimeError(f"the bf16-score forward at granite's shape ran {ran}")
+            print(f"[bf16s] flash_attention bf16 scores at granite-3-2b's shape: "
+                  f"{json.dumps({**row, 'flops': flops, 'bytes': nbytes})} ({_card()})")
+        del q, k, v, o, po, ctl
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bf16_scores", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:64", "max_abs_err": max_err, **row}
+
+
+def check_flash_bwd_bf16_scores(gen: torch.Generator) -> dict:
+    """Phase 11b: the bf16-score backward (``flash_attention_bwd(fp32_scores=
+    False)``) from the kernel's own o and (m, l) against
+    ``flash_attention_bwd_plain`` in the mode from plain's, dq, dk and dv,
+    beside the fp32-score plain backward as the control (``_hold_bf16s``),
+    on BF16S_TRAINED's training shapes and ``_bf16s_cases``' grid; fails
+    unless the route is ``mma`` (bf16) or ``simt`` (fp32), unless two calls
+    give the same bits, and unless the profiled training shapes ran exactly
+    ``flash_attention.bwd_kernels`` of the mode.  Times the training shapes
+    forward and backward: the mode's kernels, the fp32-score kernels and
+    the plain mode, by events and device time.  Returns the row's backward
+    keys (granite-3-2b's, the others under keys that name them)."""
+    trained = [dict(b=TRAIN_BATCH, h=c.n_heads, kvh=c.n_kv_heads, s=TRAIN_SEQ, d=c.hd, dtype=torch.bfloat16,
+                    causal=True, window=0, model=arch) for arch in BF16S_TRAINED for c in [get_config(arch)]]
+    out, max_err = {}, 0.0
+    for case in _bf16s_cases(trained):
+        q, k, v, do = _draw_bhsd(case, gen)
+        dt, d = case["dtype"], case["d"]
+        kw = dict(causal=case["causal"], window=case["window"])
+        o, stats = fa.flash_attention(q, k, v, return_lse=True, fp32_scores=False, **kw)
+        po, pstats = fa.flash_attention_fwd_plain(q, k, v, fp32_scores=False, **kw)
+        route = fa.bwd_route(q, k, v, o, do, fp32_scores=False)
+        if route != ("simt" if dt == torch.float32 else "mma"):
+            raise RuntimeError(f"the bf16-score backward took the {route} route at {case}")
+        got = fa.flash_attention_bwd(q, k, v, o, stats, do, fp32_scores=False, **kw)
+        again = fa.flash_attention_bwd(q, k, v, o, stats, do, fp32_scores=False, **kw)
+        plain = fa.flash_attention_bwd_plain(q, k, v, po, pstats, do, fp32_scores=False, **kw)
+        o32, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+        ctl = fa.flash_attention_bwd_plain(q, k, v, o32, lse, do, **kw)
+        torch.cuda.synchronize()
+        desc = {**case, "skv": case.get("skv", case["s"]), "dtype": str(dt).removeprefix("torch."), "route": route}
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"the bf16-score backward: two calls differ at {desc}")
+        _hold_bf16s("flash_attention_bwd bf16 scores", desc,
+                    {n: (g, w, c) for n, g, w, c in zip(("dq", "dk", "dv"), got, plain, ctl)}, dt)
+        max_err = max(max_err, max((g.float() - w.float()).abs().max().item() for g, w in zip(got, plain)))
+        if "model" in case:
+            flops, nbytes = fa.bwd_cost(q, k, case["causal"], case["window"])
+            bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            o2, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+
+            def kern():
+                return fa.flash_attention_bwd(q, k, v, o, stats, do, fp32_scores=False, **kw)
+
+            def fp32():
+                return fa.flash_attention_bwd(q, k, v, o2, lse2, do, **kw)
+
+            def plain_bwd():
+                return fa.flash_attention_bwd_plain(q, k, v, po, pstats, do, fp32_scores=False, **kw)
+
+            def fwd(fp32_scores):
+                return lambda: fa.flash_attention(q, k, v, fp32_scores=fp32_scores, **kw)
+
+            timed = dict(bwd_ms=_time_ms(kern), bwd_plain_ms=_time_ms(plain_bwd), bwd_bound_ms=bound_ms,
+                         bwd_bound_by=bound_by, bwd_library_ms=None, bwd_fp32_scores_ms=_time_ms(fp32))
+            timed["bwd_device_ms"], ran = _device_ms(kern)
+            timed["bwd_fp32_scores_device_ms"], _ = _device_ms(fp32)
+            timed["bwd_device_functions"] = sorted(m.group(1) for n in ran if (m := FLASH_FN.search(n)))
+            want = fa.bwd_kernels(route, d, fp32_scores=False)
+            if timed["bwd_device_functions"] != sorted(want) or sum(ran.values()) != len(want):
+                raise RuntimeError(f"the bf16-score backward at {case['model']}'s shape ran {ran}, want {want}")
+            fwds = dict(fwd_ms=_time_ms(fwd(False)), fwd_fp32_scores_ms=_time_ms(fwd(True)),
+                        fwd_device_ms=_device_ms(fwd(False))[0], fwd_fp32_scores_device_ms=_device_ms(fwd(True))[0])
+            print(f"[bf16s] flash_attention bf16 scores at {case['model']}'s training shape: "
+                  f"{json.dumps({**timed, **fwds, 'flops': flops, 'bytes': nbytes})} ({_card()})")
+            prefix = "" if not out else f"{case['model']} "  # granite's forward is phase 6b's row
+            out.update({prefix + key: val for key, val in {**timed, **(fwds if prefix else {})}.items()})
+        del q, k, v, do, o, po, got, again, plain, ctl
+    torch.cuda.empty_cache()
+    out["bwd_max_abs_err"] = max_err
+    return out
+
+
+def _mode_counts() -> dict[str, int]:
+    return {"flash_attention_bf16_scores": fa.bf16_scores_launches,
+            "flash_attention_bf16_scores_bwd": fa.bf16_scores_bwd_launches,
+            "flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches}
+
+
+def _zero_mode_counts() -> None:
+    fa.bf16_scores_launches = fa.bf16_scores_bwd_launches = fa.launches = fa.bwd_launches = 0
+
+
+def drive_bf16_scores(failures: list[str]) -> dict:
+    """Phase 16: the main paths with ``attn_fp32_scores=False``, each with
+    the counts set to 0 just before and read just after.  (a) granite-3-2b
+    trained (``launch.train.train``, bf16, full size, BF16S_TRAIN_STEPS
+    steps): fails unless it launched the mode's forward and backward as the
+    code runs them (``_train_launches``) and the fp32-score kernels never;
+    then the loss and every leaf's gradient at the trained depth, kernel
+    path against plain path (``train_readings``): in bf16 held to
+    TRAIN_LOSS_TOL / TRAIN_GRAD_TOL with BF16S_TRAIN_CONTROLS (the
+    fp32-score function) printed; with the model in fp32 held to
+    BF16S_TRAIN_TOL, where the control must miss both limits.  (b) whisper-small served (``launch.serve.serve``, bf16,
+    full size, batch 4, prompt 448 of 1500 frames): fails unless its prefill
+    launched the mode's forward once per attention call (its 12 encoder
+    layers, self and cross attention in its 12 decoder layers) and the
+    fp32-score forward never (decode scores in torch ops, as the
+    reference's: none); then prefill and LM_FORCED teacher-forced decode
+    steps, kernel path against plain path in bf16 and fp32 (``_forced_logits``),
+    held to BF16S_LM_TOL, the fp32-score model printed beside.
+    Returns the launches of both runs."""
+    out = {}
+    arch = "granite-3-2b"
+    cfg = dataclasses.replace(get_config(arch), attn_fp32_scores=False)
+    _zero_mode_counts()
+    res = train(cfg, steps=BF16S_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=0, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    counts = _mode_counts()
+    want = _train_launches(cfg, BF16S_TRAIN_STEPS)
+    want = {"flash_attention_bf16_scores": want["flash_attention"], "flash_attention_bf16_scores_bwd":
+            want["flash_attention_bwd"], "flash_attention": 0, "flash_attention_bwd": 0}
+    print(f"[bf16s] {arch} trained with attn_fp32_scores=False: losses {res['losses']}, launches {counts} "
+          f"({_card()})")
+    if counts != want or not all(math.isfinite(x) for x in res["losses"]):
+        raise RuntimeError(f"{arch} with bf16 scores: launches {counts} (want {want}), losses {res['losses']}")
+    out[f"{arch} train"] = counts
+    params = res["state"]["params"]
+    del res
+    torch.cuda.empty_cache()
+    batch = next(make_batch_iterator(cfg, DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ, vocab=cfg.vocab, seed=0),
+                                     start_step=BF16S_TRAIN_STEPS, device="cuda"))
+    # in bf16 the kernel path is held as phase 13 holds it; the control is printed (BF16S_TRAIN_TOL)
+    name = f"{arch} bf16 at {cfg.n_layers} layers, attn_fp32_scores=False"
+    readings = train_readings(cfg, params, batch, BF16S_TRAIN_CONTROLS)
+    hold_train_readings(name, {"kernel": readings["kernel"]}, failures, loss_controls=())
+    r = readings["fp32 scores"]
+    print(f"[bf16s] {name}, the fp32-score control against the plain path (printed): loss relative "
+          f"{r['loss']:.3e}, worst leaf {max(r['leaves'].values()):.3e}")
+    # the model in fp32 at the trained depth, the control held
+    c, p = dataclasses.replace(cfg, dtype=torch.float32), _cast(params, torch.float32)
+    hold_train_readings(f"{arch} fp32 at {cfg.n_layers} layers, attn_fp32_scores=False",
+                        train_readings(c, p, batch, BF16S_TRAIN_CONTROLS), failures, BF16S_TRAIN_TOL,
+                        loss_controls=("fp32 scores",))
+    del params, p, batch
+    torch.cuda.empty_cache()
+
+    arch = "whisper-small"
+    cfg = dataclasses.replace(get_config(arch), attn_fp32_scores=False)
+    _zero_mode_counts()
+    res = serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    counts = _mode_counts()
+    attn = cfg.enc_layers + 2 * cfg.n_layers
+    print(f"[bf16s] {arch} served with attn_fp32_scores=False: prefill_s {res['prefill_s']:.6f}, decode_tok_per_s "
+          f"{res['decode_tok_per_s']:.3f}, launches {counts} ({_card()})")
+    if counts != {"flash_attention_bf16_scores": attn, "flash_attention_bf16_scores_bwd": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0}:
+        raise RuntimeError(f"{arch} with bf16 scores launched {counts}, want the mode's forward {attn} times")
+    out[f"{arch} serve"] = counts
+    prompt = make_batch(cfg, LM_BATCH, LM_PROMPT, 0, "cuda")
+    forced = res["tokens"][:, :LM_FORCED]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        c, p = dataclasses.replace(cfg, dtype=dt), _cast(params, dt)
+        got = _forced_logits(c, p, prompt, forced)
+        with _plain_versions():
+            want = _forced_logits(c, p, prompt, forced)
+            ctl = _forced_logits(dataclasses.replace(c, attn_fp32_scores=True), p, prompt, forced)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        err, ctl_err = (got - want).abs().max().item() / scale, (ctl - want).abs().max().item() / scale
+        name = f"{arch} {str(dt).removeprefix('torch.')} with attn_fp32_scores=False"
+        print(f"[bf16s] {name}: logits kernel vs plain relative {err:.3e} (tolerance {BF16S_LM_TOL[dt]}), "
+              f"the fp32-score model {ctl_err:.3e} (printed)")
+        if not (torch.isfinite(got).all() and err <= BF16S_LM_TOL[dt]):
+            failures.append(f"{name}: kernel path against plain path {err} > {BF16S_LM_TOL[dt]}")
+            print(f"[FAIL] {failures[-1]}")
+        del p, got, want, ctl
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4366,6 +4744,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels["flash_attention"] = check_flash(gen)
+    kernels["flash_attention_bf16_scores"] = check_flash_bf16_scores(gen)
     kernels["ssd_scan"] = check_ssd(gen)
     kernels["gemm"] = check_gemm(gen)
     print(f"[check] LM kernels done in {time.perf_counter() - t0:.1f} s")
@@ -4384,6 +4763,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels["flash_attention"].update(check_flash_bwd(gen))
+    kernels["flash_attention_bf16_scores"].update(check_flash_bwd_bf16_scores(gen))
     kernels["ssd_scan"].update(check_ssd_bwd(gen))
     # phase 15's scan times at a rank's heads, beside the scan's own: taken after the training phases, the
     # profiler kept no device record of them in 8 windows (PERF.md)
@@ -4432,6 +4812,15 @@ def main() -> int:
                 print(f"[FAIL] {failures[-1]}")
     print(f"[shard] done in {time.perf_counter() - t0:.1f} s, launches (1, 1) {one}, two ranks {two}, dry run {dry} "
           f"({card})")
+
+    # phase 16: the bf16-score mode on the main paths, each with its counts from 0
+    t0 = time.perf_counter()
+    bf16s = drive_bf16_scores(failures)
+    row = kernels["flash_attention_bf16_scores"]
+    row["launches"] = bf16s["granite-3-2b train"]["flash_attention_bf16_scores"]
+    row["bwd_launches"] = bf16s["granite-3-2b train"]["flash_attention_bf16_scores_bwd"]
+    row["whisper-small launches"] = bf16s["whisper-small serve"]["flash_attention_bf16_scores"]
+    print(f"[bf16s] done in {time.perf_counter() - t0:.1f} s, launches {json.dumps(bf16s)} ({card})")
 
     print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

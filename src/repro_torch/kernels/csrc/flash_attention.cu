@@ -30,6 +30,10 @@
 // another (mma.sync issues in order).  A persistent schedule and wgmma with
 // TMA are the next steps (PERF.md).
 //
+// Each forward and backward kernel below also has a bf16-score variant
+// (*_bf16_scores_kernel, the reference's attn_fp32_scores=False) compiled
+// from the same body under a template flag: see the note before bfr().
+//
 // bf16: flash_fwd_mma_bf16_kernel<D>, D in {16, 32, 64, 80, 128, 192}, on the
 // tensor cores.
 // - Grid: one block per (batch*q-head, q tile of BQ = 16 * warps rows); each
@@ -205,10 +209,92 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
-__global__ void __launch_bounds__(mma_warps<D>() * 32, mma_min_blocks<D>())
-flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                          bf16* __restrict__ o, float* __restrict__ lse, AttnShape p, int vec16) {
+// ---------------------------------------------------------------------------
+// The bf16-score mode (the reference's attn_fp32_scores=False)
+// ---------------------------------------------------------------------------
+//
+// Each step of the reference's bf16 softmax is rounded to bf16 (to nearest,
+// ties to even) and held in fp32; every operation is an IEEE fp32 one with
+// its own rounding (__fdiv_rn, __fmul_rn, ...: no reciprocal, no FMA
+// contraction), as XLA evaluates a bf16 op in fp32 and rounds the result:
+//   s = bf16(bf16(q.k^T) / c),  c = bf16(sqrt(D)) (flash_attention.py::score_divisor)
+//   m = max s,  u = bf16(exp(bf16(s - m))),  l = bf16(sum u, in fp32),  y = bf16(u / l)
+// and the backward, jax.grad's op by op:
+//   g = bf16(dO.V^T),  R = sum_row bf16(bf16(g * bf16(1 / bf16(l * l))) * u), in bf16 (TreeSum)
+//   dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c),  dQ = dS'.K,  dK = dS'^T.Q,  dV = y^T.dO
+// The online softmax cannot give bf16(exp(bf16(s - m))) at the row's final
+// max, so the forward sweeps a q tile's keys three times (max; sum; y.V) and
+// saves m and l; the backward's dQ kernels sweep twice (R; dQ) and leave R
+// for the dK/dV kernels.
+
+__device__ __forceinline__ float bfr(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// s = bf16(bf16(acc) / c) of a q.k^T accumulator.
+__device__ __forceinline__ float bf16_score(float acc, float c) { return bfr(__fdiv_rn(bfr(acc), c)); }
+
+// u = bf16(exp(bf16(s - m))): 0 where s is masked (-inf), NaN for a row whose max is -inf (it sees no key).
+__device__ __forceinline__ float bf16_exp(float s, float m) { return bfr(expf(bfr(__fsub_rn(s, m)))); }
+
+// The levels of XLA's CPU tree reduction over a row of Skv values
+// (flash_attention.py::tree_levels): while more than 32 remain they are
+// padded to a multiple of 32, lo[k] zeros in front, and each window of 32
+// summed from its first element on; n[k] values enter level k.  The last
+// <= 32 values are summed in order.
+struct TreeLevels {
+  int levels;
+  int lo[3], n[3];
+};
+
+// A running bf16 sum of one row's values, fed in order of their index j
+// (tree_sum in flash_attention.py): acc[k] holds level k's open window.
+// Leading values the caller skips must be zeros (every accumulator is 0
+// then), and trailing ones too: flush() closes the open windows as the
+// zeros would.
+struct TreeSum {
+  float acc[3], top;
+  __device__ __forceinline__ void reset() { acc[0] = acc[1] = acc[2] = top = 0.f; }
+  __device__ __forceinline__ void add(float x, int j, const TreeLevels& t) {
+    if (t.levels == 0) {
+      top = bfr(__fadd_rn(top, x));
+      return;
+    }
+    acc[0] = bfr(__fadd_rn(acc[0], x));
+    int idx = j;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k >= t.levels || ((idx + t.lo[k]) % 32 != 31 && idx != t.n[k] - 1)) return;  // window still open
+      const float w = acc[k];
+      acc[k] = 0.f;
+      idx = (idx + t.lo[k]) / 32;
+      if (k + 1 == t.levels) {
+        top = bfr(__fadd_rn(top, w));
+      } else {
+        acc[k + 1] = bfr(__fadd_rn(acc[k + 1], w));
+      }
+    }
+  }
+  __device__ __forceinline__ float flush(const TreeLevels& t) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k >= t.levels) break;
+      if (k + 1 == t.levels) {
+        top = bfr(__fadd_rn(top, acc[k]));
+      } else {
+        acc[k + 1] = bfr(__fadd_rn(acc[k + 1], acc[k]));
+      }
+      acc[k] = 0.f;
+    }
+    return top;
+  }
+};
+
+// The bf16 forward; BF16S: the bf16-score mode (three sweeps of the keys,
+// m and l to `lse` [2][B * H * Sq] in place of the log-sum-exp).
+template <int D, bool BF16S>
+__device__ __forceinline__ void flash_fwd_mma_bf16_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                                                        float* __restrict__ lse, const AttnShape& p, int vec16) {
+  constexpr int NSWEEP = BF16S ? 3 : 1;
   constexpr int WARPS = mma_warps<D>();
   constexpr int THREADS = WARPS * 32;
   constexpr int BQ = WARPS * 16;
@@ -243,18 +329,21 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   if (p.causal) kt_end = min(kt_end, q_last / MBK + 1);  // top-left: keys up to the block's last row
   const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / MBK : 0;
 
-  auto load_kv = [&](int kt, int stage) {
-    const int k0 = kt * MBK;
+  // the block's key tiles, once for each sweep: step it is tile kt_begin + it % nk of sweep it / nk
+  const int nk = max(kt_end - kt_begin, 0), steps = NSWEEP * nk;
+  auto load_kv = [&](int it, int stage) {
+    const int k0 = (kt_begin + (BF16S ? it % nk : it)) * MBK;
     bf16* ks = ring + stage * STAGE;
     load_rows<MBK, D, THREADS>(ks, kb + k0 * p.sks, p.sks, p.Skv - k0, vec16, tid);
-    load_rows<MBK, D, THREADS>(ks + MBK * LD, vb + k0 * p.svs, p.svs, p.Skv - k0, vec16, tid);
+    if (!BF16S || it >= 2 * nk)  // the bf16-score mode's max and sum sweeps read no V
+      load_rows<MBK, D, THREADS>(ks + MBK * LD, vb + k0 * p.svs, p.svs, p.Skv - k0, vec16, tid);
   };
 
   load_rows<BQ, D, THREADS>(Qs, qb + q0 * p.sqs, p.sqs, p.Sq - q0, vec16, tid);
   cp_async_commit();
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (kt_begin + st < kt_end) load_kv(kt_begin + st, st);
+    if (st < steps) load_kv(st, st);
     cp_async_commit();
   }
   cp_async_wait<STAGES - 1>();  // Q has landed (this thread's copies)
@@ -276,12 +365,28 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float l[2] = {0.f, 0.f};              // this lane's share of the normaliser
   const float c = p.scale * 1.4426950408889634f;  // exp(x * scale) = exp2(x * c)
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int stage = (kt - kt_begin) % STAGES;
+  for (int it = 0; it < steps; ++it) {
+    const int stage = it % STAGES;
+    const int sweep = BF16S ? it / nk : 0, kt = kt_begin + (BF16S ? it % nk : it);
     cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
     __syncthreads();              // ... everyone's; tile kt - 1 (and Q) is no longer read
-    if (kt + STAGES - 1 < kt_end) load_kv(kt + STAGES - 1, (stage + STAGES - 1) % STAGES);
+    if (it + STAGES - 1 < steps) load_kv(it + STAGES - 1, (stage + STAGES - 1) % STAGES);
     cp_async_commit();
+    if (BF16S && it == nk) {  // the max sweep is done: the row's max over its 4 lanes
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+        m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+      }
+    }
+    if (BF16S && it == 2 * nk) {  // the sum sweep is done: l = bf16(the row's sum over its 4 lanes)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        l[h] = bfr(l[h]);
+      }
+    }
 
     const bf16* ks = ring + stage * STAGE;
     const bf16* vs = ks + MBK * LD;
@@ -325,6 +430,47 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           const bool ok = j < p.Skv && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
           if (!ok) s[nt][e] = -INFINITY;
         }
+    }
+
+    if constexpr (BF16S) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = bf16_score(s[nt][e], p.scale);
+      if (sweep == 0) {  // this lane's share of the row max
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
+          m[1] = fmaxf(m[1], fmaxf(s[nt][2], s[nt][3]));
+        }
+        continue;
+      }
+      if (sweep == 1) {  // this lane's share of the row sum, in fp32
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) l[e / 2] = __fadd_rn(l[e / 2], bf16_exp(s[nt][e], m[e / 2]));
+        continue;
+      }
+      uint32_t pf[PK][4];  // y = bf16(u / l) as the A fragments of y.V
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[e] = bfr(__fdiv_rn(bf16_exp(s[nt][e], m[e / 2]), l[e / 2]));
+        pf[nt / 2][(nt % 2) * 2] = pack_bf16(y[0], y[1]);
+        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(y[2], y[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+        for (int dt = 0; dt < DT; dt += 2) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, vs + (kk * 16 + lane % 16) * LD + dt * 8 + (lane / 16) * 8);
+          mma_bf16(acc[dt], pf[kk], r[0], r[1]);
+          mma_bf16(acc[dt + 1], pf[kk], r[2], r[3]);
+        }
+      continue;
     }
 
     float mx[2] = {m[0], m[1]};
@@ -377,25 +523,49 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring: stage 0 holds the output
+  float inv[2];     // what the accumulator is multiplied by
+  if constexpr (BF16S) {
+    // y is normalised already; l is NaN for a row that sees no key, and 0 where the block has no key
+    // tile at all: both NaN, as in _sdpa
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);  // 0 only for a row that sees no key: NaN, as in _sdpa
-  }
-  if (lse != nullptr && lane % 4 == 0) {  // log-sum-exp of the scaled scores, for the backward
+    for (int h = 0; h < 2; ++h) inv[h] = l[h] > 0.f ? 1.f : NAN;
+    if (lse != nullptr && lane % 4 == 0) {  // m and l, for the backward
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = r0 + lane / 4 + h * 8;
+        if (i < p.Sq) {
+          lse[(long long)blockIdx.x * p.Sq + i] = m[h];
+          lse[((long long)gridDim.x + blockIdx.x) * p.Sq + i] = l[h];
+        }
+      }
+    }
+  } else {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int i = r0 + lane / 4 + h * 8;
-      if (i < p.Sq) lse[(long long)blockIdx.x * p.Sq + i] = m[h] * p.scale + logf(l[h]);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);  // 0 only for a row that sees no key: NaN, as in _sdpa
+    }
+    if (lse != nullptr && lane % 4 == 0) {  // log-sum-exp of the scaled scores, for the backward
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = r0 + lane / 4 + h * 8;
+        if (i < p.Sq) lse[(long long)blockIdx.x * p.Sq + i] = m[h] * p.scale + logf(l[h]);
+      }
     }
   }
   bf16* os = ring + warp * 16 * LD;  // this warp's 16 rows
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     bf16* cell = os + (lane / 4) * LD + dt * 8 + (lane % 4) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(cell) = __floats2bfloat162_rn(acc[dt][0] / l[0], acc[dt][1] / l[0]);
-    *reinterpret_cast<__nv_bfloat162*>(cell + 8 * LD) =
-        __floats2bfloat162_rn(acc[dt][2] / l[1], acc[dt][3] / l[1]);
+    if constexpr (BF16S) {
+      *reinterpret_cast<__nv_bfloat162*>(cell) = __floats2bfloat162_rn(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
+      *reinterpret_cast<__nv_bfloat162*>(cell + 8 * LD) =
+          __floats2bfloat162_rn(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(cell) = __floats2bfloat162_rn(acc[dt][0] / l[0], acc[dt][1] / l[0]);
+      *reinterpret_cast<__nv_bfloat162*>(cell + 8 * LD) =
+          __floats2bfloat162_rn(acc[dt][2] / l[1], acc[dt][3] / l[1]);
+    }
   }
   __syncwarp();
   constexpr int CPR = D / 8;  // 16 * CPR chunks of 16 bytes, CPR / 2 per lane
@@ -416,11 +586,26 @@ flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 }
 
 template <int D>
+__global__ void __launch_bounds__(mma_warps<D>() * 32, mma_min_blocks<D>())
+flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                          bf16* __restrict__ o, float* __restrict__ lse, AttnShape p, int vec16) {
+  flash_fwd_mma_bf16_body<D, false>(q, k, v, o, lse, p, vec16);
+}
+
+// The bf16-score mode: p.scale is the divisor bf16(sqrt(D)); lse gets m, then l.
+template <int D>
+__global__ void __launch_bounds__(mma_warps<D>() * 32, mma_min_blocks<D>())
+flash_fwd_mma_bf16_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                                 bf16* __restrict__ o, float* __restrict__ lse, AttnShape p, int vec16) {
+  flash_fwd_mma_bf16_body<D, true>(q, k, v, o, lse, p, vec16);
+}
+
+template <int D, bool BF16S>
 int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, const AttnShape& p, int vec16,
                cudaStream_t stream) {
   constexpr int WARPS = mma_warps<D>();
   constexpr int smem = mma_smem_bytes<D>();
-  auto kernel = flash_fwd_mma_bf16_kernel<D>;
+  auto kernel = BF16S ? flash_fwd_mma_bf16_scores_kernel<D> : flash_fwd_mma_bf16_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + 16 * WARPS - 1) / (16 * WARPS)));
@@ -450,10 +635,13 @@ constexpr int smem_floats() {
   return 2 * D * (BQ + PAD) + BK * (D + PAD) + BK * (BQ + PAD);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 float* __restrict__ o, float* __restrict__ lse, AttnShape p) {
+// The fp32 forward; BF16S: the bf16-score mode (three sweeps of the keys,
+// m and l to `lse` [2][B * H * Sq] in place of the log-sum-exp).
+template <int D, bool BF16S>
+__device__ __forceinline__ void flash_fwd_body(const float* __restrict__ q, const float* __restrict__ k,
+                                               const float* __restrict__ v, float* __restrict__ o,
+                                               float* __restrict__ lse, const AttnShape& p) {
+  constexpr int NSWEEP = BF16S ? 3 : 1;
   constexpr int LDT = BQ + PAD;  // row length of the transposed tiles
   constexpr int LDV = D + PAD;
   constexpr int V4 = D / 4;                    // 4-element vectors per row
@@ -505,16 +693,24 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   int kt_end = (p.Skv + BK - 1) / BK;
   if (p.causal) kt_end = min(kt_end, q_last / BK + 1);
   const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
+  // the block's key tiles, once for each sweep: step it is tile kt_begin + it % nk of sweep it / nk
+  const int nk = max(kt_end - kt_begin, 0);
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  for (int it = 0; it < NSWEEP * nk; ++it) {
+    const int sweep = BF16S ? it / nk : 0, kt = kt_begin + (BF16S ? it % nk : it);
     const int k0 = kt * BK;
+    const bool need_v = !BF16S || sweep == 2;  // the bf16-score mode's max and sum sweeps read no V
+    if (BF16S && it == 2 * nk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) l[r] = bfr(l[r]);  // the sum sweep is done: l = bf16(the row's sum)
+    }
     __syncthreads();  // the previous tile's K, V and P are no longer read
     for (int e = tid; e < BK * V4; e += THREADS) {
       const int j = e / V4, d = (e % V4) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (k0 + j < p.Skv) {
         kv = __ldg(reinterpret_cast<const float4*>(kb + (long long)(k0 + j) * p.sks + d));
-        vv = __ldg(reinterpret_cast<const float4*>(vb + (long long)(k0 + j) * p.svs + d));
+        if (need_v) vv = __ldg(reinterpret_cast<const float4*>(vb + (long long)(k0 + j) * p.svs + d));
       }
       Kt[(d + 0) * LDT + j] = kv.x;
       Kt[(d + 1) * LDT + j] = kv.y;
@@ -541,37 +737,70 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
         for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
     }
 
+    if constexpr (BF16S) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + ty * 4 + r;
-      float mx = -INFINITY;
+      for (int r = 0; r < 4; ++r) {
+        const int qi = q0 + ty * 4 + r;
+        float red = sweep == 0 ? -INFINITY : 0.f;  // this thread's share of the row's max (sweep 0) or sum (1)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + tx * 4 + c;
-        bool ok = kj < p.Skv;
-        if (p.causal) ok = ok && kj <= qi;
-        if (p.window > 0) ok = ok && qi - kj < p.window;
-        s[r][c] = ok ? s[r][c] * p.scale : -INFINITY;
-        mx = fmaxf(mx, s[r][c]);
+        for (int c = 0; c < 4; ++c) {
+          const int kj = k0 + tx * 4 + c;
+          bool ok = kj < p.Skv;
+          if (p.causal) ok = ok && kj <= qi;
+          if (p.window > 0) ok = ok && qi - kj < p.window;
+          s[r][c] = ok ? bf16_score(s[r][c], p.scale) : -INFINITY;
+          if (sweep == 0) {
+            red = fmaxf(red, s[r][c]);
+          } else {
+            s[r][c] = bf16_exp(s[r][c], m[r]);
+            if (sweep == 1) red = __fadd_rn(red, s[r][c]);
+            else s[r][c] = bfr(__fdiv_rn(s[r][c], l[r]));  // y
+          }
+        }
+        if (sweep == 0) {
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1) red = fmaxf(red, __shfl_xor_sync(0xffffffffu, red, off));
+          m[r] = fmaxf(m[r], red);
+        } else if (sweep == 1) {
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1) red += __shfl_xor_sync(0xffffffffu, red, off);
+          l[r] += red;
+        }
       }
+      if (sweep < 2) continue;
+    } else {
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing visible yet
-      const float alpha = expf(m[r] - m_use);
-      float rs = 0.f;
+      for (int r = 0; r < 4; ++r) {
+        const int qi = q0 + ty * 4 + r;
+        float mx = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pv = expf(s[r][c] - m_use);
-        rs += pv;
-        s[r][c] = pv;
+        for (int c = 0; c < 4; ++c) {
+          const int kj = k0 + tx * 4 + c;
+          bool ok = kj < p.Skv;
+          if (p.causal) ok = ok && kj <= qi;
+          if (p.window > 0) ok = ok && qi - kj < p.window;
+          s[r][c] = ok ? s[r][c] * p.scale : -INFINITY;
+          mx = fmaxf(mx, s[r][c]);
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[r], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing visible yet
+        const float alpha = expf(m[r] - m_use);
+        float rs = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float pv = expf(s[r][c] - m_use);
+          rs += pv;
+          s[r][c] = pv;
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+        l[r] = l[r] * alpha + rs;
+        m[r] = m_new;
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
       }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[r] = l[r] * alpha + rs;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r)
@@ -612,9 +841,23 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + ty * 4 + r;
     if (qi >= p.Sq) continue;
+    float* orow = ob + (long long)qi * p.sos;
+    if constexpr (BF16S) {
+      // y is normalised already; l is NaN for a row that sees no key, and 0 where the block has no key
+      // tile at all: both NaN, as in _sdpa
+      const float keep = l[r] > 0.f ? 1.f : NAN;
+      if (lse != nullptr && tx == 0) {
+        lse[(long long)blockIdx.x * p.Sq + qi] = m[r];
+        lse[((long long)gridDim.x + blockIdx.x) * p.Sq + qi] = l[r];
+      }
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < VW; ++e) orow[g * 16 * VW + tx * VW + e] = acc[r][g * VW + e] * keep;
+      continue;
+    }
     const float denom = l[r];  // 0 only for a row that sees no key: NaN, as in _sdpa
     if (lse != nullptr && tx == 0) lse[(long long)blockIdx.x * p.Sq + qi] = m[r] + logf(denom);  // scores scaled
-    float* orow = ob + (long long)qi * p.sos;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -623,14 +866,30 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
 }
 
 template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, float* __restrict__ lse, AttnShape p) {
+  flash_fwd_body<D, false>(q, k, v, o, lse, p);
+}
+
+// The bf16-score mode: p.scale is the divisor bf16(sqrt(D)); lse gets m, then l.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_bf16_scores_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                             float* __restrict__ o, float* __restrict__ lse, AttnShape p) {
+  flash_fwd_body<D, true>(q, k, v, o, lse, p);
+}
+
+template <int D, bool BF16S>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, const AttnShape& p,
                cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = BF16S ? flash_fwd_bf16_scores_kernel<D> : flash_fwd_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + BQ - 1) / BQ));
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                                       static_cast<const float*>(v), static_cast<float*>(o), lse, p);
+  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                          static_cast<const float*>(v), static_cast<float*>(o), lse, p);
   return (int)cudaGetLastError();
 }
 
@@ -681,6 +940,10 @@ bool rows_16b(const void* q, const void* k, const void* v, const void* o, const 
 //   kernel and the mma.sync dK/dV kernel, one pass up to D 80 and a dV and
 //   a dK pass at D 128 and 192.
 // - BWD_SIMT, fp32: the delta pre-pass, dQ and dK/dV on the SIMT pipes.
+// - The bf16-score mode (bf16_scores, see its note above): BWD_MMA for every
+//   bf16 call and BWD_SIMT for fp32, with no delta pre-pass: the dQ kernels
+//   sweep the keys twice, first for each row's R (written to the scratch),
+//   then for dQ, and the dK/dV kernels read R beside the forward's (m, l).
 // The launch order is delta (where separate), dQ, dK/dV, on one stream.
 //
 // Bound on the H100 SXM: at the training shapes (bf16, causal, S 512,
@@ -781,7 +1044,8 @@ struct BwdShape {
   int B, H, KVH, Sq, Skv;
   long long st[8][3];  // element strides over batch, head, position of q, k, v, o, dO, dq, dk, dv (d is unit)
   int causal, window;
-  float scale;
+  float scale;       // 1 / sqrt(D); in the bf16-score mode the divisor bf16(sqrt(D))
+  TreeLevels tree;   // the bf16-score mode: the order of R's bf16 sum over Skv keys
 };
 enum { SQ_, SK_, SV_, SO_, SDO_, SDQ_, SDK_, SDV_ };
 
@@ -829,16 +1093,28 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, floa
 // bf16 dQ
 // ---------------------------------------------------------------------------
 
-template <int D>
+constexpr int TLD = BWD_BK + 1;  // row pitch, in floats, of the bf16-score mode's staged R terms
+
+template <int D, bool BF16S>
 constexpr int bwd_dq_smem_bytes() {
-  return (2 * BWD_BQ + 2 * 2 * BWD_BK) * (D + MPAD) * (int)sizeof(bf16);  // Q, dO; 2 stages of K, V
+  // Q, dO; 2 stages of K, V; the bf16-score mode's R terms of each warp's 16 x 64 block
+  return (2 * BWD_BQ + 2 * 2 * BWD_BK) * (D + MPAD) * (int)sizeof(bf16) +
+         (BF16S ? BWD_WARPS * 16 * TLD * (int)sizeof(float) : 0);
 }
 
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                             const bf16* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ delta, bf16* __restrict__ dq, BwdShape p, int vec16) {
+// dQ on mma.sync.  BF16S, the bf16-score mode: `lse` holds m, then l
+// ([2][B * H * Sq]); the keys are swept twice, the first time for each
+// row's R (each warp stages its 16 x 64 terms in shared memory and its
+// first 16 lanes add their row's in key order, TreeSum), which goes to
+// `rsum` for the dK/dV kernel; the second for dQ.
+template <int D, bool BF16S>
+__device__ __forceinline__ void flash_bwd_dq_mma_bf16_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                                           const bf16* __restrict__ v,
+                                                           const bf16* __restrict__ dout,
+                                                           const float* __restrict__ lse,
+                                                           const float* __restrict__ delta, float* __restrict__ rsum,
+                                                           bf16* __restrict__ dq, const BwdShape& p, int vec16) {
+  constexpr int NSWEEP = BF16S ? 2 : 1;
   constexpr int LD = D + MPAD;
   constexpr int KS = D / 16;       // k16 steps of S and dP
   constexpr int NT = BWD_BK / 8;   // n8 tiles of a warp's 16 x 64 scores
@@ -852,6 +1128,7 @@ flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   bf16* ring = Gs + BWD_BQ * LD;                 // [2][K: BK rows, V: BK rows][LD]
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float* Ts = reinterpret_cast<float*>(ring + 2 * STAGE) + warp * 16 * TLD;  // this warp's R terms [16][TLD]
   const int b = blockIdx.x / p.H, hq = blockIdx.x % p.H, hk = hq / (p.H / p.KVH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BWD_BQ;  // heaviest causal tiles first
   const int r0 = q0 + warp * 16;
@@ -862,9 +1139,11 @@ flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   int kt_end = (p.Skv + BWD_BK - 1) / BWD_BK;
   if (p.causal) kt_end = min(kt_end, q_last / BWD_BK + 1);
   const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BWD_BK : 0;
+  // the block's key tiles, once for each sweep: step it is tile kt_begin + it % nk of sweep it / nk
+  const int nk = max(kt_end - kt_begin, 0), steps = NSWEEP * nk;
 
-  auto load_kv = [&](int kt, int stage) {
-    const int k0 = kt * BWD_BK;
+  auto load_kv = [&](int it, int stage) {
+    const int k0 = (kt_begin + (BF16S ? it % nk : it)) * BWD_BK;
     bf16* ks = ring + stage * STAGE;
     load_rows<BWD_BK, D, BWD_THREADS>(ks, kb + k0 * p.st[SK_][2], p.st[SK_][2], p.Skv - k0, vec16, tid);
     load_rows<BWD_BK, D, BWD_THREADS>(ks + BWD_BK * LD, vb + k0 * p.st[SV_][2], p.st[SV_][2], p.Skv - k0, vec16,
@@ -872,18 +1151,29 @@ flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   };
   load_rows<BWD_BQ, D, BWD_THREADS>(Qs, at(q, p, SQ_, b, hq, q0), p.st[SQ_][2], p.Sq - q0, vec16, tid);
   load_rows<BWD_BQ, D, BWD_THREADS>(Gs, at(dout, p, SDO_, b, hq, q0), p.st[SDO_][2], p.Sq - q0, vec16, tid);
-  if (kt_begin < kt_end) load_kv(kt_begin, 0);
+  if (steps > 0) load_kv(0, 0);
   cp_async_commit();
 
-  float l2[2], dl[2];  // rows lane/4 and lane/4 + 8: lse in base 2, delta; a row past Sq gets P = 0
+  // rows lane/4 and lane/4 + 8; a row past Sq gets P = 0.  fp32 scores: lse in base 2, delta.  bf16
+  // scores: m, l, bf16(1 / bf16(l * l)) and, after the first sweep, R.
+  float l2[2], dl[2], ll[2], il2[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = r0 + lane / 4 + h * 8;
     const long long row = (long long)blockIdx.x * p.Sq + i;
-    l2[h] = i < p.Sq ? lse[row] * LOG2E : INFINITY;
-    dl[h] = i < p.Sq ? delta[row] : 0.f;
+    if constexpr (BF16S) {
+      l2[h] = i < p.Sq ? lse[row] : INFINITY;
+      ll[h] = i < p.Sq ? lse[(long long)gridDim.x * p.Sq + row] : 1.f;
+      il2[h] = bfr(__fdiv_rn(1.f, bfr(__fmul_rn(ll[h], ll[h]))));
+      dl[h] = 0.f;
+    } else {
+      l2[h] = i < p.Sq ? lse[row] * LOG2E : INFINITY;
+      dl[h] = i < p.Sq ? delta[row] : 0.f;
+    }
   }
-  const float c = p.scale * LOG2E;
+  TreeSum tree;  // lanes 0 .. 15: row r0 + lane's R
+  tree.reset();
+  const float c = BF16S ? p.scale : p.scale * LOG2E;
   const bf16* qrow = Qs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // this lane's ldmatrix row
   const bf16* grow = Gs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
 
@@ -893,12 +1183,19 @@ flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int stage = (kt - kt_begin) % 2;
+  for (int it = 0; it < steps; ++it) {
+    const int stage = it % 2;
+    const int sweep = BF16S ? it / nk : 0, kt = kt_begin + (BF16S ? it % nk : it);
     cp_async_wait<0>();  // tile kt (and Q, dO) has landed (this thread's copies)
     __syncthreads();     // ... everyone's; tile kt - 1 is no longer read
-    if (kt + 1 < kt_end) load_kv(kt + 1, stage ^ 1);
+    if (it + 1 < steps) load_kv(it + 1, stage ^ 1);
     cp_async_commit();
+    if (BF16S && it == nk) {  // the R sweep is done: lane r's row r0 + r, to rsum and to its fragments' lanes
+      const float r = tree.flush(p.tree);
+      if (lane < 16 && r0 + lane < p.Sq) rsum[(long long)blockIdx.x * p.Sq + r0 + lane] = r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) dl[h] = __shfl_sync(0xffffffffu, r, lane / 4 + h * 8);
+    }
 
     const bf16* ks = ring + stage * STAGE;
     const bf16* vs = ks + BWD_BK * LD;
@@ -940,12 +1237,37 @@ flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
           if (!ok) s[nt][e] = -INFINITY;
         }
     }
+    if (BF16S && sweep == 0) {  // R's terms bf16(bf16(g * bf16(l^-2)) * u), added in key order by lanes 0 .. 15
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float u = bf16_exp(bf16_score(s[nt][e], c), l2[e / 2]);
+          Ts[(lane / 4 + (e / 2) * 8) * TLD + nt * 8 + (lane % 4) * 2 + e % 2] =
+              bfr(__fmul_rn(bfr(__fmul_rn(bfr(dp[nt][e]), il2[e / 2])), u));
+        }
+      __syncwarp();
+      if (lane < 16) {
+        const int n = min(BWD_BK, p.Skv - k0);
+        for (int j = 0; j < n; ++j) tree.add(Ts[lane * TLD + j], k0 + j, p.tree);
+      }
+      __syncwarp();
+      continue;
+    }
     uint32_t df[PK][4];  // dS as the A fragments of dS.K
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       float ds[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) ds[e] = ex2(fmaf(s[nt][e], c, -l2[e / 2])) * (dp[nt][e] - dl[e / 2]);
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (BF16S) {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+          const float u = bf16_exp(bf16_score(s[nt][e], c), l2[e / 2]);
+          const float gl = bfr(__fdiv_rn(bfr(dp[nt][e]), ll[e / 2]));
+          ds[e] = bfr(__fdiv_rn(bfr(__fmul_rn(bfr(__fsub_rn(gl, dl[e / 2])), u)), c));
+        } else {
+          ds[e] = ex2(fmaf(s[nt][e], c, -l2[e / 2])) * (dp[nt][e] - dl[e / 2]);
+        }
+      }
       df[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
       df[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
@@ -966,11 +1288,29 @@ flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     const int i = r0 + lane / 4 + h * 8;
     if (i >= p.Sq) continue;
     bf16* row = dq + b * p.st[SDQ_][0] + hq * p.st[SDQ_][1] + i * p.st[SDQ_][2] + (lane % 4) * 2;
+    const float out = BF16S ? 1.f : p.scale;  // dS' holds the bf16-score mode's scale already
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) =
-          __floats2bfloat162_rn(acc[dt][2 * h] * p.scale, acc[dt][2 * h + 1] * p.scale);
+          __floats2bfloat162_rn(acc[dt][2 * h] * out, acc[dt][2 * h + 1] * out);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ delta, bf16* __restrict__ dq, BwdShape p, int vec16) {
+  flash_bwd_dq_mma_bf16_body<D, false>(q, k, v, dout, lse, delta, nullptr, dq, p, vec16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dq_mma_bf16_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                    const float* __restrict__ stats, float* __restrict__ rsum,
+                                    bf16* __restrict__ dq, BwdShape p, int vec16) {
+  flash_bwd_dq_mma_bf16_body<D, true>(q, k, v, dout, stats, nullptr, rsum, dq, p, vec16);
 }
 
 // ---------------------------------------------------------------------------
@@ -983,20 +1323,32 @@ __host__ __device__ constexpr bool bwd_split() {
   return D >= 128;
 }
 
-template <int D>
-constexpr int bwd_dkdv_smem_bytes() {
-  // K, V; 2 stages of Q, dO; 2 stages of lse (base 2) and delta
-  return (2 * BWD_BK + 2 * 2 * bwd_bq<D>()) * (D + MPAD) * (int)sizeof(bf16) +
-         2 * 2 * bwd_bq<D>() * (int)sizeof(float);
+// Per-row statistics a q tile of the dK/dV loop carries: lse (base 2) and
+// delta; in the bf16-score mode m, l and R.
+template <bool BF16S>
+__host__ __device__ constexpr int bwd_nstats() {
+  return BF16S ? 3 : 2;
 }
 
-template <int D, int MODE>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                               const bf16* __restrict__ dout, const float* __restrict__ lse,
-                               const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                               BwdShape p, int vec16) {
+template <int D, bool BF16S>
+constexpr int bwd_dkdv_smem_bytes() {
+  // K, V; 2 stages of Q, dO; 2 stages of the rows' statistics
+  return (2 * BWD_BK + 2 * 2 * bwd_bq<D>()) * (D + MPAD) * (int)sizeof(bf16) +
+         2 * bwd_nstats<BF16S>() * bwd_bq<D>() * (int)sizeof(float);
+}
+
+// dK and dV on mma.sync.  BF16S, the bf16-score mode: `lse` holds m, then l
+// ([2][B * H * Sq]), `delta` each row's R (the dQ kernel's).
+template <int D, int MODE, bool BF16S>
+__device__ __forceinline__ void flash_bwd_dkdv_mma_bf16_body(const bf16* __restrict__ q,
+                                                             const bf16* __restrict__ k,
+                                                             const bf16* __restrict__ v,
+                                                             const bf16* __restrict__ dout,
+                                                             const float* __restrict__ lse,
+                                                             const float* __restrict__ delta, bf16* __restrict__ dk,
+                                                             bf16* __restrict__ dv, const BwdShape& p, int vec16) {
   constexpr bool DV = MODE & 1, DK = MODE & 2;
+  constexpr int NSTAT = bwd_nstats<BF16S>();
   constexpr int BQ = bwd_bq<D>();
   constexpr int LD = D + MPAD;
   constexpr int KS = D / 16;
@@ -1009,7 +1361,8 @@ flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restric
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LD]
   bf16* Vs = Ks + BWD_BK * LD;                   // [BK][LD]
   bf16* ring = Vs + BWD_BK * LD;                 // [2][Q: BQ rows, dO: BQ rows][LD]
-  float* stats = reinterpret_cast<float*>(ring + 2 * STAGE);  // [2][lse * log2(e): BQ, delta: BQ]
+  // [2][lse * log2(e): BQ, delta: BQ], or in the bf16-score mode [2][m: BQ, l: BQ, R: BQ]
+  float* stats = reinterpret_cast<float*>(ring + 2 * STAGE);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int b = blockIdx.x / p.KVH, hk = blockIdx.x % p.KVH;
@@ -1034,18 +1387,24 @@ flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restric
     load_rows<BQ, D, BWD_THREADS>(qs, at(q, p, SQ_, b, hq, q0), p.st[SQ_][2], p.Sq - q0, vec16, tid);
     load_rows<BQ, D, BWD_THREADS>(qs + BQ * LD, at(dout, p, SDO_, b, hq, q0), p.st[SDO_][2], p.Sq - q0, vec16,
                                   tid);
-    float* st = stats + stage * 2 * BQ;
+    float* st = stats + stage * NSTAT * BQ;
     for (int e = tid; e < BQ; e += BWD_THREADS) {
       const int i = q0 + e;
       const long long row = ((long long)b * p.H + hq) * p.Sq + i;
-      st[e] = i < p.Sq ? lse[row] * LOG2E : INFINITY;  // a row past Sq: P = 0
-      st[BQ + e] = i < p.Sq ? delta[row] : 0.f;
+      if constexpr (BF16S) {
+        st[e] = i < p.Sq ? lse[row] : INFINITY;  // a row past Sq: u = 0
+        st[BQ + e] = i < p.Sq ? lse[(long long)p.B * p.H * p.Sq + row] : 1.f;
+        st[2 * BQ + e] = i < p.Sq ? delta[row] : 0.f;
+      } else {
+        st[e] = i < p.Sq ? lse[row] * LOG2E : INFINITY;  // a row past Sq: P = 0
+        st[BQ + e] = i < p.Sq ? delta[row] : 0.f;
+      }
     }
   };
   if (total > 0) load_q(0, 0);
   cp_async_commit();
 
-  const float c = p.scale * LOG2E;
+  const float c = BF16S ? p.scale : p.scale * LOG2E;
   const bf16* krow = Ks + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // this lane's ldmatrix row
   const bf16* vrow = Vs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
   float accv[DV ? DT : 1][4], acck[DK ? DT : 1][4];
@@ -1067,8 +1426,9 @@ flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restric
     const int q0 = (qt_begin + it % nq) * BQ;
     const bf16* qs = ring + stage * STAGE;
     const bf16* gs = qs + BQ * LD;
-    const float* l2 = stats + stage * 2 * BQ;
-    const float* dl = l2 + BQ;
+    const float* l2 = stats + stage * NSTAT * BQ;  // lse * log2(e), or m
+    const float* dl = l2 + BQ;                      // delta, or l
+    const float* rr = l2 + 2 * BQ;                  // R
     // this warp's keys kw .. kw + 15 against queries q0 .. q0 + BQ - 1
     if (kw >= p.Skv || (p.causal && q0 + BQ - 1 < kw) || (p.window > 0 && q0 - (kw + 15) >= p.window)) continue;
     const bool masked = (p.causal && q0 < kw + 15) || (p.window > 0 && q0 + BQ - 1 - kw >= p.window);
@@ -1115,17 +1475,29 @@ flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restric
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int i0 = nt * 8 + (lane % 4) * 2;  // this lane's two query columns
-      float pv[4];
+      float pv[4];  // P, or u in the bf16-score mode
 #pragma unroll
-      for (int e = 0; e < 4; ++e) pv[e] = ex2(fmaf(s[nt][e], c, -l2[i0 + e % 2]));
+      for (int e = 0; e < 4; ++e)
+        pv[e] = BF16S ? bf16_exp(bf16_score(s[nt][e], c), l2[i0 + e % 2]) : ex2(fmaf(s[nt][e], c, -l2[i0 + e % 2]));
       if constexpr (DV) {
-        pf[nt / 2][(nt % 2) * 2] = pack_bf16(pv[0], pv[1]);
-        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        float y[4];  // y = bf16(u / l)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[e] = BF16S ? bfr(__fdiv_rn(pv[e], dl[i0 + e % 2])) : pv[e];
+        pf[nt / 2][(nt % 2) * 2] = pack_bf16(y[0], y[1]);
+        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(y[2], y[3]);
       }
       if constexpr (DK) {
         float ds[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) ds[e] = pv[e] * (dp[nt][e] - dl[i0 + e % 2]);
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + e % 2;
+          if constexpr (BF16S) {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+            const float gl = bfr(__fdiv_rn(bfr(dp[nt][e]), dl[i]));
+            ds[e] = bfr(__fdiv_rn(bfr(__fmul_rn(bfr(__fsub_rn(gl, rr[i])), pv[e])), c));
+          } else {
+            ds[e] = pv[e] * (dp[nt][e] - dl[i]);
+          }
+        }
         df[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
         df[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
@@ -1163,12 +1535,31 @@ flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restric
     }
     if constexpr (DK) {
       bf16* row = dk + b * p.st[SDK_][0] + hk * p.st[SDK_][1] + j * p.st[SDK_][2] + (lane % 4) * 2;
+      const float out = BF16S ? 1.f : p.scale;  // dS' holds the bf16-score mode's scale already
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) =
-            __floats2bfloat162_rn(acck[dt][2 * h] * p.scale, acck[dt][2 * h + 1] * p.scale);
+            __floats2bfloat162_rn(acck[dt][2 * h] * out, acck[dt][2 * h + 1] * out);
     }
   }
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                               const bf16* __restrict__ dout, const float* __restrict__ lse,
+                               const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               BwdShape p, int vec16) {
+  flash_bwd_dkdv_mma_bf16_body<D, MODE, false>(q, k, v, dout, lse, delta, dk, dv, p, vec16);
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(BWD_THREADS)
+flash_bwd_dkdv_mma_bf16_scores_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                      const float* __restrict__ stats, const float* __restrict__ rsum,
+                                      bf16* __restrict__ dk, bf16* __restrict__ dv, BwdShape p, int vec16) {
+  flash_bwd_dkdv_mma_bf16_body<D, MODE, true>(q, k, v, dout, stats, rsum, dk, dv, p, vec16);
 }
 
 // ---------------------------------------------------------------------------
@@ -1177,9 +1568,9 @@ flash_bwd_dkdv_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restric
 
 constexpr int FB = 32;  // rows of a score tile, both ways
 
-template <int D>
+template <int D, bool BF16S>
 constexpr int bwd_f32_smem_bytes() {
-  return (4 * FB * (D + 1) + 2 * FB * (FB + 1) + 2 * FB) * (int)sizeof(float);
+  return (4 * FB * (D + 1) + 2 * FB * (FB + 1) + bwd_nstats<BF16S>() * FB) * (int)sizeof(float);
 }
 
 // ROWS rows of D floats from global (row stride `stride`) into shared rows of
@@ -1192,31 +1583,46 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(256, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, BwdShape p) {
+// dQ on the SIMT pipes.  BF16S, the bf16-score mode: `lse` holds m, then l
+// ([2][B * H * Sq]); the keys are swept twice, the first time for each
+// row's R (the terms staged in shared memory, each row's added in key order
+// by one thread, TreeSum), which goes to `rsum` for the dK/dV kernel; the
+// second for dQ.
+template <int D, bool BF16S>
+__device__ __forceinline__ void flash_bwd_dq_body(const float* __restrict__ q, const float* __restrict__ k,
+                                                  const float* __restrict__ v, const float* __restrict__ dout,
+                                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                                  float* __restrict__ rsum, float* __restrict__ dq,
+                                                  const BwdShape& p) {
+  constexpr int NSWEEP = BF16S ? 2 : 1;
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ __align__(16) float smf[];
   float* Qs = smf;              // [FB][LD]
   float* Gs = Qs + FB * LD;     // dO
   float* Ks = Gs + FB * LD;
   float* Vs = Ks + FB * LD;
-  float* Ss = Vs + FB * LD;     // dS, [FB][FB + 1]
+  float* Ss = Vs + FB * LD;     // dS (the bf16-score mode: R's terms, then dS'), [FB][FB + 1]
+  float* Rs = Ss + FB * (FB + 1);  // the bf16-score mode: the rows' R
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // rows 2ty, 2ty + 1; keys 2tx, 2tx + 1
   const int b = blockIdx.x / p.H, hq = blockIdx.x % p.H, hk = hq / (p.H / p.KVH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * FB;
   load_rows_f32(Qs, at(q, p, SQ_, b, hq, q0), p.st[SQ_][2], p.Sq - q0, D, tid);
   load_rows_f32(Gs, at(dout, p, SDO_, b, hq, q0), p.st[SDO_][2], p.Sq - q0, D, tid);
-  float ls[2], dl[2], acc[2][NC];
+  // fp32 scores: lse, delta; bf16 scores: m, l, bf16(1 / bf16(l * l)); a row past Sq gets P = 0
+  float ls[2], dl[2], ll[2], il2[2], acc[2][NC];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = q0 + 2 * ty + r;
     const long long row = (long long)blockIdx.x * p.Sq + i;
     ls[r] = i < p.Sq ? lse[row] : INFINITY;
-    dl[r] = i < p.Sq ? delta[row] : 0.f;
+    if constexpr (BF16S) {
+      ll[r] = i < p.Sq ? lse[(long long)gridDim.x * p.Sq + row] : 1.f;
+      il2[r] = bfr(__fdiv_rn(1.f, bfr(__fmul_rn(ll[r], ll[r]))));
+      dl[r] = 0.f;
+    } else {
+      dl[r] = i < p.Sq ? delta[row] : 0.f;
+    }
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) acc[r][cc] = 0.f;
   }
@@ -1224,9 +1630,19 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, co
   int kt_end = (p.Skv + FB - 1) / FB;
   if (p.causal) kt_end = min(kt_end, q_last / FB + 1);
   const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / FB : 0;
+  // the block's key tiles, once for each sweep: step it is tile kt_begin + it % nk of sweep it / nk
+  const int nk = max(kt_end - kt_begin, 0);
+  TreeSum tree;  // threads 0 .. FB - 1: row q0 + tid's R
+  tree.reset();
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  for (int it = 0; it < NSWEEP * nk; ++it) {
+    const int sweep = BF16S ? it / nk : 0, kt = kt_begin + (BF16S ? it % nk : it);
     const int k0 = kt * FB;
+    if (BF16S && it == nk && tid < FB) {  // the R sweep is done
+      const float r = tree.flush(p.tree);
+      Rs[tid] = r;
+      if (q0 + tid < p.Sq) rsum[(long long)blockIdx.x * p.Sq + q0 + tid] = r;
+    }
     __syncthreads();  // the previous tile's K, V and dS are no longer read
     load_rows_f32(Ks, at(k, p, SK_, b, hk, k0), p.st[SK_][2], p.Skv - k0, D, tid);
     load_rows_f32(Vs, at(v, p, SV_, b, hk, k0), p.st[SV_][2], p.Skv - k0, D, tid);
@@ -1250,10 +1666,30 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, co
       for (int cc = 0; cc < 2; ++cc) {
         const int i = q0 + 2 * ty + r, j = k0 + 2 * tx + cc;
         const bool ok = j < p.Skv && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
-        const float pv = ok ? expf(s[r][cc] * p.scale - ls[r]) : 0.f;
-        Ss[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = pv * (dp[r][cc] - dl[r]);
+        float ds;
+        if constexpr (BF16S) {
+          const float u = ok ? bf16_exp(bf16_score(s[r][cc], p.scale), ls[r]) : 0.f;
+          const float g = bfr(dp[r][cc]);
+          if (sweep == 0) {  // R's term
+            ds = bfr(__fmul_rn(bfr(__fmul_rn(g, il2[r])), u));
+          } else {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+            const float gl = bfr(__fdiv_rn(g, ll[r]));
+            ds = bfr(__fdiv_rn(bfr(__fmul_rn(bfr(__fsub_rn(gl, Rs[2 * ty + r])), u)), p.scale));
+          }
+        } else {
+          const float pv = ok ? expf(s[r][cc] * p.scale - ls[r]) : 0.f;
+          ds = pv * (dp[r][cc] - dl[r]);
+        }
+        Ss[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = ds;
       }
     __syncthreads();
+    if (BF16S && sweep == 0) {  // each row's terms in key order
+      if (tid < FB) {
+        const int n = min(FB, p.Skv - k0);
+        for (int j = 0; j < n; ++j) tree.add(Ss[tid * (FB + 1) + j], k0 + j, p.tree);
+      }
+      continue;
+    }
 #pragma unroll 2
     for (int j = 0; j < FB; ++j)
 #pragma unroll
@@ -1269,15 +1705,35 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, co
     if (i >= p.Sq) continue;
     float* row = dq + b * p.st[SDQ_][0] + hq * p.st[SDQ_][1] + i * p.st[SDQ_][2];
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) row[tx + 16 * cc] = acc[r][cc] * p.scale;
+    for (int cc = 0; cc < NC; ++cc) row[tx + 16 * cc] = BF16S ? acc[r][cc] : acc[r][cc] * p.scale;
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(256, 1)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                      const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, BwdShape p) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, BwdShape p) {
+  flash_bwd_dq_body<D, false>(q, k, v, dout, lse, delta, nullptr, dq, p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dq_bf16_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                const float* __restrict__ stats, float* __restrict__ rsum, float* __restrict__ dq,
+                                BwdShape p) {
+  flash_bwd_dq_body<D, true>(q, k, v, dout, stats, nullptr, rsum, dq, p);
+}
+
+// dK and dV on the SIMT pipes.  BF16S, the bf16-score mode: `lse` holds m,
+// then l ([2][B * H * Sq]), `delta` each row's R (the dQ kernel's).
+template <int D, bool BF16S>
+__device__ __forceinline__ void flash_bwd_dkdv_body(const float* __restrict__ q, const float* __restrict__ k,
+                                                    const float* __restrict__ v, const float* __restrict__ dout,
+                                                    const float* __restrict__ lse, const float* __restrict__ delta,
+                                                    float* __restrict__ dk, float* __restrict__ dv,
+                                                    const BwdShape& p) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ __align__(16) float smf[];
   float* Ks = smf;              // [FB][LD]
@@ -1286,8 +1742,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, 
   float* Gs = Qs + FB * LD;     // dO
   float* Ps = Gs + FB * LD;     // P^T, [FB][FB + 1]
   float* Ss = Ps + FB * (FB + 1);  // dS^T
-  float* Ls = Ss + FB * (FB + 1);  // lse of the q tile
-  float* Ds = Ls + FB;             // delta
+  float* Ls = Ss + FB * (FB + 1);  // lse of the q tile, or m
+  float* Ds = Ls + FB;             // delta, or R
+  float* Ll = Ds + FB;             // the bf16-score mode: l
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // keys 2ty, 2ty + 1; queries 2tx, 2tx + 1
   const int b = blockIdx.x / p.KVH, hk = blockIdx.x % p.KVH;
@@ -1317,6 +1774,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, 
         const long long row = ((long long)b * p.H + hq) * p.Sq + i;
         Ls[tid] = i < p.Sq ? lse[row] : INFINITY;
         Ds[tid] = i < p.Sq ? delta[row] : 0.f;
+        if constexpr (BF16S) Ll[tid] = i < p.Sq ? lse[(long long)p.B * p.H * p.Sq + row] : 1.f;
       }
       __syncthreads();
       float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -1336,11 +1794,19 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, 
       for (int r = 0; r < 2; ++r)
 #pragma unroll
         for (int cc = 0; cc < 2; ++cc) {
-          const int j = k0 + 2 * ty + r, i = q0 + 2 * tx + cc;
+          const int j = k0 + 2 * ty + r, i = q0 + 2 * tx + cc, ic = 2 * tx + cc;
           const bool ok = (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
-          const float pv = ok ? expf(s[r][cc] * p.scale - Ls[2 * tx + cc]) : 0.f;
-          Ps[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = pv;
-          Ss[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = pv * (dp[r][cc] - Ds[2 * tx + cc]);
+          if constexpr (BF16S) {  // y = bf16(u / l); dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+            const float u = ok ? bf16_exp(bf16_score(s[r][cc], p.scale), Ls[ic]) : 0.f;
+            const float gl = bfr(__fdiv_rn(bfr(dp[r][cc]), Ll[ic]));
+            Ps[(2 * ty + r) * (FB + 1) + ic] = bfr(__fdiv_rn(u, Ll[ic]));
+            Ss[(2 * ty + r) * (FB + 1) + ic] =
+                bfr(__fdiv_rn(bfr(__fmul_rn(bfr(__fsub_rn(gl, Ds[ic])), u)), p.scale));
+          } else {
+            const float pv = ok ? expf(s[r][cc] * p.scale - Ls[ic]) : 0.f;
+            Ps[(2 * ty + r) * (FB + 1) + ic] = pv;
+            Ss[(2 * ty + r) * (FB + 1) + ic] = pv * (dp[r][cc] - Ds[ic]);
+          }
         }
       __syncthreads();
 #pragma unroll 2
@@ -1365,9 +1831,26 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, 
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       vrow[tx + 16 * cc] = av[r][cc];
-      krow[tx + 16 * cc] = ak[r][cc] * p.scale;
+      krow[tx + 16 * cc] = BF16S ? ak[r][cc] : ak[r][cc] * p.scale;  // dS' holds the bf16-score mode's scale
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, BwdShape p) {
+  flash_bwd_dkdv_body<D, false>(q, k, v, dout, lse, delta, dk, dv, p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_bf16_scores_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ dout,
+                                  const float* __restrict__ stats, const float* __restrict__ rsum,
+                                  float* __restrict__ dk, float* __restrict__ dv, BwdShape p) {
+  flash_bwd_dkdv_body<D, true>(q, k, v, dout, stats, rsum, dk, dv, p);
 }
 
 template <typename KERNEL>
@@ -1382,12 +1865,42 @@ struct BwdArgs {
   float* delta;
 };
 
+// The bf16-score mode's mma.sync backward: dQ (which leaves R in a.delta), then dK/dV.
+template <int D>
+int launch_bwd_mma_bf16_scores(const BwdArgs& a, const BwdShape& p, int vec16, cudaStream_t stream) {
+  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k);
+  const bf16 *v = static_cast<const bf16*>(a.v), *g = static_cast<const bf16*>(a.dout);
+  bf16 *dk = static_cast<bf16*>(a.dk), *dv = static_cast<bf16*>(a.dv);
+  constexpr int dq_smem = bwd_dq_smem_bytes<D, true>(), kv_smem = bwd_dkdv_smem_bytes<D, true>();
+  cudaError_t err = allow_smem(flash_bwd_dq_mma_bf16_scores_kernel<D>, dq_smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 dq_grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + BWD_BQ - 1) / BWD_BQ));
+  flash_bwd_dq_mma_bf16_scores_kernel<D><<<dq_grid, BWD_THREADS, dq_smem, stream>>>(
+      q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dq), p, vec16);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 kv_grid((unsigned)(p.B * p.KVH), (unsigned)((p.Skv + BWD_BK - 1) / BWD_BK));
+  if constexpr (bwd_split<D>()) {
+    if ((err = allow_smem(flash_bwd_dkdv_mma_bf16_scores_kernel<D, 1>, kv_smem)) != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_mma_bf16_scores_kernel<D, 1><<<kv_grid, BWD_THREADS, kv_smem, stream>>>(q, k, v, g, a.lse,
+                                                                                           a.delta, dk, dv, p, vec16);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = allow_smem(flash_bwd_dkdv_mma_bf16_scores_kernel<D, 2>, kv_smem)) != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_mma_bf16_scores_kernel<D, 2><<<kv_grid, BWD_THREADS, kv_smem, stream>>>(q, k, v, g, a.lse,
+                                                                                           a.delta, dk, dv, p, vec16);
+  } else {
+    if ((err = allow_smem(flash_bwd_dkdv_mma_bf16_scores_kernel<D, 3>, kv_smem)) != cudaSuccess) return (int)err;
+    flash_bwd_dkdv_mma_bf16_scores_kernel<D, 3><<<kv_grid, BWD_THREADS, kv_smem, stream>>>(q, k, v, g, a.lse,
+                                                                                           a.delta, dk, dv, p, vec16);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_bwd_mma(const BwdArgs& a, const BwdShape& p, int vec16, cudaStream_t stream) {
   const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k);
   const bf16 *v = static_cast<const bf16*>(a.v), *g = static_cast<const bf16*>(a.dout);
   bf16 *dk = static_cast<bf16*>(a.dk), *dv = static_cast<bf16*>(a.dv);
-  constexpr int dq_smem = bwd_dq_smem_bytes<D>(), kv_smem = bwd_dkdv_smem_bytes<D>();
+  constexpr int dq_smem = bwd_dq_smem_bytes<D, false>(), kv_smem = bwd_dkdv_smem_bytes<D, false>();
   cudaError_t err = allow_smem(flash_bwd_dq_mma_bf16_kernel<D>, dq_smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 dq_grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + BWD_BQ - 1) / BWD_BQ));
@@ -1411,11 +1924,31 @@ int launch_bwd_mma(const BwdArgs& a, const BwdShape& p, int vec16, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
+// The bf16-score mode's SIMT backward: dQ (which leaves R in a.delta), then dK/dV.
+template <int D>
+int launch_bwd_f32_bf16_scores(const BwdArgs& a, const BwdShape& p, cudaStream_t stream) {
+  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k);
+  const float *v = static_cast<const float*>(a.v), *g = static_cast<const float*>(a.dout);
+  constexpr int smem = bwd_f32_smem_bytes<D, true>();
+  cudaError_t err = allow_smem(flash_bwd_dq_bf16_scores_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 dq_grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + FB - 1) / FB));
+  flash_bwd_dq_bf16_scores_kernel<D><<<dq_grid, 256, smem, stream>>>(q, k, v, g, a.lse, a.delta,
+                                                                     static_cast<float*>(a.dq), p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = allow_smem(flash_bwd_dkdv_bf16_scores_kernel<D>, smem)) != cudaSuccess) return (int)err;
+  const dim3 kv_grid((unsigned)(p.B * p.KVH), (unsigned)((p.Skv + FB - 1) / FB));
+  flash_bwd_dkdv_bf16_scores_kernel<D><<<kv_grid, 256, smem, stream>>>(q, k, v, g, a.lse, a.delta,
+                                                                       static_cast<float*>(a.dk),
+                                                                       static_cast<float*>(a.dv), p);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_bwd_f32(const BwdArgs& a, const BwdShape& p, cudaStream_t stream) {
   const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k);
   const float *v = static_cast<const float*>(a.v), *g = static_cast<const float*>(a.dout);
-  constexpr int smem = bwd_f32_smem_bytes<D>();
+  constexpr int smem = bwd_f32_smem_bytes<D, false>();
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 dq_grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + FB - 1) / FB));
@@ -1887,48 +2420,76 @@ int launch_bwd_wgmma(const BwdArgs& a, const BwdShape& p, int cl, cudaStream_t s
   return ce != cudaSuccess ? (int)ce : (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream` and returns the CUDA error of the launch (0 when it was
-// accepted).  dtype 0 is float32 (SIMT kernel), 1 is bfloat16 (tensor-core
-// kernel); o has q's shape and type.  `lse` (fp32 [B, H, Sq], or null) gets
-// the log-sum-exp of each row's scaled scores, for the backward.  Shapes,
-// strides and alignment are validated by the Python wrapper.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
-                                   int B, int H, int KVH, int Sq, int Skv, int D,
-                                   long long sqb, long long sqh, long long sqs,
-                                   long long skb, long long skh, long long sks,
-                                   long long svb, long long svh, long long svs,
-                                   long long sob, long long soh, long long sos,
-                                   int causal, int window, float scale, void* stream) {
-  const AttnShape p{B, H, KVH, Sq, Skv, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
-                    causal, window, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <bool BF16S>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int D,
+               const AttnShape& p, cudaStream_t st) {
   if (dtype == 0) {
     switch (D) {
-      case 16: return launch_f32<16>(q, k, v, o, lse, p, st);
-      case 32: return launch_f32<32>(q, k, v, o, lse, p, st);
-      case 64: return launch_f32<64>(q, k, v, o, lse, p, st);
-      case 80: return launch_f32<80>(q, k, v, o, lse, p, st);
-      case 128: return launch_f32<128>(q, k, v, o, lse, p, st);
-      case 192: return launch_f32<192>(q, k, v, o, lse, p, st);
+      case 16: return launch_f32<16, BF16S>(q, k, v, o, lse, p, st);
+      case 32: return launch_f32<32, BF16S>(q, k, v, o, lse, p, st);
+      case 64: return launch_f32<64, BF16S>(q, k, v, o, lse, p, st);
+      case 80: return launch_f32<80, BF16S>(q, k, v, o, lse, p, st);
+      case 128: return launch_f32<128, BF16S>(q, k, v, o, lse, p, st);
+      case 192: return launch_f32<192, BF16S>(q, k, v, o, lse, p, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (dtype == 1) {
     const int vec16 = rows_16b(q, k, v, o, p);
     switch (D) {
-      case 16: return launch_mma<16>(q, k, v, o, lse, p, vec16, st);
-      case 32: return launch_mma<32>(q, k, v, o, lse, p, vec16, st);
-      case 64: return launch_mma<64>(q, k, v, o, lse, p, vec16, st);
-      case 80: return launch_mma<80>(q, k, v, o, lse, p, vec16, st);
-      case 128: return launch_mma<128>(q, k, v, o, lse, p, vec16, st);
-      case 192: return launch_mma<192>(q, k, v, o, lse, p, vec16, st);
+      case 16: return launch_mma<16, BF16S>(q, k, v, o, lse, p, vec16, st);
+      case 32: return launch_mma<32, BF16S>(q, k, v, o, lse, p, vec16, st);
+      case 64: return launch_mma<64, BF16S>(q, k, v, o, lse, p, vec16, st);
+      case 80: return launch_mma<80, BF16S>(q, k, v, o, lse, p, vec16, st);
+      case 128: return launch_mma<128, BF16S>(q, k, v, o, lse, p, vec16, st);
+      case 192: return launch_mma<192, BF16S>(q, k, v, o, lse, p, vec16, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+// Launches on `stream` and returns the CUDA error of the launch (0 when it was
+// accepted).  dtype 0 is float32 (SIMT kernel), 1 is bfloat16 (tensor-core
+// kernel); o has q's shape and type.  `lse` (fp32 [B, H, Sq], or null) gets
+// the log-sum-exp of each row's scaled scores, for the backward.
+// `bf16_scores` 1 runs the bf16-score mode (the *_bf16_scores_kernel
+// variants): `scale` is then the divisor bf16(sqrt(D)) and `lse` (fp32 [2,
+// B, H, Sq], or null) gets each row's m, then l.  Shapes, strides and
+// alignment are validated by the Python wrapper.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
+                                   int B, int H, int KVH, int Sq, int Skv, int D,
+                                   long long sqb, long long sqh, long long sqs,
+                                   long long skb, long long skh, long long sks,
+                                   long long svb, long long svh, long long svs,
+                                   long long sob, long long soh, long long sos,
+                                   int causal, int window, int bf16_scores, float scale, void* stream) {
+  const AttnShape p{B, H, KVH, Sq, Skv, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
+                    causal, window, scale};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16_scores ? launch_fwd<true>(q, k, v, o, lse, dtype, D, p, st)
+                     : launch_fwd<false>(q, k, v, o, lse, dtype, D, p, st);
+}
+
+namespace {
+
+// The levels of R's tree sum over n keys (flash_attention.py::tree_levels);
+// levels -1 where n needs more than three (n > 32^4).
+TreeLevels tree_levels(int n) {
+  TreeLevels t{0, {0, 0, 0}, {0, 0, 0}};
+  while (n > 32) {
+    if (t.levels == 3) return TreeLevels{-1, {0, 0, 0}, {0, 0, 0}};
+    t.lo[t.levels] = ((32 - n % 32) % 32) / 2;
+    t.n[t.levels] = n;
+    ++t.levels;
+    n = (n + 31) / 32;
+  }
+  return t;
+}
+
+}  // namespace
 
 // Route codes of flash_attention_bwd (flash_attention.py::BWD_ROUTES; its
 // bwd_route picks one by type, head dim, strides and alignment).
@@ -1957,12 +2518,28 @@ enum BwdRoute { BWD_SIMT = 0, BWD_MMA = 1, BWD_WGMMA = 2 };
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
                                    const void* dout, void* dq, void* dk, void* dv, float* scratch, int route,
                                    int cluster, int B, int H, int KVH, int Sq, int Skv, int D,
-                                   const long long* strides, int causal, int window, float scale, void* stream) {
-  BwdShape p{B, H, KVH, Sq, Skv, {}, causal, window, scale};
+                                   const long long* strides, int causal, int window, int bf16_scores, float scale,
+                                   void* stream) {
+  BwdShape p{B, H, KVH, Sq, Skv, {}, causal, window, scale, tree_levels(Skv)};
   for (int t = 0; t < 8; ++t)
     for (int j = 0; j < 3; ++j) p.st[t][j] = strides[3 * t + j];
   const BwdArgs a{q, k, v, o, dout, lse, dq, dk, dv, scratch};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_scores) {
+    if (p.tree.levels < 0) return (int)cudaErrorInvalidValue;
+    if (route == BWD_SIMT) {
+      switch (D) {
+        case 16: return launch_bwd_f32_bf16_scores<16>(a, p, st);
+        case 32: return launch_bwd_f32_bf16_scores<32>(a, p, st);
+        case 64: return launch_bwd_f32_bf16_scores<64>(a, p, st);
+        case 80: return launch_bwd_f32_bf16_scores<80>(a, p, st);
+        case 128: return launch_bwd_f32_bf16_scores<128>(a, p, st);
+        case 192: return launch_bwd_f32_bf16_scores<192>(a, p, st);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+    if (route != BWD_MMA) return (int)cudaErrorInvalidValue;  // the wgmma route has no bf16-score mode
+  }
   if (route == BWD_WGMMA && FLASH_BWD_PARENT) route = BWD_MMA;
   if (route == BWD_WGMMA) {
     switch (D) {
@@ -1988,10 +2565,12 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     }
   }
   if (route == BWD_MMA) {
-    flash_bwd_delta_kernel<bf16><<<delta_grid, 256, 0, st>>>(static_cast<const bf16*>(o),
-                                                             static_cast<const bf16*>(dout), scratch, p, D);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (!bf16_scores) {
+      flash_bwd_delta_kernel<bf16><<<delta_grid, 256, 0, st>>>(static_cast<const bf16*>(o),
+                                                               static_cast<const bf16*>(dout), scratch, p, D);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
     // 16-byte copies where every row the kernels read (q, k, v, dO) starts 16-byte aligned
     int vec16 = 1;
     const int read[] = {SQ_, SK_, SV_, SDO_};
@@ -1999,6 +2578,17 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
       for (int j = 0; j < 3; ++j) vec16 &= p.st[t][j] % 8 == 0;
     const void* ptrs[] = {q, k, v, dout};
     for (const void* ptr : ptrs) vec16 &= reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+    if (bf16_scores) {
+      switch (D) {
+        case 16: return launch_bwd_mma_bf16_scores<16>(a, p, vec16, st);
+        case 32: return launch_bwd_mma_bf16_scores<32>(a, p, vec16, st);
+        case 64: return launch_bwd_mma_bf16_scores<64>(a, p, vec16, st);
+        case 80: return launch_bwd_mma_bf16_scores<80>(a, p, vec16, st);
+        case 128: return launch_bwd_mma_bf16_scores<128>(a, p, vec16, st);
+        case 192: return launch_bwd_mma_bf16_scores<192>(a, p, vec16, st);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
     switch (D) {
       case 16: return launch_bwd_mma<16>(a, p, vec16, st);
       case 32: return launch_bwd_mma<32>(a, p, vec16, st);

@@ -37,6 +37,22 @@ the source note; :func:`bwd_kernels` names each route's launches).
 :func:`flash_attention_fwd_plain` and
 :func:`flash_attention_bwd_plain` are the same two functions by their
 explicit formulas in fp32, for the CPU tests and the on-card checks.
+
+Every function here also takes ``fp32_scores=False``: the reference's
+``LMConfig.attn_fp32_scores=False`` (``blocks._sdpa_chunk``), where the
+scores are rounded to bf16 and the softmax runs in bf16, a rounding at
+each of its steps (:func:`flash_attention_plain`'s docstring lists them).
+Its scale is a division by ``bf16(sqrt(D))`` (:func:`score_divisor`), as
+JAX casts the reference's Python float to the scores' type.  The online
+softmax cannot reproduce ``bf16(exp(bf16(s - m)))`` at the row's final max,
+so the mode's forward kernels sweep a q tile's keys three times (the max;
+the bf16 row sum; P·V) and save each row's max and bf16 sum, ``(m, l)``
+stacked as fp32 ``[2, B, H, Sq]``, where the fp32 mode saves the lse.  The
+backward follows ``jax.grad`` of the reference op by op, its row sum
+``R = Σ bf16(bf16(g · bf16(l⁻²)) · u)`` added in bf16 in XLA's CPU order
+(:func:`bf16_row_sum`); it runs on the ``mma.sync`` route (bf16) or the SIMT
+route (fp32), whose dQ kernels sweep the keys twice (R, then dQ) and leave
+R for the dK/dV kernels.
 """
 
 from __future__ import annotations
@@ -51,6 +67,9 @@ import torch
 launches = 0
 #: calls of the backward's kernels (delta, dQ, dK/dV) since this count was last set to 0
 bwd_launches = 0
+#: the bf16-score mode's forward launches and backward calls, counted apart from the two above
+bf16_scores_launches = 0
+bf16_scores_bwd_launches = 0
 
 #: head dims the kernels are built for (zamba2-2.7b runs 80, nemotron-4-340b 192)
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)
@@ -82,47 +101,149 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def _mask(sq: int, skv: int, causal: bool, window: int, device) -> torch.Tensor:
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
     """Scaled, masked fp32 scores [B, KVH, G, Sq, Skv] (-inf where masked)."""
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, kvh, h // kvh, sq, d)
     scores = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) / math.sqrt(d)
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window:
-        mask &= qpos - kpos < window
-    return scores.masked_fill(~mask, float("-inf"))
+    return scores.masked_fill(~_mask(sq, skv, causal, window, q.device), float("-inf"))
+
+
+def score_divisor(d: int) -> float:
+    """The bf16-score mode's scale: the scores are divided by ``sqrt(d)``
+    rounded to bf16 (5.65625 at D 32, 8.9375 at 80, 11.3125 at 128, 13.875 at
+    192; exact at 16 and 64), as the reference's weakly typed Python float
+    becomes the bf16 scores' type."""
+    return float(torch.tensor(math.sqrt(d), dtype=torch.float32).to(torch.bfloat16))
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even), held in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+#: the window of XLA's CPU tree reduction: a longer axis is summed in windows of this many
+TREE_WINDOW = 32
+
+
+def tree_levels(n: int) -> list[int]:
+    """The zero padding before each window level of :func:`bf16_row_sum`
+    over ``n`` values: while more than ``TREE_WINDOW`` remain, they are padded
+    to a multiple of it (half the padding in front, the odd one behind) and
+    each window summed, so ``n`` becomes ``ceil(n / TREE_WINDOW)``."""
+    pads = []
+    while n > TREE_WINDOW:
+        pads.append((-n % TREE_WINDOW) // 2)
+        n = -(-n // TREE_WINDOW)
+    return pads
+
+
+def tree_sum(t: torch.Tensor, *, bf16: bool) -> torch.Tensor:
+    """The sum over the last axis of fp32 ``t`` in the order XLA's CPU
+    backend gives a ``reduce_sum`` (the reference's): its tree reduction
+    pads an axis longer than ``TREE_WINDOW`` with zeros (:func:`tree_levels`),
+    sums each window from its first element on, and repeats over the window
+    sums; the last ``<= TREE_WINDOW`` values are summed in order.  With
+    ``bf16`` every addition is rounded to bf16, as a bf16 ``reduce_sum``
+    under ``--xla_allow_excess_precision=false`` adds (``t`` then holds bf16
+    values); else each is an fp32 addition."""
+    for lo in tree_levels(t.shape[-1]):
+        hi = -(t.shape[-1] + lo) % TREE_WINDOW
+        t = _sequential_sum(torch.nn.functional.pad(t, (lo, hi)).unflatten(-1, (-1, TREE_WINDOW)), bf16)
+    return _sequential_sum(t, bf16)
+
+
+def bf16_row_sum(t: torch.Tensor) -> torch.Tensor:
+    """:func:`tree_sum` in bf16: the backward's R.  An fp32 sum rounded
+    once, or one bf16 sum in plain order, gives other bits in about a third
+    of the rows, and the backward's cancellation ``bf16(g / l) - R`` turns
+    that into errors of 1e-2 of the gradient's max."""
+    return tree_sum(t, bf16=True)
+
+
+def _sequential_sum(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    acc = torch.zeros_like(t[..., 0])
+    for j in range(t.shape[-1]):
+        acc = bf16_round(acc + t[..., j]) if bf16 else acc + t[..., j]
+    return acc
+
+
+def _bf16_softmax(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int):
+    """The bf16-score mode's forward up to the probabilities, each step
+    rounded to bf16 and held in fp32, [B, KVH, G, Sq, Skv] (rows [..., 1]):
+    (m, l, y) with s = bf16(bf16(q·kᵀ) / score_divisor(D)) (-inf where
+    masked), m = max s, u = bf16(exp(bf16(s - m))), l = bf16(Σ u) (the sum
+    in fp32, :func:`tree_sum`), y = bf16(u / l)."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kvh, h // kvh, sq, d)
+    s = bf16_round(bf16_round(torch.einsum("bkgqd,bksd->bkgqs", qg, k.float())) / score_divisor(d))
+    s = s.masked_fill(~_mask(sq, skv, causal, window, q.device), float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    u = bf16_round(torch.exp(bf16_round(s - m)))
+    l = bf16_round(tree_sum(u, bf16=False)[..., None])
+    return m, l, bf16_round(u / l)
+
+
+def _weighted(probs: torch.Tensor, v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """probs [B, KVH, G, Sq, Skv] (fp32 values) times v, summed in fp32 ->
+    [B, H, Sq, D] in q's type."""
+    b, h, sq, d = q.shape
+    return torch.einsum("bkgqs,bksd->bkgqd", probs, v.float()).reshape(b, h, sq, d).to(q.dtype)
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
+    fp32_scores: bool = True,
 ) -> torch.Tensor:
     """Exact attention in fp32.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv, D]
     -> [B, H, Sq, D] in ``q.dtype``.  Key j is visible to query i when
     ``j <= i`` (causal) and ``i - j < window`` (window > 0), positions
     counted from 0 on both sides, as ``blocks._sdpa_chunk`` masks at
     ``q_offset = 0``.  A row that sees no key (only where Sq > Skv under a
-    window) is NaN, as there."""
+    window) is NaN, as there.
+
+    ``fp32_scores=False`` is the reference's ``attn_fp32_scores=False``
+    (``repro/models/blocks.py:57-67`` and the jaxpr of ``jax.nn.softmax``):
+    s = bf16(bf16(q·kᵀ summed in fp32) / bf16(sqrt(D))), masked to -inf;
+    m = max s; u = bf16(exp(bf16(s - m))); l = bf16(Σ u summed in fp32,
+    in XLA's CPU order, :func:`tree_sum`); y = bf16(u / l), cast to q's
+    type before y·V."""
     _check_shapes(q, k, v, window)
-    b, h, sq, d = q.shape
-    probs = torch.softmax(_scores(q, k, causal, window), dim=-1).to(v.dtype).float()
-    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    if fp32_scores:
+        return _weighted(torch.softmax(_scores(q, k, causal, window), dim=-1).to(v.dtype).float(), v, q)
+    return _weighted(_bf16_softmax(q, k, causal, window)[2].to(q.dtype).float(), v, q)
 
 
 def flash_attention_fwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
+    fp32_scores: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): :func:`flash_attention_plain`'s output and the log-sum-exp
     of each row's scaled, masked scores, fp32 [B, H, Sq] (-inf for a row
-    that sees no key), as the kernel writes it with ``return_lse``."""
+    that sees no key), as the kernel writes it with ``return_lse``.  With
+    ``fp32_scores=False``, (o, stats): stats fp32 [2, B, H, Sq] holds each
+    row's max m and bf16 sum l of the bf16-score softmax, in the lse's
+    place."""
     b, h, sq, _ = q.shape
-    lse = torch.logsumexp(_scores(q, k, causal, window), dim=-1).reshape(b, h, sq)
-    return flash_attention_plain(q, k, v, causal=causal, window=window), lse
+    if fp32_scores:
+        lse = torch.logsumexp(_scores(q, k, causal, window), dim=-1).reshape(b, h, sq)
+        return flash_attention_plain(q, k, v, causal=causal, window=window), lse
+    _check_shapes(q, k, v, window)
+    m, l, y = _bf16_softmax(q, k, causal, window)
+    return _weighted(y.to(q.dtype).float(), v, q), torch.stack([m.reshape(b, h, sq), l.reshape(b, h, sq)])
 
 
 def _check_sees_a_key(sq: int, skv: int, window: int) -> None:
@@ -135,18 +256,29 @@ def _check_sees_a_key(sq: int, skv: int, window: int) -> None:
 
 def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    *, causal: bool = True, window: int = 0,
+    *, causal: bool = True, window: int = 0, fp32_scores: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward of :func:`flash_attention_plain` by its explicit
     formulas in fp32: P = exp(S·scale - lse), delta = rowsum(dO∘O),
     dV = P̃ᵀ·dO with P̃ = P rounded to ``v.dtype`` (as the forward rounds it
     before P·V), dS = P∘(dO·Vᵀ - delta), dQ = scale·dS·K, dK = scale·dSᵀ·Q,
     each q-head's dK and dV summed into its kv-head.  Returns (dq, dk, dv)
-    in the inputs' types; raises where a row sees no key."""
+    in the inputs' types; raises where a row sees no key.
+
+    ``fp32_scores=False``: ``lse`` is the forward's (m, l) stats
+    (:func:`flash_attention_fwd_plain`), and the formulas are ``jax.grad``'s
+    of the bf16-score forward, op by op (its jaxpr: ``jax.nn.softmax`` is
+    differentiated through its division, with ``integer_pow`` for l⁻²):
+    g = bf16(dO·Vᵀ); R = :func:`bf16_row_sum` of bf16(bf16(g · bf16(1 /
+    bf16(l·l))) · u); dS = bf16(bf16(bf16(g / l) - R) · u) where visible, 0
+    elsewhere; dS' = bf16(dS / bf16(sqrt(D))); dQ = dS'·K, dK = dS'ᵀ·Q,
+    dV = yᵀ·dO, the products summed in fp32."""
     _check_shapes(q, k, v, window)
     b, h, sq, d = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     _check_sees_a_key(sq, skv, window)
+    if not fp32_scores:
+        return _bwd_plain_bf16_scores(q, k, v, lse, do, causal, window)
     g, scale = h // kvh, 1.0 / math.sqrt(d)
     p = torch.exp(_scores(q, k, causal, window) - lse.float().reshape(b, kvh, g, sq, 1))
     dof = do.float().reshape(b, kvh, g, sq, d)
@@ -155,6 +287,33 @@ def flash_attention_bwd_plain(
     ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dof, v.float()) - delta)
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float()) * scale
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, q.float().reshape(b, kvh, g, sq, d)) * scale
+    return dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_plain_bf16_scores(q, k, v, stats, do, causal, window):
+    """:func:`flash_attention_bwd_plain` with ``fp32_scores=False``.  u is
+    recomputed from the scores and the saved m; y from u and the saved l."""
+    b, h, sq, d = q.shape
+    kvh = k.shape[1]
+    g = h // kvh
+    if stats.shape != (2, b, h, sq):
+        raise ValueError(f"the bf16-score backward takes the forward's (m, l) stats [2, {b}, {h}, {sq}], "
+                         f"got {tuple(stats.shape)}")
+    m, l = (t.float().reshape(b, kvh, g, sq, 1) for t in stats)
+    qg = q.float().reshape(b, kvh, g, sq, d)
+    c = score_divisor(d)
+    mask = _mask(sq, k.shape[2], causal, window, q.device)
+    s = bf16_round(bf16_round(torch.einsum("bkgqd,bksd->bkgqs", qg, k.float())) / c).masked_fill(~mask, float("-inf"))
+    u = bf16_round(torch.exp(bf16_round(s - m)))
+    y = bf16_round(u / l).to(q.dtype).float()
+    dof = do.float().reshape(b, kvh, g, sq, d)
+    dp = bf16_round(torch.einsum("bkgqd,bksd->bkgqs", dof, v.float()))
+    r = bf16_row_sum(bf16_round(bf16_round(dp * bf16_round(1.0 / bf16_round(l * l))) * u))[..., None]
+    ds = bf16_round(bf16_round(bf16_round(dp / l) - r) * u).masked_fill(~mask, 0.0)
+    ds = bf16_round(ds / c)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, k.float())
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", y, dof)
     return dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -177,15 +336,18 @@ def _tma_rows(t: torch.Tensor) -> bool:
             and all(s % 8 == 0 and (s > 0 or n == 1) for s, n in zip(outer, t.shape[:3])))
 
 
-def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor) -> str:
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+              fp32_scores: bool = True) -> str:
     """The backward's route (a key of ``BWD_ROUTES``) by type, head dim,
     strides and alignment alone: ``"simt"`` for fp32; ``"wgmma"`` for bf16
     at a head dim of ``WGMMA_HEAD_DIMS`` where TMA can address every row of
     q, k, v, o and dO; ``"mma"`` for every other bf16 call (D 16, 32, 80 and
-    192, rows only 8-byte aligned)."""
+    192, rows only 8-byte aligned).  The bf16-score mode (``fp32_scores=
+    False``) runs on ``"mma"`` for every bf16 call: the wgmma route has no
+    such mode."""
     if q.dtype == torch.float32:
         return "simt"
-    if q.shape[-1] in WGMMA_HEAD_DIMS and all(_tma_rows(t) for t in (q, k, v, o, do)):
+    if fp32_scores and q.shape[-1] in WGMMA_HEAD_DIMS and all(_tma_rows(t) for t in (q, k, v, o, do)):
         return "wgmma"
     return "mma"
 
@@ -201,9 +363,19 @@ def bwd_cluster(h: int, kvh: int) -> tuple[int, int]:
     return c, g // c
 
 
-def bwd_kernels(route: str, d: int) -> tuple[str, ...]:
+def bwd_kernels(route: str, d: int, fp32_scores: bool = True) -> tuple[str, ...]:
     """The kernels one backward launches on ``route`` at head dim ``d``, in
-    launch order, as the profiler names them."""
+    launch order, as the profiler names them.  The bf16-score mode has no
+    delta pre-pass: its dQ kernel computes each row's R and leaves it for
+    the dK/dV kernels."""
+    if not fp32_scores:
+        if route == "mma":
+            modes = (1, 2) if d >= 128 else (3,)
+            return (f"flash_bwd_dq_mma_bf16_scores_kernel<{d}>",
+                    *(f"flash_bwd_dkdv_mma_bf16_scores_kernel<{d}, {m}>" for m in modes))
+        if route == "simt":
+            return f"flash_bwd_dq_bf16_scores_kernel<{d}>", f"flash_bwd_dkdv_bf16_scores_kernel<{d}>"
+        raise ValueError(f"no bf16-score backward on route {route!r} (have 'mma', 'simt')")
     if route == "wgmma":
         return f"flash_bwd_dq_wgmma_kernel<{d}>", f"flash_bwd_dkdv_wgmma_kernel<{d}>"
     if route == "mma":
@@ -251,7 +423,7 @@ def _strides(*ts: torch.Tensor) -> list[int]:
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
-    return_lse: bool = False,
+    return_lse: bool = False, fp32_scores: bool = True,
 ):
     """Attention on the CUDA kernel.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv,
     D], float32 or bfloat16 on the current CUDA device, D in ``HEAD_DIMS``,
@@ -259,35 +431,44 @@ def flash_attention(
     as transposed views) -> [B, H, Sq, D] with q's layout and type.  Masks
     as :func:`flash_attention_plain`.  With ``return_lse`` returns (o, lse),
     lse the fp32 [B, H, Sq] log-sum-exp of each row's scaled scores, which
-    :func:`flash_attention_bwd` takes.
+    :func:`flash_attention_bwd` takes.  ``fp32_scores=False`` runs the
+    bf16-score mode (``flash_fwd_mma_bf16_scores_kernel`` for bf16,
+    ``flash_fwd_bf16_scores_kernel`` for fp32), and ``lse`` is then the
+    (m, l) stats, fp32 [2, B, H, Sq].
 
-    Launches on the current stream without synchronising; raises if the
+    Launches on the current stream without synchronising (one count in
+    ``launches``, or ``bf16_scores_launches`` in the mode); raises if the
     inputs are not what the kernel takes or the launch is refused.
     """
-    global launches
+    global launches, bf16_scores_launches
     _check_device(q, k, v)
     _check_shapes(q, k, v, window)
     _check_kernel_shapes(q, k, 64)
     b, h, sq, d = q.shape
     strides = _strides(q, k, v)
     o = torch.empty_like(q)  # same strides as q: a transposed [b, s, h, d] view stays one
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    lse = None
+    if return_lse:
+        lse = torch.empty((b, h, sq) if fp32_scores else (2, b, h, sq), dtype=torch.float32, device=q.device)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(),
         _DTYPES[q.dtype], b, h, k.shape[1], sq, k.shape[2], d,
         *strides, *o.stride()[:3],
-        int(causal), int(window), 1.0 / math.sqrt(d),
+        int(causal), int(window), int(not fp32_scores), 1.0 / math.sqrt(d) if fp32_scores else score_divisor(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    launches += 1
+    if fp32_scores:
+        launches += 1
+    else:
+        bf16_scores_launches += 1
     return (o, lse) if return_lse else o
 
 
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    *, causal: bool = True, window: int = 0,
+    *, causal: bool = True, window: int = 0, fp32_scores: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward on the CUDA kernels: (dq, dk, dv) of
     :func:`flash_attention` from its inputs, its output ``o`` and ``lse``
@@ -295,41 +476,50 @@ def flash_attention_bwd(
     as :func:`flash_attention` takes them (do and o with q's shape); the
     gradients have their inputs' shapes, types and layouts.  Raises where a
     query row sees no key (Sq >= Skv + window): its output is NaN.
+    ``fp32_scores=False``: the bf16-score mode's backward, ``lse`` the
+    forward's (m, l) stats [2, B, H, Sq].
 
     Launches the kernels of :func:`bwd_route`'s route (:func:`bwd_kernels`)
     on the current stream without synchronising (one count in
-    ``bwd_launches``); raises if the inputs are not what the kernels take or
-    a launch is refused.
+    ``bwd_launches``, or ``bf16_scores_bwd_launches`` in the mode); raises
+    if the inputs are not what the kernels take or a launch is refused.
     """
-    global bwd_launches
+    global bwd_launches, bf16_scores_bwd_launches
     _check_device(q, k, v, o, do)
     _check_shapes(q, k, v, window)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must have q's shape {tuple(q.shape)}")
     b, h, sq, d = q.shape
-    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
-        raise ValueError(f"lse must be contiguous fp32 [{b}, {h}, {sq}] on {q.device}, got {lse.dtype} "
+    want = (b, h, sq) if fp32_scores else (2, b, h, sq)
+    if lse.shape != want or lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be contiguous fp32 {list(want)} on {q.device}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
     _check_sees_a_key(sq, k.shape[2], window)
     _check_kernel_shapes(q, k, 8)
-    route = bwd_route(q, k, v, o, do)
+    if not fp32_scores and len(tree_levels(k.shape[2])) > 3:
+        raise ValueError(f"the bf16-score backward sums R over at most {TREE_WINDOW ** 4} keys, got {k.shape[2]}")
+    route = bwd_route(q, k, v, o, do, fp32_scores)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
-    # delta [B, H, Sq]; on the wgmma route each 64-row q tile's lse * log2(e) and delta, rows past Sq included
+    # delta (R in the bf16-score mode) [B, H, Sq]; on the wgmma route each 64-row q tile's lse * log2(e) and
+    # delta, rows past Sq included
     scratch = torch.empty(b * h * (-(-sq // 64) * 128 if route == "wgmma" else sq), dtype=torch.float32,
                           device=q.device)
     err = _bwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), BWD_ROUTES[route],
         bwd_cluster(h, k.shape[1])[0], b, h, k.shape[1], sq, k.shape[2], d, strides,
-        int(causal), int(window), 1.0 / math.sqrt(d),
+        int(causal), int(window), int(not fp32_scores), 1.0 / math.sqrt(d) if fp32_scores else score_divisor(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err >= _TENSOR_MAP_ERROR:
         raise RuntimeError(f"flash_attention_bwd: the driver refused a tensor map (CUresult {err - _TENSOR_MAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: cudaError {err}")
-    bwd_launches += 1
+    if fp32_scores:
+        bwd_launches += 1
+    else:
+        bf16_scores_bwd_launches += 1
     return dq, dk, dv
 
 
@@ -341,7 +531,7 @@ def _kernel():
     fn = library("flash_attention").flash_attention_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -355,7 +545,7 @@ def _bwd_kernel():
     fn = library("flash_attention").flash_attention_bwd
     fn.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn

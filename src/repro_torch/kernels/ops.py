@@ -9,8 +9,9 @@ What trains where.  The kernels fill tensors through ``ctypes`` and carry
 no ``grad_fn``, so on a CUDA tensor under grad mode with an input that
 requires grad:
 - ``flash_attention`` runs through an autograd Function whose forward is
-  the kernel with its log-sum-exp and whose backward is the hand-written
-  backward kernel (``flash_attention_bwd``);
+  the kernel with its log-sum-exp (with ``fp32_scores=False``, the
+  bf16-score kernels with their (m, l) stats) and whose backward is the
+  hand-written backward kernel (``flash_attention_bwd``);
 - ``gemm`` runs through an autograd Function whose backward is two more
   ``gemm`` calls, dA = dC·Bᵀ and dB = Aᵀ·dC, on the transposed views as
   they lie (bf16: the wgmma instantiations that read B K-major and A
@@ -23,7 +24,11 @@ requires grad:
   CNN, so its backward kernel is not written, and a kernel output with no
   ``grad_fn`` must never reach a loss.
 Without grad mode (serving, ``torch.inference_mode``) each is the plain
-kernel call.
+kernel call.  On the CPU, ``flash_attention(fp32_scores=False)`` under
+grad runs an autograd Function too, over the plain forward and its
+explicit backward (``flash_attention_bwd_plain``), which follows
+``jax.grad`` of the reference's bf16 softmax op by op where torch's
+autograd of the plain ops would round other intermediates.
 
 A ``meta`` tensor (``launch/dryrun.py``) computes nothing: each entry point
 returns outputs of the right shape and dtype (flash's log-sum-exp and the
@@ -92,10 +97,10 @@ class _MetaGemm(torch.autograd.Function):
 
 class _MetaFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, fp32_scores):
         _note("flash_attention", _fa.cost(q, k, v, causal, window))
         o = torch.empty_like(q)
-        lse = q.new_empty(q.shape[:-1], dtype=torch.float32)
+        lse = q.new_empty(q.shape[:-1] if fp32_scores else (2, *q.shape[:-1]), dtype=torch.float32)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -104,7 +109,7 @@ class _MetaFlash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, _, _ = ctx.saved_tensors
         _note("flash_attention_bwd", _fa.bwd_cost(q, k, ctx.causal, ctx.window))
-        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None, None
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None, None, None
 
 
 class _MetaSsd(torch.autograd.Function):
@@ -153,10 +158,10 @@ class _Gemm(torch.autograd.Function):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = _fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    def forward(ctx, q, k, v, causal, window, fp32_scores):
+        o, lse = _fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True, fp32_scores=fp32_scores)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.fp32_scores = causal, window, fp32_scores
         return o
 
     @staticmethod
@@ -164,7 +169,27 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if _fa._vector_strides(do) is None:  # e.g. an expanded gradient: the kernel reads rows
             do = do.contiguous()
-        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window,
+                                             fp32_scores=ctx.fp32_scores)
+        return dq, dk, dv, None, None, None
+
+
+class _FlashAttentionBf16ScoresPlain(torch.autograd.Function):
+    """The bf16-score mode on CPU tensors: the plain forward, and the plain
+    backward's explicit formulas (``jax.grad``'s of the reference)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, stats = _fa.flash_attention_fwd_plain(q, k, v, causal=causal, window=window, fp32_scores=False)
+        ctx.save_for_backward(q, k, v, o, stats)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, stats = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd_plain(q, k, v, o, stats, do, causal=ctx.causal, window=ctx.window,
+                                                   fp32_scores=False)
         return dq, dk, dv, None, None
 
 
@@ -220,19 +245,35 @@ def conv2d_im2col(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1) -> torch
 
 
 def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
+    fp32_scores: bool = True,
 ) -> torch.Tensor:
     """Attention. q: [B, H, Sq, D]; k, v: [B, KVH, Skv, D] -> [B, H, Sq, D]
-    (the causal mask top-left: key j visible to query i when j <= i)."""
+    (the causal mask top-left: key j visible to query i when j <= i).
+    ``fp32_scores=False``: the reference's ``attn_fp32_scores=False``, bf16
+    scores and a bf16 softmax."""
     if q.is_cuda:
         if _wants_grad(q, k, v):
-            return _FlashAttention.apply(q, k, v, causal, window)
-        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+            return _FlashAttention.apply(q, k, v, causal, window, fp32_scores)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window, fp32_scores=fp32_scores)
     if q.device.type == "cpu":
-        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, fp32_scores=fp32_scores)
     if q.device.type == "meta":
-        return _MetaFlash.apply(q, k, v, causal, window)
+        return _MetaFlash.apply(q, k, v, causal, window, fp32_scores)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
+    fp32_scores: bool = True,
+) -> torch.Tensor:
+    """The plain version of :func:`flash_attention` on any device (the CPU
+    path; ``chip_smoke.py``'s plain path on the card): in the bf16-score
+    mode under autograd, an autograd Function whose backward is the explicit
+    ``flash_attention_bwd_plain``; otherwise ``flash_attention_plain``."""
+    if not fp32_scores and _wants_grad(q, k, v):
+        return _FlashAttentionBf16ScoresPlain.apply(q, k, v, causal, window)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window, fp32_scores=fp32_scores)
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..kernels import flash_attention as fa
 from ..kernels import ops
 from ..collectives import (all_reduce_over, enter_tp, gather_act, gather_heads, mean_over, own_block, psum_tp,
                            sp_gather, sp_scatter, split_act, sum_tp)
@@ -84,40 +85,13 @@ def _sdpa(cfg: LMConfig, q, k, v, *, causal: bool, window: int = 0) -> torch.Ten
     so nothing is copied; it replaces both the reference's ``attn_q_block``
     chunking and its ``attn_repeat_kv`` option, neither of which changes the
     result.  Its scores are fp32 (the reference's default
-    ``attn_fp32_scores``); ``attn_fp32_scores=False`` runs
-    :func:`_sdpa_bf16_scores` on CPU tensors and raises on CUDA ones.
+    ``attn_fp32_scores``); ``attn_fp32_scores=False`` runs the kernel's
+    bf16-score mode (bf16 scores and a bf16 softmax, forward and backward).
     """
-    if not cfg.attn_fp32_scores:
-        if q.is_cuda:
-            raise NotImplementedError("attn_fp32_scores=False: the flash kernel has no bf16-score mode yet "
-                                      "(ROADMAP.md queue 1, the flash bf16-score mode)")
-        return _sdpa_bf16_scores(q, k, v, causal=causal, window=window)
     b, s, h, d = q.shape
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window)
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal, window=window,
+                            fp32_scores=cfg.attn_fp32_scores)
     return o.transpose(1, 2).reshape(b, s, h * d)
-
-
-def _sdpa_bf16_scores(q, k, v, *, causal: bool, window: int = 0) -> torch.Tensor:
-    """:func:`_sdpa` with the reference's ``attn_fp32_scores=False``
-    (``repro/models/blocks.py:57-67``): the Q·Kᵀ products in q's type,
-    rounded to bf16 before the scale, a bf16 softmax, the probabilities
-    cast back to q's type before P·V.  Plain PyTorch on the CPU."""
-    b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, kvh, h // kvh, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(torch.bfloat16) / math.sqrt(d)
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window:
-        mask &= qpos - kpos < window
-    scores = scores.masked_fill(~mask, float("-inf"))
-    # jax.nn.softmax step by step, each step rounded to bf16 (its sum adds in fp32)
-    e = torch.exp(scores - scores.amax(-1, keepdim=True))
-    probs = (e / e.sum(-1, keepdim=True)).to(q.dtype)
-    return torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, sq, h * d)
 
 
 def _tp_in(h: torch.Tensor, tp, seq=None) -> torch.Tensor:
@@ -208,33 +182,54 @@ def _decode_heads(o: torch.Tensor, p: dict, tp) -> torch.Tensor:
     return sum_tp(own_block(o, *tp, 2) @ p["wo"], *tp)
 
 
-def _attend_one(cfg: LMConfig, q, k, v, seen: torch.Tensor | None = None) -> torch.Tensor:
+def _decode_scores(cfg: LMConfig, q, k, seen: torch.Tensor | None, fp32_scores: bool) -> torch.Tensor:
+    """One query position's masked scores [b, kvh, g, 1, s] against ``k``
+    [b, s, kvh, d], fp32: q·kᵀ / sqrt(d) in fp32, or with ``fp32_scores``
+    False bf16(bf16(q·kᵀ) / bf16(sqrt(d))), the reference's
+    ``attn_fp32_scores=False`` (``flash_attention.flash_attention_plain``)."""
+    b, d = q.shape[0], cfg.hd
+    qg = q.reshape(b, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, d)
+    raw = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(q.dtype)).float()
+    scores = raw / math.sqrt(d) if fp32_scores else fa.bf16_round(fa.bf16_round(raw) / fa.score_divisor(d))
+    return scores if seen is None else scores.masked_fill(~seen, float("-inf"))
+
+
+def _attend_one(cfg: LMConfig, q, k, v, seen: torch.Tensor | None = None, fp32_scores: bool = True) -> torch.Tensor:
     """One query position against ``s`` keys: q [b, 1, h, d]; k/v [b, s,
     kvh, d]; ``seen`` [s] masks keys out (None: all visible) -> [b, 1, h·d].
     Scores and softmax in fp32, the probabilities cast to q's type before
-    P·V, as the reference's ``_sdpa_chunk``."""
-    b, d = q.shape[0], cfg.hd
-    qg = q.reshape(b, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(q.dtype)).float() / math.sqrt(d)
-    if seen is not None:
-        scores = scores.masked_fill(~seen, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(q.dtype)).reshape(b, 1, cfg.q_dim)
+    P·V, as the reference's ``_sdpa_chunk``; with ``fp32_scores`` False its
+    bf16 scores and bf16 softmax, each step rounded as
+    ``flash_attention.flash_attention_plain`` rounds it."""
+    b = q.shape[0]
+    scores = _decode_scores(cfg, q, k, seen, fp32_scores)
+    if fp32_scores:
+        probs = torch.softmax(scores, dim=-1)
+    else:
+        u = fa.bf16_round(torch.exp(fa.bf16_round(scores - scores.amax(-1, keepdim=True))))
+        probs = fa.bf16_round(u / fa.bf16_round(fa.tree_sum(u, bf16=False)[..., None]))
+    return torch.einsum("bkgqs,bskd->bqkgd", probs.to(q.dtype), v.to(q.dtype)).reshape(b, 1, cfg.q_dim)
 
 
-def _attend_split(cfg: LMConfig, q, k, v, seen: torch.Tensor | None, split) -> torch.Tensor:
+def _attend_split(cfg: LMConfig, q, k, v, seen: torch.Tensor | None, split, fp32_scores: bool = True) -> torch.Tensor:
     """:func:`_attend_one` over a key set split across the ranks of
     ``split = (mesh, axis)``, each holding ``k``/``v`` [b, s_rank, kvh, d]
     and their ``seen`` mask: each rank scores its keys in fp32, and the
     max, the sum of exponentials and the weighted values are combined over
-    the axis (flash-decode), the output cast to q's type."""
+    the axis (flash-decode), the output cast to q's type.  With
+    ``fp32_scores`` False each rank scores in bf16: the max is combined,
+    then each rank's fp32 sum of u = bf16(exp(bf16(s - m))), rounded to
+    bf16 once whole, then the ranks' y·V with y = bf16(u / l)."""
     b, d = q.shape[0], cfg.hd
-    qg = q.reshape(b, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, d)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(q.dtype)).float() / math.sqrt(d)
-    if seen is not None:
-        scores = scores.masked_fill(~seen, float("-inf"))
+    scores = _decode_scores(cfg, q, k, seen, fp32_scores)
     mesh, axis = split
     m = all_reduce_over(scores.amax(-1, keepdim=True), mesh, (axis,), torch.distributed.ReduceOp.MAX)
+    if not fp32_scores:
+        u = fa.bf16_round(torch.exp(fa.bf16_round(scores - m)))
+        l = fa.bf16_round(all_reduce_over(u.sum(-1, keepdim=True), mesh, (axis,)))
+        y = fa.bf16_round(u / l).to(q.dtype).float()
+        o = all_reduce_over(torch.einsum("bkgqs,bskd->bqkgd", y, v.to(q.dtype).float()), mesh, (axis,))
+        return o.to(q.dtype).reshape(b, 1, cfg.q_dim)
     e = torch.exp(scores - m)
     o = torch.einsum("bkgqs,bskd->bqkgd", e, v.float())  # [b, 1, kvh, g, d]
     l = e.sum(-1).permute(0, 3, 1, 2)[..., None]  # [b, 1, kvh, g, 1]
@@ -272,12 +267,16 @@ def cross_attention_decode(cfg: LMConfig, p: dict, x, cross_k, cross_v, split=No
     reference writes it inline in ``serve_step``).  x: [b, 1, d]; cross_[kv]:
     [b, se, kvh, hd] -> x + attention, every frame visible; ``split``: the
     frames split over the ranks, as :func:`attention_decode`'s ring; ``tp``:
-    ``p`` holds the rank's heads, as there."""
+    ``p`` holds the rank's heads, as there.  The reference computes it with
+    ``_sdpa``, so ``cfg.attn_fp32_scores`` reaches it (self-attention decode
+    scores in fp32 whatever the knob, as the reference's)."""
     b = x.shape[0]
     q = (_tp_in(rms_norm(x, p["ln"], cfg.norm_eps), tp) @ p["wq"]).reshape(b, 1, -1, cfg.hd)
     if tp is not None:
         q = gather_heads(q, cfg.n_heads, *tp)
-    o = _attend_one(cfg, q, cross_k, cross_v) if split is None else _attend_split(cfg, q, cross_k, cross_v, None, split)
+    f32 = cfg.attn_fp32_scores
+    o = (_attend_one(cfg, q, cross_k, cross_v, fp32_scores=f32) if split is None
+         else _attend_split(cfg, q, cross_k, cross_v, None, split, fp32_scores=f32))
     return x + _decode_heads(o, p, tp)
 
 

@@ -985,6 +985,66 @@ def test_flash_backward_refuses_rows_that_see_no_key():
         fa.flash_attention_bwd(q, k, v, o, lse, torch.ones_like(q), window=5)
 
 
+#: the bf16-score mode (``fp32_scores=False``), kernel against plain on the same inputs: the root mean
+#: square of the difference over that of plain (``chip_smoke.BF16S_TOL``, where the readings are given)
+BF16S_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+#: (b, h, kvh, sq, skv, d, dtype, causal, window): every head dim in both types, GQA, a window, no causal
+#: mask, ragged lengths and a key length other than the query's both ways
+BF16S_CASES = (
+    [(2, 8, 2, 100, None, d, dt, True, 0) for dt in (torch.bfloat16, torch.float32) for d in fa.HEAD_DIMS]
+    + [
+        (1, 4, 4, 65, None, 64, torch.bfloat16, True, 7),
+        (2, 10, 2, 130, None, 128, torch.bfloat16, False, 0),
+        (1, 8, 1, 15, 300, 80, torch.bfloat16, False, 0),
+        (2, 4, 2, 70, 15, 32, torch.float32, True, 0),
+        (1, 24, 2, 100, None, 192, torch.float32, True, 16),
+    ]
+)
+
+
+def _rms_rel(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).square().mean().sqrt() / want.square().mean().sqrt()).item()
+
+
+@pytest.mark.parametrize("b,h,kvh,s,skv,d,dtype,causal,window", BF16S_CASES)
+def test_flash_bf16_scores_forward_and_backward_match_plain(b, h, kvh, s, skv, d, dtype, causal, window):
+    """The mode's kernels against ``flash_attention_fwd_plain`` /
+    ``flash_attention_bwd_plain`` in the mode: o and each gradient within
+    BF16S_TOL, (m, l) within a bf16 step; the route ``mma`` (bf16) or
+    ``simt`` (fp32); one count each in the mode's own counters and none in
+    the fp32 mode's; the same bits twice."""
+    q, k, v = _attn(b, h, kvh, s, d, dtype, bshd=True, skv=skv)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, fp32_scores=False)
+    counts = lambda: (fa.bf16_scores_launches, fa.bf16_scores_bwd_launches, fa.launches, fa.bwd_launches)
+    before = counts()
+    o, stats = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert fa.bwd_route(q, k, v, o, do, fp32_scores=False) == ("simt" if dtype == torch.float32 else "mma")
+    got = fa.flash_attention_bwd(q, k, v, o, stats, do, **kw)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    po, pstats = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, po, pstats, do, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.stride() == q.stride() and stats.shape == (2, b, h, s)
+    assert _rms_rel(o, po) <= BF16S_TOL[dtype]
+    assert (stats - pstats).abs().max() <= 2.0**-7 * pstats.abs().max()
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.stride() == t.stride()
+        assert _rms_rel(g, w) <= BF16S_TOL[dtype]
+    assert all(torch.equal(x, y) for x, y in zip(got, fa.flash_attention_bwd(q, k, v, o, stats, do, **kw)))
+
+
+def test_ops_trains_through_the_bf16_score_kernels():
+    q, k, v = (t.requires_grad_() for t in _attn(2, 8, 2, 64, 64, torch.bfloat16, bshd=True))
+    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    before = fa.bf16_scores_launches, fa.bf16_scores_bwd_launches
+    got = torch.autograd.grad(ops.flash_attention(q, k, v, fp32_scores=False), (q, k, v), do)
+    assert (fa.bf16_scores_launches, fa.bf16_scores_bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(ops.flash_attention_plain(q, k, v, fp32_scores=False), (q, k, v), do)
+    assert all(_rms_rel(g, w) <= BF16S_TOL[torch.bfloat16] for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemm_gradient_runs_the_kernel_twice_and_matches_plain(dtype):
     a, b = _gemm_inputs((3, 40, 64), (3, 64, 48), dtype)
