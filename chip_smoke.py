@@ -393,17 +393,23 @@ repository's sources are not beside this script.  Otherwise, in order:
    timed by the profiler's device time (``shard_scan_times``; the
    ``ssd_scan`` row's ``split heads``);
 16. the bf16-score mode (the reference's ``attn_fp32_scores=False``), whose
-   kernels phases 6b and 11b hold first, after phases 6 and 11: the mode's
+   kernels phases 6b and 11b hold first, after phases 6 and 11 (6b opens
+   with the exhaustive scalar checks, ``check_bf16s_scalars``: each of the
+   mode's rounding steps against the IEEE op over every input, inputs and
+   mismatches printed, none allowed): the mode's
    forward (``flash_fwd_mma_bf16_scores_kernel`` in bf16,
-   ``flash_fwd_bf16_scores_kernel`` in fp32) and backward (``"mma"`` route
-   in bf16, ``"simt"`` in fp32, ``bwd_kernels(route, d, False)``) against
+   ``flash_fwd_bf16_scores_kernel`` in fp32) and backward (the fp32 mode's
+   route: ``"wgmma"`` at D 64 and 128 with rows TMA can address, ``"mma"``
+   for other bf16 calls, ``"simt"`` in fp32; ``bwd_kernels(route, d,
+   False)``, printed with the route for every call) against
    the plain version in the mode on the same inputs, o, (m, l), dq, dk and
    dv, at the served calls of BF16S_SERVED, the training shapes of
    BF16S_TRAINED and a grid (every head dim in both types, GQA groups 1, 4
    and 5, a window, no causal mask, ragged S, Skv other than Sq both
-   ways), held to BF16S_TOL beside the fp32-score function as the control,
-   which must miss; two backward calls give the same bits; the profiled
-   training shapes run exactly the mode's kernels; times by events and
+   ways, bf16 rows only 8-byte aligned at D 64 and 128), held to BF16S_TOL
+   beside the fp32-score function as the control, which must miss; two
+   backward calls give the same bits; the profiled training shapes and
+   unaligned rows run exactly the mode's kernels; times by events and
    device time beside the fp32-score kernels and the plain mode.  Then
    (``drive_bf16_scores``) granite-3-2b trained at full size and
    whisper-small served at full size with ``attn_fp32_scores=False``, each
@@ -583,6 +589,7 @@ PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_b
                 "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkdv_kernel", "flash_fwd_mma_bf16_scores_kernel", "flash_fwd_bf16_scores_kernel",
                 "flash_bwd_dq_mma_bf16_scores_kernel", "flash_bwd_dkdv_mma_bf16_scores_kernel",
+                "flash_bwd_dq_wgmma_bf16_scores_kernel", "flash_bwd_dkdv_wgmma_bf16_scores_kernel",
                 "flash_bwd_dq_bf16_scores_kernel", "flash_bwd_dkdv_bf16_scores_kernel",
                 "ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel",
                 "ssd_scan_bwd_states_mma_kernel", "ssd_scan_bwd_chunk_mma_kernel", "ssd_scan_bwd_mma_sum_kernel")
@@ -591,7 +598,8 @@ PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_b
 #: mode's (``_bf16_scores_kernel``)
 FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_(?:mma_bf16_|mma_bf16_scores_|bf16_scores_|)kernel"
                       r"|flash_bwd_(?:delta|dq_mma_bf16|dkdv_mma_bf16|dq_wgmma|dkdv_wgmma|dq|dkdv|dq_mma_bf16_scores"
-                      r"|dkdv_mma_bf16_scores|dq_bf16_scores|dkdv_bf16_scores)_kernel)<[^>]*>)")
+                      r"|dkdv_mma_bf16_scores|dq_wgmma_bf16_scores|dkdv_wgmma_bf16_scores|dq_bf16_scores"
+                      r"|dkdv_bf16_scores)_kernel)<[^>]*>)")
 #: the GEMM's kernels as the profiler names them (wgmma, mma.sync tiles, fp32 FMA)
 GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 #: the SSD scan's kernels as the profiler names them: bf16 on the tensor cores, the SIMT one
@@ -792,13 +800,13 @@ def check_flash_bwd_ptxas() -> None:
     and dK/dV at D 64 and 128; the delta pre-pass of each type; dQ and
     dK/dV at every head dim on ``mma.sync`` and on the SIMT pipes, the
     ``mma.sync`` dK/dV as one pass up to D 80 and as a dV pass and a dK
-    pass above; the bf16-score mode's dQ and dK/dV on both) with no spill, and without making the wgmma kernels'
-    ``wgmma`` wait (C7517, C7518); print each one's registers."""
+    pass above; the bf16-score mode's dQ and dK/dV on all three routes)
+    with no spill, and without making the wgmma kernels' ``wgmma`` wait
+    (C7517, C7518); print each one's registers."""
     seen = {_bwd_name(n): v for n, v in _ptxas_entries(
         "flash_attention", r"(flash_bwd_[a-z0-9_]+_kernelI(?:Li\d+E)*(?:13__nv_bfloat16|f)?E)").items()}
-    want = {name for d in fa.HEAD_DIMS for route in fa.BWD_ROUTES
-            if route != "wgmma" or d in fa.WGMMA_HEAD_DIMS for name in fa.bwd_kernels(route, d)}
-    want |= {name for d in fa.HEAD_DIMS for route in ("mma", "simt") for name in fa.bwd_kernels(route, d, False)}
+    want = {name for d in fa.HEAD_DIMS for route in fa.BWD_ROUTES for fp32_scores in (True, False)
+            if route != "wgmma" or d in fa.WGMMA_HEAD_DIMS for name in fa.bwd_kernels(route, d, fp32_scores)}
     for name, (regs, st, ld) in sorted(seen.items()):
         print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     if set(seen) != want:
@@ -807,7 +815,7 @@ def check_flash_bwd_ptxas() -> None:
     if spilled:
         raise RuntimeError(f"flash backward kernels spill: {spilled}")
     waits = [line for line in build.ptxas_report("flash_attention").splitlines()
-             if re.search(r"\(C751[78]\)", line) and "wgmma_kernel" in line]
+             if re.search(r"\(C751[78]\)", line) and re.search(r"wgmma_(?:bf16_scores_)?kernel", line)]
     if waits:
         raise RuntimeError(f"ptxas made the wgmma of the flash backward wait: {waits}")
 
@@ -3432,7 +3440,8 @@ def _bf16s_cases(gen_cases: list[dict]) -> list[dict]:
     """The mode's grid: ``gen_cases`` and every head dim in bf16 and fp32,
     GQA groups 1, 4 and 5, a window, ragged S, no causal mask and a key
     length other than the query's both ways (whisper's 448 x 1500 among
-    them)."""
+    them); and bf16 rows only 8-byte aligned at D 64 and 128 (``pad``),
+    which keep the backward on the ``mma.sync`` kernels."""
     f32, bf16 = torch.float32, torch.bfloat16
     base = dict(b=2, h=8, kvh=2, s=200, d=64, dtype=bf16, causal=True, window=0)
     return gen_cases + [dict(base, d=d, dtype=dt) for dt in (bf16, f32) for d in fa.HEAD_DIMS] + [
@@ -3440,16 +3449,38 @@ def _bf16s_cases(gen_cases: list[dict]) -> list[dict]:
         dict(base, s=300, d=80, window=50), dict(base, s=100, d=192, dtype=f32, window=16),
         dict(base, s=15, skv=1000, causal=False), dict(base, s=448, skv=65, d=128),
         dict(base, b=1, h=12, kvh=12, s=448, skv=1500, causal=False), dict(base, s=77, skv=33, dtype=f32, window=50),
+        dict(base, pad=4), dict(base, d=128, pad=4), dict(base, h=4, kvh=4, s=130, d=128, pad=4, causal=False),
+        dict(base, s=300, pad=4, window=50),
     ]
 
 
 def _draw_bhsd(case: dict, gen: torch.Generator):
     """q, k, v and dO of ``case`` on the card as the model lays them out
-    (``[b, s, h, d]`` tensors as transposed views)."""
+    (``[b, s, h, d]`` tensors as transposed views; with ``pad``, rows of d +
+    pad elements sliced to d)."""
     b, h, kvh, s, d, dt = (case[k] for k in ("b", "h", "kvh", "s", "d", "dtype"))
-    skv = case.get("skv", s)
-    draw = lambda n, heads: torch.randn((b, n, heads, d), generator=gen, device="cuda").to(dt).transpose(1, 2)
+    skv, pad = case.get("skv", s), case.get("pad", 0)
+    draw = lambda n, heads: (torch.randn((b, n, heads, d + pad), generator=gen, device="cuda").to(dt)[..., :d]
+                             .transpose(1, 2))
     return draw(s, h), draw(skv, kvh), draw(skv, kvh), draw(s, h)
+
+
+def check_bf16s_scalars() -> dict:
+    """Phase 6b's first check: the bf16-score mode's scalar steps (the
+    division by c, the division by l, exp) held on the card to the IEEE ops
+    they replace, bit for bit over every input they can take
+    (``flash_attention.scalar_check``).  Prints each step's count of inputs
+    and of mismatches; fails on one mismatch.  Returns the readings."""
+    got = fa.scalar_check()
+    for step in got["steps"]:
+        print(f"[bf16s] scalar check {step['step']}: {step['inputs']} inputs, {step['mismatches']} mismatches "
+              f"({_card()})")
+    print(f"[bf16s] scalar check: the fast exp's fp32 value lies at most {got['exp_max_ulp']} units in the last place "
+          f"from expf's")
+    bad = [step for step in got["steps"] if step["mismatches"]]
+    if bad:
+        raise RuntimeError(f"the bf16-score mode's scalar steps miss the IEEE ops: {bad}")
+    return got
 
 
 def check_flash_bf16_scores(gen: torch.Generator) -> dict:
@@ -3463,7 +3494,10 @@ def check_flash_bf16_scores(gen: torch.Generator) -> dict:
     row, with its forward times at granite-3-2b's shape (kernel, the
     fp32-score kernel and the plain mode by events and device time; no
     PyTorch call computes bf16-rounded scores, so ``library_ms`` is null and
-    SDPA's time stands beside it as the fp32-score yardstick)."""
+    SDPA's time stands beside it as the fp32-score yardstick), and the
+    scalar checks' readings (``check_bf16s_scalars``, run first).  Each
+    call prints the route and kernels its backward would take."""
+    scalars = check_bf16s_scalars()
     served = [c for c in served_flash_calls() if c["model"].split()[0] in BF16S_SERVED]
     row, max_err = None, 0.0
     for case in _bf16s_cases(served):
@@ -3473,7 +3507,9 @@ def check_flash_bf16_scores(gen: torch.Generator) -> dict:
         po, pstats = fa.flash_attention_fwd_plain(q, k, v, fp32_scores=False, **kw)
         ctl = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        desc = {**case, "skv": case.get("skv", case["s"]), "dtype": str(case["dtype"]).removeprefix("torch.")}
+        route = fa.bwd_route(q, k, v, o, q, fp32_scores=False)  # dO takes q's layout
+        desc = {**case, "skv": case.get("skv", case["s"]), "dtype": str(case["dtype"]).removeprefix("torch."),
+                "bwd_route": route, "bwd_kernels": fa.bwd_kernels(route, case["d"], False)}
         _hold_bf16s("flash_attention bf16 scores", desc, {"o": (o, po, ctl)}, case["dtype"])
         # m is a bf16 score: a step (2^-7 of it at most) apart where the row's largest score rounds apart;
         # l then moves with it
@@ -3514,7 +3550,8 @@ def check_flash_bf16_scores(gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     return {"name": "flash_attention_bf16_scores", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:64", "max_abs_err": max_err, **row}
+            "replaces": "src/repro/kernels/flash_attention.py:64", "max_abs_err": max_err, **row,
+            "scalar_check": {step["step"]: [step["inputs"], step["mismatches"]] for step in scalars["steps"]}}
 
 
 def check_flash_bwd_bf16_scores(gen: torch.Generator) -> dict:
@@ -3522,9 +3559,12 @@ def check_flash_bwd_bf16_scores(gen: torch.Generator) -> dict:
     False)``) from the kernel's own o and (m, l) against
     ``flash_attention_bwd_plain`` in the mode from plain's, dq, dk and dv,
     beside the fp32-score plain backward as the control (``_hold_bf16s``),
-    on BF16S_TRAINED's training shapes and ``_bf16s_cases``' grid; fails
-    unless the route is ``mma`` (bf16) or ``simt`` (fp32), unless two calls
-    give the same bits, and unless the profiled training shapes ran exactly
+    on BF16S_TRAINED's training shapes and ``_bf16s_cases``' grid; prints
+    each call's route and kernels (``flash_attention.bwd_route`` /
+    ``bwd_kernels``); fails unless the route is the fp32 mode's (``wgmma``
+    at granite-3-2b's and phi3.5-moe's training shapes, ``mma`` on rows only
+    8-byte aligned), unless two calls give the same bits, and unless the
+    profiled training shapes and rows only 8-byte aligned ran exactly
     ``flash_attention.bwd_kernels`` of the mode.  Times the training shapes
     forward and backward: the mode's kernels, the fp32-score kernels and
     the plain mode, by events and device time.  Returns the row's backward
@@ -3539,7 +3579,8 @@ def check_flash_bwd_bf16_scores(gen: torch.Generator) -> dict:
         o, stats = fa.flash_attention(q, k, v, return_lse=True, fp32_scores=False, **kw)
         po, pstats = fa.flash_attention_fwd_plain(q, k, v, fp32_scores=False, **kw)
         route = fa.bwd_route(q, k, v, o, do, fp32_scores=False)
-        if route != ("simt" if dt == torch.float32 else "mma"):
+        wgmma = case.get("model") in ("granite-3-2b", "phi3.5-moe-42b")
+        if route != fa.bwd_route(q, k, v, o, do) or wgmma and route != "wgmma" or "pad" in case and route != "mma":
             raise RuntimeError(f"the bf16-score backward took the {route} route at {case}")
         got = fa.flash_attention_bwd(q, k, v, o, stats, do, fp32_scores=False, **kw)
         again = fa.flash_attention_bwd(q, k, v, o, stats, do, fp32_scores=False, **kw)
@@ -3547,12 +3588,20 @@ def check_flash_bwd_bf16_scores(gen: torch.Generator) -> dict:
         o32, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
         ctl = fa.flash_attention_bwd_plain(q, k, v, o32, lse, do, **kw)
         torch.cuda.synchronize()
-        desc = {**case, "skv": case.get("skv", case["s"]), "dtype": str(dt).removeprefix("torch."), "route": route}
+        desc = {**case, "skv": case.get("skv", case["s"]), "dtype": str(dt).removeprefix("torch."), "route": route,
+                "kernels": fa.bwd_kernels(route, d, False)}
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             raise RuntimeError(f"the bf16-score backward: two calls differ at {desc}")
         _hold_bf16s("flash_attention_bwd bf16 scores", desc,
                     {n: (g, w, c) for n, g, w, c in zip(("dq", "dk", "dv"), got, plain, ctl)}, dt)
         max_err = max(max_err, max((g.float() - w.float()).abs().max().item() for g, w in zip(got, plain)))
+        if "pad" in case:  # the mma.sync kernels, which no other case of the grid reaches at D 64 and 128
+            _, ran = _device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, stats, do, fp32_scores=False, **kw))
+            ran = {m.group(1): n for name, n in ran.items() if (m := FLASH_FN.search(name))}
+            want = fa.bwd_kernels("mma", d, False)
+            print(f"[bf16s] flash_attention_bwd bf16 scores on rows only 8-byte aligned ran {ran}")
+            if ran != dict.fromkeys(want, 1):
+                raise RuntimeError(f"the bf16-score backward at {desc} ran {ran}, want each of {want} once")
         if "model" in case:
             flops, nbytes = fa.bwd_cost(q, k, case["causal"], case["window"])
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)

@@ -214,26 +214,178 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---------------------------------------------------------------------------
 //
 // Each step of the reference's bf16 softmax is rounded to bf16 (to nearest,
-// ties to even) and held in fp32; every operation is an IEEE fp32 one with
-// its own rounding (__fdiv_rn, __fmul_rn, ...: no reciprocal, no FMA
-// contraction), as XLA evaluates a bf16 op in fp32 and rounds the result:
+// ties to even) and held in fp32, as XLA evaluates a bf16 op in fp32 and
+// rounds the result:
 //   s = bf16(bf16(q.k^T) / c),  c = bf16(sqrt(D)) (flash_attention.py::score_divisor)
 //   m = max s,  u = bf16(exp(bf16(s - m))),  l = bf16(sum u, in fp32),  y = bf16(u / l)
 // and the backward, jax.grad's op by op:
 //   g = bf16(dO.V^T),  R = sum_row bf16(bf16(g * bf16(1 / bf16(l * l))) * u), in bf16 (TreeSum)
 //   dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c),  dQ = dS'.K,  dK = dS'^T.Q,  dV = y^T.dO
-// The online softmax cannot give bf16(exp(bf16(s - m))) at the row's final
-// max, so the forward sweeps a q tile's keys three times (max; sum; y.V) and
-// saves m and l; the backward's dQ kernels sweep twice (R; dQ) and leave R
-// for the dK/dV kernels.
+// Every step gives the bits of the IEEE fp32 op rounded to bf16 (no FMA
+// contraction across a rounding), but the per-element divisions and exp
+// take no IEEE division and no expf where they need not (div_bf16,
+// exp_bf16): each is checked against bfr(__fdiv_rn) / bfr(expf) over every
+// input it can take, on the card, by flash_bf16s_scalar_check (chip_smoke.py
+// and tests/test_torch_gpu.py fail on one mismatch).  The online softmax
+// cannot give bf16(exp(bf16(s - m))) at the row's final max, so the forward
+// sweeps a q tile's keys three times (the raw scores' max, mapped once a
+// row: the mapping is non-decreasing; the sum; y.V) and saves m and l; the
+// backward's dQ kernels sweep twice (R, its windows of 32 summed in
+// parallel, WindowSum; then dQ) and leave R for the dK/dV kernels.
+//
+// scripts/flash_bf16s_probe.py builds copies with -DFLASH_BF16S_PROBE=n to
+// see what bounds the mode's kernels: 1,
+// every per-element division is a multiplication by the reciprocal with no
+// exact path; 2, exp is ex2.approx with no exact path; 3, the dQ kernels add
+// no term of R; 4, the mma.sync forward runs its y.V sweep alone (no max
+// and no sum sweep; m = 0, l = 1).  Each probe leaves the output wrong; 0,
+// the shipped build, runs the kernels whole.
+#ifndef FLASH_BF16S_PROBE
+#define FLASH_BF16S_PROBE 0
+#endif
 
 __device__ __forceinline__ float bfr(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-// s = bf16(bf16(acc) / c) of a q.k^T accumulator.
-__device__ __forceinline__ float bf16_score(float acc, float c) { return bfr(__fdiv_rn(bfr(acc), c)); }
+// Below this a product x * r may have left fp32's normal range: the exact path runs.
+constexpr float BF16S_TINY = 0x1p-125f;
+
+// 1 / d in double precision with no subroutine call: rcp.approx and three
+// Newton steps (for finite nonzero d).
+__device__ __forceinline__ double rcp_f64(double d) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;\n" : "=d"(r) : "d"(d));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r = fma(r, fma(-d, r, 1.0), r);
+  return r;
+}
+
+// bfr(__fdiv_rn(x, d)) for bf16 x and d, inline: x / d to double precision
+// (2^-51 of it), rounded once to fp32.  A quotient of two 8-bit
+// significands lies at least 2^-33 of itself from an fp32 rounding boundary
+// (or on one only where 1 / d is exact), so it rounds as the IEEE division.
+// d = 0, +-inf or NaN: x times 1 / d, whose IEEE value is exact.  (__fdiv_rn
+// calls a subroutine for such inputs, which costs spills where it sits
+// beside each element's fast path.)
+__device__ __forceinline__ float div_exact(float x, float d) {
+  if (d == 0.f || !(fabsf(d) < INFINITY))
+    return bfr(__fmul_rn(x, d == 0.f ? copysignf(INFINITY, d) : d != d ? d : copysignf(0.f, d)));
+  return bfr(__double2float_rn((double)x * rcp_f64(d)));
+}
+
+// The reciprocal div_bf16 multiplies by: 1 / d rounded, or NaN where |d| is
+// outside [2^-100, 2^100] (1 / d is then subnormal or its quotients may
+// leave the range), which sends every division by d to the exact path.  One
+// a call (d = c) or a row (d = l).
+__device__ __forceinline__ float bf16_recip(float d) {
+  const float a = fabsf(d);
+  return a >= 0x1p-100f && a <= 0x1p100f ? __double2float_rn(rcp_f64(d)) : NAN;
+}
+
+// bf16(x / d) for bf16 x and d, the bits of bfr(__fdiv_rn(x, d)), from r =
+// bf16_recip(d): bfr(x * r).  x * r is within 2^-22.9 of x / d, and a
+// quotient of two 8-bit significands is either a bf16 value or at least
+// 2^-17 of itself from a bf16 rounding boundary, so both round alike while
+// x * r is normal; below 2^-125 (not 0) or NaN, div_exact.
+__device__ __forceinline__ float div_bf16(float x, float r, float d) {
+  const float q = __fmul_rn(x, r);
+  if (FLASH_BF16S_PROBE != 1 && !(fabsf(q) >= BF16S_TINY) && q != 0.f) return div_exact(x, d);
+  return bfr(q);
+}
+
+// Where exp_bf16 takes expf: the fp32 result within this many units in its
+// last place of a bf16 rounding boundary (exp_fast lies at most 2 units
+// from expf on the card, flash_bf16s_scalar_check's reading).
+constexpr unsigned EXP_MARGIN = 4;
+
+// bf16(exp(t)) for a bf16 t, the bits of bfr(expf(t)): ex2.approx of t *
+// log2(e) = x + dx (dx, x's rounding error and log2(e)'s low part, carried
+// by one FMA after the ex2), unless the result lies within EXP_MARGIN units
+// of a bf16 rounding boundary, below 2^-125 or is NaN (t = -inf among
+// them), where expf runs.
+__device__ __forceinline__ float exp_fast(float t) {
+  const float x = __fmul_rn(t, 1.44269502f);
+  const float dx = fmaf(t, 1.925963e-8f, fmaf(t, 1.44269502f, -x));
+  const float e0 = ex2(x);
+  return fmaf(e0, __fmul_rn(dx, 0.693147181f), e0);
+}
+// Whether exp_fast's e for t must give way to expf: near a bf16 rounding boundary, below 2^-125 or NaN.
+__device__ __forceinline__ bool exp_needs_expf(float e) {
+  const unsigned near = (__float_as_uint(e) + EXP_MARGIN - 0x8000u) & 0xffffu;
+  return FLASH_BF16S_PROBE != 2 && (near <= 2 * EXP_MARGIN || !(e >= BF16S_TINY));
+}
+__device__ __forceinline__ float exp_bf16(float t) {
+  const float e = exp_fast(t);
+  return bfr(exp_needs_expf(e) ? expf(t) : e);
+}
+
+// s = bf16(bf16(acc) / c) of a q.k^T accumulator; rc = bf16_recip(c).
+__device__ __forceinline__ float bf16_score(float acc, float c, float rc) { return div_bf16(bfr(acc), rc, c); }
 
 // u = bf16(exp(bf16(s - m))): 0 where s is masked (-inf), NaN for a row whose max is -inf (it sees no key).
-__device__ __forceinline__ float bf16_exp(float s, float m) { return bfr(expf(bfr(__fsub_rn(s, m)))); }
+__device__ __forceinline__ float bf16_exp(float s, float m) { return exp_bf16(bfr(__fsub_rn(s, m))); }
+
+// The mode's per-element steps in two flavours with one interface.  A branch
+// an element to the exact path keeps a thread's elements from overlapping
+// (such branches took ~40% of the forward's time on the card:
+// scripts/flash_bf16s_probe.py, PERF.md), so the kernels run an
+// element block (with_bf16s_steps) first with FastSteps, straight-line:
+// x * r and exp_fast, every element's need of the exact path OR-ed into
+// `need`; and only in a thread where some element needs it, once more with
+// ExactSteps (div_bf16, exp_bf16, which branch where they must).  A block
+// writes only its outputs, so running it twice changes nothing else.
+struct FastSteps {
+  bool need = false;
+  __device__ __forceinline__ float div(float x, float r, float) {
+    const float q = __fmul_rn(x, r);
+    need |= FLASH_BF16S_PROBE != 1 && !(fabsf(q) >= BF16S_TINY) & (q != 0.f);
+    return bfr(q);
+  }
+  __device__ __forceinline__ float exp(float t) {  // -inf (a masked score) gives 0
+    const float e = exp_fast(t);
+    need |= exp_needs_expf(e) & (t != -INFINITY);
+    return t == -INFINITY ? 0.f : bfr(e);
+  }
+  __device__ __forceinline__ float score(float acc, float c, float rc) { return div(bfr(acc), rc, c); }
+  __device__ __forceinline__ float u(float s, float m) { return exp(bfr(__fsub_rn(s, m))); }
+};
+struct ExactSteps {
+  __device__ __forceinline__ float div(float x, float r, float d) { return div_bf16(x, r, d); }
+  __device__ __forceinline__ float exp(float t) { return exp_bf16(t); }
+  __device__ __forceinline__ float score(float acc, float c, float rc) { return bf16_score(acc, c, rc); }
+  __device__ __forceinline__ float u(float s, float m) { return bf16_exp(s, m); }
+};
+
+// Runs `block(steps)` branch-free and, where an element needs the exact path, exactly.
+template <typename Block>
+__device__ __forceinline__ void with_bf16s_steps(Block&& block) {
+  FastSteps fast;
+  block(fast);
+  if (!fast.need) return;
+  ExactSteps exact;
+  block(exact);
+}
+
+// item(steps, i) for i < N, G items a with_bf16s_steps block (BF16S), or
+// each with ExactSteps (the fp32-score mode, which calls none; or !FAST,
+// where a kernel has no registers for the redo).  A block's inputs outlive
+// its fast pass until its redo is decided, so blocks of a few items keep the
+// registers of a whole fragment's inputs free.
+template <bool BF16S, int N, int G, bool FAST = true, typename Item>
+__device__ __forceinline__ void bf16s_blocks(Item&& item) {
+#pragma unroll
+  for (int g = 0; g < N; g += G) {
+    auto block = [&](auto& steps) {
+#pragma unroll
+      for (int i = g; i < g + G; ++i) item(steps, i);
+    };
+    if constexpr (BF16S && FAST) {
+      with_bf16s_steps(block);
+    } else {
+      ExactSteps exact;
+      block(exact);
+    }
+  }
+}
 
 // The levels of XLA's CPU tree reduction over a row of Skv values
 // (flash_attention.py::tree_levels): while more than 32 remain they are
@@ -244,6 +396,13 @@ struct TreeLevels {
   int levels;
   int lo[3], n[3];
 };
+
+// The levels above the first windows: those a window sum enters (one chain
+// for a row of at most 32 keys, where the row is one window).
+__host__ __device__ inline TreeLevels up_levels(const TreeLevels& t) {
+  return t.levels > 0 ? TreeLevels{t.levels - 1, {t.lo[1], t.lo[2], 0}, {t.n[1], t.n[2], 0}}
+                      : TreeLevels{0, {0, 0, 0}, {0, 0, 0}};
+}
 
 // A running bf16 sum of one row's values, fed in order of their index j
 // (tree_sum in flash_attention.py): acc[k] holds level k's open window.
@@ -288,13 +447,77 @@ struct TreeSum {
   }
 };
 
+// R's bf16 sum in TreeSum's order with each window of 32 keys added by one
+// thread: a row's terms are added by two neighbouring lanes, `half` 0 and 1,
+// and of each 64-key tile each takes the 32 keys that fall in windows of one
+// parity, in key order (one window, or the tail of one and the head of the
+// window after next), so a window is one in-order chain of 32 and a row's
+// two halves run at once.  The window sums enter the levels above in window
+// order through half 0's TreeSum (`up`, over up_levels); at Skv 512 that is
+// 16 chains of 32 a row and one of 16, where TreeSum alone is one of 512.
+// Keys past Skv are not added; tiles the caller skips hold zeros, as TreeSum
+// takes them.  Both lanes of a pair call every method (they shuffle).
+struct WindowSum {
+  TreeSum up;
+  float open;  // this thread's window still open
+  __device__ __forceinline__ void reset() {
+    up.reset();
+    open = 0.f;
+  }
+  // The tile of 64 keys from k0 (a multiple of 64) of a row of n keys;
+  // term(x) is key k0 + x's term.
+  template <typename Term>
+  __device__ __forceinline__ void add_tile(Term term, int k0, int n, int half, const TreeLevels& t,
+                                           const TreeLevels& up_t) {
+    const int lo = t.levels > 0 ? t.lo[0] : 0;
+    const int off = (k0 + lo) % 32;                  // the tile's first key's place in its window
+    const bool first = (k0 + lo) / 32 % 2 == half;  // this thread takes the tile's first window
+    float c0 = 0.f, c1 = 0.f;                        // the windows this thread closes, in order
+    int w0 = 0, w1 = 0, nc = 0;
+    for (int i = 0; i < 32; ++i) {
+      const int key = k0 + (first ? (i < 32 - off ? i : i + 32) : i + 32 - off);
+      if (key >= n) break;
+      open = bfr(__fadd_rn(open, term(key - k0)));
+      if ((key + lo) % 32 == 31 || key == n - 1) {
+        if (nc == 0) {
+          c0 = open;
+          w0 = (key + lo) / 32;
+        } else {
+          c1 = open;
+          w1 = (key + lo) / 32;
+        }
+        ++nc;
+        open = 0.f;
+      }
+    }
+    // the first window's thread closes it and at most the one after next, the other thread the one between
+    const float pc0 = __shfl_xor_sync(0xffffffffu, c0, 1), pc1 = __shfl_xor_sync(0xffffffffu, c1, 1);
+    const int pw0 = __shfl_xor_sync(0xffffffffu, w0, 1), pw1 = __shfl_xor_sync(0xffffffffu, w1, 1);
+    const int pnc = __shfl_xor_sync(0xffffffffu, nc, 1);
+    if (half != 0) return;
+    const float fc0 = first ? c0 : pc0, fc1 = first ? c1 : pc1, oc0 = first ? pc0 : c0;
+    const int fw0 = first ? w0 : pw0, fw1 = first ? w1 : pw1, ow0 = first ? pw0 : w0;
+    const int fn = first ? nc : pnc, on = first ? pnc : nc;
+    if (fn > 0) up.add(fc0, fw0, up_t);
+    if (on > 0) up.add(oc0, ow0, up_t);
+    if (fn > 1) up.add(fc1, fw1, up_t);
+  }
+  // R, in half 0: the one window still open (in either thread) enters the levels above, which close.
+  __device__ __forceinline__ float finish(const TreeLevels& up_t) {
+    const float last = bfr(__fadd_rn(open, __shfl_xor_sync(0xffffffffu, open, 1)));  // one of the two is 0
+    if (up_t.levels == 0) return bfr(__fadd_rn(up.top, last));
+    up.acc[0] = bfr(__fadd_rn(up.acc[0], last));
+    return up.flush(up_t);
+  }
+};
+
 // The bf16 forward; BF16S: the bf16-score mode (three sweeps of the keys,
 // m and l to `lse` [2][B * H * Sq] in place of the log-sum-exp).
 template <int D, bool BF16S>
 __device__ __forceinline__ void flash_fwd_mma_bf16_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                         const bf16* __restrict__ v, bf16* __restrict__ o,
                                                         float* __restrict__ lse, const AttnShape& p, int vec16) {
-  constexpr int NSWEEP = BF16S ? 3 : 1;
+  constexpr int NSWEEP = BF16S ? (FLASH_BF16S_PROBE == 4 ? 1 : 3) : 1;
   constexpr int WARPS = mma_warps<D>();
   constexpr int THREADS = WARPS * 32;
   constexpr int BQ = WARPS * 16;
@@ -335,7 +558,7 @@ __device__ __forceinline__ void flash_fwd_mma_bf16_body(const bf16* __restrict__
     const int k0 = (kt_begin + (BF16S ? it % nk : it)) * MBK;
     bf16* ks = ring + stage * STAGE;
     load_rows<MBK, D, THREADS>(ks, kb + k0 * p.sks, p.sks, p.Skv - k0, vec16, tid);
-    if (!BF16S || it >= 2 * nk)  // the bf16-score mode's max and sum sweeps read no V
+    if (!BF16S || it >= (NSWEEP - 1) * nk)  // the bf16-score mode's max and sum sweeps read no V
       load_rows<MBK, D, THREADS>(ks + MBK * LD, vb + k0 * p.svs, p.svs, p.Skv - k0, vec16, tid);
   };
 
@@ -361,30 +584,36 @@ __device__ __forceinline__ void flash_fwd_mma_bf16_body(const bf16* __restrict__
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores, rows lane/4 and lane/4 + 8
-  float l[2] = {0.f, 0.f};              // this lane's share of the normaliser
+  constexpr bool ALONE = BF16S && NSWEEP == 1;  // the probe's y.V sweep alone
+  float m[2] = {ALONE ? 0.f : -INFINITY, ALONE ? 0.f : -INFINITY};  // running max, rows lane/4 and lane/4 + 8
+  float l[2] = {ALONE ? 1.f : 0.f, ALONE ? 1.f : 0.f};               // this lane's share of the normaliser
   const float c = p.scale * 1.4426950408889634f;  // exp(x * scale) = exp2(x * c)
+  // the bf16-score mode: 1 / c and the rows' 1 / l (div_bf16)
+  const float rc = BF16S ? bf16_recip(p.scale) : 0.f;
+  float rl[2] = {1.f, 1.f};
 
   for (int it = 0; it < steps; ++it) {
     const int stage = it % STAGES;
-    const int sweep = BF16S ? it / nk : 0, kt = kt_begin + (BF16S ? it % nk : it);
+    const int sweep = BF16S ? it / nk + 3 - NSWEEP : 0, kt = kt_begin + (BF16S ? it % nk : it);
     cp_async_wait<STAGES - 2>();  // tile kt has landed (this thread's copies)
     __syncthreads();              // ... everyone's; tile kt - 1 (and Q) is no longer read
     if (it + STAGES - 1 < steps) load_kv(it + STAGES - 1, (stage + STAGES - 1) % STAGES);
     cp_async_commit();
-    if (BF16S && it == nk) {  // the max sweep is done: the row's max over its 4 lanes
+    if (BF16S && !ALONE && it == nk) {  // the max sweep is done: the row's max over its 4 lanes, mapped
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
         m[h] = fmaxf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 2));
+        m[h] = bf16_score(m[h], p.scale, rc);
       }
     }
-    if (BF16S && it == 2 * nk) {  // the sum sweep is done: l = bf16(the row's sum over its 4 lanes)
+    if (BF16S && !ALONE && it == 2 * nk) {  // the sum sweep is done: l = bf16(the row's sum over its 4 lanes)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
         l[h] = bfr(l[h]);
+        rl[h] = bf16_recip(l[h]);
       }
     }
 
@@ -433,11 +662,9 @@ __device__ __forceinline__ void flash_fwd_mma_bf16_body(const bf16* __restrict__
     }
 
     if constexpr (BF16S) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = bf16_score(s[nt][e], p.scale);
-      if (sweep == 0) {  // this lane's share of the row max
+      if (sweep == 0) {
+        // this lane's share of the row max of the raw scores, mapped once a row (bfr, the division by c > 0
+        // and bfr are each non-decreasing, so max bf16_score = bf16_score(max))
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           m[0] = fmaxf(m[0], fmaxf(s[nt][0], s[nt][1]));
@@ -446,21 +673,26 @@ __device__ __forceinline__ void flash_fwd_mma_bf16_body(const bf16* __restrict__
         continue;
       }
       if (sweep == 1) {  // this lane's share of the row sum, in fp32
+        float u[NT][4];
+        bf16s_blocks<true, NT, 2>([&](auto& steps, int nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) u[nt][e] = steps.u(steps.score(s[nt][e], p.scale, rc), m[e / 2]);
+        });
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) l[e / 2] = __fadd_rn(l[e / 2], bf16_exp(s[nt][e], m[e / 2]));
+          for (int e = 0; e < 4; ++e) l[e / 2] = __fadd_rn(l[e / 2], u[nt][e]);
         continue;
       }
       uint32_t pf[PK][4];  // y = bf16(u / l) as the A fragments of y.V
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      bf16s_blocks<true, NT, 2>([&](auto& steps, int nt) {
         float y[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) y[e] = bfr(__fdiv_rn(bf16_exp(s[nt][e], m[e / 2]), l[e / 2]));
+        for (int e = 0; e < 4; ++e)
+          y[e] = steps.div(steps.u(steps.score(s[nt][e], p.scale, rc), m[e / 2]), rl[e / 2], l[e / 2]);
         pf[nt / 2][(nt % 2) * 2] = pack_bf16(y[0], y[1]);
         pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(y[2], y[3]);
-      }
+      });
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk)
 #pragma unroll
@@ -695,6 +927,8 @@ __device__ __forceinline__ void flash_fwd_body(const float* __restrict__ q, cons
   const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
   // the block's key tiles, once for each sweep: step it is tile kt_begin + it % nk of sweep it / nk
   const int nk = max(kt_end - kt_begin, 0);
+  const float rc = BF16S ? bf16_recip(p.scale) : 0.f;  // the bf16-score mode: 1 / c and the rows' 1 / l
+  float rl[4];
 
   for (int it = 0; it < NSWEEP * nk; ++it) {
     const int sweep = BF16S ? it / nk : 0, kt = kt_begin + (BF16S ? it % nk : it);
@@ -702,7 +936,10 @@ __device__ __forceinline__ void flash_fwd_body(const float* __restrict__ q, cons
     const bool need_v = !BF16S || sweep == 2;  // the bf16-score mode's max and sum sweeps read no V
     if (BF16S && it == 2 * nk) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) l[r] = bfr(l[r]);  // the sum sweep is done: l = bf16(the row's sum)
+      for (int r = 0; r < 4; ++r) {  // the sum sweep is done: l = bf16(the row's sum)
+        l[r] = bfr(l[r]);
+        rl[r] = bf16_recip(l[r]);
+      }
     }
     __syncthreads();  // the previous tile's K, V and P are no longer read
     for (int e = tid; e < BK * V4; e += THREADS) {
@@ -738,24 +975,25 @@ __device__ __forceinline__ void flash_fwd_body(const float* __restrict__ q, cons
     }
 
     if constexpr (BF16S) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int qi = q0 + ty * 4 + r;
-        float red = sweep == 0 ? -INFINITY : 0.f;  // this thread's share of the row's max (sweep 0) or sum (1)
+      float w[4][4];  // the scores (sweep 0), u (1) or y (2)
+      bf16s_blocks<true, 4, 1>([&](auto& steps, int r) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int kj = k0 + tx * 4 + c;
+          const int qi = q0 + ty * 4 + r, kj = k0 + tx * 4 + c;
           bool ok = kj < p.Skv;
           if (p.causal) ok = ok && kj <= qi;
           if (p.window > 0) ok = ok && qi - kj < p.window;
-          s[r][c] = ok ? bf16_score(s[r][c], p.scale) : -INFINITY;
-          if (sweep == 0) {
-            red = fmaxf(red, s[r][c]);
-          } else {
-            s[r][c] = bf16_exp(s[r][c], m[r]);
-            if (sweep == 1) red = __fadd_rn(red, s[r][c]);
-            else s[r][c] = bfr(__fdiv_rn(s[r][c], l[r]));  // y
-          }
+          const float sc = ok ? steps.score(s[r][c], p.scale, rc) : -INFINITY;
+          w[r][c] = sweep == 0 ? sc : sweep == 1 ? steps.u(sc, m[r]) : steps.div(steps.u(sc, m[r]), rl[r], l[r]);
+        }
+      });
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float red = sweep == 0 ? -INFINITY : 0.f;  // this thread's share of the row's max (sweep 0) or sum (1)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[r][c] = w[r][c];
+          red = sweep == 0 ? fmaxf(red, w[r][c]) : __fadd_rn(red, w[r][c]);
         }
         if (sweep == 0) {
 #pragma unroll
@@ -872,9 +1110,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   flash_fwd_body<D, false>(q, k, v, o, lse, p);
 }
 
-// The bf16-score mode: p.scale is the divisor bf16(sqrt(D)); lse gets m, then l.
+// The bf16-score mode: p.scale is the divisor bf16(sqrt(D)); lse gets m, then l.  One block an SM asked
+// for, so ptxas may take the registers the mode's steps need (it stops at 128 otherwise, and spills).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_bf16_scores_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                              float* __restrict__ o, float* __restrict__ lse, AttnShape p) {
   flash_fwd_body<D, true>(q, k, v, o, lse, p);
@@ -940,10 +1179,12 @@ bool rows_16b(const void* q, const void* k, const void* v, const void* o, const 
 //   kernel and the mma.sync dK/dV kernel, one pass up to D 80 and a dV and
 //   a dK pass at D 128 and 192.
 // - BWD_SIMT, fp32: the delta pre-pass, dQ and dK/dV on the SIMT pipes.
-// - The bf16-score mode (bf16_scores, see its note above): BWD_MMA for every
-//   bf16 call and BWD_SIMT for fp32, with no delta pre-pass: the dQ kernels
-//   sweep the keys twice, first for each row's R (written to the scratch),
-//   then for dQ, and the dK/dV kernels read R beside the forward's (m, l).
+// - The bf16-score mode (bf16_scores, see its note above) takes the same
+//   routes, with no delta pre-pass: the dQ kernels sweep the keys twice,
+//   first for each row's R (written to the scratch), then for dQ, and the
+//   dK/dV kernels read R beside the forward's (m, l) (on the wgmma route the
+//   dQ kernel writes each q tile's m, l, R and 1 / l, as it writes the fp32
+//   mode's lse and delta).
 // The launch order is delta (where separate), dQ, dK/dV, on one stream.
 //
 // Bound on the H100 SXM: at the training shapes (bf16, causal, S 512,
@@ -1104,9 +1345,9 @@ constexpr int bwd_dq_smem_bytes() {
 
 // dQ on mma.sync.  BF16S, the bf16-score mode: `lse` holds m, then l
 // ([2][B * H * Sq]); the keys are swept twice, the first time for each
-// row's R (each warp stages its 16 x 64 terms in shared memory and its
-// first 16 lanes add their row's in key order, TreeSum), which goes to
-// `rsum` for the dK/dV kernel; the second for dQ.
+// row's R (each warp stages its 16 x 64 terms in shared memory and each
+// row's two lanes add them, WindowSum), which goes to `rsum` for the dK/dV
+// kernel; the second for dQ.
 template <int D, bool BF16S>
 __device__ __forceinline__ void flash_bwd_dq_mma_bf16_body(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                            const bf16* __restrict__ v,
@@ -1115,10 +1356,14 @@ __device__ __forceinline__ void flash_bwd_dq_mma_bf16_body(const bf16* __restric
                                                            const float* __restrict__ delta, float* __restrict__ rsum,
                                                            bf16* __restrict__ dq, const BwdShape& p, int vec16) {
   constexpr int NSWEEP = BF16S ? 2 : 1;
+  // the mode's steps: at D 192 (no training path) the accumulator leaves no registers for the branch-free
+  // pass and its redo, so each element takes ExactSteps
+  constexpr bool FAST = D != 192;
   constexpr int LD = D + MPAD;
   constexpr int KS = D / 16;       // k16 steps of S and dP
   constexpr int NT = BWD_BK / 8;   // n8 tiles of a warp's 16 x 64 scores
   constexpr int PK = BWD_BK / 16;  // k16 steps of dS.K
+  static_assert(NT % 4 == 0, "S and dP in two halves of whole k16 steps");
   constexpr int DT = D / 8;        // n8 tiles of a warp's 16 x D output
   constexpr int STAGE = 2 * BWD_BK * LD;
 
@@ -1156,7 +1401,7 @@ __device__ __forceinline__ void flash_bwd_dq_mma_bf16_body(const bf16* __restric
 
   // rows lane/4 and lane/4 + 8; a row past Sq gets P = 0.  fp32 scores: lse in base 2, delta.  bf16
   // scores: m, l, bf16(1 / bf16(l * l)) and, after the first sweep, R.
-  float l2[2], dl[2], ll[2], il2[2];
+  float l2[2], dl[2], ll[2], il2[2], rl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = r0 + lane / 4 + h * 8;
@@ -1164,63 +1409,56 @@ __device__ __forceinline__ void flash_bwd_dq_mma_bf16_body(const bf16* __restric
     if constexpr (BF16S) {
       l2[h] = i < p.Sq ? lse[row] : INFINITY;
       ll[h] = i < p.Sq ? lse[(long long)gridDim.x * p.Sq + row] : 1.f;
-      il2[h] = bfr(__fdiv_rn(1.f, bfr(__fmul_rn(ll[h], ll[h]))));
+      il2[h] = div_exact(1.f, bfr(__fmul_rn(ll[h], ll[h])));
+      rl[h] = bf16_recip(ll[h]);
       dl[h] = 0.f;
     } else {
       l2[h] = i < p.Sq ? lse[row] * LOG2E : INFINITY;
       dl[h] = i < p.Sq ? delta[row] : 0.f;
     }
   }
-  TreeSum tree;  // lanes 0 .. 15: row r0 + lane's R
-  tree.reset();
+  WindowSum wsum;  // R: lanes 2 r and 2 r + 1, row r0 + r's (in lane 2 r)
+  wsum.reset();
+  const TreeLevels up_t = up_levels(p.tree);
   const float c = BF16S ? p.scale : p.scale * LOG2E;
+  const float rc = BF16S ? bf16_recip(p.scale) : 0.f;
   const bf16* qrow = Qs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // this lane's ldmatrix row
   const bf16* grow = Gs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
 
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  for (int it = 0; it < steps; ++it) {
-    const int stage = it % 2;
-    const int sweep = BF16S ? it / nk : 0, kt = kt_begin + (BF16S ? it % nk : it);
-    cp_async_wait<0>();  // tile kt (and Q, dO) has landed (this thread's copies)
-    __syncthreads();     // ... everyone's; tile kt - 1 is no longer read
-    if (it + 1 < steps) load_kv(it + 1, stage ^ 1);
+  // step it: wait for tile kt_begin + it % nk (and Q, dO), start the next; false where this warp sees none
+  // of its keys
+  auto arrive = [&](int it) -> bool {
+    const int k0 = (kt_begin + (BF16S ? it % nk : it)) * BWD_BK;
+    cp_async_wait<0>();  // tile it (and Q, dO) has landed (this thread's copies)
+    __syncthreads();     // ... everyone's; tile it - 1 is no longer read
+    if (it + 1 < steps) load_kv(it + 1, (it + 1) % 2);
     cp_async_commit();
-    if (BF16S && it == nk) {  // the R sweep is done: lane r's row r0 + r, to rsum and to its fragments' lanes
-      const float r = tree.flush(p.tree);
-      if (lane < 16 && r0 + lane < p.Sq) rsum[(long long)blockIdx.x * p.Sq + r0 + lane] = r;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) dl[h] = __shfl_sync(0xffffffffu, r, lane / 4 + h * 8);
-    }
-
-    const bf16* ks = ring + stage * STAGE;
+    return !(r0 >= p.Sq || (p.causal && k0 > r0 + 15) || (p.window > 0 && r0 - (k0 + BWD_BK - 1) >= p.window));
+  };
+  // S and dP of this warp's 16 rows against keys nt0 * 8 .. (nt0 + N) * 8 - 1 of step it's tile, S masked
+  auto products = [&](int it, auto& sc, auto& dp, int nt0) {
+    constexpr int N = sizeof(sc) / sizeof(sc[0]);
+    const int k0 = (kt_begin + (BF16S ? it % nk : it)) * BWD_BK;
+    const bf16* ks = ring + it % 2 * STAGE;
     const bf16* vs = ks + BWD_BK * LD;
-    const int k0 = kt * BWD_BK;
-    if (r0 >= p.Sq || (p.causal && k0 > r0 + 15) || (p.window > 0 && r0 - (k0 + BWD_BK - 1) >= p.window)) continue;
     const bool masked = k0 + BWD_BK > p.Skv || (p.causal && k0 + BWD_BK - 1 > r0) ||
                         (p.window > 0 && r0 + 15 - k0 >= p.window);
-
-    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < N; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t qa[4], ga[4];
       ldmatrix_x4(qa, qrow + kk * 16);
       ldmatrix_x4(ga, grow + kk * 16);
 #pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {  // keys nt*8 .. nt*8 + 15: two n8 tiles
-        const int off = (nt * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+      for (int nt = 0; nt < N; nt += 2) {  // keys (nt0 + nt) * 8 .. + 15: two n8 tiles
+        const int off = ((nt0 + nt) * 8 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
         uint32_t r[4];
         ldmatrix_x4(r, ks + off);
-        mma_bf16(s[nt], qa, r[0], r[1]);
-        mma_bf16(s[nt + 1], qa, r[2], r[3]);
+        mma_bf16(sc[nt], qa, r[0], r[1]);
+        mma_bf16(sc[nt + 1], qa, r[2], r[3]);
         ldmatrix_x4(r, vs + off);
         mma_bf16(dp[nt], ga, r[0], r[1]);
         mma_bf16(dp[nt + 1], ga, r[2], r[3]);
@@ -1228,46 +1466,96 @@ __device__ __forceinline__ void flash_bwd_dq_mma_bf16_body(const bf16* __restric
     }
     if (masked) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < N; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = r0 + lane / 4 + (e / 2) * 8;
-          const int j = k0 + nt * 8 + (lane % 4) * 2 + e % 2;
+          const int j = k0 + (nt0 + nt) * 8 + (lane % 4) * 2 + e % 2;
           const bool ok = j < p.Skv && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
-          if (!ok) s[nt][e] = -INFINITY;
+          if (!ok) sc[nt][e] = -INFINITY;
         }
     }
-    if (BF16S && sweep == 0) {  // R's terms bf16(bf16(g * bf16(l^-2)) * u), added in key order by lanes 0 .. 15
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+  };
+
+  if constexpr (BF16S) {  // the R sweep, before dQ's accumulator is live
+    for (int it = 0; it < nk; ++it) {
+      if (!arrive(it)) continue;
+      float s[NT][4], dp[NT][4];
+      products(it, s, dp, 0);
+      const int k0 = (kt_begin + it) * BWD_BK;
+      // R's terms bf16(bf16(g * bf16(l^-2)) * u), staged for the row's two lanes
+      bf16s_blocks<true, NT, 2, FAST>([&](auto& steps, int nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float u = bf16_exp(bf16_score(s[nt][e], c), l2[e / 2]);
+          const float u = steps.u(steps.score(s[nt][e], c, rc), l2[e / 2]);
           Ts[(lane / 4 + (e / 2) * 8) * TLD + nt * 8 + (lane % 4) * 2 + e % 2] =
               bfr(__fmul_rn(bfr(__fmul_rn(bfr(dp[nt][e]), il2[e / 2])), u));
         }
+      });
       __syncwarp();
-      if (lane < 16) {
-        const int n = min(BWD_BK, p.Skv - k0);
-        for (int j = 0; j < n; ++j) tree.add(Ts[lane * TLD + j], k0 + j, p.tree);
+      if (FLASH_BF16S_PROBE != 3) {
+        const float* trow = Ts + (lane / 2) * TLD;
+        wsum.add_tile([trow](int x) { return trow[x]; }, k0, p.Skv, lane % 2, p.tree, up_t);
       }
       __syncwarp();
+    }
+    // each row's R, to rsum and to its fragments' lanes
+    const float r = wsum.finish(up_t);
+    if (lane % 2 == 0 && r0 + lane / 2 < p.Sq) rsum[(long long)blockIdx.x * p.Sq + r0 + lane / 2] = r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) dl[h] = __shfl_sync(0xffffffffu, r, (lane / 4 + h * 8) * 2);
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  for (int it = BF16S ? nk : 0; it < steps; ++it) {
+    if (!arrive(it)) continue;
+    const bf16* ks = ring + it % 2 * STAGE;
+    if constexpr (BF16S) {
+      // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c), a k16 step's A fragment at a time, each used as
+      // soon as it is made; at D 192 S and dP in two halves of the tile's keys (registers)
+      constexpr int HALVES = D == 192 ? 2 : 1, HN = NT / HALVES;
+#pragma unroll
+      for (int half = 0; half < HALVES; ++half) {
+        float s[HN][4], dp[HN][4];
+        products(it, s, dp, half * HN);
+#pragma unroll
+        for (int kk = 0; kk < HN / 2; ++kk) {
+          uint32_t df[4];
+          bf16s_blocks<true, 2, 2, FAST>([&](auto& steps, int h) {
+            const int nt = 2 * kk + h;
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float u = steps.u(steps.score(s[nt][e], c, rc), l2[e / 2]);
+              const float gl = steps.div(bfr(dp[nt][e]), rl[e / 2], ll[e / 2]);
+              ds[e] = steps.div(bfr(__fmul_rn(bfr(__fsub_rn(gl, dl[e / 2])), u)), rc, c);
+            }
+            df[h * 2] = pack_bf16(ds[0], ds[1]);
+            df[h * 2 + 1] = pack_bf16(ds[2], ds[3]);
+          });
+#pragma unroll
+          for (int dt = 0; dt < DT; dt += 2) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, ks + ((half * HN / 2 + kk) * 16 + lane % 16) * LD + dt * 8 + (lane / 16) * 8);
+            mma_bf16(acc[dt], df, r[0], r[1]);
+            mma_bf16(acc[dt + 1], df, r[2], r[3]);
+          }
+        }
+      }
       continue;
     }
+    float s[NT][4], dp[NT][4];
+    products(it, s, dp, 0);
     uint32_t df[PK][4];  // dS as the A fragments of dS.K
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       float ds[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if constexpr (BF16S) {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
-          const float u = bf16_exp(bf16_score(s[nt][e], c), l2[e / 2]);
-          const float gl = bfr(__fdiv_rn(bfr(dp[nt][e]), ll[e / 2]));
-          ds[e] = bfr(__fdiv_rn(bfr(__fmul_rn(bfr(__fsub_rn(gl, dl[e / 2])), u)), c));
-        } else {
-          ds[e] = ex2(fmaf(s[nt][e], c, -l2[e / 2])) * (dp[nt][e] - dl[e / 2]);
-        }
-      }
+      for (int e = 0; e < 4; ++e) ds[e] = ex2(fmaf(s[nt][e], c, -l2[e / 2])) * (dp[nt][e] - dl[e / 2]);
       df[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
       df[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
@@ -1324,10 +1612,10 @@ __host__ __device__ constexpr bool bwd_split() {
 }
 
 // Per-row statistics a q tile of the dK/dV loop carries: lse (base 2) and
-// delta; in the bf16-score mode m, l and R.
+// delta; in the bf16-score mode m, l, R and 1 / l (bf16_recip).
 template <bool BF16S>
 __host__ __device__ constexpr int bwd_nstats() {
-  return BF16S ? 3 : 2;
+  return BF16S ? 4 : 2;
 }
 
 template <int D, bool BF16S>
@@ -1338,7 +1626,8 @@ constexpr int bwd_dkdv_smem_bytes() {
 }
 
 // dK and dV on mma.sync.  BF16S, the bf16-score mode: `lse` holds m, then l
-// ([2][B * H * Sq]), `delta` each row's R (the dQ kernel's).
+// ([2][B * H * Sq]), `delta` each row's R (the dQ kernel's); each q tile's
+// 1 / l is taken as its stats are loaded.
 template <int D, int MODE, bool BF16S>
 __device__ __forceinline__ void flash_bwd_dkdv_mma_bf16_body(const bf16* __restrict__ q,
                                                              const bf16* __restrict__ k,
@@ -1361,7 +1650,7 @@ __device__ __forceinline__ void flash_bwd_dkdv_mma_bf16_body(const bf16* __restr
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LD]
   bf16* Vs = Ks + BWD_BK * LD;                   // [BK][LD]
   bf16* ring = Vs + BWD_BK * LD;                 // [2][Q: BQ rows, dO: BQ rows][LD]
-  // [2][lse * log2(e): BQ, delta: BQ], or in the bf16-score mode [2][m: BQ, l: BQ, R: BQ]
+  // [2][lse * log2(e): BQ, delta: BQ], or in the bf16-score mode [2][m: BQ, l: BQ, R: BQ, 1 / l: BQ]
   float* stats = reinterpret_cast<float*>(ring + 2 * STAGE);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -1395,6 +1684,7 @@ __device__ __forceinline__ void flash_bwd_dkdv_mma_bf16_body(const bf16* __restr
         st[e] = i < p.Sq ? lse[row] : INFINITY;  // a row past Sq: u = 0
         st[BQ + e] = i < p.Sq ? lse[(long long)p.B * p.H * p.Sq + row] : 1.f;
         st[2 * BQ + e] = i < p.Sq ? delta[row] : 0.f;
+        st[3 * BQ + e] = bf16_recip(st[BQ + e]);
       } else {
         st[e] = i < p.Sq ? lse[row] * LOG2E : INFINITY;  // a row past Sq: P = 0
         st[BQ + e] = i < p.Sq ? delta[row] : 0.f;
@@ -1405,6 +1695,7 @@ __device__ __forceinline__ void flash_bwd_dkdv_mma_bf16_body(const bf16* __restr
   cp_async_commit();
 
   const float c = BF16S ? p.scale : p.scale * LOG2E;
+  const float rc = BF16S ? bf16_recip(p.scale) : 0.f;
   const bf16* krow = Ks + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // this lane's ldmatrix row
   const bf16* vrow = Vs + (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
   float accv[DV ? DT : 1][4], acck[DK ? DT : 1][4];
@@ -1429,6 +1720,7 @@ __device__ __forceinline__ void flash_bwd_dkdv_mma_bf16_body(const bf16* __restr
     const float* l2 = stats + stage * NSTAT * BQ;  // lse * log2(e), or m
     const float* dl = l2 + BQ;                      // delta, or l
     const float* rr = l2 + 2 * BQ;                  // R
+    const float* rl = l2 + 3 * BQ;                  // 1 / l
     // this warp's keys kw .. kw + 15 against queries q0 .. q0 + BQ - 1
     if (kw >= p.Skv || (p.causal && q0 + BQ - 1 < kw) || (p.window > 0 && q0 - (kw + 15) >= p.window)) continue;
     const bool masked = (p.causal && q0 < kw + 15) || (p.window > 0 && q0 + BQ - 1 - kw >= p.window);
@@ -1472,36 +1764,38 @@ __device__ __forceinline__ void flash_bwd_dkdv_mma_bf16_body(const bf16* __restr
         }
     }
     uint32_t pf[DV ? PK : 1][4], df[DK ? PK : 1][4];  // P^T and dS^T as A fragments over the queries
+    bf16s_blocks<BF16S, NT, 2>([&](auto& steps, int nt) {
+      {
+        const int i0 = nt * 8 + (lane % 4) * 2;  // this lane's two query columns
+        float pv[4];  // P, or u in the bf16-score mode
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int i0 = nt * 8 + (lane % 4) * 2;  // this lane's two query columns
-      float pv[4];  // P, or u in the bf16-score mode
+        for (int e = 0; e < 4; ++e)
+          pv[e] = BF16S ? steps.u(steps.score(s[nt][e], c, rc), l2[i0 + e % 2])
+                        : ex2(fmaf(s[nt][e], c, -l2[i0 + e % 2]));
+        if constexpr (DV) {
+          float y[4];  // y = bf16(u / l)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        pv[e] = BF16S ? bf16_exp(bf16_score(s[nt][e], c), l2[i0 + e % 2]) : ex2(fmaf(s[nt][e], c, -l2[i0 + e % 2]));
-      if constexpr (DV) {
-        float y[4];  // y = bf16(u / l)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) y[e] = BF16S ? bfr(__fdiv_rn(pv[e], dl[i0 + e % 2])) : pv[e];
-        pf[nt / 2][(nt % 2) * 2] = pack_bf16(y[0], y[1]);
-        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(y[2], y[3]);
-      }
-      if constexpr (DK) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = i0 + e % 2;
-          if constexpr (BF16S) {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
-            const float gl = bfr(__fdiv_rn(bfr(dp[nt][e]), dl[i]));
-            ds[e] = bfr(__fdiv_rn(bfr(__fmul_rn(bfr(__fsub_rn(gl, rr[i])), pv[e])), c));
-          } else {
-            ds[e] = pv[e] * (dp[nt][e] - dl[i]);
-          }
+          for (int e = 0; e < 4; ++e) y[e] = BF16S ? steps.div(pv[e], rl[i0 + e % 2], dl[i0 + e % 2]) : pv[e];
+          pf[nt / 2][(nt % 2) * 2] = pack_bf16(y[0], y[1]);
+          pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(y[2], y[3]);
         }
-        df[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
-        df[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        if constexpr (DK) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = i0 + e % 2;
+            if constexpr (BF16S) {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+              const float gl = steps.div(bfr(dp[nt][e]), rl[i], dl[i]);
+              ds[e] = steps.div(bfr(__fmul_rn(bfr(__fsub_rn(gl, rr[i])), pv[e])), rc, c);
+            } else {
+              ds[e] = pv[e] * (dp[nt][e] - dl[i]);
+            }
+          }
+          df[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
+          df[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
       }
-    }
+    });
 #pragma unroll
     for (int kk = 0; kk < PK; ++kk)
 #pragma unroll
@@ -1609,8 +1903,8 @@ __device__ __forceinline__ void flash_bwd_dq_body(const float* __restrict__ q, c
   const int q0 = (gridDim.y - 1 - blockIdx.y) * FB;
   load_rows_f32(Qs, at(q, p, SQ_, b, hq, q0), p.st[SQ_][2], p.Sq - q0, D, tid);
   load_rows_f32(Gs, at(dout, p, SDO_, b, hq, q0), p.st[SDO_][2], p.Sq - q0, D, tid);
-  // fp32 scores: lse, delta; bf16 scores: m, l, bf16(1 / bf16(l * l)); a row past Sq gets P = 0
-  float ls[2], dl[2], ll[2], il2[2], acc[2][NC];
+  // fp32 scores: lse, delta; bf16 scores: m, l, bf16(1 / bf16(l * l)), 1 / l; a row past Sq gets P = 0
+  float ls[2], dl[2], ll[2], il2[2], rl[2], acc[2][NC];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = q0 + 2 * ty + r;
@@ -1618,7 +1912,8 @@ __device__ __forceinline__ void flash_bwd_dq_body(const float* __restrict__ q, c
     ls[r] = i < p.Sq ? lse[row] : INFINITY;
     if constexpr (BF16S) {
       ll[r] = i < p.Sq ? lse[(long long)gridDim.x * p.Sq + row] : 1.f;
-      il2[r] = bfr(__fdiv_rn(1.f, bfr(__fmul_rn(ll[r], ll[r]))));
+      il2[r] = div_exact(1.f, bfr(__fmul_rn(ll[r], ll[r])));
+      rl[r] = bf16_recip(ll[r]);
       dl[r] = 0.f;
     } else {
       dl[r] = i < p.Sq ? delta[row] : 0.f;
@@ -1626,6 +1921,7 @@ __device__ __forceinline__ void flash_bwd_dq_body(const float* __restrict__ q, c
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) acc[r][cc] = 0.f;
   }
+  const float rc = BF16S ? bf16_recip(p.scale) : 0.f;
   const int q_last = min(q0 + FB, p.Sq) - 1;
   int kt_end = (p.Skv + FB - 1) / FB;
   if (p.causal) kt_end = min(kt_end, q_last / FB + 1);
@@ -1660,31 +1956,39 @@ __device__ __forceinline__ void flash_bwd_dq_body(const float* __restrict__ q, c
         }
       }
     }
+    auto block = [&](auto& steps) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int i = q0 + 2 * ty + r, j = k0 + 2 * tx + cc;
-        const bool ok = j < p.Skv && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
-        float ds;
-        if constexpr (BF16S) {
-          const float u = ok ? bf16_exp(bf16_score(s[r][cc], p.scale), ls[r]) : 0.f;
-          const float g = bfr(dp[r][cc]);
-          if (sweep == 0) {  // R's term
-            ds = bfr(__fmul_rn(bfr(__fmul_rn(g, il2[r])), u));
-          } else {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
-            const float gl = bfr(__fdiv_rn(g, ll[r]));
-            ds = bfr(__fdiv_rn(bfr(__fmul_rn(bfr(__fsub_rn(gl, Rs[2 * ty + r])), u)), p.scale));
+        for (int cc = 0; cc < 2; ++cc) {
+          const int i = q0 + 2 * ty + r, j = k0 + 2 * tx + cc;
+          const bool ok = j < p.Skv && (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
+          float ds;
+          if constexpr (BF16S) {
+            const float u = ok ? steps.u(steps.score(s[r][cc], p.scale, rc), ls[r]) : 0.f;
+            const float g = bfr(dp[r][cc]);
+            if (sweep == 0) {  // R's term
+              ds = bfr(__fmul_rn(bfr(__fmul_rn(g, il2[r])), u));
+            } else {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+              const float gl = steps.div(g, rl[r], ll[r]);
+              ds = steps.div(bfr(__fmul_rn(bfr(__fsub_rn(gl, Rs[2 * ty + r])), u)), rc, p.scale);
+            }
+          } else {
+            const float pv = ok ? expf(s[r][cc] * p.scale - ls[r]) : 0.f;
+            ds = pv * (dp[r][cc] - dl[r]);
           }
-        } else {
-          const float pv = ok ? expf(s[r][cc] * p.scale - ls[r]) : 0.f;
-          ds = pv * (dp[r][cc] - dl[r]);
+          Ss[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = ds;
         }
-        Ss[(2 * ty + r) * (FB + 1) + 2 * tx + cc] = ds;
-      }
+    };
+    if constexpr (BF16S) {
+      with_bf16s_steps(block);
+    } else {
+      ExactSteps unused;
+      block(unused);
+    }
     __syncthreads();
     if (BF16S && sweep == 0) {  // each row's terms in key order
-      if (tid < FB) {
+      if (tid < FB && FLASH_BF16S_PROBE != 3) {
         const int n = min(FB, p.Skv - k0);
         for (int j = 0; j < n; ++j) tree.add(Ss[tid * (FB + 1) + j], k0 + j, p.tree);
       }
@@ -1745,6 +2049,7 @@ __device__ __forceinline__ void flash_bwd_dkdv_body(const float* __restrict__ q,
   float* Ls = Ss + FB * (FB + 1);  // lse of the q tile, or m
   float* Ds = Ls + FB;             // delta, or R
   float* Ll = Ds + FB;             // the bf16-score mode: l
+  float* Rl = Ll + FB;             // the bf16-score mode: 1 / l
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // keys 2ty, 2ty + 1; queries 2tx, 2tx + 1
   const int b = blockIdx.x / p.KVH, hk = blockIdx.x % p.KVH;
@@ -1761,6 +2066,7 @@ __device__ __forceinline__ void flash_bwd_dkdv_body(const float* __restrict__ q,
   const int q_hi = p.window > 0 ? min(p.Sq, k0 + FB - 1 + p.window) : p.Sq;
   const int qt_begin = q_lo / FB;
   const int qt_end = q_hi > q_lo ? (q_hi + FB - 1) / FB : qt_begin;
+  const float rc = BF16S ? bf16_recip(p.scale) : 0.f;
 
   for (int g = 0; g < G; ++g) {
     const int hq = hk * G + g;
@@ -1774,7 +2080,10 @@ __device__ __forceinline__ void flash_bwd_dkdv_body(const float* __restrict__ q,
         const long long row = ((long long)b * p.H + hq) * p.Sq + i;
         Ls[tid] = i < p.Sq ? lse[row] : INFINITY;
         Ds[tid] = i < p.Sq ? delta[row] : 0.f;
-        if constexpr (BF16S) Ll[tid] = i < p.Sq ? lse[(long long)p.B * p.H * p.Sq + row] : 1.f;
+        if constexpr (BF16S) {
+          Ll[tid] = i < p.Sq ? lse[(long long)p.B * p.H * p.Sq + row] : 1.f;
+          Rl[tid] = bf16_recip(Ll[tid]);
+        }
       }
       __syncthreads();
       float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -1790,24 +2099,32 @@ __device__ __forceinline__ void flash_bwd_dkdv_body(const float* __restrict__ q,
           }
         }
       }
+      auto block = [&](auto& steps) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int j = k0 + 2 * ty + r, i = q0 + 2 * tx + cc, ic = 2 * tx + cc;
-          const bool ok = (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
-          if constexpr (BF16S) {  // y = bf16(u / l); dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
-            const float u = ok ? bf16_exp(bf16_score(s[r][cc], p.scale), Ls[ic]) : 0.f;
-            const float gl = bfr(__fdiv_rn(bfr(dp[r][cc]), Ll[ic]));
-            Ps[(2 * ty + r) * (FB + 1) + ic] = bfr(__fdiv_rn(u, Ll[ic]));
-            Ss[(2 * ty + r) * (FB + 1) + ic] =
-                bfr(__fdiv_rn(bfr(__fmul_rn(bfr(__fsub_rn(gl, Ds[ic])), u)), p.scale));
-          } else {
-            const float pv = ok ? expf(s[r][cc] * p.scale - Ls[ic]) : 0.f;
-            Ps[(2 * ty + r) * (FB + 1) + ic] = pv;
-            Ss[(2 * ty + r) * (FB + 1) + ic] = pv * (dp[r][cc] - Ds[ic]);
+          for (int cc = 0; cc < 2; ++cc) {
+            const int j = k0 + 2 * ty + r, i = q0 + 2 * tx + cc, ic = 2 * tx + cc;
+            const bool ok = (!p.causal || j <= i) && (p.window == 0 || i - j < p.window);
+            if constexpr (BF16S) {  // y = bf16(u / l); dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+              const float u = ok ? steps.u(steps.score(s[r][cc], p.scale, rc), Ls[ic]) : 0.f;
+              const float gl = steps.div(bfr(dp[r][cc]), Rl[ic], Ll[ic]);
+              Ps[(2 * ty + r) * (FB + 1) + ic] = steps.div(u, Rl[ic], Ll[ic]);
+              Ss[(2 * ty + r) * (FB + 1) + ic] =
+                  steps.div(bfr(__fmul_rn(bfr(__fsub_rn(gl, Ds[ic])), u)), rc, p.scale);
+            } else {
+              const float pv = ok ? expf(s[r][cc] * p.scale - Ls[ic]) : 0.f;
+              Ps[(2 * ty + r) * (FB + 1) + ic] = pv;
+              Ss[(2 * ty + r) * (FB + 1) + ic] = pv * (dp[r][cc] - Ds[ic]);
+            }
           }
-        }
+      };
+      if constexpr (BF16S) {
+        with_bf16s_steps(block);
+      } else {
+        ExactSteps unused;
+        block(unused);
+      }
       __syncthreads();
 #pragma unroll 2
       for (int i = 0; i < FB; ++i)
@@ -1978,8 +2295,14 @@ int launch_bwd_f32(const BwdArgs& a, const BwdShape& p, cudaStream_t stream) {
 
 constexpr int HB = 64;                   // rows of a tile: a block's queries (dQ) or keys (dK/dV), a streamed tile
 constexpr int HBOX = 64 * 64 * 2;        // one 128-byte-swizzled TMA box: 64 rows of 64 bf16
-constexpr int HSTATS = 2 * HB * 4;       // a q tile's lse * log2(e) and delta, fp32
 constexpr int HTHREADS = 128;            // one warpgroup; its first thread issues the TMA loads
+
+// Bytes of a q tile's stats, fp32: lse * log2(e) and delta; in the
+// bf16-score mode m, l, R and 1 / l.
+template <bool BF16S>
+__host__ __device__ constexpr int hstats() {
+  return (BF16S ? 4 : 2) * HB * 4;
+}
 
 // A 64-row tile of D columns: D / 64 boxes, one HBOX apart.
 template <int D>
@@ -2055,21 +2378,32 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[4][4], int j, float e0, flo
 // the stream.  Per K/V tile: S = Q.K^T and dP = dO.V^T on wgmma from shared
 // memory (both K-major), P and dS in registers, dS rounded to bf16 as the A
 // fragments of dQ += dS.K (K read MN-major from the same tile).
-template <int D>
-__global__ void __launch_bounds__(HTHREADS, D == 64 ? 3 : 2)
-flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-                          const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
-                          const __grid_constant__ CUtensorMap map_o, const float* __restrict__ lse,
-                          float* __restrict__ stats, bf16* __restrict__ dq, BwdShape p) {
-  constexpr int S = hstages<D>(), TILE = htile<D>();
+//
+// BF16S, the bf16-score mode: `lse` holds the forward's m, then l ([2][B *
+// H * Sq]); no O tile.  The ring streams the block's K/V tiles twice: the
+// first sweep stages each tile's R terms bf16(bf16(g * bf16(l^-2)) * u) as
+// bf16 over its K tile (free once the products are read; 16-byte chunks
+// XOR-swizzled by row, so neither the fragment-layout writes nor the row
+// reads conflict) and each row's two threads add them (WindowSum); the
+// second computes dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c) for dQ +=
+// dS'.K.  `stats` gets each q tile's [4][64]: m, l, R and 1 / l (rows past
+// Sq m +inf, l 1, R 0), which the dK/dV kernel's ring reads as it reads the
+// fp32 mode's lse and delta.
+template <int D, bool BF16S>
+__device__ __forceinline__ void flash_bwd_dq_wgmma_body(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                                        const CUtensorMap& map_v, const CUtensorMap& map_do,
+                                                        const CUtensorMap& map_o, const float* __restrict__ lse,
+                                                        float* __restrict__ stats, bf16* __restrict__ dq,
+                                                        const BwdShape& p) {
+  constexpr int S = hstages<D>(), TILE = htile<D>(), NSTAT = hstats<BF16S>() / (HB * 4);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* Qs = smem;
   unsigned char* Gs = smem + TILE;  // dO
-  float* st = reinterpret_cast<float*>(smem + 2 * TILE);  // the rows' lse * log2(e), then delta
+  float* st = reinterpret_cast<float*>(smem + 2 * TILE);  // the rows' stats, [NSTAT][64]
   unsigned char* ring = smem + 2 * TILE + 1024;           // [S][K tile, V tile]
   unsigned char* Os = ring + (S - 1) * 2 * TILE;          // O, in the last stage until delta is summed
-  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + S * 2 * TILE);  // [0]: Q, dO and O; [1 + s]: stage s
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + S * 2 * TILE);  // [0]: Q, dO (and O); [1 + s]: stage s
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int b = blockIdx.x / p.H, hq = blockIdx.x % p.H, hk = hq / (p.H / p.KVH);
@@ -2078,10 +2412,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gri
   int kt_end = (p.Skv + HB - 1) / HB;
   if (p.causal) kt_end = min(kt_end, q_last / HB + 1);
   const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / HB : 0;
+  // the block's key tiles, once for each sweep: step it is tile kt_begin + it % nk of sweep it / nk (one
+  // sweep without the mode, which takes no division by nk)
+  const int nk = max(kt_end - kt_begin, 0), steps = (BF16S ? 2 : 1) * nk;
+  // stages the prologue fills: all but the last, which O holds until delta is summed
+  const int first = min(steps, BF16S ? S : S - 1);
 
-  auto load_kv = [&](int kt) {
-    uint64_t* full = &bar[1 + (kt - kt_begin) % S];
-    unsigned char* ks = ring + (kt - kt_begin) % S * 2 * TILE;
+  auto load_kv = [&](int it) {
+    uint64_t* full = &bar[1 + it % S];
+    unsigned char* ks = ring + it % S * 2 * TILE;
+    const int kt = kt_begin + (BF16S ? it % nk : it);
     mbar_arrive_expect_tx(full, FLASH_BWD_PROBE == 3 ? 0 : 2 * TILE);
     if constexpr (FLASH_BWD_PROBE != 3) {
       load_tile<D>(ks, &map_k, full, kt * HB, hk, b);
@@ -2094,15 +2434,25 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gri
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_arrive_expect_tx(&bar[0], (FLASH_BWD_PROBE == 1 ? 2 : 3) * TILE);
+    mbar_arrive_expect_tx(&bar[0], (BF16S || FLASH_BWD_PROBE == 1 ? 2 : 3) * TILE);
     load_tile<D>(Qs, &map_q, &bar[0], q0, hq, b);
     load_tile<D>(Gs, &map_do, &bar[0], q0, hq, b);
-    if constexpr (FLASH_BWD_PROBE != 1) load_tile<D>(Os, &map_o, &bar[0], q0, hq, b);
-    for (int kt = kt_begin; kt < min(kt_end, kt_begin + S - 1); ++kt) load_kv(kt);
+    if constexpr (!BF16S && FLASH_BWD_PROBE != 1) load_tile<D>(Os, &map_o, &bar[0], q0, hq, b);
+    for (int it = 0; it < first; ++it) load_kv(it);
   }
-  mbar_wait(&bar[0], 0);
-
-  {  // delta and lse * log2(e) of the tile's rows from the O and dO tiles, two threads a row
+  float* gst = stats + ((long long)blockIdx.x * nqt + qt) * NSTAT * HB;
+  if constexpr (BF16S) {  // m, l and 1 / l of the tile's rows
+    if (tid < HB) {
+      const int i = q0 + tid;
+      const long long row = (long long)blockIdx.x * p.Sq + i;
+      const float l = i < p.Sq ? lse[(long long)gridDim.x * p.Sq + row] : 1.f;
+      gst[tid] = st[tid] = i < p.Sq ? lse[row] : INFINITY;  // past Sq: u = 0
+      gst[HB + tid] = st[HB + tid] = l;
+      gst[3 * HB + tid] = st[3 * HB + tid] = bf16_recip(l);
+    }
+    mbar_wait(&bar[0], 0);
+  } else {  // delta and lse * log2(e) of the tile's rows from the O and dO tiles, two threads a row
+    mbar_wait(&bar[0], 0);
     const int row = tid / 2, i = q0 + row;
     float acc = 0.f;  // rows past Sq are zero-filled: 0
     if (FLASH_BWD_PROBE != 1) {
@@ -2126,24 +2476,44 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gri
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if (tid % 2 == 0) {
       const float l2 = i < p.Sq ? lse[(long long)blockIdx.x * p.Sq + i] * LOG2E : INFINITY;  // past Sq: P = 0
-      float* gst = stats + ((long long)blockIdx.x * nqt + qt) * 2 * HB;
       gst[row] = st[row] = l2;
       gst[HB + row] = st[HB + row] = acc;
     }
   }
   __syncthreads();  // the stats are in shared memory, and O is no longer read: the last stage takes its K/V tile
-  if (tid == 0 && kt_begin + S - 1 < kt_end) load_kv(kt_begin + S - 1);
+  if (tid == 0 && first < min(steps, S)) load_kv(first);
   const int r = warp * 16 + lane / 4, t = lane % 4;  // this thread's rows r, r + 8 of the tile; columns 2t, 2t + 1
-  const float l2[2] = {st[r], st[r + 8]}, dl[2] = {st[HB + r], st[HB + r + 8]};
-  const float c = p.scale * LOG2E;
+  // fp32 scores: lse * log2(e) and delta; bf16 scores: m and l, 1 / l, bf16(1 / bf16(l * l)) and (after the
+  // first sweep) R
+  const float l2[2] = {st[r], st[r + 8]};
+  float dl[2] = {st[HB + r], st[HB + r + 8]}, rl[2] = {1.f, 1.f}, il2[2] = {0.f, 0.f}, rr[2] = {0.f, 0.f};
+  if constexpr (BF16S) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rl[h] = st[3 * HB + r + 8 * h];
+      il2[h] = div_exact(1.f, bfr(__fmul_rn(dl[h], dl[h])));
+    }
+  }
+  const float c = BF16S ? p.scale : p.scale * LOG2E;
+  const float rc = BF16S ? bf16_recip(p.scale) : 0.f;
+  WindowSum wsum;  // R: threads 2 r and 2 r + 1, row r's (in thread 2 r)
+  wsum.reset();
+  const TreeLevels up_t = up_levels(p.tree);
 
   float acc[D / 2];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int it = kt - kt_begin, k0 = kt * HB;
+  for (int it = 0; it < steps; ++it) {
+    const int sweep = BF16S ? it / nk : 1, k0 = (kt_begin + (BF16S ? it % nk : it)) * HB;
+    if (BF16S && it == nk) {  // the R sweep is done: each row's R, to the stats and to its fragments' threads
+      const float rsum = wsum.finish(up_t);
+      if (tid % 2 == 0) gst[2 * HB + tid / 2] = st[2 * HB + tid / 2] = rsum;  // past Sq: no terms, 0
+      __syncthreads();
+      rr[0] = st[2 * HB + r];
+      rr[1] = st[2 * HB + r + 8];
+    }
     mbar_wait(&bar[1 + it % S], (it / S) & 1);
-    const unsigned char* ks = ring + it % S * 2 * TILE;
+    unsigned char* ks = ring + it % S * 2 * TILE;
     const unsigned char* vs = ks + TILE;
     float s[32], dp[32];  // the first k16 step overwrites them; zeroed so that no register is read undefined
 #pragma unroll
@@ -2161,31 +2531,69 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gri
     wgmma_fence_operand(dp);
 
     const bool masked = k0 + HB > p.Skv || (p.causal && k0 + HB - 1 > q0) || (p.window > 0 && q0 + HB - 1 - k0 >= p.window);
-    uint32_t df[4][4];  // dS as the A fragments of dS.K, k16 steps over the tile's keys
+    auto visible = [&](int j, int e) {
+      const int i = q0 + r + (e / 2) * 8, jj = k0 + 8 * j + 2 * t + e % 2;
+      return !masked || (jj < p.Skv && (!p.causal || jj <= i) && (p.window == 0 || i - jj < p.window));
+    };
+    if (BF16S && sweep == 0) {
+      // R's terms over the K tile: row x's 16-byte chunk ch at (ch ^ x % 8); the products are done with it
+      __syncthreads();
+      bf16s_blocks<true, 8, 2>([&](auto& steps, int j) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float ds[4];
+        for (int h = 0; h < 2; ++h) {
+          float term[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = q0 + r + (e / 2) * 8, jj = k0 + 8 * j + 2 * t + e % 2;
-        const bool ok = !masked || (jj < p.Skv && (!p.causal || jj <= i) && (p.window == 0 || i - jj < p.window));
-        const float pv = ok ? ex2(fmaf(s[4 * j + e], c, -l2[e / 2])) : 0.f;
-        ds[e] = pv * (dp[4 * j + e] - dl[e / 2]);
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            const float u = visible(j, e) ? steps.u(steps.score(s[4 * j + e], c, rc), l2[h]) : 0.f;
+            term[e % 2] = bfr(__fmul_rn(bfr(__fmul_rn(bfr(dp[4 * j + e]), il2[h])), u));
+          }
+          const int x = r + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(ks + x * 128 + ((j ^ x % 8) * 16) + 4 * t) =
+              __floats2bfloat162_rn(term[0], term[1]);
+        }
+      });
+      __syncthreads();
+      if (FLASH_BF16S_PROBE != 3) {
+        const int row = tid / 2;
+        const unsigned char* trow = ks + row * 128;
+        wsum.add_tile([trow, row](int x) {
+          return __bfloat162float(*reinterpret_cast<const bf16*>(trow + ((x / 8) ^ row % 8) * 16 + x % 8 * 2));
+        }, k0, p.Skv, tid % 2, p.tree, up_t);
       }
-      pack_a(df, j, ds[0], ds[1], ds[2], ds[3]);
-    }
-    wgmma_fence_operand(acc);
-    wgmma_fence();
+      fence_proxy_async_shared();  // the staged terms are read before TMA refills the stage
+    } else {
+      uint32_t df[4][4];  // dS (dS') as the A fragments of dS.K, k16 steps over the tile's keys
+      bf16s_blocks<BF16S, 8, 2>([&](auto& steps, int j) {
+        {
+          float ds[4];
 #pragma unroll
-    for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk) wgmma_bf16_rs<D, 1>(acc, df[kk], mnmajor_desc(ks, kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_fence_operand(acc);
-    wgmma_fence_operand(df);
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (BF16S) {  // dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+              const float u = visible(j, e) ? steps.u(steps.score(s[4 * j + e], c, rc), l2[e / 2]) : 0.f;
+              const float gl = steps.div(bfr(dp[4 * j + e]), rl[e / 2], dl[e / 2]);
+              ds[e] = steps.div(bfr(__fmul_rn(bfr(__fsub_rn(gl, rr[e / 2])), u)), rc, c);
+            } else {
+              const float pv = visible(j, e) ? ex2(fmaf(s[4 * j + e], c, -l2[e / 2])) : 0.f;
+              ds[e] = pv * (dp[4 * j + e] - dl[e / 2]);
+            }
+          }
+          pack_a(df, j, ds[0], ds[1], ds[2], ds[3]);
+        }
+      });
+      wgmma_fence_operand(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk) wgmma_bf16_rs<D, 1>(acc, df[kk], mnmajor_desc(ks, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_operand(acc);
+      wgmma_fence_operand(df);
+    }
     __syncthreads();  // every warp is done with the stage
-    if (tid == 0 && kt + S < kt_end) load_kv(kt + S);
+    if (tid == 0 && it + S < steps) load_kv(it + S);
   }
 
+  const float out = BF16S ? 1.f : p.scale;  // dS' holds the bf16-score mode's scale already
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = q0 + r + h * 8;
@@ -2194,8 +2602,29 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gri
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h] * p.scale, acc[4 * j + 2 * h + 1] * p.scale);
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * out, acc[4 * j + 2 * h + 1] * out);
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, D == 64 ? 3 : 2)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_o, const float* __restrict__ lse,
+                          float* __restrict__ stats, bf16* __restrict__ dq, BwdShape p) {
+  flash_bwd_dq_wgmma_body<D, false>(map_q, map_k, map_v, map_do, map_o, lse, stats, dq, p);
+}
+
+// The bf16-score mode: `stats` holds the forward's m, then l; `scratch` gets each q tile's m, l, R and 1 / l.
+// Two blocks an SM at D 64 too: the mode's steps need more than the 168 registers of three.
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 2)
+flash_bwd_dq_wgmma_bf16_scores_kernel(const __grid_constant__ CUtensorMap map_q,
+                                      const __grid_constant__ CUtensorMap map_k,
+                                      const __grid_constant__ CUtensorMap map_v,
+                                      const __grid_constant__ CUtensorMap map_do, const float* __restrict__ stats,
+                                      float* __restrict__ scratch, bf16* __restrict__ dq, BwdShape p) {
+  flash_bwd_dq_wgmma_body<D, true>(map_q, map_k, map_v, map_do, map_q, stats, scratch, dq, p);
 }
 
 // dK = scale * dS^T.Q and dV = P~^T.dO.  One block per (batch, kv-head,
@@ -2213,14 +2642,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gri
 // (r + 1) * 64 / cl - 1 over the cluster's blocks in rank order through
 // distributed shared memory and stores them as bf16.  A block that sees no
 // q tile (every block of its cluster alike: the q range depends on the key
-// tile only) sums and stores zeros.
-template <int D>
-__global__ void __launch_bounds__(HTHREADS, 2)
-flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-                            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
-                            const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv, BwdShape p,
-                            int cl) {
-  constexpr int S = hstages<D>(), TILE = htile<D>(), STAGE = dkdv_stage_bytes<D>();
+// tile only) sums and stores zeros.  BF16S, the bf16-score mode: the stats
+// are the dQ kernel's m, l, R and 1 / l, from which u, y^T = bf16(u / l) and
+// dS'^T take the place of P^T and dS^T (dS' holds the scale).
+template <int D, bool BF16S>
+__device__ __forceinline__ void flash_bwd_dkdv_wgmma_body(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                                          const CUtensorMap& map_v, const CUtensorMap& map_do,
+                                                          const float* __restrict__ stats, bf16* __restrict__ dk,
+                                                          bf16* __restrict__ dv, const BwdShape& p, int cl) {
+  constexpr int S = hstages<D>(), TILE = htile<D>(), STAGE = dkdv_stage_bytes<D>(), HST = hstats<BF16S>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* Ks = smem;
@@ -2244,11 +2674,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
     uint64_t* full = &bar[1 + it % S];
     unsigned char* qs = ring + it % S * STAGE;
     const int hq = hk * G + rank * per + it / nq, qt = qt_begin + it % nq;
-    mbar_arrive_expect_tx(full, FLASH_BWD_PROBE == 3 ? 0 : 2 * TILE + HSTATS);
+    mbar_arrive_expect_tx(full, FLASH_BWD_PROBE == 3 ? 0 : 2 * TILE + HST);
     if constexpr (FLASH_BWD_PROBE != 3) {
       load_tile<D>(qs, &map_q, full, qt * HB, hq, b);
       load_tile<D>(qs + TILE, &map_do, full, qt * HB, hq, b);
-      bulk_load(qs + 2 * TILE, stats + ((long long)(b * p.H + hq) * nqt + qt) * 2 * HB, HSTATS, full);
+      bulk_load(qs + 2 * TILE, stats + ((long long)(b * p.H + hq) * nqt + qt) * (HST / 4), HST, full);
     }
   };
   if (tid == 0) {
@@ -2264,7 +2694,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
   }
 
   const int r = warp * 16 + lane / 4, t = lane % 4;  // this thread's keys r, r + 8 of the tile; columns 2t, 2t + 1
-  const float c = p.scale * LOG2E;
+  const float c = BF16S ? p.scale : p.scale * LOG2E;
+  const float rc = BF16S ? bf16_recip(p.scale) : 0.f;
   float accv[D / 2], acck[D / 2];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) accv[e] = acck[e] = 0.f;
@@ -2273,6 +2704,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
     mbar_wait(&bar[1 + it % S], (it / S) & 1);
     const unsigned char* qs = ring + it % S * STAGE;
     const unsigned char* gs = qs + TILE;
+    // the q tile's lse * log2(e) and delta; or m, l, R and 1 / l
     const float* l2 = reinterpret_cast<const float*>(qs + 2 * TILE);
     const float* dl = l2 + HB;
     const int q0 = (qt_begin + it % nq) * HB;
@@ -2292,23 +2724,39 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
     wgmma_fence_operand(dp);
 
     // keys past Skv need no mask (their rows are never stored); queries past Sq have zero rows and lse +inf
+    // (m +inf)
     const bool masked = (p.causal && q0 < k0 + HB - 1) || (p.window > 0 && q0 + HB - 1 - k0 >= p.window);
     uint32_t pf[4][4], df[4][4];  // P^T and dS^T as A fragments, k16 steps over the q tile's queries
+    bf16s_blocks<BF16S, 8, 2>([&](auto& steps, int j) {
+      {
+        const float2 lj = *reinterpret_cast<const float2*>(l2 + 8 * j + 2 * t);
+        const float2 dj = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+        float2 rj{}, ij{};  // the bf16-score mode's R and 1 / l
+        if constexpr (BF16S) {
+          rj = *reinterpret_cast<const float2*>(l2 + 2 * HB + 8 * j + 2 * t);
+          ij = *reinterpret_cast<const float2*>(l2 + 3 * HB + 8 * j + 2 * t);
+        }
+        float pv[4], ds[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 lj = *reinterpret_cast<const float2*>(l2 + 8 * j + 2 * t);
-      const float2 dj = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
-      float pv[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int jj = k0 + r + (e / 2) * 8, i = q0 + 8 * j + 2 * t + e % 2;
-        const bool ok = !masked || ((!p.causal || jj <= i) && (p.window == 0 || i - jj < p.window));
-        pv[e] = ok ? ex2(fmaf(s[4 * j + e], c, -(e % 2 ? lj.y : lj.x))) : 0.f;
-        ds[e] = pv[e] * (dp[4 * j + e] - (e % 2 ? dj.y : dj.x));
+        for (int e = 0; e < 4; ++e) {
+          const int jj = k0 + r + (e / 2) * 8, i = q0 + 8 * j + 2 * t + e % 2;
+          const bool ok = !masked || ((!p.causal || jj <= i) && (p.window == 0 || i - jj < p.window));
+          const float li = e % 2 ? lj.y : lj.x, di = e % 2 ? dj.y : dj.x;
+          if constexpr (BF16S) {  // y = bf16(u / l); dS' = bf16(bf16(bf16(bf16(g / l) - R) * u) / c)
+            const float ri = e % 2 ? rj.y : rj.x, rli = e % 2 ? ij.y : ij.x;
+            const float u = ok ? steps.u(steps.score(s[4 * j + e], c, rc), li) : 0.f;
+            const float gl = steps.div(bfr(dp[4 * j + e]), rli, di);
+            pv[e] = steps.div(u, rli, di);
+            ds[e] = steps.div(bfr(__fmul_rn(bfr(__fsub_rn(gl, ri)), u)), rc, c);
+          } else {
+            pv[e] = ok ? ex2(fmaf(s[4 * j + e], c, -li)) : 0.f;
+            ds[e] = pv[e] * (dp[4 * j + e] - di);
+          }
+        }
+        pack_a(pf, j, pv[0], pv[1], pv[2], pv[3]);
+        pack_a(df, j, ds[0], ds[1], ds[2], ds[3]);
       }
-      pack_a(pf, j, pv[0], pv[1], pv[2], pv[3]);
-      pack_a(df, j, ds[0], ds[1], ds[2], ds[3]);
-    }
+    });
     wgmma_fence_operand(accv);
     wgmma_fence_operand(acck);
     wgmma_fence();
@@ -2353,13 +2801,33 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
       sum.w += x.w;
     }
     if (j >= p.Skv) continue;
-    const float f = dkey ? p.scale : 1.f;
+    const float f = dkey && !BF16S ? p.scale : 1.f;  // dS' holds the bf16-score mode's scale already
     const int which = dkey ? SDK_ : SDV_;
     bf16* dst = (dkey ? dk : dv) + b * p.st[which][0] + hk * p.st[which][1] + j * p.st[which][2] + col;
     __nv_bfloat162 out[2] = {__floats2bfloat162_rn(sum.x * f, sum.y * f), __floats2bfloat162_rn(sum.z * f, sum.w * f)};
     *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(out);
   }
   cluster_sync();  // no block leaves while another reads its shared memory
+}
+
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 2)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                            const float* __restrict__ stats, bf16* __restrict__ dk, bf16* __restrict__ dv, BwdShape p,
+                            int cl) {
+  flash_bwd_dkdv_wgmma_body<D, false>(map_q, map_k, map_v, map_do, stats, dk, dv, p, cl);
+}
+
+// The bf16-score mode: `stats` holds the dQ kernel's m, l, R and 1 / l of each q tile.
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 2)
+flash_bwd_dkdv_wgmma_bf16_scores_kernel(const __grid_constant__ CUtensorMap map_q,
+                                        const __grid_constant__ CUtensorMap map_k,
+                                        const __grid_constant__ CUtensorMap map_v,
+                                        const __grid_constant__ CUtensorMap map_do, const float* __restrict__ stats,
+                                        bf16* __restrict__ dk, bf16* __restrict__ dv, BwdShape p, int cl) {
+  flash_bwd_dkdv_wgmma_body<D, true>(map_q, map_k, map_v, map_do, stats, dk, dv, p, cl);
 }
 
 // A 4-D tensor map (D, positions, heads, batch) over a bf16 tensor with
@@ -2380,10 +2848,10 @@ int encode_rows(CUtensorMap* map, const void* base, int D, int S, int H, int B, 
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
-// The wgmma route: the dQ kernel (with delta), then the dK/dV kernel in
-// clusters of `cl` blocks.  `a.delta` is the stats scratch, fp32 [B * H][q
-// tiles][2][64].
-template <int D>
+// The wgmma route: the dQ kernel (with delta, or in the bf16-score mode R),
+// then the dK/dV kernel in clusters of `cl` blocks.  `a.delta` is the stats
+// scratch, fp32 [B * H][q tiles][2][64] (bf16-score mode: [4][64]).
+template <int D, bool BF16S>
 int launch_bwd_wgmma(const BwdArgs& a, const BwdShape& p, int cl, cudaStream_t stream) {
   int dev = 0;
   cudaError_t ce = make_context_current(&dev);
@@ -2393,15 +2861,21 @@ int launch_bwd_wgmma(const BwdArgs& a, const BwdShape& p, int cl, cudaStream_t s
   if (err == 0) err = encode_rows(&mk, a.k, D, p.Skv, p.KVH, p.B, p.st[SK_]);
   if (err == 0) err = encode_rows(&mv, a.v, D, p.Skv, p.KVH, p.B, p.st[SV_]);
   if (err == 0) err = encode_rows(&mdo, a.dout, D, p.Sq, p.H, p.B, p.st[SDO_]);
-  if (err == 0) err = encode_rows(&mo, a.o, D, p.Sq, p.H, p.B, p.st[SO_]);
+  if (err == 0 && !BF16S) err = encode_rows(&mo, a.o, D, p.Sq, p.H, p.B, p.st[SO_]);
   if (err != 0) return err;
   constexpr int dq_smem = dq_wgmma_smem<D>(), kv_smem = dkdv_wgmma_smem<D>();
-  if ((ce = allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem)) != cudaSuccess) return (int)ce;
   const dim3 dq_grid((unsigned)(p.B * p.H), (unsigned)((p.Sq + HB - 1) / HB));
-  flash_bwd_dq_wgmma_kernel<D><<<dq_grid, HTHREADS, dq_smem, stream>>>(mq, mk, mv, mdo, mo, a.lse, a.delta,
-                                                                       static_cast<bf16*>(a.dq), p);
+  bf16* dq = static_cast<bf16*>(a.dq);
+  if constexpr (BF16S) {
+    if ((ce = allow_smem(flash_bwd_dq_wgmma_bf16_scores_kernel<D>, dq_smem)) != cudaSuccess) return (int)ce;
+    flash_bwd_dq_wgmma_bf16_scores_kernel<D><<<dq_grid, HTHREADS, dq_smem, stream>>>(mq, mk, mv, mdo, a.lse,
+                                                                                     a.delta, dq, p);
+  } else {
+    if ((ce = allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem)) != cudaSuccess) return (int)ce;
+    flash_bwd_dq_wgmma_kernel<D><<<dq_grid, HTHREADS, dq_smem, stream>>>(mq, mk, mv, mdo, mo, a.lse, a.delta, dq, p);
+  }
   if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
-  auto kernel = flash_bwd_dkdv_wgmma_kernel<D>;
+  auto kernel = BF16S ? flash_bwd_dkdv_wgmma_bf16_scores_kernel<D> : flash_bwd_dkdv_wgmma_kernel<D>;
   if ((ce = allow_smem(kernel, kv_smem)) != cudaSuccess) return (int)ce;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(p.B * p.KVH * cl), (unsigned)((p.Skv + HB - 1) / HB));
@@ -2449,7 +2923,80 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The exhaustive checks of the bf16-score mode's scalar steps
+// ---------------------------------------------------------------------------
+
+// Whether a step misses `want` in a bit: its ExactSteps value, or its
+// FastSteps value where FastSteps does not call for the exact path.
+__device__ __forceinline__ bool misses(float exact, float fast, bool need, float want) {
+  return __float_as_uint(exact) != __float_as_uint(want) || (!need && __float_as_uint(fast) != __float_as_uint(want));
+}
+
+// Adds 1 to *out for each bf16 x (all 65,536 bit patterns) where the
+// division by c, bf16(x / c) from bf16_recip(c), misses bfr(__fdiv_rn(x, c)).
+__global__ void __launch_bounds__(256) bf16s_check_div_c_kernel(float c, unsigned long long* out) {
+  const float x = __uint_as_float((blockIdx.x * 256u + threadIdx.x) << 16), rc = bf16_recip(c);
+  FastSteps fast;
+  const float got = fast.div(x, rc, c);
+  if (misses(ExactSteps().div(x, rc, c), got, fast.need, bfr(__fdiv_rn(x, c)))) atomicAdd(out, 1ull);
+}
+
+// The same over every (x, d) pair of bf16 bit patterns, 2^32 (block i takes
+// d = pattern i), to out[0]; and div_exact alone (the exact path, also the
+// rows' bf16(1 / bf16(l * l))) against the IEEE division, to out[1].
+__global__ void __launch_bounds__(256) bf16s_check_div_l_kernel(unsigned long long* out) {
+  const float d = __uint_as_float(blockIdx.x << 16), r = bf16_recip(d);
+  unsigned n[2] = {0, 0};
+  for (unsigned k = threadIdx.x; k < 65536u; k += 256u) {
+    const float x = __uint_as_float(k << 16);
+    const float want = bfr(__fdiv_rn(x, d));
+    FastSteps fast;
+    const float got = fast.div(x, r, d);
+    n[0] += misses(ExactSteps().div(x, r, d), got, fast.need, want);
+    n[1] += __float_as_uint(div_exact(x, d)) != __float_as_uint(want);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) n[i] += __shfl_xor_sync(0xffffffffu, n[i], off);
+    if (threadIdx.x % 32 == 0 && n[i]) atomicAdd(out + i, (unsigned long long)n[i]);
+  }
+}
+
+// exp (both flavours) against bfr(expf) over every bf16 t (all 65,536 bit
+// patterns: the forward's t = s - m is never above 0, but the backward
+// recomputes s in another order than the forward that saved m, so t may be
+// a bf16 step above it): mismatches to out[0]; to out[1] the largest
+// distance, in units in the last place, between exp_fast(t) and expf(t)
+// where both are normal.
+__global__ void __launch_bounds__(256) bf16s_check_exp_kernel(unsigned long long* out) {
+  const float t = __uint_as_float((blockIdx.x * 256u + threadIdx.x) << 16);
+  const float want = expf(t), fast = exp_fast(t);
+  FastSteps steps;
+  const float got = steps.exp(t);
+  if (misses(ExactSteps().exp(t), got, steps.need, bfr(want))) atomicAdd(out, 1ull);
+  if (want >= BF16S_TINY && fast >= BF16S_TINY && want < INFINITY && fast < INFINITY) {
+    const int a = (int)__float_as_uint(want), b = (int)__float_as_uint(fast);
+    atomicMax(out + 1, (unsigned long long)(a > b ? a - b : b - a));
+  }
+}
+
 }  // namespace
+
+// Runs the bf16-score mode's exhaustive scalar checks on `stream`: the
+// division by each of the `nc` divisors c[i] (host floats) over every bf16
+// numerator, mismatches to out[i]; the division by every bf16 l, over every
+// pair, to out[nc], and its exact path alone to out[nc + 1]; exp, to out[nc
+// + 2], and exp_fast's largest distance from expf to out[nc + 3] (`out`: nc
+// + 4 zeroed device counters).  Returns the launch error.
+extern "C" int flash_bf16s_scalar_check(const float* c, int nc, unsigned long long* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < nc; ++i) bf16s_check_div_c_kernel<<<256, 256, 0, st>>>(c[i], out + i);
+  bf16s_check_div_l_kernel<<<65536, 256, 0, st>>>(out + nc);
+  bf16s_check_exp_kernel<<<256, 256, 0, st>>>(out + nc + 2);
+  return (int)cudaGetLastError();
+}
 
 // Launches on `stream` and returns the CUDA error of the launch (0 when it was
 // accepted).  dtype 0 is float32 (SIMT kernel), 1 is bfloat16 (tensor-core
@@ -2509,8 +3056,9 @@ enum BwdRoute { BWD_SIMT = 0, BWD_MMA = 1, BWD_WGMMA = 2 };
 // delta pre-pass, the dQ kernel and the dK/dV kernel(s), with `scratch` fp32
 // [B, H, Sq] for delta; BWD_WGMMA (bf16, D 64 or 128, rows TMA can address)
 // launches the dQ kernel, which writes lse and delta to `scratch` (fp32 [B *
-// H][ceil(Sq / 64)][2][64]), and the dK/dV kernel in clusters of `cluster`
-// blocks (a divisor of H / KVH, at most 8).  All on `stream`; returns the
+// H][ceil(Sq / 64)][2][64]; with `bf16_scores`, m, l, R and 1 / l, [4][64]),
+// and the dK/dV kernel in clusters of `cluster` blocks (a divisor of H /
+// KVH, at most 8).  All on `stream`; returns the
 // first launch error (0 when all were accepted) or, on the wgmma route, a
 // tensor-map error (NO_ENCODER, TENSOR_MAP_ERROR + CUresult).  Shapes,
 // strides, alignment, the route's conditions and the absence of rows that
@@ -2538,13 +3086,15 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
         default: return (int)cudaErrorInvalidValue;
       }
     }
-    if (route != BWD_MMA) return (int)cudaErrorInvalidValue;  // the wgmma route has no bf16-score mode
+  } else if (route == BWD_WGMMA && FLASH_BWD_PARENT) {
+    route = BWD_MMA;
   }
-  if (route == BWD_WGMMA && FLASH_BWD_PARENT) route = BWD_MMA;
   if (route == BWD_WGMMA) {
     switch (D) {
-      case 64: return launch_bwd_wgmma<64>(a, p, cluster, st);
-      case 128: return launch_bwd_wgmma<128>(a, p, cluster, st);
+      case 64: return bf16_scores ? launch_bwd_wgmma<64, true>(a, p, cluster, st)
+                                  : launch_bwd_wgmma<64, false>(a, p, cluster, st);
+      case 128: return bf16_scores ? launch_bwd_wgmma<128, true>(a, p, cluster, st)
+                                   : launch_bwd_wgmma<128, false>(a, p, cluster, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

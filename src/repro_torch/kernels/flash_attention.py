@@ -45,14 +45,19 @@ each of its steps (:func:`flash_attention_plain`'s docstring lists them).
 Its scale is a division by ``bf16(sqrt(D))`` (:func:`score_divisor`), as
 JAX casts the reference's Python float to the scores' type.  The online
 softmax cannot reproduce ``bf16(exp(bf16(s - m)))`` at the row's final max,
-so the mode's forward kernels sweep a q tile's keys three times (the max;
-the bf16 row sum; P·V) and save each row's max and bf16 sum, ``(m, l)``
-stacked as fp32 ``[2, B, H, Sq]``, where the fp32 mode saves the lse.  The
-backward follows ``jax.grad`` of the reference op by op, its row sum
-``R = Σ bf16(bf16(g · bf16(l⁻²)) · u)`` added in bf16 in XLA's CPU order
-(:func:`bf16_row_sum`); it runs on the ``mma.sync`` route (bf16) or the SIMT
-route (fp32), whose dQ kernels sweep the keys twice (R, then dQ) and leave
-R for the dK/dV kernels.
+so the mode's forward kernels sweep a q tile's keys three times (the raw
+scores' max, mapped once a row; the bf16 row sum; P·V) and save each row's
+max and bf16 sum, ``(m, l)`` stacked as fp32 ``[2, B, H, Sq]``, where the
+fp32 mode saves the lse.  The backward follows ``jax.grad`` of the
+reference op by op, its row sum ``R = Σ bf16(bf16(g · bf16(l⁻²)) · u)``
+added in bf16 in XLA's CPU order (:func:`bf16_row_sum`; the kernels add
+each window of 32 in one chain, two threads a row); it runs on the routes
+of the fp32 mode (:func:`bwd_route`), whose dQ kernels sweep the keys twice
+(R, then dQ) and leave R for the dK/dV kernels.  The kernels give every
+step's bits without an IEEE division or ``expf`` on every element: a
+multiplication by the row's or the call's reciprocal, and ``ex2.approx``
+with ``expf`` where its result lies near a bf16 rounding boundary, each
+held to the IEEE op over every input it can take by :func:`scalar_check`.
 """
 
 from __future__ import annotations
@@ -343,11 +348,10 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
     at a head dim of ``WGMMA_HEAD_DIMS`` where TMA can address every row of
     q, k, v, o and dO; ``"mma"`` for every other bf16 call (D 16, 32, 80 and
     192, rows only 8-byte aligned).  The bf16-score mode (``fp32_scores=
-    False``) runs on ``"mma"`` for every bf16 call: the wgmma route has no
-    such mode."""
+    False``) takes the same routes."""
     if q.dtype == torch.float32:
         return "simt"
-    if fp32_scores and q.shape[-1] in WGMMA_HEAD_DIMS and all(_tma_rows(t) for t in (q, k, v, o, do)):
+    if q.shape[-1] in WGMMA_HEAD_DIMS and all(_tma_rows(t) for t in (q, k, v, o, do)):
         return "wgmma"
     return "mma"
 
@@ -369,13 +373,15 @@ def bwd_kernels(route: str, d: int, fp32_scores: bool = True) -> tuple[str, ...]
     delta pre-pass: its dQ kernel computes each row's R and leaves it for
     the dK/dV kernels."""
     if not fp32_scores:
+        if route == "wgmma":
+            return f"flash_bwd_dq_wgmma_bf16_scores_kernel<{d}>", f"flash_bwd_dkdv_wgmma_bf16_scores_kernel<{d}>"
         if route == "mma":
             modes = (1, 2) if d >= 128 else (3,)
             return (f"flash_bwd_dq_mma_bf16_scores_kernel<{d}>",
                     *(f"flash_bwd_dkdv_mma_bf16_scores_kernel<{d}, {m}>" for m in modes))
         if route == "simt":
             return f"flash_bwd_dq_bf16_scores_kernel<{d}>", f"flash_bwd_dkdv_bf16_scores_kernel<{d}>"
-        raise ValueError(f"no bf16-score backward on route {route!r} (have 'mma', 'simt')")
+        raise ValueError(f"no bf16-score backward on route {route!r} (have {tuple(BWD_ROUTES)})")
     if route == "wgmma":
         return f"flash_bwd_dq_wgmma_kernel<{d}>", f"flash_bwd_dkdv_wgmma_kernel<{d}>"
     if route == "mma":
@@ -502,8 +508,9 @@ def flash_attention_bwd(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, o, do, dq, dk, dv))
     # delta (R in the bf16-score mode) [B, H, Sq]; on the wgmma route each 64-row q tile's lse * log2(e) and
-    # delta, rows past Sq included
-    scratch = torch.empty(b * h * (-(-sq // 64) * 128 if route == "wgmma" else sq), dtype=torch.float32,
+    # delta (the mode: m, l, R and 1 / l), rows past Sq included
+    tile = 128 if fp32_scores else 256
+    scratch = torch.empty(b * h * (-(-sq // 64) * tile if route == "wgmma" else sq), dtype=torch.float32,
                           device=q.device)
     err = _bwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
@@ -533,6 +540,44 @@ def _kernel():
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
         + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def scalar_check() -> dict:
+    """The bf16-score mode's scalar steps held on the card to the IEEE ops
+    they replace over every input they can take (``csrc/flash_attention.cu``,
+    ``flash_bf16s_scalar_check``): bf16(x / c) at each head dim's
+    :func:`score_divisor` over all 65,536 bf16 x; bf16(x / l) over all 2^32
+    bf16 pairs (x, l), and its exact path alone (which also gives each row's
+    bf16(1 / bf16(l·l))); bf16(exp(t)) over all 65,536 bf16 t (the
+    backward's recomputed score may lie a step above the forward's m).  Returns ``{"steps": [{"step", "inputs", "mismatches"},
+    ...], "exp_max_ulp": ...}``, the last the largest distance of the fast
+    exp's fp32 value from ``expf`` in units in the last place (what its
+    margin must cover).  Needs a CUDA device; synchronises."""
+    divisors = [score_divisor(d) for d in HEAD_DIMS]
+    out = torch.zeros(len(divisors) + 4, dtype=torch.int64, device="cuda")
+    fn = _check_kernel()
+    err = fn((ctypes.c_float * len(divisors))(*divisors), len(divisors), out.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bf16s_scalar_check launch failed: cudaError {err}")
+    n = out.tolist()
+    steps = [{"step": f"bf16(x / {c}) (D {d})", "inputs": 2**16, "mismatches": n[i]}
+             for i, (d, c) in enumerate(zip(HEAD_DIMS, divisors))]
+    steps += [{"step": "bf16(x / l)", "inputs": 2**32, "mismatches": n[-4]},
+              {"step": "bf16(x / l), exact path alone", "inputs": 2**32, "mismatches": n[-3]},
+              {"step": "bf16(exp(t))", "inputs": 2**16, "mismatches": n[-2]}]
+    return {"steps": steps, "exp_max_ulp": n[-1]}
+
+
+@functools.cache
+def _check_kernel():
+    """The C entry ``flash_bf16s_scalar_check``, typed."""
+    from .build import library
+
+    fn = library("flash_attention").flash_bf16s_scalar_check
+    fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

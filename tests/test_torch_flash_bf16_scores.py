@@ -252,24 +252,49 @@ def test_meta_tensors_count_the_mode_as_the_fp32_mode():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_bwd_route_and_kernels_of_the_mode(d, dtype):
-    """The mode runs on mma.sync for every bf16 call (the wgmma route has
-    no bf16-score mode), on the SIMT pipes for fp32; no delta pre-pass: the
-    dQ kernel leaves each row's R for the dK/dV kernels."""
+    """The mode takes the fp32 mode's routes: wgmma for bf16 at D 64 and
+    128 with rows TMA can address, mma.sync for other bf16 calls (rows
+    only 8-byte aligned among them), the SIMT pipes for fp32; no delta
+    pre-pass: the dQ kernel leaves each row's R for the dK/dV kernels."""
     q = torch.zeros((2, 24, 4, d), dtype=dtype).transpose(1, 2)
     k = torch.zeros((2, 24, 2, d), dtype=dtype).transpose(1, 2)
     route = fa.bwd_route(q, k, k, q, q, fp32_scores=False)
-    assert route == ("mma" if dtype == torch.bfloat16 else "simt")
-    assert fa.bwd_route(q, k, k, q, q) == ("simt" if dtype == torch.float32 else
-                                           "wgmma" if d in fa.WGMMA_HEAD_DIMS else "mma")
-    if route == "mma":
+    assert route == ("simt" if dtype == torch.float32 else "wgmma" if d in fa.WGMMA_HEAD_DIMS else "mma")
+    assert fa.bwd_route(q, k, k, q, q) == route
+    # rows of d + 4 elements: 8-byte aligned, not what TMA takes
+    q8 = torch.zeros((2, 24, 4, d + 4), dtype=dtype)[..., :d].transpose(1, 2)
+    assert fa.bwd_route(q8, k, k, q8, q8, fp32_scores=False) == ("simt" if dtype == torch.float32 else "mma")
+    if route == "wgmma":
+        assert fa.bwd_kernels(route, d, fp32_scores=False) == (f"flash_bwd_dq_wgmma_bf16_scores_kernel<{d}>",
+                                                               f"flash_bwd_dkdv_wgmma_bf16_scores_kernel<{d}>")
+    if route != "simt":
         dkdv = ((f"flash_bwd_dkdv_mma_bf16_scores_kernel<{d}, 1>", f"flash_bwd_dkdv_mma_bf16_scores_kernel<{d}, 2>")
                 if d >= 128 else (f"flash_bwd_dkdv_mma_bf16_scores_kernel<{d}, 3>",))
-        assert fa.bwd_kernels(route, d, fp32_scores=False) == (f"flash_bwd_dq_mma_bf16_scores_kernel<{d}>", *dkdv)
+        assert fa.bwd_kernels("mma", d, fp32_scores=False) == (f"flash_bwd_dq_mma_bf16_scores_kernel<{d}>", *dkdv)
     else:
         assert fa.bwd_kernels(route, d, fp32_scores=False) == (f"flash_bwd_dq_bf16_scores_kernel<{d}>",
                                                                f"flash_bwd_dkdv_bf16_scores_kernel<{d}>")
     with pytest.raises(ValueError, match="no bf16-score backward"):
-        fa.bwd_kernels("wgmma", d, fp32_scores=False)
+        fa.bwd_kernels("tpu", d, fp32_scores=False)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_bf16_score_is_non_decreasing_so_the_max_sweep_maps_the_raw_max_once(d):
+    """The forward's max sweep takes the raw accumulators' max and maps it
+    once a row: bf16(bf16(acc) / c) is non-decreasing in acc, so its max
+    over a row is its value at the row's largest acc.  Held over every bf16
+    value (the mapping's first step rounds acc to one) and -inf, at each
+    head dim's divisor c."""
+    bits = torch.arange(2**16, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).float()
+    x = x[~x.isnan()].sort().values
+    assert x[0] == float("-inf") and x.numel() == 2**16 - 2 * 127
+    s = fa.bf16_round(x / fa.score_divisor(d))
+    assert bool((s[1:] >= s[:-1]).all())
+    # so the max of the mapped scores is the mapping of the largest, on any row
+    rows = x[torch.randint(0, x.numel(), (64, 512), generator=torch.Generator().manual_seed(d))]
+    assert torch.equal(fa.bf16_round(rows / fa.score_divisor(d)).amax(-1),
+                       fa.bf16_round(rows.amax(-1) / fa.score_divisor(d)))
 
 
 def test_wrappers_refuse_cpu_tensors_in_the_mode():

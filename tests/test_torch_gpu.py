@@ -989,12 +989,16 @@ def test_flash_backward_refuses_rows_that_see_no_key():
 #: square of the difference over that of plain (``chip_smoke.BF16S_TOL``, where the readings are given)
 BF16S_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 #: (b, h, kvh, sq, skv, d, dtype, causal, window): every head dim in both types, GQA, a window, no causal
-#: mask, ragged lengths and a key length other than the query's both ways
+#: mask, ragged lengths and a key length other than the query's both ways; bf16 at D 64 and 128 takes the
+#: wgmma route (rows TMA can address), among them R's sum over 1,500 keys (two levels of windows with
+#: leading zeros) and over 77 (one)
 BF16S_CASES = (
     [(2, 8, 2, 100, None, d, dt, True, 0) for dt in (torch.bfloat16, torch.float32) for d in fa.HEAD_DIMS]
     + [
         (1, 4, 4, 65, None, 64, torch.bfloat16, True, 7),
         (2, 10, 2, 130, None, 128, torch.bfloat16, False, 0),
+        (1, 8, 2, 100, 1500, 64, torch.bfloat16, False, 0),
+        (2, 12, 4, 200, 77, 128, torch.bfloat16, True, 0),
         (1, 8, 1, 15, 300, 80, torch.bfloat16, False, 0),
         (2, 4, 2, 70, 15, 32, torch.float32, True, 0),
         (1, 24, 2, 100, None, 192, torch.float32, True, 16),
@@ -1011,16 +1015,17 @@ def _rms_rel(got, want):
 def test_flash_bf16_scores_forward_and_backward_match_plain(b, h, kvh, s, skv, d, dtype, causal, window):
     """The mode's kernels against ``flash_attention_fwd_plain`` /
     ``flash_attention_bwd_plain`` in the mode: o and each gradient within
-    BF16S_TOL, (m, l) within a bf16 step; the route ``mma`` (bf16) or
-    ``simt`` (fp32); one count each in the mode's own counters and none in
-    the fp32 mode's; the same bits twice."""
+    BF16S_TOL, (m, l) within a bf16 step; the route ``wgmma`` (bf16 at D 64
+    and 128), ``mma`` (other bf16) or ``simt`` (fp32); one count each in the
+    mode's own counters and none in the fp32 mode's; the same bits twice."""
     q, k, v = _attn(b, h, kvh, s, d, dtype, bshd=True, skv=skv)
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, fp32_scores=False)
     counts = lambda: (fa.bf16_scores_launches, fa.bf16_scores_bwd_launches, fa.launches, fa.bwd_launches)
     before = counts()
     o, stats = fa.flash_attention(q, k, v, return_lse=True, **kw)
-    assert fa.bwd_route(q, k, v, o, do, fp32_scores=False) == ("simt" if dtype == torch.float32 else "mma")
+    assert fa.bwd_route(q, k, v, o, do, fp32_scores=False) == (
+        "simt" if dtype == torch.float32 else "wgmma" if d in fa.WGMMA_HEAD_DIMS else "mma")
     got = fa.flash_attention_bwd(q, k, v, o, stats, do, **kw)
     assert counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
     po, pstats = fa.flash_attention_fwd_plain(q, k, v, **kw)
@@ -1033,6 +1038,34 @@ def test_flash_bf16_scores_forward_and_backward_match_plain(b, h, kvh, s, skv, d
         assert g.dtype == dtype and g.stride() == t.stride()
         assert _rms_rel(g, w) <= BF16S_TOL[dtype]
     assert all(torch.equal(x, y) for x, y in zip(got, fa.flash_attention_bwd(q, k, v, o, stats, do, **kw)))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_scores_backward_on_rows_only_8_byte_aligned_takes_the_mma_route(d):
+    """Rows of d + 4 elements, which TMA cannot address: the mode's
+    backward stays on the mma.sync kernels, held to the plain mode."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn((2, 130, h, d + 4), generator=g, device="cuda").to(torch.bfloat16)[..., :d]
+                   .transpose(1, 2) for h in (8, 2, 2, 8))
+    kw = dict(fp32_scores=False)
+    o, stats = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert fa.bwd_route(q, k, v, o, do, **kw) == "mma"
+    got = fa.flash_attention_bwd(q, k, v, o, stats, do, **kw)
+    po, pstats = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, po, pstats, do, **kw)
+    torch.cuda.synchronize()
+    assert all(_rms_rel(g_, w) <= BF16S_TOL[torch.bfloat16] for g_, w in zip(got, want))
+    assert all(torch.equal(x, y) for x, y in zip(got, fa.flash_attention_bwd(q, k, v, o, stats, do, **kw)))
+
+
+def test_bf16_score_scalar_steps_match_the_ieee_ops_over_every_input():
+    """The mode's division by c (each head dim's), division by l (and its
+    exact path alone) and exp give the bits of bfr(__fdiv_rn) and bfr(expf)
+    over every bf16 input: 65,536 numerators a divisor, 2^32 pairs, 65,536
+    exponents."""
+    got = fa.scalar_check()
+    assert [s["inputs"] for s in got["steps"]] == [2**16] * len(fa.HEAD_DIMS) + [2**32, 2**32, 2**16]
+    assert [s["mismatches"] for s in got["steps"]] == [0] * (len(fa.HEAD_DIMS) + 3)
 
 
 def test_ops_trains_through_the_bf16_score_kernels():
