@@ -12,8 +12,10 @@ repository's sources are not beside this script.  Otherwise, in order:
    kernels (``flash_fwd_mma_bf16_kernel``, the fp32 ``flash_fwd_kernel``)
    compiled at every head dim with no spill, and unless every instantiation of the GEMM's
    ``gemm_wgmma_bf16_kernel`` (clusters of 1 and 2, each pair of operand
-   majors, each schedule) compiled with no spill and no ``wgmma`` made to wait by
-   ``ptxas`` (C7517, C7518), and
+   majors, each schedule) and the decode kernels ``gemm_decode_bf16_kernel``
+   and ``gemm_decode_sum_kernel`` (row tiles 8 and 16) compiled with no
+   spill and no ``wgmma`` made to wait by ``ptxas`` (C7517, C7518),
+   printing the decode kernel's blocks an SM, and
    unless every conv kernel (each tile of ``im2col_conv.TILES``, 16-byte
    and 4-byte copies, and the split sum) compiled with no spill, printing
    the blocks of each one SM holds, and unless the tensor-core SSD scan
@@ -21,8 +23,9 @@ repository's sources are not beside this script.  Otherwise, in order:
    with no spill, asks the shared memory the wrapper counts and splits its
    inexact operands into the wrapper's ``MMA_TERMS`` bf16 terms, printing
    its registers and blocks an SM, and unless every kernel of the flash
-   backward (the wgmma route's dQ and dK/dV at D 64 and 128 with no
-   ``wgmma`` made to wait, and every ``mma.sync`` and SIMT kernel) and of
+   backward (the wgmma route's dQ and dK/dV at D 64, 80 and 128 in both
+   score modes with no ``wgmma`` made to wait, printing their blocks an
+   SM, and every ``mma.sync`` and SIMT kernel) and of
    the SSD scan's backward (both routes of ``ssd_scan.bwd_kernels``: the
    SIMT kernels, and the tensor-core states, chunk and sum kernels, which
    must ask the shared memory the wrapper counts) compiled with no spill
@@ -218,19 +221,28 @@ repository's sources are not beside this script.  Otherwise, in order:
    and an even count of column tiles), on a layer slice
    of a stacked expert tensor, each also with A, B or both as transposed
    views (every wgmma instantiation; fp32, decode and unaligned rows copied
-   first, and nowhere else), and at the MoE main path's shapes in bf16
-   (phi3.5-moe prefill capacity 320 and decode capacity 8, llama4-scout
-   prefill capacity 160 and decode capacity 8, 16 experts in one launch);
-   at each main shape fails unless prefill ran ``gemm_wgmma_bf16_kernel``
-   and decode ``gemm_mma_bf16_kernel``, and times the kernel, the plain
-   version and ``torch.bmm`` (cuBLAS) by CUDA events and by the profiler's
-   device time, with its FLOPs, bytes and bound;
+   first, and nowhere else), the decode kernels at capacities 1, 8 and 16,
+   N 6392 and 6408, K 4104, batch 1 and 16 and on a layer slice of a
+   stacked expert tensor, each giving the same bits twice, and at the MoE
+   main path's shapes in bf16 (phi3.5-moe prefill capacity 320 and decode
+   capacity 8, llama4-scout prefill capacity 160 and decode capacity 8, 16
+   experts in one launch); at each main shape fails unless prefill ran
+   ``gemm_wgmma_bf16_kernel`` and decode exactly ``gemm.decode_kernels``
+   (``gemm_decode_bf16_kernel`` and ``gemm_decode_sum_kernel``), and times
+   the kernel, the plain version and ``torch.bmm`` (cuBLAS) by CUDA events
+   and by the profiler's device time, with its FLOPs, bytes and bound
+   (decode: and the split's blocks, units an SM, split tiles, blocks an
+   SM, and the kernels' and ``torch.bmm``'s device time with the L2 cache
+   cold before each call, ``_cold_device_ms``, as the decode step finds it);
 10. drives MoE serving like phase 7, with the ``gemm`` launch count beside
    the others: phi3.5-moe-42b at 16 of its 32 layers and llama4-scout-17b at
    4 of its 48, both at full width (full depth does not fit the card's
    80 GB; these depths, well below what would fit, keep the run short);
    fails unless each profiled bf16 prefill ran ``gemm_wgmma_bf16_kernel``
-   three times a layer (gate, up, down) and never ``gemm_mma_bf16_kernel``;
+   three times a layer (gate, up, down) and never ``gemm_mma_bf16_kernel``,
+   unless the served decode steps launched gemm's decode route
+   (``gemm.decode_launches``) and unless the four profiled decode steps ran
+   exactly ``gemm.decode_kernels`` three times a layer each, nothing else;
    phase 8 for both, the fp32 comparison at 2 layers (fp32 weights of 16
    layers would need 84 GB), and the share of (token, expert) assignments
    that the kernel and plain paths route alike, held to ROUTE_FLOOR (see
@@ -245,9 +257,11 @@ repository's sources are not beside this script.  Otherwise, in order:
    GQA groups 1, 4, 5, 7 and 12 at D 64 and 128 (clusters of 1, 4, 5, 7
    and 6 on the wgmma route), S of 1, 15, 65 and 1000, Sq != Skv both
    ways, key tiles past Sq that no query sees (a causal window), non-causal,
-   a window of 7, contiguous, strided, and rows only 8-byte aligned; each
+   a window of 7, contiguous, strided, and rows only 8-byte aligned (D 64,
+   80 and 128); D 80 on the wgmma route at GQA groups 1 and 4, S of 1, 15,
+   65 and 1000, Sq != Skv, a window and non-causal; each
    case prints the route ``flash_attention.bwd_route`` picked and fails
-   unless it is the one expected (wgmma: bf16 at D 64 and 128 with rows
+   unless it is the one expected (wgmma: bf16 at D 64, 80 and 128 with rows
    TMA can address; the profiled training shapes must run exactly
    ``flash_attention.bwd_kernels`` of their route); bf16 within
    BF16_REL_TOL of each gradient's max |plain|, fp32 within ATTN_TOL of it
@@ -297,7 +311,10 @@ repository's sources are not beside this script.  Otherwise, in order:
    memory, device time by flash and SSD forward and backward, ``gemm``,
    cuBLAS and the rest, the optimizer's update by events, the busy share)
    and fails unless its kernels ran as often as its wrappers launched them,
-   on the tensor-core forward kernels; holds the loss and every leaf's
+   on the tensor-core forward kernels and the backward's route
+   (``bwd_kernels``: the wgmma route's two kernels at granite's D 64,
+   phi3.5-moe's D 128 and zamba2's shared block at D 80); holds the loss
+   and every leaf's
    gradient, kernel path against plain path (``ops`` swapped as in phase 8,
    MoE on the kernel path's routes): an attention model in bf16 at the
    trained depth to TRAIN_LOSS_TOL and TRAIN_GRAD_TOL of each leaf's max
@@ -399,22 +416,24 @@ repository's sources are not beside this script.  Otherwise, in order:
    mismatches printed, none allowed): the mode's
    forward (``flash_fwd_mma_bf16_scores_kernel`` in bf16,
    ``flash_fwd_bf16_scores_kernel`` in fp32) and backward (the fp32 mode's
-   route: ``"wgmma"`` at D 64 and 128 with rows TMA can address, ``"mma"``
+   route: ``"wgmma"`` at D 64, 80 and 128 with rows TMA can address, ``"mma"``
    for other bf16 calls, ``"simt"`` in fp32; ``bwd_kernels(route, d,
    False)``, printed with the route for every call) against
    the plain version in the mode on the same inputs, o, (m, l), dq, dk and
    dv, at the served calls of BF16S_SERVED, the training shapes of
    BF16S_TRAINED and a grid (every head dim in both types, GQA groups 1, 4
    and 5, a window, no causal mask, ragged S, Skv other than Sq both
-   ways, bf16 rows only 8-byte aligned at D 64 and 128), held to BF16S_TOL
+   ways, D 80 on the wgmma route, bf16 rows only 8-byte aligned at D 64,
+   80 and 128), held to BF16S_TOL
    beside the fp32-score function as the control, which must miss; two
    backward calls give the same bits; the profiled training shapes and
    unaligned rows run exactly the mode's kernels; times by events and
    device time beside the fp32-score kernels and the plain mode.  Then
-   (``drive_bf16_scores``) granite-3-2b trained at full size and
-   whisper-small served at full size with ``attn_fp32_scores=False``, each
-   with the counts set to 0 just before and read just after (the mode's
-   launches as the code runs them, the fp32-score kernels' none), the
+   (``drive_bf16_scores``) granite-3-2b and zamba2-2.7b (its shared block
+   at D 80) trained at full size and whisper-small served at full size
+   with ``attn_fp32_scores=False``, each with the counts set to 0 just
+   before and read just after (the mode's launches as the code runs them,
+   the fp32-score kernels' none; zamba2: that and finite losses), the
    training step's loss and every leaf held kernel path against plain path
    (in bf16, and in fp32 beside the fp32-score control, which must miss),
    whisper's prefill and teacher-forced decode logits held to BF16S_LM_TOL;
@@ -423,12 +442,16 @@ repository's sources are not beside this script.  Otherwise, in order:
    with every other served attention call's times, bound, SDPA times and
    launches under keys that name the model and the call, and the
    backward's ``bwd_*`` keys at granite's training shape, phi3.5-moe's
-   under keys that name it, with the training runs' launches; the
+   and zamba2-2.7b's (D 80) under keys that name them, with the training
+   runs' launches; the
    ``ssd_scan`` row is mamba2-130m's scan, with its device function, device
    and host times, and zamba2-2.7b's times and launches under keys that
    name it, and the backward's ``bwd_*`` keys at both training shapes with
-   the training runs' launches; the ``gemm`` row adds one phi3.5-moe
-   layer's backward times and the training run's launches; the
+   the training runs' launches; the ``gemm`` row adds each MoE decode
+   product's keys (``<model> decode gate/up device_ms`` ...: the decode
+   kernels' times, ``torch.bmm``'s, the bound, the split), phase 10's
+   decode launches, one phi3.5-moe layer's backward times and the training
+   run's launches; the
    ``flash_attention_bf16_scores`` row is the mode's, at granite-3-2b's
    shape, with phase 16's launches), then
    ``{"ok": true, "device": ...}`` last.
@@ -584,7 +607,8 @@ LM_MODELS = {
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
 PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel",
-                "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "flash_bwd_delta_kernel",
+                "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "gemm_decode_bf16_kernel",
+                "gemm_decode_sum_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_wgmma_kernel",
                 "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_dkdv_kernel", "flash_fwd_mma_bf16_scores_kernel", "flash_fwd_bf16_scores_kernel",
@@ -757,7 +781,12 @@ def _ptxas_entries(source: str, mangled: str) -> dict[str, tuple[int, int, int]]
     """Registers, spill-store and spill-load bytes of each function of
     ``source`` whose mangled name matches ``mangled`` (the first group names
     it), from ``ptxas -v``."""
-    lines = build.ptxas_report(source).splitlines()
+    return _ptxas_entries_of(build.ptxas_report(source), mangled)
+
+
+def _ptxas_entries_of(log: str, mangled: str) -> dict[str, tuple[int, int, int]]:
+    """:func:`_ptxas_entries` from a ``ptxas -v`` log."""
+    lines = log.splitlines()
     seen = {}
     for i, line in enumerate(lines):
         name = re.search(mangled, line)
@@ -802,13 +831,17 @@ def check_flash_bwd_ptxas() -> None:
     ``mma.sync`` dK/dV as one pass up to D 80 and as a dV pass and a dK
     pass above; the bf16-score mode's dQ and dK/dV on all three routes)
     with no spill, and without making the wgmma kernels' ``wgmma`` wait
-    (C7517, C7518); print each one's registers."""
+    (C7517, C7518); print each one's registers, and the wgmma kernels'
+    blocks an SM."""
     seen = {_bwd_name(n): v for n, v in _ptxas_entries(
         "flash_attention", r"(flash_bwd_[a-z0-9_]+_kernelI(?:Li\d+E)*(?:13__nv_bfloat16|f)?E)").items()}
     want = {name for d in fa.HEAD_DIMS for route in fa.BWD_ROUTES for fp32_scores in (True, False)
             if route != "wgmma" or d in fa.WGMMA_HEAD_DIMS for name in fa.bwd_kernels(route, d, fp32_scores)}
     for name, (regs, st, ld) in sorted(seen.items()):
-        print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+        occ = ""
+        if m := re.match(r"flash_bwd_(dq|dkdv)_wgmma(_bf16_scores)?_kernel<(\d+)>", name):
+            occ = f", {fa.bwd_occupancy(int(m.group(3)), not m.group(2), m.group(1) == 'dkdv')} blocks an SM"
+        print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B{occ}")
     if set(seen) != want:
         raise RuntimeError(f"ptxas compiled flash backward kernels {sorted(seen)}, want {sorted(want)}")
     spilled = {n: v for n, v in seen.items() if v[1] or v[2]}
@@ -823,10 +856,13 @@ def check_flash_bwd_ptxas() -> None:
 def check_gemm_ptxas() -> None:
     """Fail unless ``ptxas`` compiled every instantiation of
     ``gemm_wgmma_bf16_kernel`` (clusters of 1 and 2, each pair of operand
-    majors and each schedule: ``gemm.KERNELS``) with no spill and without making its ``wgmma``
+    majors and each schedule: ``gemm.KERNELS``) and the decode route's
+    ``gemm_decode_bf16_kernel`` and ``gemm_decode_sum_kernel`` (row tiles
+    8 and 16) with no spill and without making their ``wgmma``
     wait: C7518 (a wgmma under a branch ptxas cannot prove warp-uniform is
     serialised) and C7517 (a wait injected where other code touches
-    registers a wgmma in flight defines); print their registers."""
+    registers a wgmma in flight defines); print their registers, and the
+    decode kernel's blocks an SM."""
     seen = {tuple(int(v) for v in re.findall(r"Li(\d+)E", n)): v
             for n, v in _ptxas_entries("gemm", r"gemm_wgmma_bf16_kernelI((?:Li\d+E)+)E").items()}
     for args, (regs, st, ld) in sorted(seen.items()):
@@ -840,9 +876,20 @@ def check_gemm_ptxas() -> None:
     if spilled:
         raise RuntimeError(f"gemm_wgmma_bf16_kernel spills: {spilled}")
     waits = [line for line in build.ptxas_report("gemm").splitlines()
-             if re.search(r"\(C751[78]\)", line) and "gemm_wgmma_bf16_kernel" in line]
+             if re.search(r"\(C751[78]\)", line) and re.search(r"gemm_(?:wgmma|decode)_bf16_kernel", line)]
     if waits:
-        raise RuntimeError(f"ptxas made the wgmma of gemm_wgmma_bf16_kernel wait: {waits}")
+        raise RuntimeError(f"ptxas made the wgmma of the GEMM's kernels wait: {waits}")
+    decode = {tuple(int(v) for v in re.findall(r"Li(\d+)E", n)) + (kind,): v for kind in ("bf16", "sum")
+              for n, v in _ptxas_entries("gemm", rf"(gemm_decode_{kind}_kernelI(?:Li\d+E)+E)").items()}
+    for (mt, kind), (regs, st, ld) in sorted(decode.items()):
+        occ = f", {gm.decode_occupancy(mt)} blocks an SM" if kind == "bf16" else ""
+        print(f"[build] gemm_decode_{kind}_kernel<{mt}>: {regs} registers, spill stores {st} B, spill loads {ld} B"
+              f"{occ}")
+    if sorted(decode) != [(mt, kind) for mt in (8, 16) for kind in ("bf16", "sum")]:
+        raise RuntimeError(f"ptxas compiled the decode kernels {sorted(decode)}, want MT 8 and 16 of each")
+    spilled = {c: v for c, v in decode.items() if v[1] or v[2]}
+    if spilled:
+        raise RuntimeError(f"the decode kernels spill: {spilled}")
 
 
 def ssd_ptxas() -> dict[tuple[int, int], tuple[int, int, int]]:
@@ -2127,6 +2174,11 @@ def check_gemm(gen: torch.Generator) -> dict:
               for ta, tb in ((True, False), (False, True), (True, True))]
     cases += [((16, 8, 264), (16, 264, 136), bf16, "decode, transposed", ta, tb)
               for ta, tb in ((True, False), (False, True))]
+    # the decode kernels: capacities 1, 8 and 16 (row tiles 8 and 16), N past whole 256-column tiles (6392) and
+    # one column into the next (6408), K past whole 64-row steps, one expert and sixteen
+    cases += [((e, m, 4104), (e, 4104, n), bf16, "decode split", False, False)
+              for m in (1, 8, 16) for e, n in ((1, 6408), (16, 6392))]
+    cases.append(((16, 8, 4096), (3, 16, 4096, 640), bf16, "decode, layer 1 of a stacked expert tensor", False, False))
     # the wgmma tile's edges: M past 16 and past whole 192-row tiles, K and N not whole 64 / 128 tiles
     cases += [((e, m, 4104), (e, 4104, n), bf16, "wgmma tile edges", False, False)  # 51 column tiles: one block
               for e, m, n in ((1, 17, 6408), (1, 100, 6408), (16, 321, 6392))]  # a cluster; 50: two
@@ -2145,13 +2197,15 @@ def check_gemm(gen: torch.Generator) -> dict:
             cap = blocks.moe_capacity(cfg, tokens)
             up, down = f"{arch} {phase} gate/up", f"{arch} {phase} down"
             cases += [((E, cap, d), (E, d, f), bf16, up, False, False), ((E, cap, f), (E, f, d), bf16, down, False, False)]
-            kernel = "gemm_wgmma_bf16_kernel" if phase == "prefill" else "gemm_mma_bf16_kernel"
+            kernel = ("gemm_wgmma_bf16_kernel",) if phase == "prefill" else gm.decode_kernels(cap)
             main.update({up: kernel, down: kernel})
             if arch == "phi3.5-moe-42b":
                 layer.update({up: 2, down: 1})
     cases.append(((16, 320, 4096), (16, 4096, 6400), f32, "phi3.5-moe-42b prefill gate/up, fp32", False, False))
     max_err = 0.0
     tot = {key: 0.0 for key in ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "flops", "bytes")}
+    decode = {}  # the kernels-line keys of each decode product
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for sa, sb, dt, label, ta, tb in cases:
         a = _gemm_operand(sa, dt, gen, ta)
         b = _gemm_operand(sb, dt, gen, tb, scale=sb[-2] ** -0.5)
@@ -2170,6 +2224,14 @@ def check_gemm(gen: torch.Generator) -> dict:
         max_err = max(max_err, err)
         row = {**desc, "max_abs_err": err, "max_abs_plain": yp.float().abs().max().item(),
                "kernel": gm.KERNELS[r.kernel], "copied": [n for n, c in (("a", r.copy_a), ("b", r.copy_b)) if c]}
+        if r.kernel == gm.KERNELS.index("gemm_decode_bf16_kernel<MT>"):  # the same bits twice; the split
+            if not torch.equal(y, gm.gemm(a, b)):
+                raise RuntimeError(f"gemm's decode kernels gave other bits on a second call at {desc}")
+            E, M, K = (a.shape if a.dim() == 3 else (1, *a.shape))
+            plan = gm.decode_plan(E, b.shape[-1], K, sms)
+            shares = [plan.start(i + 1) - plan.start(i) for i in range(plan.blocks)]
+            row.update(same_bits=True, blocks=plan.blocks, units_an_sm=[min(shares), max(shares)],
+                       split_tiles=len({pc.tile for pc in gm.decode_pieces(plan, K) if pc.slot is not None}))
         if label in main:
             flops, nbytes = gm.cost(a, b)
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -2179,10 +2241,22 @@ def check_gemm(gen: torch.Generator) -> dict:
             row["device_ms"], ran = _device_ms(lambda: gm.gemm(a, b))
             row["library_device_ms"], _ = _device_ms(lambda: torch.bmm(a, b), need=False)
             fns = sorted({m.group(1) for n in ran if (m := GEMM_FN.search(n))})
-            if not fns or not all(fn.startswith(main[label]) for fn in fns):
+            if not fns or not (fns == sorted(main[label]) if "decode" in label
+                               else all(fn.startswith(main[label][0]) for fn in fns)):
                 raise RuntimeError(f"gemm at {label} ran {fns}, want {main[label]}")
             row.update(ran=fns, tflops=flops / row["device_ms"] / 1e9, bmm_ratio=row["ms"] / row["library_ms"],
                        bmm_device_ratio=_ratio(row["device_ms"], row["library_device_ms"]))
+            if "decode" in label:  # and with the L2 cold before each call, as the decode step finds it
+                row.update(blocks_an_sm=gm.decode_occupancy(gm.decode_mt(a.shape[-2])),
+                           bound_share=_ratio(bound_ms, row["device_ms"]),
+                           cold_device_ms=_cold_device_ms(lambda: gm.gemm(a, b)),
+                           library_cold_device_ms=_cold_device_ms(lambda: torch.bmm(a, b), need=False))
+                row.update(bmm_cold_device_ratio=_ratio(row["cold_device_ms"], row["library_cold_device_ms"]),
+                           cold_bound_share=_ratio(bound_ms, row["cold_device_ms"]))
+                decode.update({f"{label} {key}": row[key] for key in (
+                    "ms", "device_ms", "library_ms", "library_device_ms", "cold_device_ms", "library_cold_device_ms",
+                    "bound_ms", "bound_by", "bmm_device_ratio", "bmm_cold_device_ratio", "blocks", "units_an_sm",
+                    "split_tiles", "blocks_an_sm", "ran")})
             for key in tot:
                 tot[key] = None if tot[key] is None or row[key] is None \
                     else tot[key] + layer.get(label, 0) * row[key]
@@ -2198,7 +2272,7 @@ def check_gemm(gen: torch.Generator) -> dict:
         "replaces": "src/repro/kernels/gemm.py:37",
         "max_abs_err": max_err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": tot["library_ms"],
-        "device_ms": tot["device_ms"], "library_device_ms": tot["library_device_ms"],
+        "device_ms": tot["device_ms"], "library_device_ms": tot["library_device_ms"], **decode,
     }
 
 
@@ -2257,6 +2331,30 @@ def _device_ms(fn, reps: int = 20, need: bool = True,
             {e.key[:120]: n for e, n in per_call if n})
 
 
+#: bytes of the buffer ``_cold_device_ms`` reads between calls: five times the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 * 2**20
+
+
+@functools.cache
+def _l2_flush() -> torch.Tensor:
+    return torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+
+def _cold_device_ms(fn, need: bool = True) -> float | None:
+    """``_device_ms`` of ``fn`` with the L2 cache cold before each call, as
+    a caller that streams more than the cache between two calls finds it
+    (each MoE decode product reads its 0.84-1.3 GB of weights once a step,
+    the other layers' in between): a read of L2_FLUSH_BYTES before each
+    call, its own kernels left out.  A read, not a write, so that no dirty
+    line is written back during ``fn``."""
+    buf = _l2_flush()
+    flush = lambda: buf.sum()  # noqa: E731
+    skip = set(_device_ms(flush)[1])
+    times: dict[str, float] = {}
+    ms, _ = _device_ms(lambda: (flush(), fn()), need=need, times=times)
+    return None if ms is None else sum(v for k, v in times.items() if k not in skip)
+
+
 def _ratio(a: float | None, b: float | None) -> float | None:
     """``a / b``, or ``None`` where either was not measured."""
     return None if a is None or b is None else a / b
@@ -2296,7 +2394,8 @@ def _kernel_table(prof, wall_s: float) -> dict:
 def _time_lm(arch: str, cfg, params, prompt: dict) -> dict:
     """Warm prefill and decode times of the kernel path on the host clock
     (around ``torch.cuda.synchronize()``), then one profiled prefill and
-    four profiled decode steps.  Returns the prefill's kernel table."""
+    four profiled decode steps.  Returns the kernel tables of both
+    (``"prefill"``, ``"decode x4"``)."""
     from torch.profiler import ProfilerActivity, profile
 
     def prefill():
@@ -2325,9 +2424,10 @@ def _time_lm(arch: str, cfg, params, prompt: dict) -> dict:
     mods = (fa, ssd, gm)
     for what, run in (("prefill", lambda: prefill()), ("decode x4", lambda: decode(logits, cache, 4))):
         # a window in which the profiler kept fewer records of the port's kernels than the
-        # wrappers launched is taken again: the checks below count those records
+        # wrappers launched is taken again: the checks below count those records (a decode
+        # call of gemm launches two kernels)
         for _ in range(PROFILER_WINDOWS):
-            before = sum(mod.launches for mod in mods)
+            before = sum(mod.launches for mod in mods) + gm.decode_launches
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 run()
@@ -2335,14 +2435,15 @@ def _time_lm(arch: str, cfg, params, prompt: dict) -> dict:
                 wall = time.perf_counter() - t0
             table = _kernel_table(prof, wall)
             kept = sum(sum(table[k].values()) for k in ("flash_calls", "ssd_calls", "gemm_calls"))
-            if table["kernel_calls"] and kept == sum(mod.launches for mod in mods) - before:
+            launched = sum(mod.launches for mod in mods) + gm.decode_launches - before
+            if table["kernel_calls"] and kept == launched:
                 break
-            print(f"[lm] {arch} profile {what}: the profiler kept {kept} of "
-                  f"{sum(mod.launches for mod in mods) - before} port kernel launches; taken again")
+            print(f"[lm] {arch} profile {what}: the profiler kept {kept} of {launched} port kernel launches; "
+                  f"taken again")
             time.sleep(0.1)
         tables[what] = table
         print(f"[lm] {arch} profile {what}: {json.dumps(tables[what])}")
-    return tables["prefill"]
+    return tables
 
 
 def _cast(params: dict, dt: torch.dtype) -> dict:
@@ -2521,12 +2622,14 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
     mods = {"conv2d_im2col": im2col_conv, "flash_attention": fa, "ssd_scan": ssd, "gemm": gm}
     for mod in mods.values():
         mod.launches = 0
+    gm.decode_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, seed=0, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in mods.items()}
+    decode_launches = gm.decode_launches
     tokens = res["tokens"]
     print(f"[lm] {arch}: prefill_s {res['prefill_s']:.6f}, decode_tok_per_s {res['decode_tok_per_s']:.3f}, "
           f"wall {wall:.1f} s (weights drawn on the card included), launches {launches}, "
@@ -2534,6 +2637,10 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
     for kernel in kernels:
         if launches[kernel] == 0:
             raise RuntimeError(f"kernel {kernel} never launched on the {arch} serving path")
+    if "gemm" in kernels:  # every decode step's expert products on the decode kernels
+        print(f"[lm] {arch}: gemm's decode route launched {decode_launches} of its {launches['gemm']} calls")
+        if decode_launches == 0:
+            raise RuntimeError(f"{arch}: the serving path never launched gemm's decode kernels")
     if tuple(tokens.shape) != (LM_BATCH, LM_GEN) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
         raise RuntimeError(f"{arch}: bad tokens {tuple(tokens.shape)} in [{int(tokens.min())}, {int(tokens.max())}]")
 
@@ -2541,7 +2648,8 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
     prompt = make_batch(cfg, LM_BATCH, LM_PROMPT, 0, "cuda")  # tokens, and whisper's frames or internvl's patches
     forced = tokens[:, :LM_FORCED]
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    table = _time_lm(arch, cfg, params, prompt)
+    tables = _time_lm(arch, cfg, params, prompt)
+    table = tables["prefill"]
     flash_calls, gemm_calls, ssd_calls = table["flash_calls"], table["gemm_calls"], table["ssd_calls"]
     served_by = None
     if "ssd_scan" in kernels:  # bf16 prefill: the tensor-core scan once per layer, never the SIMT one
@@ -2556,6 +2664,13 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
             raise RuntimeError(f"{arch}: the profiled bf16 prefill ran {gemm_calls}, want gemm_wgmma_bf16_kernel "
                                f"three times per layer ({3 * cfg.n_layers})")
         print(f"[lm] {arch}: prefill expert products served by {json.dumps(gemm_calls)}")
+        # decode, batch LM_BATCH: each step's three products a layer on the decode kernels, nothing else
+        cap = blocks.moe_capacity(cfg, LM_BATCH)
+        calls = tables["decode x4"]["gemm_calls"]
+        want = dict.fromkeys(gm.decode_kernels(cap), 3 * cfg.n_layers * 4)
+        if calls != want:
+            raise RuntimeError(f"{arch}: the profiled decode steps ran {calls}, want {want}")
+        print(f"[lm] {arch}: decode expert products served by {json.dumps(calls)}")
     if "flash_attention" in kernels:  # bf16 prefill: the tensor-core kernel once per layer, never the SIMT one
         mma = {n: c for n, c in flash_calls.items() if n.startswith("flash_fwd_mma_bf16_kernel")}
         # a hybrid runs its shared attention block once per group of SSD layers; whisper's prefill runs
@@ -2625,7 +2740,10 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
         hold_bf16_scans(arch, cfg, params, prompt, forced, failures)
     del params
     torch.cuda.empty_cache()
-    return {name: launches[name] for name in kernels}, served_by
+    out = {name: launches[name] for name in kernels}
+    if "gemm" in kernels:
+        out["gemm decode"] = decode_launches
+    return out, served_by
 
 
 def _hold_grads(name: str, desc: dict, got, want, tol: float, one_key: bool) -> float:
@@ -2679,7 +2797,13 @@ def check_flash_bwd(gen: torch.Generator) -> dict:
     cases += [dict(base, d=d, dtype=dt, causal=c, window=w) for dt in (bf16, f32) for d in (64, 192)
               for c, w in ((False, 0), (True, 7))]  # non-causal; a window
     cases += [dict(base, d=d, dtype=dt, strided=False) for dt in (bf16, f32) for d in (32, 128)]  # contiguous
-    cases += [dict(base, d=d, pad=4) for d in (64, 128)]  # rows 8-byte aligned only: the mma.sync route
+    cases += [dict(base, d=d, pad=4) for d in (64, 80, 128)]  # rows 8-byte aligned only: the mma.sync route
+    # D 80 on the wgmma route (two 128-byte boxes a tile, the second zero-filled past column 79): GQA groups 1
+    # and 4, S 1, 15, 65 and 1000, Sq != Skv both ways, a window, non-causal
+    cases += [dict(base, h=h, kvh=kvh, s=130, d=80) for h, kvh in ((4, 4), (8, 2))]
+    cases += [dict(base, s=s, d=80) for s in (1, 15, 65, 1000)]
+    cases += [dict(base, s=15, skv=1000, causal=False, d=80), dict(base, s=448, skv=65, d=80, h=4, kvh=4),
+              dict(base, d=80, window=7), dict(base, d=80, causal=False), dict(base, s=100, skv=400, d=80, window=32)]
     out, max_err = {}, 0.0
     for case in cases:
         b, h, kvh, s, d, dt = (case[k] for k in ("b", "h", "kvh", "s", "d", "dtype"))
@@ -3440,8 +3564,9 @@ def _bf16s_cases(gen_cases: list[dict]) -> list[dict]:
     """The mode's grid: ``gen_cases`` and every head dim in bf16 and fp32,
     GQA groups 1, 4 and 5, a window, ragged S, no causal mask and a key
     length other than the query's both ways (whisper's 448 x 1500 among
-    them); and bf16 rows only 8-byte aligned at D 64 and 128 (``pad``),
-    which keep the backward on the ``mma.sync`` kernels."""
+    them), D 80 on the wgmma route at groups 1 and 5; and bf16 rows only
+    8-byte aligned at D 64, 80 and 128 (``pad``), which keep the backward on
+    the ``mma.sync`` kernels."""
     f32, bf16 = torch.float32, torch.bfloat16
     base = dict(b=2, h=8, kvh=2, s=200, d=64, dtype=bf16, causal=True, window=0)
     return gen_cases + [dict(base, d=d, dtype=dt) for dt in (bf16, f32) for d in fa.HEAD_DIMS] + [
@@ -3451,6 +3576,10 @@ def _bf16s_cases(gen_cases: list[dict]) -> list[dict]:
         dict(base, b=1, h=12, kvh=12, s=448, skv=1500, causal=False), dict(base, s=77, skv=33, dtype=f32, window=50),
         dict(base, pad=4), dict(base, d=128, pad=4), dict(base, h=4, kvh=4, s=130, d=128, pad=4, causal=False),
         dict(base, s=300, pad=4, window=50),
+        # D 80 on the wgmma route: a group of 1, Sq != Skv, non-causal; and its rows only 8-byte aligned
+        dict(base, h=4, kvh=4, s=65, d=80), dict(base, s=448, skv=65, d=80), dict(base, s=15, skv=1000, d=80,
+                                                                                  causal=False),
+        dict(base, h=10, kvh=2, s=130, d=80, causal=False), dict(base, d=80, pad=4),
     ]
 
 
@@ -3562,8 +3691,9 @@ def check_flash_bwd_bf16_scores(gen: torch.Generator) -> dict:
     on BF16S_TRAINED's training shapes and ``_bf16s_cases``' grid; prints
     each call's route and kernels (``flash_attention.bwd_route`` /
     ``bwd_kernels``); fails unless the route is the fp32 mode's (``wgmma``
-    at granite-3-2b's and phi3.5-moe's training shapes, ``mma`` on rows only
-    8-byte aligned), unless two calls give the same bits, and unless the
+    at granite-3-2b's, phi3.5-moe's and zamba2-2.7b's training shapes,
+    ``mma`` on rows only 8-byte aligned), unless two calls give the same
+    bits, and unless the
     profiled training shapes and rows only 8-byte aligned ran exactly
     ``flash_attention.bwd_kernels`` of the mode.  Times the training shapes
     forward and backward: the mode's kernels, the fp32-score kernels and
@@ -3579,7 +3709,7 @@ def check_flash_bwd_bf16_scores(gen: torch.Generator) -> dict:
         o, stats = fa.flash_attention(q, k, v, return_lse=True, fp32_scores=False, **kw)
         po, pstats = fa.flash_attention_fwd_plain(q, k, v, fp32_scores=False, **kw)
         route = fa.bwd_route(q, k, v, o, do, fp32_scores=False)
-        wgmma = case.get("model") in ("granite-3-2b", "phi3.5-moe-42b")
+        wgmma = "model" in case  # granite-3-2b, phi3.5-moe and zamba2-2.7b (D 80) on the wgmma route
         if route != fa.bwd_route(q, k, v, o, do) or wgmma and route != "wgmma" or "pad" in case and route != "mma":
             raise RuntimeError(f"the bf16-score backward took the {route} route at {case}")
         got = fa.flash_attention_bwd(q, k, v, o, stats, do, fp32_scores=False, **kw)
@@ -3666,8 +3796,11 @@ def drive_bf16_scores(failures: list[str]) -> dict:
     fp32-score forward never (decode scores in torch ops, as the
     reference's: none); then prefill and LM_FORCED teacher-forced decode
     steps, kernel path against plain path in bf16 and fp32 (``_forced_logits``),
-    held to BF16S_LM_TOL, the fp32-score model printed beside.
-    Returns the launches of both runs."""
+    held to BF16S_LM_TOL, the fp32-score model printed beside.  Between
+    them zamba2-2.7b trained BF16S_TRAIN_STEPS steps with the knob off
+    (its shared block at D 80 on the wgmma route, phase 11b): finite
+    losses and the mode's launches as the code runs them, the fp32-score
+    kernels never.  Returns the launches of the three runs."""
     out = {}
     arch = "granite-3-2b"
     cfg = dataclasses.replace(get_config(arch), attn_fp32_scores=False)
@@ -3701,6 +3834,24 @@ def drive_bf16_scores(failures: list[str]) -> dict:
                         train_readings(c, p, batch, BF16S_TRAIN_CONTROLS), failures, BF16S_TRAIN_TOL,
                         loss_controls=("fp32 scores",))
     del params, p, batch
+    torch.cuda.empty_cache()
+
+    # zamba2-2.7b's shared block (D 80, the wgmma route) trained in the mode: its launches as the code runs them
+    arch = "zamba2-2.7b"
+    cfg = dataclasses.replace(get_config(arch), attn_fp32_scores=False)
+    _zero_mode_counts()
+    res = train(cfg, steps=BF16S_TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=0, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    counts = _mode_counts()
+    want = _train_launches(cfg, BF16S_TRAIN_STEPS)
+    want = {"flash_attention_bf16_scores": want["flash_attention"], "flash_attention_bf16_scores_bwd":
+            want["flash_attention_bwd"], "flash_attention": 0, "flash_attention_bwd": 0}
+    print(f"[bf16s] {arch} trained with attn_fp32_scores=False: losses {res['losses']}, launches {counts} "
+          f"({_card()})")
+    if counts != want or not all(math.isfinite(x) for x in res["losses"]):
+        raise RuntimeError(f"{arch} with bf16 scores: launches {counts} (want {want}), losses {res['losses']}")
+    out[f"{arch} train"] = counts
+    del res
     torch.cuda.empty_cache()
 
     arch = "whisper-small"
@@ -4801,6 +4952,8 @@ def main() -> int:
     for arch, (names, depth, fp32_depth) in LM_MODELS.items():
         t0 = time.perf_counter()
         launched, served_by = drive_lm(arch, names, depth, fp32_depth, failures)
+        if "gemm decode" in launched:
+            kernels["gemm"][f"{arch} decode launches"] = launched.pop("gemm decode")
         for name, n in launched.items():
             if "launches" in kernels[name]:  # each kernel's first model is its main path
                 kernels[name][f"{arch} launches"] = n
@@ -4869,6 +5022,8 @@ def main() -> int:
     row["launches"] = bf16s["granite-3-2b train"]["flash_attention_bf16_scores"]
     row["bwd_launches"] = bf16s["granite-3-2b train"]["flash_attention_bf16_scores_bwd"]
     row["whisper-small launches"] = bf16s["whisper-small serve"]["flash_attention_bf16_scores"]
+    row["zamba2-2.7b train_launches"] = bf16s["zamba2-2.7b train"]["flash_attention_bf16_scores"]
+    row["zamba2-2.7b bwd_launches"] = bf16s["zamba2-2.7b train"]["flash_attention_bf16_scores_bwd"]
     print(f"[bf16s] done in {time.perf_counter() - t0:.1f} s, launches {json.dumps(bf16s)} ({card})")
 
     print(f"[done] chip_smoke in {time.perf_counter() - t_start:.1f} s")

@@ -138,12 +138,13 @@ def _registers(log: str) -> dict[str, tuple[int, int, int]]:
 def _using(name: str, lib: ctypes.CDLL):
     """Point the wrappers at build ``name``'s ``lib`` for the duration of
     the context.  The parent's mode has only the ``mma.sync`` bf16
-    backward, so its ``bwd_route`` in the mode is ``"mma"`` for bf16."""
+    backward, and the parent has no wgmma backward at D 80, so its
+    ``bwd_route`` is ``"mma"`` there."""
     route = fa.bwd_route
 
     def parent_route(q, k, v, o, do, fp32_scores=True):
         got = route(q, k, v, o, do, fp32_scores)
-        return "mma" if not fp32_scores and got == "wgmma" else got
+        return "mma" if got == "wgmma" and (not fp32_scores or q.shape[-1] == 80) else got
 
     fa._kernel.cache_clear()
     fa._bwd_kernel.cache_clear()
@@ -215,8 +216,7 @@ def main() -> int:
             return fa.flash_attention_bwd(q, k, v, o32, lse32, do)
 
         fwd_kernel = (f"flash_fwd_mma_bf16_scores_kernel<{d}>",)
-        kernels32 = {"fwd": (f"flash_fwd_mma_bf16_kernel<{d}>",),
-                     "bwd": fa.bwd_kernels(fa.bwd_route(q, k, v, o32, do), d)}
+        kernels32 = {"fwd": (f"flash_fwd_mma_bf16_kernel<{d}>",)}
         for name in ("shipped", "parent", "parent", "shipped"):
             with _using(name, libs[name]):
                 o, stats = fwd()
@@ -238,6 +238,7 @@ def main() -> int:
                     out.setdefault(f"{part}_ms {name}", []).append(sum(split.values()))
                     out.setdefault(f"{part} kernels_ms {name}", []).append(split)
                     out.setdefault(f"{part} event_ms {name}", []).append(cs._time_ms(fn))
+                kernels32["bwd"] = fa.bwd_kernels(fa.bwd_route(q, k, v, o32, do), d)  # this build's route
                 for part, fn in (("fwd", fwd32), ("bwd", bwd32)):  # the same build's fp32-score kernels
                     split = _kernel_ms(fn, kernels32[part])
                     out.setdefault(f"fp32-score {part}_ms {name}", []).append(sum(split.values()))

@@ -1167,17 +1167,16 @@ bool rows_16b(const void* q, const void* k, const void* v, const void* o, const 
 // Routes (flash_attention.py::bwd_route, a function of type, head dim,
 // strides and alignment that the CPU tests pin; the wrapper passes the
 // route's code and launches nothing else):
-// - BWD_WGMMA, bf16 at D 64 and 128 where TMA can address every row of q,
-//   k, v, o and dO (strides multiples of 8 elements, 16-byte-aligned
-//   bases): the training path of granite-3-2b and phi3.5-moe.  Two
-//   launches: flash_bwd_dq_wgmma_kernel<D> (which also computes delta) and
-//   flash_bwd_dkdv_wgmma_kernel<D>, below.
+// - BWD_WGMMA, bf16 at D 64, 80 and 128 where TMA can address every row of
+//   q, k, v, o and dO (strides multiples of 8 elements, 16-byte-aligned
+//   bases): the training path of granite-3-2b, phi3.5-moe and zamba2-2.7b's
+//   shared block.  Two launches: flash_bwd_dq_wgmma_kernel<D> (which also
+//   computes delta) and flash_bwd_dkdv_wgmma_kernel<D>, below.
 // - BWD_MMA, every other bf16 call: D 16 and 32 (too narrow for a k16 step
-//   in each row of a 128-byte swizzle box), D 80 (zamba2's shared block:
-//   its 160-byte rows do not fill whole 128-byte boxes), D 192 (no training
-//   path), rows only 8-byte aligned.  The delta pre-pass, the mma.sync dQ
-//   kernel and the mma.sync dK/dV kernel, one pass up to D 80 and a dV and
-//   a dK pass at D 128 and 192.
+//   in each row of a 128-byte swizzle box), D 192 (no training path), rows
+//   only 8-byte aligned.  No path on the card runs it: the delta pre-pass,
+//   the mma.sync dQ kernel and the mma.sync dK/dV kernel, one pass up to D
+//   80 and a dV and a dK pass at D 128 and 192.
 // - BWD_SIMT, fp32: the delta pre-pass, dQ and dK/dV on the SIMT pipes.
 // - The bf16-score mode (bf16_scores, see its note above) takes the same
 //   routes, with no delta pre-pass: the dQ kernels sweep the keys twice,
@@ -1218,7 +1217,23 @@ bool rows_16b(const void* q, const void* k, const void* v, const void* o, const 
 //   thread a few instructions a stage.
 // - TMA maps over each tensor as it lies, 4-D (D, positions, heads, batch)
 //   in 64 x 64 boxes with the 128-byte swizzle, zero-filled past Sq and
-//   Skv; a tile of D columns is D / 64 boxes.
+//   Skv; a tile of D columns is ceil(D / 64) boxes.
+// - D 80 (zamba2-2.7b's shared block, q/k/v [4,32,512,80], a GQA group of
+//   1).  On mma.sync it took 0.1343-0.1381 ms in three launches
+//   (delta 0.019, dQ 0.051, dK/dV 0.068) against cuDNN's 0.1065 and a bound
+//   of 0.0252 (bytes): every operand re-read through ldmatrix, delta a
+//   launch of its own.  Its 160-byte rows do not fill whole 128-byte
+//   swizzle boxes, so a tile is two boxes, the second holding columns 64 ..
+//   79, zero-filled past them by TMA (no extra bytes read from device
+//   memory; the shared memory of a D 128 tile, still two blocks an SM).
+//   S and dP take five k16 steps, the fifth in the second box; the output
+//   products run at N 80 (m64n80k16), reading the MN-major B's columns 64 ..
+//   79 from the second box one LBO on; delta sums every place of both
+//   boxes' rows (the zero columns add 0).  At a GQA group of 1 the dK/dV
+//   block stores its dK and dV from registers.  It takes 0.099-0.102 ms in
+//   two launches (dQ 0.045-0.047, dK/dV 0.051-0.053) against cuDNN's
+//   0.105-0.106; without its products or its loads each kernel keeps 88-94%
+//   of its time: latency bounds it, as at D 64 and 128.
 // - All products on wgmma with fp32 accumulators.  S^T = K.Q^T and dP^T =
 //   V.dO^T (dK/dV), S = Q.K^T and dP = dO.V^T (dQ): m64n64k16, both
 //   operands from shared memory, K-major (D the reduction).  The
@@ -2279,7 +2294,7 @@ int launch_bwd_f32(const BwdArgs& a, const BwdShape& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on wgmma, fed by TMA (D 64 and 128, rows TMA can address)
+// bf16 on wgmma, fed by TMA (D 64, 80 and 128, rows TMA can address)
 // ---------------------------------------------------------------------------
 
 // scripts/flash_bwd_probe.py builds copies with -DFLASH_BWD_PROBE=n to see
@@ -2288,7 +2303,9 @@ int launch_bwd_f32(const BwdArgs& a, const BwdShape& p, cudaStream_t stream) {
 // streamed tiles (the ring's barriers complete with no bytes; the products
 // run on whatever shared memory holds); 4, the dK/dV kernel stores each
 // block's own partials, with no cluster sum.  Each leaves the output wrong;
-// 0, the shipped build, runs the kernels whole.
+// 0, the shipped build, runs the kernels whole.  5 runs D 80's output
+// products (dQ += dS.K, dV += P~^T.dO, dK += dS^T.Q) at N 128 over the
+// tile's zero columns, 80 .. 127, in place of N 80 (the output stays right).
 #ifndef FLASH_BWD_PROBE
 #define FLASH_BWD_PROBE 0
 #endif
@@ -2304,10 +2321,20 @@ __host__ __device__ constexpr int hstats() {
   return (BF16S ? 4 : 2) * HB * 4;
 }
 
-// A 64-row tile of D columns: D / 64 boxes, one HBOX apart.
+// A 64-row tile of D columns: ceil(D / 64) boxes, one HBOX apart.  At D 80
+// the second box holds columns 64 .. 79, and TMA fills its columns 80 .. 127
+// with zeros (the maps' dim 0 has the extent D), reading nothing for them.
 template <int D>
 __host__ __device__ constexpr int htile() {
-  return D / 64 * HBOX;
+  return (D + 63) / 64 * HBOX;
+}
+
+// N of the output products (dQ += dS.K, dV += P~^T.dO, dK += dS^T.Q): D, so
+// an accumulator holds D / 2 fp32 a thread; FLASH_BWD_PROBE 5 takes D 80's
+// at N 128.
+template <int D>
+__host__ __device__ constexpr int hout() {
+  return D == 80 && FLASH_BWD_PROBE == 5 ? 128 : D;
 }
 
 // Depth of the ring of streamed tiles (Q and dO for dK/dV, K and V for dQ):
@@ -2334,11 +2361,14 @@ __host__ __device__ constexpr int dq_wgmma_smem() {
   return 1024 + 2 * htile<D>() + 1024 + hstages<D>() * 2 * htile<D>() + (1 + hstages<D>()) * 8;
 }
 static_assert(2 * dkdv_wgmma_smem<128>() <= 232448 && 2 * dq_wgmma_smem<128>() <= 232448, "two blocks an SM");
+static_assert(2 * dkdv_wgmma_smem<80>() <= 232448 && 2 * dq_wgmma_smem<80>() <= 232448, "two blocks an SM");
 static_assert(2 * HB * (128 + 4) * 4 <= 2 * htile<128>() + hstages<128>() * dkdv_stage_bytes<128>(),
+              "the cluster's sum is staged over the tiles and the ring");
+static_assert(2 * HB * (80 + 4) * 4 <= 2 * htile<80>() + hstages<80>() * dkdv_stage_bytes<80>(),
               "the cluster's sum is staged over the tiles and the ring");
 
 // wgmma descriptors of k16 step kk of a tile of 64 rows by D columns, as TMA
-// writes it (D / 64 boxes of 64 rows of 128 bytes, 128-byte swizzle).
+// writes it (ceil(D / 64) boxes of 64 rows of 128 bytes, 128-byte swizzle).
 // K-major, D the reduction (S^T = K.Q^T, dP^T = V.dO^T; S = Q.K^T, dP =
 // dO.V^T): the step's 32 bytes of a box's rows, eight rows a 1024-byte group.
 __device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int kk) {
@@ -2346,18 +2376,19 @@ __device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int k
 }
 // MN-major, the rows the reduction and D the output's columns (dV += P^T.dO,
 // dK += dS^T.Q; dQ += dS.K): rows 16 kk .. 16 kk + 15 of every box, the boxes
-// (64 columns each) one HBOX apart.
+// (64 columns each) one HBOX apart.  At N 80 the product reads columns 64 ..
+// 79 from the first 32 bytes of each row of the second box.
 __device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int kk) {
   return wgmma_desc_sw128(tile + 16 * 128 * kk, HBOX, 1024);
 }
 
 // Rows s0 .. s0 + 63 of head h of batch b of a tensor mapped as (D,
-// positions, heads, batch): D / 64 boxes of 64 columns.
+// positions, heads, batch): ceil(D / 64) boxes of 64 columns.
 template <int D>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int s0, int h,
                                           int b) {
 #pragma unroll
-  for (int j = 0; j < D / 64; ++j) tma_load_4d(dst + j * HBOX, map, bar, 64 * j, s0, h, b);
+  for (int j = 0; j < (D + 63) / 64; ++j) tma_load_4d(dst + j * HBOX, map, bar, 64 * j, s0, h, b);
 }
 
 // Packs accumulator n8 blocks 2 kk and 2 kk + 1 of a 64 x 64 fp32 tile,
@@ -2457,10 +2488,12 @@ __device__ __forceinline__ void flash_bwd_dq_wgmma_body(const CUtensorMap& map_q
     float acc = 0.f;  // rows past Sq are zero-filled: 0
     if (FLASH_BWD_PROBE != 1) {
       // the two tiles are swizzled alike, so a 16-byte chunk at one place holds the same columns of both;
-      // thread tid % 2 takes half of the row's places, starting at a place that differs from row to row
+      // thread tid % 2 takes half of the row's places, starting at a place that differs from row to row.
+      // Every place of the row's boxes is summed: at D 80 the zero-filled columns add 0
+      constexpr int HALF = TILE / (HB * 16) / 2;
 #pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        const int place = (tid % 2) * (D / 16) + (c + row) % (D / 16);
+      for (int c = 0; c < HALF; ++c) {
+        const int place = (tid % 2) * HALF + (c + row) % HALF;
         const int off = place / 8 * HBOX + row * 128 + place % 8 * 16;
         const uint4 ov = *reinterpret_cast<const uint4*>(Os + off), gv = *reinterpret_cast<const uint4*>(Gs + off);
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -2500,9 +2533,9 @@ __device__ __forceinline__ void flash_bwd_dq_wgmma_body(const CUtensorMap& map_q
   wsum.reset();
   const TreeLevels up_t = up_levels(p.tree);
 
-  float acc[D / 2];
+  float acc[hout<D>() / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < hout<D>() / 2; ++e) acc[e] = 0.f;
   for (int it = 0; it < steps; ++it) {
     const int sweep = BF16S ? it / nk : 1, k0 = (kt_begin + (BF16S ? it % nk : it)) * HB;
     if (BF16S && it == nk) {  // the R sweep is done: each row's R, to the stats and to its fragments' threads
@@ -2583,7 +2616,8 @@ __device__ __forceinline__ void flash_bwd_dq_wgmma_body(const CUtensorMap& map_q
       wgmma_fence_operand(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk) wgmma_bf16_rs<D, 1>(acc, df[kk], mnmajor_desc(ks, kk), 1);
+      for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk)
+        wgmma_bf16_rs<hout<D>(), 1>(acc, df[kk], mnmajor_desc(ks, kk), 1);
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_fence_operand(acc);
@@ -2696,9 +2730,9 @@ __device__ __forceinline__ void flash_bwd_dkdv_wgmma_body(const CUtensorMap& map
   const int r = warp * 16 + lane / 4, t = lane % 4;  // this thread's keys r, r + 8 of the tile; columns 2t, 2t + 1
   const float c = BF16S ? p.scale : p.scale * LOG2E;
   const float rc = BF16S ? bf16_recip(p.scale) : 0.f;
-  float accv[D / 2], acck[D / 2];
+  float accv[hout<D>() / 2], acck[hout<D>() / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) accv[e] = acck[e] = 0.f;
+  for (int e = 0; e < hout<D>() / 2; ++e) accv[e] = acck[e] = 0.f;
   if (total > 0) mbar_wait(&bar[0], 0);
   for (int it = 0; it < total; ++it) {
     mbar_wait(&bar[1 + it % S], (it / S) & 1);
@@ -2761,9 +2795,11 @@ __device__ __forceinline__ void flash_bwd_dkdv_wgmma_body(const CUtensorMap& map
     wgmma_fence_operand(acck);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk) wgmma_bf16_rs<D, 1>(accv, pf[kk], mnmajor_desc(gs, kk), 1);
+    for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk)
+      wgmma_bf16_rs<hout<D>(), 1>(accv, pf[kk], mnmajor_desc(gs, kk), 1);
 #pragma unroll
-    for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk) wgmma_bf16_rs<D, 1>(acck, df[kk], mnmajor_desc(qs, kk), 1);
+    for (int kk = 0; kk < 4 && FLASH_BWD_PROBE != 2; ++kk)
+      wgmma_bf16_rs<hout<D>(), 1>(acck, df[kk], mnmajor_desc(qs, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_fence_operand(accv);
@@ -2772,6 +2808,31 @@ __device__ __forceinline__ void flash_bwd_dkdv_wgmma_body(const CUtensorMap& map
     wgmma_fence_operand(df);
     __syncthreads();  // every warp is done with the stage
     if (tid == 0 && it + S < total) load_q(it + S);
+  }
+
+  // D 80 at a group of one q-head a kv-head (zamba2-2.7b's shared block):
+  // no cluster to sum over, so the block stores its dK and dV from registers
+  // (the staging and the cluster barriers below took 15% of the kernel).  D
+  // 64 and 128 keep their code: their main paths run groups of 4.
+  if constexpr (D == 80) {
+    if (cl == 1) {
+      const float f = BF16S ? 1.f : p.scale;  // dS' holds the bf16-score mode's scale already
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = k0 + r + 8 * h;
+        if (j >= p.Skv) continue;
+        bf16* vrow = dv + b * p.st[SDV_][0] + hk * p.st[SDV_][1] + j * p.st[SDV_][2] + 2 * t;
+        bf16* krow = dk + b * p.st[SDK_][0] + hk * p.st[SDK_][1] + j * p.st[SDK_][2] + 2 * t;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * c) =
+              __floats2bfloat162_rn(accv[4 * c + 2 * h], accv[4 * c + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(krow + 8 * c) =
+              __floats2bfloat162_rn(acck[4 * c + 2 * h] * f, acck[4 * c + 2 * h + 1] * f);
+        }
+      }
+      return;
+    }
   }
 
   // The cluster's sum: every block stages its fp32 dV and dK over its tiles
@@ -3042,19 +3103,12 @@ TreeLevels tree_levels(int n) {
 // bwd_route picks one by type, head dim, strides and alignment).
 enum BwdRoute { BWD_SIMT = 0, BWD_MMA = 1, BWD_WGMMA = 2 };
 
-// scripts/flash_bwd_probe.py builds a copy with -DFLASH_BWD_PARENT=1, in
-// which the wgmma route runs the mma.sync kernels (delta, dQ, dK/dV) that
-// served every bf16 shape before it, to time both on one card.
-#ifndef FLASH_BWD_PARENT
-#define FLASH_BWD_PARENT 0
-#endif
-
 // The backward: dq, dk, dv (the inputs' shapes, types and own strides) from
 // q, k, v, the forward's o and lse (fp32 [B, H, Sq]) and dO.  `strides` holds
 // 24 element strides: batch, head and position of q, k, v, o, dO, dq, dk,
 // dv in that order.  `route`: BWD_SIMT (fp32) and BWD_MMA (bf16) launch the
 // delta pre-pass, the dQ kernel and the dK/dV kernel(s), with `scratch` fp32
-// [B, H, Sq] for delta; BWD_WGMMA (bf16, D 64 or 128, rows TMA can address)
+// [B, H, Sq] for delta; BWD_WGMMA (bf16, D 64, 80 or 128, rows TMA can address)
 // launches the dQ kernel, which writes lse and delta to `scratch` (fp32 [B *
 // H][ceil(Sq / 64)][2][64]; with `bf16_scores`, m, l, R and 1 / l, [4][64]),
 // and the dK/dV kernel in clusters of `cluster` blocks (a divisor of H /
@@ -3086,13 +3140,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
         default: return (int)cudaErrorInvalidValue;
       }
     }
-  } else if (route == BWD_WGMMA && FLASH_BWD_PARENT) {
-    route = BWD_MMA;
   }
   if (route == BWD_WGMMA) {
     switch (D) {
       case 64: return bf16_scores ? launch_bwd_wgmma<64, true>(a, p, cluster, st)
                                   : launch_bwd_wgmma<64, false>(a, p, cluster, st);
+      case 80: return bf16_scores ? launch_bwd_wgmma<80, true>(a, p, cluster, st)
+                                  : launch_bwd_wgmma<80, false>(a, p, cluster, st);
       case 128: return bf16_scores ? launch_bwd_wgmma<128, true>(a, p, cluster, st)
                                    : launch_bwd_wgmma<128, false>(a, p, cluster, st);
       default: return (int)cudaErrorInvalidValue;
@@ -3150,4 +3204,33 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <int D, bool BF16S>
+int wgmma_occupancy(int dkdv) {
+  int blocks = 0;
+  const int smem = dkdv ? dkdv_wgmma_smem<D>() : dq_wgmma_smem<D>();
+  const void* fn = dkdv ? (BF16S ? (const void*)flash_bwd_dkdv_wgmma_bf16_scores_kernel<D>
+                                 : (const void*)flash_bwd_dkdv_wgmma_kernel<D>)
+                        : (BF16S ? (const void*)flash_bwd_dq_wgmma_bf16_scores_kernel<D>
+                                 : (const void*)flash_bwd_dq_wgmma_kernel<D>);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, HTHREADS, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+}  // namespace
+
+// Blocks of the wgmma route's dQ (dkdv 0) or dK/dV (dkdv 1) kernel at head
+// dim D (64, 80 or 128), fp32 or bf16 scores, one SM of the current card
+// holds at once, or minus the CUDA error.
+extern "C" int flash_bwd_wgmma_occupancy(int D, int bf16_scores, int dkdv) {
+  switch (D) {
+    case 64: return bf16_scores ? wgmma_occupancy<64, true>(dkdv) : wgmma_occupancy<64, false>(dkdv);
+    case 80: return bf16_scores ? wgmma_occupancy<80, true>(dkdv) : wgmma_occupancy<80, false>(dkdv);
+    case 128: return bf16_scores ? wgmma_occupancy<128, true>(dkdv) : wgmma_occupancy<128, false>(dkdv);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }

@@ -20,23 +20,24 @@
 // the 50 MB L2) must stream from HBM about once, while the tensor cores run
 // near their peak.
 //
-// Routes.  gemm_fwd takes the route the wrapper picked (gemm.py::route, by
-// type, M, K, the operands' majors and alignment only) and launches one of
-// twelve kernels:
+// Routes.  The wrapper picks one (gemm.py::route, by type, M, K, the
+// operands' majors and alignment only); gemm_decode launches route 1's two
+// kernels and gemm_fwd one of the others:
 //
 // 0. fp32: gemm_fma_f32_kernel on the FMA pipes, no TF32 (the reference's
 //    2e-4 would not hold): 64 x 64 tiles, 256 threads, 4 x 4 outputs each.
-// 1-2. bf16 with M <= 16 (decode): gemm_mma_bf16_kernel<16, 128> on mma.sync
-//    m16n8k16, a 4-stage cp.async ring, ldmatrix fragments (B transposed on
-//    the way, as it is stored K by N): a 16-row tile wastes half its rows at
-//    M = 8 where any wgmma tile (64 rows) would waste seven eighths, and the
-//    call is bound by the weights' bytes, which this tile streams once.
-//    Route 1 when K and N are multiples of 8 and every row is 16-byte aligned
-//    (16-byte cp.async copies, zero-filled past the edges), route 2 otherwise
-//    (masked element loads into the same ring).
+// 1. bf16 with M <= 16 (decode) where K and N are multiples of 8 and every
+//    row is 16-byte aligned (every decode step of the MoE models):
+//    gemm_decode_bf16_kernel<MT> and gemm_decode_sum_kernel<MT>, a
+//    persistent grid over equal shares of the weights, fed by TMA (below).
+// 2. bf16 with M <= 16 and rows that TMA cannot address:
+//    gemm_mma_bf16_kernel<16, 128> on mma.sync m16n8k16, a 4-stage ring of
+//    masked element loads, ldmatrix fragments (B transposed on the way, as it
+//    is stored K by N); no path on the card runs it.
 // 3. bf16 with M > 16 and rows that TMA cannot address (K or N not a multiple
 //    of 8, or a row not 16-byte aligned): gemm_mma_bf16_kernel<64, 256>, the
-//    masked mma.sync ring, 64 x 256 tiles of 8 warps.
+//    masked mma.sync ring, 64 x 256 tiles of 8 warps; no path on the card
+//    runs it.
 //    Routes 0-3 read A K-major and B MN-major only; the wrapper copies a
 //    transposed view for them (gemm.py::route says when).
 // 4-11. bf16 with M > 16 and TMA-addressable rows (every prefill product and
@@ -173,10 +174,9 @@ constexpr int mma_smem_bytes() {
   return STAGES * (BM * (BK + PAD) + BK * (BN + PAD)) * (int)sizeof(bf16);
 }
 
-// One block per (BN-column tile, BM-row tile, batch entry).  VEC: every row of
-// A, B and C starts 16-byte aligned and K, N are multiples of 8, so the tiles
-// move as 16-byte cp.async copies; otherwise as masked element loads.
-template <int BM, int BN, int WM, int WN, bool VEC>
+// One block per (BN-column tile, BM-row tile, batch entry); the tiles move as
+// masked element loads (rows that TMA cannot address).
+template <int BM, int BN, int WM, int WN>
 __global__ void __launch_bounds__(WM* WN * 32)
 gemm_mma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C, GemmShape p) {
   constexpr int THREADS = WM * WN * 32;
@@ -204,27 +204,17 @@ gemm_mma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf1
       const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
       const int gm = m0 + r, gk = k0 + kc;
       bf16* dst = as + r * LDA + kc;
-      if constexpr (VEC) {
-        const int n = gm < p.M ? max(0, min(8, p.K - gk)) : 0;
-        cp_async16(dst, n > 0 ? Ab + gm * p.sam + gk : Ab, 2 * n);
-      } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          dst[j] = (gm < p.M && gk + j < p.K) ? Ab[gm * p.sam + gk + j] : __float2bfloat16(0.f);
-      }
+      for (int j = 0; j < 8; ++j)
+        dst[j] = (gm < p.M && gk + j < p.K) ? Ab[gm * p.sam + gk + j] : __float2bfloat16(0.f);
     }
     for (int c = tid; c < BK * (BN / 8); c += THREADS) {
       const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
       const int gk = k0 + r, gn = n0 + nc;
       bf16* dst = bs + r * LDB + nc;
-      if constexpr (VEC) {
-        const int n = gk < p.K ? max(0, min(8, p.N - gn)) : 0;
-        cp_async16(dst, n > 0 ? Bb + gk * p.sbk + gn : Bb, 2 * n);
-      } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          dst[j] = (gk < p.K && gn + j < p.N) ? Bb[gk * p.sbk + gn + j] : __float2bfloat16(0.f);
-      }
+      for (int j = 0; j < 8; ++j)
+        dst[j] = (gk < p.K && gn + j < p.N) ? Bb[gk * p.sbk + gn + j] : __float2bfloat16(0.f);
     }
   };
 
@@ -286,19 +276,15 @@ gemm_mma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf1
         if (gm >= p.M) continue;
         bf16* out = Cb + gm * p.scm + gn;
         const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (VEC && gn + 1 < p.N) {
-          *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (gn < p.N) out[0] = __float2bfloat16(v0);
-          if (gn + 1 < p.N) out[1] = __float2bfloat16(v1);
-        }
+        if (gn < p.N) out[0] = __float2bfloat16(v0);
+        if (gn + 1 < p.N) out[1] = __float2bfloat16(v1);
       }
 }
 
-template <int BM, int BN, int WM, int WN, bool VEC>
+template <int BM, int BN, int WM, int WN>
 int launch_mma(const bf16* a, const bf16* b, bf16* c, int batch, const GemmShape& p, cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<BM, BN>();
-  auto kernel = gemm_mma_bf16_kernel<BM, BN, WM, WN, VEC>;
+  auto kernel = gemm_mma_bf16_kernel<BM, BN, WM, WN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((p.N + BN - 1) / BN), (unsigned)((p.M + BM - 1) / BM), (unsigned)batch);
@@ -573,6 +559,7 @@ int encode_map(CUtensorMap* map, const bf16* base, int inner, int rows, int batc
                long long batch_stride, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return NO_ENCODER;
+  if (rows == 1) row_stride = (inner + 7) / 8 * 8;  // never stepped over (a decode step's one row)
   if (batch == 1) batch_stride = row_stride * rows;  // never stepped over; a stride the driver takes
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)batch_stride * 2};
@@ -643,6 +630,299 @@ int launch_wgmma(const bf16* a, const bf16* b, bf16* c, const GemmShape& p, cuda
 }
 
 // ---------------------------------------------------------------------------
+// bf16 decode (M <= 16), TMA-addressable: equal shares of the weights
+// ---------------------------------------------------------------------------
+//
+// Every MoE decode step runs three of these products (gate, up, down), each
+// 16 experts x [8, d] . [d, f] at capacity 8: 839 MB of weights at
+// phi3.5-moe (0.2512 ms at 3.35 TB/s), 1.34 GB at llama4-scout (0.402 ms),
+// against 6.7 / 10.7 GFLOP.  Bytes bound the call: every expert's weights
+// are read once a step and the tensor cores have nearly nothing to do.
+// Route 1's earlier kernel, the mma.sync tile gemm_mma_bf16_kernel<16, 128>
+// with 16-byte cp.async copies, ran one block per (128-column tile,
+// expert): 800 blocks at phi3.5-moe's gate/up and 512 at its down, 1,024
+// and 640 at llama4-scout's, each asking 40 KB of shared memory, so 5 an
+// SM and 660 at once: gate/up ran in 1.21 waves (the second 21% full) and
+// reached 72% of the bytes bound, down in one wave and 87%, torch.bmm 88%
+// (NVIDIA H100 80GB HBM3, 700 W).  Each of its 128 threads also issued its
+// own 16-byte copies, 8 KB a stage.  The time went to an uneven share of
+// the weights over the SMs.  This design:
+// - A persistent grid of one block an SM (the card's count, or fewer where
+//   the product has fewer units).  A unit is (expert, 256-column tile, 64
+//   rows of K): 32 KB of weights.  The units are ordered expert, column
+//   tile, K step (the K step fastest), and block i takes units
+//   floor(i U / P) .. floor((i + 1) U / P) - 1 of the U: the SMs' shares
+//   differ by at most one unit (0.5% of a share at the MoE shapes), and a
+//   block walks K within a tile, so its fp32 sum stays in registers.
+// - A block's run of units within one tile is a piece.  A piece that is a
+//   whole tile (every K step) is stored as bf16 by its block; a tile split
+//   between blocks (one at each boundary between two shares, at most P - 1
+//   tiles) has a block's first or last piece in it, whose fp32 partial goes
+//   to a scratch [block][first / last][strip][thread][MT / 2], and
+//   gemm_decode_sum_kernel sums the partials of each split tile in block
+//   order, which is K order, and stores them: one fixed order, nothing
+//   atomic, so two calls give the same bits.  The partials are ~2 MB
+//   written and read again at the MoE shapes, 0.5% of the weights' bytes.
+// - TMA feeds a 6-stage mbarrier ring (34 KB a stage: four 64 x 64 boxes of
+//   the weights, 128-byte swizzled, and the unit's 64 K of A, MT rows): up
+//   to 200 KB in flight an SM, which the block's first thread refills as
+//   each stage is released.  No thread copies bytes itself.
+// - The products run on wgmma with the operands swapped, C^T = B^T . A^T:
+//   each 64-column strip of the weights is wgmma's M, read MN-major as B
+//   lies, and the capacity is its N (8, or 16 for M 9 .. 16), A read
+//   K-major: m64n8k16 / m64n16k16, sixteen a stage, fp32 accumulators of 4
+//   or 8 registers a strip.  No tensor-core row is wasted on padding, and no
+//   fragment passes through ldmatrix.  Ragged N, K and M are zero-filled by
+//   TMA and masked at the stores.
+// scripts/gemm_probe.py builds copies with -DGEMM_PROBE=7 (the decode
+// kernel's loads alone, no products) and 8 (its products alone, no loads):
+// when the loads alone take the whole kernel's time, no other choice of
+// product (mma.sync on the same feed) can make it faster.  Measured (NVIDIA
+// H100 80GB HBM3, 700 W; the L2 cold before each call, as a decode step
+// finds it): 0.289 / 0.292 ms at phi3.5-moe's gate/up and down, 0.459 /
+// 0.457 at llama4-scout's, 86-88% of the bound, against torch.bmm's 0.282 /
+// 0.271 / 0.437 / 0.439 and the mma.sync tile's 0.359 / 0.297 / 0.506 /
+// 0.477.  The loads alone take the whole time (the products alone
+// 0.06-0.10 ms); every block starts within 0.2 us and its share takes
+// 204-283 us, so the slower SMs' ~23 GB/s each sets the time.  Tiles of
+// 128 or 512 columns, a ring of 4 and two blocks an SM moved it by -2% to
+// +2%.
+
+// GEMM_PROBE 9 and 10 build it with other tiles and rings (9: 512 columns,
+// 3 stages; 10: 128 columns, 12 stages), 11 with a ring of 4 (the wrapper's
+// gemm.DECODE_TILE must name the columns); 12 has each block's first thread
+// write its SM and its start and end on the global timer after the
+// partials in `ws`; 13 runs two blocks an SM, each with a ring of 3 (the
+// caller sizes the grid).
+constexpr int DSTRIPS = GEMM_PROBE == 9 ? 8 : GEMM_PROBE == 10 ? 2 : 4;  // 64-column strips of a tile
+constexpr int DNT = 64 * DSTRIPS;         // columns of a tile: 256
+constexpr int DKS = 64;                   // rows of K a unit, a stage
+constexpr int DSTAGES = GEMM_PROBE == 9 || GEMM_PROBE == 13 ? 3 : GEMM_PROBE == 10 ? 12 : GEMM_PROBE == 11 ? 4 : 6;
+constexpr int DBLOCKS_AN_SM = GEMM_PROBE == 13 ? 2 : 1;
+constexpr int DTHREADS = 128;             // one warpgroup; its first thread issues the TMA loads
+
+// A stage: the weights' four 64 x 64 boxes, then A's 64 K x MT rows (1 or 2 KB, whole swizzle atoms).
+template <int MT>
+__host__ __device__ constexpr int dstage_bytes() { return DSTRIPS * BOX + MT * 128; }
+template <int MT>
+__host__ __device__ constexpr int decode_smem() { return 1024 + DSTAGES * dstage_bytes<MT>() + DSTAGES * 8; }
+static_assert(dstage_bytes<8>() % 1024 == 0 && dstage_bytes<16>() % 1024 == 0, "stages stay 1024-byte aligned");
+static_assert(decode_smem<16>() <= 232448, "the ring exceeds the 227 KB a block may use");
+
+// The split: `units` = batch * ntiles * steps, walked by `blocks` blocks.
+struct DecodePlan {
+  int ntiles;       // 256-column tiles an expert: ceil(N / 256)
+  int steps;        // K steps a tile: ceil(K / 64)
+  long long units;  // batch * ntiles * steps
+  int blocks;       // the grid; block i takes units dstart(i) .. dstart(i + 1) - 1
+};
+
+__host__ __device__ __forceinline__ long long dstart(const DecodePlan& q, int i) {
+  return (long long)i * q.units / q.blocks;
+}
+
+// The swapped product of k16 step kk: strip (64 columns of the weights, 64
+// K rows of 128 bytes, MN-major) as wgmma's A, the activations (MT rows of
+// 64 K, K-major) as its B.
+template <int MT>
+__device__ __forceinline__ void decode_mma(float (&d)[MT / 2], const unsigned char* strip, const unsigned char* act,
+                                           int kk, int accumulate) {
+  const uint64_t da = wgmma_desc_sw128(strip + 16 * 128 * kk, BOX, 1024);
+  const uint64_t db = wgmma_desc_sw128(act + 32 * kk, 16, 1024);
+  if constexpr (MT == 8) {
+    wgmma_m64n8k16_bf16<1, 0>(d, da, db, accumulate);
+  } else {
+    static_assert(MT == 16, "MT is 8 or 16");
+    wgmma_m64n16k16_bf16<1, 0>(d, da, db, accumulate);
+  }
+}
+
+// Stores a tile's sums as bf16: accumulator register 4 jj + 2 h + x of strip
+// j is column n0 + 64 j + r + 8 h and row 8 jj + 2 t + x (the m64nMT
+// fragment: rows of wgmma's M are C's columns here).
+template <int MT>
+__device__ __forceinline__ void decode_store(const float (&acc)[DSTRIPS][MT / 2], bf16* __restrict__ C,
+                                             const GemmShape& p, int e, int n0) {
+  const int tid = threadIdx.x, r = tid / 32 * 16 + tid % 32 / 4, t = tid % 4;
+  bf16* Ce = C + e * p.scb;
+#pragma unroll
+  for (int j = 0; j < DSTRIPS; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * j + r + 8 * h;
+      if (n >= p.N) continue;
+#pragma unroll
+      for (int jj = 0; jj < MT / 8; ++jj)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int m = 8 * jj + 2 * t + x;
+          if (m < p.M) Ce[m * p.scm + n] = __float2bfloat16(acc[j][4 * jj + 2 * h + x]);
+        }
+    }
+}
+
+// The scratch of block `blk`'s first (slot 0) or last (slot 1) piece: this
+// thread's MT / 2 floats of each strip.
+template <int MT>
+__device__ __forceinline__ float* decode_slot(float* ws, int blk, int slot, int j) {
+  return ws + (((long long)(blk * 2 + slot) * DSTRIPS + j) * DTHREADS + threadIdx.x) * (MT / 2);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(DTHREADS, DBLOCKS_AN_SM)
+gemm_decode_bf16_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                        bf16* __restrict__ C, float* __restrict__ ws, GemmShape p, DecodePlan q) {
+  constexpr int S = DSTAGES, STG = dstage_bytes<MT>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * STG);
+  const int tid = threadIdx.x;
+  const long long u0 = dstart(q, blockIdx.x), u1 = dstart(q, blockIdx.x + 1);
+  const int count = (int)(u1 - u0);
+
+  auto load = [&](int g) {  // unit u0 + g into stage g % S
+    const long long u = u0 + g;
+    const int tile = (int)(u / q.steps), k0 = (int)(u % q.steps) * DKS;
+    const int e = tile / q.ntiles, n0 = tile % q.ntiles * DNT;
+    uint64_t* bar = &full[g % S];
+    unsigned char* st = smem + g % S * STG;
+    mbar_arrive_expect_tx(bar, GEMM_PROBE == 8 ? 0 : STG);
+    if constexpr (GEMM_PROBE != 8) {
+#pragma unroll
+      for (int j = 0; j < DSTRIPS; ++j) tma_load_3d(st + j * BOX, &map_b, bar, n0 + 64 * j, k0, e);
+      tma_load_3d(st + DSTRIPS * BOX, &map_a, bar, k0, 0, e);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma_prefetch_map(&map_a);
+    tma_prefetch_map(&map_b);
+    for (int g = 0; g < min(count, S); ++g) load(g);
+  }
+  uint64_t t_start = 0;
+  if constexpr (GEMM_PROBE == 12) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_start));
+
+  float acc[DSTRIPS][MT / 2];
+#pragma unroll
+  for (int j = 0; j < DSTRIPS; ++j)
+#pragma unroll
+    for (int x = 0; x < MT / 2; ++x) acc[j][x] = 0.f;
+  for (int g = 0; g < count;) {
+    const long long u = u0 + g;
+    const int tile = (int)(u / q.steps);
+    const long long lo = (long long)tile * q.steps, hi = lo + q.steps;
+    const int n = (int)(min(u1, hi) - u);  // units of this piece
+    // Nothing but wgmma touches acc inside the loop: the piece's first
+    // product overwrites it (scale-d 0), so the last piece's sums need no reset.
+    for (int i = 0; i < n; ++i, ++g) {
+      mbar_wait(&full[g % S], (g / S) & 1);
+      const unsigned char* st = smem + g % S * STG;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < DSTRIPS; ++j)
+#pragma unroll
+        for (int kk = 0; kk < DKS / 16 && GEMM_PROBE != 7; ++kk)
+          decode_mma<MT>(acc[j], st + j * BOX, st + DSTRIPS * BOX, kk, i | kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncthreads();  // every warp is done with the stage
+      if (tid == 0 && g + S < count) load(g + S);
+    }
+#pragma unroll
+    for (int j = 0; j < DSTRIPS; ++j) wgmma_fence_operand(acc[j]);
+    if (u == lo && u1 >= hi) {  // a whole tile: its sums are final
+      decode_store<MT>(acc, C, p, tile / q.ntiles, tile % q.ntiles * DNT);
+    } else {  // this block's first piece (slot 0) or its last (slot 1) of a split tile
+#pragma unroll
+      for (int j = 0; j < DSTRIPS; ++j) {
+        float4* w = reinterpret_cast<float4*>(decode_slot<MT>(ws, blockIdx.x, u == u0 ? 0 : 1, j));
+#pragma unroll
+        for (int x = 0; x < MT / 8; ++x)
+          w[x] = make_float4(acc[j][4 * x], acc[j][4 * x + 1], acc[j][4 * x + 2], acc[j][4 * x + 3]);
+      }
+    }
+  }
+  if constexpr (GEMM_PROBE == 12) {
+    if (tid == 0) {
+      uint64_t t_end, sm;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_end));
+      asm volatile("{ .reg .u32 s; mov.u32 s, %%smid; cvt.u64.u32 %0, s; }" : "=l"(sm));
+      uint64_t* ts = reinterpret_cast<uint64_t*>(ws + (long long)q.blocks * 2 * DSTRIPS * DTHREADS * (MT / 2)) +
+                     3 * blockIdx.x;
+      ts[0] = sm;
+      ts[1] = t_start;
+      ts[2] = t_end;
+    }
+  }
+}
+
+// The tiles split between blocks: block b takes the boundary between shares
+// b and b + 1 (grid: blocks - 1, or one block that finds nothing to do).  A
+// boundary on a tile's edge splits nothing; of the boundaries inside one
+// tile, the first sums it: the pieces of blocks b .. (the last that starts
+// inside the tile), in that order, from their first or last slot.
+template <int MT>
+__global__ void __launch_bounds__(DTHREADS)
+gemm_decode_sum_kernel(const float* __restrict__ ws, bf16* __restrict__ C, GemmShape p, DecodePlan q) {
+  const int i = blockIdx.x + 1;
+  if (i >= q.blocks) return;
+  const long long u = dstart(q, i);
+  if (u % q.steps == 0) return;
+  const int tile = (int)(u / q.steps);
+  const long long lo = (long long)tile * q.steps, hi = lo + q.steps;
+  if (i > 1 && dstart(q, i - 1) > lo) return;
+  float sum[DSTRIPS][MT / 2];
+#pragma unroll
+  for (int j = 0; j < DSTRIPS; ++j)
+#pragma unroll
+    for (int x = 0; x < MT / 2; ++x) sum[j][x] = 0.f;
+  for (int b = i - 1; b < q.blocks && dstart(q, b) < hi; ++b) {
+    const int slot = dstart(q, b) >= lo ? 0 : 1;
+#pragma unroll
+    for (int j = 0; j < DSTRIPS; ++j) {
+      const float4* w = reinterpret_cast<const float4*>(decode_slot<MT>(const_cast<float*>(ws), b, slot, j));
+#pragma unroll
+      for (int x = 0; x < MT / 8; ++x) {
+        const float4 v = w[x];
+        sum[j][4 * x] += v.x;
+        sum[j][4 * x + 1] += v.y;
+        sum[j][4 * x + 2] += v.z;
+        sum[j][4 * x + 3] += v.w;
+      }
+    }
+  }
+  decode_store<MT>(sum, C, p, tile / q.ntiles, tile % q.ntiles * DNT);
+}
+
+// The decode route: the split's kernel, then the sum of the split tiles, on
+// `stream`.  `ws` holds blocks * 2 * DSTRIPS * 128 * MT / 2 floats.
+template <int MT>
+int launch_decode(const bf16* a, const bf16* b, bf16* c, float* ws, int blocks, const GemmShape& p,
+                  cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t ce = make_context_current(&dev);
+  if (ce != cudaSuccess) return (int)ce;
+  CUtensorMap map_a, map_b;
+  int err = encode_map(&map_a, a, p.K, p.M, p.batch, p.sam, p.sab, MT);  // 64 K x MT rows
+  if (err == 0) err = encode_map(&map_b, b, p.N, p.K, p.batch, p.sbk, p.sbb, DKS);  // 64 columns x 64 K
+  if (err != 0) return err;
+  const int ntiles = (p.N + DNT - 1) / DNT, steps = (p.K + DKS - 1) / DKS;
+  const DecodePlan q{ntiles, steps, (long long)p.batch * ntiles * steps, blocks};
+  if (blocks < 1 || blocks > q.units) return (int)cudaErrorInvalidValue;
+  constexpr int smem = decode_smem<MT>();
+  ce = cudaFuncSetAttribute(gemm_decode_bf16_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (ce != cudaSuccess) return (int)ce;
+  gemm_decode_bf16_kernel<MT><<<blocks, DTHREADS, smem, stream>>>(map_a, map_b, c, ws, p, q);
+  if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
+  gemm_decode_sum_kernel<MT><<<std::max(blocks - 1, 1), DTHREADS, 0, stream>>>(ws, c, p, q);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // fp32: FMA pipes, no TF32
 // ---------------------------------------------------------------------------
 
@@ -707,7 +987,7 @@ int launch_f32(const float* a, const float* b, float* c, int batch, const GemmSh
 // transpose bits 0 and 1); LONG and SHORT the reduction's schedule.
 enum Route {
   FMA_F32 = 0,
-  MMA_M16 = 1,
+  DECODE = 1,  // gemm_decode, its own entry
   MMA_M16_MASKED = 2,
   MMA_M64_MASKED = 3,
   WGMMA_KN_LONG = 4,  // the forward's layout, as both operands are stored
@@ -737,9 +1017,8 @@ extern "C" int gemm_fwd(const void* a, const void* b, void* c, int route, int ba
     case FMA_F32:
       return launch_f32(static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), batch,
                         p, st);
-    case MMA_M16: return launch_mma<16, 128, 1, 4, true>(ab, bb, cb, batch, p, st);
-    case MMA_M16_MASKED: return launch_mma<16, 128, 1, 4, false>(ab, bb, cb, batch, p, st);
-    case MMA_M64_MASKED: return launch_mma<64, 256, 2, 4, false>(ab, bb, cb, batch, p, st);
+    case MMA_M16_MASKED: return launch_mma<16, 128, 1, 4>(ab, bb, cb, batch, p, st);
+    case MMA_M64_MASKED: return launch_mma<64, 256, 2, 4>(ab, bb, cb, batch, p, st);
     case WGMMA_KN_LONG: return launch_wgmma<0, 1, 0>(ab, bb, cb, p, st);
     case WGMMA_KN_SHORT: return launch_wgmma<0, 1, 1>(ab, bb, cb, p, st);
     case WGMMA_KK_LONG: return launch_wgmma<0, 0, 0>(ab, bb, cb, p, st);
@@ -750,4 +1029,39 @@ extern "C" int gemm_fwd(const void* a, const void* b, void* c, int route, int ba
     case WGMMA_NK_SHORT: return launch_wgmma<1, 0, 1>(ab, bb, cb, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The decode route (gemm.py::route's route 1: bf16, M <= 16, K and N
+// multiples of 8, every row 16-byte aligned; A K-major, B MN-major):
+// gemm_decode_bf16_kernel<MT> over `blocks` blocks (one an SM, or fewer
+// where the product has fewer units; gemm.py::decode_plan), MT 8 for M <= 8
+// and 16 above, then gemm_decode_sum_kernel<MT>, on `stream`.  `ws` is the
+// partials' scratch, fp32 [blocks][2][4][128][MT / 2].  Returns 0 when both
+// launches were accepted, else the CUDA error or a tensor-map error.
+extern "C" int gemm_decode(const void* a, const void* b, void* c, float* ws, int blocks, int batch, int M, int N,
+                           int K, long long sab, long long sam, long long sbb, long long sbk, long long scb,
+                           long long scm, void* stream) {
+  const GemmShape p{batch, M, N, K, sab, sam, 1, sbb, sbk, 1, scb, scm};
+  const bf16* ab = static_cast<const bf16*>(a);
+  const bf16* bb = static_cast<const bf16*>(b);
+  bf16* cb = static_cast<bf16*>(c);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || M > 16) return (int)cudaErrorInvalidValue;
+  return M <= 8 ? launch_decode<8>(ab, bb, cb, ws, blocks, p, st) : launch_decode<16>(ab, bb, cb, ws, blocks, p, st);
+}
+
+// Blocks of gemm_decode_bf16_kernel<mt> (mt 8 or 16) one SM of the current
+// card holds at once, or minus the CUDA error.
+extern "C" int gemm_decode_occupancy(int mt) {
+  int blocks = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (mt == 8 || mt == 16) {
+    const int smem = mt == 8 ? decode_smem<8>() : decode_smem<16>();
+    err = mt == 8 ? cudaFuncSetAttribute(gemm_decode_bf16_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+                  : cudaFuncSetAttribute(gemm_decode_bf16_kernel<16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gemm_decode_bf16_kernel<8>, DTHREADS, smem)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gemm_decode_bf16_kernel<16>, DTHREADS, smem);
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
 }

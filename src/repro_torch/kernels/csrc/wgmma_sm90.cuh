@@ -7,9 +7,10 @@
 // TMA tile store and its bulk-group waits, the async-proxy fence, named
 // barriers, wgmma shared-memory descriptors for the 128-byte swizzle, wgmma
 // fence / commit / wait, wgmma.mma_async bf16 with fp32 accumulators:
-// m64n128k16 and m64n64k16 with both operands from shared memory (either
-// major for each), m64n64k16 and m64n128k16 with A from registers, and
-// setmaxnreg; on the host, the driver's tensor-map encoder.
+// m64n128k16, m64n64k16, m64n16k16 and m64n8k16 with both operands from
+// shared memory (either major for each), m64n64k16, m64n80k16 and
+// m64n128k16 with A from registers, and setmaxnreg; on the host, the
+// driver's tensor-map encoder.
 //
 // Layouts (PTX ISA, "Matrix Descriptor" and the canonical layouts of
 // wgmma): a tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B is a
@@ -329,16 +330,72 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_rs(float (&d)[64], const u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(B_MN));
 }
 
-// d[64 x N] += A[64 x 16] (registers) . B[16 x N], N 64 or 128.
+template <int B_MN>
+__device__ __forceinline__ void wgmma_m64n80k16_bf16_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, %46;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(B_MN));
+}
+
+// d[64 x N] += A[64 x 16] (registers) . B[16 x N], N 64, 80 or 128.  At N 80
+// an MN-major B spans two 64-wide blocks of its swizzled tile, LBO apart,
+// and the product reads the second block's first 16 columns.
 template <int N, int B_MN>
 __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
                                               int accumulate) {
   if constexpr (N == 64) {
     wgmma_m64n64k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
+  } else if constexpr (N == 80) {
+    wgmma_m64n80k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
   } else {
-    static_assert(N == 128, "N is 64 or 128");
+    static_assert(N == 128, "N is 64, 80 or 128");
     wgmma_m64n128k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
   }
+}
+
+// d[64 x 8] = A[64 x 16] . B[16 x 8] + (accumulate ? d : 0) and the n16 form,
+// both operands from shared memory, as the m64n128k16 form above: the MoE
+// decode product with its operands swapped (A the weights' columns, B the
+// few rows of activations).
+template <int A_MN, int B_MN>
+__device__ __forceinline__ void wgmma_m64n8k16_bf16(float (&d)[4], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
+}
+
+template <int A_MN, int B_MN>
+__device__ __forceinline__ void wgmma_m64n16k16_bf16(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
 }
 
 // Pins 32-bit registers (the A fragments of a register-A wgmma) in place

@@ -28,7 +28,7 @@ also returns the log-sum-exp of each row's scaled scores, and
 :func:`flash_attention_bwd` takes it with o and dO to dq, dk, dv on more
 kernels of ``csrc/flash_attention.cu``, by the route :func:`bwd_route`
 picks from the inputs' type, head dim, strides and alignment: bf16 at head
-dim 64 or 128 with rows TMA can address runs two kernels on ``wgmma`` fed
+dim 64, 80 or 128 with rows TMA can address runs two kernels on ``wgmma`` fed
 by TMA (dQ, which also computes ``delta = rowsum(dO∘O)``, then dK/dV with
 each GQA group split over a thread-block cluster, :func:`bwd_cluster`);
 other bf16 shapes run the ``mma.sync`` kernels (the delta pre-pass, dQ,
@@ -85,10 +85,10 @@ _TENSOR_MAP_ERROR = 10000
 #: the backward's routes, by the code the C entry takes: fp32 on the SIMT
 #: pipes, bf16 on ``mma.sync``, bf16 on ``wgmma`` fed by TMA
 BWD_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
-#: head dims of the wgmma route: rows of 128 or 256 bytes fill the 128-byte
-#: swizzle of a TMA box (D 80's 160 bytes do not; 16 and 32 are too narrow
-#: for a k16 step per box row, 192 has no training path)
-WGMMA_HEAD_DIMS = (64, 128)
+#: head dims of the wgmma route: a tile of D columns is ceil(D / 64) boxes of
+#: the 128-byte swizzle, D 80's second box zero-filled past its 16 columns (16
+#: and 32 are too narrow for a k16 step per box row, 192 has no training path)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 #: the largest thread-block cluster every Hopper card launches
 PORTABLE_CLUSTER = 8
 
@@ -346,7 +346,7 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
     """The backward's route (a key of ``BWD_ROUTES``) by type, head dim,
     strides and alignment alone: ``"simt"`` for fp32; ``"wgmma"`` for bf16
     at a head dim of ``WGMMA_HEAD_DIMS`` where TMA can address every row of
-    q, k, v, o and dO; ``"mma"`` for every other bf16 call (D 16, 32, 80 and
+    q, k, v, o and dO; ``"mma"`` for every other bf16 call (D 16, 32 and
     192, rows only 8-byte aligned).  The bf16-score mode (``fp32_scores=
     False``) takes the same routes."""
     if q.dtype == torch.float32:
@@ -580,6 +580,20 @@ def _check_kernel():
     fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_occupancy(d: int, fp32_scores: bool, dkdv: bool) -> int:
+    """Blocks of the wgmma route's dQ (or, ``dkdv``, dK/dV) kernel at head
+    dim ``d`` one SM of the current card holds at once."""
+    from .build import library
+
+    fn = library("flash_attention").flash_bwd_wgmma_occupancy
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    got = fn(d, int(not fp32_scores), int(dkdv))
+    if got < 0:
+        raise RuntimeError(f"flash backward wgmma occupancy at D {d}: cudaError {-got}")
+    return got
 
 
 @functools.cache

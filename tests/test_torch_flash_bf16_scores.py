@@ -252,8 +252,8 @@ def test_meta_tensors_count_the_mode_as_the_fp32_mode():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 def test_bwd_route_and_kernels_of_the_mode(d, dtype):
-    """The mode takes the fp32 mode's routes: wgmma for bf16 at D 64 and
-    128 with rows TMA can address, mma.sync for other bf16 calls (rows
+    """The mode takes the fp32 mode's routes: wgmma for bf16 at D 64, 80
+    and 128 with rows TMA can address, mma.sync for other bf16 calls (rows
     only 8-byte aligned among them), the SIMT pipes for fp32; no delta
     pre-pass: the dQ kernel leaves each row's R for the dK/dV kernels."""
     q = torch.zeros((2, 24, 4, d), dtype=dtype).transpose(1, 2)

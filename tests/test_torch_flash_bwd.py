@@ -220,7 +220,7 @@ def test_bwd_route_by_head_dim_dtype_and_strides(d, dtype, layout):
     k = _layout(layout, d, dtype, h=2)
     if dtype == torch.float32:
         want = "simt"
-    elif d in (64, 128) and layout != "padded":
+    elif d in fa.WGMMA_HEAD_DIMS and layout != "padded":
         want = "wgmma"
     else:
         want = "mma"

@@ -772,17 +772,17 @@ def _gemm_operand(shape, dtype, seed, transposed):
 def test_gemm_reads_transposed_views_as_its_route_says(m, k, n, ta, tb):
     """Each instantiation that reads a transposed operand in place (both
     schedules: K 200 short, 4104 long), at every capacity as M: the wgmma
-    route copies nothing; M <= 16, and a transposed A whose M is not a
-    multiple of 8 (its rows, stored [K, M], not 16-byte aligned), copy the
-    transposed operands for the mma.sync tiles; two calls give the same
-    bits."""
+    route copies nothing; M <= 16 (the decode kernels), and a transposed A
+    whose M is not a multiple of 8 (its rows, stored [K, M], not 16-byte
+    aligned, the mma.sync tile), copy the transposed operands; two calls
+    give the same bits."""
     a = _gemm_operand((3, m, k), torch.bfloat16, 0, ta)
     b = _gemm_operand((3, k, n), torch.bfloat16, 1, tb) / k**0.5
     r = gm.route(a.dtype, m, k, n, gm._aligned(a) and gm._aligned(b), *gm.majors(a, b))
     layout = {(False, True): "0, 0", (True, False): "1, 1", (True, True): "1, 0"}[ta, tb]
     on_wgmma = m > 16 and (not ta or m % 8 == 0)
     assert gm.KERNELS[r.kernel] == (f"gemm_wgmma_bf16_kernel<C, {layout}, {int(k <= gm.SHORT_K)}>" if on_wgmma
-                                    else "gemm_mma_bf16_kernel<16, 128> 16-byte rows" if m <= 16
+                                    else "gemm_decode_bf16_kernel<MT>" if m <= 16
                                     else "gemm_mma_bf16_kernel<64, 256> masked")
     before = gm.copies
     y = gm.gemm(a, b)
@@ -823,8 +823,8 @@ def test_gemm_gradient_at_every_capacity_with_a_layer_slice_of_the_stacked_weigh
 @pytest.mark.parametrize(
     "sa,sb,view,want,other",
     [
-        ((16, 8, 4096), (16, 4096, 640), None, "gemm_mma_bf16_kernel", "gemm_wgmma_bf16_kernel"),  # decode, M = 8
-        ((2, 16, 64), (2, 64, 128), None, "gemm_mma_bf16_kernel", "gemm_wgmma_bf16_kernel"),  # M = 16
+        ((16, 8, 4096), (16, 4096, 640), None, "gemm_decode_bf16_kernel", "gemm_mma_bf16_kernel"),  # decode, M = 8
+        ((2, 16, 64), (2, 64, 128), None, "gemm_decode_bf16_kernel", "gemm_mma_bf16_kernel"),  # M = 16
         ((2, 100, 80), (2, 80, 72), "unaligned", "gemm_mma_bf16_kernel", "gemm_wgmma_bf16_kernel"),
         ((2, 100, 65), (2, 65, 72), None, "gemm_mma_bf16_kernel", "gemm_wgmma_bf16_kernel"),  # K not a multiple of 8
         ((2, 17, 64), (2, 64, 128), None, "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel"),  # M = 17
@@ -832,8 +832,9 @@ def test_gemm_gradient_at_every_capacity_with_a_layer_slice_of_the_stacked_weigh
     ],
 )
 def test_gemm_runs_the_kernel_of_its_route(sa, sb, view, want, other):
-    """Decode's M <= 16 and rows the TMA cannot address stay on mma.sync;
-    aligned bf16 past 16 rows runs wgmma, and never the other."""
+    """Decode's M <= 16 with rows the TMA can address runs the decode
+    kernels; rows the TMA cannot address stay on mma.sync; aligned bf16 past
+    16 rows runs wgmma, and never the other."""
     a, b = _gemm_inputs(sa, sb, torch.bfloat16)
     if view == "unaligned":  # rows start 6 bytes past a 16-byte boundary
         a = torch.cat([a, a[..., :8]], -1)[..., 3 : 3 + sa[-1]]

@@ -128,9 +128,9 @@ def test_build_without_a_toolkit_raises(monkeypatch):
 
 from repro_torch.kernels import gemm as gm  # noqa: E402
 
-WGMMA, WGMMA_SHORT, MMA16, MMA16_MASKED, MMA64_MASKED, FMA = (gm.KERNELS.index(n) for n in (
+WGMMA, WGMMA_SHORT, DECODE, MMA16_MASKED, MMA64_MASKED, FMA = (gm.KERNELS.index(n) for n in (
     "gemm_wgmma_bf16_kernel<C, 0, 1, 0>", "gemm_wgmma_bf16_kernel<C, 0, 1, 1>",
-    "gemm_mma_bf16_kernel<16, 128> 16-byte rows", "gemm_mma_bf16_kernel<16, 128> masked",
+    "gemm_decode_bf16_kernel<MT>", "gemm_mma_bf16_kernel<16, 128> masked",
     "gemm_mma_bf16_kernel<64, 256> masked", "gemm_fma_f32_kernel"))
 #: the long-schedule wgmma instantiation of each transposed layout; the short one follows it in KERNELS
 WGMMA_KK, WGMMA_NN, WGMMA_NK = (gm.KERNELS.index(f"gemm_wgmma_bf16_kernel<C, {t}, 0>") for t in ("0, 0", "1, 1", "1, 0"))
@@ -147,8 +147,8 @@ K, MN = gm.K_MAJOR, gm.MN_MAJOR
         (torch.bfloat16, 321, 8, 8, True, WGMMA_SHORT),  # a reduction of one stage: the short schedule
         (torch.bfloat16, 4096, 1024, 6400, True, WGMMA_SHORT),
         (torch.bfloat16, 4096, 1032, 6400, True, WGMMA),
-        (torch.bfloat16, 16, 4096, 6400, True, MMA16),  # decode keeps the 16-row mma.sync tile
-        (torch.bfloat16, 8, 6400, 4096, True, MMA16),
+        (torch.bfloat16, 16, 4096, 6400, True, DECODE),  # decode with TMA rows: the equal-share split
+        (torch.bfloat16, 8, 6400, 4096, True, DECODE),
         (torch.bfloat16, 8, 65, 17, True, MMA16_MASKED),
         (torch.bfloat16, 8, 64, 64, False, MMA16_MASKED),
         (torch.bfloat16, 320, 4100, 6400, True, MMA64_MASKED),  # K not a multiple of 8: no TMA
@@ -170,8 +170,8 @@ ROUTE_CASES = [
     (torch.bfloat16, 320, 6400, 4096, True, None),  # phi3.5-moe training dA (B K-major)
     (torch.bfloat16, 4096, 320, 6400, True, None),  # ... dB (A MN-major)
     (torch.bfloat16, 17, 64, 128, True, None),
-    (torch.bfloat16, 16, 320, 6400, True, MMA16),  # M <= 16: copied
-    (torch.bfloat16, 8, 320, 6400, True, MMA16),
+    (torch.bfloat16, 16, 320, 6400, True, DECODE),  # M <= 16: copied
+    (torch.bfloat16, 8, 320, 6400, True, DECODE),
     (torch.bfloat16, 8, 321, 6400, True, MMA16_MASKED),
     (torch.bfloat16, 8, 320, 6400, False, MMA16_MASKED),
     (torch.bfloat16, 4096, 321, 6400, True, MMA64_MASKED),  # a capacity not a multiple of 8 as dB's K
