@@ -8,9 +8,12 @@ repository's sources are not beside this script.  Otherwise, in order:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel of the port from the sources in the checkout
    (one ``nvcc`` per source, all at once) and prints ``ptxas -v``'s
-   registers, shared memory and spills; fails unless both flash forward
-   kernels (``flash_fwd_mma_bf16_kernel``, the fp32 ``flash_fwd_kernel``)
-   compiled at every head dim with no spill, and unless every instantiation of the GEMM's
+   registers, shared memory and spills; fails unless the flash forward
+   kernels (``flash_fwd_mma_bf16_kernel`` and the fp32 ``flash_fwd_kernel``
+   at every head dim, ``flash_fwd_wgmma_kernel`` at D 64, 80, 128 and 192
+   with no ``wgmma`` made to wait and built as ``flash_attention.fwd_plan``
+   plans it, printing its tiling and blocks an SM) compiled with no spill,
+   and unless every instantiation of the GEMM's
    ``gemm_wgmma_bf16_kernel`` (clusters of 1 and 2, each pair of operand
    majors, each schedule) and the decode kernels ``gemm_decode_bf16_kernel``
    and ``gemm_decode_sum_kernel`` (row tiles 8 and 16) compiled with no
@@ -177,7 +180,14 @@ repository's sources are not beside this script.  Otherwise, in order:
    |plain|; fails unless both SSD model shapes plan the tensor-core scan on
    at least a block per SM and the profiler shows it ran; times the
    kernel, the plain version and (attention, at each model's shape) SDPA,
-   naming the device kernel that served SDPA, and computes each bound.
+   naming the device kernel that served SDPA, and computes each bound;
+   every bf16 attention case prints its forward route
+   (``flash_attention.fwd_route``: ``wgmma`` at D 64, 80, 128 and 192 with
+   rows TMA can address) and must give the same bits on two calls, and
+   each served shape also times the ``mma.sync`` kernel through the C
+   entry's route code (``flash_attention.run_fwd_route``,
+   ``mma_device_ms``, ``mma_host_ms``) beside the shipped route and SDPA,
+   printing whether the two routes gave the same bits (``mma_same_bits``).
    Every time in the ``kernels`` line is by CUDA events around 20 calls;
    attention and the SSD scan also get the profiler's device time per call
    and the host's time to issue a call (their wrappers take the host about
@@ -193,10 +203,10 @@ repository's sources are not beside this script.  Otherwise, in order:
    warm decode steps on the host clock and prints a profiler breakdown
    (device time by kernel, busy share of the wall) of one prefill and of
    four decode steps; fails unless an attention model's bf16 prefill ran
-   ``flash_fwd_mma_bf16_kernel`` once per attention layer (zamba2: once
+   ``flash_fwd_wgmma_kernel`` once per attention layer (zamba2: once
    per application of its shared block, 9; whisper: its 12 encoder layers
    and self and cross attention in its 12 decoder layers, 36) and never
-   the fp32 SIMT
+   the ``mma.sync`` ``flash_fwd_mma_bf16_kernel`` or the fp32 SIMT
    ``flash_fwd_kernel``, and unless an SSD model's ran
    ``ssd_scan_mma_bf16_kernel`` once per layer and never ``ssd_scan_kernel``;
 8. holds each LM path against the same path on the plain versions
@@ -606,8 +616,8 @@ LM_MODELS = {
 }
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
-PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel",
-                "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "gemm_decode_bf16_kernel",
+PORT_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_bf16_kernel", "flash_fwd_kernel",
+                "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel", "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "gemm_decode_bf16_kernel",
                 "gemm_decode_sum_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_wgmma_kernel",
                 "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_kernel",
@@ -617,10 +627,11 @@ PORT_KERNELS = ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "ssd_scan_mma_b
                 "flash_bwd_dq_bf16_scores_kernel", "flash_bwd_dkdv_bf16_scores_kernel",
                 "ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel",
                 "ssd_scan_bwd_states_mma_kernel", "ssd_scan_bwd_chunk_mma_kernel", "ssd_scan_bwd_mma_sum_kernel")
-#: the flash kernels as the profiler names them: forward bf16 on the tensor cores and fp32 on the SIMT
+#: the flash kernels as the profiler names them: forward bf16 on wgmma and on mma.sync, fp32 on the SIMT
 #: pipes; the backward's delta pre-pass, and its dQ and dK/dV kernels of each type; each of the bf16-score
 #: mode's (``_bf16_scores_kernel``)
-FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_(?:mma_bf16_|mma_bf16_scores_|bf16_scores_|)kernel"
+FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_(?:wgmma_|mma_bf16_|mma_bf16_scores_|bf16_scores_|)"
+                      r"kernel"
                       r"|flash_bwd_(?:delta|dq_mma_bf16|dkdv_mma_bf16|dq_wgmma|dkdv_wgmma|dq|dkdv|dq_mma_bf16_scores"
                       r"|dkdv_mma_bf16_scores|dq_wgmma_bf16_scores|dkdv_wgmma_bf16_scores|dq_bf16_scores"
                       r"|dkdv_bf16_scores)_kernel)<[^>]*>)")
@@ -800,20 +811,38 @@ def _ptxas_entries_of(log: str, mangled: str) -> dict[str, tuple[int, int, int]]
 
 
 def check_flash_ptxas() -> None:
-    """Fail unless ``ptxas`` compiled both forward kernels,
-    ``flash_fwd_mma_bf16_kernel`` and the fp32 ``flash_fwd_kernel``, and
-    both of the bf16-score mode's, at every head dim with no spill; print
-    their registers."""
-    for kernel in ("flash_fwd_mma_bf16_kernel", "flash_fwd_kernel", "flash_fwd_mma_bf16_scores_kernel",
-                   "flash_fwd_bf16_scores_kernel"):
+    """Fail unless ``ptxas`` compiled the forward kernels,
+    ``flash_fwd_mma_bf16_kernel``, the fp32 ``flash_fwd_kernel`` and both of
+    the bf16-score mode's at every head dim and ``flash_fwd_wgmma_kernel``
+    at ``flash_attention.FWD_WGMMA_HEAD_DIMS``, with no spill and without
+    making the wgmma kernel's ``wgmma`` wait (C7517, C7518), and unless the
+    wgmma kernel was built as ``flash_attention.fwd_plan`` plans it and an
+    SM holds the blocks it was planned for; print their registers and the
+    wgmma kernel's tiling."""
+    want = {"flash_fwd_wgmma_kernel": fa.FWD_WGMMA_HEAD_DIMS}
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_fwd_mma_bf16_kernel", "flash_fwd_kernel",
+                   "flash_fwd_mma_bf16_scores_kernel", "flash_fwd_bf16_scores_kernel"):
         seen = {int(d): v for d, v in _ptxas_entries("flash_attention", kernel + r"ILi(\d+)EE").items()}
         for d, (regs, st, ld) in sorted(seen.items()):
-            print(f"[build] {kernel}<{d}>: {regs} registers, spill stores {st} B, spill loads {ld} B")
-        if sorted(seen) != list(fa.HEAD_DIMS):
-            raise RuntimeError(f"ptxas compiled {kernel} at head dims {sorted(seen)}, want {fa.HEAD_DIMS}")
+            tiling = ""
+            if kernel == "flash_fwd_wgmma_kernel":
+                config = fa.fwd_config(d)
+                plan = {k: v for k, v in fa.fwd_plan(d).items() if k in config}
+                if {k: v for k, v in config.items() if k in plan} != plan \
+                        or config["blocks_an_sm"] != plan["planned_blocks_an_sm"]:
+                    raise RuntimeError(f"{kernel}<{d}> was built as {config}, fwd_plan plans {plan}")
+                tiling = f", {json.dumps(config)}"
+            print(f"[build] {kernel}<{d}>: {regs} registers, spill stores {st} B, spill loads {ld} B{tiling}")
+        if sorted(seen) != list(want.get(kernel, fa.HEAD_DIMS)):
+            raise RuntimeError(f"ptxas compiled {kernel} at head dims {sorted(seen)}, want "
+                               f"{want.get(kernel, fa.HEAD_DIMS)}")
         spilled = {d: v for d, v in seen.items() if v[1] or v[2]}
         if spilled:
             raise RuntimeError(f"{kernel} spills: {spilled}")
+    waits = [line for line in build.ptxas_report("flash_attention").splitlines()
+             if re.search(r"\(C751[78]\)", line) and "flash_fwd_wgmma_kernel" in line]
+    if waits:
+        raise RuntimeError(f"ptxas made the wgmma of the flash forward wait: {waits}")
 
 
 def _bwd_name(mangled: str) -> str:
@@ -1994,8 +2023,10 @@ def check_flash(gen: torch.Generator) -> dict:
         y = fa.flash_attention(q, k, v, **kw)
         yp = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
-        desc = {**case, "dtype": str(dt).removeprefix("torch.")}
+        desc = {**case, "dtype": str(dt).removeprefix("torch."), "route": fa.fwd_route(q, k, v)}
         err = _agree("flash_attention", desc, y, yp, ATTN_TOL if dt == f32 else None)
+        if dt == bf16 and not torch.equal(y, fa.flash_attention(q, k, v, **kw)):
+            raise RuntimeError(f"flash_attention gave other bits on a second call at {desc}")
         max_err = max(max_err, err)
         print(f"[check] flash_attention {json.dumps({**desc, 'max_abs_err': err, 'max_abs_plain': yp.float().abs().max().item()})}")
         if "model" in case:
@@ -2006,24 +2037,38 @@ def check_flash(gen: torch.Generator) -> dict:
             def kern():
                 return fa.flash_attention(q, k, v, **kw)
 
+            def mma():  # the mma.sync kernel at the same shape, through the C entry's route code
+                return fa.run_fwd_route(q, k, v, route="mma", **kw)
+
             def plain():
                 return fa.flash_attention_plain(q, k, v, **kw)
 
             def sdpa():
                 return F.scaled_dot_product_attention(qc, kc, vc, is_causal=case["causal"], enable_gqa=True)
 
+            ym = mma()
+            _agree("flash_attention on mma.sync", desc, ym, yp, None)
+            same_bits = torch.equal(y, ym)  # printed: the two routes take one row's fp32 steps in one order
             # CUDA events around 20 calls, as for every kernel; at these sizes the wrapper
             # takes the host longer to issue than the card to run, so the device time from
             # the profiler and the host's time to issue a call stand beside them
             timed = dict(ms=_time_ms(kern), plain_ms=_time_ms(plain), library_ms=_time_ms(sdpa),
-                         bound_ms=bound_ms, bound_by=bound_by)
+                         bound_ms=bound_ms, bound_by=bound_by, mma_ms=_time_ms(mma), mma_same_bits=same_bits)
             device_ms, ran = _device_ms(kern)
+            mma_device_ms, mma_ran = _device_ms(mma)
             plain_device_ms, _ = _device_ms(plain)
             library_device_ms, sdpa_ran = _device_ms(sdpa, need=False)
-            timed.update(device_ms=device_ms, plain_device_ms=plain_device_ms, library_device_ms=library_device_ms,
-                         host_ms=_host_ms(kern), library_host_ms=_host_ms(sdpa))
+            timed.update(device_ms=device_ms, mma_device_ms=mma_device_ms, plain_device_ms=plain_device_ms,
+                         library_device_ms=library_device_ms, host_ms=_host_ms(kern), mma_host_ms=_host_ms(mma),
+                         library_host_ms=_host_ms(sdpa))
+            want = {"wgmma": fa.fwd_kernels(desc["route"], d), "mma": fa.fwd_kernels("mma", d)}
+            for route, got in (("wgmma", ran), ("mma", mma_ran)):
+                names = sorted(m.group(1) for n in got if (m := FLASH_FN.search(n)))
+                if names != list(want[route]):
+                    raise RuntimeError(f"flash_attention on {route} at {case['model']}'s shape ran {got}")
             ratios = dict(sdpa_ratio=timed["ms"] / timed["library_ms"],
-                          sdpa_device_ratio=_ratio(device_ms, library_device_ms))
+                          sdpa_device_ratio=_ratio(device_ms, library_device_ms),
+                          mma_device_ratio=_ratio(device_ms, mma_device_ms))
             print(f"[check] flash_attention {case['model']} prefill shape: "
                   f"{json.dumps({**timed, **ratios, 'flops': flops, 'bytes': nbytes})}")
             print(f"[check] flash_attention at {case['model']}'s shape ran {json.dumps(ran)}; "
@@ -2671,17 +2716,18 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
         if calls != want:
             raise RuntimeError(f"{arch}: the profiled decode steps ran {calls}, want {want}")
         print(f"[lm] {arch}: decode expert products served by {json.dumps(calls)}")
-    if "flash_attention" in kernels:  # bf16 prefill: the tensor-core kernel once per layer, never the SIMT one
-        mma = {n: c for n, c in flash_calls.items() if n.startswith("flash_fwd_mma_bf16_kernel")}
+    if "flash_attention" in kernels:  # bf16 prefill: the wgmma kernel once per layer, never mma.sync or SIMT
+        wgmma = {n: c for n, c in flash_calls.items() if n == f"flash_fwd_wgmma_kernel<{cfg.hd}>"}
         # a hybrid runs its shared attention block once per group of SSD layers; whisper's prefill runs
         # every encoder layer, and self and cross attention in every decoder layer
         attn_layers = cfg.n_layers // cfg.shared_attn_every if cfg.block_kind == "hybrid" \
             else cfg.enc_layers + 2 * cfg.n_layers if cfg.is_encdec else cfg.n_layers
-        if len(mma) != 1 or len(flash_calls) != 1 or sum(mma.values()) != attn_layers:
+        if len(wgmma) != 1 or len(flash_calls) != 1 or sum(wgmma.values()) != attn_layers:
             raise RuntimeError(f"{arch}: the profiled bf16 prefill ran {flash_calls}, want "
-                               f"flash_fwd_mma_bf16_kernel once per attention layer ({attn_layers})")
-        served_by = next(iter(mma))
-        print(f"[lm] {arch}: prefill attention served by {served_by}, {mma[served_by]} calls")
+                               f"flash_fwd_wgmma_kernel<{cfg.hd}> once per attention layer ({attn_layers}) and "
+                               f"flash_fwd_mma_bf16_kernel never")
+        served_by = next(iter(wgmma))
+        print(f"[lm] {arch}: prefill attention served by {served_by}, {wgmma[served_by]} calls")
     for dt in (torch.bfloat16, torch.float32):
         c = dataclasses.replace(cfg, dtype=dt)
         if dt == torch.float32 and fp32_depth:  # the last use of params: it is emptied
@@ -3456,7 +3502,8 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
     want_calls = {}
     if per_step["flash_attention_bwd"]:
         n_attn = per_step["flash_attention_bwd"]
-        want_calls.update({f"flash_fwd_mma_bf16_kernel<{cfg.hd}>": per_step["flash_attention"]})
+        # the forward on wgmma once per attention layer (again under remat), never on mma.sync
+        want_calls.update({f"flash_fwd_wgmma_kernel<{cfg.hd}>": per_step["flash_attention"]})
         want_calls.update({name: n_attn for name in bwd_kernels})
     if per_step["ssd_scan_bwd"]:
         n_ssd = per_step["ssd_scan_bwd"]

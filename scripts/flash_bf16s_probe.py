@@ -139,17 +139,24 @@ def _using(name: str, lib: ctypes.CDLL):
     """Point the wrappers at build ``name``'s ``lib`` for the duration of
     the context.  The parent's mode has only the ``mma.sync`` bf16
     backward, and the parent has no wgmma backward at D 80, so its
-    ``bwd_route`` is ``"mma"`` there."""
+    ``bwd_route`` is ``"mma"`` there; it has no wgmma forward, so its
+    ``fwd_route`` is ``"mma"`` for every bf16 forward."""
     route = fa.bwd_route
 
     def parent_route(q, k, v, o, do, fp32_scores=True):
         got = route(q, k, v, o, do, fp32_scores)
         return "mma" if got == "wgmma" and (not fp32_scores or q.shape[-1] == 80) else got
 
+    def parent_fwd_route(q, k, v, fp32_scores=True):  # the parent's bf16 forward is mma.sync's alone
+        got = fwd_route(q, k, v, fp32_scores)
+        return "mma" if got == "wgmma" else got
+
+    fwd_route = fa.fwd_route
     fa._kernel.cache_clear()
     fa._bwd_kernel.cache_clear()
     with mock.patch.object(build, "library", lambda _: lib), \
-            mock.patch.object(fa, "bwd_route", parent_route if name == "parent" else route):
+            mock.patch.object(fa, "bwd_route", parent_route if name == "parent" else route), \
+            mock.patch.object(fa, "fwd_route", parent_fwd_route if name == "parent" else fwd_route):
         yield
     fa._kernel.cache_clear()
     fa._bwd_kernel.cache_clear()
@@ -216,9 +223,10 @@ def main() -> int:
             return fa.flash_attention_bwd(q, k, v, o32, lse32, do)
 
         fwd_kernel = (f"flash_fwd_mma_bf16_scores_kernel<{d}>",)
-        kernels32 = {"fwd": (f"flash_fwd_mma_bf16_kernel<{d}>",)}
+        kernels32 = {}
         for name in ("shipped", "parent", "parent", "shipped"):
             with _using(name, libs[name]):
+                kernels32["fwd"] = fa.fwd_kernels(fa.fwd_route(q, k, v), d)  # this build's route
                 o, stats = fwd()
                 got, again = (fa.flash_attention_bwd(q, k, v, o, stats, do, fp32_scores=False) for _ in range(2))
                 torch.cuda.synchronize()

@@ -121,17 +121,24 @@ def _build() -> tuple[dict[str, ctypes.CDLL], dict[str, str]]:
 @contextlib.contextmanager
 def _using(name: str, lib: ctypes.CDLL):
     """Point the wrappers at build ``name``'s ``lib`` for the duration of
-    the context; the parent's ``bwd_route`` sends D 80 to ``"mma"``."""
+    the context; the parent's ``bwd_route`` sends D 80 to ``"mma"``, and
+    its ``fwd_route`` every bf16 forward (it has no wgmma forward)."""
     route = fa.bwd_route
 
     def parent_route(q, k, v, o, do, fp32_scores=True):
         got = route(q, k, v, o, do, fp32_scores)
         return "mma" if got == "wgmma" and q.shape[-1] not in PARENT_WGMMA else got
 
+    def parent_fwd_route(q, k, v, fp32_scores=True):  # the parent's bf16 forward is mma.sync's alone
+        got = fwd_route(q, k, v, fp32_scores)
+        return "mma" if got == "wgmma" else got
+
+    fwd_route = fa.fwd_route
     fa._kernel.cache_clear()
     fa._bwd_kernel.cache_clear()
     with mock.patch.object(build, "library", lambda _: lib), \
-            mock.patch.object(fa, "bwd_route", parent_route if name == "parent" else route):
+            mock.patch.object(fa, "bwd_route", parent_route if name == "parent" else route), \
+            mock.patch.object(fa, "fwd_route", parent_fwd_route if name == "parent" else fwd_route):
         yield
     fa._kernel.cache_clear()
     fa._bwd_kernel.cache_clear()
@@ -254,7 +261,7 @@ def main() -> int:
                 out.setdefault(f"kernels_ms {name}", []).append(split)
                 out.setdefault(f"event_ms {name}", []).append(cs._time_ms(kern))
                 out.setdefault(f"fwd device_ms {name}", []).append(
-                    sum(_kernel_ms(fwd, (f"flash_fwd_mma_bf16_kernel<{d}>",)).values()))
+                    sum(_kernel_ms(fwd, fa.fwd_kernels(fa.fwd_route(q, k, v), d)).values()))
         for part in ("device_ms", "fwd device_ms"):
             out[f"{part} shipped / parent"] = (sum(out[f"{part} shipped"]) / sum(out[f"{part} parent"]))
         # both routes of the shipped build, each score mode, in turns

@@ -4,13 +4,13 @@
 // loads from another block's shared memory (distributed shared memory),
 // the 3-D and 4-D TMA tile loads (cp.async.bulk.tensor) that complete on an
 // mbarrier, alone or multicast to the cluster, the 1-D bulk copy, the 3-D
-// TMA tile store and its bulk-group waits, the async-proxy fence, named
-// barriers, wgmma shared-memory descriptors for the 128-byte swizzle, wgmma
-// fence / commit / wait, wgmma.mma_async bf16 with fp32 accumulators:
-// m64n128k16, m64n64k16, m64n16k16 and m64n8k16 with both operands from
-// shared memory (either major for each), m64n64k16, m64n80k16 and
-// m64n128k16 with A from registers, and setmaxnreg; on the host, the
-// driver's tensor-map encoder.
+// and 4-D TMA tile stores and their bulk-group waits, the async-proxy
+// fence, named barriers (sync and arrive), wgmma shared-memory descriptors
+// for the 128-byte swizzle, wgmma fence / commit / wait, wgmma.mma_async
+// bf16 with fp32 accumulators: m64n128k16, m64n64k16, m64n16k16 and
+// m64n8k16 with both operands from shared memory (either major for each),
+// m64n64k16, m64n80k16, m64n128k16 and m64n192k16 with A from registers,
+// and setmaxnreg; on the host, libcuda's tensor-map encoder.
 //
 // Layouts (PTX ISA, "Matrix Descriptor" and the canonical layouts of
 // wgmma): a tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B is a
@@ -172,6 +172,14 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
                : "memory");
 }
 
+// The 4-D form: the box at coordinates (c0 innermost, c1, c2, c3).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 
 // Waits until at most N of this thread's committed bulk groups still read
@@ -195,6 +203,11 @@ __device__ __forceinline__ void fence_proxy_async_shared() {
 // Barrier `id` (1-15; 0 is __syncthreads') among `threads` threads, a multiple of 32.
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrives at barrier `id` without waiting: counts towards the `threads` a bar.sync there waits for.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -351,9 +364,40 @@ __device__ __forceinline__ void wgmma_m64n80k16_bf16_rs(float (&d)[40], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(B_MN));
 }
 
-// d[64 x N] += A[64 x 16] (registers) . B[16 x N], N 64, 80 or 128.  At N 80
-// an MN-major B spans two 64-wide blocks of its swizzled tile, LBO apart,
-// and the product reads the second block's first 16 columns.
+template <int B_MN>
+__device__ __forceinline__ void wgmma_m64n192k16_bf16_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t desc_b,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(B_MN));
+}
+
+// d[64 x N] += A[64 x 16] (registers) . B[16 x N], N 64, 80, 128 or 192.  An
+// MN-major B wider than 64 spans 64-wide blocks of its swizzled tile, LBO
+// apart; at N 80 the product reads the second block's first 16 columns.
 template <int N, int B_MN>
 __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
                                               int accumulate) {
@@ -361,9 +405,11 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t 
     wgmma_m64n64k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
   } else if constexpr (N == 80) {
     wgmma_m64n80k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
-  } else {
-    static_assert(N == 128, "N is 64, 80 or 128");
+  } else if constexpr (N == 128) {
     wgmma_m64n128k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
+  } else {
+    static_assert(N == 192, "N is 64, 80, 128 or 192");
+    wgmma_m64n192k16_bf16_rs<B_MN>(d, a, desc_b, accumulate);
   }
 }
 

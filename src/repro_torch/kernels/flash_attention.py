@@ -5,12 +5,19 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas
 mask and GQA head grouping.  On the LM path it is the prefill attention of
 every ``attn`` model, in place of the reference's ``blocks._sdpa`` (which
 calls itself the XLA stand-in for this kernel).  ``csrc/flash_attention.cu``
-holds two kernels, picked by type: bf16 runs ``flash_fwd_mma_bf16_kernel``
-on the tensor cores (``mma.sync`` products with fp32 accumulators, Q in
-registers, a ``cp.async`` K/V ring, P kept in registers), fp32 runs
-``flash_fwd_kernel`` on the SIMT pipes (TF32 would miss the reference's
-2e-4).  Both keep the running max, normaliser and accumulator in fp32, skip
-causal tiles above the diagonal, mask a sliding window as ``_sdpa`` does and
+holds three forward kernels, picked by :func:`fwd_route` from the type, the
+score mode, the head dim and the strides (:func:`fwd_kernels` names each
+route's launch): bf16 at head dim 64, 80, 128 or 192 with rows TMA can
+address (every served prefill and training forward) runs
+``flash_fwd_wgmma_kernel`` (a persistent grid; a producer warpgroup's TMA
+loads into a K/V ring, ``wgmma`` products with P in registers, the softmax
+overlapping products in flight; each head dim's tiling :func:`fwd_plan`);
+other bf16 calls run ``flash_fwd_mma_bf16_kernel`` on the tensor cores
+(``mma.sync`` products with fp32 accumulators, Q in registers, a
+``cp.async`` K/V ring, P kept in registers); fp32 runs ``flash_fwd_kernel``
+on the SIMT pipes (TF32 would miss the reference's 2e-4).  All keep the
+running max, normaliser and accumulator in fp32, skip causal tiles above
+the diagonal, mask a sliding window as ``_sdpa`` does and
 mask ragged lengths instead of asserting that they divide the tile (see the
 source note).  The key length may differ from the query's (whisper's cross
 attention: 448 decoder positions against 1500 encoder frames), with the
@@ -78,7 +85,7 @@ bf16_scores_bwd_launches = 0
 
 #: head dims the kernels are built for (zamba2-2.7b runs 80, nemotron-4-340b 192)
 HEAD_DIMS = (16, 32, 64, 80, 128, 192)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 #: the wgmma route's error code for a tensor map the driver refused (+ its CUresult)
 _TENSOR_MAP_ERROR = 10000
 
@@ -91,6 +98,27 @@ BWD_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
 WGMMA_HEAD_DIMS = (64, 80, 128)
 #: the largest thread-block cluster every Hopper card launches
 PORTABLE_CLUSTER = 8
+#: the forward's routes, by the code the C entry takes: fp32 on the SIMT
+#: pipes, bf16 on ``mma.sync``, bf16 on ``wgmma`` fed by TMA
+FWD_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
+#: head dims of the forward's wgmma route: its tiles are the backward's
+#: (D 80 two boxes, the second zero-filled), and D 192's three boxes fit a
+#: ring of 64-key tiles beside two Q tiles (16 and 32 stay on ``mma.sync``)
+FWD_WGMMA_HEAD_DIMS = (64, 80, 128, 192)
+#: ``flash_fwd_wgmma_config``'s fields, in its order
+FWD_CONFIG_FIELDS = ("keys_a_tile", "consumer_warpgroups", "overlap", "q_in_registers", "persistent", "stages",
+                     "planned_blocks_an_sm", "smem_bytes", "blocks_an_sm")
+#: the forward wgmma kernel's tiling at each head dim as the shipped source
+#: builds it (``fwd_choice``): keys a K/V tile, consumer warpgroups of 64
+#: query rows, overlap bits (1 within a warpgroup, 2 ping-pong between two),
+#: Q in registers (1) or read from shared memory by every Q.K^T (0), a
+#: persistent grid walking work tiles (1) or a block a work tile (0)
+FWD_TILING = {64: (64, 1, 1, 1, 1), 80: (64, 2, 1, 1, 1), 128: (64, 1, 0, 0, 1), 192: (64, 2, 0, 0, 1)}
+#: an SM's shared memory for blocks (a block asks at most 232,448 bytes of
+#: it: 1,024 are reserved a block), and the most slots of the K/V ring
+SM_SMEM, FWD_MAX_STAGES = 233472, 4
+#: bytes of one 128-byte-swizzled TMA box of 64 rows
+_BOX = 64 * 128
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
@@ -341,6 +369,70 @@ def _tma_rows(t: torch.Tensor) -> bool:
             and all(s % 8 == 0 and (s > 0 or n == 1) for s, n in zip(outer, t.shape[:3])))
 
 
+def fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fp32_scores: bool = True) -> str:
+    """The forward's route (a key of ``FWD_ROUTES``) by type, score mode,
+    head dim, strides and alignment alone: ``"simt"`` for fp32;
+    ``"wgmma"`` for bf16 with fp32 scores at a head dim of
+    ``FWD_WGMMA_HEAD_DIMS`` where TMA can address every row of q, k and v
+    (the output, allocated like q, then is too); ``"mma"`` for every other
+    bf16 call (D 16 and 32, rows only 8-byte aligned, and the bf16-score
+    mode, whose forward sweeps the keys three times)."""
+    if q.dtype == torch.float32:
+        return "simt"
+    if fp32_scores and q.shape[-1] in FWD_WGMMA_HEAD_DIMS and all(_tma_rows(t) for t in (q, k, v)):
+        return "wgmma"
+    return "mma"
+
+
+def fwd_plan(d: int, tiling: tuple[int, int, int, int, int] | None = None) -> dict:
+    """``flash_fwd_wgmma_kernel<d>``'s tiling and shared-memory plan as the
+    source computes it (``fwd_tiling``, ``fwd_wgmma_smem``) for ``tiling``
+    (keys a tile, consumer warpgroups, overlap bits, Q in registers,
+    persistent; default the shipped ``FWD_TILING[d]``): the blocks an SM it
+    is planned for (two where one consumer warpgroup leaves room for a ring
+    of two slots each), the ring's slots (as many as fit, at most
+    ``FWD_MAX_STAGES``; a tiling whose ring would have fewer than two falls
+    back to 64-key tiles), and the bytes a block asks: 1,024 of alignment
+    slack, a Q tile of ceil(d / 64) boxes a consumer warpgroup (two slots of
+    them on a persistent grid, the next work tile's loading while the last
+    one's output is stored), the ring of K and V tiles and the barriers.
+    Keys as ``FWD_CONFIG_FIELDS`` but the measured ``blocks_an_sm``, with
+    each tile's bytes (every tile starts 1,024-byte aligned).  Raises for Q
+    in registers without the overlap within a warpgroup (overlap bit 1),
+    which the source does not build."""
+    bn, wgs, overlap, qreg, persist = FWD_TILING[d] if tiling is None else tiling
+    if qreg and not overlap & 1:
+        raise ValueError(f"Q in registers runs with the overlap within a warpgroup, got overlap {overlap}")
+    boxes, qslots = -(-d // 64), 2 if persist else 1
+
+    def fit(keys: int, groups: int, blocks: int) -> int:
+        room = SM_SMEM // blocks - 1024 - 1024 - 128 - qslots * groups * boxes * _BOX
+        return min(FWD_MAX_STAGES, room // (2 * boxes * keys * 128))
+
+    if fit(bn, wgs, 1) < 2:
+        bn = 64
+    bps = 2 if wgs == 1 and fit(bn, 1, 2) >= 2 else 1
+    stages = fit(bn, wgs, bps)
+    return {"keys_a_tile": bn, "consumer_warpgroups": wgs, "overlap": overlap if wgs == 2 else overlap & 1,
+            "q_in_registers": qreg, "persistent": persist, "stages": stages, "planned_blocks_an_sm": bps,
+            "smem_bytes": (1024 + qslots * wgs * boxes * _BOX + stages * 2 * boxes * bn * 128
+                           + 2 * (qslots + stages) * 8),
+            "q_tile_bytes": boxes * _BOX, "kv_tile_bytes": boxes * bn * 128}
+
+
+def fwd_kernels(route: str, d: int, fp32_scores: bool = True) -> tuple[str, ...]:
+    """The kernel one forward launches on ``route`` at head dim ``d``, as
+    the profiler names it."""
+    if route == "wgmma" and fp32_scores:
+        return (f"flash_fwd_wgmma_kernel<{d}>",)
+    if route == "mma":
+        return (f"flash_fwd_mma_bf16{'' if fp32_scores else '_scores'}_kernel<{d}>",)
+    if route == "simt":
+        return (f"flash_fwd_{'' if fp32_scores else 'bf16_scores_'}kernel<{d}>",)
+    raise ValueError(f"no forward route {route!r}{'' if fp32_scores else ' in the bf16-score mode'} "
+                     f"(have {tuple(FWD_ROUTES)})")
+
+
 def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
               fp32_scores: bool = True) -> str:
     """The backward's route (a key of ``BWD_ROUTES``) by type, head dim,
@@ -431,7 +523,7 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
     return_lse: bool = False, fp32_scores: bool = True,
 ):
-    """Attention on the CUDA kernel.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv,
+    """Attention on the CUDA kernels.  q: [B, H, Sq, D]; k, v: [B, KVH, Skv,
     D], float32 or bfloat16 on the current CUDA device, D in ``HEAD_DIMS``,
     unit stride over D (other strides free, so ``[b, s, h, d]`` tensors pass
     as transposed views) -> [B, H, Sq, D] with q's layout and type.  Masks
@@ -442,13 +534,34 @@ def flash_attention(
     ``flash_fwd_bf16_scores_kernel`` for fp32), and ``lse`` is then the
     (m, l) stats, fp32 [2, B, H, Sq].
 
-    Launches on the current stream without synchronising (one count in
+    Launches the kernel of :func:`fwd_route`'s route (:func:`fwd_kernels`)
+    on the current stream without synchronising (one count in
     ``launches``, or ``bf16_scores_launches`` in the mode); raises if the
     inputs are not what the kernel takes or the launch is refused.
     """
-    global launches, bf16_scores_launches
     _check_device(q, k, v)
     _check_shapes(q, k, v, window)
+    return _launch_fwd(q, k, v, fwd_route(q, k, v, fp32_scores), causal, window, return_lse, fp32_scores)
+
+
+def run_fwd_route(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, route: str, causal: bool = True, window: int = 0,
+    return_lse: bool = False,
+):
+    """:func:`flash_attention` (fp32 scores) on ``route``, which need not be
+    :func:`fwd_route`'s: ``"mma"`` takes every bf16 call (so the wgmma
+    route's shapes can be timed on the ``mma.sync`` kernel beside it),
+    ``"wgmma"`` only where :func:`fwd_route` picks it, ``"simt"`` fp32."""
+    _check_device(q, k, v)
+    _check_shapes(q, k, v, window)
+    picked = fwd_route(q, k, v)
+    if route not in ({"simt"} if picked == "simt" else {"mma", picked}):
+        raise ValueError(f"the forward of q {tuple(q.shape)} ({q.dtype}) has no route {route!r} (it takes {picked!r})")
+    return _launch_fwd(q, k, v, route, causal, window, return_lse, True)
+
+
+def _launch_fwd(q, k, v, route: str, causal: bool, window: int, return_lse: bool, fp32_scores: bool):
+    global launches, bf16_scores_launches
     _check_kernel_shapes(q, k, 64)
     b, h, sq, d = q.shape
     strides = _strides(q, k, v)
@@ -458,13 +571,16 @@ def flash_attention(
         lse = torch.empty((b, h, sq) if fp32_scores else (2, b, h, sq), dtype=torch.float32, device=q.device)
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None if lse is None else lse.data_ptr(),
-        _DTYPES[q.dtype], b, h, k.shape[1], sq, k.shape[2], d,
+        FWD_ROUTES[route], b, h, k.shape[1], sq, k.shape[2], d,
         *strides, *o.stride()[:3],
         int(causal), int(window), int(not fp32_scores), 1.0 / math.sqrt(d) if fp32_scores else score_divisor(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if err >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a tensor map "
+                           f"(CUresult {err - _TENSOR_MAP_ERROR})")
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention launch failed on route {route!r}: cudaError {err}")
     if fp32_scores:
         launches += 1
     else:
@@ -580,6 +696,22 @@ def _check_kernel():
     fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def fwd_config(d: int) -> dict:
+    """What ``flash_fwd_wgmma_kernel<d>`` was built with
+    (``FWD_CONFIG_FIELDS``: its tiling, ring, shared memory, and the blocks
+    an SM of the current card holds at once)."""
+    from .build import library
+
+    fn = library("flash_attention").flash_fwd_wgmma_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(FWD_CONFIG_FIELDS))()
+    err = fn(d, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash forward wgmma config at D {d}: cudaError {err}")
+    return dict(zip(FWD_CONFIG_FIELDS, out))
 
 
 def bwd_occupancy(d: int, fp32_scores: bool, dkdv: bool) -> int:

@@ -443,9 +443,69 @@ def test_flash_attention_takes_bf16_rows_aligned_to_8_bytes():
     q, k, v = (torch.randn((b, s, n * d + 4), generator=g, device="cuda").bfloat16()[..., : n * d]
                .unflatten(-1, (n, d)).transpose(1, 2) for n in (h, kvh, kvh))
     assert q.stride(2) % 8 == 4
+    assert fa.fwd_route(q, k, v) == "mma"  # TMA needs 16-byte rows
     y = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     _agree(y, fa.flash_attention_plain(q, k, v), 2e-4, False)
+
+
+#: the wgmma forward's branches at each of its head dims (b, h, kvh, sq, skv, d, causal, window): the
+#: served prefill shapes and GQA groups (1, 4, 5, 12), S of one row, one row past a 128-row block, ragged
+#: and long, windows narrower and wider than a tile, no causal mask, key lengths other than the query's
+#: (longer and shorter), and rows that see no key (NaN, as plain)
+WGMMA_FWD_CASES = [
+    (4, 32, 8, 512, 512, 64, True, 0),  # granite-3-2b prefill
+    (4, 12, 12, 1500, 1500, 64, False, 0),  # whisper-small encoder
+    (2, 4, 4, 200, 200, 64, True, 7),
+    (1, 8, 2, 1, 1, 64, True, 0),
+    (2, 8, 1, 448, 65, 64, False, 0),
+    (2, 8, 1, 1500, 448, 64, True, 0),
+    (1, 4, 2, 100, 8, 64, True, 5),  # rows 12 and on see no key
+    (4, 32, 32, 512, 512, 80, True, 0),  # zamba2-2.7b's shared block
+    (2, 8, 8, 200, 200, 80, True, 7),
+    (1, 12, 1, 65, 65, 80, False, 0),
+    (1, 4, 4, 129, 129, 80, True, 0),
+    (2, 40, 8, 1000, 1000, 128, True, 0),  # GQA group 5 (llama4-scout)
+    (2, 10, 2, 65, 65, 128, False, 0),
+    (2, 8, 2, 300, 300, 128, True, 50),
+    (1, 16, 2, 448, 1500, 128, True, 0),
+    (2, 12, 12, 448, 1, 128, False, 0),
+    (2, 8, 8, 15, 65, 128, True, 7),
+    (1, 4, 2, 100, 8, 128, True, 5),
+    (2, 24, 2, 130, 130, 192, True, 50),  # GQA group 12 (nemotron-4-340b)
+    (2, 12, 1, 300, 300, 192, False, 0),
+    (1, 12, 1, 1, 1, 192, True, 0),
+    (1, 96, 8, 512, 512, 192, True, 0),
+]
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,skv,d,causal,window", WGMMA_FWD_CASES)
+def test_flash_forward_on_wgmma_matches_plain_and_repeats_its_bits(b, h, kvh, sq, skv, d, causal, window):
+    """flash_fwd_wgmma_kernel against the plain forward (o, and the lse the
+    backward reads) in the model's layout, the same bits on a second call,
+    and the mma.sync kernel through the C entry's route code on the same
+    inputs."""
+    q, k, v = _attn(b, h, kvh, sq, d, torch.bfloat16, seed=sq * 7 + skv + d, bshd=True, skv=skv)
+    assert fa.fwd_route(q, k, v) == "wgmma"
+    kw = dict(causal=causal, window=window)
+    y, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    y2, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    ym = fa.run_fwd_route(q, k, v, route="mma", **kw)
+    yp, lp = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert y.stride() == q.stride()
+    assert torch.equal(_bits(y), _bits(y2)) and torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+    seen = ~yp.float().isnan()
+    assert torch.equal(seen, ~y.float().isnan()) and torch.equal(seen, ~ym.float().isnan())
+    _agree(y[seen], yp[seen], 2e-4, False)
+    _agree(ym[seen], yp[seen], 2e-4, False)
+    finite = torch.isfinite(lp)
+    assert torch.equal(finite, torch.isfinite(lse))
+    torch.testing.assert_close(lse[finite], lp[finite], rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -474,14 +534,43 @@ def _device_kernel_names(fn) -> list[str]:
     return names
 
 
+@pytest.mark.parametrize("d", [64, 80, 128, 192])
+def test_flash_forward_wgmma_is_built_as_planned(d):
+    """The kernel's tiling, ring and shared memory as ``fwd_plan`` mirrors
+    them, and the blocks an SM it was planned for fit the card."""
+    config, plan = fa.fwd_config(d), fa.fwd_plan(d)
+    assert {k: v for k, v in config.items() if k in plan} == {k: v for k, v in plan.items() if k in config}
+    assert config["blocks_an_sm"] == plan["planned_blocks_an_sm"]
+
+
+@pytest.mark.parametrize("h,kvh,d", [(32, 8, 64), (40, 8, 128)])
+def test_flash_forward_wgmma_gives_the_mma_kernels_bits_at_head_dims_64_and_128(h, kvh, d):
+    """Each row's fp32 steps are the mma.sync kernel's in its order (64-key
+    tiles, pairwise row sums, the correctly rounded quotient), so at
+    granite's and llama4-scout's prefill shapes the two routes agree bit for
+    bit, o and lse."""
+    q, k, v = _attn(4, h, kvh, 512, d, torch.bfloat16, seed=d, bshd=True)
+    y, lse = fa.flash_attention(q, k, v, return_lse=True)
+    ym, lsem = fa.run_fwd_route(q, k, v, route="mma", return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(ym)) and torch.equal(lse.view(torch.int32), lsem.view(torch.int32))
+
+
 def test_flash_attention_runs_the_kernel_of_its_type():
-    """bf16 on the tensor-core kernel, fp32 on the SIMT kernel, and never the other."""
-    for dtype, want, other in ((torch.bfloat16, "flash_fwd_mma_bf16_kernel", "flash_fwd_kernel"),
-                               (torch.float32, "flash_fwd_kernel", "flash_fwd_mma_bf16_kernel")):
-        q, k, v = _attn(1, 4, 2, 128, 64, dtype)
+    """Each forward route's kernel (``flash_attention.fwd_kernels``) and no
+    other flash forward: bf16 at D 64 with rows TMA can address on wgmma;
+    bf16 at D 32, and at D 64 with rows only 8-byte aligned, on mma.sync;
+    fp32 on the SIMT kernel."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    narrow = [torch.randn((1, 128, n * 64 + 4), generator=g, device="cuda").bfloat16()[..., : n * 64]
+              .unflatten(-1, (n, 64)).transpose(1, 2) for n in (4, 2, 2)]
+    cases = [(_attn(1, 4, 2, 128, 64, torch.bfloat16), "wgmma"), (_attn(1, 4, 2, 128, 32, torch.bfloat16), "mma"),
+             (narrow, "mma"), (_attn(1, 4, 2, 128, 64, torch.float32), "simt")]
+    for (q, k, v), route in cases:
+        assert fa.fwd_route(q, k, v) == route
         names = _device_kernel_names(lambda: fa.flash_attention(q, k, v))
-        assert any(want in n for n in names), names
-        assert not any(other in n for n in names), names
+        ran = [n for n in names if "flash_fwd_" in n]
+        assert len(ran) == 1 and fa.fwd_kernels(route, q.shape[-1])[0] in ran[0], (route, names)
 
 
 def _ssd(b, l, h, p, n, dtype, seed=0, strided=False):
