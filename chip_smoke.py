@@ -2061,7 +2061,9 @@ def check_flash(gen: torch.Generator) -> dict:
             timed.update(device_ms=device_ms, mma_device_ms=mma_device_ms, plain_device_ms=plain_device_ms,
                          library_device_ms=library_device_ms, host_ms=_host_ms(kern), mma_host_ms=_host_ms(mma),
                          library_host_ms=_host_ms(sdpa))
-            want = {"wgmma": fa.fwd_kernels(desc["route"], d), "mma": fa.fwd_kernels("mma", d)}
+            if desc["route"] != "wgmma":  # every served prefill shape is on the wgmma route
+                raise RuntimeError(f"flash_attention at {case['model']}'s shape took route {desc['route']!r}")
+            want = {"wgmma": fa.fwd_kernels("wgmma", d), "mma": fa.fwd_kernels("mma", d)}
             for route, got in (("wgmma", ran), ("mma", mma_ran)):
                 names = sorted(m.group(1) for n in got if (m := FLASH_FN.search(n)))
                 if names != list(want[route]):

@@ -2,18 +2,18 @@
 
     python3 scripts/flash_tiles.py [--tilings all|shipped]
 
-The shipped ``flash_fwd_wgmma_kernel<D>`` takes each head dim's tiling from
-``fwd_choice`` in ``csrc/flash_attention.cu``.  This script builds that
-source once more for each tiling of ``TILINGS`` (keys a K/V tile, 64 or
-128; consumer warpgroups of 64 query rows, one or two; the overlap of the
-softmax with the products: none, within a warpgroup, the two warpgroups in
-ping-pong, or both; Q read from shared memory by every Q.K^T or held in
-registers; a block a work tile or a persistent grid), with
-``-DFLASH_FWD_BN=``, ``-DFLASH_FWD_WGS=``, ``-DFLASH_FWD_OVERLAP=``,
-``-DFLASH_FWD_QREG=`` and ``-DFLASH_FWD_PERSIST=`` into ``build/``, once with
-``-DFLASH_D128_WARPS=4`` (the ``mma.sync`` kernel's 4-warp tiling at D
-128) and once from the parent commit's source, all at the same time as the
-shipped library.  Then, at each flash
+The shipped ``flash_fwd_wgmma_kernel<D>`` takes each head dim's consumer
+warpgroups and overlap from ``fwd_choice`` in ``csrc/flash_attention.cu``.
+This script builds that source once more for each choice of ``TILINGS``
+(consumer warpgroups of 64 query rows, one or two; the softmax of a key
+tile overlapping its neighbours' products within a warpgroup, or not),
+with ``-DFLASH_FWD_WGS=`` and ``-DFLASH_FWD_OVERLAP=`` into ``build/``,
+once with ``-DFLASH_D128_WARPS=4`` (the ``mma.sync`` kernel's 4-warp
+tiling at D 128) and once from the parent commit's source, all at the
+same time as the shipped library.  (128-key tiles, ping-pong between two
+warpgroups, Q held in registers and a block a work tile lost to these
+choices and were taken out of the source; this script timed them at
+commit 1c091d5, PERF.md.)  Then, at each flash
 call of the served models' prefills (``chip_smoke.served_flash_calls``:
 bf16, q/k/v as the model's transposed views), it holds every build's
 forward against the plain version (within ``BF16_REL_TOL`` of max |plain|,
@@ -65,9 +65,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-#: (keys a tile, consumer warpgroups, overlap bits, Q in registers, persistent grid) of each probe build
-TILINGS = [(128, 2, 1, 0, 0), (128, 2, 3, 0, 0), (64, 1, 1, 0, 0), (64, 1, 1, 0, 1), (64, 1, 1, 1, 1), (64, 1, 0, 0, 1),
-           (64, 2, 0, 0, 1), (64, 2, 1, 1, 1), (64, 2, 3, 0, 1), (128, 2, 0, 0, 1), (128, 2, 3, 1, 1)]
+#: (consumer warpgroups, overlap within a warpgroup) of each probe build
+TILINGS = [(1, 0), (1, 1), (2, 0), (2, 1)]
 
 
 #: the commit before the wgmma forward, and where its kernel source is kept
@@ -91,8 +90,8 @@ def _parent_source() -> Path:
     return PARENT_SRC
 
 
-def _name(tiling: tuple[int, int, int, int, int]) -> str:
-    return "bn{}_wg{}_ov{}_q{}_p{}".format(*tiling)
+def _name(tiling: tuple[int, int]) -> str:
+    return "wg{}_ov{}".format(*tiling)
 
 
 def _ptxas(log: str, kernel: str) -> dict[int, str]:
@@ -106,8 +105,7 @@ def _ptxas(log: str, kernel: str) -> dict[int, str]:
 
 def _build(tilings: list) -> dict[str, ctypes.CDLL]:
     """The shipped library and one copy per tiling (and the 4-warp mma.sync copy), built at once."""
-    flags = {_name(t): [f"-DFLASH_FWD_{k}={v}" for k, v in zip(("BN", "WGS", "OVERLAP", "QREG", "PERSIST"), t)]
-             for t in tilings}
+    flags = {_name(t): [f"-DFLASH_FWD_WGS={t[0]}", f"-DFLASH_FWD_OVERLAP={t[1]}"] for t in tilings}
     flags["mma_w4"] = ["-DFLASH_D128_WARPS=4"]
     flags["parent"] = []
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -2387,14 +2387,13 @@ __device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int 
   return wgmma_desc_sw128(tile + 16 * 128 * kk, HBOX, 1024);
 }
 
-// Rows s0 .. s0 + ROWS - 1 of head h of batch b of a tensor mapped as (D,
-// positions, heads, batch) in boxes of ROWS rows: ceil(D / 64) boxes of 64
-// columns, ROWS * 128 bytes apart.
-template <int D, int ROWS = HB>
+// Rows s0 .. s0 + 63 of head h of batch b of a tensor mapped as (D,
+// positions, heads, batch): ceil(D / 64) boxes of 64 columns.
+template <int D>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int s0, int h,
                                           int b) {
 #pragma unroll
-  for (int j = 0; j < (D + 63) / 64; ++j) tma_load_4d(dst + j * ROWS * 128, map, bar, 64 * j, s0, h, b);
+  for (int j = 0; j < (D + 63) / 64; ++j) tma_load_4d(dst + j * HBOX, map, bar, 64 * j, s0, h, b);
 }
 
 // Packs accumulator n8 blocks 2 kk and 2 kk + 1 of a 64 x 64 fp32 tile,
@@ -2898,17 +2897,17 @@ flash_bwd_dkdv_wgmma_bf16_scores_kernel(const __grid_constant__ CUtensorMap map_
 }
 
 // A 4-D tensor map (D, positions, heads, batch) over a bf16 tensor with
-// element strides `st` (batch, head, position; D unit), in boxes of 64
-// columns by `rows` positions, 128-byte swizzled, zero-filled past the last
-// position (a store writes nothing there).  A dim of extent 1 is never
-// stepped over: it gets a stride the encoder takes.
-int encode_rows(CUtensorMap* map, const void* base, int D, int S, int H, int B, const long long* st, int rows = HB) {
+// element strides `st` (batch, head, position; D unit), in 64 x 64 boxes,
+// 128-byte swizzled, zero-filled past the last position (a store writes
+// nothing there).  A dim of extent 1 is never stepped over: it gets a
+// stride the encoder takes.
+int encode_rows(CUtensorMap* map, const void* base, int D, int S, int H, int B, const long long* st) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return NO_ENCODER;
   const long long pos = st[2], head = H == 1 ? pos * S : st[1], batch = B == 1 ? pos * S * H : st[0];
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)pos * 2, (cuuint64_t)head * 2, (cuuint64_t)batch * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {64, HB, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
                             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -2968,43 +2967,40 @@ int launch_bwd_wgmma(const BwdArgs& a, const BwdShape& p, int cl, cudaStream_t s
 //
 // flash_fwd_wgmma_kernel<D>: what flash_fwd_mma_bf16_kernel computes, on
 // Hopper's own path.  A work tile is (batch * q-head, 64 * WGS query rows),
-// heaviest causal tiles first; on a persistent grid (as many blocks as the
-// SMs hold) each block walks work tiles blockIdx.x, + gridDim.x, ...,
-// else each block takes one.  Warpgroup WGS produces, warpgroups 0 .. WGS
-// - 1 consume, each owning 64 query rows (warp specialisation: setmaxnreg
-// moves the producer's registers to the consumers where the block's share
-// of the SM's registers leaves them fewer than 240).
+// heaviest causal tiles first; the grid is persistent (as many blocks as
+// the SMs hold), each block walking work tiles blockIdx.x, + gridDim.x, ....
+// Warpgroup WGS produces, warpgroups 0 .. WGS - 1 consume, each owning 64
+// query rows (warp specialisation: setmaxnreg moves the producer's
+// registers to the consumers where the block's share of the SM's registers
+// leaves them fewer than 240).
 // - Loads: the producer's first thread issues every TMA load, over 4-D
 //   tensor maps (D, positions, heads, batch) of the tensors as they lie
 //   (the model's transposed [b, s, h, d] views), 128-byte swizzled: each
 //   warpgroup's Q tile of the work tile (64 rows, ceil(D / 64) boxes; D
-//   80's second box zero-filled past column 79, D 192 three boxes) into a
-//   Q slot (two on a persistent grid: the next work tile's Q lands while
-//   the last one's output is stored from the other), then the work tile's
-//   K and V tiles of BN keys into a ring of `stages` slots on full / empty
-//   mbarriers that runs on across work tiles; each consumer warpgroup's
-//   first thread releases a slot once its products have read it, and a Q
-//   slot once its output has left it.  Rows past Sq and Skv arrive as zeros.
-// - Products: S = Q.K^T on wgmma m64nBNk16, K K-major from its tile and Q
-//   either K-major from shared memory or, loaded once a work tile, as A
-//   fragments in registers (which halves what the product reads from
-//   shared memory at 64 keys a tile); D / 16 k16 steps, five at D 80,
-//   whose zero columns are never read.  O += P.V on wgmma m64nDk16 (N 64,
-//   80, 128 or 192) with P in registers as the A operand and V read
-//   MN-major from its tile.
+//   80's second box zero-filled past column 79, D 192 three boxes) into one
+//   of two Q slots (the next work tile's Q lands while the last one's
+//   output is stored from the other), then the work tile's K and V tiles of
+//   64 keys into a ring of `stages` slots on full / empty mbarriers that
+//   runs on across work tiles; each consumer warpgroup's first thread
+//   releases a slot once its products have read it, and a Q slot once its
+//   output has left it.  Rows past Sq and Skv arrive as zeros.
+// - Products: S = Q.K^T on wgmma m64n64k16, Q and K K-major from their
+//   tiles; D / 16 k16 steps, five at D 80, whose zero columns are never
+//   read.  O += P.V on wgmma m64nDk16 (N 64, 80, 128 or 192) with P in
+//   registers as the A operand and V read MN-major from its tile.
 // - Online softmax on the S accumulator fragments (rows 16w + lane / 4 and
 //   + 8 of warp w; each row's max over its 4 lanes in two shuffles), scale *
 //   log2(e) folded into one FMA before ex2.approx, fp32 statistics; p
 //   rounded to bf16 into P's fragments while the normaliser sums the
 //   unrounded p; masks only on the tiles that need them.  Every consumer
 //   warpgroup runs every key tile of the work tile (one its rows cannot
-//   see masks to p = 0), so the ring and the turns below stay in step.
-// - Overlap (the tiling's overlap bits): 1, within a warpgroup: key tile
-//   j + 1's S = Q.K^T is issued together with tile j's O += P.V, and tile
-//   j + 1's softmax runs while P.V is in flight (O is rescaled and P packed
-//   once it lands: one S, one P and one O in registers); 2, ping-pong: the
-//   two consumer warpgroups take turns to issue their products (named
-//   barriers 1 and 2), so one's softmax runs while the other's products do.
+//   see masks to p = 0), so the ring stays in step.
+// - Overlap within a warpgroup (the tiling's `overlap`): key tile j + 1's
+//   S = Q.K^T is issued together with tile j's O += P.V, and tile j + 1's
+//   softmax runs while P.V is in flight (O is rescaled and P packed once it
+//   lands: one S, one P and one O in registers).  Without it each tile's
+//   products wait for its softmax, and two blocks an SM (or two consumer
+//   warpgroups) cover each other's softmax instead.
 // - Epilogue: o = O / l, correctly rounded (a reciprocal a row, one
 //   correction an element), rounded to bf16, staged in the warpgroup's Q
 //   tile in the map's swizzled layout, and written by one TMA store a box
@@ -3017,57 +3013,46 @@ int launch_bwd_wgmma(const BwdArgs& a, const BwdShape& p, int cl, cudaStream_t s
 //   and the operations bound are both 3-15 us; what sets the time is each
 //   work tile's latency (its first loads, its epilogue) and, at 64 keys a
 //   tile, the shared memory the products read.  The persistent grid hides
-//   the first behind the last work tile's products, two blocks an SM (one
-//   consumer warpgroup each) hide it behind each other, and Q in registers
-//   cuts the second (PERF.md, scripts/flash_tiles.py).
-// Tilings: fwd_choice gives each head dim's shipped (keys a tile, consumer
-// warpgroups, overlap bits, Q in registers, persistent grid), measured by
-// scripts/flash_tiles.py (PERF.md), which builds copies with
-// -DFLASH_FWD_BN=, -DFLASH_FWD_WGS=, -DFLASH_FWD_OVERLAP=, -DFLASH_FWD_QREG=
-// and -DFLASH_FWD_PERSIST= (all five) to time one tiling at every head dim.
-// fwd_tiling then plans the blocks an SM (two where one consumer warpgroup
-// leaves room for a ring of two slots each, else one) and the ring (as
-// many slots as fit, at most four); a tiling whose ring would have fewer
-// than two slots falls back to 64-key tiles (D 192 at 128 keys beside two
-// Q slots of two warpgroups).  flash_fwd_wgmma_config reports what each
-// head dim was built with, and flash_attention.py::fwd_plan mirrors the
-// plan.
+//   the first behind the last work tile's products, and two blocks an SM
+//   (one consumer warpgroup each) hide it behind each other (PERF.md,
+//   scripts/flash_tiles.py).
+// Tilings: fwd_choice gives each head dim's shipped consumer warpgroups and
+// overlap, measured by scripts/flash_tiles.py (PERF.md), which builds
+// copies with -DFLASH_FWD_WGS= and -DFLASH_FWD_OVERLAP= (both) to time one
+// choice at every head dim.  fwd_tiling then plans the blocks an SM (two
+// where one consumer warpgroup leaves room for a ring of two slots each,
+// else one) and the ring (as many slots as fit, at most four).
+// flash_fwd_wgmma_config reports what each head dim was built with, and
+// flash_attention.py::fwd_plan mirrors the plan.
 struct FwdChoice {
-  int bn, wgs, overlap, qreg, persist;
+  int wgs, overlap;
 };
 
 template <int D>
 __host__ __device__ constexpr FwdChoice fwd_choice() {
-#ifdef FLASH_FWD_BN
-  return FwdChoice{FLASH_FWD_BN, FLASH_FWD_WGS, FLASH_FWD_OVERLAP, FLASH_FWD_QREG, FLASH_FWD_PERSIST};
+#ifdef FLASH_FWD_WGS
+  return FwdChoice{FLASH_FWD_WGS, FLASH_FWD_OVERLAP};
 #else
-  return D == 64    ? FwdChoice{64, 1, 1, 1, 1}
-         : D == 80  ? FwdChoice{64, 2, 1, 1, 1}
-         : D == 128 ? FwdChoice{64, 1, 0, 0, 1}
-                    : FwdChoice{64, 2, 0, 0, 1};
+  return D == 64 ? FwdChoice{1, 1} : D == 128 ? FwdChoice{1, 0} : FwdChoice{2, 0};
 #endif
 }
 
 struct FwdTiling {
-  int bn;       // keys a K/V tile
   int wgs;      // consumer warpgroups, 64 query rows each
-  int overlap;  // bit 0: within a warpgroup; bit 1: ping-pong between two
-  int qreg;     // 1: Q.K^T takes Q from registers (loaded once a work tile), 0: from shared memory
-  int persist;  // 1: a grid of the blocks the card holds at once, each walking work tiles, the next tile's Q
-                // loaded into a second slot while the last is stored; 0: a block a work tile
+  int overlap;  // 1: the softmax of a key tile runs while the products of its neighbours are in flight
   int bps;      // blocks an SM the registers and shared memory are planned for
   int stages;   // slots of the K/V ring
 };
 
 constexpr int FWD_MAX_STAGES = 4;
 
-// Slots of BN-key K/V tiles beside `qslots` x `wgs` Q tiles when `bps`
+// Slots of 64-key K/V tiles beside two slots of `wgs` Q tiles when `bps`
 // blocks share an SM's 233,472 bytes (1,024 of them reserved a block),
 // after 1,024 bytes of alignment slack and the barriers; at most
 // FWD_MAX_STAGES.
-__host__ __device__ constexpr int fwd_fit(int boxes, int bn, int wgs, int qslots, int bps) {
-  const int room = 233472 / bps - 1024 - 1024 - 128 - qslots * wgs * boxes * HBOX;
-  const int slots = room / (2 * boxes * bn * 128);
+__host__ __device__ constexpr int fwd_fit(int boxes, int wgs, int bps) {
+  const int room = 233472 / bps - 1024 - 1024 - 128 - 2 * wgs * boxes * HBOX;
+  const int slots = room / (2 * boxes * HBOX);
   return slots < FWD_MAX_STAGES ? slots : FWD_MAX_STAGES;
 }
 
@@ -3075,11 +3060,8 @@ template <int D>
 __host__ __device__ constexpr FwdTiling fwd_tiling() {
   constexpr int boxes = (D + 63) / 64;
   constexpr FwdChoice C = fwd_choice<D>();
-  const int qslots = C.persist ? 2 : 1;
-  const int bn = fwd_fit(boxes, C.bn, C.wgs, qslots, 1) < 2 ? 64 : C.bn;
-  const int bps = C.wgs == 1 && fwd_fit(boxes, bn, 1, qslots, 2) >= 2 ? 2 : 1;
-  const int overlap = C.wgs == 2 ? C.overlap : C.overlap & 1;  // ping-pong needs two warpgroups
-  return FwdTiling{bn, C.wgs, overlap, C.qreg, C.persist, bps, fwd_fit(boxes, bn, C.wgs, qslots, bps)};
+  const int bps = C.wgs == 1 && fwd_fit(boxes, 1, 2) >= 2 ? 2 : 1;
+  return FwdTiling{C.wgs, C.overlap, bps, fwd_fit(boxes, C.wgs, bps)};
 }
 
 template <int D>
@@ -3109,8 +3091,7 @@ template <int D>
 __host__ __device__ constexpr int fwd_wgmma_smem() {
   constexpr FwdTiling T = fwd_tiling<D>();
   constexpr int boxes = (D + 63) / 64;
-  const int qslots = T.persist ? 2 : 1;
-  return 1024 + qslots * T.wgs * boxes * HBOX + T.stages * 2 * boxes * T.bn * 128 + 2 * (qslots + T.stages) * 8;
+  return 1024 + 2 * T.wgs * boxes * HBOX + T.stages * 2 * boxes * HBOX + 2 * (2 + T.stages) * 8;
 }
 
 static_assert(fwd_tiling<64>().stages >= 2 && fwd_tiling<80>().stages >= 2 && fwd_tiling<128>().stages >= 2 &&
@@ -3122,68 +3103,28 @@ static_assert(fwd_tiling<64>().bps * (fwd_wgmma_smem<64>() + 1024) <= 233472 &&
                   fwd_tiling<192>().bps * (fwd_wgmma_smem<192>() + 1024) <= 233472,
               "the blocks an SM is planned for fit its shared memory");
 
-// S = Q.K^T's product of one k16 step: N = BN keys, K K-major; Q K-major
-// from shared memory, or its A fragment from registers.
-template <int BN>
-__device__ __forceinline__ void wgmma_scores(float (&s)[BN / 2], uint64_t desc_q, uint64_t desc_k, int accumulate) {
-  if constexpr (BN == 128) {
-    wgmma_m64n128k16_bf16<0, 0>(s, desc_q, desc_k, accumulate);
-  } else {
-    static_assert(BN == 64, "64 or 128 keys a tile");
-    wgmma_m64n64k16_bf16<0, 0>(s, desc_q, desc_k, accumulate);
-  }
-}
-template <int BN>
-__device__ __forceinline__ void wgmma_scores(float (&s)[BN / 2], const uint32_t (&q)[4], uint64_t desc_k,
-                                             int accumulate) {
-  if constexpr (BN == 128) {
-    wgmma_m64n128k16_bf16_rs<0>(s, q, desc_k, accumulate);
-  } else {
-    static_assert(BN == 64, "64 or 128 keys a tile");
-    wgmma_m64n64k16_bf16_rs<0>(s, q, desc_k, accumulate);
-  }
-}
-
-
-// Descriptors of k16 step kk of a K or V tile of BN rows (keys), ceil(D /
-// 64) boxes of BN rows of 128 bytes: K-major over D (K in S = Q.K^T), and
-// MN-major with the keys the reduction (V in O += P.V; the boxes, 64
-// columns each, BN * 128 bytes apart).
-template <int BN>
-__device__ __forceinline__ uint64_t kv_kmajor_desc(const unsigned char* tile, int kk) {
-  return wgmma_desc_sw128(tile + (kk / 4) * BN * 128 + 32 * (kk % 4), 16, 1024);
-}
-template <int BN>
-__device__ __forceinline__ uint64_t kv_mnmajor_desc(const unsigned char* tile, int kk) {
-  return wgmma_desc_sw128(tile + 16 * 128 * kk, BN * 128, 1024);
-}
-
 template <int D>
 __global__ void __launch_bounds__(fwd_threads<D>(), fwd_bps<D>())
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
                        float* __restrict__ lse, AttnShape p, int nqt) {
   constexpr FwdTiling T = fwd_tiling<D>();
-  constexpr int BN = T.bn, WGS = T.wgs, S = T.stages, QS = T.persist ? 2 : 1, REGS = fwd_consumer_regs<D>();
-  constexpr bool INTRA = (T.overlap & 1) != 0, PING = (T.overlap & 2) != 0, QREG = T.qreg != 0;
-  // Q in registers with no overlap within the warpgroup gave wrong outputs on the card (scripts/flash_tiles.py,
-  // cause not found), so no such kernel is built
-  static_assert(!QREG || INTRA, "Q in registers runs with the overlap within a warpgroup");
-  constexpr int QT = (D + 63) / 64 * HBOX, KT = (D + 63) / 64 * BN * 128, STAGE = 2 * KT;
+  constexpr int WGS = T.wgs, S = T.stages, REGS = fwd_consumer_regs<D>();
+  constexpr int QT = (D + 63) / 64 * HBOX, STAGE = 2 * QT;  // a Q, K or V tile: ceil(D / 64) boxes of 64 rows
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* Qs = smem;                    // [QS][WGS][Q tile]; at a tile's end each warpgroup's output
-  unsigned char* ring = smem + QS * WGS * QT;  // [S][K tile, V tile]
-  uint64_t* qfull = reinterpret_cast<uint64_t*>(ring + S * STAGE);  // [QS]: the slot's Q tiles have landed
-  uint64_t* qempty = qfull + QS;               // [QS]: every consumer warpgroup has stored its output from the slot
-  uint64_t* full = qempty + QS;                // [S]: the slot's K and V tiles have landed
-  uint64_t* empty = full + S;                  // [S]: every consumer warpgroup is done with the slot
+  unsigned char* Qs = smem;                   // [2][WGS][Q tile]; at a tile's end each warpgroup's output
+  unsigned char* ring = smem + 2 * WGS * QT;  // [S][K tile, V tile]
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(ring + S * STAGE);  // [2]: the slot's Q tiles have landed
+  uint64_t* qempty = qfull + 2;               // [2]: every consumer warpgroup has stored its output from the slot
+  uint64_t* full = qempty + 2;                // [S]: the slot's K and V tiles have landed
+  uint64_t* empty = full + S;                 // [S]: every consumer warpgroup is done with the slot
 
   // the warpgroup index, broadcast so the compiler knows it is warp-uniform:
   // wgmma under a branch it cannot prove uniform is serialised
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0), tid = threadIdx.x % 128;
   // work tile u: batch * q-head u % BH, q tile nqt - 1 - u / BH (heaviest causal tiles first); this block
-  // takes tiles blockIdx.x, + gridDim.x, ... (one where the grid covers them, T.persist: as many as it holds)
+  // takes tiles blockIdx.x, + gridDim.x, ...
   const int BH = p.B * p.H, ntiles = BH * nqt;
   int b = 0, hq = 0, hk = 0, q0 = 0, kt_begin = 0, nk = 0;
   auto take = [&](int u) {
@@ -3193,14 +3134,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
     hk = hq / (p.H / p.KVH);
     q0 = (nqt - 1 - u / BH) * (64 * WGS);
     const int q_last = min(q0 + 64 * WGS, p.Sq) - 1;
-    int kt_end = (p.Skv + BN - 1) / BN;
-    if (p.causal) kt_end = min(kt_end, q_last / BN + 1);  // top-left: keys up to the tile's last row
-    kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / BN : 0;
+    int kt_end = (p.Skv + 63) / 64;
+    if (p.causal) kt_end = min(kt_end, q_last / 64 + 1);  // top-left: keys up to the tile's last row
+    kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / 64 : 0;
     nk = max(kt_end - kt_begin, 0);
   };
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < QS; ++i) {
+    for (int i = 0; i < 2; ++i) {
       mbar_init(&qfull[i], 1);
       mbar_init(&qempty[i], WGS);
     }
@@ -3221,16 +3162,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       int g = 0;  // K/V tiles through the ring, over the block's work tiles
       for (int u = blockIdx.x, n = 0; u < ntiles; u += gridDim.x, ++n) {
         take(u);
-        const int qs = n % QS, live = min(WGS, (p.Sq - q0 + 63) / 64);  // Q tiles with a row before Sq
-        mbar_wait(&qempty[qs], ((n / QS) & 1) ^ 1);  // the slot's previous tile is stored
+        const int qs = n % 2, live = min(WGS, (p.Sq - q0 + 63) / 64);  // Q tiles with a row before Sq
+        mbar_wait(&qempty[qs], ((n / 2) & 1) ^ 1);  // the slot's previous tile is stored
         mbar_arrive_expect_tx(&qfull[qs], live * QT);
         for (int w = 0; w < live; ++w) load_tile<D>(Qs + (qs * WGS + w) * QT, &map_q, &qfull[qs], q0 + 64 * w, hq, b);
         for (int it = 0; it < nk; ++it, ++g) {
-          const int st = g % S, k0 = (kt_begin + it) * BN;
+          const int st = g % S, k0 = (kt_begin + it) * 64;
           mbar_wait(&empty[st], ((g / S) & 1) ^ 1);  // the slot's previous round is consumed
           mbar_arrive_expect_tx(&full[st], STAGE);
-          load_tile<D, BN>(ring + st * STAGE, &map_k, &full[st], k0, hk, b);
-          load_tile<D, BN>(ring + st * STAGE + KT, &map_v, &full[st], k0, hk, b);
+          load_tile<D>(ring + st * STAGE, &map_k, &full[st], k0, hk, b);
+          load_tile<D>(ring + st * STAGE + QT, &map_v, &full[st], k0, hk, b);
         }
       }
     }
@@ -3244,22 +3185,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
   unsigned char* Qw = Qs;              // its Q tile (a warpgroup whose rows all lie past Sq: one never loaded)
   const float c = p.scale * 1.4426950408889634f;  // exp(x * scale) = exp2(x * c)
 
-  float acc[D / 2], s[BN / 2];  // O; S, then p in place
+  float acc[D / 2], s[32];  // O; S, then p in place
 #pragma unroll
-  for (int e = 0; e < BN / 2; ++e) s[e] = 0.f;
-  uint32_t pf[BN / 16][4];  // P rounded to bf16: the A fragments of O += P.V, a k16 step of keys each
-  uint32_t qf[QREG ? D / 16 : 1][4];  // QREG: Q's A fragments of S = Q.K^T, a k16 step of D each
+  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+  uint32_t pf[4][4];  // P rounded to bf16: the A fragments of O += P.V, a k16 step of keys each
   float m[2], l[2], alpha[2];
   int g0 = 0;  // the ring position of the work tile's first K/V tile
 
-  // ping-pong: a warpgroup opens its turn on its own barrier (1 + wg) and
-  // closes it on the other's, which the other's next turn waits for
-  auto open_turn = [&] {
-    if constexpr (PING) named_barrier_sync(1 + wg, 256);
-  };
-  auto close_turn = [&] {
-    if constexpr (PING) named_barrier_arrive(2 - wg, 256);
-  };
   auto landed = [&](int it) { mbar_wait(&full[(g0 + it) % S], ((g0 + it) / S) & 1); };
   auto release = [&](int it) {
     if (tid == 0) mbar_arrive(&empty[(g0 + it) % S]);
@@ -3267,33 +3199,21 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
   auto scores = [&](int it) {  // S = Q.K^T of the work tile's it-th key tile (the first k16 step overwrites s)
     const unsigned char* ks = ring + (g0 + it) % S * STAGE;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      if constexpr (QREG) {
-        wgmma_scores<BN>(s, qf[kk], kv_kmajor_desc<BN>(ks, kk), kk > 0);
-      } else {
-        wgmma_scores<BN>(s, kmajor_desc(Qw, kk), kv_kmajor_desc<BN>(ks, kk), kk > 0);
-      }
-    }
-  };
-  // S has landed: its registers, and Q's fragments the products read, are the program's again (the
-  // fragments must stay in place until then, or the compiler may reuse their registers under the product)
-  auto scores_landed = [&] {
-    wgmma_fence_operand(s);
-    if constexpr (QREG) wgmma_fence_operand(qf);
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_m64n64k16_bf16<0, 0>(s, kmajor_desc(Qw, kk), kmajor_desc(ks, kk), kk > 0);
   };
   auto weigh = [&](int it) {  // O += P.V of the work tile's it-th key tile
-    const unsigned char* vs = ring + (g0 + it) % S * STAGE + KT;
+    const unsigned char* vs = ring + (g0 + it) % S * STAGE + QT;
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) wgmma_bf16_rs<D, 1>(acc, pf[kk], kv_mnmajor_desc<BN>(vs, kk), 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_bf16_rs<D, 1>(acc, pf[kk], mnmajor_desc(vs, kk), 1);
   };
   // the online softmax of the it-th key tile's scores: p in place of s, the rows' max, alpha and normaliser
   auto softmax = [&](int it) {
-    const int k0 = (kt_begin + it) * BN;
+    const int k0 = (kt_begin + it) * 64;
     // only the causal diagonal, the window's first keys and the ragged end need the mask
-    const bool masked = k0 + BN > p.Skv || (p.causal && k0 + BN - 1 > w0) || (p.window > 0 && w0 + 63 - k0 >= p.window);
+    const bool masked = k0 + 64 > p.Skv || (p.causal && k0 + 63 > w0) || (p.window > 0 && w0 + 63 - k0 >= p.window);
     if (masked) {
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = w0 + r + (e / 2) * 8, jj = k0 + 8 * j + 2 * t + e % 2;
@@ -3302,7 +3222,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
     }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
       mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
       mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
@@ -3316,7 +3236,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       m[h] = mx[h];
     }
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -mc[e / 2]));
       rs[0] += s[4 * j] + s[4 * j + 1];
@@ -3334,16 +3254,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       acc[4 * j + 3] *= alpha[1];
     }
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
       pf[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
       pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
     }
   };
 
-  if (PING && wg == 1) named_barrier_arrive(1, 256);  // the first turn is warpgroup 0's
   for (int u = blockIdx.x, n = 0; u < ntiles; u += gridDim.x, ++n) {
     take(u);
-    const int qs = n % QS;
+    const int qs = n % 2;
     w0 = q0 + 64 * wg;
     Qw = Qs + (qs * WGS + wg) * QT;
 #pragma unroll
@@ -3353,42 +3272,26 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       m[h] = -INFINITY;
       l[h] = 0.f;
     }
-    mbar_wait(&qfull[qs], (n / QS) & 1);
-    if constexpr (QREG) {
-      // register e of k16 step kk: row r + 8 (e % 2), columns 16 kk + 8 (e / 2) + 2 t and + 1; the 16-byte
-      // chunk ch of row x lies at ch ^ (x % 8) of its box
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int x = r + 8 * (e % 2), col = 16 * kk + 8 * (e / 2) + 2 * t;
-          qf[kk][e] = *reinterpret_cast<const uint32_t*>(Qw + (col / 64) * HBOX + x * 128 +
-                                                         ((((col % 64) / 8) ^ (x % 8)) * 16) + (col % 8) * 2);
-        }
-    }
-    if constexpr (INTRA) {
+    mbar_wait(&qfull[qs], (n / 2) & 1);
+    if constexpr (T.overlap != 0) {
       if (nk > 0) {
         landed(0);
-        open_turn();
         wgmma_fence();
         scores(0);
         wgmma_commit();
-        close_turn();
         wgmma_wait<0>();
-        scores_landed();
+        wgmma_fence_operand(s);
         softmax(0);
         rescale_and_pack();
         for (int it = 1; it < nk; ++it) {
           landed(it);
-          open_turn();
           wgmma_fence();
           scores(it);
           wgmma_commit();
           weigh(it - 1);
           wgmma_commit();
-          close_turn();
           wgmma_wait<1>();  // S of tile it has landed; P.V of tile it - 1 stays in flight
-          scores_landed();
+          wgmma_fence_operand(s);
           softmax(it);
           wgmma_wait<0>();
           wgmma_fence_operand(acc);
@@ -3396,11 +3299,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
           release(it - 1);
           rescale_and_pack();
         }
-        open_turn();
         wgmma_fence();
         weigh(nk - 1);
         wgmma_commit();
-        close_turn();
         wgmma_wait<0>();
         wgmma_fence_operand(acc);
         release(nk - 1);
@@ -3408,27 +3309,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
     } else {
       for (int it = 0; it < nk; ++it) {
         landed(it);
-        open_turn();
         wgmma_fence();
         scores(it);
         wgmma_commit();
-        close_turn();
         wgmma_wait<0>();
-        scores_landed();
+        wgmma_fence_operand(s);
         softmax(it);
         rescale_and_pack();
-        open_turn();
         wgmma_fence();
         weigh(it);
         wgmma_commit();
-        close_turn();
         wgmma_wait<0>();
         wgmma_fence_operand(acc);
         wgmma_fence_operand(pf);
         release(it);
       }
     }
-
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -3461,7 +3357,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
             __floats2bfloat162_rn(quotient(acc[4 * j + 2 * h], h), quotient(acc[4 * j + 2 * h + 1], h));
       }
     fence_proxy_async_shared();
-    named_barrier_sync(3 + wg, 128);
+    named_barrier_sync(1 + wg, 128);
     if (tid == 0) {
       if (w0 < p.Sq) {
 #pragma unroll
@@ -3473,7 +3369,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
     }
     g0 += nk;
   }
-  if (PING && wg == 0) named_barrier_sync(1, 256);  // warpgroup 1's last turn closed on barrier 1
 }
 
 template <int D>
@@ -3487,20 +3382,18 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, float
                   so[3] = {p.sob, p.soh, p.sos};
   CUtensorMap mq, mk, mv, mo;
   int err = encode_rows(&mq, q, D, p.Sq, p.H, p.B, sq);
-  if (err == 0) err = encode_rows(&mk, k, D, p.Skv, p.KVH, p.B, sk, T.bn);
-  if (err == 0) err = encode_rows(&mv, v, D, p.Skv, p.KVH, p.B, sv, T.bn);
+  if (err == 0) err = encode_rows(&mk, k, D, p.Skv, p.KVH, p.B, sk);
+  if (err == 0) err = encode_rows(&mv, v, D, p.Skv, p.KVH, p.B, sv);
   if (err == 0) err = encode_rows(&mo, o, D, p.Sq, p.H, p.B, so);
   if (err != 0) return err;
   constexpr int smem = fwd_wgmma_smem<D>();
   if ((ce = allow_smem(flash_fwd_wgmma_kernel<D>, smem)) != cudaSuccess) return (int)ce;
-  // work tiles: batch * q-head x q tiles of 64 * WGS rows; a persistent grid holds the card's SMs x bps
+  // work tiles: batch * q-head x q tiles of 64 * WGS rows, on a grid of at most the card's SMs x bps blocks
   const int nqt = (p.Sq + 64 * T.wgs - 1) / (64 * T.wgs);
+  int sms = 0;
+  if ((ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)ce;
   long long blocks = (long long)p.B * p.H * nqt;
-  if (T.persist) {
-    int sms = 0;
-    if ((ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)ce;
-    if (blocks > (long long)sms * T.bps) blocks = (long long)sms * T.bps;
-  }
+  if (blocks > (long long)sms * T.bps) blocks = (long long)sms * T.bps;
   flash_fwd_wgmma_kernel<D><<<(unsigned)blocks, fwd_threads<D>(), smem, stream>>>(mq, mk, mv, mo, lse, p, nqt);
   return (int)cudaGetLastError();
 }
@@ -3513,8 +3406,8 @@ int fwd_wgmma_config(int* out) {
   cudaError_t err = allow_smem(flash_fwd_wgmma_kernel<D>, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_fwd_wgmma_kernel<D>, fwd_threads<D>(), smem);
-  const int got[9] = {T.bn, T.wgs, T.overlap, T.qreg, T.persist, T.stages, T.bps, smem, blocks};
-  for (int i = 0; i < 9; ++i) out[i] = got[i];
+  const int got[6] = {T.wgs, T.overlap, T.stages, T.bps, smem, blocks};
+  for (int i = 0; i < 6; ++i) out[i] = got[i];
   return (int)err;
 }
 
@@ -3661,10 +3554,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                      : launch_fwd<false>(q, k, v, o, lse, route, D, p, st);
 }
 
-// What flash_fwd_wgmma_kernel<D> was built with, to out[0 .. 8]: keys a K/V
-// tile, consumer warpgroups, overlap bits, Q in registers, persistent grid,
-// ring slots, blocks an SM it was planned for, shared memory a block, and
-// blocks an SM of the current card holds at once.  Returns the CUDA error (cudaErrorInvalidValue for a head
+// What flash_fwd_wgmma_kernel<D> was built with, to out[0 .. 5]: consumer
+// warpgroups, overlap within a warpgroup, ring slots, blocks an SM it was
+// planned for, shared memory a block, and blocks an SM of the current card
+// holds at once.  Returns the CUDA error (cudaErrorInvalidValue for a head
 // dim the kernel has no instance of).
 extern "C" int flash_fwd_wgmma_config(int D, int* out) {
   switch (D) {

@@ -5,7 +5,7 @@
 // the 3-D and 4-D TMA tile loads (cp.async.bulk.tensor) that complete on an
 // mbarrier, alone or multicast to the cluster, the 1-D bulk copy, the 3-D
 // and 4-D TMA tile stores and their bulk-group waits, the async-proxy
-// fence, named barriers (sync and arrive), wgmma shared-memory descriptors
+// fence, named barriers, wgmma shared-memory descriptors
 // for the 128-byte swizzle, wgmma fence / commit / wait, wgmma.mma_async
 // bf16 with fp32 accumulators: m64n128k16, m64n64k16, m64n16k16 and
 // m64n8k16 with both operands from shared memory (either major for each),
@@ -203,11 +203,6 @@ __device__ __forceinline__ void fence_proxy_async_shared() {
 // Barrier `id` (1-15; 0 is __syncthreads') among `threads` threads, a multiple of 32.
 __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Arrives at barrier `id` without waiting: counts towards the `threads` a bar.sync there waits for.
-__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ score mode, the head dim and the strides (:func:`fwd_kernels` names each
 route's launch): bf16 at head dim 64, 80, 128 or 192 with rows TMA can
 address (every served prefill and training forward) runs
 ``flash_fwd_wgmma_kernel`` (a persistent grid; a producer warpgroup's TMA
-loads into a K/V ring, ``wgmma`` products with P in registers, the softmax
-overlapping products in flight; each head dim's tiling :func:`fwd_plan`);
+loads into a K/V ring, ``wgmma`` products with P in registers; each head
+dim's consumer warpgroups, overlap and ring :func:`fwd_plan`);
 other bf16 calls run ``flash_fwd_mma_bf16_kernel`` on the tensor cores
 (``mma.sync`` products with fp32 accumulators, Q in registers, a
 ``cp.async`` K/V ring, P kept in registers); fp32 runs ``flash_fwd_kernel``
@@ -106,18 +106,17 @@ FWD_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
 #: ring of 64-key tiles beside two Q tiles (16 and 32 stay on ``mma.sync``)
 FWD_WGMMA_HEAD_DIMS = (64, 80, 128, 192)
 #: ``flash_fwd_wgmma_config``'s fields, in its order
-FWD_CONFIG_FIELDS = ("keys_a_tile", "consumer_warpgroups", "overlap", "q_in_registers", "persistent", "stages",
-                     "planned_blocks_an_sm", "smem_bytes", "blocks_an_sm")
-#: the forward wgmma kernel's tiling at each head dim as the shipped source
-#: builds it (``fwd_choice``): keys a K/V tile, consumer warpgroups of 64
-#: query rows, overlap bits (1 within a warpgroup, 2 ping-pong between two),
-#: Q in registers (1) or read from shared memory by every Q.K^T (0), a
-#: persistent grid walking work tiles (1) or a block a work tile (0)
-FWD_TILING = {64: (64, 1, 1, 1, 1), 80: (64, 2, 1, 1, 1), 128: (64, 1, 0, 0, 1), 192: (64, 2, 0, 0, 1)}
+FWD_CONFIG_FIELDS = ("consumer_warpgroups", "overlap", "stages", "planned_blocks_an_sm", "smem_bytes", "blocks_an_sm")
+#: the forward wgmma kernel's choice at each head dim as the shipped source
+#: builds it (``fwd_choice``): consumer warpgroups of 64 query rows, and
+#: whether a key tile's softmax overlaps its neighbours' products within a
+#: warpgroup (1) or not (0); every head dim takes 64-key tiles, Q read from
+#: shared memory and a persistent grid
+FWD_TILING = {64: (1, 1), 80: (2, 0), 128: (1, 0), 192: (2, 0)}
 #: an SM's shared memory for blocks (a block asks at most 232,448 bytes of
 #: it: 1,024 are reserved a block), and the most slots of the K/V ring
 SM_SMEM, FWD_MAX_STAGES = 233472, 4
-#: bytes of one 128-byte-swizzled TMA box of 64 rows
+#: bytes of one 128-byte-swizzled TMA box of 64 rows (a Q, K or V tile is ceil(D / 64) of them)
 _BOX = 64 * 128
 
 
@@ -384,40 +383,31 @@ def fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fp32_scores: bo
     return "mma"
 
 
-def fwd_plan(d: int, tiling: tuple[int, int, int, int, int] | None = None) -> dict:
+def fwd_plan(d: int, tiling: tuple[int, int] | None = None) -> dict:
     """``flash_fwd_wgmma_kernel<d>``'s tiling and shared-memory plan as the
     source computes it (``fwd_tiling``, ``fwd_wgmma_smem``) for ``tiling``
-    (keys a tile, consumer warpgroups, overlap bits, Q in registers,
-    persistent; default the shipped ``FWD_TILING[d]``): the blocks an SM it
-    is planned for (two where one consumer warpgroup leaves room for a ring
-    of two slots each), the ring's slots (as many as fit, at most
-    ``FWD_MAX_STAGES``; a tiling whose ring would have fewer than two falls
-    back to 64-key tiles), and the bytes a block asks: 1,024 of alignment
-    slack, a Q tile of ceil(d / 64) boxes a consumer warpgroup (two slots of
-    them on a persistent grid, the next work tile's loading while the last
-    one's output is stored), the ring of K and V tiles and the barriers.
-    Keys as ``FWD_CONFIG_FIELDS`` but the measured ``blocks_an_sm``, with
-    each tile's bytes (every tile starts 1,024-byte aligned).  Raises for Q
-    in registers without the overlap within a warpgroup (overlap bit 1),
-    which the source does not build."""
-    bn, wgs, overlap, qreg, persist = FWD_TILING[d] if tiling is None else tiling
-    if qreg and not overlap & 1:
-        raise ValueError(f"Q in registers runs with the overlap within a warpgroup, got overlap {overlap}")
-    boxes, qslots = -(-d // 64), 2 if persist else 1
+    (consumer warpgroups, overlap; default the shipped ``FWD_TILING[d]``):
+    the blocks an SM it is planned for (two where one consumer warpgroup
+    leaves room for a ring of two slots each), the ring's slots of 64-key
+    K/V tiles (as many as fit, at most ``FWD_MAX_STAGES``), and the bytes a
+    block asks: 1,024 of alignment slack, two slots of a Q tile of ceil(d /
+    64) boxes a consumer warpgroup (the next work tile's loading while the
+    last one's output is stored), the ring of K and V tiles and the
+    barriers.  Keys as ``FWD_CONFIG_FIELDS`` but the measured
+    ``blocks_an_sm``, with a tile's bytes (every tile starts 1,024-byte
+    aligned)."""
+    wgs, overlap = FWD_TILING[d] if tiling is None else tiling
+    boxes = -(-d // 64)
 
-    def fit(keys: int, groups: int, blocks: int) -> int:
-        room = SM_SMEM // blocks - 1024 - 1024 - 128 - qslots * groups * boxes * _BOX
-        return min(FWD_MAX_STAGES, room // (2 * boxes * keys * 128))
+    def fit(groups: int, blocks: int) -> int:
+        room = SM_SMEM // blocks - 1024 - 1024 - 128 - 2 * groups * boxes * _BOX
+        return min(FWD_MAX_STAGES, room // (2 * boxes * _BOX))
 
-    if fit(bn, wgs, 1) < 2:
-        bn = 64
-    bps = 2 if wgs == 1 and fit(bn, 1, 2) >= 2 else 1
-    stages = fit(bn, wgs, bps)
-    return {"keys_a_tile": bn, "consumer_warpgroups": wgs, "overlap": overlap if wgs == 2 else overlap & 1,
-            "q_in_registers": qreg, "persistent": persist, "stages": stages, "planned_blocks_an_sm": bps,
-            "smem_bytes": (1024 + qslots * wgs * boxes * _BOX + stages * 2 * boxes * bn * 128
-                           + 2 * (qslots + stages) * 8),
-            "q_tile_bytes": boxes * _BOX, "kv_tile_bytes": boxes * bn * 128}
+    bps = 2 if wgs == 1 and fit(1, 2) >= 2 else 1
+    stages = fit(wgs, bps)
+    return {"consumer_warpgroups": wgs, "overlap": overlap, "stages": stages, "planned_blocks_an_sm": bps,
+            "smem_bytes": 1024 + 2 * wgs * boxes * _BOX + stages * 2 * boxes * _BOX + 2 * (2 + stages) * 8,
+            "tile_bytes": boxes * _BOX}
 
 
 def fwd_kernels(route: str, d: int, fp32_scores: bool = True) -> tuple[str, ...]:

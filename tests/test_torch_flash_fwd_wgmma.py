@@ -5,9 +5,9 @@ model's layout (transposed ``[b, s, h, d]`` views): every served prefill
 and training shape takes ``flash_fwd_wgmma_kernel``; D 16 and 32, rows
 only 8-byte aligned, the bf16-score mode and fp32 do not.  ``fwd_plan``,
 the wgmma kernel's tiling and shared-memory plan mirrored from the source,
-fits a block's 232,448 bytes at every head dim and tiling
-``scripts/flash_tiles.py`` times.  And the plain forward the card's
-kernels are held to, against the JAX package at each served head dim and
+fits a block's 232,448 bytes at every head dim and tiling the source
+builds (``scripts/flash_tiles.py`` times them).  And the plain forward the
+card's kernels are held to, against the JAX package at each served head dim and
 GQA group not held in ``tests/test_torch_attention_ssd.py`` already:
 through the Pallas kernel (interpret mode on the CPU) where S divides its
 blocks, through the reference model's ``_sdpa`` where the key length
@@ -35,9 +35,9 @@ ATTN_TOL = dict(rtol=2e-4, atol=2e-4)
 #: (train_4k, phase 15 (c))
 ATTENTION_MODELS = ("granite-3-2b", "phi3.5-moe-42b", "llama4-scout-17b", "zamba2-2.7b", "nemotron-4-340b",
                     "whisper-small", "internvl2-76b", "qwen3-32b")
-#: every tiling the kernel takes: (keys a tile, consumer warpgroups, overlap bits, Q in registers, persistent)
-TILINGS = [(bn, wgs, ov, qreg, persist) for bn in (64, 128) for wgs in (1, 2) for ov in range(4) for qreg in (0, 1)
-           for persist in (0, 1) if (wgs == 2 or ov < 2) and (ov & 1 or not qreg)]
+#: every choice the kernel builds at each head dim (consumer warpgroups, overlap within a warpgroup): the
+#: shipped ones and the ones ``scripts/flash_tiles.py`` times beside them
+TILINGS = [(wgs, overlap) for wgs in (1, 2) for overlap in (0, 1)]
 
 
 def _bshd(b, s, h, d, dtype=torch.bfloat16):
@@ -140,44 +140,29 @@ def test_a_cpu_tensor_never_reaches_a_kernel_route():
 
 
 @pytest.mark.parametrize("d", [64, 80, 128, 192])
-@pytest.mark.parametrize("bn,wgs,overlap,qreg,persist", TILINGS)
-def test_the_shared_memory_plan_fits_a_block_with_aligned_tiles(d, bn, wgs, overlap, qreg, persist):
-    plan = fa.fwd_plan(d, (bn, wgs, overlap, qreg, persist))
+@pytest.mark.parametrize("wgs,overlap", TILINGS)
+def test_the_shared_memory_plan_fits_a_block_with_aligned_tiles(d, wgs, overlap):
+    plan = fa.fwd_plan(d, (wgs, overlap))
     assert plan["stages"] >= 2
     assert plan["smem_bytes"] <= 232448
     assert plan["planned_blocks_an_sm"] * (plan["smem_bytes"] + 1024) <= fa.SM_SMEM
-    # the tiles, 1,024-byte aligned in a 1,024-byte-aligned base: Q tiles, then the ring's K and V tiles
-    assert plan["q_tile_bytes"] % 1024 == 0 and plan["kv_tile_bytes"] % 1024 == 0
-    qslots = 2 if persist else 1
-    ring_end = 1024 + qslots * wgs * plan["q_tile_bytes"] + plan["stages"] * 2 * plan["kv_tile_bytes"]
-    assert ring_end + 2 * (qslots + plan["stages"]) * 8 == plan["smem_bytes"]
-    assert plan["overlap"] == (overlap if wgs == 2 else overlap & 1)  # ping-pong needs two warpgroups
+    # the tiles, 1,024-byte aligned in a 1,024-byte-aligned base: two slots of Q tiles, then the ring's K and V
+    assert plan["tile_bytes"] % 1024 == 0
+    ring_end = 1024 + 2 * wgs * plan["tile_bytes"] + plan["stages"] * 2 * plan["tile_bytes"]
+    assert ring_end + 2 * (2 + plan["stages"]) * 8 == plan["smem_bytes"]
+    assert (plan["consumer_warpgroups"], plan["overlap"]) == (wgs, overlap)
 
 
 def test_the_shipped_plan_at_each_head_dim():
-    """64-key tiles on a persistent grid at every head dim: one consumer
-    warpgroup and two blocks an SM at D 64 and 128, two consumer
-    warpgroups and one block an SM at D 80 and 192."""
-    want = {64: (1, 2, 4, 83040), 80: (2, 1, 4, 197728), 128: (1, 2, 2, 99392), 192: (2, 1, 2, 197696)}
-    for d, (wgs, bps, stages, smem) in want.items():
+    """One consumer warpgroup and two blocks an SM at D 64 and 128, two
+    consumer warpgroups and one block an SM at D 80 and 192; the softmax
+    overlaps the products within the warpgroup at D 64 alone."""
+    want = {64: (1, 1, 2, 4, 83040), 80: (2, 0, 1, 4, 197728), 128: (1, 0, 2, 2, 99392), 192: (2, 0, 1, 2, 197696)}
+    for d, row in want.items():
         plan = fa.fwd_plan(d)
-        got = (plan["consumer_warpgroups"], plan["planned_blocks_an_sm"], plan["stages"], plan["smem_bytes"])
-        assert got == (wgs, bps, stages, smem), (d, plan)
-        assert plan["keys_a_tile"] == 64 and plan["persistent"] == 1
-        assert plan["q_in_registers"] == (d in (64, 80))
-
-
-def test_d_192_falls_back_to_64_key_tiles_beside_two_q_tiles():
-    """Two 128-key slots of three boxes (2 x 96 KB) do not fit beside two
-    slots of two Q tiles (96 KB); beside one Q tile, unpersisted, they do."""
-    assert fa.fwd_plan(192, (128, 2, 0, 0, 1))["keys_a_tile"] == 64
-    assert fa.fwd_plan(192, (128, 1, 1, 0, 0))["keys_a_tile"] == 128
-
-
-@pytest.mark.parametrize("overlap", [0, 2])
-def test_q_in_registers_needs_the_overlap_within_a_warpgroup(overlap):
-    with pytest.raises(ValueError, match="overlap within a warpgroup"):
-        fa.fwd_plan(64, (64, 2, overlap, 1, 1))
+        got = tuple(plan[k] for k in ("consumer_warpgroups", "overlap", "planned_blocks_an_sm", "stages", "smem_bytes"))
+        assert got == row, (d, plan)
+    assert set(fa.FWD_TILING) == set(fa.FWD_WGMMA_HEAD_DIMS)
 
 
 def _inputs(b, h, kvh, sq, skv, d, seed):
