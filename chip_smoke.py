@@ -25,7 +25,11 @@ repository's sources are not beside this script.  Otherwise, in order:
    ``ssd_scan_mma_bf16_kernel`` compiled at every state width and p tile
    with no spill, asks the shared memory the wrapper counts and splits its
    inexact operands into the wrapper's ``MMA_TERMS`` bf16 terms, printing
-   its registers and blocks an SM, and unless every kernel of the flash
+   its registers and blocks an SM, and the SSD scan's wgmma route
+   (``ssd_scan_fwd_states_kernel`` and ``ssd_scan_fwd_chunk_kernel`` at
+   state widths 64 and 128) compiled with no spill and no ``wgmma`` made to
+   wait, asking the shared memory the wrapper counts
+   (``check_ssd_ptxas``), and unless every kernel of the flash
    backward (the wgmma route's dQ and dK/dV at D 64, 80 and 128 in both
    score modes with no ``wgmma`` made to wait, printing their blocks an
    SM, and every ``mma.sync`` and SIMT kernel) and of
@@ -173,12 +177,17 @@ repository's sources are not beside this script.  Otherwise, in order:
    against Skv 1, 15, 65, 448 and 1500, longer and shorter, causal with and
    without a window, non-causal, GQA 1 and 8), and bf16 SSD cases
    that reach every branch of the
-   tensor-core scan (chunks 16, 32 and 64, state 64 and 128, p 64, 48 and
-   16, one chunk, contiguous and strided), each also at every p tile of
-   ``ssd_scan.mma_plans``, and bf16 at chunk 8 on the SIMT
+   tensor-core scans (chunks 16, 32 and 64, state 64 and 128, p 64, 48 and
+   16, one chunk, contiguous and strided; the wgmma route's SSD_WGMMA_CASES:
+   one chunk, p of two tiles, head groups of one and several), each also at
+   every p tile of ``ssd_scan.mma_plans``, and bf16 at chunk 8 on the SIMT
    scan; bf16 y and final state are held within BF16_REL_TOL of max
-   |plain|; fails unless both SSD model shapes plan the tensor-core scan on
-   at least a block per SM and the profiler shows it ran; times the
+   |plain|, and the wgmma route must give the same bits twice and differ
+   from plain in no more of its bf16 outputs than the mma.sync kernel's
+   plan; fails unless both SSD model shapes and the mesh ranks' scans
+   (SSD_RANK_SHAPES) plan the wgmma route and the profiler shows its two
+   kernels ran, each timed beside the mma.sync kernel's plan
+   (``mma_device_ms``, ``mma_host_ms``, each kernel's ``steps_ms``); times the
    kernel, the plain version and (attention, at each model's shape) SDPA,
    naming the device kernel that served SDPA, and computes each bound;
    every bf16 attention case prints its forward route
@@ -207,8 +216,9 @@ repository's sources are not beside this script.  Otherwise, in order:
    per application of its shared block, 9; whisper: its 12 encoder layers
    and self and cross attention in its 12 decoder layers, 36) and never
    the ``mma.sync`` ``flash_fwd_mma_bf16_kernel`` or the fp32 SIMT
-   ``flash_fwd_kernel``, and unless an SSD model's ran
-   ``ssd_scan_mma_bf16_kernel`` once per layer and never ``ssd_scan_kernel``;
+   ``flash_fwd_kernel``, and unless an SSD model's ran the wgmma route's
+   ``ssd_scan_fwd_states_kernel`` and ``ssd_scan_fwd_chunk_kernel`` once
+   per layer and no other scan kernel;
 8. holds each LM path against the same path on the plain versions
    (``ops.flash_attention`` / ``ops.ssd_scan`` / ``ops.gemm`` swapped here,
    and only here): prefill plus 4 teacher-forced decode steps on the kernel
@@ -388,7 +398,7 @@ repository's sources are not beside this script.  Otherwise, in order:
    all-reduces dropped, each rank attending only its own slots);
    zamba2-2.7b at SHARD_HYBRID_DEPTH layers (its SSD layers split over
    their heads, ``Layout.ssd``: each rank projects and scans its 40 of 80
-   heads on ``ssd_scan_mma_bf16_kernel``, exactly once a layer, over the
+   heads on the wgmma route, exactly once a layer, over the
    gathered sequence, its shared attention block on the rank's heads)
    served the same way on (1, 2) in bf16 (printed, SSD_LAYERS), then it
    and SHARD_SSD (mamba2-130m, at full width and depth, 12 of its 24 heads
@@ -397,7 +407,7 @@ repository's sources are not beside this script.  Otherwise, in order:
    512), the loss and every leaf gathered whole held to SSD_TRAIN_LOSS_TOL
    / SSD_TRAIN_GRAD_TOL against one process, beside a control that must
    miss, the gated norm's mean square summed forward only, ``sum_tp`` for
-   ``psum_tp``; every scan on the tensor-core kernel at the rank's heads
+   ``psum_tp``; every scan on the wgmma route at the rank's heads
    and every backward on the ``"mma"``
    route's three kernels (``_recording_scans``); each rank's parameter and
    AdamW bytes by
@@ -617,6 +627,7 @@ LM_MODELS = {
 LM_BATCH, LM_PROMPT, LM_GEN, LM_FORCED = 4, 512, 32, 4
 #: the port's CUDA kernel functions, as the profiler names them
 PORT_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_bf16_kernel", "flash_fwd_kernel",
+                "ssd_scan_fwd_states_kernel", "ssd_scan_fwd_chunk_kernel",
                 "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel", "gemm_wgmma_bf16_kernel", "gemm_mma_bf16_kernel", "gemm_fma_f32_kernel", "gemm_decode_bf16_kernel",
                 "gemm_decode_sum_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dq_mma_bf16_kernel", "flash_bwd_dkdv_mma_bf16_kernel", "flash_bwd_dq_wgmma_kernel",
@@ -637,8 +648,9 @@ FLASH_FN = re.compile(r"\(anonymous namespace\)::((?:flash_fwd_(?:wgmma_|mma_bf1
                       r"|dkdv_bf16_scores)_kernel)<[^>]*>)")
 #: the GEMM's kernels as the profiler names them (wgmma, mma.sync tiles, fp32 FMA)
 GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
-#: the SSD scan's kernels as the profiler names them: bf16 on the tensor cores, the SIMT one
-SSD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan(?:_mma_bf16)?_kernel<[^>]*>)")
+#: the SSD scan's forward kernels as the profiler names them: the bf16 wgmma route's states and chunk
+#: kernels, the mma.sync kernel, the SIMT one
+SSD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan(?:_fwd_states|_fwd_chunk|_mma_bf16)?_kernel<[^>]*>)")
 #: the SSD scan's backward kernels as the profiler names them: the SIMT route's reverse scan and the sum of
 #: its partials, the tensor-core route's states, chunk and sum kernels (``ssd_scan.bwd_kernels``)
 SSD_BWD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan_bwd(?:_sum|_states_mma|_chunk_mma|_mma_sum)?_kernel<[^>]*>)")
@@ -952,7 +964,11 @@ def ssd_ptxas() -> dict[tuple[int, int], tuple[int, int, int]]:
 
 def check_ssd_ptxas() -> None:
     """Fail unless ``ptxas`` compiled ``ssd_scan_mma_bf16_kernel`` at every
-    state width and p tile with no spill (:func:`ssd_ptxas`)."""
+    state width and p tile (:func:`ssd_ptxas`) and the wgmma route's states
+    and chunk kernels at both state widths with no spill, the latter two
+    without a ``wgmma`` made to wait (C7517, C7518) and asking the shared
+    memory the wrapper counts (``ssd_scan.fwd_smem_bytes``, at the served
+    models' head groups); print their registers."""
     seen = ssd_ptxas()
     want = {(n, pt) for n in ssd.MMA_STATES for pt in ssd.MMA_P_TILES}
     if set(seen) != want:
@@ -960,6 +976,32 @@ def check_ssd_ptxas() -> None:
     spilled = {k: v for k, v in seen.items() if v[1] or v[2]}
     if spilled:
         raise RuntimeError(f"ssd_scan_mma_bf16_kernel spills (state width, p tile): {spilled}")
+    fwd = {re.sub(r"ILi(\d+)EE.*", r"<\1>", m): v for m, v in _ptxas_entries(
+        "ssd_scan", r"(ssd_scan_fwd_(?:states|chunk)_kernelILi\d+EE)").items()}
+    for name, (regs, st, ld) in sorted(fwd.items()):
+        print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    want = {f"ssd_scan_fwd_{k}_kernel<{n}>" for k in ("states", "chunk") for n in ssd.WGMMA_STATES}
+    if set(fwd) != want:
+        raise RuntimeError(f"ptxas compiled the wgmma SSD forward's kernels {sorted(fwd)}, want {sorted(want)}")
+    spilled = {k: v for k, v in fwd.items() if v[1] or v[2]}
+    if spilled:
+        raise RuntimeError(f"the wgmma SSD forward's kernels spill: {spilled}")
+    waits = [line for line in build.ptxas_report("ssd_scan").splitlines()
+             if re.search(r"\(C751[78]\)", line) and "ssd_scan_fwd" in line]
+    if waits:
+        raise RuntimeError(f"ptxas made the wgmma of the SSD forward wait: {waits}")
+    fn = ssd.library().ssd_scan_fwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    for arch in SSD_MODELS:
+        cfg = get_config(arch)
+        n, hg = cfg.ssm_state, ssd.bwd_head_group(LM_BATCH, LM_PROMPT, cfg.ssm_heads)
+        source = fn(n, hg, 0), fn(n, hg, 1)
+        if source != ssd.fwd_smem_bytes(n, hg):
+            raise RuntimeError(f"the wgmma SSD forward's states and chunk kernels at state {n}, {hg} heads a block, "
+                               f"ask {source} B of shared memory, the wrapper counts {ssd.fwd_smem_bytes(n, hg)}")
+        print(f"[build] SSD forward, wgmma route at {arch}'s state {n} and {hg} heads a chunk block: {source} B "
+              f"of shared memory a block (states, chunk)")
 
 
 def check_ssd_bwd_ptxas() -> None:
@@ -2107,11 +2149,29 @@ def ssd_inputs(b: int, l: int, h: int, p: int, n: int, dtype: torch.dtype, strid
 ssd_cost = ssd.cost
 
 
+#: the SSD scan's wgmma route's branches (b, l, h, p, n, strided) at chunk 64, each held against plain
+#: with the mma.sync kernel beside it: state 64 / 128, one chunk and several, p of one and two 64-row
+#: tiles, head groups of one and several, contiguous and strided rows (the served and rank shapes are
+#: the timed cases)
+SSD_WGMMA_CASES = ((1, 64, 2, 64, 128, False), (1, 128, 2, 64, 64, True), (2, 256, 3, 128, 64, True),
+                   (2, 256, 5, 64, 128, False), (3, 192, 7, 64, 64, True))
+#: the mesh ranks' scans, timed on both bf16 tensor-core routes: mamba2 and zamba2 at their heads on a
+#: (1, 2) mesh, zamba2 x train_4k as rank 0 of (16, 16)
+SSD_RANK_SHAPES = {"mamba2-130m rank of (1, 2)": (4, 512, 12, 64, 128),
+                   "zamba2-2.7b rank of (1, 2)": (4, 512, 40, 64, 64),
+                   "zamba2-2.7b x train_4k rank 0 of (16, 16)": (16, 4096, 5, 64, 64)}
+
+
 def check_ssd(gen: torch.Generator) -> dict:
     """Phase 6 for ``ssd_scan``: parity everywhere; at mamba2-130m's and
-    zamba2-2.7b's prefill shapes the kernel that ran (the tensor-core one,
-    on a block per SM at least), times and bound.  The kernels-line row is
-    mamba2-130m's, the served model's, with zamba2's times beside it."""
+    zamba2-2.7b's prefill shapes and at the mesh ranks' the kernels that ran
+    (the wgmma route's two, ``ssd_scan.fwd_kernels``), times and bound,
+    beside the ``mma.sync`` kernel's plan on the same inputs (its device
+    and host ms, ``mma_device_ms``, ``mma_host_ms``) and each route's share
+    of bf16 outputs that differ from plain's, which for the wgmma route must
+    be no greater than the mma.sync kernel's.  The kernels-line row is
+    mamba2-130m's, the served model's, with zamba2's and the ranks' times
+    beside it."""
     f32, bf16 = torch.float32, torch.bfloat16
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     served = []  # the prefill scan of each Mamba2-family model, as ssd_block passes it
@@ -2134,6 +2194,11 @@ def check_ssd(gen: torch.Generator) -> dict:
         dict(b=1, l=64, h=2, p=48, n=128, chunk=64, dtype=bf16, strided=True),
         dict(b=2, l=256, h=8, p=32, n=64, chunk=64, dtype=bf16, strided=False),
         dict(b=3, l=32, h=5, p=16, n=128, chunk=16, dtype=bf16, strided=True),
+    ] + [  # the wgmma route's branches
+        dict(b=b, l=l, h=h, p=p, n=n, chunk=64, dtype=bf16, strided=strided) for b, l, h, p, n, strided in SSD_WGMMA_CASES
+    ] + [
+        dict(b=b, l=l, h=h, p=p, n=n, chunk=64, dtype=bf16, strided=True, model=label)
+        for label, (b, l, h, p, n) in SSD_RANK_SHAPES.items()
     ]
     row = None
     max_err = 0.0
@@ -2143,43 +2208,67 @@ def check_ssd(gen: torch.Generator) -> dict:
         y, st = ssd.ssd_scan(x, dtt, A, B, C, chunk=chunk)
         yp, stp = ssd.ssd_scan_plain(x, dtt, A, B, C, chunk=chunk)
         torch.cuda.synchronize()
-        chosen = ssd.plan(dt, b, h, p, n, chunk, ssd._aligned(x) and ssd._aligned(B) and ssd._aligned(C), sms=sms)
+        chosen = ssd.plan(dt, b, h, p, n, chunk, ssd.fwd_aligned(x, B, C), sms=sms)
         desc = {**case, "dtype": str(dt).removeprefix("torch."), "kernel": ssd.KERNELS[chosen.route],
                 "p_tile": chosen.p_tile, "blocks": chosen.blocks}
         tol = SSD_TOL if dt == f32 else None
         err = max(_agree("ssd_scan", desc, y, yp, tol), _agree("ssd_scan (state)", desc, st, stp, tol))
-        if chosen.route == 2:  # every other p tile of the tensor-core kernel, too
+        diff = {}  # each bf16 tensor-core route's share of outputs that differ from plain's
+        if chosen.route == ssd.WGMMA:
+            y2, st2 = ssd.ssd_scan(x, dtt, A, B, C, chunk=chunk)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                raise RuntimeError(f"ssd_scan gives other bits twice at {desc}")
+            diff["wgmma"] = (y != yp).float().mean().item()
+        if chosen.route in (ssd.MMA, ssd.WGMMA):  # every p tile of the mma.sync kernel, too
             for other in ssd.mma_plans(b, h, p, n, chunk):
                 yo, so = ssd.run_plan(x, dtt, A, B, C, chunk, other)
                 torch.cuda.synchronize()
-                what = {**desc, "p_tile": other.p_tile, "blocks": other.blocks}
+                what = {**desc, "kernel": ssd.KERNELS[ssd.MMA], "p_tile": other.p_tile, "blocks": other.blocks}
                 err = max(err, _agree("ssd_scan", what, yo, yp, tol), _agree("ssd_scan (state)", what, so, stp, tol))
+                if other == ssd.mma_plan(b, h, p, n, chunk, sms):
+                    diff["mma"] = (yo != yp).float().mean().item()
+                    if "wgmma" in diff:  # printed: whether the two routes give the same bits
+                        diff["wgmma gives the mma.sync bits"] = torch.equal(y, yo) and torch.equal(st, so)
+        if "wgmma" in diff and diff["wgmma"] > diff["mma"]:
+            raise RuntimeError(f"ssd_scan's wgmma route differs from plain in {diff['wgmma']} of its bf16 outputs, "
+                               f"the mma.sync kernel in {diff['mma']}, at {desc}")
         max_err = max(max_err, err)
-        print(f"[check] ssd_scan {json.dumps({**desc, 'max_abs_err': err, 'max_abs_plain': yp.float().abs().max().item(), 'max_abs_state': stp.abs().max().item()})}")
+        print(f"[check] ssd_scan {json.dumps({**desc, 'max_abs_err': err, 'max_abs_plain': yp.float().abs().max().item(), 'max_abs_state': stp.abs().max().item(), 'y_differing_from_plain': diff})}")
         if "model" in case:
-            if chosen.route != ssd.KERNELS.index("ssd_scan_mma_bf16_kernel") or chosen.blocks < sms:
-                raise RuntimeError(f"ssd_scan at {case['model']}'s shape planned {chosen}, want "
-                                   f"ssd_scan_mma_bf16_kernel on at least {sms} blocks")
+            if chosen.route != ssd.WGMMA:
+                raise RuntimeError(f"ssd_scan at {case['model']}'s shape planned {chosen}, want the wgmma route")
             flops, nbytes = ssd_cost(x, B, chunk)
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            mma_plan = ssd.mma_plan(b, h, p, n, chunk, sms)
 
             def kern():
                 return ssd.ssd_scan(x, dtt, A, B, C, chunk=chunk)
 
+            def mma():
+                return ssd.run_plan(x, dtt, A, B, C, chunk, mma_plan)
+
             timed = dict(ms=_time_ms(kern), plain_ms=_time_ms(lambda: ssd.ssd_scan_plain(x, dtt, A, B, C, chunk=chunk)),
                          library_ms=None,  # no single PyTorch call computes SSD
                          bound_ms=bound_ms, bound_by=bound_by)
+            want = sorted(ssd.fwd_kernels(chosen, n))
             for _ in range(3):  # a profiler window can hand its records to the next one: take another
-                device_ms, ran = _device_ms(kern)
+                steps: dict[str, float] = {}
+                device_ms, ran = _device_ms(kern, times=steps)
                 fns = sorted({m.group(1) for k in ran if (m := SSD_FN.search(k))})
-                if fns:
+                if fns == want:
                     break
-            if fns != [f"ssd_scan_mma_bf16_kernel<{n}, {chosen.p_tile}>"]:
-                raise RuntimeError(f"ssd_scan at {case['model']}'s shape ran {fns}, want ssd_scan_mma_bf16_kernel "
-                                   f"(the profiler's window: {ran})")
-            timed.update(device_ms=device_ms, host_ms=_host_ms(kern), device_function=fns[0],
-                         blocks=chosen.blocks, bound_ratio=device_ms / bound_ms)
-            print(f"[check] ssd_scan {case['model']} prefill shape: "
+            if fns != want:
+                raise RuntimeError(f"ssd_scan at {case['model']}'s shape ran {fns}, want {want} (the profiler's "
+                                   f"window: {ran})")
+            mma_device_ms, _ = _device_ms(mma)
+            timed.update(device_ms=device_ms, host_ms=_host_ms(kern), device_functions=fns,
+                         steps_ms={m.group(1): v for k, v in steps.items() if (m := SSD_FN.search(k))},
+                         blocks=ssd.fwd_grid(b, l, h, p, n, sms=sms), bound_ratio=device_ms / bound_ms,
+                         mma_device_ms=mma_device_ms, mma_host_ms=_host_ms(mma), mma_p_tile=mma_plan.p_tile,
+                         mma_device_ratio=device_ms / mma_device_ms, y_differing_from_plain=diff["wgmma"],
+                         mma_y_differing_from_plain=diff["mma"], mma_same_bits=diff["wgmma gives the mma.sync bits"])
+            print(f"[check] ssd_scan {case['model']} shape: "
                   f"{json.dumps({**timed, 'flops': flops, 'bytes': nbytes})}")
             if row is None:
                 row = timed
@@ -2472,9 +2561,9 @@ def _time_lm(arch: str, cfg, params, prompt: dict) -> dict:
     for what, run in (("prefill", lambda: prefill()), ("decode x4", lambda: decode(logits, cache, 4))):
         # a window in which the profiler kept fewer records of the port's kernels than the
         # wrappers launched is taken again: the checks below count those records (a decode
-        # call of gemm launches two kernels)
+        # call of gemm launches two kernels, and so does a scan on the SSD's wgmma route)
         for _ in range(PROFILER_WINDOWS):
-            before = sum(mod.launches for mod in mods) + gm.decode_launches
+            before = sum(mod.launches for mod in mods) + gm.decode_launches + ssd.wgmma_launches
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 run()
@@ -2482,7 +2571,7 @@ def _time_lm(arch: str, cfg, params, prompt: dict) -> dict:
                 wall = time.perf_counter() - t0
             table = _kernel_table(prof, wall)
             kept = sum(sum(table[k].values()) for k in ("flash_calls", "ssd_calls", "gemm_calls"))
-            launched = sum(mod.launches for mod in mods) + gm.decode_launches - before
+            launched = sum(mod.launches for mod in mods) + gm.decode_launches + ssd.wgmma_launches - before
             if table["kernel_calls"] and kept == launched:
                 break
             print(f"[lm] {arch} profile {what}: the profiler kept {kept} of {launched} port kernel launches; "
@@ -2699,12 +2788,14 @@ def drive_lm(arch: str, kernels: tuple[str, ...], depth: int | None, fp32_depth:
     table = tables["prefill"]
     flash_calls, gemm_calls, ssd_calls = table["flash_calls"], table["gemm_calls"], table["ssd_calls"]
     served_by = None
-    if "ssd_scan" in kernels:  # bf16 prefill: the tensor-core scan once per layer, never the SIMT one
-        mma = {n: c for n, c in ssd_calls.items() if n.startswith("ssd_scan_mma_bf16_kernel")}
-        if len(mma) != 1 or len(ssd_calls) != 1 or sum(mma.values()) != cfg.n_layers:
-            raise RuntimeError(f"{arch}: the profiled bf16 prefill ran {ssd_calls}, want "
-                               f"ssd_scan_mma_bf16_kernel once per layer ({cfg.n_layers})")
-        print(f"[lm] {arch}: prefill scan served by {json.dumps(mma)}")
+    if "ssd_scan" in kernels:  # bf16 prefill: the wgmma route's kernels once per layer, no other scan
+        want = {k: cfg.n_layers for k in ssd.fwd_kernels(ssd.plan(torch.bfloat16, LM_BATCH, cfg.ssm_heads,
+                                                                   cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
+                                                                   True), cfg.ssm_state)}
+        if ssd_calls != want:
+            raise RuntimeError(f"{arch}: the profiled bf16 prefill ran {ssd_calls}, want {want}: the wgmma route's "
+                               f"kernels once per layer and ssd_scan_mma_bf16_kernel never")
+        print(f"[lm] {arch}: prefill scan served by {json.dumps(ssd_calls)}")
     if "gemm" in kernels:  # bf16 prefill: every expert product on wgmma, none on the mma.sync tiles
         wgmma = {n: c for n, c in gemm_calls.items() if n.startswith("gemm_wgmma_bf16_kernel")}
         if len(wgmma) != 1 or len(gemm_calls) != 1 or sum(wgmma.values()) != 3 * cfg.n_layers:
@@ -3466,6 +3557,10 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
     ssd_bwd_kernels = () if cfg.block_kind == "attn" else ssd.bwd_kernels(
         ssd.bwd_route(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, True), torch.bfloat16,
         cfg.ssm_state)
+    # the forward scan's route (the wgmma route's two kernels at the training shapes)
+    ssd_fwd_kernels = () if cfg.block_kind == "attn" else ssd.fwd_kernels(
+        ssd.plan(torch.bfloat16, TRAIN_BATCH, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, True),
+        cfg.ssm_state)
     calls_of = ("flash_calls", "gemm_calls", "ssd_calls", "ssd_bwd_calls")
     for _ in range(PROFILER_WINDOWS):
         before = {name: mod.launches for name, mod in mods.items()}
@@ -3480,8 +3575,8 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
         ran.update(flash_attention_bwd=fa.bwd_launches - before["flash_attention_bwd"],
                    gemm_bwd=gm.bwd_launches - before["gemm_bwd"], ssd_scan_bwd=ssd.bwd_launches - before["ssd_scan_bwd"])
         kept = sum(sum(table[k].values()) for k in calls_of)
-        issued = (ran["flash_attention"] + per_bwd * ran["flash_attention_bwd"] + ran["gemm"] + ran["ssd_scan"]
-                  + len(ssd_bwd_kernels) * ran["ssd_scan_bwd"])
+        issued = (ran["flash_attention"] + per_bwd * ran["flash_attention_bwd"] + ran["gemm"]
+                  + len(ssd_fwd_kernels) * ran["ssd_scan"] + len(ssd_bwd_kernels) * ran["ssd_scan_bwd"])
         if table["kernel_calls"] and kept == issued:
             break
         print(f"[train] {arch} profile: the profiler kept {kept} of {issued} port kernel launches; taken again")
@@ -3509,9 +3604,8 @@ def drive_train(arch: str, depth: int | None, grad_depth: int, failures: list[st
         want_calls.update({name: n_attn for name in bwd_kernels})
     if per_step["ssd_scan_bwd"]:
         n_ssd = per_step["ssd_scan_bwd"]
-        chosen = ssd.plan(torch.bfloat16, TRAIN_BATCH, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
-                          True, sms=torch.cuda.get_device_properties(0).multi_processor_count)
-        want_calls.update({f"ssd_scan_mma_bf16_kernel<{cfg.ssm_state}, {chosen.p_tile}>": per_step["ssd_scan"],
+        # the forward on the wgmma route once per SSD layer (again under remat), never on mma.sync
+        want_calls.update({**{name: per_step["ssd_scan"] for name in ssd_fwd_kernels},
                            **{name: n_ssd for name in ssd_bwd_kernels}})
     calls = {**table["flash_calls"], **table["ssd_calls"], **table["ssd_bwd_calls"]}
     if calls != want_calls or ran != per_step:
@@ -3957,8 +4051,11 @@ MESH_MASKED = 300
 #: HBM3 at 700 W (PERF.md): the mesh path 1.7e-7 in the loss and 3.2e-3 to 1.15e-2 over the leaves (bf16
 #: leaves, the two halves' gradients summed: about 3 roundings at the worst, the embedding); the mean of the
 #: ranks' own means 9.0e-4 in the loss and 0.37 to 0.61 over the leaves; the gradients left unreduced 0.48 to
-#: 1.03 over the leaves
-MESH_LOSS_TOL, MESH_GRAD_TOL = 1e-5, 3e-2
+#: 1.03 over the leaves.  The loss limit holds granite's bf16 loss on a 2-rank mesh over its weights:
+#: scripts/mesh_loss_spread.py reads 3.4e-7 to 6.3e-5 over seeds 2-6 on (1, 2) in bf16 and 0.0 at each in
+#: fp32 (rounding, not another loss), so the limit is about three times the worst bf16 reading, still 4.5
+#: times under the mean of the ranks' means
+MESH_LOSS_TOL, MESH_GRAD_TOL = 2e-4, 3e-2
 
 
 def _mesh_prompt(cfg, seed: int) -> dict:
@@ -4355,16 +4452,16 @@ def _recording_remat(out: list):
 
 @contextlib.contextmanager
 def _recording_scans(fwd: list, bwd: list | None = None):
-    """Append (x's shape, the kernel its plan launches) of each
-    ``ops.ssd_scan`` call on the card to ``fwd``, and (x's shape, the
+    """Append (x's shape, the route its plan takes, by ``ssd_scan.KERNELS``'
+    name) of each ``ops.ssd_scan`` call on the card to ``fwd``, and (x's shape, the
     backward's route, its kernels) of each ``ssd_scan.ssd_scan_bwd`` call to
     ``bwd``."""
     scan, scan_bwd = ops.ssd_scan, ssd.ssd_scan_bwd
 
     def recording(x, dt, A, B, C, *, chunk=64):
         if x.is_cuda:
-            aligned = all(ssd._aligned(t) for t in (x, B, C))
-            fwd.append((list(x.shape), ssd.KERNELS[ssd.route(x.dtype, x.shape[3], B.shape[-1], chunk, aligned)]))
+            fwd.append((list(x.shape),
+                        ssd.KERNELS[ssd.route(x.dtype, x.shape[3], B.shape[-1], chunk, ssd.fwd_aligned(x, B, C))]))
         return scan(x, dt, A, B, C, chunk=chunk)
 
     def recording_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk=64):
@@ -4620,8 +4717,8 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
         torch.cuda.empty_cache()
 
         def split_scans(scans: list, name: str, shape, heads: int) -> None:
-            """Fail unless every recorded scan took the rank's ``heads`` on the tensor-core kernel."""
-            want = [[LM_BATCH // shape[0], LM_PROMPT, heads, 64], "ssd_scan_mma_bf16_kernel"]
+            """Fail unless every recorded scan took the rank's ``heads`` on the wgmma route."""
+            want = [[LM_BATCH // shape[0], LM_PROMPT, heads, 64], ssd.KERNELS[ssd.WGMMA]]
             if [list(sc) for sc in scans] != [want] * len(scans) or not scans:
                 fail(f"rank {rank}: {name} on {shape} scanned {scans}, each {want} wanted")
 
@@ -4714,9 +4811,9 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
                 fail(f"rank {rank}: the control '{control}' on {shape} meets {arch}'s gradient tolerance")
             rows_r = [TRAIN_BATCH // shape[0], TRAIN_SEQ, heads, cfg.ssm_head_dim]
             mma = list(ssd.bwd_kernels("mma", torch.bfloat16, cfg.ssm_state))
-            if [list(f) for f in fwd] != [[rows_r, "ssd_scan_mma_bf16_kernel"]] * (2 * cfg.n_layers):
+            if [list(f) for f in fwd] != [[rows_r, ssd.KERNELS[ssd.WGMMA]]] * (2 * cfg.n_layers):
                 fail(f"rank {rank}: {arch} train step on {shape} scanned {fwd[:2]}... ({len(fwd)}), "
-                     f"{2 * cfg.n_layers} of {rows_r} on the tensor-core kernel wanted")
+                     f"{2 * cfg.n_layers} of {rows_r} on the wgmma route wanted")
             if [list(b) for b in bwd] != [[rows_r, "mma", mma]] * cfg.n_layers or launched != cfg.n_layers:
                 fail(f"rank {rank}: {arch} train step on {shape}: backward {bwd[:2]}... ({len(bwd)} recorded, "
                      f"{launched} launched), {cfg.n_layers} of {rows_r} on the 'mma' route wanted")
@@ -4783,9 +4880,10 @@ def shard_scan_times(failures: list[str], smi: str) -> dict:
     final state held to BF16_REL_TOL of max |plain| against
     ``ssd_scan_plain``, and dx, ddt, dA, dB and dC against
     ``ssd_scan_bwd_plain``, on the same inputs; then timed by the
-    profiler's device time.  Fails unless the forward ran the tensor-core
-    kernel and the backward the ``"mma"`` route's kernels.  Returns the
-    readings by shape."""
+    profiler's device time, beside the forward's ``mma.sync`` kernel
+    (``ssd_scan.mma_plan``) on the same inputs.  Fails unless the forward
+    ran the wgmma route's kernels (``ssd_scan.fwd_kernels``) and the
+    backward the ``"mma"`` route's.  Returns the readings by shape."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     bf16, out = torch.bfloat16, {}
     for model, whose, (b, l, h, p), n in SHARD_SCAN_SHAPES:
@@ -4807,16 +4905,20 @@ def shard_scan_times(failures: list[str], smi: str) -> dict:
             failures.append(f"{model} scan x {shape} against its plain version: {e}")
             f_err = b_err = float("nan")
         f_ms, f_ran = _device_ms(lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=chunk))
+        mma_plan = ssd.mma_plan(b, h, p, n, chunk)
+        mma_ms, _ = _device_ms(lambda: ssd.run_plan(x, dt, A, B, C, chunk, mma_plan))
         b_ms, b_ran = _device_ms(lambda: ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk))
-        out[f"{model} x {shape}"] = {"forward_ms": f_ms, "backward_ms": b_ms, "forward_rel_err": f_err,
-                                     "backward_rel_err": b_err}
+        out[f"{model} x {shape}"] = {"forward_ms": f_ms, "forward_mma_ms": mma_ms, "backward_ms": b_ms,
+                                     "forward_rel_err": f_err, "backward_rel_err": b_err}
         f_fns = sorted({m.group(1) for k in f_ran if (m := SSD_FN.search(k))})
         b_fns = sorted({m.group(1) for k in b_ran if (m := SSD_BWD_FN.search(k))})
         print(f"[shard] {model} scan x {shape}, B/C [{b},{l},{n}] bf16 ({whose}): against the plain version, y and "
               f"state {f_err:.3e}, worst gradient {b_err:.3e} of max |plain| (tolerance {BF16_REL_TOL}); forward "
-              f"{f_ms:.4f} ms {f_fns}, backward {b_ms:.4f} ms {b_fns} by the profiler's device time ({smi})")
-        if not f_fns or not all(f.startswith("ssd_scan_mma_bf16_kernel<") for f in f_fns):
-            failures.append(f"{model} scan x {shape} ran {f_fns}, not the tensor-core kernel")
+              f"{f_ms:.4f} ms {f_fns} (the mma.sync kernel's plan {mma_ms:.4f} ms), backward {b_ms:.4f} ms {b_fns} "
+              f"by the profiler's device time ({smi})")
+        want = sorted(ssd.fwd_kernels(ssd.plan(bf16, b, h, p, n, chunk, True), n))
+        if f_fns != want:
+            failures.append(f"{model} scan x {shape} ran {f_fns}, not the wgmma route's {want}")
         if b_fns != sorted(ssd.bwd_kernels("mma", bf16, n)):
             failures.append(f"{model} scan backward x {shape} ran {b_fns}, not the 'mma' route's kernels")
         for f in failures[n0:]:

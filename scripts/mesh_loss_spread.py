@@ -1,19 +1,21 @@
 """How far phase 15 (b)'s granite loss on the (1, 2) mesh moves with the weights and the forward's bits.
 
-    python3 scripts/mesh_loss_spread.py [--seeds 2 3 4 5 6]
+    python3 scripts/mesh_loss_spread.py [--seeds 2 3 4 5 6] [--dtypes bf16 fp32]
 
 ``chip_smoke.py`` phase 15 (b) holds granite-3-2b's training loss
 (``MESH_DEPTH`` layers, bf16, the batch of ``_mesh_train_batch``) over a
 (1, 2) mesh of two gloo ranks sharing the card against one process, to
 ``MESH_LOSS_TOL``, with the weights drawn from seed 2.  This script takes
-the same reading with the weights of each of ``--seeds``, once with the
-bf16 flash forward on its own route (``flash_fwd_wgmma_kernel``) and once
-on the ``mma.sync`` route (``flash_attention.run_fwd_route``'s), and
-prints one JSON line per (route, seed) with each rank's loss, the one
-process's and their relative difference beside the limit, then the card's
-name and power limit.  It checks nothing and always exits 0 once both
-ranks have reported: it measures the spread.  Needs one CUDA device (the
-two ranks share it).
+the same reading with the weights of each of ``--seeds``, for each of
+``--dtypes`` (the model's type: bf16 as phase 15 runs it, or fp32, whose
+forward runs the fp32 SIMT flash kernel); in bf16 once with the flash
+forward on its own route (``flash_fwd_wgmma_kernel``) and once on the
+``mma.sync`` route (``flash_attention.run_fwd_route``'s).  It prints one
+JSON line per (type, route, seed) with each rank's loss, the one process's
+and their relative difference beside the limit, then the card's name and
+power limit.  It checks nothing and always exits 0 once both ranks have
+reported: it measures the spread.  Needs one CUDA device (the two ranks
+share it).
 """
 
 from __future__ import annotations
@@ -48,9 +50,10 @@ def _on_mma(q, k, v, fp32_scores=True):
 
 
 ROUTE = fa.fwd_route
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
-def rank_main(rank: int, store: str, seeds: list[int]) -> int:
+def rank_main(rank: int, store: str, seeds: list[int], dtypes: list[str]) -> int:
     from repro_torch.launch.mesh import batch_shard, join_group, make_test_mesh
     from repro_torch.models.layout import param_layout
     from repro_torch.sharding import local_shard
@@ -58,24 +61,26 @@ def rank_main(rank: int, store: str, seeds: list[int]) -> int:
     join_group(RANKS, rank, store=torch.distributed.FileStore(store, RANKS), device="cuda", backend="gloo")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(cs.MESH_TRAIN), n_layers=cs.MESH_DEPTH)
-    batch = cs._mesh_train_batch(cfg)
     mesh = make_test_mesh(SHAPE, device="cuda")
-    specs = param_layout(cfg, mesh)
-    rows = batch_shard(mesh, batch)
-    for route in ("wgmma", "mma"):
-        with mock.patch.object(fa, "fwd_route", ROUTE if route == "wgmma" else _on_mma):
-            for seed in seeds:
-                whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-                one = transformer.value_and_grad(cfg, whole, batch)[0].item()
-                mine = local_shard(mesh, tree_map(torch.clone, whole), specs)
-                fa.launches = 0
-                meshed = transformer.value_and_grad(cfg, mine, rows, mesh, dp_axes=("data",))[0].item()
-                print(json.dumps({"rank": rank, "route": route, "seed": seed, "loss one process": one,
-                                  "loss mesh": meshed, "relative": abs(meshed - one) / abs(one),
-                                  "limit": cs.MESH_LOSS_TOL, "flash launches": fa.launches}), flush=True)
-                del whole, mine
-                torch.cuda.empty_cache()
+    for dtype in dtypes:
+        cfg = dataclasses.replace(get_config(cs.MESH_TRAIN), n_layers=cs.MESH_DEPTH, dtype=DTYPES[dtype])
+        batch = cs._mesh_train_batch(cfg)
+        specs = param_layout(cfg, mesh)
+        rows = batch_shard(mesh, batch)
+        for route in ("wgmma", "mma") if dtype == "bf16" else ("simt",):
+            with mock.patch.object(fa, "fwd_route", _on_mma if route == "mma" else ROUTE):
+                for seed in seeds:
+                    whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+                    one = transformer.value_and_grad(cfg, whole, batch)[0].item()
+                    mine = local_shard(mesh, tree_map(torch.clone, whole), specs)
+                    fa.launches = 0
+                    meshed = transformer.value_and_grad(cfg, mine, rows, mesh, dp_axes=("data",))[0].item()
+                    print(json.dumps({"rank": rank, "dtype": dtype, "route": route,
+                                      "seed": seed, "loss one process": one, "loss mesh": meshed,
+                                      "relative": abs(meshed - one) / abs(one), "limit": cs.MESH_LOSS_TOL,
+                                      "flash launches": fa.launches}), flush=True)
+                    del whole, mine
+                    torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
     return 0
 
@@ -83,17 +88,18 @@ def rank_main(rank: int, store: str, seeds: list[int]) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[2, 3, 4, 5, 6])
+    ap.add_argument("--dtypes", nargs="+", choices=sorted(DTYPES), default=["bf16"])
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--store", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank is not None:
-        return rank_main(args.rank, args.store, args.seeds)
+        return rank_main(args.rank, args.store, args.seeds, args.dtypes)
     if not torch.cuda.is_available():
         print("mesh_loss_spread: no CUDA device visible", file=sys.stderr)
         return 1
     with tempfile.TemporaryDirectory() as d:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--store", str(Path(d) / "store"), "--seeds",
-               *map(str, args.seeds)]
+               *map(str, args.seeds), "--dtypes", *args.dtypes]
         procs = [subprocess.Popen(cmd + ["--rank", str(r)]) for r in range(RANKS)]
         try:
             codes = [p.wait(timeout=1200) for p in procs]

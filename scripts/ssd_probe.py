@@ -1,33 +1,45 @@
-"""Time every candidate plan of the tensor-core SSD scan at the Mamba2 prefill shapes.
+"""Time the bf16 SSD scan's tensor-core routes at the Mamba2 prefill and mesh-rank shapes, and the wgmma route's steps apart.
 
     python3 scripts/ssd_probe.py [--out build/ssd_probe.json]
 
-Builds ``csrc/ssd_scan.cu``, prints each ``ssd_scan_mma_bf16_kernel``'s
-``ptxas`` registers and spills (a spill is reported here, and fails
-``chip_smoke.py``) and the blocks of it one SM holds, then, at the prefill
-scan of mamba2-130m and of zamba2-2.7b (batch 4, prompt 512, bf16, x, B
-and C strided as ``ssd_block`` passes them), runs every p tile of
-``ssd_scan.mma_plans`` through ``ssd_scan.run_plan``, in the shipped build
-and in builds that split each inexact product operand into fewer bf16
-terms (``-DSSD_TERMS=1`` and ``2``; the shipped build has 3).  Each
-candidate is held against ``ssd_scan_plain`` within ``BF16_REL_TOL`` of max
-|plain|, for y and for the final state (the run fails if one disagrees),
-with the share of its bf16 outputs that differ from the plain version's,
-and timed by the profiler's device time over 20 calls (the host's time to
-issue a call is left out).  The plan's own choice is also timed in parts:
-``csrc/ssd_scan.cu`` is built four more times with ``-DSSD_PROBE=1`` (the
-loads alone), ``2`` (the products alone), ``3`` (no state update) and ``4``
-(no output rows), and each build runs the plan in turns (shipped, probes,
-probes in reverse, shipped) by device time (``parts_ms``): what a part
-costs is the whole less the build without it.  Every build is compiled at
-once.  The plan's own choice is also timed through
-``ssd_scan`` by CUDA events and by the host's time to issue a call, as
-``chip_smoke.py`` times it.  A block that takes two heads to share C·Bᵀ is
-not a candidate: at the block count a shape needs, a head pair does the
-decay scaling twice where a p tile twice as wide does it once, with the
-same loads.  Prints the card's name and power limit, one JSON line per
-shape (plan, fastest candidate, every candidate) and writes them all to
-``--out``.  Needs one CUDA device.
+Builds ``csrc/ssd_scan.cu`` as it ships and in copies compiled at once:
+``-DSSD_FWD_PASS=1`` (the wgmma route's chunk states in parallel over
+chunks, passed along them by a kernel of their own, instead of carried by
+the states kernel), ``-DSSD_FWD_PROBE=1..7`` (no products, no state read,
+no G∘L∘dt, no state written, no scans, no planes, no y stored) and
+``-DSSD_TERMS=1`` and ``2`` (each inexact product operand split into fewer
+bf16 terms; 3 ship).  At the prefill scan of mamba2-130m and of zamba2-2.7b
+(batch 4, prompt 512, bf16, x, B and C strided as ``ssd_block`` passes
+them) and at the mesh ranks' scans (their heads on a (1, 2) mesh, and
+zamba2 x train_4k's rank 0 of (16, 16)) it runs, each held against
+``ssd_scan_plain`` within ``BF16_REL_TOL`` of max |plain| for y and the
+final state (the run fails if one disagrees or gives other bits twice),
+with the share of bf16 outputs that differ from plain's:
+
+- the wgmma route (``ssd_scan.ssd_scan``): device ms by the profiler, whole
+  and kernel by kernel (the steps apart: ``ssd_scan.fwd_kernels``), with the
+  L2 warm and cold before each call, CUDA events and the host's time to
+  issue a call, the bytes its states move through device memory beside the
+  scan's own;
+- the same in the pass build (``"pass form"``), and in each term build;
+- each probe build's kernels, in turns with the shipped build (shipped,
+  probes, probes in reverse, shipped): what a part costs is the whole less
+  the build without it;
+- the ``mma.sync`` kernel at every p tile of ``ssd_scan.mma_plans`` through
+  ``ssd_scan.run_plan``, its plan (``ssd_scan.mma_plan``) marked, in turns
+  with the wgmma route.
+
+Then (``[unmoved]``) what the change leaves alone, against the parent
+commit's sources (PARENT, read from git into ``build/ssd_fwd_parent/`` on
+the first run in a checkout: run the script once here first, where it
+stops for want of a card): whether each kernel source and header other than
+``ssd_scan.cu`` is the parent's byte for byte (flash, ``gemm`` and the conv
+then build the same library), and the SSD backward on both of its routes at
+mamba2's and zamba2's training shapes, shipped and parent in turns
+(shipped, parent, parent, shipped), by the profiler's device time.
+
+Prints the card's name and power limit, one JSON line per shape and writes
+them all to ``--out``.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -49,10 +61,17 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
-#: part build -> its SSD_PROBE value (None: the shipped library)
-PARTS = {"shipped": None, "loads alone": 1, "products alone": 2, "no state update": 3, "no output rows": 4}
+#: part build -> its SSD_FWD_PROBE value
+PARTS = {"no products": 1, "no state read": 2, "no G o L o dt": 3, "no state written": 4, "no scans": 5,
+         "no planes": 6, "no y stored": 7}
 #: builds that split each inexact product operand into fewer bf16 terms than the shipped one
 TERM_BUILDS = {"1 term": 1, "2 terms": 2}
+#: the commit before the wgmma forward, and where its kernel sources are kept
+PARENT = "b50c0b1"
+PARENT_DIR = build.BUILD_DIR.parent / "ssd_fwd_parent"
+#: the mesh ranks' scans (b, l, h, p, n): mamba2 and zamba2 at their heads on (1, 2), zamba2 x train_4k's rank
+RANK_SHAPES = {"mamba2-130m rank of (1, 2)": (4, 512, 12, 64, 128), "zamba2-2.7b rank of (1, 2)": (4, 512, 40, 64, 64),
+               "zamba2-2.7b x train_4k rank 0 of (16, 16)": (16, 4096, 5, 64, 64)}
 
 
 def build_variants(defines: dict[str, str]) -> dict[str, ctypes.CDLL]:
@@ -86,24 +105,98 @@ def terms_of(lib: ctypes.CDLL) -> int:
 
 def using(lib: ctypes.CDLL):
     """Point the wrapper at ``lib`` for the duration of the context."""
-    ssd._kernel.cache_clear()
+    for entry in (ssd._kernel, ssd._bwd_kernel, ssd._bwd_mma_kernel):
+        entry.cache_clear()
     return mock.patch.object(ssd, "library", lambda: lib)
 
 
-def _device_ms(fn) -> float:
-    """``chip_smoke._device_ms``, taken again when a profiler window
-    recorded no kernel of the call (raises after three empty windows)."""
-    for _ in range(3):
-        ms, names = cs._device_ms(fn)
-        if ms > 0:
-            return ms
-    raise RuntimeError(f"the profiler recorded no device time in three windows: {names}")
+def _parent_sources() -> Path:
+    """PARENT's kernel sources and headers, read from git into PARENT_DIR unless they are there."""
+    if not (PARENT_DIR / "ssd_scan.cu").exists():
+        root = Path(__file__).resolve().parents[1]
+        PARENT_DIR.mkdir(parents=True, exist_ok=True)
+        for src in sorted(build.CSRC.glob("*.cu*")):
+            path = f"src/repro_torch/kernels/csrc/{src.name}"
+            got = subprocess.run(["git", "-C", str(root), "show", f"{PARENT}:{path}"], capture_output=True)
+            if got.returncode:
+                raise RuntimeError(f"no {PARENT_DIR} and no git history to read {PARENT}:{path} from: run this "
+                                   f"script once in a git checkout first\n{got.stderr.decode()}")
+            (PARENT_DIR / src.name).write_bytes(got.stdout)
+    return PARENT_DIR
+
+
+def build_parent() -> ctypes.CDLL:
+    """PARENT's ``ssd_scan.cu`` built beside its own headers."""
+    out = build.BUILD_DIR / f"ssd_scan-parent-{PARENT}.so"
+    if not out.exists():
+        cmd = build.nvcc_command("ssd_scan", out)
+        got = subprocess.run(cmd[:-1] + ["-I", str(PARENT_DIR), str(PARENT_DIR / "ssd_scan.cu")], capture_output=True,
+                             text=True)
+        if got.returncode:
+            raise RuntimeError(f"nvcc (parent) exited {got.returncode}:\n{got.stdout}{got.stderr}")
+    return ctypes.CDLL(str(out))
+
+
+def unmoved(gen: torch.Generator) -> dict:
+    """What the change leaves alone beside PARENT's sources: every other kernel source and header byte for
+    byte, and the SSD backward on each route at the training shapes, shipped and parent in turns."""
+    out = {"same source as the parent": {src.name: (PARENT_DIR / src.name).read_bytes() == src.read_bytes()
+                                         for src in sorted(build.CSRC.glob("*.cu*")) if src.name != "ssd_scan.cu"}}
+    libs = {"shipped": build.library("ssd_scan"), "parent": build_parent()}
+    for arch in cs.SSD_MODELS:
+        cfg = get_config(arch)
+        b, l, h, p, n = cs.TRAIN_BATCH, cs.TRAIN_SEQ, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        x, dt, A, B, C = cs.ssd_inputs(b, l, h, p, n, torch.bfloat16, True, gen)
+        dy = torch.randn((b, l, h, p), generator=gen, device="cuda").to(torch.bfloat16)
+        for route in ssd.BWD_ROUTES:
+            ms = {"shipped": [], "parent": []}
+            for name in ("shipped", "parent", "parent", "shipped"):
+                with using(libs[name]):
+                    ms[name].append(_kernels(lambda: ssd.run_bwd_route(x, dt, A, B, C, dy, chunk=cfg.ssm_chunk,
+                                                                       route=route))[0])
+            key = f"{arch} backward ({route})"
+            out[key] = {**{f"{k} ms": v for k, v in ms.items()}, "shipped / parent": min(ms["shipped"]) / min(ms["parent"])}
+            print(f"[unmoved] {key}: {json.dumps(out[key])}")
+        del x, dt, A, B, C, dy
+    for entry in (ssd._kernel, ssd._bwd_kernel, ssd._bwd_mma_kernel):
+        entry.cache_clear()
+    print(f"[unmoved] sources: {json.dumps(out['same source as the parent'])}")
+    return out
+
+
+def _kernels(fn, cold: bool = False) -> tuple[float, dict[str, float]]:
+    """Device ms per call of ``fn`` and of each SSD kernel it ran, by the
+    profiler (``chip_smoke._device_ms``; ``cold``: the L2 read away before
+    each call, ``chip_smoke._cold_device_ms``)."""
+    times: dict[str, float] = {}
+    if cold:
+        buf = cs._l2_flush()
+        flush = lambda: buf.sum()  # noqa: E731
+        skip = set(cs._device_ms(flush)[1])
+        cs._device_ms(lambda: (flush(), fn()), times=times)
+        times = {k: v for k, v in times.items() if k not in skip}
+    else:
+        cs._device_ms(fn, times=times)
+    named = {}
+    for key, ms in times.items():
+        name = key.split("::")[-1].split("(")[0] if "ssd_scan" in key else key
+        named[name] = named.get(name, 0.0) + ms
+    return sum(named.values()), named
+
+
+def _held(name: str, what: dict, got, want) -> dict:
+    """Max abs error of y and the state against plain (raises past the bf16
+    tolerance) and the share of bf16 outputs that differ from plain's."""
+    (y, state), (yp, sp) = got, want
+    err = max(cs._agree(name, what, y, yp, None), cs._agree(f"{name} (state)", what, state, sp, None))
+    return {"max_abs_err": err, "y_differing_from_plain": (y != yp).float().mean().item()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/ssd_probe.json")
     args = ap.parse_args()
+    _parent_sources()
     if not torch.cuda.is_available():
         print("ssd_probe: no CUDA device visible", file=sys.stderr)
         return 1
@@ -112,67 +205,86 @@ def main() -> int:
     print(f"[card] {smi.stdout.strip().splitlines()[0]}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ptxas = cs.ssd_ptxas()
-    libs = build_variants({**{name: f"SSD_PROBE={v}" for name, v in PARTS.items() if v},
+    libs = build_variants({"pass form": "SSD_FWD_PASS=1",
+                           **{name: f"SSD_FWD_PROBE={v}" for name, v in PARTS.items()},
                            **{name: f"SSD_TERMS={v}" for name, v in TERM_BUILDS.items()}})
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = []
+    shapes = {}
     for arch in cs.SSD_MODELS:
         cfg = get_config(arch)
-        b, l, h, p, n, chunk = cs.LM_BATCH, cs.LM_PROMPT, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+        shapes[f"{arch} prefill"] = (cs.LM_BATCH, cs.LM_PROMPT, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    shapes.update(RANK_SHAPES)
+    results = []
+    for label, (b, l, h, p, n) in shapes.items():
+        chunk = 64
         x, dt, A, B, C = cs.ssd_inputs(b, l, h, p, n, torch.bfloat16, True, gen)
-        want_y, want_state = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-        chosen = ssd.plan(torch.bfloat16, b, h, p, n, chunk, ssd._aligned(x) and ssd._aligned(B) and ssd._aligned(C),
-                          sms=sms)
+        want = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        chosen = ssd.plan(torch.bfloat16, b, h, p, n, chunk, ssd.fwd_aligned(x, B, C), sms=sms)
+        if chosen.route != ssd.WGMMA:
+            raise RuntimeError(f"{label}: planned {chosen}, want the wgmma route")
         flops, nbytes = cs.ssd_cost(x, B, chunk)
         bound_ms, bound_by = cs._bound(flops, nbytes, cs.PEAK_BF16_FLOPS)
-        rows = []
-        for build_name in ("shipped", *TERM_BUILDS):
-            with using(libs[build_name]):
-                terms = terms_of(libs[build_name])
-                for cand in ssd.mma_plans(b, h, p, n, chunk):
-                    if cand.smem > ssd.MAX_SMEM_BYTES:
-                        continue
-                    y, state = ssd.run_plan(x, dt, A, B, C, chunk, cand)
-                    torch.cuda.synchronize()
-                    desc = {"model": arch, "p_tile": cand.p_tile, "terms": terms}
-                    err = max(cs._agree("ssd_scan", desc, y, want_y, None),
-                              cs._agree("ssd_scan (state)", desc, state, want_state, None))
-                    ms = _device_ms(lambda: ssd.run_plan(x, dt, A, B, C, chunk, cand))
-                    row = {"p_tile": cand.p_tile, "terms": terms, "blocks": cand.blocks, "smem": cand.smem,
-                           "blocks_an_sm": ssd.occupancy(n, cand.p_tile, chunk), "ms": ms,
-                           "bound_ratio": ms / bound_ms, "max_abs_err": err,
-                           "y_differing_from_plain": (y != want_y).float().mean().item(),
-                           "build": build_name, "chosen": cand == chosen and build_name == "shipped"}
-                    if build_name == "shipped":
-                        regs, spill_st, spill_ld = ptxas[n, cand.p_tile]
-                        row.update(registers=regs, spill_bytes=spill_st + spill_ld)
-                    rows.append(row)
-        ssd._kernel.cache_clear()
+        hg = ssd.bwd_head_group(b, l, h, chunk, sms=sms)
 
         def kern():
             return ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
 
-        parts = {name: [] for name in PARTS}  # device ms of the plan's kernel in each build, in turns
-        for name in [*PARTS, *reversed(PARTS)]:
+        out = {"shape": label, "x": [b, l, h, p], "n": n, "flops": flops, "bytes": nbytes, "bound_ms": bound_ms,
+               "bound_by": bound_by, "head_group": hg, "grids": ssd.fwd_grid(b, l, h, p, n, sms=sms),
+               "smem": ssd.fwd_smem_bytes(n, hg),
+               # the states entering every chunk but the first, written by one kernel and read by the next
+               "state_bytes_each_way": 4 * b * h * (l // chunk - 1) * p * n}
+        routes = {}
+        for name in ("shipped", "pass form", *TERM_BUILDS):
             with using(libs[name]):
-                parts[name].append(_device_ms(lambda: ssd.run_plan(x, dt, A, B, C, chunk, chosen)))
+                got = kern()
+                again = kern()
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                    raise RuntimeError(f"{label}: the {name} build gives other bits twice")
+                row = _held("ssd_scan", {"shape": label, "build": name}, got, want)
+                row.update(terms=terms_of(libs[name]))
+                row["ms"], row["kernels_ms"] = _kernels(kern)
+                if name == "shipped":
+                    row["cold_ms"], row["cold_kernels_ms"] = _kernels(kern, cold=True)
+                    row.update(events_ms=cs._time_ms(kern), host_ms=cs._host_ms(kern))
+            routes[name] = row
         ssd._kernel.cache_clear()
-
-        best = min((r for r in rows if r["build"] == "shipped"), key=lambda r: r["ms"])
-        out = {"model": arch, "x": [b, l, h, p], "n": n, "chunk": chunk, "flops": flops, "bytes": nbytes,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "plan": {"p_tile": chosen.p_tile, "blocks": chosen.blocks,
-                        "ms": next(r["ms"] for r in rows if r["chosen"]), "events_ms": cs._time_ms(kern),
-                        "host_ms": cs._host_ms(kern)},
-               "fastest": {k: best[k] for k in ("p_tile", "terms", "blocks", "ms")},
-               "parts_ms": parts, "max_abs_y": want_y.float().abs().max().item(), "max_abs_state": want_state.abs().max().item(),
-               "candidates": rows}
+        out["wgmma"] = routes
+        parts = {name: [] for name in ["shipped", *PARTS]}  # each build's kernels, in turns
+        for name in ["shipped", *PARTS, *reversed(PARTS), "shipped"]:
+            with using(libs[name]):
+                parts[name].append(_kernels(kern)[1])
+        ssd._kernel.cache_clear()
+        out["parts_ms"] = parts
+        mma = []
+        best = ssd.mma_plan(b, h, p, n, chunk, sms)
+        for cand in ssd.mma_plans(b, h, p, n, chunk):
+            if cand.smem > ssd.MAX_SMEM_BYTES:
+                continue
+            got = ssd.run_plan(x, dt, A, B, C, chunk, cand)
+            torch.cuda.synchronize()
+            row = {"p_tile": cand.p_tile, "blocks": cand.blocks, "plan": cand == best,
+                   **_held("ssd_scan (mma.sync)", {"shape": label, "p_tile": cand.p_tile}, got, want)}
+            regs, spill_st, spill_ld = ptxas[n, cand.p_tile]
+            row.update(registers=regs, spill_bytes=spill_st + spill_ld)
+            row["ms"] = _kernels(lambda: ssd.run_plan(x, dt, A, B, C, chunk, cand))[0]
+            mma.append(row)
+        out["mma"] = mma
+        turns = []  # the wgmma route and the mma.sync plan in turns: wgmma, mma, mma, wgmma
+        for which in ("wgmma", "mma", "mma", "wgmma"):
+            fn = kern if which == "wgmma" else (lambda: ssd.run_plan(x, dt, A, B, C, chunk, best))
+            turns.append((which, _kernels(fn)[0]))
+        out["turns_ms"] = turns
+        w = [ms for which, ms in turns if which == "wgmma"]
+        m = [ms for which, ms in turns if which == "mma"]
+        out["wgmma_over_mma"] = sum(w) / sum(m)
         results.append(out)
-        print(json.dumps({k: v for k, v in out.items() if k != "candidates"}))
-        for r in sorted(rows, key=lambda r: r["ms"]):
-            print(f"    {json.dumps(r)}")
+        print(json.dumps(out))
+    left_alone = unmoved(gen)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps({"card": smi.stdout.strip(), "sms": sms, "shapes": results}, indent=1))
+    Path(args.out).write_text(json.dumps({"card": smi.stdout.strip(), "sms": sms, "shapes": results,
+                                          "unmoved": left_alone}, indent=1))
     return 0
 
 

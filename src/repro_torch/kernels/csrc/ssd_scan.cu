@@ -8,10 +8,11 @@
 // with x [b, l, h, p], dt [b, l, h] fp32, A [h] fp32 and B, C [b, l, n]
 // shared by every head.  The Pallas kernel keeps the state in VMEM across a
 // sequential chunk grid and drops it at the end; here it is written out as
-// final_state [b, h, p, n] fp32, which the LM prefill hands to decode.  Both
-// kernels below run one block per (b, h, tile of PT rows of the state over
-// p): the state's rows are independent, and a loop over chunks inside the
-// block replaces the Pallas kernel's sequential grid axis.
+// final_state [b, h, p, n] fp32, which the LM prefill hands to decode.  The
+// SIMT and mma.sync kernels below run one block per (b, h, tile of PT rows
+// of the state over p): the state's rows are independent, and a loop over
+// chunks inside the block replaces the Pallas kernel's sequential grid axis.
+// The wgmma route (further below) is parallel over chunks.
 //
 // Bound on the H100 SXM: bytes.  At the mamba2-130m prefill shape (b 4,
 // l 512, 24 heads of 64, state 128, chunk 64, bf16) the function needs 1.73
@@ -19,10 +20,10 @@
 // fp32 FMA peak) over 17.0 MB (5.07 us at 3.35 TB/s): only the tensor cores
 // bring the arithmetic under the bytes.
 //
-// bf16: ssd_scan_mma_bf16_kernel<N, PT>, on the tensor cores (chunk 16, 32
-// or 64; state width N 64 or 128; p a multiple of 16; 16-byte-aligned rows
-// of x, B and C).  What held the SIMT kernel below at 134x its bound, and
-// what this one does about each:
+// bf16 outside the wgmma route's shapes (below): ssd_scan_mma_bf16_kernel<N,
+// PT>, on the tensor cores (chunk 16, 32 or 64; state width N 64 or 128; p a
+// multiple of 16; 16-byte-aligned rows of x, B and C).  What held the SIMT
+// kernel below at 134x its bound, and what this one does about each:
 // - Every FMA read both operands from shared memory.  Here the four chunk
 //   products run on mma.sync m16n8k16 (bf16 operands, fp32 accumulators):
 //   G = C.B^T, Y = exp(cum) * (C . S^T) + (G o L o dt) . x and
@@ -70,6 +71,34 @@
 // below wgmma's, and C.B^T is recomputed by every block.  Then the copies:
 // every block reads its batch's B and C (32 of the 37 KB a chunk), 57 MB
 // through L2 a call.
+//
+// bf16 at chunk 64, p a multiple of 64, state width 64 or 128 and rows TMA
+// can address (every served prefill, training forward and mesh-rank scan)
+// takes the wgmma route, parallel over chunks, two launches:
+// - ssd_scan_fwd_states_kernel<N>, one warpgroup per (b, h, 64 rows of p, 64
+//   state columns), carries the state along the chunks in fp32 accumulators:
+//   each chunk's own part (x exp(cum_last - cum) dt)^T . B on wgmma
+//   m64n64k16 (x as stored; the scaled B in 3 bf16 planes, as the backward's
+//   states kernel does), x and B through a 2-stage TMA ring; it writes the
+//   state entering every chunk but the first (fp32 [b, h, nc, p, n]) and the
+//   last.  A form parallel over chunks and passed along them by a kernel of
+//   its own (-DSSD_FWD_PASS=1) moved the states twice more and lost
+//   (scripts/ssd_probe.py, PERF.md).
+// - ssd_scan_fwd_chunk_kernel<N>, one warpgroup per (b, chunk, group of
+//   bwd_head_group heads): G = C.B^T once on wgmma, kept in fp32 registers;
+//   per head, Y = exp(cum) o (C . H^T) + (G o L o dt) . x on wgmma, H split
+//   into 3 bf16 planes in shared memory, G o L o dt into 3 bf16 A fragments
+//   in registers, each term in accumulators of its own, summed smallest
+//   first as the mma.sync kernel sums them (one accumulator for all moved
+//   more outputs a rounding off plain's than that kernel); y through a
+//   swizzled tile and a TMA store.
+// Bound on the H100 SXM: bytes (5.07 us at mamba2, 14.4 at zamba2).  What
+// holds it (scripts/ssd_probe.py's parts): the fp32 states' trip through
+// device memory (written by the first kernel, read by the second: 22 MB at
+// mamba2, 37 MB at zamba2, beside 17 MB of the scan's own bytes), x read by
+// both kernels, and at these shapes the latency of each (b, h) chain and of
+// each head's steps at two blocks an SM; the products are a fifth to a
+// third of the chunk kernel.
 //
 // fp32 (and bf16 outside the shapes above): ssd_scan_kernel<T>, fp32 FMA on
 // the SIMT pipes over shared memory (TF32 would break the reference's 2e-3),
@@ -1957,6 +1986,477 @@ int launch_bwd_mma(const bf16* x, const float* dt, const float* A, const bf16* B
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on wgmma: chunk 64, p a multiple of 64, state width 64 or 128, TMA rows
+// ---------------------------------------------------------------------------
+
+// scripts/ssd_probe.py builds a copy with -DSSD_FWD_PASS=1: the chunk states in parallel over chunks
+// (ssd_scan_fwd_chunk_states_kernel), then ssd_scan_fwd_pass_kernel passes them along the chunks in
+// fp32; 0 ships: ssd_scan_fwd_states_kernel carries the state along the chunks itself.
+#ifndef SSD_FWD_PASS
+#define SSD_FWD_PASS 0
+#endif
+// ... and copies with -DSSD_FWD_PROBE=1 (no products: every wgmma of the route dropped), 2 (no state
+// read: the chunk kernel's planes from zeros), 3 (no G o L o dt: its A fragments left as G's bits), 4
+// (no state written: the states kernel stores nothing but the last state), 5 (no scans of the log
+// decays), 6 (no planes: none built, the chunk kernel's state not read) and 7 (no y stored), to show
+// which part bounds each kernel; 0 ships.
+#ifndef SSD_FWD_PROBE
+#define SSD_FWD_PROBE 0
+#endif
+
+constexpr int WG = 128;              // one warpgroup
+constexpr int FBOX = 64 * 128;       // one TMA box: 64 rows of 64 bf16, 128-byte swizzled
+constexpr int FST_STAGE = 2 * FBOX;  // a stage of the states kernel's ring: x, and 64 columns of B
+
+struct FwdShape {
+  int b, l, h, p, n, hg;    // hg: heads one block of the chunk kernel takes
+  long long sdb, sdl, sdh;  // element strides of dt
+};
+
+// The states kernel's shared memory: alignment slack, a 2-stage ring of x and B tiles, TERMS planes of
+// the scaled B, the ring's barriers, dt of each stage and each warp's factors.
+__host__ __device__ constexpr int fwd_states_smem() {
+  return 1024 + 2 * FST_STAGE + 3 * FBOX + 2 * 8 + 2 * 64 * 4 + 4 * 3 * 64 * 4;
+}
+
+// The chunk kernel's: alignment slack, C and B (n / 64 boxes each), a 2-stage ring of x tiles, TERMS
+// planes of the state (n / 64 boxes each), the output's tile, three barriers and a pad, dt of the
+// group's heads and each warp's factors.
+__host__ __device__ constexpr int fwd_chunk_smem(int n, int hg) {
+  return 1024 + (2 * (n / 64) + 3 + 3 * (n / 64)) * FBOX + 4 * 8 + hg * 64 * 4 + 4 * 3 * 64 * 4;
+}
+
+// wgmma descriptors of a tile of 128-byte-swizzled boxes: K-major (k16 step kk in box kk / 4, 32 bytes
+// a step within its rows), and MN-major 64 wide (a k16 step 16 rows on).
+__device__ __forceinline__ uint64_t kdesc(const unsigned char* tile, int kk) {
+  return wgmma_desc_sw128(tile + (kk / 4) * FBOX + 32 * (kk % 4), 16, 1024);
+}
+__device__ __forceinline__ uint64_t mndesc(const unsigned char* tile, int kk) {
+  return wgmma_desc_sw128(tile + 2048 * kk, FBOX, 1024);
+}
+
+// Both forms of the chunk states, one warpgroup per (b, h, 64 rows of p, 64 state columns[, chunk]):
+// the chunk's own part dS = (x exp(cum_last - cum) dt)^T . B on wgmma m64n64k16, x as stored (A,
+// MN-major) and the scaled B split into TERMS bf16 planes (B, MN-major), both loaded by TMA into a
+// 2-stage ring.  CHAIN: over every chunk in order, the state in the fp32 accumulators scaled by
+// exp(cum_last) before each chunk's part adds to it; writes the state entering each chunk but the first
+// to hbuf and the last state to `out` ([b, h, p, n]).  Else one chunk a block: writes dS to hbuf's slot
+// and exp(cum_last) to decs [b, h, nc] for ssd_scan_fwd_pass_kernel.
+template <int N, bool CHAIN>
+__device__ __forceinline__ void fwd_states(const CUtensorMap* map_x, const CUtensorMap* map_B,
+                                           const float* __restrict__ dt, const float* __restrict__ A,
+                                           float* __restrict__ hbuf, float* __restrict__ out,
+                                           float* __restrict__ decs, const FwdShape& s) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* planes = base + 2 * FST_STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(planes + 3 * FBOX);
+  float* Dring = reinterpret_cast<float*>(full + 2);  // [2][64]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  float* cum = Dring + 2 * 64 + warp * 3 * 64;
+  float* ecum = cum + 64;
+  float* wend = ecum + 64;
+  const int nc = s.l / 64, npt = s.p / 64;
+  int u = blockIdx.x;
+  const int n0 = u % (N / 64) * 64;
+  u /= N / 64;
+  int c_first = 0, c_end = nc;
+  if (!CHAIN) {
+    c_first = u % nc;
+    c_end = c_first + 1;
+    u /= nc;
+  }
+  const int pt = u % npt;
+  u /= npt;
+  const int hi = u % s.h, bi = u / s.h;
+  const float a_h = A[hi];
+  const float* db = dt + bi * s.sdb + hi * s.sdh;
+  const long long slot = (long long)s.p * N;  // one chunk's state in hbuf
+  float* rows = hbuf + ((long long)bi * s.h + hi) * nc * slot + (long long)(pt * 64 + 16 * warp + g) * N + n0 + 2 * t;
+
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto load = [&](int c, int st) {  // every thread commits a cp.async group
+    unsigned char* Xs = base + st * FST_STAGE;
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&full[st], FST_STAGE);
+      tma_load_4d(Xs, map_x, &full[st], pt * 64, hi, c * 64, bi);
+      tma_load_4d(Xs + FBOX, map_B, &full[st], n0, 0, c * 64, bi);
+    }
+    if (tid < 64) cp_async4(Dring + st * 64 + tid, db + (long long)(c * 64 + tid) * s.sdl);
+    cp_async_commit();
+  };
+  // this thread's rows 16 warp + g (registers 4j, 4j + 1) and + 8 (4j + 2, 4j + 3), columns 8j + 2t (+ 1)
+  auto store = [&](float* o, const float (&v)[32]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(v[4 * j], v[4 * j + 1]);
+      *reinterpret_cast<float2*>(o + 8 * N + 8 * j) = make_float2(v[4 * j + 2], v[4 * j + 3]);
+    }
+  };
+
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  load(c_first, 0);
+  for (int c = c_first, i = 0; c < c_end; ++c, ++i) {
+    const int st = i % 2;
+    cp_async_wait<0>();
+    mbar_wait(&full[st], (i / 2) & 1);
+    __syncthreads();  // the chunk and every thread's dt have landed; the last chunk's products are done
+    if (c + 1 < c_end) load(c + 1, st ^ 1);
+    const unsigned char* Xs = base + st * FST_STAGE;
+    const unsigned char* Bs = Xs + FBOX;
+    const float* Ds = Dring + st * 64;
+    const float last = SSD_FWD_PROBE == 5 ? 0.f : scan_chunk64(Ds, a_h, cum, ecum, wend, lane);
+    if (CHAIN) {
+      if (c > 0 && SSD_FWD_PROBE != 4) store(rows + c * slot, acc);  // the state entering chunk c
+      const float dec = expf(last);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[e] *= dec;
+    }
+    // w o B into the planes, w = exp(cum_last - cum) dt, in B's swizzled places
+    for (int e = tid; e < 64 * 8 && SSD_FWD_PROBE != 6; e += WG) {
+      const int r = e / 8, off = r * 128 + (((e % 8) ^ (r % 8)) << 4);
+      const float f = wend[r] * Ds[r];
+      const uint4 v = *reinterpret_cast<const uint4*>(Bs + off);
+      const uint32_t bv[4] = {v.x, v.y, v.z, v.w};
+      uint32_t split[4][TERMS];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv[k]));
+        split_pair(b2.x * f, b2.y * f, split[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < TERMS; ++k)
+        *reinterpret_cast<uint4*>(planes + k * FBOX + off) = make_uint4(split[0][k], split[1][k], split[2][k], split[3][k]);
+    }
+    fence_proxy_async_shared();  // the planes to the async proxy the wgmma read through
+    __syncthreads();
+    wgmma_fence();
+    wgmma_fence_operand(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int k = TERMS - 1; k >= 0; --k)
+        if (SSD_FWD_PROBE != 1) wgmma_m64n64k16_bf16<1, 1>(acc, mndesc(Xs, kk), mndesc(planes + k * FBOX, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(acc);
+    if (!CHAIN) {
+      if (SSD_FWD_PROBE != 4) store(rows + c * slot, acc);
+      if (n0 == 0 && tid == 0) decs[((long long)bi * s.h + hi) * nc + c] = expf(last);
+    }
+  }
+  if (CHAIN) store(out + ((long long)bi * s.h + hi) * slot + (long long)(pt * 64 + 16 * warp + g) * N + n0 + 2 * t, acc);
+}
+
+template <int N>
+__global__ void __launch_bounds__(WG)
+ssd_scan_fwd_states_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_B,
+                           const float* __restrict__ dt, const float* __restrict__ A, float* __restrict__ hbuf,
+                           float* __restrict__ out, FwdShape s) {
+  fwd_states<N, true>(&map_x, &map_B, dt, A, hbuf, out, nullptr, s);
+}
+
+#if SSD_FWD_PASS
+template <int N>
+__global__ void __launch_bounds__(WG)
+ssd_scan_fwd_chunk_states_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_B,
+                                 const float* __restrict__ dt, const float* __restrict__ A, float* __restrict__ hbuf,
+                                 float* __restrict__ decs, FwdShape s) {
+  fwd_states<N, false>(&map_x, &map_B, dt, A, hbuf, nullptr, decs, s);
+}
+
+// The state passing of -DSSD_FWD_PASS=1, a thread per 4 elements of a (b, h) state [p, n], chunk by
+// chunk in fp32: S = S exp(cum_last) + dS, each chunk's dS in hbuf replaced by the state entering it;
+// the last to `out`.
+__global__ void __launch_bounds__(256)
+ssd_scan_fwd_pass_kernel(float* __restrict__ hbuf, const float* __restrict__ decs, float* __restrict__ out, int bh,
+                         int nc, int quads) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)bh * quads) return;
+  const long long sl = i / quads;
+  float4* buf = reinterpret_cast<float4*>(hbuf) + sl * nc * quads + i % quads;
+  float4 S = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nc; ++c) {
+    const float4 d = buf[(long long)c * quads];
+    if (c > 0) buf[(long long)c * quads] = S;
+    const float k = decs[sl * nc + c];
+    S = make_float4(fmaf(S.x, k, d.x), fmaf(S.y, k, d.y), fmaf(S.z, k, d.z), fmaf(S.w, k, d.w));
+  }
+  reinterpret_cast<float4*>(out)[i] = S;
+}
+#endif
+
+// The chunk outputs, one warpgroup per (b, chunk c, group of s.hg heads): C and B arrive by TMA once,
+// and G = C.B^T on wgmma (both K-major) stays in the fp32 accumulators for the group.  Per head and 64
+// columns of p, with the state entering the chunk H (hbuf; zero for the first chunk, which skips it):
+//   Y = exp(cum) o (C . H^T) + (G o L o dt) . x,   L[l, s] = exp(cum_l - cum_s) for l >= s, else 0
+// H is read from hbuf (fp32) and split into TERMS bf16 planes in C's swizzled K-major layout (B of the
+// first product); the first product runs while G o L o dt is formed and split into TERMS bf16 A
+// fragments in registers; each term has accumulators of its own, summed smallest first into term 0's
+// and scaled there by exp(cum); the second product (A from registers, x from a 2-stage TMA ring,
+// MN-major) adds each term to its own again, and y, their sum, leaves in bf16 through a swizzled tile
+// and a TMA store.
+template <int N>
+__global__ void __launch_bounds__(WG, 1)
+ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_B,
+                          const __grid_constant__ CUtensorMap map_C, const __grid_constant__ CUtensorMap map_y,
+                          const float* __restrict__ dt, const float* __restrict__ A, const float* __restrict__ hbuf,
+                          FwdShape s) {
+  constexpr int NB = N / 64, PIECES = 64 * N / 8 / WG;  // boxes of a row; 8-float pieces of H a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Cs = base;
+  unsigned char* Bs = Cs + NB * FBOX;
+  unsigned char* Xring = Bs + NB * FBOX;
+  unsigned char* planes = Xring + 2 * FBOX;
+  unsigned char* Ys = planes + 3 * NB * FBOX;              // the output's tile, swizzled
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Ys + FBOX);  // C and B; the x ring's two
+  float* Dall = reinterpret_cast<float*>(bars + 4);         // [hg][64] dt of the group's heads
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  float* cum = Dall + s.hg * 64 + warp * 3 * 64;
+  float* ecum = cum + 64;
+  float* wend = ecum + 64;
+  const int groups = s.h / s.hg, nc = s.l / 64, npt = s.p / 64, items = s.hg * npt;
+  const int grp = blockIdx.x % groups, c = blockIdx.x / groups % nc, bi = blockIdx.x / (groups * nc);
+  const int h0 = grp * s.hg, l0 = c * 64, row = 16 * warp + g;  // this thread's rows row and row + 8
+  const bool has_h = c > 0;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto load_x = [&](int it) {  // item it: head h0 + it / npt, columns 64 (it % npt) of p
+    mbar_arrive_expect_tx(&bars[1 + it % 2], FBOX);
+    tma_load_4d(Xring + it % 2 * FBOX, &map_x, &bars[1 + it % 2], it % npt * 64, h0 + it / npt, l0, bi);
+  };
+  if (tid == 0) {
+    mbar_arrive_expect_tx(&bars[0], 2 * NB * FBOX);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_load_4d(Cs + nb * FBOX, &map_C, &bars[0], 64 * nb, 0, l0, bi);
+      tma_load_4d(Bs + nb * FBOX, &map_B, &bars[0], 64 * nb, 0, l0, bi);
+    }
+    load_x(0);
+  }
+  for (int e = tid; e < s.hg * 64; e += WG)
+    cp_async4(Dall + e, dt + bi * s.sdb + (long long)(l0 + e % 64) * s.sdl + (long long)(h0 + e / 64) * s.sdh);
+  cp_async_commit();
+
+  float G[32];
+  mbar_wait(&bars[0], 0);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    if (SSD_FWD_PROBE != 1) wgmma_m64n64k16_bf16<0, 0>(G, kdesc(Cs, kk), kdesc(Bs, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_operand(G);
+  cp_async_wait<0>();
+  __syncthreads();  // every thread's dt
+
+  for (int it = 0; it < items; ++it) {
+    const int hi = h0 + it / npt, pt = it % npt;
+    const float* Ds = Dall + it / npt * 64;
+    if (tid == 0) tma_store_wait_read<0>();  // item it - 1's output has left its tile
+    if (it > 0) __syncthreads();  // every warp is done with item it - 1: its planes, x stage and tile
+    if (tid == 0 && it + 1 < items) load_x(it + 1);
+    if (SSD_FWD_PROBE != 5) scan_chunk64(Ds, A[hi], cum, ecum, wend, lane);
+    // each term's products in accumulators of their own (term 0's also take the state's part, scaled),
+    // summed smallest first, as the mma.sync kernel sums them: with one accumulator for all, more of the
+    // bf16 outputs came out a rounding away from the plain version's than that kernel's (PERF.md)
+    float acc[TERMS][32];
+#pragma unroll
+    for (int k = 0; k < TERMS; ++k)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[k][e] = 0.f;
+    auto summed = [&](int e) {
+      float v = 0.f;
+#pragma unroll
+      for (int k = TERMS - 1; k >= 0; --k) v += acc[k][e];
+      return v;
+    };
+    if (has_h && SSD_FWD_PROBE != 6) {
+      // H's rows 64 pt .. of p into TERMS bf16 planes, each 8-float piece a 16-byte chunk of its box
+      const float* hs = hbuf + (((long long)bi * s.h + hi) * nc + c) * s.p * N + (long long)pt * 64 * N;
+      float4 v[PIECES][2];
+#pragma unroll
+      for (int i = 0; i < PIECES; ++i) {
+        const int e = tid + i * WG;
+        const float4* src = reinterpret_cast<const float4*>(hs + (long long)(e / (N / 8)) * N + e % (N / 8) * 8);
+        if (SSD_FWD_PROBE == 2) {
+          v[i][0] = v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+          v[i][0] = __ldg(src);
+          v[i][1] = __ldg(src + 1);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < PIECES; ++i) {
+        const int e = tid + i * WG, r = e / (N / 8), q = e % (N / 8);
+        const int off = q / 8 * FBOX + r * 128 + (((q % 8) ^ (r % 8)) << 4);
+        uint32_t split[4][TERMS];
+        split_pair(v[i][0].x, v[i][0].y, split[0]);
+        split_pair(v[i][0].z, v[i][0].w, split[1]);
+        split_pair(v[i][1].x, v[i][1].y, split[2]);
+        split_pair(v[i][1].z, v[i][1].w, split[3]);
+#pragma unroll
+        for (int k = 0; k < TERMS; ++k)
+          *reinterpret_cast<uint4*>(planes + k * NB * FBOX + off) =
+              make_uint4(split[0][k], split[1][k], split[2][k], split[3][k]);
+      }
+      fence_proxy_async_shared();
+    }
+    if (has_h) {
+      __syncthreads();  // the planes are whole
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+        for (int k = TERMS - 1; k >= 0; --k)
+          if (SSD_FWD_PROBE != 1)
+            wgmma_m64n64k16_bf16<0, 0>(acc[k], kdesc(Cs, kk), kdesc(planes + k * NB * FBOX, kk), kk > 0);
+      wgmma_commit();
+    }
+    // G o L o dt as TERMS bf16 A fragments: k16 step kk holds accumulator columns 16 kk .. 16 kk + 15
+    uint32_t af[TERMS][4][4];
+    const float cr0 = cum[row], cr1 = cum[row + 8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float cc0 = cum[col], cc1 = cum[col + 1], d0 = Ds[col], d1 = Ds[col + 1];
+      uint32_t lo[TERMS], up[TERMS];
+      if (SSD_FWD_PROBE == 3) {
+#pragma unroll
+        for (int k = 0; k < TERMS; ++k) {
+          af[k][j / 2][(j % 2) * 2] = __float_as_uint(G[4 * j]);
+          af[k][j / 2][(j % 2) * 2 + 1] = __float_as_uint(G[4 * j + 2]);
+        }
+        continue;
+      }
+      split_pair(col <= row ? G[4 * j] * expf(cr0 - cc0) * d0 : 0.f,
+                 col + 1 <= row ? G[4 * j + 1] * expf(cr0 - cc1) * d1 : 0.f, lo);
+      split_pair(col <= row + 8 ? G[4 * j + 2] * expf(cr1 - cc0) * d0 : 0.f,
+                 col + 1 <= row + 8 ? G[4 * j + 3] * expf(cr1 - cc1) * d1 : 0.f, up);
+#pragma unroll
+      for (int k = 0; k < TERMS; ++k) {
+        af[k][j / 2][(j % 2) * 2] = lo[k];
+        af[k][j / 2][(j % 2) * 2 + 1] = up[k];
+      }
+    }
+    if (has_h) {  // the state's part, exp(cum) o (C . H^T), into term 0's accumulators
+      wgmma_wait<0>();
+#pragma unroll
+      for (int k = 0; k < TERMS; ++k) wgmma_fence_operand(acc[k]);
+      const float e0 = ecum[row], e1 = ecum[row + 8];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[0][e] = summed(e) * (e % 4 < 2 ? e0 : e1);
+    }
+    mbar_wait(&bars[1 + it % 2], (it / 2) & 1);
+    const unsigned char* Xs = Xring + it % 2 * FBOX;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < TERMS; ++k) wgmma_fence_operand(acc[k]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int k = TERMS - 1; k >= 0; --k)
+        if (SSD_FWD_PROBE != 1)
+          wgmma_m64n64k16_bf16_rs<1>(acc[k], af[k][kk], mndesc(Xs, kk), kk > 0 || (k == 0 && has_h));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int k = 0; k < TERMS; ++k) wgmma_fence_operand(acc[k]);
+#pragma unroll
+    for (int k = 0; k < TERMS; ++k) wgmma_fence_operand(af[k]);
+    // y into its swizzled tile (rows row, row + 8; columns 8j + 2t, + 1), then out by TMA
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row + 8 * half;
+        *reinterpret_cast<__nv_bfloat162*>(Ys + r * 128 + ((j ^ (r % 8)) << 4) + 4 * t) =
+            __floats2bfloat162_rn(summed(4 * j + 2 * half), summed(4 * j + 2 * half + 1));
+      }
+    fence_proxy_async_shared();
+    __syncthreads();
+    if (tid == 0 && SSD_FWD_PROBE != 7) {
+      tma_store_4d(&map_y, Ys, pt * 64, hi, l0, bi);
+      tma_store_commit();
+    }
+  }
+  if (tid == 0) tma_store_wait<0>();
+}
+
+// The rows of a bf16 tensor with element strides `st` (batch, head, row; `cols` unit) as a 4-D tensor
+// map (cols, heads, rows, batch) in boxes of 64 columns by 64 rows of one head, 128-byte swizzled: x and
+// y [b, l, h, p] and B, C [b, l, n] (one head) as the model lays them out, with strides that grow along
+// the dims.  A dim of extent 1 is never stepped over: it gets a stride the encoder takes.
+int encode_rows(CUtensorMap* map, const void* base, int cols, int heads, int rows, int batch, const long long* st) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return NO_ENCODER;
+  const long long row = st[2], head = heads == 1 ? row : st[1], bat = batch == 1 ? row * rows : st[0];
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)head * 2, (cuuint64_t)row * 2, (cuuint64_t)bat * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+template <typename K>
+cudaError_t allow_fwd_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int N>
+int launch_fwd_wgmma(const void* x, const float* dt, const float* A, const void* B, const void* C, void* y,
+                     float* state, float* hbuf, float* decs, const SsdShape& s, int hg, cudaStream_t stream) {
+  if (s.chunk != 64 || s.l % 64 != 0 || s.p % 64 != 0 || hg < 1 || s.h % hg != 0) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t ce = make_context_current(&dev);
+  if (ce != cudaSuccess) return (int)ce;
+  const long long sx[3] = {s.sxb, s.sxh, s.sxl}, sB[3] = {s.sBb, 0, s.sBl}, sC[3] = {s.sCb, 0, s.sCl};
+  const long long sy[3] = {(long long)s.l * s.h * s.p, s.p, (long long)s.h * s.p};
+  CUtensorMap mx, mB, mC, my;
+  int err = encode_rows(&mx, x, s.p, s.h, s.l, s.b, sx);
+  if (err == 0) err = encode_rows(&mB, B, N, 1, s.l, s.b, sB);
+  if (err == 0) err = encode_rows(&mC, C, N, 1, s.l, s.b, sC);
+  if (err == 0) err = encode_rows(&my, y, s.p, s.h, s.l, s.b, sy);
+  if (err != 0) return err;
+  const FwdShape f{s.b, s.l, s.h, s.p, N, hg, s.sdb, s.sdl, s.sdh};
+  const long long nc = s.l / 64, per = (long long)s.b * s.h * (s.p / 64) * (N / 64);
+  constexpr int st_smem = fwd_states_smem();
+#if SSD_FWD_PASS
+  if ((ce = allow_fwd_smem(ssd_scan_fwd_chunk_states_kernel<N>, st_smem)) != cudaSuccess) return (int)ce;
+  ssd_scan_fwd_chunk_states_kernel<N><<<(unsigned)(per * nc), WG, st_smem, stream>>>(mx, mB, dt, A, hbuf, decs, f);
+  if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
+  const int quads = s.p * N / 4;
+  ssd_scan_fwd_pass_kernel<<<(unsigned)(((long long)s.b * s.h * quads + 255) / 256), 256, 0, stream>>>(
+      hbuf, decs, state, s.b * s.h, (int)nc, quads);
+#else
+  (void)decs;
+  if ((ce = allow_fwd_smem(ssd_scan_fwd_states_kernel<N>, st_smem)) != cudaSuccess) return (int)ce;
+  ssd_scan_fwd_states_kernel<N><<<(unsigned)per, WG, st_smem, stream>>>(mx, mB, dt, A, hbuf, state, f);
+#endif
+  if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
+  const int ch_smem = fwd_chunk_smem(N, hg);
+  if ((ce = allow_fwd_smem(ssd_scan_fwd_chunk_kernel<N>, ch_smem)) != cudaSuccess) return (int)ce;
+  ssd_scan_fwd_chunk_kernel<N><<<(unsigned)(s.b * nc * (s.h / hg)), WG, ch_smem, stream>>>(mx, mB, mC, my, dt, A,
+                                                                                          hbuf, f);
+  return (int)cudaGetLastError();
+}
+
 int launch_mma_variant(int n, int pt, const void* x, const float* dt, const float* A, const void* B, const void* C,
                        void* y, float* state, const SsdShape& s, cudaStream_t stream) {
   SSD_MMA_VARIANTS(launch_mma, x, dt, A, B, C, y, state, s, stream)
@@ -1968,23 +2468,39 @@ int occupancy_mma_variant(int n, int pt, int cl) { SSD_MMA_VARIANTS(occupancy_mm
 
 // Launches on `stream` and returns the CUDA error of the launch (0 when it was
 // accepted).  route 0 runs ssd_scan_kernel<float>, 1 ssd_scan_kernel<bf16>, 2
-// ssd_scan_mma_bf16_kernel<n, pt> (x, B, C and y bf16 there); dt, A and
-// state are float32.  y is contiguous [b, l, h, p], state contiguous
+// ssd_scan_mma_bf16_kernel<n, pt>, 3 ssd_scan_fwd_states_kernel<n> then
+// ssd_scan_fwd_chunk_kernel<n> (x, B, C and y bf16 on routes 2 and 3; on 3
+// chunk 64, p a multiple of 64, n 64 or 128, rows TMA can address, hg heads a
+// chunk-kernel block, hbuf fp32 [b, h, l / 64, p, n] scratch: the states
+// entering the chunks; decs fp32 [b, h, l / 64] scratch of the
+// -DSSD_FWD_PASS=1 build, else unused); dt, A and state are float32.  y is contiguous [b, l, h, p], state contiguous
 // [b, h, p, n].  Shapes, routes and the shared-memory size are validated by
 // the Python wrapper.
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A, const void* B, const void* C,
                             void* y, float* state, int route, int b, int l, int h, int p, int n, int chunk,
                             int pt, long long sxb, long long sxl, long long sxh, long long sdb, long long sdl,
                             long long sdh, long long sBb, long long sBl, long long sCb, long long sCl,
-                            void* stream) {
+                            float* hbuf, float* decs, int hg, void* stream) {
   const SsdShape s{b, l, h, p, n, chunk, pt, sxb, sxl, sxh, sdb, sdl, sdh, sBb, sBl, sCb, sCl};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 0) return launch_simt<float>(x, dt, A, B, C, y, state, s, st);
   if (route == 1) return launch_simt<bf16>(x, dt, A, B, C, y, state, s, st);
   if (route == 2 && chunk % 16 == 0 && chunk <= MAX_CL)
     return launch_mma_variant(n, pt, x, dt, A, B, C, y, state, s, st);
+  if (route == 3 && n == 64) return launch_fwd_wgmma<64>(x, dt, A, B, C, y, state, hbuf, decs, s, hg, st);
+  if (route == 3 && n == 128) return launch_fwd_wgmma<128>(x, dt, A, B, C, y, state, hbuf, decs, s, hg, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory of one block of route 3's states kernel (kernel 0) or chunk kernel (1) at state
+// width n and hg heads a chunk-kernel block, in bytes.
+extern "C" int ssd_scan_fwd_smem_bytes(int n, int hg, int kernel) {
+  return kernel == 0 ? fwd_states_smem() : fwd_chunk_smem(n, hg);
+}
+
+// Whether this build passes route 3's states along the chunks in a kernel of its own (SSD_FWD_PASS).
+extern "C" int ssd_scan_fwd_pass() { return SSD_FWD_PASS; }
+
 
 // The backward: dx [b, l, h, p] (x's type), ddt [b, l, h] and dA [h] (fp32), dB and dC [b, l, n] (B's type),
 // all contiguous, from the forward's inputs (strided as ssd_scan_fwd takes them), dy (unit stride over p) and

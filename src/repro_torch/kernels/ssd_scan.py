@@ -7,20 +7,30 @@ every ``ssd`` model, in place of the reference's ``blocks.ssd_chunked``.
 Unlike the Pallas kernel it also returns the final state, which
 ``ssd_block(return_state=True)`` hands to decode.
 
-``csrc/ssd_scan.cu`` holds two kernels, both one block per (batch, head,
-tile of the state's rows over p) with a loop over chunks inside, reading B
-and C from their ``[b, l, n]`` rows rather than copying them per head.
-:func:`route` picks one by type, shape and alignment alone: bf16 at chunk
-16/32/64, state width 64/128, p a multiple of 16 and 16-byte-aligned rows on
-``ssd_scan_mma_bf16_kernel`` (the four chunk products on ``mma.sync``, each
-operand that is not exact in bf16 split into bf16 terms, the state in fp32
-registers, a ``cp.async`` ring over chunks); everything else, fp32
-included, on ``ssd_scan_kernel`` (fp32 FMA on the SIMT pipes).
-:func:`plan` picks the tensor-core kernel's p tile from the shape and the
-SM count (see the source note for both designs).
+``csrc/ssd_scan.cu`` holds three forward routes, which :func:`route` picks
+by type, shape and alignment alone.  bf16 at chunk 64, p a multiple of 64,
+state width 64/128 and rows TMA can address (every served prefill,
+training forward and mesh-rank scan) runs parallel over chunks on
+``wgmma``: ``ssd_scan_fwd_states_kernel`` carries the state along the
+chunks a (batch, head, 64 state columns) a block and writes the state
+entering each chunk, then ``ssd_scan_fwd_chunk_kernel`` computes every
+chunk's output a (batch, chunk, group of :func:`bwd_head_group` heads) a
+block, C·Bᵀ once for the group (:func:`fwd_kernels` names each route's
+launches).  Other bf16 at chunk 16/32/64, state width 64/128, p a multiple
+of 16 and 16-byte-aligned rows runs ``ssd_scan_mma_bf16_kernel`` (one block
+per (batch, head, tile of the state's rows over p) with a loop over chunks
+inside, the four chunk products on ``mma.sync``, each operand that is not
+exact in bf16 split into bf16 terms, the state in fp32 registers, a
+``cp.async`` ring over chunks); everything else, fp32 included, on
+``ssd_scan_kernel`` (fp32 FMA on the SIMT pipes, the same structure).
+:func:`plan` picks the ``mma.sync`` kernel's p tile from the shape and the
+SM count (see the source note for every design).
 
 :func:`ssd_scan_plain` uses the Pallas kernel's fp32 chunk arithmetic in
-PyTorch; the CPU path and the on-card checks use it.
+PyTorch; the CPU path and the on-card checks use it.  :func:`fwd_states_plain`,
+:func:`fwd_pass_plain` and :func:`fwd_chunk_plain` are the ``wgmma`` route's
+steps (the chunk states, their passing along the chunks, the chunk
+outputs), which compose to it, for the CPU tests.
 
 The backward (the reference has none in Pallas: it trains through XLA's
 gradient of ``ssd_chunked``): :func:`ssd_scan_bwd` runs more kernels of
@@ -52,15 +62,24 @@ import torch
 
 #: launches of the CUDA kernels since this count was last set to 0
 launches = 0
+#: of those, calls on the wgmma route (each launches its states kernel before its chunk kernel)
+wgmma_launches = 0
 #: calls of the backward (each launches its route's kernels, :func:`bwd_kernels`) since this count was last set to 0
 bwd_launches = 0
 
-#: the kernels of ``csrc/ssd_scan.cu``, indexed by the route code ``ssd_scan_fwd`` takes
+#: the kernels of ``csrc/ssd_scan.cu``, indexed by the route code ``ssd_scan_fwd`` takes (route 3 also
+#: launches the states kernel first: :func:`fwd_kernels` names every launch)
 KERNELS = (
     "ssd_scan_kernel<float>",  # fp32
-    "ssd_scan_kernel<__nv_bfloat16>",  # bf16 outside the tensor-core kernel's shapes
-    "ssd_scan_mma_bf16_kernel",  # bf16 on the tensor cores
+    "ssd_scan_kernel<__nv_bfloat16>",  # bf16 outside the tensor-core kernels' shapes
+    "ssd_scan_mma_bf16_kernel",  # bf16 on mma.sync
+    "ssd_scan_fwd_chunk_kernel",  # bf16 on wgmma, parallel over chunks
 )
+#: route codes of the two bf16 tensor-core routes
+MMA, WGMMA = 2, 3
+#: what the wgmma route compiles: its chunk, state widths, and the rows of p and state columns a block
+#: of its states kernel carries
+WGMMA_CHUNK, WGMMA_STATES, WGMMA_TILE = 64, (64, 128), 64
 #: state rows over p per block of the SIMT kernel, and of the backward's
 SIMT_P_TILE = BWD_P_TILE = 64
 #: the backward's largest chunk and state width (its register tiles: 64 rows, 128 columns)
@@ -124,6 +143,55 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, to
         new = torch.einsum("blhp,bln->bhpn", decay_to_end[:, c, :, :, None] * xdt[:, c], Bf[:, c])
         state = state * torch.exp(cum[:, c, -1])[..., None, None] + new
     return torch.stack(ys, dim=1).reshape(b, l, h, p).to(x.dtype), state
+
+
+def fwd_states_plain(x, dt, A, B, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunk states of the ``wgmma`` route: for each (b, h) and chunk c
+    the chunk's own part of the state, dS_c = (x·exp(cum_last − cum)·dt)ᵀ·B
+    ([b, h, nc, p, n] fp32), and its decay exp(cum_last) ([b, h, nc])."""
+    b, l, h, p = x.shape
+    n, nc = B.shape[-1], l // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    cum = torch.cumsum(dtf * A.float(), dim=2)  # [b, c, cl, h]
+    w = torch.exp(cum[:, :, -1:] - cum) * dtf
+    ds = torch.einsum("bclh,bclhp,bcln->bhcpn", w, xf, B.float().reshape(b, nc, chunk, n))
+    return ds, torch.exp(cum[:, :, -1]).permute(0, 2, 1)
+
+
+def fwd_pass_plain(ds: torch.Tensor, dec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The state passing of the ``wgmma`` route, in chunk order in fp32:
+    S_c = S_{c−1}·exp(cum_last, c) + dS_c from S_{−1} = 0.  Returns the
+    state entering each chunk [b, h, nc, p, n] (zero for the first) and
+    the last state [b, h, p, n]."""
+    state = torch.zeros_like(ds[:, :, 0])
+    entering = []
+    for c in range(ds.shape[2]):
+        entering.append(state)
+        state = state * dec[:, :, c, None, None] + ds[:, :, c]
+    return torch.stack(entering, dim=2), state
+
+
+def fwd_chunk_plain(x, dt, A, B, C, h_in, *, chunk: int = 64) -> torch.Tensor:
+    """The chunk outputs of the ``wgmma`` route, each chunk on its own given
+    the state entering it (``h_in`` [b, h, nc, p, n], :func:`fwd_pass_plain`):
+    Y = (G∘L∘dt)·x + exp(cum)∘(C·H_inᵀ), G = C·Bᵀ shared by every head,
+    L[l, s] = exp(cum_l − cum_s) for l ≥ s, else 0.  Returns y [b, l, h, p]
+    in x's type."""
+    _check_shapes(x, dt, A, B, C, chunk)
+    b, l, h, p = x.shape
+    n, nc = B.shape[-1], l // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    Cf = C.float().reshape(b, nc, chunk, n)
+    cum = torch.cumsum(dtf * A.float(), dim=2)
+    idx = torch.arange(chunk, device=x.device)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None]
+    ldec = torch.exp(torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :], float("-inf")))  # [b,c,l,s,h]
+    g = torch.einsum("bcln,bcsn->bcls", Cf, B.float().reshape(b, nc, chunk, n))
+    intra = torch.einsum("bcls,bclsh,bcsh,bcshp->bclhp", g, ldec, dtf, xf)
+    inter = torch.exp(cum)[..., None] * torch.einsum("bcln,bhcpn->bclhp", Cf, h_in.float())
+    return (intra + inter).reshape(b, l, h, p).to(x.dtype)
 
 
 def ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
@@ -382,17 +450,61 @@ def mma_smem_bytes(chunk: int, n: int, p_tile: int) -> int:
     return 2 * stage + p_tile * n * 4 + 10 * 256 * 4 + 8 * 3 * 64 * 4
 
 
+def _takes(kernel: int, dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool) -> bool:
+    """Whether route ``kernel`` of :data:`KERNELS` scans this type and shape."""
+    if kernel in (MMA, WGMMA) and not (dtype == torch.bfloat16 and aligned and n in MMA_STATES):
+        return False
+    if kernel == WGMMA:
+        return chunk == WGMMA_CHUNK and p % WGMMA_TILE == 0 and n in WGMMA_STATES
+    if kernel == MMA:
+        return chunk in MMA_CHUNKS and p % 16 == 0
+    return kernel == (0 if dtype == torch.float32 else 1)
+
+
 def route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool) -> int:
-    """Index in :data:`KERNELS` of the kernel that scans x ``[.., p]`` with
+    """Index in :data:`KERNELS` of the route that scans x ``[.., p]`` with
     B, C ``[.., n]`` at ``chunk``, by type, shape and alignment alone.
-    ``aligned``: x, B and C start 16-byte aligned with every stride but the
-    last a multiple of 8 elements (:func:`_aligned`)."""
-    if dtype == torch.float32:
-        return 0
-    if dtype != torch.bfloat16:
+    ``aligned``: TMA can address the rows of x, B and C (:func:`fwd_aligned`).
+    bf16 at chunk 64, p a multiple of 64 and state width 64 or 128 takes the
+    ``wgmma`` route (3), other bf16 at chunks 16/32/64 with p a multiple of
+    16 ``mma.sync`` (2), fp32 and the rest the SIMT kernel (0, 1)."""
+    if dtype not in _DTYPES:
         raise TypeError(f"ssd_scan takes float32 or bfloat16, got {dtype}")
-    mma = aligned and chunk in MMA_CHUNKS and n in MMA_STATES and p % 16 == 0
-    return 2 if mma else 1
+    return next(k for k in (WGMMA, MMA, 0, 1) if _takes(k, dtype, p, n, chunk, aligned))
+
+
+def fwd_kernels(p: "SsdPlan", n: int) -> tuple[str, ...]:
+    """The kernels one forward on plan ``p`` at state width ``n`` launches, in
+    launch order, as the profiler names them."""
+    if p.route == WGMMA:
+        return f"ssd_scan_fwd_states_kernel<{n}>", f"ssd_scan_fwd_chunk_kernel<{n}>"
+    if p.route == MMA:
+        return (f"ssd_scan_mma_bf16_kernel<{n}, {p.p_tile}>",)
+    return (KERNELS[p.route],)
+
+
+def fwd_smem_bytes(n: int, head_group: int) -> tuple[int, int]:
+    """Dynamic shared memory of one block of the ``wgmma`` route's states
+    kernel and of its chunk kernel at state width ``n`` and ``head_group``
+    heads a chunk-kernel block (``fwd_states_smem`` and ``fwd_chunk_smem`` in
+    the source).  States: 1 KB of alignment slack, a 2-stage ring of x and
+    64 columns of B (two 8 KB boxes of 64 rows of 128 bytes), 3 bf16 planes
+    of the scaled B, the ring's two barriers, dt of each stage and the 4
+    warps' 3 factor rows.  Chunk: the slack, C and B (n / 64 boxes each), a
+    2-stage ring of x boxes, 3 bf16 planes of the state (n / 64 boxes each),
+    the output's box, three barriers and a pad, dt of the group's heads and
+    the warps' factor rows."""
+    box = 64 * 128
+    states = 1024 + 2 * 2 * box + 3 * box + 2 * 8 + 2 * 64 * 4 + 4 * 3 * 64 * 4
+    chunk = 1024 + (2 * (n // 64) + 3 + 3 * (n // 64)) * box + 4 * 8 + head_group * 64 * 4 + 4 * 3 * 64 * 4
+    return states, chunk
+
+
+def fwd_grid(b: int, l: int, h: int, p: int, n: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """Blocks of the ``wgmma`` route's two kernels: the states kernel one
+    per (b, h, 64 rows of p, 64 state columns), the chunk kernel one per
+    (b, chunk, group of :func:`bwd_head_group` heads)."""
+    return b * h * (p // WGMMA_TILE) * (n // 64), b * (l // WGMMA_CHUNK) * (h // bwd_head_group(b, l, h, sms=sms))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,8 +519,12 @@ class SsdPlan:
 
 
 def _plan_of(kernel: int, b: int, h: int, p: int, n: int, chunk: int, p_tile: int) -> SsdPlan:
+    """A route's plan: on ``wgmma`` its states kernel's grid and shared memory
+    (the chunk kernel's depend on l: :func:`fwd_grid`, :func:`fwd_smem_bytes`)."""
+    if kernel == WGMMA:
+        return SsdPlan(kernel, p_tile, b * h * (p // p_tile) * (n // 64), fwd_smem_bytes(n, 1)[0])
     blocks = b * h * -(-p // p_tile)
-    smem = mma_smem_bytes(chunk, n, p_tile) if kernel == 2 else simt_smem_bytes(chunk, n, p_tile)
+    smem = mma_smem_bytes(chunk, n, p_tile) if kernel == MMA else simt_smem_bytes(chunk, n, p_tile)
     return SsdPlan(kernel, p_tile, blocks, smem)
 
 
@@ -417,15 +533,23 @@ def plan(dtype: torch.dtype, b: int, h: int, p: int, n: int, chunk: int, aligned
          sms: int = H100_SMS) -> SsdPlan:
     """The plan for x ``[b, l, h, p]``, B, C ``[b, l, n]`` at ``chunk`` on a
     card of ``sms`` SMs, a pure function of these.  The SIMT kernel takes
-    p tiles of :data:`SIMT_P_TILE`.  The tensor-core kernel takes the
-    largest p tile of :data:`MMA_P_TILES` that still launches a block on
-    every SM (a wider tile reads B and C and computes C·Bᵀ for more rows at
-    once), else the smallest (``scripts/ssd_probe.py``, PERF.md)."""
+    p tiles of :data:`SIMT_P_TILE`, the ``wgmma`` route of
+    :data:`WGMMA_TILE`, the ``mma.sync`` kernel :func:`mma_plan`'s."""
     kernel = route(dtype, p, n, chunk, aligned)
-    if kernel != 2:
-        return _plan_of(kernel, b, h, p, n, chunk, min(p, SIMT_P_TILE))
+    if kernel == MMA:
+        return mma_plan(b, h, p, n, chunk, sms)
+    return _plan_of(kernel, b, h, p, n, chunk, WGMMA_TILE if kernel == WGMMA else min(p, SIMT_P_TILE))
+
+
+@functools.lru_cache(maxsize=1024)
+def mma_plan(b: int, h: int, p: int, n: int, chunk: int, sms: int = H100_SMS) -> SsdPlan:
+    """The ``mma.sync`` kernel's plan, wherever it takes the shape (also
+    where :func:`route` picks ``wgmma``, so the two can be timed side by
+    side): the largest p tile of :data:`MMA_P_TILES` that still launches a
+    block on every SM (a wider tile reads B and C and computes C·Bᵀ for more
+    rows at once), else the smallest (``scripts/ssd_probe.py``, PERF.md)."""
     for p_tile in MMA_P_TILES:
-        chosen = _plan_of(kernel, b, h, p, n, chunk, p_tile)
+        chosen = _plan_of(MMA, b, h, p, n, chunk, p_tile)
         if chosen.blocks >= sms:
             return chosen
     return chosen
@@ -440,6 +564,12 @@ def mma_plans(b: int, h: int, p: int, n: int, chunk: int) -> list[SsdPlan]:
 def _aligned(t: torch.Tensor) -> bool:
     """Starts 16-byte aligned, every stride but the last a multiple of 8 elements (bf16 rows)."""
     return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1])
+
+
+def fwd_aligned(*ts: torch.Tensor) -> bool:
+    """Whether TMA can address the rows of every tensor (the forward's
+    ``aligned``): :func:`_aligned`, and no zero stride over a dim longer than 1."""
+    return all(_aligned(t) and all(st > 0 or d == 1 for st, d in zip(t.stride()[:-1], t.shape)) for t in ts)
 
 
 def _check(x, dt, A, B, C, chunk: int) -> None:
@@ -474,28 +604,32 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Te
     """
     _check(x, dt, A, B, C, chunk)
     b, _, h, p = x.shape
-    aligned = _aligned(x) and _aligned(B) and _aligned(C)
-    chosen = plan(x.dtype, b, h, p, B.shape[-1], chunk, aligned, sms=_sm_count(x.device.index))
+    chosen = plan(x.dtype, b, h, p, B.shape[-1], chunk, fwd_aligned(x, B, C), sms=_sm_count(x.device.index))
     return _launch(x, dt, A, B, C, chunk, chosen)
 
 
 def run_plan(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the scan as ``p`` says, which need not be :func:`plan`'s (the
-    inputs checked as :func:`ssd_scan` checks them, the plan against what
-    the kernels compile)."""
+    """Run the scan as ``p`` says, which need not be :func:`plan`'s: the
+    route :func:`route` picks, or the ``mma.sync`` kernel where it picks
+    ``wgmma`` (to time the two side by side), the inputs checked as
+    :func:`ssd_scan` checks them, the plan against what the kernels compile."""
     _check(x, dt, A, B, C, chunk)
     b, _, h, pp = x.shape
     n = B.shape[-1]
-    kernel = route(x.dtype, pp, n, chunk, _aligned(x) and _aligned(B) and _aligned(C))
-    ok = (p.route == kernel and p == _plan_of(kernel, b, h, pp, n, chunk, p.p_tile)
-          and (p in mma_plans(b, h, pp, n, chunk) if kernel == 2 else p.p_tile == min(pp, SIMT_P_TILE)))
+    aligned = fwd_aligned(x, B, C)
+    picked = route(x.dtype, pp, n, chunk, aligned)
+    routes = {picked, MMA} if picked == WGMMA and _takes(MMA, x.dtype, pp, n, chunk, aligned) else {picked}
+    ok = (p.route in routes and p == _plan_of(p.route, b, h, pp, n, chunk, p.p_tile)
+          and (p in mma_plans(b, h, pp, n, chunk) if p.route == MMA
+               else p.p_tile == (WGMMA_TILE if p.route == WGMMA else min(pp, SIMT_P_TILE))))
     if not ok:
-        raise ValueError(f"plan {p} is not one of {KERNELS[kernel]}'s for x {tuple(x.shape)}, n {n}, chunk {chunk}")
+        raise ValueError(f"plan {p} is not one of the routes {sorted(routes)} takes at x {tuple(x.shape)}, n {n}, "
+                         f"chunk {chunk}")
     return _launch(x, dt, A, B, C, chunk, p)
 
 
 def _launch(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torch.Tensor]:
-    global launches
+    global launches, wgmma_launches
     b, l, h, pp = x.shape
     n = B.shape[-1]
     if p.smem > MAX_SMEM_BYTES:
@@ -505,10 +639,20 @@ def _launch(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torch
         raise ValueError(f"grid too large for x {tuple(x.shape)}")
     y = torch.empty((b, l, h, pp), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, pp, n), dtype=torch.float32, device=x.device)
+    hbuf = decs = None
+    hg = 0
+    if p.route == WGMMA:
+        hg = bwd_head_group(b, l, h, chunk, sms=_sm_count(x.device.index))
+        if fwd_smem_bytes(n, hg)[1] > MAX_SMEM_BYTES:
+            raise ValueError(f"a group of {hg} heads needs {fwd_smem_bytes(n, hg)[1]} B of shared memory a block")
+        # the state entering each chunk (fp32), and each chunk's decay for a build that passes them apart
+        hbuf = torch.empty((b, h, l // chunk, pp, n), dtype=torch.float32, device=x.device)
+        decs = torch.empty((b, h, l // chunk), dtype=torch.float32, device=x.device)
     err = _kernel()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
         p.route, b, l, h, pp, n, chunk, p.p_tile,
         *x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+        None if hbuf is None else hbuf.data_ptr(), None if decs is None else decs.data_ptr(), hg,
         # the current stream's handle without building a torch.cuda.Stream:
         # at these sizes the host's time to issue a call rivals the card's
         torch._C._cuda_getCurrentRawStream(x.device.index),
@@ -516,6 +660,7 @@ def _launch(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torch
     if err != 0:
         raise RuntimeError(f"ssd_scan: {KERNELS[p.route]} ({p}) launch failed: cudaError {err}")
     launches += 1
+    wgmma_launches += p.route == WGMMA
     return y, state
 
 
@@ -678,7 +823,8 @@ def _bwd_mma_kernel():
 @functools.cache
 def _kernel():
     fn = library().ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

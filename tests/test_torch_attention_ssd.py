@@ -212,12 +212,15 @@ def test_ssd_plain_rejects_ragged_chunk_and_bad_shapes():
 
 
 def test_ssd_block_of_the_mamba2_shape_fits_shared_memory():
-    """The block of the kernel that mamba2-130m's bf16 prefill scan runs (the
-    tensor-core kernel's plan at x [4, 512, 24, 64], state 128, chunk 64)
-    needs dynamic shared memory above 48 KB and within the H100's 227 KB; so
-    does the SIMT kernel's at the same state (the fp32 scan)."""
+    """The blocks of the kernels that mamba2-130m's bf16 prefill scan runs
+    (the ``wgmma`` route at x [4, 512, 24, 64], state 128, chunk 64: its
+    states and chunk kernels) need dynamic shared memory above 48 KB and
+    within the H100's 227 KB; so do the ``mma.sync`` kernel's plan at that
+    shape and the SIMT kernel's at the same state (the fp32 scan)."""
     plan = ssd.plan(torch.bfloat16, 4, 24, 64, 128, 64, True)
-    assert plan.route == ssd.KERNELS.index("ssd_scan_mma_bf16_kernel")
-    assert 48 * 1024 < plan.smem <= ssd.MAX_SMEM_BYTES
+    assert plan.route == ssd.KERNELS.index("ssd_scan_fwd_chunk_kernel")
+    for need in (plan.smem, *ssd.fwd_smem_bytes(128, ssd.bwd_head_group(4, 512, 24)),
+                 ssd.mma_plan(4, 24, 64, 128, 64).smem):
+        assert 48 * 1024 < need <= ssd.MAX_SMEM_BYTES
     need = ssd.simt_smem_bytes(64, 128, ssd.SIMT_P_TILE)
     assert 48 * 1024 < need <= ssd.MAX_SMEM_BYTES

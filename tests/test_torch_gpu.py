@@ -15,6 +15,8 @@ against itself on the CPU at 3e-4 relative to the largest |logit| in fp32
 (the reference's prefill-vs-decode tolerance).
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -649,22 +651,81 @@ def test_ssd_scan_gives_the_same_bits_twice_and_on_two_streams(dtype):
 
 
 @pytest.mark.parametrize(
-    "shape,dtype,strided,want,other",
+    "shape,dtype,strided",
     [
-        ((4, 512, 24, 64, 128, 64), torch.bfloat16, True, "ssd_scan_mma_bf16_kernel", "ssd_scan_kernel"),  # mamba2
-        ((2, 64, 4, 16, 16, 8), torch.bfloat16, True, "ssd_scan_kernel", "ssd_scan_mma_bf16_kernel"),  # chunk 8
-        ((4, 512, 24, 64, 128, 64), torch.float32, False, "ssd_scan_kernel", "ssd_scan_mma_bf16_kernel"),
+        ((4, 512, 24, 64, 128, 64), torch.bfloat16, True),  # mamba2: the wgmma route
+        ((4, 512, 80, 64, 64, 64), torch.bfloat16, True),  # zamba2: the wgmma route
+        ((2, 128, 4, 64, 128, 32), torch.bfloat16, True),  # chunk 32: mma.sync
+        ((2, 64, 4, 16, 16, 8), torch.bfloat16, True),  # chunk 8: SIMT
+        ((4, 512, 24, 64, 128, 64), torch.float32, False),  # fp32: SIMT
     ],
 )
-def test_ssd_scan_runs_the_kernel_of_its_route(shape, dtype, strided, want, other):
-    """mamba2-130m's bf16 prefill scan on the tensor cores; chunk 8 and fp32 on the SIMT kernel, never the other."""
+def test_ssd_scan_runs_the_kernel_of_its_route(shape, dtype, strided):
+    """Each call runs exactly the kernels ``ssd_scan.fwd_kernels`` names for
+    its plan: mamba2-130m's and zamba2-2.7b's bf16 prefill scans the wgmma
+    route's two, chunk 32 the mma.sync kernel, chunk 8 and fp32 the SIMT
+    kernel, and no other forward kernel."""
     b, l, h, p, n, chunk = shape
     args = _ssd(b, l, h, p, n, dtype, strided=strided)
     ssd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
+    want = ssd.fwd_kernels(ssd.plan(dtype, b, h, p, n, chunk, ssd.fwd_aligned(args[0], args[3], args[4])), n)
     names = _device_kernel_names(lambda: ssd.ssd_scan(*args, chunk=chunk))
-    assert any(want in k for k in names), names
-    assert not any(other in k for k in names), names
+    ran = sorted({m.group(1) for k in names if (m := re.search(r"::(ssd_scan\w*_kernel(?:<[^>]*>)?)", k))})
+    assert ran == sorted(want), names
+
+
+#: the wgmma route's branches: state 64 / 128, one chunk and several, p of one and two 64-row tiles,
+#: head groups of one and several, contiguous and strided rows, the served and mesh-rank shapes
+SSD_WGMMA_CASES = [
+    (1, 64, 2, 64, 128, False),  # one chunk: no state enters
+    (1, 128, 2, 64, 64, True),
+    (2, 256, 3, 128, 64, True),  # two p tiles
+    (2, 256, 5, 64, 128, False),
+    (3, 192, 7, 64, 64, True),  # a group of every head (b l / 64 x h < 132)
+    (4, 512, 24, 64, 128, True),  # mamba2-130m
+    (4, 512, 80, 64, 64, True),  # zamba2-2.7b
+    (4, 512, 12, 64, 128, True),  # mamba2 on a (1, 2) mesh
+    (4, 512, 40, 64, 64, True),  # zamba2 on a (1, 2) mesh
+    (16, 4096, 5, 64, 64, True),  # zamba2 x train_4k, rank 0 of (16, 16)
+]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,strided", SSD_WGMMA_CASES)
+def test_ssd_wgmma_route_matches_plain(b, l, h, p, n, strided):
+    """The wgmma route against ssd_scan_plain, y and the final state, within
+    the bf16 tolerance; its share of bf16 outputs that differ from plain's
+    no greater than the mma.sync kernel's on the same inputs (and both
+    small); two calls give the same bits."""
+    args = _ssd(b, l, h, p, n, torch.bfloat16, seed=b + h, strided=strided)
+    assert ssd.plan(torch.bfloat16, b, h, p, n, 64, ssd.fwd_aligned(args[0], args[3], args[4])).route == 3
+    y, state = ssd.ssd_scan(*args, chunk=64)
+    y2, state2 = ssd.ssd_scan(*args, chunk=64)
+    ym, _ = ssd.run_plan(*args, 64, ssd.mma_plan(b, h, p, n, 64))
+    torch.cuda.synchronize()
+    yp, sp = ssd.ssd_scan_plain(*args, chunk=64)
+    assert y.dtype == torch.bfloat16 and y.is_contiguous() and state.dtype == torch.float32
+    _agree(y, yp, None, False)
+    _agree(state, sp, None, False)
+    diff, diff_mma = (y != yp).float().mean().item(), (ym != yp).float().mean().item()
+    assert diff <= max(diff_mma, 1e-4) * 1.25 and diff < 2e-3, (diff, diff_mma)
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+def test_ssd_wgmma_route_gives_the_same_bits_on_two_streams():
+    args = [_ssd(4, 512, 80, 64, 64, torch.bfloat16, seed=s, strided=True) for s in (3, 4)]
+    seq = [ssd.ssd_scan(*a, chunk=64) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st, a in zip(streams, args):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([ssd.ssd_scan(*a, chunk=64) for _ in range(3)])
+    torch.cuda.synchronize()
+    for want, got in zip(seq, outs):
+        for y, state in got:
+            assert torch.equal(y, want[0]) and torch.equal(state, want[1])
 
 
 def test_ssd_unaligned_bf16_takes_the_simt_kernel():

@@ -3,8 +3,9 @@
 ``kernels/ssd_scan.route`` and ``plan`` are pure functions of type, shape,
 alignment and SM count, so they are pinned here: mamba2-130m's and
 zamba2-2.7b's bf16 prefill scans (x, B and C strided as ``ssd_block``
-passes them) take the tensor-core kernel on a block per SM at least, and
-fp32, chunk 8 and unaligned rows the SIMT kernel.  The tensor-core kernel's
+passes them) take the ``wgmma`` route, the ``mma.sync`` kernel's plan there
+launches a block per SM at least, and fp32, chunk 8 and unaligned rows take
+the SIMT kernel.  The tensor-core kernel's
 bf16 roundings (the source note of ``csrc/ssd_scan.cu``) are modelled in
 plain PyTorch and held against the JAX package's ``blocks.ssd_chunked`` at
 a small shape, and against ``ssd_scan_plain`` at mamba2-130m's shape,
@@ -24,6 +25,7 @@ from repro_torch.kernels import ssd_scan as ssd
 
 BF16_REL_TOL = 1e-2
 MMA = ssd.KERNELS.index("ssd_scan_mma_bf16_kernel")
+WGMMA = ssd.KERNELS.index("ssd_scan_fwd_chunk_kernel")
 SIMT_F32 = ssd.KERNELS.index("ssd_scan_kernel<float>")
 SIMT_BF16 = ssd.KERNELS.index("ssd_scan_kernel<__nv_bfloat16>")
 #: (b, l, h, p, n, chunk) of the served Mamba2-family prefill scans at batch 4, prompt 512
@@ -87,9 +89,9 @@ def _rel(got, want):
 @pytest.mark.parametrize(
     "dtype,shape,strided,want",
     [
-        (torch.bfloat16, MAMBA2, True, MMA),
-        (torch.bfloat16, ZAMBA2, True, MMA),
-        (torch.bfloat16, MAMBA2, False, MMA),
+        (torch.bfloat16, MAMBA2, True, WGMMA),
+        (torch.bfloat16, ZAMBA2, True, WGMMA),
+        (torch.bfloat16, MAMBA2, False, WGMMA),
         (torch.float32, MAMBA2, False, SIMT_F32),
         (torch.bfloat16, (2, 64, 4, 16, 16, 8), True, SIMT_BF16),  # mamba2 smoke: chunk 8, state 16
         (torch.bfloat16, (2, 256, 3, 48, 64, 32), False, MMA),  # p 48: a ragged p tile
@@ -125,15 +127,17 @@ def test_route_sends_unaligned_bf16_rows_to_the_simt_kernel():
     ids=["mamba2-130m", "zamba2-2.7b"],
 )
 def test_plan_of_the_served_prefill_scans(shape, p_tile, blocks):
-    """The plan scripts/ssd_probe.py measured fastest among those that launch
-    a block on every SM of an H100 (PERF.md): mamba2 at p tiles of 32 (a
-    64-row tile would leave 36 SMs idle), zamba2 at 64."""
+    """The ``mma.sync`` plan scripts/ssd_probe.py measured fastest among those
+    that launch a block on every SM of an H100 (PERF.md): mamba2 at p tiles
+    of 32 (a 64-row tile would leave 36 SMs idle), zamba2 at 64.  It is the
+    one timed beside the ``wgmma`` route, which :func:`plan` picks there."""
     b, _, h, p, n, chunk = shape
-    chosen = ssd.plan(torch.bfloat16, b, h, p, n, chunk, True, sms=132)
+    chosen = ssd.mma_plan(b, h, p, n, chunk, sms=132)
     assert (chosen.route, chosen.p_tile, chosen.blocks) == (MMA, p_tile, blocks)
     assert chosen.blocks >= 132
     assert 48 * 1024 < chosen.smem <= ssd.MAX_SMEM_BYTES
-    assert ssd.plan(torch.bfloat16, b, h, p, n, chunk, True, sms=132) is chosen  # cached
+    assert ssd.mma_plan(b, h, p, n, chunk, sms=132) is chosen  # cached
+    assert ssd.plan(torch.bfloat16, b, h, p, n, chunk, True, sms=132).route == WGMMA
 
 
 @pytest.mark.parametrize("shape", [MAMBA2, ZAMBA2, (2, 128, 3, 48, 64, 16)])
