@@ -383,11 +383,13 @@ repository's sources are not beside this script.  Otherwise, in order:
    mesh; on (1, 2) the residual stream is split over the sequence
    (``sp_residuals``, the default): granite-3-2b at full width and
    MESH_DEPTH layers, its loss and every
-   leaf of its gradient gathered whole held to MESH_LOSS_TOL / MESH_GRAD_TOL
-   against one process, with the stream split and whole, beside controls
-   that must miss (on (1, 2) the tensor-parallel sums dropped, ``sum_tp``
-   and the split's reduce-scatter ``sp_scatter``, and the norms' gradients
-   left unsummed over ``model``; on (2, 1) the data sums); on (1, 2) the
+   leaf of its gradient gathered whole held to SPLIT_LOSS_TOL on (1, 2) and
+   MESH_LOSS_TOL on (2, 1), and MESH_GRAD_TOL, against one process, with
+   the stream split and whole, beside controls that must miss (on (1, 2)
+   the tensor-parallel sums dropped, ``sum_tp`` and the split's
+   reduce-scatter ``sp_scatter``, both limits, and the norms' gradients
+   left unsummed over ``model``, the gradient's; on (2, 1) the data sums,
+   both); on (1, 2) the
    bytes of the layer inputs remat keeps (``_recording_remat``), which with
    the split must be exactly half of those without it; phi3.5-moe's prefill
    and SHARD_DECODE decode steps (over the ring split across the ranks' slots
@@ -2208,7 +2210,7 @@ def check_ssd(gen: torch.Generator) -> dict:
         y, st = ssd.ssd_scan(x, dtt, A, B, C, chunk=chunk)
         yp, stp = ssd.ssd_scan_plain(x, dtt, A, B, C, chunk=chunk)
         torch.cuda.synchronize()
-        chosen = ssd.plan(dt, b, h, p, n, chunk, ssd.fwd_aligned(x, B, C), sms=sms)
+        chosen = ssd.plan(dt, b, h, p, n, chunk, *ssd.alignment(x, B, C), sms=sms)
         desc = {**case, "dtype": str(dt).removeprefix("torch."), "kernel": ssd.KERNELS[chosen.route],
                 "p_tile": chosen.p_tile, "blocks": chosen.blocks}
         tol = SSD_TOL if dt == f32 else None
@@ -4051,11 +4053,8 @@ MESH_MASKED = 300
 #: HBM3 at 700 W (PERF.md): the mesh path 1.7e-7 in the loss and 3.2e-3 to 1.15e-2 over the leaves (bf16
 #: leaves, the two halves' gradients summed: about 3 roundings at the worst, the embedding); the mean of the
 #: ranks' own means 9.0e-4 in the loss and 0.37 to 0.61 over the leaves; the gradients left unreduced 0.48 to
-#: 1.03 over the leaves.  The loss limit holds granite's bf16 loss on a 2-rank mesh over its weights:
-#: scripts/mesh_loss_spread.py reads 3.4e-7 to 6.3e-5 over seeds 2-6 on (1, 2) in bf16 and 0.0 at each in
-#: fp32 (rounding, not another loss), so the limit is about three times the worst bf16 reading, still 4.5
-#: times under the mean of the ranks' means
-MESH_LOSS_TOL, MESH_GRAD_TOL = 2e-4, 3e-2
+#: 1.03 over the leaves
+MESH_LOSS_TOL, MESH_GRAD_TOL = 1e-5, 3e-2
 
 
 def _mesh_prompt(cfg, seed: int) -> dict:
@@ -4394,6 +4393,12 @@ def mesh_two_ranks(failures: list[str]) -> dict:
 
 #: ranks of phase 15 (b), each its own process on cuda:0 over gloo, and the meshes it runs
 SHARD_RANKS, SHARD_MESHES = 2, ((1, 2), (2, 1))
+#: phase (b)'s limit on granite's loss over a mesh that splits the model, (1, 2), against one process
+#: (MESH_LOSS_TOL holds on (2, 1)): there the bf16 loss moves with the weights.  scripts/mesh_loss_spread.py
+#: (NVIDIA H100 80GB HBM3, 700 W; PERF.md) reads 3.4e-7 to 6.3e-5 over weight seeds 2-6 in bf16 and 0.0 at
+#: each in fp32 (rounding, not another loss), so the limit is about three times the worst bf16 reading; the
+#: control with the tensor-parallel sums dropped reads 2.7e-3 at seed 2, its weights here
+SPLIT_LOSS_TOL = 2e-4
 #: decode steps phase 15 holds after each prefill
 SHARD_DECODE = 3
 #: phase 15 (b)'s hybrid model on the (1, 2) mesh, at one group of SSD layers and its shared attention block: each
@@ -4461,7 +4466,7 @@ def _recording_scans(fwd: list, bwd: list | None = None):
     def recording(x, dt, A, B, C, *, chunk=64):
         if x.is_cuda:
             fwd.append((list(x.shape),
-                        ssd.KERNELS[ssd.route(x.dtype, x.shape[3], B.shape[-1], chunk, ssd.fwd_aligned(x, B, C))]))
+                        ssd.KERNELS[ssd.route(x.dtype, x.shape[3], B.shape[-1], chunk, *ssd.alignment(x, B, C))]))
         return scan(x, dt, A, B, C, chunk=chunk)
 
     def recording_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk=64):
@@ -4627,10 +4632,11 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
                 runs["data sums dropped"] = held_against_plain(dp_axes=())[0]
                 controls = ["data sums dropped"]
             out[f"train {shape}"] = runs
+            loss_tol = SPLIT_LOSS_TOL if shape[1] > 1 else MESH_LOSS_TOL
             for name, r in runs.items():
                 leaf = max(r["leaves"], key=r["leaves"].get)
                 say(f"{MESH_TRAIN} at {MESH_DEPTH} layers, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} on {shape}, {name} "
-                    f"against one process: loss relative {r['loss']:.3e} (tolerance {MESH_LOSS_TOL}); worst leaf "
+                    f"against one process: loss relative {r['loss']:.3e} (tolerance {loss_tol}); worst leaf "
                     f"{leaf} at {r['leaves'][leaf]:.3e} (tolerance {MESH_GRAD_TOL})")
             say(f"{MESH_TRAIN} on {shape}: parameters and AdamW state held {held} bytes by memory_allocated, the "
                 f"blocks {exact} bytes in {n} tensors ({'within' if ok_bytes else 'OUTSIDE'} the allocator's "
@@ -4639,9 +4645,12 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
                 if name in controls:
                     if not max(r["leaves"].values()) > MESH_GRAD_TOL:
                         fail(f"rank {rank}: the control '{name}' on {shape} meets the gradient tolerance")
-                elif not (r["loss"] <= MESH_LOSS_TOL and max(r["leaves"].values()) <= MESH_GRAD_TOL):
+                elif not (r["loss"] <= loss_tol and max(r["leaves"].values()) <= MESH_GRAD_TOL):
                     fail(f"rank {rank}: {MESH_TRAIN} on {shape}, {name}, against one process: {r['loss']}, "
                          f"{max(r['leaves'].values())}")
+            # the control that changes the loss (the norms' gradients do not) must miss the loss limit too
+            if not runs[controls[0]]["loss"] > loss_tol:
+                fail(f"rank {rank}: the control '{controls[0]}' on {shape} meets the loss tolerance {loss_tol}")
             if not ok_bytes:
                 fail(f"rank {rank}: {shape} holds {held} bytes for blocks of {exact}")
             del mine, state

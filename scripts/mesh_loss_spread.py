@@ -5,14 +5,16 @@
 ``chip_smoke.py`` phase 15 (b) holds granite-3-2b's training loss
 (``MESH_DEPTH`` layers, bf16, the batch of ``_mesh_train_batch``) over a
 (1, 2) mesh of two gloo ranks sharing the card against one process, to
-``MESH_LOSS_TOL``, with the weights drawn from seed 2.  This script takes
+``SPLIT_LOSS_TOL``, with the weights drawn from seed 2.  This script takes
 the same reading with the weights of each of ``--seeds``, for each of
 ``--dtypes`` (the model's type: bf16 as phase 15 runs it, or fp32, whose
 forward runs the fp32 SIMT flash kernel); in bf16 once with the flash
 forward on its own route (``flash_fwd_wgmma_kernel``) and once on the
 ``mma.sync`` route (``flash_attention.run_fwd_route``'s).  It prints one
 JSON line per (type, route, seed) with each rank's loss, the one process's
-and their relative difference beside the limit, then the card's name and
+and their relative difference beside the limit, in bf16 on the forward's
+own route also phase 15 (b)'s loss control's (the tensor-parallel sums
+dropped, ``chip_smoke._drop_tp_sums``), then the card's name and
 power limit.  It checks nothing and always exits 0 once both ranks have
 reported: it measures the spread.  Needs one CUDA device (the two ranks
 share it).
@@ -36,7 +38,7 @@ import chip_smoke as cs  # noqa: E402  (also puts the port on sys.path)
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import blocks, transformer  # noqa: E402
 from repro_torch.models.lm_common import init_params  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
 
@@ -75,10 +77,15 @@ def rank_main(rank: int, store: str, seeds: list[int], dtypes: list[str]) -> int
                     mine = local_shard(mesh, tree_map(torch.clone, whole), specs)
                     fa.launches = 0
                     meshed = transformer.value_and_grad(cfg, mine, rows, mesh, dp_axes=("data",))[0].item()
-                    print(json.dumps({"rank": rank, "dtype": dtype, "route": route,
-                                      "seed": seed, "loss one process": one, "loss mesh": meshed,
-                                      "relative": abs(meshed - one) / abs(one), "limit": cs.MESH_LOSS_TOL,
-                                      "flash launches": fa.launches}), flush=True)
+                    row = {"rank": rank, "dtype": dtype, "route": route, "seed": seed, "loss one process": one,
+                           "loss mesh": meshed, "relative": abs(meshed - one) / abs(one),
+                           "limit": cs.SPLIT_LOSS_TOL, "flash launches": fa.launches}
+                    if dtype == "bf16" and route == "wgmma":
+                        with mock.patch.object(blocks, "sum_tp", cs._drop_tp_sums), \
+                                mock.patch.object(blocks, "sp_scatter", cs._drop_tp_sums):
+                            dropped = transformer.value_and_grad(cfg, mine, rows, mesh, dp_axes=("data",))[0].item()
+                        row["control: tensor-parallel sums dropped, relative"] = abs(dropped - one) / abs(one)
+                    print(json.dumps(row), flush=True)
                     del whole, mine
                     torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()

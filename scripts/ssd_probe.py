@@ -2,13 +2,17 @@
 
     python3 scripts/ssd_probe.py [--out build/ssd_probe.json]
 
-Builds ``csrc/ssd_scan.cu`` as it ships and in copies compiled at once:
-``-DSSD_FWD_PASS=1`` (the wgmma route's chunk states in parallel over
-chunks, passed along them by a kernel of their own, instead of carried by
-the states kernel), ``-DSSD_FWD_PROBE=1..7`` (no products, no state read,
-no G∘L∘dt, no state written, no scans, no planes, no y stored) and
-``-DSSD_TERMS=1`` and ``2`` (each inexact product operand split into fewer
-bf16 terms; 3 ship).  At the prefill scan of mamba2-130m and of zamba2-2.7b
+Builds ``csrc/ssd_scan.cu`` as it ships, ``-DSSD_TERMS=1`` and ``2`` (each
+inexact product operand split into fewer bf16 terms; 3 ship), and the
+forms the route dropped, all compiled at once from the sources of commit
+FORMS (read from git into ``build/ssd_fwd_forms/`` on the first run in a
+checkout): its states kernel, which loads x and B by TMA where the shipped
+one runs the backward's states body (``cp.async``), as it stood
+(``"TMA states"``), with ``-DSSD_FWD_PASS=1`` (the chunk states in
+parallel over chunks, passed along them by a kernel of their own) and with
+``-DSSD_FWD_PROBE=1..7`` (no products, no state read, no G∘L∘dt, no state
+written, no scans, no planes, no y stored; the chunk kernel there is the
+shipped one's code).  At the prefill scan of mamba2-130m and of zamba2-2.7b
 (batch 4, prompt 512, bf16, x, B and C strided as ``ssd_block`` passes
 them) and at the mesh ranks' scans (their heads on a (1, 2) mesh, and
 zamba2 x train_4k's rank 0 of (16, 16)) it runs, each held against
@@ -21,9 +25,10 @@ with the share of bf16 outputs that differ from plain's:
   L2 warm and cold before each call, CUDA events and the host's time to
   issue a call, the bytes its states move through device memory beside the
   scan's own;
-- the same in the pass build (``"pass form"``), and in each term build;
-- each probe build's kernels, in turns with the shipped build (shipped,
-  probes, probes in reverse, shipped): what a part costs is the whole less
+- the same in the TMA-states and pass builds, and in each term build; the
+  shipped and TMA-states builds also in turns (shipped, TMA, TMA, shipped);
+- each probe build's kernels, in turns with the TMA-states build (whole,
+  probes, probes in reverse, whole): what a part costs is the whole less
   the build without it;
 - the ``mma.sync`` kernel at every p tile of ``ssd_scan.mma_plans`` through
   ``ssd_scan.run_plan``, its plan (``ssd_scan.mma_plan``) marked, in turns
@@ -31,8 +36,8 @@ with the share of bf16 outputs that differ from plain's:
 
 Then (``[unmoved]``) what the change leaves alone, against the parent
 commit's sources (PARENT, read from git into ``build/ssd_fwd_parent/`` on
-the first run in a checkout: run the script once here first, where it
-stops for want of a card): whether each kernel source and header other than
+the first run in a checkout, as FORMS' are: run the script once in a git
+checkout first, where it stops for want of a card): whether each kernel source and header other than
 ``ssd_scan.cu`` is the parent's byte for byte (flash, ``gemm`` and the conv
 then build the same library), and the SSD backward on both of its routes at
 mamba2's and zamba2's training shapes, shipped and parent in turns
@@ -61,7 +66,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
-#: part build -> its SSD_FWD_PROBE value
+#: part build of FORMS' source -> its SSD_FWD_PROBE value
 PARTS = {"no products": 1, "no state read": 2, "no G o L o dt": 3, "no state written": 4, "no scans": 5,
          "no planes": 6, "no y stored": 7}
 #: builds that split each inexact product operand into fewer bf16 terms than the shipped one
@@ -69,72 +74,92 @@ TERM_BUILDS = {"1 term": 1, "2 terms": 2}
 #: the commit before the wgmma forward, and where its kernel sources are kept
 PARENT = "b50c0b1"
 PARENT_DIR = build.BUILD_DIR.parent / "ssd_fwd_parent"
+#: the commit whose ssd_scan.cu holds the forms the route dropped (TMA states, the pass form, the part
+#: probes), and where its kernel sources are kept
+FORMS = "c73822f"
+FORMS_DIR = build.BUILD_DIR.parent / "ssd_fwd_forms"
 #: the mesh ranks' scans (b, l, h, p, n): mamba2 and zamba2 at their heads on (1, 2), zamba2 x train_4k's rank
 RANK_SHAPES = {"mamba2-130m rank of (1, 2)": (4, 512, 12, 64, 128), "zamba2-2.7b rank of (1, 2)": (4, 512, 40, 64, 64),
                "zamba2-2.7b x train_4k rank 0 of (16, 16)": (16, 4096, 5, 64, 64)}
 
 
-def build_variants(defines: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    """The shipped library and a copy of ``csrc/ssd_scan.cu`` per entry of
-    ``defines`` (name -> ``NAME=VALUE`` passed as ``-D``), all compiled at
-    once; a copy built before from the same source is loaded as it is."""
+def build_copies(jobs: dict[str, tuple[Path, str | None]]) -> dict[str, ctypes.CDLL]:
+    """name -> (directory of sources, ``NAME=VALUE`` passed as ``-D`` or
+    None): each directory's ``ssd_scan.cu`` built beside its own headers,
+    all at once; a copy built before is loaded as it is.  Builds of FORMS'
+    source come wrapped in :class:`_FormsLib`."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stem = build.library_path("ssd_scan").stem
     procs = {}
-    for name, define in defines.items():
-        out = build.BUILD_DIR / f"{stem}-{define.replace('=', '')}.so"
-        if out.exists():
-            procs[name] = (out, None)
-            continue
-        procs[name] = (out, subprocess.Popen(build.nvcc_command("ssd_scan", out) + [f"-D{define}"],
-                                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {"shipped": build.library("ssd_scan")}
-    for name, (out, proc) in procs.items():
+    for name, (src, define) in jobs.items():
+        out = build.BUILD_DIR / f"ssd_scan-{src.name}{'-' + define.replace('=', '') if define else ''}.so"
+        cmd = build.nvcc_command("ssd_scan", out)
+        cmd = cmd[:-1] + ["-I", str(src), str(src / "ssd_scan.cu")] + ([f"-D{define}"] if define else [])
+        procs[name] = (src, out, None if out.exists() else subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (src, out, proc) in procs.items():
         log, _ = proc.communicate() if proc else ("", None)
         if proc and proc.returncode:
             raise RuntimeError(f"nvcc ({name}) exited {proc.returncode}:\n{log}")
-        libs[name] = ctypes.CDLL(str(out))
+        lib = ctypes.CDLL(str(out))
+        libs[name] = _FormsLib(lib) if src == FORMS_DIR else lib
     return libs
 
 
-def terms_of(lib: ctypes.CDLL) -> int:
+class _FormsFwd:
+    """FORMS' ``ssd_scan_fwd`` as the shipped wrapper calls it: that entry
+    takes one pointer more after hbuf, each chunk's decay (scratch of the
+    pass form), given here."""
+
+    def __init__(self, fn):
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        self.fn, self.decs = fn, None
+
+    def __call__(self, *args):
+        b, l, h = args[8:11]  # after 7 pointers and the route
+        if self.decs is None or self.decs.numel() < b * h * (l // 64):
+            self.decs = torch.empty(b * h * (l // 64), dtype=torch.float32, device="cuda")
+        return self.fn(*args[:-2], self.decs.data_ptr(), *args[-2:])
+
+
+class _FormsLib:
+    """A build of FORMS' ``ssd_scan.cu``, its forward entry adapted (:class:`_FormsFwd`)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib, self.ssd_scan_fwd = lib, _FormsFwd(lib.ssd_scan_fwd)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def terms_of(lib) -> int:
     """The bf16 terms a build of ``csrc/ssd_scan.cu`` splits each inexact operand into."""
     lib.ssd_scan_mma_terms.restype = ctypes.c_int
     return lib.ssd_scan_mma_terms()
 
 
-def using(lib: ctypes.CDLL):
+def using(lib):
     """Point the wrapper at ``lib`` for the duration of the context."""
     for entry in (ssd._kernel, ssd._bwd_kernel, ssd._bwd_mma_kernel):
         entry.cache_clear()
     return mock.patch.object(ssd, "library", lambda: lib)
 
 
-def _parent_sources() -> Path:
-    """PARENT's kernel sources and headers, read from git into PARENT_DIR unless they are there."""
-    if not (PARENT_DIR / "ssd_scan.cu").exists():
+def _git_sources(commit: str, into: Path) -> Path:
+    """``commit``'s kernel sources and headers, read from git into ``into`` unless they are there."""
+    if not (into / "ssd_scan.cu").exists():
         root = Path(__file__).resolve().parents[1]
-        PARENT_DIR.mkdir(parents=True, exist_ok=True)
+        into.mkdir(parents=True, exist_ok=True)
         for src in sorted(build.CSRC.glob("*.cu*")):
             path = f"src/repro_torch/kernels/csrc/{src.name}"
-            got = subprocess.run(["git", "-C", str(root), "show", f"{PARENT}:{path}"], capture_output=True)
+            got = subprocess.run(["git", "-C", str(root), "show", f"{commit}:{path}"], capture_output=True)
             if got.returncode:
-                raise RuntimeError(f"no {PARENT_DIR} and no git history to read {PARENT}:{path} from: run this "
+                raise RuntimeError(f"no {into} and no git history to read {commit}:{path} from: run this "
                                    f"script once in a git checkout first\n{got.stderr.decode()}")
-            (PARENT_DIR / src.name).write_bytes(got.stdout)
-    return PARENT_DIR
-
-
-def build_parent() -> ctypes.CDLL:
-    """PARENT's ``ssd_scan.cu`` built beside its own headers."""
-    out = build.BUILD_DIR / f"ssd_scan-parent-{PARENT}.so"
-    if not out.exists():
-        cmd = build.nvcc_command("ssd_scan", out)
-        got = subprocess.run(cmd[:-1] + ["-I", str(PARENT_DIR), str(PARENT_DIR / "ssd_scan.cu")], capture_output=True,
-                             text=True)
-        if got.returncode:
-            raise RuntimeError(f"nvcc (parent) exited {got.returncode}:\n{got.stdout}{got.stderr}")
-    return ctypes.CDLL(str(out))
+            (into / src.name).write_bytes(got.stdout)
+    return into
 
 
 def unmoved(gen: torch.Generator) -> dict:
@@ -142,7 +167,7 @@ def unmoved(gen: torch.Generator) -> dict:
     byte, and the SSD backward on each route at the training shapes, shipped and parent in turns."""
     out = {"same source as the parent": {src.name: (PARENT_DIR / src.name).read_bytes() == src.read_bytes()
                                          for src in sorted(build.CSRC.glob("*.cu*")) if src.name != "ssd_scan.cu"}}
-    libs = {"shipped": build.library("ssd_scan"), "parent": build_parent()}
+    libs = {"shipped": build.library("ssd_scan"), **build_copies({"parent": (PARENT_DIR, None)})}
     for arch in cs.SSD_MODELS:
         cfg = get_config(arch)
         b, l, h, p, n = cs.TRAIN_BATCH, cs.TRAIN_SEQ, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -196,7 +221,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/ssd_probe.json")
     args = ap.parse_args()
-    _parent_sources()
+    _git_sources(PARENT, PARENT_DIR)
+    _git_sources(FORMS, FORMS_DIR)
     if not torch.cuda.is_available():
         print("ssd_probe: no CUDA device visible", file=sys.stderr)
         return 1
@@ -205,9 +231,10 @@ def main() -> int:
     print(f"[card] {smi.stdout.strip().splitlines()[0]}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ptxas = cs.ssd_ptxas()
-    libs = build_variants({"pass form": "SSD_FWD_PASS=1",
-                           **{name: f"SSD_FWD_PROBE={v}" for name, v in PARTS.items()},
-                           **{name: f"SSD_TERMS={v}" for name, v in TERM_BUILDS.items()}})
+    libs = {"shipped": build.library("ssd_scan"),
+            **build_copies({"TMA states": (FORMS_DIR, None), "pass form": (FORMS_DIR, "SSD_FWD_PASS=1"),
+                            **{name: (FORMS_DIR, f"SSD_FWD_PROBE={v}") for name, v in PARTS.items()},
+                            **{name: (build.CSRC, f"SSD_TERMS={v}") for name, v in TERM_BUILDS.items()}})}
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = {}
     for arch in cs.SSD_MODELS:
@@ -219,7 +246,7 @@ def main() -> int:
         chunk = 64
         x, dt, A, B, C = cs.ssd_inputs(b, l, h, p, n, torch.bfloat16, True, gen)
         want = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
-        chosen = ssd.plan(torch.bfloat16, b, h, p, n, chunk, ssd.fwd_aligned(x, B, C), sms=sms)
+        chosen = ssd.plan(torch.bfloat16, b, h, p, n, chunk, *ssd.alignment(x, B, C), sms=sms)
         if chosen.route != ssd.WGMMA:
             raise RuntimeError(f"{label}: planned {chosen}, want the wgmma route")
         flops, nbytes = cs.ssd_cost(x, B, chunk)
@@ -235,7 +262,7 @@ def main() -> int:
                # the states entering every chunk but the first, written by one kernel and read by the next
                "state_bytes_each_way": 4 * b * h * (l // chunk - 1) * p * n}
         routes = {}
-        for name in ("shipped", "pass form", *TERM_BUILDS):
+        for name in ("shipped", "TMA states", "pass form", *TERM_BUILDS):
             with using(libs[name]):
                 got = kern()
                 again = kern()
@@ -251,8 +278,13 @@ def main() -> int:
             routes[name] = row
         ssd._kernel.cache_clear()
         out["wgmma"] = routes
-        parts = {name: [] for name in ["shipped", *PARTS]}  # each build's kernels, in turns
-        for name in ["shipped", *PARTS, *reversed(PARTS), "shipped"]:
+        states = {"shipped": [], "TMA states": []}  # the two states kernels in turns, each build whole
+        for name in ("shipped", "TMA states", "TMA states", "shipped"):
+            with using(libs[name]):
+                states[name].append(_kernels(kern))
+        out["states_turns_ms"] = states
+        parts = {name: [] for name in ["TMA states", *PARTS]}  # each build's kernels, in turns
+        for name in ["TMA states", *PARTS, *reversed(PARTS), "TMA states"]:
             with using(libs[name]):
                 parts[name].append(_kernels(kern)[1])
         ssd._kernel.cache_clear()

@@ -78,11 +78,12 @@
 // - ssd_scan_fwd_states_kernel<N>, one warpgroup per (b, h, 64 rows of p, 64
 //   state columns), carries the state along the chunks in fp32 accumulators:
 //   each chunk's own part (x exp(cum_last - cum) dt)^T . B on wgmma
-//   m64n64k16 (x as stored; the scaled B in 3 bf16 planes, as the backward's
-//   states kernel does), x and B through a 2-stage TMA ring; it writes the
-//   state entering every chunk but the first (fp32 [b, h, nc, p, n]) and the
-//   last.  A form parallel over chunks and passed along them by a kernel of
-//   its own (-DSSD_FWD_PASS=1) moved the states twice more and lost
+//   m64n64k16 (x as stored; the scaled B in 3 bf16 planes), x and B through
+//   a 2-stage cp.async ring; it writes the state entering every chunk but the
+//   first (fp32 [b, h, nc, p, n]) and the last.  It runs the backward's
+//   states body (states_mma) in direction 0 over tiles of p.  A copy of that
+//   body with x and B by TMA, and a form parallel over chunks whose states a
+//   kernel of its own passed along them, measured no faster
 //   (scripts/ssd_probe.py, PERF.md).
 // - ssd_scan_fwd_chunk_kernel<N>, one warpgroup per (b, chunk, group of
 //   bwd_head_group heads): G = C.B^T once on wgmma, kept in fp32 registers;
@@ -1330,37 +1331,40 @@ __device__ __forceinline__ void store_planes(bf16* planes, int r, int q, const f
   }
 }
 
-// The states and their gradients, one block per (b, h, SLICE columns of the state, direction): direction
-// 0 carries the state forward, writing the state entering each chunk but the first to hbuf; direction 1
-// carries the gradient of the state leaving each chunk backward from dstate (0 where null), writing it for
-// each chunk but the last to dhbuf (both [b, h, nc, 64, n] fp32):
+// The states and their gradients, one warpgroup per (b, h, 64 rows of p from 64 pt, SLICE columns of the
+// state from n0, direction): direction 0 carries the state forward, writing the state entering each chunk
+// but the first to hbuf and, where `last` is not null, the state leaving the last chunk to `last`;
+// direction 1 carries the gradient of the state leaving each chunk backward from dstate (0 where null),
+// writing it for each chunk but the last to dhbuf (hbuf and dhbuf [b, h, nc, p, n], dstate and `last`
+// [b, h, p, n], all fp32):
 //   state += (x exp(cum_last - cum) dt)^T . B,   gradient += (dy exp(cum))^T . C
-// after scaling by exp(cum_last).  The block is one warpgroup; the product is wgmma m64n64k16 with both
-// operands MN-major from shared memory in the 128-byte swizzle: x or dy as stored (copied straight into
-// the swizzled tile), B or C scaled per step in fp32 and split into TERMS bf16 planes once a chunk by the
-// whole block.  The state stays in the fp32 accumulators: warp w holds rows 16w.. of p.
+// after scaling by exp(cum_last).  The product is wgmma m64n64k16 with both operands MN-major from shared
+// memory in the 128-byte swizzle: x or dy as stored (cp.async straight into the swizzled tile), B or C
+// scaled per step in fp32 and split into TERMS bf16 planes once a chunk by the whole block.  The state
+// stays in the fp32 accumulators: warp w holds rows 16w.. of the block's 64.  The backward's states kernel
+// and the forward's run this body.
 template <int N>
-__global__ void __launch_bounds__(ST_THREADS)
-ssd_scan_bwd_states_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-                               const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
-                               const float* __restrict__ dstate, float* __restrict__ hbuf, float* __restrict__ dhbuf,
-                               BwdShape s) {
+__device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
+                                           const float* __restrict__ A, const bf16* __restrict__ Bm,
+                                           const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                                           const float* __restrict__ dstate, float* __restrict__ hbuf,
+                                           float* __restrict__ dhbuf, float* __restrict__ last, const BwdShape& s,
+                                           int p, int grads, int n0, int pt, int bh) {
   static_assert(N % SLICE == 0 && SLICE == 64 && BP == 64, "64 x 64 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* planes = base + 2 * ST_STAGE;  // TERMS swizzled tiles of the scaled B or C
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
-  const int grads = blockIdx.x % 2;
-  const int n0 = (blockIdx.x / 2) % (N / SLICE) * SLICE;
-  const int bh = blockIdx.x / (2 * (N / SLICE)), bi = bh / s.h, hi = bh % s.h;
+  const int bi = bh / s.h, hi = bh % s.h;
   const int nc = s.l / BCL, p0 = 16 * warp;
+  const long long slot = (long long)p * N, rows = (long long)pt * BP * N + n0 + 2 * t;  // a chunk's state; ours
   const float a_h = A[hi];
-  const bf16* X = grads ? dy + bi * s.syb + hi * s.syh : x + bi * s.sxb + hi * s.sxh;
+  const bf16* X = (grads ? dy + bi * s.syb + hi * s.syh : x + bi * s.sxb + hi * s.sxh) + pt * BP;
   const long long sXl = grads ? s.syl : s.sxl;
   const bf16* Y = (grads ? Cm + bi * s.sCb : Bm + bi * s.sBb) + n0;
   const long long sYl = grads ? s.sCl : s.sBl;
   const float* db = dt + bi * s.sdb + hi * s.sdh;
-  float* out = (grads ? dhbuf : hbuf) + ((long long)bi * s.h + hi) * nc * BP * N + n0 + 2 * t;
+  float* out = (grads ? dhbuf : hbuf) + bh * nc * slot + rows;
   float* cum = reinterpret_cast<float*>(planes + 3 * ST_TILE) + warp * 3 * 64;
   float* ecum = cum + 64;
   float* wend = ecum + 64;
@@ -1386,7 +1390,7 @@ ssd_scan_bwd_states_mma_kernel(const bf16* __restrict__ x, const float* __restri
   for (int j = 0; j < SLICE / 8; ++j) {
     float2 lo = make_float2(0.f, 0.f), up = lo;
     if (grads && dstate != nullptr) {
-      const float* ds = dstate + ((long long)bi * s.h + hi) * BP * N + n0 + 8 * j + 2 * t;
+      const float* ds = dstate + bh * slot + rows + 8 * j;
       lo = *reinterpret_cast<const float2*>(ds + (p0 + g) * N);
       up = *reinterpret_cast<const float2*>(ds + (p0 + g + 8) * N);
     }
@@ -1409,7 +1413,7 @@ ssd_scan_bwd_states_mma_kernel(const bf16* __restrict__ x, const float* __restri
     const float* Ds = reinterpret_cast<const float*>(Ys + ST_TILE);
     const float dec = expf(scan_chunk64(Ds, a_h, cum, ecum, wend, lane));
     if (grads ? c < nc - 1 : c > 0) {  // where the chunk kernel reads it
-      float* o = out + (long long)c * BP * N;
+      float* o = out + c * slot;
 #pragma unroll
       for (int j = 0; j < SLICE / 8; ++j) {
         *reinterpret_cast<float2*>(o + (p0 + g) * N + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
@@ -1451,6 +1455,25 @@ ssd_scan_bwd_states_mma_kernel(const bf16* __restrict__ x, const float* __restri
     wgmma_fence_operand(acc);
   }
   cp_async_wait<0>();
+  if (!grads && last != nullptr) {
+    float* o = last + bh * slot + rows;
+#pragma unroll
+    for (int j = 0; j < SLICE / 8; ++j) {
+      *reinterpret_cast<float2*>(o + (p0 + g) * N + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(o + (p0 + g + 8) * N + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+// The backward's states, one block per (b, h, SLICE state columns, direction) (p is 64).
+template <int N>
+__global__ void __launch_bounds__(ST_THREADS)
+ssd_scan_bwd_states_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+                               const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                               const float* __restrict__ dstate, float* __restrict__ hbuf, float* __restrict__ dhbuf,
+                               BwdShape s) {
+  states_mma<N>(x, dt, A, Bm, Cm, dy, dstate, hbuf, dhbuf, nullptr, s, BP, blockIdx.x % 2,
+                (blockIdx.x / 2) % (N / SLICE) * SLICE, 0, blockIdx.x / (2 * (N / SLICE)));
 }
 
 // Each chunk's backward, one block per (b, chunk c, group of s.hg heads), given the state entering the
@@ -1990,39 +2013,17 @@ int launch_bwd_mma(const bf16* x, const float* dt, const float* A, const bf16* B
 // The bf16 forward on wgmma: chunk 64, p a multiple of 64, state width 64 or 128, TMA rows
 // ---------------------------------------------------------------------------
 
-// scripts/ssd_probe.py builds a copy with -DSSD_FWD_PASS=1: the chunk states in parallel over chunks
-// (ssd_scan_fwd_chunk_states_kernel), then ssd_scan_fwd_pass_kernel passes them along the chunks in
-// fp32; 0 ships: ssd_scan_fwd_states_kernel carries the state along the chunks itself.
-#ifndef SSD_FWD_PASS
-#define SSD_FWD_PASS 0
-#endif
-// ... and copies with -DSSD_FWD_PROBE=1 (no products: every wgmma of the route dropped), 2 (no state
-// read: the chunk kernel's planes from zeros), 3 (no G o L o dt: its A fragments left as G's bits), 4
-// (no state written: the states kernel stores nothing but the last state), 5 (no scans of the log
-// decays), 6 (no planes: none built, the chunk kernel's state not read) and 7 (no y stored), to show
-// which part bounds each kernel; 0 ships.
-#ifndef SSD_FWD_PROBE
-#define SSD_FWD_PROBE 0
-#endif
-
-constexpr int WG = 128;              // one warpgroup
-constexpr int FBOX = 64 * 128;       // one TMA box: 64 rows of 64 bf16, 128-byte swizzled
-constexpr int FST_STAGE = 2 * FBOX;  // a stage of the states kernel's ring: x, and 64 columns of B
+constexpr int WG = 128;         // one warpgroup
+constexpr int FBOX = 64 * 128;  // one TMA box: 64 rows of 64 bf16, 128-byte swizzled
 
 struct FwdShape {
   int b, l, h, p, n, hg;    // hg: heads one block of the chunk kernel takes
   long long sdb, sdl, sdh;  // element strides of dt
 };
 
-// The states kernel's shared memory: alignment slack, a 2-stage ring of x and B tiles, TERMS planes of
-// the scaled B, the ring's barriers, dt of each stage and each warp's factors.
-__host__ __device__ constexpr int fwd_states_smem() {
-  return 1024 + 2 * FST_STAGE + 3 * FBOX + 2 * 8 + 2 * 64 * 4 + 4 * 3 * 64 * 4;
-}
-
-// The chunk kernel's: alignment slack, C and B (n / 64 boxes each), a 2-stage ring of x tiles, TERMS
-// planes of the state (n / 64 boxes each), the output's tile, three barriers and a pad, dt of the
-// group's heads and each warp's factors.
+// The chunk kernel's shared memory: alignment slack, C and B (n / 64 boxes each), a 2-stage ring of x
+// tiles, TERMS planes of the state (n / 64 boxes each), the output's tile, three barriers and a pad, dt
+// of the group's heads and each warp's factors.
 __host__ __device__ constexpr int fwd_chunk_smem(int n, int hg) {
   return 1024 + (2 * (n / 64) + 3 + 3 * (n / 64)) * FBOX + 4 * 8 + hg * 64 * 4 + 4 * 3 * 64 * 4;
 }
@@ -2036,163 +2037,18 @@ __device__ __forceinline__ uint64_t mndesc(const unsigned char* tile, int kk) {
   return wgmma_desc_sw128(tile + 2048 * kk, FBOX, 1024);
 }
 
-// Both forms of the chunk states, one warpgroup per (b, h, 64 rows of p, 64 state columns[, chunk]):
-// the chunk's own part dS = (x exp(cum_last - cum) dt)^T . B on wgmma m64n64k16, x as stored (A,
-// MN-major) and the scaled B split into TERMS bf16 planes (B, MN-major), both loaded by TMA into a
-// 2-stage ring.  CHAIN: over every chunk in order, the state in the fp32 accumulators scaled by
-// exp(cum_last) before each chunk's part adds to it; writes the state entering each chunk but the first
-// to hbuf and the last state to `out` ([b, h, p, n]).  Else one chunk a block: writes dS to hbuf's slot
-// and exp(cum_last) to decs [b, h, nc] for ssd_scan_fwd_pass_kernel.
-template <int N, bool CHAIN>
-__device__ __forceinline__ void fwd_states(const CUtensorMap* map_x, const CUtensorMap* map_B,
-                                           const float* __restrict__ dt, const float* __restrict__ A,
-                                           float* __restrict__ hbuf, float* __restrict__ out,
-                                           float* __restrict__ decs, const FwdShape& s) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* planes = base + 2 * FST_STAGE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(planes + 3 * FBOX);
-  float* Dring = reinterpret_cast<float*>(full + 2);  // [2][64]
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
-  float* cum = Dring + 2 * 64 + warp * 3 * 64;
-  float* ecum = cum + 64;
-  float* wend = ecum + 64;
-  const int nc = s.l / 64, npt = s.p / 64;
-  int u = blockIdx.x;
-  const int n0 = u % (N / 64) * 64;
-  u /= N / 64;
-  int c_first = 0, c_end = nc;
-  if (!CHAIN) {
-    c_first = u % nc;
-    c_end = c_first + 1;
-    u /= nc;
-  }
-  const int pt = u % npt;
-  u /= npt;
-  const int hi = u % s.h, bi = u / s.h;
-  const float a_h = A[hi];
-  const float* db = dt + bi * s.sdb + hi * s.sdh;
-  const long long slot = (long long)s.p * N;  // one chunk's state in hbuf
-  float* rows = hbuf + ((long long)bi * s.h + hi) * nc * slot + (long long)(pt * 64 + 16 * warp + g) * N + n0 + 2 * t;
-
-  if (tid == 0) {
-    mbar_init(&full[0], 1);
-    mbar_init(&full[1], 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-  auto load = [&](int c, int st) {  // every thread commits a cp.async group
-    unsigned char* Xs = base + st * FST_STAGE;
-    if (tid == 0) {
-      mbar_arrive_expect_tx(&full[st], FST_STAGE);
-      tma_load_4d(Xs, map_x, &full[st], pt * 64, hi, c * 64, bi);
-      tma_load_4d(Xs + FBOX, map_B, &full[st], n0, 0, c * 64, bi);
-    }
-    if (tid < 64) cp_async4(Dring + st * 64 + tid, db + (long long)(c * 64 + tid) * s.sdl);
-    cp_async_commit();
-  };
-  // this thread's rows 16 warp + g (registers 4j, 4j + 1) and + 8 (4j + 2, 4j + 3), columns 8j + 2t (+ 1)
-  auto store = [&](float* o, const float (&v)[32]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(v[4 * j], v[4 * j + 1]);
-      *reinterpret_cast<float2*>(o + 8 * N + 8 * j) = make_float2(v[4 * j + 2], v[4 * j + 3]);
-    }
-  };
-
-  float acc[32];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-  load(c_first, 0);
-  for (int c = c_first, i = 0; c < c_end; ++c, ++i) {
-    const int st = i % 2;
-    cp_async_wait<0>();
-    mbar_wait(&full[st], (i / 2) & 1);
-    __syncthreads();  // the chunk and every thread's dt have landed; the last chunk's products are done
-    if (c + 1 < c_end) load(c + 1, st ^ 1);
-    const unsigned char* Xs = base + st * FST_STAGE;
-    const unsigned char* Bs = Xs + FBOX;
-    const float* Ds = Dring + st * 64;
-    const float last = SSD_FWD_PROBE == 5 ? 0.f : scan_chunk64(Ds, a_h, cum, ecum, wend, lane);
-    if (CHAIN) {
-      if (c > 0 && SSD_FWD_PROBE != 4) store(rows + c * slot, acc);  // the state entering chunk c
-      const float dec = expf(last);
-#pragma unroll
-      for (int e = 0; e < 32; ++e) acc[e] *= dec;
-    }
-    // w o B into the planes, w = exp(cum_last - cum) dt, in B's swizzled places
-    for (int e = tid; e < 64 * 8 && SSD_FWD_PROBE != 6; e += WG) {
-      const int r = e / 8, off = r * 128 + (((e % 8) ^ (r % 8)) << 4);
-      const float f = wend[r] * Ds[r];
-      const uint4 v = *reinterpret_cast<const uint4*>(Bs + off);
-      const uint32_t bv[4] = {v.x, v.y, v.z, v.w};
-      uint32_t split[4][TERMS];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv[k]));
-        split_pair(b2.x * f, b2.y * f, split[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < TERMS; ++k)
-        *reinterpret_cast<uint4*>(planes + k * FBOX + off) = make_uint4(split[0][k], split[1][k], split[2][k], split[3][k]);
-    }
-    fence_proxy_async_shared();  // the planes to the async proxy the wgmma read through
-    __syncthreads();
-    wgmma_fence();
-    wgmma_fence_operand(acc);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int k = TERMS - 1; k >= 0; --k)
-        if (SSD_FWD_PROBE != 1) wgmma_m64n64k16_bf16<1, 1>(acc, mndesc(Xs, kk), mndesc(planes + k * FBOX, kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_fence_operand(acc);
-    if (!CHAIN) {
-      if (SSD_FWD_PROBE != 4) store(rows + c * slot, acc);
-      if (n0 == 0 && tid == 0) decs[((long long)bi * s.h + hi) * nc + c] = expf(last);
-    }
-  }
-  if (CHAIN) store(out + ((long long)bi * s.h + hi) * slot + (long long)(pt * 64 + 16 * warp + g) * N + n0 + 2 * t, acc);
-}
-
+// The forward's states: the backward's states body in direction 0 alone, one block per (b, h, 64 rows of
+// p, SLICE state columns), p a multiple of 64; writes the state entering each chunk but the first to hbuf
+// and the last state to `last`.
 template <int N>
-__global__ void __launch_bounds__(WG)
-ssd_scan_fwd_states_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_B,
-                           const float* __restrict__ dt, const float* __restrict__ A, float* __restrict__ hbuf,
-                           float* __restrict__ out, FwdShape s) {
-  fwd_states<N, true>(&map_x, &map_B, dt, A, hbuf, out, nullptr, s);
+__global__ void __launch_bounds__(ST_THREADS)
+ssd_scan_fwd_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+                           const bf16* __restrict__ Bm, float* __restrict__ hbuf, float* __restrict__ last,
+                           BwdShape s, int p) {
+  const int u = blockIdx.x / (N / SLICE), npt = p / BP;
+  states_mma<N>(x, dt, A, Bm, nullptr, nullptr, nullptr, hbuf, nullptr, last, s, p, 0,
+                blockIdx.x % (N / SLICE) * SLICE, u % npt, u / npt);
 }
-
-#if SSD_FWD_PASS
-template <int N>
-__global__ void __launch_bounds__(WG)
-ssd_scan_fwd_chunk_states_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_B,
-                                 const float* __restrict__ dt, const float* __restrict__ A, float* __restrict__ hbuf,
-                                 float* __restrict__ decs, FwdShape s) {
-  fwd_states<N, false>(&map_x, &map_B, dt, A, hbuf, nullptr, decs, s);
-}
-
-// The state passing of -DSSD_FWD_PASS=1, a thread per 4 elements of a (b, h) state [p, n], chunk by
-// chunk in fp32: S = S exp(cum_last) + dS, each chunk's dS in hbuf replaced by the state entering it;
-// the last to `out`.
-__global__ void __launch_bounds__(256)
-ssd_scan_fwd_pass_kernel(float* __restrict__ hbuf, const float* __restrict__ decs, float* __restrict__ out, int bh,
-                         int nc, int quads) {
-  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= (long long)bh * quads) return;
-  const long long sl = i / quads;
-  float4* buf = reinterpret_cast<float4*>(hbuf) + sl * nc * quads + i % quads;
-  float4 S = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c = 0; c < nc; ++c) {
-    const float4 d = buf[(long long)c * quads];
-    if (c > 0) buf[(long long)c * quads] = S;
-    const float k = decs[sl * nc + c];
-    S = make_float4(fmaf(S.x, k, d.x), fmaf(S.y, k, d.y), fmaf(S.z, k, d.z), fmaf(S.w, k, d.w));
-  }
-  reinterpret_cast<float4*>(out)[i] = S;
-}
-#endif
 
 // The chunk outputs, one warpgroup per (b, chunk c, group of s.hg heads): C and B arrive by TMA once,
 // and G = C.B^T on wgmma (both K-major) stays in the fp32 accumulators for the group.  Per head and 64
@@ -2256,7 +2112,7 @@ ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __gri
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
-    if (SSD_FWD_PROBE != 1) wgmma_m64n64k16_bf16<0, 0>(G, kdesc(Cs, kk), kdesc(Bs, kk), kk > 0);
+    wgmma_m64n64k16_bf16<0, 0>(G, kdesc(Cs, kk), kdesc(Bs, kk), kk > 0);
   wgmma_commit();
   wgmma_wait<0>();
   wgmma_fence_operand(G);
@@ -2269,7 +2125,7 @@ ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __gri
     if (tid == 0) tma_store_wait_read<0>();  // item it - 1's output has left its tile
     if (it > 0) __syncthreads();  // every warp is done with item it - 1: its planes, x stage and tile
     if (tid == 0 && it + 1 < items) load_x(it + 1);
-    if (SSD_FWD_PROBE != 5) scan_chunk64(Ds, A[hi], cum, ecum, wend, lane);
+    scan_chunk64(Ds, A[hi], cum, ecum, wend, lane);
     // each term's products in accumulators of their own (term 0's also take the state's part, scaled),
     // summed smallest first, as the mma.sync kernel sums them: with one accumulator for all, more of the
     // bf16 outputs came out a rounding away from the plain version's than that kernel's (PERF.md)
@@ -2284,7 +2140,7 @@ ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __gri
       for (int k = TERMS - 1; k >= 0; --k) v += acc[k][e];
       return v;
     };
-    if (has_h && SSD_FWD_PROBE != 6) {
+    if (has_h) {
       // H's rows 64 pt .. of p into TERMS bf16 planes, each 8-float piece a 16-byte chunk of its box
       const float* hs = hbuf + (((long long)bi * s.h + hi) * nc + c) * s.p * N + (long long)pt * 64 * N;
       float4 v[PIECES][2];
@@ -2292,12 +2148,8 @@ ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __gri
       for (int i = 0; i < PIECES; ++i) {
         const int e = tid + i * WG;
         const float4* src = reinterpret_cast<const float4*>(hs + (long long)(e / (N / 8)) * N + e % (N / 8) * 8);
-        if (SSD_FWD_PROBE == 2) {
-          v[i][0] = v[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-        } else {
-          v[i][0] = __ldg(src);
-          v[i][1] = __ldg(src + 1);
-        }
+        v[i][0] = __ldg(src);
+        v[i][1] = __ldg(src + 1);
       }
 #pragma unroll
       for (int i = 0; i < PIECES; ++i) {
@@ -2314,16 +2166,13 @@ ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __gri
               make_uint4(split[0][k], split[1][k], split[2][k], split[3][k]);
       }
       fence_proxy_async_shared();
-    }
-    if (has_h) {
       __syncthreads();  // the planes are whole
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
         for (int k = TERMS - 1; k >= 0; --k)
-          if (SSD_FWD_PROBE != 1)
-            wgmma_m64n64k16_bf16<0, 0>(acc[k], kdesc(Cs, kk), kdesc(planes + k * NB * FBOX, kk), kk > 0);
+          wgmma_m64n64k16_bf16<0, 0>(acc[k], kdesc(Cs, kk), kdesc(planes + k * NB * FBOX, kk), kk > 0);
       wgmma_commit();
     }
     // G o L o dt as TERMS bf16 A fragments: k16 step kk holds accumulator columns 16 kk .. 16 kk + 15
@@ -2334,14 +2183,6 @@ ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __gri
       const int col = 8 * j + 2 * t;
       const float cc0 = cum[col], cc1 = cum[col + 1], d0 = Ds[col], d1 = Ds[col + 1];
       uint32_t lo[TERMS], up[TERMS];
-      if (SSD_FWD_PROBE == 3) {
-#pragma unroll
-        for (int k = 0; k < TERMS; ++k) {
-          af[k][j / 2][(j % 2) * 2] = __float_as_uint(G[4 * j]);
-          af[k][j / 2][(j % 2) * 2 + 1] = __float_as_uint(G[4 * j + 2]);
-        }
-        continue;
-      }
       split_pair(col <= row ? G[4 * j] * expf(cr0 - cc0) * d0 : 0.f,
                  col + 1 <= row ? G[4 * j + 1] * expf(cr0 - cc1) * d1 : 0.f, lo);
       split_pair(col <= row + 8 ? G[4 * j + 2] * expf(cr1 - cc0) * d0 : 0.f,
@@ -2369,8 +2210,7 @@ ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __gri
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int k = TERMS - 1; k >= 0; --k)
-        if (SSD_FWD_PROBE != 1)
-          wgmma_m64n64k16_bf16_rs<1>(acc[k], af[k][kk], mndesc(Xs, kk), kk > 0 || (k == 0 && has_h));
+        wgmma_m64n64k16_bf16_rs<1>(acc[k], af[k][kk], mndesc(Xs, kk), kk > 0 || (k == 0 && has_h));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -2388,7 +2228,7 @@ ssd_scan_fwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __gri
       }
     fence_proxy_async_shared();
     __syncthreads();
-    if (tid == 0 && SSD_FWD_PROBE != 7) {
+    if (tid == 0) {
       tma_store_4d(&map_y, Ys, pt * 64, hi, l0, bi);
       tma_store_commit();
     }
@@ -2421,7 +2261,7 @@ cudaError_t allow_fwd_smem(K kernel, int bytes) {
 
 template <int N>
 int launch_fwd_wgmma(const void* x, const float* dt, const float* A, const void* B, const void* C, void* y,
-                     float* state, float* hbuf, float* decs, const SsdShape& s, int hg, cudaStream_t stream) {
+                     float* state, float* hbuf, const SsdShape& s, int hg, cudaStream_t stream) {
   if (s.chunk != 64 || s.l % 64 != 0 || s.p % 64 != 0 || hg < 1 || s.h % hg != 0) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t ce = make_context_current(&dev);
@@ -2434,26 +2274,17 @@ int launch_fwd_wgmma(const void* x, const float* dt, const float* A, const void*
   if (err == 0) err = encode_rows(&mC, C, N, 1, s.l, s.b, sC);
   if (err == 0) err = encode_rows(&my, y, s.p, s.h, s.l, s.b, sy);
   if (err != 0) return err;
+  const BwdShape bs{s.b, s.l, s.h, N, hg, s.sxb, s.sxl, s.sxh, s.sdb, s.sdl, s.sdh, s.sBb, s.sBl, s.sCb, s.sCl, 0, 0, 0};
+  const long long blocks = (long long)s.b * s.h * (s.p / BP) * (N / SLICE);
+  if ((ce = allow_fwd_smem(ssd_scan_fwd_states_kernel<N>, bwd_states_smem())) != cudaSuccess) return (int)ce;
+  ssd_scan_fwd_states_kernel<N><<<(unsigned)blocks, ST_THREADS, bwd_states_smem(), stream>>>(
+      static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B), hbuf, state, bs, s.p);
+  if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
   const FwdShape f{s.b, s.l, s.h, s.p, N, hg, s.sdb, s.sdl, s.sdh};
-  const long long nc = s.l / 64, per = (long long)s.b * s.h * (s.p / 64) * (N / 64);
-  constexpr int st_smem = fwd_states_smem();
-#if SSD_FWD_PASS
-  if ((ce = allow_fwd_smem(ssd_scan_fwd_chunk_states_kernel<N>, st_smem)) != cudaSuccess) return (int)ce;
-  ssd_scan_fwd_chunk_states_kernel<N><<<(unsigned)(per * nc), WG, st_smem, stream>>>(mx, mB, dt, A, hbuf, decs, f);
-  if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
-  const int quads = s.p * N / 4;
-  ssd_scan_fwd_pass_kernel<<<(unsigned)(((long long)s.b * s.h * quads + 255) / 256), 256, 0, stream>>>(
-      hbuf, decs, state, s.b * s.h, (int)nc, quads);
-#else
-  (void)decs;
-  if ((ce = allow_fwd_smem(ssd_scan_fwd_states_kernel<N>, st_smem)) != cudaSuccess) return (int)ce;
-  ssd_scan_fwd_states_kernel<N><<<(unsigned)per, WG, st_smem, stream>>>(mx, mB, dt, A, hbuf, state, f);
-#endif
-  if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
   const int ch_smem = fwd_chunk_smem(N, hg);
   if ((ce = allow_fwd_smem(ssd_scan_fwd_chunk_kernel<N>, ch_smem)) != cudaSuccess) return (int)ce;
-  ssd_scan_fwd_chunk_kernel<N><<<(unsigned)(s.b * nc * (s.h / hg)), WG, ch_smem, stream>>>(mx, mB, mC, my, dt, A,
-                                                                                          hbuf, f);
+  ssd_scan_fwd_chunk_kernel<N><<<(unsigned)(s.b * (s.l / 64) * (s.h / hg)), WG, ch_smem, stream>>>(
+      mx, mB, mC, my, dt, A, hbuf, f);
   return (int)cudaGetLastError();
 }
 
@@ -2472,34 +2303,30 @@ int occupancy_mma_variant(int n, int pt, int cl) { SSD_MMA_VARIANTS(occupancy_mm
 // ssd_scan_fwd_chunk_kernel<n> (x, B, C and y bf16 on routes 2 and 3; on 3
 // chunk 64, p a multiple of 64, n 64 or 128, rows TMA can address, hg heads a
 // chunk-kernel block, hbuf fp32 [b, h, l / 64, p, n] scratch: the states
-// entering the chunks; decs fp32 [b, h, l / 64] scratch of the
-// -DSSD_FWD_PASS=1 build, else unused); dt, A and state are float32.  y is contiguous [b, l, h, p], state contiguous
+// entering the chunks); dt, A and state are float32.  y is contiguous [b, l, h, p], state contiguous
 // [b, h, p, n].  Shapes, routes and the shared-memory size are validated by
 // the Python wrapper.
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A, const void* B, const void* C,
                             void* y, float* state, int route, int b, int l, int h, int p, int n, int chunk,
                             int pt, long long sxb, long long sxl, long long sxh, long long sdb, long long sdl,
                             long long sdh, long long sBb, long long sBl, long long sCb, long long sCl,
-                            float* hbuf, float* decs, int hg, void* stream) {
+                            float* hbuf, int hg, void* stream) {
   const SsdShape s{b, l, h, p, n, chunk, pt, sxb, sxl, sxh, sdb, sdl, sdh, sBb, sBl, sCb, sCl};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == 0) return launch_simt<float>(x, dt, A, B, C, y, state, s, st);
   if (route == 1) return launch_simt<bf16>(x, dt, A, B, C, y, state, s, st);
   if (route == 2 && chunk % 16 == 0 && chunk <= MAX_CL)
     return launch_mma_variant(n, pt, x, dt, A, B, C, y, state, s, st);
-  if (route == 3 && n == 64) return launch_fwd_wgmma<64>(x, dt, A, B, C, y, state, hbuf, decs, s, hg, st);
-  if (route == 3 && n == 128) return launch_fwd_wgmma<128>(x, dt, A, B, C, y, state, hbuf, decs, s, hg, st);
+  if (route == 3 && n == 64) return launch_fwd_wgmma<64>(x, dt, A, B, C, y, state, hbuf, s, hg, st);
+  if (route == 3 && n == 128) return launch_fwd_wgmma<128>(x, dt, A, B, C, y, state, hbuf, s, hg, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Dynamic shared memory of one block of route 3's states kernel (kernel 0) or chunk kernel (1) at state
 // width n and hg heads a chunk-kernel block, in bytes.
 extern "C" int ssd_scan_fwd_smem_bytes(int n, int hg, int kernel) {
-  return kernel == 0 ? fwd_states_smem() : fwd_chunk_smem(n, hg);
+  return kernel == 0 ? bwd_states_smem() : fwd_chunk_smem(n, hg);
 }
-
-// Whether this build passes route 3's states along the chunks in a kernel of its own (SSD_FWD_PASS).
-extern "C" int ssd_scan_fwd_pass() { return SSD_FWD_PASS; }
 
 
 // The backward: dx [b, l, h, p] (x's type), ddt [b, l, h] and dA [h] (fp32), dB and dC [b, l, n] (B's type),

@@ -12,8 +12,9 @@ by type, shape and alignment alone.  bf16 at chunk 64, p a multiple of 64,
 state width 64/128 and rows TMA can address (every served prefill,
 training forward and mesh-rank scan) runs parallel over chunks on
 ``wgmma``: ``ssd_scan_fwd_states_kernel`` carries the state along the
-chunks a (batch, head, 64 state columns) a block and writes the state
-entering each chunk, then ``ssd_scan_fwd_chunk_kernel`` computes every
+chunks a (batch, head, 64 rows of p, 64 state columns) a block and writes
+the state entering each chunk (the body of the backward's states kernel,
+run forward alone), then ``ssd_scan_fwd_chunk_kernel`` computes every
 chunk's output a (batch, chunk, group of :func:`bwd_head_group` heads) a
 block, C·Bᵀ once for the group (:func:`fwd_kernels` names each route's
 launches).  Other bf16 at chunk 16/32/64, state width 64/128, p a multiple
@@ -450,27 +451,32 @@ def mma_smem_bytes(chunk: int, n: int, p_tile: int) -> int:
     return 2 * stage + p_tile * n * 4 + 10 * 256 * 4 + 8 * 3 * 64 * 4
 
 
-def _takes(kernel: int, dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool) -> bool:
+def _takes(kernel: int, dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool, tma: bool) -> bool:
     """Whether route ``kernel`` of :data:`KERNELS` scans this type and shape."""
     if kernel in (MMA, WGMMA) and not (dtype == torch.bfloat16 and aligned and n in MMA_STATES):
         return False
     if kernel == WGMMA:
-        return chunk == WGMMA_CHUNK and p % WGMMA_TILE == 0 and n in WGMMA_STATES
+        return tma and chunk == WGMMA_CHUNK and p % WGMMA_TILE == 0 and n in WGMMA_STATES
     if kernel == MMA:
         return chunk in MMA_CHUNKS and p % 16 == 0
     return kernel == (0 if dtype == torch.float32 else 1)
 
 
-def route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool) -> int:
+def route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool, tma: bool | None = None) -> int:
     """Index in :data:`KERNELS` of the route that scans x ``[.., p]`` with
     B, C ``[.., n]`` at ``chunk``, by type, shape and alignment alone.
-    ``aligned``: TMA can address the rows of x, B and C (:func:`fwd_aligned`).
-    bf16 at chunk 64, p a multiple of 64 and state width 64 or 128 takes the
-    ``wgmma`` route (3), other bf16 at chunks 16/32/64 with p a multiple of
-    16 ``mma.sync`` (2), fp32 and the rest the SIMT kernel (0, 1)."""
+    ``aligned``: x, B and C start 16-byte aligned with every stride but the
+    last a multiple of 8 elements (:func:`_aligned`); ``tma``: TMA can
+    address their rows too (:func:`fwd_aligned`), ``aligned`` where not
+    given (:func:`alignment` gives both).  bf16 at chunk 64, p a multiple of
+    64 and state width 64 or 128 with rows TMA can address takes the
+    ``wgmma`` route (3), other aligned bf16 at chunks 16/32/64 with p a
+    multiple of 16 ``mma.sync`` (2), fp32 and the rest the SIMT kernel (0,
+    1)."""
     if dtype not in _DTYPES:
         raise TypeError(f"ssd_scan takes float32 or bfloat16, got {dtype}")
-    return next(k for k in (WGMMA, MMA, 0, 1) if _takes(k, dtype, p, n, chunk, aligned))
+    tma = aligned if tma is None else tma
+    return next(k for k in (WGMMA, MMA, 0, 1) if _takes(k, dtype, p, n, chunk, aligned, tma))
 
 
 def fwd_kernels(p: "SsdPlan", n: int) -> tuple[str, ...]:
@@ -486,16 +492,15 @@ def fwd_kernels(p: "SsdPlan", n: int) -> tuple[str, ...]:
 def fwd_smem_bytes(n: int, head_group: int) -> tuple[int, int]:
     """Dynamic shared memory of one block of the ``wgmma`` route's states
     kernel and of its chunk kernel at state width ``n`` and ``head_group``
-    heads a chunk-kernel block (``fwd_states_smem`` and ``fwd_chunk_smem`` in
-    the source).  States: 1 KB of alignment slack, a 2-stage ring of x and
-    64 columns of B (two 8 KB boxes of 64 rows of 128 bytes), 3 bf16 planes
-    of the scaled B, the ring's two barriers, dt of each stage and the 4
-    warps' 3 factor rows.  Chunk: the slack, C and B (n / 64 boxes each), a
+    heads a chunk-kernel block (``bwd_states_smem`` and ``fwd_chunk_smem`` in
+    the source).  States: the backward's states kernel's
+    (:func:`mma_bwd_smem_bytes`), whose body it runs.  Chunk: 1 KB of
+    alignment slack, C and B (n / 64 boxes of 64 rows of 128 bytes each), a
     2-stage ring of x boxes, 3 bf16 planes of the state (n / 64 boxes each),
     the output's box, three barriers and a pad, dt of the group's heads and
-    the warps' factor rows."""
+    the 4 warps' 3 factor rows."""
     box = 64 * 128
-    states = 1024 + 2 * 2 * box + 3 * box + 2 * 8 + 2 * 64 * 4 + 4 * 3 * 64 * 4
+    states = mma_bwd_smem_bytes(n)[0]
     chunk = 1024 + (2 * (n // 64) + 3 + 3 * (n // 64)) * box + 4 * 8 + head_group * 64 * 4 + 4 * 3 * 64 * 4
     return states, chunk
 
@@ -530,12 +535,13 @@ def _plan_of(kernel: int, b: int, h: int, p: int, n: int, chunk: int, p_tile: in
 
 @functools.lru_cache(maxsize=1024)
 def plan(dtype: torch.dtype, b: int, h: int, p: int, n: int, chunk: int, aligned: bool,
-         sms: int = H100_SMS) -> SsdPlan:
+         tma: bool | None = None, sms: int = H100_SMS) -> SsdPlan:
     """The plan for x ``[b, l, h, p]``, B, C ``[b, l, n]`` at ``chunk`` on a
     card of ``sms`` SMs, a pure function of these.  The SIMT kernel takes
     p tiles of :data:`SIMT_P_TILE`, the ``wgmma`` route of
-    :data:`WGMMA_TILE`, the ``mma.sync`` kernel :func:`mma_plan`'s."""
-    kernel = route(dtype, p, n, chunk, aligned)
+    :data:`WGMMA_TILE`, the ``mma.sync`` kernel :func:`mma_plan`'s
+    (``aligned`` and ``tma`` as :func:`route` takes them)."""
+    kernel = route(dtype, p, n, chunk, aligned, tma)
     if kernel == MMA:
         return mma_plan(b, h, p, n, chunk, sms)
     return _plan_of(kernel, b, h, p, n, chunk, WGMMA_TILE if kernel == WGMMA else min(p, SIMT_P_TILE))
@@ -567,9 +573,14 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def fwd_aligned(*ts: torch.Tensor) -> bool:
-    """Whether TMA can address the rows of every tensor (the forward's
-    ``aligned``): :func:`_aligned`, and no zero stride over a dim longer than 1."""
+    """Whether TMA can address the rows of every tensor (the ``wgmma``
+    route's): :func:`_aligned`, and no zero stride over a dim longer than 1."""
     return all(_aligned(t) and all(st > 0 or d == 1 for st, d in zip(t.stride()[:-1], t.shape)) for t in ts)
+
+
+def alignment(x, B, C) -> tuple[bool, bool]:
+    """:func:`route`'s ``aligned`` and ``tma`` for these inputs."""
+    return _aligned(x) and _aligned(B) and _aligned(C), fwd_aligned(x, B, C)
 
 
 def _check(x, dt, A, B, C, chunk: int) -> None:
@@ -604,7 +615,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Te
     """
     _check(x, dt, A, B, C, chunk)
     b, _, h, p = x.shape
-    chosen = plan(x.dtype, b, h, p, B.shape[-1], chunk, fwd_aligned(x, B, C), sms=_sm_count(x.device.index))
+    chosen = plan(x.dtype, b, h, p, B.shape[-1], chunk, *alignment(x, B, C), sms=_sm_count(x.device.index))
     return _launch(x, dt, A, B, C, chunk, chosen)
 
 
@@ -616,9 +627,9 @@ def run_plan(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torc
     _check(x, dt, A, B, C, chunk)
     b, _, h, pp = x.shape
     n = B.shape[-1]
-    aligned = fwd_aligned(x, B, C)
-    picked = route(x.dtype, pp, n, chunk, aligned)
-    routes = {picked, MMA} if picked == WGMMA and _takes(MMA, x.dtype, pp, n, chunk, aligned) else {picked}
+    aligned, tma = alignment(x, B, C)
+    picked = route(x.dtype, pp, n, chunk, aligned, tma)
+    routes = {picked, MMA} if picked == WGMMA and _takes(MMA, x.dtype, pp, n, chunk, aligned, tma) else {picked}
     ok = (p.route in routes and p == _plan_of(p.route, b, h, pp, n, chunk, p.p_tile)
           and (p in mma_plans(b, h, pp, n, chunk) if p.route == MMA
                else p.p_tile == (WGMMA_TILE if p.route == WGMMA else min(pp, SIMT_P_TILE))))
@@ -639,20 +650,19 @@ def _launch(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torch
         raise ValueError(f"grid too large for x {tuple(x.shape)}")
     y = torch.empty((b, l, h, pp), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, pp, n), dtype=torch.float32, device=x.device)
-    hbuf = decs = None
+    hbuf = None
     hg = 0
     if p.route == WGMMA:
         hg = bwd_head_group(b, l, h, chunk, sms=_sm_count(x.device.index))
         if fwd_smem_bytes(n, hg)[1] > MAX_SMEM_BYTES:
             raise ValueError(f"a group of {hg} heads needs {fwd_smem_bytes(n, hg)[1]} B of shared memory a block")
-        # the state entering each chunk (fp32), and each chunk's decay for a build that passes them apart
+        # the state entering each chunk, fp32
         hbuf = torch.empty((b, h, l // chunk, pp, n), dtype=torch.float32, device=x.device)
-        decs = torch.empty((b, h, l // chunk), dtype=torch.float32, device=x.device)
     err = _kernel()(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), state.data_ptr(),
         p.route, b, l, h, pp, n, chunk, p.p_tile,
         *x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-        None if hbuf is None else hbuf.data_ptr(), None if decs is None else decs.data_ptr(), hg,
+        None if hbuf is None else hbuf.data_ptr(), hg,
         # the current stream's handle without building a torch.cuda.Stream:
         # at these sizes the host's time to issue a call rivals the card's
         torch._C._cuda_getCurrentRawStream(x.device.index),
@@ -823,8 +833,8 @@ def _bwd_mma_kernel():
 @functools.cache
 def _kernel():
     fn = library().ssd_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

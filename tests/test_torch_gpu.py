@@ -669,7 +669,7 @@ def test_ssd_scan_runs_the_kernel_of_its_route(shape, dtype, strided):
     args = _ssd(b, l, h, p, n, dtype, strided=strided)
     ssd.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()
-    want = ssd.fwd_kernels(ssd.plan(dtype, b, h, p, n, chunk, ssd.fwd_aligned(args[0], args[3], args[4])), n)
+    want = ssd.fwd_kernels(ssd.plan(dtype, b, h, p, n, chunk, *ssd.alignment(args[0], args[3], args[4])), n)
     names = _device_kernel_names(lambda: ssd.ssd_scan(*args, chunk=chunk))
     ran = sorted({m.group(1) for k in names if (m := re.search(r"::(ssd_scan\w*_kernel(?:<[^>]*>)?)", k))})
     assert ran == sorted(want), names
@@ -698,7 +698,7 @@ def test_ssd_wgmma_route_matches_plain(b, l, h, p, n, strided):
     no greater than the mma.sync kernel's on the same inputs (and both
     small); two calls give the same bits."""
     args = _ssd(b, l, h, p, n, torch.bfloat16, seed=b + h, strided=strided)
-    assert ssd.plan(torch.bfloat16, b, h, p, n, 64, ssd.fwd_aligned(args[0], args[3], args[4])).route == 3
+    assert ssd.plan(torch.bfloat16, b, h, p, n, 64, *ssd.alignment(args[0], args[3], args[4])).route == 3
     y, state = ssd.ssd_scan(*args, chunk=64)
     y2, state2 = ssd.ssd_scan(*args, chunk=64)
     ym, _ = ssd.run_plan(*args, 64, ssd.mma_plan(b, h, p, n, 64))

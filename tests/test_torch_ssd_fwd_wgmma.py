@@ -89,11 +89,15 @@ def test_served_and_rank_scans_take_the_wgmma_route(shape):
         (torch.bfloat16, 64, 128, 64, False, SIMT_BF16),  # rows TMA cannot address
         (torch.bfloat16, 16, 16, 8, True, SIMT_BF16),  # the smoke configs' chunk 8
         (torch.float32, 64, 128, 64, True, SIMT_F32),
+        # 16-byte rows TMA cannot address (a zero stride): cp.async reads them on mma.sync
+        (torch.bfloat16, 64, 128, 64, (True, False), MMA),
     ],
 )
 def test_other_scans_keep_their_routes(dtype, p, n, chunk, aligned, want):
-    assert ssd.route(dtype, p, n, chunk, aligned) == want
-    chosen = ssd.plan(dtype, 4, 24, p, n, chunk, aligned)
+    """``aligned``: one flag for both of route's, or (aligned, tma)."""
+    aligned, tma = aligned if isinstance(aligned, tuple) else (aligned, aligned)
+    assert ssd.route(dtype, p, n, chunk, aligned, tma) == want
+    chosen = ssd.plan(dtype, 4, 24, p, n, chunk, aligned, tma)
     assert chosen.route == want
     assert ("ssd_scan_fwd_chunk_kernel" in " ".join(ssd.fwd_kernels(chosen, n))) == (want == WGMMA)
 
@@ -105,23 +109,25 @@ def test_unaligned_rows_and_zero_strides_are_not_tma_rows():
     assert not ssd.fwd_aligned(x, B, C)
     x, _, _, B, C = _inputs(b, l, h, p, n)
     assert ssd.fwd_aligned(x, B, C)
-    assert not ssd.fwd_aligned(x, B.expand(b, l, n).as_strided((b, l, n), (0, B.stride(1), 1)), C)
+    zero = B.expand(b, l, n).as_strided((b, l, n), (0, B.stride(1), 1))
+    assert not ssd.fwd_aligned(x, zero, C)
+    assert ssd.alignment(x, zero, C) == (True, False)
     assert ssd.fwd_aligned(x[:1], B[:1].as_strided((1, l, n), (0, B.stride(1), 1)), C[:1])  # a dim of 1
 
 
 @pytest.mark.parametrize("name", [*SERVED, *RANKS])
 def test_the_shared_memory_plan_fits_a_block(name):
-    """The source's fwd_states_smem / fwd_chunk_smem, mirrored: the states
-    kernel 1 KB of slack, two stages of x and B (8 KB boxes), 3 planes,
-    barriers, dt and the warps' factors; the chunk kernel C and B, two x
-    boxes, 3 planes of the state, the output's box, barriers, the group's
-    dt and the warps' factors.  The states kernel fits three blocks an SM,
-    the chunk kernel two at state 128 and three at 64."""
+    """The source's bwd_states_smem / fwd_chunk_smem, mirrored: the states
+    kernel the backward's (1 KB of slack, two stages of x, B and dt, 3
+    planes and the warps' factors); the chunk kernel C and B, two x boxes,
+    3 planes of the state, the output's box, barriers, the group's dt and
+    the warps' factors.  The states kernel fits three blocks an SM, the
+    chunk kernel two at state 128 and three at 64."""
     b, l, h, p, n = {**SERVED, **RANKS}[name]
     hg = ssd.bwd_head_group(b, l, h)
     states, chunk = ssd.fwd_smem_bytes(n, hg)
     box = 64 * 128
-    assert states == 1024 + 4 * box + 3 * box + 16 + 512 + 3072 == 61_968
+    assert states == ssd.mma_bwd_smem_bytes(n)[0] == 1024 + 2 * (2 * box + 1024) + 3 * box + 3072 == 63_488
     assert chunk == 1024 + (5 * (n // 64) + 3) * box + 32 + hg * 256 + 3072
     assert max(states, chunk) <= ssd.MAX_SMEM_BYTES
     per_sm = 228 * 1024
@@ -134,8 +140,8 @@ def test_the_shared_memory_plan_fits_a_block(name):
 def test_served_groups_and_grids():
     assert ssd.bwd_head_group(4, 512, 24) == 3 and ssd.fwd_grid(4, 512, 24, 64, 128) == (192, 256)
     assert ssd.bwd_head_group(4, 512, 80) == 10 and ssd.fwd_grid(4, 512, 80, 64, 64) == (320, 256)
-    assert ssd.fwd_smem_bytes(128, 3) == (61_968, 111_392)
-    assert ssd.fwd_smem_bytes(64, 10) == (61_968, 72_224)
+    assert ssd.fwd_smem_bytes(128, 3) == (63_488, 111_392)
+    assert ssd.fwd_smem_bytes(64, 10) == (63_488, 72_224)
 
 
 @pytest.mark.parametrize("chunk,h,p,n", [(64, 2, 64, 64), (64, 3, 64, 128), (32, 2, 16, 8), (16, 3, 8, 16)])
