@@ -4,11 +4,13 @@
 
 Builds ``csrc/ssd_scan.cu`` as it ships, ``-DSSD_TERMS=1`` and ``2`` (each
 inexact product operand split into fewer bf16 terms; 3 ship), and the
-forms the route dropped, all compiled at once from the sources of commit
-FORMS (read from git into ``build/ssd_fwd_forms/`` on the first run in a
-checkout): its states kernel, which loads x and B by TMA where the shipped
-one runs the backward's states body (``cp.async``), as it stood
-(``"TMA states"``), with ``-DSSD_FWD_PASS=1`` (the chunk states in
+forms the route dropped, all compiled at once from the sources of commits
+FORMS and CPASYNC (read from git into ``build/ssd_fwd_forms/`` and
+``build/ssd_fwd_cpasync/`` on the first run in a checkout).  FORMS' states
+kernel is a copy of the backward's states arithmetic with x and B by TMA;
+CPASYNC's runs the backward's states body itself, x and B by ``cp.async``
+as the backward loads them; the shipped one runs that body with x and B by
+TMA.  FORMS as it stood (``"TMA states"``), with ``-DSSD_FWD_PASS=1`` (the chunk states in
 parallel over chunks, passed along them by a kernel of their own) and with
 ``-DSSD_FWD_PROBE=1..7`` (no products, no state read, no G∘L∘dt, no state
 written, no scans, no planes, no y stored; the chunk kernel there is the
@@ -25,8 +27,9 @@ with the share of bf16 outputs that differ from plain's:
   L2 warm and cold before each call, CUDA events and the host's time to
   issue a call, the bytes its states move through device memory beside the
   scan's own;
-- the same in the TMA-states and pass builds, and in each term build; the
-  shipped and TMA-states builds also in turns (shipped, TMA, TMA, shipped);
+- the same in the TMA-states, ``cp.async``-states and pass builds, and in
+  each term build; the shipped, TMA-states and ``cp.async``-states builds
+  also in turns (each in order, then in reverse);
 - each probe build's kernels, in turns with the TMA-states build (whole,
   probes, probes in reverse, whole): what a part costs is the whole less
   the build without it;
@@ -78,6 +81,10 @@ PARENT_DIR = build.BUILD_DIR.parent / "ssd_fwd_parent"
 #: probes), and where its kernel sources are kept
 FORMS = "c73822f"
 FORMS_DIR = build.BUILD_DIR.parent / "ssd_fwd_forms"
+#: the commit whose states kernel ran the backward's states body with x and B by cp.async, and where its
+#: kernel sources are kept
+CPASYNC = "1c2e59d"
+CPASYNC_DIR = build.BUILD_DIR.parent / "ssd_fwd_cpasync"
 #: the mesh ranks' scans (b, l, h, p, n): mamba2 and zamba2 at their heads on (1, 2), zamba2 x train_4k's rank
 RANK_SHAPES = {"mamba2-130m rank of (1, 2)": (4, 512, 12, 64, 128), "zamba2-2.7b rank of (1, 2)": (4, 512, 40, 64, 64),
                "zamba2-2.7b x train_4k rank 0 of (16, 16)": (16, 4096, 5, 64, 64)}
@@ -223,6 +230,7 @@ def main() -> int:
     args = ap.parse_args()
     _git_sources(PARENT, PARENT_DIR)
     _git_sources(FORMS, FORMS_DIR)
+    _git_sources(CPASYNC, CPASYNC_DIR)
     if not torch.cuda.is_available():
         print("ssd_probe: no CUDA device visible", file=sys.stderr)
         return 1
@@ -232,7 +240,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ptxas = cs.ssd_ptxas()
     libs = {"shipped": build.library("ssd_scan"),
-            **build_copies({"TMA states": (FORMS_DIR, None), "pass form": (FORMS_DIR, "SSD_FWD_PASS=1"),
+            **build_copies({"TMA states": (FORMS_DIR, None), "cp.async states": (CPASYNC_DIR, None),
+                            "pass form": (FORMS_DIR, "SSD_FWD_PASS=1"),
                             **{name: (FORMS_DIR, f"SSD_FWD_PROBE={v}") for name, v in PARTS.items()},
                             **{name: (build.CSRC, f"SSD_TERMS={v}") for name, v in TERM_BUILDS.items()}})}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -262,7 +271,7 @@ def main() -> int:
                # the states entering every chunk but the first, written by one kernel and read by the next
                "state_bytes_each_way": 4 * b * h * (l // chunk - 1) * p * n}
         routes = {}
-        for name in ("shipped", "TMA states", "pass form", *TERM_BUILDS):
+        for name in ("shipped", "TMA states", "cp.async states", "pass form", *TERM_BUILDS):
             with using(libs[name]):
                 got = kern()
                 again = kern()
@@ -278,8 +287,9 @@ def main() -> int:
             routes[name] = row
         ssd._kernel.cache_clear()
         out["wgmma"] = routes
-        states = {"shipped": [], "TMA states": []}  # the two states kernels in turns, each build whole
-        for name in ("shipped", "TMA states", "TMA states", "shipped"):
+        order = ("shipped", "TMA states", "cp.async states")
+        states = {name: [] for name in order}  # the three states kernels in turns, each build whole
+        for name in (*order, *reversed(order)):
             with using(libs[name]):
                 states[name].append(_kernels(kern))
         out["states_turns_ms"] = states

@@ -79,12 +79,12 @@
 //   state columns), carries the state along the chunks in fp32 accumulators:
 //   each chunk's own part (x exp(cum_last - cum) dt)^T . B on wgmma
 //   m64n64k16 (x as stored; the scaled B in 3 bf16 planes), x and B through
-//   a 2-stage cp.async ring; it writes the state entering every chunk but the
+//   a 2-stage TMA ring; it writes the state entering every chunk but the
 //   first (fp32 [b, h, nc, p, n]) and the last.  It runs the backward's
-//   states body (states_mma) in direction 0 over tiles of p.  A copy of that
-//   body with x and B by TMA, and a form parallel over chunks whose states a
-//   kernel of its own passed along them, measured no faster
-//   (scripts/ssd_probe.py, PERF.md).
+//   states body (states_mma) in direction 0 over tiles of p, loading by TMA
+//   where the backward's uses cp.async (5-9% faster here).  A form parallel
+//   over chunks whose states a kernel of its own passed along them moved
+//   them twice more and lost (scripts/ssd_probe.py, PERF.md).
 // - ssd_scan_fwd_chunk_kernel<N>, one warpgroup per (b, chunk, group of
 //   bwd_head_group heads): G = C.B^T once on wgmma, kept in fp32 registers;
 //   per head, Y = exp(cum) o (C . H^T) + (G o L o dt) . x on wgmma, H split
@@ -150,7 +150,8 @@
 //   backward over the 8 chunks, 8 scaled adds of a [64, 64] tile in fp32
 //   accumulators, each chunk's own part on wgmma m64n64k16 (x or dy as
 //   stored, B or C scaled and split into 3 bf16 planes once a chunk by the
-//   block), and writes them for the chunk kernel (2 x 25 MB fp32 at mamba2,
+//   block; its body, states_mma, is the forward's states kernel's too), and
+//   writes them for the chunk kernel (2 x 25 MB fp32 at mamba2,
 //   2 x 42 MB at zamba2).  With mma.sync and 32 columns a block it took
 //   0.057 / 0.081 ms (PERF.md): the chain over chunks ran each step's
 //   products and every warp split the same operand; wgmma and 64 columns,
@@ -1339,16 +1340,18 @@ __device__ __forceinline__ void store_planes(bf16* planes, int r, int q, const f
 // [b, h, p, n], all fp32):
 //   state += (x exp(cum_last - cum) dt)^T . B,   gradient += (dy exp(cum))^T . C
 // after scaling by exp(cum_last).  The product is wgmma m64n64k16 with both operands MN-major from shared
-// memory in the 128-byte swizzle: x or dy as stored (cp.async straight into the swizzled tile), B or C
-// scaled per step in fp32 and split into TERMS bf16 planes once a chunk by the whole block.  The state
-// stays in the fp32 accumulators: warp w holds rows 16w.. of the block's 64.  The backward's states kernel
-// and the forward's run this body.
-template <int N>
+// memory in the 128-byte swizzle: x or dy as stored, B or C scaled per step in fp32 and split into TERMS
+// bf16 planes once a chunk by the whole block; both land in a 2-stage ring, swizzled, by cp.async or
+// (TMA) by TMA from map_x and map_B (direction 0 only: the forward's rows, which TMA can address; the
+// backward's rows may have zero strides).  The state stays in the fp32 accumulators: warp w holds rows
+// 16w.. of the block's 64.  The backward's states kernel and the forward's run this body.
+template <int N, bool TMA>
 __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
                                            const float* __restrict__ A, const bf16* __restrict__ Bm,
                                            const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
                                            const float* __restrict__ dstate, float* __restrict__ hbuf,
-                                           float* __restrict__ dhbuf, float* __restrict__ last, const BwdShape& s,
+                                           float* __restrict__ dhbuf, float* __restrict__ last,
+                                           const CUtensorMap* map_x, const CUtensorMap* map_B, const BwdShape& s,
                                            int p, int grads, int n0, int pt, int bh) {
   static_assert(N % SLICE == 0 && SLICE == 64 && BP == 64, "64 x 64 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1359,9 +1362,9 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
   const int nc = s.l / BCL, p0 = 16 * warp;
   const long long slot = (long long)p * N, rows = (long long)pt * BP * N + n0 + 2 * t;  // a chunk's state; ours
   const float a_h = A[hi];
-  const bf16* X = (grads ? dy + bi * s.syb + hi * s.syh : x + bi * s.sxb + hi * s.sxh) + pt * BP;
+  const bf16* X = TMA ? nullptr : (grads ? dy + bi * s.syb + hi * s.syh : x + bi * s.sxb + hi * s.sxh) + pt * BP;
   const long long sXl = grads ? s.syl : s.sxl;
-  const bf16* Y = (grads ? Cm + bi * s.sCb : Bm + bi * s.sBb) + n0;
+  const bf16* Y = TMA ? nullptr : (grads ? Cm + bi * s.sCb : Bm + bi * s.sBb) + n0;
   const long long sYl = grads ? s.sCl : s.sBl;
   const float* db = dt + bi * s.sdb + hi * s.sdh;
   float* out = (grads ? dhbuf : hbuf) + bh * nc * slot + rows;
@@ -1369,19 +1372,44 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
   float* ecum = cum + 64;
   float* wend = ecum + 64;
 
-  // stage: X (swizzled: row s of 64 p, its 16-byte pieces XOR-ed with s % 8), Y (plain rows of 64 n), dt
+  // a stage's TMA barrier, after its dt
+  auto bar = [&](int stage) { return reinterpret_cast<uint64_t*>(base + stage * ST_STAGE + 2 * ST_TILE + 64 * 4); };
+  if (TMA) {
+    if (tid == 0) {
+      mbar_init(bar(0), 1);
+      mbar_init(bar(1), 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+  // stage: X and Y (swizzled: row s of 64 elements, its 16-byte pieces XOR-ed with s % 8, as TMA lays them), dt
   auto load = [&](int c, int stage) {
     unsigned char* Xs = base + stage * ST_STAGE;
     unsigned char* Ys = Xs + ST_TILE;
     float* Ds = reinterpret_cast<float*>(Ys + ST_TILE);
-    const long long l0 = (long long)c * BCL;
-    if (SSD_BWD_PROBE != 2)
-      for (int e = tid; e < 64 * 8; e += ST_THREADS) {
-        const int r = e / 8, piece = e % 8;
-        cp_async16(Xs + r * 128 + ((piece ^ (r % 8)) << 4), X + (l0 + r) * sXl + piece * 8, 16);
-        cp_async16(Ys + r * 128 + (piece << 4), Y + (l0 + r) * sYl + piece * 8, 16);
+    const int l0 = c * BCL;
+    if (TMA) {
+      if (tid == 0) {
+        mbar_arrive_expect_tx(bar(stage), 2 * ST_TILE);
+        tma_load_4d(Xs, map_x, bar(stage), pt * BP, hi, l0, bi);
+        tma_load_4d(Ys, map_B, bar(stage), n0, 0, l0, bi);
       }
-    if (tid < 64) cp_async4(Ds + tid, db + (l0 + tid) * s.sdl);
+    } else if (SSD_BWD_PROBE != 2) {
+      for (int e = tid; e < 64 * 8; e += ST_THREADS) {
+        const int r = e / 8, off = r * 128 + (((e % 8) ^ (r % 8)) << 4);
+        cp_async16(Xs + off, X + (l0 + r) * sXl + e % 8 * 8, 16);
+        cp_async16(Ys + off, Y + (l0 + r) * sYl + e % 8 * 8, 16);
+      }
+    }
+    if (tid < 64) cp_async4(Ds + tid, db + (long long)(l0 + tid) * s.sdl);
+  };
+  // this thread's rows p0 + g and p0 + g + 8 of the state, from chunk slot `o`
+  auto store = [&](float* o, const float (&v)[SLICE / 2]) {
+#pragma unroll
+    for (int j = 0; j < SLICE / 8; ++j) {
+      *reinterpret_cast<float2*>(o + (p0 + g) * N + 8 * j) = make_float2(v[4 * j], v[4 * j + 1]);
+      *reinterpret_cast<float2*>(o + (p0 + g + 8) * N + 8 * j) = make_float2(v[4 * j + 2], v[4 * j + 3]);
+    }
   };
 
   // rows p0 + g (registers 4j, 4j + 1) and p0 + g + 8 (4j + 2, 4j + 3), columns n0 + 8j + 2t (+ 1)
@@ -1405,6 +1433,7 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
   for (int i = 0; i < nc; ++i) {
     const int c = grads ? nc - 1 - i : i;
     cp_async_wait<0>();
+    if (TMA) mbar_wait(bar(i % 2), (i / 2) & 1);
     __syncthreads();  // chunk c has landed; the last chunk's wgmma are done with the planes and the other stage
     if (i + 1 < nc) load(grads ? c - 1 : c + 1, (i + 1) % 2);
     cp_async_commit();
@@ -1412,21 +1441,14 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
     const unsigned char* Ys = Xs + ST_TILE;
     const float* Ds = reinterpret_cast<const float*>(Ys + ST_TILE);
     const float dec = expf(scan_chunk64(Ds, a_h, cum, ecum, wend, lane));
-    if (grads ? c < nc - 1 : c > 0) {  // where the chunk kernel reads it
-      float* o = out + c * slot;
-#pragma unroll
-      for (int j = 0; j < SLICE / 8; ++j) {
-        *reinterpret_cast<float2*>(o + (p0 + g) * N + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<float2*>(o + (p0 + g + 8) * N + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-      }
-    }
+    if (grads ? c < nc - 1 : c > 0) store(out + c * slot, acc);  // where the chunk kernel reads it
 #pragma unroll
     for (int e = 0; e < SLICE / 2; ++e) acc[e] *= dec;
     // f o Y into the planes, f = exp(cum_last - cum) dt (the states) or exp(cum) (their gradients)
     for (int e = tid; e < 64 * 8; e += ST_THREADS) {
-      const int r = e / 8, piece = e % 8;
+      const int r = e / 8, off = r * 128 + (((e % 8) ^ (r % 8)) << 4);
       const float f = grads ? ecum[r] : wend[r] * Ds[r];
-      const uint4 y = *reinterpret_cast<const uint4*>(Ys + r * 128 + (piece << 4));
+      const uint4 y = *reinterpret_cast<const uint4*>(Ys + off);
       const uint32_t yv[4] = {y.x, y.y, y.z, y.w};
       uint32_t split[4][TERMS];
 #pragma unroll
@@ -1436,7 +1458,7 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
       }
 #pragma unroll
       for (int k = 0; k < TERMS; ++k)
-        *reinterpret_cast<uint4*>(planes + k * ST_TILE + r * 128 + ((piece ^ (r % 8)) << 4)) =
+        *reinterpret_cast<uint4*>(planes + k * ST_TILE + off) =
             make_uint4(split[0][k], split[1][k], split[2][k], split[3][k]);
     }
     fence_proxy_async_shared();  // the planes, and X from cp.async, to the async proxy the wgmma read through
@@ -1455,14 +1477,7 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
     wgmma_fence_operand(acc);
   }
   cp_async_wait<0>();
-  if (!grads && last != nullptr) {
-    float* o = last + bh * slot + rows;
-#pragma unroll
-    for (int j = 0; j < SLICE / 8; ++j) {
-      *reinterpret_cast<float2*>(o + (p0 + g) * N + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(o + (p0 + g + 8) * N + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
+  if (!grads && last != nullptr) store(last + bh * slot + rows, acc);
 }
 
 // The backward's states, one block per (b, h, SLICE state columns, direction) (p is 64).
@@ -1472,8 +1487,8 @@ ssd_scan_bwd_states_mma_kernel(const bf16* __restrict__ x, const float* __restri
                                const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
                                const float* __restrict__ dstate, float* __restrict__ hbuf, float* __restrict__ dhbuf,
                                BwdShape s) {
-  states_mma<N>(x, dt, A, Bm, Cm, dy, dstate, hbuf, dhbuf, nullptr, s, BP, blockIdx.x % 2,
-                (blockIdx.x / 2) % (N / SLICE) * SLICE, 0, blockIdx.x / (2 * (N / SLICE)));
+  states_mma<N, false>(x, dt, A, Bm, Cm, dy, dstate, hbuf, dhbuf, nullptr, nullptr, nullptr, s, BP, blockIdx.x % 2,
+                       (blockIdx.x / 2) % (N / SLICE) * SLICE, 0, blockIdx.x / (2 * (N / SLICE)));
 }
 
 // Each chunk's backward, one block per (b, chunk c, group of s.hg heads), given the state entering the
@@ -2037,17 +2052,17 @@ __device__ __forceinline__ uint64_t mndesc(const unsigned char* tile, int kk) {
   return wgmma_desc_sw128(tile + 2048 * kk, FBOX, 1024);
 }
 
-// The forward's states: the backward's states body in direction 0 alone, one block per (b, h, 64 rows of
-// p, SLICE state columns), p a multiple of 64; writes the state entering each chunk but the first to hbuf
-// and the last state to `last`.
+// The forward's states: the backward's states body in direction 0 alone, x and B by TMA, one block per
+// (b, h, 64 rows of p, SLICE state columns), p a multiple of 64; writes the state entering each chunk but
+// the first to hbuf and the last state to `last`.
 template <int N>
 __global__ void __launch_bounds__(ST_THREADS)
-ssd_scan_fwd_states_kernel(const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-                           const bf16* __restrict__ Bm, float* __restrict__ hbuf, float* __restrict__ last,
-                           BwdShape s, int p) {
+ssd_scan_fwd_states_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_B,
+                           const float* __restrict__ dt, const float* __restrict__ A, float* __restrict__ hbuf,
+                           float* __restrict__ last, BwdShape s, int p) {
   const int u = blockIdx.x / (N / SLICE), npt = p / BP;
-  states_mma<N>(x, dt, A, Bm, nullptr, nullptr, nullptr, hbuf, nullptr, last, s, p, 0,
-                blockIdx.x % (N / SLICE) * SLICE, u % npt, u / npt);
+  states_mma<N, true>(nullptr, dt, A, nullptr, nullptr, nullptr, nullptr, hbuf, nullptr, last, &map_x, &map_B, s, p,
+                      0, blockIdx.x % (N / SLICE) * SLICE, u % npt, u / npt);
 }
 
 // The chunk outputs, one warpgroup per (b, chunk c, group of s.hg heads): C and B arrive by TMA once,
@@ -2277,8 +2292,8 @@ int launch_fwd_wgmma(const void* x, const float* dt, const float* A, const void*
   const BwdShape bs{s.b, s.l, s.h, N, hg, s.sxb, s.sxl, s.sxh, s.sdb, s.sdl, s.sdh, s.sBb, s.sBl, s.sCb, s.sCl, 0, 0, 0};
   const long long blocks = (long long)s.b * s.h * (s.p / BP) * (N / SLICE);
   if ((ce = allow_fwd_smem(ssd_scan_fwd_states_kernel<N>, bwd_states_smem())) != cudaSuccess) return (int)ce;
-  ssd_scan_fwd_states_kernel<N><<<(unsigned)blocks, ST_THREADS, bwd_states_smem(), stream>>>(
-      static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B), hbuf, state, bs, s.p);
+  ssd_scan_fwd_states_kernel<N><<<(unsigned)blocks, ST_THREADS, bwd_states_smem(), stream>>>(mx, mB, dt, A, hbuf, state,
+                                                                                               bs, s.p);
   if ((ce = cudaGetLastError()) != cudaSuccess) return (int)ce;
   const FwdShape f{s.b, s.l, s.h, s.p, N, hg, s.sdb, s.sdl, s.sdh};
   const int ch_smem = fwd_chunk_smem(N, hg);
