@@ -297,15 +297,22 @@ repository's sources are not beside this script.  Otherwise, in order:
    with no final-state gradient, as training runs them, and in fp32 and in
    bf16 contiguous with one; the reference tests' shapes, a ragged p tile
    and chunk 8, with and without it; each case prints its route
-   (``ssd_scan.bwd_route``: bf16 at chunk 64 and p 64 on the tensor cores)
-   and fails unless it is the one expected; bf16 within BF16_REL_TOL of
-   each gradient's max |plain|, fp32 within SSD_TOL of it; two calls give
-   the same bits; times the training shapes (kernel by events and device
-   time, each of its kernels by device time, plain backward; no PyTorch
-   call computes it) with each bound, after the SIMT route's kernels on the
-   same inputs (``ssd_scan.run_bwd_route``, held to BF16_REL_TOL too), and
-   fails unless the profiled backward ran exactly ``ssd_scan.bwd_kernels``
-   of its route;
+   (``ssd_scan.bwd_route``: bf16 at chunk 64 and p 64 on ``"wgmma"``, the
+   chunk kernel ``ssd_scan_bwd_chunk_kernel`` on ``wgmma``) and fails
+   unless it is the one expected; bf16 within BF16_REL_TOL of each
+   gradient's max |plain|, fp32 within SSD_TOL of it; two calls give the
+   same bits; at the training shapes, on the same inputs, the route given
+   the forward's states (``ssd_scan.ssd_scan_states``: the same bits, the
+   states kernel at half its blocks by the profiler's trace), the
+   ``"mma"`` route (the ``mma.sync`` chunk kernel it replaced) and the SIMT
+   route (``ssd_scan.run_bwd_route``, held to BF16_REL_TOL too), and
+   ``ops._SsdScan`` as a checkpointed layer runs it
+   (``ops.keeping_scan_states``: its backward on the route's kernels, the
+   states kernel at half its blocks); times each route kernel by kernel by
+   device time in turns (wgmma, mma, simt, wgmma given the forward's
+   states, mma, wgmma), the whole by events too, beside the bound and the
+   plain backward (no PyTorch call computes it), and fails unless the
+   profiled backward ran exactly ``ssd_scan.bwd_kernels`` of its route;
 12. the ``gemm`` gradient (``check_gemm_grad``): ``ops.gemm``'s autograd
    Function at phi3.5-moe's training shapes (16 experts, capacity 320, d
    4096, d_ff 6400, bf16), dA and dB against ``gemm_plain`` at GEMM_TOL,
@@ -410,7 +417,7 @@ repository's sources are not beside this script.  Otherwise, in order:
    / SSD_TRAIN_GRAD_TOL against one process, beside a control that must
    miss, the gated norm's mean square summed forward only, ``sum_tp`` for
    ``psum_tp``; every scan on the wgmma route at the rank's heads
-   and every backward on the ``"mma"``
+   and every backward on the ``"wgmma"``
    route's three kernels (``_recording_scans``); each rank's parameter and
    AdamW bytes by
    ``torch.cuda.memory_allocated`` held to the sum of its blocks (at most
@@ -655,11 +662,16 @@ GEMM_FN = re.compile(r"\(anonymous namespace\)::(gemm_\w+_kernel(?:<[^>]*>)?)")
 SSD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan(?:_fwd_states|_fwd_chunk|_mma_bf16)?_kernel<[^>]*>)")
 #: the SSD scan's backward kernels as the profiler names them: the SIMT route's reverse scan and the sum of
 #: its partials, the tensor-core route's states, chunk and sum kernels (``ssd_scan.bwd_kernels``)
-SSD_BWD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan_bwd(?:_sum|_states_mma|_chunk_mma|_mma_sum)?_kernel<[^>]*>)")
+SSD_BWD_FN = re.compile(r"\(anonymous namespace\)::(ssd_scan_bwd(?:_sum|_states_mma|_chunk_mma|_chunk|_mma_sum)?_kernel<[^>]*>)")
+#: the SSD backward kernels' mangled names in ``ptxas -v``: the type's, state width's and loads' template arguments
+SSD_BWD_PTXAS = r"(ssd_scan_bwd(?:_[a-z]+)*_kernelI(?:f|13__nv_bfloat16|Li\d+E(?:Lb[01]E)?)E)"
 #: profiler windows a device-time reading takes at most: the profiler can
 #: keep some or none of a window's device records
 #: (``scripts/profiler_windows.py`` counts how often)
 PROFILER_WINDOWS = 8
+#: seconds a grid-reading profiler window waits on the host before its first call and after its last:
+#: the card's records can be dated a few ms off the host's (``scripts/profiler_windows.py --pads``)
+PROFILER_PAD_S = 0.05
 #: the Mamba2-family models whose prefill scan phase 6 times, both served
 #: (LM_MODELS): state widths 128 and 64
 SSD_MODELS = ("mamba2-130m", "zamba2-2.7b")
@@ -863,7 +875,8 @@ def _bwd_name(mangled: str) -> str:
     """A backward kernel's name from its mangled one: ``flash_bwd_dq_kernel<64>``."""
     kernel, args = re.match(r"([a-z0-9_]+_kernel)I(.*)E$", mangled).groups()
     kind = ["__nv_bfloat16"] if "bfloat16" in args else ["float"] if args == "f" else []
-    return f"{kernel}<{', '.join(re.findall(r'Li(\d+)E', args) + kind)}>"
+    flags = ["true" if v == "1" else "false" for v in re.findall(r"Lb([01])E", args)]
+    return f"{kernel}<{', '.join(re.findall(r'Li(\d+)E', args) + kind + flags)}>"
 
 
 def check_flash_bwd_ptxas() -> None:
@@ -1010,17 +1023,19 @@ def check_ssd_bwd_ptxas() -> None:
     """Fail unless ``ptxas`` compiled every kernel of the SSD backward
     (every route's, ``ssd_scan.bwd_kernels``: the SIMT route's
     ``ssd_scan_bwd_kernel`` and ``ssd_scan_bwd_sum_kernel`` in fp32 and
-    bf16; the tensor-core route's states and chunk kernels at state widths
-    64 and 128 and its sum) with no spill and no ``wgmma`` made to wait
-    (C7517, C7518), and unless the tensor-core route's shared memory is
-    what the wrapper counts (``ssd_scan.mma_bwd_smem_bytes``); print each
-    one's registers."""
-    seen = {_bwd_name(m): v for m, v in _ptxas_entries(
-        "ssd_scan", r"(ssd_scan_bwd(?:_[a-z]+)*_kernelI(?:f|13__nv_bfloat16|Li\d+E)E)").items()}
+    bf16; the tensor-core routes' states kernel, ``mma.sync`` chunk kernel
+    and ``wgmma`` chunk kernel (TMA and ``cp.async`` loads) at state widths
+    64 and 128 and their sum) with no spill and no ``wgmma`` made to wait
+    (C7517, C7518), and unless the tensor-core routes' shared memory is
+    what the wrapper counts (``ssd_scan.mma_bwd_smem_bytes``,
+    ``ssd_scan.wgmma_bwd_smem_bytes`` at the training shapes' head groups);
+    print each one's registers."""
+    seen = {_bwd_name(m): v for m, v in _ptxas_entries("ssd_scan", SSD_BWD_PTXAS).items()}
     for name, (regs, st, ld) in sorted(seen.items()):
         print(f"[build] {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     want = {name for dtype in (torch.float32, torch.bfloat16) for name in ssd.bwd_kernels("simt", dtype, 128)}
-    want |= {name for n in ssd.MMA_BWD_STATES for name in ssd.bwd_kernels("mma", torch.bfloat16, n)}
+    want |= {name for n in ssd.MMA_BWD_STATES for route in ("mma", "wgmma") for tma in (True, False)
+             for name in ssd.bwd_kernels(route, torch.bfloat16, n, tma)}
     if set(seen) != want:
         raise RuntimeError(f"ptxas compiled SSD backward kernels {sorted(seen)}, want {sorted(want)}")
     spilled = {n: v for n, v in seen.items() if v[1] or v[2]}
@@ -1040,6 +1055,18 @@ def check_ssd_bwd_ptxas() -> None:
                                f"memory, the wrapper counts {ssd.mma_bwd_smem_bytes(n)}")
         print(f"[build] SSD backward, tensor-core route at state {n}: {source} B of shared memory a block "
               f"(states, chunk)")
+    fn = ssd.library().ssd_scan_bwd_wgmma_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    for arch in SSD_MODELS:
+        cfg = get_config(arch)
+        n, hg = cfg.ssm_state, ssd.bwd_head_group(TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_heads)
+        if fn(n, hg) != ssd.wgmma_bwd_smem_bytes(n, hg) or fn(n, hg) > ssd.MAX_SMEM_BYTES:
+            raise RuntimeError(f"the SSD backward's wgmma chunk kernel at state {n}, {hg} heads a block, asks "
+                               f"{fn(n, hg)} B of shared memory, the wrapper counts {ssd.wgmma_bwd_smem_bytes(n, hg)} "
+                               f"(at most {ssd.MAX_SMEM_BYTES})")
+        print(f"[build] SSD backward, wgmma route at {arch}'s state {n} and {hg} heads a chunk block: {fn(n, hg)} B "
+              f"of shared memory a chunk-kernel block")
 
 
 def check_conv_ptxas() -> None:
@@ -3043,6 +3070,50 @@ def _hold_ssd_grads(name: str, desc: dict, got, want, tol: float) -> float:
     return worst
 
 
+def _kernel_grids(fn, reps: int = 5) -> dict[str, list[list[int]]]:
+    """The grid of each device kernel ``reps`` calls of ``fn`` launched, by
+    the profiler's name, from its trace (kineto records each launch's
+    grid).  Each window waits ``PROFILER_PAD_S`` on the host before its
+    first call and after its last (a device record the profiler dates
+    outside its window is dropped); a window that kept no grid is taken
+    again after a pause, up to ``PROFILER_WINDOWS`` in all, then it raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILER_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_PAD_S)
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text()).get("traceEvents", [])
+        grids: dict[str, list[list[int]]] = {}
+        for e in events:
+            if isinstance(e.get("args"), dict) and "grid" in e["args"]:
+                grids.setdefault(e.get("name", ""), []).append(list(e["args"]["grid"]))
+        if grids:
+            return grids
+        time.sleep(0.1)
+    raise RuntimeError(f"the profiler kept no kernel grid of {reps} calls in {PROFILER_WINDOWS} windows")
+
+
+def _ssd_states_blocks(fn, n: int) -> set[int]:
+    """The blocks (x of the grid) the SSD backward's states kernel at state
+    width ``n`` launched in ``fn``, from the profiler's trace; raises if the
+    trace kept the grids of other kernels only."""
+    name = f"ssd_scan_bwd_states_mma_kernel<{n}>"
+    grids = _kernel_grids(fn)
+    seen = {m.group(1): {g[0] for g in v} for k, v in grids.items() if (m := SSD_BWD_FN.search(k))}
+    if name not in seen:
+        raise RuntimeError(f"the profiler kept no grid of {name}: it kept {sorted(grids)}")
+    return seen[name]
+
+
 def check_ssd_bwd(gen: torch.Generator) -> dict:
     """Phase 11 for the SSD scan: ``ssd_scan_bwd`` against
     ``ssd_scan_bwd_plain``, and that against autograd through
@@ -3052,16 +3123,27 @@ def check_ssd_bwd(gen: torch.Generator) -> dict:
     contiguous, the reference tests' shapes, a ragged p tile and the smoke
     configs' chunk 8, with and without the final state's gradient; each
     case prints its route (``ssd_scan.bwd_route``) and fails unless it is
-    the one expected (the tensor-core route for bf16 at chunk 64); bf16
+    the one expected (``"wgmma"`` for bf16 at chunk 64 and p 64); bf16
     within BF16_REL_TOL of each gradient's max |plain|, fp32 within SSD_TOL
-    of it; two calls give the same bits.  Times the training shapes
-    (kernel, plain backward; no single PyTorch call computes the SSD
-    backward) by events and device time, with each bound, after the SIMT
-    route's kernels (``ssd_scan.run_bwd_route``) on the same
-    inputs, whose device time it prints on a line before; fails unless the
-    profiled backward ran exactly ``ssd_scan.bwd_kernels`` of its route.
-    Returns the ``ssd_scan`` row's backward keys (mamba2-130m's,
-    zamba2-2.7b's under keys that name it)."""
+    of it; two calls give the same bits.  At the training shapes it also
+    runs, on the same inputs, the ``"wgmma"`` route given the forward's
+    states (``ssd_scan.ssd_scan_states``' H_in), which must give the bits of
+    the one that rebuilds them and launch its states kernel at half the
+    blocks (the gradients' direction alone, read from the profiler's
+    trace), the ``"mma"`` route (the ``mma.sync`` chunk kernel the
+    ``"wgmma"`` one replaced) and the SIMT route (``ssd_scan.run_bwd_route``,
+    each held to BF16_REL_TOL too), and ``ops._SsdScan`` under
+    ``torch.utils.checkpoint`` as a checkpointed layer runs it
+    (``ops.keeping_scan_states``), whose profiled backward must run exactly
+    the route's kernels with the states kernel at half its blocks; times
+    each route (kernel by kernel by device time, the whole by events too)
+    beside the bound and the plain backward (no single PyTorch call
+    computes the SSD backward), and fails unless the profiled backward ran
+    exactly ``ssd_scan.bwd_kernels`` of its route.  Returns the
+    ``ssd_scan`` row's backward keys (mamba2-130m's, zamba2-2.7b's under
+    keys that name it)."""
+    from torch.utils.checkpoint import checkpoint
+
     f32, bf16 = torch.float32, torch.bfloat16
     cases = []
     for arch in SSD_MODELS:
@@ -3082,7 +3164,7 @@ def check_ssd_bwd(gen: torch.Generator) -> dict:
         dy = torch.randn((b, l, h, p), generator=gen, device="cuda").to(dt)
         dstate = torch.randn((b, h, p, n), generator=gen, device="cuda") if case["state"] else None
         route = ssd.bwd_route(dt, p, n, chunk, all(ssd._aligned(t) for t in (x, B, C, dy)))
-        if route != ("mma" if dt == bf16 and chunk == ssd.MMA_BWD_CHUNK and p == ssd.MMA_BWD_P else "simt"):
+        if route != ("wgmma" if dt == bf16 and chunk == ssd.MMA_BWD_CHUNK and p == ssd.MMA_BWD_P else "simt"):
             raise RuntimeError(f"ssd_scan_bwd at {case} routes {route}")
         got = ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
         again = ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
@@ -3104,34 +3186,94 @@ def check_ssd_bwd(gen: torch.Generator) -> dict:
         if "model" in case:
             flops, nbytes = ssd_bwd_cost(x, B, chunk, case["state"])
             bound_ms, bound_by = _bound(flops, nbytes, PEAK_BF16_FLOPS)
+            tma = ssd.fwd_aligned(x, B, C, dy)
+            want = ssd.bwd_kernels("wgmma", bf16, n, tma)
+            h_in = ssd.ssd_scan_states(x, dtt, A, B, C, chunk=chunk)[2]  # the forward's states
 
             def kern():
                 return ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk)
 
+            def carried():
+                return ssd.ssd_scan_bwd(x, dtt, A, B, C, dy, dstate, chunk=chunk, h_in=h_in)
+
+            def mma():
+                return ssd.run_bwd_route(x, dtt, A, B, C, dy, dstate, chunk=chunk, route="mma")
+
             def simt():
                 return ssd.run_bwd_route(x, dtt, A, B, C, dy, dstate, chunk=chunk, route="simt")
 
-            # the SIMT route's kernels on the same inputs first: what the tensor-core route replaced at these shapes
-            simt_err = _hold_ssd_grads("ssd_scan_bwd (simt route)", desc, simt(), plain, BF16_REL_TOL)
-            before = {"bwd_simt_ms": _time_ms(simt), "bwd_simt_device_ms": _device_ms(simt)[0],
-                      "bwd_simt_rel_err": simt_err}
-            print(f"[bwd] ssd_scan_bwd at {case['model']}'s training shape on the SIMT route ("
-                  f"ssd_scan_bwd_kernel): {json.dumps(before)}")
+            if not all(torch.equal(u, v) for u, v in zip(carried(), got)):
+                raise RuntimeError(f"ssd_scan_bwd given the forward's states differs from the one that rebuilds "
+                                   f"them at {desc}")
+            errs = {name: _hold_ssd_grads(f"ssd_scan_bwd ({name})", desc, fn(), plain, BF16_REL_TOL)
+                    for name, fn in (("mma", mma), ("simt", simt))}
             split: dict = {}
-            timed = dict(bwd_ms=_time_ms(kern),
-                         bwd_plain_ms=_time_ms(lambda: ssd.ssd_scan_bwd_plain(x, dtt, A, B, C, dy, dstate, chunk=chunk)),
+            split_carried: dict = {}
+            split_mma: dict = {}
+            timed = dict(bwd_route="wgmma", bwd_kernels=list(want), bwd_ms=_time_ms(kern),
+                         bwd_plain_ms=_time_ms(lambda: ssd.ssd_scan_bwd_plain(x, dtt, A, B, C, dy, dstate,
+                                                                              chunk=chunk)),
                          bwd_library_ms=None,  # no single PyTorch call computes the SSD backward
                          bwd_bound_ms=bound_ms, bwd_bound_by=bound_by)
-            timed["bwd_device_ms"], ran = _device_ms(kern, times=split)
-            timed.update(bwd_host_ms=_host_ms(kern), bwd_bound_ratio=timed["bwd_device_ms"] / bound_ms,
+            # in turns: wgmma, mma, simt, carried, mma, wgmma
+            first, ran = _device_ms(kern, times=split)
+            mma_first = _device_ms(mma, times=split_mma)[0]
+            simt_ms = _device_ms(simt)[0]
+            carried_ms, ran_carried = _device_ms(carried, times=split_carried)
+            mma_second = _device_ms(mma)[0]
+            second = _device_ms(kern)[0]
+            device_ms, mma_ms = (first + second) / 2, (mma_first + mma_second) / 2
+            kernels_ms = {m.group(1): v for k, v in split.items() if (m := SSD_BWD_FN.search(k))}
+            carried_kernels_ms = {m.group(1): v for k, v in split_carried.items() if (m := SSD_BWD_FN.search(k))}
+            mma_kernels_ms = {m.group(1): v for k, v in split_mma.items() if (m := SSD_BWD_FN.search(k))}
+            blocks, blocks_carried = _ssd_states_blocks(kern, n), _ssd_states_blocks(carried, n)
+            states = ssd.bwd_kernels("wgmma", bf16, n)[0]
+            chunk_name, mma_chunk = want[1], ssd.bwd_kernels("mma", bf16, n)[1]
+            timed.update(bwd_device_ms=device_ms, bwd_device_ms_runs=[first, second], bwd_host_ms=_host_ms(kern),
+                         bwd_bound_ratio=device_ms / bound_ms,
                          bwd_device_functions=sorted(m.group(1) for k in ran if (m := SSD_BWD_FN.search(k))),
-                         bwd_kernels_device_ms={m.group(1): v for k, v in split.items() if (m := SSD_BWD_FN.search(k))},
-                         **before, bwd_speedup=before["bwd_simt_device_ms"] / timed["bwd_device_ms"])
-            if len(ran) != 3 or timed["bwd_device_functions"] != sorted(ssd.bwd_kernels("mma", bf16, n)):
-                raise RuntimeError(f"ssd_scan_bwd at {case['model']}'s training shape ran {ran}, want "
-                                   f"{ssd.bwd_kernels('mma', bf16, n)}")
-            print(f"[bwd] ssd_scan_bwd at {case['model']}'s training shape: "
-                  f"{json.dumps({**timed, 'flops': flops, 'bytes': nbytes})}")
+                         bwd_kernels_device_ms=kernels_ms, bwd_carried_device_ms=carried_ms,
+                         bwd_carried_kernels_device_ms=carried_kernels_ms,
+                         bwd_carried_device_functions=sorted(m.group(1) for k in ran_carried
+                                                             if (m := SSD_BWD_FN.search(k))),
+                         bwd_states_blocks=sorted(blocks), bwd_carried_states_blocks=sorted(blocks_carried),
+                         bwd_mma_device_ms=mma_ms, bwd_mma_device_ms_runs=[mma_first, mma_second],
+                         bwd_mma_kernels_device_ms=mma_kernels_ms, bwd_simt_device_ms=simt_ms,
+                         bwd_mma_rel_err=errs["mma"], bwd_simt_rel_err=errs["simt"],
+                         bwd_ratio_to_mma=device_ms / mma_ms, bwd_carried_ratio_to_mma=carried_ms / mma_ms,
+                         bwd_chunk_ratio_to_mma=kernels_ms[chunk_name] / mma_kernels_ms[mma_chunk],
+                         bwd_states_carried_ratio=carried_kernels_ms[states] / kernels_ms[states],
+                         bwd_speedup=simt_ms / device_ms)
+            if len(ran) != 3 or timed["bwd_device_functions"] != sorted(want) \
+                    or timed["bwd_carried_device_functions"] != sorted(want):
+                raise RuntimeError(f"ssd_scan_bwd at {case['model']}'s training shape ran {ran} ({ran_carried} given "
+                                   f"the forward's states), want {want}")
+            two, one = ssd.wgmma_bwd_grid(b, l, h, n)[0], ssd.wgmma_bwd_grid(b, l, h, n, carried=True)[0]
+            if blocks != {two} or blocks_carried != {one} or 2 * one != two:
+                raise RuntimeError(f"the states kernel at {case['model']}'s training shape launched {blocks} blocks, "
+                                   f"{blocks_carried} given the forward's states; want {two}, {one}")
+            # the autograd Function as a checkpointed layer runs it: its backward reads the recomputed forward's states
+            ins = [t.detach().clone().requires_grad_() for t in (x, dtt, A, B, C)]
+
+            def layer(*args):
+                return (ops.ssd_scan(*args, chunk=chunk)[0].float() * dy.float()).sum()
+
+            def step():
+                loss = checkpoint(ops.keeping_scan_states(layer), *ins, use_reentrant=False)
+                return torch.autograd.grad(loss, ins)
+
+            fn_grads = step()
+            _hold_ssd_grads("ops._SsdScan under checkpoint", desc, fn_grads,
+                            ssd.ssd_scan_bwd_plain(x, dtt, A, B, C, dy, chunk=chunk), BF16_REL_TOL)
+            fn_blocks = _ssd_states_blocks(step, n)
+            fn_ran = sorted(m.group(1) for k in _device_ms(step, reps=10)[1] if (m := SSD_BWD_FN.search(k)))
+            if fn_ran != sorted(want) or fn_blocks != {one}:
+                raise RuntimeError(f"ops._SsdScan's backward under checkpoint at {case['model']}'s training shape ran "
+                                   f"{fn_ran}, {fn_blocks} states blocks, want {want} with {one}")
+            timed.update(bwd_checkpointed_device_functions=fn_ran, bwd_checkpointed_states_blocks=sorted(fn_blocks))
+            del ins, fn_grads, h_in
+            print(f"[bwd] ssd_scan_bwd at {case['model']}'s training shape, the wgmma route beside the mma and "
+                  f"SIMT routes on the same inputs: {json.dumps({**timed, 'flops': flops, 'bytes': nbytes})}")
             prefix = "" if not out else f"{case['model']} "
             out.update({prefix + key: val for key, val in timed.items()})
         del x, dtt, A, B, C, dy, dstate, got, plain
@@ -4469,11 +4611,12 @@ def _recording_scans(fwd: list, bwd: list | None = None):
                         ssd.KERNELS[ssd.route(x.dtype, x.shape[3], B.shape[-1], chunk, *ssd.alignment(x, B, C))]))
         return scan(x, dt, A, B, C, chunk=chunk)
 
-    def recording_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk=64):
+    def recording_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk=64, h_in=None):
         route = ssd.bwd_route(x.dtype, x.shape[3], B.shape[-1], chunk, all(ssd._aligned(t) for t in (x, B, C, dy)))
         if bwd is not None:
-            bwd.append((list(x.shape), route, list(ssd.bwd_kernels(route, x.dtype, B.shape[-1]))))
-        return scan_bwd(x, dt, A, B, C, dy, dstate, chunk=chunk)
+            kernels = ssd.bwd_kernels(route, x.dtype, B.shape[-1], ssd.fwd_aligned(x, B, C, dy))
+            bwd.append((list(x.shape), route, list(kernels)))
+        return scan_bwd(x, dt, A, B, C, dy, dstate, chunk=chunk, h_in=h_in)
 
     with mock.patch.object(ops, "ssd_scan", recording), mock.patch.object(ssd, "ssd_scan_bwd", recording_bwd):
         yield
@@ -4737,7 +4880,7 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
             the logits held to LM_TOL, then a train step, its loss and every leaf gathered whole held to
             SSD_TRAIN_LOSS_TOL / SSD_TRAIN_GRAD_TOL beside the gated-norm control, which must miss; otherwise
             the model in bf16, its logits printed.  Every scan on the tensor-core kernel at the rank's heads,
-            every backward on the "mma" route's three kernels."""
+            every backward on the "wgmma" route's three kernels."""
             cfg = get_config(arch)
             cfg = cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
             whole = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
@@ -4819,13 +4962,13 @@ def shard_rank(rank: int, store: str, out_path: str) -> int:
             if not max(runs[control]["leaves"].values()) > tol:
                 fail(f"rank {rank}: the control '{control}' on {shape} meets {arch}'s gradient tolerance")
             rows_r = [TRAIN_BATCH // shape[0], TRAIN_SEQ, heads, cfg.ssm_head_dim]
-            mma = list(ssd.bwd_kernels("mma", torch.bfloat16, cfg.ssm_state))
+            route_kernels = list(ssd.bwd_kernels("wgmma", torch.bfloat16, cfg.ssm_state))
             if [list(f) for f in fwd] != [[rows_r, ssd.KERNELS[ssd.WGMMA]]] * (2 * cfg.n_layers):
                 fail(f"rank {rank}: {arch} train step on {shape} scanned {fwd[:2]}... ({len(fwd)}), "
                      f"{2 * cfg.n_layers} of {rows_r} on the wgmma route wanted")
-            if [list(b) for b in bwd] != [[rows_r, "mma", mma]] * cfg.n_layers or launched != cfg.n_layers:
+            if [list(b) for b in bwd] != [[rows_r, "wgmma", route_kernels]] * cfg.n_layers or launched != cfg.n_layers:
                 fail(f"rank {rank}: {arch} train step on {shape}: backward {bwd[:2]}... ({len(bwd)} recorded, "
-                     f"{launched} launched), {cfg.n_layers} of {rows_r} on the 'mma' route wanted")
+                     f"{launched} launched), {cfg.n_layers} of {rows_r} on the 'wgmma' route wanted")
             del mine, whole, plain
             torch.cuda.empty_cache()
 
@@ -4890,9 +5033,12 @@ def shard_scan_times(failures: list[str], smi: str) -> dict:
     ``ssd_scan_plain``, and dx, ddt, dA, dB and dC against
     ``ssd_scan_bwd_plain``, on the same inputs; then timed by the
     profiler's device time, beside the forward's ``mma.sync`` kernel
-    (``ssd_scan.mma_plan``) on the same inputs.  Fails unless the forward
-    ran the wgmma route's kernels (``ssd_scan.fwd_kernels``) and the
-    backward the ``"mma"`` route's.  Returns the readings by shape."""
+    (``ssd_scan.mma_plan``) and the backward's ``"mma"`` route (the
+    ``mma.sync`` chunk kernel) on the same inputs, and the backward given
+    the forward's states (``ssd_scan.ssd_scan_states``), which must give
+    the same bits.  Fails unless the forward ran the wgmma route's kernels
+    (``ssd_scan.fwd_kernels``) and the backward the ``"wgmma"`` route's.
+    Returns the readings by shape."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     bf16, out = torch.bfloat16, {}
     for model, whose, (b, l, h, p), n in SHARD_SCAN_SHAPES:
@@ -4908,31 +5054,44 @@ def shard_scan_times(failures: list[str], smi: str) -> dict:
             f_err = max(_agree("ssd_scan", desc, y, yp, None) / yp.float().abs().max().item(),
                         _agree("ssd_scan (state)", desc, st, stp, None) / stp.float().abs().max().item())
             del y, st, yp, stp
-            b_err = _hold_ssd_grads("ssd_scan_bwd", desc, ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk),
-                                    ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk=chunk), BF16_REL_TOL)
+            got = ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk)
+            b_err = _hold_ssd_grads("ssd_scan_bwd", desc, got, ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk=chunk),
+                                    BF16_REL_TOL)
+            h_in = ssd.ssd_scan_states(x, dt, A, B, C, chunk=chunk)[2]
+            if not all(torch.equal(u, v) for u, v in zip(got, ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk,
+                                                                                h_in=h_in))):
+                raise RuntimeError("the backward given the forward's states differs from the one that rebuilds them")
+            del got
         except RuntimeError as e:
             failures.append(f"{model} scan x {shape} against its plain version: {e}")
             f_err = b_err = float("nan")
+            h_in = None
         f_ms, f_ran = _device_ms(lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=chunk))
         mma_plan = ssd.mma_plan(b, h, p, n, chunk)
         mma_ms, _ = _device_ms(lambda: ssd.run_plan(x, dt, A, B, C, chunk, mma_plan))
         b_ms, b_ran = _device_ms(lambda: ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk))
+        b_mma_ms, _ = _device_ms(lambda: ssd.run_bwd_route(x, dt, A, B, C, dy, chunk=chunk, route="mma"))
+        b_carried_ms = None if h_in is None else _device_ms(
+            lambda: ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk, h_in=h_in))[0]
         out[f"{model} x {shape}"] = {"forward_ms": f_ms, "forward_mma_ms": mma_ms, "backward_ms": b_ms,
+                                     "backward_mma_ms": b_mma_ms, "backward_carried_ms": b_carried_ms,
+                                     "backward_ratio_to_mma": b_ms / b_mma_ms,
                                      "forward_rel_err": f_err, "backward_rel_err": b_err}
         f_fns = sorted({m.group(1) for k in f_ran if (m := SSD_FN.search(k))})
         b_fns = sorted({m.group(1) for k in b_ran if (m := SSD_BWD_FN.search(k))})
         print(f"[shard] {model} scan x {shape}, B/C [{b},{l},{n}] bf16 ({whose}): against the plain version, y and "
               f"state {f_err:.3e}, worst gradient {b_err:.3e} of max |plain| (tolerance {BF16_REL_TOL}); forward "
               f"{f_ms:.4f} ms {f_fns} (the mma.sync kernel's plan {mma_ms:.4f} ms), backward {b_ms:.4f} ms {b_fns} "
-              f"by the profiler's device time ({smi})")
+              f"(the 'mma' route {b_mma_ms:.4f} ms, given the forward's states {b_carried_ms} ms) by the profiler's "
+              f"device time ({smi})")
         want = sorted(ssd.fwd_kernels(ssd.plan(bf16, b, h, p, n, chunk, True), n))
         if f_fns != want:
             failures.append(f"{model} scan x {shape} ran {f_fns}, not the wgmma route's {want}")
-        if b_fns != sorted(ssd.bwd_kernels("mma", bf16, n)):
-            failures.append(f"{model} scan backward x {shape} ran {b_fns}, not the 'mma' route's kernels")
+        if b_fns != sorted(ssd.bwd_kernels("wgmma", bf16, n)):
+            failures.append(f"{model} scan backward x {shape} ran {b_fns}, not the 'wgmma' route's kernels")
         for f in failures[n0:]:
             print(f"[FAIL] {f}")
-        del x, dt, A, B, C, dy
+        del x, dt, A, B, C, dy, h_in
     torch.cuda.empty_cache()
     return out
 

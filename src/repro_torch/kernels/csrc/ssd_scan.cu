@@ -139,8 +139,11 @@
 // bwd_route).
 //
 // bf16 at chunk 64, p 64 and state width 64 or 128 with 16-byte-aligned
-// rows (both training shapes) takes the tensor-core route, three launches,
-// parallel over chunks.  Given the state entering a chunk, H_in, and the
+// rows (every training and mesh-rank shape) takes the wgmma route, three
+// launches, parallel over chunks; the mma route below is the same with the
+// chunk kernel on mma.sync, kept to be timed beside it (and described first,
+// since the wgmma route runs its states and sum kernels).  Given the state
+// entering a chunk, H_in, and the
 // gradient of the one leaving it, dH_out, a chunk's backward needs nothing
 // else of the other chunks: even <dH_out, H_out> at its last step is
 // exp(cum_last) <dH_out, H_in> + Sum (wend dt o (x . dH_out)) o B, from
@@ -174,10 +177,21 @@
 // - ssd_scan_bwd_mma_sum_kernel sums the groups' parts of dB and dC (fp32
 //   [b, l, h / group, n]) and the chunks' of dA in index order.  No
 //   atomics: two calls give the same bits.
-// What bounds the route (scripts/ssd_bwd_probe.py): the chunk kernel, 70%
-// of it; without its products it takes 57-59% of its time, without its
-// loads 87%: latency at one block of 8 warps an SM, shared memory allowing
-// no second (182,336 / 195,648 B at state 64 / 128).
+// What bounds the route (its part probes, PERF.md): the chunk kernel, 70% of it;
+// without its products it takes 57-59% of its time, without its loads 87%:
+// latency at one block of 8 warps an SM, shared memory allowing no second
+// (182,336 / 195,648 B at state 64 / 128).
+//
+// The wgmma route keeps the states and sum kernels and replaces the chunk
+// kernel by ssd_scan_bwd_chunk_kernel<N, TMA> (see its note below): every
+// product on wgmma from swizzled shared memory, two warpgroups each taking
+// half the columns of every product, the fp32 operands split into bf16
+// planes once a head by the whole block, products issued ahead of the
+// epilogues that wait on them.  Where the forward ran on its wgmma route
+// (the recomputed forward of a checkpointed layer), the backward reads the
+// forward's H_in (hbuf) instead of rebuilding it: the same states body on
+// the same inputs gives the same bits, and the states kernel then runs the
+// gradients' direction alone, half its blocks (ops.keeping_scan_states).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1213,17 +1227,6 @@ int launch_bwd(const void* x, const float* dt, const float* A, const void* B, co
 // The backward on the tensor cores: bf16, chunk 64, p 64, state width 64 or 128
 // ---------------------------------------------------------------------------
 
-// scripts/ssd_bwd_probe.py builds copies with -DSSD_BWD_PROBE=1 (no
-// products: every mma.sync of the three kernels dropped), 2 (no loads: the
-// streamed tiles, x or dy and B or C slices of the states kernel, x, dy, H
-// and dH of the chunk kernel, not copied in), 3 (no cross-block sum: dB's
-// and dC's parts not written, the sum kernel not launched) and 4 (no d(cum):
-// the chunk kernel's warp 0 skips its sum of the per-step parts, reverse
-// cumulative sum, ddt and dA), to show which part bounds the route; 0 ships.
-#ifndef SSD_BWD_PROBE
-#define SSD_BWD_PROBE 0
-#endif
-
 constexpr int BCL = 64;                   // the chunk
 constexpr int BP = 64;                    // p, the head dim
 constexpr int LDT = 64 + PAD;             // a row of a [64][64] bf16 tile in shared memory
@@ -1258,10 +1261,6 @@ constexpr int CH_PARTS = 2 * CH_TILES * 16 + 3 * 4 * 64 + 8;  // one head's per-
 __host__ __device__ constexpr int bwd_chunk_smem(int n) {
   return 2 * 64 * (n + PAD) * 2 + 2 * CH_STAGE + state_stages(n) * (64 * (n + 4) * 4 + 64 * (n + 8) * 4) +
          3 * TILE_BYTES + CH_TILES * 256 * 4 + (CH_THREADS / 32) * 4 * 64 * 4 + 2 * CH_PARTS * 4;
-}
-
-__device__ __forceinline__ void bmma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  if (SSD_BWD_PROBE != 1) mma_bf16(d, a, b0, b1);
 }
 
 // Fragments of mma.sync m16n8k16 from bf16 tiles in shared memory (rows of `ld` elements).
@@ -1394,7 +1393,7 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
         tma_load_4d(Xs, map_x, bar(stage), pt * BP, hi, l0, bi);
         tma_load_4d(Ys, map_B, bar(stage), n0, 0, l0, bi);
       }
-    } else if (SSD_BWD_PROBE != 2) {
+    } else {
       for (int e = tid; e < 64 * 8; e += ST_THREADS) {
         const int r = e / 8, off = r * 128 + (((e % 8) ^ (r % 8)) << 4);
         cp_async16(Xs + off, X + (l0 + r) * sXl + e % 8 * 8, 16);
@@ -1469,9 +1468,8 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
     for (int kk = 0; kk < BCL / 16; ++kk)
 #pragma unroll
       for (int k = TERMS - 1; k >= 0; --k)
-        if (SSD_BWD_PROBE != 1)
-          wgmma_m64n64k16_bf16<1, 1>(acc, wgmma_desc_sw128(Xs + 2048 * kk, ST_TILE, 1024),
-                                     wgmma_desc_sw128(planes + k * ST_TILE + 2048 * kk, ST_TILE, 1024), 1);
+        wgmma_m64n64k16_bf16<1, 1>(acc, wgmma_desc_sw128(Xs + 2048 * kk, ST_TILE, 1024),
+                                   wgmma_desc_sw128(planes + k * ST_TILE + 2048 * kk, ST_TILE, 1024), 1);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_fence_operand(acc);
@@ -1480,15 +1478,17 @@ __device__ __forceinline__ void states_mma(const bf16* __restrict__ x, const flo
   if (!grads && last != nullptr) store(last + bh * slot + rows, acc);
 }
 
-// The backward's states, one block per (b, h, SLICE state columns, direction) (p is 64).
+// The backward's states, one block per (b, h, SLICE state columns, direction) (p is 64); with dirs 1, the
+// gradients' direction alone (the wgmma route given the forward's states in hbuf).
 template <int N>
 __global__ void __launch_bounds__(ST_THREADS)
 ssd_scan_bwd_states_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
                                const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
                                const float* __restrict__ dstate, float* __restrict__ hbuf, float* __restrict__ dhbuf,
-                               BwdShape s) {
-  states_mma<N, false>(x, dt, A, Bm, Cm, dy, dstate, hbuf, dhbuf, nullptr, nullptr, nullptr, s, BP, blockIdx.x % 2,
-                       (blockIdx.x / 2) % (N / SLICE) * SLICE, 0, blockIdx.x / (2 * (N / SLICE)));
+                               BwdShape s, int dirs) {
+  const int u = blockIdx.x / dirs;
+  states_mma<N, false>(x, dt, A, Bm, Cm, dy, dstate, hbuf, dhbuf, nullptr, nullptr, nullptr, s, BP,
+                       dirs == 2 ? blockIdx.x % 2 : 1, u % (N / SLICE) * SLICE, 0, u / (N / SLICE));
 }
 
 // Each chunk's backward, one block per (b, chunk c, group of s.hg heads), given the state entering the
@@ -1560,16 +1560,14 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
     float* Ds = reinterpret_cast<float*>(Ys + 64 * LDT);
     const bf16* xs = x + bi * s.sxb + l0 * s.sxl + hi * s.sxh;
     const bf16* ys = dy + bi * s.syb + l0 * s.syl + hi * s.syh;
-    if (SSD_BWD_PROBE != 2)
-      for (int e = tid; e < 64 * (BP / 8); e += CH_THREADS) {
-        const int r = e / (BP / 8), col = (e % (BP / 8)) * 8;
-        cp_async16(Xs + r * LDT + col, xs + r * s.sxl + col, 16);
-        cp_async16(Ys + r * LDT + col, ys + r * s.syl + col, 16);
-      }
+    for (int e = tid; e < 64 * (BP / 8); e += CH_THREADS) {
+      const int r = e / (BP / 8), col = (e % (BP / 8)) * 8;
+      cp_async16(Xs + r * LDT + col, xs + r * s.sxl + col, 16);
+      cp_async16(Ys + r * LDT + col, ys + r * s.syl + col, 16);
+    }
     if (tid < 64) cp_async4(Ds + tid, dt + bi * s.sdb + (l0 + tid) * s.sdl + hi * s.sdh);
   };
   auto load_states = [&](int hi, int buf) {
-    if (SSD_BWD_PROBE == 2) return;
     const long long slot = (long long)bi * s.h + hi;
     const float* hsrc = hbuf + (slot * nc + c) * BP * N;
     const float* dsrc = c < nc - 1 ? dhbuf + (slot * nc + c) * BP * N : dstate + slot * BP * N;
@@ -1584,7 +1582,6 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
   // d(cum) of head j's steps lane and lane + 32 by warp CW from the head's partials and its own factors,
   // its reverse cumulative sum, ddt and dA's part
   auto dcum = [&](int j) {
-    if (SSD_BWD_PROBE == 4) return;
     const int hi = grp * s.hg + j;
     float *rowM, *colM, *yoffp, *supdp, *ddirp, *carryp;
     partials(j, rowM, colM, yoffp, supdp, ddirp, carryp);
@@ -1650,8 +1647,8 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
       uint32_t af[4], bf[4];
       frag_a(af, Cs, LDN, 16 * r, 16 * kk, lane);
       frag_b(bf, Bs, LDN, 16 * kk, 16 * q, lane);
-      bmma(G[0], af, bf[0], bf[1]);
-      bmma(G[1], af, bf[2], bf[3]);
+      mma_bf16(G[0], af, bf[0], bf[1]);
+      mma_bf16(G[1], af, bf[2], bf[3]);
     }
     Gf[tile * 64 + lane] = make_float4(G[0][0], G[0][1], G[0][2], G[0][3]);
     Gf[tile * 64 + 32 + lane] = make_float4(G[1][0], G[1][1], G[1][2], G[1][3]);
@@ -1699,8 +1696,8 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
         uint32_t af[4], bf[4];
         frag_a(af, Ys, LDT, 16 * r, 16 * kk, lane);
         frag_b(bf, Xs, LDT, 16 * kk, 16 * q, lane);
-        bmma(S[0], af, bf[0], bf[1]);
-        bmma(S[1], af, bf[2], bf[3]);
+        mma_bf16(S[0], af, bf[0], bf[1]);
+        mma_bf16(S[1], af, bf[2], bf[3]);
       }
       const float4 g0 = Gf[tile * 64 + lane], g1 = Gf[tile * 64 + 32 + lane];
       const float G[2][4] = {{g0.x, g0.y, g0.z, g0.w}, {g1.x, g1.y, g1.z, g1.w}};
@@ -1754,8 +1751,8 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
         for (int i = TERMS - 1; i >= 0; --i) {
           uint32_t af[4];
           frag_at(af, planes + i * 64 * LDT, LDT, 16 * rt[ri], 16 * kk, lane);
-          bmma(Dc[ri][0], af, yb[0], yb[1]);
-          bmma(Dc[ri][1], af, yb[2], yb[3]);
+          mma_bf16(Dc[ri][0], af, yb[0], yb[1]);
+          mma_bf16(Dc[ri][1], af, yb[2], yb[3]);
         }
       }
     if (SST == 1) {
@@ -1782,7 +1779,7 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-            for (int i = TERMS - 1; i >= 0; --i) bmma(Dd[ri][nt], af, bd[nt][0][i], bd[nt][1][i]);
+            for (int i = TERMS - 1; i >= 0; --i) mma_bf16(Dd[ri][nt], af, bd[nt][0][i], bd[nt][1][i]);
         }
       }
     }
@@ -1834,7 +1831,7 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int i = TERMS - 1; i >= 0; --i) bmma(E[ri][nt], af, bh[nt][0][i], bh[nt][1][i]);
+            for (int i = TERMS - 1; i >= 0; --i) mma_bf16(E[ri][nt], af, bh[nt][0][i], bh[nt][1][i]);
         }
       }
 #pragma unroll
@@ -1879,7 +1876,7 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int i = TERMS - 1; i >= 0; --i) bmma(F[ri][nt], af, bh[nt][0][i], bh[nt][1][i]);
+            for (int i = TERMS - 1; i >= 0; --i) mma_bf16(F[ri][nt], af, bh[nt][0][i], bh[nt][1][i]);
         }
       }
 #pragma unroll
@@ -1938,8 +1935,8 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
           frag_bt(bb, Bs, LDN, 16 * kk, NQ * cq + 16 * np, lane);
 #pragma unroll
           for (int pl = TERMS - 1; pl >= 0; --pl) {
-            bmma(dCt[ri][2 * np], af[pl], bb[0], bb[1]);
-            bmma(dCt[ri][2 * np + 1], af[pl], bb[2], bb[3]);
+            mma_bf16(dCt[ri][2 * np], af[pl], bb[0], bb[1]);
+            mma_bf16(dCt[ri][2 * np + 1], af[pl], bb[2], bb[3]);
           }
         }
       }
@@ -1951,25 +1948,23 @@ ssd_scan_bwd_chunk_mma_kernel(const bf16* __restrict__ x, const float* __restric
           frag_bt(bb, Cs, LDN, 16 * kk, NQ * cq + 16 * np, lane);
 #pragma unroll
           for (int pl = TERMS - 1; pl >= 0; --pl) {
-            bmma(dBt[ri][2 * np], af[pl], bb[0], bb[1]);
-            bmma(dBt[ri][2 * np + 1], af[pl], bb[2], bb[3]);
+            mma_bf16(dBt[ri][2 * np], af[pl], bb[0], bb[1]);
+            mma_bf16(dBt[ri][2 * np + 1], af[pl], bb[2], bb[3]);
           }
         }
       }
     }
-  if (SSD_BWD_PROBE != 3) {
 #pragma unroll
-    for (int ri = 0; ri < 2; ++ri)
+  for (int ri = 0; ri < 2; ++ri)
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
+    for (int half = 0; half < 2; ++half)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int row = 16 * rt[ri] + g + 8 * half, col = NQ * cq + 8 * nt + 2 * t;
-          const long long at = ((bi * (long long)s.l + l0 + row) * groups + grp) * N + col;
-          *reinterpret_cast<float2*>(pdC + at) = make_float2(dCt[ri][nt][2 * half], dCt[ri][nt][2 * half + 1]);
-          *reinterpret_cast<float2*>(pdB + at) = make_float2(dBt[ri][nt][2 * half], dBt[ri][nt][2 * half + 1]);
-        }
-  }
+      for (int nt = 0; nt < NT; ++nt) {
+        const int row = 16 * rt[ri] + g + 8 * half, col = NQ * cq + 8 * nt + 2 * t;
+        const long long at = ((bi * (long long)s.l + l0 + row) * groups + grp) * N + col;
+        *reinterpret_cast<float2*>(pdC + at) = make_float2(dCt[ri][nt][2 * half], dCt[ri][nt][2 * half + 1]);
+        *reinterpret_cast<float2*>(pdB + at) = make_float2(dBt[ri][nt][2 * half], dBt[ri][nt][2 * half + 1]);
+      }
   cp_async_wait<0>();
 }
 
@@ -2011,13 +2006,13 @@ int launch_bwd_mma(const bf16* x, const float* dt, const float* A, const bf16* B
     err = cudaFuncSetAttribute(ssd_scan_bwd_chunk_mma_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, ch_smem);
   if (err != cudaSuccess) return (int)err;
   ssd_scan_bwd_states_mma_kernel<N><<<(unsigned)(s.b * s.h * (N / SLICE) * 2), ST_THREADS, st_smem, stream>>>(
-      x, dt, A, B, C, dy, dstate, hbuf, dhbuf, s);
+      x, dt, A, B, C, dy, dstate, hbuf, dhbuf, s, 2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ssd_scan_bwd_chunk_mma_kernel<N><<<(unsigned)(s.b * nc * groups), CH_THREADS, ch_smem, stream>>>(
       x, dt, A, B, C, dy, dstate, hbuf, dhbuf, dx, ddt, pdB, pdC, pdA, s);
   err = cudaGetLastError();
-  if (err != cudaSuccess || SSD_BWD_PROBE == 3) return (int)err;
+  if (err != cudaSuccess) return (int)err;
   const long long total = (long long)s.b * s.l * s.n + s.h;
   ssd_scan_bwd_mma_sum_kernel<bf16><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       pdB, pdC, pdA, dB, dC, dA, s.b, s.l, s.h, s.n, groups, nc);
@@ -2303,6 +2298,671 @@ int launch_fwd_wgmma(const void* x, const float* dt, const float* A, const void*
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward's chunk kernel on wgmma: chunk 64, p 64, state width 64 or 128
+// ---------------------------------------------------------------------------
+
+constexpr int BW_THREADS = 256;  // two warpgroups
+constexpr int BW_CW = 7;         // the warp that sums d(cum)
+// One head's per-step partials, in floats: M's row sums per warpgroup [2][64] and its column sums per warp of
+// a warpgroup [4][64]; Sum_n exp(cum) (dy.H) o C per 64 state columns [2][64]; Sum_p x o (B.dH^T) and
+// Sum_p dxdt o x per warpgroup [2][64] each; the carry per warp [8].
+constexpr int BW_PARTS = 2 * 64 + 4 * 64 + 2 * 64 + 2 * 64 + 2 * 64 + 8;
+
+// The descriptors of a swizzled tile's k16 steps (kdesc, mndesc) as one base and constant offsets.  The base
+// passes through an empty asm where the product is issued, so the compiler cannot hoist the dozens of
+// descriptors the head loop's products use out of it, where they took registers from the accumulators.
+struct Tile {
+  uint64_t d;
+  __device__ __forceinline__ uint64_t k(int kk) const { return d + (((kk / 4) * FBOX + 32 * (kk % 4)) >> 4); }
+  __device__ __forceinline__ uint64_t mn(int kk) const { return d + ((2048 * kk) >> 4); }
+};
+__device__ __forceinline__ Tile ktile(const unsigned char* tile) {
+  uint64_t d = wgmma_desc_sw128(tile, 16, 1024);
+  asm volatile("" : "+l"(d));
+  return {d};
+}
+__device__ __forceinline__ Tile mntile(const unsigned char* tile) {
+  uint64_t d = wgmma_desc_sw128(tile, FBOX, 1024);
+  asm volatile("" : "+l"(d));
+  return {d};
+}
+
+// The chunk kernel's shared memory: alignment slack; C and B (n / 64 boxes each); a 2-stage ring of x and dy
+// boxes; TERMS planes of the [64, 64] tile (C.B^T) o L, then Sum W; TERMS planes of H and of dH (n / 64 boxes
+// each); dx's box for its TMA store; C.B^T in each thread's fragment order (fp32); three barriers and a pad;
+// dt of the group's heads; each warp's factors (cum, exp(cum), exp(cum_last - cum)); two heads' partials.
+__host__ __device__ constexpr int bwd_wgmma_smem(int n, int hg) {
+  return 1024 + (2 * (n / 64) + 4 + 3 + 6 * (n / 64) + 1) * FBOX + 16 * BW_THREADS * 4 + 4 * 8 +
+         hg * 64 * 4 + (BW_THREADS / 32) * 3 * 64 * 4 + 2 * BW_PARTS * 4;
+}
+
+// Each chunk's backward on wgmma, one block of two warpgroups per (b, chunk c, group of s.hg heads), given
+// the state entering the chunk (hbuf: the forward's, or the states kernel's; zero for the first chunk) and
+// the gradient of the one leaving it (dhbuf; dstate, or zero, for the last): the function of
+// ssd_scan_bwd_chunk_mma_kernel, which the source note of the backward sets out, with every product on
+// wgmma from shared memory in the 128-byte swizzle.  x, dy, B and C are used as stored (by TMA from the
+// maps, or with TMA false by cp.async into the same layout: rows with a zero stride); the fp32 operands,
+// (C.B^T) o L, H, dH and Sum W, enter as TERMS bf16 planes, split once a head by the whole block; nothing
+// is an A fragment in registers.  Each warpgroup takes half the columns of every [64, 64] product (s of
+// dy.x^T, p of dxdt's two) and, of the [64, n] ones, 64 columns of both (state 128) or one whole (state 64:
+// warpgroup 0 dy.H and dC, warpgroup 1 x.dH and dB), so every elementwise phase runs on all 8 warps.  Per
+// head: dy.x^T is issued first, and while it runs the block splits H and dH (brought to L2 during the
+// head before), warp 7 sums the last head's d(cum) and every warp scans the chunk's decays; then W, M's
+// sums and (C.B^T) o L into planes; then ((C.B^T) o L)^T.dy, B.dH^T and dy.H / x.dH issued before the
+// first two's epilogue (dx, through a swizzled tile and a TMA store) and waited one group behind.  Each
+// product sums its terms smallest first in one accumulator, as the mma.sync kernel does.  At state 128 the
+// [64, n] products run in halves of 32 columns, one half in flight while the last is read, and the k16
+// loops of the large products are not unrolled: whole, their accumulators and descriptors spilled at 255
+// registers (scripts/ssd_bwd_probe.py, PERF.md).  Tried and dropped (same script): B.dH^T and dy.H issued
+// before W's epilogue behind a third barrier, and at state 64 a second set of H and dH planes split for
+// the next head while this head's products ran (both no faster or slower); Sum W in shared memory with
+// C.B^T recomputed a head; the state's fp32 staged by bulk copies.
+template <int N, bool TMA>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+ssd_scan_bwd_chunk_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_dy,
+                          const __grid_constant__ CUtensorMap map_B, const __grid_constant__ CUtensorMap map_C,
+                          const __grid_constant__ CUtensorMap map_dx,
+                          const bf16* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+                          const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                          const float* __restrict__ dstate, const float* __restrict__ hbuf,
+                          const float* __restrict__ dhbuf, bf16* __restrict__ dx, float* __restrict__ ddt,
+                          float* __restrict__ pdB, float* __restrict__ pdC, float* __restrict__ pdA, BwdShape s) {
+  constexpr int NB = N / 64, PIECES = N / 32, ITEMS = N / 64;  // boxes of a row; H's 8-float pieces a thread
+  constexpr int AT_ONCE = N == 128 ? 1 : 2;  // H's and dH's pieces a thread loads at once (registers at 128)
+  static_assert(N == 64 || N == 128, "state width 64 or 128");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* Cs = base;
+  unsigned char* Bs = Cs + NB * FBOX;
+  unsigned char* ring = Bs + NB * FBOX;  // [stage][x, dy]
+  unsigned char* Wp = ring + 4 * FBOX;   // TERMS planes of (C.B^T) o L, at the end of Sum W
+  unsigned char* Hp = Wp + 3 * FBOX;     // TERMS planes of H [64 p][n], then of dH, NB boxes each
+  unsigned char* Dxs = Hp + 6 * NB * FBOX;  // dx's tile, swizzled, for its TMA store
+  float4* Gs = reinterpret_cast<float4*>(Dxs + FBOX);                 // [4][thread]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Gs + 4 * BW_THREADS);  // B and C; the ring's two
+  float* Dall = reinterpret_cast<float*>(bars + 4);                   // [hg][64] dt
+  float* fac = Dall + s.hg * 64;
+  float* parts = fac + (BW_THREADS / 32) * 3 * 64;  // two heads' partials, by parity
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  // the warpgroup, broadcast so the compiler knows it is warp-uniform: wgmma under a branch it cannot
+  // prove uniform is serialised
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), row = 16 * (warp % 4) + g;  // rows row, row + 8
+  const int groups = s.h / s.hg, nc = s.l / BCL;
+  const int grp = blockIdx.x % groups, c = blockIdx.x / groups % nc, bi = blockIdx.x / (groups * nc);
+  const int h0 = grp * s.hg, l0 = c * BCL;
+  const bool has_h = c > 0, has_dh = c < nc - 1 || dstate != nullptr;
+  const int box = N == 128 ? wg : 0;  // the 64 state columns of this warpgroup's [64, n] products
+  float* cum = fac + warp * 3 * 64;
+  float* ecum = cum + 64;
+  float* wend = ecum + 64;
+  // item i of this warpgroup's [64, n] products: dy.H (dC's part) or x.dH (dB's)
+  auto is_e = [&](int i) { return N == 128 ? i == 0 : wg == 0; };
+  auto h_src = [&](int j) { return hbuf + (((long long)bi * s.h + h0 + j) * nc + c) * BP * N; };
+  auto dh_src = [&](int j) {
+    const long long bh = (long long)bi * s.h + h0 + j;
+    return c < nc - 1 ? dhbuf + (bh * nc + c) * BP * N : dstate + bh * BP * N;
+  };
+  auto prefetch_states = [&](int j) {  // head j's H and dH into L2 (one thread)
+    if (has_h) prefetch_l2(h_src(j), BP * N * 4);
+    if (has_dh) prefetch_l2(dh_src(j), BP * N * 4);
+  };
+  // head j's x and dy into stage j % 2 (swizzled: row r's 16-byte pieces XOR-ed with r % 8, as TMA lays them)
+  auto load_x = [&](int j) {
+    unsigned char* Xs = ring + (j % 2) * 2 * FBOX;
+    unsigned char* Ys = Xs + FBOX;
+    const int hi = h0 + j;
+    if (TMA) {
+      if (tid == 0) {
+        mbar_arrive_expect_tx(&bars[1 + j % 2], 2 * FBOX);
+        tma_load_4d(Xs, &map_x, &bars[1 + j % 2], 0, hi, l0, bi);
+        tma_load_4d(Ys, &map_dy, &bars[1 + j % 2], 0, hi, l0, bi);
+      }
+    } else {
+      const bf16* xs = x + bi * s.sxb + (long long)l0 * s.sxl + hi * s.sxh;
+      const bf16* ys = dy + bi * s.syb + (long long)l0 * s.syl + hi * s.syh;
+      for (int e = tid; e < 64 * 8; e += BW_THREADS) {
+        const int r = e / 8, off = r * 128 + (((e % 8) ^ (r % 8)) << 4);
+        cp_async16(Xs + off, xs + r * s.sxl + e % 8 * 8, 16);
+        cp_async16(Ys + off, ys + r * s.syl + e % 8 * 8, 16);
+      }
+    }
+  };
+  // d(cum) of head j's steps lane and lane + 32 by warp BW_CW from the head's partials and its own factors
+  // (not yet replaced by the next head's), its reverse cumulative sum, ddt and dA's part
+  auto dcum = [&](int j) {
+    const int hi = h0 + j;
+    const float* part = parts + (j % 2) * BW_PARTS;
+    const float *rowM = part, *colM = rowM + 128, *yoffp = colM + 256, *supdp = yoffp + 128, *ddirp = supdp + 128,
+                *carryp = ddirp + 128;
+    const float* Dj = Dall + j * 64;
+    float dc[2], di[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int l = lane + 32 * v;
+      const float rows = rowM[l] + rowM[64 + l];
+      const float cols = colM[l] + colM[64 + l] + colM[128 + l] + colM[192 + l];
+      float yo = 0.f;
+      if (has_h)
+#pragma unroll
+        for (int k = 0; k < NB; ++k) yo += yoffp[k * 64 + l];
+      dc[v] = rows - cols + yo - wend[l] * Dj[l] * (supdp[l] + supdp[64 + l]);
+      di[v] = ddirp[l] + ddirp[64 + l];
+    }
+    float carry_all = 0.f;
+    for (int w = 0; w < BW_THREADS / 32; ++w) carry_all += carryp[w];
+    if (lane == 31) dc[1] += carry_all;  // the chunk's last step
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_down_sync(0xffffffffu, dc[0], off), u1 = __shfl_down_sync(0xffffffffu, dc[1], off);
+      if (lane + off < 32) {
+        dc[0] += u0;
+        dc[1] += u1;
+      }
+    }
+    dc[0] += __shfl_sync(0xffffffffu, dc[1], 0);
+    const float a_h = A[hi];
+    float* drow = ddt + (bi * (long long)s.l + l0 + lane) * s.h + hi;
+    drow[0] = dc[0] * a_h + di[0];
+    drow[32LL * s.h] = dc[1] * a_h + di[1];
+    const float da = warp_sum(dc[0] * Dj[lane] + dc[1] * Dj[lane + 32]);
+    if (lane == 0) pdA[(bi * (long long)nc + c) * s.h + hi] = da;
+  };
+
+  if (TMA) {
+    if (tid == 0) {
+      for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&bars[0], 2 * NB * FBOX);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        tma_load_4d(Cs + nb * FBOX, &map_C, &bars[0], 64 * nb, 0, l0, bi);
+        tma_load_4d(Bs + nb * FBOX, &map_B, &bars[0], 64 * nb, 0, l0, bi);
+      }
+    }
+  } else {
+    for (int e = tid; e < 64 * (N / 8); e += BW_THREADS) {
+      const int r = e / (N / 8), q = e % (N / 8), off = q / 8 * FBOX + r * 128 + (((q % 8) ^ (r % 8)) << 4);
+      cp_async16(Bs + off, Bm + bi * s.sBb + (long long)(l0 + r) * s.sBl + q * 8, 16);
+      cp_async16(Cs + off, Cm + bi * s.sCb + (long long)(l0 + r) * s.sCl + q * 8, 16);
+    }
+  }
+  load_x(0);
+  for (int e = tid; e < s.hg * 64; e += BW_THREADS)
+    cp_async4(Dall + e, dt + bi * s.sdb + (long long)(l0 + e % 64) * s.sdl + (long long)(h0 + e / 64) * s.sdh);
+  cp_async_commit();
+  if (tid == 0) prefetch_states(0);
+  cp_async_wait<0>();
+  fence_proxy_async_shared();  // what cp.async wrote, to the async proxy the wgmma read through
+  if (TMA) mbar_wait(&bars[0], 0);
+  __syncthreads();
+
+  {  // G = C.B^T on this warpgroup's 32 columns of s, kept in shared memory for every head
+    float G[16];
+    wgmma_fence();
+    const Tile c = ktile(Cs), b = ktile(Bs + 4096 * wg);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) wgmma_m64n32k16_bf16<0, 0>(G, c.k(kk), b.k(kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_operand(G);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Gs[i * BW_THREADS + tid] = make_float4(G[4 * i], G[4 * i + 1], G[4 * i + 2], G[4 * i + 3]);
+  }
+  float Wsum[16] = {};      // Sum W over the group's heads, this warpgroup's columns
+  float acc[ITEMS][32] = {};  // the group's dC or dB on this warpgroup's items
+
+  // head j's H and dH into their planes (rows p, state columns in 64-wide boxes); returns this thread's
+  // share of <dH, H>
+  auto split = [&](int j) {
+    float hh = 0.f;
+    if (!(has_h || has_dh)) return hh;
+    const float* hs = h_src(j);
+    const float* ds = dh_src(j);
+    unsigned char* hp = Hp;
+    unsigned char* dhp = Hp + 3 * NB * FBOX;
+#pragma unroll 1
+    for (int i0 = 0; i0 < PIECES; i0 += AT_ONCE) {
+      float4 hv[AT_ONCE][2], dv[AT_ONCE][2];
+#pragma unroll
+      for (int i = 0; i < AT_ONCE; ++i) {
+        const int e = tid + (i0 + i) * BW_THREADS;
+        const long long at = (long long)(e / (N / 8)) * N + e % (N / 8) * 8;
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        hv[i][0] = has_h ? __ldcg(reinterpret_cast<const float4*>(hs + at)) : z;
+        hv[i][1] = has_h ? __ldcg(reinterpret_cast<const float4*>(hs + at) + 1) : z;
+        dv[i][0] = has_dh ? __ldcg(reinterpret_cast<const float4*>(ds + at)) : z;
+        dv[i][1] = has_dh ? __ldcg(reinterpret_cast<const float4*>(ds + at) + 1) : z;
+      }
+#pragma unroll
+      for (int i = 0; i < AT_ONCE; ++i) {
+        const int e = tid + (i0 + i) * BW_THREADS, r = e / (N / 8), q = e % (N / 8);
+        const int off = q / 8 * FBOX + r * 128 + (((q % 8) ^ (r % 8)) << 4);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          hh += hv[i][u].x * dv[i][u].x + hv[i][u].y * dv[i][u].y + hv[i][u].z * dv[i][u].z + hv[i][u].w * dv[i][u].w;
+        uint32_t sh[4][TERMS], sd[4][TERMS];
+        split_pair(hv[i][0].x, hv[i][0].y, sh[0]);
+        split_pair(hv[i][0].z, hv[i][0].w, sh[1]);
+        split_pair(hv[i][1].x, hv[i][1].y, sh[2]);
+        split_pair(hv[i][1].z, hv[i][1].w, sh[3]);
+        split_pair(dv[i][0].x, dv[i][0].y, sd[0]);
+        split_pair(dv[i][0].z, dv[i][0].w, sd[1]);
+        split_pair(dv[i][1].x, dv[i][1].y, sd[2]);
+        split_pair(dv[i][1].z, dv[i][1].w, sd[3]);
+#pragma unroll
+        for (int k = 0; k < TERMS; ++k) {
+          if (has_h)
+            *reinterpret_cast<uint4*>(hp + k * NB * FBOX + off) = make_uint4(sh[0][k], sh[1][k], sh[2][k], sh[3][k]);
+          if (has_dh)
+            *reinterpret_cast<uint4*>(dhp + k * NB * FBOX + off) = make_uint4(sd[0][k], sd[1][k], sd[2][k], sd[3][k]);
+        }
+      }
+    }
+    return hh;
+  };
+  for (int j = 0; j < s.hg; ++j) {
+    const int hi = h0 + j;
+    const unsigned char* Xs = ring + (j % 2) * 2 * FBOX;
+    const unsigned char* Ys = Xs + FBOX;
+    const unsigned char* Hc = Hp;  // this head's planes of H, then of dH
+    const unsigned char* dHc = Hp + 3 * NB * FBOX;
+    const float* Ds = Dall + j * 64;
+    float* part = parts + (j % 2) * BW_PARTS;
+    float *rowM = part, *colM = rowM + 128, *yoffp = colM + 256, *supdp = yoffp + 128, *ddirp = supdp + 128,
+          *carryp = ddirp + 128;
+    if (!TMA) cp_async_wait<0>();
+    fence_proxy_async_shared();  // x and dy (cp.async)
+    __syncthreads();  // ... have landed; every warp is done with head j - 1
+    if (tid == 0 && j > 0) {  // the last head's dx, from its tile
+      tma_store_4d(&map_dx, Dxs, 0, hi - 1, l0, bi);
+      tma_store_commit();
+    }
+    if (j + 1 < s.hg) load_x(j + 1);
+    cp_async_commit();
+    if (tid == 0 && j + 1 < s.hg) prefetch_states(j + 1);
+    if (TMA) mbar_wait(&bars[1 + j % 2], (j / 2) & 1);
+
+    // S = dy.x^T on this warpgroup's 32 columns of s
+    float S[16];
+    wgmma_fence();
+    {
+      const Tile a = ktile(Ys), b = ktile(Xs + 4096 * wg);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n32k16_bf16<0, 0>(S, a.k(kk), b.k(kk), kk > 0);
+    }
+    wgmma_commit();
+    const float hh = split(j);  // this head's planes, while dy.x^T runs
+    // B . dH^T on this warpgroup's 32 columns of p
+    float Dd[16];
+    auto issue_dd = [&] {
+      if (has_dh) {
+        const Tile a = ktile(Bs), b = ktile(dHc + 4096 * wg);
+#pragma unroll 1
+        for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+          for (int k = TERMS - 1; k >= 0; --k)
+            wgmma_m64n32k16_bf16<0, 0>(Dd, a.k(kk), b.k(kk) + k * NB * FBOX / 16, kk > 0 || k < TERMS - 1);
+      }
+      wgmma_commit();
+    };
+    // an item's product, [64, 64] on state columns 64 box..: dy.H (e) or x.dH, H or dH MN-major
+    auto issue = [&](bool e, float(&T)[32]) {
+      if (e ? has_h : has_dh) {
+        const Tile a = ktile(e ? Ys : Xs), b = mntile((e ? Hc : dHc) + box * FBOX);
+#pragma unroll 1
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int k = TERMS - 1; k >= 0; --k)
+            wgmma_m64n64k16_bf16<0, 1>(T, a.k(kk), b.mn(kk) + k * NB * FBOX / 16, kk > 0 || k < TERMS - 1);
+      }
+      wgmma_commit();
+    };
+    // an item's product on 32 state columns 64 box + 32 hf.., and its epilogue: the same in halves, so that
+    // one half's accumulators are in flight while the other's are read
+    auto issue_half = [&](bool e, float(&T)[16], int hf) {
+      if (e ? has_h : has_dh) {
+        const Tile a = ktile(e ? Ys : Xs), b = mntile((e ? Hc : dHc) + box * FBOX + 64 * hf);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int k = TERMS - 1; k >= 0; --k)
+            wgmma_m64n32k16_bf16<0, 1>(T, a.k(kk), b.mn(kk) + k * NB * FBOX / 16, kk > 0 || k < TERMS - 1);
+      }
+      wgmma_commit();
+    };
+    float T0[32];
+    if (warp == BW_CW && j > 0) dcum(j - 1);
+    const float last = scan_chunk64(Ds, A[hi], cum, ecum, wend, lane);
+    wgmma_wait<0>();
+    wgmma_fence_operand(S);
+
+    // W = S o L o dt_s, Sum W, M = (C.B^T) o W's row and column sums, (C.B^T) o L into the planes
+    {
+      float G[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = Gs[i * BW_THREADS + tid];
+        G[4 * i] = v.x;
+        G[4 * i + 1] = v.y;
+        G[4 * i + 2] = v.z;
+        G[4 * i + 3] = v.w;
+      }
+      float rows[2] = {0.f, 0.f}, cols[4][2] = {};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = 32 * wg + 8 * q + 2 * t;
+        float gl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = row + 8 * (e / 2), cc = col + e % 2;
+          const float L = cc <= rr ? expf(cum[rr] - cum[cc]) : 0.f;  // masked before the exp
+          const float w = S[4 * q + e] * L * Ds[cc];
+          const float m = G[4 * q + e] * w;
+          Wsum[4 * q + e] += w;
+          rows[e / 2] += m;
+          cols[q][e % 2] += m;
+          gl[e] = G[4 * q + e] * L;
+        }
+        uint32_t lo[TERMS], up[TERMS];
+        split_pair(gl[0], gl[1], lo);
+        split_pair(gl[2], gl[3], up);
+        const int o0 = row * 128 + (((col / 8) ^ (row % 8)) << 4) + (col % 8) * 2;
+        const int o1 = (row + 8) * 128 + (((col / 8) ^ ((row + 8) % 8)) << 4) + (col % 8) * 2;
+#pragma unroll
+        for (int k = 0; k < TERMS; ++k) {
+          *reinterpret_cast<uint32_t*>(Wp + k * FBOX + o0) = lo[k];
+          *reinterpret_cast<uint32_t*>(Wp + k * FBOX + o1) = up[k];
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {  // over the warpgroup's 32 columns: the 4 lanes of a row, then its q
+        rows[v] += __shfl_xor_sync(0xffffffffu, rows[v], 1);
+        rows[v] += __shfl_xor_sync(0xffffffffu, rows[v], 2);
+      }
+      if (t == 0) {
+        rowM[wg * 64 + row] = rows[0];
+        rowM[wg * 64 + row + 8] = rows[1];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // over the warp's 16 rows: the 8 lanes of a column
+          float v = cols[q][e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) colM[(warp % 4) * 64 + 32 * wg + 8 * q + 2 * t + e] = v;
+        }
+    }
+    if (tid == 0) tma_store_wait_read<0>();  // the last head's dx has left its tile
+    fence_proxy_async_shared();
+    __syncthreads();  // the planes of (C.B^T) o L, H and dH are whole
+
+    // ((C.B^T) o L)^T . dy on this warpgroup's 32 columns of p
+    float Dc[16];
+    wgmma_fence();
+    {
+      const Tile a = mntile(Wp), b = mntile(Ys + 64 * wg);
+#pragma unroll 1
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int k = TERMS - 1; k >= 0; --k)
+          wgmma_m64n32k16_bf16<1, 1>(Dc, a.mn(kk) + k * FBOX / 16, b.mn(kk), kk > 0 || k < TERMS - 1);
+    }
+    wgmma_commit();
+    float Ta[16], Tb[16];  // state 128: each item's product in halves of 32 columns
+    issue_dd();
+    if (ITEMS == 2)
+      issue_half(is_e(0), Ta, 0);
+    else
+      issue(is_e(0), T0);
+    float carry = 0.f;  // this thread's share of <dH, H_out>
+    // dC += exp(cum) o (dy . H) and its per-step dot with C; dB += wend dt o (x . dH) and its dot with B
+    auto finish = [&](bool e, float(&T)[32], float(&a)[32]) {
+      if (!(e ? has_h : has_dh)) return;
+      const unsigned char* other = (e ? Cs : Bs) + box * FBOX;
+      float dot[2] = {0.f, 0.f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row + 8 * half;
+        const float f = e ? ecum[r] : wend[r] * Ds[r];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float v0 = T[4 * q + 2 * half] * f, v1 = T[4 * q + 2 * half + 1] * f;
+          a[4 * q + 2 * half] += v0;
+          a[4 * q + 2 * half + 1] += v1;
+          const float2 o = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(other + r * 128 + ((q ^ (r % 8)) << 4) + 4 * t));
+          dot[half] += v0 * o.x + v1 * o.y;
+        }
+      }
+      if (e) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float v = dot[half];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (t == 0) yoffp[box * 64 + row + 8 * half] = v;
+        }
+      } else {
+        carry += dot[0] + dot[1];
+      }
+    };
+    // and its epilogue in halves (issue_half)
+    float edot[2] = {0.f, 0.f};  // the E item's per-row dots over its halves
+    auto finish_half = [&](bool e, float(&T)[16], float(&a)[32], int hf) {
+      if (!(e ? has_h : has_dh)) return;
+      const unsigned char* other = (e ? Cs : Bs) + box * FBOX;
+      float dot[2] = {0.f, 0.f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row + 8 * half;
+        const float f = e ? ecum[r] : wend[r] * Ds[r];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int qq = 4 * hf + q;
+          const float v0 = T[4 * q + 2 * half] * f, v1 = T[4 * q + 2 * half + 1] * f;
+          a[4 * qq + 2 * half] += v0;
+          a[4 * qq + 2 * half + 1] += v1;
+          const float2 o = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(other + r * 128 + ((qq ^ (r % 8)) << 4) + 4 * t));
+          dot[half] += v0 * o.x + v1 * o.y;
+        }
+      }
+      if (e) {
+        edot[0] += dot[0];
+        edot[1] += dot[1];
+        if (hf == 1)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float v = edot[half];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            if (t == 0) yoffp[box * 64 + row + 8 * half] = v;
+          }
+      } else {
+        carry += dot[0] + dot[1];
+      }
+    };
+    // dx = dxdt dt, dxdt = ((C.B^T) o L)^T . dy + wend o (B . dH^T), and per step dxdt.x and x.(B.dH^T) over
+    // this warpgroup's columns
+    auto dx_out = [&] {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int sr = row + 8 * half;
+        const float we = wend[sr], d = Ds[sr];
+        float dd = 0.f, su = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int pc = 32 * wg + 8 * q + 2 * t;
+          // B.dH^T is 0 with no dH (selected, not written: a write to an accumulator while a product of the
+          // same stage is in flight serialises the wgmma)
+          const float d0 = has_dh ? Dd[4 * q + 2 * half] : 0.f, d1 = has_dh ? Dd[4 * q + 2 * half + 1] : 0.f;
+          const float v0 = Dc[4 * q + 2 * half] + we * d0, v1 = Dc[4 * q + 2 * half + 1] + we * d1;
+          *reinterpret_cast<__nv_bfloat162*>(Dxs + sr * 128 + (((pc / 8) ^ (sr % 8)) << 4) + (pc % 8) * 2) =
+              __floats2bfloat162_rn(v0 * d, v1 * d);
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Xs + sr * 128 + (((pc / 8) ^ (sr % 8)) << 4) + (pc % 8) * 2));
+          dd += v0 * xv.x + v1 * xv.y;
+          su += d0 * xv.x + d1 * xv.y;
+        }
+        dd += __shfl_xor_sync(0xffffffffu, dd, 1);
+        dd += __shfl_xor_sync(0xffffffffu, dd, 2);
+        su += __shfl_xor_sync(0xffffffffu, su, 1);
+        su += __shfl_xor_sync(0xffffffffu, su, 2);
+        if (t == 0) {
+          ddirp[wg * 64 + sr] = dd;
+          supdp[wg * 64 + sr] = su;
+        }
+      }
+    };
+    {  // Dc, Dd, T0 in that order
+      wgmma_wait<1>();
+      wgmma_fence_operand(Dc);
+      wgmma_fence_operand(Dd);
+      dx_out();
+      if constexpr (ITEMS == 2) {
+        issue_half(is_e(0), Tb, 1);
+        wgmma_wait<1>();
+        wgmma_fence_operand(Ta);
+        finish_half(is_e(0), Ta, acc[0], 0);
+        wgmma_fence();
+        issue_half(is_e(1), Ta, 0);
+        wgmma_wait<1>();
+        wgmma_fence_operand(Tb);
+        finish_half(is_e(0), Tb, acc[0], 1);
+        wgmma_fence();
+        issue_half(is_e(1), Tb, 1);
+        wgmma_wait<1>();
+        wgmma_fence_operand(Ta);
+        finish_half(is_e(1), Ta, acc[ITEMS - 1], 0);
+        wgmma_wait<0>();
+        wgmma_fence_operand(Tb);
+        finish_half(is_e(1), Tb, acc[ITEMS - 1], 1);
+      } else {
+        wgmma_wait<0>();
+        wgmma_fence_operand(T0);
+        finish(is_e(0), T0, acc[0]);
+      }
+    }
+    if (has_dh) carry += expf(last) * hh;  // <dH, H_out> = exp(cum_last) <dH, H> + Sum (x.dH wend dt) o B
+    carry = warp_sum(carry);
+    if (lane == 0) carryp[warp] = carry;
+    fence_proxy_async_shared();  // dx's tile, to the TMA store
+  }
+  __syncthreads();  // the last head's partials are whole; no warp reads the planes
+  if (tid == 0) {
+    tma_store_4d(&map_dx, Dxs, 0, h0 + s.hg - 1, l0, bi);
+    tma_store_commit();
+  }
+  if (warp == BW_CW) dcum(s.hg - 1);
+
+  // Sum W into the planes [l][s], and transposed [s][l] (where H's were), then within the chunk
+  // dC += (Sum W).B (s <= l) and dB += (Sum W)^T.C (l >= s), both with A K-major, so that one code path
+  // with the operands picked at run time serves either item (a wgmma on the same accumulators in two
+  // branches serialises them)
+  unsigned char* WTp = Hp;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int col = 32 * wg + 8 * q + 2 * t;
+    uint32_t lo[TERMS], up[TERMS];
+    split_pair(Wsum[4 * q], Wsum[4 * q + 1], lo);
+    split_pair(Wsum[4 * q + 2], Wsum[4 * q + 3], up);
+    const int o0 = row * 128 + (((col / 8) ^ (row % 8)) << 4) + (col % 8) * 2;
+    const int o1 = (row + 8) * 128 + (((col / 8) ^ ((row + 8) % 8)) << 4) + (col % 8) * 2;
+#pragma unroll
+    for (int k = 0; k < TERMS; ++k) {
+      *reinterpret_cast<uint32_t*>(Wp + k * FBOX + o0) = lo[k];
+      *reinterpret_cast<uint32_t*>(Wp + k * FBOX + o1) = up[k];
+      const uint32_t v[4] = {lo[k] & 0xffffu, lo[k] >> 16, up[k] & 0xffffu, up[k] >> 16};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // (l, s) = (row + 8 (e / 2), col + e % 2) at row s, column l
+        const int r = col + e % 2, cl = row + 8 * (e / 2);
+        *reinterpret_cast<uint16_t*>(WTp + k * FBOX + r * 128 + (((cl / 8) ^ (r % 8)) << 4) + (cl % 8) * 2) =
+            (uint16_t)v[e];
+      }
+    }
+  }
+  fence_proxy_async_shared();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) wgmma_fence_operand(acc[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const bool e = is_e(i);
+    const Tile a = ktile(e ? Wp : WTp), b = mntile((e ? Bs : Cs) + box * FBOX);
+#pragma unroll 1
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int k = TERMS - 1; k >= 0; --k) wgmma_m64n64k16_bf16<0, 1>(acc[i], a.k(kk) + k * FBOX / 16, b.mn(kk), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    wgmma_fence_operand(acc[i]);
+    float* out = is_e(i) ? pdC : pdB;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long at = ((bi * (long long)s.l + l0 + row + 8 * half) * groups + grp) * N + 64 * box + 2 * t;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        *reinterpret_cast<float2*>(out + at + 8 * q) = make_float2(acc[i][4 * q + 2 * half], acc[i][4 * q + 2 * half + 1]);
+    }
+  }
+  cp_async_wait<0>();
+  if (tid == 0) tma_store_wait<0>();
+}
+
+template <int N, bool TMA>
+int launch_bwd_wgmma(const bf16* x, const float* dt, const float* A, const bf16* B, const bf16* C, const bf16* dy,
+                     const float* dstate, bf16* dx, float* ddt, float* dA, bf16* dB, bf16* dC, float* hbuf,
+                     float* dhbuf, float* pdB, float* pdC, float* pdA, int carried, const BwdShape& s,
+                     cudaStream_t stream) {
+  const int nc = s.l / BCL, groups = s.h / s.hg;
+  CUtensorMap mx{}, my{}, mB{}, mC{}, mdx{};
+  int dev = 0;
+  const cudaError_t ce = make_context_current(&dev);  // the driver's encoder needs a current context
+  if (ce != cudaSuccess) return (int)ce;
+  const long long sdx[3] = {(long long)s.l * s.h * BP, BP, (long long)s.h * BP};  // dx contiguous [b, l, h, 64]
+  int merr = encode_rows(&mdx, dx, BP, s.h, s.l, s.b, sdx);
+  if (merr != 0) return merr;
+  if (TMA) {
+    const long long sx[3] = {s.sxb, s.sxh, s.sxl}, sy[3] = {s.syb, s.syh, s.syl};
+    const long long sB[3] = {s.sBb, 0, s.sBl}, sC[3] = {s.sCb, 0, s.sCl};
+    int err = encode_rows(&mx, x, BP, s.h, s.l, s.b, sx);
+    if (err == 0) err = encode_rows(&my, dy, BP, s.h, s.l, s.b, sy);
+    if (err == 0) err = encode_rows(&mB, B, N, 1, s.l, s.b, sB);
+    if (err == 0) err = encode_rows(&mC, C, N, 1, s.l, s.b, sC);
+    if (err != 0) return err;
+  }
+  const int st_smem = bwd_states_smem(), ch_smem = bwd_wgmma_smem(N, s.hg);
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_bwd_states_mma_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, st_smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_scan_bwd_chunk_kernel<N, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, ch_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int dirs = carried ? 1 : 2;  // given the forward's states, the gradients' direction alone
+  ssd_scan_bwd_states_mma_kernel<N><<<(unsigned)(s.b * s.h * (N / SLICE) * dirs), ST_THREADS, st_smem, stream>>>(
+      x, dt, A, B, C, dy, dstate, hbuf, dhbuf, s, dirs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_scan_bwd_chunk_kernel<N, TMA><<<(unsigned)(s.b * nc * groups), BW_THREADS, ch_smem, stream>>>(
+      mx, my, mB, mC, mdx, x, dt, A, B, C, dy, dstate, hbuf, dhbuf, dx, ddt, pdB, pdC, pdA, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)s.b * s.l * s.n + s.h;
+  ssd_scan_bwd_mma_sum_kernel<bf16><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      pdB, pdC, pdA, dB, dC, dA, s.b, s.l, s.h, s.n, groups, nc);
+  return (int)cudaGetLastError();
+}
+
 int launch_mma_variant(int n, int pt, const void* x, const float* dt, const float* A, const void* B, const void* C,
                        void* y, float* state, const SsdShape& s, cudaStream_t stream) {
   SSD_MMA_VARIANTS(launch_mma, x, dt, A, B, C, y, state, s, stream)
@@ -2367,8 +3027,9 @@ extern "C" int ssd_scan_bwd(const void* x, const float* dt, const float* A, cons
                            sdyl, sdyh, st);
 }
 
-// The backward on the tensor cores (bf16; chunk 64, p 64, state width n 64 or 128; x, B, C and dy rows
-// 16-byte aligned; the wrapper's bwd_route): dx, ddt, dA, dB, dC as ssd_scan_bwd gives them, from the same
+// The backward on the tensor cores with the mma.sync chunk kernel (bf16; chunk 64, p 64, state width n 64 or
+// 128; x, B, C and dy rows 16-byte aligned: the shapes the wrapper's bwd_route sends to the wgmma route, which
+// replaced this one; run_bwd_route(route="mma") still runs it): dx, ddt, dA, dB, dC as ssd_scan_bwd gives them, from the same
 // inputs.  hg: heads a block of the chunk kernel takes (dividing h).  Scratch, all fp32: hbuf and dhbuf
 // [b, h, l / 64, 64, n] (the states entering the chunks and the gradients of those leaving them), pdB and
 // pdC [b, l, h / hg, n], pdA [b, l / 64, h].  Launches ssd_scan_bwd_states_mma_kernel<n>,
@@ -2393,6 +3054,37 @@ extern "C" int ssd_scan_bwd_mma(const void* x, const float* dt, const float* A, 
 #undef SSD_BWD_MMA_ARGS
   return (int)cudaErrorInvalidValue;
 }
+
+// The backward on wgmma (bf16; the shapes ssd_scan_bwd_mma takes): the same outputs from the same inputs
+// and scratch.  carried: hbuf already holds the states entering chunks 1 .. l / 64 - 1 (the forward's, route
+// 3 of ssd_scan_fwd), so the states kernel runs the gradients' direction alone; else it writes them first.
+// tma: TMA can address the rows of x, dy, B and C (16-byte-aligned rows, no zero stride).  Launches
+// ssd_scan_bwd_states_mma_kernel<n>, ssd_scan_bwd_chunk_kernel<n, tma> and ssd_scan_bwd_mma_sum_kernel on
+// `stream`; returns the first launch's CUDA error (or a tensor-map error), or 0.
+extern "C" int ssd_scan_bwd_wgmma(const void* x, const float* dt, const float* A, const void* B, const void* C,
+                                  const void* dy, const float* dstate, void* dx, float* ddt, float* dA, void* dB,
+                                  void* dC, float* hbuf, float* dhbuf, float* pdB, float* pdC, float* pdA,
+                                  int carried, int tma, int b, int l, int h, int n, int hg, long long sxb,
+                                  long long sxl, long long sxh, long long sdb, long long sdl, long long sdh,
+                                  long long sBb, long long sBl, long long sCb, long long sCl, long long syb,
+                                  long long syl, long long syh, void* stream) {
+  if (l % BCL != 0 || hg < 1 || h % hg != 0) return (int)cudaErrorInvalidValue;
+  const BwdShape s{b, l, h, n, hg, sxb, sxl, sxh, sdb, sdl, sdh, sBb, sBl, sCb, sCl, syb, syl, syh};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SSD_BWD_WGMMA_ARGS                                                                                      \
+  static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B), static_cast<const bf16*>(C),               \
+      static_cast<const bf16*>(dy), dstate, static_cast<bf16*>(dx), ddt, dA, static_cast<bf16*>(dB),           \
+      static_cast<bf16*>(dC), hbuf, dhbuf, pdB, pdC, pdA, carried, s, st
+  if (n == 64) return tma ? launch_bwd_wgmma<64, true>(SSD_BWD_WGMMA_ARGS) : launch_bwd_wgmma<64, false>(SSD_BWD_WGMMA_ARGS);
+  if (n == 128)
+    return tma ? launch_bwd_wgmma<128, true>(SSD_BWD_WGMMA_ARGS) : launch_bwd_wgmma<128, false>(SSD_BWD_WGMMA_ARGS);
+#undef SSD_BWD_WGMMA_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block of the wgmma backward's chunk kernel at state width n and hg heads a
+// block, in bytes (its states kernel's: ssd_scan_bwd_mma_smem_bytes(n, 0)).
+extern "C" int ssd_scan_bwd_wgmma_smem_bytes(int n, int hg) { return bwd_wgmma_smem(n, hg); }
 
 // Dynamic shared memory of one block of the tensor-core backward's states kernel (kernel 0) or chunk
 // kernel (1) at state width n, in bytes.

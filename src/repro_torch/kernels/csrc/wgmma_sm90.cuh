@@ -3,12 +3,12 @@
 // block of the cluster) / expect-tx / try-wait, the cluster barrier and
 // loads from another block's shared memory (distributed shared memory),
 // the 3-D and 4-D TMA tile loads (cp.async.bulk.tensor) that complete on an
-// mbarrier, alone or multicast to the cluster, the 1-D bulk copy, the 3-D
-// and 4-D TMA tile stores and their bulk-group waits, the async-proxy
+// mbarrier, alone or multicast to the cluster, the 1-D bulk copy and L2
+// prefetch, the 3-D and 4-D TMA tile stores and their bulk-group waits, the async-proxy
 // fence, named barriers, wgmma shared-memory descriptors
 // for the 128-byte swizzle, wgmma fence / commit / wait, wgmma.mma_async
-// bf16 with fp32 accumulators: m64n128k16, m64n64k16, m64n16k16 and
-// m64n8k16 with both operands from shared memory (either major for each),
+// bf16 with fp32 accumulators: m64n128k16, m64n64k16, m64n32k16, m64n16k16
+// and m64n8k16 with both operands from shared memory (either major for each),
 // m64n64k16, m64n80k16, m64n128k16 and m64n192k16 with A from registers,
 // and setmaxnreg; on the host, libcuda's tensor-map encoder.
 //
@@ -195,6 +195,12 @@ __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Asks for `bytes` contiguous bytes of global memory at `src` (both 16-byte aligned, bytes a multiple of 16)
+// to be brought into L2, without waiting and without touching shared memory.
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+
 // Makes this thread's shared-memory writes visible to the async proxy (a TMA store that reads them).
 __device__ __forceinline__ void fence_proxy_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -264,6 +270,24 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t d
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
+}
+
+// d[64 x 32] = A[64 x 16] . B[16 x 32] + (accumulate ? d : 0), both operands
+// from shared memory, as the m64n128k16 form above.
+template <int A_MN, int B_MN>
+__device__ __forceinline__ void wgmma_m64n32k16_bf16(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
 }
 

@@ -19,7 +19,9 @@ requires grad:
 - ``ssd_scan`` runs through an autograd Function whose forward is the scan
   kernel and whose backward is the hand-written backward kernel
   (``ssd_scan_bwd``), with no gradient of the final state where it is
-  unused;
+  unused; inside :func:`keeping_scan_states` (a checkpointed layer) the
+  forward keeps the chunk states its ``wgmma`` route wrote, and the
+  backward reads them instead of rebuilding them;
 - ``conv2d_im2col`` raises ``NotImplementedError``: the reference trains no
   CNN, so its backward kernel is not written, and a kernel output with no
   ``grad_fn`` must never reach a loss.
@@ -41,6 +43,7 @@ by the kernel modules' ``cost`` / ``bwd_cost`` formulas, the ones
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -193,25 +196,58 @@ class _FlashAttentionBf16ScoresPlain(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+#: layers running under :func:`keeping_scan_states`
+_KEEP_STATES = 0
+
+
+def keeping_scan_states(fn):
+    """``fn`` wrapped so that the SSD scans it runs on the card keep the
+    states their forward's ``wgmma`` route wrote (H_in,
+    ``ssd_scan.ssd_scan_states``) for their backward, which then reads them
+    instead of rebuilding them.  Meant for a layer under
+    ``torch.utils.checkpoint``, whose forward runs again just before its
+    backward: the states live for one layer.  Kept in a plain forward they
+    would stay alive at every layer until the backward reached it, 4·p·n /
+    chunk bytes per (batch, position, head) (mamba2-130m: 25 MB a layer).
+    The wrapper runs at the checkpoint's first forward and at its
+    recomputation alike, so both save the same tensors."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        global _KEEP_STATES
+        _KEEP_STATES += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _KEEP_STATES -= 1
+
+    return run
+
+
 class _SsdScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
-        y, state = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
-        ctx.save_for_backward(x, dt, A, B, C)
+        h_in = None
+        if _KEEP_STATES:
+            y, state, h_in = _ssd.ssd_scan_states(x, dt, A, B, C, chunk=chunk)
+        else:
+            y, state = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C, h_in)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)  # an unused final state's gradient stays None
         return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        x, dt, A, B, C = ctx.saved_tensors
+        x, dt, A, B, C, h_in = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
         elif dy.stride(-1) != 1:
             dy = dy.contiguous()
         if dstate is not None:
             dstate = dstate.contiguous()
-        dx, ddt, dA, dB, dC = _ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk)
+        carried = {} if h_in is None else {"h_in": h_in}  # the forward's states, read instead of rebuilt
+        dx, ddt, dA, dB, dC = _ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=ctx.chunk, **carried)
         return dx, ddt, dA, dB, dC, None
 
 

@@ -37,20 +37,24 @@ The backward (the reference has none in Pallas: it trains through XLA's
 gradient of ``ssd_chunked``): :func:`ssd_scan_bwd` runs more kernels of
 ``csrc/ssd_scan.cu`` by the route :func:`bwd_route` picks from type, shape
 and alignment (:func:`bwd_kernels` names each route's launches).  bf16 at
-chunk 64, p 64, state 64 or 128 with 16-byte-aligned rows (both training
-shapes) takes ``"mma"``, parallel over chunks on the tensor cores:
-``ssd_scan_bwd_states_mma_kernel`` carries the states forward and their
-gradients backward over the chunks, ``ssd_scan_bwd_chunk_mma_kernel``
-runs each chunk's backward for a group of :func:`bwd_head_group` heads
-given both, and ``ssd_scan_bwd_mma_sum_kernel`` sums the groups' partials
-of dB and dC and the chunks' of dA in a fixed order.  Everything else,
-fp32 and the smoke configs' chunk 8 included, takes ``"simt"``: the
-reverse scan ``ssd_scan_bwd_kernel`` (fp32 on the SIMT pipes in register
-tiles) and ``ssd_scan_bwd_sum_kernel`` (see the source note).
-:func:`ssd_scan_bwd_plain` is the same function by its explicit formulas in
-fp32, for the CPU tests and the on-card checks; :func:`bwd_states_plain`,
-:func:`bwd_chunk_plain` and :func:`bwd_sum_plain` are what each kernel of
-the ``"mma"`` route computes, for the CPU tests.
+chunk 64, p 64, state 64 or 128 with 16-byte-aligned rows (every training
+and mesh-rank shape) takes ``"wgmma"``, parallel over chunks on the tensor
+cores: ``ssd_scan_bwd_states_mma_kernel`` carries the states forward and
+their gradients backward over the chunks (given the forward's states,
+:func:`ssd_scan_states`' ``h_in``, the gradients alone),
+``ssd_scan_bwd_chunk_kernel`` runs each chunk's backward on ``wgmma`` for
+a group of :func:`bwd_head_group` heads given both, and
+``ssd_scan_bwd_mma_sum_kernel`` sums the groups' partials of dB and dC and
+the chunks' of dA in a fixed order.  ``"mma"``, the same with the chunk
+kernel on ``mma.sync`` (``ssd_scan_bwd_chunk_mma_kernel``), takes the same
+shapes through :func:`run_bwd_route` alone, to be timed beside it.
+Everything else, fp32 and the smoke configs' chunk 8 included, takes
+``"simt"``: the reverse scan ``ssd_scan_bwd_kernel`` (fp32 on the SIMT
+pipes in register tiles) and ``ssd_scan_bwd_sum_kernel`` (see the source
+note).  :func:`ssd_scan_bwd_plain` is the same function by its explicit
+formulas in fp32, for the CPU tests and the on-card checks;
+:func:`bwd_states_plain`, :func:`bwd_chunk_plain` and :func:`bwd_sum_plain`
+are what each kernel of the tensor-core routes computes, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -94,7 +98,7 @@ MAX_SMEM_BYTES = 232_448
 H100_SMS = 132
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the backward's routes (:func:`bwd_route`)
-BWD_ROUTES = ("simt", "mma")
+BWD_ROUTES = ("simt", "mma", "wgmma")
 #: what the tensor-core backward compiles: its chunk, p, state widths, and
 #: the state columns one block of its states kernel carries
 MMA_BWD_CHUNK, MMA_BWD_P, MMA_BWD_STATES, MMA_BWD_SLICE = 64, 64, (64, 128), 64
@@ -365,23 +369,35 @@ def bwd_sum_plain(pdB, pdC, pdA, dtype: torch.dtype):
     return dB.to(dtype), dC.to(dtype), dA
 
 
+def _tensor_cores_take(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool) -> bool:
+    """Whether the tensor-core backward kernels (``"mma"`` and ``"wgmma"``) take this type and shape."""
+    return (dtype == torch.bfloat16 and aligned and chunk == MMA_BWD_CHUNK and p == MMA_BWD_P
+            and n in MMA_BWD_STATES)
+
+
 def bwd_route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool) -> str:
     """The backward's route (one of :data:`BWD_ROUTES`) by type, shape and
-    alignment alone: ``"mma"`` for bf16 at chunk ``MMA_BWD_CHUNK``, p
+    alignment alone: ``"wgmma"`` for bf16 at chunk ``MMA_BWD_CHUNK``, p
     ``MMA_BWD_P`` and a state width of ``MMA_BWD_STATES`` where ``aligned``
     (x, B, C and dy start 16-byte aligned with every stride but the last a
-    multiple of 8 elements); ``"simt"`` for everything else, fp32 and the
-    smoke configs' chunk 8 included."""
+    multiple of 8 elements: every training and mesh-rank shape); ``"simt"``
+    for everything else, fp32 and the smoke configs' chunk 8 included.
+    ``"mma"``, the ``mma.sync`` chunk kernel the ``"wgmma"`` route
+    replaced, takes the same shapes and is reached through
+    :func:`run_bwd_route` alone."""
     if dtype not in _DTYPES:
         raise TypeError(f"ssd_scan takes float32 or bfloat16, got {dtype}")
-    mma = (dtype == torch.bfloat16 and aligned and chunk == MMA_BWD_CHUNK and p == MMA_BWD_P
-           and n in MMA_BWD_STATES)
-    return "mma" if mma else "simt"
+    return "wgmma" if _tensor_cores_take(dtype, p, n, chunk, aligned) else "simt"
 
 
-def bwd_kernels(route: str, dtype: torch.dtype, n: int) -> tuple[str, ...]:
+def bwd_kernels(route: str, dtype: torch.dtype, n: int, tma: bool = True) -> tuple[str, ...]:
     """The kernels one backward of x's type ``dtype`` and state width ``n``
-    launches on ``route``, in launch order, as the profiler names them."""
+    launches on ``route``, in launch order, as the profiler names them.
+    ``tma``: on ``"wgmma"``, whether TMA can address the rows of x, dy, B and
+    C (:func:`fwd_aligned`), which picks the chunk kernel's loads."""
+    if route == "wgmma":
+        return (f"ssd_scan_bwd_states_mma_kernel<{n}>", f"ssd_scan_bwd_chunk_kernel<{n}, {str(tma).lower()}>",
+                "ssd_scan_bwd_mma_sum_kernel<__nv_bfloat16>")
     if route == "mma":
         return (f"ssd_scan_bwd_states_mma_kernel<{n}>", f"ssd_scan_bwd_chunk_mma_kernel<{n}>",
                 "ssd_scan_bwd_mma_sum_kernel<__nv_bfloat16>")
@@ -434,6 +450,35 @@ def mma_bwd_grid(b: int, l: int, h: int, n: int, sms: int = H100_SMS) -> tuple[i
     per 256 of dB's elements and dA's."""
     groups = h // bwd_head_group(b, l, h, sms=sms)
     return b * h * (n // MMA_BWD_SLICE) * 2, b * (l // MMA_BWD_CHUNK) * groups, -(-(b * l * n + h) // 256)
+
+
+def wgmma_bwd_smem_bytes(n: int, head_group: int) -> int:
+    """Dynamic shared memory of one block of the ``"wgmma"`` route's chunk
+    kernel at state width ``n`` and ``head_group`` heads a block
+    (``bwd_wgmma_smem`` in the source; its states kernel is the ``"mma"``
+    route's, :func:`mma_bwd_smem_bytes`): 1 KB of alignment slack; C and B
+    (n / 64 boxes of 64 rows of 128 bytes each); a 2-stage ring of x and dy
+    boxes; 3 bf16 planes of one box ((C·Bᵀ)∘L, at the end Σ W); 3 planes of
+    H and 3 of dH (n / 64 boxes each); dx's box for its TMA store; 16 fp32
+    values for each of the 256 threads (C·Bᵀ); three barriers and a pad; dt
+    of the group's heads; the 8 warps' 3 factor rows; two heads' per-step
+    partials."""
+    box = 64 * 128
+    parts = 2 * 64 + 4 * 64 + 2 * 64 + 2 * 64 + 2 * 64 + 8
+    return (1024 + (2 * (n // 64) + 4 + 3 + 6 * (n // 64) + 1) * box + 16 * 256 * 4 + 4 * 8
+            + head_group * 64 * 4 + 8 * 3 * 64 * 4 + 2 * parts * 4)
+
+
+def wgmma_bwd_grid(b: int, l: int, h: int, n: int, carried: bool = False,
+                   sms: int = H100_SMS) -> tuple[int, int, int]:
+    """Blocks of the ``"wgmma"`` route's three kernels: the states kernel
+    one per (b, h, ``MMA_BWD_SLICE`` state columns) in the gradients'
+    direction alone where ``carried`` (the forward's states given), else one
+    per direction too, as :func:`mma_bwd_grid`; the chunk kernel one of two
+    warpgroups per (b, chunk, group of :func:`bwd_head_group` heads); the
+    sum one per 256 of dB's elements and dA's."""
+    states, chunks, sums = mma_bwd_grid(b, l, h, n, sms=sms)
+    return (states // 2 if carried else states), chunks, sums
 
 
 def simt_smem_bytes(chunk: int, n: int, p_tile: int) -> int:
@@ -613,6 +658,16 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64) -> tuple[torch.Tensor, torch.Te
     Launches on the current stream without synchronising; raises if the
     inputs are not what the kernel takes or the launch is refused.
     """
+    return ssd_scan_states(x, dt, A, B, C, chunk=chunk)[:2]
+
+
+def ssd_scan_states(x, dt, A, B, C, *, chunk: int = 64):
+    """:func:`ssd_scan`, also returning the states its route wrote on the
+    way: on the ``wgmma`` route the state entering each chunk, H_in (fp32
+    [b, h, l / chunk, p, n]; chunk 0's slot is not written: that state is
+    zero), which :func:`ssd_scan_bwd` takes as ``h_in`` instead of
+    rebuilding it; None on the other routes.  Returns (y, final state,
+    H_in or None)."""
     _check(x, dt, A, B, C, chunk)
     b, _, h, p = x.shape
     chosen = plan(x.dtype, b, h, p, B.shape[-1], chunk, *alignment(x, B, C), sms=_sm_count(x.device.index))
@@ -636,10 +691,10 @@ def run_plan(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torc
     if not ok:
         raise ValueError(f"plan {p} is not one of the routes {sorted(routes)} takes at x {tuple(x.shape)}, n {n}, "
                          f"chunk {chunk}")
-    return _launch(x, dt, A, B, C, chunk, p)
+    return _launch(x, dt, A, B, C, chunk, p)[:2]
 
 
-def _launch(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(x, dt, A, B, C, chunk: int, p: SsdPlan):
     global launches, wgmma_launches
     b, l, h, pp = x.shape
     n = B.shape[-1]
@@ -671,7 +726,7 @@ def _launch(x, dt, A, B, C, chunk: int, p: SsdPlan) -> tuple[torch.Tensor, torch
         raise RuntimeError(f"ssd_scan: {KERNELS[p.route]} ({p}) launch failed: cudaError {err}")
     launches += 1
     wgmma_launches += p.route == WGMMA
-    return y, state
+    return y, state, hbuf
 
 
 def bwd_smem_bytes(chunk: int, n: int, p_tile: int) -> int:
@@ -696,14 +751,17 @@ def _check_bwd(x, dt, A, B, C, dy, dstate, chunk: int) -> None:
                          f"{tuple(dstate.shape)} on {dstate.device}")
 
 
-def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
+def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64, h_in=None):
     """The backward on the CUDA kernels: (dx, ddt, dA, dB, dC) of
     :func:`ssd_scan` from its inputs (as :func:`ssd_scan` takes them, B and
     C strided slices included), dy, the gradient of y [b, l, h, p] of x's
     type with unit stride over p, and dstate, that of the final state
     (contiguous fp32 [b, h, p, n]) or None.  The same function as
     :func:`ssd_scan_bwd_plain`; dx, dB and dC contiguous in their inputs'
-    type, ddt and dA fp32.
+    type, ddt and dA fp32.  ``h_in``: the states the forward's ``wgmma``
+    route wrote on these inputs (:func:`ssd_scan_states`), which the
+    ``"wgmma"`` route then reads instead of rebuilding them (the other
+    routes rebuild their own).
 
     Launches the kernels of :func:`bwd_route`'s route
     (:func:`bwd_kernels`) on the current stream without synchronising (one
@@ -713,28 +771,40 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64):
     """
     _check_bwd(x, dt, A, B, C, dy, dstate, chunk)
     aligned = all(_aligned(t) for t in (x, B, C, dy))
-    return _launch_bwd(x, dt, A, B, C, dy, dstate, chunk, bwd_route(x.dtype, x.shape[3], B.shape[-1], chunk, aligned))
+    route = bwd_route(x.dtype, x.shape[3], B.shape[-1], chunk, aligned)
+    return _launch_bwd(x, dt, A, B, C, dy, dstate, chunk, route, h_in=h_in)
 
 
-def run_bwd_route(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64, route: str, parts: dict | None = None):
+def run_bwd_route(x, dt, A, B, C, dy, dstate=None, *, chunk: int = 64, route: str, parts: dict | None = None,
+                  h_in=None):
     """:func:`ssd_scan_bwd` on ``route``, which need not be
     :func:`bwd_route`'s: ``"simt"`` takes every shape its kernel does (so
-    the bf16 training shapes can be timed on it beside ``"mma"``), ``"mma"``
-    only where :func:`bwd_route` picks it.  ``parts``, a dict, gets the
-    ``"mma"`` route's scratch, what each kernel hands the next: ``h_in``
-    and ``dh_out`` as :func:`bwd_states_plain` gives them (each chunk's but
-    the first's and the last's, which the chunk kernel takes as 0 and
-    dstate), and ``pdA``, ``pdB`` and ``pdC`` as :func:`bwd_chunk_plain`."""
+    the bf16 training shapes can be timed on it beside the tensor-core
+    routes), ``"mma"`` and ``"wgmma"`` only where :func:`bwd_route` picks
+    ``"wgmma"``.  ``parts``, a dict, gets a tensor-core route's scratch,
+    what each kernel hands the next: ``h_in`` and ``dh_out`` as
+    :func:`bwd_states_plain` gives them (each chunk's but the first's and
+    the last's, which the chunk kernel takes as 0 and dstate; ``h_in`` is
+    the one given where the route reads it), ``pdA``, ``pdB`` and ``pdC``
+    as :func:`bwd_chunk_plain`."""
     _check_bwd(x, dt, A, B, C, dy, dstate, chunk)
     aligned = all(_aligned(t) for t in (x, B, C, dy))
     picked = bwd_route(x.dtype, x.shape[3], B.shape[-1], chunk, aligned)
-    if route not in BWD_ROUTES or (route == "mma" and picked != "mma"):
+    if route not in BWD_ROUTES or (route != "simt" and picked != "wgmma"):
         raise ValueError(f"the backward of x {tuple(x.shape)}, B {tuple(B.shape)} ({x.dtype}, chunk {chunk}) has "
                          f"no route {route!r}")
-    return _launch_bwd(x, dt, A, B, C, dy, dstate, chunk, route, parts)
+    return _launch_bwd(x, dt, A, B, C, dy, dstate, chunk, route, parts, h_in)
 
 
-def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk: int, route: str, parts: dict | None = None):
+def _check_h_in(h_in, x, n: int, chunk: int) -> None:
+    b, l, h, p = x.shape
+    if (tuple(h_in.shape) != (b, h, l // chunk, p, n) or h_in.dtype != torch.float32 or h_in.device != x.device
+            or not h_in.is_contiguous()):
+        raise ValueError(f"h_in must be contiguous fp32 [{b}, {h}, {l // chunk}, {p}, {n}] on {x.device}, got "
+                         f"{h_in.dtype} {tuple(h_in.shape)} on {h_in.device}")
+
+
+def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk: int, route: str, parts: dict | None = None, h_in=None):
     global bwd_launches
     b, l, h, p = x.shape
     n = B.shape[-1]
@@ -743,6 +813,35 @@ def _launch_bwd(x, dt, A, B, C, dy, dstate, chunk: int, route: str, parts: dict 
     ddt, dA = torch.empty((b, l, h), **f32), torch.empty((h,), **f32)
     dB, dC = torch.empty((b, l, n), dtype=B.dtype, device=x.device), torch.empty((b, l, n), dtype=C.dtype, device=x.device)
     strides = (*x.stride()[:3], *dt.stride(), B.stride(0), B.stride(1), C.stride(0), C.stride(1), *dy.stride()[:3])
+    if route == "wgmma":
+        sms = _sm_count(x.device.index)
+        hg = bwd_head_group(b, l, h, chunk, sms=sms)
+        carried = h_in is not None
+        if carried:
+            _check_h_in(h_in, x, n, chunk)
+        grid = wgmma_bwd_grid(b, l, h, n, carried, sms=sms)
+        if max(grid) > 2**31 - 1:
+            raise ValueError(f"grid too large for x {tuple(x.shape)}")
+        if wgmma_bwd_smem_bytes(n, hg) > MAX_SMEM_BYTES:
+            raise ValueError(f"a group of {hg} heads needs {wgmma_bwd_smem_bytes(n, hg)} B of shared memory a block")
+        # H_in (the forward's where given: the states kernel then writes dH_out alone) and dH_out of every chunk
+        h_in = h_in if carried else torch.empty((b, h, l // chunk, p, n), **f32)
+        dh_out = torch.empty((b, h, l // chunk, p, n), **f32)
+        pdB, pdC = torch.empty((b, l, h // hg, n), **f32), torch.empty((b, l, h // hg, n), **f32)
+        pdA = torch.empty((b, l // chunk, h), **f32)
+        err = _bwd_wgmma_kernel()(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), h_in.data_ptr(), dh_out.data_ptr(), pdB.data_ptr(), pdC.data_ptr(),
+            pdA.data_ptr(), int(carried), int(fwd_aligned(x, B, C, dy)), b, l, h, n, hg, *strides,
+            torch._C._cuda_getCurrentRawStream(x.device.index),
+        )
+        if err != 0:
+            raise RuntimeError(f"ssd_scan_bwd ({route}) launch failed: error {err}")
+        bwd_launches += 1
+        if parts is not None:
+            parts.update(h_in=h_in, dh_out=dh_out, pdA=pdA, pdB=pdB, pdC=pdC)
+        return dx, ddt, dA, dB, dC
     if route == "mma":
         sms = _sm_count(x.device.index)
         hg = bwd_head_group(b, l, h, chunk, sms=sms)
@@ -826,6 +925,14 @@ def _bwd_kernel():
 def _bwd_mma_kernel():
     fn = library().ssd_scan_bwd_mma
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_wgmma_kernel():
+    fn = library().ssd_scan_bwd_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

@@ -105,6 +105,7 @@ from torch.utils.checkpoint import checkpoint
 import torch.distributed as dist
 
 from .. import tree
+from ..kernels import ops
 from ..collectives import all_gather_dim, all_reduce_over, enter_tp, own_block, sum_tp
 from . import blocks
 from .layout import Layout
@@ -213,9 +214,11 @@ def _unbind(stacks: dict) -> list[dict]:
 def _recompute(on: bool, fn, *args):
     """``fn(*args)``; with ``on``, and when a graph is being recorded, its
     activations are dropped and recomputed in the backward (the reference's
-    ``jax.checkpoint``)."""
+    ``jax.checkpoint``), and its SSD scans keep the chunk states their
+    recomputed forward writes for their backward
+    (``ops.keeping_scan_states``)."""
     if on and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(ops.keeping_scan_states(fn), *args, use_reentrant=False)
     return fn(*args)
 
 

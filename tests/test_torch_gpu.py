@@ -1308,7 +1308,8 @@ def test_ssd_backward_mma_kernels_each_match_their_plain_versions(b, l, h, p, n,
     g = torch.Generator(device="cuda").manual_seed(4)
     dy = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
     dstate = torch.randn((b, h, p, n), generator=g, device="cuda") if with_state else None
-    assert ssd.bwd_route(torch.bfloat16, p, n, 64, all(ssd._aligned(t) for t in (x, B, C, dy))) == "mma"
+    # the route picks "wgmma" there since it replaced "mma", which run_bwd_route still runs
+    assert ssd.bwd_route(torch.bfloat16, p, n, 64, all(ssd._aligned(t) for t in (x, B, C, dy))) == "wgmma"
     parts = {}
     got = ssd.run_bwd_route(x, dt, A, B, C, dy, dstate, chunk=64, route="mma", parts=parts)
     torch.cuda.synchronize()
@@ -1358,12 +1359,150 @@ def test_ssd_backward_runs_exactly_the_kernels_of_its_route(b, l, h, p, n, chunk
     x, dt, A, B, C = _ssd(b, l, h, p, n, dtype, strided=True)
     dy = torch.randn(x.shape, device="cuda").to(dtype)
     route = ssd.bwd_route(dtype, p, n, chunk, all(ssd._aligned(t) for t in (x, B, C, dy)))
-    assert route == ("mma" if dtype == torch.bfloat16 and chunk == 64 else "simt")
+    assert route == ("wgmma" if dtype == torch.bfloat16 and chunk == 64 else "simt")
     ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk)
     torch.cuda.synchronize()
     names = _device_kernel_names(lambda: ssd.ssd_scan_bwd(x, dt, A, B, C, dy, chunk=chunk))
     ran = [m.group(1) if (m := re.search(r"(ssd_scan_bwd\w*_kernel<[^>]*>)", k)) else k for k in names]
     assert sorted(ran) == sorted(ssd.bwd_kernels(route, dtype, n))
+
+
+#: the "wgmma" route's shapes: both training shapes, the mesh ranks' (mamba2 and zamba2 on (1, 2), zamba2 x
+#: train_4k as rank 0 of (16, 16)), state 64 and 128 at one chunk and at head groups of one and several
+SSD_WGMMA_BWD_SHAPES = [(4, 512, 24, 64, 128), (4, 512, 80, 64, 64), (4, 512, 12, 64, 128), (4, 512, 40, 64, 64),
+                        (16, 4096, 5, 64, 64), (1, 64, 2, 64, 128), (2, 192, 3, 64, 64), (1, 128, 7, 64, 128)]
+
+
+def _ssd_states_blocks(fn, n) -> set[int]:
+    """The blocks (x of the grid) the SSD backward's states kernel at state
+    width ``n`` launched in calls of ``fn``, from the profiler's trace: up
+    to 8 windows of 5 calls (an empty one taken again, as
+    ``_device_kernel_names`` does), each waiting 50 ms on the host before
+    its first call and after its last, since a
+    device record the profiler dates outside its window is dropped
+    (``scripts/profiler_windows.py --pads``).  Fails if no window kept the
+    kernel's grid."""
+    import json
+    import tempfile
+    import time
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    name = f"ssd_scan_bwd_states_mma_kernel<{n}>"
+    for _ in range(8):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text()).get("traceEvents", [])
+        blocks = {e["args"]["grid"][0] for e in events
+                  if isinstance(e.get("args"), dict) and "grid" in e["args"] and name in e.get("name", "")}
+        if blocks:
+            return blocks
+        time.sleep(0.1)
+    pytest.fail(f"the profiler kept no grid of {name} in 8 windows")
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,l,h,p,n", SSD_WGMMA_BWD_SHAPES)
+def test_ssd_backward_wgmma_matches_plain_and_gives_the_same_bits_twice(b, l, h, p, n, with_state):
+    """The ``"wgmma"`` route (x, B and C strided as ``ssd_block`` passes
+    them) against ``ssd_scan_bwd_plain`` within BF16_REL of each gradient's
+    max, two calls the same bits; its chunk kernel's dx, ddt and parts
+    against ``bwd_chunk_plain`` on the route's own states, and its sum the
+    bits of ``bwd_sum_plain`` on its own parts; with dy's rows broadcast
+    over the batch (a zero stride: the chunk kernel's ``cp.async`` loads,
+    no TMA) against plain as well."""
+    x, dt, A, B, C = _ssd(b, l, h, p, n, torch.bfloat16, seed=b + h, strided=True)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+    dstate = torch.randn((b, h, p, n), generator=g, device="cuda") if with_state else None
+    assert ssd.bwd_route(torch.bfloat16, p, n, 64, all(ssd._aligned(t) for t in (x, B, C, dy))) == "wgmma"
+    parts = {}
+    got = ssd.run_bwd_route(x, dt, A, B, C, dy, dstate, chunk=64, route="wgmma", parts=parts)
+    again = ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    for gt, w in zip(got, ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=64)):
+        assert _rel_err(gt, w) <= BF16_REL
+    h_k, dh_k = parts["h_in"].clone(), parts["dh_out"].clone()
+    h_k[:, :, 0], dh_k[:, :, -1] = 0.0, (0.0 if dstate is None else dstate)
+    dx, ddt, pdA, pdB, pdC = ssd.bwd_chunk_plain(x, dt, A, B, C, dy, h_k, dh_k, chunk=64,
+                                                 head_group=ssd.bwd_head_group(b, l, h))
+    _agree(got[0], dx, None, False)
+    for kern, plain in ((got[1], ddt), (parts["pdA"], pdA), (parts["pdB"], pdB), (parts["pdC"], pdC)):
+        assert _rel_err(kern, plain) <= 1e-4
+    dB, dC, dA = ssd.bwd_sum_plain(parts["pdB"], parts["pdC"], parts["pdA"], torch.bfloat16)
+    assert torch.equal(got[3], dB) and torch.equal(got[4], dC) and torch.equal(got[2], dA)
+    dz = dy[:, :, :1].expand(x.shape)  # one head's rows for every head, a zero stride TMA cannot address
+    assert not ssd.fwd_aligned(x, B, C, dz)
+    for gt, w in zip(ssd.ssd_scan_bwd(x, dt, A, B, C, dz, dstate, chunk=64),
+                     ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dz, dstate, chunk=64)):
+        assert _rel_err(gt, w) <= BF16_REL
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,l,h,p,n", SSD_WGMMA_BWD_SHAPES)
+def test_ssd_backward_given_the_forward_states_is_the_rebuilding_one_bit_for_bit(b, l, h, p, n, with_state):
+    """The forward's ``wgmma`` route writes H_in with the backward's states
+    body on the same inputs, in the same order: the backward handed it
+    (``h_in``) gives the bits of the one that rebuilds it, its states
+    kernel launching half the blocks (the gradients' direction alone),
+    and the states it read are the rebuilding one's bit for bit."""
+    x, dt, A, B, C = _ssd(b, l, h, p, n, torch.bfloat16, seed=h, strided=True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(torch.bfloat16)
+    dstate = torch.randn((b, h, p, n), generator=g, device="cuda") if with_state else None
+    y, state, h_in = ssd.ssd_scan_states(x, dt, A, B, C, chunk=64)
+    assert h_in is not None and h_in.shape == (b, h, l // 64, p, n)
+    rebuilt, carried = {}, {}
+    want = ssd.run_bwd_route(x, dt, A, B, C, dy, dstate, chunk=64, route="wgmma", parts=rebuilt)
+    got = ssd.run_bwd_route(x, dt, A, B, C, dy, dstate, chunk=64, route="wgmma", parts=carried, h_in=h_in)
+    torch.cuda.synchronize()
+    assert carried["h_in"] is h_in and torch.equal(h_in[:, :, 1:], rebuilt["h_in"][:, :, 1:])
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    two, one = ssd.wgmma_bwd_grid(b, l, h, n)[0], ssd.wgmma_bwd_grid(b, l, h, n, carried=True)[0]
+    assert 2 * one == two
+    assert _ssd_states_blocks(lambda: ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=64), n) == {two}
+    assert _ssd_states_blocks(lambda: ssd.ssd_scan_bwd(x, dt, A, B, C, dy, dstate, chunk=64, h_in=h_in), n) == {one}
+
+
+@pytest.mark.parametrize("b,l,h,p,n", SSD_TRAIN_SHAPES)
+def test_ssd_scan_gradient_under_checkpoint_reads_the_forward_states(b, l, h, p, n):
+    """``ops._SsdScan`` as a checkpointed layer runs it
+    (``ops.keeping_scan_states`` inside ``torch.utils.checkpoint``, as
+    ``transformer._recompute`` wraps a layer): a profiled backward runs
+    exactly the ``"wgmma"`` route's kernels, the states kernel at half its
+    blocks, and its gradients equal the plain backward's; without the
+    wrapper the states kernel runs both directions."""
+    from torch.utils.checkpoint import checkpoint
+
+    x, dt, A, B, C = _ssd(b, l, h, p, n, torch.bfloat16, strided=True)
+    dy = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(7), device="cuda").to(torch.bfloat16)
+    ins = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
+
+    def layer(*args):
+        return (ops.ssd_scan(*args, chunk=64)[0].float() * dy.float()).sum()
+
+    def grads(keep):
+        return torch.autograd.grad(checkpoint(ops.keeping_scan_states(layer) if keep else layer, *ins,
+                                              use_reentrant=False), ins)
+
+    for gt, w in zip(grads(True), ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk=64)):
+        assert _rel_err(gt, w) <= BF16_REL
+    for keep in (True, False):
+        names = _device_kernel_names(lambda: grads(keep))
+        ran = sorted({m.group(1) for k in names if (m := re.search(r"(ssd_scan_bwd\w*_kernel<[^>]*>)", k))})
+        assert ran == sorted(ssd.bwd_kernels("wgmma", torch.bfloat16, n))
+        assert _ssd_states_blocks(lambda: grads(keep), n) == {ssd.wgmma_bwd_grid(b, l, h, n, carried=keep)[0]}
 
 
 @pytest.mark.parametrize("use_state", [False, True])

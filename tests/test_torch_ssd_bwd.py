@@ -295,10 +295,13 @@ def test_the_states_are_the_forward_states_and_their_gradients():
 @pytest.mark.parametrize("arch,h,n", [("mamba2-130m", 24, 128), ("zamba2-2.7b", 80, 64)])
 def test_the_training_shapes_take_the_mma_route(arch, h, n):
     """Both training shapes (bf16, chunk 64, p 64, B and C strided slices
-    with 16-byte-aligned rows) take the tensor-core route and its three
-    kernels; its blocks fit the H100's shared memory and the chunk kernel's
-    grid puts at least a block on each of the 132 SMs."""
-    assert ssd.bwd_route(torch.bfloat16, 64, n, 64, True) == "mma"
+    with 16-byte-aligned rows) take a tensor-core route: ``"wgmma"``, which
+    replaced ``"mma"`` there and keeps its states and sum kernels; the
+    ``"mma"`` route, still run by ``run_bwd_route`` beside it, keeps its
+    three kernels, its blocks fit the H100's shared memory and the chunk
+    kernel's grid puts at least a block on each of the 132 SMs."""
+    assert ssd.bwd_route(torch.bfloat16, 64, n, 64, True) == "wgmma"
+    assert ssd.bwd_kernels("wgmma", torch.bfloat16, n)[::2] == ssd.bwd_kernels("mma", torch.bfloat16, n)[::2]
     assert ssd.bwd_kernels("mma", torch.bfloat16, n) == (
         f"ssd_scan_bwd_states_mma_kernel<{n}>", f"ssd_scan_bwd_chunk_mma_kernel<{n}>",
         "ssd_scan_bwd_mma_sum_kernel<__nv_bfloat16>")
@@ -330,7 +333,7 @@ def test_bwd_route_and_kernels_refuse_what_they_do_not_have():
     with pytest.raises(TypeError):
         ssd.bwd_route(torch.float16, 64, 128, 64, True)
     with pytest.raises(ValueError, match="no backward route"):
-        ssd.bwd_kernels("wgmma", torch.bfloat16, 128)
+        ssd.bwd_kernels("tma", torch.bfloat16, 128)
 
 
 @pytest.mark.parametrize("b,l,h", [(4, 512, 24), (4, 512, 80), (1, 128, 6), (2, 256, 7), (8, 2048, 32)])
@@ -338,3 +341,243 @@ def test_bwd_head_group_divides_the_heads_and_fills_the_card_where_it_can(b, l, 
     group = ssd.bwd_head_group(b, l, h)
     fits = [d for d in range(1, h + 1) if h % d == 0 and b * (l // 64) * (h // d) >= ssd.H100_SMS]
     assert h % group == 0 and (group in fits or not fits)
+
+
+# ---------------------------------------------------------------------------
+# The "wgmma" route: the forward's chunk states carried into the backward, its chunk kernel's order
+# ---------------------------------------------------------------------------
+
+#: (b, l, h, n) of the training shapes and the mesh ranks' (p 64, chunk 64): mamba2-130m and zamba2-2.7b
+#: whole, each at a (1, 2) rank's heads, zamba2-2.7b x train_4k as rank 0 of (16, 16)
+WGMMA_SHAPES = [(4, 512, 24, 128), (4, 512, 80, 64), (4, 512, 12, 128), (4, 512, 40, 64), (16, 4096, 5, 64)]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [(2, 128, 3, 16, 8, 32), (1, 256, 2, 64, 32, 64), (2, 64, 2, 8, 16, 16)])
+def test_the_forward_states_are_the_backward_states(b, l, h, p, n, chunk):
+    """What the backward reading the forward's states rests on: H_in from
+    the forward's steps (``fwd_states_plain`` then ``fwd_pass_plain``) is
+    ``bwd_states_plain``'s H_in to fp32 round-off, chunk 0's zero included;
+    carried across the last chunk it is the final state of the reference's
+    ``ssd_chunked(return_state=True)`` at the reference's tolerance."""
+    x, dt, A, B, C, dy, dstate = _inputs(b, l, h, p, n, seed=10)
+    xt, dtt, At, Bt, Ct, dyt, dst = _t(x, dt, A, B, C, dy, dstate)
+    h_fwd, last = ssd.fwd_pass_plain(*ssd.fwd_states_plain(xt, dtt, At, Bt, chunk=chunk))
+    h_bwd, _ = ssd.bwd_states_plain(xt, dtt, At, Bt, Ct, dyt, dst, chunk=chunk)
+    assert h_fwd.shape == h_bwd.shape == (b, h, l // chunk, p, n)
+    assert torch.equal(h_fwd[:, :, 0], torch.zeros_like(h_fwd[:, :, 0]))
+    torch.testing.assert_close(h_fwd, h_bwd, rtol=ROUNDOFF, atol=ROUNDOFF * h_bwd.abs().max().item())
+    # the last chunk carried from its H_in: exp(cum_last) H_in + its own part
+    ds, dec = ssd.fwd_states_plain(xt, dtt, At, Bt, chunk=chunk)
+    carried = h_fwd[:, :, -1] * dec[:, :, -1, None, None] + ds[:, :, -1]
+    torch.testing.assert_close(carried, last, rtol=0, atol=0)
+    _, want = jblocks.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, B, C)), chunk, return_state=True)
+    torch.testing.assert_close(carried, torch.from_numpy(np.asarray(want)), **SSD_TOL)
+
+
+def _plain_states(x, dt, A, B, C, *, chunk):
+    """What ``ssd_scan.ssd_scan_states`` returns on the ``wgmma`` route, by the forward's plain steps."""
+    y, state = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    h_in, _ = ssd.fwd_pass_plain(*ssd.fwd_states_plain(x, dt, A, B, chunk=chunk))
+    return y, state, h_in
+
+
+@pytest.mark.parametrize("keep", [True, False])
+@pytest.mark.parametrize("use", ["y and state", "y"])
+def test_autograd_function_hands_its_backward_the_forward_states(use, keep):
+    """``ops._SsdScan`` with its kernel calls swapped for plain versions,
+    inside ``torch.utils.checkpoint`` as ``transformer._recompute`` runs a
+    layer (``ops.keeping_scan_states``): the backward is handed the states
+    of the forward that ran just before it (the recomputation), which equal
+    ``bwd_states_plain``'s H_in, and its gradients equal autograd through
+    the plain scan and ``jax.grad`` of ``ssd_chunked``.  Without the
+    wrapper the forward keeps nothing and the backward rebuilds them."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, l, h, p, n, chunk = 2, 64, 3, 16, 8, 16
+    x, dt, A, B, C, dy, dstate = _inputs(b, l, h, p, n, seed=11)
+    seen, fwd = [], []
+
+    def states(*args, chunk):
+        out = _plain_states(*args, chunk=chunk)
+        fwd.append(out[2])
+        return out
+
+    def bwd(x_, dt_, A_, B_, C_, dy_, ds_, *, chunk, h_in=None):
+        seen.append(h_in)
+        return ssd.ssd_scan_bwd_plain(x_, dt_, A_, B_, C_, dy_, ds_, chunk=chunk)
+
+    def layer(*ins):
+        y, state = ops._SsdScan.apply(*ins, chunk)
+        return (y * torch.from_numpy(dy)).sum() + ((state * torch.from_numpy(dstate)).sum() if "state" in use else 0.0)
+
+    ins = [t.clone().requires_grad_() for t in _t(x, dt, A, B, C)]
+    with mock.patch.object(ssd, "ssd_scan_states", states), mock.patch.object(ssd, "ssd_scan", ssd.ssd_scan_plain), \
+            mock.patch.object(ssd, "ssd_scan_bwd", bwd):
+        loss = checkpoint(ops.keeping_scan_states(layer) if keep else layer, *ins, use_reentrant=False)
+        got = torch.autograd.grad(loss, ins)
+    assert len(seen) == 1 and ops._KEEP_STATES == 0
+    if keep:
+        assert len(fwd) == 2 and seen[0] is fwd[1]  # the recomputed forward's, not the first one's
+        h_bwd, _ = ssd.bwd_states_plain(*_t(x, dt, A, B, C, dy), None, chunk=chunk)
+        torch.testing.assert_close(seen[0], h_bwd, rtol=ROUNDOFF, atol=ROUNDOFF * h_bwd.abs().max().item())
+    else:
+        assert fwd == [] and seen == [None]
+    ref = [t.clone().requires_grad_() for t in _t(x, dt, A, B, C)]
+    y, state = ssd.ssd_scan_plain(*ref, chunk=chunk)
+    want_loss = (y * torch.from_numpy(dy)).sum() + ((state * torch.from_numpy(dstate)).sum() if "state" in use else 0)
+    _near(got, torch.autograd.grad(want_loss, ref), ROUNDOFF, f"{use}, keep {keep}")
+    for name, g, w in zip(NAMES, got, _jax_grads(x, dt, A, B, C, dy, dstate if "state" in use else None, chunk)):
+        torch.testing.assert_close(g, torch.from_numpy(w), **SSD_TOL, msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_a_plain_forward_keeps_no_states_for_its_backward():
+    """Outside ``keeping_scan_states`` (a layer with no remat: its backward
+    comes after every later layer's forward) ``_SsdScan`` saves its inputs
+    alone; the wrapper's count is back at 0 after a layer that raised."""
+    x, dt, A, B, C, _, _ = _t(*_inputs(1, 32, 2, 8, 8, seed=12))
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    with mock.patch.object(ssd, "ssd_scan", ssd.ssd_scan_plain), \
+            mock.patch.object(ssd, "ssd_scan_states", lambda *a, **k: pytest.fail("states kept")):
+        y, _ = ops._SsdScan.apply(*ins, 8)
+    assert [t is None for t in y.grad_fn.saved_tensors] == [False] * 5 + [True]
+
+    def boom():
+        raise RuntimeError("layer failed")
+
+    with pytest.raises(RuntimeError, match="layer failed"):
+        ops.keeping_scan_states(boom)()
+    assert ops._KEEP_STATES == 0
+
+
+@pytest.mark.parametrize("b,l,h,n", WGMMA_SHAPES)
+def test_the_training_and_rank_shapes_take_the_wgmma_route(b, l, h, n):
+    """The training shapes and the mesh ranks' take ``"wgmma"``; its
+    launches are the states kernel, the wgmma chunk kernel (TMA loads where
+    the rows allow, else cp.async) and the sum, in that order; the chunk
+    kernel's shared memory fits the H100's 232,448 B at the shape's head
+    group, its grid fills the 132 SMs, and given the forward's states the
+    states kernel launches half the ``"mma"`` route's blocks, the
+    gradients' direction alone."""
+    bf = torch.bfloat16
+    assert ssd.bwd_route(bf, 64, n, 64, True) == "wgmma"
+    for tma in (True, False):
+        assert ssd.bwd_kernels("wgmma", bf, n, tma) == (
+            f"ssd_scan_bwd_states_mma_kernel<{n}>", f"ssd_scan_bwd_chunk_kernel<{n}, {'true' if tma else 'false'}>",
+            "ssd_scan_bwd_mma_sum_kernel<__nv_bfloat16>")
+    hg = ssd.bwd_head_group(b, l, h)
+    assert ssd.wgmma_bwd_smem_bytes(n, hg) <= ssd.MAX_SMEM_BYTES
+    states, chunks, sums = ssd.wgmma_bwd_grid(b, l, h, n)
+    carried = ssd.wgmma_bwd_grid(b, l, h, n, carried=True)
+    assert chunks >= ssd.H100_SMS and (states, chunks, sums) == ssd.mma_bwd_grid(b, l, h, n)
+    assert carried == (states // 2, chunks, sums) and states == b * h * (n // 64) * 2
+
+
+@pytest.mark.parametrize("n,hg,want", [(128, 3, 227_168), (64, 10, 163_424), (64, 5, 162_144), (128, 12, 229_472)])
+def test_wgmma_chunk_kernel_shared_memory_by_its_parts(n, hg, want):
+    """The chunk kernel's shared memory, counted by hand from the source
+    note's parts: 1 KB of slack, (2 + 4 + 3 + 6 + 1) boxes of 8 KB at state
+    64 and (4 + 4 + 3 + 12 + 1) at 128 (C and B, the x and dy ring, the
+    planes of (C·Bᵀ)∘L, of H and dH, dx's tile), 16 KB of fp32 fragments,
+    32 B of barriers, dt of the heads, 6 KB of factors and 6,208 B of
+    partials."""
+    assert ssd.wgmma_bwd_smem_bytes(n, hg) == want
+
+
+def _terms(t: torch.Tensor, k: int = ssd.MMA_TERMS) -> list[torch.Tensor]:
+    """``t`` (fp32) as ``k`` bf16 terms, largest first, each the rounding of what the earlier ones left."""
+    out, rest = [], t
+    for _ in range(k):
+        q = rest.to(torch.bfloat16).float()
+        out.append(q)
+        rest = rest - q
+    return out
+
+
+def _smallest_first(eq: str, terms: list[torch.Tensor], other: torch.Tensor, first: bool = True) -> torch.Tensor:
+    """Σ over ``terms`` of their products with ``other`` (``eq``), summed smallest term first, as each
+    product of the wgmma chunk kernel accumulates its bf16 planes."""
+    out = None
+    for q in reversed(terms):
+        part = torch.einsum(eq, q, other) if first else torch.einsum(eq, other, q)
+        out = part if out is None else out + part
+    return out
+
+
+def _wgmma_chunk_model(x, dt, A, B, C, dy, h_in, dh_out, *, chunk, head_group):
+    """``bwd_chunk_plain`` in the order of ``ssd_scan_bwd_chunk_kernel``:
+    every fp32 operand ((C·Bᵀ)∘L, H, dH, Σ W) as 3 bf16 terms whose
+    products sum smallest first; d(cum)'s per-step parts grouped as its
+    warps write them (M's row sums per half of the columns, its column sums
+    per 16 rows, exp(cum)∘(dy·H)∘C per 64 state columns, the dxdt and
+    x∘(B·dHᵀ) sums per half of p, the carry per 8 warps' share) and
+    summed in that order."""
+    b, l, h, p = x.shape
+    n, nc, groups = B.shape[-1], l // chunk, h // head_group
+    xf, dyf, dtf, Bf, Cf, cum, ecum, wend = ssd._chunked(x, dt, A, B, C, dy, chunk)
+    hin, dho = h_in.float().transpose(1, 2), dh_out.float().transpose(1, 2)
+    idx = torch.arange(chunk)
+    causal = (idx[:, None] >= idx[None, :])[:, :, None]
+    ldec = torch.exp(torch.where(causal, cum[:, :, :, None, :] - cum[:, :, None, :, :], float("-inf")))
+    g = torch.einsum("bcln,bcsn->bcls", Cf, Bf)
+    w = ldec * torch.einsum("bclhp,bcshp->bclsh", dyf, xf) * dtf[:, :, None]
+    m = g[..., None] * w
+    gl = g[..., None] * ldec  # [b, c, l, s, h]
+    dc = _smallest_first("bclsh,bclhp->bcshp", _terms(gl), dyf)
+    dd = _smallest_first("bchpn,bcsn->bcshp", _terms(dho), Bf)
+    dxdt = dc + wend[..., None] * dd
+    e = _smallest_first("bchpn,bclhp->bclhn", _terms(hin), dyf)
+    f = _smallest_first("bchpn,bcshp->bcshn", _terms(dho), xf)
+    dc_inter, db_inter = ecum[..., None] * e, (wend * dtf)[..., None] * f
+    half = chunk // 2
+    rows = m[:, :, :, :half].sum(3) + m[:, :, :, half:].sum(3)
+    cols = sum(m[:, :, r : r + 16].sum(2) for r in range(0, chunk, 16))
+    yoff = sum((dc_inter * Cf[:, :, :, None])[..., k : k + 64].sum(-1) for k in range(0, n, 64))
+    su = sum((xf * dd)[..., k : k + p // 2].sum(-1) for k in range(0, p, p // 2))
+    ddir = sum((dxdt * xf)[..., k : k + p // 2].sum(-1) for k in range(0, p, p // 2))
+    carry = torch.exp(cum[:, :, -1]) * (dho * hin).sum((-2, -1)) + (db_inter * Bf[:, :, :, None]).sum((2, 4))
+    dcum = rows - cols + yoff - wend * dtf * su
+    dcum[:, :, -1] += carry
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = dla * A.float() + ddir
+    wsum = _terms(w.reshape(b, nc, chunk, chunk, groups, head_group).sum(-1))
+    pdC = (_smallest_first("bclsg,bcsn->bclgn", wsum, Bf)
+           + dc_inter.reshape(b, nc, chunk, groups, head_group, n).sum(4))
+    pdB = (_smallest_first("bclsg,bcln->bcsgn", wsum, Cf)
+           + db_inter.reshape(b, nc, chunk, groups, head_group, n).sum(4))
+    dx = dxdt * dtf[..., None]
+    return (dx.reshape(b, l, h, p).to(x.dtype), ddt.reshape(b, l, h), (dla * dtf).sum(2),
+            pdB.reshape(b, l, groups, n), pdC.reshape(b, l, groups, n))
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("b,l,h,n,group", [(1, 128, 4, 64, 2), (2, 192, 3, 128, 3), (1, 64, 2, 64, 1)])
+def test_the_wgmma_chunk_kernels_order_composes_to_the_backward(b, l, h, n, group, with_state):
+    """A plain model of the order the wgmma chunk kernel sums in (its bf16
+    terms, smallest first; d(cum)'s partials as its warps group them), on
+    the forward's states, composed with the states kernel's dH_out and the
+    fixed-order sum, gives ``ssd_scan_bwd_plain``'s gradients to fp32
+    round-off, and ``bwd_chunk_plain``'s chunk outputs likewise."""
+    x, dt, A, B, C, dy, dstate = _t(*_inputs(b, l, h, 64, n, seed=13))
+    dstate = dstate if with_state else None
+    h_in, _ = ssd.fwd_pass_plain(*ssd.fwd_states_plain(x, dt, A, B, chunk=64))
+    _, dh_out = ssd.bwd_states_plain(x, dt, A, B, C, dy, dstate, chunk=64)
+    got = _wgmma_chunk_model(x, dt, A, B, C, dy, h_in, dh_out, chunk=64, head_group=group)
+    plain = ssd.bwd_chunk_plain(x, dt, A, B, C, dy, h_in, dh_out, chunk=64, head_group=group)
+    for name, u, v in zip(("dx", "ddt", "pdA", "pdB", "pdC"), got, plain):
+        assert (u - v).abs().max().item() <= ROUNDOFF * v.abs().max().item(), name
+    dB, dC, dA = ssd.bwd_sum_plain(got[3], got[4], got[2], B.dtype)
+    _near((got[0], got[1], dA, dB, dC), ssd.ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate, chunk=64), ROUNDOFF,
+          f"the wgmma chunk kernel's order, head group {group}")
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_three_bf16_terms_carry_an_fp32_state(n):
+    """What the planes rest on: the 3 bf16 terms of each fp32 state element
+    (H, dH at the training shapes' widths, normal numbers) sum back to it
+    exactly, and one or two terms do not."""
+    x, dt, A, B, C, dy, dstate = _t(*_inputs(1, 256, 2, 64, n, seed=14))
+    h_in, _ = ssd.fwd_pass_plain(*ssd.fwd_states_plain(x, dt, A, B, chunk=64))
+    h = h_in[:, :, 1:]
+    terms = _terms(h)
+    assert torch.equal(terms[0] + terms[1] + terms[2], h)
+    assert not torch.equal(terms[0] + terms[1], h) and not torch.equal(terms[0], h)
